@@ -40,10 +40,14 @@ setup(
     version="0.1.0",
     description="TPU-native auto-parallelizing deep learning framework "
     "(FlexFlow/Unity capabilities on JAX/XLA/Pallas)",
-    packages=find_packages(include=["flexflow_tpu", "flexflow_tpu.*"]),
+    packages=find_packages(
+        include=["flexflow_tpu", "flexflow_tpu.*", "flexflow_tpu_torch", "flexflow_tpu_torch.*"]
+    ),
     package_data={
         "flexflow_tpu._native": ["libffcore.so"],
         "flexflow_tpu.search": ["calibration_data/*.json"],
+        # CUDA sources of the PyTorch port, compiled by nvcc at first use
+        "flexflow_tpu_torch.ops.kernels": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
