@@ -26,6 +26,20 @@ prints no result line):
    prompt, where the split-KV (flash-decoding) kernel is selected.
 5. anatomy: torch.profiler over a short 4-slot run — the device's busy
    share of the wall time and the device time by kernel.
+6. flash kernels: the flash-attention forward, dQ and dK/dV kernels
+   against their plain PyTorch versions (atol 1e-4 + rtol 1e-4) at the
+   training path's shape (B=32, S=128, H=12, D=64) and at a causal
+   S=512 shape and edge shapes (S=100 D=128, Sq=64 Sk=200, D=256); then
+   device times of kernel, plain version and the library yardstick
+   (scaled_dot_product_attention forward, and its backward), beside the
+   card's bound.
+7. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
+   seq 128, batch 32, fp32, weights from --seed) through FFModel ->
+   compile (SGD lr 0.01, MSE) -> fit: one step with the kernels and one
+   with the plain attention from the same weights must agree; then
+   warm-up and 10 timed steps on one random batch, where every flash
+   launch counter must rise by 12 per step and the loss must fall; and a
+   profiled pair of steps for the device's busy share.
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -34,6 +48,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -45,6 +60,11 @@ ATOL = 1e-4
 RTOL = 1e-4
 LOGITS_ATOL = 1e-3
 SOURCE = "flexflow_tpu_torch/ops/kernels/csrc/paged_attention.cu"
+FLASH_SOURCE = "flexflow_tpu_torch/ops/kernels/csrc/flash_attention.cu"
+LOSS_RTOL = 1e-5  # train-step loss, kernel vs plain attention
+# parameters after one SGD step, kernel vs plain attention: within this
+# share of the largest update the step made (fp32 summation order only)
+PARAM_STEP_RTOL = 1e-3
 
 
 def card_line() -> str:
@@ -503,6 +523,287 @@ def long_context_phase(seed: int, params):
     return stats
 
 
+def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool):
+    """(bound_ms, bound_by) of one flash kernel call: each input read
+    once and each output written once over the card's memory rate,
+    against the fp32 multiply-adds the kernel does on the unmasked
+    (query, key) pairs (2 flops each: QK and PV forward; QK, dO.V and
+    dS.K for dQ; QK, dO.V, P^T dO and dS^T Q for dK/dV) over its fp32
+    rate (datasheet figures)."""
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+    q_elems, kv_elems, rows = b * sq * h * d, b * sk * h * d, b * sq * h
+    if kind == "fwd":
+        flops = 2 * 2 * d * pairs
+        nbytes = 4 * (2 * q_elems + 2 * kv_elems + rows)  # q, o; k, v; lse
+    elif kind == "dq":
+        flops = 3 * 2 * d * pairs
+        nbytes = 4 * (3 * q_elems + 2 * kv_elems + 2 * rows)  # q, dO, dq; k, v; lse, delta
+    else:
+        flops = 4 * 2 * d * pairs
+        nbytes = 4 * (2 * q_elems + 4 * kv_elems + 2 * rows)  # q, dO; k, v, dk, dv; lse, delta
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_eager_ms(fn, iters: int = 20) -> float:
+    """Device ms per call by CUDA events around ``iters`` eager calls,
+    for a call a CUDA graph cannot capture (autograd's backward); each
+    call is long enough that the host issues ahead of the device."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def flash_inputs(gen, b, sq, sk, h, d, causal, scale, copies=1):
+    """``copies`` sets of (q, k, v, dO, lse, delta) on the card; lse and
+    delta come from the plain forward."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    sets = []
+    for _ in range(copies):
+        q = torch.randn((b, sq, h, d), generator=gen).cuda()
+        k = torch.randn((b, sk, h, d), generator=gen).cuda()
+        v = torch.randn((b, sk, h, d), generator=gen).cuda()
+        do = torch.randn((b, sq, h, d), generator=gen).cuda()
+        o, lse = fa.reference_flash_forward(q, k, v, causal, scale)
+        sets.append((q, k, v, do, lse, fa.flash_delta(do, o)))
+    return sets
+
+
+def check_flash(name, sets, causal, scale):
+    """The three kernels against their plain versions on the first set;
+    returns {kernel: max abs err}."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, do, lse, delta = sets[0]
+    o, klse = fa.flash_forward_kernel(q, k, v, causal, scale)
+    po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
+    dq = fa.flash_backward_dq_kernel(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = fa.flash_backward_dkv_kernel(q, k, v, do, lse, delta, causal, scale)
+    pdq, pdk, pdv = fa.reference_flash_backward(q, k, v, do, lse, delta, causal, scale)
+    return {
+        "flash_fwd": max(check_close(f"{name} forward o", o, po),
+                         check_close(f"{name} forward lse", klse, plse)),
+        "flash_bwd_dq": check_close(f"{name} dq", dq, pdq),
+        "flash_bwd_dkv": max(check_close(f"{name} dk", dk, pdk), check_close(f"{name} dv", dv, pdv)),
+    }
+
+
+def flash_phase(seed: int):
+    """The flash kernels against their plain versions at the training
+    shape and edge shapes; device times at the training shape and the
+    causal S=512 shape. Returns per-kernel records (launches filled in by
+    the training phase)."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(seed + 11)
+    rows = {}
+    for label, (b, s, h, d, causal, copies) in {
+        "train": (32, 128, 12, 64, False, 3),  # 3 x 50 MB of q/k/v/dO: past the L2
+        "causal512": (4, 512, 12, 64, True, 3),
+    }.items():
+        scale = d ** -0.5
+        sets = flash_inputs(gen, b, s, s, h, d, causal, scale, copies)
+        errs = check_flash(f"flash {label}", sets, causal, scale)
+        lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in st[:4]) for st in sets]
+        for qq, kk, vv, _ in lib_sets:
+            for t in (qq, kk, vv):
+                t.requires_grad_(True)
+        sdpa_fwd, _ = time_ms(
+            lambda qq, kk, vv, _do: F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal),
+            [tuple(t.detach() for t in st) for st in lib_sets])
+        outs = [F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal)
+                for qq, kk, vv, _ in lib_sets]
+        calls = itertools.count()
+
+        def sdpa_bwd():
+            i = next(calls) % len(lib_sets)
+            torch.autograd.grad(outs[i], lib_sets[i][:3], lib_sets[i][3], retain_graph=True)
+
+        sdpa_bwd_ms = time_eager_ms(sdpa_bwd)
+        timed = {
+            "flash_fwd": (
+                lambda q, k, v, do, lse, de: fa.flash_forward_kernel(q, k, v, causal, scale),
+                lambda q, k, v, do, lse, de: fa.reference_flash_forward(q, k, v, causal, scale),
+                sdpa_fwd, "fwd"),
+            "flash_bwd_dq": (
+                lambda *a: fa.flash_backward_dq_kernel(*a, causal, scale),
+                lambda *a: fa.reference_flash_backward_dq(*a, causal, scale),
+                sdpa_bwd_ms, "dq"),
+            "flash_bwd_dkv": (
+                lambda *a: fa.flash_backward_dkv_kernel(*a, causal, scale),
+                lambda *a: fa.reference_flash_backward_dkv(*a, causal, scale),
+                sdpa_bwd_ms, "dkv"),
+        }
+        shape = {"B": b, "S": s, "H": h, "D": d, "causal": causal}
+        for name, (kern, plain, lib_ms, kind) in timed.items():
+            ms, eager_ms = time_ms(kern, sets)
+            plain_ms, _ = time_ms(plain, sets)
+            bound_ms, bound_by = flash_bound(kind, b, s, s, h, d, causal)
+            row = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                   "eager_ms": eager_ms, "shape": shape}
+            print(f"flash {label} {name}: " + json.dumps(row))
+            rows.setdefault(label, {})[name] = row
+        print(f"flash {label}: SDPA forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv together) "
+              f"{sdpa_bwd_ms:.4f} ms")
+        del sets, lib_sets, outs
+    # edge shapes, correctness only: ragged S with D = 128, Sq != Sk, D = 256
+    for b, sq, sk, h, d in [(2, 100, 100, 3, 128), (2, 64, 200, 4, 64), (2, 128, 128, 2, 256)]:
+        causal = False
+        sets = flash_inputs(gen, b, sq, sk, h, d, causal, d ** -0.5)
+        errs = check_flash(f"flash edge Sq={sq} Sk={sk} D={d}", sets, causal, d ** -0.5)
+        print(f"flash edge B={b} Sq={sq} Sk={sk} H={h} D={d}: max abs err "
+              + json.dumps({k: f"{e:.3e}" for k, e in errs.items()}))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bert_base():
+    from flexflow_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(num_layers=12, hidden_size=768, num_heads=12, ff_size=3072,
+                             seq_length=128)
+
+
+def training_phase(seed: int):
+    """BERT-Base width through FFModel -> compile -> fit on the card."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import LossType, MetricsType
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    cfg, batch, warm, steps = bert_base(), 32, 2, 10
+    t0 = time.perf_counter()
+    model = build_transformer(FFConfig(batch_size=batch, seed=seed, printing_interval=5), cfg)
+    model.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR,
+                  metrics=[MetricsType.MEAN_SQUARED_ERROR])
+    ex = model.executor
+    n_params = sum(p.numel() for g in ex.params.values() for p in g.values())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (batch, cfg.seq_length, cfg.hidden_size)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    y = torch.randn(shape, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # one step from the same weights, kernel attention vs plain attention
+    snap = {k: {n: p.detach().clone() for n, p in g.items()} for k, g in ex.params.items()}
+
+    def restore():
+        with torch.no_grad():
+            for k, g in ex.params.items():
+                for n, p in g.items():
+                    p.copy_(snap[k][n])
+
+    after = {}
+    for backend in ("auto", "plain"):
+        restore()
+        ex.backend = backend
+        fa.reset_launch_counts()
+        loss = float(ex.train_batch([x], y)["loss"])
+        launches = dict(fa.LAUNCHES)
+        after[backend] = (loss, {k: {n: p.detach().clone() for n, p in g.items()}
+                                 for k, g in ex.params.items()})
+        want = cfg.num_layers if backend == "auto" else 0
+        if any(v != want for v in launches.values()):
+            raise AssertionError(f"{backend} step launched {launches}, expected {want} each")
+    ex.backend = "auto"
+    restore()
+    (lk, pk), (lp, pp) = after["auto"], after["plain"]
+    param_err = max(float((pk[k][n] - pp[k][n]).abs().max()) for k in pk for n in pk[k])
+    moved = max(float((pk[k][n] - snap[k][n]).abs().max()) for k in pk for n in pk[k])
+    print(f"training: one step, kernel vs plain attention: loss {lk:.7f} vs {lp:.7f}, "
+          f"params max abs diff {param_err:.3e} (the step moved them by up to {moved:.3e})")
+    if not (np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp)):
+        raise AssertionError(f"train-step loss kernel {lk} vs plain {lp} beyond rtol {LOSS_RTOL}")
+    if not 0 < moved or param_err > PARAM_STEP_RTOL * moved:
+        raise AssertionError(f"params after one step differ by {param_err}, more than "
+                             f"{PARAM_STEP_RTOL} of the step's largest update {moved}")
+    del after, snap, pk, pp
+
+    # warm-up, then the timed steps on one random batch (repeated, so the
+    # loss of plain gradient descent must fall)
+    model.fit(x.repeat(warm, 1, 1), y.repeat(warm, 1, 1), verbose=False)
+    xs, ys = x.repeat(steps, 1, 1), y.repeat(steps, 1, 1)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    model.fit(xs, ys, trace_window=steps)
+    launches = dict(fa.LAUNCHES)
+    losses = model.step_losses
+    for name, n in launches.items():
+        if n != cfg.num_layers * steps:
+            raise AssertionError(f"{name}: {n} launches in {steps} steps, expected "
+                                 f"{cfg.num_layers} per step ({launches})")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite or not falling: {losses}")
+    elapsed = model.last_elapsed
+
+    # a profiled pair of steps: the device's busy share and time by kernel
+    # (the profiler slows the host, so the share is also taken against the
+    # unprofiled step's wall)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        model.fit(x.repeat(2, 1, 1), y.repeat(2, 1, 1), verbose=False)
+        prof_wall = time.perf_counter() - tp
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    groups = {"flash kernels": 0.0, "GEMMs (cuBLAS fp32)": 0.0, "other": 0.0}
+    for name, us in by_name.items():
+        group = ("flash kernels" if "flash_" in name else
+                 "GEMMs (cuBLAS fp32)" if ("gemm" in name or "cutlass" in name) else "other")
+        groups[group] += us / 1e3 / 2
+    step_device_ms = busy_us / 1e3 / 2
+    stats = {
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+        "ff": cfg.ff_size, "seq": cfg.seq_length, "batch": batch, "params": n_params,
+        "setup_s": setup_s, "warmup_steps": warm, "timed_steps": steps, "elapsed_s": elapsed,
+        "step_ms": 1e3 * elapsed / steps, "samples_per_s": steps * batch / elapsed,
+        "tokens_per_s": steps * batch * cfg.seq_length / elapsed,
+        "loss_first": losses[0], "loss_last": losses[-1], "launches": launches,
+        "kernel_vs_plain": {"loss_kernel": lk, "loss_plain": lp, "param_max_abs_diff": param_err,
+                            "param_max_update": moved},
+        "profiled_steps": 2, "profiled_wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
+        "device_busy_share": (busy_us / 1e6 / prof_wall) if busy_us > 0 else None,
+        "step_device_ms": step_device_ms,
+        # device time of a profiled step over the unprofiled step's wall
+        "device_busy_share_of_timed_step": (
+            step_device_ms / (1e3 * elapsed / steps) if busy_us > 0 else None),
+        "step_device_ms_by_group": groups,
+        "top_device_us": {name[:80]: us for name, us in top},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("training (BERT-Base width): " + json.dumps(stats))
+    del model, ex, x, y, xs, ys
+    torch.cuda.empty_cache()
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed for weights, prompts and inputs")
@@ -535,10 +836,14 @@ def main(argv=None) -> int:
     engine, serving = serving_phase(args.seed, params)
     long_ctx = long_context_phase(args.seed, engine.params)
     anatomy = anatomy_phase(engine, args.seed)
+    del engine, params
+    torch.cuda.empty_cache()
+    flash = flash_phase(args.seed)
+    training = training_phase(args.seed)
 
-    def record(name, replaces, row, launches):
+    def record(name, replaces, row, launches, source=SOURCE):
         return {
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -551,9 +856,16 @@ def main(argv=None) -> int:
                serving["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
+    ] + [
+        record(name, f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
+               dict(flash["train"][name], max_abs_err=max(
+                   flash["train"][name]["max_abs_err"], flash["causal512"][name]["max_abs_err"])),
+               training["launches"][name], FLASH_SOURCE)
+        for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ]
     print(json.dumps({"card": card, "serving": serving, "long_context": long_ctx,
-                      "anatomy": anatomy, "kernel_shapes": rows}))
+                      "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
+                      "training": training}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,12 @@ is easy to find (``flexflow_tpu_torch.generation.engine`` ports
 the JAX package it keeps its own copy.
 
 Slice 1 holds the paged-KV generation serving path: the block KV cache,
-the decoder's four forwards, the generation engine and the continuous-
-batching scheduler, with the paged decode/append attention written as
-CUDA C++ kernels for ``sm_90a`` (``ops/kernels/csrc/``). Importing the
+the decoder's four forwards, the generation engine (with JAX's threefry
+sampling bits) and the continuous-batching scheduler, with the paged
+decode/append attention written as CUDA C++ kernels for ``sm_90a``
+(``ops/kernels/csrc/``). Slice 2 holds the single-GPU training path,
+``FFModel`` -> ``compile`` -> ``fit``, for BERT-style encoders, with the
+flash-attention forward, dQ and dK/dV kernels in CUDA C++. Importing the
 package builds nothing; the kernels compile at first use on a GPU.
 """
 

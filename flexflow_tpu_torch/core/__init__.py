@@ -1,5 +1,19 @@
 """Core definitions shared by the port's modules."""
 from .device import resolve_device
-from .types import DataType
+from .graph import Edge, Node, PCGraph
+from .tensor import TensorSpec
+from .types import ActiMode, CompMode, DataType, LossType, MetricsType, OpType
 
-__all__ = ["DataType", "resolve_device"]
+__all__ = [
+    "ActiMode",
+    "CompMode",
+    "DataType",
+    "Edge",
+    "LossType",
+    "MetricsType",
+    "Node",
+    "OpType",
+    "PCGraph",
+    "TensorSpec",
+    "resolve_device",
+]

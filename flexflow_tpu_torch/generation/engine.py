@@ -17,11 +17,13 @@ compiled program (or a captured CUDA graph) would be keyed on — so the
 ``step_counts`` counts the engine steps issued.
 
 Sampling (greedy / temperature / top-k) runs on the step's device.
-JAX's ``jax.random`` bits cannot be reproduced by ``torch.Generator``,
-so seeded sampling draws its Gumbel noise from a CPU ``torch.Generator``
-seeded from (seed, generated-token count): the same seed gives the same
-stream on every device, and a request preempted and recomputed resumes
-its exact stream. Greedy decoding is token-identical to the JAX engine.
+A sampled row's Gumbel noise is JAX's: ``gumbel(fold_in(key(seed),
+count), (V,))`` with threefry2x32 ported bit for bit (``prng.py``), keyed
+by the request's seed and its generated-token count (:func:`derive_keys`,
+as the JAX engine derives its keys). So a seeded temperature/top-k
+stream is the JAX engine's stream from the same weights, and a request
+preempted and recomputed resumes its exact stream. Greedy decoding is
+token-identical to the JAX engine.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from ..core.device import resolve_device
 from ..core.types import DataType
 from ..models.transformer import TransformerConfig
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
+from . import prng
 from .decoder import DecoderParams, decode_step, params_to, prefill
 
 NEG_INF = -1e30
@@ -99,34 +102,11 @@ def _sample(logits, temps, top_ks, noise):
     return torch.where(greedy, torch.argmax(logits, dim=-1), sampled).to(torch.int32)
 
 
-def _fmix32(x: int) -> int:
-    """MurmurHash3's 32-bit finalizer: a bijection that spreads seeds."""
-    x &= 0xFFFFFFFF
-    x ^= x >> 16
-    x = (x * 0x85EBCA6B) & 0xFFFFFFFF
-    x ^= x >> 13
-    x = (x * 0xC2B2AE35) & 0xFFFFFFFF
-    return x ^ (x >> 16)
-
-
-def noise_seed(seed: int, count: int) -> int:
-    """The generator seed for a request's token number ``count``. The
-    CPU generator (mt19937) keeps only 32 bits of its seed, so (seed,
-    count) folds into 32 bits: the hashed 32-bit request seed plus
-    ``count`` times an odd constant — distinct for every count of one
-    stream."""
-    return (_fmix32(seed) + (count & 0xFFFFFFFF) * 0x9E3779B9) & 0xFFFFFFFF
-
-
-def gumbel_noise(seed: int, count: int, vocab: int) -> torch.Tensor:
-    """[vocab] Gumbel noise for a request's token number ``count``: a CPU
-    generator seeded from (32-bit seed, count), so the stream is the
-    same on every device and a recomputed request resumes it exactly."""
-    gen = torch.Generator()
-    gen.manual_seed(noise_seed(seed, count))
-    u = torch.rand((vocab,), generator=gen, dtype=torch.float32)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+def derive_keys(seeds: torch.Tensor, counts: torch.Tensor) -> prng.Key:
+    """Per-slot sampling keys ``fold_in(key(seed), count)`` from [B]
+    seeds (folded as 32-bit values) and [B] generated-token counts: the
+    JAX engine's ``derive_keys``, bit for bit."""
+    return prng.fold_in(prng.key(seeds), counts)
 
 
 class GenerationEngine:
@@ -223,13 +203,20 @@ class GenerationEngine:
         return torch.as_tensor(np.asarray(x), dtype=dtype.torch).to(self.device)
 
     def _noise(self, temps: np.ndarray, seeds: np.ndarray, counts: np.ndarray) -> torch.Tensor:
-        """[B, V] Gumbel noise: a row per sampled slot, zeros for greedy
-        ones (greedy rows never read their noise)."""
+        """[B, V] Gumbel noise on the engine's device: JAX's
+        ``gumbel(fold_in(key(seed), count), (V,))`` for each sampled
+        slot, zeros for greedy ones (greedy rows never read their noise,
+        so a greedy-only step draws nothing)."""
         v = self.cfg.vocab_size
-        noise = torch.zeros((len(temps), v), dtype=torch.float32)
-        for i in np.flatnonzero(temps > 0.0):
-            noise[i] = gumbel_noise(int(seeds[i]), int(counts[i]), v)
-        return noise.to(self.device)
+        noise = torch.zeros((len(temps), v), dtype=torch.float32, device=self.device)
+        rows = np.flatnonzero(temps > 0.0)
+        if len(rows):
+            keys = derive_keys(
+                self._tensor(np.asarray(seeds)[rows].astype(np.int64), DataType.INT64),
+                self._tensor(np.asarray(counts)[rows], DataType.INT64),
+            )
+            noise[torch.from_numpy(rows).to(self.device)] = prng.gumbel(keys, (v,))
+        return noise
 
     # --------------------------------------------------------------- steps
     def _prefill_impl(self, tokens, length, block_table, temp, top_k, noise):

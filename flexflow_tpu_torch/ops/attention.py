@@ -1,15 +1,24 @@
-"""Attention for the generation path (port of the generation-side
-functions of ``flexflow_tpu/ops/attention.py``; ``MultiHeadAttentionOp``
-and the flash-attention dispatch belong to the training slice).
+"""MultiHeadAttention and the attention cores (port of
+``flexflow_tpu/ops/attention.py``).
 
-Tensors are [B, S, H, D], as in the JAX package.
+Tensors are [B, S, H, D], as in the JAX package. The training path's
+``MultiHeadAttentionOp`` projects with einsums and runs its core through
+:func:`attention_core` (the flash kernels on a GPU); the generation path
+uses the paged decode/append cores and the masked prefill attention.
+Ring/Ulysses context parallelism, the mesh branches and attention
+dropout wait for the multi-GPU slices.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import List, Optional
 
 import torch
 
+from ..core.tensor import TensorSpec
+from ..core.types import DataType, OpType
+from .base import LowerCtx, OpDef, WeightSpec, register_op
+from .kernels.flash_attention import flash_attention
 from .kernels.decode_attention import (
     paged_append_attention,
     paged_decode_attention,
@@ -23,6 +32,93 @@ _BACKENDS = ("auto", "plain")
 def _check_backend(backend: str) -> None:
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiHeadAttentionParams:
+    embed_dim: int
+    num_heads: int
+    kdim: int = 0  # 0 -> embed_dim // num_heads
+    vdim: int = 0
+    dropout: float = 0.0
+    use_bias: bool = False
+    causal: bool = False
+    dtype: DataType = DataType.FLOAT
+
+    @property
+    def head_dim(self) -> int:
+        return self.kdim or self.embed_dim // self.num_heads
+
+    @property
+    def v_head_dim(self) -> int:
+        return self.vdim or self.embed_dim // self.num_heads
+
+
+@register_op
+class MultiHeadAttentionOp(OpDef):
+    op_type = OpType.MULTIHEAD_ATTENTION
+
+    @staticmethod
+    def infer_output_specs(params: MultiHeadAttentionParams, input_specs: List[TensorSpec]):
+        q = input_specs[0]
+        return [TensorSpec(q.shape[:-1] + (params.embed_dim,), params.dtype)]
+
+    @staticmethod
+    def weight_specs(params: MultiHeadAttentionParams, input_specs: List[TensorSpec]) -> List[WeightSpec]:
+        q, k, v = input_specs
+        h, dk, dv, e = params.num_heads, params.head_dim, params.v_head_dim, params.embed_dim
+        dt = params.dtype
+        ws = [
+            WeightSpec("wq", TensorSpec((q.shape[-1], h, dk), dt), "glorot_uniform"),
+            WeightSpec("wk", TensorSpec((k.shape[-1], h, dk), dt), "glorot_uniform"),
+            WeightSpec("wv", TensorSpec((v.shape[-1], h, dv), dt), "glorot_uniform"),
+            WeightSpec("wo", TensorSpec((h, dv, e), dt), "glorot_uniform"),
+        ]
+        if params.use_bias:
+            ws += [
+                WeightSpec("bq", TensorSpec((h, dk), dt), "zeros"),
+                WeightSpec("bk", TensorSpec((h, dk), dt), "zeros"),
+                WeightSpec("bv", TensorSpec((h, dv), dt), "zeros"),
+                WeightSpec("bo", TensorSpec((e,), dt), "zeros"),
+            ]
+        return ws
+
+    @staticmethod
+    def lower(params: MultiHeadAttentionParams, inputs, weights, ctx: LowerCtx):
+        q, k, v = inputs
+        # projections: [B, S, E] x [E, H, D] -> [B, S, H, D]
+        qh = torch.einsum("bse,ehd->bshd", q, weights["wq"])
+        kh = torch.einsum("bse,ehd->bshd", k, weights["wk"])
+        vh = torch.einsum("bse,ehd->bshd", v, weights["wv"])
+        if params.use_bias:
+            qh = qh + weights["bq"]
+            kh = kh + weights["bk"]
+            vh = vh + weights["bv"]
+        ctx_out = attention_core(qh, kh, vh, causal=params.causal, backend=ctx.backend)
+        out = torch.einsum("bshd,hde->bse", ctx_out, weights["wo"])
+        if params.use_bias:
+            out = out + weights["bo"]
+        return [out.to(params.dtype.torch)]
+
+
+def attention_core(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    backend: str = "auto",
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Scaled dot-product attention over [B, S, H, D] tensors, with the
+    flash backward under autograd.
+
+    ``backend="auto"`` dispatches on the tensors' device: CUDA tensors
+    launch the flash CUDA kernels (kernels/flash_attention.py) and raise
+    on shapes they do not take, CPU tensors take the plain PyTorch
+    versions. ``backend="plain"`` asks for the plain versions on any
+    device. Causal attention needs Sq == Sk (the kernels' top-left
+    mask)."""
+    return flash_attention(q, k, v, causal=causal, scale=scale, backend=backend)
 
 
 def decode_attention_core(

@@ -1,12 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
 The CUDA C++ sources under ``csrc/`` export a plain C interface. At first
-use, :func:`load_library` compiles them with ``nvcc`` for ``sm_90a`` into
-one shared library, loads it with ``ctypes`` and declares every
-function's argument types. The library lands in ``_build/`` beside this
-file, named by a hash of the sources and flags, so an unchanged checkout
-builds once and an edited source rebuilds. Nothing here runs when the
-module is imported.
+use, :func:`load_library` compiles each ``.cu`` file with its own ``nvcc``
+for ``sm_90a``, all at once in parallel, into one shared library per
+source, loads them with ``ctypes`` and declares every function's
+argument types. The libraries land in ``_build/`` beside this file, each
+named by a hash of its source, the shared headers and the flags, so an
+unchanged checkout builds once and an edited source rebuilds only its
+own library. Nothing here runs when the module is imported.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback to the
 plain PyTorch versions on a GPU.
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 from pathlib import Path
 from typing import Optional
 
@@ -49,14 +51,30 @@ SIGNATURES = {
         + [_I] * 8  # B, W, H, D, bs, MB, S, bps
         + [_F, _P]  # scale, stream
     ),
+    "ff_flash_fwd_f32": (
+        [_P] * 5  # q, k, v, o, lse
+        + [_I] * 5  # B, Sq, Sk, H, D
+        + [_F, _I, _P]  # scale, causal, stream
+    ),
+    "ff_flash_bwd_dq_f32": (
+        [_P] * 7  # q, k, v, dout, lse, delta, dq
+        + [_I] * 5  # B, Sq, Sk, H, D
+        + [_F, _I, _P]  # scale, causal, stream
+    ),
+    "ff_flash_bwd_dkv_f32": (
+        [_P] * 8  # q, k, v, dout, lse, delta, dk, dv
+        + [_I] * 5  # B, Sq, Sk, H, D
+        + [_F, _I, _P]  # scale, causal, stream
+    ),
 }
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-# seconds the last load_library() call spent compiling (0.0 when the
+_lib: Optional[types.SimpleNamespace] = None
+# seconds the last load_library() call spent compiling (0.0 when every
 # library was already built for these sources)
 last_build_seconds: Optional[float] = None
-# nvcc's stderr of the last compile (ptxas register/shared-memory report)
+# nvcc's stderr of the last compile, every source (ptxas register and
+# shared-memory report)
 last_build_log: str = ""
 
 
@@ -64,14 +82,25 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def source_digest() -> str:
-    """Hash of every kernel source and the compiler flags."""
+def kernel_sources():
+    """The ``.cu`` files, one library each."""
+    return [p for p in _sources() if p.suffix == ".cu"]
+
+
+def source_digest(source: Optional[Path] = None) -> str:
+    """Hash of one kernel source (every source when None), the shared
+    headers and the compiler flags."""
     h = hashlib.sha256()
     for path in _sources():
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
+        if source is None or path == source or path.suffix == ".cuh":
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def library_path(source: Path) -> Path:
+    return BUILD_DIR / f"libff_{source.stem}_{source_digest(source)}.so"
 
 
 def find_nvcc() -> Optional[str]:
@@ -90,43 +119,63 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
-def _compile(target: Path) -> None:
+def _compile(sources) -> None:
+    """One nvcc per source, all started together; raises if any fails."""
     global last_build_log
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
-            "/usr/local/cuda/bin): the paged attention kernels cannot be built"
+            "/usr/local/cuda/bin): the CUDA kernels cannot be built"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_log = proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    target.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    jobs = []
+    for src in sources:
+        target = library_path(src)
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((target, tmp, cmd, proc))
+    logs, failures = [], []
+    for target, tmp, cmd, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+            continue
+        target.with_suffix(".log").write_text(err)
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    last_build_log = "".join(logs)
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, compiled on first call."""
+def load_library() -> types.SimpleNamespace:
+    """Every exported kernel function, by name, from the per-source
+    libraries; sources without a current library are compiled first."""
     global _lib, last_build_seconds
     with _lock:
         if _lib is not None:
             return _lib
-        target = BUILD_DIR / f"libff_kernels_{source_digest()}.so"
+        sources = kernel_sources()
         t0 = time.perf_counter()
-        if not target.exists():
-            _compile(target)
+        missing = [s for s in sources if not library_path(s).exists()]
+        if missing:
+            _compile(missing)
         last_build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(target))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        fns = {}
+        for src in sources:
+            lib = ctypes.CDLL(str(library_path(src)))
+            for name, argtypes in SIGNATURES.items():
+                if name in fns or not hasattr(lib, name):
+                    continue
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+        absent = sorted(set(SIGNATURES) - set(fns))
+        if absent:
+            raise RuntimeError(f"kernel functions {absent} are in no built library")
+        _lib = types.SimpleNamespace(**fns)
+        return _lib

@@ -173,8 +173,12 @@ def test_kernel_build_raises_without_nvcc_and_is_keyed_by_source():
     assert any(p.suffix == ".cu" for p in _build._sources())
     if _build.find_nvcc() is not None:
         pytest.skip("nvcc is installed here: the no-compiler path cannot be shown")
-    target = _build.BUILD_DIR / f"libff_kernels_{digest}.so"
-    if target.exists():
-        pytest.skip("a built library for these sources is already present")
+    assert {p.name for p in _build.kernel_sources()} >= {
+        "paged_attention.cu", "flash_attention.cu"}
+    for src in _build.kernel_sources():  # one library per source, keyed by it
+        assert _build.source_digest(src) != digest
+        assert _build.library_path(src).name.startswith(f"libff_{src.stem}_")
+    if all(_build.library_path(src).exists() for src in _build.kernel_sources()):
+        pytest.skip("built libraries for these sources are already present")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load_library()

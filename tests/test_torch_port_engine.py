@@ -3,10 +3,9 @@ against the JAX package.
 
 Greedy streams through the port's engine are token-identical to the JAX
 ``GenerationEngine.generate`` on the same weights, prompts and buckets.
-Seeded sampling draws its Gumbel noise from a torch.Generator (JAX's
-bits cannot be reproduced), so seeded streams are held to their own
-contract: the same seed gives the same stream, with or without
-preemption. ``_sample`` itself is held against JAX's
+Seeded sampling draws JAX's threefry Gumbel noise (``prng.py``), so
+seeded temperature/top-k streams are also identical to the JAX engine's,
+with and without preemption. ``_sample`` itself is held against JAX's
 ``topk_scaled_logits`` + argmax on identical numpy noise.
 """
 import jax
@@ -31,12 +30,8 @@ from flexflow_tpu_torch.generation import (
     default_buckets,
     forward_full,
 )
-from flexflow_tpu_torch.generation.engine import (
-    _sample,
-    gumbel_noise,
-    noise_seed,
-    topk_scaled_logits,
-)
+from flexflow_tpu_torch.generation import prng
+from flexflow_tpu_torch.generation.engine import _sample, derive_keys, topk_scaled_logits
 from flexflow_tpu_torch.models.transformer import TransformerConfig
 from flexflow_tpu_torch.serving.resilience import DeadlineExceededError, QueueFullError
 
@@ -160,14 +155,18 @@ def test_sample_matches_jax_on_identical_noise(seed):
 
 
 def test_gumbel_noise_is_seeded_by_seed_and_count():
-    a = gumbel_noise(42, 3, 50)
-    assert torch.equal(a, gumbel_noise(42, 3, 50))
-    assert not torch.equal(a, gumbel_noise(42, 4, 50))
-    assert not torch.equal(a, gumbel_noise(43, 3, 50))
-    assert torch.equal(gumbel_noise(2**32 + 42, 3, 50), a)  # 32-bit seeds
+    def noise(seed, count):
+        return prng.gumbel(derive_keys(torch.tensor([seed]), torch.tensor([count])), (50,))[0]
+
+    a = noise(42, 3)
+    assert torch.equal(a, noise(42, 3))
+    assert not torch.equal(a, noise(42, 4))
+    assert not torch.equal(a, noise(43, 3))
+    assert torch.equal(noise(2**32 + 42, 3), a)  # 32-bit seeds
     assert torch.isfinite(a).all()
-    # no two tokens of one stream share a generator seed
-    assert len({noise_seed(7, c) for c in range(5000)}) == 5000
+    # no two tokens of one stream share a key
+    k1, k2 = derive_keys(torch.full((5000,), 7), torch.arange(5000))
+    assert len(set(zip(k1.tolist(), k2.tolist()))) == 5000
 
 
 def test_seeded_streams_are_reproducible(params):
@@ -178,6 +177,53 @@ def test_seeded_streams_are_reproducible(params):
         [[1, 2, 3]], SamplingParams(max_new_tokens=8, temperature=0.9, top_k=10, seed=12)
     )
     assert a == b and a != c
+
+
+SEEDED = [
+    SamplingParams(max_new_tokens=10, temperature=0.8, top_k=10, seed=42),
+    SamplingParams(max_new_tokens=10, temperature=1.3, top_k=0, seed=2**31 - 1),
+]
+
+
+def _jsampling(sp):
+    return JSamplingParams(
+        max_new_tokens=sp.max_new_tokens, temperature=sp.temperature, top_k=sp.top_k,
+        seed=sp.seed,
+    )
+
+
+@pytest.mark.parametrize("sp", SEEDED, ids=["topk", "temperature"])
+def test_seeded_streams_match_jax_engine(jparams, params, sp):
+    """Seeded temperature/top-k streams from the same weights are the
+    JAX engine's token for token: the Gumbel noise is JAX's threefry
+    bits, keyed by (seed, generated-token count)."""
+    prompts = [[1, 2, 3, 4, 5], [9, 8, 7], list(range(10, 27))]
+    jeng = JGenerationEngine(
+        jparams, JTransformerConfig(**CFG_KW), max_batch_slots=3,
+        block_size=BLOCK, prompt_buckets=BUCKETS,
+    )
+    ref = jeng.generate(prompts, _jsampling(sp))
+    assert make_engine(params).generate(prompts, sp) == ref
+
+
+def test_seeded_streams_match_jax_engine_under_preemption(jparams, params):
+    """A cache too small for both requests preempts one by recompute; the
+    resumed streams still equal the JAX engine's unpreempted streams."""
+    jeng = JGenerationEngine(
+        jparams, JTransformerConfig(**CFG_KW), max_batch_slots=3,
+        block_size=BLOCK, prompt_buckets=BUCKETS,
+    )
+    sp1, sp2 = SEEDED
+    ref1 = jeng.generate([[1, 2, 3, 4, 5]], _jsampling(sp1))[0]
+    ref2 = jeng.generate([[9, 8, 7]], _jsampling(sp2))[0]
+    small = make_engine(params, num_blocks=4)  # 24 usable positions
+    sched = ContinuousBatchingScheduler(small, clock=FakeClock())
+    h1 = sched.submit([1, 2, 3, 4, 5], sp1)
+    h2 = sched.submit([9, 8, 7], sp2)
+    run(sched, [h1, h2])
+    assert sched.preemptions > 0
+    assert h1.result(0) == ref1
+    assert h2.result(0) == ref2
 
 
 # ---------------------------------------------------------------------------
