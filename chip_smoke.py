@@ -6,8 +6,11 @@
 Phases, each raising on failure (the script then exits non-zero and
 prints no result line):
 
-1. device: the card's name and power limit (nvidia-smi), and the time
-   to build the CUDA kernels from ``flexflow_tpu_torch/ops/kernels/csrc``.
+1. device: the card's name and power limit (nvidia-smi), the time to
+   build the CUDA kernels from ``flexflow_tpu_torch/ops/kernels/csrc``,
+   and the built flash library's SASS (cuobjdump), which must hold
+   tensor-core HMMA instructions in every instance of the forward and
+   dK/dV kernels.
 2. kernels: each paged attention kernel against its plain PyTorch
    version on the card, fp32, atol 1e-4 + rtol 1e-4 (the kernel sums in
    another order), at the serving path's shapes; then the device time
@@ -29,10 +32,12 @@ prints no result line):
 6. flash kernels: the flash-attention forward, dQ and dK/dV kernels
    against their plain PyTorch versions (atol 1e-4 + rtol 1e-4) at the
    training path's shape (B=32, S=128, H=12, D=64) and at a causal
-   S=512 shape and edge shapes (S=100 D=128, Sq=64 Sk=200, D=256); then
-   device times of kernel, plain version and the library yardstick
-   (scaled_dot_product_attention forward, and its backward), beside the
-   card's bound.
+   S=512 shape and edge shapes (S=100 D=128, Sq=64 Sk=200, D=256, S=1,
+   S=65 plain and causal, D=8); then device times of kernel, plain
+   version and the library yardstick (scaled_dot_product_attention
+   forward, and its backward: its kernels' durations by torch.profiler),
+   beside the card's bound for fp32-accurate products on the tensor cores
+   (and for the same operations on the fp32 CUDA cores).
 7. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
    seq 128, batch 32, fp32, weights from --seed) through FFModel ->
    compile (SGD lr 0.01, MSE) -> fit: one step with the kernels and one
@@ -50,12 +55,16 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
+import re
 import subprocess
 import sys
 import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores, H100 SXM data sheet
+TF32_PRODUCTS = 3  # TF32 products per fp32-accurate product (3xTF32 split)
 ATOL = 1e-4
 RTOL = 1e-4
 LOGITS_ATOL = 1e-3
@@ -524,12 +533,15 @@ def long_context_phase(seed: int, params):
 
 
 def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool):
-    """(bound_ms, bound_by) of one flash kernel call: each input read
-    once and each output written once over the card's memory rate,
-    against the fp32 multiply-adds the kernel does on the unmasked
-    (query, key) pairs (2 flops each: QK and PV forward; QK, dO.V and
-    dS.K for dQ; QK, dO.V, P^T dO and dS^T Q for dK/dV) over its fp32
-    rate (datasheet figures)."""
+    """(bound_ms, bound_by, fp32_cuda_core_ms) of one flash kernel call:
+    each input read once and each output written once over the card's
+    memory rate, against the multiply-adds the kernel does on the
+    unmasked (query, key) pairs (2 flops each: QK and PV forward; QK,
+    dO.V and dS.K for dQ; QK, dO.V, P^T dO and dS^T Q for dK/dV) taken
+    to fp32 accuracy on the tensor cores, three TF32 products each at
+    the dense TF32 rate (datasheet figures). fp32_cuda_core_ms is the
+    larger of the byte time and those operations at the fp32 CUDA-core
+    rate."""
     pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
     q_elems, kv_elems, rows = b * sq * h * d, b * sk * h * d, b * sq * h
     if kind == "fwd":
@@ -542,14 +554,45 @@ def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: boo
         flops = 4 * 2 * d * pairs
         nbytes = 4 * (2 * q_elems + 4 * kv_elems + 2 * rows)  # q, dO; k, v, dk, dv; lse, delta
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = TF32_PRODUCTS * flops / H100_TF32_FLOPS * 1e3
+    fp32_ms = max(t_bytes, flops / H100_FP32_FLOPS * 1e3)
+    return (t_bytes, "bytes", fp32_ms) if t_bytes >= t_ops else (t_ops, "operations", fp32_ms)
+
+
+def tensor_core_check() -> dict:
+    """The built flash library's SASS (cuobjdump -sass) must hold
+    tensor-core HMMA instructions in every instance of the forward and
+    dK/dV tensor-core kernels; raises where one has none. Returns
+    {kernel<head-dim pad>: HMMA count}."""
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    src = next(p for p in _build.kernel_sources() if p.name == "flash_attention.cu")
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(src))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : .*?(flash_[a-z_]+_kernel)ILi(\d+)E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+            counts[name] = 0
+        elif "Function : " in line:
+            name = None
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    found = {}
+    for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+        inst = {n: c for n, c in counts.items() if n.startswith(kernel + "<")}
+        if not inst or not all(inst.values()):
+            raise AssertionError(f"{kernel}: no tensor-core HMMA in the SASS of "
+                                 f"{inst or 'the built library'}")
+        found.update(inst)
+    return found
 
 
 def time_eager_ms(fn, iters: int = 20) -> float:
-    """Device ms per call by CUDA events around ``iters`` eager calls,
-    for a call a CUDA graph cannot capture (autograd's backward); each
-    call is long enough that the host issues ahead of the device."""
+    """ms per call by CUDA events around ``iters`` eager calls: the
+    device's time where the host issues ahead of it, else the host's."""
     import torch
 
     for _ in range(3):
@@ -563,6 +606,28 @@ def time_eager_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_device_ms(fn, iters: int = 20) -> float:
+    """Device ms per call: the durations of the GPU kernels and copies
+    that torch.profiler records over ``iters`` eager calls, summed (one
+    stream, so they do not overlap), for a call a CUDA graph cannot
+    capture (autograd's backward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device activity")
+    return us / 1e3 / iters
 
 
 def flash_inputs(gen, b, sq, sk, h, d, causal, scale, copies=1):
@@ -636,7 +701,11 @@ def flash_phase(seed: int):
             i = next(calls) % len(lib_sets)
             torch.autograd.grad(outs[i], lib_sets[i][:3], lib_sets[i][3], retain_graph=True)
 
-        sdpa_bwd_ms = time_eager_ms(sdpa_bwd)
+        # SDPA's backward on the device (autograd cannot be captured into a
+        # CUDA graph here): its kernels' durations by torch.profiler; the
+        # eager figure (host issue included) is kept beside it
+        sdpa_bwd_eager_ms = time_eager_ms(sdpa_bwd)
+        sdpa_bwd_ms = profiled_device_ms(sdpa_bwd)
         timed = {
             "flash_fwd": (
                 lambda q, k, v, do, lse, de: fa.flash_forward_kernel(q, k, v, causal, scale),
@@ -655,21 +724,27 @@ def flash_phase(seed: int):
         for name, (kern, plain, lib_ms, kind) in timed.items():
             ms, eager_ms = time_ms(kern, sets)
             plain_ms, _ = time_ms(plain, sets)
-            bound_ms, bound_by = flash_bound(kind, b, s, s, h, d, causal)
+            bound_ms, bound_by, fp32_bound_ms = flash_bound(kind, b, s, s, h, d, causal)
             row = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                   "fp32_cuda_core_bound_ms": fp32_bound_ms,
                    "eager_ms": eager_ms, "shape": shape}
             print(f"flash {label} {name}: " + json.dumps(row))
             rows.setdefault(label, {})[name] = row
         print(f"flash {label}: SDPA forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv together) "
-              f"{sdpa_bwd_ms:.4f} ms")
+              f"{sdpa_bwd_ms:.4f} ms on the device ({sdpa_bwd_eager_ms:.4f} ms eager)")
         del sets, lib_sets, outs
     # edge shapes, correctness only: ragged S with D = 128, Sq != Sk, D = 256
-    for b, sq, sk, h, d in [(2, 100, 100, 3, 128), (2, 64, 200, 4, 64), (2, 128, 128, 2, 256)]:
-        causal = False
+    # (the CUDA-core forward and dK/dV), one query row, a ragged tile past
+    # 64 rows, D = 8
+    for b, sq, sk, h, d, causal in [(2, 100, 100, 3, 128, False), (2, 64, 200, 4, 64, False),
+                                    (2, 128, 128, 2, 256, False), (2, 1, 1, 3, 64, False),
+                                    (2, 65, 65, 3, 64, False), (2, 65, 65, 3, 64, True),
+                                    (2, 128, 128, 2, 8, False)]:
         sets = flash_inputs(gen, b, sq, sk, h, d, causal, d ** -0.5)
-        errs = check_flash(f"flash edge Sq={sq} Sk={sk} D={d}", sets, causal, d ** -0.5)
-        print(f"flash edge B={b} Sq={sq} Sk={sk} H={h} D={d}: max abs err "
+        tag = f"Sq={sq} Sk={sk} D={d}" + (" causal" if causal else "")
+        errs = check_flash(f"flash edge {tag}", sets, causal, d ** -0.5)
+        print(f"flash edge B={b} H={h} {tag}: max abs err "
               + json.dumps({k: f"{e:.3e}" for k, e in errs.items()}))
     torch.cuda.empty_cache()
     return rows
@@ -830,6 +905,8 @@ def main(argv=None) -> int:
     for line in _build.last_build_log.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    hmma = tensor_core_check()
+    print("tensor cores: HMMA instructions in the SASS of " + json.dumps(hmma))
 
     rows = kernel_phase(args.seed)
     params = init_decoder_params(torch.Generator().manual_seed(args.seed), gpt2_small())

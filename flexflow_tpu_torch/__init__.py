@@ -13,8 +13,10 @@ sampling bits) and the continuous-batching scheduler, with the paged
 decode/append attention written as CUDA C++ kernels for ``sm_90a``
 (``ops/kernels/csrc/``). Slice 2 holds the single-GPU training path,
 ``FFModel`` -> ``compile`` -> ``fit``, for BERT-style encoders, with the
-flash-attention forward, dQ and dK/dV kernels in CUDA C++. Importing the
-package builds nothing; the kernels compile at first use on a GPU.
+flash-attention forward, dQ and dK/dV kernels in CUDA C++; slice 3 moved
+the forward and dK/dV onto the tensor cores at fp32 accuracy (3xTF32).
+Importing the package builds nothing; the kernels compile at first use on
+a GPU.
 """
 
 __version__ = "0.1.0"

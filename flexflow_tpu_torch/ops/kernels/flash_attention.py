@@ -14,9 +14,11 @@ Two lowerings, chosen by where the tensors lie (or by ``backend``):
   tensors, or on any device when asked for by name (``backend="plain"``),
   and are the oracle the CUDA kernels are held against on the card.
 * the CUDA kernels of ``csrc/flash_attention.cu`` — the forward, dQ and
-  dK/dV kernels of the FlashAttention-2 decomposition. For a CUDA tensor
-  :func:`flash_attention` launches them or raises; it never falls back to
-  the plain version.
+  dK/dV kernels of the FlashAttention-2 decomposition; the forward and
+  dK/dV take their products on the tensor cores as three TF32 products
+  each (3xTF32, fp32 accuracy) for head dims up to 128. For a CUDA
+  tensor :func:`flash_attention` launches them or raises; it never
+  falls back to the plain version.
 
 The per-row logsumexp and ``delta = rowsum(dO * O)`` are [B, Sq, H] fp32,
 indexed like the rows of q. ``delta`` stays plain PyTorch, as it was

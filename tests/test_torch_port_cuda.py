@@ -23,8 +23,15 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("sq,sk,d,causal", [(128, 128, 64, False), (96, 96, 64, True),
-                                            (40, 70, 100, False)])
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (128, 128, 64, False), (96, 96, 64, True), (40, 70, 100, False),
+    # the tensor-core kernels' tile edges: one row, ragged 64-row blocks
+    # and 16/32-row tiles, head dims padded to 32 and to 128, D % 4 != 0
+    # (4-byte copies), and D = 256 on the CUDA-core forward and dK/dV
+    (1, 1, 64, False), (63, 63, 64, True), (65, 65, 64, False), (129, 129, 64, True),
+    (128, 128, 8, False), (65, 65, 100, True), (129, 129, 128, False), (70, 70, 33, False),
+    (65, 65, 256, True), (512, 512, 64, True),
+])
 def test_cuda_kernels_match_plain_versions(cuda, sq, sk, d, causal):
     """The three flash kernels, causal and ragged, and the autograd path."""
     gen = torch.Generator().manual_seed(sq + sk + d)
@@ -52,6 +59,20 @@ def test_cuda_kernels_match_plain_versions(cuda, sq, sk, d, causal):
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_dkv_kernel_is_deterministic(cuda):
+    """dK/dV is gridded over key tiles with no atomics: the same inputs
+    give the same bits on every run."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(4, 256, 4, 64, generator=gen).to(cuda) for _ in range(4))
+    o, lse = fa.flash_forward_kernel(q, k, v, True, 0.125)
+    delta = fa.flash_delta(do, o)
+    first = fa.flash_backward_dkv_kernel(q, k, v, do, lse, delta, True, 0.125)
+    for _ in range(3):
+        again = fa.flash_backward_dkv_kernel(q, k, v, do, lse, delta, True, 0.125)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
