@@ -9,11 +9,14 @@ prints no result line):
 1. device: the card's name and power limit (nvidia-smi), the time to
    build the CUDA kernels from ``flexflow_tpu_torch/ops/kernels/csrc``,
    and the built flash library's SASS (cuobjdump), which must hold
-   tensor-core HMMA instructions in every instance of the forward and
-   dK/dV kernels.
+   tensor-core HMMA instructions in every instance of the forward, dQ
+   and dK/dV tensor-core kernels, and the CUDA-core dQ only for head
+   dims above 128.
 2. kernels: each paged attention kernel against its plain PyTorch
    version on the card, fp32, atol 1e-4 + rtol 1e-4 (the kernel sums in
-   another order), at the serving path's shapes; then the device time
+   another order), at the serving path's shapes (with the cluster size
+   each launched) and at edge shapes, among them contexts that leave
+   blocks of a cluster without a live position; then the device time
    (CUDA events around a replayed CUDA graph of the calls) of the
    kernel, the plain version and one PyTorch library call over the same
    inputs (scaled_dot_product_attention on the gathered K/V, a yardstick
@@ -284,12 +287,15 @@ def kernel_phase(seed: int):
             lib_sets,
         )
         bound_ms, bound_by = bound(qpos, mb, bs, h, d)
+        # blocks per (head, sequence): the cluster of the single-pass
+        # kernel, or one block per split
+        ctas = da.kernel_cluster_size(mb, bs) if s == 1 else s
         rows[name] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
             "shape": {"B": int(qpos.shape[0]), "W": int(qpos.shape[1]), "H": h, "D": d,
-                      "bs": bs, "MB": mb, "splits": s,
+                      "bs": bs, "MB": mb, "splits": s, "ctas_per_head": ctas,
                       "live_positions": int(np.minimum(qpos.max(1) + 1, mb * bs).clip(0).sum())},
         }
         if s > 1:  # ms covers kernel + plain combine; this is the kernel alone
@@ -304,8 +310,12 @@ def kernel_phase(seed: int):
 def edge_shapes(seed: int) -> None:
     """Correctness only, off the serving path's shapes: the widest window
     and head_dim the kernel takes, a head_dim that is not a multiple of 4
-    (scalar K loads), an odd block size, and a split count that does not
-    divide the table — each against the plain version."""
+    (4-byte copies), odd block sizes, a cluster that does not divide the
+    table, a split count that does not divide it, a padding-only
+    sequence, and contexts that leave blocks of a cluster without a live
+    position (0, 1, 15, 16, 17, and one position into the second block's
+    share) beside a long one — each against the plain version; padding
+    queries must give exact zeros."""
     import numpy as np
     import torch
 
@@ -313,9 +323,23 @@ def edge_shapes(seed: int) -> None:
 
     rs = np.random.RandomState(seed + 7)
     gen = torch.Generator().manual_seed(seed + 7)
-    # (B, W, H, D, bs, MB, splits)
+
+    def check(tag, tables, qpos, h, d, bs, s):
+        q, k, v, bt, qp = paged_inputs(gen, tables.shape[0] * tables.shape[1] + 1, bs, h, d,
+                                       tables, qpos, 1)[0]
+        got = da.paged_append_attention(q, k, v, bt, qp, kv_splits=s)
+        want = da.reference_paged_append_attention(q, k, v, bt, qp)
+        err = check_close(f"edge shape {tag}", got, want)
+        pad = torch.from_numpy(qpos < 0).cuda()
+        if not bool((got[pad] == 0).all()):
+            raise AssertionError(f"edge shape {tag}: padding queries must give exact zeros")
+        ctas = da.kernel_cluster_size(tables.shape[1], bs) if s == 1 else s
+        print(f"kernel edge shape {tag} ({ctas} blocks a head): max abs err {err:.3e}")
+
+    # (B, W, H, D, bs, MB, splits); the second: a 3-block cluster over 61 columns
     for b, w, h, d, bs, mb, s in [
         (2, 32, 2, 256, 8, 12, 1),
+        (3, 32, 2, 256, 5, 61, 1),
         (3, 17, 3, 100, 5, 20, 1),
         (2, 3, 4, 128, 7, 30, 4),
         (1, 1, 1, 1, 1, 9, 2),
@@ -326,12 +350,15 @@ def edge_shapes(seed: int) -> None:
         base = rs.randint(0, mb * bs - w, b)
         qpos = (base[:, None] + np.arange(w)[None, :]).astype(np.int32)
         qpos[rs.rand(b, w) < 0.2] = -1
-        q, k, v, bt, qp = paged_inputs(gen, nb, bs, h, d, tables, qpos, 1)[0]
-        got = da.paged_append_attention(q, k, v, bt, qp, kv_splits=s)
-        want = da.reference_paged_append_attention(q, k, v, bt, qp)
-        err = check_close(f"edge shape B={b} W={w} H={h} D={d} bs={bs} MB={mb} S={s}", got, want)
-        print(f"kernel edge shape B={b} W={w} H={h} D={d} bs={bs} MB={mb} S={s}: "
-              f"max abs err {err:.3e}")
+        if b > 2:
+            qpos[-1] = -1  # a padding-only sequence
+        check(f"B={b} W={w} H={h} D={d} bs={bs} MB={mb} S={s}", tables, qpos, h, d, bs, s)
+    # decode over 64 columns of 16 (8 blocks of 128 positions a cluster)
+    mb, bs = 64, 16
+    for ctx in (0, 1, 15, 16, 17, 129):
+        tables = rs.permutation(np.arange(1, 2 * mb + 1)).reshape(2, mb).astype(np.int32)
+        qpos = np.asarray([[ctx - 1], [730]], np.int32)
+        check(f"decode contexts {ctx} and 731, MB={mb} bs={bs}", tables, qpos, 12, 64, bs, 1)
 
 
 def gpt2_small():
@@ -561,9 +588,10 @@ def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: boo
 
 def tensor_core_check() -> dict:
     """The built flash library's SASS (cuobjdump -sass) must hold
-    tensor-core HMMA instructions in every instance of the forward and
-    dK/dV tensor-core kernels; raises where one has none. Returns
-    {kernel<head-dim pad>: HMMA count}."""
+    tensor-core HMMA instructions in every instance of the forward, dQ
+    and dK/dV tensor-core kernels, and the CUDA-core dQ must exist only
+    for head dims above 128 (5..8 columns of 32); raises otherwise.
+    Returns {kernel<head-dim pad>: HMMA count}."""
     from flexflow_tpu_torch.ops.kernels import _build
 
     src = next(p for p in _build.kernel_sources() if p.name == "flash_attention.cu")
@@ -581,12 +609,16 @@ def tensor_core_check() -> dict:
         elif name is not None and "HMMA" in line:
             counts[name] += 1
     found = {}
-    for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+    for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
         inst = {n: c for n, c in counts.items() if n.startswith(kernel + "<")}
         if not inst or not all(inst.values()):
             raise AssertionError(f"{kernel}: no tensor-core HMMA in the SASS of "
                                  f"{inst or 'the built library'}")
         found.update(inst)
+    simt_dq = sorted(int(n[n.index("<") + 1:-1]) for n in counts
+                     if n.startswith("flash_bwd_dq_kernel<"))
+    if simt_dq != [5, 6, 7, 8]:
+        raise AssertionError(f"CUDA-core dQ instances {simt_dq}: expected only D > 128 (5..8)")
     return found
 
 

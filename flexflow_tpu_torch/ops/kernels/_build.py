@@ -39,13 +39,15 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# (name, argtypes) of every exported function; restype is the cudaError_t
+# (name, argtypes) of every exported function; restype is an int: the
+# cudaError_t of a launch, or the answer of a query
 SIGNATURES = {
     "ff_paged_append_f32": (
         [_P] * 6  # q, k_cache, v_cache, block_tables, q_positions, out
         + [_I] * 6  # B, W, H, D, bs, MB
         + [_F, _P]  # scale, stream
     ),
+    "ff_paged_append_cluster_size": [_I, _I],  # MB, bs
     "ff_paged_append_split_f32": (
         [_P] * 8  # q, k_cache, v_cache, block_tables, q_positions, acc, m, l
         + [_I] * 8  # B, W, H, D, bs, MB, S, bps

@@ -24,21 +24,22 @@
 // (forward, dQ) and query tiles below it (dK/dV).
 //
 // Bound on this card. At BERT's shapes (S = 128, D = 64) one call moves
-// q, k, v, o (and dO, dk, dv) once: 0.015 ms forward and 0.023 ms dK/dV
-// at 3.35 TB/s. fp32-accurate products on the tensor cores cost three
-// TF32 products each (below), 3 * 4*S*S*D flops a head forward and
-// 3 * 8*S*S*D for dK/dV, 0.010 and 0.020 ms at 495 TFLOP/s dense TF32; on
-// the CUDA cores (67 TFLOP/s fp32) the same work takes 0.024 and 0.048 ms.
+// q, k, v, o (and dO, dq, dk, dv) once: 0.015 ms forward, 0.019 ms dQ
+// and 0.023 ms dK/dV at 3.35 TB/s. fp32-accurate products on the tensor
+// cores cost three TF32 products each (below), 3 * 4*S*S*D flops a head
+// forward, 3 * 6*S*S*D for dQ and 3 * 8*S*S*D for dK/dV, 0.010, 0.015 and
+// 0.020 ms at 495 TFLOP/s dense TF32; on the CUDA cores (67 TFLOP/s fp32)
+// the same work takes 0.024, 0.036 and 0.048 ms.
 //
-// Forward and dK/dV, D <= 128: tensor cores (mma.sync m16n8k8 TF32).
+// All three kernels, D <= 128: tensor cores (mma.sync m16n8k8 TF32).
 //   * 3xTF32: every fp32 operand x is split into big = rna(x) and small =
 //     rna(x - big), TF32 values rounded as cvt.rna.tf32.f32 rounds, and
 //     each product is accumulated in fp32 as big*small + small*big +
 //     big*big. One TF32 product keeps about 3 decimal digits; three keep
 //     fp32's accuracy, so the kernels hold the same 1e-4 gate as before.
 //   * A block of 4 warps owns 64 rows of its own axis (16 per warp) and
-//     streams tiles of the other axis (32 keys for the forward, 16 queries
-//     for dK/dV) through shared memory with cp.async, two stages deep:
+//     streams tiles of the other axis (32 keys for the forward and dQ, 16
+//     queries for dK/dV) through shared memory with cp.async, two stages deep:
 //     tile i+1 loads while tile i is computed, one barrier per tile. Rows
 //     are padded to D + 4 floats, so every fragment load below hits 32
 //     distinct banks. The tiles are small so that registers and shared
@@ -64,6 +65,18 @@
 //     S^T = K Q^T, P^T = exp(scale S^T - lse), dP^T = V dO^T and
 //     dS^T = P^T o (dP^T - delta), and accumulates dV += P^T dO and
 //     dK += dS^T Q with the same permutation, all in fp32 registers.
+//   * dQ, Q-stationary like the forward: the block's Q and dO rows, lse
+//     and delta stay in shared memory while K and V tiles stream through.
+//     Per key tile each warp forms S = (scale Q) K^T and dP = dO V^T as
+//     two mma chains, dS = P o (dP - delta) with P = exp(S - lse) on the
+//     accumulator fragments, and dQ += dS K with dS reused as the A
+//     operand through the same permutation; dQ is scaled once, at the
+//     store. It does 6 products of 16 x 8 x 8 per key and head-dim step
+//     against the forward's 4 (its softmax is a subtraction, not a
+//     running max), and holds 16 x D accumulators plus S and dP (32 + 16
+//     + 16 registers a thread at D = 64): like the others it is bound by
+//     latency, and registers and shared memory (about 69 KB a block:
+//     Q, dO and two stages of K and V) allow 3 blocks an SM.
 //   * Head dims are zero-padded to 32, 64, 96 or 128 in shared memory.
 //     Rows are copied 16 bytes at a time where D % 4 == 0 and the tensors
 //     are 16-byte aligned, else 4 bytes at a time.
@@ -73,9 +86,9 @@
 //     bound; wgmma with pre-split operands in shared memory is the next
 //     step.
 //
-// Forward and dK/dV with D > 128, and dQ at every D: CUDA cores. One
-// block of 8 warps owns 32 rows and loops over tiles of the other axis
-// staged through shared memory; lane t dots row t of a 32-row sub-tile
+// D > 128: CUDA cores (16 x D accumulators would not fit beside the
+// tiles). One block of 8 warps owns 32 rows and loops over tiles of the
+// other axis staged through shared memory; lane t dots row t of a 32-row sub-tile
 // with each of the warp's 4 rows and the probabilities (or dS) reach the
 // accumulating lanes by shuffles. It is bound by shared-memory traffic
 // (one shared load per two multiply-adds) and by the shuffles.
@@ -84,11 +97,9 @@
 
 #include <cstdint>
 
-namespace {
+#include "common.cuh"
 
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kSmemLimit = 232448;  // bytes of shared memory a block can use on sm_90
+namespace {
 
 __device__ __forceinline__ int64_t row_offset(int b, int s, int S, int h, int H, int D) {
   return ((static_cast<int64_t>(b) * S + s) * H + h) * D;
@@ -100,34 +111,11 @@ constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcRows = 16 * kTcWarps;  // rows of the block's own axis
 
-// rows of the other axis per staged tile: keys of the forward, queries of dK/dV
+// rows of the other axis per staged tile: keys of the forward and dQ,
+// queries of dK/dV
 constexpr int kFwdKeyTile = 32;
+constexpr int kDqKeyTile = 32;
 constexpr int kDkvQueryTile = 16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 (or 4) bytes; zero-fills the destination when !valid
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // rows [r0, r0 + kR) of head (b, h) of a [B,S,H,D] tensor into shared
 // memory at leading dimension kLD; zeros past S and past D
@@ -528,24 +516,132 @@ __global__ void __launch_bounds__(kTcThreads)
   store_acc<kNT>(dv, dv_acc, dv_mul, b, h, key0, Sk, H, D, vec);
 }
 
+// ------------------------------------------------------ dQ, tensor cores
+
+template <int kDP>
+size_t dq_tc_smem() {
+  // two stages of K and V; Q and dO of the block; lse and delta
+  return sizeof(float) * ((kDP + 4) * (4 * kDqKeyTile + 2 * kTcRows) + 2 * kTcRows);
+}
+
+// blocks an SM the register budget is set for: shared memory allows 3
+// with 32-key tiles at D <= 64, 4 with 16-key tiles
+__host__ __device__ constexpr int dq_min_blocks(int dp) {
+  return dp > 64 ? 1 : kDqKeyTile == 16 ? 4 : 3;
+}
+
+template <int kDP>
+__global__ void __launch_bounds__(kTcThreads, dq_min_blocks(kDP))
+    flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dq, int Sq, int Sk, int H, int D, float scale,
+                           int causal, int vec) {
+  constexpr int kLD = kDP + 4;
+  constexpr int kNT = kDP / 8;
+  constexpr int kBK = kDqKeyTile;
+  constexpr int kKT = kBK / 8;
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kStage = 2 * kBK * kLD;  // a stage: kBK rows of K, then kBK rows of V
+  float* qs = smem + 2 * kStage;         // [kTcRows][kLD]
+  float* dos = qs + kTcRows * kLD;       // [kTcRows][kLD]
+  float* lses = dos + kTcRows * kLD;     // [kTcRows]
+  float* deltas = lses + kTcRows;        // [kTcRows]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTcRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // this thread's query rows: row0, row0 + 8
+  const int kv_end = causal ? min(Sk, q0 + kTcRows) : Sk;
+  const int ntiles = (kv_end + kBK - 1) / kBK;
+
+  // rows past Sq stage as zeros (lse and delta too), so their dS is 0
+  stage_tile<kTcRows, kDP, kLD>(qs, q, b, h, q0, Sq, H, D, vec);
+  stage_tile<kTcRows, kDP, kLD>(dos, dout, b, h, q0, Sq, H, D, vec);
+  stage_rows<kTcRows>(lses, lse, b, h, q0, Sq, H);
+  stage_rows<kTcRows>(deltas, delta, b, h, q0, Sq, H);
+  stage_tile<kBK, kDP, kLD>(smem, k, b, h, 0, Sk, H, D, vec);
+  stage_tile<kBK, kDP, kLD>(smem + kBK * kLD, v, b, h, 0, Sk, H, D, vec);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float* my_q = qs + warp * 16 * kLD;
+  const float* my_do = dos + warp * 16 * kLD;
+  const float lse_r[2] = {lses[warp * 16 + g], lses[warp * 16 + g + 8]};
+  const float delta_r[2] = {deltas[warp * 16 + g], deltas[warp * 16 + g + 8]};
+  float acc[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kBK;
+    if (it + 1 < ntiles) {  // the next tile loads while this one is computed
+      float* next = smem + ((it + 1) & 1) * kStage;
+      stage_tile<kBK, kDP, kLD>(next, k, b, h, k0 + kBK, Sk, H, D, vec);
+      stage_tile<kBK, kDP, kLD>(next + kBK * kLD, v, b, h, k0 + kBK, Sk, H, D, vec);
+      cp_async_commit();
+    }
+    const float* kt = smem + (it & 1) * kStage;
+    const float* vt = kt + kBK * kLD;
+
+    // S = (scale Q) K^T and dP = dO V^T, 16 x kBK per warp
+    float s[kKT][4], dp[kKT][4];
+#pragma unroll
+    for (int n = 0; n < kKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int d8 = 0; d8 < kNT; ++d8) {
+      FragA qa, da;
+      load_a(qa, my_q + 8 * d8, kLD, scale);
+      load_a(da, my_do + 8 * d8, kLD, 1.f);
+#pragma unroll
+      for (int n = 0; n < kKT; ++n) {
+        FragB bk, bv;
+        load_b_nk(bk, kt + n * 8 * kLD + 8 * d8, kLD);
+        load_b_nk(bv, vt + n * 8 * kLD + 8 * d8, kLD);
+        mma_3xtf32(s[n], qa, bk);
+        mma_3xtf32(dp[n], da, bv);
+      }
+    }
+
+    // dS = P o (dP - delta), P = exp(S - lse), masked as the forward
+    // masks; element e of s[n] is row row0 + 8 * (e / 2), key
+    // k0 + 8n + 2t + e % 2
+#pragma unroll
+    for (int n = 0; n < kKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        const bool ok = key < Sk && (!causal || key <= row0 + 8 * (e >> 1));
+        s[n][e] = ok ? expf(s[n][e] - lse_r[e >> 1]) * (dp[n][e] - delta_r[e >> 1]) : 0.f;
+      }
+
+    // dQ += dS K, the keys of each 8-key step in the permuted order
+#pragma unroll
+    for (int j = 0; j < kKT; ++j) {
+      FragA a;
+      acc_to_a(a, s[j]);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        FragB bf;
+        load_b_kn_permuted(bf, kt + 8 * j * kLD + 8 * n, kLD);
+        mma_3xtf32(acc[n], a, bf);
+      }
+    }
+    cp_async_wait_all();  // the next tile has landed
+    __syncthreads();      // and every warp is done with this one
+  }
+  // dQ = scale * dS K (the TPU kernel scales at the end too)
+  const float mul[2] = {scale, scale};
+  store_acc<kNT>(dq, acc, mul, b, h, row0, Sq, H, D, vec);
+}
+
 // ============================================================== CUDA cores
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 4;                    // rows per warp
 constexpr int kBlockRows = kWarps * kRows;  // 32 rows per block tile
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
 
 // rows [r0, r0 + nrows) of head (b, h) of a [B,S,H,D] tensor into shared
 // memory at leading dimension ld, times mul; zeros past S and past D
@@ -607,7 +703,7 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float 
   }
 }
 
-__host__ __device__ constexpr int other_tile(int ndc) { return ndc <= 2 ? 64 : 32; }
+constexpr int kOtherTile = 32;  // rows of the other axis per staged tile
 
 template <int kNDC>
 __global__ void __launch_bounds__(kThreads)
@@ -617,7 +713,7 @@ __global__ void __launch_bounds__(kThreads)
                      int causal) {
   constexpr int kDP = 32 * kNDC;
   constexpr int kLD = kDP + 4;
-  constexpr int kBK = other_tile(kNDC);
+  constexpr int kBK = kOtherTile;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                     // [32][kDP], pre-scaled
   float* ks = qs + kBlockRows * kDP;    // [kBK][kLD]
@@ -693,7 +789,7 @@ __global__ void __launch_bounds__(kThreads)
                         int causal) {
   constexpr int kDP = 32 * kNDC;
   constexpr int kLD = kDP + 4;
-  constexpr int kBK = other_tile(kNDC);
+  constexpr int kBK = kOtherTile;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                     // [32][kDP], pre-scaled
   float* dos = qs + kBlockRows * kDP;   // [32][kDP]
@@ -767,7 +863,7 @@ __global__ void __launch_bounds__(kThreads)
                          int D, float scale, int causal) {
   constexpr int kDP = 32 * kNDC;
   constexpr int kLD = kDP + 4;
-  constexpr int kBQ = other_tile(kNDC);
+  constexpr int kBQ = kOtherTile;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                     // [32][kDP], this block's key rows
   float* vs = ks + kBlockRows * kDP;    // [32][kDP]
@@ -846,7 +942,7 @@ enum class Kind { kFwd, kDq, kDkv };
 
 template <int kNDC>
 size_t smem_bytes(Kind kind) {
-  constexpr size_t dp = 32 * kNDC, ld = dp + 4, t = other_tile(kNDC), rows = kBlockRows;
+  constexpr size_t dp = 32 * kNDC, ld = dp + 4, t = kOtherTile, rows = kBlockRows;
   switch (kind) {
     case Kind::kFwd: return sizeof(float) * (rows * dp + t * ld + t * dp);
     case Kind::kDq: return sizeof(float) * (2 * rows * dp + 2 * t * ld);
@@ -879,16 +975,20 @@ struct Args {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-// 16-byte copies and paired stores need D % 4 == 0 and 16-byte aligned rows
+// 16-byte copies and paired stores need D % 4 == 0 and 16-byte aligned
+// rows in every tensor the kernel copies or stores
 bool vector_rows(const Args& a, Kind kind) {
   if (a.D % 4 != 0 || !aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v)) return false;
-  if (kind == Kind::kFwd) return aligned16(a.o);
-  return aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv);
+  switch (kind) {
+    case Kind::kFwd: return aligned16(a.o);
+    case Kind::kDq: return aligned16(a.dout) && aligned16(a.dq);
+    default: return aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv);
+  }
 }
 
 template <int kDP>
 int launch_tc(Kind kind, const Args& a) {
-  static bool ready[2] = {false, false};
+  static bool ready[3] = {false, false, false};
   const int vec = vector_rows(a, kind) ? 1 : 0;
   int rc = 0;
   if (kind == Kind::kFwd) {
@@ -898,9 +998,17 @@ int launch_tc(Kind kind, const Args& a) {
     const dim3 grid((a.Sq + kTcRows - 1) / kTcRows, a.H, a.B);
     flash_fwd_tc_kernel<kDP><<<grid, kTcThreads, smem, a.stream>>>(
         a.q, a.k, a.v, a.o, a.lse, a.Sq, a.Sk, a.H, a.D, a.scale, a.causal, vec);
+  } else if (kind == Kind::kDq) {
+    const size_t smem = dq_tc_smem<kDP>();
+    rc = prepare(flash_bwd_dq_tc_kernel<kDP>, smem, &ready[1]);
+    if (rc) return rc;
+    const dim3 grid((a.Sq + kTcRows - 1) / kTcRows, a.H, a.B);
+    flash_bwd_dq_tc_kernel<kDP><<<grid, kTcThreads, smem, a.stream>>>(
+        a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.Sq, a.Sk, a.H, a.D, a.scale,
+        a.causal, vec);
   } else {
     const size_t smem = dkv_tc_smem<kDP>();
-    rc = prepare(flash_bwd_dkv_tc_kernel<kDP>, smem, &ready[1]);
+    rc = prepare(flash_bwd_dkv_tc_kernel<kDP>, smem, &ready[2]);
     if (rc) return rc;
     const dim3 grid((a.Sk + kTcRows - 1) / kTcRows, a.H, a.B);
     flash_bwd_dkv_tc_kernel<kDP><<<grid, kTcThreads, smem, a.stream>>>(
@@ -910,37 +1018,34 @@ int launch_tc(Kind kind, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the CUDA-core kernels: dQ at every D, forward and dK/dV for D > 128
+// the CUDA-core kernels, D > 128 (kNDC = 5..8 columns of 32)
 template <int kNDC>
 int launch_simt(Kind kind, const Args& a) {
+  static_assert(kNDC > 4, "D <= 128 takes the tensor cores");
   const size_t smem = smem_bytes<kNDC>(kind);
   static bool ready[3] = {false, false, false};
   bool* r = &ready[static_cast<int>(kind)];
   int rc = 0;
-  if (kind == Kind::kDq) {
+  if (kind == Kind::kFwd) {
+    rc = prepare(flash_fwd_kernel<kNDC>, smem, r);
+    if (rc) return rc;
+    const dim3 grid((a.Sq + kBlockRows - 1) / kBlockRows, a.H, a.B);
+    flash_fwd_kernel<kNDC><<<grid, kThreads, smem, a.stream>>>(
+        a.q, a.k, a.v, a.o, a.lse, a.Sq, a.Sk, a.H, a.D, a.scale, a.causal);
+  } else if (kind == Kind::kDq) {
     rc = prepare(flash_bwd_dq_kernel<kNDC>, smem, r);
     if (rc) return rc;
     const dim3 grid((a.Sq + kBlockRows - 1) / kBlockRows, a.H, a.B);
     flash_bwd_dq_kernel<kNDC><<<grid, kThreads, smem, a.stream>>>(
         a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.Sq, a.Sk, a.H, a.D, a.scale,
         a.causal);
-  } else if constexpr (kNDC > 4) {
-    if (kind == Kind::kFwd) {
-      rc = prepare(flash_fwd_kernel<kNDC>, smem, r);
-      if (rc) return rc;
-      const dim3 grid((a.Sq + kBlockRows - 1) / kBlockRows, a.H, a.B);
-      flash_fwd_kernel<kNDC><<<grid, kThreads, smem, a.stream>>>(
-          a.q, a.k, a.v, a.o, a.lse, a.Sq, a.Sk, a.H, a.D, a.scale, a.causal);
-    } else {
-      rc = prepare(flash_bwd_dkv_kernel<kNDC>, smem, r);
-      if (rc) return rc;
-      const dim3 grid((a.Sk + kBlockRows - 1) / kBlockRows, a.H, a.B);
-      flash_bwd_dkv_kernel<kNDC><<<grid, kThreads, smem, a.stream>>>(
-          a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dk, a.dv, a.Sq, a.Sk, a.H, a.D, a.scale,
-          a.causal);
-    }
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);  // D <= 128 takes the tensor cores
+    rc = prepare(flash_bwd_dkv_kernel<kNDC>, smem, r);
+    if (rc) return rc;
+    const dim3 grid((a.Sk + kBlockRows - 1) / kBlockRows, a.H, a.B);
+    flash_bwd_dkv_kernel<kNDC><<<grid, kThreads, smem, a.stream>>>(
+        a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dk, a.dv, a.Sq, a.Sk, a.H, a.D, a.scale,
+        a.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -949,17 +1054,11 @@ int dispatch(Kind kind, const Args& a) {
   if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.H < 1 || a.D < 1 || a.D > 256 || a.B > 65535 ||
       a.H > 65535 || (a.causal && a.Sq != a.Sk))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (kind != Kind::kDq && a.D <= 128) {
-    if (a.D <= 32) return launch_tc<32>(kind, a);
-    if (a.D <= 64) return launch_tc<64>(kind, a);
-    if (a.D <= 96) return launch_tc<96>(kind, a);
-    return launch_tc<128>(kind, a);
-  }
+  if (a.D <= 32) return launch_tc<32>(kind, a);
+  if (a.D <= 64) return launch_tc<64>(kind, a);
+  if (a.D <= 96) return launch_tc<96>(kind, a);
+  if (a.D <= 128) return launch_tc<128>(kind, a);
   switch ((a.D + 31) / 32) {
-    case 1: return launch_simt<1>(kind, a);
-    case 2: return launch_simt<2>(kind, a);
-    case 3: return launch_simt<3>(kind, a);
-    case 4: return launch_simt<4>(kind, a);
     case 5: return launch_simt<5>(kind, a);
     case 6: return launch_simt<6>(kind, a);
     case 7: return launch_simt<7>(kind, a);

@@ -2,10 +2,12 @@
 //
 // Replaces the Pallas TPU kernels of
 // flexflow_tpu/ops/kernels/decode_attention.py:
-//   * _append_kernel        (launched by paged_append_attention, kv_splits=1)
-//   * _append_kernel_split  (launched by paged_append_attention, kv_splits>1;
-//                            the partials are finished by the plain-PyTorch
-//                            _combine_splits in decode_attention.py)
+//   * _append_kernel        (launched by paged_append_attention, kv_splits=1,
+//                            :368) -> ff_paged_append_f32
+//   * _append_kernel_split  (launched by paged_append_attention, kv_splits>1,
+//                            :338; the partials are finished by the
+//                            plain-PyTorch _combine_splits in
+//                            decode_attention.py) -> ff_paged_append_split_f32
 //
 // What it computes, per sequence b: a window of W queries q[b] [W,H,D]
 // attends over the cache blocks named by block_tables[b] in
@@ -14,316 +16,444 @@
 // q_positions[b,w] < 0 marks a padding query, which emits zeros. Softmax
 // is online, in fp32.
 //
-// Design. One thread block per (head, split, sequence), of 16 warps (8 or 4
-// where the window's per-warp state would overflow shared memory). The TPU
-// kernel walks cache blocks as a sequential grid axis and carries its
-// online-softmax state in VMEM scratch from one grid step to the next;
-// here nothing carries between thread blocks. The block reads its own
-// block_tables row and q_positions (this replaces scalar prefetch), keeps
-// the W <= 32 scaled queries in shared memory, and cuts its range of key
-// positions into tiles of 32. The warps take the tiles in turn and run
-// independently, without block-wide barriers, each with its own
-// online-softmax state (m, l and an fp32 accumulator [W, D] in shared
-// memory):
-//   * scores: lane t owns key position t of the tile, reads its K row
-//     (16-byte loads, eight in flight) and dots it with every query;
-//   * softmax: per query, a warp max and a warp sum rescale the state;
-//   * values: lane d owns head-dim columns d, d+32, ...; it loads the
-//     tile's 32 V values of its column (coalesced across lanes, all in
-//     flight at once) and folds them into the accumulator.
-// Positions past max(q_positions[b]) are never read, nor are table columns
-// past the split's range (the ragged last split of the split-KV form). At
-// the end the warp states combine exactly (rescaled by
-// exp(m_warp - m_max)). With one split the block writes the normalised
-// output; with S splits it writes the unnormalised partials
-// (acc [B,S,W,H,D], m and l [B,S,H,W]) in the JAX layout.
+// Design. A thread block (CTA) of 4 warps takes one head of one sequence
+// over one contiguous range of key positions. The TPU kernel walks cache
+// blocks as a sequential grid axis and carries its online-softmax state in
+// VMEM scratch from one grid step to the next; here a CTA loops over its
+// own range and the ranges combine at the end.
+//   * ff_paged_append_f32 splits each (head, sequence) across a
+//     thread-block cluster: grid (C, H, B), cluster (C, 1, 1), with
+//     C = ceil(MB * bs / 128) CTAs, at most 8 (the portable cluster
+//     size). The CTAs share the sequence's live positions (up to
+//     max(q_positions[b]) + 1) evenly, in whole tiles of 32, so the
+//     longest sequence of a batch is spread over all C SMs; a short one
+//     leaves some CTAs empty. At the serving shape (B = 4, H = 12, 64
+//     columns of 16) that is 384 CTAs on the 132 SMs; shared memory is
+//     kept to a quarter of an SM's so they run in one wave (at a third,
+//     the card holds 45 of the 48 clusters at once).
+//   * ff_paged_append_split_f32 runs the same CTA once per split over the
+//     split's table columns (no cluster) and writes the split's partials.
+// A CTA first reads its query positions, its scaled queries and the table
+// columns it may use (the whole row in a cluster), all at once. Then it
+// works in rounds of up to 4 tiles of 32 positions (as many as shared
+// memory holds at that occupancy: 3 at D = 64, so a round covers a
+// serving CTA's whole share):
+//   * staging: the cache row of each position of the round is computed
+//     once, then the threads gather the K and V rows (one cache row of D
+//     floats per head) of every tile of the round into shared memory with
+//     16-byte cp.async (4-byte where D % 4 != 0 or the cache is not
+//     16-byte aligned), all in flight together: a round costs one memory
+//     latency, not one per tile and per K and V. Rows are padded to
+//     D + 4 floats;
+//   * scores: quad t of the CTA (4 lanes) owns position t of each tile
+//     and dots its K row with every query, the lanes taking interleaved
+//     16-byte chunks of the head dim;
+//   * softmax: warp j takes queries j, j + 4, ...; lane t holds position
+//     t of each tile; one warp max and one warp sum per round update the
+//     CTA's state (m, l);
+//   * values: each thread owns fixed (query, column) pairs of the [W, D]
+//     accumulator, in registers, and folds in the round's V rows.
+// A CTA ends holding (m, l, acc). In the cluster the CTAs then combine
+// exactly through distributed shared memory: after cluster.sync() each
+// CTA writes its slice of the W * D normalised outputs, each element
+// reading every CTA's m, l and accumulator element at once and weighting
+// CTA r by exp(m_r - m_max) - zero where l_r = 0, a CTA with no live
+// position, whose m of -1e30 would otherwise give exp(0) = 1 - and a
+// padding query gets exact zeros. A second cluster.sync() keeps every
+// CTA's shared memory alive until the others have read it. One launch,
+// no scratch in device memory, and capturable in a CUDA graph. The split
+// form writes the unnormalised partials instead (acc [B,S,W,H,D], m and l
+// [B,S,H,W]) in the JAX layout.
 //
 // Bound on this card. The kernel is bound by bytes: it must read the live
 // K and V rows once, 2 * sum(ctx) * H * D * 4 bytes per layer, at the
-// H100's 3.35 TB/s; its 4 * sum(ctx) * H * D fp32 operations per window
-// query are far below the 67 TFLOP/s fp32 rate. This version hides load
-// latency only by the loads each lane keeps in flight and by the warps of
-// a block running apart. Staging tiles through shared memory with cp.async
-// or TMA in a multi-stage pipeline, more thread blocks per sequence at
-// small batch, and wgmma for wide windows are left for a later change.
+// H100's 3.35 TB/s (2.1 us at the serving shape); its 4 * sum(ctx) * H * D
+// fp32 operations per window query are far below the 67 TFLOP/s fp32
+// rate. At decode sizes the time is latency, not bytes: the cluster's
+// launch (about 2.3 us with nothing to do), two dependent reads
+// (positions, queries and table, then K and V), four barriers a round and
+// the combine's remote reads between the cluster's two barriers
+// (tools/paged_probe.py times each part).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxWarps = 16;  // warps per block: 16, 8 or 4, as shared memory allows
-constexpr int kMaxThreads = 32 * kMaxWarps;
-constexpr size_t kSmemLimit = 232448;  // bytes of shared memory a block can use on sm_90
-constexpr int kTile = 32;  // key positions per warp tile; one per lane
-constexpr int kChunk = 8;  // float4 loads a lane keeps in flight on its K row
-constexpr float kNegInf = -1e30f;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 32;            // key positions per staged tile: a quad each, 8 per warp
+constexpr int kMaxStages = 4;        // tiles a round can stage
+constexpr int kRound = kMaxStages * kTile;
+constexpr int kMaxCluster = 8;       // the portable cluster size
+constexpr int kCtaPositions = 128;   // table positions per CTA the cluster size aims at
+constexpr int kMaxHeadDim = 256;
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+__host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// row stride (floats) of a staged K or V tile: D rounded up to 4, plus 4,
+// so the score reads of neighbouring positions are offset by 4 banks
+__host__ __device__ inline int tile_ld(int d) { return round4(d) + 4; }
 
-// kMaxW: a compile-time bound on W (1, 8 or 32), so the per-lane scores
-// stay in registers. kSplit: write partials instead of the output.
+// kMaxW: a compile-time bound on W (1, 8 or 32), so the per-thread scores
+// and accumulators stay in registers. kSplit: write partials (one CTA per
+// split) instead of combining a cluster's CTAs into the output.
 template <int kMaxW, bool kSplit>
-__global__ void __launch_bounds__(kMaxThreads) paged_append_kernel(
-    const float* __restrict__ q,             // [B, W, H, D]
-    const float* __restrict__ k_cache,       // [num_blocks, bs, H, D]
-    const float* __restrict__ v_cache,       // [num_blocks, bs, H, D]
-    const int* __restrict__ block_tables,    // [B, MB]
-    const int* __restrict__ q_positions,     // [B, W]
-    float* __restrict__ out,                 // [B, W, H, D] or acc [B, S, W, H, D]
-    float* __restrict__ m_out,               // split only: [B, S, H, W]
-    float* __restrict__ l_out,               // split only: [B, S, H, W]
-    int W, int H, int D, int bs, int MB, int S, int bps, float scale) {
-  const int h = blockIdx.x;
-  const int s = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nthreads = blockDim.x;
-  const int nwarps = nthreads >> 5;
-
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* q_s = smem;                          // [W, D] scaled queries (16-byte aligned)
-  float* acc_s = q_s + W * D;                 // [nwarps, W, D] per-warp numerators
-  float* p_s = acc_s + nwarps * W * D;        // [nwarps, W, kTile] probabilities
-  float* m_s = p_s + nwarps * W * kTile;      // [nwarps, W] running max
-  float* l_s = m_s + nwarps * W;              // [nwarps, W] running denominator
-  float* c_s = l_s + nwarps * W;              // [nwarps, W] rescale factors
-  int* qp_s = reinterpret_cast<int*>(c_s + nwarps * W);  // [W] query positions
-  int* row_s = qp_s + W;                      // [nwarps, kTile] cache rows of a tile
-
+__global__ void __launch_bounds__(kThreads) paged_append_kernel(
+    const float* __restrict__ q,           // [B, W, H, D]
+    const float* __restrict__ k_cache,     // [num_blocks, bs, H, D]
+    const float* __restrict__ v_cache,     // [num_blocks, bs, H, D]
+    const int* __restrict__ block_tables,  // [B, MB]
+    const int* __restrict__ q_positions,   // [B, W]
+    float* __restrict__ out,               // [B, W, H, D] or acc [B, S, W, H, D]
+    float* __restrict__ m_out,             // split only: [B, S, H, W]
+    float* __restrict__ l_out,             // split only: [B, S, H, W]
+    int W, int H, int D, int bs, int MB,
+    int bt_cols,  // table columns a CTA holds: a split's, or the whole row
+    int stages, int vec, float scale) {
+  constexpr int kPairs = kMaxW * kMaxHeadDim / kThreads;  // (query, column) pairs a thread owns
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int S = gridDim.x;  // splits, or the cluster's CTAs
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d4 = round4(D), ld = tile_ld(D);
   const long long HD = static_cast<long long>(H) * D;
-  for (int w = tid; w < W; w += nthreads) qp_s[w] = q_positions[static_cast<long long>(b) * W + w];
-  for (int i = tid; i < nwarps * W; i += nthreads) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.f;
-  }
-  for (int i = tid; i < W * D; i += nthreads) {
-    const int w = i / D;
-    const int d = i - w * D;
-    q_s[i] = q[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] * scale;
-  }
-  for (int i = tid; i < nwarps * W * D; i += nthreads) acc_s[i] = 0.f;
-  __syncthreads();
 
+  extern __shared__ __align__(16) float smem[];
+  float* tiles = smem;  // [stages][K, V][kTile][ld]: the tiles of a round
+  long long* row_s = reinterpret_cast<long long*>(tiles + stages * 2 * kTile * ld);  // [kRound]
+  float* q_s = reinterpret_cast<float*>(row_s + kRound);  // [W][d4] scaled queries, zero past D
+  float* sp_s = q_s + W * d4;                   // [W][kRound + 1] scores, then probabilities
+  float* m_s = sp_s + W * (kRound + 1);         // [W] running max
+  float* l_s = m_s + W;                         // [W] running denominator
+  float* c_s = l_s + W;                         // [W] this round's rescale factor
+  int* qp_s = reinterpret_cast<int*>(c_s + W);  // [W] query positions
+  int* bt_s = qp_s + W;                         // [bt_cols] table columns from col0
+
+  // the table columns this CTA may read: its split's, or the whole row
+  const int col0 = kSplit ? s * bt_cols : 0;
+  const int* bt = block_tables + static_cast<long long>(b) * MB;
+  for (int i = tid; i < min(bt_cols, MB - col0); i += kThreads) bt_s[i] = bt[col0 + i];
+  for (int w = tid; w < W; w += kThreads) {
+    qp_s[w] = q_positions[static_cast<long long>(b) * W + w];
+    m_s[w] = kNegInf;
+    l_s[w] = 0.f;
+  }
+  for (int i = tid; i < W * d4; i += kThreads) {
+    const int w = i / d4, d = i - w * d4;
+    q_s[i] = d < D ? q[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] *
+                         scale
+                   : 0.f;
+  }
+  __syncthreads();
   int max_qp = -1;
   for (int w = 0; w < W; ++w) max_qp = max(max_qp, qp_s[w]);
+  // the key positions this CTA takes, none past the last any query sees
+  int pos0, pos1;
+  if (kSplit) {  // the split's table columns
+    pos0 = col0 * bs;
+    pos1 = min(min(col0 + bt_cols, MB) * bs, max_qp + 1);
+  } else {  // an even share of the live positions, in whole tiles
+    const int live = min(MB * bs, max_qp + 1);
+    const int share = ((live + S - 1) / S + kTile - 1) / kTile * kTile;
+    pos0 = s * share;
+    pos1 = min(live, pos0 + share);
+  }
 
-  // this split's key positions: its table columns, clipped to the table
-  // and to the last position any query of the window can see
-  const int* bt = block_tables + static_cast<long long>(b) * MB;
-  const int col0 = s * bps;
-  const int col1 = min(col0 + bps, MB);
-  const int pos0 = col0 * bs;
-  const int pos1 = min(col1 * bs, max_qp + 1);
-  const int ntiles = pos1 > pos0 ? (pos1 - pos0 + kTile - 1) / kTile : 0;
+  // the copies: each thread takes one column chunk of every rows_per_pass-th row
+  const int chunk = vec ? 4 : 1;
+  const int per_row = d4 / chunk, tpr = min(per_row, kThreads), rows_per_pass = kThreads / tpr;
+  const int my_row = tid / tpr, my_c = (tid - my_row * tpr) * chunk;
+  float acc[kPairs];
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) acc[k] = 0.f;
+  const int quad_t = warp * 8 + (lane >> 2);  // the tile position this thread's quad scores
+  const int quad_c = (lane & 3) * 4;          // its first head-dim chunk
 
-  float* acc_w = acc_s + warp * W * D;
-  float* p_w = p_s + warp * W * kTile;
-  float* m_w = m_s + warp * W;
-  float* l_w = l_s + warp * W;
-  float* c_w = c_s + warp * W;
-  int* row_w = row_s + warp * kTile;
-  // 16-byte K loads where every row starts on a 16-byte boundary
-  const bool vec4 = (D & 3) == 0 && (reinterpret_cast<uintptr_t>(k_cache) & 15) == 0;
-
-  for (int tile = warp; tile < ntiles; tile += nwarps) {
-    const int t0 = pos0 + tile * kTile;
-    const int nt = min(kTile, pos1 - t0);
-    const int p = t0 + lane;
-    const bool live = lane < nt;
-
-    // scores: lane `lane` owns key position p
-    float dots[kMaxW];
-#pragma unroll
-    for (int w = 0; w < kMaxW; ++w) dots[w] = 0.f;
-    if (live) {
-      const int col = p / bs;
-      const int row = bt[col] * bs + (p - col * bs);
-      row_w[lane] = row;
-      const float* kr = k_cache + static_cast<long long>(row) * HD + static_cast<long long>(h) * D;
-      if (vec4) {
-        for (int d0 = 0; d0 < D; d0 += 4 * kChunk) {
-          float4 kk[kChunk];
-#pragma unroll
-          for (int u = 0; u < kChunk; ++u)
-            kk[u] = d0 + 4 * u < D ? __ldg(reinterpret_cast<const float4*>(kr + d0 + 4 * u))
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-          for (int u = 0; u < kChunk; ++u) {
-#pragma unroll
-            for (int w = 0; w < kMaxW; ++w) {
-              if (w < W && d0 + 4 * u < D) {
-                const float4 qq = *reinterpret_cast<const float4*>(q_s + w * D + d0 + 4 * u);
-                dots[w] = fmaf(qq.x, kk[u].x, dots[w]);
-                dots[w] = fmaf(qq.y, kk[u].y, dots[w]);
-                dots[w] = fmaf(qq.z, kk[u].z, dots[w]);
-                dots[w] = fmaf(qq.w, kk[u].w, dots[w]);
-              }
-            }
+  // rounds of up to `stages` tiles, every tile of a round in flight at once
+  for (int r0 = pos0; r0 < pos1; r0 += stages * kTile) {
+    const int rlen = min(stages * kTile, pos1 - r0);  // live positions of the round
+    const int nt = (rlen + kTile - 1) / kTile;        // its tiles
+    for (int t = tid; t < nt * kTile; t += kThreads) {  // the cache row of each position
+      long long off = -1;
+      if (t < rlen) {
+        const int p = r0 + t, col = p / bs;
+        off = (static_cast<long long>(bt_s[col - col0]) * bs + (p - col * bs)) * HD +
+              static_cast<long long>(h) * D;
+      }
+      row_s[t] = off;
+    }
+    __syncthreads();  // and the previous round is consumed
+    // K and V rows into the tiles; zeros past the live positions and past D
+    if (my_row < rows_per_pass) {
+      for (int t = my_row; t < nt * kTile; t += rows_per_pass) {
+        const long long off = row_s[t];
+        float* kd = tiles + (t / kTile) * 2 * kTile * ld + (t % kTile) * ld;
+        float* vd = kd + kTile * ld;
+        for (int c = my_c; c < d4; c += tpr * chunk) {
+          const bool ok = off >= 0 && c < D;
+          const long long src = ok ? off + c : 0;
+          if (vec) {
+            cp_async16(kd + c, k_cache + src, ok);
+            cp_async16(vd + c, v_cache + src, ok);
+          } else {
+            cp_async4(kd + c, k_cache + src, ok);
+            cp_async4(vd + c, v_cache + src, ok);
           }
         }
-      } else {
-        for (int d = 0; d < D; ++d) {
-          const float kv = __ldg(kr + d);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+
+    // scores of position quad_t of every tile with every query
+    for (int j = 0; j < nt; ++j) {
+      const float* kr = tiles + j * 2 * kTile * ld + quad_t * ld;
+      float dots[kMaxW];
 #pragma unroll
-          for (int w = 0; w < kMaxW; ++w)
-            if (w < W) dots[w] = fmaf(q_s[w * D + d], kv, dots[w]);
+      for (int w = 0; w < kMaxW; ++w) dots[w] = 0.f;
+      for (int c = quad_c; c < d4; c += 16) {
+        const float4 kk = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+        for (int w = 0; w < kMaxW; ++w) {
+          if (w < W) {
+            const float4 qq = *reinterpret_cast<const float4*>(q_s + w * d4 + c);
+            dots[w] = fmaf(qq.x, kk.x, dots[w]);
+            dots[w] = fmaf(qq.y, kk.y, dots[w]);
+            dots[w] = fmaf(qq.z, kk.z, dots[w]);
+            dots[w] = fmaf(qq.w, kk.w, dots[w]);
+          }
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < kMaxW; ++w) {
+        if (w < W) {
+          float x = dots[w];
+          x += __shfl_xor_sync(kFull, x, 1);
+          x += __shfl_xor_sync(kFull, x, 2);
+          if ((lane & 3) == 0) sp_s[w * (kRound + 1) + j * kTile + quad_t] = x;
         }
       }
     }
+    __syncthreads();
 
-    // online softmax, per query: every lane reads the old state before
-    // the shuffles, lane 0 writes the new state after them
+    // online softmax over the round, per query: lane t holds position t
+    // of each tile; every lane reads the old state before the shuffles,
+    // lane 0 writes the new state after them
+    for (int w = warp; w < W; w += kWarps) {
+      float* row = sp_s + w * (kRound + 1);
+      float sc[kMaxStages];
+      float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kMaxW; ++w) {
-      if (w < W) {
-        const bool valid = live && p <= qp_s[w];
-        const float sc = valid ? dots[w] : kNegInf;
-        const float m_prev = m_w[w];
-        const float m_new = fmaxf(m_prev, warp_max(sc));
-        // explicit zero for masked lanes: with every position so far
-        // masked m_new is kNegInf and exp(sc - m_new) would be 1
-        const float pv = valid ? expf(sc - m_new) : 0.f;
-        p_w[w * kTile + lane] = pv;
-        const float psum = warp_sum(pv);
-        if (lane == 0) {
-          const float corr = expf(m_prev - m_new);
-          c_w[w] = corr;
-          m_w[w] = m_new;
-          l_w[w] = l_w[w] * corr + psum;
+      for (int j = 0; j < kMaxStages; ++j) {
+        const int t = j * kTile + lane;
+        sc[j] = j < nt && t < rlen && r0 + t <= qp_s[w] ? row[t] : kNegInf;
+        mx = fmaxf(mx, sc[j]);
+      }
+      const float m_prev = m_s[w];
+      const float m_new = fmaxf(m_prev, warp_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxStages; ++j) {
+        const int t = j * kTile + lane;
+        if (j < nt) {
+          // explicit zero for masked positions: with every position so
+          // far masked m_new is kNegInf and exp(sc - m_new) would be 1
+          const float pv = t < rlen && r0 + t <= qp_s[w] ? expf(sc[j] - m_new) : 0.f;
+          row[t] = pv;
+          sum += pv;
         }
       }
-    }
-    __syncwarp();
-
-    // values: lane owns head-dim columns d = lane, lane + 32, ...
-    for (int d = lane; d < D; d += 32) {
-      float vcol[kTile];
-#pragma unroll
-      for (int t = 0; t < kTile; ++t)
-        vcol[t] = t < nt ? __ldg(v_cache + static_cast<long long>(row_w[t]) * HD +
-                                 static_cast<long long>(h) * D + d)
-                         : 0.f;
-      for (int w = 0; w < W; ++w) {
-        const float* pr = p_w + w * kTile;
-        float a = acc_w[w * D + d] * c_w[w];
-#pragma unroll
-        for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], vcol[t], a);
-        acc_w[w * D + d] = a;
+      const float psum = warp_sum(sum);
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        c_s[w] = corr;
+        m_s[w] = m_new;
+        l_s[w] = l_s[w] * corr + psum;
       }
     }
-    __syncwarp();  // row_w / p_w are rewritten by the warp's next tile
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // combine the warps' states exactly: alpha_j = exp(m_j - m_max)
-  float* mx_s = p_s;      // [W] (p_s is free now)
-  float* den_s = p_s + W; // [W]
-  for (int w = tid; w < W; w += nthreads) {
-    float mx = kNegInf;
-    for (int j = 0; j < nwarps; ++j) mx = fmaxf(mx, m_s[j * W + w]);
-    float den = 0.f;
-    for (int j = 0; j < nwarps; ++j) {
-      const float a = expf(m_s[j * W + w] - mx);  // an empty warp has l = acc = 0
-      c_s[j * W + w] = a;
-      den = fmaf(l_s[j * W + w], a, den);
+    // values: this thread's (query, column) pairs
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int idx = tid + k * kThreads;
+      if (idx < W * D) {
+        const int w = idx / D, d = idx - w * D;
+        float a = acc[k] * c_s[w];
+        for (int j = 0; j < nt; ++j) {
+          const float* pr = sp_s + w * (kRound + 1) + j * kTile;
+          const float* vt = tiles + (2 * j + 1) * kTile * ld + d;
+#pragma unroll 8
+          for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], vt[t * ld], a);
+        }
+        acc[k] = a;
+      }
     }
-    mx_s[w] = mx;
-    den_s[w] = den;
   }
-  __syncthreads();
+  __syncthreads();  // every tile is consumed: the tiles' memory is free
 
-  const long long bsi = static_cast<long long>(b) * S + s;
-  for (int i = tid; i < W * D; i += nthreads) {
-    const int w = i / D;
-    const int d = i - w * D;
-    float a = 0.f;
-    for (int j = 0; j < nwarps; ++j) a = fmaf(acc_s[(j * W + w) * D + d], c_s[j * W + w], a);
-    if (kSplit) {
-      out[(bsi * W + w) * HD + static_cast<long long>(h) * D + d] = a;
-    } else {
+  if constexpr (kSplit) {
+    const long long bsi = static_cast<long long>(b) * S + s;
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int idx = tid + k * kThreads;
+      if (idx < W * D) {
+        const int w = idx / D, d = idx - w * D;
+        out[(bsi * W + w) * HD + static_cast<long long>(h) * D + d] = acc[k];
+      }
+    }
+    for (int w = tid; w < W; w += kThreads) {
+      m_out[(bsi * H + h) * W + w] = m_s[w];
+      l_out[(bsi * H + h) * W + w] = l_s[w];
+    }
+  } else {
+    // combine the cluster's CTAs exactly, through distributed shared memory
+    cg::cluster_group cluster = cg::this_cluster();
+    float* acc_s = tiles;  // [W][D]
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int idx = tid + k * kThreads;
+      if (idx < W * D) acc_s[idx] = acc[k];
+    }
+    cluster.sync();  // every CTA's m, l and acc are written and visible
+    // this CTA's slice of the W * D outputs; each reads every CTA's m, l
+    // and accumulator element, all remote reads in flight together
+    const int per = (W * D + S - 1) / S;
+    const int end = min(W * D, (s + 1) * per);
+    for (int idx = s * per + tid; idx < end; idx += kThreads) {
+      const int w = idx / D, d = idx - w * D;
+      float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        mr[r] = r < S ? *cluster.map_shared_rank(m_s + w, r) : kNegInf;
+        lr[r] = r < S ? *cluster.map_shared_rank(l_s + w, r) : 0.f;
+        ar[r] = r < S ? cluster.map_shared_rank(acc_s, r)[idx] : 0.f;
+      }
+      float mx = kNegInf;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        const float a = lr[r] > 0.f ? expf(mr[r] - mx) : 0.f;
+        num = fmaf(ar[r], a, num);
+        den = fmaf(lr[r], a, den);
+      }
       out[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] =
-          qp_s[w] >= 0 ? a / fmaxf(den_s[w], 1e-30f) : 0.f;
+          qp_s[w] >= 0 ? num / fmaxf(den, 1e-30f) : 0.f;
     }
-  }
-  if (kSplit) {
-    for (int w = tid; w < W; w += nthreads) {
-      m_out[(bsi * H + h) * W + w] = mx_s[w];
-      l_out[(bsi * H + h) * W + w] = den_s[w];
-    }
+    cluster.sync();  // no CTA exits while another still reads its shared memory
   }
 }
 
-size_t smem_bytes(int W, int D, int nwarps) {
-  const size_t w = static_cast<size_t>(W);
-  const size_t d = static_cast<size_t>(D);
-  const size_t nw = static_cast<size_t>(nwarps);
-  return sizeof(float) * (w * d + nw * w * d + nw * w * kTile + 3 * nw * w) +
-         sizeof(int) * (w + nw * kTile);
+// CTAs a sequence's table is split over: one per kCtaPositions positions
+// of its width, at most the portable cluster size, and none without
+// table columns
+int cluster_size(int MB, int bs) {
+  const long long want = (static_cast<long long>(MB) * bs + kCtaPositions - 1) / kCtaPositions;
+  const int c = static_cast<int>(std::max(1LL, std::min<long long>({want, kMaxCluster, MB})));
+  const int cols = (MB + c - 1) / c;
+  return (MB + cols - 1) / cols;
 }
+
+size_t smem_bytes(int W, int D, int bt_cols, int stages) {
+  const size_t w = static_cast<size_t>(W);
+  return sizeof(float) * (static_cast<size_t>(stages) * 2 * kTile * tile_ld(D) + 2 * kRound +
+                          w * round4(D) + w * (kRound + 1) + 4 * w + static_cast<size_t>(bt_cols));
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 template <int kMaxW, bool kSplit>
 int launch(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
            const int* q_positions, float* out, float* m_out, float* l_out, int B, int W, int H,
-           int D, int bs, int MB, int S, int bps, float scale, cudaStream_t stream) {
-  // the most warps whose per-warp state fits: more warps, more key
-  // positions in flight for a sequence
-  int nwarps = kMaxWarps;
-  while (nwarps > 4 && smem_bytes(W, D, nwarps) > kSmemLimit) nwarps /= 2;
-  const size_t smem = smem_bytes(W, D, nwarps);
+           int D, int bs, int MB, int S, int bt_cols, float scale, cudaStream_t stream) {
+  // the most stages (tiles a round holds) that leave room for 4 CTAs an
+  // SM in a cluster launch (so the 384 CTAs of the serving shape run in
+  // one wave) or 2 in a split launch (its CTAs are few); at least one
+  int stages = kMaxStages;
+  while (stages > 1 && smem_bytes(W, D, bt_cols, stages) > kSmemLimit / (kSplit ? 2 : 4)) --stages;
+  const size_t smem = smem_bytes(W, D, bt_cols, stages);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_append_kernel<kMaxW, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  // raise the dynamic shared-memory limit once (the first launch of each
+  // instance); later launches, such as those captured into a CUDA graph,
+  // set nothing
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(paged_append_kernel<kMaxW, kSplit>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemLimit));
     if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
   }
-  const dim3 grid(H, S, B);
-  paged_append_kernel<kMaxW, kSplit><<<grid, 32 * nwarps, smem, stream>>>(
-      q, k_cache, v_cache, block_tables, q_positions, out, m_out, l_out, W, H, D, bs, MB, S, bps,
-      scale);
+  const int vec = D % 4 == 0 && aligned16(k_cache) && aligned16(v_cache) ? 1 : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, H, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;  // the single-pass form: one cluster per (head, sequence)
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kSplit ? 0 : 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, paged_append_kernel<kMaxW, kSplit>, q, k_cache, v_cache,
+                         block_tables, q_positions, out, m_out, l_out, W, H, D, bs, MB,
+                         bt_cols, stages, vec, scale);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kSplit>
 int dispatch(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
              const int* q_positions, float* out, float* m_out, float* l_out, int B, int W, int H,
-             int D, int bs, int MB, int S, int bps, float scale, cudaStream_t stream) {
-  if (W < 1 || W > 32 || D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+             int D, int bs, int MB, int S, int bt_cols, float scale, cudaStream_t stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || W < 1 || W > 32 || D < 1 || D > kMaxHeadDim ||
+      bs < 1 || MB < 1 || S < 1 || bt_cols < 1 || (!kSplit && S > kMaxCluster))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (W == 1)
     return launch<1, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, m_out, l_out, B,
-                             W, H, D, bs, MB, S, bps, scale, stream);
+                             W, H, D, bs, MB, S, bt_cols, scale, stream);
   if (W <= 8)
     return launch<8, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, m_out, l_out, B,
-                             W, H, D, bs, MB, S, bps, scale, stream);
+                             W, H, D, bs, MB, S, bt_cols, scale, stream);
   return launch<32, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, m_out, l_out, B,
-                            W, H, D, bs, MB, S, bps, scale, stream);
+                            W, H, D, bs, MB, S, bt_cols, scale, stream);
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes (flexflow_tpu_torch/ops/kernels/_build.py).
-// Every pointer is a device pointer; stream is a cudaStream_t. Returns the
-// cudaError_t of the launch (0 on success).
+// Every pointer is a device pointer; stream is a cudaStream_t. The
+// launches return the cudaError_t of the launch (0 on success), also
+// where the card refuses the cluster.
 
 extern "C" int ff_paged_append_f32(const float* q, const float* k_cache, const float* v_cache,
                                    const int* block_tables, const int* q_positions, float* out,
                                    int B, int W, int H, int D, int bs, int MB, float scale,
                                    void* stream) {
+  if (MB < 1 || bs < 1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<false>(q, k_cache, v_cache, block_tables, q_positions, out, nullptr, nullptr, B,
-                         W, H, D, bs, MB, 1, MB, scale, static_cast<cudaStream_t>(stream));
+                         W, H, D, bs, MB, cluster_size(MB, bs), MB, scale,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// the cluster size ff_paged_append_f32 launches for a table of MB columns
+// of bs positions (0 for an empty table)
+extern "C" int ff_paged_append_cluster_size(int MB, int bs) {
+  return MB < 1 || bs < 1 ? 0 : cluster_size(MB, bs);
 }
 
 extern "C" int ff_paged_append_split_f32(const float* q, const float* k_cache,

@@ -18,10 +18,14 @@ Two lowerings, chosen by where the tensors lie:
   :func:`reference_paged_append_partials` that :func:`_combine_splits`
   finishes. They run for CPU tensors and are the parity oracle the CUDA
   kernels are held against on the card.
-* the CUDA kernels of ``csrc/paged_attention.cu`` — one thread block per
-  (head, split, sequence) looping over its range of table columns. For a
-  CUDA tensor :func:`paged_append_attention` launches the kernel or
-  raises; it never falls back to the plain version.
+* the CUDA kernels of ``csrc/paged_attention.cu`` — thread blocks that
+  each stage one range of a sequence's table columns through shared
+  memory; the single-pass kernel splits every (head, sequence) across a
+  thread-block cluster (:func:`kernel_cluster_size` blocks) whose blocks
+  combine their softmax states through distributed shared memory, and
+  the split-KV kernel runs one block per split. For a CUDA tensor
+  :func:`paged_append_attention` launches the kernel or raises; it never
+  falls back to the plain version.
 
 Each kernel launch adds one to its count in :data:`LAUNCHES`, so a run
 can show that its main path went through the kernels.
@@ -232,6 +236,16 @@ def _check_kernel_inputs(q, k_cache, v_cache, block_tables, q_positions) -> None
 def _raise_on_error(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+
+
+def kernel_cluster_size(max_blocks: int, block_size: int) -> int:
+    """The thread blocks (one cluster) the single-pass CUDA kernel splits
+    each (head, sequence) over for a table of ``max_blocks`` columns of
+    ``block_size`` positions, as its launcher derives it. Builds the
+    kernels on first use, like a launch."""
+    from ._build import load_library
+
+    return int(load_library().ff_paged_append_cluster_size(max_blocks, block_size))
 
 
 def paged_append_attention_kernel(

@@ -5,8 +5,8 @@
 
 ``variants`` builds copies of ``ops/kernels/csrc/flash_attention.cu`` with
 one design choice changed each (a text substitution, :data:`VARIANTS`),
-all nvcc runs at once, and times the forward and dK/dV kernels of each at
-the training shape (B=32, S=128, H=12, D=64) and at causal B=4 S=512 by
+all nvcc runs at once, and times the forward, dQ and dK/dV kernels of each
+at the training shape (B=32, S=128, H=12, D=64) and at causal B=4 S=512 by
 CUDA events over 100 eager calls on one input set, in two rounds (forward
 order, then reverse), beside the unchanged source. Each variant is also
 held against the plain versions; the ``probe`` variants give wrong results
@@ -35,12 +35,29 @@ B_NK = """  split_tf32(p[g * ld + t], f.big[0], f.small[0]);
 B_KN = """  split_tf32(p[2 * t * ld + g], f.big[0], f.small[0]);
   split_tf32(p[(2 * t + 1) * ld + g], f.big[1], f.small[1]);"""
 
+DQ_A_FROM_SMEM = """      FragA qa, da;
+      load_a(qa, my_q + 8 * d8, kLD, scale);
+      load_a(da, my_do + 8 * d8, kLD, 1.f);"""
+DQ_A_FROM_REGS = """      const FragA& qa = q_frag[d8];
+      const FragA& da = do_frag[d8];"""
+DQ_ROWS = """  const float* my_do = dos + warp * 16 * kLD;
+"""
+DQ_ROWS_SPLIT_ONCE = DQ_ROWS + """  FragA q_frag[kNT], do_frag[kNT];  // split once, held for every key tile
+#pragma unroll
+  for (int d8 = 0; d8 < kNT; ++d8) {
+    load_a(q_frag[d8], my_q + 8 * d8, kLD, scale);
+    load_a(do_frag[d8], my_do + 8 * d8, kLD, 1.f);
+  }
+"""
+
 # name -> [(text in the source, replacement)]
 VARIANTS = {
     "fwd_key_tile_64": [("constexpr int kFwdKeyTile = 32;", "constexpr int kFwdKeyTile = 64;")],
     "fwd_min_blocks_2": [("kDP <= 64 ? 4 : 1)", "kDP <= 64 ? 2 : 1)")],
     "dkv_query_tile_32": [("constexpr int kDkvQueryTile = 16;", "constexpr int kDkvQueryTile = 32;")],
     "dkv_query_tile_64": [("constexpr int kDkvQueryTile = 16;", "constexpr int kDkvQueryTile = 64;")],
+    "dq_key_tile_16": [("constexpr int kDqKeyTile = 32;", "constexpr int kDqKeyTile = 16;")],
+    "dq_a_in_registers": [(DQ_ROWS, DQ_ROWS_SPLIT_ONCE), (DQ_A_FROM_SMEM, DQ_A_FROM_REGS)],
     "split_by_cvt": [(SPLIT_INT, SPLIT_CVT)],
     "probe_no_b_split": [
         (B_NK, B_NK.replace("split_tf32(p[g * ld + t], f.big[0], f.small[0]);",
@@ -115,7 +132,8 @@ def _compile(named_sources):
         src = out_dir / f"{name}.cu"
         src.write_text(text)
         so = out_dir / f"{name}.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-o", str(so), str(src)]
+        # the copies build beside the others, so the shared headers come from csrc/
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o", str(so), str(src)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                             text=True))
     built = {}
@@ -128,12 +146,16 @@ def _compile(named_sources):
 
 
 def _registers(ptxas_log: str, kernel: str) -> str:
+    """ptxas's register count of ``kernel`` (and its spill stores, if any)."""
     lines = ptxas_log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry" in line and kernel in line:
-            for later in lines[i + 1:i + 4]:
-                if "registers" in later:
-                    return later.split("Used", 1)[1].split(",")[0].strip()
+            spill = ""
+            for later in lines[i + 1:i + 5]:
+                if "spill stores" in later and not later.strip().startswith("0 bytes stack"):
+                    spill = " (" + later.strip().split(",")[1].strip() + ")"
+                if "Used" in later and "registers" in later:
+                    return later.split("Used", 1)[1].split(",")[0].strip() + spill
     return "?"
 
 
@@ -158,11 +180,12 @@ def variants() -> int:
     libs = {}
     for name, (so, log) in _compile(sources).items():
         lib = ctypes.CDLL(str(so))
-        for fn in ("ff_flash_fwd_f32", "ff_flash_bwd_dkv_f32"):
+        for fn in ("ff_flash_fwd_f32", "ff_flash_bwd_dq_f32", "ff_flash_bwd_dkv_f32"):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
         print(f"{name}: registers fwd<64> {_registers(log, 'flash_fwd_tc_kernelILi64')}, "
+              f"dq<64> {_registers(log, 'flash_bwd_dq_tc_kernelILi64')}, "
               f"dkv<64> {_registers(log, 'flash_bwd_dkv_tc_kernelILi64')}")
 
     def run_fwd(lib, q, k, v, causal, scale):
@@ -174,6 +197,17 @@ def variants() -> int:
         if rc:
             raise RuntimeError(f"forward launch failed: {rc}")
         return o
+
+    def run_dq(lib, q, k, v, do, lse, delta, causal, scale):
+        b, sq, h, d = q.shape
+        dq = torch.empty_like(q)
+        rc = lib.ff_flash_bwd_dq_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq,
+                                     k.shape[1], h, d, scale, int(causal),
+                                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"dQ launch failed: {rc}")
+        return dq
 
     def run_dkv(lib, q, k, v, do, lse, delta, causal, scale):
         b, sq, h, d = q.shape
@@ -205,22 +239,26 @@ def variants() -> int:
         scale = d ** -0.5
         po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
         delta = fa.flash_delta(do, po)
-        pdk, pdv = fa.reference_flash_backward_dkv(q, k, v, do, plse, delta, causal, scale)
+        bwd = (q, k, v, do, plse, delta, causal, scale)
+        pdq, pdk, pdv = fa.reference_flash_backward(*bwd)
         times = {name: [] for name in libs}
         for order in (list(libs), list(reversed(list(libs)))):
             for name in order:
                 lib = libs[name]
                 times[name].append((
                     event_ms(lambda: run_fwd(lib, q, k, v, causal, scale)),
-                    event_ms(lambda: run_dkv(lib, q, k, v, do, plse, delta, causal, scale))))
+                    event_ms(lambda: run_dq(lib, *bwd)),
+                    event_ms(lambda: run_dkv(lib, *bwd))))
         for name, lib in libs.items():
             o = run_fwd(lib, q, k, v, causal, scale)
-            dk, dv = run_dkv(lib, q, k, v, do, plse, delta, causal, scale)
-            err = max(float((o - po).abs().max()), float((dk - pdk).abs().max()),
-                      float((dv - pdv).abs().max()))
-            print(f"B={b} S={s} causal={causal} {name:18s} forward ms "
-                  + " ".join(f"{t[0]:.4f}" for t in times[name]) + "  dK/dV ms "
-                  + " ".join(f"{t[1]:.4f}" for t in times[name]) + f"  max abs err {err:.2e}")
+            dq = run_dq(lib, *bwd)
+            dk, dv = run_dkv(lib, *bwd)
+            err = max(float((got - want).abs().max())
+                      for got, want in ((o, po), (dq, pdq), (dk, pdk), (dv, pdv)))
+            print(f"B={b} S={s} causal={causal} {name:18s} ms "
+                  + "  ".join(f"{kernel} " + " ".join(f"{t[i]:.4f}" for t in times[name])
+                              for i, kernel in enumerate(("forward", "dQ", "dK/dV")))
+                  + f"  max abs err {err:.2e}")
     return 0
 
 

@@ -8,9 +8,11 @@ package, so it also runs on a GPU machine without them:
 
 Tolerance: fp32, atol/rtol 1e-4 (the kernels sum in another order).
 """
+import numpy as np
 import pytest
 import torch
 
+from flexflow_tpu_torch.ops.kernels import decode_attention as da
 from flexflow_tpu_torch.ops.kernels import flash_attention as fa
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.gpu]
@@ -73,6 +75,135 @@ def test_cuda_dkv_kernel_is_deterministic(cuda):
         again = fa.flash_backward_dkv_kernel(q, k, v, do, lse, delta, True, 0.125)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def _dq_inputs(cuda, b, s, h, d, causal, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen).to(cuda) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.reference_flash_forward(q, k, v, causal, scale)
+    return (q, k, v, do, lse, fa.flash_delta(do, o)), scale
+
+
+@pytest.mark.parametrize("d", [8, 64, 100, 128, 256])  # 256: the CUDA-core dQ
+@pytest.mark.parametrize("s,causal", [(1, False), (1, True), (65, False), (65, True),
+                                      (100, False), (100, True)])
+def test_cuda_dq_kernel_matches_plain(cuda, s, d, causal):
+    """dQ on the tensor cores (D <= 128, head dims padded to 32/64/128,
+    D % 4 != 0 with 4-byte copies) and on the CUDA cores (D = 256), with
+    ragged 64-row blocks and 32-key tiles."""
+    args, scale = _dq_inputs(cuda, 2, s, 3, d, causal, seed=s * 7 + d)
+    got = fa.flash_backward_dq_kernel(*args, causal, scale)
+    want = fa.reference_flash_backward_dq(*args, causal, scale)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_dq_kernel_is_deterministic(cuda):
+    """dQ is gridded over query tiles with no atomics: the same inputs
+    give the same bits on every run."""
+    args, scale = _dq_inputs(cuda, 4, 256, 4, 64, True, seed=6)
+    first = fa.flash_backward_dq_kernel(*args, True, scale)
+    for _ in range(3):
+        assert torch.equal(first, fa.flash_backward_dq_kernel(*args, True, scale))
+
+
+def test_cuda_dq_kernel_into_unaligned_output(cuda):
+    """An output 4 bytes past a 16-byte boundary takes scalar stores, not
+    the paired float2 stores of an aligned one."""
+    from flexflow_tpu_torch.ops.kernels._build import load_library
+
+    args, scale = _dq_inputs(cuda, 2, 96, 3, 64, False, seed=8)
+    q = args[0]
+    buf = torch.full((q.numel() + 1,), float("nan"), device=cuda)
+    dq = buf[1:].view_as(q)
+    assert dq.data_ptr() % 16 == 4
+    b, s, h, d = q.shape
+    rc = load_library().ff_flash_bwd_dq_f32(
+        *(t.data_ptr() for t in args), dq.data_ptr(), b, s, s, h, d, scale, 0,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.isnan(buf[0])  # nothing written before the output
+    torch.testing.assert_close(dq, fa.reference_flash_backward_dq(*args, False, scale),
+                               atol=1e-4, rtol=1e-4)
+
+
+def _paged_case(cuda, qpos, h, d, bs, mb, seed):
+    """Random caches and tables for positions ``qpos`` [B, W]; block 0 is
+    scratch, as in the engine's cache."""
+    rs = np.random.RandomState(seed)
+    b = qpos.shape[0]
+    nb = b * mb + 1
+    tables = rs.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb).astype(np.int32)
+    gen = torch.Generator().manual_seed(seed)
+    k, v = (torch.randn(nb, bs, h, d, generator=gen).to(cuda) for _ in range(2))
+    q = torch.randn(b, qpos.shape[1], h, d, generator=gen).to(cuda)
+    return (q, k, v, torch.from_numpy(tables).to(cuda),
+            torch.from_numpy(np.ascontiguousarray(qpos, np.int32)).to(cuda))
+
+
+def _check_paged(args, kv_splits=1):
+    got = da.paged_append_attention(*args, kv_splits=kv_splits)
+    want = da.reference_paged_append_attention(*args)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    pad = args[4] < 0
+    assert bool((got[pad] == 0).all()), "padding queries must give exact zeros"
+
+
+@pytest.mark.parametrize("ctx", [0, 1, 15, 16, 17, 129])
+def test_cuda_paged_cluster_with_empty_ctas(cuda, ctx):
+    """Decode (W = 1) over a 64-column table of 16: 8 blocks of 128
+    positions a cluster. A short context leaves most blocks without a
+    live position (ctx 129: one position in the second block; ctx 0: a
+    padding-only sequence); a long one beside it fills six."""
+    assert da.kernel_cluster_size(64, 16) == 8
+    qpos = np.asarray([[ctx - 1], [730]])
+    _check_paged(_paged_case(cuda, qpos, 4, 64, 16, 64, seed=ctx))
+
+
+def test_cuda_paged_cluster_wide_window_ragged_table(cuda):
+    """W = 32, D = 256, block size 5 and a table of 61 columns that the
+    cluster's 3 blocks do not divide; padding queries, and one
+    padding-only sequence."""
+    c = da.kernel_cluster_size(61, 5)
+    assert c == 3 and 61 % c != 0
+    rs = np.random.RandomState(3)
+    qpos = (rs.randint(0, 61 * 5 - 32, (3, 1)) + np.arange(32)[None, :])
+    qpos[rs.rand(3, 32) < 0.2] = -1
+    qpos[1] = -1
+    _check_paged(_paged_case(cuda, qpos, 2, 256, 5, 61, seed=4))
+
+
+@pytest.mark.parametrize("w,d,bs,mb,splits", [(1, 64, 16, 64, 8), (3, 100, 7, 30, 4)])
+def test_cuda_paged_split_partials_match_plain(cuda, w, d, bs, mb, splits):
+    """The split-KV form (one block per split, the same staged loop):
+    partials against the plain version, with a split count that does not
+    divide the table and D % 4 != 0."""
+    rs = np.random.RandomState(w)
+    qpos = rs.randint(0, mb * bs - w, (2, 1)) + np.arange(w)[None, :]
+    args = _paged_case(cuda, qpos, 3, d, bs, mb, seed=w + 1)
+    got = da.paged_append_partials_kernel(*args, splits, d ** -0.5)
+    want = da.reference_paged_append_partials(*args, splits)
+    for g, want_t in zip(got, want):
+        torch.testing.assert_close(g, want_t, atol=1e-4, rtol=1e-4)
+    _check_paged(args, kv_splits=splits)
+
+
+def test_cuda_paged_cluster_launch_replays_in_a_cuda_graph(cuda):
+    """The cluster launch is captured into a CUDA graph and replayed on
+    new inputs copied into the captured buffers."""
+    qpos = np.asarray([[730], [17], [-1], [376]])
+    args = _paged_case(cuda, qpos, 12, 64, 16, 64, seed=9)
+    da.paged_append_attention(*args)  # first launch outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.paged_append_attention(*args)
+    args[0].copy_(torch.randn_like(args[0]))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, da.reference_paged_append_attention(*args),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):

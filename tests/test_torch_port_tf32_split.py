@@ -1,7 +1,7 @@
 """The 3xTF32 split of the flash kernels' tensor-core products, emulated
 in numpy on the CPU (no GPU needed).
 
-The forward and dK/dV kernels of
+The forward, dQ and dK/dV kernels of
 ``flexflow_tpu_torch/ops/kernels/csrc/flash_attention.cu`` take every
 fp32 product on the tensor cores as three TF32 products: each operand x
 is split into big = rna(x) and small = rna(x - big), and a b is
@@ -9,8 +9,8 @@ accumulated in fp32 as big_a small_b + small_a big_b + big_a big_b, one
 8-wide reduction step at a time. Here ``tf32_rna`` rounds as
 ``cvt.rna.tf32.f32`` does, and the kernels' arithmetic runs at the
 training tile shape (S=128, D=64) on seeded inputs: three products keep
-O, lse, dK and dV within the card's kernel-vs-plain gate (atol 1e-4 +
-rtol 1e-4) of the plain fp32 versions; one product does not, which is
+O, lse, dQ, dK and dV within the card's kernel-vs-plain gate (atol 1e-4
++ rtol 1e-4) of the plain fp32 versions; one product does not, which is
 why the kernels spend three.
 
     python -m pytest tests/test_torch_port_tf32_split.py
@@ -24,7 +24,9 @@ from flexflow_tpu_torch.ops.kernels import flash_attention as tfa
 pytestmark = pytest.mark.torch_port
 
 ATOL = RTOL = 1e-4  # chip_smoke.py's gate, kernel vs plain version
-KEY_TILE = 64  # keys per online-softmax step of the forward kernel (D = 64)
+# keys per staged tile, as flash_attention.cu's constants of the same names
+kFwdKeyTile = 32  # the forward kernel's online-softmax step
+kDqKeyTile = 32  # the dQ kernel's accumulation step
 
 
 def tf32_rna(x: np.ndarray) -> np.ndarray:
@@ -78,8 +80,8 @@ def emulated_forward(q, k, v, causal, scale, products):
     l = np.zeros((b, h, s, 1), np.float32)
     acc = np.zeros((b, h, s, d), np.float32)
     rows = np.arange(s)[:, None]
-    for k0 in range(0, kh.shape[2], KEY_TILE):
-        kt, vt = kh[:, :, k0:k0 + KEY_TILE], vh[:, :, k0:k0 + KEY_TILE]
+    for k0 in range(0, kh.shape[2], kFwdKeyTile):
+        kt, vt = kh[:, :, k0:k0 + kFwdKeyTile], vh[:, :, k0:k0 + kFwdKeyTile]
         sc = mma(qs, kt.transpose(0, 1, 3, 2).copy(), products=products)
         valid = np.broadcast_to(rows >= k0 + np.arange(kt.shape[2])[None, :] if causal else True,
                                 sc.shape)
@@ -110,6 +112,27 @@ def emulated_dkv(q, k, v, do, lse, delta, causal, scale, products):
     dv = mma(p, doh, products=products)
     dk = mma(dst, qh, products=products) * np.float32(scale)
     return dk.transpose(0, 2, 1, 3), dv.transpose(0, 2, 1, 3)
+
+
+def emulated_dq(q, k, v, do, lse, delta, causal, scale, products):
+    """The dQ kernel's arithmetic, Q-stationary: per key tile of the
+    kernel's width, S = (scale Q) K^T and dP = dO V^T through ``mma``,
+    dS = P (dP - delta) with P = exp(S - lse), and dQ += dS K into one
+    fp32 accumulator; scaled once at the end."""
+    qs, kh, vh, doh = _heads(q * np.float32(scale)), _heads(k), _heads(v), _heads(do)
+    lse_r = lse.transpose(0, 2, 1)[..., None]  # [B,H,Sq,1]: one per query row
+    delta_r = delta.transpose(0, 2, 1)[..., None]
+    rows = np.arange(qs.shape[2])[:, None]
+    acc = np.zeros(qs.shape, np.float32)
+    for k0 in range(0, kh.shape[2], kDqKeyTile):
+        kt, vt = kh[:, :, k0:k0 + kDqKeyTile], vh[:, :, k0:k0 + kDqKeyTile]
+        s = mma(qs, kt.transpose(0, 1, 3, 2).copy(), products=products)
+        dp = mma(doh, vt.transpose(0, 1, 3, 2).copy(), products=products)
+        p = np.exp(s - lse_r).astype(np.float32)
+        if causal:
+            p = np.where(rows >= k0 + np.arange(kt.shape[2])[None, :], p, np.float32(0))
+        acc = mma((p * (dp - delta_r)).astype(np.float32), kt, acc, products=products)
+    return (acc * np.float32(scale)).transpose(0, 2, 1, 3)
 
 
 def _outside(got, want):
@@ -148,6 +171,26 @@ def test_three_tf32_products_keep_dk_and_dv_in_the_gate(causal):
     want_dk, want_dv = tfa.reference_flash_backward_dkv(*t, causal, scale)
     np.testing.assert_allclose(dk, want_dk.numpy(), atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(dv, want_dv.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_three_tf32_products_keep_dq_in_the_gate(causal):
+    (q, k, v, do), scale, (_, lse, delta) = _inputs(causal)
+    dq = emulated_dq(q, k, v, do, lse, delta, causal, scale, products=3)
+    t = [torch.from_numpy(x) for x in (q, k, v, do, lse, delta)]
+    want = tfa.reference_flash_backward_dq(*t, causal, scale).numpy()
+    np.testing.assert_allclose(dq, want, atol=ATOL, rtol=RTOL)
+    assert np.abs(dq - want).max() < 1e-5  # fp32-level, far inside the gate
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_product_leaves_the_gate_for_dq(causal):
+    """dQ with one TF32 product per fp32 product: some elements fall
+    outside the gate at the same inputs."""
+    (q, k, v, do), scale, (_, lse, delta) = _inputs(causal)
+    t = [torch.from_numpy(x) for x in (q, k, v, do, lse, delta)]
+    want = tfa.reference_flash_backward_dq(*t, causal, scale).numpy()
+    assert _outside(emulated_dq(q, k, v, do, lse, delta, causal, scale, products=1), want) > 0.01
 
 
 @pytest.mark.parametrize("causal", [False, True])
