@@ -16,7 +16,9 @@ prints no result line):
    version on the card, fp32, atol 1e-4 + rtol 1e-4 (the kernel sums in
    another order), at the serving path's shapes (with the cluster size
    each launched) and at edge shapes, among them contexts that leave
-   blocks of a cluster without a live position; then the device time
+   blocks of a cluster without a live position, split counts up to the
+   table's width and a table too wide for the single-pass kernel; the
+   split-KV path must run as one device kernel; then the device time
    (CUDA events around a replayed CUDA graph of the calls) of the
    kernel, the plain version and one PyTorch library call over the same
    inputs (scaled_dot_product_attention on the gathered K/V, a yardstick
@@ -29,9 +31,15 @@ prints no result line):
    kernel launch per layer per decode step, and one decode step's
    logits must agree with the plain attention path within 1e-3.
 4. long context: the same model in a 1-slot engine with a ~900-token
-   prompt, where the split-KV (flash-decoding) kernel is selected.
+   prompt, where the split-KV (flash-decoding) kernel is selected (one
+   launch per layer per decode step, combined on-chip).
 5. anatomy: torch.profiler over a short 4-slot run — the device's busy
-   share of the wall time and the device time by kernel.
+   share of the wall time and the device time by kernel; then, in the
+   long-context engine, a second stream's decode steps under the
+   profiler (device ms and device kernels per step, one paged kernel per
+   layer) and ten split-KV attention calls, whose device kernels must
+   all be the paged kernel. The profiler runs only after the timed
+   phases: once started, it slows the host's later launches.
 6. flash kernels: the flash-attention forward, dQ and dK/dV kernels
    against their plain PyTorch versions (atol 1e-4 + rtol 1e-4) at the
    training path's shape (B=32, S=128, H=12, D=64) and at a causal
@@ -248,34 +256,21 @@ def kernel_phase(seed: int):
     for name, (tables, qpos, s) in cases.items():
         sets = paged_inputs(gen, nb, bs, h, d, tables, qpos, copies)
         q, k, v, bt, qp = sets[0]
+        got = da.paged_append_attention(q, k, v, bt, qp, kv_splits=s)
+        want = da.reference_paged_append_attention(q, k, v, bt, qp)
         if s == 1:
-            got = da.paged_append_attention(q, k, v, bt, qp)
-            want = da.reference_paged_append_attention(q, k, v, bt, qp)
             err = check_close(f"{name} kernel vs plain", got, want)
             plain = da.reference_paged_append_attention
         else:
-            acc, m, l = da.paged_append_partials_kernel(q, k, v, bt, qp, s, d ** -0.5)
-            pacc, pm, pl = da.reference_paged_append_partials(q, k, v, bt, qp, s)
-            err = max(
-                check_close(f"{name} acc partials", acc, pacc),
-                check_close(f"{name} l partials", l, pl),
-                float((m - pm).abs().max()),
-            )
-            if not torch.allclose(m, pm, atol=ATOL, rtol=RTOL):
-                raise AssertionError(f"{name}: m partials differ")
-            got = da.paged_append_attention(q, k, v, bt, qp, kv_splits=s)
-            want = da.reference_paged_append_attention(q, k, v, bt, qp)
-            err = max(err, check_close(f"{name} combined vs single-pass plain", got, want))
-
             def plain(q_, k_, v_, bt_, qp_, s=s):
                 return da._combine_splits(
                     *da.reference_paged_append_partials(q_, k_, v_, bt_, qp_, s),
                     qp_, q_.dtype,
                 )
 
-            split_kernel_ms, _ = time_ms(
-                lambda *a, s=s: da.paged_append_partials_kernel(*a, s, d ** -0.5), sets
-            )
+            err = max(check_close(f"{name} kernel vs plain split + combine", got,
+                                  plain(q, k, v, bt, qp)),
+                      check_close(f"{name} kernel vs single-pass plain", got, want))
         pad = torch.from_numpy(qpos < 0).cuda()
         if pad.any() and not bool((got[pad] == 0).all()):
             raise AssertionError(f"{name}: padding queries must give exact zeros")
@@ -287,9 +282,8 @@ def kernel_phase(seed: int):
             lib_sets,
         )
         bound_ms, bound_by = bound(qpos, mb, bs, h, d)
-        # blocks per (head, sequence): the cluster of the single-pass
-        # kernel, or one block per split
-        ctas = da.kernel_cluster_size(mb, bs) if s == 1 else s
+        # blocks per (head, sequence): the cluster of either kernel
+        ctas = da.kernel_cluster_size(mb, bs) if s == 1 else da.split_plan(s, mb)[0]
         rows[name] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
@@ -298,8 +292,6 @@ def kernel_phase(seed: int):
                       "bs": bs, "MB": mb, "splits": s, "ctas_per_head": ctas,
                       "live_positions": int(np.minimum(qpos.max(1) + 1, mb * bs).clip(0).sum())},
         }
-        if s > 1:  # ms covers kernel + plain combine; this is the kernel alone
-            rows[name]["partials_kernel_ms"] = split_kernel_ms
         print(f"kernel {name}: " + json.dumps(rows[name]))
         del sets, lib_sets
     edge_shapes(seed)
@@ -307,15 +299,34 @@ def kernel_phase(seed: int):
     return rows
 
 
+def device_kernels(fn, calls: int) -> list:
+    """Names of the device kernels that ``calls`` calls of ``fn`` run, as
+    torch.profiler records them (after a warm-up call). The profiler can
+    drop events at the edges of its window, so a caller checks what the
+    recorded kernels are, not that each call's last one is there."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def edge_shapes(seed: int) -> None:
     """Correctness only, off the serving path's shapes: the widest window
     and head_dim the kernel takes, a head_dim that is not a multiple of 4
     (4-byte copies), odd block sizes, a cluster that does not divide the
-    table, a split count that does not divide it, a padding-only
-    sequence, and contexts that leave blocks of a cluster without a live
+    table, split counts that do not divide it, 16 splits and as many
+    splits as columns (blocks taking several splits each), a padding-only
+    sequence, contexts that leave blocks of a cluster without a live
     position (0, 1, 15, 16, 17, and one position into the second block's
-    share) beside a long one — each against the plain version; padding
-    queries must give exact zeros."""
+    share) beside a long one, and a table wider than the single-pass
+    kernel takes (which must raise there) through the split kernel — each
+    against the plain version; padding queries must give exact zeros."""
     import numpy as np
     import torch
 
@@ -330,19 +341,31 @@ def edge_shapes(seed: int) -> None:
         got = da.paged_append_attention(q, k, v, bt, qp, kv_splits=s)
         want = da.reference_paged_append_attention(q, k, v, bt, qp)
         err = check_close(f"edge shape {tag}", got, want)
+        if s > 1:
+            partials = da.reference_paged_append_partials(q, k, v, bt, qp, s)
+            err = max(err, check_close(f"edge shape {tag} vs plain split + combine", got,
+                                       da._combine_splits(*partials, qp, q.dtype)))
+            del partials
         pad = torch.from_numpy(qpos < 0).cuda()
         if not bool((got[pad] == 0).all()):
             raise AssertionError(f"edge shape {tag}: padding queries must give exact zeros")
-        ctas = da.kernel_cluster_size(tables.shape[1], bs) if s == 1 else s
+        ctas = (da.kernel_cluster_size(tables.shape[1], bs) if s == 1
+                else da.split_plan(s, tables.shape[1])[0])
         print(f"kernel edge shape {tag} ({ctas} blocks a head): max abs err {err:.3e}")
 
-    # (B, W, H, D, bs, MB, splits); the second: a 3-block cluster over 61 columns
+    # (B, W, H, D, bs, MB, splits); the second: a 3-block cluster over 61
+    # columns; from the fourth: split counts that do not divide the table,
+    # 16 splits and as many splits as columns
     for b, w, h, d, bs, mb, s in [
         (2, 32, 2, 256, 8, 12, 1),
         (3, 32, 2, 256, 5, 61, 1),
         (3, 17, 3, 100, 5, 20, 1),
         (2, 3, 4, 128, 7, 30, 4),
         (1, 1, 1, 1, 1, 9, 2),
+        (2, 1, 12, 64, 16, 64, 16),
+        (2, 1, 12, 64, 16, 64, 64),
+        (3, 5, 4, 100, 7, 30, 30),
+        (3, 32, 2, 256, 5, 61, 7),
     ]:
         nb = b * mb + 1
         tables = rs.randint(1, nb, (b, mb)).astype(np.int32)
@@ -359,6 +382,25 @@ def edge_shapes(seed: int) -> None:
         tables = rs.permutation(np.arange(1, 2 * mb + 1)).reshape(2, mb).astype(np.int32)
         qpos = np.asarray([[ctx - 1], [730]], np.int32)
         check(f"decode contexts {ctx} and 731, MB={mb} bs={bs}", tables, qpos, 12, 64, bs, 1)
+        # the split form, whose blocks take fixed column ranges: short
+        # contexts leave most of them empty
+        check(f"split decode contexts {ctx} and 731, MB={mb} bs={bs}", tables, qpos, 12, 64, bs,
+              da.default_kv_splits(2, mb))
+    # a table of 60000 columns of one position: the single-pass kernel holds
+    # the whole row in shared memory and raises; the split kernel's blocks
+    # hold 2048 columns each and read the rest from device memory
+    mb = 60000
+    tables = rs.randint(1, 4097, (1, mb)).astype(np.int32)
+    qpos = np.asarray([[57000, 59999, -1]], np.int32)
+    q, k, v, bt, qp = paged_inputs(gen, 4097, 1, 2, 64, tables, qpos, 1)[0]
+    try:
+        da.paged_append_attention(q, k, v, bt, qp)
+    except RuntimeError as e:
+        print(f"kernel edge shape wide table: the single-pass kernel raises ({e})")
+    else:
+        raise AssertionError("the single-pass kernel took a 60000-column table")
+    for s in (16, mb):
+        check(f"wide table B=1 W=3 H=2 D=64 bs=1 MB={mb} S={s}", tables, qpos, 2, 64, 1, s)
 
 
 def gpt2_small():
@@ -521,7 +563,8 @@ def anatomy_phase(engine, seed: int):
 
 
 def long_context_phase(seed: int, params):
-    """One ~900-token stream in a 1-slot engine: the split-KV kernel."""
+    """One ~900-token stream in a 1-slot engine: the split-KV kernel.
+    Returns (stats, engine)."""
     import numpy as np
 
     from flexflow_tpu_torch.generation.engine import GenerationEngine, SamplingParams
@@ -556,6 +599,63 @@ def long_context_phase(seed: int, params):
     stats["logits_max_abs_err"] = check_decode_logits(engine, sched, "long context")
     while not h.done():
         sched.step()
+    return stats, engine
+
+
+def long_context_profile(engine, seed: int) -> dict:
+    """A second ~880-token stream in the long-context engine, its decode
+    steps under torch.profiler: device time and device kernels per step,
+    with one paged kernel a layer; then attention calls of that stream
+    over the engine's cache, whose device kernels must all be the paged
+    kernel (the split path runs no PyTorch op after its launch). Run
+    after the timed phases and the anatomy: a profiler, once started,
+    slows the host's later launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    cfg = engine.cfg
+    rs = np.random.RandomState(seed + 3)
+    sched = ContinuousBatchingScheduler(engine)
+    h = sched.submit(rs.randint(0, cfg.vocab_size, 880).tolist(), SamplingParams(max_new_tokens=12))
+    sched.step()  # the prefill
+    # the stream's table and positions at the first profiled step
+    tokens, positions, tables, active = sched._collect_slots(list(sched._running.values()))[:4]
+    _, _, bt, ctx = engine.decode_inputs(tokens, positions, tables, active)
+    qp = (ctx[:, None] - 1).contiguous()
+    decode0 = engine.step_counts["decode"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        while not h.done():
+            sched.step()
+    steps = engine.step_counts["decode"] - decode0
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    paged = sum("paged_append_kernel" in e.name for e in ops)
+    if steps == 0 or paged != cfg.num_layers * steps:
+        raise AssertionError(f"profiled: {paged} paged kernels in {steps} decode steps")
+    stats = {
+        "decode_steps": steps,
+        "device_ms_per_step": sum(e.time_range.elapsed_us() for e in ops) / 1e3 / steps,
+        "device_ops_per_step": len(ops) / steps,
+        "paged_kernels_per_step": paged / steps,
+    }
+    print("long context, profiled decode steps: " + json.dumps(stats))
+    splits = da.default_kv_splits(bt.shape[0], bt.shape[1])
+    q = torch.randn((bt.shape[0], 1, cfg.num_heads, cfg.hidden_size // cfg.num_heads),
+                    device=bt.device)
+    calls = 10
+    launched = device_kernels(lambda: da.paged_append_attention(
+        q, engine.cache.k[0], engine.cache.v[0], bt, qp, kv_splits=splits), calls)
+    others = sorted({n[:60] for n in launched if "paged_append_kernel" not in n})
+    if splits < 2 or not launched or others:
+        raise AssertionError(f"{calls} split-path calls (S={splits}) ran {len(launched)} device "
+                             f"kernels, other than the paged kernel: {others}")
+    stats["split_calls_profiled"] = calls
+    stats["split_call_device_kernels"] = sorted({n[:80] for n in launched})
+    stats["split_call_kernels_recorded"] = len(launched)
     return stats
 
 
@@ -943,9 +1043,10 @@ def main(argv=None) -> int:
     rows = kernel_phase(args.seed)
     params = init_decoder_params(torch.Generator().manual_seed(args.seed), gpt2_small())
     engine, serving = serving_phase(args.seed, params)
-    long_ctx = long_context_phase(args.seed, engine.params)
+    long_ctx, long_engine = long_context_phase(args.seed, engine.params)
     anatomy = anatomy_phase(engine, args.seed)
-    del engine, params
+    long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
+    del engine, long_engine, params
     torch.cuda.empty_cache()
     flash = flash_phase(args.seed)
     training = training_phase(args.seed)

@@ -49,8 +49,8 @@ SIGNATURES = {
     ),
     "ff_paged_append_cluster_size": [_I, _I],  # MB, bs
     "ff_paged_append_split_f32": (
-        [_P] * 8  # q, k_cache, v_cache, block_tables, q_positions, acc, m, l
-        + [_I] * 8  # B, W, H, D, bs, MB, S, bps
+        [_P] * 6  # q, k_cache, v_cache, block_tables, q_positions, out
+        + [_I] * 8  # B, W, H, D, bs, MB, ctas, cta_cols
         + [_F, _P]  # scale, stream
     ),
     "ff_flash_fwd_f32": (

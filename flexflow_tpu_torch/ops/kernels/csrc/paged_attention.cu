@@ -5,9 +5,10 @@
 //   * _append_kernel        (launched by paged_append_attention, kv_splits=1,
 //                            :368) -> ff_paged_append_f32
 //   * _append_kernel_split  (launched by paged_append_attention, kv_splits>1,
-//                            :338; the partials are finished by the
-//                            plain-PyTorch _combine_splits in
-//                            decode_attention.py) -> ff_paged_append_split_f32
+//                            :338) together with the plain-XLA
+//                            _combine_splits (:248-267, :351) that finishes
+//                            its partials -> ff_paged_append_split_f32, one
+//                            launch that combines the splits on-chip
 //
 // What it computes, per sequence b: a window of W queries q[b] [W,H,D]
 // attends over the cache blocks named by block_tables[b] in
@@ -31,10 +32,20 @@
 //     columns of 16) that is 384 CTAs on the 132 SMs; shared memory is
 //     kept to a quarter of an SM's so they run in one wave (at a third,
 //     the card holds 45 of the 48 clusters at once).
-//   * ff_paged_append_split_f32 runs the same CTA once per split over the
-//     split's table columns (no cluster) and writes the split's partials.
+//   * ff_paged_append_split_f32 launches the same cluster, but CTA r
+//     takes a fixed range of table columns: a run of whole splits of the
+//     JAX kernel (S splits of ceil(MB / S) columns; those holding a
+//     column are grouped into at most 8 runs of consecutive splits, so
+//     any S up to MB takes one launch). Its ranges are unions of the JAX
+//     splits, so the combine below is the same exact rescaled sum as
+//     _combine_splits, done on-chip: no partials reach device memory and
+//     no second pass or PyTorch op follows. The CTA holds only its own
+//     table columns in shared memory, at most kTableWindow of them, and
+//     reads any further column of a longer range from device memory as
+//     its round reaches it, so no table is too wide for it.
 // A CTA first reads its query positions, its scaled queries and the table
-// columns it may use (the whole row in a cluster), all at once. Then it
+// columns it may use (the whole row in the single-pass form), all at
+// once. Then it
 // works in rounds of up to 4 tiles of 32 positions (as many as shared
 // memory holds at that occupancy: 3 at D = 64, so a round covers a
 // serving CTA's whole share):
@@ -61,9 +72,8 @@
 // position, whose m of -1e30 would otherwise give exp(0) = 1 - and a
 // padding query gets exact zeros. A second cluster.sync() keeps every
 // CTA's shared memory alive until the others have read it. One launch,
-// no scratch in device memory, and capturable in a CUDA graph. The split
-// form writes the unnormalised partials instead (acc [B,S,W,H,D], m and l
-// [B,S,H,W]) in the JAX layout.
+// no scratch in device memory, and capturable in a CUDA graph; both forms
+// end this way.
 //
 // Bound on this card. The kernel is bound by bytes: it must read the live
 // K and V rows once, 2 * sum(ctx) * H * D * 4 bytes per layer, at the
@@ -73,7 +83,9 @@
 // launch (about 2.3 us with nothing to do), two dependent reads
 // (positions, queries and table, then K and V), four barriers a round and
 // the combine's remote reads between the cluster's two barriers
-// (tools/paged_probe.py times each part).
+// (tools/paged_probe.py times each part, and the split form's design
+// variants: this cluster, a 16-CTA cluster, and per-CTA partials in a
+// global scratch that the last CTA of a head combines).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -95,6 +107,7 @@ constexpr int kRound = kMaxStages * kTile;
 constexpr int kMaxCluster = 8;       // the portable cluster size
 constexpr int kCtaPositions = 128;   // table positions per CTA the cluster size aims at
 constexpr int kMaxHeadDim = 256;
+constexpr int kTableWindow = 2048;   // table columns a split-form CTA holds in shared memory
 
 __host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
 
@@ -103,8 +116,9 @@ __host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
 __host__ __device__ inline int tile_ld(int d) { return round4(d) + 4; }
 
 // kMaxW: a compile-time bound on W (1, 8 or 32), so the per-thread scores
-// and accumulators stay in registers. kSplit: write partials (one CTA per
-// split) instead of combining a cluster's CTAs into the output.
+// and accumulators stay in registers. kSplit: the split-KV form, whose CTA
+// r takes table columns [r * cta_cols, (r + 1) * cta_cols) instead of a
+// share of the live positions.
 template <int kMaxW, bool kSplit>
 __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     const float* __restrict__ q,           // [B, W, H, D]
@@ -112,15 +126,14 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     const float* __restrict__ v_cache,     // [num_blocks, bs, H, D]
     const int* __restrict__ block_tables,  // [B, MB]
     const int* __restrict__ q_positions,   // [B, W]
-    float* __restrict__ out,               // [B, W, H, D] or acc [B, S, W, H, D]
-    float* __restrict__ m_out,             // split only: [B, S, H, W]
-    float* __restrict__ l_out,             // split only: [B, S, H, W]
+    float* __restrict__ out,               // [B, W, H, D]
     int W, int H, int D, int bs, int MB,
-    int bt_cols,  // table columns a CTA holds: a split's, or the whole row
+    int cta_cols,  // split form: table columns a CTA takes
+    int bt_held,   // table columns a CTA holds in shared memory, from its first
     int stages, int vec, float scale) {
   constexpr int kPairs = kMaxW * kMaxHeadDim / kThreads;  // (query, column) pairs a thread owns
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int S = gridDim.x;  // splits, or the cluster's CTAs
+  const int S = gridDim.x;  // the cluster's CTAs
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int d4 = round4(D), ld = tile_ld(D);
   const long long HD = static_cast<long long>(H) * D;
@@ -134,12 +147,12 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
   float* l_s = m_s + W;                         // [W] running denominator
   float* c_s = l_s + W;                         // [W] this round's rescale factor
   int* qp_s = reinterpret_cast<int*>(c_s + W);  // [W] query positions
-  int* bt_s = qp_s + W;                         // [bt_cols] table columns from col0
+  int* bt_s = qp_s + W;                         // [bt_held] table columns from col0
 
-  // the table columns this CTA may read: its split's, or the whole row
-  const int col0 = kSplit ? s * bt_cols : 0;
+  // the table columns this CTA may read: its range's, or the whole row
+  const int col0 = kSplit ? s * cta_cols : 0;
   const int* bt = block_tables + static_cast<long long>(b) * MB;
-  for (int i = tid; i < min(bt_cols, MB - col0); i += kThreads) bt_s[i] = bt[col0 + i];
+  for (int i = tid; i < min(bt_held, MB - col0); i += kThreads) bt_s[i] = bt[col0 + i];
   for (int w = tid; w < W; w += kThreads) {
     qp_s[w] = q_positions[static_cast<long long>(b) * W + w];
     m_s[w] = kNegInf;
@@ -156,9 +169,11 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
   for (int w = 0; w < W; ++w) max_qp = max(max_qp, qp_s[w]);
   // the key positions this CTA takes, none past the last any query sees
   int pos0, pos1;
-  if (kSplit) {  // the split's table columns
+  if (kSplit) {  // the range's table columns
+    const int col1 = static_cast<int>(
+        min(static_cast<long long>(col0) + cta_cols, static_cast<long long>(MB)));
     pos0 = col0 * bs;
-    pos1 = min(min(col0 + bt_cols, MB) * bs, max_qp + 1);
+    pos1 = min(col1 * bs, max_qp + 1);
   } else {  // an even share of the live positions, in whole tiles
     const int live = min(MB * bs, max_qp + 1);
     const int share = ((live + S - 1) / S + kTile - 1) / kTile * kTile;
@@ -183,8 +198,11 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     for (int t = tid; t < nt * kTile; t += kThreads) {  // the cache row of each position
       long long off = -1;
       if (t < rlen) {
-        const int p = r0 + t, col = p / bs;
-        off = (static_cast<long long>(bt_s[col - col0]) * bs + (p - col * bs)) * HD +
+        const int p = r0 + t, col = p / bs, c = col - col0;
+        // a column past the held window (long split ranges only) comes
+        // from device memory
+        const int blk = c < bt_held ? bt_s[c] : __ldg(bt + col);
+        off = (static_cast<long long>(blk) * bs + (p - col * bs)) * HD +
               static_cast<long long>(h) * D;
       }
       row_s[t] = off;
@@ -300,59 +318,43 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
   }
   __syncthreads();  // every tile is consumed: the tiles' memory is free
 
-  if constexpr (kSplit) {
-    const long long bsi = static_cast<long long>(b) * S + s;
+  // combine the cluster's CTAs exactly, through distributed shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  float* acc_s = tiles;  // [W][D]
 #pragma unroll
-    for (int k = 0; k < kPairs; ++k) {
-      const int idx = tid + k * kThreads;
-      if (idx < W * D) {
-        const int w = idx / D, d = idx - w * D;
-        out[(bsi * W + w) * HD + static_cast<long long>(h) * D + d] = acc[k];
-      }
-    }
-    for (int w = tid; w < W; w += kThreads) {
-      m_out[(bsi * H + h) * W + w] = m_s[w];
-      l_out[(bsi * H + h) * W + w] = l_s[w];
-    }
-  } else {
-    // combine the cluster's CTAs exactly, through distributed shared memory
-    cg::cluster_group cluster = cg::this_cluster();
-    float* acc_s = tiles;  // [W][D]
-#pragma unroll
-    for (int k = 0; k < kPairs; ++k) {
-      const int idx = tid + k * kThreads;
-      if (idx < W * D) acc_s[idx] = acc[k];
-    }
-    cluster.sync();  // every CTA's m, l and acc are written and visible
-    // this CTA's slice of the W * D outputs; each reads every CTA's m, l
-    // and accumulator element, all remote reads in flight together
-    const int per = (W * D + S - 1) / S;
-    const int end = min(W * D, (s + 1) * per);
-    for (int idx = s * per + tid; idx < end; idx += kThreads) {
-      const int w = idx / D, d = idx - w * D;
-      float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
-#pragma unroll
-      for (int r = 0; r < kMaxCluster; ++r) {
-        mr[r] = r < S ? *cluster.map_shared_rank(m_s + w, r) : kNegInf;
-        lr[r] = r < S ? *cluster.map_shared_rank(l_s + w, r) : 0.f;
-        ar[r] = r < S ? cluster.map_shared_rank(acc_s, r)[idx] : 0.f;
-      }
-      float mx = kNegInf;
-#pragma unroll
-      for (int r = 0; r < kMaxCluster; ++r)
-        if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
-      float num = 0.f, den = 0.f;
-#pragma unroll
-      for (int r = 0; r < kMaxCluster; ++r) {
-        const float a = lr[r] > 0.f ? expf(mr[r] - mx) : 0.f;
-        num = fmaf(ar[r], a, num);
-        den = fmaf(lr[r], a, den);
-      }
-      out[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] =
-          qp_s[w] >= 0 ? num / fmaxf(den, 1e-30f) : 0.f;
-    }
-    cluster.sync();  // no CTA exits while another still reads its shared memory
+  for (int k = 0; k < kPairs; ++k) {
+    const int idx = tid + k * kThreads;
+    if (idx < W * D) acc_s[idx] = acc[k];
   }
+  cluster.sync();  // every CTA's m, l and acc are written and visible
+  // this CTA's slice of the W * D outputs; each reads every CTA's m, l
+  // and accumulator element, all remote reads in flight together
+  const int per = (W * D + S - 1) / S;
+  const int end = min(W * D, (s + 1) * per);
+  for (int idx = s * per + tid; idx < end; idx += kThreads) {
+    const int w = idx / D, d = idx - w * D;
+    float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      mr[r] = r < S ? *cluster.map_shared_rank(m_s + w, r) : kNegInf;
+      lr[r] = r < S ? *cluster.map_shared_rank(l_s + w, r) : 0.f;
+      ar[r] = r < S ? cluster.map_shared_rank(acc_s, r)[idx] : 0.f;
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      const float a = lr[r] > 0.f ? expf(mr[r] - mx) : 0.f;
+      num = fmaf(ar[r], a, num);
+      den = fmaf(lr[r], a, den);
+    }
+    out[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] =
+        qp_s[w] >= 0 ? num / fmaxf(den, 1e-30f) : 0.f;
+  }
+  cluster.sync();  // no CTA exits while another still reads its shared memory
 }
 
 // CTAs a sequence's table is split over: one per kCtaPositions positions
@@ -365,24 +367,27 @@ int cluster_size(int MB, int bs) {
   return (MB + cols - 1) / cols;
 }
 
-size_t smem_bytes(int W, int D, int bt_cols, int stages) {
+size_t smem_bytes(int W, int D, int bt_held, int stages) {
   const size_t w = static_cast<size_t>(W);
   return sizeof(float) * (static_cast<size_t>(stages) * 2 * kTile * tile_ld(D) + 2 * kRound +
-                          w * round4(D) + w * (kRound + 1) + 4 * w + static_cast<size_t>(bt_cols));
+                          w * round4(D) + w * (kRound + 1) + 4 * w + static_cast<size_t>(bt_held));
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// C: the cluster's CTAs per (head, sequence); cta_cols and bt_held as in
+// the kernel
 template <int kMaxW, bool kSplit>
 int launch(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
-           const int* q_positions, float* out, float* m_out, float* l_out, int B, int W, int H,
-           int D, int bs, int MB, int S, int bt_cols, float scale, cudaStream_t stream) {
+           const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB, int C,
+           int cta_cols, int bt_held, float scale, cudaStream_t stream) {
   // the most stages (tiles a round holds) that leave room for 4 CTAs an
-  // SM in a cluster launch (so the 384 CTAs of the serving shape run in
-  // one wave) or 2 in a split launch (its CTAs are few); at least one
+  // SM in a single-pass launch (so the 384 CTAs of the serving shape run
+  // in one wave) or 2 in a split launch (its CTAs are few, and 4 stages
+  // take a 128-column range of 16 positions in one round); at least one
   int stages = kMaxStages;
-  while (stages > 1 && smem_bytes(W, D, bt_cols, stages) > kSmemLimit / (kSplit ? 2 : 4)) --stages;
-  const size_t smem = smem_bytes(W, D, bt_cols, stages);
+  while (stages > 1 && smem_bytes(W, D, bt_held, stages) > kSmemLimit / (kSplit ? 2 : 4)) --stages;
+  const size_t smem = smem_bytes(W, D, bt_held, stages);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // raise the dynamic shared-memory limit once (the first launch of each
   // instance); later launches, such as those captured into a CUDA graph,
@@ -397,40 +402,43 @@ int launch(const float* q, const float* k_cache, const float* v_cache, const int
   }
   const int vec = D % 4 == 0 && aligned16(k_cache) && aligned16(v_cache) ? 1 : 0;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S, H, B);
+  cfg.gridDim = dim3(C, H, B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S;  // the single-pass form: one cluster per (head, sequence)
+  attr[0].val.clusterDim.x = C;  // one cluster per (head, sequence)
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = kSplit ? 0 : 1;
+  cfg.numAttrs = 1;
   const cudaError_t e =
       cudaLaunchKernelEx(&cfg, paged_append_kernel<kMaxW, kSplit>, q, k_cache, v_cache,
-                         block_tables, q_positions, out, m_out, l_out, W, H, D, bs, MB,
-                         bt_cols, stages, vec, scale);
-  if (e != cudaSuccess) return static_cast<int>(e);
+                         block_tables, q_positions, out, W, H, D, bs, MB, cta_cols, bt_held,
+                         stages, vec, scale);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that the next launch does not report it
+    return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kSplit>
 int dispatch(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
-             const int* q_positions, float* out, float* m_out, float* l_out, int B, int W, int H,
-             int D, int bs, int MB, int S, int bt_cols, float scale, cudaStream_t stream) {
+             const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB, int C,
+             int cta_cols, int bt_held, float scale, cudaStream_t stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || W < 1 || W > 32 || D < 1 || D > kMaxHeadDim ||
-      bs < 1 || MB < 1 || S < 1 || bt_cols < 1 || (!kSplit && S > kMaxCluster))
+      bs < 1 || MB < 1 || C < 1 || C > kMaxCluster || cta_cols < 1 || bt_held < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (W == 1)
-    return launch<1, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, m_out, l_out, B,
-                             W, H, D, bs, MB, S, bt_cols, scale, stream);
+    return launch<1, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs,
+                             MB, C, cta_cols, bt_held, scale, stream);
   if (W <= 8)
-    return launch<8, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, m_out, l_out, B,
-                             W, H, D, bs, MB, S, bt_cols, scale, stream);
-  return launch<32, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, m_out, l_out, B,
-                            W, H, D, bs, MB, S, bt_cols, scale, stream);
+    return launch<8, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs,
+                             MB, C, cta_cols, bt_held, scale, stream);
+  return launch<32, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs,
+                            MB, C, cta_cols, bt_held, scale, stream);
 }
 
 }  // namespace
@@ -445,9 +453,8 @@ extern "C" int ff_paged_append_f32(const float* q, const float* k_cache, const f
                                    int B, int W, int H, int D, int bs, int MB, float scale,
                                    void* stream) {
   if (MB < 1 || bs < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<false>(q, k_cache, v_cache, block_tables, q_positions, out, nullptr, nullptr, B,
-                         W, H, D, bs, MB, cluster_size(MB, bs), MB, scale,
-                         static_cast<cudaStream_t>(stream));
+  return dispatch<false>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs, MB,
+                         cluster_size(MB, bs), MB, MB, scale, static_cast<cudaStream_t>(stream));
 }
 
 // the cluster size ff_paged_append_f32 launches for a table of MB columns
@@ -456,11 +463,19 @@ extern "C" int ff_paged_append_cluster_size(int MB, int bs) {
   return MB < 1 || bs < 1 ? 0 : cluster_size(MB, bs);
 }
 
+// The split-KV form: a cluster of `ctas` CTAs per (head, sequence), CTA r
+// over table columns [r * cta_cols, (r + 1) * cta_cols), writing the
+// normalised [B, W, H, D] output. The plan (decode_attention.split_plan)
+// must cover the table with every CTA holding a column.
 extern "C" int ff_paged_append_split_f32(const float* q, const float* k_cache,
                                          const float* v_cache, const int* block_tables,
-                                         const int* q_positions, float* acc, float* m, float* l,
-                                         int B, int W, int H, int D, int bs, int MB, int S,
-                                         int bps, float scale, void* stream) {
-  return dispatch<true>(q, k_cache, v_cache, block_tables, q_positions, acc, m, l, B, W, H, D,
-                        bs, MB, S, bps, scale, static_cast<cudaStream_t>(stream));
+                                         const int* q_positions, float* out, int B, int W, int H,
+                                         int D, int bs, int MB, int ctas, int cta_cols,
+                                         float scale, void* stream) {
+  if (MB < 1 || ctas < 1 || cta_cols < 1 || static_cast<long long>(ctas) * cta_cols < MB ||
+      static_cast<long long>(ctas - 1) * cta_cols >= MB)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs, MB,
+                        ctas, cta_cols, std::min(cta_cols, kTableWindow), scale,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -20,12 +20,14 @@ Two lowerings, chosen by where the tensors lie:
   kernels are held against on the card.
 * the CUDA kernels of ``csrc/paged_attention.cu`` — thread blocks that
   each stage one range of a sequence's table columns through shared
-  memory; the single-pass kernel splits every (head, sequence) across a
-  thread-block cluster (:func:`kernel_cluster_size` blocks) whose blocks
-  combine their softmax states through distributed shared memory, and
-  the split-KV kernel runs one block per split. For a CUDA tensor
-  :func:`paged_append_attention` launches the kernel or raises; it never
-  falls back to the plain version.
+  memory, one thread-block cluster per (head, sequence), whose blocks
+  combine their softmax states through distributed shared memory in the
+  same launch. The single-pass kernel shares the live positions among
+  :func:`kernel_cluster_size` blocks; the split-KV kernel gives each
+  block a run of whole splits (:func:`split_plan`) and writes the
+  combined output, so ``kv_splits > 1`` is one launch too. For a CUDA
+  tensor :func:`paged_append_attention` launches the kernel or raises; it
+  never falls back to the plain version.
 
 Each kernel launch adds one to its count in :data:`LAUNCHES`, so a run
 can show that its main path went through the kernels.
@@ -39,6 +41,7 @@ import torch
 NEG_INF = -1e30
 MAX_WINDOW = 32
 MAX_HEAD_DIM = 256
+MAX_CLUSTER = 8  # the portable thread-block cluster size the kernels launch
 
 # launches of each CUDA kernel in this process (plain integers; a caller
 # resets them with reset_launch_counts() before the run it measures)
@@ -112,6 +115,20 @@ def _clamp_splits(kv_splits: int, max_blocks: int) -> Tuple[int, int]:
     """(splits, table columns per split), clamped like the JAX wrapper."""
     splits = max(1, min(int(kv_splits), max_blocks))
     return splits, -(-max_blocks // splits)
+
+
+def split_plan(kv_splits: int, max_blocks: int, max_ctas: int = MAX_CLUSTER) -> Tuple[int, int]:
+    """(blocks, table columns per block) of the split-KV CUDA kernel's
+    cluster for ``kv_splits`` over ``max_blocks`` columns. The JAX
+    kernel's splits (:func:`_clamp_splits`) that hold a table column are
+    grouped into at most ``max_ctas`` runs of consecutive whole splits,
+    one block each, so every block has columns and the blocks' ranges
+    are unions of the JAX splits: combining them is the same exact
+    rescaled sum as :func:`_combine_splits`, for any split count."""
+    _, bps = _clamp_splits(kv_splits, max_blocks)
+    live = -(-max_blocks // bps)  # splits that hold a column
+    per = -(-live // max_ctas)  # whole splits a block takes
+    return -(-live // per), per * bps
 
 
 def reference_paged_append_partials(
@@ -270,31 +287,29 @@ def paged_append_attention_kernel(
     return out
 
 
-def paged_append_partials_kernel(
+def paged_append_split_kernel(
     q, k_cache, v_cache, block_tables, q_positions, kv_splits: int, scale: float
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the split-KV CUDA kernel: returns the unnormalised partials
-    (acc [B,S,W,H,D], m [B,S,H,W], l [B,S,H,W]) of
-    :func:`reference_paged_append_partials`."""
+) -> torch.Tensor:
+    """Launch the split-KV CUDA kernel: one cluster of
+    ``split_plan(kv_splits, MB)[0]`` blocks per (head, sequence), combined
+    on-chip; returns the normalised [B, W, H, D] output of
+    ``_combine_splits(reference_paged_append_partials(...))``."""
     from ._build import load_library
 
     _check_kernel_inputs(q, k_cache, v_cache, block_tables, q_positions)
     lib = load_library()
     b, w, h, d = q.shape
-    splits, bps = _clamp_splits(kv_splits, block_tables.shape[1])
-    acc = torch.empty((b, splits, w, h, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, splits, h, w), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    ctas, cols = split_plan(kv_splits, block_tables.shape[1])
+    out = torch.empty_like(q)
     rc = lib.ff_paged_append_split_f32(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), q_positions.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, w, h, d, k_cache.shape[1], block_tables.shape[1], splits, bps,
+        block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
+        b, w, h, d, k_cache.shape[1], block_tables.shape[1], ctas, cols,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on_error(rc, "ff_paged_append_split_f32")
     LAUNCHES["paged_append_split"] += 1
-    return acc, m, l
+    return out
 
 
 def paged_append_attention(
@@ -309,34 +324,27 @@ def paged_append_attention(
     """Paged chunked-append attention (shapes as in
     :func:`reference_paged_append_attention`). ``kv_splits > 1`` selects
     the flash-decoding split-KV form: the table's columns split into
-    ``kv_splits`` independent ranges whose partial softmaxes
-    :func:`_combine_splits` recombines exactly.
+    ``kv_splits`` independent ranges whose partial softmaxes recombine
+    exactly.
 
-    CUDA tensors launch the CUDA kernel (and raise on shapes or types it
-    does not take); CPU tensors take the plain PyTorch version of the
-    same computation."""
+    CUDA tensors launch the CUDA kernel, one launch either way (and raise
+    on shapes or types it does not take); CPU tensors take the plain
+    PyTorch version of the same computation (for ``kv_splits > 1``, the
+    partials and :func:`_combine_splits`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     splits, _ = _clamp_splits(kv_splits, block_tables.shape[1])
+    args = (q, k_cache, v_cache, block_tables, q_positions)
     if q.device.type == "cuda":
         if splits == 1:
-            return paged_append_attention_kernel(
-                q, k_cache, v_cache, block_tables, q_positions, scale
-            )
-        acc, m, l = paged_append_partials_kernel(
-            q, k_cache, v_cache, block_tables, q_positions, splits, scale
-        )
-    elif q.device.type == "cpu":
+            return paged_append_attention_kernel(*args, scale)
+        return paged_append_split_kernel(*args, splits, scale)
+    if q.device.type == "cpu":
         if splits == 1:
-            return reference_paged_append_attention(
-                q, k_cache, v_cache, block_tables, q_positions, scale
-            )
-        acc, m, l = reference_paged_append_partials(
-            q, k_cache, v_cache, block_tables, q_positions, splits, scale
-        )
-    else:
-        raise ValueError(f"paged attention runs on cuda or cpu, not {q.device}")
-    return _combine_splits(acc, m, l, q_positions, q.dtype)
+            return reference_paged_append_attention(*args, scale)
+        partials = reference_paged_append_partials(*args, splits, scale)
+        return _combine_splits(*partials, q_positions, q.dtype)
+    raise ValueError(f"paged attention runs on cuda or cpu, not {q.device}")
 
 
 def paged_decode_attention(

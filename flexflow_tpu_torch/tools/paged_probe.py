@@ -1,18 +1,24 @@
-"""Probes of the paged attention kernel's design on one NVIDIA GPU.
+"""Probes of the paged attention kernels' design on one NVIDIA GPU.
 
     python3 -m flexflow_tpu_torch.tools.paged_probe
 
 Builds copies of ``ops/kernels/csrc/paged_attention.cu`` with one design
-choice changed each (a text substitution, :data:`VARIANTS`), all nvcc
-runs at once, and times each at the serving path's shapes (decode B=4
-W=1 contexts 731/18/0/377, append W=5, split-KV B=1 S=8 context 931;
-H=12, D=64, 64 table columns of 16): device ms per call from a CUDA
-graph of 16 calls over 8 copies of the cache (past the L2), replayed 5
-times between CUDA events, in two rounds (forward order, then reverse).
-Each variant is held against the plain version; the ``probe`` variants
-give wrong results on purpose (they measure what a part of the kernel
-costs). It also prints how many clusters of the decode launch the card
-can hold at once (``cudaOccupancyMaxActiveClusters``).
+choice changed each (a text substitution: :data:`VARIANTS` for the
+single-pass kernel, :data:`SPLIT_VARIANTS` for the split-KV
+kernel), all nvcc runs at once, and times each at the
+serving path's shapes (H=12, D=64, 64 table columns of 16): the
+single-pass kernel at decode B=4 W=1 (contexts 731/18/0/377) and append
+W=5; the split-KV kernel at B=1 W=1, context 931 (the long-context
+cell's) with S=8, 16 and 64 (= MB) splits, and context 300 with S=8.
+Device ms per call from a CUDA graph of 16 calls over 8 copies of the
+cache (past the L2), replayed 5 times between CUDA events, in two rounds
+(forward order, then reverse). Each variant is held against the plain
+version; the ``probe`` variants give wrong results on purpose (they
+measure what a part of the kernel costs). The split cases also time the
+single-pass kernel on the same inputs (its cluster of 8 = S at the
+long-context shape, sharing the live positions). It also prints how many
+clusters of the decode launch the card can hold at once
+(``cudaOccupancyMaxActiveClusters``).
 
 Builds land in ``ops/kernels/_build/probe/``; nothing runs at import.
 """
@@ -23,7 +29,7 @@ import sys
 
 from flexflow_tpu_torch.tools.flash_probe import _card, _compile
 
-# name -> [(text in the source, replacement)]
+# single-pass variants: name -> [(text in the source, replacement)]
 VARIANTS = {
     # rounds of two tiles, or of one (no copies in flight beside it)
     "two_tile_rounds": [("  int stages = kMaxStages;\n", "  int stages = 2;\n")],
@@ -41,12 +47,151 @@ VARIANTS = {
                            "constexpr int kCtaPositions = 256;")],
     "probe_no_compute": [("    // scores of position quad_t of every tile with every query\n",
                           "    continue;  // probe\n")],
-    "probe_no_combine": [("    cluster.sync();  // every CTA's m, l and acc are written and visible\n",
-                          "    if (tid >= 0) return;  // probe\n")],
-    "probe_launch_only": [("  // the table columns this CTA may read: its split's, or the whole row\n",
-                           "  if constexpr (!kSplit) cg::this_cluster().sync();\n"
+    "probe_no_combine": [("  cluster.sync();  // every CTA's m, l and acc are written and visible\n",
+                          "  if (tid >= 0) return;  // probe\n")],
+    "probe_launch_only": [("  // the table columns this CTA may read: its range's, or the whole row\n",
+                           "  cg::this_cluster().sync();\n"
                            "  if (tid >= 0) return;  // probe\n")],
 }
+
+SPLIT_PROBES = ("probe_no_compute", "probe_no_combine", "probe_launch_only")
+
+_COMBINE_START = "  // combine the cluster's CTAs exactly, through distributed shared memory\n"
+_COMBINE_END = "  cluster.sync();  // no CTA exits while another still reads its shared memory\n"
+_KERNEL = "// kMaxW: a compile-time bound on W"
+
+# (b): no cluster; each CTA writes its partials to a global scratch, and
+# the last CTA of a (head, sequence) to arrive (an atomic ticket after a
+# __threadfence) combines them and resets the ticket. The scratch is
+# static and sized for the probe's shapes (B * H * CTAs * W * D <= 2^16).
+_TICKET_GLOBALS = """__device__ float g_probe_acc[1 << 16];
+__device__ float g_probe_m[1 << 12];
+__device__ float g_probe_l[1 << 12];
+__device__ unsigned g_probe_ticket[1 << 10];
+
+"""
+_TICKET_COMBINE = """  {
+    // the ticket's answer in the tiles' memory (free after the loop): a
+    // static __shared__ word beside the full dynamic request is refused
+    unsigned& last_s = *reinterpret_cast<unsigned*>(tiles);
+    const long long bh = static_cast<long long>(b) * gridDim.y + h;
+    float* pa = g_probe_acc + (bh * S + s) * W * D;
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int idx = tid + k * kThreads;
+      if (idx < W * D) pa[idx] = acc[k];
+    }
+    for (int w = tid; w < W; w += kThreads) {
+      g_probe_m[(bh * S + s) * W + w] = m_s[w];
+      g_probe_l[(bh * S + s) * W + w] = l_s[w];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_s = atomicAdd(g_probe_ticket + bh, 1u) == static_cast<unsigned>(S - 1);
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();
+    for (int idx = tid; idx < W * D; idx += kThreads) {
+      const int w = idx / D, d = idx - w * D;
+      float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        const long long i = bh * S + r;
+        mr[r] = r < S ? __ldcg(g_probe_m + i * W + w) : kNegInf;
+        lr[r] = r < S ? __ldcg(g_probe_l + i * W + w) : 0.f;
+        ar[r] = r < S ? __ldcg(g_probe_acc + i * W * D + idx) : 0.f;
+      }
+      float mx = kNegInf;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        const float a = lr[r] > 0.f ? expf(mr[r] - mx) : 0.f;
+        num = fmaf(ar[r], a, num);
+        den = fmaf(lr[r], a, den);
+      }
+      out[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] =
+          qp_s[w] >= 0 ? num / fmaxf(den, 1e-30f) : 0.f;
+    }
+    if (tid == 0) g_probe_ticket[bh] = 0;
+  }
+"""
+
+
+# (push): each CTA writes its m, l and accumulator into a receive area of
+# rank 0's shared memory, arrives at the cluster barrier and exits; rank 0
+# alone waits and combines, so the combine costs one barrier, not two. A
+# barrier phase at the kernel's start (arrive at once, wait before the
+# remote writes) makes sure every CTA of the cluster has started.
+_PUSH_COMBINE = """  cg::cluster_group cluster = cg::this_cluster();
+  const int rec = 2 * W + W * D;
+  float* recv_s = reinterpret_cast<float*>(bt_s + bt_held);  // rank 0: [S][m, l, acc]
+  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");
+  float* dst = cluster.map_shared_rank(recv_s, 0) + s * rec;
+  for (int w = tid; w < W; w += kThreads) {
+    dst[w] = m_s[w];
+    dst[W + w] = l_s[w];
+  }
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int idx = tid + k * kThreads;
+    if (idx < W * D) dst[2 * W + idx] = acc[k];
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: "memory");
+  if (s != 0) return;
+  asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");
+  for (int idx = tid; idx < W * D; idx += kThreads) {
+    const int w = idx / D, d = idx - w * D;
+    float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      mr[r] = r < S ? recv_s[r * rec + w] : kNegInf;
+      lr[r] = r < S ? recv_s[r * rec + W + w] : 0.f;
+      ar[r] = r < S ? recv_s[r * rec + 2 * W + idx] : 0.f;
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      const float a = lr[r] > 0.f ? expf(mr[r] - mx) : 0.f;
+      num = fmaf(ar[r], a, num);
+      den = fmaf(lr[r], a, den);
+    }
+    out[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] =
+        qp_s[w] >= 0 ? num / fmaxf(den, 1e-30f) : 0.f;
+  }
+"""
+
+# split-KV variants; the probe_* variants above (SPLIT_PROBES) time the
+# split launch's parts as well
+SPLIT_VARIANTS = {
+    # (a16) a non-portable cluster of up to 16 CTAs, one per split up to 16
+    "cluster16": [("constexpr int kMaxCluster = 8;", "constexpr int kMaxCluster = 16;"),
+                  ("    if (e != cudaSuccess) return static_cast<int>(e);\n    ready = true;\n",
+                   "    if (e != cudaSuccess) return static_cast<int>(e);\n"
+                   "    cudaFuncSetAttribute(paged_append_kernel<kMaxW, kSplit>,\n"
+                   "                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
+                   "    ready = true;\n")],
+    # rounds of at most 3 tiles (a quarter of an SM's shared memory, as
+    # the single-pass form): a 128-position range takes two rounds
+    "split_stages3": [("kSmemLimit / (kSplit ? 2 : 4)", "kSmemLimit / 4")],
+    # (b) partials in a global scratch, the last CTA to arrive combines
+    "ticket": [((_COMBINE_START, _COMBINE_END), _TICKET_COMBINE),
+               (_KERNEL, _TICKET_GLOBALS + _KERNEL),
+               ("  cfg.numAttrs = 1;\n", "  cfg.numAttrs = kSplit ? 0 : 1;\n")],
+    # the combine pushed into rank 0's shared memory (one barrier)
+    "push": [((_COMBINE_START, _COMBINE_END), _PUSH_COMBINE),
+             ("  int* bt_s = qp_s + W;", "  asm volatile(\"barrier.cluster.arrive.relaxed.aligned;\\n\" ::: "
+              "\"memory\");\n  int* bt_s = qp_s + W;"),
+             ("static_cast<size_t>(bt_held));",
+              "static_cast<size_t>(bt_held) + kMaxCluster * (2 * w + w * D));")],
+}
+
 
 OCCUPANCY_CU = r"""
 extern "C" int ff_probe_max_active_clusters(int W, int D, int MB, int bs, int H, int B) {
@@ -71,6 +216,23 @@ extern "C" int ff_probe_max_active_clusters(int W, int D, int MB, int bs, int H,
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 """
+
+
+def _substituted(base: str, name: str, subs) -> str:
+    """``base`` with each (old, new) substitution made; an ``old`` of two
+    texts replaces everything from the first through the second."""
+    text = base
+    for old, new in subs:
+        if isinstance(old, tuple):
+            if old[0] not in text or old[1] not in text:
+                raise RuntimeError(f"{name}: {old[0][:60]!r} ... is not in the source")
+            start, end = text.index(old[0]), text.index(old[1]) + len(old[1])
+            text = text[:start] + new + text[end:]
+            continue
+        if old not in text:
+            raise RuntimeError(f"{name}: {old[:60]!r} is not in the source")
+        text = text.replace(old, new)
+    return text
 
 
 def _inputs(torch, gen, ctx_lens, w, copies, nb=257, bs=16, h=12, d=64, mb=64):
@@ -128,13 +290,8 @@ def main(argv=None) -> int:
         return 2
     base = (_build.CSRC_DIR / "paged_attention.cu").read_text()
     sources = {"source": base + OCCUPANCY_CU}
-    for name, subs in VARIANTS.items():
-        text = base
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: {old[:60]!r} is not in the source")
-            text = text.replace(old, new)
-        sources[name] = text
+    for name, subs in {**VARIANTS, **SPLIT_VARIANTS}.items():
+        sources[name] = _substituted(base, name, subs)
     libs = {}
     for name, (so, _) in _compile(sources).items():
         lib = ctypes.CDLL(str(so))
@@ -155,40 +312,60 @@ def main(argv=None) -> int:
                                          bt.shape[1], d ** -0.5,
                                          torch.cuda.current_stream().cuda_stream)
             if rc:
-                raise RuntimeError(f"launch failed: {rc}")
+                raise RuntimeError(f"launch failed: cudaError_t {rc}")
             return out
         return run
 
-    def split(lib, s=8):
+    def split(lib, s, max_ctas=da.MAX_CLUSTER):
         def run(q, k, v, bt, qp):
             b, w, h, d = q.shape
-            mb = bt.shape[1]
-            acc = torch.empty((b, s, w, h, d), device=q.device)
-            m = torch.empty((b, s, h, w), device=q.device)
-            l = torch.empty_like(m)
+            ctas, cols = da.split_plan(s, bt.shape[1], max_ctas)
+            out = torch.empty_like(q)
             rc = lib.ff_paged_append_split_f32(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(), qp.data_ptr(),
-                acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, w, h, d, k.shape[1], mb, s,
-                -(-mb // s), d ** -0.5, torch.cuda.current_stream().cuda_stream)
+                out.data_ptr(), b, w, h, d, k.shape[1], bt.shape[1], ctas, cols, d ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
             if rc:
-                raise RuntimeError(f"launch failed: {rc}")
-            return da._combine_splits(acc, m, l, qp, q.dtype)
+                raise RuntimeError(f"launch failed: cudaError_t {rc}")
+            return out
         return run
 
+    single_runs = {name: single(libs[name]) for name in ["source", *VARIANTS]}
+
+    def split_runs(s):
+        runs = {"(a) source": split(libs["source"], s),
+                "(a16) cluster16": split(libs["cluster16"], s, 16),
+                "(b) ticket": split(libs["ticket"], s),
+                "push": split(libs["push"], s),
+                "split_stages3": split(libs["split_stages3"], s)}
+        runs.update({name: split(libs[name], s) for name in SPLIT_PROBES})
+        runs["(c) single-pass"] = single(libs["source"])
+        return runs
+
     gen = torch.Generator().manual_seed(0)
-    cases = {"decode B=4 W=1": ([731, 18, 0, 377], 1, single),
-             "append B=4 W=5": ([700, 40, 0, 300], 5, single),
-             "split B=1 S=8 (with combine)": ([931], 1, split)}
-    for case, (ctx, w, make) in cases.items():
+    cases = {"decode B=4 W=1": ([731, 18, 0, 377], 1, single_runs),
+             "append B=4 W=5": ([700, 40, 0, 300], 5, single_runs),
+             "split B=1 S=8 ctx 931": ([931], 1, split_runs(8)),
+             "split B=1 S=16 ctx 931": ([931], 1, split_runs(16)),
+             "split B=1 S=64 ctx 931": ([931], 1, split_runs(64)),
+             "split B=1 S=8 ctx 300": ([300], 1, split_runs(8))}
+    for case, (ctx, w, runs) in cases.items():
         sets = _inputs(torch, gen, ctx, w, copies=8)
         want = da.reference_paged_append_attention(*sets[0])
-        times = {name: [] for name in libs}
-        for order in (list(libs), list(reversed(list(libs)))):
+        times = {name: [] for name in runs}
+        for order in (list(runs), list(reversed(list(runs)))):
             for name in order:
-                times[name].append(_graph_ms(torch, make(libs[name]), sets))
-        for name, lib in libs.items():
-            err = float((make(lib)(*sets[0]) - want).abs().max())
-            print(f"{case:30s} {name:18s} ms " + " ".join(f"{t:.4f}" for t in times[name])
+                try:
+                    times[name].append(_graph_ms(torch, runs[name], sets))
+                except RuntimeError as e:  # a variant the card refuses is reported, not fatal
+                    times[name].append(str(e))
+                    torch.cuda.synchronize()
+        for name, fn in runs.items():
+            if any(isinstance(t, str) for t in times[name]):
+                print(f"{case:24s} {name:20s} {times[name][0]}")
+                continue
+            err = float((fn(*sets[0]) - want).abs().max())
+            print(f"{case:24s} {name:20s} ms " + " ".join(f"{t:.4f}" for t in times[name])
                   + f"  max abs err {err:.2e}")
         del sets
     return 0

@@ -142,8 +142,8 @@ def _paged_case(cuda, qpos, h, d, bs, mb, seed):
             torch.from_numpy(np.ascontiguousarray(qpos, np.int32)).to(cuda))
 
 
-def _check_paged(args, kv_splits=1):
-    got = da.paged_append_attention(*args, kv_splits=kv_splits)
+def _check_paged(args):
+    got = da.paged_append_attention(*args)
     want = da.reference_paged_append_attention(*args)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     pad = args[4] < 0
@@ -174,19 +174,63 @@ def test_cuda_paged_cluster_wide_window_ragged_table(cuda):
     _check_paged(_paged_case(cuda, qpos, 2, 256, 5, 61, seed=4))
 
 
-@pytest.mark.parametrize("w,d,bs,mb,splits", [(1, 64, 16, 64, 8), (3, 100, 7, 30, 4)])
-def test_cuda_paged_split_partials_match_plain(cuda, w, d, bs, mb, splits):
-    """The split-KV form (one block per split, the same staged loop):
-    partials against the plain version, with a split count that does not
-    divide the table and D % 4 != 0."""
-    rs = np.random.RandomState(w)
-    qpos = rs.randint(0, mb * bs - w, (2, 1)) + np.arange(w)[None, :]
-    args = _paged_case(cuda, qpos, 3, d, bs, mb, seed=w + 1)
-    got = da.paged_append_partials_kernel(*args, splits, d ** -0.5)
-    want = da.reference_paged_append_partials(*args, splits)
-    for g, want_t in zip(got, want):
-        torch.testing.assert_close(g, want_t, atol=1e-4, rtol=1e-4)
-    _check_paged(args, kv_splits=splits)
+def _check_split(args, kv_splits):
+    """The fused split kernel against the plain split + combine and the
+    single-pass plain version: one launch, no single-pass launch."""
+    da.reset_launch_counts()
+    got = da.paged_append_attention(*args, kv_splits=kv_splits)
+    assert da.LAUNCHES == {"paged_append": 0, "paged_append_split": 1}
+    partials = da.reference_paged_append_partials(*args, kv_splits)
+    torch.testing.assert_close(got, da._combine_splits(*partials, args[4], torch.float32),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got, da.reference_paged_append_attention(*args),
+                               atol=1e-4, rtol=1e-4)
+    pad = args[4] < 0
+    assert bool((got[pad] == 0).all()), "padding queries must give exact zeros"
+
+
+@pytest.mark.parametrize("splits", [2, 4, 8, 16, 64])  # 64 = MB: 8 splits a block
+@pytest.mark.parametrize("w", [1, 3, 32])
+@pytest.mark.parametrize("d", [1, 64, 100, 256])
+def test_cuda_paged_split_matches_plain(cuda, splits, w, d):
+    """The split-KV kernel (a cluster of blocks over runs of whole
+    splits, combined on-chip) over 64 columns of 16: a long context, a
+    short one that leaves most splits empty, a padding-only sequence,
+    and padding queries; D = 1 and 100 take 4-byte copies."""
+    rs = np.random.RandomState(splits * 1000 + w * 10 + d)
+    base = np.asarray([900, 20, 0])[:, None]
+    qpos = base + np.arange(w)[None, :]
+    qpos[rs.rand(3, w) < 0.2] = -1
+    qpos[2] = -1
+    _check_split(_paged_case(cuda, qpos, 2, d, 16, 64, seed=splits + w + d), splits)
+
+
+@pytest.mark.parametrize("splits,mb", [(3, 61), (7, 61), (61, 61), (2, 9), (9, 9), (5, 30)])
+def test_cuda_paged_split_ragged_plans(cuda, splits, mb):
+    """Split counts that do not divide the table, and blocks that take
+    several splits (as many splits as columns), with block size 5."""
+    ctas, cols = da.split_plan(splits, mb)
+    assert (ctas - 1) * cols < mb <= ctas * cols
+    qpos = np.asarray([[mb * 5 - 3, mb * 5 - 2, mb * 5 - 1], [2, 40, -1]])
+    _check_split(_paged_case(cuda, qpos, 3, 64, 5, mb, seed=splits * mb), splits)
+
+
+def test_cuda_paged_split_takes_a_table_too_wide_for_the_single_pass_kernel(cuda):
+    """60000 columns of one position: the single-pass kernel holds the
+    whole row in shared memory and raises; the split kernel's blocks
+    hold 2048 columns each and read the rest from device memory."""
+    rs = np.random.RandomState(11)
+    mb, nb = 60000, 4097
+    tables = torch.from_numpy(rs.randint(1, nb, (1, mb)).astype(np.int32)).to(cuda)
+    gen = torch.Generator().manual_seed(11)
+    k, v = (torch.randn(nb, 1, 2, 64, generator=gen).to(cuda) for _ in range(2))
+    q = torch.randn(1, 3, 2, 64, generator=gen).to(cuda)
+    qpos = torch.tensor([[57000, 59999, -1]], dtype=torch.int32, device=cuda)
+    args = (q, k, v, tables, qpos)
+    with pytest.raises(RuntimeError, match="ff_paged_append_f32"):
+        da.paged_append_attention(*args)
+    for splits in (16, mb):
+        _check_split(args, splits)
 
 
 def test_cuda_paged_cluster_launch_replays_in_a_cuda_graph(cuda):
@@ -204,6 +248,27 @@ def test_cuda_paged_cluster_launch_replays_in_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, da.reference_paged_append_attention(*args),
                                atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_paged_split_replays_in_a_cuda_graph(cuda):
+    """The split kernel captured into a CUDA graph: two replays on new
+    queries copied into the captured buffer each give what an eager call
+    gives (the kernel keeps no state between launches)."""
+    qpos = np.asarray([[930]])
+    args = _paged_case(cuda, qpos, 12, 64, 16, 64, seed=12)
+    da.paged_append_attention(*args, kv_splits=8)  # first launch outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.paged_append_attention(*args, kv_splits=8)
+    for _ in range(2):
+        args[0].copy_(torch.randn_like(args[0]))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, da.paged_append_attention(*args, kv_splits=8),
+                                   atol=0, rtol=0)
+        torch.testing.assert_close(out, da.reference_paged_append_attention(*args),
+                                   atol=1e-4, rtol=1e-4)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):

@@ -4,8 +4,12 @@ Same numpy inputs through both packages: the port's plain PyTorch
 versions (what its wrappers run for CPU tensors, and what the CUDA
 kernels are held against on the card by chip_smoke.py) against the JAX
 Pallas kernels in interpret mode and the JAX plain reference. Covers
-both split modes, W = 1 and W = 5 windows, padding queries, inactive
-slots and block-table entries that point at scratch block 0.
+both split modes (split counts past the heuristic's 8, up to one split
+per table column, and counts that do not divide the table), W = 1 and
+W = 5 windows, padding queries, inactive slots and block-table entries
+that point at scratch block 0; and the split-KV CUDA kernel's plan of
+blocks (:func:`split_plan`), whose column ranges are recombined here on
+the CPU as the kernel recombines them on-chip.
 
 Tolerance: atol 1e-5 on fp32 outputs of O(1) — the two packages sum in
 different orders, nothing more.
@@ -86,6 +90,74 @@ def test_split_partials_recombine_to_reference(b, w, max_blocks, splits):
     out = tda._combine_splits(acc, m, l, inputs[4], torch.float32)
     ref = tda.reference_paged_append_attention(*inputs)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL, rtol=0)
+
+
+def _jax_split(inputs, kv_splits):
+    return np.asarray(
+        jda.paged_append_attention(*_jax(*inputs), interpret=True, kv_splits=kv_splits)
+    )
+
+
+@pytest.mark.parametrize("kv_splits,max_blocks", [(16, 64), (64, 64), (24, 40)])
+def test_split_path_matches_jax_beyond_eight_splits(kv_splits, max_blocks):
+    """More splits than default_kv_splits picks (at most 8): 16 over 64
+    columns, one split per column, and 24 over 40 (splits of 2 columns,
+    the last 4 splits past the table)."""
+    inputs = _fixtures(kv_splits + max_blocks, 2, 1, max_blocks, nb=97, bs=4, d=16)
+    out = tda.paged_append_attention(*_torch(*inputs), kv_splits=kv_splits).numpy()
+    np.testing.assert_allclose(out, _jax_split(inputs, kv_splits), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kv_splits", [5, 7, 11])
+def test_split_path_window_with_padding_matches_jax(kv_splits):
+    """W = 5 with padding queries and an all-padding sequence, at split
+    counts that do not divide the 12-column table; padding queries give
+    exact zeros."""
+    inputs = _fixtures(200 + kv_splits, 3, 5, 12)
+    pad = inputs[4] < 0
+    assert pad.any() and pad[-1].all() and not pad[0].all()
+    out = tda.paged_append_attention(*_torch(*inputs), kv_splits=kv_splits).numpy()
+    np.testing.assert_allclose(out, _jax_split(inputs, kv_splits), atol=ATOL, rtol=0)
+    assert np.all(out[pad] == 0.0)
+
+
+def test_split_plan_takes_runs_of_whole_splits():
+    """For every table width up to 80 and every split count the JAX
+    wrapper accepts (1..MB, and more, which it clamps): at most 8 blocks,
+    each a run of whole JAX splits, covering the table with a column in
+    every block — the plan the CUDA launcher checks."""
+    for mb in range(1, 81):
+        for s in range(1, mb + 3):
+            splits, bps = tda._clamp_splits(s, mb)
+            ctas, cols = tda.split_plan(s, mb)
+            assert 1 <= ctas <= tda.MAX_CLUSTER
+            assert cols % bps == 0
+            assert (ctas - 1) * cols < mb <= ctas * cols
+            assert (ctas > 1) == (splits > 1)
+    assert tda.split_plan(8, 64) == (8, 8)  # the long-context cell: one split a block
+    assert tda.split_plan(16, 64) == tda.split_plan(64, 64) == (8, 8)
+    assert tda.split_plan(24, 40) == (7, 6)  # 20 splits of 2 columns hold the table
+    assert tda.split_plan(16, 64, max_ctas=16) == (16, 4)
+
+
+@pytest.mark.parametrize("kv_splits,max_blocks", [(8, 64), (16, 64), (64, 64), (24, 40), (5, 12)])
+def test_split_plan_ranges_recombine_to_jax(kv_splits, max_blocks):
+    """The kernel's decomposition, on the CPU: each block's column range
+    of split_plan attended alone (the partials of its slice of the table,
+    positions shifted to it), then the blocks combined exactly, gives the
+    JAX split path's output."""
+    bs = 4
+    inputs = _fixtures(300 + kv_splits, 2, 3, max_blocks, nb=97, bs=bs, d=16)
+    q, kc, vc, bt, qp = _torch(*inputs)
+    ctas, cols = tda.split_plan(kv_splits, max_blocks)
+    parts = []
+    for r in range(ctas):
+        c0, c1 = r * cols, min((r + 1) * cols, max_blocks)
+        parts.append(tda.reference_paged_append_partials(
+            q, kc, vc, bt[:, c0:c1].contiguous(), qp - c0 * bs, kv_splits=1))
+    acc, m, l = (torch.cat(x, dim=1) for x in zip(*parts))
+    out = tda._combine_splits(acc, m, l, qp, torch.float32).numpy()
+    np.testing.assert_allclose(out, _jax_split(inputs, kv_splits), atol=ATOL, rtol=0)
 
 
 def test_combine_splits_matches_jax():
