@@ -17,7 +17,7 @@ prints no result line):
    another order), at the serving path's shapes (with the cluster size
    each launched) and at edge shapes, among them contexts that leave
    blocks of a cluster without a live position, split counts up to the
-   table's width and a table too wide for the single-pass kernel; the
+   table's width and a 60000-column table through both kernels; the
    split-KV path must run as one device kernel; then the device time
    (CUDA events around a replayed CUDA graph of the calls) of the
    kernel, the plain version and one PyTorch library call over the same
@@ -27,20 +27,42 @@ prints no result line):
    50257, 1024 positions, random weights from --seed, fp32) behind a
    4-slot engine and the continuous-batching scheduler; 8 requests of
    16-700 prompt tokens and 32 new tokens each (6 greedy, 2 seeded
-   temperature 0.8 / top-k 50). The launch counters must show one paged
-   kernel launch per layer per decode step, and one decode step's
-   logits must agree with the plain attention path within 1e-3.
+   temperature 0.8 / top-k 50), through an engine whose steps replay
+   captured CUDA graphs (the default) and one built with
+   eager_steps=True, in the order graph, eager, eager, graph, each
+   engine warmed first with a prompt in every prefill bucket (so every
+   graph is captured before the timed runs). The streams of both must be
+   identical, the launch counters must show one paged kernel launch per
+   layer per decode step, and one decode step's logits must agree with
+   the plain attention path within 1e-3.
 4. long context: the same model in a 1-slot engine with a ~900-token
    prompt, where the split-KV (flash-decoding) kernel is selected (one
-   launch per layer per decode step, combined on-chip).
-5. anatomy: torch.profiler over a short 4-slot run — the device's busy
-   share of the wall time and the device time by kernel; then, in the
-   long-context engine, a second stream's decode steps under the
-   profiler (device ms and device kernels per step, one paged kernel per
-   layer) and ten split-KV attention calls, whose device kernels must
-   all be the paged kernel. The profiler runs only after the timed
-   phases: once started, it slows the host's later launches.
-6. flash kernels: the flash-attention forward, dQ and dK/dV kernels
+   launch per layer per decode step, combined on-chip); graph and eager
+   engines as in 3.
+5. step graphs: prefill (four buckets), decode and verify steps replayed
+   from their graphs against the same steps run eagerly, at GPT-2-small
+   width: tokens, logits and the KV cache bit-identical, one capture per
+   signature, num_layers paged launches counted per replay; and the
+   device time of the threefry Gumbel draws a decode step ([4, V]) and a
+   verify step (2 x [4, 5, V]) make.
+6. speculation: 4 slots, k = 4, the n-gram drafter, 4 prompts of
+   repeated segments, 48 new greedy tokens each: plain, then speculative
+   through the graph engine and through the eager engine. The greedy
+   streams must equal the plain ones, decode and verify logits must agree
+   with the plain attention path within 1e-3, and the paged launches must
+   be num_layers x (decode + verify steps). Reports the verify step ms,
+   the acceptance rate and the tokens per verify step.
+7. anatomy: torch.profiler over a short 4-slot run — the device's busy
+   share of the wall time and the device time by kernel; eight decode
+   steps of four live slots under the profiler, replayed and eager
+   (device and wall ms a step, device kernels a step, one paged kernel a
+   layer); then, in the long-context engine, a second stream's replayed
+   decode steps under the profiler (device ms and device kernels per
+   step, one paged kernel per layer) and ten split-KV attention calls,
+   whose device kernels must all be the paged kernel. The profiler runs
+   only after the timed phases: once started, it slows the host's later
+   launches.
+8. flash kernels: the flash-attention forward, dQ and dK/dV kernels
    against their plain PyTorch versions (atol 1e-4 + rtol 1e-4) at the
    training path's shape (B=32, S=128, H=12, D=64) and at a causal
    S=512 shape and edge shapes (S=100 D=128, Sq=64 Sk=200, D=256, S=1,
@@ -49,7 +71,7 @@ prints no result line):
    forward, and its backward: its kernels' durations by torch.profiler),
    beside the card's bound for fp32-accurate products on the tensor cores
    (and for the same operations on the fp32 CUDA cores).
-7. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
+9. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
    seq 128, batch 32, fp32, weights from --seed) through FFModel ->
    compile (SGD lr 0.01, MSE) -> fit: one step with the kernels and one
    with the plain attention from the same weights must agree; then
@@ -324,9 +346,9 @@ def edge_shapes(seed: int) -> None:
     splits as columns (blocks taking several splits each), a padding-only
     sequence, contexts that leave blocks of a cluster without a live
     position (0, 1, 15, 16, 17, and one position into the second block's
-    share) beside a long one, and a table wider than the single-pass
-    kernel takes (which must raise there) through the split kernel — each
-    against the plain version; padding queries must give exact zeros."""
+    share) beside a long one, and a table of 60000 columns through the
+    single-pass kernel and the split kernel — each against the plain
+    version; padding queries must give exact zeros."""
     import numpy as np
     import torch
 
@@ -386,20 +408,13 @@ def edge_shapes(seed: int) -> None:
         # contexts leave most of them empty
         check(f"split decode contexts {ctx} and 731, MB={mb} bs={bs}", tables, qpos, 12, 64, bs,
               da.default_kv_splits(2, mb))
-    # a table of 60000 columns of one position: the single-pass kernel holds
-    # the whole row in shared memory and raises; the split kernel's blocks
-    # hold 2048 columns each and read the rest from device memory
+    # a table of 60000 columns of one position: a block of either kernel
+    # holds at most 2048 table columns in shared memory and reads the rest
+    # from device memory
     mb = 60000
-    tables = rs.randint(1, 4097, (1, mb)).astype(np.int32)
+    tables = rs.randint(1, mb + 1, (1, mb)).astype(np.int32)
     qpos = np.asarray([[57000, 59999, -1]], np.int32)
-    q, k, v, bt, qp = paged_inputs(gen, 4097, 1, 2, 64, tables, qpos, 1)[0]
-    try:
-        da.paged_append_attention(q, k, v, bt, qp)
-    except RuntimeError as e:
-        print(f"kernel edge shape wide table: the single-pass kernel raises ({e})")
-    else:
-        raise AssertionError("the single-pass kernel took a 60000-column table")
-    for s in (16, mb):
+    for s in (1, 16, mb):
         check(f"wide table B=1 W=3 H=2 D=64 bs=1 MB={mb} S={s}", tables, qpos, 2, 64, 1, s)
 
 
@@ -424,7 +439,9 @@ def check_decode_logits(engine, sched, name: str) -> float:
     if not order:
         raise AssertionError(f"{name}: no running sequence to check")
     tokens, positions, tables, active = sched._collect_slots(order)[:4]
-    tok, pos, bt, ctx = engine.decode_inputs(tokens, positions, tables, active)
+    x = engine.decode_arrays(tokens, positions, tables, active)
+    tok, pos, bt, ctx = (torch.from_numpy(x[k]).to(engine.device)
+                         for k in ("tokens", "positions", "tables", "context_lens"))
     out = {}
     for backend in ("auto", "plain"):
         ck, cv = engine.cache.k.clone(), engine.cache.v.clone()
@@ -444,9 +461,9 @@ def check_decode_logits(engine, sched, name: str) -> float:
     return err
 
 
-def serve(engine, prompts, samplings):
+def serve(engine, prompts, samplings, speculation=None):
     """Submit every prompt at once and step the scheduler to the end.
-    Returns (handles, wall seconds, per-request TTFT seconds)."""
+    Returns (handles, wall seconds, per-request TTFT seconds, scheduler)."""
     import torch
 
     from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
@@ -454,7 +471,7 @@ def serve(engine, prompts, samplings):
     torch.cuda.synchronize()
     sched = ContinuousBatchingScheduler(engine)
     t0 = time.perf_counter()
-    handles = [sched.submit(p, s) for p, s in zip(prompts, samplings)]
+    handles = [sched.submit(p, s, speculation=speculation) for p, s in zip(prompts, samplings)]
     ttft = [None] * len(handles)
     for _ in range(10_000):
         if all(h.done() for h in handles):
@@ -467,76 +484,160 @@ def serve(engine, prompts, samplings):
     wall = time.perf_counter() - t0
     if not all(h.done() for h in handles):
         raise AssertionError("requests did not finish")
-    return handles, wall, ttft
+    return handles, wall, ttft, sched
+
+
+def warm(engine, rs, speculation=None) -> None:
+    """A prompt in every prefill bucket through the engine (and decode
+    steps, and verify steps with ``speculation``), so every step
+    signature is captured — and cuBLAS and the allocator warmed — before
+    a timed run."""
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+
+    lens = [min(b, engine.max_seq_len - 8) for b in engine.buckets]
+    engine.generate([rs.randint(0, engine.cfg.vocab_size, n).tolist() for n in lens],
+                    SamplingParams(max_new_tokens=4), speculation=speculation)
+
+
+def engine_pair(params, **kw):
+    """{"graph": an engine replaying captured CUDA graphs (the default),
+    "eager": the same engine with eager steps}, sharing the weights."""
+    from flexflow_tpu_torch.generation.engine import GenerationEngine
+
+    cfg = gpt2_small()
+    return {"graph": GenerationEngine(params, cfg, **kw),
+            "eager": GenerationEngine(params, cfg, eager_steps=True, **kw)}
+
+
+def run_stats(engine, handles, wall, ttft, decode0, dsec0, launches) -> dict:
+    """A timed scheduler run's numbers (engine counters read before it:
+    decode0 steps, dsec0 seconds)."""
+    import numpy as np
+
+    steps = engine.step_counts["decode"] - decode0
+    tokens = sum(len(h.result(0)) for h in handles)
+    return {"decode_steps": steps, "launches": launches, "wall_s": wall,
+            "new_tokens": tokens, "tokens_per_s": tokens / wall,
+            "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": float(max(ttft)),
+            "decode_step_ms": 1e3 * (engine.step_seconds["decode"] - dsec0) / max(steps, 1)}
 
 
 def serving_phase(seed: int, params):
-    """The 4-slot engine behind the scheduler: 8 mixed requests."""
+    """The 4-slot engine behind the scheduler: 8 mixed requests, through
+    the graph engine and the eager engine in turns (graph, eager, eager,
+    graph). Returns (engines, stats)."""
     import numpy as np
 
-    from flexflow_tpu_torch.generation.engine import GenerationEngine, SamplingParams
+    from flexflow_tpu_torch.generation.engine import SamplingParams
     from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
     from flexflow_tpu_torch.ops.kernels import decode_attention as da
 
     cfg = gpt2_small()
-    engine = GenerationEngine(params, cfg, max_batch_slots=4, block_size=16)
-    if engine.cache_config.num_blocks != 257:
-        raise AssertionError(f"cache holds {engine.cache_config.num_blocks} blocks, expected 257")
+    engines = engine_pair(params, max_batch_slots=4, block_size=16)
+    if engines["graph"].cache_config.num_blocks != 257:
+        raise AssertionError(f"cache holds {engines['graph'].cache_config.num_blocks} blocks, "
+                             "expected 257")
     rs = np.random.RandomState(seed)
-    engine.generate([rs.randint(0, cfg.vocab_size, 40).tolist()],
-                    SamplingParams(max_new_tokens=4))  # warm-up: cuBLAS and allocator
+    for engine in engines.values():
+        warm(engine, rs)
     lens = [16, 700, 64, 300, 128, 512, 40, 220]
     prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in lens]
     samplings = [SamplingParams(max_new_tokens=32)] * 6 + [
         SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=1234),
         SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=5678),
     ]
-    decode0, dsec0 = engine.step_counts["decode"], engine.step_seconds["decode"]
-    da.reset_launch_counts()
-    handles, wall, ttft = serve(engine, prompts, samplings)
-    launches = dict(da.LAUNCHES)
-    steps = engine.step_counts["decode"] - decode0
-    outs = [h.result(0) for h in handles]
-    for out in outs:
-        if len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
-            raise AssertionError(f"bad stream {out}")
-    if launches["paged_append"] != cfg.num_layers * steps or launches["paged_append_split"] != 0:
-        raise AssertionError(
-            f"launches {launches} != {cfg.num_layers} layers x {steps} decode steps"
-        )
-    tokens = sum(len(o) for o in outs)
-    stats = {
-        "requests": len(outs), "prompt_lens": lens, "new_tokens": tokens,
-        "decode_steps": steps, "launches": launches, "wall_s": wall,
-        "tokens_per_s": tokens / wall,
-        "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": float(max(ttft)),
-        "decode_step_ms": 1e3 * (engine.step_seconds["decode"] - dsec0) / steps,
-    }
-    print("serving (4 slots): " + json.dumps(stats))
+    runs, streams = {"graph": [], "eager": []}, None
+    for name in ("graph", "eager", "eager", "graph"):
+        engine = engines[name]
+        decode0, dsec0 = engine.step_counts["decode"], engine.step_seconds["decode"]
+        da.reset_launch_counts()
+        handles, wall, ttft, _ = serve(engine, prompts, samplings)
+        launches = dict(da.LAUNCHES)
+        stats = run_stats(engine, handles, wall, ttft, decode0, dsec0, launches)
+        outs = [h.result(0) for h in handles]
+        for out in outs:
+            if len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
+                raise AssertionError(f"bad stream {out}")
+        steps = stats["decode_steps"]
+        if launches["paged_append"] != cfg.num_layers * steps or launches["paged_append_split"]:
+            raise AssertionError(
+                f"{name}: launches {launches} != {cfg.num_layers} layers x {steps} decode steps")
+        if streams is None:
+            streams = outs
+        elif outs != streams:
+            raise AssertionError(f"{name} engine's streams differ from the graph engine's")
+        runs[name].append(stats)
+        print(f"serving (4 slots, {name} steps): " + json.dumps(stats))
+    graph = engines["graph"]
+    if graph.trace_counts.get("decode") != 1 or graph.recompiles():
+        raise AssertionError(f"graph engine signatures {graph.trace_counts}")
+    stats = {"requests": len(prompts), "prompt_lens": lens, "graph": runs["graph"],
+             "eager": runs["eager"], "launches": runs["graph"][0]["launches"],
+             "captures": dict(graph.trace_counts)}
     # a live batch's decode step, kernel vs plain attention
-    sched = ContinuousBatchingScheduler(engine)
+    sched = ContinuousBatchingScheduler(graph)
     extra = [sched.submit(rs.randint(0, cfg.vocab_size, n).tolist(), SamplingParams(max_new_tokens=4))
              for n in (100, 37, 250, 16)]
     sched.step()
-    stats["logits_max_abs_err"] = check_decode_logits(engine, sched, "serving")
+    stats["logits_max_abs_err"] = check_decode_logits(graph, sched, "serving")
     while not all(h.done() for h in extra):
         sched.step()
-    return engine, stats
+    return engines, stats
 
 
-def anatomy_phase(engine, seed: int):
+def decode_window_profile(engine, seed: int, steps: int = 8) -> dict:
+    """``steps`` decode steps of four live slots under torch.profiler:
+    device and wall ms a step, the device's busy share of the wall,
+    device kernels a step, and num_layers paged kernels a step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+
+    cfg = engine.cfg
+    rs = np.random.RandomState(seed + 4)
+    sched = ContinuousBatchingScheduler(engine)
+    handles = [sched.submit(rs.randint(0, cfg.vocab_size, n).tolist(),
+                            SamplingParams(max_new_tokens=steps + 4)) for n in (300, 64, 700, 128)]
+    sched.step()  # the four prefills and a first decode
+    torch.cuda.synchronize()
+    decode0 = engine.step_counts["decode"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = engine.step_counts["decode"] - decode0
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    paged = sum("paged_append_kernel" in e.name for e in ops)
+    if n != steps or paged != cfg.num_layers * n:
+        raise AssertionError(f"profiled: {paged} paged kernels in {n} decode steps")
+    device_us = sum(e.time_range.elapsed_us() for e in ops)
+    while not all(h.done() for h in handles):
+        sched.step()
+    return {"decode_steps": n, "device_ms_per_step": device_us / 1e3 / n,
+            "wall_ms_per_step": 1e3 * wall / n, "device_busy_share": device_us / 1e6 / wall,
+            "device_ops_per_step": len(ops) / n, "paged_kernels_per_step": paged / n}
+
+
+def anatomy_phase(engines, seed: int):
     """Where a serving run's time goes: torch.profiler over a short run
-    of the 4-slot engine (4 requests, 16 new tokens each). Reports the
-    device's busy share of the wall time (the sum of the GPU kernel and
-    copy durations over the run's wall, profiler overhead included in
-    the wall) and the device time by kernel name. ``device_busy_share``
-    is null where the profiler saw no device activity."""
+    of the 4-slot graph engine (4 requests, 16 new tokens each). Reports
+    the device's busy share of the wall time (the sum of the GPU kernel
+    and copy durations over the run's wall, profiler overhead included in
+    the wall) and the device time by kernel name; then a window of decode
+    steps alone, replayed and eager. ``device_busy_share`` is null where
+    the profiler saw no device activity."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from flexflow_tpu_torch.generation.engine import SamplingParams
 
+    engine = engines["graph"]
     rs = np.random.RandomState(seed + 2)
     prompts = [rs.randint(0, engine.cfg.vocab_size, n).tolist() for n in (300, 64, 700, 128)]
     samplings = [SamplingParams(max_new_tokens=16)] * 3 + [
@@ -544,7 +645,7 @@ def anatomy_phase(engine, seed: int):
     ]
     decode0 = engine.step_counts["decode"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall, _ = serve(engine, prompts, samplings)
+        _, wall, _, _ = serve(engine, prompts, samplings)
     steps = engine.step_counts["decode"] - decode0
     by_name = {}
     for e in prof.events():
@@ -558,58 +659,70 @@ def anatomy_phase(engine, seed: int):
         "device_busy_share": (busy_us / 1e6 / wall) if busy_us > 0 else None,
         "top_device_us": {name[:80]: us for name, us in top},
     }
-    print("anatomy (profiled, 4 slots): " + json.dumps(stats))
+    print("anatomy (profiled, 4 slots, graph steps): " + json.dumps(stats))
+    for name in ("graph", "eager"):
+        stats[f"decode_window_{name}"] = decode_window_profile(engines[name], seed)
+        print(f"anatomy: profiled decode steps, 4 live slots, {name} steps: "
+              + json.dumps(stats[f"decode_window_{name}"]))
     return stats
 
 
 def long_context_phase(seed: int, params):
-    """One ~900-token stream in a 1-slot engine: the split-KV kernel.
-    Returns (stats, engine)."""
+    """One ~900-token stream in a 1-slot engine: the split-KV kernel,
+    graph and eager steps in turns. Returns (stats, graph engine)."""
     import numpy as np
 
-    from flexflow_tpu_torch.generation.engine import GenerationEngine, SamplingParams
+    from flexflow_tpu_torch.generation.engine import SamplingParams
     from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
     from flexflow_tpu_torch.ops.kernels import decode_attention as da
 
     cfg = gpt2_small()
-    engine = GenerationEngine(params, cfg, max_batch_slots=1, block_size=16)
+    engines = engine_pair(params, max_batch_slots=1, block_size=16)
     rs = np.random.RandomState(seed + 1)
+    for engine in engines.values():
+        warm(engine, rs)
     prompt = rs.randint(0, cfg.vocab_size, 900).tolist()
-    decode0, dsec0 = engine.step_counts["decode"], engine.step_seconds["decode"]
-    da.reset_launch_counts()
-    handles, wall, ttft = serve(engine, [prompt], [SamplingParams(max_new_tokens=32)])
-    launches = dict(da.LAUNCHES)
-    steps = engine.step_counts["decode"] - decode0
-    if launches["paged_append_split"] != cfg.num_layers * steps or steps == 0:
-        raise AssertionError(
-            f"split launches {launches} != {cfg.num_layers} layers x {steps} decode steps"
-        )
-    if launches["paged_append"] != 0:
-        raise AssertionError(f"single-pass kernel ran in the 1-slot engine: {launches}")
-    stats = {
-        "prompt_len": len(prompt), "new_tokens": len(handles[0].result(0)),
-        "decode_steps": steps, "launches": launches, "wall_s": wall,
-        "ttft_s": ttft[0],
-        "decode_step_ms": 1e3 * (engine.step_seconds["decode"] - dsec0) / steps,
-    }
-    print("long context (1 slot): " + json.dumps(stats))
-    sched = ContinuousBatchingScheduler(engine)
+    runs, stream = {"graph": [], "eager": []}, None
+    for name in ("graph", "eager", "eager", "graph"):
+        engine = engines[name]
+        decode0, dsec0 = engine.step_counts["decode"], engine.step_seconds["decode"]
+        da.reset_launch_counts()
+        handles, wall, ttft, _ = serve(engine, [prompt], [SamplingParams(max_new_tokens=32)])
+        launches = dict(da.LAUNCHES)
+        stats = run_stats(engine, handles, wall, ttft, decode0, dsec0, launches)
+        steps = stats["decode_steps"]
+        if launches["paged_append_split"] != cfg.num_layers * steps or steps == 0:
+            raise AssertionError(
+                f"split launches {launches} != {cfg.num_layers} layers x {steps} decode steps")
+        if launches["paged_append"] != 0:
+            raise AssertionError(f"single-pass kernel ran in the 1-slot engine: {launches}")
+        out = handles[0].result(0)
+        if stream is None:
+            stream = out
+        elif out != stream:
+            raise AssertionError(f"{name} engine's long-context stream differs")
+        runs[name].append(stats)
+        print(f"long context (1 slot, {name} steps): " + json.dumps(stats))
+    graph = engines["graph"]
+    stats = {"prompt_len": len(prompt), "graph": runs["graph"], "eager": runs["eager"],
+             "launches": runs["graph"][0]["launches"]}
+    sched = ContinuousBatchingScheduler(graph)
     h = sched.submit(rs.randint(0, cfg.vocab_size, 880).tolist(), SamplingParams(max_new_tokens=4))
     sched.step()
-    stats["logits_max_abs_err"] = check_decode_logits(engine, sched, "long context")
+    stats["logits_max_abs_err"] = check_decode_logits(graph, sched, "long context")
     while not h.done():
         sched.step()
-    return stats, engine
+    return stats, graph
 
 
 def long_context_profile(engine, seed: int) -> dict:
-    """A second ~880-token stream in the long-context engine, its decode
-    steps under torch.profiler: device time and device kernels per step,
-    with one paged kernel a layer; then attention calls of that stream
-    over the engine's cache, whose device kernels must all be the paged
-    kernel (the split path runs no PyTorch op after its launch). Run
-    after the timed phases and the anatomy: a profiler, once started,
-    slows the host's later launches."""
+    """A second ~880-token stream in the long-context graph engine, its
+    replayed decode steps under torch.profiler: device time and device
+    kernels per step, with one paged kernel a layer; then attention calls
+    of that stream over the engine's cache, whose device kernels must all
+    be the paged kernel (the split path runs no PyTorch op after its
+    launch). Run after the timed phases and the anatomy: a profiler, once
+    started, slows the host's later launches."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -624,9 +737,9 @@ def long_context_profile(engine, seed: int) -> dict:
     h = sched.submit(rs.randint(0, cfg.vocab_size, 880).tolist(), SamplingParams(max_new_tokens=12))
     sched.step()  # the prefill
     # the stream's table and positions at the first profiled step
-    tokens, positions, tables, active = sched._collect_slots(list(sched._running.values()))[:4]
-    _, _, bt, ctx = engine.decode_inputs(tokens, positions, tables, active)
-    qp = (ctx[:, None] - 1).contiguous()
+    x = engine.decode_arrays(*sched._collect_slots(list(sched._running.values()))[:4])
+    bt = torch.from_numpy(x["tables"]).cuda()
+    qp = torch.from_numpy(x["context_lens"][:, None] - 1).cuda()
     decode0 = engine.step_counts["decode"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         while not h.done():
@@ -642,7 +755,7 @@ def long_context_profile(engine, seed: int) -> dict:
         "device_ops_per_step": len(ops) / steps,
         "paged_kernels_per_step": paged / steps,
     }
-    print("long context, profiled decode steps: " + json.dumps(stats))
+    print("long context, profiled replayed decode steps: " + json.dumps(stats))
     splits = da.default_kv_splits(bt.shape[0], bt.shape[1])
     q = torch.randn((bt.shape[0], 1, cfg.num_heads, cfg.hidden_size // cfg.num_heads),
                     device=bt.device)
@@ -657,6 +770,223 @@ def long_context_profile(engine, seed: int) -> dict:
     stats["split_call_device_kernels"] = sorted({n[:80] for n in launched})
     stats["split_call_kernels_recorded"] = len(launched)
     return stats
+
+
+def step_graph_phase(engines, seed: int) -> dict:
+    """White box, at GPT-2-small width: the same prefill, decode and
+    verify steps on the graph engine and the eager engine (the serving
+    phase's, warmed) must give the same tokens, logits and KV cache bit
+    for bit; each replay counts num_layers paged launches. Then the
+    device time of the threefry Gumbel draws of a decode step and of a
+    verify step."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.generation import prng
+    from flexflow_tpu_torch.generation.engine import SamplingParams, derive_keys, derive_window_keys
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    graph, eager = engines["graph"], engines["eager"]
+    cfg, b, w = graph.cfg, graph.max_batch_slots, graph.spec_window
+    layers, mb = cfg.num_layers, graph.max_blocks_per_seq
+    rs = np.random.RandomState(seed + 6)
+    lens = (40, 100, 300, 700)
+    sps = [SamplingParams(), SamplingParams(temperature=0.8, top_k=50, seed=3),
+           SamplingParams(), SamplingParams(temperature=1.0, seed=2**31 + 7)]
+    tables = np.zeros((b, mb), np.int32)
+    tokens = np.zeros((b,), np.int32)
+    held = []
+    for i, (n, sp) in enumerate(zip(lens, sps)):
+        prompt = rs.randint(0, cfg.vocab_size, n).tolist()
+        blocks = graph.allocator.allocate(graph.cache_config.blocks_for(n + 40))
+        held += blocks
+        tables[i, : len(blocks)] = blocks
+        tokens[i] = graph.prefill_one(prompt, blocks, sp, 0)
+        if eager.prefill_one(prompt, blocks, sp, 0) != tokens[i] or not torch.equal(
+                graph.last_logits, eager.last_logits):
+            raise AssertionError(f"prefill[{graph.bucket_for(n)}]: replay differs from eager")
+    positions = np.asarray(lens, np.int32)
+    active = np.ones((b,), bool)
+    temps = np.asarray([sp.temperature for sp in sps], np.float32)
+    top_ks = np.asarray([sp.top_k for sp in sps], np.int32)
+    seeds = np.asarray([sp.seed & 0xFFFFFFFF for sp in sps], np.uint32)
+    kinds = {"decode": 0, "verify": 0}
+    for step in range(8):
+        counts = np.full((b,), 1 + step, np.int32)
+        args = (tokens, positions, tables, active, temps, top_ks, seeds, counts)
+        da.reset_launch_counts()
+        out = graph.decode(*args)
+        if da.LAUNCHES["paged_append"] != layers:
+            raise AssertionError(f"a decode replay counted {da.LAUNCHES}, expected {layers}")
+        if not np.array_equal(out, eager.decode(*args)) or not torch.equal(
+                graph.last_logits, eager.last_logits):
+            raise AssertionError(f"decode step {step}: replay differs from eager")
+        kinds["decode"] += 1
+        tokens, positions = out.astype(np.int32), positions + 1
+    for step, nd in enumerate(([4, 2, 0, 4], [1, -1, 4, 3], [4, 4, 4, 4])):
+        n_draft = np.asarray(nd, np.int32)
+        window = np.zeros((b, w), np.int32)
+        window[:, 0] = tokens
+        window[:, 1:] = rs.randint(0, cfg.vocab_size, (b, w - 1))
+        counts = np.full((b,), 20 + step, np.int32)
+        args = (window, positions, n_draft, tables, temps, top_ks, seeds, counts)
+        da.reset_launch_counts()
+        out, n = graph.verify(*args)
+        if step > 0 and da.LAUNCHES["paged_append"] != layers:
+            raise AssertionError(f"a verify replay counted {da.LAUNCHES}, expected {layers}")
+        eout, en = eager.verify(*args)
+        if not (np.array_equal(out, eout) and np.array_equal(n, en)
+                and torch.equal(graph.last_logits, eager.last_logits)):
+            raise AssertionError(f"verify step {step}: replay differs from eager")
+        kinds["verify"] += 1
+        positions = positions + np.where(n_draft >= 0, n, 0)
+        tokens = out[np.arange(b), np.maximum(n - 1, 0)].astype(np.int32)
+    idx = torch.tensor(held, device=graph.device)  # the blocks these steps wrote
+    if not (torch.equal(graph.cache.k[:, idx], eager.cache.k[:, idx])
+            and torch.equal(graph.cache.v[:, idx], eager.cache.v[:, idx])):
+        raise AssertionError("the KV caches of the graph and eager engines differ")
+    graph.allocator.free(held)
+    if graph.recompiles() or graph.trace_counts.get("verify") != 1:
+        raise AssertionError(f"graph engine signatures {graph.trace_counts}")
+    # the threefry draws on the device, alone (a CUDA graph of 16 calls)
+    dev = graph.device
+    s_t = torch.from_numpy(seeds.astype(np.int64)).to(dev)
+    c_t = torch.arange(b, dtype=torch.int32, device=dev)
+    v = cfg.vocab_size
+    decode_draw_ms, _ = time_ms(lambda s, c: prng.gumbel(derive_keys(s, c), (v,)), [(s_t, c_t)])
+
+    def verify_draws(s, c):
+        keys = derive_window_keys(s, c, w)
+        return prng.gumbel(prng.fold_in(keys, 2), (v,)), prng.gumbel(keys, (v,))
+
+    verify_draw_ms, _ = time_ms(verify_draws, [(s_t, c_t)])
+    stats = {"checked": {"prefill_buckets": sorted({graph.bucket_for(n) for n in lens}), **kinds},
+             "bit_identical": True, "captures": dict(graph.trace_counts),
+             "threefry_decode_ms": decode_draw_ms, "threefry_verify_ms": verify_draw_ms}
+    print("step graphs: " + json.dumps(stats))
+    return stats
+
+
+def check_verify_logits(engine, sched) -> float:
+    """The scheduler's next verify step of its live batch (the drafter's
+    proposals, padded with random tokens to as many drafts as the slot's
+    blocks hold) on clones of the cache, through the kernel path and the
+    plain attention: the logits at every real window position must agree
+    within LOGITS_ATOL."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.generation.decoder import verify_step
+
+    sched._plan_speculation()
+    sched._grow()  # blocks for each slot's next window, as step() grows them
+    order = sorted(sched._running.values(), key=lambda s: s.slot)
+    last, start, tables = sched._collect_slots(order)[:3]
+    b, w = engine.max_batch_slots, engine.spec_window
+    bs = engine.cache_config.block_size
+    rs = np.random.RandomState(17)
+    window = rs.randint(0, engine.cfg.vocab_size, (b, w)).astype(np.int32)
+    window[:, 0] = last
+    n_draft = np.full((b,), -1, np.int32)
+    for state in order:
+        req = state.req
+        draft = req.drafter.propose(req.original_prompt + req.generated, w - 1) if req.drafter else []
+        window[state.slot, 1: 1 + len(draft)] = draft
+        # positions past the slot's blocks would map to scratch block 0,
+        # where the slots' writes collide and land in any order
+        n_draft[state.slot] = min(w - 1, len(state.blocks) * bs - state.cached_len - 1)
+    offs = np.arange(w)[None, :]
+    positions = np.where(offs <= n_draft[:, None], start[:, None] + offs, -1).astype(np.int32)
+    dev = engine.device
+    out = {}
+    for backend in ("auto", "plain"):
+        ck, cv = engine.cache.k.clone(), engine.cache.v.clone()
+        logits, _, _ = verify_step(engine.params, torch.from_numpy(window).to(dev),
+                                   torch.from_numpy(positions).to(dev), ck, cv,
+                                   torch.from_numpy(tables).to(dev), backend=backend)
+        out[backend] = logits[torch.from_numpy(positions >= 0).to(dev)]
+        del ck, cv
+    if not torch.isfinite(out["auto"]).all():
+        raise AssertionError("verify logits not finite")
+    err = float((out["auto"] - out["plain"]).abs().max())
+    print(f"speculation: verify logits kernel vs plain attention: max abs err {err:.3e} "
+          f"({out['auto'].shape[0]} window positions, drafts {n_draft.tolist()})")
+    if err > LOGITS_ATOL:
+        raise AssertionError(f"verify logits differ by {err} > {LOGITS_ATOL}")
+    torch.cuda.empty_cache()
+    return err
+
+
+def speculation_phase(seed: int, params) -> dict:
+    """4 slots, k = 4, the n-gram drafter: 4 prompts of repeated segments,
+    48 new greedy tokens each, plain and then speculative through the
+    graph and the eager engines."""
+    import numpy as np
+
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+    from flexflow_tpu_torch.generation.speculative import SpeculationConfig
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    cfg = gpt2_small()
+    engines = engine_pair(params, max_batch_slots=4, block_size=16, max_spec_tokens=4)
+    spec = SpeculationConfig(k=4)
+    rs = np.random.RandomState(seed + 5)
+    for engine in engines.values():
+        warm(engine, rs)
+        warm(engine, rs, speculation=spec)
+    prompts = []
+    for seg_len, reps in ((24, 4), (40, 3), (16, 6), (60, 2)):
+        seg = rs.randint(0, cfg.vocab_size, seg_len).tolist()
+        prompts.append(seg * reps + seg[:6])
+    greedy = [SamplingParams(max_new_tokens=48)] * len(prompts)
+    graph = engines["graph"]
+    da.reset_launch_counts()
+    decode0, dsec0 = graph.step_counts["decode"], graph.step_seconds["decode"]
+    handles, wall, ttft, _ = serve(graph, prompts, greedy)
+    plain = run_stats(graph, handles, wall, ttft, decode0, dsec0, dict(da.LAUNCHES))
+    plain_streams = [h.result(0) for h in handles]
+    print("speculation: plain greedy (graph steps): " + json.dumps(plain))
+    runs = {}
+    for name in ("graph", "eager"):
+        engine = engines[name]
+        decode0, dsec0 = engine.step_counts["decode"], engine.step_seconds["decode"]
+        verify0, vsec0 = engine.step_counts["verify"], engine.step_seconds["verify"]
+        da.reset_launch_counts()
+        handles, wall, ttft, sched = serve(engine, prompts, greedy, speculation=spec)
+        launches = dict(da.LAUNCHES)
+        stats = run_stats(engine, handles, wall, ttft, decode0, dsec0, launches)
+        vsteps = engine.step_counts["verify"] - verify0
+        steps = stats["decode_steps"] + vsteps
+        if [h.result(0) for h in handles] != plain_streams:
+            raise AssertionError(f"{name}: speculative greedy streams differ from plain ones")
+        if launches["paged_append"] != cfg.num_layers * steps or launches["paged_append_split"]:
+            raise AssertionError(f"{name}: launches {launches} != {cfg.num_layers} layers x "
+                                 f"({stats['decode_steps']} decode + {vsteps} verify steps)")
+        c = sched.counts
+        stats.update({
+            "verify_steps": vsteps,
+            "verify_step_ms": 1e3 * (engine.step_seconds["verify"] - vsec0) / max(vsteps, 1),
+            "drafted": c.get("spec_proposed", 0), "accepted": c.get("spec_accepted", 0),
+            "acceptance_rate": c.get("spec_accepted", 0) / max(c.get("spec_proposed", 0), 1),
+            "tokens_per_verify_step": c.get("spec_emitted", 0) / max(vsteps, 1),
+            "tokens_per_slot_window": c.get("spec_emitted", 0) / max(c.get("spec_windows", 0), 1),
+        })
+        runs[name] = stats
+        print(f"speculation (k=4, n-gram, {name} steps): " + json.dumps(stats))
+    if graph.trace_counts.get("verify") != 1 or graph.recompiles():
+        raise AssertionError(f"graph engine signatures {graph.trace_counts}")
+    # a live speculating batch: decode and verify logits, kernel vs plain
+    sched = ContinuousBatchingScheduler(graph)
+    live = [sched.submit(p, SamplingParams(max_new_tokens=8), speculation=spec) for p in prompts]
+    sched.step()
+    errs = {"decode": check_decode_logits(graph, sched, "speculation"),
+            "verify": check_verify_logits(graph, sched)}
+    while not all(h.done() for h in live):
+        sched.step()
+    return {"prompt_lens": [len(p) for p in prompts], "k": spec.k, "plain": plain,
+            "graph": runs["graph"], "eager": runs["eager"], "logits_max_abs_err": errs,
+            "launches": runs["graph"]["launches"]}
 
 
 def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool):
@@ -1021,7 +1351,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from flexflow_tpu_torch.generation.decoder import init_decoder_params
+    from flexflow_tpu_torch.generation.decoder import init_decoder_params, params_to
     from flexflow_tpu_torch.ops.kernels import _build
 
     # full fp32 everywhere: TF32 would move the logits past the checks
@@ -1042,11 +1372,14 @@ def main(argv=None) -> int:
 
     rows = kernel_phase(args.seed)
     params = init_decoder_params(torch.Generator().manual_seed(args.seed), gpt2_small())
-    engine, serving = serving_phase(args.seed, params)
-    long_ctx, long_engine = long_context_phase(args.seed, engine.params)
-    anatomy = anatomy_phase(engine, args.seed)
+    params = params_to(params, "cuda")  # one copy on the card, shared by every engine
+    engines, serving = serving_phase(args.seed, params)
+    long_ctx, long_engine = long_context_phase(args.seed, params)
+    graphs = step_graph_phase(engines, args.seed)
+    speculation = speculation_phase(args.seed, params)
+    anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
-    del engine, long_engine, params
+    del engines, long_engine, params
     torch.cuda.empty_cache()
     flash = flash_phase(args.seed)
     training = training_phase(args.seed)
@@ -1063,7 +1396,7 @@ def main(argv=None) -> int:
         record("paged_append", "flexflow_tpu/ops/kernels/decode_attention.py:368",
                dict(rows["decode"], max_abs_err=max(rows["decode"]["max_abs_err"],
                                                     rows["append_w5"]["max_abs_err"])),
-               serving["launches"]["paged_append"]),
+               serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
     ] + [
@@ -1073,7 +1406,19 @@ def main(argv=None) -> int:
                training["launches"][name], FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ]
+    for label, run in (("graph", "graph"), ("eager", "eager")):
+        print(f"{card}: 4-slot serving, {label} steps: decode step ms "
+              + ", ".join(f"{r['decode_step_ms']:.3f}" for r in serving[run])
+              + "; TTFT p50 s " + ", ".join(f"{r['ttft_p50_s']:.4f}" for r in serving[run])
+              + "; tokens/s " + ", ".join(f"{r['tokens_per_s']:.1f}" for r in serving[run]))
+        print(f"{card}: 1-slot long context, {label} steps: decode step ms "
+              + ", ".join(f"{r['decode_step_ms']:.3f}" for r in long_ctx[run]))
+        sp = speculation[run]
+        print(f"{card}: speculation k=4, {label} steps: verify step ms {sp['verify_step_ms']:.3f}, "
+              f"acceptance {sp['acceptance_rate']:.4f}, tokens per verify step "
+              f"{sp['tokens_per_verify_step']:.3f}, tokens/s {sp['tokens_per_s']:.1f}")
     print(json.dumps({"card": card, "serving": serving, "long_context": long_ctx,
+                      "step_graphs": graphs, "speculation": speculation,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training}))
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,9 @@ Everything is integer arithmetic except the two logarithms, so keys, bits
 and uniforms equal JAX's exactly; Gumbel values agree to the last ulp or
 two of float32 ``log``. uint32 is emulated in int64 tensors (sums taken
 mod 2**32, rotations and xors on the low 32 bits), so the functions run
-on any device and batch over a leading axis of keys.
+on any device and batch over a leading axis of keys. On a CUDA device they
+launch kernels only (constants go in as kernel arguments, never as host
+copies), so a CUDA graph can capture them inside an engine step.
 """
 from __future__ import annotations
 
@@ -74,7 +76,10 @@ def fold_in(k: Key, data: Union[int, torch.Tensor]) -> Key:
     """``jax.random.fold_in(key, data)``: the key hashed at the counter
     ``(0, data mod 2**32)``."""
     k1, k2 = k
-    d = _u32(torch.as_tensor(data, dtype=torch.int64, device=k1.device))
+    if isinstance(data, int):
+        d = torch.full_like(k1, data & MASK32)
+    else:
+        d = _u32(torch.as_tensor(data, dtype=torch.int64, device=k1.device))
     return threefry2x32(k1, k2, torch.zeros_like(d), d)
 
 
@@ -101,12 +106,13 @@ def uniform(
     bits = random_bits(k, shape)
     one = (bits >> 9) | 0x3F800000  # random mantissa under exponent 0
     floats = one.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    # the float32 bounds and their float32 difference, as host scalars
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = float(torch.tensor(maxval, dtype=torch.float32) - lo)
     # XLA fuses floats * (hi - lo) + lo into one rounding (an FMA); the
     # float32 product is exact in float64, so round once from there
-    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
-    return torch.maximum(lo, scaled)
+    scaled = (floats.double() * span + float(lo)).float()
+    return scaled.clamp_min(float(lo))
 
 
 def gumbel(k: Key, shape: Sequence[int]) -> torch.Tensor:

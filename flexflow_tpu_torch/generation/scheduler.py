@@ -2,8 +2,9 @@
 requests (Orca, OSDI'22) over the block KV cache (port of the core of
 ``flexflow_tpu/generation/scheduler.py``).
 
-Every ``step()`` runs ONE decode across the engine's fixed batch slots,
-and between steps the batch recomposes freely —
+Every ``step()`` runs ONE decode across the engine's fixed batch slots —
+or ONE verify, when a running request speculates — and between steps the
+batch recomposes freely —
 
 * **join-mid-flight**: a queued request is admitted (FCFS) the moment a
   slot AND enough cache blocks are free; it prefills and decodes
@@ -15,7 +16,14 @@ and between steps the batch recomposes freely —
   generated-so-far re-queued at the FRONT — and later re-prefilled
   (vLLM's recompute preemption). Sampling noise is indexed by
   generated-token count, so a preempted request's token stream
-  continues exactly where it left off.
+  continues exactly where it left off;
+* **speculation**: a request submitted with a SpeculationConfig drafts up
+  to its adaptive k tokens per iteration, and the step verifies every
+  slot's window in ONE fixed-shape ``engine.verify`` (a plain request in
+  the batch is a zero-draft window, sampled exactly as decode samples).
+  Blocks are grown for the whole window; under cache pressure the window
+  shrinks before anyone is preempted, and the blocks a partly accepted
+  window no longer covers are returned.
 
 The queue is bounded (:class:`QueueFullError`) and requests carry
 deadlines (:class:`DeadlineExceededError` before OR during generation),
@@ -24,6 +32,7 @@ synchronous: ``step()`` does one iteration and returns.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import queue
 import threading
@@ -35,7 +44,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..serving.resilience import DeadlineExceededError, QueueFullError, ShuttingDownError
+from .decoder import params_to
 from .engine import GenerationEngine, SamplingParams
+from .speculative.drafter import SpeculationConfig, build_drafter
 
 _END = object()  # token-stream sentinel
 _request_ids = itertools.count(1)
@@ -95,13 +106,16 @@ class Request:
     """One generation request. ``prompt`` may grow on preemption (the
     generated prefix is folded in for recompute); ``n_generated`` is the
     TOTAL generated count across preemptions, which also indexes the
-    request's sampling noise stream."""
+    request's sampling noise stream. A speculating request carries its
+    drafter and its adaptive k (``spec_k``, inside [1, speculation.k])."""
 
     def __init__(
         self,
         prompt: List[int],
         sampling: SamplingParams,
         deadline: Optional[float] = None,
+        speculation: Optional[SpeculationConfig] = None,
+        drafter=None,
     ):
         self.id = next(_request_ids)
         self.original_prompt = list(prompt)
@@ -115,10 +129,39 @@ class Request:
         self.cancelled = False
         self.preemptions = 0
         self.handle = GenerationHandle(self)
+        # speculation state: live k adapts inside [1, config.k]; the
+        # drafter is a pure function of the prefix, so preemption needs
+        # no drafter checkpointing
+        self.speculation = speculation if (speculation and speculation.enabled) else None
+        self.drafter = drafter if self.speculation else None
+        self.spec_k = speculation.k if self.speculation else 0
+        self.acc_ema: Optional[float] = None
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
     @property
     def n_generated(self) -> int:
         return len(self.generated)
+
+    def update_speculation(self, proposed: int, accepted: int) -> None:
+        """Fold one verification window into the adaptive-k state."""
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        cfg = self.speculation
+        if cfg is None or proposed <= 0:
+            return
+        rate = accepted / proposed
+        self.acc_ema = (
+            rate
+            if self.acc_ema is None
+            else cfg.ema_alpha * rate + (1.0 - cfg.ema_alpha) * self.acc_ema
+        )
+        if not cfg.adaptive:
+            return
+        if self.acc_ema < cfg.low_acceptance:
+            self.spec_k = max(1, self.spec_k - 1)
+        elif self.acc_ema >= cfg.high_acceptance:
+            self.spec_k = min(cfg.k, self.spec_k + 1)
 
     def finished(self) -> bool:
         if self.n_generated >= self.max_new:
@@ -130,7 +173,7 @@ class Request:
 class _Running:
     """Slot-resident state for an admitted request."""
 
-    __slots__ = ("req", "slot", "blocks", "cached_len", "admitted_seq")
+    __slots__ = ("req", "slot", "blocks", "cached_len", "admitted_seq", "step_k")
 
     def __init__(self, req: Request, slot: int, blocks: List[int], cached_len: int,
                  admitted_seq: int):
@@ -139,26 +182,39 @@ class _Running:
         self.blocks = blocks
         self.cached_len = cached_len  # cache positions written so far
         self.admitted_seq = admitted_seq  # admission order, for LIFO preemption
+        self.step_k = 0  # drafts planned for THIS step (<= req.spec_k)
 
 
 class ContinuousBatchingScheduler:
+    """``speculation`` is the default policy of requests submitted without
+    their own; ``draft_params`` back ``method="draft_model"`` drafters
+    (moved to the engine's device)."""
+
     def __init__(
         self,
         engine: GenerationEngine,
         *,
         max_queue: int = 256,
         clock: Callable[[], float] = time.monotonic,
+        speculation: Optional[SpeculationConfig] = None,
+        draft_params=None,
     ):
         self.engine = engine
         self.max_queue = max_queue
         self.clock = clock
+        self.speculation_default = speculation
+        self.draft_params = (
+            None if draft_params is None else params_to(draft_params, engine.device)
+        )
         self._queue: deque = deque()
         self._running: Dict[int, _Running] = {}  # slot -> state
         self._free_slots = list(range(engine.max_batch_slots - 1, -1, -1))
         self._lock = threading.Lock()
         self._admitted_seq = itertools.count()
         self.preemptions = 0
-        # admitted / completed / expired / cancelled / rejected / failed
+        # admitted / completed / expired / cancelled / rejected / failed,
+        # and the speculation windows: spec_windows / spec_proposed /
+        # spec_accepted / spec_emitted / drafter_errors
         self.counts: Dict[str, int] = {}
 
     def _incr(self, name: str, n: int = 1) -> None:
@@ -170,11 +226,14 @@ class ContinuousBatchingScheduler:
         prompt: Sequence[int],
         sampling: Optional[SamplingParams] = None,
         deadline_s: Optional[float] = None,
+        speculation: Optional[SpeculationConfig] = None,
     ) -> GenerationHandle:
         """Enqueue one request (FCFS). Raises QueueFullError when the
         bounded queue is full, DeadlineExceededError for an
         already-expired budget, and ValueError for a prompt that can
-        never be served."""
+        never be served. ``speculation`` turns on (exact) speculative
+        decoding for this request; None falls back to the scheduler's
+        default policy."""
         sampling = sampling or SamplingParams()
         if not prompt:
             raise ValueError("empty prompt")
@@ -198,7 +257,18 @@ class ContinuousBatchingScheduler:
                 self._incr("rejected")
                 raise QueueFullError(f"generation queue full ({self.max_queue})")
             deadline = None if deadline_s is None else self.clock() + deadline_s
-            req = Request(list(prompt), sampling, deadline=deadline)
+            spec = speculation if speculation is not None else self.speculation_default
+            drafter = None
+            if spec is not None and spec.enabled:
+                # clamp to the engine's verify window so per-request k
+                # NEVER changes the step's shape
+                if spec.k > self.engine.max_spec_tokens:
+                    spec = dataclasses.replace(spec, k=self.engine.max_spec_tokens)
+                drafter = build_drafter(
+                    spec, draft_params=self.draft_params, max_seq_len=self.engine.max_seq_len,
+                )
+            req = Request(list(prompt), sampling, deadline=deadline, speculation=spec,
+                          drafter=drafter)
             # the sequence can never outgrow max_seq_len NOR the TOTAL
             # cache: a sequence needing more blocks than exist would
             # preempt itself forever at the head of the FCFS queue
@@ -310,19 +380,41 @@ class ContinuousBatchingScheduler:
         state.req.generated.append(int(token))
         state.req.handle._emit(int(token))
 
+    def _plan_speculation(self) -> None:
+        """Decide each running sequence's draft count for THIS step: its
+        adaptive k, capped by the remaining token budget (never draft past
+        max_new), the sequence-length ceiling, and — in _grow — cache
+        pressure."""
+        for state in self._running.values():
+            req = state.req
+            if req.drafter is None:
+                state.step_k = 0
+                continue
+            budget = req.max_new - req.n_generated  # >= 1 while running
+            pos_room = (self.engine.max_seq_len - 1) - state.cached_len
+            state.step_k = max(0, min(req.spec_k, budget - 1, pos_room))
+
     def _grow(self) -> None:
         """Ensure every running sequence has cache blocks for its next
-        token; under pressure, preempt-by-recompute."""
+        window — up to step_k + 1 new positions. Under pressure, first
+        shrink the window (cap speculation), then preempt-by-recompute."""
         for state in list(self._running.values()):
             if self._running.get(state.slot) is not state:
                 continue  # preempted earlier in this sweep
             while True:
-                need = self.engine.cache_config.blocks_for(state.cached_len + 1)
+                need = self.engine.cache_config.blocks_for(
+                    state.cached_len + state.step_k + 1
+                )
                 if len(state.blocks) >= need:
                     break
                 got = self.engine.allocator.allocate(1)
                 if got is not None:
                     state.blocks.extend(got)
+                    continue
+                if state.step_k > 0:
+                    # cap on cache pressure: give up drafts before
+                    # evicting anyone
+                    state.step_k -= 1
                     continue
                 if not self._preempt_youngest(exclude=state):
                     # nothing left to evict but this sequence itself:
@@ -383,13 +475,90 @@ class ContinuousBatchingScheduler:
             self._finish(state)
         return n_live
 
+    def _trim_blocks(self, state: _Running) -> None:
+        """Return trailing blocks a partially-accepted window no longer
+        covers (their positions hold rejected-draft K/V the next window
+        would rewrite anyway). cached_len + 1, not cached_len: the next
+        step always writes position cached_len."""
+        keep = max(1, self.engine.cache_config.blocks_for(state.cached_len + 1))
+        if len(state.blocks) > keep:
+            extra = state.blocks[keep:]
+            del state.blocks[keep:]
+            self.engine.allocator.free(extra)
+
+    def _verify_once(self) -> bool:
+        """One speculative verification step across all running slots:
+        draft (host), verify the batch x (k+1) window (ONE fixed-shape
+        device step), then emit each slot's accepted run — truncated at
+        mid-window EOS and the request's budget."""
+        if not self._running:
+            return False
+        b = self.engine.max_batch_slots
+        w = self.engine.spec_window
+        order = sorted(self._running.values(), key=lambda s: s.slot)
+        last, start, tables, _active, temps, top_ks, seeds, counts = self._collect_slots(order)
+        window = np.zeros((b, w), np.int32)
+        window[:, 0] = last
+        n_draft = np.full((b,), -1, np.int32)  # -1 = inactive slot
+        for state in order:
+            i = state.slot
+            req = state.req
+            draft: List[int] = []
+            if state.step_k > 0 and req.drafter is not None:
+                try:
+                    # original_prompt, NOT prompt: after a preemption the
+                    # recompute prompt already folds in generated tokens
+                    draft = list(
+                        req.drafter.propose(req.original_prompt + req.generated, state.step_k)
+                    )[: state.step_k]
+                except Exception:
+                    # verification is exact with ANY draft, so a failed
+                    # proposal degrades to a plain (zero-draft) window
+                    self._incr("drafter_errors")
+            window[i, 1: 1 + len(draft)] = draft
+            n_draft[i] = len(draft)
+        out, n_emitted = self.engine.verify(
+            window, start, n_draft, tables, temps, top_ks, seeds, counts
+        )
+        for state in order:
+            if self._running.get(state.slot) is not state:
+                continue  # preempted/expired between collect and scatter
+            req = state.req
+            i = state.slot
+            m = int(n_emitted[i])
+            toks = [int(t) for t in out[i, :m]]
+            # budget truncation: never emit past max_new
+            toks = toks[: req.max_new - req.n_generated]
+            # mid-window EOS: keep through the FIRST eos, drop the rest
+            eos = req.sampling.eos_id
+            if eos is not None and eos in toks:
+                toks = toks[: toks.index(eos) + 1]
+            proposed = int(max(0, n_draft[i]))
+            accepted = max(0, m - 1)  # drafts the target agreed with
+            req.update_speculation(proposed=proposed, accepted=accepted)
+            for t in toks:
+                self._emit_token(state, t)
+            self._incr("spec_windows")
+            self._incr("spec_proposed", proposed)
+            self._incr("spec_accepted", accepted)
+            self._incr("spec_emitted", len(toks))
+            state.cached_len += len(toks)
+            self._trim_blocks(state)
+            if req.finished():
+                self._finish(state)
+        return True
+
     # ---------------------------------------------------------------- step
     def step(self) -> bool:
-        """One scheduling iteration: expire, admit (join-mid-flight),
-        grow/preempt, then decode. Returns True if any work happened."""
+        """One scheduling iteration: expire, admit (join-mid-flight), plan
+        speculation, grow/preempt, then decode — or verify, when any
+        running request speculates. Returns True if any work happened."""
         self._expire()
         admitted = 0
         while self._admit():
             admitted += 1
+        self._plan_speculation()
         self._grow()
-        return self._decode_once() or admitted > 0
+        speculating = any(s.step_k > 0 for s in self._running.values())
+        stepped = self._verify_once() if speculating else self._decode_once()
+        return stepped or admitted > 0

@@ -39,13 +39,13 @@
 //     any S up to MB takes one launch). Its ranges are unions of the JAX
 //     splits, so the combine below is the same exact rescaled sum as
 //     _combine_splits, done on-chip: no partials reach device memory and
-//     no second pass or PyTorch op follows. The CTA holds only its own
-//     table columns in shared memory, at most kTableWindow of them, and
-//     reads any further column of a longer range from device memory as
-//     its round reaches it, so no table is too wide for it.
+//     no second pass or PyTorch op follows.
+// Either form holds at most kTableWindow table columns in shared memory
+// (the split form its range's first ones, the single-pass form the row's
+// first ones) and reads any further column from device memory as its
+// round reaches it, so no table is too wide for either.
 // A CTA first reads its query positions, its scaled queries and the table
-// columns it may use (the whole row in the single-pass form), all at
-// once. Then it
+// columns it holds, all at once. Then it
 // works in rounds of up to 4 tiles of 32 positions (as many as shared
 // memory holds at that occupancy: 3 at D = 64, so a round covers a
 // serving CTA's whole share):
@@ -107,7 +107,7 @@ constexpr int kRound = kMaxStages * kTile;
 constexpr int kMaxCluster = 8;       // the portable cluster size
 constexpr int kCtaPositions = 128;   // table positions per CTA the cluster size aims at
 constexpr int kMaxHeadDim = 256;
-constexpr int kTableWindow = 2048;   // table columns a split-form CTA holds in shared memory
+constexpr int kTableWindow = 2048;   // table columns a CTA holds in shared memory at most
 
 __host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
 
@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
   int* qp_s = reinterpret_cast<int*>(c_s + W);  // [W] query positions
   int* bt_s = qp_s + W;                         // [bt_held] table columns from col0
 
-  // the table columns this CTA may read: its range's, or the whole row
+  // the table columns this CTA holds: from its range's first, or from the row's first
   const int col0 = kSplit ? s * cta_cols : 0;
   const int* bt = block_tables + static_cast<long long>(b) * MB;
   for (int i = tid; i < min(bt_held, MB - col0); i += kThreads) bt_s[i] = bt[col0 + i];
@@ -199,8 +199,8 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
       long long off = -1;
       if (t < rlen) {
         const int p = r0 + t, col = p / bs, c = col - col0;
-        // a column past the held window (long split ranges only) comes
-        // from device memory
+        // a column past the held window (a table or range wider than
+        // kTableWindow) comes from device memory
         const int blk = c < bt_held ? bt_s[c] : __ldg(bt + col);
         off = (static_cast<long long>(blk) * bs + (p - col * bs)) * HD +
               static_cast<long long>(h) * D;
@@ -454,7 +454,8 @@ extern "C" int ff_paged_append_f32(const float* q, const float* k_cache, const f
                                    void* stream) {
   if (MB < 1 || bs < 1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<false>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs, MB,
-                         cluster_size(MB, bs), MB, MB, scale, static_cast<cudaStream_t>(stream));
+                         cluster_size(MB, bs), MB, std::min(MB, kTableWindow), scale,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // the cluster size ff_paged_append_f32 launches for a table of MB columns

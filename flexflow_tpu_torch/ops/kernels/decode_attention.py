@@ -30,7 +30,11 @@ Two lowerings, chosen by where the tensors lie:
   never falls back to the plain version.
 
 Each kernel launch adds one to its count in :data:`LAUNCHES`, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels. The count is kept
+on the Python side, where the wrapper launches: a CUDA graph that
+captured the launches replays them without the wrapper, so the graph's
+owner counts them per replay (:func:`captured_launches`,
+:func:`count_replay`).
 """
 from __future__ import annotations
 
@@ -51,6 +55,22 @@ LAUNCHES: Dict[str, int] = {"paged_append": 0, "paged_append_split": 0}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def captured_launches(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches recorded since ``before`` (a copy of :data:`LAUNCHES`
+    taken just before a CUDA graph capture), which are the capture's: a
+    capture records its launches and runs none, so the counts go back to
+    ``before`` and each replay adds these with :func:`count_replay`."""
+    captured = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
+    LAUNCHES.update(before)
+    return captured
+
+
+def count_replay(captured: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``captured``."""
+    for name, n in captured.items():
+        LAUNCHES[name] += n
 
 
 def _gather(cache: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:

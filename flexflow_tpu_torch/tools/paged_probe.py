@@ -49,7 +49,7 @@ VARIANTS = {
                           "    continue;  // probe\n")],
     "probe_no_combine": [("  cluster.sync();  // every CTA's m, l and acc are written and visible\n",
                           "  if (tid >= 0) return;  // probe\n")],
-    "probe_launch_only": [("  // the table columns this CTA may read: its range's, or the whole row\n",
+    "probe_launch_only": [("  // the table columns this CTA holds: from its range's first, or from the row's first\n",
                            "  cg::this_cluster().sync();\n"
                            "  if (tid >= 0) return;  // probe\n")],
 }

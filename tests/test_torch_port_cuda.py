@@ -6,12 +6,22 @@ package, so it also runs on a GPU machine without them:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerance: fp32, atol/rtol 1e-4 (the kernels sum in another order).
+Tolerance: fp32, atol/rtol 1e-4 (the kernels sum in another order). The
+engine's steps replayed as CUDA graphs must be bit-identical to the same
+steps run eagerly: the same kernels in the same order.
 """
 import numpy as np
 import pytest
 import torch
 
+from flexflow_tpu_torch.generation import (
+    ContinuousBatchingScheduler,
+    GenerationEngine,
+    SamplingParams,
+    SpeculationConfig,
+    init_decoder_params,
+)
+from flexflow_tpu_torch.models.transformer import TransformerConfig
 from flexflow_tpu_torch.ops.kernels import decode_attention as da
 from flexflow_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -216,9 +226,11 @@ def test_cuda_paged_split_ragged_plans(cuda, splits, mb):
 
 
 def test_cuda_paged_split_takes_a_table_too_wide_for_the_single_pass_kernel(cuda):
-    """60000 columns of one position: the single-pass kernel holds the
-    whole row in shared memory and raises; the split kernel's blocks
-    hold 2048 columns each and read the rest from device memory."""
+    """60000 columns of one position, which the reference serves: the
+    single-pass kernel (one launch, no split) holds the row's first 2048
+    columns in shared memory and reads the rest from device memory, and
+    matches the plain version; so do the split kernel's blocks, 2048
+    columns each."""
     rs = np.random.RandomState(11)
     mb, nb = 60000, 4097
     tables = torch.from_numpy(rs.randint(1, nb, (1, mb)).astype(np.int32)).to(cuda)
@@ -227,8 +239,9 @@ def test_cuda_paged_split_takes_a_table_too_wide_for_the_single_pass_kernel(cuda
     q = torch.randn(1, 3, 2, 64, generator=gen).to(cuda)
     qpos = torch.tensor([[57000, 59999, -1]], dtype=torch.int32, device=cuda)
     args = (q, k, v, tables, qpos)
-    with pytest.raises(RuntimeError, match="ff_paged_append_f32"):
-        da.paged_append_attention(*args)
+    da.reset_launch_counts()
+    _check_paged(args)
+    assert da.LAUNCHES == {"paged_append": 1, "paged_append_split": 0}
     for splits in (16, mb):
         _check_split(args, splits)
 
@@ -278,3 +291,104 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.randn(1, 16, 1, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# the engine's steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_CFG = TransformerConfig(num_layers=2, hidden_size=64, num_heads=4, ff_size=128,
+                              seq_length=64, vocab_size=97, causal=True)
+
+
+def _graph_and_eager_engines(cuda, slots=3):
+    params = init_decoder_params(torch.Generator().manual_seed(3), GRAPH_CFG)
+    kw = dict(max_batch_slots=slots, block_size=8, prompt_buckets=(8, 16, 32, 64),
+              max_spec_tokens=4, device=cuda)
+    return (GenerationEngine(params, GRAPH_CFG, **kw),
+            GenerationEngine(params, GRAPH_CFG, eager_steps=True, **kw))
+
+
+def test_cuda_step_graphs_replay_bit_identical_to_eager(cuda):
+    """Prefill (three buckets), decode and verify steps replayed from
+    their graphs give the eager steps' tokens and logits bit for bit,
+    with one capture per signature and the paged kernel's launches
+    counted per replay: num_layers per decode or verify step."""
+    graph, eager = _graph_and_eager_engines(cuda)
+    assert graph.graphs and not eager.graphs
+    b, w, mb, layers = 3, graph.spec_window, graph.max_blocks_per_seq, GRAPH_CFG.num_layers
+    prompts = [[1, 2, 3, 1, 2, 3, 1], list(range(5, 17)), list(range(20, 50))]
+    sps = [SamplingParams(), SamplingParams(temperature=0.9, top_k=10, seed=21),
+           SamplingParams(temperature=0.7, seed=2**31 + 5)]
+    tables = np.zeros((b, mb), np.int32)
+    tokens = np.zeros((b,), np.int32)
+    for i, (p, sp) in enumerate(zip(prompts, sps)):
+        blocks = graph.allocator.allocate(graph.cache_config.blocks_for(len(p) + 20))
+        assert eager.allocator.allocate(len(blocks)) == blocks
+        tables[i, : len(blocks)] = blocks
+        tokens[i] = graph.prefill_one(p, blocks, sp, 0)
+        assert eager.prefill_one(p, blocks, sp, 0) == tokens[i]
+        assert torch.equal(graph.last_logits, eager.last_logits)
+    positions = np.asarray([len(p) for p in prompts], np.int32)
+    active = np.ones((b,), bool)
+    temps = np.asarray([sp.temperature for sp in sps], np.float32)
+    top_ks = np.asarray([sp.top_k for sp in sps], np.int32)
+    seeds = np.asarray([sp.seed & 0xFFFFFFFF for sp in sps], np.uint32)
+    for step in range(4):
+        counts = np.full((b,), 1 + step, np.int32)
+        da.reset_launch_counts()
+        out = graph.decode(tokens, positions, tables, active, temps, top_ks, seeds, counts)
+        if step > 0:  # a replay: the capture's launches, counted once
+            assert da.LAUNCHES["paged_append"] == layers
+        np.testing.assert_array_equal(
+            out, eager.decode(tokens, positions, tables, active, temps, top_ks, seeds, counts))
+        assert torch.equal(graph.last_logits, eager.last_logits)
+        # past scratch block 0, whose duplicate padding writes land in any order
+        assert torch.equal(graph.cache.k[:, 1:], eager.cache.k[:, 1:])
+        assert torch.equal(graph.cache.v[:, 1:], eager.cache.v[:, 1:])
+        tokens, positions = out.astype(np.int32), positions + 1
+    for step, n_draft in enumerate(([2, 4, 0], [1, -1, 3], [4, 4, 4])):
+        n_draft = np.asarray(n_draft, np.int32)
+        window = np.zeros((b, w), np.int32)
+        window[:, 0] = tokens
+        window[:, 1:] = np.asarray([[5, 6, 7, 8]] * b)
+        counts = np.full((b,), 10 + step, np.int32)
+        args = (window, positions, n_draft, tables, temps, top_ks, seeds, counts)
+        da.reset_launch_counts()
+        out, n = graph.verify(*args)
+        if step > 0:
+            assert da.LAUNCHES["paged_append"] == layers
+        eout, en = eager.verify(*args)
+        np.testing.assert_array_equal(n, en)
+        np.testing.assert_array_equal(out, eout)
+        assert torch.equal(graph.last_logits, eager.last_logits)
+        np.testing.assert_array_equal(graph.last_finite, eager.last_finite)
+        positions = positions + np.where(n_draft >= 0, n, 0)
+        tokens = out[np.arange(b), np.maximum(n - 1, 0)]
+    assert graph.trace_counts == eager.trace_counts == {
+        "prefill[8]": 1, "prefill[16]": 1, "prefill[32]": 1, "decode": 1, "verify": 1}
+
+
+def test_cuda_speculative_streams_through_graphs_equal_eager_and_plain(cuda):
+    """Through the scheduler: greedy streams with speculation equal the
+    plain ones, and the graph engine's seeded speculative streams equal
+    the eager engine's."""
+    graph, eager = _graph_and_eager_engines(cuda, slots=4)
+    prompts = [[1, 2, 3, 1, 2, 3, 1, 2], [4, 5] * 6, list(range(30, 47)), [7, 7, 7]]
+    greedy = SamplingParams(max_new_tokens=20)
+    spec = SpeculationConfig(k=4)
+    plain = graph.generate(prompts, greedy)
+    assert graph.generate(prompts, greedy, speculation=spec) == plain
+    seeded = SamplingParams(max_new_tokens=20, temperature=0.8, top_k=20, seed=9)
+    assert graph.generate(prompts, seeded, speculation=spec) == eager.generate(
+        prompts, seeded, speculation=spec)
+    assert graph.step_counts["verify"] > 0 and graph.recompiles() == {}
+    sched = ContinuousBatchingScheduler(graph)
+    da.reset_launch_counts()
+    decode0, verify0 = graph.step_counts["decode"], graph.step_counts["verify"]
+    handles = [sched.submit(p, greedy, speculation=spec) for p in prompts]
+    while not all(h.done() for h in handles):
+        sched.step()
+    steps = (graph.step_counts["decode"] - decode0) + (graph.step_counts["verify"] - verify0)
+    assert da.LAUNCHES["paged_append"] == GRAPH_CFG.num_layers * steps
+    assert [h.result(0) for h in handles] == plain
