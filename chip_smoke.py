@@ -15,10 +15,14 @@ prints no result line):
 2. kernels: each paged attention kernel against its plain PyTorch
    version on the card, fp32, atol 1e-4 + rtol 1e-4 (the kernel sums in
    another order), at the serving path's shapes (with the cluster size
-   each launched) and at edge shapes, among them contexts that leave
+   each launched), at windows past the kernel's 32-query tile (a suffix
+   prefill's W = 33, 64, 256 and 1024 from positions 0 and 512, then
+   padding queries; 40- and 41-query verify windows over 4 slots; the split
+   form at W = 64) and at edge shapes, among them contexts that leave
    blocks of a cluster without a live position, split counts up to the
-   table's width and a 60000-column table through both kernels; the
-   split-KV path must run as one device kernel; then the device time
+   table's width, windows of padding only and a 60000-column table
+   through both kernels; the split-KV path must run as one device
+   kernel; then the device time
    (CUDA events around a replayed CUDA graph of the calls) of the
    kernel, the plain version and one PyTorch library call over the same
    inputs (scaled_dot_product_attention on the gathered K/V, a yardstick
@@ -52,7 +56,22 @@ prints no result line):
    with the plain attention path within 1e-3, and the paged launches must
    be num_layers x (decode + verify steps). Reports the verify step ms,
    the acceptance rate and the tokens per verify step.
-7. anatomy: torch.profiler over a short 4-slot run — the device's busy
+7. prefix cache: the same model behind 4 slots with the cross-request
+   prefix cache on and off, on graph and on eager steps: 8 requests
+   sharing a 512-token system prompt (suffixes of 20-480 tokens, and one
+   exact repeat, whose boundary block is copied), and a 64-token shared
+   prefix with a 700-token suffix (suffix bucket 1024), 32 new tokens
+   each (6 greedy + 2 seeded among the 8). Streams must be identical
+   on/off and graph/eager, the hit, reuse and copy counters > 0, each
+   suffix prefill num_layers paged launches, one capture per suffix
+   bucket. Reports TTFT p50 and the prefill step's time per request
+   (CUDA events) on and off. Then the host tier: three 512-token
+   prefixes cycled twice through an 80-block cache, streams equal to the
+   uncached engine's, swaps out and in > 0 (and the pinned
+   host-to-device rate beside the swap model's).
+   The earlier serving phases run with the cache off: they repeat their
+   prompts across runs.
+8. anatomy: torch.profiler over a short 4-slot run — the device's busy
    share of the wall time and the device time by kernel; eight decode
    steps of four live slots under the profiler, replayed and eager
    (device and wall ms a step, device kernels a step, one paged kernel a
@@ -62,7 +81,7 @@ prints no result line):
    whose device kernels must all be the paged kernel. The profiler runs
    only after the timed phases: once started, it slows the host's later
    launches.
-8. flash kernels: the flash-attention forward, dQ and dK/dV kernels
+9. flash kernels: the flash-attention forward, dQ and dK/dV kernels
    against their plain PyTorch versions (atol 1e-4 + rtol 1e-4) at the
    training path's shape (B=32, S=128, H=12, D=64) and at a causal
    S=512 shape and edge shapes (S=100 D=128, Sq=64 Sk=200, D=256, S=1,
@@ -71,7 +90,7 @@ prints no result line):
    forward, and its backward: its kernels' durations by torch.profiler),
    beside the card's bound for fp32-accurate products on the tensor cores
    (and for the same operations on the fp32 CUDA cores).
-9. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
+10. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
    seq 128, batch 32, fp32, weights from --seed) through FFModel ->
    compile (SGD lr 0.01, MSE) -> fit: one step with the kernels and one
    with the plain attention from the same weights must agree; then
@@ -273,6 +292,27 @@ def kernel_phase(seed: int):
         raise AssertionError(f"default_kv_splits(1, 64) = {splits}, expected 8")
     ctx1 = np.asarray([931], np.int32)
     cases["split"] = (tables_for(ctx1), (ctx1 - 1)[:, None].astype(np.int32), splits)
+    # windows past the 32-query tile, as a suffix prefill gives them: a
+    # causal run from `start` (one sixth of the window left as padding),
+    # then padding queries (-1)
+    for w in (33, 64, 256, 1024):
+        for start in (0, 512):
+            n_real = min(w - w // 6, mb * bs - start)
+            qpos = np.full((1, w), -1, np.int32)
+            qpos[0, :n_real] = start + np.arange(n_real)
+            cases[f"wide_w{w}_start{start}"] = (tables_for([start + n_real]), qpos, 1)
+    # 40- and 41-query verify windows (41: max_spec_tokens = 40) over four
+    # slots, with padding queries and an inactive slot
+    for w in (40, 41):
+        base = np.asarray([640, 120, 0, 300], np.int32)
+        qpos = base[:, None] + np.arange(w, dtype=np.int32)[None, :]
+        qpos[1, 20:] = -1
+        qpos[2, :] = -1
+        cases[f"verify_w{w}"] = (tables_for(base + w), qpos.astype(np.int32), 1)
+    # the split form over a 64-query window
+    qpos = np.full((1, 64), -1, np.int32)
+    qpos[0, :54] = 700 + np.arange(54)
+    cases["split_w64"] = (tables_for([754]), qpos, splits)
 
     rows = {}
     for name, (tables, qpos, s) in cases.items():
@@ -377,7 +417,8 @@ def edge_shapes(seed: int) -> None:
 
     # (B, W, H, D, bs, MB, splits); the second: a 3-block cluster over 61
     # columns; from the fourth: split counts that do not divide the table,
-    # 16 splits and as many splits as columns
+    # 16 splits and as many splits as columns; the last two: windows of two
+    # and of four query tiles (D = 256, odd block sizes)
     for b, w, h, d, bs, mb, s in [
         (2, 32, 2, 256, 8, 12, 1),
         (3, 32, 2, 256, 5, 61, 1),
@@ -388,6 +429,8 @@ def edge_shapes(seed: int) -> None:
         (2, 1, 12, 64, 16, 64, 64),
         (3, 5, 4, 100, 7, 30, 30),
         (3, 32, 2, 256, 5, 61, 7),
+        (2, 33, 2, 256, 5, 30, 1),
+        (3, 100, 4, 64, 7, 40, 5),
     ]:
         nb = b * mb + 1
         tables = rs.randint(1, nb, (b, mb)).astype(np.int32)
@@ -398,6 +441,10 @@ def edge_shapes(seed: int) -> None:
         if b > 2:
             qpos[-1] = -1  # a padding-only sequence
         check(f"B={b} W={w} H={h} D={d} bs={bs} MB={mb} S={s}", tables, qpos, h, d, bs, s)
+    # a window of padding only, two query tiles wide, through both kernels
+    tables = rs.randint(1, 17, (2, 8)).astype(np.int32)
+    for s in (1, 4):
+        check(f"all padding B=2 W=70 S={s}", tables, np.full((2, 70), -1, np.int32), 4, 64, 16, s)
     # decode over 64 columns of 16 (8 blocks of 128 positions a cluster)
     mb, bs = 64, 16
     for ctx in (0, 1, 15, 16, 17, 129):
@@ -501,10 +548,15 @@ def warm(engine, rs, speculation=None) -> None:
 
 def engine_pair(params, **kw):
     """{"graph": an engine replaying captured CUDA graphs (the default),
-    "eager": the same engine with eager steps}, sharing the weights."""
+    "eager": the same engine with eager steps}, sharing the weights. The
+    prefix cache is off unless ``prefix_cache=True`` is passed: the
+    serving, long-context, step-graph and speculation phases repeat their
+    prompts across runs and engines, and with the cache on a repeat would
+    reuse the earlier run's blocks (the prefix phase measures that path)."""
     from flexflow_tpu_torch.generation.engine import GenerationEngine
 
     cfg = gpt2_small()
+    kw.setdefault("prefix_cache", False)
     return {"graph": GenerationEngine(params, cfg, **kw),
             "eager": GenerationEngine(params, cfg, eager_steps=True, **kw)}
 
@@ -989,6 +1041,186 @@ def speculation_phase(seed: int, params) -> dict:
             "launches": runs["graph"]["launches"]}
 
 
+def instrument_prefills(engine) -> dict:
+    """Wrap ``engine.prefill_one``: per prefill step, its time by CUDA
+    events around the step (the device is idle before it, as every step
+    ends in a sync, so this is the step's span on the device, upload and
+    readback included), and per suffix prefill (``prefix_len`` > 0) the
+    paged launches it counted. Returns the record lists, which a caller
+    empties between runs."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    rec = {"prefill_ms": [], "suffix_launches": []}
+    prefill_one = engine.prefill_one
+
+    def timed(*a, prefix_len=0, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        launches = da.LAUNCHES["paged_append"]
+        start.record()
+        out = prefill_one(*a, prefix_len=prefix_len, **kw)
+        end.record()
+        end.synchronize()
+        rec["prefill_ms"].append(start.elapsed_time(end))
+        if prefix_len > 0:
+            rec["suffix_launches"].append(da.LAUNCHES["paged_append"] - launches)
+        return out
+
+    engine.prefill_one = timed
+    return rec
+
+
+def clear_prefix_cache(engine) -> None:
+    """Start a run from an empty prefix cache and a full free list (no
+    sequence may be running)."""
+    engine.prefix_cache.reset()
+    engine.allocator.reset()
+
+
+def h2d_pinned_gb_per_s(nbytes: int = 64 << 20, reps: int = 5) -> float:
+    """The host-to-device copy rate from pinned memory, by CUDA events."""
+    import torch
+
+    src = torch.empty((nbytes // 4,), dtype=torch.float32, pin_memory=True)
+    dst = torch.empty_like(src, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dst.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return nbytes * reps / (start.elapsed_time(end) / 1e3) / 1e9
+
+
+def prefix_phase(seed: int, params) -> dict:
+    """Cross-request prefix caching at GPT-2-small width behind the 4-slot
+    engine: 8 requests sharing one 512-token system prompt (suffixes of
+    20-480 tokens, and one exact repeat: the copy-on-write boundary),
+    and a 64-token shared prefix with a 700-token suffix (the 1024 suffix
+    bucket), 32 new tokens each. Engines with the cache on and off, on
+    graph and on eager steps, each warmed (every step signature captured)
+    and cleared before each run. Then the host tier: three 512-token
+    prefixes cycled through an 80-block cache."""
+    import numpy as np
+
+    from flexflow_tpu_torch.generation.cache import CacheConfig
+    from flexflow_tpu_torch.generation.engine import GenerationEngine, SamplingParams
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    cfg = gpt2_small()
+    v, layers = cfg.vocab_size, cfg.num_layers
+    rs = np.random.RandomState(seed + 8)
+    system = rs.randint(0, v, 512).tolist()
+    prompts = [system + rs.randint(0, v, n).tolist() for n in (20, 40, 90, 150, 260, 300, 480)]
+    prompts.append(list(system))  # fully covered: the boundary block is copied
+    prompts.append(system[:64] + rs.randint(0, v, 700).tolist())  # suffix bucket 1024
+    greedy = SamplingParams(max_new_tokens=32)
+    samplings = [greedy] * len(prompts)
+    samplings[1] = SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=1234)
+    samplings[7] = SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=5678)
+    engines, recs = {}, {}
+    wsys = rs.randint(0, v, 512).tolist()  # the warm-up's own system prompt
+    warm_prompts = [wsys + rs.randint(0, v, n).tolist() for n in (9, 20, 40, 90, 150, 300)]
+    warm_prompts[1:1] = [list(wsys)]
+    warm_prompts.append(wsys[:64] + rs.randint(0, v, 700).tolist())
+    for on in (True, False):
+        for mode in ("graph", "eager"):
+            engine = GenerationEngine(params, cfg, max_batch_slots=4, block_size=16,
+                                      prefix_cache=on, eager_steps=mode == "eager")
+            warm(engine, rs)
+            engine.generate(warm_prompts, SamplingParams(max_new_tokens=2))
+            engines[on, mode] = engine
+            recs[on, mode] = instrument_prefills(engine)
+    runs, streams = {}, None
+    for on, mode in ((True, "graph"), (False, "graph"), (False, "graph"), (True, "graph"),
+                     (True, "eager"), (False, "eager")):
+        engine, rec = engines[on, mode], recs[on, mode]
+        clear_prefix_cache(engine)
+        pc = engine.prefix_cache
+        before = pc.snapshot()
+        for v_ in rec.values():
+            v_.clear()
+        decode0, dsec0 = engine.step_counts["decode"], engine.step_seconds["decode"]
+        da.reset_launch_counts()
+        handles, wall, ttft, _ = serve(engine, prompts, samplings)
+        launches = dict(da.LAUNCHES)
+        stats = run_stats(engine, handles, wall, ttft, decode0, dsec0, launches)
+        after = pc.snapshot()
+        delta = {k: after[k] - before[k] for k in (
+            "hits", "lookups", "tokens_reused_total", "blocks_reused_total", "cow_copies_total",
+            "swaps_in_total", "swaps_out_total", "recompute_fallbacks")}
+        n_suffix = len(rec["suffix_launches"])
+        name = f"prefix {'on' if on else 'off'}, {mode} steps"
+        outs = [h.result(0) for h in handles]
+        if streams is None:
+            streams = outs
+        elif outs != streams:
+            raise AssertionError(f"{name}: streams differ from the first run's")
+        if any(n != layers for n in rec["suffix_launches"]):
+            raise AssertionError(f"{name}: paged launches per suffix prefill "
+                                 f"{rec['suffix_launches']}, expected {layers} each")
+        want = layers * (stats["decode_steps"] + n_suffix)
+        if launches["paged_append"] != want or launches["paged_append_split"]:
+            raise AssertionError(f"{name}: launches {launches} != {layers} layers x "
+                                 f"({stats['decode_steps']} decode steps + {n_suffix} suffix "
+                                 "prefills)")
+        if on and not (delta["hits"] > 0 and delta["tokens_reused_total"] > 0
+                       and delta["cow_copies_total"] > 0 and n_suffix == delta["hits"]):
+            raise AssertionError(f"{name}: prefix counters {delta}, {n_suffix} suffix prefills")
+        if not on and (n_suffix or after["lookups"]):
+            raise AssertionError(f"{name}: a disabled cache did prefix work: {after}")
+        stats.update({
+            "prefix": delta, "suffix_prefills": n_suffix,
+            "paged_launches_per_suffix_prefill": sorted(set(rec["suffix_launches"])),
+            "prefill_steps": len(rec["prefill_ms"]),
+            "prefill_ms_per_request": float(np.mean(rec["prefill_ms"])),
+            "prefill_ms_p50": float(np.median(rec["prefill_ms"])),
+            "prefill_ms_total": float(np.sum(rec["prefill_ms"])),
+        })
+        runs.setdefault(name, []).append(stats)
+        print(f"{name}: " + json.dumps(stats))
+    graph = engines[True, "graph"]
+    captures = {k: n for k, n in graph.trace_counts.items() if k.startswith("prefix_prefill")}
+    if not captures or any(n != 1 for n in captures.values()) or graph.recompiles():
+        raise AssertionError(f"graph engine signatures {graph.trace_counts}")
+    # the host tier: three 512-token prefixes cycled through 80 usable
+    # blocks (two prefixes and a live request fill it), so the coldest
+    # prefix is offloaded to the host and swapped back in when it returns
+    h2d = h2d_pinned_gb_per_s()
+    small = GenerationEngine(
+        params, cfg, cache_config=CacheConfig(num_layers=layers, num_heads=cfg.num_heads,
+                                              head_dim=cfg.hidden_size // cfg.num_heads,
+                                              num_blocks=81, block_size=16),
+        max_batch_slots=4, block_size=16)
+    off = engines[False, "graph"]
+    clear_prefix_cache(off)
+    prefixes = [rs.randint(0, v, 512).tolist() for _ in range(3)]
+    tier_prompts = [p + rs.randint(0, v, 16).tolist() for _ in range(2) for p in prefixes]
+    tier_sp = [greedy, samplings[1], greedy] * 2
+    for prompt, sp in zip(tier_prompts, tier_sp):
+        got = small.generate([prompt], sp)
+        if got != off.generate([prompt], sp):
+            raise AssertionError("host tier: a stream differs from the uncached engine's")
+    tier = small.prefix_cache.snapshot()
+    if not (tier["swaps_out_total"] > 0 and tier["swaps_in_total"] > 0):
+        raise AssertionError(f"host tier: no offload and swap-in: {tier}")
+    host = {k: tier[k] for k in ("swaps_out_total", "swaps_in_total", "recompute_fallbacks",
+                                 "swap_in_failures", "hits", "tokens_reused_total",
+                                 "offloaded_blocks", "host_bytes")}
+    host.update(requests=len(tier_prompts), cache_blocks=80,
+                host_link_bytes_per_s_model=small.prefix_cache.host_link_bytes_per_s,
+                h2d_pinned_gb_per_s_measured=h2d)
+    print("prefix host tier: " + json.dumps(host))
+    return {"prompt_lens": [len(p) for p in prompts], "runs": runs,
+            "captures": captures, "host_tier": host,
+            "launches": runs["prefix on, graph steps"][0]["launches"]}
+
+
 def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool):
     """(bound_ms, bound_by, fp32_cuda_core_ms) of one flash kernel call:
     each input read once and each output written once over the card's
@@ -1377,6 +1609,7 @@ def main(argv=None) -> int:
     long_ctx, long_engine = long_context_phase(args.seed, params)
     graphs = step_graph_phase(engines, args.seed)
     speculation = speculation_phase(args.seed, params)
+    prefix = prefix_phase(args.seed, params)
     anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
     del engines, long_engine, params
@@ -1392,11 +1625,12 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         }
 
+    single = [r for name, r in rows.items() if r["shape"]["splits"] == 1]
     kernels = [
         record("paged_append", "flexflow_tpu/ops/kernels/decode_attention.py:368",
-               dict(rows["decode"], max_abs_err=max(rows["decode"]["max_abs_err"],
-                                                    rows["append_w5"]["max_abs_err"])),
-               serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]),
+               dict(rows["decode"], max_abs_err=max(r["max_abs_err"] for r in single)),
+               serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]
+               + prefix["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
     ] + [
@@ -1417,8 +1651,19 @@ def main(argv=None) -> int:
         print(f"{card}: speculation k=4, {label} steps: verify step ms {sp['verify_step_ms']:.3f}, "
               f"acceptance {sp['acceptance_rate']:.4f}, tokens per verify step "
               f"{sp['tokens_per_verify_step']:.3f}, tokens/s {sp['tokens_per_s']:.1f}")
+        for on in ("on", "off"):
+            rs_ = prefix["runs"][f"prefix {on}, {label} steps"]
+            print(f"{card}: shared 512-token system prompt, prefix cache {on}, {label} steps: "
+                  "TTFT p50 s " + ", ".join(f"{r['ttft_p50_s']:.4f}" for r in rs_)
+                  + "; prefill step ms per request "
+                  + ", ".join(f"{r['prefill_ms_per_request']:.3f}" for r in rs_)
+                  + "; tokens/s " + ", ".join(f"{r['tokens_per_s']:.1f}" for r in rs_))
+    for name, r in rows.items():
+        if name.startswith(("wide", "verify_w4", "split_w64")):
+            print(f"{card}: paged kernel {name} ms {r['ms']:.4f} (bound {r['bound_ms']:.4f} "
+                  f"by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
     print(json.dumps({"card": card, "serving": serving, "long_context": long_ctx,
-                      "step_graphs": graphs, "speculation": speculation,
+                      "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training}))
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Autoregressive generation: the block KV cache, the decoder's four
 forwards, the generation engine (its fixed-shape steps replayed as CUDA
-graphs on a GPU), speculative decoding and the continuous-batching
-scheduler (port of ``flexflow_tpu/generation``)."""
+graphs on a GPU), the cross-request prefix cache, speculative decoding
+and the continuous-batching scheduler (port of
+``flexflow_tpu/generation``)."""
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
 from .convert import decoder_params_from_numpy
 from .decoder import (
@@ -12,11 +13,13 @@ from .decoder import (
     prefill,
     verify_step,
 )
-from .engine import GenerationEngine, SamplingParams, default_buckets
+from .engine import EMPTY_PREFIX_PLAN, GenerationEngine, PrefixPlan, SamplingParams, default_buckets
+from .prefix import PackedBlock, PrefixCache, PrefixEntry
 from .scheduler import ContinuousBatchingScheduler, GenerationHandle, Request
 from .speculative import DraftModelDrafter, NgramDrafter, SpeculationConfig
 
 __all__ = [
+    "EMPTY_PREFIX_PLAN",
     "BlockAllocator",
     "CacheConfig",
     "ContinuousBatchingScheduler",
@@ -26,6 +29,10 @@ __all__ = [
     "GenerationHandle",
     "KVCache",
     "NgramDrafter",
+    "PackedBlock",
+    "PrefixCache",
+    "PrefixEntry",
+    "PrefixPlan",
     "Request",
     "SamplingParams",
     "SpeculationConfig",

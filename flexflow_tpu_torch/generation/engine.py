@@ -12,10 +12,15 @@ compiled programs do:
   slots masked to scratch block 0), always the same block-table width;
 * **verify** — ONE shape: ``max_batch_slots`` windows of ``spec_window``
   tokens (the last committed token and up to ``max_spec_tokens`` drafts),
-  scored in one forward and accepted on the device.
+  scored in one forward and accepted on the device;
+* **prefix prefill** — one shape per *suffix bucket*: a prompt whose
+  leading full blocks are in the cross-request prefix cache
+  (``prefix.py``) computes only its suffix, a ``[1, W]`` window through
+  the verify forward (the paged append kernel, once per layer) over the
+  shared blocks; the start and the real length ride on the device.
 
 Each step kind is a body of device tensors (``_prefill_body``,
-``_decode_body``, ``_verify_body``) run by a
+``_decode_body``, ``_verify_body``, ``_prefix_prefill_body``) run by a
 :class:`~flexflow_tpu_torch.generation.step_graphs.StepRunner`: one packed
 upload of the step's inputs, the body, one readback of its tokens and
 finiteness flags. On a CUDA engine the body is captured as a CUDA graph
@@ -38,7 +43,8 @@ stream. Greedy decoding is token-identical to the JAX engine.
 
 A captured graph holds the addresses of the KV cache tensors: nothing may
 reallocate ``cache.k``/``cache.v`` (``KVCache.reset`` zeroes them in
-place).
+place; the prefix cache's block copies, swap-in writes and swap-out
+reads — admission-time, outside the graphs — index them in place).
 """
 from __future__ import annotations
 
@@ -51,14 +57,34 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.transformer import TransformerConfig
-from ..ops.kernels.decode_attention import MAX_WINDOW
+from ..obs.capacity import ServingFlops, chip_spec_for
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
 from . import prng
 from .decoder import DecoderParams, decode_step, params_to, prefill, verify_step
+from .prefix import PrefixCache, PrefixEntry
 from .step_graphs import StepBody, StepRunner
 
 NEG_INF = -1e30
 MASK32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass
+class PrefixPlan:
+    """Admission-time reuse decision for one prompt
+    (:meth:`GenerationEngine.prefix_plan`): the cached entries to share,
+    the boundary entry to copy when the prompt is fully covered (its last
+    position must still be recomputed for logits, and that write lands
+    inside the last matched block), the token count reuse covers, and how
+    many shared entries are already device-resident (the rest swap in
+    from the host tier)."""
+
+    entries: List[PrefixEntry]
+    cow: Optional[PrefixEntry]
+    reuse_tokens: int
+    n_resident: int
+
+
+EMPTY_PREFIX_PLAN = PrefixPlan([], None, 0, 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,8 +173,14 @@ class GenerationEngine:
     the engine's device. On CUDA every step replays a captured graph;
     ``eager_steps=True`` runs the same step bodies eagerly instead (the
     A/B and exactness reference for the graphs). ``max_spec_tokens``
-    fixes the verify window, ``max_spec_tokens + 1`` tokens, at most the
-    paged kernel's ``MAX_WINDOW``."""
+    (any count >= 1) fixes the verify window, ``max_spec_tokens + 1``
+    tokens.
+
+    ``prefix_cache`` (on by default, as in the JAX engine) shares cached
+    prompt blocks across requests (``prefix.py``); ``host_cache_bytes``
+    bounds its host tier (default: the device cache's size);
+    ``expected_prefix_sharing`` discounts the default cache sizing by the
+    share of positions expected to be shared."""
 
     def __init__(
         self,
@@ -162,6 +194,9 @@ class GenerationEngine:
         max_seq_len: Optional[int] = None,
         block_size: int = 16,
         max_spec_tokens: int = 4,
+        prefix_cache: bool = True,
+        host_cache_bytes: Optional[int] = None,
+        expected_prefix_sharing: float = 0.0,
         device=None,
         eager_steps: bool = False,
     ):
@@ -181,7 +216,8 @@ class GenerationEngine:
                     block_size=block_size,
                 )
             else:
-                # enough for every slot to reach max_seq_len, plus scratch
+                # enough for every slot to reach max_seq_len (discounted
+                # by expected prefix sharing), plus scratch
                 cache_config = CacheConfig.for_slots(
                     num_layers=cfg.num_layers,
                     num_heads=cfg.num_heads,
@@ -189,6 +225,7 @@ class GenerationEngine:
                     max_seq_len=self.max_seq_len,
                     max_batch_slots=max_batch_slots,
                     block_size=block_size,
+                    expected_prefix_sharing=expected_prefix_sharing,
                 )
         self.cache_config = cache_config
         self.cache = KVCache.create(cache_config, device=self.device)
@@ -203,11 +240,8 @@ class GenerationEngine:
             # preemption-by-recompute re-prefills prompt + generated,
             # which can reach max_seq_len - 1: a bucket must hold it
             self.buckets = self.buckets + (self.max_seq_len,)
-        if not 1 <= max_spec_tokens < MAX_WINDOW:
-            raise ValueError(
-                f"max_spec_tokens must be in 1..{MAX_WINDOW - 1}: the verify window of "
-                f"max_spec_tokens + 1 tokens is at most the paged kernel's {MAX_WINDOW}"
-            )
+        if max_spec_tokens < 1:
+            raise ValueError("max_spec_tokens must be >= 1")
         # speculative verification window: 1 committed token + up to
         # max_spec_tokens drafts, ONE fixed shape whatever per-request
         # adaptive k does
@@ -228,6 +262,16 @@ class GenerationEngine:
         self.last_logits: Optional[torch.Tensor] = None
         self.graphs = self.device.type == "cuda" and not eager_steps
         self._steps = StepRunner(self.device, self.graphs)
+        # the serving roofline prefix_plan weighs a swap-in against a
+        # recompute with (the device's preset peaks)
+        self.flops_model = ServingFlops.from_config(cfg, chip=chip_spec_for(self.device))
+        # cross-request prefix caching (prefix.py): radix index +
+        # refcounted copy-on-write blocks + host-RAM offload tier; its
+        # block programs run at admission only, outside the step graphs
+        self.prefix_cache = PrefixCache(
+            self.allocator, cache_config,
+            enabled=prefix_cache, host_budget_bytes=host_cache_bytes,
+        )
 
     # ------------------------------------------------------------ geometry
     def bucket_for(self, prompt_len: int) -> int:
@@ -311,6 +355,43 @@ class GenerationEngine:
         n_emitted = torch.where(n_draft >= 0, n_emitted, 0)
         return torch.cat([out.flatten(), n_emitted, ok.to(torch.int32)]), logits
 
+    def _prefix_prefill_body(self, x: Dict[str, torch.Tensor]):
+        """Suffix-only prefill against a cached prefix: the [1, W] suffix
+        window attends over the table (shared prefix blocks, then the
+        sequence's own) through the verify forward, writes the suffix
+        K/V, and samples the first generated token from the logits at the
+        last REAL suffix position (``n_real - 1``, read on the device)."""
+        tokens, start, n_real = x["tokens"], x["start"], x["n_real"]
+        offs = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+        positions = torch.where(offs < n_real, start + offs, -1)[None, :]
+        logits, _, _ = verify_step(
+            self.params, tokens, positions, self.cache.k, self.cache.v, x["table"][None]
+        )
+        last = logits[0].index_select(0, (n_real - 1).long())  # [1, V], device-indexed
+        ok = torch.isfinite(last).all(dim=-1)
+        noise = prng.gumbel(derive_keys(x["seed"], x["count"]), (last.shape[-1],))
+        token = _sample(last, x["temp"], x["top_k"], noise)
+        return torch.cat([token, ok.to(torch.int32)]), last[0]
+
+    # ------------------------------------------------------ block programs
+    # admission-time copies over whole blocks of every layer, in place:
+    # the step graphs hold the cache tensors' addresses
+    def _copy_block(self, src: int, dst: int) -> None:
+        """COW: duplicate one block's K/V across all layers."""
+        for t in (self.cache.k, self.cache.v):
+            t[:, dst].copy_(t[:, src])
+
+    def _read_block(self, src: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-tier swap-out read: one block's K and V ([L, bs, H, D]
+        each), brought to the host in one copy."""
+        kv = torch.stack((self.cache.k[:, src], self.cache.v[:, src])).cpu().numpy()
+        return kv[0], kv[1]
+
+    def _write_block(self, dst: int, host_k: np.ndarray, host_v: np.ndarray) -> None:
+        """Host-tier swap-in write: one block's K/V back into ``dst``."""
+        for t, h in ((self.cache.k, host_k), (self.cache.v, host_v)):
+            t[:, dst].copy_(torch.from_numpy(h))
+
     # --------------------------------------------------------------- steps
     def prefill_one(
         self,
@@ -318,32 +399,255 @@ class GenerationEngine:
         block_table: Sequence[int],
         sampling: SamplingParams,
         sample_index: int = 0,
+        prefix_len: int = 0,
     ) -> int:
         """Prefill one sequence into its allocated blocks and sample its
         first generated token. ``block_table`` is the sequence's block ids
         (padded internally to the engine's fixed table width);
         ``sample_index`` is the request's generated-token count, which
-        indexes its sampling noise stream."""
+        indexes its sampling noise stream. ``prefix_len`` > 0 means
+        positions [0, prefix_len) are already cached (shared prefix blocks
+        at the front of the table): only the suffix is computed, a
+        ``prefix_prefill[W]`` step per suffix bucket W, counted as a
+        prefill step."""
         self.step_counts["prefill"] += 1
         t0 = time.perf_counter()
-        n = len(prompt)
+        computed = prompt[prefix_len:]
+        n = len(computed)
         bucket = self.bucket_for(n)
         tokens = np.zeros((1, bucket), np.int32)
-        tokens[0, :n] = prompt
+        tokens[0, :n] = computed
         table = np.zeros((self.max_blocks_per_seq,), np.int32)
         table[: len(block_table)] = block_table
-        token, ok = self._run(f"prefill[{bucket}]", (bucket,), {
-            "tokens": tokens,
-            "length": np.asarray([n], np.int32),
-            "table": table,
-            "temp": np.asarray([sampling.temperature], np.float32),
-            "top_k": np.asarray([sampling.top_k], np.int32),
-            "seed": np.asarray([sampling.seed & MASK32], np.uint32),
-            "count": np.asarray([sample_index], np.int32),
-        }, self._prefill_body)
+        arrays = {"tokens": tokens, "table": table}
+        if prefix_len > 0:
+            kind, body = f"prefix_prefill[{bucket}]", self._prefix_prefill_body
+            arrays.update(start=np.asarray([prefix_len], np.int32),
+                          n_real=np.asarray([n], np.int32))
+        else:
+            kind, body = f"prefill[{bucket}]", self._prefill_body
+            arrays.update(length=np.asarray([n], np.int32))
+        arrays.update(
+            temp=np.asarray([sampling.temperature], np.float32),
+            top_k=np.asarray([sampling.top_k], np.int32),
+            seed=np.asarray([sampling.seed & MASK32], np.uint32),
+            count=np.asarray([sample_index], np.int32),
+        )
+        token, ok = self._run(kind, (bucket,), arrays, body)
         self.last_finite = np.asarray([bool(ok)])
         self.step_seconds["prefill"] += time.perf_counter() - t0
         return int(token)
+
+    # ------------------------------------------------------ prefix caching
+    def prefix_plan(self, prompt: Sequence[int]) -> PrefixPlan:
+        """Match ``prompt`` against the radix index and decide what to
+        reuse. Offloaded entries in the matched run are used only when the
+        host->device transfer beats recomputing the same positions on the
+        device's roofline; otherwise the run truncates at the first
+        offloaded entry."""
+        pc = self.prefix_cache
+        run = pc.match(prompt)  # empty when disabled or len(prompt) < 2
+        if not run:
+            return EMPTY_PREFIX_PLAN
+        bs = self.cache_config.block_size
+        reuse = min(len(run) * bs, len(prompt) - 1)
+        n_shared = reuse // bs
+        cow = run[n_shared] if (reuse % bs and len(run) > n_shared) else None
+        entries = run[:n_shared]
+        off_idx = [i for i, e in enumerate(entries) if not e.resident]
+        cow_off = cow is not None and not cow.resident
+        if off_idx or cow_off:
+            n_off = len(off_idx) + (1 if cow_off else 0)
+            first = off_idx[0] if off_idx else n_shared
+            # the recompute alternative: truncate at the first offloaded
+            # entry and prefill positions [first*bs, reuse) instead
+            start = first * bs
+            n_tok = reuse - start
+            ctx = (reuse * (reuse + 1) - start * (start + 1)) // 2
+            recompute_s = self.flops_model.roofline_s(
+                self.flops_model.verify_flops(n_tok, ctx),
+                self.flops_model.verify_bytes(n_tok, ctx),
+            )
+            if pc.swap_in_cost_s(n_off) >= recompute_s:
+                pc.recompute_fallbacks += 1
+                entries = entries[:first]
+                reuse = first * bs
+                cow = None
+        n_resident = sum(1 for e in entries if e.resident)
+        return PrefixPlan(entries, cow, reuse, n_resident)
+
+    def prepare_prefix(
+        self,
+        prompt: Sequence[int],
+        plan: PrefixPlan,
+        new_blocks: List[int],
+    ) -> Optional[Tuple[List[int], set, List[PrefixEntry], int]]:
+        """Assemble one admission's block table from a plan: shared
+        entries first (swapping offloaded ones back in), then the private
+        blocks (COW boundary copy, suffix, growth room). Returns (table,
+        shared_idx, held entries, prefix_len), or None when a failed
+        swap-in could not be replaced from the allocator — everything is
+        handed back and the caller retries admission later. A failed or
+        corrupted swap-in truncates reuse at that entry and the rest is
+        recomputed, which the exactness invariant makes invisible in the
+        token stream."""
+        pc = self.prefix_cache
+        bs = self.cache_config.block_size
+        entries = list(plan.entries)
+        cow = plan.cow
+        reuse = plan.reuse_tokens
+        pc.acquire(entries)
+        if cow is not None:
+            # hold the boundary entry too: the reclaim below must not
+            # evict the COW source out from under the copy
+            pc.acquire([cow])
+        pool = list(new_blocks)
+        shared: List[int] = []
+        kept: List[PrefixEntry] = []
+        failed_at: Optional[int] = None
+        for i, e in enumerate(entries):
+            if e.resident:
+                shared.append(e.block)
+                kept.append(e)
+                continue
+            if not pool:
+                failed_at = i  # stale plan: no swap target left
+                break
+            dst = pool.pop(0)
+            if self._swap_in(e, dst):
+                shared.append(e.block)
+                kept.append(e)
+            else:
+                pool.insert(0, dst)
+                failed_at = i
+                break
+        need_total = self.cache_config.blocks_for(len(prompt) + 1)
+        if failed_at is not None:
+            pc.release(entries[failed_at:])
+            reuse = len(kept) * bs
+            if cow is not None:
+                pc.release([cow])
+                cow = None
+        # re-balance the private pool against the full table: the plan's
+        # resident count can go stale between planning and assembly (a
+        # reclaim may evict a planned-resident entry, whose swap-in then
+        # takes a pool block budgeted for the suffix, and a short table
+        # would map suffix positions to the scratch block). Top the pool
+        # back up, or hand everything back and let the caller retry.
+        short = need_total - len(shared) - len(pool)
+        if short > 0:
+            extra = self.allocator.allocate(short)
+            if extra is None and self.reclaim_cached(short):
+                extra = self.allocator.allocate(short)
+            if extra is None:
+                if cow is not None:
+                    pc.release([cow])
+                pc.release(kept)
+                self.allocator.free(pool)
+                return None
+            pool.extend(extra)
+        if cow is not None:
+            # the boundary block: the copy target doubles as the plain
+            # private block when the COW source is unusable (corrupt
+            # offloaded content) — only prefix_len changes
+            if pool and self._cow_copy(cow, pool[0]):
+                pc.cow_copies_total += 1
+            else:
+                reuse = len(kept) * bs
+            pc.release([cow])
+        table = shared + pool
+        if len(table) > need_total:
+            surplus = table[need_total:]
+            del table[need_total:]
+            self.allocator.free(surplus)
+        return table, set(range(len(shared))), kept, reuse
+
+    def _write_host_copy(self, entry: PrefixEntry, dst: int) -> bool:
+        """Write an offloaded entry's CRC-verified host copy into device
+        block ``dst``; False (a failed swap-in, recomputed instead) when
+        the copy is corrupt or gone."""
+        pc = self.prefix_cache
+        buf = pc.take_host_copy(entry)
+        if buf is None:
+            pc.swap_in_failures += 1
+            pc.recompute_fallbacks += 1
+            return False
+        self._write_block(dst, *buf)
+        return True
+
+    def _swap_in(self, entry: PrefixEntry, dst: int) -> bool:
+        """Bring one offloaded entry's K/V back to device block ``dst``:
+        the entry is resident again."""
+        if not self._write_host_copy(entry, dst):
+            return False
+        self.prefix_cache.note_swapped_in(entry, dst)
+        return True
+
+    def _cow_copy(self, src: PrefixEntry, dst: int) -> bool:
+        """A private copy of ``src``'s block at ``dst`` — from the device
+        (resident) or the host tier (offloaded). The source entry is
+        untouched: its content stays shared."""
+        if src.resident:
+            self._copy_block(src.block, dst)
+            return True
+        if not self._write_host_copy(src, dst):
+            return False
+        self.prefix_cache.swaps_in_total += 1
+        return True
+
+    def register_prefix(
+        self,
+        prompt: Sequence[int],
+        table: List[int],
+        shared_idx: set,
+        entries: List[PrefixEntry],
+        prefix_len: int = 0,
+    ) -> None:
+        """Post-prefill registration: the prompt's freshly written full
+        blocks join the radix index (ownership moves to the index; the
+        sequence keeps a ref). Called only after the finiteness check, so
+        poisoned K/V never becomes shared content; reuse counts here, so
+        a failed prefill never inflates them."""
+        pc = self.prefix_cache
+        if not pc.enabled:
+            return
+        pc.lookups += 1
+        if prefix_len > 0:
+            pc.hits += 1
+            pc.tokens_reused_total += prefix_len
+            pc.blocks_reused_total += len(entries)
+        pc.register_chain(prompt, table, shared_idx, entries, len(prompt))
+
+    def stash_prefix(self, state) -> None:
+        """Preemption stash: register the victim's full blocks below
+        ``cached_len`` (prompt AND generated content), so its recompute
+        re-admission — and any request sharing the prefix — matches them
+        instead of recomputing."""
+        if not self.prefix_cache.enabled:
+            return
+        req = state.req
+        tokens = list(req.original_prompt) + list(req.generated)
+        upto = min(state.cached_len, len(tokens))
+        self.prefix_cache.register_chain(
+            tokens, state.blocks, state.shared_idx, state.shared_entries, upto
+        )
+
+    def release_admission(
+        self, table: List[int], shared_idx: set, entries: List[PrefixEntry]
+    ) -> None:
+        """Undo one admission's block bookkeeping (failed or non-finite
+        prefill): private blocks back to the allocator, shared refs
+        dropped (the content stays cached)."""
+        self.allocator.free([b for i, b in enumerate(table) if i not in shared_idx])
+        self.prefix_cache.release(entries)
+
+    def reclaim_cached(self, n_blocks: int) -> int:
+        """Free device blocks held by unreferenced cached prefixes (LRU;
+        content offloads to the host tier when its budget allows): the
+        allocator's last resort before preemption."""
+        if not self.prefix_cache.enabled:
+            return 0
+        return self.prefix_cache.reclaim(max(1, n_blocks), self._read_block)
 
     def decode_arrays(
         self, tokens: np.ndarray, positions: np.ndarray, block_tables: np.ndarray,

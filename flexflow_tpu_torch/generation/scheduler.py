@@ -9,6 +9,14 @@ batch recomposes freely —
 * **join-mid-flight**: a queued request is admitted (FCFS) the moment a
   slot AND enough cache blocks are free; it prefills and decodes
   alongside sequences that are hundreds of tokens in;
+* **prefix reuse**: admission matches the prompt against the engine's
+  cross-request prefix cache (``prefix.py``), shares the cached blocks
+  (swapping offloaded ones back in, copying the boundary block of a
+  fully covered prompt) and prefills only the suffix; the prompt's
+  written blocks join the cache after a finite prefill. Unreferenced
+  cached blocks are reclaimed (offloaded to the host tier) before a
+  request waits or a running one is preempted, and a preempted
+  sequence's blocks are stashed in the cache for its re-admission;
 * **free-on-finish**: a sequence hitting EOS / max-tokens / its deadline
   releases its blocks in the same step;
 * **preempt-by-recompute**: if the cache cannot grow a running sequence,
@@ -173,16 +181,22 @@ class Request:
 class _Running:
     """Slot-resident state for an admitted request."""
 
-    __slots__ = ("req", "slot", "blocks", "cached_len", "admitted_seq", "step_k")
+    __slots__ = ("req", "slot", "blocks", "cached_len", "admitted_seq", "step_k",
+                 "shared_idx", "shared_entries")
 
     def __init__(self, req: Request, slot: int, blocks: List[int], cached_len: int,
-                 admitted_seq: int):
+                 admitted_seq: int, shared_idx=None, shared_entries=None):
         self.req = req
         self.slot = slot
         self.blocks = blocks
         self.cached_len = cached_len  # cache positions written so far
         self.admitted_seq = admitted_seq  # admission order, for LIFO preemption
         self.step_k = 0  # drafts planned for THIS step (<= req.spec_k)
+        # prefix caching: table positions whose blocks the prefix index
+        # owns (refcounted, immutable, freed by the index — never by this
+        # sequence) and the entries this sequence holds
+        self.shared_idx = shared_idx if shared_idx is not None else set()
+        self.shared_entries = shared_entries if shared_entries is not None else []
 
 
 class ContinuousBatchingScheduler:
@@ -284,10 +298,37 @@ class ContinuousBatchingScheduler:
     def has_work(self) -> bool:
         return bool(self._queue) or bool(self._running)
 
+    def cache_report(self) -> Dict:
+        """Allocator state, the per-request block residency and the
+        prefix cache's snapshot. A running request's private blocks
+        (``blocks - shared_blocks``) plus the prefix index's resident
+        blocks sum to ``used``: a shared block is counted once, by the
+        index."""
+        alloc = self.engine.allocator
+        cfg = alloc.config
+        free = alloc.num_free
+        residency = [
+            {"request_id": s.req.id, "slot": s.slot, "blocks": len(s.blocks),
+             "shared_blocks": len(s.shared_idx), "live_tokens": s.cached_len}
+            for s in sorted(self._running.values(), key=lambda s: s.slot)
+        ]
+        return {
+            "config": {"num_blocks": cfg.num_blocks, "block_size": cfg.block_size,
+                       "bytes_per_block": cfg.bytes_per_block},
+            "blocks": {"total": alloc.num_total, "free": free, "used": alloc.num_total - free},
+            "queue_depth": len(self._queue),
+            "residency": residency,
+            "prefix_cache": self.engine.prefix_cache.snapshot(),
+        }
+
     # ---------------------------------------------------------- internals
     def _release(self, state: _Running) -> None:
-        self.engine.allocator.free(state.blocks)
+        # private blocks go back to the allocator; shared (index-owned)
+        # blocks only drop this sequence's reference
+        self.engine.release_admission(state.blocks, state.shared_idx, state.shared_entries)
         state.blocks = []
+        state.shared_idx = set()
+        state.shared_entries = []
         del self._running[state.slot]
         self._free_slots.append(state.slot)
 
@@ -322,8 +363,13 @@ class ContinuousBatchingScheduler:
                     self._incr("expired")
 
     def _preempt_self(self, state: _Running) -> None:
-        """Evict ``state`` for recompute: free its blocks, fold its
-        generated tokens into the prompt, and requeue it at the FRONT."""
+        """Evict ``state`` for recompute: stash its computed blocks in the
+        prefix cache, free the rest, fold its generated tokens into the
+        prompt, and requeue it at the FRONT."""
+        # the stash: its re-admission (and any request sharing the
+        # prefix) re-matches the blocks; under continued pressure they
+        # offload to the host tier and swap back in
+        self.engine.stash_prefix(state)
         self._release(state)
         req = state.req
         req.prompt = req.original_prompt + list(req.generated)
@@ -343,32 +389,56 @@ class ContinuousBatchingScheduler:
         return True
 
     def _admit(self) -> bool:
-        """FCFS, cache-capacity-aware admission. Returns True if the
-        queue's head was admitted (prefilled) or failed."""
+        """FCFS, cache-capacity-aware admission with prefix reuse.
+        Returns True if the queue's head was admitted (prefilled) or
+        failed."""
+        engine = self.engine
         with self._lock:
             if not self._queue or not self._free_slots:
                 return False
             req = self._queue[0]
-        need = self.engine.cache_config.blocks_for(len(req.prompt) + 1)
-        blocks = self.engine.allocator.allocate(need)
+        plan = engine.prefix_plan(req.prompt)
+        need = engine.cache_config.blocks_for(len(req.prompt) + 1) - plan.n_resident
+        blocks = engine.allocator.allocate(need)
+        if blocks is None and engine.reclaim_cached(need - engine.allocator.num_free):
+            # unreferenced cached prefixes are reclaimed (offloaded to the
+            # host tier) before the head waits
+            blocks = engine.allocator.allocate(need)
         if blocks is None:
             return False
         with self._lock:
             self._queue.popleft()
             slot = self._free_slots.pop()
+        prep = engine.prepare_prefix(req.prompt, plan, blocks)
+        if prep is None:
+            # a failed swap-in could not be replaced: everything was
+            # handed back; requeue the head and retry next iteration
+            self._free_slots.append(slot)
+            with self._lock:
+                self._queue.appendleft(req)
+            return False
+        table, shared_idx, entries, prefix_len = prep
         try:
-            token = self.engine.prefill_one(
-                req.prompt, blocks, req.sampling, sample_index=req.n_generated
+            token = engine.prefill_one(
+                req.prompt, table, req.sampling, sample_index=req.n_generated,
+                prefix_len=prefix_len,
             )
+            if not engine.last_finite[0]:
+                raise FloatingPointError(
+                    f"request {req.id} produced non-finite logits at prefill")
         except Exception as e:  # the one request fails; the batch goes on
-            self.engine.allocator.free(blocks)
+            engine.release_admission(table, shared_idx, entries)
             self._free_slots.append(slot)
             if req.handle._fail(e):
                 self._incr("failed")
             return True
+        # the prompt's written blocks join the prefix index only after the
+        # finiteness check: non-finite K/V never becomes shared content
+        engine.register_prefix(req.prompt, table, shared_idx, entries, prefix_len=prefix_len)
         state = _Running(
-            req, slot, blocks, cached_len=len(req.prompt),
+            req, slot, table, cached_len=len(req.prompt),
             admitted_seq=next(self._admitted_seq),
+            shared_idx=shared_idx, shared_entries=entries,
         )
         self._running[slot] = state
         self._emit_token(state, token)
@@ -408,6 +478,11 @@ class ContinuousBatchingScheduler:
                 if len(state.blocks) >= need:
                     break
                 got = self.engine.allocator.allocate(1)
+                if got is None and self.engine.reclaim_cached(1):
+                    # evict an unreferenced cached prefix (offloading it
+                    # to the host tier) before shrinking anyone's window
+                    # or preempting a live sequence
+                    got = self.engine.allocator.allocate(1)
                 if got is not None:
                     state.blocks.extend(got)
                     continue

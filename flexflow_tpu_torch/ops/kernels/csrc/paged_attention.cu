@@ -18,15 +18,20 @@
 // is online, in fp32.
 //
 // Design. A thread block (CTA) of 4 warps takes one head of one sequence
-// over one contiguous range of key positions. The TPU kernel walks cache
+// over one contiguous range of key positions, for up to 32 queries of the
+// window. A wider window (a suffix prefill's, up to its bucket of 1024) is
+// cut into tiles of 32 queries, each its own cluster of the same launch:
+// grid (C, H, B * tiles). The TPU kernel walks cache
 // blocks as a sequential grid axis and carries its online-softmax state in
 // VMEM scratch from one grid step to the next; here a CTA loops over its
 // own range and the ranges combine at the end.
-//   * ff_paged_append_f32 splits each (head, sequence) across a
-//     thread-block cluster: grid (C, H, B), cluster (C, 1, 1), with
-//     C = ceil(MB * bs / 128) CTAs, at most 8 (the portable cluster
-//     size). The CTAs share the sequence's live positions (up to
-//     max(q_positions[b]) + 1) evenly, in whole tiles of 32, so the
+//   * ff_paged_append_f32 splits each (head, sequence, query tile)
+//     across a thread-block cluster: grid (C, H, B * tiles), cluster
+//     (C, 1, 1), with C = ceil(MB * bs / 128) CTAs, at most 8 (the
+//     portable cluster size). The CTAs share the live positions of the
+//     tile's queries (up to the largest of their q_positions, plus one)
+//     evenly, in whole tiles of 32 positions, so the early query tiles of
+//     a causal window skip the keys they cannot see, and the
 //     longest sequence of a batch is spread over all C SMs; a short one
 //     leaves some CTAs empty. At the serving shape (B = 4, H = 12, 64
 //     columns of 16) that is 384 CTAs on the 132 SMs; shared memory is
@@ -62,11 +67,11 @@
 //   * softmax: warp j takes queries j, j + 4, ...; lane t holds position
 //     t of each tile; one warp max and one warp sum per round update the
 //     CTA's state (m, l);
-//   * values: each thread owns fixed (query, column) pairs of the [W, D]
-//     accumulator, in registers, and folds in the round's V rows.
+//   * values: each thread owns fixed (query, column) pairs of the tile's
+//     [32, D] accumulator, in registers, and folds in the round's V rows.
 // A CTA ends holding (m, l, acc). In the cluster the CTAs then combine
 // exactly through distributed shared memory: after cluster.sync() each
-// CTA writes its slice of the W * D normalised outputs, each element
+// CTA writes its slice of the tile's normalised outputs, each element
 // reading every CTA's m, l and accumulator element at once and weighting
 // CTA r by exp(m_r - m_max) - zero where l_r = 0, a CTA with no live
 // position, whose m of -1e30 would otherwise give exp(0) = 1 - and a
@@ -75,14 +80,18 @@
 // no scratch in device memory, and capturable in a CUDA graph; both forms
 // end this way.
 //
-// Bound on this card. The kernel is bound by bytes: it must read the live
-// K and V rows once, 2 * sum(ctx) * H * D * 4 bytes per layer, at the
-// H100's 3.35 TB/s (2.1 us at the serving shape); its 4 * sum(ctx) * H * D
-// fp32 operations per window query are far below the 67 TFLOP/s fp32
-// rate. At decode sizes the time is latency, not bytes: the cluster's
-// launch (about 2.3 us with nothing to do), two dependent reads
-// (positions, queries and table, then K and V), four barriers a round and
-// the combine's remote reads between the cluster's two barriers
+// Bound on this card. At decode and verify windows the kernel is bound by
+// bytes: it must read the live K and V rows once, 2 * sum(ctx) * H * D *
+// 4 bytes per layer, at the H100's 3.35 TB/s (2.1 us at the serving
+// shape); its 4 * sum(ctx) * H * D fp32 operations per window query are
+// far below the 67 TFLOP/s fp32 rate. A wide causal window is bound by
+// operations instead (about 1.6 GFLOP unmasked per layer at W = 1024 over
+// 1024 positions, H = 12, D = 64): this form does them on the CUDA cores
+// in fp32, and each query tile stages its own K and V rows (the tiles
+// share them through L2). At decode sizes the time is latency, not bytes:
+// the cluster's launch (about 2.3 us with nothing to do), two dependent
+// reads (positions, queries and table, then K and V), four barriers a
+// round and the combine's remote reads between the cluster's two barriers
 // (tools/paged_probe.py times each part, and the split form's design
 // variants: this cluster, a 16-CTA cluster, and per-CTA partials in a
 // global scratch that the last CTA of a head combines).
@@ -115,10 +124,12 @@ __host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
 // so the score reads of neighbouring positions are offset by 4 banks
 __host__ __device__ inline int tile_ld(int d) { return round4(d) + 4; }
 
-// kMaxW: a compile-time bound on W (1, 8 or 32), so the per-thread scores
-// and accumulators stay in registers. kSplit: the split-KV form, whose CTA
-// r takes table columns [r * cta_cols, (r + 1) * cta_cols) instead of a
-// share of the live positions.
+// kMaxW: the queries a CTA takes (1, 8 or 32), a compile-time bound so the
+// per-thread scores and accumulators stay in registers. A window wider than
+// kMaxW is cut into tiles of kMaxW queries, each its own cluster along
+// grid z (z = sequence * tiles + tile). kSplit: the split-KV form, whose
+// CTA r takes table columns [r * cta_cols, (r + 1) * cta_cols) instead of
+// a share of the live positions.
 template <int kMaxW, bool kSplit>
 __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     const float* __restrict__ q,           // [B, W, H, D]
@@ -132,7 +143,11 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     int bt_held,   // table columns a CTA holds in shared memory, from its first
     int stages, int vec, float scale) {
   constexpr int kPairs = kMaxW * kMaxHeadDim / kThreads;  // (query, column) pairs a thread owns
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q_tiles = (W + kMaxW - 1) / kMaxW;
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z / q_tiles;
+  const int w0 = (blockIdx.z - b * q_tiles) * kMaxW;  // the tile's first query
+  const int Wt = min(kMaxW, W - w0);                // its queries
+  const int Wl = min(kMaxW, W);  // queries the shared-memory layout holds, the same in every CTA
   const int S = gridDim.x;  // the cluster's CTAs
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int d4 = round4(D), ld = tile_ld(D);
@@ -141,33 +156,36 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
   extern __shared__ __align__(16) float smem[];
   float* tiles = smem;  // [stages][K, V][kTile][ld]: the tiles of a round
   long long* row_s = reinterpret_cast<long long*>(tiles + stages * 2 * kTile * ld);  // [kRound]
-  float* q_s = reinterpret_cast<float*>(row_s + kRound);  // [W][d4] scaled queries, zero past D
-  float* sp_s = q_s + W * d4;                   // [W][kRound + 1] scores, then probabilities
-  float* m_s = sp_s + W * (kRound + 1);         // [W] running max
-  float* l_s = m_s + W;                         // [W] running denominator
-  float* c_s = l_s + W;                         // [W] this round's rescale factor
-  int* qp_s = reinterpret_cast<int*>(c_s + W);  // [W] query positions
-  int* bt_s = qp_s + W;                         // [bt_held] table columns from col0
+  float* q_s = reinterpret_cast<float*>(row_s + kRound);  // [Wl][d4] scaled queries, zero past D
+  float* sp_s = q_s + Wl * d4;                   // [Wl][kRound + 1] scores, then probabilities
+  float* m_s = sp_s + Wl * (kRound + 1);         // [Wl] running max
+  float* l_s = m_s + Wl;                         // [Wl] running denominator
+  float* c_s = l_s + Wl;                         // [Wl] this round's rescale factor
+  int* qp_s = reinterpret_cast<int*>(c_s + Wl);  // [Wl] query positions
+  int* bt_s = qp_s + Wl;                         // [bt_held] table columns from col0
 
   // the table columns this CTA holds: from its range's first, or from the row's first
   const int col0 = kSplit ? s * cta_cols : 0;
   const int* bt = block_tables + static_cast<long long>(b) * MB;
   for (int i = tid; i < min(bt_held, MB - col0); i += kThreads) bt_s[i] = bt[col0 + i];
-  for (int w = tid; w < W; w += kThreads) {
-    qp_s[w] = q_positions[static_cast<long long>(b) * W + w];
+  for (int w = tid; w < Wt; w += kThreads) {
+    qp_s[w] = q_positions[static_cast<long long>(b) * W + w0 + w];
     m_s[w] = kNegInf;
     l_s[w] = 0.f;
   }
-  for (int i = tid; i < W * d4; i += kThreads) {
+  for (int i = tid; i < Wt * d4; i += kThreads) {
     const int w = i / d4, d = i - w * d4;
-    q_s[i] = d < D ? q[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] *
+    q_s[i] = d < D ? q[(static_cast<long long>(b) * W + w0 + w) * HD +
+                       static_cast<long long>(h) * D + d] *
                          scale
                    : 0.f;
   }
   __syncthreads();
   int max_qp = -1;
-  for (int w = 0; w < W; ++w) max_qp = max(max_qp, qp_s[w]);
-  // the key positions this CTA takes, none past the last any query sees
+  for (int w = 0; w < Wt; ++w) max_qp = max(max_qp, qp_s[w]);
+  // the key positions this CTA takes, none past the last its tile's
+  // queries see (so the early tiles of a causal window skip the keys they
+  // cannot see; a tile of padding queries takes none)
   int pos0, pos1;
   if (kSplit) {  // the range's table columns
     const int col1 = static_cast<int>(
@@ -241,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
         const float4 kk = *reinterpret_cast<const float4*>(kr + c);
 #pragma unroll
         for (int w = 0; w < kMaxW; ++w) {
-          if (w < W) {
+          if (w < Wt) {
             const float4 qq = *reinterpret_cast<const float4*>(q_s + w * d4 + c);
             dots[w] = fmaf(qq.x, kk.x, dots[w]);
             dots[w] = fmaf(qq.y, kk.y, dots[w]);
@@ -252,7 +270,7 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
       }
 #pragma unroll
       for (int w = 0; w < kMaxW; ++w) {
-        if (w < W) {
+        if (w < Wt) {
           float x = dots[w];
           x += __shfl_xor_sync(kFull, x, 1);
           x += __shfl_xor_sync(kFull, x, 2);
@@ -265,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     // online softmax over the round, per query: lane t holds position t
     // of each tile; every lane reads the old state before the shuffles,
     // lane 0 writes the new state after them
-    for (int w = warp; w < W; w += kWarps) {
+    for (int w = warp; w < Wt; w += kWarps) {
       float* row = sp_s + w * (kRound + 1);
       float sc[kMaxStages];
       float mx = kNegInf;
@@ -303,7 +321,7 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
 #pragma unroll
     for (int k = 0; k < kPairs; ++k) {
       const int idx = tid + k * kThreads;
-      if (idx < W * D) {
+      if (idx < Wt * D) {
         const int w = idx / D, d = idx - w * D;
         float a = acc[k] * c_s[w];
         for (int j = 0; j < nt; ++j) {
@@ -320,17 +338,17 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
 
   // combine the cluster's CTAs exactly, through distributed shared memory
   cg::cluster_group cluster = cg::this_cluster();
-  float* acc_s = tiles;  // [W][D]
+  float* acc_s = tiles;  // [Wt][D]
 #pragma unroll
   for (int k = 0; k < kPairs; ++k) {
     const int idx = tid + k * kThreads;
-    if (idx < W * D) acc_s[idx] = acc[k];
+    if (idx < Wt * D) acc_s[idx] = acc[k];
   }
   cluster.sync();  // every CTA's m, l and acc are written and visible
-  // this CTA's slice of the W * D outputs; each reads every CTA's m, l
-  // and accumulator element, all remote reads in flight together
-  const int per = (W * D + S - 1) / S;
-  const int end = min(W * D, (s + 1) * per);
+  // this CTA's slice of the tile's Wt * D outputs; each reads every CTA's
+  // m, l and accumulator element, all remote reads in flight together
+  const int per = (Wt * D + S - 1) / S;
+  const int end = min(Wt * D, (s + 1) * per);
   for (int idx = s * per + tid; idx < end; idx += kThreads) {
     const int w = idx / D, d = idx - w * D;
     float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
@@ -351,7 +369,7 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
       num = fmaf(ar[r], a, num);
       den = fmaf(lr[r], a, den);
     }
-    out[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] =
+    out[(static_cast<long long>(b) * W + w0 + w) * HD + static_cast<long long>(h) * D + d] =
         qp_s[w] >= 0 ? num / fmaxf(den, 1e-30f) : 0.f;
   }
   cluster.sync();  // no CTA exits while another still reads its shared memory
@@ -385,9 +403,10 @@ int launch(const float* q, const float* k_cache, const float* v_cache, const int
   // SM in a single-pass launch (so the 384 CTAs of the serving shape run
   // in one wave) or 2 in a split launch (its CTAs are few, and 4 stages
   // take a 128-column range of 16 positions in one round); at least one
+  const int wl = std::min(W, kMaxW);  // queries a CTA holds
   int stages = kMaxStages;
-  while (stages > 1 && smem_bytes(W, D, bt_held, stages) > kSmemLimit / (kSplit ? 2 : 4)) --stages;
-  const size_t smem = smem_bytes(W, D, bt_held, stages);
+  while (stages > 1 && smem_bytes(wl, D, bt_held, stages) > kSmemLimit / (kSplit ? 2 : 4)) --stages;
+  const size_t smem = smem_bytes(wl, D, bt_held, stages);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // raise the dynamic shared-memory limit once (the first launch of each
   // instance); later launches, such as those captured into a CUDA graph,
@@ -402,13 +421,13 @@ int launch(const float* q, const float* k_cache, const float* v_cache, const int
   }
   const int vec = D % 4 == 0 && aligned16(k_cache) && aligned16(v_cache) ? 1 : 0;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, H, B);
+  cfg.gridDim = dim3(C, H, B * ((W + kMaxW - 1) / kMaxW));  // a cluster per (tile, head, sequence)
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;  // one cluster per (head, sequence)
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -428,8 +447,10 @@ template <bool kSplit>
 int dispatch(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
              const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB, int C,
              int cta_cols, int bt_held, float scale, cudaStream_t stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || W < 1 || W > 32 || D < 1 || D > kMaxHeadDim ||
-      bs < 1 || MB < 1 || C < 1 || C > kMaxCluster || cta_cols < 1 || bt_held < 1)
+  // grid z holds (sequence, query tile) pairs: at most 65535 of them
+  if (B < 1 || H < 1 || H > 65535 || W < 1 || D < 1 || D > kMaxHeadDim || bs < 1 || MB < 1 ||
+      C < 1 || C > kMaxCluster || cta_cols < 1 || bt_held < 1 ||
+      static_cast<long long>(B) * ((W + kTile - 1) / kTile) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (W == 1)
     return launch<1, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs,

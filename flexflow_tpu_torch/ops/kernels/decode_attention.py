@@ -3,8 +3,9 @@ attending over a block-structured KV cache (port of
 ``flexflow_tpu/ops/kernels/decode_attention.py``).
 
 The generation engine's decode step calls this once per layer with a
-one-token window (``q`` [B, H, D]); the verification step calls the
-chunked-append form with a W-token window (``q`` [B, W, H, D]). Each
+one-token window (``q`` [B, H, D]); the verification step and the
+suffix prefill of a cached prefix call the chunked-append form with a
+W-token window (``q`` [B, W, H, D]; W up to the largest prompt bucket). Each
 window query has its own cache position; masking keeps only cache
 positions ``<= q_position`` in its softmax (causal within the window,
 full history before it). ``q_position < 0`` marks a padding query: it
@@ -22,7 +23,9 @@ Two lowerings, chosen by where the tensors lie:
   each stage one range of a sequence's table columns through shared
   memory, one thread-block cluster per (head, sequence), whose blocks
   combine their softmax states through distributed shared memory in the
-  same launch. The single-pass kernel shares the live positions among
+  same launch; a window wider than :data:`WINDOW_TILE` queries is cut
+  into tiles of that many, each its own cluster of the same launch. The
+  single-pass kernel shares the live positions among
   :func:`kernel_cluster_size` blocks; the split-KV kernel gives each
   block a run of whole splits (:func:`split_plan`) and writes the
   combined output, so ``kv_splits > 1`` is one launch too. For a CUDA
@@ -43,7 +46,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-MAX_WINDOW = 32
+WINDOW_TILE = 32  # queries a kernel block takes; a wider window launches tiles of them
+MAX_GRID_Z = 65535  # (sequence, query tile) pairs a launch can hold
 MAX_HEAD_DIM = 256
 MAX_CLUSTER = 8  # the portable thread-block cluster size the kernels launch
 
@@ -226,7 +230,9 @@ def default_kv_splits(batch: int, max_blocks: int) -> int:
 def _check_kernel_inputs(q, k_cache, v_cache, block_tables, q_positions) -> None:
     """Everything the CUDA kernel assumes, checked before a pointer is
     passed: one device, fp32 data, int32 indices, the JAX layouts,
-    contiguity, W <= 32 and head_dim <= 256."""
+    contiguity, head_dim <= 256, and at most 65535 (sequence, query
+    tile) pairs: any window W >= 1 is taken, in tiles of
+    :data:`WINDOW_TILE` queries."""
     dev = q.device
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
                     ("block_tables", block_tables), ("q_positions", q_positions)):
@@ -255,8 +261,13 @@ def _check_kernel_inputs(q, k_cache, v_cache, block_tables, q_positions) -> None
             f"block_tables {tuple(block_tables.shape)} / q_positions "
             f"{tuple(q_positions.shape)} do not match batch {b}, window {w}"
         )
-    if not 1 <= w <= MAX_WINDOW:
-        raise ValueError(f"window {w} outside the kernel's 1..{MAX_WINDOW}")
+    if w < 1:
+        raise ValueError(f"empty query window {w}")
+    if b * -(-w // WINDOW_TILE) > MAX_GRID_Z:
+        raise ValueError(
+            f"{b} sequences x {-(-w // WINDOW_TILE)} query tiles exceed the kernel's "
+            f"{MAX_GRID_Z} (sequence, tile) pairs"
+        )
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} outside the kernel's 1..{MAX_HEAD_DIM}")
     if block_tables.shape[1] < 1 or k_cache.shape[1] < 1:

@@ -58,7 +58,7 @@ SPLIT_PROBES = ("probe_no_compute", "probe_no_combine", "probe_launch_only")
 
 _COMBINE_START = "  // combine the cluster's CTAs exactly, through distributed shared memory\n"
 _COMBINE_END = "  cluster.sync();  // no CTA exits while another still reads its shared memory\n"
-_KERNEL = "// kMaxW: a compile-time bound on W"
+_KERNEL = "// kMaxW: the queries a CTA takes"
 
 # (b): no cluster; each CTA writes its partials to a global scratch, and
 # the last CTA of a (head, sequence) to arrive (an atomic ticket after a

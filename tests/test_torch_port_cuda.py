@@ -184,6 +184,38 @@ def test_cuda_paged_cluster_wide_window_ragged_table(cuda):
     _check_paged(_paged_case(cuda, qpos, 2, 256, 5, 61, seed=4))
 
 
+@pytest.mark.parametrize("w,start", [(33, 0), (64, 512), (100, 40), (256, 0), (256, 512),
+                                     (1024, 0)])
+def test_cuda_paged_wide_windows_match_plain(cuda, w, start):
+    """Windows past the kernel's 32-query tile, as a suffix prefill gives
+    them (a causal run from ``start``, then padding queries), beside a
+    short run and a padding-only sequence: one launch of the single-pass
+    kernel (every query tile its own cluster), and the split kernel."""
+    n_real = min(w, 1024 - start) - w // 7
+    qpos = np.full((3, w), -1)
+    qpos[0, :n_real] = start + np.arange(n_real)
+    qpos[1, :5] = 300 + np.arange(5)
+    args = _paged_case(cuda, qpos, 4, 64, 16, 64, seed=w + start)
+    da.reset_launch_counts()
+    _check_paged(args)
+    assert da.LAUNCHES == {"paged_append": 1, "paged_append_split": 0}
+    _check_split(args, 8)
+
+
+def test_cuda_paged_wide_window_edge_shapes(cuda):
+    """W = 33 with D = 256 and block size 5 (4-byte copies in the second
+    tile too), a window of padding only, and a 41-query verify batch."""
+    rs = np.random.RandomState(21)
+    qpos = rs.randint(0, 30 * 5 - 33, (2, 1)) + np.arange(33)[None, :]
+    qpos[rs.rand(2, 33) < 0.2] = -1
+    _check_paged(_paged_case(cuda, qpos, 2, 256, 5, 30, seed=21))
+    _check_paged(_paged_case(cuda, np.full((2, 70), -1), 4, 64, 16, 8, seed=22))
+    qpos = np.full((4, 41), -1)
+    for i, (st, n) in enumerate(((100, 41), (700, 13), (0, 0), (300, 33))):
+        qpos[i, :n] = st + np.arange(n)
+    _check_paged(_paged_case(cuda, qpos, 12, 64, 16, 64, seed=23))
+
+
 def _check_split(args, kv_splits):
     """The fused split kernel against the plain split + combine and the
     single-pass plain version: one launch, no single-pass launch."""
@@ -386,9 +418,94 @@ def test_cuda_speculative_streams_through_graphs_equal_eager_and_plain(cuda):
     sched = ContinuousBatchingScheduler(graph)
     da.reset_launch_counts()
     decode0, verify0 = graph.step_counts["decode"], graph.step_counts["verify"]
+    hits0 = graph.prefix_cache.hits  # suffix prefills over the cached prompts
     handles = [sched.submit(p, greedy, speculation=spec) for p in prompts]
     while not all(h.done() for h in handles):
         sched.step()
     steps = (graph.step_counts["decode"] - decode0) + (graph.step_counts["verify"] - verify0)
+    steps += graph.prefix_cache.hits - hits0
     assert da.LAUNCHES["paged_append"] == GRAPH_CFG.num_layers * steps
     assert [h.result(0) for h in handles] == plain
+
+
+def test_cuda_prefix_prefill_replays_bit_identical_to_eager(cuda):
+    """Suffix prefills over a cached prefix at four suffix buckets (the
+    widest, 64 queries, two tiles of the paged kernel): each replayed
+    ``prefix_prefill[W]`` step gives the eager step's token, logits and
+    cache bit for bit, with one capture per bucket and num_layers paged
+    launches per replay."""
+    graph, eager = _graph_and_eager_engines(cuda)
+    layers = GRAPH_CFG.num_layers
+    rs = np.random.RandomState(7)
+    sp = SamplingParams(temperature=0.8, top_k=20, seed=5)
+    for prefix_len, n_suffix in ((8, 3), (16, 12), (8, 40), (16, 30), (8, 2)):
+        prompt = rs.randint(0, GRAPH_CFG.vocab_size, prefix_len + n_suffix).tolist()
+        blocks = graph.allocator.allocate(graph.cache_config.blocks_for(len(prompt) + 1))
+        assert eager.allocator.allocate(len(blocks)) == blocks
+        for e in (graph, eager):
+            e.prefill_one(prompt[:prefix_len], blocks, sp, 0)
+        da.reset_launch_counts()
+        replays = f"prefix_prefill[{graph.bucket_for(n_suffix)}]" in graph.trace_counts
+        token = graph.prefill_one(prompt, blocks, sp, 1, prefix_len=prefix_len)
+        if replays:
+            assert da.LAUNCHES["paged_append"] == layers
+        assert eager.prefill_one(prompt, blocks, sp, 1, prefix_len=prefix_len) == token
+        assert torch.equal(graph.last_logits, eager.last_logits)
+        idx = torch.tensor(blocks, device=cuda)
+        assert torch.equal(graph.cache.k[:, idx], eager.cache.k[:, idx])
+        assert torch.equal(graph.cache.v[:, idx], eager.cache.v[:, idx])
+        for e in (graph, eager):
+            e.allocator.free(blocks)
+    prefix_sigs = {k: v for k, v in graph.trace_counts.items() if k.startswith("prefix_prefill")}
+    assert prefix_sigs == {"prefix_prefill[8]": 1, "prefix_prefill[16]": 1,
+                           "prefix_prefill[32]": 1, "prefix_prefill[64]": 1} == {
+        k: v for k, v in eager.trace_counts.items() if k.startswith("prefix_prefill")}
+
+
+def test_cuda_block_copies_and_swap_in_write_the_cache_in_place(cuda):
+    """The prefix cache's copy-on-write copy, swap-out read and swap-in
+    write keep cache.k/cache.v where the captured graphs hold them, and
+    through the scheduler an offloaded prefix swapped back in gives the
+    uncached stream."""
+    graph, eager = _graph_and_eager_engines(cuda)
+    ptrs = (graph.cache.k.data_ptr(), graph.cache.v.data_ptr())
+    gen = torch.Generator().manual_seed(1)
+    graph.cache.k[:, 3] = torch.randn(graph.cache.k[:, 3].shape, generator=gen).to(cuda)
+    graph.cache.v[:, 3] = torch.randn(graph.cache.v[:, 3].shape, generator=gen).to(cuda)
+    graph._copy_block(3, 5)
+    assert torch.equal(graph.cache.k[:, 5], graph.cache.k[:, 3])
+    hk, hv = graph._read_block(5)
+    graph._write_block(7, hk, hv)
+    assert torch.equal(graph.cache.k[:, 7], graph.cache.k[:, 3])
+    assert torch.equal(graph.cache.v[:, 7], graph.cache.v[:, 3])
+    assert (graph.cache.k.data_ptr(), graph.cache.v.data_ptr()) == ptrs
+    sp = SamplingParams(max_new_tokens=6)
+    template = list(range(1, 17))
+    ref = eager.generate([template + [30]], sp)
+    graph.prefix_cache.swap_overhead_s = 0.0
+    graph.generate([template + [20]], sp)
+    assert graph.reclaim_cached(2) == 2 and graph.prefix_cache.offloaded_blocks == 2
+    assert graph.generate([template + [30]], sp) == ref
+    assert graph.prefix_cache.swaps_in_total == 2 and graph.prefix_cache.hits == 1
+    assert (graph.cache.k.data_ptr(), graph.cache.v.data_ptr()) == ptrs
+
+
+def test_cuda_engine_serves_a_41_token_verify_window(cuda):
+    """max_spec_tokens = 40 constructs and serves on the card: the verify
+    step (two query tiles of the paged kernel) replayed from its graph,
+    greedy speculative streams equal to the plain ones, and seeded ones
+    equal to an eager engine's."""
+    params = init_decoder_params(torch.Generator().manual_seed(3), GRAPH_CFG)
+    kw = dict(max_batch_slots=2, block_size=8, prompt_buckets=(8, 16, 32, 64),
+              max_spec_tokens=40, device=cuda)
+    graph = GenerationEngine(params, GRAPH_CFG, **kw)
+    eager = GenerationEngine(params, GRAPH_CFG, eager_steps=True, **kw)
+    assert graph.spec_window == 41
+    prompts = [[1, 2, 3, 1, 2, 3, 1, 2], [4, 5] * 6]
+    spec = SpeculationConfig(k=40)
+    greedy = SamplingParams(max_new_tokens=20)
+    assert graph.generate(prompts, greedy, speculation=spec) == graph.generate(prompts, greedy)
+    seeded = SamplingParams(max_new_tokens=20, temperature=0.8, top_k=20, seed=4)
+    assert graph.generate(prompts, seeded, speculation=spec) == eager.generate(
+        prompts, seeded, speculation=spec)
+    assert graph.step_counts["verify"] > 0 and graph.trace_counts["verify"] == 1

@@ -73,6 +73,30 @@ def test_paged_append_matches_jax(kv_splits, w, d):
     assert np.all(out[pad] == 0.0)  # padding queries: exact zeros, not NaN
 
 
+@pytest.mark.parametrize("kv_splits", [1, 3])
+@pytest.mark.parametrize("w", [33, 64, 100])
+def test_wide_windows_match_jax_reference(kv_splits, w):
+    """Windows past the kernel's 32-query tile — a suffix prefill's causal
+    run from a start > 0, then padding queries — and a verify-like batch
+    with an all-padding sequence: the plain versions (single-pass and
+    split) equal the JAX plain reference, and padding gives exact zeros."""
+    rs = np.random.RandomState(w + kv_splits)
+    b, nb, bs, h, d, mb = 3, 65, 8, 4, 16, 24
+    k_cache = rs.randn(nb, bs, h, d).astype(np.float32)
+    v_cache = rs.randn(nb, bs, h, d).astype(np.float32)
+    q = rs.randn(b, w, h, d).astype(np.float32)
+    tables = rs.randint(1, nb, (b, mb)).astype(np.int32)
+    qpos = np.full((b, w), -1, np.int32)
+    n_real = w - w // 5
+    qpos[0, :n_real] = 40 + np.arange(n_real)  # start 40, then padding
+    qpos[1, : w // 3] = np.arange(w // 3)  # start 0
+    inputs = (q, k_cache, v_cache, tables, qpos)  # the last sequence: all padding
+    ref = np.asarray(jda.reference_paged_append_attention(*_jax(*inputs)))
+    out = tda.paged_append_attention(*_torch(*inputs), kv_splits=kv_splits).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+    assert np.all(out[qpos < 0] == 0.0)
+
+
 @pytest.mark.parametrize(
     "b,w,max_blocks,splits",
     [(1, 1, 32, 8), (2, 4, 16, 3), (3, 5, 7, 4), (1, 3, 9, 2)],
@@ -224,9 +248,17 @@ def test_kernel_input_checks():
         tda._check_kernel_inputs(q, kc, vc, bt.long(), qp)
     with pytest.raises(ValueError):
         tda._check_kernel_inputs(q.transpose(1, 2), kc, vc, bt, qp)  # wrong layout
+    # any window is taken (in tiles of 32 queries), up to 65535 (sequence,
+    # tile) pairs in one launch
+    wide = torch.zeros(2, 33, 4, 64)
+    tda._check_kernel_inputs(wide, kc, vc, bt, torch.zeros(2, 33, dtype=torch.int32))
+    with pytest.raises(ValueError, match="query tiles"):
+        b, w = 1024, 64 * tda.WINDOW_TILE + 1  # 1024 x 65 tiles
+        tda._check_kernel_inputs(torch.zeros(b, w, 1, 1), kc[..., :1, :1].contiguous(),
+                                 vc[..., :1, :1].contiguous(), bt[:1].expand(b, -1).contiguous(),
+                                 torch.zeros(b, w, dtype=torch.int32))
     with pytest.raises(ValueError):
-        wide = torch.zeros(2, 33, 4, 64)
-        tda._check_kernel_inputs(wide, kc, vc, bt, torch.zeros(2, 33, dtype=torch.int32))
+        tda._check_kernel_inputs(q[:, :0], kc, vc, bt, qp[:, :0])  # an empty window
     with pytest.raises(ValueError):
         tda._check_kernel_inputs(q, kc[:, :, :, ::2], vc[:, :, :, ::2], bt, qp)
     with pytest.raises(ValueError):

@@ -313,6 +313,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
         "assert 'flexflow_tpu_torch.generation.scheduler' in names, names\n"
         "assert 'flexflow_tpu_torch.ops.kernels._build' in names, names\n"
+        "assert 'flexflow_tpu_torch.generation.prefix' in names, names\n"
+        "assert 'flexflow_tpu_torch.obs.capacity' in names, names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run(

@@ -290,7 +290,10 @@ def test_scheduler_preempt_on_full_recomputes_exactly(params, sp1, sp2):
     assert sched.preemptions > 0
     assert h1.result(0) == ref1
     assert h2.result(0) == ref2
-    assert small.allocator.num_free == small.allocator.num_total  # no leak
+    # no leak: every block out of the free list is the prefix cache's
+    # (the preempted sequence's stashed blocks, reusable KV)
+    used = small.allocator.num_total - small.allocator.num_free
+    assert used == small.prefix_cache.resident_blocks
 
 
 def test_scheduler_deadline_and_queue_bounds(params):

@@ -318,6 +318,56 @@ def test_engine_verify_matches_jax_engine(both_params):
     assert eng.trace_counts["verify"] == 1 and eng.step_counts["verify"] == 2
 
 
+def test_wide_verify_window_matches_jax_engine(both_params):
+    """max_spec_tokens = 40: a 41-token verify window (two tiles of the
+    paged kernel on a card). Verify steps with 40, 23 and 0 drafts give
+    the JAX engine's tokens and emitted counts, and logits within 1e-5 at
+    every real window position; greedy speculative streams at k = 40 equal
+    the JAX engine's and the plain ones."""
+    jparams, params = both_params
+    jeng, eng = jengine(jparams, slots=2, spec_k=40), engine(params, slots=2, spec_k=40)
+    b, w, mb = 2, eng.spec_window, eng.max_blocks_per_seq
+    assert w == 41 and jeng.spec_window == w
+    rs = np.random.RandomState(40)
+    prompts = [rs.randint(0, 50, 12).tolist(), rs.randint(0, 50, 19).tolist()]
+    sps = [SamplingParams(), SamplingParams(temperature=0.8, top_k=12, seed=9)]
+    blocks, first = [], []
+    for p, sp in zip(prompts, sps):
+        tb = eng.allocator.allocate(eng.cache_config.blocks_for(len(p) + w))
+        assert jeng.allocator.allocate(len(tb)) == tb
+        blocks.append(tb)
+        jt = jeng.prefill_one(p, tb, _jsp(sp), jax.random.fold_in(jax.random.key(sp.seed), 0))
+        assert eng.prefill_one(p, tb, sp, 0) == jt
+        first.append(jt)
+    greedy_chain = rs.randint(0, 50, 40).tolist()
+    for n0, n1 in ((40, 23), (0, 40)):
+        rows = {0: ([first[0]] + greedy_chain[:n0], len(prompts[0]), n0, blocks[0], 0.0, 0, 0, 1),
+                1: ([first[1]] + greedy_chain[:n1], len(prompts[1]), n1, blocks[1], 0.8, 12, 9, 1)}
+        a = _verify_args(b, w, mb, rows)
+        snap = (jeng.cache.k, jeng.cache.v)
+        args = (a["window"], a["start"], a["n_draft"], a["tables"], a["temps"], a["top_ks"],
+                a["seeds"], a["counts"])
+        jout, jn = jeng.verify(*args)
+        out, n = eng.verify(*args)
+        np.testing.assert_array_equal(n, jn)
+        for i in rows:
+            np.testing.assert_array_equal(out[i, : jn[i]], np.asarray(jout)[i, : jn[i]])
+        offs = np.arange(w)[None, :]
+        pos = np.where(offs <= a["n_draft"][:, None], a["start"][:, None] + offs, -1)
+        jlogits, _, _ = jdec.verify_step(jparams, jnp.asarray(a["window"]), jnp.asarray(pos),
+                                         snap[0], snap[1], jnp.asarray(a["tables"]))
+        valid = pos >= 0
+        np.testing.assert_allclose(eng.last_logits.numpy()[valid], np.asarray(jlogits)[valid],
+                                   atol=LOGITS_ATOL, rtol=0)
+    stream_prompts = [[1, 2, 3, 1, 2, 3, 1], [4, 5, 4, 5, 4, 5]]
+    sp = SamplingParams(max_new_tokens=30)
+    spec = engine(params, spec_k=40).generate(stream_prompts, sp,
+                                              speculation=SpeculationConfig(k=40))
+    assert spec == engine(params).generate(stream_prompts, sp)
+    assert spec == jengine(jparams, spec_k=40).generate(
+        stream_prompts, _jsp(sp), speculation=JSpeculationConfig(k=40), overlap=False)
+
+
 @pytest.mark.parametrize("temperature", [0.0, 0.7])
 def test_zero_draft_verify_samples_like_decode(both_params, temperature):
     """A zero-draft window samples exactly the token a decode step does."""
@@ -344,11 +394,13 @@ def test_zero_draft_verify_samples_like_decode(both_params, temperature):
 
 
 def test_max_spec_tokens_bounded_by_the_kernel_window(both_params):
+    """The paged kernel takes any window (in tiles of 32 queries), so the
+    engine takes any max_spec_tokens >= 1, as the JAX engine does."""
     _, params = both_params
-    for k in (0, 32, 40):
-        with pytest.raises(ValueError, match="max_spec_tokens"):
-            engine(params, spec_k=k)
-    assert engine(params, spec_k=31).spec_window == 32
+    with pytest.raises(ValueError, match="max_spec_tokens"):
+        engine(params, spec_k=0)
+    for k in (31, 32, 40):
+        assert engine(params, spec_k=k).spec_window == k + 1
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +461,8 @@ def test_speculative_streams_match_jax_under_preemption(both_params, temperature
     """Five usable blocks of 8 for two speculating sequences that need
     three each: the window cap drains step_k, then the scheduler preempts
     by recompute — on both packages alike, so the streams (greedy and
-    seeded) are the JAX scheduler's; the allocator drains to full."""
+    seeded) are the JAX scheduler's; the allocator drains to the blocks
+    the prefix cache holds (the stashed KV of the preempted sequence)."""
     jparams, params = both_params
     p1, p2 = [1, 2, 3, 4, 5, 6, 7], [9, 10, 11, 12, 13, 14, 15, 16]
     sp = SamplingParams(max_new_tokens=16, temperature=temperature, top_k=20, seed=7)
@@ -431,7 +484,8 @@ def test_speculative_streams_match_jax_under_preemption(both_params, temperature
             break
     assert [h.result(timeout=0) for h in th] == [h.result(timeout=0) for h in jh]
     assert sched.preemptions > 0 and sched.preemptions == jsched.preemptions
-    assert tight.allocator.num_free == tight.allocator.num_total
+    assert tight.allocator.num_total - tight.allocator.num_free == (
+        tight.prefix_cache.resident_blocks)
 
 
 def test_verify_step_signature_runs_once_whatever_k(both_params):
@@ -460,8 +514,9 @@ def test_mid_window_eos_truncates_exactly(both_params):
 
 def test_partial_acceptance_block_accounting_and_draft_model(both_params):
     """Windows across block edges with partial acceptance and a
-    temperature mix leave the allocator exactly drained; a (wrong) draft
-    model drafter changes no greedy token."""
+    temperature mix leave the allocator exactly drained (to the blocks the
+    prefix cache holds); a (wrong) draft model drafter changes no greedy
+    token."""
     jparams, params = both_params
     eng = engine(params, block=4)
     sched = ContinuousBatchingScheduler(eng)
@@ -477,7 +532,7 @@ def test_partial_acceptance_block_accounting_and_draft_model(both_params):
         if not sched.step():
             break
     assert all(1 <= len(h.result(timeout=0)) <= 18 for h in handles)
-    assert eng.allocator.num_free == eng.allocator.num_total
+    assert eng.allocator.num_total - eng.allocator.num_free == eng.prefix_cache.resident_blocks
     assert sched.counts["spec_accepted"] <= sched.counts["spec_proposed"]
     assert sched.counts["spec_emitted"] >= sched.counts["spec_accepted"]
 
