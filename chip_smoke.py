@@ -29,7 +29,8 @@ prints no result line):
    the port never calls), beside the card's bound.
 3. serving: a GPT-2-small-width decoder (12 x 768, 12 heads, vocab
    50257, 1024 positions, random weights from --seed, fp32) behind a
-   4-slot engine and the continuous-batching scheduler; 8 requests of
+   4-slot engine and the continuous-batching scheduler (its default: the
+   overlap pipeline on); 8 requests of
    16-700 prompt tokens and 32 new tokens each (6 greedy, 2 seeded
    temperature 0.8 / top-k 50), through an engine whose steps replay
    captured CUDA graphs (the default) and one built with
@@ -71,7 +72,25 @@ prints no result line):
    host-to-device rate beside the swap model's).
    The earlier serving phases run with the cache off: they repeat their
    prompts across runs.
-8. anatomy: torch.profiler over a short 4-slot run — the device's busy
+8. overlap + recovery: the 4-slot serving cell (the serving phase's
+   request lengths and samplings) through the graph engine with the
+   overlap pipeline on and off (on, off, off, on, after a warm-up):
+   streams identical across the four runs and to the eager engine's
+   sequential run, the pipeline engaged (dispatches > 0, drains by
+   reason, no discards), one capture per signature, 12 paged launches per
+   decode step, and a carried step's logits within 1e-3 of the plain
+   attention path; tokens/s and TTFT p50 on and off; the steady stretch
+   (4 slots x 128 steps, nothing non-steady; 32 steps on eager steps):
+   ms per step, the stream's time per step (CUDA events around each
+   launch), and the device's busy share: a decode step's device time
+   (its graph replayed back to back right after the window) over the ms
+   per step, with the SM clock and power read just after, on and off. Then recovery on the card: a
+   decode-step crash and an async-readback error (each an engine reset
+   and journal replay: ``donate`` is set on a CUDA engine) and a NaN on
+   one slot (quarantine): surviving streams equal the fault-free ones,
+   the expected resets, the cache tensors unmoved, nothing captured
+   again.
+9. anatomy: torch.profiler over a short 4-slot run — the device's busy
    share of the wall time and the device time by kernel; eight decode
    steps of four live slots under the profiler, replayed and eager
    (device and wall ms a step, device kernels a step, one paged kernel a
@@ -81,7 +100,7 @@ prints no result line):
    whose device kernels must all be the paged kernel. The profiler runs
    only after the timed phases: once started, it slows the host's later
    launches.
-9. flash kernels: the flash-attention forward, dQ and dK/dV kernels
+10. flash kernels: the flash-attention forward, dQ and dK/dV kernels
    against their plain PyTorch versions (atol 1e-4 + rtol 1e-4) at the
    training path's shape (B=32, S=128, H=12, D=64) and at a causal
    S=512 shape and edge shapes (S=100 D=128, Sq=64 Sk=200, D=256, S=1,
@@ -90,7 +109,7 @@ prints no result line):
    forward, and its backward: its kernels' durations by torch.profiler),
    beside the card's bound for fp32-accurate products on the tensor cores
    (and for the same operations on the fp32 CUDA cores).
-10. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
+11. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
    seq 128, batch 32, fp32, weights from --seed) through FFModel ->
    compile (SGD lr 0.01, MSE) -> fit: one step with the kernels and one
    with the plain attention from the same weights must agree; then
@@ -508,22 +527,23 @@ def check_decode_logits(engine, sched, name: str) -> float:
     return err
 
 
-def serve(engine, prompts, samplings, speculation=None):
-    """Submit every prompt at once and step the scheduler to the end.
-    Returns (handles, wall seconds, per-request TTFT seconds, scheduler)."""
+def serve(engine, prompts, samplings, speculation=None, overlap=None):
+    """Submit every prompt at once and step the scheduler (the overlap
+    pipeline on unless ``overlap=False``) to the end. Returns (handles,
+    wall seconds, per-request TTFT seconds, scheduler)."""
     import torch
 
     from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
 
     torch.cuda.synchronize()
-    sched = ContinuousBatchingScheduler(engine)
+    sched = ContinuousBatchingScheduler(engine, overlap=overlap)
     t0 = time.perf_counter()
     handles = [sched.submit(p, s, speculation=speculation) for p, s in zip(prompts, samplings)]
     ttft = [None] * len(handles)
     for _ in range(10_000):
         if all(h.done() for h in handles):
             break
-        sched.step()  # ends in a device sync (tokens come back to the host)
+        sched.step()  # tokens of this or the previous step come back to the host
         now = time.perf_counter()
         for i, h in enumerate(handles):
             if ttft[i] is None and h._request.generated:
@@ -563,7 +583,11 @@ def engine_pair(params, **kw):
 
 def run_stats(engine, handles, wall, ttft, decode0, dsec0, launches) -> dict:
     """A timed scheduler run's numbers (engine counters read before it:
-    decode0 steps, dsec0 seconds)."""
+    decode0 steps, dsec0 seconds). ``decode_call_ms`` is the engine's
+    host time inside its decode calls per step (``step_seconds``): a whole
+    step on the sequential loop, but only the dispatch and the wait at
+    consume on the overlap pipeline, so it is not a step time there; the
+    overlap phase's steady stretch gives the step time, on and off."""
     import numpy as np
 
     steps = engine.step_counts["decode"] - decode0
@@ -571,7 +595,7 @@ def run_stats(engine, handles, wall, ttft, decode0, dsec0, launches) -> dict:
     return {"decode_steps": steps, "launches": launches, "wall_s": wall,
             "new_tokens": tokens, "tokens_per_s": tokens / wall,
             "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": float(max(ttft)),
-            "decode_step_ms": 1e3 * (engine.step_seconds["decode"] - dsec0) / max(steps, 1)}
+            "decode_call_ms": 1e3 * (engine.step_seconds["decode"] - dsec0) / max(steps, 1)}
 
 
 def serving_phase(seed: int, params):
@@ -640,7 +664,12 @@ def serving_phase(seed: int, params):
 def decode_window_profile(engine, seed: int, steps: int = 8) -> dict:
     """``steps`` decode steps of four live slots under torch.profiler:
     device and wall ms a step, the device's busy share of the wall,
-    device kernels a step, and num_layers paged kernels a step."""
+    device kernels a step, and num_layers paged kernels a step. The steps
+    run sequentially (``overlap=False``): with a replay queued behind a
+    running one, the profiler now and then drops a run of kernel records
+    (``flexflow_tpu_torch/tools/profile_loss_probe.py`` counts
+    such windows, pipelined and sequential), and the kernel count per
+    step below is exact."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -650,7 +679,7 @@ def decode_window_profile(engine, seed: int, steps: int = 8) -> dict:
 
     cfg = engine.cfg
     rs = np.random.RandomState(seed + 4)
-    sched = ContinuousBatchingScheduler(engine)
+    sched = ContinuousBatchingScheduler(engine, overlap=False)
     handles = [sched.submit(rs.randint(0, cfg.vocab_size, n).tolist(),
                             SamplingParams(max_new_tokens=steps + 4)) for n in (300, 64, 700, 128)]
     sched.step()  # the four prefills and a first decode
@@ -774,7 +803,8 @@ def long_context_profile(engine, seed: int) -> dict:
     of that stream over the engine's cache, whose device kernels must all
     be the paged kernel (the split path runs no PyTorch op after its
     launch). Run after the timed phases and the anatomy: a profiler, once
-    started, slows the host's later launches."""
+    started, slows the host's later launches. The steps run sequentially,
+    for the reason :func:`decode_window_profile` gives."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -785,7 +815,7 @@ def long_context_profile(engine, seed: int) -> dict:
 
     cfg = engine.cfg
     rs = np.random.RandomState(seed + 3)
-    sched = ContinuousBatchingScheduler(engine)
+    sched = ContinuousBatchingScheduler(engine, overlap=False)
     h = sched.submit(rs.randint(0, cfg.vocab_size, 880).tolist(), SamplingParams(max_new_tokens=12))
     sched.step()  # the prefill
     # the stream's table and positions at the first profiled step
@@ -1221,6 +1251,315 @@ def prefix_phase(seed: int, params) -> dict:
             "launches": runs["prefix on, graph steps"][0]["launches"]}
 
 
+def check_pipelined_logits(engine, seed: int) -> float:
+    """Drive a 4-slot scheduler with the overlap pipeline until a step is
+    in flight whose tokens were carried on the device from its
+    predecessor; once it completes, its logits (the graph's output, not
+    yet overwritten) must agree with the plain attention path over the
+    same inputs (the carried tokens as the host now knows them) within
+    LOGITS_ATOL."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.generation.decoder import decode_step
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+
+    cfg = engine.cfg
+    rs = np.random.RandomState(seed + 6)
+    sched = ContinuousBatchingScheduler(engine)
+    handles = [sched.submit(rs.randint(0, cfg.vocab_size, n).tolist(),
+                            SamplingParams(max_new_tokens=12)) for n in (100, 37, 250, 16)]
+    for _ in range(4):
+        sched.step()
+    f = sched._pipe
+    if f is None or sched.pipe_dispatches < 2:
+        raise AssertionError("overlap: no carried step in flight")
+    torch.cuda.synchronize()
+    got = f.handle.handle.extra  # this step's logits (+ its zero bias)
+    tokens = np.zeros_like(f.positions)
+    for s in f.states:
+        tokens[s.slot] = s.req.generated[-1]  # the carried token, consumed since
+    x = engine.decode_arrays(tokens, f.positions, f.tables, f.active)
+    tok, pos, bt, ctx = (torch.from_numpy(x[k]).to(engine.device)
+                         for k in ("tokens", "positions", "tables", "context_lens"))
+    ck, cv = engine.cache.k.clone(), engine.cache.v.clone()
+    want, _, _ = decode_step(engine.params, tok, pos, ck, cv, bt, ctx, backend="plain")
+    del ck, cv
+    act = torch.from_numpy(f.active).to(engine.device)
+    got, want = got[act], want[act]
+    if not torch.isfinite(got).all():
+        raise AssertionError("overlap: pipelined logits not finite")
+    err = float((got - want).abs().max())
+    print(f"overlap: a carried decode step's logits vs plain attention: max abs err "
+          f"{err:.3e} ({int(act.sum())} live slots)")
+    if err > LOGITS_ATOL:
+        raise AssertionError(f"overlap: pipelined logits differ by {err} > {LOGITS_ATOL}")
+    while not all(h.done() for h in handles):
+        sched.step()
+    torch.cuda.empty_cache()
+    return err
+
+
+def card_clocks() -> str:
+    """The card's SM clock and power draw now (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class LaunchTimer:
+    """CUDA events around every launch of an engine's decode step while
+    it is entered: around each replay of the captured decode graph (graph
+    steps) or each run of the decode body (eager steps). ``seconds()``
+    sums the stream's time from each opening event to its closing one."""
+
+    def __init__(self, engine):
+        self.engine, self.marks = engine, []
+
+    def _timed(self, fn):
+        import torch
+
+        def launch(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.marks.append((start, end))
+            return out
+        return launch
+
+    def __enter__(self):
+        engine = self.engine
+        if engine.graphs:
+            self.step = engine._steps._steps[
+                ("decode", (engine.max_batch_slots, engine.max_blocks_per_seq))]
+            self.graph = self.step.graph
+            timed = self._timed(self.graph.replay)
+            self.step.graph = type("TimedGraph", (), {"replay": staticmethod(timed)})()
+        else:
+            engine._decode_body = self._timed(engine._decode_body)
+        return self
+
+    def __exit__(self, *exc):
+        if self.engine.graphs:
+            self.step.graph = self.graph
+        else:
+            del self.engine._decode_body  # back to the class's method
+        return False
+
+    def seconds(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.marks) / 1e3
+
+
+def steady_stretch(engine, prompts, overlap: bool, steps: int, device_of=None) -> dict:
+    """Four slots decoding ``steps`` steps with nothing non-steady in
+    between (admitted before, finishing after): host-clock ms per step,
+    the engine's dispatch / execute / readback split of it
+    (``phase_seconds``), the stream's time per step (CUDA events around
+    each launch, :class:`LaunchTimer`: from the stream reaching the step
+    to its end, which is the step's device time when the step was queued
+    behind its predecessor, and adds the launch's latency when the stream
+    was idle), the card's SM clock and power just after the window, and
+    the device's busy share: a decode step's device time (``device_of``
+    (engine), or the engine's own graph replayed back to back right after
+    the window, on the last step's inputs) over the ms per step."""
+    import torch
+
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+
+    sched = ContinuousBatchingScheduler(engine, overlap=overlap)
+    handles = [sched.submit(p, SamplingParams(max_new_tokens=steps + 8)) for p in prompts]
+    sched.step()  # the admissions and one sequential decode step
+    sched.step()  # with overlap: the pipeline's first dispatch
+    torch.cuda.synchronize()
+    decode0, drains0 = engine.step_counts["decode"], dict(sched.pipe_drains)
+    phases0 = dict(engine.phase_seconds)
+    with LaunchTimer(engine) as timer:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = timer.seconds()
+    n = engine.step_counts["decode"] - decode0
+    if n != steps or sched.pipe_drains != drains0 or len(sched._running) != len(prompts):
+        raise AssertionError(f"steady stretch not steady: {n} steps, drains {sched.pipe_drains}")
+    if len(timer.marks) != n:
+        raise AssertionError(f"steady stretch: {len(timer.marks)} timed launches, {n} steps")
+    # the window's steps were dispatched and consumed inside it, but for
+    # the pipeline's in-flight step at each end: n steps' worth either way
+    phases = {f"{k}_ms_per_step": 1e3 * (engine.phase_seconds[k] - phases0[k]) / n
+              for k in phases0}
+    clocks = card_clocks()
+    # a replay on the last step's inputs recomputes its outputs bit for
+    # bit, so the in-flight step's readback and token carry are unchanged
+    device_ms = (device_of or decode_graph_device_ms)(engine)
+    while not all(h.done() for h in handles):
+        sched.step()
+    ms = 1e3 * wall / n
+    return {"steps": n, "ms_per_step": ms, **phases,
+            "stream_ms_per_step": 1e3 * device / n,
+            "device_ms_per_step": device_ms, "device_busy_share": device_ms / ms,
+            "clocks_sm_power": clocks}
+
+
+def decode_graph_device_ms(engine, reps: int = 20) -> float:
+    """The device time of one 4-slot decode step: its captured graph
+    replayed ``reps`` times back to back between CUDA events, on the last
+    step's inputs (each replay rewrites the same K/V, in blocks no live
+    request holds; the launch counters are not touched)."""
+    import torch
+
+    step = engine._steps._steps[("decode", (engine.max_batch_slots, engine.max_blocks_per_seq))]
+    torch.cuda.synchronize()
+    step.graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        step.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def overlap_recovery(engine, prompts, samplings, streams) -> dict:
+    """The overlap pipeline's failures on the card, each through a fresh
+    scheduler over the cell's requests: a decode-step crash and an
+    async-readback error (``donate`` is set on the card, so each resets
+    the engine and replays the journal) and a NaN on one slot
+    (quarantine). Surviving streams must equal the fault-free ones, the
+    cache tensors must stay where the graphs hold them, and nothing may
+    be captured again."""
+    import numpy as np
+
+    from flexflow_tpu_torch.generation.recovery import PoisonedRequestError
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+    from flexflow_tpu_torch.runtime import faults
+
+    if not engine.donate:
+        raise AssertionError("a CUDA engine must default to donate=True")
+    cases = {
+        "decode_step crash": (faults.FaultPlan(seed=0).on(
+            faults.GENERATION_DECODE_STEP, mode="error",
+            error=RuntimeError("injected device crash"), nth=(12,)), 1, 0),
+        "async_readback error": (faults.FaultPlan(seed=0).on(
+            faults.GENERATION_ASYNC_READBACK, mode="error",
+            error=faults.FaultInjected("injected readback loss"), nth=(6,)), 1, 0),
+        "NaN on slot 1": (faults.FaultPlan(seed=0).on(
+            faults.GENERATION_DECODE_STEP, mode="nan", nth=(10,),
+            select=lambda v: np.asarray([False, True, False, False])), 0, 1),
+    }
+    out = {}
+    for name, (plan, want_resets, want_failed) in cases.items():
+        ptrs = (engine.cache.k.data_ptr(), engine.cache.v.data_ptr())
+        captures, resets0 = dict(engine.trace_counts), engine.resets
+        sched = ContinuousBatchingScheduler(engine)
+        with plan.active():
+            handles = [sched.submit(p, s) for p, s in zip(prompts, samplings)]
+            while not all(h.done() for h in handles):
+                sched.step()
+        failed, survivors = 0, []
+        for h, ref in zip(handles, streams):
+            try:
+                got = h.result(0)
+            except PoisonedRequestError:
+                failed += 1
+                continue
+            survivors.append(got == ref)
+        resets = engine.resets - resets0
+        rec = {"fired": len(plan.events), "resets": resets,
+               "failed": failed, "recovery": sched.recovery_stats.snapshot(),
+               "pipe_discards": sched.pipe_discards, "pipe_drains": dict(sched.pipe_drains)}
+        print(f"overlap recovery, {name}: " + json.dumps(rec))
+        if rec["fired"] != 1 or resets != want_resets or failed != want_failed:
+            raise AssertionError(f"{name}: {rec}, expected {want_resets} resets and "
+                                 f"{want_failed} quarantined")
+        if not all(survivors):
+            raise AssertionError(f"{name}: a surviving stream differs from the fault-free run")
+        if (engine.cache.k.data_ptr(), engine.cache.v.data_ptr()) != ptrs:
+            raise AssertionError(f"{name}: the KV cache moved")
+        if engine.trace_counts != captures:
+            raise AssertionError(f"{name}: captured again: {engine.trace_counts} vs {captures}")
+        out[name] = rec
+    return out
+
+
+def overlap_phase(seed: int, params) -> dict:
+    """The overlap pipeline on the 4-slot serving cell (the serving
+    phase's 8 request lengths and samplings), graph steps with the
+    pipeline on and off in the order on, off, off, on after a warm-up:
+    streams identical across all four runs and to the eager engine's
+    sequential run, the pipeline engaged, one capture per signature, 12
+    paged launches per decode step; a carried step's logits against the
+    plain attention path; the steady stretch (4 slots x 128 steps, and
+    32 on eager steps) on and off; then the recovery cases."""
+    import numpy as np
+
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    cfg = gpt2_small()
+    engines = engine_pair(params, max_batch_slots=4, block_size=16)
+    graph, eager = engines["graph"], engines["eager"]
+    rs = np.random.RandomState(seed + 5)
+    for engine in engines.values():
+        warm(engine, rs)
+    lens = [16, 700, 64, 300, 128, 512, 40, 220]
+    prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in lens]
+    samplings = [SamplingParams(max_new_tokens=32)] * 6 + [
+        SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=1234),
+        SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=5678),
+    ]
+    handles, _, _, _ = serve(eager, prompts, samplings, overlap=False)
+    streams = [h.result(0) for h in handles]
+    runs = {"on": [], "off": []}
+    launches = 0
+    for mode in ("on", "off", "off", "on"):
+        decode0, dsec0 = graph.step_counts["decode"], graph.step_seconds["decode"]
+        da.reset_launch_counts()
+        handles, wall, ttft, sched = serve(graph, prompts, samplings, overlap=mode == "on")
+        stats = run_stats(graph, handles, wall, ttft, decode0, dsec0, dict(da.LAUNCHES))
+        stats.update(pipe_dispatches=sched.pipe_dispatches, pipe_drains=dict(sched.pipe_drains),
+                     pipe_discards=sched.pipe_discards)
+        if [h.result(0) for h in handles] != streams:
+            raise AssertionError(f"overlap {mode}: streams differ from the eager sequential run")
+        steps = stats["decode_steps"]
+        if stats["launches"]["paged_append"] != cfg.num_layers * steps:
+            raise AssertionError(f"overlap {mode}: launches {stats['launches']} != "
+                                 f"{cfg.num_layers} x {steps} decode steps")
+        if mode == "on" and (sched.pipe_dispatches == 0 or sched.pipe_discards):
+            raise AssertionError(f"overlap on: {stats}")
+        launches += stats["launches"]["paged_append"]
+        runs[mode].append(stats)
+        print(f"overlap {mode} (4 slots, graph steps): " + json.dumps(stats))
+    if graph.trace_counts.get("decode") != 1 or graph.recompiles():
+        raise AssertionError(f"overlap: graph engine signatures {graph.trace_counts}")
+    stats = {"runs": runs, "launches": {"paged_append": launches},
+             "captures": dict(graph.trace_counts)}
+    stats["logits_max_abs_err"] = check_pipelined_logits(graph, seed)
+    four = [rs.randint(0, cfg.vocab_size, n).tolist() for n in (300, 64, 700, 128)]
+    # an eager step runs the graph's kernels: its device time is the graph
+    # engine's, replayed back to back just after the eager window
+    for name, engine, steps, device_of in (
+            ("graph", graph, 128, None),
+            ("eager", eager, 32, lambda _engine: decode_graph_device_ms(graph))):
+        for mode in ("on", "off", "off", "on"):
+            r = steady_stretch(engine, four, mode == "on", steps, device_of)
+            stats.setdefault(f"steady_{name}", {}).setdefault(mode, []).append(r)
+            print(f"overlap steady stretch ({name} steps, overlap {mode}): " + json.dumps(r))
+    stats["recovery"] = overlap_recovery(graph, prompts, samplings, streams)
+    return stats
+
+
 def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool):
     """(bound_ms, bound_by, fp32_cuda_core_ms) of one flash kernel call:
     each input read once and each output written once over the card's
@@ -1610,6 +1949,7 @@ def main(argv=None) -> int:
     graphs = step_graph_phase(engines, args.seed)
     speculation = speculation_phase(args.seed, params)
     prefix = prefix_phase(args.seed, params)
+    overlap = overlap_phase(args.seed, params)
     anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
     del engines, long_engine, params
@@ -1630,7 +1970,7 @@ def main(argv=None) -> int:
         record("paged_append", "flexflow_tpu/ops/kernels/decode_attention.py:368",
                dict(rows["decode"], max_abs_err=max(r["max_abs_err"] for r in single)),
                serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]
-               + prefix["launches"]["paged_append"]),
+               + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
     ] + [
@@ -1641,12 +1981,13 @@ def main(argv=None) -> int:
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ]
     for label, run in (("graph", "graph"), ("eager", "eager")):
-        print(f"{card}: 4-slot serving, {label} steps: decode step ms "
-              + ", ".join(f"{r['decode_step_ms']:.3f}" for r in serving[run])
+        print(f"{card}: 4-slot serving, {label} steps, overlap on: decode call ms "
+              "(dispatch + consume wait, not a step time) "
+              + ", ".join(f"{r['decode_call_ms']:.3f}" for r in serving[run])
               + "; TTFT p50 s " + ", ".join(f"{r['ttft_p50_s']:.4f}" for r in serving[run])
               + "; tokens/s " + ", ".join(f"{r['tokens_per_s']:.1f}" for r in serving[run]))
-        print(f"{card}: 1-slot long context, {label} steps: decode step ms "
-              + ", ".join(f"{r['decode_step_ms']:.3f}" for r in long_ctx[run]))
+        print(f"{card}: 1-slot long context, {label} steps: decode call ms "
+              + ", ".join(f"{r['decode_call_ms']:.3f}" for r in long_ctx[run]))
         sp = speculation[run]
         print(f"{card}: speculation k=4, {label} steps: verify step ms {sp['verify_step_ms']:.3f}, "
               f"acceptance {sp['acceptance_rate']:.4f}, tokens per verify step "
@@ -1658,12 +1999,29 @@ def main(argv=None) -> int:
                   + "; prefill step ms per request "
                   + ", ".join(f"{r['prefill_ms_per_request']:.3f}" for r in rs_)
                   + "; tokens/s " + ", ".join(f"{r['tokens_per_s']:.1f}" for r in rs_))
+    for mode in ("on", "off"):
+        rs_ = overlap["runs"][mode]
+        print(f"{card}: 4-slot serving, graph steps, overlap {mode}: "
+              "tokens/s " + ", ".join(f"{r['tokens_per_s']:.1f}" for r in rs_)
+              + "; TTFT p50 s " + ", ".join(f"{r['ttft_p50_s']:.4f}" for r in rs_))
+        for name in ("graph", "eager"):
+            st = overlap[f"steady_{name}"][mode]
+            print(f"{card}: steady 4-slot decode, {name} steps, overlap {mode}: ms per step "
+                  + ", ".join(f"{r['ms_per_step']:.3f}" for r in st)
+                  + "; dispatch / execute / readback ms per step " + ", ".join(
+                      f"{r['dispatch_ms_per_step']:.3f} / {r['execute_ms_per_step']:.3f} / "
+                      f"{r['readback_ms_per_step']:.3f}" for r in st)
+                  + "; stream ms per step " + ", ".join(f"{r['stream_ms_per_step']:.3f}" for r in st)
+                  + "; device ms per step " + ", ".join(f"{r['device_ms_per_step']:.3f}" for r in st)
+                  + "; device busy share " + ", ".join(f"{r['device_busy_share']:.3f}" for r in st)
+                  + "; SM clock, power " + ", ".join(r["clocks_sm_power"] for r in st))
     for name, r in rows.items():
         if name.startswith(("wide", "verify_w4", "split_w64")):
             print(f"{card}: paged kernel {name} ms {r['ms']:.4f} (bound {r['bound_ms']:.4f} "
                   f"by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
     print(json.dumps({"card": card, "serving": serving, "long_context": long_ctx,
                       "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
+                      "overlap": overlap,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training}))
     print(json.dumps({"kernels": kernels}))

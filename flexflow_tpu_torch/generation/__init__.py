@@ -1,7 +1,8 @@
 """Autoregressive generation: the block KV cache, the decoder's four
 forwards, the generation engine (its fixed-shape steps replayed as CUDA
-graphs on a GPU), the cross-request prefix cache, speculative decoding
-and the continuous-batching scheduler (port of
+graphs on a GPU), the cross-request prefix cache, speculative decoding,
+the continuous-batching scheduler with its overlapped decode pipeline,
+and the self-healing layer under it (port of
 ``flexflow_tpu/generation``)."""
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
 from .convert import decoder_params_from_numpy
@@ -13,8 +14,26 @@ from .decoder import (
     prefill,
     verify_step,
 )
-from .engine import EMPTY_PREFIX_PLAN, GenerationEngine, PrefixPlan, SamplingParams, default_buckets
+from .engine import (
+    EMPTY_PREFIX_PLAN,
+    GenerationEngine,
+    InFlightDecode,
+    PrefixPlan,
+    SamplingParams,
+    default_buckets,
+)
 from .prefix import PackedBlock, PrefixCache, PrefixEntry
+from .recovery import (
+    EngineFailedError,
+    EngineSupervisor,
+    GenerationJournal,
+    PoisonedRequestError,
+    RecoveryPolicy,
+    RecoveryStats,
+    StalledStepError,
+    StepWatchdog,
+    WatchdogPolicy,
+)
 from .scheduler import ContinuousBatchingScheduler, GenerationHandle, Request
 from .speculative import DraftModelDrafter, NgramDrafter, SpeculationConfig
 
@@ -25,17 +44,27 @@ __all__ = [
     "ContinuousBatchingScheduler",
     "DecoderParams",
     "DraftModelDrafter",
+    "EngineFailedError",
+    "EngineSupervisor",
     "GenerationEngine",
+    "GenerationJournal",
     "GenerationHandle",
+    "InFlightDecode",
     "KVCache",
     "NgramDrafter",
     "PackedBlock",
+    "PoisonedRequestError",
     "PrefixCache",
     "PrefixEntry",
     "PrefixPlan",
+    "RecoveryPolicy",
+    "RecoveryStats",
     "Request",
     "SamplingParams",
     "SpeculationConfig",
+    "StalledStepError",
+    "StepWatchdog",
+    "WatchdogPolicy",
     "decode_step",
     "decoder_params_from_numpy",
     "default_buckets",

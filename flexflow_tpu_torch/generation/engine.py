@@ -42,9 +42,28 @@ same weights, and a request preempted and recomputed resumes its exact
 stream. Greedy decoding is token-identical to the JAX engine.
 
 A captured graph holds the addresses of the KV cache tensors: nothing may
-reallocate ``cache.k``/``cache.v`` (``KVCache.reset`` zeroes them in
-place; the prefix cache's block copies, swap-in writes and swap-out
-reads — admission-time, outside the graphs — index them in place).
+reallocate ``cache.k``/``cache.v`` (:meth:`GenerationEngine.reset` zeroes
+them in place; the prefix cache's block copies, swap-in writes and
+swap-out reads — admission-time, outside the graphs — index them in
+place).
+
+The overlap pipeline splits one decode step into
+:meth:`GenerationEngine.decode_async` (pack, upload and launch, no wait;
+the previous step's sampled tokens carried on the device as this step's
+token input) and :meth:`GenerationEngine.consume_decode` (wait for the
+step's event, read its tokens and finiteness flags back). The cache is
+updated in place, so a discarded in-flight step needs no rollback: its
+K/V writes sit at positions past every slot's context, and the
+sequential re-run rewrites them from the same inputs. ``last_logits`` of
+a pipelined step are overwritten by the next replay: nothing may hold
+them across a dispatch.
+
+Fault sites (``runtime/faults.py``): ``generation.prefill``,
+``generation.decode_step`` and ``generation.verify`` fire at the top of
+their steps. Each step body adds a per-slot logit bias, a persistent
+device tensor of zeros that the graphs read; a fault plan's ``nan`` mode
+writes NaN into it in place for one step, which makes the poison
+indistinguishable from model-produced NaN to the finiteness flags.
 """
 from __future__ import annotations
 
@@ -58,11 +77,12 @@ import torch
 from ..core.device import resolve_device
 from ..models.transformer import TransformerConfig
 from ..obs.capacity import ServingFlops, chip_spec_for
+from ..runtime import faults
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
 from . import prng
 from .decoder import DecoderParams, decode_step, params_to, prefill, verify_step
 from .prefix import PrefixCache, PrefixEntry
-from .step_graphs import StepBody, StepRunner
+from .step_graphs import InFlight, StepBody, StepRunner
 
 NEG_INF = -1e30
 MASK32 = 0xFFFFFFFF
@@ -163,6 +183,35 @@ def derive_window_keys(seeds: torch.Tensor, counts: torch.Tensor, window: int) -
     return prng.fold_in(prng.key(seeds[:, None]), counts[:, None].long() + offs)
 
 
+class InFlightDecode:
+    """One dispatched-but-unconsumed decode step (the overlap pipeline's
+    frontier unit): the step runner's handle, whose ``readback_dev``
+    holds the sampled tokens the next step may carry, the host-clock
+    stamps of its dispatch, and its live-slot count. Created by
+    :meth:`GenerationEngine.decode_async`, consumed exactly once by
+    :meth:`GenerationEngine.consume_decode`. ``t_started`` is restamped
+    when the previous in-flight step completes: with a one-deep pipeline
+    this step only starts executing then."""
+
+    __slots__ = ("handle", "t0", "t_disp", "t_started", "n_active", "n_slots", "consumed")
+
+    def __init__(self, handle: InFlight, t0: float, t_disp: float, n_active: int,
+                 n_slots: int):
+        self.handle = handle
+        self.t0 = t0
+        self.t_disp = t_disp
+        self.t_started = t_disp
+        self.n_active = n_active
+        self.n_slots = n_slots
+        self.consumed = False
+
+    @property
+    def tokens_dev(self) -> torch.Tensor:
+        """The step's sampled tokens [B] on the device (the readback's
+        head)."""
+        return self.handle.readback_dev[: self.n_slots]
+
+
 class GenerationEngine:
     """Owns the cache, the allocator, and the fixed-shape step family.
     The continuous-batching scheduler drives it; ``generate`` is a
@@ -180,7 +229,13 @@ class GenerationEngine:
     prompt blocks across requests (``prefix.py``); ``host_cache_bytes``
     bounds its host tier (default: the device cache's size);
     ``expected_prefix_sharing`` discounts the default cache sizing by the
-    share of positions expected to be shared."""
+    share of positions expected to be shared.
+
+    ``donate`` is a recovery policy flag with the JAX engine's default:
+    false on the CPU, true on an accelerator. With it set, a failed step
+    is not retried or bisected: the supervisor resets the engine and
+    replays the journal (the JAX engine's steps then donate their cache
+    buffers, so a failed step has consumed its inputs)."""
 
     def __init__(
         self,
@@ -199,6 +254,7 @@ class GenerationEngine:
         expected_prefix_sharing: float = 0.0,
         device=None,
         eager_steps: bool = False,
+        donate: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -251,8 +307,18 @@ class GenerationEngine:
         self.trace_counts: Dict[str, int] = {}
         # engine steps actually issued
         self.step_counts: Dict[str, int] = {"prefill": 0, "decode": 0, "verify": 0}
-        # host-clock seconds per step kind, each step ending in a device sync
+        # host-clock seconds spent inside the engine's step calls, per step
+        # kind: a sequential step from its call to its readback; a pipelined
+        # decode step only its dispatch and its wait at consume, so the host
+        # work it overlaps is left out (not a step time: the overlap's step
+        # time is wall time over steps)
         self.step_seconds: Dict[str, float] = {"prefill": 0.0, "decode": 0.0, "verify": 0.0}
+        # a decode step's host-clock split: dispatch (pack, upload, launch),
+        # execute (from when the device could start it, its dispatch or its
+        # in-flight predecessor's completion, to its own) and readback
+        # (copying the tokens out)
+        self.phase_seconds: Dict[str, float] = {"dispatch": 0.0, "execute": 0.0,
+                                                "readback": 0.0}
         # per-slot finiteness of the last step's logits (the NaN blame
         # vector); shaped [1] after prefill_one
         self.last_finite = np.ones((max_batch_slots,), bool)
@@ -260,6 +326,16 @@ class GenerationEngine:
         # [B, V] after decode, [B, W, V] after verify; on the graph path a
         # later replay of the same step kind overwrites them
         self.last_logits: Optional[torch.Tensor] = None
+        # recovery (generation/recovery.py): reset() count, and the failed-
+        # step policy (see the class doc)
+        self.resets = 0
+        self.donate = bool(self.device.type != "cpu" if donate is None else donate)
+        # the fault plan's NaN-poison carriers: outside chaos runs inject
+        # returns these very host arrays, and the device biases stay zero
+        self._zero_bias = np.zeros((max_batch_slots,), np.float32)
+        self._zero_bias1 = np.zeros((1,), np.float32)
+        self._bias = torch.zeros((max_batch_slots,), dtype=torch.float32, device=self.device)
+        self._bias1 = torch.zeros((1,), dtype=torch.float32, device=self.device)
         self.graphs = self.device.type == "cuda" and not eager_steps
         self._steps = StepRunner(self.device, self.graphs)
         # the serving roofline prefix_plan weighs a swap-in against a
@@ -282,6 +358,23 @@ class GenerationEngine:
             f"prompt length {prompt_len} exceeds the largest bucket {self.buckets[-1]}"
         )
 
+    def reset(self) -> None:
+        """Tear down device-side generation state after a crash or a
+        stalled step: zero the KV cache IN PLACE (the captured graphs hold
+        its addresses), restore the allocator's free list and drop the
+        prefix index. Graphs and ``trace_counts`` survive, so recovery
+        captures nothing again; the scheduler journal-replays every live
+        stream into the fresh cache."""
+        self.cache.reset()
+        self.allocator.reset()
+        # the prefix index is bound to the zeroed cache: drop every entry
+        # wholesale (replay then recomputes, which is byte-exact)
+        self.prefix_cache.reset()
+        self.last_finite = np.ones((self.max_batch_slots,), bool)
+        self._bias.zero_()
+        self._bias1.zero_()
+        self.resets += 1
+
     def recompiles(self) -> Dict[str, int]:
         """Shape signatures beyond the first, per step kind."""
         return {k: v - 1 for k, v in self.trace_counts.items() if v > 1}
@@ -295,6 +388,16 @@ class GenerationEngine:
             self.trace_counts[kind] = self.trace_counts.get(kind, 0) + 1
         readback, self.last_logits = self._steps.run(sig, arrays, body)
         return readback
+
+    @staticmethod
+    def _poison(dev: torch.Tensor, bias: np.ndarray, zero: np.ndarray) -> bool:
+        """Write a fault plan's poisoned bias into the device bias ``dev``
+        (in place: the graphs read it) for one step; False, writing
+        nothing, when the plan left the bias alone."""
+        if bias is zero:
+            return False
+        dev.copy_(torch.from_numpy(np.asarray(bias, np.float32)))
+        return True
 
     # --------------------------------------------------------- step bodies
     def _prefill_body(self, x: Dict[str, torch.Tensor]):
@@ -310,6 +413,7 @@ class GenerationEngine:
             cache_k[li].view(-1, *cache_k.shape[3:])[slots] = ks[li, 0]
             cache_v[li].view(-1, *cache_v.shape[3:])[slots] = vs[li, 0]
         last = logits[0].index_select(0, (length - 1).long())  # [1, V], device-indexed
+        last = last + self._bias1[:, None]
         ok = torch.isfinite(last).all(dim=-1)
         noise = prng.gumbel(derive_keys(x["seed"], x["count"]), (last.shape[-1],))
         token = _sample(last, x["temp"], x["top_k"], noise)
@@ -320,6 +424,9 @@ class GenerationEngine:
             self.params, x["tokens"], x["positions"], self.cache.k, self.cache.v,
             x["tables"], x["context_lens"],
         )
+        # the fault plan's per-slot NaN poison (zeros outside chaos runs),
+        # added before the finiteness reduce
+        logits = logits + self._bias[:, None]
         ok = torch.isfinite(logits).all(dim=-1)
         # every slot's noise, keyed by (seed, count) on the device: greedy
         # and inactive rows ignore theirs
@@ -344,6 +451,7 @@ class GenerationEngine:
         logits, _, _ = verify_step(
             self.params, window, positions, self.cache.k, self.cache.v, x["tables"]
         )
+        logits = logits + self._bias[:, None, None]
         # blame vector: finiteness over each slot's REAL window positions
         # only — padded positions may hold garbage that must not indict
         # the request
@@ -368,6 +476,7 @@ class GenerationEngine:
             self.params, tokens, positions, self.cache.k, self.cache.v, x["table"][None]
         )
         last = logits[0].index_select(0, (n_real - 1).long())  # [1, V], device-indexed
+        last = last + self._bias1[:, None]
         ok = torch.isfinite(last).all(dim=-1)
         noise = prng.gumbel(derive_keys(x["seed"], x["count"]), (last.shape[-1],))
         token = _sample(last, x["temp"], x["top_k"], noise)
@@ -410,6 +519,7 @@ class GenerationEngine:
         at the front of the table): only the suffix is computed, a
         ``prefix_prefill[W]`` step per suffix bucket W, counted as a
         prefill step."""
+        prompt, bias = faults.inject(faults.GENERATION_PREFILL, (prompt, self._zero_bias1))
         self.step_counts["prefill"] += 1
         t0 = time.perf_counter()
         computed = prompt[prefix_len:]
@@ -433,7 +543,12 @@ class GenerationEngine:
             seed=np.asarray([sampling.seed & MASK32], np.uint32),
             count=np.asarray([sample_index], np.int32),
         )
-        token, ok = self._run(kind, (bucket,), arrays, body)
+        poisoned = self._poison(self._bias1, bias, self._zero_bias1)
+        try:
+            token, ok = self._run(kind, (bucket,), arrays, body)
+        finally:
+            if poisoned:
+                self._bias1.zero_()
         self.last_finite = np.asarray([bool(ok)])
         self.step_seconds["prefill"] += time.perf_counter() - t0
         return int(token)
@@ -678,14 +793,47 @@ class GenerationEngine:
         seeds: np.ndarray,
         counts: np.ndarray,
     ) -> np.ndarray:
-        """One decode step across all ``max_batch_slots`` slots. Arrays
-        are slot-indexed; inactive slots (active[i] False) write to
-        scratch and return garbage tokens the scheduler ignores. After
-        the call ``last_finite[i]`` says whether slot i's logits were
-        finite. ``seeds``/``counts`` key each slot's sampling noise."""
+        """One decode step across all ``max_batch_slots`` slots, dispatched
+        and consumed at once (the sequential loop's step). Arrays are
+        slot-indexed; inactive slots (active[i] False) write to scratch and
+        return garbage tokens the scheduler ignores. After the call
+        ``last_finite[i]`` says whether slot i's logits were finite.
+        ``seeds``/``counts`` key each slot's sampling noise."""
+        return self.consume_decode(self.decode_async(
+            tokens, positions, block_tables, active, temps, top_ks, seeds, counts))
+
+    def decode_async(
+        self,
+        tokens: Optional[np.ndarray],
+        positions: np.ndarray,
+        block_tables: np.ndarray,
+        active: np.ndarray,
+        temps: np.ndarray,
+        top_ks: np.ndarray,
+        seeds: np.ndarray,
+        counts: np.ndarray,
+        carry: Optional[InFlightDecode] = None,
+    ) -> InFlightDecode:
+        """Dispatch one decode step WITHOUT waiting for it: the overlap
+        pipeline's front half. :meth:`consume_decode` collects it one
+        scheduler iteration later.
+
+        ``carry`` is the previous in-flight step: its sampled tokens are
+        this step's token input, copied device to device (``tokens`` is
+        then ignored, and the fault site sees None for them, as in the
+        JAX engine's carry mode). Inactive slots in carry mode feed
+        whatever token the dead slot sampled; their writes land in
+        scratch block 0 and their outputs are dropped. On the CPU the
+        step runs here, synchronously."""
+        if carry is None:
+            masked = np.where(active, tokens, 0).astype(np.int32)
+        else:
+            masked = None
+        masked, bias = faults.inject(faults.GENERATION_DECODE_STEP, (masked, self._zero_bias))
         self.step_counts["decode"] += 1
         t0 = time.perf_counter()
-        arrays = self.decode_arrays(tokens, positions, block_tables, active)
+        host_tokens = masked if masked is not None else np.zeros((self.max_batch_slots,), np.int32)
+        arrays = self.decode_arrays(host_tokens, positions, block_tables, active)
         arrays.update(
             temps=np.asarray(temps, np.float32),
             top_ks=np.asarray(top_ks, np.int32),
@@ -693,10 +841,57 @@ class GenerationEngine:
             counts=np.asarray(counts, np.int32),
         )
         b, mb = arrays["tables"].shape
-        readback = self._run("decode", (b, mb), arrays, self._decode_body)
+        sig = ("decode", (b, mb))
+        if sig not in self._steps:
+            self.trace_counts["decode"] = self.trace_counts.get("decode", 0) + 1
+        poisoned = self._poison(self._bias, bias, self._zero_bias)
+        try:
+            handle = self._steps.dispatch(
+                sig, arrays, self._decode_body,
+                carry=None if carry is None else {"tokens": carry.tokens_dev},
+            )
+        finally:
+            if poisoned:
+                self._bias.zero_()  # stream-ordered after this step's launch
+        t_disp = time.perf_counter()
+        self.phase_seconds["dispatch"] += t_disp - t0
+        self.step_seconds["decode"] += t_disp - t0
+        return InFlightDecode(handle, t0, t_disp, int(np.sum(active)), b)
+
+    def consume_decode(self, step: InFlightDecode) -> np.ndarray:
+        """Wait for an in-flight decode step and read it back: the
+        pipeline's back half. Returns its sampled tokens [B] and sets
+        ``last_finite`` and ``last_logits`` (the latter overwritten by the
+        next replay)."""
+        if step.consumed:
+            raise RuntimeError("InFlightDecode consumed twice")
+        step.consumed = True
+        t_block = time.perf_counter()
+        readback, logits = self._steps.collect(step.handle)
+        t_exec = time.perf_counter()
+        b = self.max_batch_slots
         self.last_finite = readback[b:].astype(bool)
-        self.step_seconds["decode"] += time.perf_counter() - t0
-        return readback[:b]
+        self.last_logits = logits
+        tokens = readback[:b]
+        t_read = time.perf_counter()
+        # host-clock view: from when the device could start this step (its
+        # dispatch, or its predecessor's completion) to its observed end
+        self.phase_seconds["execute"] += t_exec - step.t_started
+        self.phase_seconds["readback"] += t_read - t_exec
+        self.step_seconds["decode"] += t_read - t_block
+        return tokens
+
+    def discard_decode(self, step: InFlightDecode) -> None:
+        """Drop an in-flight decode step without reading it: wait for it
+        (its error, if any, is swallowed) so its buffers can be reused.
+        Its cache writes need no undo (see the module doc)."""
+        if step.consumed:
+            return
+        step.consumed = True
+        try:
+            self._steps.collect(step.handle)
+        except Exception:
+            pass
 
     def verify(
         self,
@@ -725,10 +920,12 @@ class GenerationEngine:
         b, w = self.max_batch_slots, self.spec_window
         if window_tokens.shape != (b, w):
             raise ValueError(f"verify window {window_tokens.shape}, the engine's is {(b, w)}")
+        window = np.asarray(window_tokens, np.int32)
+        window, bias = faults.inject(faults.GENERATION_VERIFY, (window, self._zero_bias))
         self.step_counts["verify"] += 1
         t0 = time.perf_counter()
         arrays = {
-            "window": np.asarray(window_tokens, np.int32),
+            "window": window,
             "start": np.asarray(start, np.int32),
             "n_draft": np.asarray(n_draft, np.int32),
             "tables": np.asarray(block_tables, np.int32),
@@ -737,8 +934,13 @@ class GenerationEngine:
             "seeds": np.asarray(seeds).astype(np.uint32),
             "counts": np.asarray(counts, np.int32),
         }
-        readback = self._run("verify", (b, w, arrays["tables"].shape[1]), arrays,
-                             self._verify_body)
+        poisoned = self._poison(self._bias, bias, self._zero_bias)
+        try:
+            readback = self._run("verify", (b, w, arrays["tables"].shape[1]), arrays,
+                                 self._verify_body)
+        finally:
+            if poisoned:
+                self._bias.zero_()
         self.last_finite = readback[b * w + b:].astype(bool)
         self.step_seconds["verify"] += time.perf_counter() - t0
         return readback[: b * w].reshape(b, w), readback[b * w: b * w + b]

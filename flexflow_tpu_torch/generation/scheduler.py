@@ -31,15 +31,36 @@ batch recomposes freely —
   the batch is a zero-draft window, sampled exactly as decode samples).
   Blocks are grown for the whole window; under cache pressure the window
   shrinks before anyone is preempted, and the blocks a partly accepted
-  window no longer covers are returned.
+  window no longer covers are returned;
+* **self-healing** (``recovery.py``): every admitted stream is entered in
+  a :class:`GenerationJournal`; batched device steps run under an
+  :class:`EngineSupervisor` (retry once, bisect and quarantine, or
+  ``engine.reset()`` + journal replay under a restart budget), device
+  calls run under ``RetryPolicy`` and a :class:`CircuitBreaker`, NaN
+  logits are blamed per slot (quarantine) or batch-wide (restart), and a
+  :class:`StepWatchdog` on a heartbeat catches wedged steps;
+* **overlapped decode** (on by default; ``overlap=False`` gives the
+  sequential loop): steady-state decode is a two-deep pipeline. Step
+  N+1 is dispatched, its tokens carried on the device from step N's
+  output, before step N is consumed, so step N's readback and the
+  host's bookkeeping run while step N+1 executes. An in-flight
+  *frontier* of at most one step is drained deterministically on every
+  non-steady event (admission, EOS/finish, cache pressure,
+  cancel/deadline, speculation, failure, watchdog trip, shutdown), so
+  supervision, NaN blame and journal replay see the sequential
+  semantics: streams are token-identical with overlap on and off. The
+  verify path stays sequential: drafting needs step N's tokens on the
+  host.
 
 The queue is bounded (:class:`QueueFullError`) and requests carry
 deadlines (:class:`DeadlineExceededError` before OR during generation),
-on an injectable clock so tests run on virtual time. The scheduler is
-synchronous: ``step()`` does one iteration and returns.
+on an injectable clock so tests run on virtual time. ``step()`` does one
+iteration and returns; ``start()`` runs it on a background thread (with
+the watchdog) and ``stop(drain)`` ends it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import queue
@@ -51,9 +72,28 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..serving.resilience import DeadlineExceededError, QueueFullError, ShuttingDownError
+from ..runtime import faults
+from ..serving.resilience import (
+    CircuitBreaker,
+    CircuitOpenError,
+    DeadlineExceededError,
+    QueueFullError,
+    RetryPolicy,
+    ShuttingDownError,
+)
 from .decoder import params_to
-from .engine import GenerationEngine, SamplingParams
+from .engine import GenerationEngine, InFlightDecode, SamplingParams
+from .recovery import (
+    EngineFailedError,
+    EngineSupervisor,
+    GenerationJournal,
+    PoisonedRequestError,
+    RecoveryPolicy,
+    RecoveryStats,
+    StalledStepError,
+    StepWatchdog,
+    WatchdogPolicy,
+)
 from .speculative.drafter import SpeculationConfig, build_drafter
 
 _END = object()  # token-stream sentinel
@@ -68,6 +108,17 @@ class GenerationHandle:
         self._request = request
         self.future: Future = Future()
         self._tokens: "queue.Queue" = queue.Queue()
+        # the loop and watchdog threads race to settle a handle; the
+        # claim's winner settles it, the loser does nothing
+        self._settle_lock = threading.Lock()
+        self._settled = False
+
+    def _claim(self) -> bool:
+        with self._settle_lock:
+            if self._settled or self.future.done():
+                return False
+            self._settled = True
+            return True
 
     def done(self) -> bool:
         return self.future.done()
@@ -95,14 +146,15 @@ class GenerationHandle:
         self._tokens.put(token)
 
     def _finish(self, tokens: List[int]) -> None:
-        if self.future.done():
+        if not self._claim():
             return
         self.future.set_result(tokens)
         self._tokens.put(_END)
 
     def _fail(self, err: BaseException) -> bool:
-        """Returns True only if THIS call failed the handle."""
-        if self.future.done():
+        """Returns True only if THIS call failed the handle (the losers
+        of the loop/watchdog race must not count twice)."""
+        if not self._claim():
             return False
         self.future.set_exception(err)
         self._tokens.put(err)
@@ -136,6 +188,7 @@ class Request:
         self.generated: List[int] = []  # tokens generated so far (total)
         self.cancelled = False
         self.preemptions = 0
+        self.replays = 0  # journal-replay recoveries this stream rode out
         self.handle = GenerationHandle(self)
         # speculation state: live k adapts inside [1, config.k]; the
         # drafter is a pure function of the prefix, so preemption needs
@@ -199,10 +252,40 @@ class _Running:
         self.shared_entries = shared_entries if shared_entries is not None else []
 
 
+class _Frontier:
+    """The overlap pipeline's in-flight frontier: AT MOST ONE outstanding
+    decode step. Holds the dispatch-time slot states and the host-side
+    argument arrays (bumped by one for the next dispatch of the same
+    composition), the step's heartbeat seq, and ``seq0``, the heartbeat
+    seq just before the chain began: a stall flagged on any later seq
+    belongs to this chain and voids its late result. Loop thread only."""
+
+    __slots__ = ("handle", "states", "positions", "active", "temps", "top_ks",
+                 "seeds", "counts", "tables", "sig", "hb_seq", "seq0")
+
+    def __init__(self, handle: InFlightDecode, states, positions, active, temps, top_ks,
+                 seeds, counts, tables, sig, hb_seq, seq0):
+        self.handle = handle
+        self.states = states
+        self.positions = positions
+        self.active = active
+        self.temps = temps
+        self.top_ks = top_ks
+        self.seeds = seeds
+        self.counts = counts
+        self.tables = tables
+        self.sig = sig
+        self.hb_seq = hb_seq
+        self.seq0 = seq0
+
+
 class ContinuousBatchingScheduler:
     """``speculation`` is the default policy of requests submitted without
     their own; ``draft_params`` back ``method="draft_model"`` drafters
-    (moved to the engine's device)."""
+    (moved to the engine's device). ``breaker``/``retry`` guard device
+    calls, ``recovery``/``watchdog`` tune the supervisor and the stall
+    watchdog, and ``overlap`` (default on) selects the pipelined decode
+    loop."""
 
     def __init__(
         self,
@@ -210,12 +293,21 @@ class ContinuousBatchingScheduler:
         *,
         max_queue: int = 256,
         clock: Callable[[], float] = time.monotonic,
+        breaker: Optional[CircuitBreaker] = None,
+        retry: Optional[RetryPolicy] = None,
+        idle_wait_s: float = 0.002,
         speculation: Optional[SpeculationConfig] = None,
         draft_params=None,
+        recovery: Optional[RecoveryPolicy] = None,
+        watchdog: Optional[WatchdogPolicy] = None,
+        overlap: Optional[bool] = None,
     ):
         self.engine = engine
         self.max_queue = max_queue
         self.clock = clock
+        self.breaker = breaker or CircuitBreaker(clock=clock)
+        self.retry = retry or RetryPolicy()
+        self.idle_wait_s = idle_wait_s
         self.speculation_default = speculation
         self.draft_params = (
             None if draft_params is None else params_to(draft_params, engine.device)
@@ -224,15 +316,43 @@ class ContinuousBatchingScheduler:
         self._running: Dict[int, _Running] = {}  # slot -> state
         self._free_slots = list(range(engine.max_batch_slots - 1, -1, -1))
         self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._alive = False
+        self._draining = False
+        self._hard_stop = False
+        self._stopped = False  # a started-then-stopped scheduler rejects submits
         self._admitted_seq = itertools.count()
         self.preemptions = 0
         # admitted / completed / expired / cancelled / rejected / failed,
         # and the speculation windows: spec_windows / spec_proposed /
         # spec_accepted / spec_emitted / drafter_errors
         self.counts: Dict[str, int] = {}
+        self._counts_lock = threading.Lock()
+        # overlapped decode: the at-most-one-deep frontier (loop thread
+        # only) and plain counters: dispatches through the pipeline,
+        # frontier drains by reason, in-flight steps discarded
+        self.overlap = True if overlap is None else bool(overlap)
+        self._pipe: Optional[_Frontier] = None
+        self.pipe_dispatches = 0
+        self.pipe_drains: Dict[str, int] = {}
+        self.pipe_discards = 0
+        # self-healing: journal + supervisor + watchdog. _heartbeat is
+        # (seq, started_at) while a device call is in flight, the
+        # watchdog's stall signal
+        self.recovery_stats = RecoveryStats()
+        self.journal = GenerationJournal()
+        self.supervisor = EngineSupervisor(self, recovery)
+        self.watchdog = StepWatchdog(self, watchdog)
+        self._heartbeat = None
+        self._hb_seq = 0
+        # the request popped for admission but not yet slot-resident,
+        # visible to the watchdog's deadline reaper while its prefill runs
+        self._admitting: Optional[Request] = None
 
     def _incr(self, name: str, n: int = 1) -> None:
-        self.counts[name] = self.counts.get(name, 0) + n
+        with self._counts_lock:
+            self.counts[name] = self.counts.get(name, 0) + n
 
     # ------------------------------------------------------------- submit
     def submit(
@@ -243,11 +363,16 @@ class ContinuousBatchingScheduler:
         speculation: Optional[SpeculationConfig] = None,
     ) -> GenerationHandle:
         """Enqueue one request (FCFS). Raises QueueFullError when the
-        bounded queue is full, DeadlineExceededError for an
-        already-expired budget, and ValueError for a prompt that can
-        never be served. ``speculation`` turns on (exact) speculative
-        decoding for this request; None falls back to the scheduler's
-        default policy."""
+        bounded queue is full, CircuitOpenError while the breaker holds
+        traffic, ShuttingDownError while draining or after ``stop()``,
+        DeadlineExceededError for an already-expired budget, and
+        ValueError for a prompt that can never be served.
+        ``speculation`` turns on (exact) speculative decoding for this
+        request; None falls back to the scheduler's default policy."""
+        if self._draining:
+            raise ShuttingDownError("generation scheduler draining")
+        if self._stopped:
+            raise ShuttingDownError("generation scheduler stopped")
         sampling = sampling or SamplingParams()
         if not prompt:
             raise ValueError("empty prompt")
@@ -267,6 +392,11 @@ class ContinuousBatchingScheduler:
             self._incr("expired")
             raise DeadlineExceededError("deadline already expired at submit")
         with self._lock:
+            # ready(), not allow(): submit only enqueues; the half-open
+            # probe slot is claimed by the admission that calls the device
+            if not self.breaker.ready():
+                self._incr("rejected")
+                raise CircuitOpenError("generation circuit open")
             if len(self._queue) >= self.max_queue:
                 self._incr("rejected")
                 raise QueueFullError(f"generation queue full ({self.max_queue})")
@@ -293,7 +423,159 @@ class ContinuousBatchingScheduler:
             req.max_new = min(sampling.max_new_tokens, room, cache_room)
             self._queue.append(req)
         self._incr("admitted")
+        self._wake.set()
         return req.handle
+
+    # ------------------------------------------------------------ control
+    def start(self) -> None:
+        """Run ``step()`` on a background thread, with the watchdog."""
+        if self._alive:
+            return
+        self._alive = True
+        self._draining = False
+        self._hard_stop = False
+        self._stopped = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        self.watchdog.start()
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Graceful by default: finish queued + running requests, then
+        exit. ``drain=False`` fails outstanding work at once with a typed
+        ShuttingDownError."""
+        if self._thread is None:
+            # never-started (manual-step) scheduler: honor the drain
+            # contract inline, so queued futures never hang
+            self._draining = True
+            if drain:
+                while self.has_work() and self.step():
+                    pass
+            self._abort_all(ShuttingDownError("scheduler stopped"))
+            self._draining = False
+            self._stopped = True
+            return
+        self._draining = True
+        self._alive = False
+        if not drain:
+            self._hard_stop = True  # the loop exits after the current step
+        self._wake.set()
+        self._thread.join(timeout=timeout)
+        if self._thread.is_alive() and self._heartbeat is None:
+            # alive but NOT inside a device call: the drain is starved
+            # (an open breaker holding queued requests), not wedged
+            self._hard_stop = True
+            self._wake.set()
+            self._thread.join(timeout=5.0)
+        wedged = self._thread.is_alive()
+        self._thread = None
+        if wedged:
+            # a wedged step keeps ownership of the slot/allocator state;
+            # the watchdog stays alive to fail deadline-carrying handles
+            return
+        if drain:
+            while self.has_work() and self.step():
+                pass
+        if self.has_work():
+            # leftovers that cannot make progress: fail them typed
+            self._abort_all(ShuttingDownError("scheduler stopped"))
+        self.watchdog.stop()
+        self._draining = False
+        self._stopped = True
+
+    def _abort_all(self, err: BaseException) -> None:
+        """Shutdown-only teardown (``err`` is a typed ShuttingDownError)."""
+        self._discard_frontier()  # shutdown: in-flight results are moot
+        with self._lock:
+            queued, self._queue = list(self._queue), deque()
+        for req in queued:
+            if req.handle._fail(err):
+                self._incr("failed")
+        for state in list(self._running.values()):
+            self._release(state)
+            if state.req.handle._fail(err):
+                self._incr("failed")
+
+    def _fail_running_engine_dead(self, err: EngineFailedError) -> None:
+        """Restart budget exhausted: every slot-resident stream is lost to
+        this engine and fails with the typed EngineFailedError. The
+        engine is reset, so slot/allocator bookkeeping restarts from
+        empty rather than freeing stale block ids into the fresh list."""
+        self.journal.drain()
+        states = sorted(self._running.values(), key=lambda s: s.admitted_seq)
+        self._reset_slots()
+        self.engine.reset()
+        for state in states:
+            state.blocks = []
+            state.shared_idx = set()
+            state.shared_entries = []
+            if state.req.handle.done():
+                continue
+            if state.req.finished():
+                # finished at a pipeline consume, release still pending:
+                # it holds every token
+                state.req.handle._finish(list(state.req.generated))
+                self._incr("completed")
+            elif state.req.handle._fail(err):
+                self._incr("failed")
+        # replay-requeued MID-STREAM requests are as lost as the
+        # slot-resident ones; fresh queued requests stay held
+        with self._lock:
+            keep: deque = deque()
+            for req in self._queue:
+                if req.n_generated > 0:
+                    if req.handle._fail(err):
+                        self._incr("failed")
+                else:
+                    keep.append(req)
+            self._queue = keep
+
+    def _rebuild_from_journal(self) -> None:
+        """Journal replay after ``engine.reset()``: every live stream is
+        requeued at the FRONT with its generated tokens folded into the
+        prompt; the preempt-by-recompute path then resumes each stream
+        exactly."""
+        entries = self.journal.drain()
+        self._reset_slots()
+        replayed = 0
+        requeue = []
+        for entry in entries:
+            req = entry.req
+            if req.handle.done():  # reaped (deadline) while the engine was down
+                continue
+            if req.finished():
+                # completed its budget/EOS at a pipeline consume before
+                # the teardown: it holds every token
+                req.handle._finish(list(req.generated))
+                self._incr("completed")
+                continue
+            req.prompt = req.original_prompt + list(req.generated)
+            req.replays += 1
+            replayed += req.n_generated
+            requeue.append(req)
+        with self._lock:
+            for req in reversed(requeue):
+                self._queue.appendleft(req)
+        if replayed:
+            self.recovery_stats.incr("replayed_tokens", replayed)
+        self._wake.set()
+
+    def _reset_slots(self) -> None:
+        """Post-``engine.reset()`` slot bookkeeping: every slot empty and
+        every outstanding block table invalid wholesale (no per-block
+        frees after the allocator's reset)."""
+        self._running.clear()
+        self._free_slots = list(range(self.engine.max_batch_slots - 1, -1, -1))
+
+    def _quarantine(self, state: _Running, err: BaseException) -> None:
+        """Fail ONE poisoned request and keep the batch."""
+        req = state.req
+        self._release(state)
+        if req.handle._fail(err):
+            self._incr("failed")
+            self.recovery_stats.incr("quarantined")
+
+    def ready(self) -> bool:
+        return not self._draining and self.breaker.ready()
 
     def has_work(self) -> bool:
         return bool(self._queue) or bool(self._running)
@@ -321,8 +603,15 @@ class ContinuousBatchingScheduler:
             "prefix_cache": self.engine.prefix_cache.snapshot(),
         }
 
+    def _loop(self) -> None:
+        while (self._alive or (self._draining and self.has_work())) and not self._hard_stop:
+            if not self.step():
+                self._wake.wait(timeout=self.idle_wait_s)
+                self._wake.clear()
+
     # ---------------------------------------------------------- internals
     def _release(self, state: _Running) -> None:
+        self.journal.discard(state.req)
         # private blocks go back to the allocator; shared (index-owned)
         # blocks only drop this sequence's reference
         self.engine.release_admission(state.blocks, state.shared_idx, state.shared_entries)
@@ -342,7 +631,9 @@ class ContinuousBatchingScheduler:
         with self._lock:
             keep: deque = deque()
             for req in self._queue:
-                if req.cancelled:
+                if req.handle.done():
+                    pass  # reaped by the watchdog during a stall; just drop
+                elif req.cancelled:
                     if req.handle._fail(ShuttingDownError("request cancelled")):
                         self._incr("cancelled")
                 elif req.deadline is not None and now >= req.deadline:
@@ -353,7 +644,11 @@ class ContinuousBatchingScheduler:
             self._queue = keep
         for state in list(self._running.values()):
             req = state.req
-            if req.cancelled:
+            if req.handle.done():
+                # failed by the watchdog's reaper: the resources are freed
+                # here, the count was taken there
+                self._release(state)
+            elif req.cancelled:
                 self._release(state)
                 if req.handle._fail(ShuttingDownError("request cancelled")):
                     self._incr("cancelled")
@@ -361,6 +656,36 @@ class ContinuousBatchingScheduler:
                 self._release(state)
                 if req.handle._fail(DeadlineExceededError("deadline expired mid-generation")):
                     self._incr("expired")
+
+    @contextlib.contextmanager
+    def _stamped(self):
+        """Heartbeat stamp around any section that can wedge on the
+        device: the watchdog's only stall signal."""
+        self._hb_seq += 1
+        self._heartbeat = (self._hb_seq, self.clock())
+        try:
+            yield
+        finally:
+            self._heartbeat = None
+
+    def _device(self, fn):
+        """Run one device step under retry + breaker accounting, with a
+        heartbeat stamped around the call."""
+        with self._stamped():
+            try:
+                out = self.retry.run(fn)
+            except Exception:
+                self.breaker.record_failure()
+                raise
+        self.breaker.record_success()
+        return out
+
+    def _probe_call(self, fn):
+        """A bisection probe's device call: heartbeat only, no retry or
+        breaker (an expected crash while assigning blame is no health
+        signal, but a stall during a probe must stay visible)."""
+        with self._stamped():
+            return fn()
 
     def _preempt_self(self, state: _Running) -> None:
         """Evict ``state`` for recompute: stash its computed blocks in the
@@ -396,20 +721,29 @@ class ContinuousBatchingScheduler:
         with self._lock:
             if not self._queue or not self._free_slots:
                 return False
+            # an OPEN breaker holds admission; after recovery_s the next
+            # admission is the half-open probe
+            if not self.breaker.allow():
+                return False
             req = self._queue[0]
         plan = engine.prefix_plan(req.prompt)
         need = engine.cache_config.blocks_for(len(req.prompt) + 1) - plan.n_resident
         blocks = engine.allocator.allocate(need)
-        if blocks is None and engine.reclaim_cached(need - engine.allocator.num_free):
+        if blocks is None:
             # unreferenced cached prefixes are reclaimed (offloaded to the
-            # host tier) before the head waits
-            blocks = engine.allocator.allocate(need)
+            # host tier) before the head waits; the swap-out device reads
+            # ride the heartbeat
+            with self._stamped():
+                reclaimed = engine.reclaim_cached(need - engine.allocator.num_free)
+            if reclaimed:
+                blocks = engine.allocator.allocate(need)
         if blocks is None:
             return False
         with self._lock:
             self._queue.popleft()
             slot = self._free_slots.pop()
-        prep = engine.prepare_prefix(req.prompt, plan, blocks)
+        with self._stamped():
+            prep = engine.prepare_prefix(req.prompt, plan, blocks)
         if prep is None:
             # a failed swap-in could not be replaced: everything was
             # handed back; requeue the head and retry next iteration
@@ -418,19 +752,46 @@ class ContinuousBatchingScheduler:
                 self._queue.appendleft(req)
             return False
         table, shared_idx, entries, prefix_len = prep
+        self._admitting = req
         try:
-            token = engine.prefill_one(
-                req.prompt, table, req.sampling, sample_index=req.n_generated,
-                prefix_len=prefix_len,
+            token = self._device(
+                lambda: engine.prefill_one(
+                    req.prompt, table, req.sampling, sample_index=req.n_generated,
+                    prefix_len=prefix_len,
+                )
             )
-            if not engine.last_finite[0]:
-                raise FloatingPointError(
-                    f"request {req.id} produced non-finite logits at prefill")
-        except Exception as e:  # the one request fails; the batch goes on
+        except Exception as e:
+            self._admitting = None
             engine.release_admission(table, shared_idx, entries)
             self._free_slots.append(slot)
+            if self.supervisor.failed:
+                # half-open probe against a still-dead engine: a HELD
+                # request goes back to the front
+                with self._lock:
+                    self._queue.appendleft(req)
+                return False
+            if req.n_generated > 0:
+                # a replayed/preempted stream whose client already holds
+                # tokens: treat the failure as engine-level
+                with self._lock:
+                    self._queue.appendleft(req)
+                self.supervisor._restart_and_replay(e, "prefill")
+                return True
             if req.handle._fail(e):
                 self._incr("failed")
+            return True  # did work (and must not spin on the same head)
+        if not bool(engine.last_finite[0]):
+            # poisoned prompt: a single-sequence step needs no bisection
+            self._admitting = None
+            engine.release_admission(table, shared_idx, entries)
+            self._free_slots.append(slot)
+            err = PoisonedRequestError(
+                f"request {req.id} produced non-finite logits at prefill",
+                request_id=req.id, step="prefill", reason="nan_logits",
+            )
+            if req.handle._fail(err):
+                self._incr("failed")
+                self.recovery_stats.incr("quarantined")
             return True
         # the prompt's written blocks join the prefix index only after the
         # finiteness check: non-finite K/V never becomes shared content
@@ -441,6 +802,13 @@ class ContinuousBatchingScheduler:
             shared_idx=shared_idx, shared_entries=entries,
         )
         self._running[slot] = state
+        self._admitting = None
+        if self.supervisor.failed:  # a dead engine just served a prefill
+            self.supervisor.note_engine_recovered()
+        self.journal.record(req, state.admitted_seq)
+        if req.handle.done():  # the watchdog reaped it while the prefill ran
+            self._release(state)
+            return True
         self._emit_token(state, token)
         if req.finished():
             self._finish(state)
@@ -449,6 +817,7 @@ class ContinuousBatchingScheduler:
     def _emit_token(self, state: _Running, token: int) -> None:
         state.req.generated.append(int(token))
         state.req.handle._emit(int(token))
+        self.journal.note_token(state.req, int(token))
 
     def _plan_speculation(self) -> None:
         """Decide each running sequence's draft count for THIS step: its
@@ -478,11 +847,14 @@ class ContinuousBatchingScheduler:
                 if len(state.blocks) >= need:
                     break
                 got = self.engine.allocator.allocate(1)
-                if got is None and self.engine.reclaim_cached(1):
+                if got is None:
                     # evict an unreferenced cached prefix (offloading it
                     # to the host tier) before shrinking anyone's window
                     # or preempting a live sequence
-                    got = self.engine.allocator.allocate(1)
+                    with self._stamped():
+                        reclaimed = self.engine.reclaim_cached(1)
+                    if reclaimed:
+                        got = self.engine.allocator.allocate(1)
                 if got is not None:
                     state.blocks.extend(got)
                     continue
@@ -524,31 +896,358 @@ class ContinuousBatchingScheduler:
             counts[i] = req.n_generated
         return last, start, tables, active, temps, top_ks, seeds, counts
 
+    def _quarantine_nan(self, kind: str, order) -> bool:
+        """Act on the step's per-slot finiteness flags. Partial blame
+        quarantines the flagged request(s) and keeps everyone else (their
+        tokens from this step are valid). Whole-batch blame is not
+        data-dependent: restart and journal-replay instead (returns True:
+        skip the scatter)."""
+        ok = self.engine.last_finite
+        live = [s for s in order if self._running.get(s.slot) is s]
+        blamed = [s for s in live if not bool(ok[s.slot])]
+        if not blamed:
+            return False
+        if len(blamed) == len(live) and len(live) > 1:
+            self.supervisor.handle_engine_nan(kind)
+            return True
+        for state in blamed:
+            self._quarantine(
+                state,
+                PoisonedRequestError(
+                    f"request {state.req.id} produced non-finite logits at {kind} step",
+                    request_id=state.req.id, step=kind, reason="nan_logits",
+                ),
+            )
+        return False
+
+    def _decode_step_fns(self, order):
+        """The sequential decode step and its bisection probe over
+        ``order``, from ONE slot collection (shared by the sequential
+        iteration and the pipeline-failure re-run)."""
+        b = self.engine.max_batch_slots
+        (tokens, positions, tables, active, temps, top_ks, seeds,
+         counts) = self._collect_slots(order)
+
+        def step():
+            return self.engine.decode(tokens, positions, tables, active, temps, top_ks,
+                                      seeds, counts)
+
+        def probe(subset):
+            # blame-assignment probe: the same step with only ``subset``
+            # active; outputs discarded, cache writes idempotent
+            act = np.zeros((b,), bool)
+            for s in subset:
+                act[s.slot] = True
+            self._probe_call(
+                lambda: self.engine.decode(tokens, positions, tables, act, temps, top_ks,
+                                           seeds, counts)
+            )
+
+        return step, probe
+
     def _decode_once(self) -> bool:
         if not self._running:
             return False
         order = sorted(self._running.values(), key=lambda s: s.slot)
-        out = self.engine.decode(*self._collect_slots(order))
+        step, probe = self._decode_step_fns(order)
+        out = self.supervisor.run_step("decode", step, order, probe)
+        if out is None:
+            return True  # failure handled: quarantined or journal-replayed
+        if self._quarantine_nan("decode", order):
+            return True
         self._scatter_decode(order, out)
         return True
 
-    def _scatter_decode(self, order, out) -> int:
+    def _scatter_decode(self, order, out, defer_finish: bool = False):
         """Scatter one decode step's sampled tokens back onto the slot
-        states and finish the sequences that are done. Returns the number
-        of tokens emitted."""
+        states. Returns (tokens emitted, finished states). With
+        ``defer_finish`` (the pipeline) a finished slot's blocks are not
+        released here: a successor step may still be writing them. A slot
+        that ALREADY finished at a previous consume is skipped (its token
+        in a drained in-flight step is one the sequential loop never
+        decoded)."""
         n_live = 0
         finish = []
         for state in order:
             if self._running.get(state.slot) is not state:
                 continue  # preempted/expired between collect and scatter
+            if state.req.handle.done():
+                continue  # watchdog-reaped mid-step; _expire releases it
+            if state.req.finished():
+                continue  # finished at a previous pipeline consume
             state.cached_len += 1
             self._emit_token(state, int(out[state.slot]))
             n_live += 1
             if state.req.finished():
                 finish.append(state)
-        for state in finish:
-            self._finish(state)
+        if not defer_finish:
+            for state in finish:
+                self._finish(state)
+        return n_live, finish
+
+    # ----------------------------------------------------- overlap pipeline
+    def _nonsteady(self, now: float) -> bool:
+        """True when THIS iteration must run the sequential path (after a
+        frontier drain): any event whose handling mutates slot or block
+        state the in-flight step depends on, or whose semantics are
+        sequential: admission, finish, cancel/deadline, speculation,
+        shutdown, a declared-dead engine."""
+        if self._draining or self._hard_stop or self.supervisor.failed:
+            return True
+        if self._queue:
+            with self._lock:
+                queued = list(self._queue)
+            for req in queued:
+                if req.handle.done() or req.cancelled or (
+                    req.deadline is not None and now >= req.deadline
+                ):
+                    return True  # queue expiry needs the sequential sweep
+            if self._free_slots and self.breaker.ready():
+                return True  # an admission could actually place
+        for s in self._running.values():
+            req = s.req
+            if (
+                req.handle.done()
+                or req.cancelled
+                or req.finished()
+                or (req.deadline is not None and now >= req.deadline)
+                or req.drafter is not None
+            ):
+                return True
+        return False
+
+    def _discard_frontier(self) -> None:
+        """Drop the in-flight step WITHOUT bookkeeping: its tokens are
+        never emitted, and the next sequential step recomputes them (its
+        K/V writes, at positions past every context, are rewritten from
+        the same inputs). Swallows the step's own error."""
+        f, self._pipe = self._pipe, None
+        if f is None:
+            return
+        self.engine.discard_decode(f.handle)
+        self.pipe_discards += 1
+        self._heartbeat = None
+
+    def _drain_frontier(self, reason: str) -> None:
+        """Empty the pipeline before a non-steady event: consume the
+        in-flight step with FULL bookkeeping, so the state afterwards is
+        what a sequential scheduler would hold. Never raises: failures
+        take the pipeline-failure path."""
+        f, self._pipe = self._pipe, None
+        if f is None:
+            return
+        self.pipe_drains[reason] = self.pipe_drains.get(reason, 0) + 1
+        try:
+            self._consume_and_finish(f)
+        except Exception as e:
+            self._pipeline_failure(e, f.seq0)
+
+    def _consume_and_finish(self, f: _Frontier):
+        """Consume one in-flight decode step: its readback, the stall
+        arbitration, NaN blame, the token scatter; then, if a stream
+        finished, drain the successor before releasing its blocks.
+        Returns tokens emitted, or None when a failure was fully handled
+        here. Device errors propagate to the caller's pipeline-failure
+        handling."""
+        try:
+            faults.inject(faults.GENERATION_ASYNC_READBACK, ("decode", len(f.states)))
+        except BaseException:
+            self.engine.discard_decode(f.handle)  # its readback is lost with it
+            raise
+        out = self.engine.consume_decode(f.handle)
+        # completion stamp: the successor only starts device work now, so
+        # its heartbeat age is measured from here
+        nf = self._pipe
+        if nf is not None:
+            self._heartbeat = (nf.hb_seq, self.clock())
+            nf.handle.t_started = time.perf_counter()
+        else:
+            self._heartbeat = None
+        if self.supervisor._consume_stall(f.seq0):
+            # the watchdog tripped while this chain was in flight: the
+            # late result is stale; discard everything and replay
+            self._discard_frontier()
+            self.supervisor._restart_and_replay(
+                StalledStepError("decode step exceeded the watchdog stall timeout"),
+                "decode",
+            )
+            return None
+        ok = self.engine.last_finite
+        live = [s for s in f.states if self._running.get(s.slot) is s]
+        if any(not bool(ok[s.slot]) for s in live):
+            # the successor was dispatched from this step's (poisoned)
+            # tokens: discard it, then apply the standard blame rules
+            self._discard_frontier()
+            if self._quarantine_nan("decode", f.states):
+                return None
+        n_live, finish = self._scatter_decode(f.states, out, defer_finish=True)
+        if finish:
+            # the successor may still be writing into the finishing
+            # streams' blocks: drain it (bookkept; its tokens for finished
+            # slots are skipped) before any release
+            if self._pipe is not None:
+                self._drain_frontier("finish")
+            for st in finish:
+                if self._running.get(st.slot) is st and not st.req.handle.done():
+                    self._finish(st)
         return n_live
+
+    def _dispatch_pipeline(self, live, prev: Optional[_Frontier]) -> _Frontier:
+        """Dispatch the next decode step without waiting. With an
+        unconsumed predecessor the token input is its device output, and
+        the argument arrays are the predecessor's, bumped in place."""
+        b = self.engine.max_batch_slots
+        sig = tuple((s.slot, s.req.id, len(s.blocks)) for s in live)
+        covered = {s.slot for s in prev.states} if prev is not None else set()
+        if prev is not None and prev.sig == sig:
+            positions, active = prev.positions, prev.active
+            temps, top_ks = prev.temps, prev.top_ks
+            seeds, counts, tables = prev.seeds, prev.counts, prev.tables
+            for s in live:  # same composition: everyone advances by one
+                positions[s.slot] += 1
+                counts[s.slot] += 1
+        else:
+            positions = np.zeros((b,), np.int32)
+            active = np.zeros((b,), bool)
+            temps = np.zeros((b,), np.float32)
+            top_ks = np.zeros((b,), np.int32)
+            seeds = np.zeros((b,), np.uint32)
+            counts = np.zeros((b,), np.int32)
+            tables = np.zeros((b, self.engine.max_blocks_per_seq), np.int32)
+            for s in live:
+                i = s.slot
+                pend = 1 if i in covered else 0
+                positions[i] = s.cached_len + pend
+                counts[i] = s.req.n_generated + pend
+                active[i] = True
+                temps[i] = s.req.sampling.temperature
+                top_ks[i] = s.req.sampling.top_k
+                seeds[i] = s.req.sampling.seed & 0xFFFFFFFF
+                tables[i, : len(s.blocks)] = s.blocks
+        tokens_host = None
+        if prev is None:
+            tokens_host = np.zeros((b,), np.int32)
+            for s in live:
+                req = s.req
+                tokens_host[s.slot] = req.generated[-1] if req.generated else req.prompt[-1]
+        hb_prev = self._heartbeat
+        seq0 = prev.seq0 if prev is not None else self._hb_seq
+        self._hb_seq += 1
+        seq = self._hb_seq
+        self._heartbeat = (seq, self.clock())  # dispatch stamp
+        try:
+            handle = self.engine.decode_async(
+                tokens_host, positions, tables, active, temps, top_ks, seeds, counts,
+                carry=None if prev is None else prev.handle,
+            )
+        except Exception:
+            self._heartbeat = hb_prev  # the step never went in flight
+            raise
+        return _Frontier(handle, list(live), positions, active, temps, top_ks, seeds,
+                         counts, tables, sig, seq, seq0)
+
+    def _pipeline_failure(self, e: BaseException, since_seq: int) -> None:
+        """A pipelined dispatch or consume failed. Discard what is in
+        flight, then give the failed step the sequential treatment from
+        the point after its first failure (``supervisor.resume_step``). A
+        ``donate`` engine goes straight to reset + journal replay."""
+        self._discard_frontier()
+        if self.engine.donate:
+            self.supervisor._restart_and_replay(e, "decode")
+            return
+        order = [
+            s for s in sorted(self._running.values(), key=lambda s: s.slot)
+            if not s.req.handle.done() and not s.req.finished()
+        ]
+        if not order:
+            return
+        step, probe = self._decode_step_fns(order)
+        out = self.supervisor.resume_step("decode", e, step, order, probe, since_seq)
+        if out is None:
+            return
+        if self._quarantine_nan("decode", order):
+            return
+        self._scatter_decode(order, out)
+
+    def _try_pipeline(self) -> Optional[bool]:
+        """One overlapped-decode iteration. Returns None when the
+        iteration must run sequentially instead (the frontier is drained
+        by then); True when pipelined work happened. Steady state:
+        dispatch step N+1 (its tokens carried from step N on the device),
+        then consume step N, whose bookkeeping runs while N+1 executes."""
+        now = self.clock()
+        if self._nonsteady(now):
+            # drain, then fall through to the sequential body in the SAME
+            # iteration: the non-steady event must not wait an extra step
+            self._drain_frontier("nonsteady")
+            return None
+        order = sorted(self._running.values(), key=lambda s: s.slot)
+        if not order:
+            if self._pipe is not None:  # defensive: should be unreachable
+                self._drain_frontier("idle")
+            return None
+        f = self._pipe
+        covered = {s.slot for s in f.states} if f is not None else set()
+        # slots live at the NEXT dispatch: budget-predicted finishes are
+        # excluded (sequential would have freed them before this step);
+        # EOS cannot be predicted and is handled at consume
+        live = []
+        for s in order:
+            pend = 1 if s.slot in covered else 0
+            if s.req.n_generated + pend >= s.req.max_new:
+                continue
+            live.append(s)
+        if not live:
+            if f is None:
+                return None
+            # stream tail: nothing left to dispatch — consume only
+            self._pipe = None
+            try:
+                self._consume_and_finish(f)
+            except Exception as e:
+                self._pipeline_failure(e, f.seq0)
+            return True
+        # grow block tables for the dispatch positions (plain allocation
+        # only: reclaim/preempt pressure is handled sequentially)
+        for s in live:
+            pend = 1 if s.slot in covered else 0
+            need = self.engine.cache_config.blocks_for(s.cached_len + pend + 1)
+            short = False
+            while len(s.blocks) < need:
+                got = self.engine.allocator.allocate(1)
+                if got is None:
+                    short = True
+                    break
+                s.blocks.extend(got)
+            if short:
+                if f is not None:
+                    self._drain_frontier("pressure")
+                    return True
+                return None
+        try:
+            new_f = self._dispatch_pipeline(live, f)
+        except Exception as e:
+            # dispatch failed host-side; the in-flight predecessor is
+            # healthy: consume it first, then give the failed step the
+            # sequential recovery treatment
+            if f is not None:
+                self._pipe = None
+                try:
+                    self._consume_and_finish(f)
+                except Exception as e2:
+                    self._pipeline_failure(e2, f.seq0)
+                    return True
+            self._pipeline_failure(e, self._hb_seq)
+            return True
+        self._pipe = new_f
+        self.pipe_dispatches += 1
+        if f is None:
+            return True  # warm-up: its tokens arrive next iteration
+        try:
+            self._consume_and_finish(f)
+        except Exception as e:
+            self._pipeline_failure(e, f.seq0)
+        return True
 
     def _trim_blocks(self, state: _Running) -> None:
         """Return trailing blocks a partially-accepted window no longer
@@ -564,8 +1263,8 @@ class ContinuousBatchingScheduler:
     def _verify_once(self) -> bool:
         """One speculative verification step across all running slots:
         draft (host), verify the batch x (k+1) window (ONE fixed-shape
-        device step), then emit each slot's accepted run — truncated at
-        mid-window EOS and the request's budget."""
+        device step, supervised), then emit each slot's accepted run —
+        truncated at mid-window EOS and the request's budget."""
         if not self._running:
             return False
         b = self.engine.max_batch_slots
@@ -592,12 +1291,31 @@ class ContinuousBatchingScheduler:
                     self._incr("drafter_errors")
             window[i, 1: 1 + len(draft)] = draft
             n_draft[i] = len(draft)
-        out, n_emitted = self.engine.verify(
-            window, start, n_draft, tables, temps, top_ks, seeds, counts
-        )
+
+        def step():
+            return self.engine.verify(window, start, n_draft, tables, temps, top_ks, seeds,
+                                      counts)
+
+        def probe(subset):
+            nd = np.full((b,), -1, np.int32)  # everyone else inactive
+            for s in subset:
+                nd[s.slot] = n_draft[s.slot]
+            self._probe_call(
+                lambda: self.engine.verify(window, start, nd, tables, temps, top_ks, seeds,
+                                           counts)
+            )
+
+        result = self.supervisor.run_step("verify", step, order, probe)
+        if result is None:
+            return True  # failure handled: quarantined or journal-replayed
+        out, n_emitted = result
+        if self._quarantine_nan("verify", order):
+            return True
         for state in order:
             if self._running.get(state.slot) is not state:
                 continue  # preempted/expired between collect and scatter
+            if state.req.handle.done():
+                continue  # watchdog-reaped mid-step; _expire releases it
             req = state.req
             i = state.slot
             m = int(n_emitted[i])
@@ -625,9 +1343,15 @@ class ContinuousBatchingScheduler:
 
     # ---------------------------------------------------------------- step
     def step(self) -> bool:
-        """One scheduling iteration: expire, admit (join-mid-flight), plan
-        speculation, grow/preempt, then decode — or verify, when any
-        running request speculates. Returns True if any work happened."""
+        """One scheduling iteration. With overlap on, a steady iteration
+        pipelines dispatch/consume; otherwise (and after any frontier
+        drain): expire, admit (join-mid-flight), plan speculation,
+        grow/preempt, then decode — or verify, when any running request
+        speculates. Returns True if any work happened."""
+        if self.overlap:
+            r = self._try_pipeline()
+            if r is not None:
+                return r
         self._expire()
         admitted = 0
         while self._admit():

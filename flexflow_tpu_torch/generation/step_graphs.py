@@ -19,14 +19,20 @@ keeps there (the logits). A :class:`StepRunner` runs bodies by
   runner's one memory pool and replays it; every later step is a replay.
   A capture that fails raises; nothing falls back to eager steps.
 * **readback**: the readback tensor comes to a pinned host buffer in one
-  non-blocking copy, followed by one event sync.
+  non-blocking copy, followed by an event the step's collect waits on.
+  A step may be dispatched without waiting for it (the overlap
+  pipeline): staging and readback buffers alternate between two per
+  signature, and a step may take device tensors of its predecessor as
+  inputs (``carry``), so a sampled token never visits the host between
+  two steps.
 * **launches**: the paged kernels count their launches on the Python
   side, which a replay never reaches; the capture's launches are recorded
   and added per replay (``decode_attention.count_replay``).
 
 Eager steps (CPU tensors, or ``graphs=False`` on a CUDA device) run the
 same body on the same packed input buffer, so the only difference between
-the two paths on the card is the replay.
+the two paths on the card is the replay. On the CPU a dispatch runs the
+body at once and its collect returns the result.
 """
 from __future__ import annotations
 
@@ -82,26 +88,64 @@ class StepLayout:
 
 
 class _Step:
-    """One signature's buffers and, on the graph path, its graph."""
+    """One signature's buffers and, on the graph path, its graph. The
+    staging and readback buffers come in pairs, one per step in flight
+    (``owner``: the handle that used each; on the CPU, where a step runs
+    at its dispatch, both entries are the one staging buffer)."""
 
-    __slots__ = ("layout", "host", "host_np", "dev", "readback", "graph", "outputs", "launches")
+    __slots__ = ("layout", "host", "host_np", "dev", "views", "readback", "events",
+                 "owner", "flip", "graph", "outputs", "launches")
 
     def __init__(self, layout: StepLayout, device: torch.device):
         self.layout = layout
         cuda = device.type == "cuda"
-        self.host = torch.empty((layout.size,), dtype=torch.int32, pin_memory=cuda)
-        self.host_np = self.host.numpy()
+        self.host = [torch.empty((layout.size,), dtype=torch.int32, pin_memory=cuda)
+                     for _ in range(2 if cuda else 1)] * (1 if cuda else 2)
+        self.host_np = [h.numpy() for h in self.host]
         # on the CPU the device buffer is the host buffer itself
-        self.dev = torch.empty_like(self.host, device=device) if cuda else self.host
-        self.readback: Optional[torch.Tensor] = None  # pinned, sized at the first step
+        self.dev = torch.empty_like(self.host[0], device=device) if cuda else self.host[0]
+        self.views = layout.unpack(self.dev)
+        self.readback: List[Optional[torch.Tensor]] = [None, None]  # pinned, sized at first use
+        self.events = [torch.cuda.Event() for _ in range(2)] if cuda else [None, None]
+        self.owner: List[Optional["InFlight"]] = [None, None]
+        self.flip = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None  # the capture's (readback, extra)
         self.launches: Dict[str, int] = {}
 
 
+class InFlight:
+    """One dispatched step: its staging slot, the event recorded after
+    its readback copy, and its device outputs (``readback_dev``, which a
+    later step may carry from, and ``extra``). Collected exactly once."""
+
+    __slots__ = ("step", "slot", "event", "readback_dev", "extra", "result", "collected")
+
+    def __init__(self, step: _Step, slot: int, event, readback_dev, extra, result=None):
+        self.step = step
+        self.slot = slot
+        self.event = event
+        self.readback_dev = readback_dev
+        self.extra = extra
+        self.result = result  # the host readback, set on the CPU at dispatch
+        self.collected = False
+
+
 class StepRunner:
     """Runs step bodies by signature on one device; ``graphs`` selects the
-    captured-graph path (CUDA only)."""
+    captured-graph path (CUDA only).
+
+    :meth:`dispatch` packs, uploads and launches a step and returns
+    without waiting for the device; :meth:`collect` waits for that step's
+    event and returns its readback. Up to two steps of a signature may be
+    in flight: each takes the other pinned staging and readback buffer
+    of the pair, so repacking step N+1 never touches step N's queued
+    upload, and step N+1's readback never lands where the host is still
+    to read step N's. A dispatch may *carry* device tensors into named
+    inputs (copied device to device after the upload, before the step
+    runs): the overlap pipeline feeds step N's sampled tokens to step
+    N+1 without a round trip through the host. On the CPU a dispatch
+    runs the body synchronously and collect returns its result."""
 
     def __init__(self, device: torch.device, graphs: bool):
         if graphs and device.type != "cuda":
@@ -111,7 +155,6 @@ class StepRunner:
         self._steps: Dict[Hashable, _Step] = {}
         self._pool = torch.cuda.graph_pool_handle() if graphs else None
         self._side = torch.cuda.Stream(device) if graphs else None  # warm-ups run here
-        self._event = torch.cuda.Event() if device.type == "cuda" else None
 
     def __contains__(self, sig: Hashable) -> bool:
         return sig in self._steps
@@ -119,19 +162,45 @@ class StepRunner:
     def run(
         self, sig: Hashable, arrays: Mapping[str, np.ndarray], body: StepBody
     ) -> Tuple[np.ndarray, object]:
-        """One step of signature ``sig``: pack and upload ``arrays``, run
-        ``body`` on their views (on the graph path: replay the signature's
-        graph, captured at its first step) and bring the readback to the
-        host. Returns (readback as a numpy int32 array, the body's extra
-        output, which on the graph path the next replay overwrites)."""
+        """One step of signature ``sig``, dispatched and collected: pack
+        and upload ``arrays``, run ``body`` on their views (on the graph
+        path: replay the signature's graph, captured at its first step)
+        and bring the readback to the host. Returns (readback as a numpy
+        int32 array, the body's extra output, which on the graph path the
+        next replay overwrites)."""
+        return self.collect(self.dispatch(sig, arrays, body))
+
+    def dispatch(
+        self,
+        sig: Hashable,
+        arrays: Mapping[str, np.ndarray],
+        body: StepBody,
+        carry: Optional[Mapping[str, torch.Tensor]] = None,
+    ) -> InFlight:
+        """Launch one step of ``sig`` without waiting for it. ``carry``
+        maps input names to device tensors that replace those inputs'
+        uploaded values."""
         step = self._steps.get(sig)
         if step is None:
             step = self._steps[sig] = _Step(StepLayout(arrays), self.device)
-        step.layout.pack(step.host_np, arrays)
+        i = step.flip
+        prev = step.owner[i]
+        if prev is not None and not prev.collected:
+            raise RuntimeError(
+                f"step {sig!r}: a third step dispatched while two are in flight")
+        step.flip = 1 - i
+        step.layout.pack(step.host_np[i], arrays)
         if self.device.type != "cuda":
-            readback, extra = body(step.layout.unpack(step.dev))
-            return readback.numpy(), extra
-        step.dev.copy_(step.host, non_blocking=True)
+            # the step runs now and its handle keeps the result
+            for name, src in (carry or {}).items():
+                step.views[name].copy_(src)
+            readback, extra = body(step.views)
+            handle = InFlight(step, i, None, readback, extra, result=readback.numpy().copy())
+            step.owner[i] = handle
+            return handle
+        step.dev.copy_(step.host[i], non_blocking=True)
+        for name, src in (carry or {}).items():
+            step.views[name].copy_(src)
         if self.graphs:
             if step.graph is None:
                 self._capture(step, body)
@@ -139,16 +208,30 @@ class StepRunner:
             da.count_replay(step.launches)
             readback, extra = step.outputs
         else:
-            readback, extra = body(step.layout.unpack(step.dev))
-        if step.readback is None:
-            step.readback = torch.empty(readback.shape, dtype=readback.dtype, pin_memory=True)
-        step.readback.copy_(readback, non_blocking=True)
-        self._event.record()
-        self._event.synchronize()
-        return step.readback.numpy().copy(), extra
+            readback, extra = body(step.views)
+        if step.readback[i] is None:
+            step.readback[i] = torch.empty(readback.shape, dtype=readback.dtype,
+                                           pin_memory=True)
+        step.readback[i].copy_(readback, non_blocking=True)
+        event = step.events[i]
+        event.record()
+        handle = InFlight(step, i, event, readback, extra)
+        step.owner[i] = handle
+        return handle
+
+    def collect(self, handle: InFlight) -> Tuple[np.ndarray, object]:
+        """Wait for a dispatched step and return (its readback as a numpy
+        int32 array, its extra output)."""
+        if handle.collected:
+            raise RuntimeError("a dispatched step was collected twice")
+        handle.collected = True
+        if handle.result is None:
+            handle.event.synchronize()
+            handle.result = handle.step.readback[handle.slot].numpy().copy()
+        return handle.result, handle.extra
 
     def _capture(self, step: _Step, body: StepBody) -> None:
-        inputs = step.layout.unpack(step.dev)
+        inputs = step.views
         stream = torch.cuda.current_stream(self.device)
         self._side.wait_stream(stream)
         with torch.cuda.stream(self._side):

@@ -509,3 +509,142 @@ def test_cuda_engine_serves_a_41_token_verify_window(cuda):
     assert graph.generate(prompts, seeded, speculation=spec) == eager.generate(
         prompts, seeded, speculation=spec)
     assert graph.step_counts["verify"] > 0 and graph.trace_counts["verify"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the overlap pipeline's dispatch/collect and the engine's reset, on the card
+# ---------------------------------------------------------------------------
+
+
+def _decode_batch(engine, other):
+    """Three prefilled sequences, the same blocks in ``engine`` and
+    ``other``; returns the decode inputs of their first step."""
+    b, mb = 3, engine.max_blocks_per_seq
+    prompts = [[1, 2, 3, 1, 2, 3, 1], list(range(5, 17)), list(range(20, 50))]
+    sps = [SamplingParams(), SamplingParams(temperature=0.9, top_k=10, seed=21),
+           SamplingParams(temperature=0.7, seed=5)]
+    tables = np.zeros((b, mb), np.int32)
+    tokens = np.zeros((b,), np.int32)
+    for i, (p, sp) in enumerate(zip(prompts, sps)):
+        blocks = engine.allocator.allocate(engine.cache_config.blocks_for(len(p) + 20))
+        assert other.allocator.allocate(len(blocks)) == blocks
+        tables[i, : len(blocks)] = blocks
+        tokens[i] = engine.prefill_one(p, blocks, sp, 0)
+        assert other.prefill_one(p, blocks, sp, 0) == tokens[i]
+    return dict(
+        tokens=tokens, positions=np.asarray([len(p) for p in prompts], np.int32), tables=tables,
+        active=np.ones((b,), bool), temps=np.asarray([sp.temperature for sp in sps], np.float32),
+        top_ks=np.asarray([sp.top_k for sp in sps], np.int32),
+        seeds=np.asarray([sp.seed for sp in sps], np.uint32))
+
+
+def _args(x, step):
+    return (x["positions"] + step, x["tables"], x["active"], x["temps"], x["top_ks"],
+            x["seeds"], np.full((3,), 1 + step, np.int32))
+
+
+def test_cuda_two_decode_steps_in_flight_equal_two_sequential_steps(cuda):
+    """Step N+1 dispatched, its tokens carried on the device from step N,
+    before either is collected: the tokens, the last logits and the cache
+    equal two sequential host-fed steps of the eager engine."""
+    graph, eager = _graph_and_eager_engines(cuda)
+    x = _decode_batch(graph, eager)
+    h1 = graph.decode_async(x["tokens"], *_args(x, 0))
+    h2 = graph.decode_async(None, *_args(x, 1), carry=h1)
+    t1 = graph.consume_decode(h1)
+    t2 = graph.consume_decode(h2)
+    r1 = eager.decode(x["tokens"], *_args(x, 0))
+    r2 = eager.decode(r1, *_args(x, 1))
+    np.testing.assert_array_equal(t1, r1)
+    np.testing.assert_array_equal(t2, r2)
+    assert torch.equal(graph.last_logits, eager.last_logits)
+    assert torch.equal(graph.cache.k[:, 1:], eager.cache.k[:, 1:])
+    assert torch.equal(graph.cache.v[:, 1:], eager.cache.v[:, 1:])
+    assert graph.trace_counts["decode"] == 1
+
+
+def test_cuda_staging_and_readback_buffers_are_not_clobbered(cuda):
+    """Two steps of one signature in flight take the two pinned staging
+    and readback buffers: the first step's staged inputs survive the
+    second's packing, each readback lands in its own buffer, and a third
+    dispatch before a collect raises."""
+    graph, eager = _graph_and_eager_engines(cuda)
+    x = _decode_batch(graph, eager)
+    h1 = graph.decode_async(x["tokens"], *_args(x, 0))
+    staged = h1.handle.step.host[h1.handle.slot].clone()
+    h2 = graph.decode_async(x["tokens"] + 1, *_args(x, 5))
+    step = h1.handle.step
+    assert h1.handle.slot != h2.handle.slot and step.host[0].data_ptr() != step.host[1].data_ptr()
+    assert torch.equal(step.host[h1.handle.slot], staged)
+    assert step.readback[0].data_ptr() != step.readback[1].data_ptr()
+    with pytest.raises(RuntimeError, match="in flight"):
+        graph.decode_async(x["tokens"], *_args(x, 6))
+    t1, t2 = graph.consume_decode(h1), graph.consume_decode(h2)
+    np.testing.assert_array_equal(t1, eager.decode(x["tokens"], *_args(x, 0)))
+    np.testing.assert_array_equal(t2, eager.decode(x["tokens"] + 1, *_args(x, 5)))
+
+
+def test_cuda_token_carry_equals_a_host_fed_step(cuda):
+    """A step whose tokens are carried from its predecessor on the device
+    gives the tokens and logits of the same step fed those tokens from
+    the host."""
+    graph, eager = _graph_and_eager_engines(cuda)
+    x = _decode_batch(graph, eager)
+    h1 = graph.decode_async(x["tokens"], *_args(x, 0))
+    t1 = graph.consume_decode(h1)
+    carried = graph.consume_decode(graph.decode_async(None, *_args(x, 1), carry=h1))
+    carried_logits = graph.last_logits.clone()
+    host_fed = graph.decode(t1, *_args(x, 1))  # rewrites the same positions
+    np.testing.assert_array_equal(carried, host_fed)
+    assert torch.equal(carried_logits, graph.last_logits)
+
+
+def test_cuda_reset_zeroes_the_cache_in_place_and_captures_nothing(cuda):
+    """``reset()`` zeroes cache.k/cache.v where the graphs hold them,
+    restores the allocator, and the replayed graphs then give the same
+    streams again, capturing nothing again; a scheduler's crash on the card
+    (``donate`` set) resets and replays the journal to the fault-free
+    streams."""
+    from flexflow_tpu_torch.runtime import faults
+
+    graph, _ = _graph_and_eager_engines(cuda)
+    prompts = [[1, 2, 3, 1, 2, 3, 1, 2], [4, 5] * 6, list(range(30, 47))]
+    sp = SamplingParams(max_new_tokens=12, temperature=0.8, top_k=20, seed=9)
+    ref = graph.generate(prompts, sp)
+    ptrs, captures = (graph.cache.k.data_ptr(), graph.cache.v.data_ptr()), dict(graph.trace_counts)
+    graph.reset()
+    assert graph.resets == 1 and graph.donate
+    assert (graph.cache.k.data_ptr(), graph.cache.v.data_ptr()) == ptrs
+    assert not graph.cache.k.any() and not graph.cache.v.any()
+    assert graph.allocator.num_free == graph.allocator.num_total
+    assert graph.generate(prompts, sp) == ref
+    sched = ContinuousBatchingScheduler(graph)
+    plan = faults.FaultPlan(seed=0).on(faults.GENERATION_DECODE_STEP, mode="error",
+                                       error=RuntimeError("crash"), nth=(4,))
+    with plan.active():
+        handles = [sched.submit(p, sp) for p in prompts]
+        while not all(h.done() for h in handles):
+            sched.step()
+    assert [h.result(0) for h in handles] == ref
+    assert graph.resets == 2 and sched.recovery_stats.recoveries == 1
+    assert (graph.cache.k.data_ptr(), graph.cache.v.data_ptr()) == ptrs
+    # the replay's prefills may take a new (suffix) signature, never a
+    # second capture of one
+    assert {k: graph.trace_counts[k] for k in captures} == captures and not graph.recompiles()
+
+
+def test_cuda_pipelined_streams_equal_sequential_and_eager(cuda):
+    """Through the scheduler on graph steps, overlap on and off, and on
+    eager steps: identical streams, the pipeline engaged."""
+    graph, eager = _graph_and_eager_engines(cuda, slots=2)
+    prompts = [[1, 2, 3, 4, 5, 6, 7], list(range(5, 17)), list(range(20, 50)), [7, 7, 7]]
+    sp = SamplingParams(max_new_tokens=20, temperature=0.8, top_k=20, seed=3)
+    outs = []
+    for engine, overlap in ((graph, True), (graph, False), (eager, True), (eager, False)):
+        sched = ContinuousBatchingScheduler(engine, overlap=overlap)
+        handles = [sched.submit(p, sp) for p in prompts]
+        while not all(h.done() for h in handles):
+            sched.step()
+        outs.append([h.result(0) for h in handles])
+        assert (sched.pipe_dispatches > 0) == overlap
+    assert all(o == outs[0] for o in outs)

@@ -35,6 +35,7 @@ from flexflow_tpu_torch.generation import (
     ContinuousBatchingScheduler,
     GenerationEngine,
     PackedBlock,
+    PoisonedRequestError,
     SamplingParams,
     SpeculationConfig,
     decoder_params_from_numpy,
@@ -477,7 +478,7 @@ def test_non_finite_prefill_fails_the_request_and_registers_nothing(both_params)
     sched = ContinuousBatchingScheduler(eng, clock=FakeClock())
     h = sched.submit(TEMPLATE[:16] + list(range(30, 40)), sp)
     sched.step()
-    with pytest.raises(FloatingPointError, match="non-finite"):
+    with pytest.raises(PoisonedRequestError, match="non-finite"):
         h.result(timeout=0)
     assert sched.counts["failed"] == 1 and not sched.has_work()
     assert eng.prefix_cache.registered_total == registered
