@@ -90,7 +90,27 @@ prints no result line):
    one slot (quarantine): surviving streams equal the fault-free ones,
    the expected resets, the cache tensors unmoved, nothing captured
    again.
-9. anatomy: torch.profiler over a short 4-slot run — the device's busy
+9. constrained decoding: a 50257-entry token table (the port's default
+   table, which stops at 1422 entries, then three-character fillers), a
+   JSON-schema grammar ({"ok": boolean, "n": integer}) and a regex grammar
+   ([a-z]{1,8}-[0-9]{2,4}) compiled against it (seconds printed); the
+   serving cell's 8 request lengths as prefixes of one random sequence,
+   4 constrained (2 greedy, 2 at temperature 0.8 / top-k 50) and 4
+   unconstrained, 32 new tokens each, through the graph engine (overlap
+   on, off, and again on), the eager engine, the graph engine with greedy
+   n-gram speculation (k = 4) and a graph engine with the prefix cache on
+   (the constrained admissions become masked suffix prefills). Every
+   constrained text must parse as its grammar says, the streams must be
+   identical across all runs (under speculation the greedy ones), each
+   step num_layers paged launches, and no run may capture anything (each
+   engine first served the same requests unconstrained). A masked decode
+   step and a masked verify step (legal drafts) must agree with the plain
+   attention path plus the same grammar rows within 1e-3. Then the decode
+   step's ms with four unconstrained slots (overlap off and on) and with
+   one constrained slot (an endless [a-z ]+ grammar), the mask bytes
+   written per step, and a mask_advance error that must quarantine one
+   constrained request while the rest equal the fault-free run.
+10. anatomy: torch.profiler over a short 4-slot run — the device's busy
    share of the wall time and the device time by kernel; eight decode
    steps of four live slots under the profiler, replayed and eager
    (device and wall ms a step, device kernels a step, one paged kernel a
@@ -100,7 +120,7 @@ prints no result line):
    whose device kernels must all be the paged kernel. The profiler runs
    only after the timed phases: once started, it slows the host's later
    launches.
-10. flash kernels: the flash-attention forward, dQ and dK/dV kernels
+11. flash kernels: the flash-attention forward, dQ and dK/dV kernels
    against their plain PyTorch versions (atol 1e-4 + rtol 1e-4) at the
    training path's shape (B=32, S=128, H=12, D=64) and at a causal
    S=512 shape and edge shapes (S=100 D=128, Sq=64 Sk=200, D=256, S=1,
@@ -109,7 +129,7 @@ prints no result line):
    forward, and its backward: its kernels' durations by torch.profiler),
    beside the card's bound for fp32-accurate products on the tensor cores
    (and for the same operations on the fp32 CUDA cores).
-11. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
+12. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
    seq 128, batch 32, fp32, weights from --seed) through FFModel ->
    compile (SGD lr 0.01, MSE) -> fit: one step with the kernels and one
    with the plain attention from the same weights must agree; then
@@ -1560,6 +1580,363 @@ def overlap_phase(seed: int, params) -> dict:
     return stats
 
 
+# a grammar per constrained request of the constrained phase: a JSON
+# object and a regex (the first two formats), and one that never ends,
+# for the timed stretch with a constrained slot
+CONSTRAINED_SCHEMA = {"type": "object",
+                      "properties": {"ok": {"type": "boolean"}, "n": {"type": "integer"}}}
+CONSTRAINED_FORMATS = (
+    {"type": "json_schema", "json_schema": CONSTRAINED_SCHEMA},
+    {"type": "regex", "pattern": "[a-z]{1,8}-[0-9]{2,4}"},
+    {"type": "regex", "pattern": "[a-z ]+"},
+)
+
+
+def serving_vocabulary(size: int) -> tuple:
+    """A deterministic token table of exactly ``size`` entries: the port's
+    default table (which stops at 1422 entries), then three-character
+    fillers over its filler alphabet."""
+    from flexflow_tpu_torch.generation.constrained import default_vocabulary
+
+    toks = list(default_vocabulary(size))
+    fill = ("".join(p) for p in itertools.product("0123456789abcdefghijklmnopqrstuvwxyz_",
+                                                   repeat=3))
+    toks.extend(itertools.islice(fill, size - len(toks)))
+    if len(toks) != size:
+        raise AssertionError(f"vocabulary of {len(toks)} entries, wanted {size}")
+    return tuple(toks)
+
+
+def check_grammar_text(vocab, tokens, spec) -> str:
+    """The stream's text, which must be what its grammar allows."""
+    from flexflow_tpu_torch.generation.constrained import (
+        compile_regex,
+        decode_text,
+        grammar_alphabet,
+        validate_json,
+    )
+
+    text = decode_text(vocab, tokens, None)
+    if spec["type"] == "json_schema":
+        errs = validate_json(text, spec["json_schema"])
+        if errs:
+            raise AssertionError(f"constrained: {text!r} fails its schema: {errs}")
+    elif not compile_regex(spec["pattern"], grammar_alphabet(vocab)).matches(text):
+        raise AssertionError(f"constrained: {text!r} does not match {spec['pattern']!r}")
+    return text
+
+
+def serve_grammars(engine, prompts, samplings, grammars, overlap=None, speculation=None):
+    """Every request at once through a fresh scheduler (a grammar per
+    request, None for an unconstrained one; ``speculation`` for the greedy
+    requests), stepped to the end. Returns (handles, scheduler, wall s)."""
+    import torch
+
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+
+    torch.cuda.synchronize()
+    sched = ContinuousBatchingScheduler(engine, overlap=overlap)
+    t0 = time.perf_counter()
+    handles = [sched.submit(p, s, grammar=g,
+                            speculation=speculation if s.temperature <= 0 else None)
+               for p, s, g in zip(prompts, samplings, grammars)]
+    for _ in range(10_000):
+        if all(h.done() for h in handles):
+            break
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(h.done() for h in handles):
+        raise AssertionError("constrained: requests did not finish")
+    return handles, sched, wall
+
+
+def check_masked_logits(engine, grammars, rs) -> dict:
+    """A live constrained batch (two constrained greedy slots with the
+    n-gram drafter, two unconstrained): one masked decode step and one
+    masked verify step (legal drafts walked along each grammar) run
+    through the engine's graphs, whose logits must agree with the plain
+    attention path's plus the same grammar rows within LOGITS_ATOL."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.generation.decoder import decode_step, verify_step
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+    from flexflow_tpu_torch.generation.speculative import SpeculationConfig
+
+    cfg, dev = engine.cfg, engine.device
+    b, w, v = engine.max_batch_slots, engine.spec_window, cfg.vocab_size
+    sched = ContinuousBatchingScheduler(engine, overlap=False)
+    spec = SpeculationConfig(k=w - 1)
+    live = [sched.submit(rs.randint(0, v, n).tolist(), SamplingParams(max_new_tokens=24),
+                         grammar=g, speculation=spec if g is not None else None)
+            for n, g in zip((100, 37, 250, 16), (grammars[0], grammars[1], None, None))]
+    sched.step()  # admissions + one masked verify (zero or more drafts)
+    order = sorted(sched._running.values(), key=lambda s: s.slot)
+    slots = sched._collect_slots(order)
+    tokens, positions, tables, active = slots[:4]
+    mask = sched._decode_mask(order)
+    dense = np.zeros((b, v), np.float32)
+    for i, row in mask.items():
+        dense[i] = row
+    engine.decode(*slots, mask=mask)
+    got = engine.last_logits.clone()
+    x = engine.decode_arrays(tokens, positions, tables, active)
+    ck, cv = engine.cache.k.clone(), engine.cache.v.clone()
+    want, _, _ = decode_step(engine.params, *(torch.from_numpy(x[k]).to(dev) for k in (
+        "tokens", "positions")), ck, cv, torch.from_numpy(x["tables"]).to(dev),
+        torch.from_numpy(x["context_lens"]).to(dev), backend="plain")
+    del ck, cv
+    act = torch.from_numpy(active).to(dev)
+    want = want + torch.from_numpy(dense).to(dev)
+    errs = {"decode": float((got[act] - want[act]).abs().max())}
+    if not torch.isfinite(got[act]).all():
+        raise AssertionError("constrained: masked decode logits not finite")
+    # a masked verify step: each constrained slot drafts a legal walk
+    sched._plan_speculation()
+    sched._grow()
+    order = sorted(sched._running.values(), key=lambda s: s.slot)
+    last, start, tables, _, temps, top_ks, seeds, counts = sched._collect_slots(order)
+    window = np.zeros((b, w), np.int32)
+    window[:, 0] = last
+    n_draft = np.full((b,), -1, np.int32)
+    bs = engine.cache_config.block_size
+    for state in order:
+        room = min(w - 1, len(state.blocks) * bs - state.cached_len - 1)
+        ms, draft = state.req.mask_state, []
+        if ms is not None:
+            st = ms.state
+            while len(draft) < room and ms.dfa.allowed(st):
+                tok = int(ms.dfa.allowed(st)[rs.randint(len(ms.dfa.allowed(st)))])
+                draft.append(tok)
+                st = ms.dfa.step(st, tok)
+        window[state.slot, 1: 1 + len(draft)] = draft
+        n_draft[state.slot] = len(draft)
+    wmask = sched._verify_mask(order, window, n_draft)
+    dense = np.zeros((b, w, v), np.float32)
+    for (i, j), row in wmask.items():
+        dense[i, j] = row
+    engine.verify(window, start, n_draft, tables, temps, top_ks, seeds, counts, wmask)
+    got = engine.last_logits.clone()
+    offs = np.arange(w)[None, :]
+    pos = np.where(offs <= n_draft[:, None], start[:, None] + offs, -1).astype(np.int32)
+    ck, cv = engine.cache.k.clone(), engine.cache.v.clone()
+    want, _, _ = verify_step(engine.params, torch.from_numpy(window).to(dev),
+                             torch.from_numpy(pos).to(dev), ck, cv,
+                             torch.from_numpy(tables).to(dev), backend="plain")
+    del ck, cv
+    valid = torch.from_numpy(pos >= 0).to(dev)
+    want = want + torch.from_numpy(dense).to(dev)
+    if not torch.isfinite(got[valid]).all():
+        raise AssertionError("constrained: masked verify logits not finite")
+    errs["verify"] = float((got[valid] - want[valid]).abs().max())
+    errs["verify_drafts"] = n_draft.tolist()
+    print("constrained: masked logits kernel vs plain attention: max abs err "
+          + json.dumps(errs))
+    if max(errs["decode"], errs["verify"]) > LOGITS_ATOL:
+        raise AssertionError(f"constrained: masked logits differ: {errs}")
+    for h in live:
+        h.cancel()
+    sched.step()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def constrained_stretch(engine, prompts, grammars, overlap: bool, steps: int) -> dict:
+    """Four slots decoding ``steps`` greedy steps with nothing non-steady
+    but the grammar (admitted before, finishing after): host-clock ms per
+    step, the engine's dispatch / execute / readback split of it (the
+    mask rows are written inside the dispatch), the grammar-mask bytes
+    written per step and the steps that wrote any."""
+    import torch
+
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+
+    sched = ContinuousBatchingScheduler(engine, overlap=overlap)
+    handles = [sched.submit(p, SamplingParams(max_new_tokens=steps + 8), grammar=g)
+               for p, g in zip(prompts, grammars)]
+    sched.step()
+    sched.step()
+    torch.cuda.synchronize()
+    decode0, bytes0, masked0 = (engine.step_counts["decode"], engine.mask_bytes_staged,
+                                engine.masked_step_count)
+    phases0 = dict(engine.phase_seconds)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = engine.step_counts["decode"] - decode0
+    if n != steps or len(sched._running) != len(prompts):
+        raise AssertionError(f"constrained stretch not steady: {n} steps")
+    out = {"steps": n, "ms_per_step": 1e3 * wall / n,
+           **{f"{k}_ms_per_step": 1e3 * (engine.phase_seconds[k] - phases0[k]) / n
+              for k in phases0},
+           "mask_bytes_per_step": (engine.mask_bytes_staged - bytes0) / n,
+           "masked_steps": engine.masked_step_count - masked0}
+    while not all(h.done() for h in handles):
+        sched.step()
+    return out
+
+
+def constrained_phase(seed: int, params) -> dict:
+    """Constrained decoding at GPT-2-small width behind the 4-slot engine:
+    a 50257-entry vocabulary, a JSON-schema and a regex grammar, and the
+    serving cell's 8 request lengths (prompts that are prefixes of one
+    another, so with the prefix cache on the constrained admissions are
+    masked suffix prefills): 4 constrained (2 greedy, 2 at temperature
+    0.8 / top-k 50) and 4 unconstrained greedy, 32 new tokens each.
+    Every engine first serves the same requests unconstrained, which
+    captures every signature the constrained runs use."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.generation.constrained import GrammarCache
+    from flexflow_tpu_torch.generation.engine import GenerationEngine, SamplingParams
+    from flexflow_tpu_torch.generation.recovery import PoisonedRequestError
+    from flexflow_tpu_torch.generation.speculative import SpeculationConfig
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+    from flexflow_tpu_torch.runtime import faults
+    from flexflow_tpu_torch.serving.stats import ConstrainedStats
+
+    cfg = gpt2_small()
+    vocab = serving_vocabulary(cfg.vocab_size)
+    cstats = ConstrainedStats()
+    cache = GrammarCache(vocab, stats=cstats)
+    compile_s, grammars = [], []
+    for spec in CONSTRAINED_FORMATS:
+        t0 = time.perf_counter()
+        grammars.append(cache.get(spec))
+        compile_s.append(time.perf_counter() - t0)
+    states = [g.char_dfa.n_states for g in grammars]
+    print(f"constrained: grammars of {states} character states compiled in "
+          + ", ".join(f"{s:.3f}" for s in compile_s) + " s; the start states allow "
+          + ", ".join(str(len(g.allowed(g.start))) for g in grammars) + " tokens")
+    engines = engine_pair(params, max_batch_slots=4, block_size=16, max_spec_tokens=4)
+    engines["prefix"] = GenerationEngine(params, cfg, max_batch_slots=4, block_size=16,
+                                         max_spec_tokens=4, prefix_cache=True)
+    spec = SpeculationConfig(k=4)
+    rs = np.random.RandomState(seed + 9)
+    lens = [16, 700, 64, 300, 128, 512, 40, 220]
+    base = rs.randint(0, cfg.vocab_size, max(lens)).tolist()
+    prompts = [base[:n] for n in lens]
+    samplings = [SamplingParams(max_new_tokens=32)] * 2 + [
+        SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=1234),
+        SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=5678),
+    ] + [SamplingParams(max_new_tokens=32)] * 4
+    formats = list(CONSTRAINED_FORMATS[:2]) * 2 + [None] * 4
+    request_grammars = [None if f is None else grammars[CONSTRAINED_FORMATS.index(f)]
+                        for f in formats]
+    captures = {}
+    for name, engine in engines.items():
+        warm(engine, rs)
+        warm(engine, rs, speculation=spec)
+        if name == "prefix":
+            clear_prefix_cache(engine)
+        serve_grammars(engine, prompts, samplings, [None] * 8)
+        serve_grammars(engine, prompts, samplings, [None] * 8, speculation=spec)
+        captures[name] = dict(engine.trace_counts)
+    runs, streams = {}, None
+    for label, name, overlap, speculation in (
+            ("graph, overlap on", "graph", True, None),
+            ("eager, overlap off", "eager", False, None),
+            ("graph, overlap off", "graph", False, None),
+            ("graph, speculation k=4", "graph", True, spec),
+            ("prefix on, graph", "prefix", True, None),
+            ("graph, overlap on (again)", "graph", True, None)):
+        engine = engines[name]
+        if name == "prefix":
+            clear_prefix_cache(engine)
+        steps0 = dict(engine.step_counts)
+        hits0 = engine.prefix_cache.hits
+        vsec0 = engine.step_seconds["verify"]
+        da.reset_launch_counts()
+        handles, sched, wall = serve_grammars(engine, prompts, samplings, request_grammars,
+                                              overlap=overlap, speculation=speculation)
+        launches = dict(da.LAUNCHES)
+        outs = [h.result(0) for h in handles]
+        texts = [check_grammar_text(vocab, out, f) for out, f in zip(outs, formats)
+                 if f is not None]
+        decode = engine.step_counts["decode"] - steps0["decode"]
+        verify = engine.step_counts["verify"] - steps0["verify"]
+        suffix = engine.prefix_cache.hits - hits0
+        want = cfg.num_layers * (decode + verify + suffix)
+        if launches["paged_append"] != want or launches["paged_append_split"]:
+            raise AssertionError(f"constrained {label}: launches {launches} != "
+                                 f"{cfg.num_layers} x ({decode} decode + {verify} verify + "
+                                 f"{suffix} suffix prefill steps)")
+        greedy = [o for o, s in zip(outs, samplings) if s.temperature <= 0]
+        if streams is None:
+            streams = outs
+        elif (greedy if speculation else outs) != (
+                [o for o, s in zip(streams, samplings) if s.temperature <= 0]
+                if speculation else streams):
+            raise AssertionError(f"constrained {label}: streams differ from the first run's")
+        if name == "prefix" and suffix == 0:
+            raise AssertionError("constrained: the prefix cache served no suffix prefill")
+        runs[label] = {"decode_steps": decode, "verify_steps": verify,
+                       "suffix_prefills": suffix, "wall_s": wall, "launches": launches,
+                       "verify_step_ms": 1e3 * (engine.step_seconds["verify"] - vsec0)
+                       / max(verify, 1),
+                       "masked_steps": sched.constrained_stats.masked_steps,
+                       "pipe_dispatches": sched.pipe_dispatches}
+        print(f"constrained ({label}): " + json.dumps(runs[label]) + " texts "
+              + json.dumps(texts))
+    for name, engine in engines.items():
+        if engine.trace_counts != captures[name]:
+            raise AssertionError(f"constrained traffic captured on {name}: "
+                                 f"{engine.trace_counts} vs {captures[name]}")
+    graph = engines["graph"]
+    stats = {"compile_s": compile_s, "char_states": states, "runs": runs,
+             "launches": {"paged_append": sum(r["launches"]["paged_append"]
+                                              for r in runs.values())}}
+    stats["logits_max_abs_err"] = check_masked_logits(graph, grammars, rs)
+    # the timed stretch: 4 live slots, none / one constrained, sequential
+    # and pipelined (a constrained slot always steps sequentially)
+    four = [rs.randint(0, cfg.vocab_size, n).tolist() for n in (300, 64, 700, 128)]
+    open_g = grammars[2]
+    cases = {"unconstrained, overlap off": ([None] * 4, False),
+             "one constrained slot": ([open_g, None, None, None], True),
+             "unconstrained, overlap on": ([None] * 4, True)}
+    stretch = {}
+    for label in list(cases) + list(reversed(cases)):
+        gs, overlap = cases[label]
+        r = constrained_stretch(graph, four, gs, overlap, 64)
+        stretch.setdefault(label, []).append(r)
+        print(f"constrained stretch ({label}, graph steps): " + json.dumps(r))
+    stats["stretch"] = stretch
+    # a mask_advance error quarantines one constrained request
+    plan = faults.FaultPlan(seed=0).on(faults.GENERATION_MASK_ADVANCE, mode="error",
+                                       error=RuntimeError("injected advance fault"), nth=(5,))
+    with plan.active():
+        handles, sched, _ = serve_grammars(graph, prompts, samplings, request_grammars)
+    failed, same = [], []
+    for i, (h, ref) in enumerate(zip(handles, streams)):
+        try:
+            same.append(h.result(0) == ref)
+        except PoisonedRequestError as e:
+            failed.append((i, e.step, e.reason))
+    if len(failed) != 1 or failed[0][1:] != ("mask", "mask_advance") or \
+            formats[failed[0][0]] is None or not all(same) or len(plan.events) != 1:
+        raise AssertionError(f"constrained: mask_advance fault gave {failed}, survivors {same}")
+    stats["quarantine"] = {"failed": failed, "dead_end_failures":
+                           sched.constrained_stats.dead_end_failures}
+    print("constrained: a mask_advance error quarantined " + json.dumps(stats["quarantine"]))
+    if graph.trace_counts != captures["graph"]:
+        raise AssertionError(f"constrained: captured again: {graph.trace_counts}")
+    for name, engine in engines.items():
+        torch.cuda.synchronize()
+        if any(m is not None and bool(m.any()) for m in (
+                engine._mask1, engine._mask_dec, engine._mask_ver)):
+            raise AssertionError(f"constrained: {name}'s grammar masks are not zero")
+    stats["masked_steps"] = sum(r["masked_steps"] for r in runs.values())
+    stats["mask_bytes_staged"] = {n: e.mask_bytes_staged for n, e in engines.items()}
+    stats["engine_masked_steps"] = {n: e.masked_step_count for n, e in engines.items()}
+    return stats
+
+
 def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool):
     """(bound_ms, bound_by, fp32_cuda_core_ms) of one flash kernel call:
     each input read once and each output written once over the card's
@@ -1950,6 +2327,7 @@ def main(argv=None) -> int:
     speculation = speculation_phase(args.seed, params)
     prefix = prefix_phase(args.seed, params)
     overlap = overlap_phase(args.seed, params)
+    constrained = constrained_phase(args.seed, params)
     anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
     del engines, long_engine, params
@@ -1970,7 +2348,8 @@ def main(argv=None) -> int:
         record("paged_append", "flexflow_tpu/ops/kernels/decode_attention.py:368",
                dict(rows["decode"], max_abs_err=max(r["max_abs_err"] for r in single)),
                serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]
-               + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]),
+               + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]
+               + constrained["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
     ] + [
@@ -2015,13 +2394,25 @@ def main(argv=None) -> int:
                   + "; device ms per step " + ", ".join(f"{r['device_ms_per_step']:.3f}" for r in st)
                   + "; device busy share " + ", ".join(f"{r['device_busy_share']:.3f}" for r in st)
                   + "; SM clock, power " + ", ".join(r["clocks_sm_power"] for r in st))
+    cruns = constrained["runs"]
+    print(f"{card}: constrained decoding: grammar compile s "
+          + ", ".join(f"{t:.3f}" for t in constrained["compile_s"])
+          + f"; masked slot-steps {constrained['masked_steps']}; verify step ms (k=4, "
+          f"constrained slots) {cruns['graph, speculation k=4']['verify_step_ms']:.3f}")
+    for label, rs_ in constrained["stretch"].items():
+        print(f"{card}: 4-slot decode, graph steps, {label}: ms per step "
+              + ", ".join(f"{r['ms_per_step']:.3f}" for r in rs_)
+              + "; dispatch / execute / readback ms per step " + ", ".join(
+                  f"{r['dispatch_ms_per_step']:.3f} / {r['execute_ms_per_step']:.3f} / "
+                  f"{r['readback_ms_per_step']:.3f}" for r in rs_) + "; mask bytes per step "
+              + ", ".join(f"{r['mask_bytes_per_step']:.0f}" for r in rs_))
     for name, r in rows.items():
         if name.startswith(("wide", "verify_w4", "split_w64")):
             print(f"{card}: paged kernel {name} ms {r['ms']:.4f} (bound {r['bound_ms']:.4f} "
                   f"by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
     print(json.dumps({"card": card, "serving": serving, "long_context": long_ctx,
                       "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
-                      "overlap": overlap,
+                      "overlap": overlap, "constrained": constrained,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training}))
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 forwards, the generation engine (its fixed-shape steps replayed as CUDA
 graphs on a GPU), the cross-request prefix cache, speculative decoding,
 the continuous-batching scheduler with its overlapped decode pipeline,
-and the self-healing layer under it (port of
-``flexflow_tpu/generation``)."""
+the self-healing layer under it, and grammar-constrained decoding
+(``constrained/``) (port of ``flexflow_tpu/generation``)."""
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
 from .convert import decoder_params_from_numpy
 from .decoder import (

@@ -60,13 +60,26 @@ them across a dispatch.
 
 Fault sites (``runtime/faults.py``): ``generation.prefill``,
 ``generation.decode_step`` and ``generation.verify`` fire at the top of
-their steps. Each step body adds a per-slot logit bias, a persistent
-device tensor of zeros that the graphs read; a fault plan's ``nan`` mode
-writes NaN into it in place for one step, which makes the poison
-indistinguishable from model-produced NaN to the finiteness flags.
+their steps; the prefill site sees the prompt alone, as in the JAX
+engine. The decode and verify bodies add a per-slot logit bias, a
+persistent device tensor of zeros that the graphs read; a fault plan's
+``nan`` mode writes NaN into it in place for one step, which makes the
+poison indistinguishable from model-produced NaN to the finiteness flags.
+
+Constrained decoding (``constrained/``): every step kind adds a grammar
+mask to its logits before sampling, as the JAX engine's programs do —
+[V] at prefill and suffix prefill (after the finiteness flag, which must
+see the model's logits), [B, V] at decode and [B, W, V] at verify (after
+the bias). Each mask is a persistent device tensor of zeros that the
+graphs read, so an unconstrained step uploads nothing and a constrained
+one captures nothing new. A constrained step writes its rows (0 / NEG,
+finite) before its launch and zeroes them after it, both in stream order,
+so no later replay reads a stale row. Nothing may reallocate the mask
+tensors either: :meth:`GenerationEngine.reset` zeroes them in place.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -330,12 +343,22 @@ class GenerationEngine:
         # step policy (see the class doc)
         self.resets = 0
         self.donate = bool(self.device.type != "cpu" if donate is None else donate)
-        # the fault plan's NaN-poison carriers: outside chaos runs inject
-        # returns these very host arrays, and the device biases stay zero
+        # the fault plan's NaN-poison carrier: outside chaos runs inject
+        # returns this very host array, and the device bias stays zero
         self._zero_bias = np.zeros((max_batch_slots,), np.float32)
-        self._zero_bias1 = np.zeros((1,), np.float32)
         self._bias = torch.zeros((max_batch_slots,), dtype=torch.float32, device=self.device)
-        self._bias1 = torch.zeros((1,), dtype=torch.float32, device=self.device)
+        # grammar masks (see the module doc): [V] for both prefill kinds,
+        # [B, V] for decode, [B, W, V] for verify (built at the first
+        # verify, as the JAX engine builds its verify zeros lazily)
+        v = cfg.vocab_size
+        self._mask1 = torch.zeros((v,), dtype=torch.float32, device=self.device)
+        self._mask_dec = torch.zeros((max_batch_slots, v), dtype=torch.float32,
+                                     device=self.device)
+        self._mask_ver: Optional[torch.Tensor] = None
+        # bytes of grammar-mask rows written to the device, and the steps
+        # that wrote any
+        self.mask_bytes_staged = 0
+        self.masked_step_count = 0
         self.graphs = self.device.type == "cuda" and not eager_steps
         self._steps = StepRunner(self.device, self.graphs)
         # the serving roofline prefix_plan weighs a swap-in against a
@@ -372,7 +395,9 @@ class GenerationEngine:
         self.prefix_cache.reset()
         self.last_finite = np.ones((self.max_batch_slots,), bool)
         self._bias.zero_()
-        self._bias1.zero_()
+        for m in (self._mask1, self._mask_dec, self._mask_ver):
+            if m is not None:
+                m.zero_()
         self.resets += 1
 
     def recompiles(self) -> Dict[str, int]:
@@ -389,15 +414,48 @@ class GenerationEngine:
         readback, self.last_logits = self._steps.run(sig, arrays, body)
         return readback
 
-    @staticmethod
-    def _poison(dev: torch.Tensor, bias: np.ndarray, zero: np.ndarray) -> bool:
-        """Write a fault plan's poisoned bias into the device bias ``dev``
-        (in place: the graphs read it) for one step; False, writing
-        nothing, when the plan left the bias alone."""
-        if bias is zero:
-            return False
-        dev.copy_(torch.from_numpy(np.asarray(bias, np.float32)))
-        return True
+    @contextlib.contextmanager
+    def _step_inputs(self, bias: Optional[np.ndarray], mask_dev: torch.Tensor, mask):
+        """Around one step's launch: write a fault plan's poisoned bias
+        into the device bias and the step's grammar-mask rows into
+        ``mask_dev`` (in place: the graphs read both), then zero what was
+        written once the step is launched, in stream order. ``bias`` is
+        None or the untouched zero bias when there is no poison; ``mask``
+        is None (no constrained row) or a dict {index into ``mask_dev``'s
+        leading dims: [V] row}. One host-to-device copy covers the span of
+        rows written. A mask that cannot be staged raises."""
+        poisoned = bias is not None and bias is not self._zero_bias
+        if poisoned:
+            self._bias.copy_(torch.from_numpy(np.asarray(bias, np.float32)))
+        span = None
+        try:
+            span = self._stage_mask(mask_dev, mask)
+            yield
+        finally:
+            if poisoned:
+                self._bias.zero_()
+            if span is not None:
+                mask_dev.view(-1, mask_dev.shape[-1])[span[0]:span[1]].zero_()
+
+    def _stage_mask(self, dev: torch.Tensor, mask) -> Optional[Tuple[int, int]]:
+        """Write ``mask``'s rows into ``dev`` (viewed [R, V]) with one copy
+        of their span; returns the span, or None when nothing was
+        written."""
+        if not mask:
+            return None
+        v = dev.shape[-1]
+        lead = tuple(dev.shape[:-1]) or (1,)
+        rows = {int(np.ravel_multi_index(np.atleast_1d(k), lead)): r for k, r in mask.items()}
+        lo, hi = min(rows), max(rows) + 1
+        host = np.zeros((hi - lo, v), np.float32)
+        for i, r in rows.items():
+            if np.shape(r) != (v,):
+                raise ValueError(f"grammar mask row of shape {np.shape(r)}, the vocabulary is {v}")
+            host[i - lo] = r
+        dev.view(-1, v)[lo:hi].copy_(torch.from_numpy(host))
+        self.mask_bytes_staged += host.nbytes
+        self.masked_step_count += 1
+        return lo, hi
 
     # --------------------------------------------------------- step bodies
     def _prefill_body(self, x: Dict[str, torch.Tensor]):
@@ -413,8 +471,8 @@ class GenerationEngine:
             cache_k[li].view(-1, *cache_k.shape[3:])[slots] = ks[li, 0]
             cache_v[li].view(-1, *cache_v.shape[3:])[slots] = vs[li, 0]
         last = logits[0].index_select(0, (length - 1).long())  # [1, V], device-indexed
-        last = last + self._bias1[:, None]
-        ok = torch.isfinite(last).all(dim=-1)
+        ok = torch.isfinite(last).all(dim=-1)  # blame: a poisoned prompt
+        last = last + self._mask1  # the grammar mask: finite, after the flag
         noise = prng.gumbel(derive_keys(x["seed"], x["count"]), (last.shape[-1],))
         token = _sample(last, x["temp"], x["top_k"], noise)
         return torch.cat([token, ok.to(torch.int32)]), last[0]
@@ -425,8 +483,9 @@ class GenerationEngine:
             x["tables"], x["context_lens"],
         )
         # the fault plan's per-slot NaN poison (zeros outside chaos runs),
-        # added before the finiteness reduce
-        logits = logits + self._bias[:, None]
+        # added before the finiteness reduce, then the grammar rows
+        # (finite: the flags trip on NaN, never on a banned token)
+        logits = logits + self._bias[:, None] + self._mask_dec
         ok = torch.isfinite(logits).all(dim=-1)
         # every slot's noise, keyed by (seed, count) on the device: greedy
         # and inactive rows ignore theirs
@@ -451,7 +510,9 @@ class GenerationEngine:
         logits, _, _ = verify_step(
             self.params, window, positions, self.cache.k, self.cache.v, x["tables"]
         )
-        logits = logits + self._bias[:, None, None]
+        # the grammar rows per window position: draft and target score the
+        # same masked logits, so acceptance stays exact
+        logits = logits + self._bias[:, None, None] + self._mask_ver
         # blame vector: finiteness over each slot's REAL window positions
         # only — padded positions may hold garbage that must not indict
         # the request
@@ -476,8 +537,8 @@ class GenerationEngine:
             self.params, tokens, positions, self.cache.k, self.cache.v, x["table"][None]
         )
         last = logits[0].index_select(0, (n_real - 1).long())  # [1, V], device-indexed
-        last = last + self._bias1[:, None]
-        ok = torch.isfinite(last).all(dim=-1)
+        ok = torch.isfinite(last).all(dim=-1)  # blame: a poisoned prompt
+        last = last + self._mask1  # the grammar mask (see _prefill_body)
         noise = prng.gumbel(derive_keys(x["seed"], x["count"]), (last.shape[-1],))
         token = _sample(last, x["temp"], x["top_k"], noise)
         return torch.cat([token, ok.to(torch.int32)]), last[0]
@@ -509,6 +570,7 @@ class GenerationEngine:
         sampling: SamplingParams,
         sample_index: int = 0,
         prefix_len: int = 0,
+        mask=None,
     ) -> int:
         """Prefill one sequence into its allocated blocks and sample its
         first generated token. ``block_table`` is the sequence's block ids
@@ -518,8 +580,9 @@ class GenerationEngine:
         positions [0, prefix_len) are already cached (shared prefix blocks
         at the front of the table): only the suffix is computed, a
         ``prefix_prefill[W]`` step per suffix bucket W, counted as a
-        prefill step."""
-        prompt, bias = faults.inject(faults.GENERATION_PREFILL, (prompt, self._zero_bias1))
+        prefill step. ``mask`` is an optional [V] grammar row (0 / NEG)
+        added to the sampled position's logits."""
+        faults.inject(faults.GENERATION_PREFILL, prompt)
         self.step_counts["prefill"] += 1
         t0 = time.perf_counter()
         computed = prompt[prefix_len:]
@@ -543,12 +606,8 @@ class GenerationEngine:
             seed=np.asarray([sampling.seed & MASK32], np.uint32),
             count=np.asarray([sample_index], np.int32),
         )
-        poisoned = self._poison(self._bias1, bias, self._zero_bias1)
-        try:
+        with self._step_inputs(None, self._mask1, None if mask is None else {0: mask}):
             token, ok = self._run(kind, (bucket,), arrays, body)
-        finally:
-            if poisoned:
-                self._bias1.zero_()
         self.last_finite = np.asarray([bool(ok)])
         self.step_seconds["prefill"] += time.perf_counter() - t0
         return int(token)
@@ -792,15 +851,18 @@ class GenerationEngine:
         top_ks: np.ndarray,
         seeds: np.ndarray,
         counts: np.ndarray,
+        mask=None,
     ) -> np.ndarray:
         """One decode step across all ``max_batch_slots`` slots, dispatched
         and consumed at once (the sequential loop's step). Arrays are
         slot-indexed; inactive slots (active[i] False) write to scratch and
         return garbage tokens the scheduler ignores. After the call
         ``last_finite[i]`` says whether slot i's logits were finite.
-        ``seeds``/``counts`` key each slot's sampling noise."""
+        ``seeds``/``counts`` key each slot's sampling noise; ``mask`` holds
+        the constrained slots' grammar rows ({slot: [V] row})."""
         return self.consume_decode(self.decode_async(
-            tokens, positions, block_tables, active, temps, top_ks, seeds, counts))
+            tokens, positions, block_tables, active, temps, top_ks, seeds, counts,
+            mask=mask))
 
     def decode_async(
         self,
@@ -813,6 +875,7 @@ class GenerationEngine:
         seeds: np.ndarray,
         counts: np.ndarray,
         carry: Optional[InFlightDecode] = None,
+        mask=None,
     ) -> InFlightDecode:
         """Dispatch one decode step WITHOUT waiting for it: the overlap
         pipeline's front half. :meth:`consume_decode` collects it one
@@ -844,15 +907,11 @@ class GenerationEngine:
         sig = ("decode", (b, mb))
         if sig not in self._steps:
             self.trace_counts["decode"] = self.trace_counts.get("decode", 0) + 1
-        poisoned = self._poison(self._bias, bias, self._zero_bias)
-        try:
+        with self._step_inputs(bias, self._mask_dec, mask):
             handle = self._steps.dispatch(
                 sig, arrays, self._decode_body,
                 carry=None if carry is None else {"tokens": carry.tokens_dev},
             )
-        finally:
-            if poisoned:
-                self._bias.zero_()  # stream-ordered after this step's launch
         t_disp = time.perf_counter()
         self.phase_seconds["dispatch"] += t_disp - t0
         self.step_seconds["decode"] += t_disp - t0
@@ -903,6 +962,7 @@ class GenerationEngine:
         top_ks: np.ndarray,
         seeds: np.ndarray,
         counts: np.ndarray,
+        mask=None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """One speculative verification step across all slots.
 
@@ -916,7 +976,9 @@ class GenerationEngine:
         (out_tokens [B, spec_window], n_emitted [B]) — the scheduler keeps
         ``out_tokens[i, :n_emitted[i]]`` (further truncated by EOS /
         budget). ONE fixed shape: per-request adaptive k only changes
-        ``n_draft`` values, never the shape."""
+        ``n_draft`` values, never the shape. ``mask`` holds the
+        constrained slots' grammar rows per window position ({(slot, j):
+        [V] row})."""
         b, w = self.max_batch_slots, self.spec_window
         if window_tokens.shape != (b, w):
             raise ValueError(f"verify window {window_tokens.shape}, the engine's is {(b, w)}")
@@ -934,13 +996,12 @@ class GenerationEngine:
             "seeds": np.asarray(seeds).astype(np.uint32),
             "counts": np.asarray(counts, np.int32),
         }
-        poisoned = self._poison(self._bias, bias, self._zero_bias)
-        try:
+        if self._mask_ver is None:
+            self._mask_ver = torch.zeros((b, w, self.cfg.vocab_size), dtype=torch.float32,
+                                         device=self.device)
+        with self._step_inputs(bias, self._mask_ver, mask):
             readback = self._run("verify", (b, w, arrays["tables"].shape[1]), arrays,
                                  self._verify_body)
-        finally:
-            if poisoned:
-                self._bias.zero_()
         self.last_finite = readback[b * w + b:].astype(bool)
         self.step_seconds["verify"] += time.perf_counter() - t0
         return readback[: b * w].reshape(b, w), readback[b * w: b * w + b]

@@ -39,6 +39,13 @@ batch recomposes freely —
   calls run under ``RetryPolicy`` and a :class:`CircuitBreaker`, NaN
   logits are blamed per slot (quarantine) or batch-wide (restart), and a
   :class:`StepWatchdog` on a heartbeat catches wedged steps;
+* **constrained decoding** (``constrained/``): a request submitted with a
+  compiled grammar carries an automaton cursor (``mask_state``), rebuilt
+  at every admission by re-advancing over its generated tokens (so
+  preemption and journal replay just drop it); each step it takes part
+  in — its prefill, decode or verify — adds its grammar rows to the
+  logits, drafts are cut to the longest prefix the grammar accepts, and
+  a refused advance quarantines that one request at the next iteration;
 * **overlapped decode** (on by default; ``overlap=False`` gives the
   sequential loop): steady-state decode is a two-deep pipeline. Step
   N+1 is dispatched, its tokens carried on the device from step N's
@@ -50,7 +57,7 @@ batch recomposes freely —
   supervision, NaN blame and journal replay see the sequential
   semantics: streams are token-identical with overlap on and off. The
   verify path stays sequential: drafting needs step N's tokens on the
-  host.
+  host, and so does a constrained slot's next grammar row.
 
 The queue is bounded (:class:`QueueFullError`) and requests carry
 deadlines (:class:`DeadlineExceededError` before OR during generation),
@@ -81,6 +88,8 @@ from ..serving.resilience import (
     RetryPolicy,
     ShuttingDownError,
 )
+from ..serving.stats import ConstrainedStats
+from .constrained.errors import MaskDeadEndError
 from .decoder import params_to
 from .engine import GenerationEngine, InFlightDecode, SamplingParams
 from .recovery import (
@@ -167,7 +176,12 @@ class Request:
     generated prefix is folded in for recompute); ``n_generated`` is the
     TOTAL generated count across preemptions, which also indexes the
     request's sampling noise stream. A speculating request carries its
-    drafter and its adaptive k (``spec_k``, inside [1, speculation.k])."""
+    drafter and its adaptive k (``spec_k``, inside [1, speculation.k]).
+    A constrained request carries its compiled grammar (``grammar``, a
+    :class:`~flexflow_tpu_torch.generation.constrained.TokenDFA` shared
+    across requests) and its automaton cursor (``mask_state``, rebuilt
+    from ``generated`` at each admission); ``mask_error`` parks a refused
+    advance for the step loop's quarantine sweep."""
 
     def __init__(
         self,
@@ -176,6 +190,8 @@ class Request:
         deadline: Optional[float] = None,
         speculation: Optional[SpeculationConfig] = None,
         drafter=None,
+        grammar=None,
+        response_format: Optional[Dict] = None,
     ):
         self.id = next(_request_ids)
         self.original_prompt = list(prompt)
@@ -199,6 +215,10 @@ class Request:
         self.acc_ema: Optional[float] = None
         self.spec_proposed = 0
         self.spec_accepted = 0
+        self.grammar = grammar
+        self.response_format = response_format
+        self.mask_state = None
+        self.mask_error: Optional[PoisonedRequestError] = None
 
     @property
     def n_generated(self) -> int:
@@ -341,6 +361,9 @@ class ContinuousBatchingScheduler:
         # (seq, started_at) while a device call is in flight, the
         # watchdog's stall signal
         self.recovery_stats = RecoveryStats()
+        # constrained decoding: grammar-cache and masked-step counters (a
+        # GrammarCache built with this object counts its compiles here)
+        self.constrained_stats = ConstrainedStats()
         self.journal = GenerationJournal()
         self.supervisor = EngineSupervisor(self, recovery)
         self.watchdog = StepWatchdog(self, watchdog)
@@ -361,6 +384,8 @@ class ContinuousBatchingScheduler:
         sampling: Optional[SamplingParams] = None,
         deadline_s: Optional[float] = None,
         speculation: Optional[SpeculationConfig] = None,
+        grammar=None,
+        response_format: Optional[Dict] = None,
     ) -> GenerationHandle:
         """Enqueue one request (FCFS). Raises QueueFullError when the
         bounded queue is full, CircuitOpenError while the breaker holds
@@ -368,7 +393,10 @@ class ContinuousBatchingScheduler:
         DeadlineExceededError for an already-expired budget, and
         ValueError for a prompt that can never be served.
         ``speculation`` turns on (exact) speculative decoding for this
-        request; None falls back to the scheduler's default policy."""
+        request; None falls back to the scheduler's default policy.
+        ``grammar`` is a compiled constrained-decoding TokenDFA (see
+        ``generation/constrained/``), checked against the engine's
+        vocabulary; ``response_format`` is the wire spec it came from."""
         if self._draining:
             raise ShuttingDownError("generation scheduler draining")
         if self._stopped:
@@ -388,6 +416,11 @@ class ContinuousBatchingScheduler:
             > self.engine.allocator.num_total
         ):
             raise ValueError("prompt exceeds total cache capacity; can never be admitted")
+        if grammar is not None and grammar.vocab_size != self.engine.cfg.vocab_size:
+            raise ValueError(
+                f"grammar compiled against vocab {grammar.vocab_size}, "
+                f"engine vocab is {self.engine.cfg.vocab_size}"
+            )
         if deadline_s is not None and deadline_s <= 0:
             self._incr("expired")
             raise DeadlineExceededError("deadline already expired at submit")
@@ -412,7 +445,7 @@ class ContinuousBatchingScheduler:
                     spec, draft_params=self.draft_params, max_seq_len=self.engine.max_seq_len,
                 )
             req = Request(list(prompt), sampling, deadline=deadline, speculation=spec,
-                          drafter=drafter)
+                          drafter=drafter, grammar=grammar, response_format=response_format)
             # the sequence can never outgrow max_seq_len NOR the TOTAL
             # cache: a sequence needing more blocks than exist would
             # preempt itself forever at the head of the FCFS queue
@@ -549,6 +582,8 @@ class ContinuousBatchingScheduler:
                 self._incr("completed")
                 continue
             req.prompt = req.original_prompt + list(req.generated)
+            # the journal IS the grammar state: rebuilt at re-admission
+            req.mask_state = None
             req.replays += 1
             replayed += req.n_generated
             requeue.append(req)
@@ -573,6 +608,18 @@ class ContinuousBatchingScheduler:
         if req.handle._fail(err):
             self._incr("failed")
             self.recovery_stats.incr("quarantined")
+
+    def _sweep_mask_errors(self) -> None:
+        """Quarantine running slots whose constrained stream parked a
+        grammar error during token bookkeeping. ``_advance_mask`` never
+        raises mid-emit (a refused advance must not unwind the scatter
+        and take the batch's other slots with it), so the error waits one
+        iteration here, where quarantine is safe."""
+        for state in list(self._running.values()):
+            err = state.req.mask_error
+            if err is not None:
+                state.req.mask_error = None
+                self._quarantine(state, err)
 
     def ready(self) -> bool:
         return not self._draining and self.breaker.ready()
@@ -698,6 +745,7 @@ class ContinuousBatchingScheduler:
         self._release(state)
         req = state.req
         req.prompt = req.original_prompt + list(req.generated)
+        req.mask_state = None  # rebuilt from `generated` at re-admission
         req.preemptions += 1
         self.preemptions += 1
         with self._lock:
@@ -726,6 +774,27 @@ class ContinuousBatchingScheduler:
             if not self.breaker.allow():
                 return False
             req = self._queue[0]
+        if req.grammar is not None and req.mask_state is None:
+            # constrained stream: rebuild the automaton cursor by
+            # re-advancing over every emitted token (first admission starts
+            # at the grammar's start state; preempt-recompute and journal
+            # replay arrive here with mask_state dropped). A refused token
+            # fails the ONE request typed
+            try:
+                req.mask_state = req.grammar.state_after(req.generated, req.sampling.eos_id)
+            except Exception as e:
+                with self._lock:
+                    if self._queue and self._queue[0] is req:
+                        self._queue.popleft()
+                self.constrained_stats.incr("dead_end_failures")
+                err = PoisonedRequestError(
+                    f"request {req.id} could not rebuild its grammar state: {e}",
+                    request_id=req.id, step="mask", reason="mask_advance",
+                )
+                if req.handle._fail(err):
+                    self._incr("failed")
+                    self.recovery_stats.incr("quarantined")
+                return True
         plan = engine.prefix_plan(req.prompt)
         need = engine.cache_config.blocks_for(len(req.prompt) + 1) - plan.n_resident
         blocks = engine.allocator.allocate(need)
@@ -754,10 +823,16 @@ class ContinuousBatchingScheduler:
         table, shared_idx, entries, prefix_len = prep
         self._admitting = req
         try:
+            pf_mask = None
+            if req.mask_state is not None:
+                # the prefill samples the stream's next token: mask it as
+                # a decode step would
+                pf_mask = req.mask_state.mask_row(req.sampling.eos_id)
+                self.constrained_stats.incr("masked_steps")
             token = self._device(
                 lambda: engine.prefill_one(
                     req.prompt, table, req.sampling, sample_index=req.n_generated,
-                    prefix_len=prefix_len,
+                    prefix_len=prefix_len, mask=pf_mask,
                 )
             )
         except Exception as e:
@@ -818,6 +893,31 @@ class ContinuousBatchingScheduler:
         state.req.generated.append(int(token))
         state.req.handle._emit(int(token))
         self.journal.note_token(state.req, int(token))
+        if state.req.mask_state is not None:
+            self._advance_mask(state.req, int(token))
+
+    def _advance_mask(self, req: Request, token: int) -> None:
+        """Advance a constrained request's automaton over one emitted
+        token. Never raises: a refused advance (an injected
+        ``generation.mask_advance`` fault or replay divergence) parks a
+        typed error on the request for :meth:`_sweep_mask_errors`. A
+        cleanly exhausted grammar (accepting, no live continuation)
+        clamps the budget so the stream completes this step."""
+        ms = req.mask_state
+        try:
+            ms.advance(token, req.sampling.eos_id)
+        except Exception as e:
+            reason = "mask_dead_end" if isinstance(e, MaskDeadEndError) else "mask_advance"
+            self.constrained_stats.incr("dead_end_failures")
+            req.mask_error = PoisonedRequestError(
+                f"request {req.id} grammar refused emitted token {token}: {e}",
+                request_id=req.id, step="mask", reason=reason,
+            )
+            return
+        if ms.exhausted() and not ms.done:
+            # only EOS (when the request has one) is left: end the stream
+            # instead of decoding against an everything-banned row
+            req.max_new = req.n_generated
 
     def _plan_speculation(self) -> None:
         """Decide each running sequence's draft count for THIS step: its
@@ -896,6 +996,17 @@ class ContinuousBatchingScheduler:
             counts[i] = req.n_generated
         return last, start, tables, active, temps, top_ks, seeds, counts
 
+    def _decode_mask(self, order):
+        """The constrained slots' grammar rows for one decode step
+        ({slot: [V] row}), or None when no live slot is constrained (the
+        step then reads the engine's zero mask and uploads nothing)."""
+        mask = {s.slot: s.req.mask_state.mask_row(s.req.sampling.eos_id)
+                for s in order if s.req.mask_state is not None}
+        if not mask:
+            return None
+        self.constrained_stats.incr("masked_steps", len(mask))
+        return mask
+
     def _quarantine_nan(self, kind: str, order) -> bool:
         """Act on the step's per-slot finiteness flags. Partial blame
         quarantines the flagged request(s) and keeps everyone else (their
@@ -927,20 +1038,22 @@ class ContinuousBatchingScheduler:
         b = self.engine.max_batch_slots
         (tokens, positions, tables, active, temps, top_ks, seeds,
          counts) = self._collect_slots(order)
+        mask = self._decode_mask(order)
 
         def step():
             return self.engine.decode(tokens, positions, tables, active, temps, top_ks,
-                                      seeds, counts)
+                                      seeds, counts, mask)
 
         def probe(subset):
-            # blame-assignment probe: the same step with only ``subset``
-            # active; outputs discarded, cache writes idempotent
+            # blame-assignment probe: the same step (and the same mask)
+            # with only ``subset`` active; outputs discarded, cache writes
+            # idempotent
             act = np.zeros((b,), bool)
             for s in subset:
                 act[s.slot] = True
             self._probe_call(
                 lambda: self.engine.decode(tokens, positions, tables, act, temps, top_ks,
-                                           seeds, counts)
+                                           seeds, counts, mask)
             )
 
         return step, probe
@@ -990,8 +1103,10 @@ class ContinuousBatchingScheduler:
         """True when THIS iteration must run the sequential path (after a
         frontier drain): any event whose handling mutates slot or block
         state the in-flight step depends on, or whose semantics are
-        sequential: admission, finish, cancel/deadline, speculation,
-        shutdown, a declared-dead engine."""
+        sequential: admission, finish, cancel/deadline, speculation, a
+        constrained slot (its next grammar row needs the token the
+        in-flight step has not brought back yet), shutdown, a declared-dead
+        engine."""
         if self._draining or self._hard_stop or self.supervisor.failed:
             return True
         if self._queue:
@@ -1012,6 +1127,7 @@ class ContinuousBatchingScheduler:
                 or req.finished()
                 or (req.deadline is not None and now >= req.deadline)
                 or req.drafter is not None
+                or req.grammar is not None
             ):
                 return True
         return False
@@ -1260,6 +1376,32 @@ class ContinuousBatchingScheduler:
             del state.blocks[keep:]
             self.engine.allocator.free(extra)
 
+    def _verify_mask(self, order, window, n_draft):
+        """The constrained slots' grammar rows for one verify step
+        ({(slot, j): [V] row}), or None when nothing running is
+        constrained. Window position j samples the token after the first
+        j window tokens, so row 0 is the cursor's row and row j+1 the row
+        at the state reached through draft tokens 0..j: the states a
+        masked sequential decode would pass through, which keeps
+        acceptance token-identical to the unspeculated stream."""
+        mask = {}
+        n = 0
+        for state in order:
+            ms = state.req.mask_state
+            if ms is None:
+                continue
+            i = state.slot
+            eos = state.req.sampling.eos_id
+            mask[(i, 0)] = ms.mask_row(eos)
+            draft = [int(t) for t in window[i, 1: 1 + max(0, int(n_draft[i]))]]
+            for j, st in enumerate(ms.states_along(draft, eos)):
+                mask[(i, j + 1)] = ms.dfa.mask_row(st, eos)
+            n += 1
+        if not mask:
+            return None
+        self.constrained_stats.incr("masked_steps", n)
+        return mask
+
     def _verify_once(self) -> bool:
         """One speculative verification step across all running slots:
         draft (host), verify the batch x (k+1) window (ONE fixed-shape
@@ -1289,12 +1431,17 @@ class ContinuousBatchingScheduler:
                     # verification is exact with ANY draft, so a failed
                     # proposal degrades to a plain (zero-draft) window
                     self._incr("drafter_errors")
+            if req.mask_state is not None and draft:
+                # a grammar-banned draft token would be rejected by the
+                # masked target anyway: cut to the longest legal prefix
+                draft = req.mask_state.filter_draft(draft, req.sampling.eos_id)
             window[i, 1: 1 + len(draft)] = draft
             n_draft[i] = len(draft)
+        wmask = self._verify_mask(order, window, n_draft)
 
         def step():
             return self.engine.verify(window, start, n_draft, tables, temps, top_ks, seeds,
-                                      counts)
+                                      counts, wmask)
 
         def probe(subset):
             nd = np.full((b,), -1, np.int32)  # everyone else inactive
@@ -1302,7 +1449,7 @@ class ContinuousBatchingScheduler:
                 nd[s.slot] = n_draft[s.slot]
             self._probe_call(
                 lambda: self.engine.verify(window, start, nd, tables, temps, top_ks, seeds,
-                                           counts)
+                                           counts, wmask)
             )
 
         result = self.supervisor.run_step("verify", step, order, probe)
@@ -1329,13 +1476,22 @@ class ContinuousBatchingScheduler:
             proposed = int(max(0, n_draft[i]))
             accepted = max(0, m - 1)  # drafts the target agreed with
             req.update_speculation(proposed=proposed, accepted=accepted)
+            emitted = 0
             for t in toks:
                 self._emit_token(state, t)
+                emitted += 1
+                if req.mask_state is not None and (
+                    req.mask_error is not None or req.finished()
+                ):
+                    # the constrained stream ended mid-window (a parked
+                    # advance error or the exhaustion clamp): the rest of
+                    # the run was sampled past the grammar's end
+                    break
             self._incr("spec_windows")
             self._incr("spec_proposed", proposed)
             self._incr("spec_accepted", accepted)
-            self._incr("spec_emitted", len(toks))
-            state.cached_len += len(toks)
+            self._incr("spec_emitted", emitted)
+            state.cached_len += emitted
             self._trim_blocks(state)
             if req.finished():
                 self._finish(state)
@@ -1345,7 +1501,8 @@ class ContinuousBatchingScheduler:
     def step(self) -> bool:
         """One scheduling iteration. With overlap on, a steady iteration
         pipelines dispatch/consume; otherwise (and after any frontier
-        drain): expire, admit (join-mid-flight), plan speculation,
+        drain): expire, quarantine parked grammar errors, admit
+        (join-mid-flight), plan speculation,
         grow/preempt, then decode — or verify, when any running request
         speculates. Returns True if any work happened."""
         if self.overlap:
@@ -1353,6 +1510,7 @@ class ContinuousBatchingScheduler:
             if r is not None:
                 return r
         self._expire()
+        self._sweep_mask_errors()
         admitted = 0
         while self._admit():
             admitted += 1

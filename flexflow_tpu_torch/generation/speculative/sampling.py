@@ -18,6 +18,13 @@ the target model's.
   normalised residual (``p`` with ``d`` excluded); after a fully-accepted
   window the bonus token is drawn from ``p``.
 
+Constrained decoding composes with both regimes without touching this
+module: the engine adds the same grammar rows to the logits at every
+window position before acceptance, so the masked target is still a
+distribution over the grammar's support and the identities above hold
+over it; a banned draft has ``p(d) = 0`` and is rejected with certainty
+(the scheduler also cuts drafts to their longest legal prefix first).
+
 Keys are the JAX package's, bit for bit (threefry, ``prng.py``): the
 token at generated-token count ``n`` consumes keys derived only from
 ``key_n = fold_in(key(seed), n)`` — the accept coin ``uniform(fold_in(

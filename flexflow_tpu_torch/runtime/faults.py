@@ -73,13 +73,7 @@ SERVING_WAL_REPLAY = "serving.wal_replay"
 
 # the sites the port fires -> where (read-only)
 SITES = MappingProxyType({
-    GENERATION_PREFILL: (
-        "before a generation prefill (value: (prompt tokens, logit bias "
-        "[1]); `nan` mode poisons the bias). The JAX package's site carries "
-        "the prompt alone, so there a `nan` rule changes nothing: a plan "
-        "with a `nan` rule on this site quarantines a request here and not "
-        "there"
-    ),
+    GENERATION_PREFILL: "before a generation prefill (value: prompt tokens)",
     GENERATION_DECODE_STEP: (
         "before each batched decode step (value: (slot tokens, per-slot "
         "logit bias); the tokens are None for a pipelined step whose tokens "
@@ -98,6 +92,17 @@ SITES = MappingProxyType({
         "before the overlap pipeline consumes an in-flight decode step "
         "(value: ('decode', n_states)); an error discards the frontier and "
         "re-runs the step sequentially under the supervisor"
+    ),
+    GENERATION_MASK_BUILD: (
+        "before a response_format grammar compiles into the per-model "
+        "cache (value: the canonical spec key); an error fails the ONE "
+        "submitting request with a typed 400, never the batch"
+    ),
+    GENERATION_MASK_ADVANCE: (
+        "before each constrained-stream automaton advance over an emitted "
+        "token — including journal-replay re-advances (value: (grammar "
+        "state, token)); an error quarantines the one constrained request "
+        "while the rest of the batch keeps streaming"
     ),
 })
 

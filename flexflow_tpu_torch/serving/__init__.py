@@ -1,5 +1,5 @@
 """Serving around the generation engine: typed rejections, retry with
-backoff and the circuit breaker."""
+backoff, the circuit breaker and the constrained-decoding counters."""
 from .resilience import (
     CircuitBreaker,
     CircuitOpenError,
@@ -9,10 +9,12 @@ from .resilience import (
     RetryPolicy,
     ShuttingDownError,
 )
+from .stats import ConstrainedStats
 
 __all__ = [
     "CircuitBreaker",
     "CircuitOpenError",
+    "ConstrainedStats",
     "DeadlineExceededError",
     "QueueFullError",
     "ResilienceError",

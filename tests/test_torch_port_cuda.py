@@ -648,3 +648,157 @@ def test_cuda_pipelined_streams_equal_sequential_and_eager(cuda):
         outs.append([h.result(0) for h in handles])
         assert (sched.pipe_dispatches > 0) == overlap
     assert all(o == outs[0] for o in outs)
+
+
+# ------------------------------------------------------------ grammar masks
+
+
+def _grammars(vocab_size):
+    from flexflow_tpu_torch.generation.constrained import (
+        compile_response_format,
+        default_vocabulary,
+    )
+
+    vocab = default_vocabulary(vocab_size)
+    schema = {"type": "object",
+              "properties": {"ok": {"type": "boolean"}, "n": {"type": "integer"}}}
+    return vocab, [compile_response_format(s, vocab) for s in (
+        {"type": "json_schema", "json_schema": schema},
+        {"type": "regex", "pattern": "[a-z]{1,8}-[0-9]{2,4}"})]
+
+
+def _mask_tensors(engine):
+    return [m for m in (engine._mask1, engine._mask_dec, engine._mask_ver) if m is not None]
+
+
+def test_cuda_masked_steps_replay_bit_identical_to_eager(cuda):
+    """Prefill, decode and verify steps with grammar rows: each replay
+    gives the eager step's tokens and logits bit for bit, with num_layers
+    paged launches per replay, every sampled token allowed by its row,
+    the mask tensors zero again after each step, and no capture beyond
+    the unmasked steps' signatures."""
+    graph, eager = _graph_and_eager_engines(cuda)
+    vocab, (g_json, g_re) = _grammars(GRAPH_CFG.vocab_size)
+    b, w, mb, layers = 3, graph.spec_window, graph.max_blocks_per_seq, GRAPH_CFG.num_layers
+    rows = [g_json.mask_row(g_json.start, None), g_re.mask_row(g_re.start, None)]
+    prompts = [[1, 2, 3, 1, 2, 3, 1], list(range(5, 17)), list(range(20, 50))]
+    sps = [SamplingParams(), SamplingParams(temperature=0.9, top_k=40, seed=21),
+           SamplingParams(temperature=0.7, seed=5)]
+    tables = np.zeros((b, mb), np.int32)
+    tokens = np.zeros((b,), np.int32)
+    for i, (p, sp) in enumerate(zip(prompts, sps)):
+        blocks = graph.allocator.allocate(graph.cache_config.blocks_for(len(p) + 20))
+        assert eager.allocator.allocate(len(blocks)) == blocks
+        tables[i, : len(blocks)] = blocks
+        row = rows[i % 2]
+        tokens[i] = graph.prefill_one(p, blocks, sp, 0, mask=row)
+        assert eager.prefill_one(p, blocks, sp, 0, mask=row) == tokens[i]
+        assert row[tokens[i]] == 0.0
+        assert torch.equal(graph.last_logits, eager.last_logits)
+        assert not any(m.any() for m in _mask_tensors(graph))
+    positions = np.asarray([len(p) for p in prompts], np.int32)
+    active = np.ones((b,), bool)
+    temps = np.asarray([sp.temperature for sp in sps], np.float32)
+    top_ks = np.asarray([sp.top_k for sp in sps], np.int32)
+    seeds = np.asarray([sp.seed for sp in sps], np.uint32)
+    for step in range(3):
+        counts = np.full((b,), 1 + step, np.int32)
+        mask = {0: rows[0], 1: rows[1]} if step != 1 else {2: rows[1]}
+        da.reset_launch_counts()
+        out = graph.decode(tokens, positions, tables, active, temps, top_ks, seeds, counts,
+                           mask=mask)
+        if step > 0:
+            assert da.LAUNCHES["paged_append"] == layers
+        assert not any(m.any() for m in _mask_tensors(graph))
+        np.testing.assert_array_equal(out, eager.decode(
+            tokens, positions, tables, active, temps, top_ks, seeds, counts, mask=mask))
+        assert torch.equal(graph.last_logits, eager.last_logits)
+        assert all(r[out[i]] == 0.0 for i, r in mask.items())
+        tokens, positions = out.astype(np.int32), positions + 1
+    window = np.zeros((b, w), np.int32)
+    window[:, 0] = tokens
+    window[:, 1:3] = 7
+    n_draft = np.asarray([2, 0, 2], np.int32)
+    vmask = {(0, 0): rows[0], (0, 1): rows[1], (2, 2): rows[0]}
+    args = (window, positions, n_draft, tables, temps, top_ks, seeds, np.full((b,), 9, np.int32))
+    for replay in (False, True):  # capture, then a replay
+        da.reset_launch_counts()
+        out, n = graph.verify(*args, mask=vmask)
+        if replay:
+            assert da.LAUNCHES["paged_append"] == layers
+        eout, en = eager.verify(*args, mask=vmask)
+        np.testing.assert_array_equal(n, en)
+        np.testing.assert_array_equal(out, eout)
+        assert torch.equal(graph.last_logits, eager.last_logits)
+        assert not any(m.any() for m in _mask_tensors(graph))
+    assert graph.trace_counts == eager.trace_counts == {
+        "prefill[8]": 1, "prefill[16]": 1, "prefill[32]": 1, "decode": 1, "verify": 1}
+
+
+def test_cuda_unconstrained_replay_after_a_masked_step_equals_a_fresh_engine(cuda):
+    """A masked sequential decode step leaves the mask tensors all zero:
+    the pipelined unconstrained step dispatched straight after it gives
+    the tokens and logits of the same step on an engine that never saw a
+    grammar."""
+    params = init_decoder_params(torch.Generator().manual_seed(3), GRAPH_CFG)
+    kw = dict(max_batch_slots=3, block_size=8, prompt_buckets=(8, 16, 32, 64), device=cuda)
+    masked, fresh = GenerationEngine(params, GRAPH_CFG, **kw), GenerationEngine(
+        params, GRAPH_CFG, **kw)
+    _, (g_json, _) = _grammars(GRAPH_CFG.vocab_size)
+    x = _decode_batch(masked, fresh)
+    row = g_json.mask_row(g_json.start, None)
+    masked.decode(x["tokens"], *_args(x, 0), mask={0: row, 1: row, 2: row})
+    fresh.decode(x["tokens"], *_args(x, 0))  # the same inputs: the same K/V writes
+    for m in _mask_tensors(masked):
+        torch.cuda.synchronize()
+        assert not m.any()
+    nxt = np.asarray([3, 4, 5], np.int32)
+    got = masked.consume_decode(masked.decode_async(nxt, *_args(x, 1)))
+    want = fresh.consume_decode(fresh.decode_async(nxt, *_args(x, 1)))
+    np.testing.assert_array_equal(got, want)
+    assert torch.equal(masked.last_logits, fresh.last_logits)
+    assert masked.masked_step_count == 1 and fresh.masked_step_count == 0
+
+
+def test_cuda_constrained_traffic_captures_nothing_and_reset_keeps_the_masks(cuda):
+    """A graph engine warmed by unconstrained traffic (decode, verify,
+    suffix prefills) serves constrained requests, pipeline on and off,
+    with speculation and without, capturing nothing new; every
+    constrained text parses; ``reset()`` zeroes the mask tensors where
+    the graphs hold them."""
+    from flexflow_tpu_torch.generation.constrained import decode_text, validate_json
+
+    graph, _ = _graph_and_eager_engines(cuda)
+    vocab, (g_json, g_re) = _grammars(GRAPH_CFG.vocab_size)
+    prompts = [list(range(1, 12)), [4, 5], list(range(1, 12)) + [3]]
+    sp = SamplingParams(max_new_tokens=40)
+    spec = SpeculationConfig(k=4)
+
+    def serve(grammars, overlap, speculation):
+        sched = ContinuousBatchingScheduler(graph, overlap=overlap)
+        handles = [sched.submit(p, sp, grammar=g, speculation=speculation)
+                   for p, g in zip(prompts, grammars)]
+        while not all(h.done() for h in handles):
+            sched.step()
+        return [h.result(0) for h in handles], sched
+
+    for overlap, speculation in ((True, None), (False, spec)):
+        graph.prefix_cache.reset()
+        serve([None] * 3, overlap, speculation)
+    captures = dict(graph.trace_counts)
+    assert "verify" in captures and any(k.startswith("prefix_prefill") for k in captures)
+    ptrs = [m.data_ptr() for m in _mask_tensors(graph)]
+    streams = None
+    for overlap, speculation in ((True, None), (False, None), (False, spec)):
+        graph.prefix_cache.reset()
+        outs, sched = serve([g_json, None, g_re], overlap, speculation)
+        assert validate_json(decode_text(vocab, outs[0], None),
+                             {"type": "object", "properties": {
+                                 "ok": {"type": "boolean"}, "n": {"type": "integer"}}}) == []
+        assert sched.constrained_stats.masked_steps > 0
+        streams = streams or outs
+        assert outs == streams
+    assert graph.trace_counts == captures and not graph.recompiles()
+    graph.reset()
+    assert [m.data_ptr() for m in _mask_tensors(graph)] == ptrs
+    assert not any(m.any() for m in _mask_tensors(graph))

@@ -318,6 +318,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert 'flexflow_tpu_torch.generation.recovery' in names, names\n"
         "assert 'flexflow_tpu_torch.runtime.faults' in names, names\n"
         "assert 'flexflow_tpu_torch.runtime.backoff' in names, names\n"
+        "for m in ('errors', 'automaton', 'schema', 'tokens'):\n"
+        "    assert 'flexflow_tpu_torch.generation.constrained.' + m in names, names\n"
+        "assert 'flexflow_tpu_torch.generation.constrained' in names, names\n"
+        "assert 'flexflow_tpu_torch.serving.stats' in names, names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run(

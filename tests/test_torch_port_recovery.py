@@ -285,22 +285,18 @@ def test_prefill_nan_is_quarantined_at_admission(overlap):
     assert eng.allocator.num_free == eng.allocator.num_total
 
 
-def test_poisoned_prefill_bias_quarantines_one_admission():
-    """The port's prefill step reads a logit bias a plan can poison (the
-    JAX prefill site carries no bias, so the same plan changes nothing
-    there): the poisoned admission fails alone, the others stream as
-    without the plan."""
+@ON_OFF
+def test_nan_rule_on_the_prefill_site_changes_no_stream(overlap):
+    """The prefill site carries the prompt alone in both packages, so a
+    `nan` rule there poisons nothing: both give the fault-free streams and
+    quarantine nothing, and the site counts the same calls and fires."""
 
     def plan(side):
         return side.faults.FaultPlan(seed=0).on("generation.prefill", mode="nan", nth=(1,))
 
-    ref = run(JAX, PROMPTS, dict(max_new_tokens=8), overlap=True, **CACHE)[0]
-    jax_out, jax_cnt, _, _ = run(JAX, PROMPTS, dict(max_new_tokens=8), overlap=True, plan=plan,
-                                 **CACHE)
-    assert jax_out == ref and jax_cnt["recovery"]["quarantined"] == 0
-    out, cnt, eng, _ = run(PORT, PROMPTS, dict(max_new_tokens=8), overlap=True, plan=plan,
-                           **CACHE)
-    assert out[1] == ("PoisonedRequestError", "prefill", "nan_logits")
-    assert out[0] == ref[0] and out[2] == ref[2]
-    assert cnt["recovery"]["quarantined"] == 1
-    assert not eng._bias1.any()  # the poison lasted one step
+    ref = run(PORT, PROMPTS, dict(max_new_tokens=8), overlap=overlap, **CACHE)[0]
+    out, cnt, _, _ = both(PROMPTS, dict(max_new_tokens=8), overlap=overlap, plan=plan,
+                          **CACHE)
+    assert out == ref
+    assert cnt["recovery"]["quarantined"] == 0 and cnt["resets"] == 0
+    assert cnt["sites"]["generation.prefill"]["fires"] == 1

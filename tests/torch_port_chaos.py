@@ -47,6 +47,9 @@ BLOCK = 8
 BUCKETS = (8, 16, 32, 64)
 RECOVERY_FIELDS = ("recoveries", "step_retries", "replayed_tokens", "quarantined",
                    "watchdog_trips", "engine_failures")
+# the scheduler's constrained-decoding counters (the grammar cache's live
+# on the cache's own stats object)
+CONSTRAINED_FIELDS = ("masked_steps", "dead_end_failures")
 
 
 class Side:
@@ -75,38 +78,44 @@ _JPARAMS = {}
 _JENGINES = {}
 
 
-def jparams(nan: bool = False):
-    if "p" not in _JPARAMS:
-        _JPARAMS["p"] = jinit_decoder_params(jax.random.key(0), JTransformerConfig(**CFG_KW))
-    p = _JPARAMS["p"]
+def jparams(nan: bool = False, cfg=None):
+    """The JAX parameters of ``cfg`` (TransformerConfig kwargs; default
+    ``CFG_KW``) from ``jax.random.key(0)``, NaN everywhere with ``nan``."""
+    cfg = cfg or CFG_KW
+    key = tuple(sorted(cfg.items()))
+    if key not in _JPARAMS:
+        _JPARAMS[key] = jinit_decoder_params(jax.random.key(0), JTransformerConfig(**cfg))
+    p = _JPARAMS[key]
     if nan:
         return jax.tree_util.tree_map(lambda a: np.asarray(a) * np.nan, p)
     return p
 
 
 def engine(side: Side, *, slots=3, num_blocks=40, prefix_cache=False, donate=None,
-           nan=False):
-    """An engine of the tiny config and its ``resets`` before the run."""
+           nan=False, cfg=None):
+    """An engine of the tiny config (``cfg``: other TransformerConfig
+    kwargs) and its ``resets`` before the run."""
+    cfg = cfg or CFG_KW
     if side is JAX:
-        key = (slots, num_blocks, prefix_cache, donate, nan)
+        key = (slots, num_blocks, prefix_cache, donate, nan, tuple(sorted(cfg.items())))
         eng = _JENGINES.get(key)
         if eng is None:
-            cc = JCacheConfig(num_layers=CFG_KW["num_layers"], num_heads=CFG_KW["num_heads"],
-                              head_dim=CFG_KW["hidden_size"] // CFG_KW["num_heads"],
+            cc = JCacheConfig(num_layers=cfg["num_layers"], num_heads=cfg["num_heads"],
+                              head_dim=cfg["hidden_size"] // cfg["num_heads"],
                               block_size=BLOCK, num_blocks=num_blocks)
             eng = _JENGINES[key] = JEngine(
-                jparams(nan), JTransformerConfig(**CFG_KW), cache_config=cc,
+                jparams(nan, cfg), JTransformerConfig(**cfg), cache_config=cc,
                 max_batch_slots=slots, prompt_buckets=BUCKETS, prefix_cache=prefix_cache,
                 donate_cache=donate,
             )
         else:
             eng.reset()  # a fresh cache, allocator and prefix index
         return eng, eng.resets
-    cc = CacheConfig(num_layers=CFG_KW["num_layers"], num_heads=CFG_KW["num_heads"],
-                     head_dim=CFG_KW["hidden_size"] // CFG_KW["num_heads"],
+    cc = CacheConfig(num_layers=cfg["num_layers"], num_heads=cfg["num_heads"],
+                     head_dim=cfg["hidden_size"] // cfg["num_heads"],
                      block_size=BLOCK, num_blocks=num_blocks)
-    params = decoder_params_from_numpy(jax.tree.map(np.asarray, jparams(nan)))
-    eng = GenerationEngine(params, TransformerConfig(**CFG_KW), cache_config=cc,
+    params = decoder_params_from_numpy(jax.tree.map(np.asarray, jparams(nan, cfg)))
+    eng = GenerationEngine(params, TransformerConfig(**cfg), cache_config=cc,
                            max_batch_slots=slots, prompt_buckets=BUCKETS,
                            prefix_cache=prefix_cache, device="cpu", donate=donate)
     return eng, 0
@@ -160,6 +169,7 @@ def run(side: Side, prompts, sampling, *, overlap, spec=None, plan=None, sched_k
     counters = {
         "resets": eng.resets - r0,
         "recovery": {f: getattr(sched.recovery_stats, f) for f in RECOVERY_FIELDS},
+        "constrained": {f: getattr(sched.constrained_stats, f) for f in CONSTRAINED_FIELDS},
         "pipe_dispatches": sched.pipe_dispatches,
         "pipe_drains": dict(sched.pipe_drains),
         "pipe_discards": sched.pipe_discards,
