@@ -1065,14 +1065,14 @@ def speculation_phase(seed: int, params) -> dict:
         if launches["paged_append"] != cfg.num_layers * steps or launches["paged_append_split"]:
             raise AssertionError(f"{name}: launches {launches} != {cfg.num_layers} layers x "
                                  f"({stats['decode_steps']} decode + {vsteps} verify steps)")
-        c = sched.counts
+        c = sched.spec_stats.counts()
         stats.update({
             "verify_steps": vsteps,
             "verify_step_ms": 1e3 * (engine.step_seconds["verify"] - vsec0) / max(vsteps, 1),
-            "drafted": c.get("spec_proposed", 0), "accepted": c.get("spec_accepted", 0),
-            "acceptance_rate": c.get("spec_accepted", 0) / max(c.get("spec_proposed", 0), 1),
-            "tokens_per_verify_step": c.get("spec_emitted", 0) / max(vsteps, 1),
-            "tokens_per_slot_window": c.get("spec_emitted", 0) / max(c.get("spec_windows", 0), 1),
+            "drafted": c["proposed"], "accepted": c["accepted"],
+            "acceptance_rate": c["accepted"] / max(c["proposed"], 1),
+            "tokens_per_verify_step": c["emitted"] / max(vsteps, 1),
+            "tokens_per_slot_window": c["emitted"] / max(c["windows"], 1),
         })
         runs[name] = stats
         print(f"speculation (k=4, n-gram, {name} steps): " + json.dumps(stats))
@@ -1382,7 +1382,7 @@ def steady_stretch(engine, prompts, overlap: bool, steps: int, device_of=None) -
     """Four slots decoding ``steps`` steps with nothing non-steady in
     between (admitted before, finishing after): host-clock ms per step,
     the engine's dispatch / execute / readback split of it
-    (``phase_seconds``), the stream's time per step (CUDA events around
+    (``phase_time_s["decode"]``), the stream's time per step (CUDA events around
     each launch, :class:`LaunchTimer`: from the stream reaching the step
     to its end, which is the step's device time when the step was queued
     behind its predecessor, and adds the launch's latency when the stream
@@ -1401,7 +1401,7 @@ def steady_stretch(engine, prompts, overlap: bool, steps: int, device_of=None) -
     sched.step()  # with overlap: the pipeline's first dispatch
     torch.cuda.synchronize()
     decode0, drains0 = engine.step_counts["decode"], dict(sched.pipe_drains)
-    phases0 = dict(engine.phase_seconds)
+    phases0 = dict(engine.phase_time_s["decode"])
     with LaunchTimer(engine) as timer:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -1416,7 +1416,7 @@ def steady_stretch(engine, prompts, overlap: bool, steps: int, device_of=None) -
         raise AssertionError(f"steady stretch: {len(timer.marks)} timed launches, {n} steps")
     # the window's steps were dispatched and consumed inside it, but for
     # the pipeline's in-flight step at each end: n steps' worth either way
-    phases = {f"{k}_ms_per_step": 1e3 * (engine.phase_seconds[k] - phases0[k]) / n
+    phases = {f"{k}_ms_per_step": 1e3 * (engine.phase_time_s["decode"][k] - phases0[k]) / n
               for k in phases0}
     clocks = card_clocks()
     # a replay on the last step's inputs recomputes its outputs bit for
@@ -1762,7 +1762,7 @@ def constrained_stretch(engine, prompts, grammars, overlap: bool, steps: int) ->
     torch.cuda.synchronize()
     decode0, bytes0, masked0 = (engine.step_counts["decode"], engine.mask_bytes_staged,
                                 engine.masked_step_count)
-    phases0 = dict(engine.phase_seconds)
+    phases0 = dict(engine.phase_time_s["decode"])
     t0 = time.perf_counter()
     for _ in range(steps):
         sched.step()
@@ -1772,7 +1772,7 @@ def constrained_stretch(engine, prompts, grammars, overlap: bool, steps: int) ->
     if n != steps or len(sched._running) != len(prompts):
         raise AssertionError(f"constrained stretch not steady: {n} steps")
     out = {"steps": n, "ms_per_step": 1e3 * wall / n,
-           **{f"{k}_ms_per_step": 1e3 * (engine.phase_seconds[k] - phases0[k]) / n
+           **{f"{k}_ms_per_step": 1e3 * (engine.phase_time_s["decode"][k] - phases0[k]) / n
               for k in phases0},
            "mask_bytes_per_step": (engine.mask_bytes_staged - bytes0) / n,
            "masked_steps": engine.masked_step_count - masked0}
@@ -1934,6 +1934,207 @@ def constrained_phase(seed: int, params) -> dict:
     stats["masked_steps"] = sum(r["masked_steps"] for r in runs.values())
     stats["mask_bytes_staged"] = {n: e.mask_bytes_staged for n, e in engines.items()}
     stats["engine_masked_steps"] = {n: e.masked_step_count for n, e in engines.items()}
+    return stats
+
+
+def http_generate(base: str, body: dict) -> dict:
+    """One POST /v2/models/lm/generate on loopback: the tokens, and the
+    client's time.monotonic() stamps (the scheduler's clock) of the
+    request's start, its first SSE token event (None for JSON) and its
+    end."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v2/models/lm/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    first = None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not body.get("stream"):
+            tokens = json.loads(r.read())["tokens"]
+        else:
+            events = []
+            for line in r:
+                if line.startswith(b"data: "):
+                    events.append(json.loads(line[len(b"data: "):]))
+                    if first is None:
+                        first = time.monotonic()
+            if not events or not events[-1].get("done") or "tokens" not in events[-1]:
+                raise AssertionError(f"server: SSE stream ended without its done event: "
+                                     f"{events[-1:]}")
+            tokens = events[-1]["tokens"]
+            if [e["token"] for e in events[:-1]] != tokens:
+                raise AssertionError("server: SSE token events differ from the done event")
+    return {"tokens": tokens, "t0": t0, "first": first, "t1": time.monotonic(),
+            "prompt_len": len(body["prompt"])}
+
+
+def http_burst(base: str, bodies) -> dict:
+    """Every request at once, one client thread each, then each request's
+    time split against the scheduler's own trace of it (found by prompt
+    length): before submit (the client's start to the scheduler's
+    accept: connection and parse), the scheduler's TTFT, the first SSE
+    event's delivery after the scheduler's first token, and the client's
+    latency past the scheduler's accept-to-finish span."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        results = list(pool.map(lambda b: http_generate(base, b), bodies))
+    wall = time.monotonic() - t0
+    with urllib.request.urlopen(base + f"/v2/debug/traces?n={len(bodies)}", timeout=60) as r:
+        traces = {t["prompt_len"]: t for t in json.loads(r.read())["traces"]}
+    sse = [g for g in results if g["first"] is not None]
+    tokens = sum(len(g["tokens"]) for g in results)
+    tr = [traces[g["prompt_len"]] for g in results]
+    pre = [1e3 * (t["t_accept"] - g["t0"]) for g, t in zip(results, tr)]
+    delivery = [1e3 * (g["first"] - traces[g["prompt_len"]]["t_accept"]
+                       - traces[g["prompt_len"]]["ttft_s"]) for g in sse]
+    outside = [(g["t1"] - g["t0"]) - t["total_s"] for g, t in zip(results, tr)]
+    return {
+        "results": results, "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+        "http_ttft_p50_s": float(np.median([g["first"] - g["t0"] for g in sse])),
+        "trace_ttft_p50_s": float(np.median([traces[g["prompt_len"]]["ttft_s"] for g in sse])),
+        "pre_submit_ms_p50": float(np.median(pre)), "pre_submit_ms_max": max(pre),
+        "sse_delivery_ms_p50": float(np.median(delivery)), "sse_delivery_ms_max": max(delivery),
+        # the client's latency past the scheduler's own span, per token:
+        # the front end's host time (connection, parse, writes, reads)
+        "front_end_ms_per_token": 1e3 * sum(outside) / tokens,
+    }
+
+
+def server_phase(seed: int, params) -> dict:
+    """The serving front end at GPT-2-small width: the port's
+    InferenceServer on 127.0.0.1 (port 0) with one GenerationModel over a
+    4-slot graph engine (prefix cache on, the overlap pipeline on,
+    ``vocabulary=`` the constrained phase's 50257-entry table). Client
+    threads post, all at once, the serving cell's 8 requests (half SSE,
+    half JSON) twice: cold (the process's first HTTP traffic) and warm;
+    then a JSON-schema ``response_format`` request, a ``"speculation":
+    {"k": 4}`` request and a best-effort one. Each HTTP stream must equal
+    the same request submitted straight to a ContinuousBatchingScheduler
+    over the same engine (run first, which also captures every signature
+    the traffic needs); the HTTP traffic must capture nothing new and
+    launch num_layers paged kernels per decode and verify step; /metrics
+    must be a valid exposition whose token total is what the clients
+    received."""
+    import numpy as np
+    import torch
+    import urllib.request
+
+    from flexflow_tpu_torch.generation.engine import GenerationEngine, SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+    from flexflow_tpu_torch.generation.speculative import SpeculationConfig
+    from flexflow_tpu_torch.obs import validate_exposition
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+    from flexflow_tpu_torch.serving import GenerationModel, InferenceServer
+
+    cfg = gpt2_small()
+    vocab = serving_vocabulary(cfg.vocab_size)
+    engine = GenerationEngine(params, cfg, max_batch_slots=4, block_size=16, max_spec_tokens=4,
+                              prefix_cache=True)
+    model = GenerationModel(engine, name="lm", vocabulary=vocab)
+    rs = np.random.RandomState(seed + 10)
+    warm(engine, rs)
+    lens = [16, 700, 64, 300, 128, 512, 40, 220]
+    sampling = [dict(max_new_tokens=32)] * 6 + [
+        dict(max_new_tokens=32, temperature=0.8, top_k=50, seed=1234),
+        dict(max_new_tokens=32, temperature=0.8, top_k=50, seed=5678),
+    ]
+    cell = [dict(s, prompt=rs.randint(0, cfg.vocab_size, n).tolist(), stream=bool(i % 2))
+            for i, (n, s) in enumerate(zip(lens, sampling))]
+    schema = CONSTRAINED_FORMATS[0]
+    extras = [
+        dict(prompt=rs.randint(0, cfg.vocab_size, 48).tolist(), max_new_tokens=32,
+             response_format=schema),
+        dict(prompt=rs.randint(0, cfg.vocab_size, 96).tolist(), max_new_tokens=32,
+             speculation={"k": 4}, stream=True),
+        dict(prompt=rs.randint(0, cfg.vocab_size, 24).tolist(), max_new_tokens=32,
+             priority="best_effort"),
+    ]
+    keys = ("max_new_tokens", "temperature", "top_k", "seed")
+
+    def direct(bodies):
+        """The requests straight to a scheduler over the same engine."""
+        torch.cuda.synchronize()
+        sched = ContinuousBatchingScheduler(engine)
+        t0 = time.perf_counter()
+        hs = [sched.submit(b["prompt"], SamplingParams(**{k: b[k] for k in keys if k in b}),
+                           speculation=(SpeculationConfig(k=b["speculation"]["k"])
+                                        if "speculation" in b else None),
+                           priority=b.get("priority"),
+                           grammar=(model.grammar_cache.get(b["response_format"])
+                                    if "response_format" in b else None))
+              for b in bodies]
+        while not all(h.done() for h in hs):
+            sched.step()
+        return [h.result(0) for h in hs], time.perf_counter() - t0
+
+    # the reference streams; this also captures the verify signature
+    # and compiles the grammar before the HTTP traffic. Each run starts
+    # from an empty prefix cache (the bursts repeat the cell's prompts)
+    want_extras, _ = direct(extras)
+    clear_prefix_cache(engine)
+    want_cell, direct_wall = direct(cell)
+    clear_prefix_cache(engine)
+    captures = dict(engine.trace_counts)
+    srv = InferenceServer(port=0)
+    srv.register_generation(model)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        counts0 = dict(engine.step_counts)
+        hits0 = engine.prefix_cache.hits
+        da.reset_launch_counts()
+        bursts = {"cold": http_burst(base, cell)}
+        clear_prefix_cache(engine)  # the scheduler is idle: nothing runs
+        cpu0 = time.process_time()
+        bursts["warm"] = http_burst(base, cell)
+        cpu_warm = time.process_time() - cpu0
+        bursts["extras"] = http_burst(base, extras)
+        launches = dict(da.LAUNCHES)
+        steps = {k: engine.step_counts[k] - counts0[k] for k in counts0}
+        suffix_prefills = engine.prefix_cache.hits - hits0
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            exposition = r.read().decode()
+        with urllib.request.urlopen(base + "/v2/stats", timeout=60) as r:
+            served = json.loads(r.read())["generation"]["lm"]
+    finally:
+        srv.stop()
+    cell_streams = [[g["tokens"] for g in bursts[n]["results"]] for n in ("cold", "warm")]
+    if any(got != want_cell for got in cell_streams):
+        raise AssertionError("server: serving cell: HTTP streams differ from the scheduler's")
+    if [g["tokens"] for g in bursts["extras"]["results"]] != want_extras:
+        raise AssertionError("server: extras: HTTP streams differ from the scheduler's")
+    text = check_grammar_text(vocab, bursts["extras"]["results"][0]["tokens"], schema)
+    errors = validate_exposition(exposition)
+    if errors:
+        raise AssertionError(f"server: /metrics is not a valid exposition: {errors[:5]}")
+    total = [ln for ln in exposition.splitlines()
+             if ln.startswith('flexflow_serving_tokens_generated{model="lm"}')]
+    received = sum(b["tokens"] for b in bursts.values())
+    if len(total) != 1 or float(total[0].split()[-1]) != received:
+        raise AssertionError(f"server: /metrics token total {total} != {received} received")
+    if engine.trace_counts != captures or engine.recompiles():
+        raise AssertionError(f"server: the HTTP traffic captured {engine.trace_counts} "
+                             f"after {captures}")
+    expect = cfg.num_layers * (steps["decode"] + steps["verify"] + suffix_prefills)
+    if launches["paged_append"] != expect or launches["paged_append_split"]:
+        raise AssertionError(f"server: launches {launches} != {cfg.num_layers} layers x "
+                             f"({steps} steps, {suffix_prefills} suffix prefills)")
+    stats = {
+        "requests": 2 * len(cell) + len(extras), "launches": launches, "steps": steps,
+        "suffix_prefills": suffix_prefills, "captures": captures,
+        "direct_tokens_per_s": sum(len(t) for t in want_cell) / direct_wall,
+        "warm_process_cpu_ms_per_token": 1e3 * cpu_warm / bursts["warm"]["tokens"],
+        "constrained_text": text, "received_tokens": received,
+        "spec_acceptance_rate": served["spec_acceptance_rate"], "rejected": served["rejected"],
+        **{name: {k: v for k, v in b.items() if k != "results"} for name, b in bursts.items()},
+    }
+    print("server (HTTP, 4 slots, graph steps): " + json.dumps(stats))
     return stats
 
 
@@ -2328,6 +2529,7 @@ def main(argv=None) -> int:
     prefix = prefix_phase(args.seed, params)
     overlap = overlap_phase(args.seed, params)
     constrained = constrained_phase(args.seed, params)
+    server = server_phase(args.seed, params)
     anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
     del engines, long_engine, params
@@ -2349,7 +2551,7 @@ def main(argv=None) -> int:
                dict(rows["decode"], max_abs_err=max(r["max_abs_err"] for r in single)),
                serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]
                + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]
-               + constrained["launches"]["paged_append"]),
+               + constrained["launches"]["paged_append"] + server["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
     ] + [
@@ -2406,13 +2608,22 @@ def main(argv=None) -> int:
                   f"{r['dispatch_ms_per_step']:.3f} / {r['execute_ms_per_step']:.3f} / "
                   f"{r['readback_ms_per_step']:.3f}" for r in rs_) + "; mask bytes per step "
               + ", ".join(f"{r['mask_bytes_per_step']:.0f}" for r in rs_))
+    for name in ("cold", "warm"):
+        b = server[name]
+        print(f"{card}: HTTP front end, 4-slot serving cell (4 SSE + 4 JSON), {name}: TTFT p50 s "
+              f"{b['http_ttft_p50_s']:.4f} (client clock, SSE) vs {b['trace_ttft_p50_s']:.4f} "
+              f"(scheduler trace); tokens/s {b['tokens_per_s']:.1f} (HTTP) vs "
+              f"{server['direct_tokens_per_s']:.1f} (scheduler direct); before submit ms p50 "
+              f"{b['pre_submit_ms_p50']:.2f}, max {b['pre_submit_ms_max']:.2f}; SSE delivery ms "
+              f"p50 {b['sse_delivery_ms_p50']:.3f}; front end ms per token "
+              f"{b['front_end_ms_per_token']:.4f}")
     for name, r in rows.items():
         if name.startswith(("wide", "verify_w4", "split_w64")):
             print(f"{card}: paged kernel {name} ms {r['ms']:.4f} (bound {r['bound_ms']:.4f} "
                   f"by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
     print(json.dumps({"card": card, "serving": serving, "long_context": long_ctx,
                       "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
-                      "overlap": overlap, "constrained": constrained,
+                      "overlap": overlap, "constrained": constrained, "server": server,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training}))
     print(json.dumps({"kernels": kernels}))

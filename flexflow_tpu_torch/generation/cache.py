@@ -187,7 +187,10 @@ class BlockAllocator:
     scheduler's admission path and a cancellation path may free
     concurrently. Block 0 (scratch) is never handed out.
 
-    ``total_allocated`` / ``total_freed`` count blocks cumulatively;
+    ``total_allocated`` / ``total_freed`` count blocks cumulatively,
+    ``total_reset_reclaimed`` the blocks :meth:`reset` reclaimed wholesale
+    (not counted in ``total_freed``: conservation is ``total_allocated ==
+    total_freed + total_reset_reclaimed + outstanding``);
     ``low_water`` / ``high_water`` mark the free list's extremes."""
 
     def __init__(self, config: CacheConfig):
@@ -196,6 +199,7 @@ class BlockAllocator:
         self._free: List[int] = list(range(config.num_blocks - 1, 0, -1))
         self.total_allocated = 0
         self.total_freed = 0
+        self.total_reset_reclaimed = 0
         self.low_water = len(self._free)
         self.high_water = len(self._free)
 
@@ -203,6 +207,7 @@ class BlockAllocator:
         """Restore the full free list: every outstanding block table is
         invalidated wholesale."""
         with self._lock:
+            self.total_reset_reclaimed += (self.config.num_blocks - 1) - len(self._free)
             self._free = list(range(self.config.num_blocks - 1, 0, -1))
             self.high_water = len(self._free)
 

@@ -89,7 +89,8 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.transformer import TransformerConfig
-from ..obs.capacity import ServingFlops, chip_spec_for
+from ..obs.capacity import ProgramRegistry, ServingFlops, chip_spec_for
+from ..obs.truth import PredictionLedger
 from ..runtime import faults
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
 from . import prng
@@ -200,22 +201,26 @@ class InFlightDecode:
     """One dispatched-but-unconsumed decode step (the overlap pipeline's
     frontier unit): the step runner's handle, whose ``readback_dev``
     holds the sampled tokens the next step may carry, the host-clock
-    stamps of its dispatch, and its live-slot count. Created by
+    stamps of its dispatch, its live-slot and live-context counts (its
+    FLOPs) and whether it captured a new graph. Created by
     :meth:`GenerationEngine.decode_async`, consumed exactly once by
     :meth:`GenerationEngine.consume_decode`. ``t_started`` is restamped
     when the previous in-flight step completes: with a one-deep pipeline
     this step only starts executing then."""
 
-    __slots__ = ("handle", "t0", "t_disp", "t_started", "n_active", "n_slots", "consumed")
+    __slots__ = ("handle", "t0", "t_disp", "t_started", "n_active", "n_slots", "ctx_sum",
+                 "traced", "consumed")
 
     def __init__(self, handle: InFlight, t0: float, t_disp: float, n_active: int,
-                 n_slots: int):
+                 n_slots: int, ctx_sum: int, traced: bool):
         self.handle = handle
         self.t0 = t0
         self.t_disp = t_disp
         self.t_started = t_disp
         self.n_active = n_active
         self.n_slots = n_slots
+        self.ctx_sum = ctx_sum  # live context positions attended, all slots
+        self.traced = traced  # this step met a new signature (a capture)
         self.consumed = False
 
     @property
@@ -326,12 +331,18 @@ class GenerationEngine:
         # work it overlaps is left out (not a step time: the overlap's step
         # time is wall time over steps)
         self.step_seconds: Dict[str, float] = {"prefill": 0.0, "decode": 0.0, "verify": 0.0}
-        # a decode step's host-clock split: dispatch (pack, upload, launch),
-        # execute (from when the device could start it, its dispatch or its
-        # in-flight predecessor's completion, to its own) and readback
-        # (copying the tokens out)
-        self.phase_seconds: Dict[str, float] = {"dispatch": 0.0, "execute": 0.0,
-                                                "readback": 0.0}
+        # each step kind's host-clock split: dispatch (pack, upload, launch),
+        # execute (from when the device could start the step, its dispatch
+        # or its in-flight predecessor's completion, to its completion
+        # event) and readback (copying the tokens out). MFU divides by the
+        # execute seconds; the truth ledger pairs them with its predictions
+        self.phase_time_s: Dict[str, Dict[str, float]] = {
+            k: {"dispatch": 0.0, "execute": 0.0, "readback": 0.0}
+            for k in ("prefill", "decode", "verify")
+        }
+        # the last step's (phase, t0, t1) perf_counter spans, for the
+        # scheduler's step-anatomy profiler (its loop thread only)
+        self.last_step_spans: List[Tuple[str, float, float]] = []
         # per-slot finiteness of the last step's logits (the NaN blame
         # vector); shaped [1] after prefill_one
         self.last_finite = np.ones((max_batch_slots,), bool)
@@ -361,9 +372,25 @@ class GenerationEngine:
         self.masked_step_count = 0
         self.graphs = self.device.type == "cuda" and not eager_steps
         self._steps = StepRunner(self.device, self.graphs)
-        # the serving roofline prefix_plan weighs a swap-in against a
-        # recompute with (the device's preset peaks)
+        # the serving roofline (the device's preset peaks): prefix_plan
+        # weighs a swap-in against a recompute with it, MFU divides by its
+        # peak, and the truth ledger predicts each step from it
         self.flops_model = ServingFlops.from_config(cfg, chip=chip_spec_for(self.device))
+        # useful model FLOPs per step kind (true prompt lengths and live
+        # context only), accrued on success next to the time they pair with
+        self.flops_by_kind: Dict[str, float] = {"prefill": 0.0, "decode": 0.0, "verify": 0.0}
+        # step programs: each signature's inputs, capture count and capture
+        # wall time; a new signature of a known program carries blame
+        # (GET /v2/debug/programs)
+        self.programs = ProgramRegistry()
+        # predicted-vs-measured step times (GET /v2/debug/predictions);
+        # drift alarms only on a GPU: on the CPU the roofline models a
+        # chip that is not there
+        self.ledger = PredictionLedger()
+        self._roofline_alarm = self.device.type != "cpu"
+        # one GPU until the tensor-parallel engine is ported
+        self.tp_degree = 1
+        self.mesh_devices = 1
         # cross-request prefix caching (prefix.py): radix index +
         # refcounted copy-on-write blocks + host-RAM offload tier; its
         # block programs run at admission only, outside the step graphs
@@ -404,15 +431,90 @@ class GenerationEngine:
         """Shape signatures beyond the first, per step kind."""
         return {k: v - 1 for k, v in self.trace_counts.items() if v > 1}
 
-    def _run(self, kind: str, shape: Tuple[int, ...], arrays, body: StepBody) -> np.ndarray:
-        """One step of ``kind`` whose input signature is ``shape``:
-        counts a signature the first time it runs, keeps the step's
-        logits in ``last_logits`` and returns its readback."""
+    def serving_strategy_block(self) -> Dict:
+        """The ``serving_strategy`` metadata block: one GPU, no tensor
+        parallelism (the layout search is not ported)."""
+        return {"tp_degree": self.tp_degree, "mesh_devices": self.mesh_devices}
+
+    def total_flops(self) -> float:
+        """Cumulative useful model FLOPs across all step kinds."""
+        return sum(self.flops_by_kind.values())
+
+    @property
+    def device_time_s(self) -> Dict[str, float]:
+        """Per kind, dispatch + execute + readback seconds."""
+        return {k: sum(v.values()) for k, v in self.phase_time_s.items()}
+
+    def total_device_time_s(self) -> float:
+        return sum(self.device_time_s.values())
+
+    def total_execute_time_s(self) -> float:
+        """Cumulative execute seconds, the MFU denominator."""
+        return sum(v["execute"] for v in self.phase_time_s.values())
+
+    def mfu(self) -> float:
+        """Serving model-FLOPs utilization: useful FLOPs over execute
+        seconds against the chip preset's fp32 peak (0 before any step)."""
+        t = self.total_execute_time_s()
+        if t <= 0:
+            return 0.0
+        return self.total_flops() / t / self.flops_model.peak_flops
+
+    def _new_signature(self, kind: str, sig, arrays) -> bool:
+        """Count ``sig`` in ``trace_counts`` and register it with the
+        program registry the first time it runs (on the graph path: the
+        step that captures it). Returns whether it was new."""
+        if sig in self._steps:
+            return False
+        self.trace_counts[kind] = self.trace_counts.get(kind, 0) + 1
+        self.programs.note_trace(kind, arrays)
+        return True
+
+    def _account(self, kind: str, name: str, flops: float, traced: bool, elapsed: float,
+                 execute_s: float, predicted_s: float) -> None:
+        """Post-success accounting of one step: FLOPs accrue next to the
+        time they pair with; a step that captured its program stamps its
+        wall time into the registry instead of feeding the truth ledger
+        (a capture is not a steady step)."""
+        self.flops_by_kind[kind] += flops
+        if traced:
+            self.programs.set_compile_time(name, elapsed)
+            return
+        self.ledger.observe(
+            name, predicted_s, execute_s,
+            label=f"{name} ({self.flops_model.chip.name})",
+            provenance="serving roofline (ServingFlops x chip peak)",
+            alarm=self._roofline_alarm,
+        )
+
+    def _run(self, kind: str, shape: Tuple[int, ...], arrays, body: StepBody,
+             phase: str, t0: float) -> Tuple[np.ndarray, bool, float, float]:
+        """One sequential step of ``kind`` whose input signature is
+        ``shape``, started at host time ``t0``: counts a new signature,
+        keeps the step's logits in ``last_logits``, stamps its dispatch /
+        execute / readback split under ``phase`` and its spans. Returns
+        (readback, whether it met a new signature, elapsed seconds,
+        execute seconds)."""
         sig = (kind, shape)
-        if sig not in self._steps:
-            self.trace_counts[kind] = self.trace_counts.get(kind, 0) + 1
-        readback, self.last_logits = self._steps.run(sig, arrays, body)
-        return readback
+        traced = self._new_signature(kind, sig, arrays)
+        handle = self._steps.dispatch(sig, arrays, body)
+        t_disp = time.perf_counter()
+        readback, self.last_logits = self._steps.collect(handle)
+        t_exec = time.perf_counter()
+        ph = self.phase_time_s[phase]
+        ph["dispatch"] += t_disp - t0
+        ph["execute"] += t_exec - t_disp
+        # collect's wait and its copy out of the pinned buffer are one
+        # call: the readback span is the rest of the step's bookkeeping
+        t_read = time.perf_counter()
+        ph["readback"] += t_read - t_exec
+        self.last_step_spans = [
+            ("dispatch", t0, t_disp),
+            ("block", t_disp, t_exec),
+            ("execute", t_disp, t_exec),
+            ("readback", t_exec, t_read),
+        ]
+        return readback, traced, t_read - t0, t_exec - t_disp
 
     @contextlib.contextmanager
     def _step_inputs(self, bias: Optional[np.ndarray], mask_dev: torch.Tensor, mask):
@@ -607,9 +709,21 @@ class GenerationEngine:
             count=np.asarray([sample_index], np.int32),
         )
         with self._step_inputs(None, self._mask1, None if mask is None else {0: mask}):
-            token, ok = self._run(kind, (bucket,), arrays, body)
+            (token, ok), traced, elapsed, execute_s = self._run(
+                kind, (bucket,), arrays, body, "prefill", t0)
         self.last_finite = np.asarray([bool(ok)])
         self.step_seconds["prefill"] += time.perf_counter() - t0
+        fm = self.flops_model
+        if prefix_len > 0:
+            # useful work: the suffix tokens, each over its causal context;
+            # the prediction covers the executed (padded) window
+            ctx = (len(prompt) * (len(prompt) + 1) - prefix_len * (prefix_len + 1)) // 2
+            flops = fm.verify_flops(n, ctx)
+            predicted = fm.roofline_s(fm.verify_flops(bucket, ctx), fm.verify_bytes(bucket, ctx))
+        else:
+            flops = fm.prefill_flops(n)
+            predicted = fm.roofline_s(fm.prefill_flops(bucket), fm.prefill_bytes(bucket))
+        self._account("prefill", kind, flops, traced, elapsed, execute_s, predicted)
         return int(token)
 
     # ------------------------------------------------------ prefix caching
@@ -860,9 +974,11 @@ class GenerationEngine:
         ``last_finite[i]`` says whether slot i's logits were finite.
         ``seeds``/``counts`` key each slot's sampling noise; ``mask`` holds
         the constrained slots' grammar rows ({slot: [V] row})."""
-        return self.consume_decode(self.decode_async(
-            tokens, positions, block_tables, active, temps, top_ks, seeds, counts,
-            mask=mask))
+        step = self.decode_async(tokens, positions, block_tables, active, temps, top_ks, seeds,
+                                 counts, mask=mask)
+        out = self.consume_decode(step)
+        self.last_step_spans.insert(0, ("dispatch", step.t0, step.t_disp))
+        return out
 
     def decode_async(
         self,
@@ -905,17 +1021,17 @@ class GenerationEngine:
         )
         b, mb = arrays["tables"].shape
         sig = ("decode", (b, mb))
-        if sig not in self._steps:
-            self.trace_counts["decode"] = self.trace_counts.get("decode", 0) + 1
+        traced = self._new_signature("decode", sig, arrays)
         with self._step_inputs(bias, self._mask_dec, mask):
             handle = self._steps.dispatch(
                 sig, arrays, self._decode_body,
                 carry=None if carry is None else {"tokens": carry.tokens_dev},
             )
         t_disp = time.perf_counter()
-        self.phase_seconds["dispatch"] += t_disp - t0
+        self.phase_time_s["decode"]["dispatch"] += t_disp - t0
         self.step_seconds["decode"] += t_disp - t0
-        return InFlightDecode(handle, t0, t_disp, int(np.sum(active)), b)
+        return InFlightDecode(handle, t0, t_disp, int(np.sum(active)), b,
+                              ctx_sum=int(arrays["context_lens"].sum()), traced=traced)
 
     def consume_decode(self, step: InFlightDecode) -> np.ndarray:
         """Wait for an in-flight decode step and read it back: the
@@ -935,9 +1051,25 @@ class GenerationEngine:
         t_read = time.perf_counter()
         # host-clock view: from when the device could start this step (its
         # dispatch, or its predecessor's completion) to its observed end
-        self.phase_seconds["execute"] += t_exec - step.t_started
-        self.phase_seconds["readback"] += t_read - t_exec
+        ph = self.phase_time_s["decode"]
+        ph["execute"] += t_exec - step.t_started
+        ph["readback"] += t_read - t_exec
         self.step_seconds["decode"] += t_read - t_block
+        # two lanes: "execute" from when the device could start the step,
+        # "block" only the host's wait inside this call
+        self.last_step_spans = [
+            ("block", t_block, t_exec),
+            ("execute", step.t_started, t_exec),
+            ("readback", t_exec, t_read),
+        ]
+        # the prediction covers the executed work: every slot's projections
+        # run in the fixed-shape step; only attention context is live-only
+        fm = self.flops_model
+        self._account(
+            "decode", "decode", fm.decode_flops(step.n_active, step.ctx_sum), step.traced,
+            t_read - step.t0, t_exec - step.t_started,
+            fm.roofline_s(fm.decode_flops(b, step.ctx_sum), fm.decode_bytes(b, step.ctx_sum)),
+        )
         return tokens
 
     def discard_decode(self, step: InFlightDecode) -> None:
@@ -1000,10 +1132,23 @@ class GenerationEngine:
             self._mask_ver = torch.zeros((b, w, self.cfg.vocab_size), dtype=torch.float32,
                                          device=self.device)
         with self._step_inputs(bias, self._mask_ver, mask):
-            readback = self._run("verify", (b, w, arrays["tables"].shape[1]), arrays,
-                                 self._verify_body)
+            readback, traced, elapsed, execute_s = self._run(
+                "verify", (b, w, arrays["tables"].shape[1]), arrays, self._verify_body,
+                "verify", t0)
         self.last_finite = readback[b * w + b:].astype(bool)
         self.step_seconds["verify"] += time.perf_counter() - t0
+        # useful work per live slot: n_draft + 1 window tokens, token j at
+        # position start + j attending start + j + 1 positions; the
+        # prediction covers all B x W executed window positions
+        nd = np.maximum(arrays["n_draft"], 0).astype(np.int64)
+        live = arrays["n_draft"] >= 0
+        w_tok = np.where(live, nd + 1, 0)
+        ctx = int(np.where(live, w_tok * (arrays["start"].astype(np.int64) + 1)
+                           + nd * (nd + 1) // 2, 0).sum())
+        fm = self.flops_model
+        self._account("verify", "verify", fm.verify_flops(int(w_tok.sum()), ctx), traced,
+                      elapsed, execute_s,
+                      fm.roofline_s(fm.verify_flops(b * w, ctx), fm.verify_bytes(b * w, ctx)))
         return readback[: b * w].reshape(b, w), readback[b * w: b * w + b]
 
     def generate(

@@ -185,6 +185,13 @@ class PrefixCache:
         with self._lock:
             return sum(1 for e in self._by_id.values() if not e.resident)
 
+    @property
+    def evictable_blocks(self) -> int:
+        """Device blocks reclaimable on demand (resident, unreferenced):
+        counted as available by the cache-pressure telemetry."""
+        with self._lock:
+            return sum(1 for e in self._by_id.values() if e.resident and e.refs == 0)
+
     def hit_ratio(self) -> float:
         return self.hits / self.lookups if self.lookups else 0.0
 

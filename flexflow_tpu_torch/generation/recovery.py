@@ -43,6 +43,12 @@ Failure taxonomy:
                               admitted again when the breaker's
                               half-open probe succeeds
 
+Every step failure, retry, restart, double fault and watchdog trip is an
+event on the scheduler's flight recorder; a restart, a quarantine and a
+give-up attach the ring's incident snapshot to their error
+(``flight_snapshot``), which the HTTP front end returns in the failed
+request's body.
+
 Chaos sites: ``generation.journal_replay`` fires at the top of every
 restart (a crash there is a double fault that consumes another budget
 unit). All clocks and sleeps are injectable.
@@ -97,12 +103,18 @@ class RecoveryStats:
       quarantined      poisoned requests failed alone
       watchdog_trips   stalled device steps detected by the watchdog
       engine_failures  restart budgets exhausted (engine declared dead)
+      kv_imports       handed-off KV payloads committed into this cache
+      kv_imports_rejected  imported payloads rejected and recomputed
 
-    Written by the loop thread and the watchdog thread under a lock."""
+    The two ``kv_imports`` counters keep the JAX package's gauge set; the
+    port has no KV handoff yet, so they stay 0. Written by the loop thread
+    and the watchdog thread under a lock; :meth:`register_gauges` puts
+    every field on the scheduler's ``ServingStats``."""
 
     FIELDS = (
         "recoveries", "step_retries", "replayed_tokens",
         "quarantined", "watchdog_trips", "engine_failures",
+        "kv_imports", "kv_imports_rejected",
     )
 
     def __init__(self):
@@ -119,6 +131,10 @@ class RecoveryStats:
     def snapshot(self) -> dict:
         with self._lock:
             return {f: getattr(self, f) for f in self.FIELDS}
+
+    def register_gauges(self, stats) -> None:
+        for f in self.FIELDS:
+            stats.add_gauge(f, lambda f=f: getattr(self, f))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,6 +271,9 @@ class EngineSupervisor:
         try:
             out = sched._device(step_fn)
         except Exception as e:
+            # the failing step goes on the flight ring first, so every
+            # incident snapshot cut after it contains it
+            sched.flight.record_event("step_failed", step=kind, error=repr(e)[:200])
             if self._consume_stall(seq0):
                 self._restart_and_replay(e, kind)
                 return None
@@ -268,9 +287,11 @@ class EngineSupervisor:
                 self._handle_double_failure(e, kind, states, probe)
                 return None
             self.stats.incr("step_retries")
+            sched.flight.record_event("step_retry", step=kind)
             try:
                 out = sched._device(step_fn)
             except Exception as e2:
+                sched.flight.record_event("step_failed", step=kind, error=repr(e2)[:200])
                 if self._consume_stall(seq0):
                     self._restart_and_replay(e2, kind)
                     return None
@@ -298,6 +319,7 @@ class EngineSupervisor:
         sched = self.scheduler
         if sched.retry.would_retry(first_error):
             return self.run_step(kind, step_fn, states, probe)
+        sched.flight.record_event("step_failed", step=kind, error=repr(first_error)[:200])
         sched.breaker.record_failure()
         if self._consume_stall(since_seq):
             self._restart_and_replay(first_error, kind)
@@ -309,9 +331,11 @@ class EngineSupervisor:
             self._handle_double_failure(first_error, kind, states, probe)
             return None
         self.stats.incr("step_retries")
+        sched.flight.record_event("step_retry", step=kind)
         try:
             out = sched._device(step_fn)
         except Exception as e2:
+            sched.flight.record_event("step_failed", step=kind, error=repr(e2)[:200])
             if self._consume_stall(since_seq):
                 self._restart_and_replay(e2, kind)
                 return None
@@ -378,6 +402,18 @@ class EngineSupervisor:
         # the overlap frontier's in-flight step (if any) is chained on
         # state this reset tears down: discard it first (idempotent)
         sched._discard_frontier()
+        # postmortem first: the snapshot shows the engine's last steps
+        # (the step_failed marker included) before the reset; attached to
+        # the cause, so a later give-up's error still carries it
+        snap = sched.flight.incident(
+            "restart", step=kind, error=repr(cause)[:200],
+            journal_entries=len(sched.journal),
+        )
+        if getattr(cause, "flight_snapshot", None) is None:
+            try:
+                cause.flight_snapshot = snap
+            except Exception:
+                pass  # exceptions with __slots__ cannot carry the dump
         while True:
             now = sched.clock()
             self._restart_times = [
@@ -406,8 +442,10 @@ class EngineSupervisor:
                     sched._rebuild_from_journal()
             except Exception as e:  # double fault: burn another budget unit
                 cause = e
+                sched.flight.record_event("double_fault", error=repr(e)[:200])
                 continue
             self.stats.incr("recoveries")
+            sched.flight.record_event("recovery", step=kind, consecutive=self._consecutive)
             # recovery proved the device responsive: close the breaker a
             # trip (or the crash's recorded failures) opened
             sched.breaker.record_success()
@@ -422,6 +460,9 @@ class EngineSupervisor:
             f"(last cause: {cause!r})"
         )
         err.__cause__ = cause
+        err.flight_snapshot = self.scheduler.flight.incident(
+            "engine_failed", error=repr(cause)[:200]
+        )
         self.scheduler._fail_running_engine_dead(err)
         # queued-but-never-admitted requests are NOT failed: they wait out
         # the outage behind the breaker or expire at their deadlines
@@ -466,6 +507,9 @@ class StepWatchdog:
         if tripped:
             self._last_tripped_seq = seq
             self.stats.incr("watchdog_trips")
+            sched.flight.record_event(
+                "watchdog_trip", heartbeat_seq=seq, stalled_s=sched.clock() - started,
+            )
             sched.breaker.trip()  # health stops reporting a hung device ready
             sched.supervisor.mark_stalled(seq)
         # while the device is wedged the loop thread cannot expire
@@ -488,7 +532,7 @@ class StepWatchdog:
                     DeadlineExceededError("deadline expired during a stalled engine step")
                 )
             ):
-                sched._incr("expired")
+                sched.stats.incr("expired")
 
     def start(self) -> None:
         if not self.policy.enabled or self._thread is not None:

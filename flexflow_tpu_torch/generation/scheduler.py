@@ -59,11 +59,26 @@ batch recomposes freely —
   verify path stays sequential: drafting needs step N's tokens on the
   host, and so does a constrained slot's next grammar row.
 
-The queue is bounded (:class:`QueueFullError`) and requests carry
-deadlines (:class:`DeadlineExceededError` before OR during generation),
-on an injectable clock so tests run on virtual time. ``step()`` does one
-iteration and returns; ``start()`` runs it on a background thread (with
-the watchdog) and ``stop(drain)`` ends it.
+* **overload control** (``serving/overload.py``): the queue is
+  priority-ordered (interactive / standard / best_effort, FCFS within a
+  class); an AIMD concurrency limiter throttles admission before the
+  queue fills, a full queue sheds the youngest fresh request of a lower
+  class, a roofline-predicted TTFT past the deadline fails fast, and a
+  degradation ladder caps speculation, clamps new budgets and sheds
+  best-effort work under sustained pressure — all typed
+  :class:`OverloadedError` rejections with a ``Retry-After``;
+* **observability** (``obs/``; ``observability=False`` turns it off):
+  one :class:`RequestTrace` per request (queue time, TTFT, TPOT, event
+  log) finished into a :class:`TraceRing`, one flight-recorder record
+  per iteration, the step-anatomy profiler's host spans and device
+  execute span, KV-cache block telemetry, SLO burn rates and goodput,
+  all registered as gauges on the scheduler's :class:`ServingStats`
+  (``/v2/stats``, ``/metrics``).
+
+Requests carry deadlines (:class:`DeadlineExceededError` before OR during
+generation), on an injectable clock so tests run on virtual time.
+``step()`` does one iteration and returns; ``start()`` runs it on a
+background thread (with the watchdog) and ``stop(drain)`` ends it.
 """
 from __future__ import annotations
 
@@ -79,16 +94,32 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..obs import (
+    NULL_TRACE,
+    CacheTelemetry,
+    FlightRecorder,
+    RequestTrace,
+    SLOMonitor,
+    StepAnatomy,
+    TraceRing,
+    next_request_id,
+)
 from ..runtime import faults
+from ..serving.overload import OverloadConfig, OverloadController, Priority
 from ..serving.resilience import (
     CircuitBreaker,
     CircuitOpenError,
     DeadlineExceededError,
-    QueueFullError,
     RetryPolicy,
     ShuttingDownError,
 )
-from ..serving.stats import ConstrainedStats
+from ..serving.stats import (
+    ConstrainedStats,
+    GoodputStats,
+    ServingStats,
+    SpeculationStats,
+    TokenRate,
+)
 from .constrained.errors import MaskDeadEndError
 from .decoder import params_to
 from .engine import GenerationEngine, InFlightDecode, SamplingParams
@@ -106,7 +137,6 @@ from .recovery import (
 from .speculative.drafter import SpeculationConfig, build_drafter
 
 _END = object()  # token-stream sentinel
-_request_ids = itertools.count(1)
 
 
 class GenerationHandle:
@@ -118,7 +148,9 @@ class GenerationHandle:
         self.future: Future = Future()
         self._tokens: "queue.Queue" = queue.Queue()
         # the loop and watchdog threads race to settle a handle; the
-        # claim's winner settles it, the loser does nothing
+        # claim's winner owns both the future and the trace, and closes the
+        # trace BEFORE the future settles, so a client woken by the future
+        # never reads a half-open trace
         self._settle_lock = threading.Lock()
         self._settled = False
 
@@ -139,6 +171,15 @@ class GenerationHandle:
         """Ask the scheduler to drop this request at its next step."""
         self._request.cancelled = True
 
+    @property
+    def trace(self):
+        """The request's RequestTrace (NULL_TRACE when observability is
+        off)."""
+        return self._request.trace
+
+    def trace_dict(self) -> dict:
+        return self._request.trace.to_dict()
+
     def tokens(self, timeout: Optional[float] = None):
         """Iterate generated tokens as they are produced. Raises the
         request's failure if it errors mid-stream."""
@@ -157,6 +198,7 @@ class GenerationHandle:
     def _finish(self, tokens: List[int]) -> None:
         if not self._claim():
             return
+        self._request._trace_done("completed", None)
         self.future.set_result(tokens)
         self._tokens.put(_END)
 
@@ -165,6 +207,7 @@ class GenerationHandle:
         of the loop/watchdog race must not count twice)."""
         if not self._claim():
             return False
+        self._request._trace_done(type(err).__name__, err)
         self.future.set_exception(err)
         self._tokens.put(err)
         self._tokens.put(_END)
@@ -181,7 +224,10 @@ class Request:
     :class:`~flexflow_tpu_torch.generation.constrained.TokenDFA` shared
     across requests) and its automaton cursor (``mask_state``, rebuilt
     from ``generated`` at each admission); ``mask_error`` parks a refused
-    advance for the step loop's quarantine sweep."""
+    advance for the step loop's quarantine sweep. ``priority`` orders
+    admission, preemption victims and sheds; ``overload_release`` returns
+    the request's limiter slot when it settles. Ids come from the
+    process-wide ``obs`` counter, so a trace id names one request."""
 
     def __init__(
         self,
@@ -190,10 +236,24 @@ class Request:
         deadline: Optional[float] = None,
         speculation: Optional[SpeculationConfig] = None,
         drafter=None,
+        priority: str = Priority.STANDARD,
         grammar=None,
         response_format: Optional[Dict] = None,
     ):
-        self.id = next(_request_ids)
+        self.id = next_request_id()
+        self.priority = priority
+        self.priority_rank = Priority.rank(priority)
+        self.overload_release: Optional[Callable[[], None]] = None
+        # the scheduler swaps in a live trace (+ its ring and the SLO sink)
+        # at submit when observability is on
+        self.trace = NULL_TRACE
+        self.trace_ring: Optional[TraceRing] = None
+        self.slo_sink: Optional[Callable[["Request"], None]] = None
+        self.submitted_at = 0.0  # stamped by the scheduler
+        # admission-wait blame: when the queue's head first stalled on
+        # cache blocks, and how many it was short
+        self.cache_wait_start: Optional[float] = None
+        self.cache_wait_short = 0
         self.original_prompt = list(prompt)
         self.prompt = list(prompt)  # prompt + recomputed prefix
         self.sampling = sampling
@@ -223,6 +283,26 @@ class Request:
     @property
     def n_generated(self) -> int:
         return len(self.generated)
+
+    def _trace_done(self, outcome: str, err: Optional[BaseException]) -> None:
+        """Terminal hook, called once by the handle's settle winner: the
+        limiter slot goes back (observability off must not leak it), the
+        trace finishes into its ring and the SLO/goodput sink records it."""
+        release, self.overload_release = self.overload_release, None
+        if release is not None:
+            try:
+                release()
+            except Exception:
+                pass  # limiter accounting must never poison a settle path
+        if self.trace is not NULL_TRACE:
+            self.trace.mark_finish(outcome, err)
+            if self.trace_ring is not None:
+                self.trace_ring.add(self.trace)
+            if self.slo_sink is not None:
+                try:
+                    self.slo_sink(self)
+                except Exception:
+                    pass  # SLO accounting must never poison a settle path
 
     def update_speculation(self, proposed: int, accepted: int) -> None:
         """Fold one verification window into the adaptive-k state."""
@@ -305,7 +385,14 @@ class ContinuousBatchingScheduler:
     (moved to the engine's device). ``breaker``/``retry`` guard device
     calls, ``recovery``/``watchdog`` tune the supervisor and the stall
     watchdog, and ``overlap`` (default on) selects the pipelined decode
-    loop."""
+    loop. ``observability`` turns the traces, the flight recorder, the
+    step anatomy and the cache telemetry on (the default) or off;
+    ``trace_ring_size``, ``flight_capacity`` and ``trace_progress_every``
+    size them, ``slo_objectives`` replaces the default SLOs,
+    ``pressure_threshold`` is the free-block fraction under which the
+    cache counts as under pressure, and ``overload`` tunes the overload
+    controller. ``journeys`` stays None: request journeys are not ported
+    yet."""
 
     def __init__(
         self,
@@ -320,7 +407,14 @@ class ContinuousBatchingScheduler:
         draft_params=None,
         recovery: Optional[RecoveryPolicy] = None,
         watchdog: Optional[WatchdogPolicy] = None,
+        observability: bool = True,
+        trace_ring_size: int = 256,
+        flight_capacity: int = 512,
+        trace_progress_every: int = 8,
+        slo_objectives=None,
+        pressure_threshold: float = 0.10,
         overlap: Optional[bool] = None,
+        overload: Optional[OverloadConfig] = None,
     ):
         self.engine = engine
         self.max_queue = max_queue
@@ -343,12 +437,120 @@ class ContinuousBatchingScheduler:
         self._hard_stop = False
         self._stopped = False  # a started-then-stopped scheduler rejects submits
         self._admitted_seq = itertools.count()
+        self.journeys = None  # request journeys: not ported yet
+        # observability, surfaced on /v2/stats and /metrics through the
+        # serving front end (the gauge names are the JAX scheduler's)
+        self.stats = ServingStats()
+        self.token_rate = TokenRate(clock=time.monotonic)
         self.preemptions = 0
-        # admitted / completed / expired / cancelled / rejected / failed,
-        # and the speculation windows: spec_windows / spec_proposed /
-        # spec_accepted / spec_emitted / drafter_errors
-        self.counts: Dict[str, int] = {}
-        self._counts_lock = threading.Lock()
+        alloc, cc = engine.allocator, engine.cache_config
+        self.stats.add_gauge("queue_depth", lambda: len(self._queue))
+        self.stats.add_gauge("running", lambda: len(self._running))
+        self.stats.add_gauge("tokens_generated", lambda: self.token_rate.total)
+        self.stats.add_gauge("tokens_per_s", self.token_rate.rate)
+        self.stats.add_gauge("preemptions", lambda: self.preemptions)
+        self.stats.add_gauge("cache_blocks_used", lambda: alloc.num_total - alloc.num_free)
+        self.stats.add_gauge("cache_blocks_total", lambda: alloc.num_total)
+        # one GPU: the shard is the whole cache
+        self.stats.add_gauge("mesh_devices", lambda: engine.mesh_devices)
+        self.stats.add_gauge("tp_degree", lambda: engine.tp_degree)
+        self.stats.add_gauge("cache_shard_bytes",
+                             lambda: cc.total_bytes // max(1, engine.tp_degree))
+        self.stats.add_gauge("cache_shard_heads",
+                             lambda: cc.num_heads // max(1, engine.tp_degree))
+        self.stats.add_gauge("cache_occupancy",
+                             lambda: 1.0 - alloc.num_free / max(1, alloc.num_total))
+        # new step signatures past the first, read from trace_counts (on a
+        # GPU: graph captures)
+        self.stats.add_gauge("recompiles", lambda: sum(engine.recompiles().values()))
+        self.stats.add_gauge("device_time_s", lambda: sum(engine.device_time_s.values()))
+        # one RequestTrace per submit, finished traces in a bounded ring
+        # (GET /v2/debug/traces); one flight record per iteration (GET
+        # /v2/debug/timeline, quarantine/restart postmortems); the
+        # anatomy's host spans + device execute span per iteration
+        self.obs_enabled = observability
+        self.trace_progress_every = trace_progress_every
+        self.trace_ring = TraceRing(trace_ring_size)
+        # dual-clock records: t (perf_counter, the timeline's clock) and
+        # t_sched (this scheduler's possibly virtual clock)
+        self.flight = FlightRecorder(
+            capacity=flight_capacity, enabled=observability, sched_clock=self.clock
+        )
+        self._step_phases: Dict[str, float] = {}
+        self._step_info: Dict = {}
+        self._step_recorded = False
+        self.anatomy = StepAnatomy(enabled=observability)
+        self.anatomy.register_gauges(self.stats)
+        self._step_spans: List = []  # this iteration's (phase, t0, t1); loop thread
+        self.spec_stats = SpeculationStats()
+        self.spec_stats.register_gauges(self.stats)
+        self.capacity = CacheTelemetry(
+            alloc, clock=self.clock, pressure_threshold=pressure_threshold,
+            enabled=observability,
+            reclaimable=lambda: engine.prefix_cache.evictable_blocks,
+        )
+        self.capacity.register_gauges(self.stats, lambda: list(self._running.values()))
+        # overload control: priority-aware admission, the AIMD limiter
+        # (fed by the queue-time/TTFT windows and the pressure flag), the
+        # degradation ladder, and the infeasibility fast-fail, whose
+        # predicted TTFT behind ``depth`` queued requests is (depth + 1)
+        # prefills on the serving roofline
+        fm = engine.flops_model
+        self.overload = OverloadController(
+            clock=self.clock,
+            slots=engine.max_batch_slots,
+            max_queue=max_queue,
+            queue_depth=lambda: len(self._queue),
+            queue_p95=lambda: self.stats.window_p95("queue_time"),
+            ttft_p95=lambda: self.stats.window_p95("ttft"),
+            cache_pressure=lambda: self.capacity.under_pressure,
+            ttft_predictor=lambda n, depth: (depth + 1) * fm.roofline_s(
+                fm.prefill_flops(n), fm.prefill_bytes(n)
+            ),
+            stats=self.stats,
+            on_transition=self._note_degrade,
+            config=overload,
+        )
+        self.overload.register_gauges(self.stats)
+        for p in Priority.ORDER:
+            self.stats.add_gauge(
+                f"overload_queue_depth_{p}",
+                lambda p=p: sum(1 for r in list(self._queue) if r.priority == p),
+            )
+        # prefix-cache telemetry (flexflow_serving_prefix_cache_*)
+        pc = engine.prefix_cache
+        self.stats.add_gauge("prefix_cache_hit_ratio", pc.hit_ratio)
+        self.stats.add_gauge("prefix_cache_blocks_reused_total", lambda: pc.blocks_reused_total)
+        self.stats.add_gauge("prefix_cache_tokens_reused_total", lambda: pc.tokens_reused_total)
+        self.stats.add_gauge("prefix_cache_cow_copies_total", lambda: pc.cow_copies_total)
+        self.stats.add_gauge("prefix_cache_swaps_in_total", lambda: pc.swaps_in_total)
+        self.stats.add_gauge("prefix_cache_swaps_out_total", lambda: pc.swaps_out_total)
+        self.stats.add_gauge("prefix_cache_host_bytes", lambda: pc.host_bytes)
+        self.stats.add_gauge("prefix_cache_resident_blocks", lambda: pc.resident_blocks)
+        self.stats.add_gauge("prefix_cache_offloaded_blocks", lambda: pc.offloaded_blocks)
+        self.goodput = GoodputStats()
+        self.goodput.register_gauges(self.stats)
+        self.slo = SLOMonitor(slo_objectives, clock=self.clock)
+        self.slo.register_gauges(self.stats)
+        self.stats.add_gauge("mfu", engine.mfu)
+        self.stats.add_gauge("model_tflops_total", lambda: engine.total_flops() / 1e12)
+        self.stats.add_gauge(
+            "achieved_tflops",
+            lambda: engine.total_flops() / max(1e-9, engine.total_device_time_s()) / 1e12,
+        )
+        self.stats.add_gauge("retraces_blamed", engine.programs.total_retraces)
+        # a new step signature's blame rides the flight ring next to the
+        # step that met it
+        engine.programs.on_retrace = self._note_retrace
+        # predicted-vs-measured step times (GET /v2/debug/predictions)
+        led = engine.ledger
+        self.stats.add_gauge("perf_prediction_pairs", lambda: led.pairs_total)
+        self.stats.add_gauge("perf_prediction_error_p50",
+                             lambda: led.error_summary()["abs_err_p50"])
+        self.stats.add_gauge("perf_prediction_error_max",
+                             lambda: led.error_summary()["abs_err_max"])
+        self.stats.add_gauge("perf_drift_alarms", lambda: led.alarms_total)
+        led.on_alarm = self._note_drift
         # overlapped decode: the at-most-one-deep frontier (loop thread
         # only) and plain counters: dispatches through the pipeline,
         # frontier drains by reason, in-flight steps discarded
@@ -361,21 +563,21 @@ class ContinuousBatchingScheduler:
         # (seq, started_at) while a device call is in flight, the
         # watchdog's stall signal
         self.recovery_stats = RecoveryStats()
+        self.recovery_stats.register_gauges(self.stats)
         # constrained decoding: grammar-cache and masked-step counters (a
         # GrammarCache built with this object counts its compiles here)
         self.constrained_stats = ConstrainedStats()
+        self.constrained_stats.register_gauges(self.stats)
         self.journal = GenerationJournal()
         self.supervisor = EngineSupervisor(self, recovery)
         self.watchdog = StepWatchdog(self, watchdog)
         self._heartbeat = None
         self._hb_seq = 0
         # the request popped for admission but not yet slot-resident,
-        # visible to the watchdog's deadline reaper while its prefill runs
+        # visible to the watchdog's deadline reaper while its prefill runs;
+        # its blocks give cache_report a provisional residency row
         self._admitting: Optional[Request] = None
-
-    def _incr(self, name: str, n: int = 1) -> None:
-        with self._counts_lock:
-            self.counts[name] = self.counts.get(name, 0) + n
+        self._admitting_blocks: Optional[List[int]] = None
 
     # ------------------------------------------------------------- submit
     def submit(
@@ -384,19 +586,28 @@ class ContinuousBatchingScheduler:
         sampling: Optional[SamplingParams] = None,
         deadline_s: Optional[float] = None,
         speculation: Optional[SpeculationConfig] = None,
+        transport: Optional[str] = None,
+        priority: Optional[str] = None,
         grammar=None,
         response_format: Optional[Dict] = None,
     ) -> GenerationHandle:
-        """Enqueue one request (FCFS). Raises QueueFullError when the
-        bounded queue is full, CircuitOpenError while the breaker holds
-        traffic, ShuttingDownError while draining or after ``stop()``,
-        DeadlineExceededError for an already-expired budget, and
-        ValueError for a prompt that can never be served.
+        """Enqueue one request (priority-ordered, FCFS within a class).
+        Raises OverloadedError (a QueueFullError carrying reason /
+        priority / retry_after_s) on backpressure, limiter throttling or
+        degradation shedding; InfeasibleError when the roofline-predicted
+        TTFT already exceeds the deadline; CircuitOpenError while the
+        breaker holds traffic; ShuttingDownError while draining or after
+        ``stop()``; DeadlineExceededError for an already-expired budget;
+        ValueError for a prompt that can never be served. A full queue
+        sheds the youngest fresh queued request of the LOWEST class
+        strictly below the newcomer's before rejecting the newcomer.
         ``speculation`` turns on (exact) speculative decoding for this
         request; None falls back to the scheduler's default policy.
-        ``grammar`` is a compiled constrained-decoding TokenDFA (see
-        ``generation/constrained/``), checked against the engine's
-        vocabulary; ``response_format`` is the wire spec it came from."""
+        ``transport`` annotates the trace ("http"); ``priority`` is one of
+        ``Priority.ORDER`` (default standard). ``grammar`` is a compiled
+        constrained-decoding TokenDFA (see ``generation/constrained/``),
+        checked against the engine's vocabulary; ``response_format`` is
+        the wire spec it came from."""
         if self._draining:
             raise ShuttingDownError("generation scheduler draining")
         if self._stopped:
@@ -422,17 +633,32 @@ class ContinuousBatchingScheduler:
                 f"engine vocab is {self.engine.cfg.vocab_size}"
             )
         if deadline_s is not None and deadline_s <= 0:
-            self._incr("expired")
+            self.stats.incr("expired")
             raise DeadlineExceededError("deadline already expired at submit")
+        priority = Priority.parse(priority)
+        rank = Priority.rank(priority)
+        ctl = self.overload
+        # chaos hook: force admission-path failures (typically a typed
+        # OverloadedError) to drive the limiter/shed paths
+        faults.inject(faults.SERVING_ADMISSION, (priority, len(self._queue)))
+        if ctl.degraded_reject(priority):
+            raise ctl.overload_error(
+                f"degraded: shedding {priority} traffic (ladder level {ctl.ladder.level})",
+                "degraded", priority,
+            )
+        if deadline_s is not None:
+            predicted = ctl.infeasible(len(prompt), deadline_s)
+            if predicted is not None:
+                raise ctl.infeasible_error(priority, predicted, deadline_s)
+        shed: List = []  # (victim, error) pairs, settled OUTSIDE the lock
         with self._lock:
-            # ready(), not allow(): submit only enqueues; the half-open
-            # probe slot is claimed by the admission that calls the device
+            # breaker FIRST, before any shed planning: a submit the breaker
+            # refuses must never destroy queued work. ready(), not allow():
+            # submit only enqueues; the half-open probe slot is claimed by
+            # the admission that calls the device
             if not self.breaker.ready():
-                self._incr("rejected")
+                self.stats.incr("rejected")
                 raise CircuitOpenError("generation circuit open")
-            if len(self._queue) >= self.max_queue:
-                self._incr("rejected")
-                raise QueueFullError(f"generation queue full ({self.max_queue})")
             deadline = None if deadline_s is None else self.clock() + deadline_s
             spec = speculation if speculation is not None else self.speculation_default
             drafter = None
@@ -445,17 +671,91 @@ class ContinuousBatchingScheduler:
                     spec, draft_params=self.draft_params, max_seq_len=self.engine.max_seq_len,
                 )
             req = Request(list(prompt), sampling, deadline=deadline, speculation=spec,
-                          drafter=drafter, grammar=grammar, response_format=response_format)
+                          drafter=drafter, priority=priority, grammar=grammar,
+                          response_format=response_format)
+            req.submitted_at = self.clock()
+            if self.obs_enabled:
+                req.trace = RequestTrace(
+                    req.id, clock=self.clock, progress_every=self.trace_progress_every,
+                )
+                req.trace_ring = self.trace_ring
+                req.slo_sink = self._slo_record
+                req.trace.mark_accept(
+                    prompt_len=len(prompt), deadline_s=deadline_s,
+                    speculative=bool(spec is not None and spec.enabled),
+                )
+                if transport is not None:
+                    req.trace.mark_transport(transport)
             # the sequence can never outgrow max_seq_len NOR the TOTAL
             # cache: a sequence needing more blocks than exist would
-            # preempt itself forever at the head of the FCFS queue
+            # preempt itself forever at the head of the queue
             cache_room = (
                 self.engine.allocator.num_total * self.engine.cache_config.block_size
                 - len(prompt)
             )
             req.max_new = min(sampling.max_new_tokens, room, cache_room)
-            self._queue.append(req)
-        self._incr("admitted")
+            # degrade level 3+: clamp NEW admissions' budgets per class
+            cap = ctl.max_new_cap(priority)
+            if cap is not None:
+                req.max_new = min(req.max_new, max(1, cap))
+            # overload gates, planned BEFORE any victim is touched: the
+            # whole shed set (one for queue space when full, at most one
+            # more when queued lower-priority work holds the limiter slot)
+            # is checked first, so a newcomer the gates refuse anyway never
+            # destroys queued work. Victims' limiter slots release here,
+            # under the lock; their handles settle after it drops
+            need = 1 if len(self._queue) >= self.max_queue else 0
+            freed = need
+            if not ctl.limiter.can_admit(priority, freed=freed):
+                freed += 1  # one extra shed, for the limiter slot itself
+                if not ctl.limiter.can_admit(priority, freed=freed):
+                    raise ctl.overload_error(
+                        "admission throttled by the adaptive concurrency "
+                        f"limit ({ctl.limiter.limit:.0f})",
+                        "limiter", priority,
+                    )
+            if freed:
+                victims = self._shed_victims_locked(rank, freed)
+                if len(victims) < freed:
+                    if need and not victims:
+                        raise ctl.overload_error(
+                            f"generation queue full ({self.max_queue})",
+                            "queue_full", priority,
+                        )
+                    raise ctl.overload_error(
+                        "admission throttled by the adaptive concurrency "
+                        f"limit ({ctl.limiter.limit:.0f})",
+                        "limiter", priority,
+                    )
+                reason = "queue_full" if need else "limiter"
+                detail = (
+                    f"queue full at {self.max_queue}" if need
+                    else f"adaptive limit {ctl.limiter.limit:.0f}"
+                )
+                for victim in victims:
+                    self._queue.remove(victim)
+                    release, victim.overload_release = victim.overload_release, None
+                    if release is not None:
+                        release()
+                    shed.append((victim, ctl.overload_error(
+                        f"shed for a higher-priority admission ({detail})",
+                        reason, victim.priority, shed=True,
+                    )))
+            if not ctl.limiter.try_acquire(priority):
+                # unreachable by construction (can_admit held under this
+                # lock and inflight only shrinks concurrently); typed anyway
+                raise ctl.overload_error(
+                    "admission throttled by the adaptive concurrency "
+                    f"limit ({ctl.limiter.limit:.0f})",
+                    "limiter", priority,
+                )
+            req.overload_release = ctl.limiter.release
+            self._queue_insert_locked(req)
+        # settle shed victims OUTSIDE the lock: a done-callback that
+        # re-enters the scheduler must not deadlock on _lock
+        for victim, err in shed:
+            victim.handle._fail(err)
+        self.stats.incr("admitted")
         self._wake.set()
         return req.handle
 
@@ -522,11 +822,11 @@ class ContinuousBatchingScheduler:
             queued, self._queue = list(self._queue), deque()
         for req in queued:
             if req.handle._fail(err):
-                self._incr("failed")
+                self.stats.incr("failed")
         for state in list(self._running.values()):
             self._release(state)
             if state.req.handle._fail(err):
-                self._incr("failed")
+                self.stats.incr("failed")
 
     def _fail_running_engine_dead(self, err: EngineFailedError) -> None:
         """Restart budget exhausted: every slot-resident stream is lost to
@@ -547,9 +847,9 @@ class ContinuousBatchingScheduler:
                 # finished at a pipeline consume, release still pending:
                 # it holds every token
                 state.req.handle._finish(list(state.req.generated))
-                self._incr("completed")
+                self.stats.incr("completed")
             elif state.req.handle._fail(err):
-                self._incr("failed")
+                self.stats.incr("failed")
         # replay-requeued MID-STREAM requests are as lost as the
         # slot-resident ones; fresh queued requests stay held
         with self._lock:
@@ -557,7 +857,7 @@ class ContinuousBatchingScheduler:
             for req in self._queue:
                 if req.n_generated > 0:
                     if req.handle._fail(err):
-                        self._incr("failed")
+                        self.stats.incr("failed")
                 else:
                     keep.append(req)
             self._queue = keep
@@ -579,12 +879,13 @@ class ContinuousBatchingScheduler:
                 # completed its budget/EOS at a pipeline consume before
                 # the teardown: it holds every token
                 req.handle._finish(list(req.generated))
-                self._incr("completed")
+                self.stats.incr("completed")
                 continue
             req.prompt = req.original_prompt + list(req.generated)
             # the journal IS the grammar state: rebuilt at re-admission
             req.mask_state = None
             req.replays += 1
+            req.trace.note_replay()
             replayed += req.n_generated
             requeue.append(req)
         with self._lock:
@@ -602,11 +903,24 @@ class ContinuousBatchingScheduler:
         self._free_slots = list(range(self.engine.max_batch_slots - 1, -1, -1))
 
     def _quarantine(self, state: _Running, err: BaseException) -> None:
-        """Fail ONE poisoned request and keep the batch."""
+        """Fail ONE poisoned request and keep the batch. The flight
+        recorder's trailing window rides the error out as the
+        postmortem."""
         req = state.req
+        req.trace.event(
+            "quarantine", step=getattr(err, "step", None),
+            reason=getattr(err, "reason", type(err).__name__),
+        )
+        if getattr(err, "flight_snapshot", None) is None:
+            try:
+                err.flight_snapshot = self.flight.incident(
+                    "quarantine", request_id=req.id, error=repr(err)[:200],
+                )
+            except Exception:
+                pass  # exceptions with __slots__ cannot carry the dump
         self._release(state)
         if req.handle._fail(err):
-            self._incr("failed")
+            self.stats.incr("failed")
             self.recovery_stats.incr("quarantined")
 
     def _sweep_mask_errors(self) -> None:
@@ -627,28 +941,43 @@ class ContinuousBatchingScheduler:
     def has_work(self) -> bool:
         return bool(self._queue) or bool(self._running)
 
+    # ------------------------------------------- capacity / SLO reporting
+    def _note_retrace(self, name: str, blame: str) -> None:
+        """Program-registry hook: a new signature's blame lands on the
+        flight ring in order with the step that met it."""
+        self.flight.record_event("retrace", program=name, blame=blame)
+
+    def _note_drift(self, alarm: Dict) -> None:
+        """Truth-ledger drift hook: the alarm lands on the flight ring
+        next to the steps that proved it."""
+        self.flight.record_event("drift", program=alarm["key"], blame=alarm["blame"])
+
+    def _slo_record(self, req: Request) -> None:
+        """Terminal SLO/goodput sink (once per request, from the settle
+        winner). A token is good only when its request COMPLETED in its
+        deadline; the SLO windows see every outcome."""
+        tr = req.trace
+        in_deadline = req.deadline is None or (
+            tr.t_finish is not None and tr.t_finish <= req.deadline
+        )
+        self.goodput.record(req.n_generated, good=(tr.outcome == "completed" and in_deadline))
+        self.slo.observe(tr.outcome or "unknown", ttft_s=tr.ttft_s, tpot_s=tr.tpot_s)
+
     def cache_report(self) -> Dict:
-        """Allocator state, the per-request block residency and the
-        prefix cache's snapshot. A running request's private blocks
-        (``blocks - shared_blocks``) plus the prefix index's resident
-        blocks sum to ``used``: a shared block is counted once, by the
-        index."""
-        alloc = self.engine.allocator
-        cfg = alloc.config
-        free = alloc.num_free
-        residency = [
-            {"request_id": s.req.id, "slot": s.slot, "blocks": len(s.blocks),
-             "shared_blocks": len(s.shared_idx), "live_tokens": s.cached_len}
-            for s in sorted(self._running.values(), key=lambda s: s.slot)
-        ]
-        return {
-            "config": {"num_blocks": cfg.num_blocks, "block_size": cfg.block_size,
-                       "bytes_per_block": cfg.bytes_per_block},
-            "blocks": {"total": alloc.num_total, "free": free, "used": alloc.num_total - free},
-            "queue_depth": len(self._queue),
-            "residency": residency,
-            "prefix_cache": self.engine.prefix_cache.snapshot(),
-        }
+        """The ``GET /v2/debug/cache`` payload: allocator state, the
+        per-request block residency and the prefix cache's snapshot. The
+        free count is read FIRST, then the running snapshot, then the
+        admission in flight (deduped by request id in the report): a
+        request finishing mid-scrape can make the table undercount
+        ``used``, never claim freed blocks."""
+        free = self.engine.allocator.num_free
+        running = list(self._running.values())
+        adm_req, adm_blocks = self._admitting, self._admitting_blocks
+        return self.capacity.report(
+            running, queue_depth=len(self._queue),
+            admitting=(adm_req, adm_blocks) if adm_req is not None and adm_blocks else None,
+            free=free, prefix=self.engine.prefix_cache.snapshot(),
+        )
 
     def _loop(self) -> None:
         while (self._alive or (self._draining and self.has_work())) and not self._hard_stop:
@@ -670,8 +999,13 @@ class ContinuousBatchingScheduler:
 
     def _finish(self, state: _Running) -> None:
         self._release(state)
-        state.req.handle._finish(list(state.req.generated))
-        self._incr("completed")
+        req = state.req
+        self.stats.latency.record(max(0.0, self.clock() - req.submitted_at))
+        tpot = req.trace.tpot_s
+        if tpot is not None:
+            self.stats.observe("tpot", tpot)
+        req.handle._finish(list(req.generated))
+        self.stats.incr("completed")
 
     def _expire(self) -> None:
         now = self.clock()
@@ -682,10 +1016,10 @@ class ContinuousBatchingScheduler:
                     pass  # reaped by the watchdog during a stall; just drop
                 elif req.cancelled:
                     if req.handle._fail(ShuttingDownError("request cancelled")):
-                        self._incr("cancelled")
+                        self.stats.incr("cancelled")
                 elif req.deadline is not None and now >= req.deadline:
                     if req.handle._fail(DeadlineExceededError("deadline expired while queued")):
-                        self._incr("expired")
+                        self.stats.incr("expired")
                 else:
                     keep.append(req)
             self._queue = keep
@@ -698,11 +1032,11 @@ class ContinuousBatchingScheduler:
             elif req.cancelled:
                 self._release(state)
                 if req.handle._fail(ShuttingDownError("request cancelled")):
-                    self._incr("cancelled")
+                    self.stats.incr("cancelled")
             elif req.deadline is not None and now >= req.deadline:
                 self._release(state)
                 if req.handle._fail(DeadlineExceededError("deadline expired mid-generation")):
-                    self._incr("expired")
+                    self.stats.incr("expired")
 
     @contextlib.contextmanager
     def _stamped(self):
@@ -738,6 +1072,7 @@ class ContinuousBatchingScheduler:
         """Evict ``state`` for recompute: stash its computed blocks in the
         prefix cache, free the rest, fold its generated tokens into the
         prompt, and requeue it at the FRONT."""
+        self.capacity.note_preempt(len(state.blocks))
         # the stash: its re-admission (and any request sharing the
         # prefix) re-matches the blocks; under continued pressure they
         # offload to the host tier and swap back in
@@ -748,23 +1083,89 @@ class ContinuousBatchingScheduler:
         req.mask_state = None  # rebuilt from `generated` at re-admission
         req.preemptions += 1
         self.preemptions += 1
+        req.trace.note_preempt()
         with self._lock:
             self._queue.appendleft(req)
 
     def _preempt_youngest(self, exclude: Optional[_Running] = None) -> bool:
-        """Evict the youngest running sequence (vLLM's LIFO recompute
-        victim) other than ``exclude``, the sequence trying to grow.
-        Returns False when there is none."""
+        """Evict a running sequence for recompute: the youngest member of
+        the LOWEST priority class present (vLLM's LIFO recompute victim,
+        priority-ordered). ``exclude`` is the sequence trying to grow: it
+        is never the victim, and neither is anything that outranks it
+        (growing a best-effort stream must not evict an interactive one).
+        Returns False when there is none: the caller then preempts the
+        grower itself."""
         victims = [s for s in self._running.values() if s is not exclude]
+        if exclude is not None:
+            victims = [s for s in victims if s.req.priority_rank >= exclude.req.priority_rank]
         if not victims:
             return False
-        self._preempt_self(max(victims, key=lambda s: s.admitted_seq))
+        self._preempt_self(max(victims, key=lambda s: (s.req.priority_rank, s.admitted_seq)))
         return True
 
+    def _queue_insert_locked(self, req: Request) -> None:
+        """Priority-ordered enqueue: ahead of the first FRESH queued
+        request of a strictly lower class, FIFO within a class. Resumed
+        work (preempted or journal-replayed, requeued at the front) keeps
+        absolute precedence: a new interactive request must not starve a
+        mid-stream resume whose client already holds tokens."""
+        q = self._queue
+        for i, cand in enumerate(q):
+            if cand.n_generated > 0 or cand.preemptions > 0 or cand.replays > 0:
+                continue
+            if cand.priority_rank > req.priority_rank:
+                q.insert(i, req)
+                return
+        q.append(req)
+
+    @staticmethod
+    def _fresh(req: Request) -> bool:
+        """Never admitted (so never streamed a token): a shed candidate."""
+        return (req.n_generated == 0 and req.preemptions == 0 and req.replays == 0
+                and not req.handle.done())
+
+    def _shed_victims_locked(self, rank: int, n: int) -> List[Request]:
+        """Up to ``n`` shed victims for a newcomer of ``rank``: fresh
+        queued requests of classes strictly below the newcomer's, lowest
+        class first, youngest first within a class."""
+        cands = [
+            (cand.priority_rank, idx, cand)
+            for idx, cand in enumerate(self._queue)
+            if cand.priority_rank > rank and self._fresh(cand)
+        ]
+        cands.sort(key=lambda t: (t[0], t[1]), reverse=True)
+        return [cand for _, _, cand in cands[:n]]
+
+    def _shed_queued_best_effort(self) -> None:
+        """Degrade level 4: every fresh queued best-effort request fails
+        typed (reason "degraded"); resumed best-effort streams keep their
+        place."""
+        be = Priority.RANK[Priority.BEST_EFFORT]
+        with self._lock:
+            victims = [r for r in self._queue if r.priority_rank == be and self._fresh(r)]
+            for r in victims:
+                self._queue.remove(r)
+        for r in victims:
+            r.handle._fail(self.overload.overload_error(
+                f"degraded: best-effort shed at ladder level {self.overload.ladder.level}",
+                "degraded", r.priority, shed=True,
+            ))
+
+    def _note_degrade(self, old: int, new: int, pressure: float) -> None:
+        """Ladder-transition hook: each level change is a flight event."""
+        self.flight.record_event("degrade", level=new, prev=old, pressure=round(pressure, 3))
+
+    def _overload_tick(self) -> None:
+        """One overload-control iteration (limiter AIMD + ladder), plus
+        the ladder's level-4 action: shed queued best-effort work."""
+        self.overload.tick()
+        if self.overload.ladder.shed_best_effort():
+            self._shed_queued_best_effort()
+
     def _admit(self) -> bool:
-        """FCFS, cache-capacity-aware admission with prefix reuse.
-        Returns True if the queue's head was admitted (prefilled) or
-        failed."""
+        """Priority-ordered, cache-capacity-aware admission of the
+        queue's head, with prefix reuse. Returns True if the head was
+        admitted (prefilled) or failed."""
         engine = self.engine
         with self._lock:
             if not self._queue or not self._free_slots:
@@ -791,11 +1192,19 @@ class ContinuousBatchingScheduler:
                     f"request {req.id} could not rebuild its grammar state: {e}",
                     request_id=req.id, step="mask", reason="mask_advance",
                 )
+                req.trace.event("quarantine", step="mask", reason="mask_advance")
+                err.flight_snapshot = self.flight.incident(
+                    "quarantine", request_id=req.id, step="mask", reason="mask_advance",
+                )
                 if req.handle._fail(err):
-                    self._incr("failed")
+                    self.stats.incr("failed")
                     self.recovery_stats.incr("quarantined")
                 return True
+        # radix planning is its own anatomy phase (prefix_plan)
+        t_p0 = time.perf_counter()
         plan = engine.prefix_plan(req.prompt)
+        t_p1 = time.perf_counter()
+        self._span("prefix_plan", t_p0, t_p1)
         need = engine.cache_config.blocks_for(len(req.prompt) + 1) - plan.n_resident
         blocks = engine.allocator.allocate(need)
         if blocks is None:
@@ -807,12 +1216,28 @@ class ContinuousBatchingScheduler:
             if reclaimed:
                 blocks = engine.allocator.allocate(need)
         if blocks is None:
+            # admission-wait blame: when the head first stalled on blocks
+            # and how many it is short; the eventual admit stamps "queued
+            # Nms waiting for K block(s)" on its trace
+            if self.obs_enabled and req.cache_wait_start is None:
+                req.cache_wait_start = self.clock()
+            req.cache_wait_short = need - engine.allocator.num_free
             return False
         with self._lock:
             self._queue.popleft()
             slot = self._free_slots.pop()
+        if req.cache_wait_start is not None:
+            wait_s = max(0.0, self.clock() - req.cache_wait_start)
+            blame = self.capacity.note_admission_wait(wait_s, req.cache_wait_short)
+            req.trace.event("cache_wait", wait_s=wait_s, blocks_short=req.cache_wait_short,
+                            blame=blame)
+            req.cache_wait_start = None
+        self._span("admit", t_p1, time.perf_counter())
+        t_q0 = time.perf_counter()
         with self._stamped():
             prep = engine.prepare_prefix(req.prompt, plan, blocks)
+        t_q1 = time.perf_counter()
+        self._span("prefix_plan", t_q0, t_q1)
         if prep is None:
             # a failed swap-in could not be replaced: everything was
             # handed back; requeue the head and retry next iteration
@@ -821,7 +1246,12 @@ class ContinuousBatchingScheduler:
                 self._queue.appendleft(req)
             return False
         table, shared_idx, entries, prefix_len = prep
+        # blocks first, then the request: cache_report treats a set
+        # _admitting as implying its (private) blocks are readable
+        self._admitting_blocks = [b for i, b in enumerate(table) if i not in shared_idx]
         self._admitting = req
+        t_dev = time.perf_counter()
+        self._span("admit", t_q1, t_dev)
         try:
             pf_mask = None
             if req.mask_state is not None:
@@ -837,6 +1267,7 @@ class ContinuousBatchingScheduler:
             )
         except Exception as e:
             self._admitting = None
+            self._admitting_blocks = None
             engine.release_admission(table, shared_idx, entries)
             self._free_slots.append(slot)
             if self.supervisor.failed:
@@ -853,19 +1284,28 @@ class ContinuousBatchingScheduler:
                 self.supervisor._restart_and_replay(e, "prefill")
                 return True
             if req.handle._fail(e):
-                self._incr("failed")
+                self.stats.incr("failed")
             return True  # did work (and must not spin on the same head)
+        t_dev_end = time.perf_counter()
+        # the prefill's dispatch/execute/readback spans join the
+        # iteration's anatomy timeline
+        execute_s = self._engine_spans()
         if not bool(engine.last_finite[0]):
             # poisoned prompt: a single-sequence step needs no bisection
             self._admitting = None
+            self._admitting_blocks = None
             engine.release_admission(table, shared_idx, entries)
             self._free_slots.append(slot)
             err = PoisonedRequestError(
                 f"request {req.id} produced non-finite logits at prefill",
                 request_id=req.id, step="prefill", reason="nan_logits",
             )
+            req.trace.event("quarantine", step="prefill", reason="nan_logits")
+            err.flight_snapshot = self.flight.incident(
+                "quarantine", request_id=req.id, step="prefill", reason="nan_logits",
+            )
             if req.handle._fail(err):
-                self._incr("failed")
+                self.stats.incr("failed")
                 self.recovery_stats.incr("quarantined")
             return True
         # the prompt's written blocks join the prefix index only after the
@@ -877,16 +1317,39 @@ class ContinuousBatchingScheduler:
             shared_idx=shared_idx, shared_entries=entries,
         )
         self._running[slot] = state
+        # cleared only after the slot is registered: the blocks stay
+        # visible to cache_report for the whole admission
         self._admitting = None
+        self._admitting_blocks = None
         if self.supervisor.failed:  # a dead engine just served a prefill
             self.supervisor.note_engine_recovered()
         self.journal.record(req, state.admitted_seq)
         if req.handle.done():  # the watchdog reaped it while the prefill ran
             self._release(state)
             return True
+        was_first = req.n_generated == 0
+        now = self.clock()
+        req.trace.mark_admit(slot=slot, prompt_len=len(req.prompt),
+                             preemptions=req.preemptions, replays=req.replays)
+        if self.obs_enabled and was_first and req.preemptions == 0 and req.replays == 0:
+            # first-life admission only: a recompute re-admission is a
+            # scheduling event, not client-visible queueing
+            self.stats.observe("queue_time", max(0.0, now - req.submitted_at))
         self._emit_token(state, token)
+        req.trace.note_tokens(1, "prefill")
+        if self.obs_enabled and was_first:
+            self.stats.observe("ttft", max(0.0, now - req.submitted_at))
+        self.flight.record_step(
+            "prefill",
+            phases={"prefix_plan": (t_p1 - t_p0) + (t_q1 - t_q0), "device": t_dev_end - t_dev},
+            execute_s=execute_s, request_id=req.id, prompt_len=len(req.prompt),
+            occupancy=len(self._running), queue_depth=len(self._queue),
+            blocks_free=engine.allocator.num_free, prefix_reused=prefix_len,
+        )
+        self.token_rate.record(1)
         if req.finished():
             self._finish(state)
+        self._span("admit", t_dev_end, time.perf_counter())
         return True
 
     def _emit_token(self, state: _Running, token: int) -> None:
@@ -932,6 +1395,12 @@ class ContinuousBatchingScheduler:
             budget = req.max_new - req.n_generated  # >= 1 while running
             pos_room = (self.engine.max_seq_len - 1) - state.cached_len
             state.step_k = max(0, min(req.spec_k, budget - 1, pos_room))
+            # degrade ladder: level 1 caps the window, level 2 disables
+            # drafting — exact either way (any k, 0 included, emits the
+            # same greedy stream)
+            cap = self.overload.spec_cap()
+            if cap is not None:
+                state.step_k = min(state.step_k, cap)
 
     def _grow(self) -> None:
         """Ensure every running sequence has cache blocks for its next
@@ -1018,6 +1487,12 @@ class ContinuousBatchingScheduler:
         blamed = [s for s in live if not bool(ok[s.slot])]
         if not blamed:
             return False
+        # the failing step goes on the flight ring before any quarantine
+        # or restart incident freezes its snapshot
+        self._flight_step()
+        self.flight.record_event(
+            "nan_blame", step=kind, request_ids=[s.req.id for s in blamed], live=len(live),
+        )
         if len(blamed) == len(live) and len(live) > 1:
             self.supervisor.handle_engine_nan(kind)
             return True
@@ -1061,14 +1536,27 @@ class ContinuousBatchingScheduler:
     def _decode_once(self) -> bool:
         if not self._running:
             return False
+        t_c0 = time.perf_counter()
         order = sorted(self._running.values(), key=lambda s: s.slot)
         step, probe = self._decode_step_fns(order)
+        self._span("schedule", t_c0, time.perf_counter())
+        info = self._step_info
+        info["kind"] = "decode"
+        t_dev = time.perf_counter()
         out = self.supervisor.run_step("decode", step, order, probe)
+        self._step_phases["device"] = time.perf_counter() - t_dev
         if out is None:
+            info["handled_failure"] = True
             return True  # failure handled: quarantined or journal-replayed
+        info["execute_s"] = self._engine_spans()
         if self._quarantine_nan("decode", order):
+            info["handled_failure"] = True
             return True
-        self._scatter_decode(order, out)
+        t_book = time.perf_counter()
+        n_live, _ = self._scatter_decode(order, out)
+        self._span("bookkeep", t_book, time.perf_counter())
+        info["emitted"] = n_live
+        self.token_rate.record(n_live)
         return True
 
     def _scatter_decode(self, order, out, defer_finish: bool = False):
@@ -1090,6 +1578,7 @@ class ContinuousBatchingScheduler:
                 continue  # finished at a previous pipeline consume
             state.cached_len += 1
             self._emit_token(state, int(out[state.slot]))
+            state.req.trace.note_tokens(1, "decode")
             n_live += 1
             if state.req.finished():
                 finish.append(state)
@@ -1170,18 +1659,24 @@ class ContinuousBatchingScheduler:
         except BaseException:
             self.engine.discard_decode(f.handle)  # its readback is lost with it
             raise
+        t_b0 = time.perf_counter()
         out = self.engine.consume_decode(f.handle)
         # completion stamp: the successor only starts device work now, so
-        # its heartbeat age is measured from here
+        # its heartbeat age and execute span are measured from here
         nf = self._pipe
         if nf is not None:
             self._heartbeat = (nf.hb_seq, self.clock())
             nf.handle.t_started = time.perf_counter()
         else:
             self._heartbeat = None
+        ph = self._step_phases
+        ph["device"] = ph.get("device", 0.0) + (time.perf_counter() - t_b0)
+        self._step_info["execute_s"] = self._step_info.get("execute_s", 0.0) + self._engine_spans()
         if self.supervisor._consume_stall(f.seq0):
             # the watchdog tripped while this chain was in flight: the
-            # late result is stale; discard everything and replay
+            # late result is stale; discard everything and replay (the
+            # iteration stays out of the anatomy's hot window)
+            self._step_info["handled_failure"] = True
             self._discard_frontier()
             self.supervisor._restart_and_replay(
                 StalledStepError("decode step exceeded the watchdog stall timeout"),
@@ -1195,8 +1690,11 @@ class ContinuousBatchingScheduler:
             # tokens: discard it, then apply the standard blame rules
             self._discard_frontier()
             if self._quarantine_nan("decode", f.states):
+                self._step_info["handled_failure"] = True
                 return None
+        t_book = time.perf_counter()
         n_live, finish = self._scatter_decode(f.states, out, defer_finish=True)
+        self.token_rate.record(n_live)
         if finish:
             # the successor may still be writing into the finishing
             # streams' blocks: drain it (bookkept; its tokens for finished
@@ -1206,6 +1704,7 @@ class ContinuousBatchingScheduler:
             for st in finish:
                 if self._running.get(st.slot) is st and not st.req.handle.done():
                     self._finish(st)
+        self._span("bookkeep", t_book, time.perf_counter())
         return n_live
 
     def _dispatch_pipeline(self, live, prev: Optional[_Frontier]) -> _Frontier:
@@ -1259,6 +1758,9 @@ class ContinuousBatchingScheduler:
         except Exception:
             self._heartbeat = hb_prev  # the step never went in flight
             raise
+        self._step_spans.append(("dispatch", handle.t0, handle.t_disp))
+        ph = self._step_phases
+        ph["dispatch"] = ph.get("dispatch", 0.0) + (handle.t_disp - handle.t0)
         return _Frontier(handle, list(live), positions, active, temps, top_ks, seeds,
                          counts, tables, sig, seq, seq0)
 
@@ -1267,7 +1769,9 @@ class ContinuousBatchingScheduler:
         flight, then give the failed step the sequential treatment from
         the point after its first failure (``supervisor.resume_step``). A
         ``donate`` engine goes straight to reset + journal replay."""
+        self.flight.record_event("pipeline_failure", error=repr(e)[:200])
         self._discard_frontier()
+        self._step_info["handled_failure"] = True
         if self.engine.donate:
             self.supervisor._restart_and_replay(e, "decode")
             return
@@ -1281,9 +1785,13 @@ class ContinuousBatchingScheduler:
         out = self.supervisor.resume_step("decode", e, step, order, probe, since_seq)
         if out is None:
             return
+        self._step_info["execute_s"] = self._engine_spans()
         if self._quarantine_nan("decode", order):
             return
-        self._scatter_decode(order, out)
+        n_live, _ = self._scatter_decode(order, out)
+        self.token_rate.record(n_live)
+        self._step_info["handled_failure"] = False
+        self._step_info["emitted"] = n_live
 
     def _try_pipeline(self) -> Optional[bool]:
         """One overlapped-decode iteration. Returns None when the
@@ -1302,6 +1810,8 @@ class ContinuousBatchingScheduler:
             if self._pipe is not None:  # defensive: should be unreachable
                 self._drain_frontier("idle")
             return None
+        info = self._step_info
+        t_s0 = time.perf_counter()
         f = self._pipe
         covered = {s.slot for s in f.states} if f is not None else set()
         # slots live at the NEXT dispatch: budget-predicted finishes are
@@ -1317,11 +1827,16 @@ class ContinuousBatchingScheduler:
             if f is None:
                 return None
             # stream tail: nothing left to dispatch — consume only
+            info["kind"] = "decode"
             self._pipe = None
+            self._span("schedule", t_s0, time.perf_counter())
             try:
-                self._consume_and_finish(f)
+                n = self._consume_and_finish(f)
             except Exception as e:
                 self._pipeline_failure(e, f.seq0)
+                return True
+            if n is not None:
+                info["emitted"] = n
             return True
         # grow block tables for the dispatch positions (plain allocation
         # only: reclaim/preempt pressure is handled sequentially)
@@ -1336,10 +1851,14 @@ class ContinuousBatchingScheduler:
                     break
                 s.blocks.extend(got)
             if short:
+                self._span("schedule", t_s0, time.perf_counter())
                 if f is not None:
+                    info["kind"] = "decode"
                     self._drain_frontier("pressure")
                     return True
                 return None
+        self._span("schedule", t_s0, time.perf_counter())
+        info["kind"] = "decode"
         try:
             new_f = self._dispatch_pipeline(live, f)
         except Exception as e:
@@ -1358,11 +1877,15 @@ class ContinuousBatchingScheduler:
         self._pipe = new_f
         self.pipe_dispatches += 1
         if f is None:
-            return True  # warm-up: its tokens arrive next iteration
+            info["emitted"] = 0  # warm-up: its tokens arrive next iteration
+            return True
         try:
-            self._consume_and_finish(f)
+            n = self._consume_and_finish(f)
         except Exception as e:
             self._pipeline_failure(e, f.seq0)
+            return True
+        if n is not None:
+            info["emitted"] = n
         return True
 
     def _trim_blocks(self, state: _Running) -> None:
@@ -1375,6 +1898,7 @@ class ContinuousBatchingScheduler:
             extra = state.blocks[keep:]
             del state.blocks[keep:]
             self.engine.allocator.free(extra)
+            self.capacity.note_trim(len(extra))
 
     def _verify_mask(self, order, window, n_draft):
         """The constrained slots' grammar rows for one verify step
@@ -1411,8 +1935,13 @@ class ContinuousBatchingScheduler:
             return False
         b = self.engine.max_batch_slots
         w = self.engine.spec_window
+        info = self._step_info
+        info["kind"] = "verify"
+        t_c0 = time.perf_counter()
         order = sorted(self._running.values(), key=lambda s: s.slot)
         last, start, tables, _active, temps, top_ks, seeds, counts = self._collect_slots(order)
+        t_draft = time.perf_counter()
+        self._span("schedule", t_c0, t_draft)
         window = np.zeros((b, w), np.int32)
         window[:, 0] = last
         n_draft = np.full((b,), -1, np.int32)  # -1 = inactive slot
@@ -1430,13 +1959,15 @@ class ContinuousBatchingScheduler:
                 except Exception:
                     # verification is exact with ANY draft, so a failed
                     # proposal degrades to a plain (zero-draft) window
-                    self._incr("drafter_errors")
+                    self.stats.incr("drafter_errors")
             if req.mask_state is not None and draft:
                 # a grammar-banned draft token would be rejected by the
                 # masked target anyway: cut to the longest legal prefix
                 draft = req.mask_state.filter_draft(draft, req.sampling.eos_id)
             window[i, 1: 1 + len(draft)] = draft
             n_draft[i] = len(draft)
+        self._span("draft", t_draft, time.perf_counter())
+        info["drafted"] = int(np.maximum(n_draft, 0).sum())
         wmask = self._verify_mask(order, window, n_draft)
 
         def step():
@@ -1452,12 +1983,20 @@ class ContinuousBatchingScheduler:
                                            counts, wmask)
             )
 
+        t_dev = time.perf_counter()
         result = self.supervisor.run_step("verify", step, order, probe)
+        self._step_phases["device"] = time.perf_counter() - t_dev
         if result is None:
+            info["handled_failure"] = True
             return True  # failure handled: quarantined or journal-replayed
+        info["execute_s"] = self._engine_spans()
         out, n_emitted = result
         if self._quarantine_nan("verify", order):
+            info["handled_failure"] = True
             return True
+        t_book = time.perf_counter()
+        n_accepted = 0
+        n_live_tokens = 0
         for state in order:
             if self._running.get(state.slot) is not state:
                 continue  # preempted/expired between collect and scatter
@@ -1475,7 +2014,9 @@ class ContinuousBatchingScheduler:
                 toks = toks[: toks.index(eos) + 1]
             proposed = int(max(0, n_draft[i]))
             accepted = max(0, m - 1)  # drafts the target agreed with
+            n_accepted += accepted
             req.update_speculation(proposed=proposed, accepted=accepted)
+            req.trace.note_speculation(proposed, accepted)
             emitted = 0
             for t in toks:
                 self._emit_token(state, t)
@@ -1487,15 +2028,52 @@ class ContinuousBatchingScheduler:
                     # advance error or the exhaustion clamp): the rest of
                     # the run was sampled past the grammar's end
                     break
-            self._incr("spec_windows")
-            self._incr("spec_proposed", proposed)
-            self._incr("spec_accepted", accepted)
-            self._incr("spec_emitted", emitted)
+            self.spec_stats.record_window(proposed=proposed, accepted=accepted, emitted=emitted)
+            req.trace.note_tokens(emitted, "verify")
             state.cached_len += emitted
             self._trim_blocks(state)
+            n_live_tokens += emitted
             if req.finished():
                 self._finish(state)
+        self._span("bookkeep", t_book, time.perf_counter())
+        info["accepted"] = n_accepted
+        info["emitted"] = n_live_tokens
+        self.token_rate.record(n_live_tokens)
         return True
+
+    def _span(self, name: str, t0: float, t1: float) -> None:
+        """Record one host span of THIS iteration: perf_counter stamps for
+        the anatomy profiler, its duration added to the flight record's
+        phases. Loop thread only."""
+        self._step_spans.append((name, t0, t1))
+        ph = self._step_phases
+        ph[name] = ph.get(name, 0.0) + (t1 - t0)
+
+    def _engine_spans(self) -> float:
+        """Adopt the engine's last step's dispatch/block/execute/readback
+        spans into this iteration's anatomy spans (the flight phases keep
+        their "device" total). Returns the step's execute seconds."""
+        spans = self.engine.last_step_spans
+        self._step_spans.extend(spans)
+        return sum(s1 - s0 for name, s0, s1 in spans if name == "execute")
+
+    def _flight_step(self) -> None:
+        """Write THIS iteration's flight record (once per step): normally
+        at the end of ``step()``, early when NaN blame is about to freeze
+        an incident snapshot, so the failing step is on the ring its own
+        postmortem is cut from."""
+        if self._step_recorded or not self.flight.enabled:
+            return
+        self._step_recorded = True
+        info = dict(self._step_info)
+        self.flight.record_step(
+            info.pop("kind", "admit"),
+            phases=dict(self._step_phases),
+            occupancy=len(self._running),
+            queue_depth=len(self._queue),
+            blocks_free=self.engine.allocator.num_free,
+            **info,
+        )
 
     # ---------------------------------------------------------------- step
     def step(self) -> bool:
@@ -1504,18 +2082,54 @@ class ContinuousBatchingScheduler:
         drain): expire, quarantine parked grammar errors, admit
         (join-mid-flight), plan speculation,
         grow/preempt, then decode — or verify, when any running request
-        speculates. Returns True if any work happened."""
+        speculates. Returns True if any work happened. A working iteration
+        writes one flight record and one step-anatomy observation (a
+        handled failure stays out of the anatomy's hot window); every
+        iteration then integrates the cache's time at pressure and ticks
+        the overload controller."""
+        self._step_phases = {}
+        info = self._step_info = {}
+        self._step_spans = []
+        self._step_recorded = False
+        t0 = time.perf_counter()
         if self.overlap:
             r = self._try_pipeline()
             if r is not None:
+                if r:
+                    self._flight_step()
+                    self.anatomy.observe_step(
+                        info.get("kind", "decode"), self._step_spans, t0, time.perf_counter(),
+                        tokens=int(info.get("emitted", 0)),
+                        hot=not info.get("handled_failure", False),
+                    )
+                self.capacity.tick()
+                self._overload_tick()
                 return r
         self._expire()
         self._sweep_mask_errors()
+        t1 = time.perf_counter()
+        self._span("schedule", t0, t1)
         admitted = 0
         while self._admit():
             admitted += 1
+        t2 = time.perf_counter()
         self._plan_speculation()
         self._grow()
+        self._span("schedule", t2, time.perf_counter())
+        if admitted:
+            info["admitted"] = admitted
         speculating = any(s.step_k > 0 for s in self._running.values())
         stepped = self._verify_once() if speculating else self._decode_once()
-        return stepped or admitted > 0
+        did = stepped or admitted > 0
+        if did:
+            self._flight_step()
+            self.anatomy.observe_step(
+                info.get("kind", "admit"), self._step_spans, t0, time.perf_counter(),
+                tokens=int(info.get("emitted", 0)) + admitted,
+                hot=not info.get("handled_failure", False),
+            )
+        # time at pressure integrates AFTER the step's allocations; the
+        # overload controller ticks on the fresh pressure flag
+        self.capacity.tick()
+        self._overload_tick()
+        return did

@@ -104,6 +104,12 @@ SITES = MappingProxyType({
         "state, token)); an error quarantines the one constrained request "
         "while the rest of the batch keeps streaming"
     ),
+    SERVING_ADMISSION: (
+        "inside the generation scheduler's submit, before the overload "
+        "gates (value: (priority, queue depth)); an error here is a forced "
+        "admission failure, so chaos plans can drive the limiter/shed "
+        "paths deterministically"
+    ),
 })
 
 
@@ -158,6 +164,17 @@ def inject(site: str, value: Any = None) -> Any:
 
 def active_plan() -> Optional["FaultPlan"]:
     return _PLAN
+
+
+def site_counters() -> Dict[str, Dict[str, int]]:
+    """Per-site hit counters of the ACTIVE plan ({} when none is
+    installed): ``{site: {"calls": times reached, "fires": rules
+    fired}}``. Rendered on ``GET /metrics`` so chaos runs are visible to
+    the same scrape as the serving counters they perturb."""
+    plan = _PLAN
+    if plan is None:
+        return {}
+    return plan.site_counters()
 
 
 def _poison(value: Any, mask: Any = None) -> Any:

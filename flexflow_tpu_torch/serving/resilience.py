@@ -1,6 +1,6 @@
 """Typed serving rejections, retry with backoff and the circuit breaker
-(port of the parts of ``flexflow_tpu/serving/resilience.py`` that the
-generation scheduler uses).
+(port of ``flexflow_tpu/serving/resilience.py`` without ``grpc_code``:
+the port has no gRPC front end yet).
 
 The errors map 1:1 onto protocol status codes, so transports can tell
 backpressure from an expired deadline without string matching.
@@ -26,6 +26,63 @@ class QueueFullError(ResilienceError):
     HTTP 503 / gRPC RESOURCE_EXHAUSTED."""
 
 
+class OverloadedError(QueueFullError):
+    """Priority-aware overload rejection (serving/overload.py): the
+    admission layer refused this request BEFORE it consumed queue or
+    device capacity. Subclasses :class:`QueueFullError` so every
+    backpressure handler (HTTP 503, retry loops catching
+    QueueFullError) keeps working; adds the structured fields clients need to back off
+    intelligently:
+
+      reason         why load was refused: "queue_full" (bounded queue,
+                     possibly after a priority-ordered shed), "limiter"
+                     (AdaptiveLimiter throttled admission before the
+                     queue filled), "infeasible" (predicted TTFT already
+                     exceeds the deadline), or "degraded" (the
+                     degradation ladder is shedding this priority class)
+      priority       the refused request's priority class
+      retry_after_s  server-suggested backoff; rendered as the HTTP
+                     ``Retry-After`` header
+    """
+
+    def __init__(
+        self,
+        msg: str,
+        *,
+        reason: str = "queue_full",
+        priority: "str | None" = None,
+        retry_after_s: "float | None" = None,
+    ):
+        super().__init__(msg)
+        self.reason = reason
+        self.priority = priority
+        self.retry_after_s = retry_after_s
+
+
+class InfeasibleError(OverloadedError):
+    """Roofline-based infeasibility fast-fail: the request's predicted
+    TTFT (the serving roofline x the current queue) already exceeds its
+    deadline, so admitting it could only burn capacity on work that is
+    guaranteed to expire. Counted separately from sheds
+    (``rejected_infeasible``)."""
+
+    def __init__(self, msg: str, *, priority=None, retry_after_s=None,
+                 predicted_ttft_s: "float | None" = None):
+        super().__init__(msg, reason="infeasible", priority=priority,
+                         retry_after_s=retry_after_s)
+        self.predicted_ttft_s = predicted_ttft_s
+
+
+def retry_after_s(err: BaseException) -> "float | None":
+    """The server-suggested backoff riding a typed rejection (None when
+    the error carries none), rendered as ``Retry-After``."""
+    v = getattr(err, "retry_after_s", None)
+    try:
+        return None if v is None else max(0.0, float(v))
+    except (TypeError, ValueError):
+        return None
+
+
 class DeadlineExceededError(ResilienceError):
     """The request's deadline passed before it completed.
     HTTP 504 / gRPC DEADLINE_EXCEEDED."""
@@ -39,6 +96,11 @@ class CircuitOpenError(ResilienceError):
 class ShuttingDownError(ResilienceError):
     """The request was cancelled or the server is draining.
     HTTP 503 / gRPC UNAVAILABLE."""
+
+
+def http_status(err: ResilienceError) -> int:
+    """The single source of truth for ResilienceError -> HTTP status."""
+    return 504 if isinstance(err, DeadlineExceededError) else 503
 
 
 class RetryPolicy:

@@ -802,3 +802,52 @@ def test_cuda_constrained_traffic_captures_nothing_and_reset_keeps_the_masks(cud
     graph.reset()
     assert [m.data_ptr() for m in _mask_tensors(graph)] == ptrs
     assert not any(m.any() for m in _mask_tensors(graph))
+
+
+# ------------------------------------------------------------ HTTP front end
+
+
+def test_cuda_generation_model_over_http_gives_the_scheduler_streams(cuda):
+    """A GenerationModel on the card behind the port's InferenceServer on
+    loopback: JSON and SSE requests give the streams a scheduler over the
+    same engine gives, the exposition is valid, and the HTTP traffic
+    captures no new step graph."""
+    import json
+    import urllib.request
+
+    from flexflow_tpu_torch.obs import validate_exposition
+    from flexflow_tpu_torch.serving import GenerationModel, InferenceServer
+
+    graph, _ = _graph_and_eager_engines(cuda, slots=2)
+    prompts = [[1, 2, 3, 4, 5, 6, 7], list(range(5, 17)), list(range(20, 50))]
+    sps = [dict(max_new_tokens=12), dict(max_new_tokens=12, temperature=0.8, top_k=20, seed=3),
+           dict(max_new_tokens=12)]
+    sched = ContinuousBatchingScheduler(graph)
+    handles = [sched.submit(p, SamplingParams(**s)) for p, s in zip(prompts, sps)]
+    while not all(h.done() for h in handles):
+        sched.step()
+    want = [h.result(0) for h in handles]
+    graph.prefix_cache.reset()
+    captures = dict(graph.trace_counts)
+    srv = InferenceServer(port=0)
+    srv.register_generation(GenerationModel(graph, name="lm"))
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        got = []
+        for i, (p, s) in enumerate(zip(prompts, sps)):
+            body = json.dumps(dict(s, prompt=p, stream=bool(i % 2))).encode()
+            req = urllib.request.Request(base + "/v2/models/lm/generate", data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                text = r.read().decode()
+            if i % 2:
+                got.append(json.loads(text.strip().split("\n\n")[-1][len("data: "):])["tokens"])
+            else:
+                got.append(json.loads(text)["tokens"])
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            assert validate_exposition(r.read().decode()) == []
+    finally:
+        srv.stop()
+    assert got == want
+    assert graph.trace_counts == captures and not graph.recompiles()

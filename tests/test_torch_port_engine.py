@@ -328,7 +328,7 @@ def test_scheduler_cancel_frees_blocks(params):
     sched.step()
     h.cancel()
     sched.step()
-    assert h.done() and sched.counts["cancelled"] == 1
+    assert h.done() and sched.stats.get("cancelled") == 1
     assert eng.allocator.num_free == eng.allocator.num_total
 
 

@@ -480,7 +480,7 @@ def test_non_finite_prefill_fails_the_request_and_registers_nothing(both_params)
     sched.step()
     with pytest.raises(PoisonedRequestError, match="non-finite"):
         h.result(timeout=0)
-    assert sched.counts["failed"] == 1 and not sched.has_work()
+    assert sched.stats.get("failed") == 1 and not sched.has_work()
     assert eng.prefix_cache.registered_total == registered
     assert eng.prefix_cache.snapshot()["shared_blocks"] == 0
     assert_blocks_conserved(eng)

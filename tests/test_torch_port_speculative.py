@@ -452,8 +452,8 @@ def test_seeded_speculative_streams_match_jax_scheduler(both_params):
     sched = ContinuousBatchingScheduler(engine(params))
     got = drive(sched, lambda s, p, sp, spec: s.submit(p, sp, speculation=spec))
     assert got == want
-    assert sched.counts["spec_windows"] > 0
-    assert sched.counts["spec_accepted"] <= sched.counts["spec_proposed"] > 0
+    assert sched.spec_stats.windows > 0
+    assert sched.spec_stats.accepted <= sched.spec_stats.proposed > 0
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
@@ -533,8 +533,8 @@ def test_partial_acceptance_block_accounting_and_draft_model(both_params):
             break
     assert all(1 <= len(h.result(timeout=0)) <= 18 for h in handles)
     assert eng.allocator.num_total - eng.allocator.num_free == eng.prefix_cache.resident_blocks
-    assert sched.counts["spec_accepted"] <= sched.counts["spec_proposed"]
-    assert sched.counts["spec_emitted"] >= sched.counts["spec_accepted"]
+    assert sched.spec_stats.accepted <= sched.spec_stats.proposed
+    assert sched.spec_stats.emitted >= sched.spec_stats.accepted
 
     _, draft = _params(99)
     prompts = [[1, 2, 3, 4, 5, 6, 7, 8, 9], [10, 11, 12]]

@@ -174,8 +174,7 @@ def run(side: Side, prompts, sampling, *, overlap, spec=None, plan=None, sched_k
         "pipe_drains": dict(sched.pipe_drains),
         "pipe_discards": sched.pipe_discards,
         "preemptions": sched.preemptions,
-        # the sites the port fires (the JAX scheduler also reaches its
-        # overload admission site, which the port has not taken over)
+        # the sites the port fires (the overload admission site included)
         "sites": {k: v for k, v in (fp.site_counters() if fp is not None else {}).items()
                   if k in faults.SITES},
     }
