@@ -120,22 +120,34 @@ prints no result line):
    whose device kernels must all be the paged kernel. The profiler runs
    only after the timed phases: once started, it slows the host's later
    launches.
-11. flash kernels: the flash-attention forward, dQ and dK/dV kernels
-   against their plain PyTorch versions (atol 1e-4 + rtol 1e-4) at the
-   training path's shape (B=32, S=128, H=12, D=64) and at a causal
-   S=512 shape and edge shapes (S=100 D=128, Sq=64 Sk=200, D=256, S=1,
-   S=65 plain and causal, D=8); then device times of kernel, plain
-   version and the library yardstick (scaled_dot_product_attention
-   forward, and its backward: its kernels' durations by torch.profiler),
-   beside the card's bound for fp32-accurate products on the tensor cores
-   (and for the same operations on the fp32 CUDA cores).
+11. flash kernels: the flash-attention forward, dQ and dK/dV kernels,
+   float32 and bf16 forms, against their plain PyTorch versions (fp32:
+   atol 1e-4 + rtol 1e-4; bf16: within one bf16 ulp of the plain value
+   plus 1e-3, the logsumexp at the fp32 gate) at the training path's
+   shape (B=32, S=128, H=12, D=64) and at a causal S=512 shape and edge
+   shapes (S=100 D=128, Sq=64 Sk=200, D=256, S=1, S=65 plain and causal,
+   D=8, D=300 and D=512; bf16 at D=33, Sq != Sk, D=256 and D=512), and
+   multihead attention's core with v's head dim other than q's (the
+   kernels on zero-padded head dims, both forms, forward and gradients);
+   then device times of kernel, plain version and the library yardstick
+   (scaled_dot_product_attention forward, and its backward: its kernels'
+   durations by torch.profiler) in the same dtype, beside the card's
+   bound (fp32: fp32-accurate products on the tensor cores, and the same
+   operations on the fp32 CUDA cores; bf16: 2-byte tensors, the dense
+   bf16 rate).
 12. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
-   seq 128, batch 32, fp32, weights from --seed) through FFModel ->
-   compile (SGD lr 0.01, MSE) -> fit: one step with the kernels and one
-   with the plain attention from the same weights must agree; then
-   warm-up and 10 timed steps on one random batch, where every flash
-   launch counter must rise by 12 per step and the loss must fall; and a
-   profiled pair of steps for the device's busy share.
+   seq 128, batch 32, weights from --seed) through FFModel -> compile
+   (SGD lr 0.01, MSE) -> fit, first in fp32, then bf16 (``bench.py``'s
+   cell: bf16 parameters and activations): one step with the kernels and
+   one with the plain attention from the same weights must agree (fp32:
+   loss rtol 1e-5, parameters within 1e-3 of the step's largest update;
+   bf16: loss rtol 2^-8, each parameter within 2 bf16 ulps plus 1/8 of
+   its tensor's update), and every bf16 parameter must stay bf16; then
+   warm-up and 10 timed steps on one random batch, where each flash
+   launch counter of the cell's form must rise by 12 per step and the
+   other form's stay 0, and the loss must fall; and a profiled pair of
+   steps for the device's busy share and the device time by kernel group
+   (the flash kernels, cuBLAS GEMMs, elementwise and other).
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -155,6 +167,7 @@ import time
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
 H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, H100 SXM data sheet
 TF32_PRODUCTS = 3  # TF32 products per fp32-accurate product (3xTF32 split)
 ATOL = 1e-4
 RTOL = 1e-4
@@ -165,6 +178,17 @@ LOSS_RTOL = 1e-5  # train-step loss, kernel vs plain attention
 # parameters after one SGD step, kernel vs plain attention: within this
 # share of the largest update the step made (fp32 summation order only)
 PARAM_STEP_RTOL = 1e-3
+# bf16 outputs of a kernel against its plain version: within one bf16
+# unit in the last place of the plain value plus this (both sum in fp32,
+# in other orders, and round once to bf16)
+BF16_ATOL = 1e-3
+# the bf16 training step, kernel vs plain attention: the loss within bf16's
+# unit roundoff (2^-8) relative; each parameter within 2 bf16 ulps (the
+# update is rounded once to bf16, and the two float32 results may straddle
+# a rounding boundary) plus this share of the step's largest update (a
+# gradient summed over 4096 rows of bf16 values rounded in other places)
+BF16_LOSS_RTOL = 2.0 ** -8
+BF16_PARAM_SHARE = 1 / 8
 
 
 def card_line() -> str:
@@ -233,6 +257,31 @@ def check_close(name: str, got, want) -> float:
             f"{name}: {int(bad.sum())} elements outside atol {ATOL} + rtol {RTOL}; "
             f"max abs err {float(err.max()):.3e}"
         )
+    return float(err.max())
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits), as float32."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))) - 7)
+
+
+def check_bf16(name: str, got, want) -> float:
+    """bf16 ``got`` against the plain bf16 ``want``: within one bf16 ulp
+    of the plain value plus BF16_ATOL. Returns the max abs error."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype or got.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs plain "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got.float() - want.float()).abs()
+    bad = err > bf16_ulp(want) + BF16_ATOL
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond 1 bf16 ulp + {BF16_ATOL}; "
+                             f"max abs err {float(err.max()):.3e}")
     return float(err.max())
 
 
@@ -470,6 +519,12 @@ def edge_shapes(seed: int) -> None:
         (3, 32, 2, 256, 5, 61, 7),
         (2, 33, 2, 256, 5, 30, 1),
         (3, 100, 4, 64, 7, 40, 5),
+        # head dims past 256 (the 512-wide instances): decode, verify
+        # window, split, and a 32-query tile at D = 384
+        (2, 1, 2, 512, 16, 20, 1),
+        (2, 5, 2, 512, 16, 20, 1),
+        (2, 5, 2, 512, 16, 20, 4),
+        (2, 40, 2, 384, 8, 12, 1),
     ]:
         nb = b * mb + 1
         tables = rs.randint(1, nb, (b, mb)).astype(np.int32)
@@ -2138,29 +2193,32 @@ def server_phase(seed: int, params) -> dict:
     return stats
 
 
-def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool):
+def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool,
+                bf16: bool = False):
     """(bound_ms, bound_by, fp32_cuda_core_ms) of one flash kernel call:
     each input read once and each output written once over the card's
     memory rate, against the multiply-adds the kernel does on the
     unmasked (query, key) pairs (2 flops each: QK and PV forward; QK,
     dO.V and dS.K for dQ; QK, dO.V, P^T dO and dS^T Q for dK/dV) taken
     to fp32 accuracy on the tensor cores, three TF32 products each at
-    the dense TF32 rate (datasheet figures). fp32_cuda_core_ms is the
-    larger of the byte time and those operations at the fp32 CUDA-core
-    rate."""
+    the dense TF32 rate (datasheet figures); for the bf16 form, 2-byte
+    q, k, v, o, dO and gradients (lse and delta stay 4) and the same
+    operations at the dense bf16 rate. fp32_cuda_core_ms is the larger
+    of the byte time and those operations at the fp32 CUDA-core rate."""
     pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+    e = 2 if bf16 else 4  # bytes an element of q, k, v, o, dO, dq, dk, dv
     q_elems, kv_elems, rows = b * sq * h * d, b * sk * h * d, b * sq * h
     if kind == "fwd":
         flops = 2 * 2 * d * pairs
-        nbytes = 4 * (2 * q_elems + 2 * kv_elems + rows)  # q, o; k, v; lse
+        nbytes = e * (2 * q_elems + 2 * kv_elems) + 4 * rows  # q, o; k, v; lse
     elif kind == "dq":
         flops = 3 * 2 * d * pairs
-        nbytes = 4 * (3 * q_elems + 2 * kv_elems + 2 * rows)  # q, dO, dq; k, v; lse, delta
+        nbytes = e * (3 * q_elems + 2 * kv_elems) + 8 * rows  # q, dO, dq; k, v; lse, delta
     else:
         flops = 4 * 2 * d * pairs
-        nbytes = 4 * (2 * q_elems + 4 * kv_elems + 2 * rows)  # q, dO; k, v, dk, dv; lse, delta
+        nbytes = e * (2 * q_elems + 4 * kv_elems) + 8 * rows  # q, dO; k, v, dk, dv; lse, delta
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = TF32_PRODUCTS * flops / H100_TF32_FLOPS * 1e3
+    t_ops = (flops / H100_BF16_FLOPS if bf16 else TF32_PRODUCTS * flops / H100_TF32_FLOPS) * 1e3
     fp32_ms = max(t_bytes, flops / H100_FP32_FLOPS * 1e3)
     return (t_bytes, "bytes", fp32_ms) if t_bytes >= t_ops else (t_ops, "operations", fp32_ms)
 
@@ -2168,9 +2226,10 @@ def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: boo
 def tensor_core_check() -> dict:
     """The built flash library's SASS (cuobjdump -sass) must hold
     tensor-core HMMA instructions in every instance of the forward, dQ
-    and dK/dV tensor-core kernels, and the CUDA-core dQ must exist only
-    for head dims above 128 (5..8 columns of 32); raises otherwise.
-    Returns {kernel<head-dim pad>: HMMA count}."""
+    and dK/dV tensor-core kernels, float32 and bf16 forms, and the
+    CUDA-core dQ must exist only for head dims above 128 (5..8, 12 and 16
+    columns of 32) in both forms; raises otherwise. Returns
+    {kernel<head-dim pad,form>: HMMA count}."""
     from flexflow_tpu_torch.ops.kernels import _build
 
     src = next(p for p in _build.kernel_sources() if p.name == "flash_attention.cu")
@@ -2179,9 +2238,9 @@ def tensor_core_check() -> dict:
                           capture_output=True, text=True, check=True, timeout=300).stdout
     counts, name = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : .*?(flash_[a-z_]+_kernel)ILi(\d+)E", line)
+        m = re.search(r"Function : .*?(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)E", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name = f"{m.group(1)}<{m.group(2)},{'f32' if m.group(3) == 'f' else 'bf16'}>"
             counts[name] = 0
         elif "Function : " in line:
             name = None
@@ -2190,14 +2249,14 @@ def tensor_core_check() -> dict:
     found = {}
     for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
         inst = {n: c for n, c in counts.items() if n.startswith(kernel + "<")}
-        if not inst or not all(inst.values()):
-            raise AssertionError(f"{kernel}: no tensor-core HMMA in the SASS of "
-                                 f"{inst or 'the built library'}")
+        if len(inst) != 8 or not all(inst.values()):
+            raise AssertionError(f"{kernel}: expected HMMA in 4 head dims x 2 forms, got "
+                                 f"{inst or 'none in the built library'}")
         found.update(inst)
-    simt_dq = sorted(int(n[n.index("<") + 1:-1]) for n in counts
-                     if n.startswith("flash_bwd_dq_kernel<"))
-    if simt_dq != [5, 6, 7, 8]:
-        raise AssertionError(f"CUDA-core dQ instances {simt_dq}: expected only D > 128 (5..8)")
+    simt_dq = sorted(n[n.index("<") + 1:-1] for n in counts if n.startswith("flash_bwd_dq_kernel<"))
+    want = sorted(f"{c},{f}" for c in (5, 6, 7, 8, 12, 16) for f in ("f32", "bf16"))
+    if simt_dq != want:
+        raise AssertionError(f"CUDA-core dQ instances {simt_dq}: expected only D > 128 ({want})")
     return found
 
 
@@ -2241,48 +2300,88 @@ def profiled_device_ms(fn, iters: int = 20) -> float:
     return us / 1e3 / iters
 
 
-def flash_inputs(gen, b, sq, sk, h, d, causal, scale, copies=1):
-    """``copies`` sets of (q, k, v, dO, lse, delta) on the card; lse and
-    delta come from the plain forward."""
+def flash_inputs(gen, b, sq, sk, h, d, causal, scale, copies=1, dtype=None):
+    """``copies`` sets of (q, k, v, dO, lse, delta) on the card, q, k, v
+    and dO in ``dtype`` (float32 by default); lse and delta come from the
+    plain forward."""
     import torch
 
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
 
+    dtype = dtype or torch.float32
     sets = []
     for _ in range(copies):
-        q = torch.randn((b, sq, h, d), generator=gen).cuda()
-        k = torch.randn((b, sk, h, d), generator=gen).cuda()
-        v = torch.randn((b, sk, h, d), generator=gen).cuda()
-        do = torch.randn((b, sq, h, d), generator=gen).cuda()
+        q = torch.randn((b, sq, h, d), generator=gen).to("cuda", dtype)
+        k = torch.randn((b, sk, h, d), generator=gen).to("cuda", dtype)
+        v = torch.randn((b, sk, h, d), generator=gen).to("cuda", dtype)
+        do = torch.randn((b, sq, h, d), generator=gen).to("cuda", dtype)
         o, lse = fa.reference_flash_forward(q, k, v, causal, scale)
         sets.append((q, k, v, do, lse, fa.flash_delta(do, o)))
     return sets
 
 
 def check_flash(name, sets, causal, scale):
-    """The three kernels against their plain versions on the first set;
-    returns {kernel: max abs err}."""
+    """The three kernels against their plain versions on the first set,
+    at the fp32 gate or, for bf16 inputs, the bf16 gate (the logsumexp,
+    fp32 in both forms, at the fp32 gate); returns {kernel: max abs err},
+    keyed as the launch counts are."""
+    import torch
+
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
 
     q, k, v, do, lse, delta = sets[0]
+    bf16 = q.dtype == torch.bfloat16
+    close, form = (check_bf16, "_bf16") if bf16 else (check_close, "")
     o, klse = fa.flash_forward_kernel(q, k, v, causal, scale)
     po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
     dq = fa.flash_backward_dq_kernel(q, k, v, do, lse, delta, causal, scale)
     dk, dv = fa.flash_backward_dkv_kernel(q, k, v, do, lse, delta, causal, scale)
     pdq, pdk, pdv = fa.reference_flash_backward(q, k, v, do, lse, delta, causal, scale)
     return {
-        "flash_fwd": max(check_close(f"{name} forward o", o, po),
-                         check_close(f"{name} forward lse", klse, plse)),
-        "flash_bwd_dq": check_close(f"{name} dq", dq, pdq),
-        "flash_bwd_dkv": max(check_close(f"{name} dk", dk, pdk), check_close(f"{name} dv", dv, pdv)),
+        "flash_fwd" + form: max(close(f"{name} forward o", o, po),
+                                check_close(f"{name} forward lse", klse, plse)),
+        "flash_bwd_dq" + form: close(f"{name} dq", dq, pdq),
+        "flash_bwd_dkv" + form: max(close(f"{name} dk", dk, pdk), close(f"{name} dv", dv, pdv)),
     }
 
 
+def check_value_head_dim(seed: int) -> None:
+    """multihead attention's core with v's head dim other than q's and
+    k's (kdim 8 / vdim 16, and 64 / 24), fp32 and bf16: the kernels run on
+    zero-padded head dims (3 launches a forward and backward) and match the
+    plain versions, output and gradients."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(seed + 23)
+    for dtype in (torch.float32, torch.bfloat16):
+        for dk, dv in ((8, 16), (64, 24)):
+            base = [torch.randn(2, 8, 2, d, generator=gen).to("cuda", dtype) for d in (dk, dk, dv)]
+            dout = torch.randn(2, 8, 2, dv, generator=gen).to("cuda", dtype)
+            outs = {}
+            for backend in ("auto", "plain"):
+                q, k, v = (t.clone().requires_grad_(True) for t in base)
+                fa.reset_launch_counts()
+                o = fa.flash_attention(q, k, v, backend=backend)
+                o.backward(dout)
+                torch.cuda.synchronize()
+                if sum(fa.LAUNCHES.values()) != (3 if backend == "auto" else 0):
+                    raise AssertionError(f"Dv != Dk, {backend}: launches {fa.LAUNCHES}")
+                outs[backend] = (o.detach(), q.grad, k.grad, v.grad)
+            close = check_bf16 if dtype == torch.bfloat16 else check_close
+            tag = f"flash Dk={dk} Dv={dv} {str(dtype)[6:]}"
+            errs = [close(f"{tag} {n}", g, w)
+                    for n, g, w in zip(("o", "dq", "dk", "dv"), outs["auto"], outs["plain"])]
+            print(f"{tag}: output {tuple(outs['auto'][0].shape)}, max abs err "
+                  f"{max(errs):.3e} (o, dq, dk, dv against the plain versions)")
+
+
 def flash_phase(seed: int):
-    """The flash kernels against their plain versions at the training
-    shape and edge shapes; device times at the training shape and the
-    causal S=512 shape. Returns per-kernel records (launches filled in by
-    the training phase)."""
+    """The flash kernels, float32 and bf16 forms, against their plain
+    versions at the training shape and edge shapes; device times at the
+    training shape and the causal S=512 shape. Returns per-kernel records
+    (launches filled in by the training phase)."""
     import torch
     import torch.nn.functional as F
 
@@ -2290,13 +2389,15 @@ def flash_phase(seed: int):
 
     gen = torch.Generator().manual_seed(seed + 11)
     rows = {}
-    for label, (b, s, h, d, causal, copies) in {
+    for (label, (b, s, h, d, causal, copies)), dtype in itertools.product({
         "train": (32, 128, 12, 64, False, 3),  # 3 x 50 MB of q/k/v/dO: past the L2
         "causal512": (4, 512, 12, 64, True, 3),
-    }.items():
+    }.items(), (torch.float32, torch.bfloat16)):
         scale = d ** -0.5
-        sets = flash_inputs(gen, b, s, s, h, d, causal, scale, copies)
-        errs = check_flash(f"flash {label}", sets, causal, scale)
+        bf16 = dtype == torch.bfloat16
+        form = "_bf16" if bf16 else ""
+        sets = flash_inputs(gen, b, s, s, h, d, causal, scale, copies, dtype)
+        errs = check_flash(f"flash {label}{form}", sets, causal, scale)
         lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in st[:4]) for st in sets]
         for qq, kk, vv, _ in lib_sets:
             for t in (qq, kk, vv):
@@ -2318,69 +2419,94 @@ def flash_phase(seed: int):
         sdpa_bwd_eager_ms = time_eager_ms(sdpa_bwd)
         sdpa_bwd_ms = profiled_device_ms(sdpa_bwd)
         timed = {
-            "flash_fwd": (
+            "flash_fwd" + form: (
                 lambda q, k, v, do, lse, de: fa.flash_forward_kernel(q, k, v, causal, scale),
                 lambda q, k, v, do, lse, de: fa.reference_flash_forward(q, k, v, causal, scale),
                 sdpa_fwd, "fwd"),
-            "flash_bwd_dq": (
+            "flash_bwd_dq" + form: (
                 lambda *a: fa.flash_backward_dq_kernel(*a, causal, scale),
                 lambda *a: fa.reference_flash_backward_dq(*a, causal, scale),
                 sdpa_bwd_ms, "dq"),
-            "flash_bwd_dkv": (
+            "flash_bwd_dkv" + form: (
                 lambda *a: fa.flash_backward_dkv_kernel(*a, causal, scale),
                 lambda *a: fa.reference_flash_backward_dkv(*a, causal, scale),
                 sdpa_bwd_ms, "dkv"),
         }
-        shape = {"B": b, "S": s, "H": h, "D": d, "causal": causal}
+        shape = {"B": b, "S": s, "H": h, "D": d, "causal": causal, "dtype": str(dtype)[6:]}
         for name, (kern, plain, lib_ms, kind) in timed.items():
             ms, eager_ms = time_ms(kern, sets)
             plain_ms, _ = time_ms(plain, sets)
-            bound_ms, bound_by, fp32_bound_ms = flash_bound(kind, b, s, s, h, d, causal)
+            bound_ms, bound_by, fp32_bound_ms = flash_bound(kind, b, s, s, h, d, causal, bf16)
             row = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                    "fp32_cuda_core_bound_ms": fp32_bound_ms,
                    "eager_ms": eager_ms, "shape": shape}
             print(f"flash {label} {name}: " + json.dumps(row))
             rows.setdefault(label, {})[name] = row
-        print(f"flash {label}: SDPA forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv together) "
-              f"{sdpa_bwd_ms:.4f} ms on the device ({sdpa_bwd_eager_ms:.4f} ms eager)")
+        print(f"flash {label}{form}: SDPA forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv "
+              f"together) {sdpa_bwd_ms:.4f} ms on the device ({sdpa_bwd_eager_ms:.4f} ms eager)")
         del sets, lib_sets, outs
     # edge shapes, correctness only: ragged S with D = 128, Sq != Sk, D = 256
     # (the CUDA-core forward and dK/dV), one query row, a ragged tile past
-    # 64 rows, D = 8
-    for b, sq, sk, h, d, causal in [(2, 100, 100, 3, 128, False), (2, 64, 200, 4, 64, False),
-                                    (2, 128, 128, 2, 256, False), (2, 1, 1, 3, 64, False),
-                                    (2, 65, 65, 3, 64, False), (2, 65, 65, 3, 64, True),
-                                    (2, 128, 128, 2, 8, False)]:
-        sets = flash_inputs(gen, b, sq, sk, h, d, causal, d ** -0.5)
-        tag = f"Sq={sq} Sk={sk} D={d}" + (" causal" if causal else "")
+    # 64 rows, D = 8, head dims past 256 (the 16-row CUDA-core kernels);
+    # then the bf16 forms at D % 8 != 0 (element copies), Sq != Sk, D = 256
+    # and D = 512
+    f32, bf16 = torch.float32, torch.bfloat16
+    for b, sq, sk, h, d, causal, dtype in [
+            (2, 100, 100, 3, 128, False, f32), (2, 64, 200, 4, 64, False, f32),
+            (2, 128, 128, 2, 256, False, f32), (2, 1, 1, 3, 64, False, f32),
+            (2, 65, 65, 3, 64, False, f32), (2, 65, 65, 3, 64, True, f32),
+            (2, 128, 128, 2, 8, False, f32), (2, 96, 96, 2, 512, False, f32),
+            (2, 65, 65, 2, 512, True, f32), (2, 40, 40, 2, 300, False, f32),
+            (2, 70, 70, 3, 33, False, bf16), (2, 64, 200, 4, 64, False, bf16),
+            (2, 65, 65, 3, 256, True, bf16), (2, 64, 64, 2, 512, False, bf16)]:
+        sets = flash_inputs(gen, b, sq, sk, h, d, causal, d ** -0.5, dtype=dtype)
+        tag = f"Sq={sq} Sk={sk} D={d}" + (" causal" if causal else "") + f" {str(dtype)[6:]}"
         errs = check_flash(f"flash edge {tag}", sets, causal, d ** -0.5)
         print(f"flash edge B={b} H={h} {tag}: max abs err "
               + json.dumps({k: f"{e:.3e}" for k, e in errs.items()}))
+    check_value_head_dim(seed)
     torch.cuda.empty_cache()
     return rows
 
 
-def bert_base():
+def bert_base(dtype=None):
+    from flexflow_tpu_torch.core.types import DataType
     from flexflow_tpu_torch.models import TransformerConfig
 
     return TransformerConfig(num_layers=12, hidden_size=768, num_heads=12, ff_size=3072,
-                             seq_length=128)
+                             seq_length=128, dtype=dtype or DataType.FLOAT)
 
 
-def training_phase(seed: int):
-    """BERT-Base width through FFModel -> compile -> fit on the card."""
+def kernel_group(name: str) -> str:
+    """A device kernel's group in a train step's time: the flash kernels,
+    cuBLAS's GEMMs, or elementwise and everything else."""
+    if "flash_" in name:
+        return "flash kernels"
+    if any(k in name for k in ("gemm", "cutlass", "nvjet", "xmma")):
+        return "GEMMs (cuBLAS)"
+    return "elementwise and other"
+
+
+def training_phase(seed: int, bf16: bool = False):
+    """BERT-Base width through FFModel -> compile -> fit on the card, in
+    float32 or (``bench.py``'s cell) bf16."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from flexflow_tpu_torch.config import FFConfig
-    from flexflow_tpu_torch.core.types import LossType, MetricsType
+    from flexflow_tpu_torch.core.types import DataType, LossType, MetricsType
     from flexflow_tpu_torch.models import build_transformer
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
     from flexflow_tpu_torch.runtime import SGDOptimizer
 
-    cfg, batch, warm, steps = bert_base(), 32, 2, 10
+    cfg = bert_base(DataType.BFLOAT16 if bf16 else DataType.FLOAT)
+    batch, warm, steps = 32, 2, 10
+    tag = "bf16" if bf16 else "fp32"
+    # the step's flash launches: num_layers of each kernel of its form, none of the other
+    per_step = {name: (cfg.num_layers if name.endswith("_bf16") == bf16 else 0)
+                for name in fa.LAUNCHES}
     t0 = time.perf_counter()
     model = build_transformer(FFConfig(batch_size=batch, seed=seed, printing_interval=5), cfg)
     model.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR,
@@ -2389,8 +2515,8 @@ def training_phase(seed: int):
     n_params = sum(p.numel() for g in ex.params.values() for p in g.values())
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shape = (batch, cfg.seq_length, cfg.hidden_size)
-    x = torch.randn(shape, generator=gen, device="cuda")
-    y = torch.randn(shape, generator=gen, device="cuda")
+    x = torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype.torch)
+    y = torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype.torch)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
@@ -2412,19 +2538,34 @@ def training_phase(seed: int):
         launches = dict(fa.LAUNCHES)
         after[backend] = (loss, {k: {n: p.detach().clone() for n, p in g.items()}
                                  for k, g in ex.params.items()})
-        want = cfg.num_layers if backend == "auto" else 0
-        if any(v != want for v in launches.values()):
-            raise AssertionError(f"{backend} step launched {launches}, expected {want} each")
+        want = per_step if backend == "auto" else {name: 0 for name in per_step}
+        if launches != want:
+            raise AssertionError(f"{tag} {backend} step launched {launches}, expected {want}")
     ex.backend = "auto"
     restore()
     (lk, pk), (lp, pp) = after["auto"], after["plain"]
-    param_err = max(float((pk[k][n] - pp[k][n]).abs().max()) for k in pk for n in pk[k])
-    moved = max(float((pk[k][n] - snap[k][n]).abs().max()) for k in pk for n in pk[k])
-    print(f"training: one step, kernel vs plain attention: loss {lk:.7f} vs {lp:.7f}, "
+    leaves = [(k, n) for k in pk for n in pk[k]]
+    if any(pk[k][n].dtype != cfg.dtype.torch for k, n in leaves):
+        raise AssertionError(f"{tag}: a parameter left {cfg.dtype.torch} in the step")
+    param_err = max(float((pk[k][n].float() - pp[k][n].float()).abs().max()) for k, n in leaves)
+    moved = max(float((pk[k][n].float() - snap[k][n].float()).abs().max()) for k, n in leaves)
+    print(f"training {tag}: one step, kernel vs plain attention: loss {lk:.7f} vs {lp:.7f}, "
           f"params max abs diff {param_err:.3e} (the step moved them by up to {moved:.3e})")
-    if not (np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp)):
-        raise AssertionError(f"train-step loss kernel {lk} vs plain {lp} beyond rtol {LOSS_RTOL}")
-    if not 0 < moved or param_err > PARAM_STEP_RTOL * moved:
+    loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+    if not (np.isfinite(lk) and abs(lk - lp) <= loss_rtol * abs(lp)):
+        raise AssertionError(f"{tag} train-step loss kernel {lk} vs plain {lp} beyond rtol "
+                             f"{loss_rtol}")
+    if not 0 < moved:
+        raise AssertionError(f"{tag}: the step moved no parameter")
+    if bf16:
+        for k, n in leaves:
+            a, b_ = pk[k][n].float(), pp[k][n].float()
+            lim = 2 * bf16_ulp(torch.maximum(a.abs(), b_.abs())) + BF16_PARAM_SHARE * float(
+                (pp[k][n].float() - snap[k][n].float()).abs().max())
+            if ((a - b_).abs() > lim).any():
+                raise AssertionError(f"bf16 params {k}.{n} after one step: kernel vs plain "
+                                     f"beyond 2 ulps + {BF16_PARAM_SHARE} of the update")
+    elif param_err > PARAM_STEP_RTOL * moved:
         raise AssertionError(f"params after one step differ by {param_err}, more than "
                              f"{PARAM_STEP_RTOL} of the step's largest update {moved}")
     del after, snap, pk, pp
@@ -2439,9 +2580,11 @@ def training_phase(seed: int):
     launches = dict(fa.LAUNCHES)
     losses = model.step_losses
     for name, n in launches.items():
-        if n != cfg.num_layers * steps:
-            raise AssertionError(f"{name}: {n} launches in {steps} steps, expected "
-                                 f"{cfg.num_layers} per step ({launches})")
+        if n != per_step[name] * steps:
+            raise AssertionError(f"{tag} {name}: {n} launches in {steps} steps, expected "
+                                 f"{per_step[name]} per step ({launches})")
+    if any(p.dtype != cfg.dtype.torch for g in ex.params.values() for p in g.values()):
+        raise AssertionError(f"{tag}: a parameter left {cfg.dtype.torch} in training")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses not finite or not falling: {losses}")
     elapsed = model.last_elapsed
@@ -2459,14 +2602,12 @@ def training_phase(seed: int):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    groups = {"flash kernels": 0.0, "GEMMs (cuBLAS fp32)": 0.0, "other": 0.0}
+    groups = {"flash kernels": 0.0, "GEMMs (cuBLAS)": 0.0, "elementwise and other": 0.0}
     for name, us in by_name.items():
-        group = ("flash kernels" if "flash_" in name else
-                 "GEMMs (cuBLAS fp32)" if ("gemm" in name or "cutlass" in name) else "other")
-        groups[group] += us / 1e3 / 2
+        groups[kernel_group(name)] += us / 1e3 / 2
     step_device_ms = busy_us / 1e3 / 2
     stats = {
-        "layers": cfg.num_layers, "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+        "dtype": tag, "layers": cfg.num_layers, "hidden": cfg.hidden_size, "heads": cfg.num_heads,
         "ff": cfg.ff_size, "seq": cfg.seq_length, "batch": batch, "params": n_params,
         "setup_s": setup_s, "warmup_steps": warm, "timed_steps": steps, "elapsed_s": elapsed,
         "step_ms": 1e3 * elapsed / steps, "samples_per_s": steps * batch / elapsed,
@@ -2484,7 +2625,7 @@ def training_phase(seed: int):
         "top_device_us": {name[:80]: us for name, us in top},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print("training (BERT-Base width): " + json.dumps(stats))
+    print(f"training (BERT-Base width, {tag}): " + json.dumps(stats))
     del model, ex, x, y, xs, ys
     torch.cuda.empty_cache()
     return stats
@@ -2536,6 +2677,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash = flash_phase(args.seed)
     training = training_phase(args.seed)
+    training_bf16 = training_phase(args.seed, bf16=True)
 
     def record(name, replaces, row, launches, source=SOURCE):
         return {
@@ -2560,7 +2702,28 @@ def main(argv=None) -> int:
                    flash["train"][name]["max_abs_err"], flash["causal512"][name]["max_abs_err"])),
                training["launches"][name], FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
+    ] + [
+        record(f"{name}_bf16", f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
+               dict(flash["train"][f"{name}_bf16"], max_abs_err=max(
+                   flash["train"][f"{name}_bf16"]["max_abs_err"],
+                   flash["causal512"][f"{name}_bf16"]["max_abs_err"])),
+               training_bf16["launches"][f"{name}_bf16"], FLASH_SOURCE)
+        for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ]
+    for t in (training, training_bf16):
+        print(f"{card}: BERT-Base training (12 x 768, seq 128, batch 32), {t['dtype']}: "
+              f"{t['samples_per_s']:.2f} samples/s, step {t['step_ms']:.3f} ms, device ms a step "
+              f"{t['step_device_ms']:.3f} (" + ", ".join(
+                  f"{g} {ms:.3f}" for g, ms in t["step_device_ms_by_group"].items())
+              + f"), busy share {t['device_busy_share_of_timed_step']:.3f}, loss "
+              f"{t['loss_first']:.5f} -> {t['loss_last']:.5f}")
+    for label in ("train", "causal512"):
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            for form in ("", "_bf16"):
+                r = flash[label][name + form]
+                print(f"{card}: flash {label} {name + form}: {r['ms']:.4f} ms (bound "
+                      f"{r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA "
+                      f"{r['library_ms']:.4f})")
     for label, run in (("graph", "graph"), ("eager", "eager")):
         print(f"{card}: 4-slot serving, {label} steps, overlap on: decode call ms "
               "(dispatch + consume wait, not a step time) "
@@ -2625,7 +2788,7 @@ def main(argv=None) -> int:
                       "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
                       "overlap": overlap, "constrained": constrained, "server": server,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
-                      "training": training}))
+                      "training": training, "training_bf16": training_bf16}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Core enums (port of ``flexflow_tpu/core/types.py``).
 
 Only the members the ported slices use: float32 parameters, activations
-and KV cache (the JAX default), int32 tokens, positions and block tables,
-int64 for the sampler's emulated uint32 words; the five op types of the
+and KV cache (the JAX default), bfloat16 parameters and activations for
+training (``bench.py``'s BERT-Base cell), int32 tokens, positions and
+block tables, int64 for the sampler's emulated uint32 words; the five op types of the
 BERT-style training graph and the activation, loss, metric and
 compilation modes around them.
 """
@@ -19,6 +20,7 @@ class DataType(enum.Enum):
     INT32 = "int32"
     INT64 = "int64"
     FLOAT = "float32"
+    BFLOAT16 = "bfloat16"
 
     @property
     def torch(self) -> torch.dtype:

@@ -61,7 +61,12 @@ them across a dispatch.
 Fault sites (``runtime/faults.py``): ``generation.prefill``,
 ``generation.decode_step`` and ``generation.verify`` fire at the top of
 their steps; the prefill site sees the prompt alone, as in the JAX
-engine. The decode and verify bodies add a per-slot logit bias, a
+engine. ``generation.prefix_lookup`` fires before each radix lookup (a
+fault degrades it to a miss) and ``generation.kv_offload`` around each
+host-tier block swap, ``("in", 1)`` before a swap-in write (a fault
+recomputes instead) and ``("out", 1)`` before a swap-out read (a fault
+drops the block instead of offloading it), where the JAX engine fires
+them. The decode and verify bodies add a per-slot logit bias, a
 persistent device tensor of zeros that the graphs read; a fault plan's
 ``nan`` mode writes NaN into it in place for one step, which makes the
 poison indistinguishable from model-produced NaN to the finiteness flags.
@@ -388,6 +393,9 @@ class GenerationEngine:
         # chip that is not there
         self.ledger = PredictionLedger()
         self._roofline_alarm = self.device.type != "cpu"
+        # host-tier block writes so far: the JAX engine compiles its block
+        # writer at the first, whose swap-in it keeps out of the ledger
+        self._block_writes = 0
         # one GPU until the tensor-parallel engine is ported
         self.tp_degree = 1
         self.mesh_devices = 1
@@ -663,6 +671,7 @@ class GenerationEngine:
         """Host-tier swap-in write: one block's K/V back into ``dst``."""
         for t, h in ((self.cache.k, host_k), (self.cache.v, host_v)):
             t[:, dst].copy_(torch.from_numpy(h))
+        self._block_writes += 1
 
     # --------------------------------------------------------------- steps
     def prefill_one(
@@ -732,9 +741,17 @@ class GenerationEngine:
         reuse. Offloaded entries in the matched run are used only when the
         host->device transfer beats recomputing the same positions on the
         device's roofline; otherwise the run truncates at the first
-        offloaded entry."""
+        offloaded entry. A failed lookup (the ``generation.prefix_lookup``
+        site) degrades to a miss: full recompute, the same tokens."""
         pc = self.prefix_cache
-        run = pc.match(prompt)  # empty when disabled or len(prompt) < 2
+        if not pc.enabled or len(prompt) < 2:
+            return EMPTY_PREFIX_PLAN
+        try:
+            faults.inject(faults.GENERATION_PREFIX_LOOKUP, list(prompt))
+            run = pc.match(prompt)
+        except Exception:
+            pc.recompute_fallbacks += 1
+            return EMPTY_PREFIX_PLAN
         if not run:
             return EMPTY_PREFIX_PLAN
         bs = self.cache_config.block_size
@@ -853,22 +870,41 @@ class GenerationEngine:
     def _write_host_copy(self, entry: PrefixEntry, dst: int) -> bool:
         """Write an offloaded entry's CRC-verified host copy into device
         block ``dst``; False (a failed swap-in, recomputed instead) when
-        the copy is corrupt or gone."""
+        the ``generation.kv_offload`` site raises or the copy is corrupt
+        or gone."""
         pc = self.prefix_cache
-        buf = pc.take_host_copy(entry)
-        if buf is None:
+        try:
+            faults.inject(faults.GENERATION_KV_OFFLOAD, ("in", 1))
+            buf = pc.take_host_copy(entry)
+            if buf is None:  # corrupted or already dropped
+                raise ValueError("host-tier block failed CRC verification")
+            self._write_block(dst, *buf)
+        except Exception:
             pc.swap_in_failures += 1
             pc.recompute_fallbacks += 1
             return False
-        self._write_block(dst, *buf)
         return True
 
     def _swap_in(self, entry: PrefixEntry, dst: int) -> bool:
         """Bring one offloaded entry's K/V back to device block ``dst``:
-        the entry is resident again."""
+        the entry is resident again. The (predicted, measured) transfer
+        time joins the truth ledger as ``kv_swap_in``, except for the
+        engine's first block write (the JAX engine's compile)."""
+        pc = self.prefix_cache
+        predicted = pc.swap_in_cost_s(1)
+        writes_before = self._block_writes
+        t0 = time.perf_counter()
         if not self._write_host_copy(entry, dst):
             return False
-        self.prefix_cache.note_swapped_in(entry, dst)
+        pc.note_swapped_in(entry, dst)
+        elapsed = time.perf_counter() - t0
+        if writes_before:
+            self.ledger.observe(
+                "kv_swap_in", predicted, elapsed,
+                label="kv_swap_in (host tier)",
+                provenance="host-tier transfer model (link bytes/s)",
+                alarm=self._roofline_alarm,
+            )
         return True
 
     def _cow_copy(self, src: PrefixEntry, dst: int) -> bool:
@@ -935,7 +971,12 @@ class GenerationEngine:
         allocator's last resort before preemption."""
         if not self.prefix_cache.enabled:
             return 0
-        return self.prefix_cache.reclaim(max(1, n_blocks), self._read_block)
+
+        def read(block_id: int):
+            faults.inject(faults.GENERATION_KV_OFFLOAD, ("out", 1))
+            return self._read_block(block_id)
+
+        return self.prefix_cache.reclaim(max(1, n_blocks), read)
 
     def decode_arrays(
         self, tokens: np.ndarray, positions: np.ndarray, block_tables: np.ndarray,

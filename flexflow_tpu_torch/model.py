@@ -28,6 +28,7 @@ from .ops.io_ops import InputParams
 from .ops.linear import LinearParams
 from .ops.norm import LayerNormParams
 from .parallel.propagation import infer_all_specs
+from .runtime.convert import to_tensor
 from .runtime.executor import Executor, node_key
 from .runtime.metrics import PerfMetrics
 from .runtime.optimizers import Optimizer, SGDOptimizer
@@ -198,10 +199,10 @@ class FFModel:
     # ----------------------------------------------------------------- fit
     def _as_batches(self, x, y) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """The whole dataset on the model's device, once (loading counts
-        as set-up, not as training time)."""
+        as set-up, not as training time), each array in its own dtype
+        (float32 or bfloat16, numpy or torch)."""
         xs = [x] if isinstance(x, (np.ndarray, torch.Tensor)) else list(x)
-        return ([torch.as_tensor(xx, device=self.device) for xx in xs],
-                torch.as_tensor(y, device=self.device))
+        return [to_tensor(xx, self.device) for xx in xs], to_tensor(y, self.device)
 
     def fit(
         self,
@@ -280,21 +281,26 @@ class FFModel:
 
     def get_weight(self, layer: Union[Tensor, str], name: str) -> np.ndarray:
         """One weight as a host array; ``layer`` is the layer's output
-        Tensor or its name (reference: ParallelTensorBase::get_tensor)."""
+        Tensor or its name (reference: ParallelTensorBase::get_tensor).
+        numpy has no bfloat16: a bfloat16 weight comes back as float32,
+        which holds every bfloat16 value exactly."""
         key, group = self._weight_group(layer)
         if name not in group:
             raise KeyError(f"no weight {name!r} on {key}; has {sorted(group)}")
-        return group[name].detach().cpu().numpy().copy()  # never a view of the weight
+        w = group[name].detach()
+        if w.dtype == torch.bfloat16:
+            w = w.float()
+        return w.cpu().numpy().copy()  # never a view of the weight
 
     @torch.no_grad()
     def set_weight(self, layer: Union[Tensor, str], name: str, value) -> None:
         """Overwrite one weight in place from host data (reference:
-        ParallelTensorBase::set_tensor)."""
+        ParallelTensorBase::set_tensor); the weight keeps its dtype."""
         key, group = self._weight_group(layer)
         if name not in group:
             raise KeyError(f"no weight {name!r} on {key}")
         cur = group[name]
-        src = torch.as_tensor(np.asarray(value), dtype=cur.dtype)
+        src = to_tensor(value).to(cur.dtype)
         if tuple(src.shape) != tuple(cur.shape):
             raise ValueError(f"shape {tuple(src.shape)} != {tuple(cur.shape)} for {key}.{name}")
         cur.copy_(src)

@@ -18,6 +18,7 @@ import torch
 from ..core.tensor import TensorSpec
 from ..core.types import DataType, OpType
 from .base import LowerCtx, OpDef, WeightSpec, register_op
+from .linear import promoted
 from .kernels.flash_attention import flash_attention
 from .kernels.decode_attention import (
     paged_append_attention,
@@ -86,16 +87,19 @@ class MultiHeadAttentionOp(OpDef):
     @staticmethod
     def lower(params: MultiHeadAttentionParams, inputs, weights, ctx: LowerCtx):
         q, k, v = inputs
-        # projections: [B, S, E] x [E, H, D] -> [B, S, H, D]
-        qh = torch.einsum("bse,ehd->bshd", q, weights["wq"])
-        kh = torch.einsum("bse,ehd->bshd", k, weights["wk"])
-        vh = torch.einsum("bse,ehd->bshd", v, weights["wv"])
+        # projections: [B, S, E] x [E, H, D] -> [B, S, H, D], in the
+        # operands' common type, as JAX's einsums promote (a bfloat16
+        # layer computes them in bfloat16 with float32 accumulation and
+        # hands bfloat16 q, k and v to the flash kernels)
+        qh = torch.einsum("bse,ehd->bshd", *promoted(q, weights["wq"]))
+        kh = torch.einsum("bse,ehd->bshd", *promoted(k, weights["wk"]))
+        vh = torch.einsum("bse,ehd->bshd", *promoted(v, weights["wv"]))
         if params.use_bias:
             qh = qh + weights["bq"]
             kh = kh + weights["bk"]
             vh = vh + weights["bv"]
         ctx_out = attention_core(qh, kh, vh, causal=params.causal, backend=ctx.backend)
-        out = torch.einsum("bshd,hde->bse", ctx_out, weights["wo"])
+        out = torch.einsum("bshd,hde->bse", *promoted(ctx_out, weights["wo"]))
         if params.use_bias:
             out = out + weights["bo"]
         return [out.to(params.dtype.torch)]

@@ -53,22 +53,26 @@ SIGNATURES = {
         + [_I] * 8  # B, W, H, D, bs, MB, ctas, cta_cols
         + [_F, _P]  # scale, stream
     ),
-    "ff_flash_fwd_f32": (
-        [_P] * 5  # q, k, v, o, lse
-        + [_I] * 5  # B, Sq, Sk, H, D
-        + [_F, _I, _P]  # scale, causal, stream
-    ),
-    "ff_flash_bwd_dq_f32": (
-        [_P] * 7  # q, k, v, dout, lse, delta, dq
-        + [_I] * 5  # B, Sq, Sk, H, D
-        + [_F, _I, _P]  # scale, causal, stream
-    ),
-    "ff_flash_bwd_dkv_f32": (
-        [_P] * 8  # q, k, v, dout, lse, delta, dk, dv
-        + [_I] * 5  # B, Sq, Sk, H, D
-        + [_F, _I, _P]  # scale, causal, stream
-    ),
 }
+# the flash kernels, a float32 and a bfloat16 form of each
+for _form in ("f32", "bf16"):
+    SIGNATURES.update({
+        f"ff_flash_fwd_{_form}": (
+            [_P] * 5  # q, k, v, o, lse
+            + [_I] * 5  # B, Sq, Sk, H, D
+            + [_F, _I, _P]  # scale, causal, stream
+        ),
+        f"ff_flash_bwd_dq_{_form}": (
+            [_P] * 7  # q, k, v, dout, lse, delta, dq
+            + [_I] * 5  # B, Sq, Sk, H, D
+            + [_F, _I, _P]  # scale, causal, stream
+        ),
+        f"ff_flash_bwd_dkv_{_form}": (
+            [_P] * 8  # q, k, v, dout, lse, delta, dk, dv
+            + [_I] * 5  # B, Sq, Sk, H, D
+            + [_F, _I, _P]  # scale, causal, stream
+        ),
+    })
 
 _lock = threading.Lock()
 _lib: Optional[types.SimpleNamespace] = None

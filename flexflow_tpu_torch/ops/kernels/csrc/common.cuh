@@ -32,7 +32,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // cp.async of 16 (or 4) bytes; zero-fills the destination when !valid
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 16 : 0)
                : "memory");

@@ -1,10 +1,13 @@
-// Flash attention forward and backward for Hopper (sm_90a), fp32.
+// Flash attention forward and backward for Hopper (sm_90a), fp32 and bf16.
 //
 // Replaces the Pallas TPU kernels of
 // flexflow_tpu/ops/kernels/flash_attention.py:
-//   * _fwd_kernel      (launched by _flash_fwd, :158)  -> ff_flash_fwd_f32
-//   * _bwd_dq_kernel   (launched by _flash_bwd, :262)  -> ff_flash_bwd_dq_f32
-//   * _bwd_dkv_kernel  (launched by _flash_bwd, :278)  -> ff_flash_bwd_dkv_f32
+//   * _fwd_kernel      (launched by _flash_fwd, :158)  -> ff_flash_fwd_{f32,bf16}
+//   * _bwd_dq_kernel   (launched by _flash_bwd, :262)  -> ff_flash_bwd_dq_{f32,bf16}
+//   * _bwd_dkv_kernel  (launched by _flash_bwd, :278)  -> ff_flash_bwd_dkv_{f32,bf16}
+// Like the Pallas kernels, each reads its inputs in either type, computes
+// in fp32 and writes o, dq, dk, dv in the inputs' type; lse and delta are
+// fp32 in both forms.
 //
 // What they compute, per (batch b, head h), over q [B,Sq,H,D] and
 // k, v [B,Sk,H,D] (indexed in place: a row of one head is D floats at a
@@ -17,7 +20,7 @@
 // The causal mask keeps q_pos >= k_pos (top-left, as the TPU kernel masks;
 // the wrapper refuses causal attention with Sq != Sk). Query rows past Sq
 // and key rows past Sk (a ragged tail) are masked here, so any S >= 1 and
-// D <= 256 run. The backward keeps the FlashAttention-2 split of the TPU
+// D <= 512 run. The backward keeps the FlashAttention-2 split of the TPU
 // kernels: dQ gridded over query tiles, dK/dV over key tiles, each looping
 // over the other axis, so no atomics are needed and gradients are the same
 // from run to run. Causal blocks skip key tiles above the diagonal
@@ -86,20 +89,71 @@
 //     bound; wgmma with pre-split operands in shared memory is the next
 //     step.
 //
+// The bf16 forms are the same kernels over bf16 tiles in shared memory
+// (half the bytes, 16-byte cp.async of 8 values). A bf16 value is a TF32
+// value exactly (8 bits of mantissa against TF32's 10), so an operand read
+// from q, k, v or dO needs no split: its fragment is its bits shifted into
+// the high half. A product of two such operands (Q K^T, dO V^T, and K Q^T,
+// V dO^T in dK/dV) is one TF32 mma, exact products accumulated in fp32;
+// one with a computed operand (P or dS, fp32) keeps that operand's split,
+// two mmas: small*big + big*big. The scale is applied to the fp32 scores,
+// not to q (q * scale is not a bf16 value). The alternative, bf16
+// mma.sync m16n8k16 with P split into two bf16 halves, takes as many
+// products of twice the depth at twice the rate, but its A fragment
+// packs neighbouring k values in one register, so the accumulator-to-A
+// reuse of P and dS (the permuted order above) needs a repack; the TF32
+// route keeps one kernel body for both types, with the fp32 form's
+// instructions unchanged. The bf16 mma is the next step for speed.
+//
 // D > 128: CUDA cores (16 x D accumulators would not fit beside the
-// tiles). One block of 8 warps owns 32 rows and loops over tiles of the
-// other axis staged through shared memory; lane t dots row t of a 32-row sub-tile
-// with each of the warp's 4 rows and the probabilities (or dS) reach the
-// accumulating lanes by shuffles. It is bound by shared-memory traffic
-// (one shared load per two multiply-adds) and by the shuffles.
+// tiles). One block of 8 warps owns 32 rows (16 past D = 256, where 32
+// would not fit in shared memory) and loops over tiles of the other axis
+// staged through shared memory, in fp32 for both types; lane t dots row t
+// of a 32-row sub-tile with each of the warp's 4 (2) rows and the
+// probabilities (or dS) reach the accumulating lanes by shuffles. It is
+// bound by shared-memory traffic (one shared load per two multiply-adds)
+// and by the shuffles. Head dims are zero-padded to 160, 192, 224, 256,
+// 384 or 512; 512 is the kernels' limit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxHeadDim = 512;
+
+// bf16 inputs are TF32 values exactly: their products need no split
+template <typename T>
+constexpr bool kExact = std::is_same<T, bf16>::value;
+
+// elements of T a 16-byte copy moves (and the row padding of a tile)
+template <typename T>
+constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// two neighbouring outputs (d, d + 1) of one row, in one store
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
 
 __device__ __forceinline__ int64_t row_offset(int b, int s, int S, int h, int H, int D) {
   return ((static_cast<int64_t>(b) * S + s) * H + h) * D;
@@ -119,26 +173,32 @@ constexpr int kDkvQueryTile = 16;
 
 // rows [r0, r0 + kR) of head (b, h) of a [B,S,H,D] tensor into shared
 // memory at leading dimension kLD; zeros past S and past D
-template <int kR, int kDP, int kLD>
-__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int b, int h,
+template <int kR, int kDP, int kLD, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src, int b, int h,
                                            int r0, int S, int H, int D, bool vec) {
-  const float* head = src + row_offset(b, 0, S, h, H, D);
+  const T* head = src + row_offset(b, 0, S, h, H, D);
   const int64_t stride = static_cast<int64_t>(H) * D;  // between rows of one head
   if (vec) {
-    constexpr int kChunks = kDP / 4;
-    static_assert(kR * kChunks % kTcThreads == 0, "whole rounds of 16-byte copies");
+    constexpr int kChunks = kDP / kPer16<T>;
+    constexpr int kCopies = kR * kChunks;
 #pragma unroll
-    for (int j = 0; j < kR * kChunks / kTcThreads; ++j) {
+    for (int j = 0; j < (kCopies + kTcThreads - 1) / kTcThreads; ++j) {
       const int i = threadIdx.x + j * kTcThreads;
-      const int r = i / kChunks, c = (i % kChunks) * 4, s = r0 + r;
-      const bool ok = s < S && c < D;
-      cp_async16(dst + r * kLD + c, ok ? head + s * stride + c : src, ok);
+      if (kCopies % kTcThreads == 0 || i < kCopies) {
+        const int r = i / kChunks, c = (i % kChunks) * kPer16<T>, s = r0 + r;
+        const bool ok = s < S && c < D;
+        cp_async16(dst + r * kLD + c, ok ? head + s * stride + c : src, ok);
+      }
     }
   } else {
     for (int i = threadIdx.x; i < kR * kDP; i += kTcThreads) {
       const int r = i / kDP, c = i % kDP, s = r0 + r;
       const bool ok = s < S && c < D;
-      cp_async4(dst + r * kLD + c, ok ? head + s * stride + c : src, ok);
+      if constexpr (std::is_same<T, float>::value) {
+        cp_async4(dst + r * kLD + c, ok ? head + s * stride + c : src, ok);
+      } else {  // cp.async moves 4 bytes at least: a plain load and store
+        dst[r * kLD + c] = ok ? head[s * stride + c] : from_f32<T>(0.f);
+      }
     }
   }
 }
@@ -165,6 +225,17 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
 }
 
+// an input element as a TF32 operand: a float times mul, split; a bf16 is
+// its own TF32 value (its bits in the high half), and small is never read
+// (mul is 1 for bf16: those kernels scale the scores instead)
+__device__ __forceinline__ void split_in(float x, float mul, uint32_t& big, uint32_t& small) {
+  split_tf32(x * mul, big, small);
+}
+__device__ __forceinline__ void split_in(bf16 x, float, uint32_t& big, uint32_t& small) {
+  big = static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
+  small = 0u;
+}
+
 // operand fragments of mma.m16n8k8 (g = lane / 4, t = lane % 4), split
 struct FragA {  // 16 x 8: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
   uint32_t big[4], small[4];
@@ -181,28 +252,33 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b to fp32 accuracy: big*small + small*big + big*big, in that order
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a, const FragB& b) {
-  mma_tf32(c, a.big, b.small);
-  mma_tf32(c, a.small, b.big);
+// c += a b to fp32 accuracy: big*small + small*big + big*big, in that
+// order, leaving out the small part of an exact operand (kExactA, kExactB:
+// a bf16 input), so the product of two exact operands is one mma
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma_acc(float (&c)[4], const FragA& a, const FragB& b) {
+  if constexpr (!kExactB) mma_tf32(c, a.big, b.small);
+  if constexpr (!kExactA) mma_tf32(c, a.small, b.big);
   mma_tf32(c, a.big, b.big);
 }
 
 // A fragment of the 16 x 8 tile at p (row major, leading dimension ld), times mul
-__device__ __forceinline__ void load_a(FragA& f, const float* p, int ld, float mul) {
+template <typename T>
+__device__ __forceinline__ void load_a(FragA& f, const T* p, int ld, float mul) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  split_tf32(p[g * ld + t] * mul, f.big[0], f.small[0]);
-  split_tf32(p[(g + 8) * ld + t] * mul, f.big[1], f.small[1]);
-  split_tf32(p[g * ld + t + 4] * mul, f.big[2], f.small[2]);
-  split_tf32(p[(g + 8) * ld + t + 4] * mul, f.big[3], f.small[3]);
+  split_in(p[g * ld + t], mul, f.big[0], f.small[0]);
+  split_in(p[(g + 8) * ld + t], mul, f.big[1], f.small[1]);
+  split_in(p[g * ld + t + 4], mul, f.big[2], f.small[2]);
+  split_in(p[(g + 8) * ld + t + 4], mul, f.big[3], f.small[3]);
 }
 
 // B fragment whose element (k, n) is p[n * ld + k] (a K^T tile: rows of p
 // are the product's columns)
-__device__ __forceinline__ void load_b_nk(FragB& f, const float* p, int ld) {
+template <typename T>
+__device__ __forceinline__ void load_b_nk(FragB& f, const T* p, int ld) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  split_tf32(p[g * ld + t], f.big[0], f.small[0]);
-  split_tf32(p[g * ld + t + 4], f.big[1], f.small[1]);
+  split_in(p[g * ld + t], 1.f, f.big[0], f.small[0]);
+  split_in(p[g * ld + t + 4], 1.f, f.big[1], f.small[1]);
 }
 
 // The permuted reduction order of an accumulator reused as an A operand:
@@ -217,10 +293,11 @@ __device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
   split_tf32(c[3], f.big[3], f.small[3]);
 }
 
-__device__ __forceinline__ void load_b_kn_permuted(FragB& f, const float* p, int ld) {
+template <typename T>
+__device__ __forceinline__ void load_b_kn_permuted(FragB& f, const T* p, int ld) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  split_tf32(p[2 * t * ld + g], f.big[0], f.small[0]);
-  split_tf32(p[(2 * t + 1) * ld + g], f.big[1], f.small[1]);
+  split_in(p[2 * t * ld + g], 1.f, f.big[0], f.small[0]);
+  split_in(p[(2 * t + 1) * ld + g], 1.f, f.big[1], f.small[1]);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -235,8 +312,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // rows r and r + 8 of a [16, kDP] accumulator (each thread's columns
 // 8n + 2t and 8n + 2t + 1) to rows row0 (+ 8) of head (b, h), times mul
-template <int kNT>
-__device__ __forceinline__ void store_acc(float* __restrict__ dst, const float (&acc)[kNT][4],
+template <int kNT, typename T>
+__device__ __forceinline__ void store_acc(T* __restrict__ dst, const float (&acc)[kNT][4],
                                           const float (&mul)[2], int b, int h, int row0, int S,
                                           int H, int D, bool vec) {
   const int t = threadIdx.x & 3;
@@ -244,16 +321,16 @@ __device__ __forceinline__ void store_acc(float* __restrict__ dst, const float (
   for (int half = 0; half < 2; ++half) {
     const int s = row0 + 8 * half;
     if (s >= S) continue;
-    float* row = dst + row_offset(b, s, S, h, H, D);
+    T* row = dst + row_offset(b, s, S, h, H, D);
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
       const int d = 8 * n + 2 * t;
       const float x0 = acc[n][2 * half] * mul[half], x1 = acc[n][2 * half + 1] * mul[half];
       if (vec) {
-        if (d < D) *reinterpret_cast<float2*>(row + d) = make_float2(x0, x1);
+        if (d < D) store2(row + d, x0, x1);
       } else {
-        if (d < D) row[d] = x0;
-        if (d + 1 < D) row[d + 1] = x1;
+        if (d < D) row[d] = from_f32<T>(x0);
+        if (d + 1 < D) row[d + 1] = from_f32<T>(x1);
       }
     }
   }
@@ -261,27 +338,33 @@ __device__ __forceinline__ void store_acc(float* __restrict__ dst, const float (
 
 // ------------------------------------------------- forward, tensor cores
 
-template <int kDP>
+// tiles are rows of kDP elements of T padded by 16 bytes
+template <int kDP, typename T>
+constexpr int kLdOf = kDP + kPer16<T>;
+
+template <int kDP, typename T>
 size_t fwd_tc_smem() {
   // two stages of K and V, then Q
-  return sizeof(float) * (kDP + 4) * (4 * kFwdKeyTile + kTcRows);
+  return sizeof(T) * kLdOf<kDP, T> * (4 * kFwdKeyTile + kTcRows);
 }
 
 // D <= 64: at most 128 registers a thread, so four blocks share an SM
-template <int kDP>
+template <int kDP, typename T>
 __global__ void __launch_bounds__(kTcThreads, kDP <= 64 ? 4 : 1)
-    flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o,
+    flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
                         float* __restrict__ lse, int Sq, int Sk, int H, int D, float scale,
                         int causal, int vec) {
-  constexpr int kLD = kDP + 4;
+  constexpr int kLD = kLdOf<kDP, T>;
   constexpr int kNT = kDP / 8;  // 8-wide steps of the head dim
   constexpr int kBK = kFwdKeyTile;
   constexpr int kKT = kBK / 8;  // 8-key steps of a tile
+  constexpr bool kE = kExact<T>;
   static_assert(kKT * 4 <= 32, "one mask bit per accumulator element");
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   constexpr int kStage = 2 * kBK * kLD;  // a stage: kBK rows of K, then kBK rows of V
-  float* qs = smem + 2 * kStage;         // [kTcRows][kLD]
+  T* qs = smem + 2 * kStage;             // [kTcRows][kLD]
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTcRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = q0 + warp * 16 + g;  // this thread's query rows: row0, row0 + 8
@@ -295,7 +378,7 @@ __global__ void __launch_bounds__(kTcThreads, kDP <= 64 ? 4 : 1)
   cp_async_wait_all();
   __syncthreads();
 
-  const float* my_q = qs + warp * 16 * kLD;
+  const T* my_q = qs + warp * 16 * kLD;
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[kNT][4];
@@ -305,28 +388,34 @@ __global__ void __launch_bounds__(kTcThreads, kDP <= 64 ? 4 : 1)
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = it * kBK;
     if (it + 1 < ntiles) {  // the next tile loads while this one is computed
-      float* next = smem + ((it + 1) & 1) * kStage;
+      T* next = smem + ((it + 1) & 1) * kStage;
       stage_tile<kBK, kDP, kLD>(next, k, b, h, k0 + kBK, Sk, H, D, vec);
       stage_tile<kBK, kDP, kLD>(next + kBK * kLD, v, b, h, k0 + kBK, Sk, H, D, vec);
       cp_async_commit();
     }
-    const float* kt = smem + (it & 1) * kStage;
-    const float* vt = kt + kBK * kLD;
+    const T* kt = smem + (it & 1) * kStage;
+    const T* vt = kt + kBK * kLD;
 
-    // S = (scale Q) K^T, 16 x kBK per warp
+    // S = (scale Q) K^T, 16 x kBK per warp (bf16: Q K^T, then scaled)
     float s[kKT][4];
 #pragma unroll
     for (int n = 0; n < kKT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int d8 = 0; d8 < kNT; ++d8) {
       FragA a;
-      load_a(a, my_q + 8 * d8, kLD, scale);
+      load_a(a, my_q + 8 * d8, kLD, kE ? 1.f : scale);
 #pragma unroll
       for (int n = 0; n < kKT; ++n) {
         FragB bf;
         load_b_nk(bf, kt + n * 8 * kLD + 8 * d8, kLD);
-        mma_3xtf32(s[n], a, bf);
+        mma_acc<kE, kE>(s[n], a, bf);
       }
+    }
+    if constexpr (kE) {
+#pragma unroll
+      for (int n = 0; n < kKT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= scale;
     }
 
     // online softmax on the fragments; element e of s[n] is row
@@ -373,7 +462,7 @@ __global__ void __launch_bounds__(kTcThreads, kDP <= 64 ? 4 : 1)
       for (int n = 0; n < kNT; ++n) {
         FragB bf;
         load_b_kn_permuted(bf, vt + 8 * j * kLD + 8 * n, kLD);
-        mma_3xtf32(acc[n], a, bf);
+        mma_acc<false, kE>(acc[n], a, bf);
       }
     }
     cp_async_wait_all();  // the next tile has landed
@@ -388,36 +477,37 @@ __global__ void __launch_bounds__(kTcThreads, kDP <= 64 ? 4 : 1)
     const int s = row0 + 8 * i;
     if (t == 0 && s < Sq) lse[(static_cast<int64_t>(b) * Sq + s) * H + h] = m[i] + logf(div);
   }
-  store_acc<kNT>(o, acc, inv, b, h, row0, Sq, H, D, vec);
+  store_acc<kNT, T>(o, acc, inv, b, h, row0, Sq, H, D, vec);
 }
 
 // --------------------------------------------------- dK/dV, tensor cores
 
-template <int kDP>
+template <int kDP, typename T>
 size_t dkv_tc_smem() {
-  constexpr size_t ld = kDP + 4, bq = kDkvQueryTile;
+  constexpr size_t ld = kLdOf<kDP, T>, bq = kDkvQueryTile;
   // K and V of the block; q and dO, two stages each; lse and delta, two stages each
-  return sizeof(float) * (ld * (2 * kTcRows + 4 * bq) + 4 * bq);
+  return sizeof(T) * ld * (2 * kTcRows + 4 * bq) + sizeof(float) * 4 * bq;
 }
 
-template <int kDP>
+template <int kDP, typename T>
 __global__ void __launch_bounds__(kTcThreads)
-    flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ dout,
+    flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
-                            float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
+                            T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
                             int D, float scale, int causal, int vec) {
-  constexpr int kLD = kDP + 4;
+  constexpr int kLD = kLdOf<kDP, T>;
   constexpr int kNT = kDP / 8;
   constexpr int kBQ = kDkvQueryTile;
   constexpr int kQT = kBQ / 8;  // 8-query steps of a tile
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                    // [kTcRows][kLD]
-  float* vs = ks + kTcRows * kLD;      // [kTcRows][kLD]
-  float* qs = vs + kTcRows * kLD;      // [2][kBQ][kLD]
-  float* dos = qs + 2 * kBQ * kLD;     // [2][kBQ][kLD]
-  float* lses = dos + 2 * kBQ * kLD;   // [2][kBQ]
-  float* deltas = lses + 2 * kBQ;      // [2][kBQ]
+  constexpr bool kE = kExact<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [kTcRows][kLD]
+  T* vs = ks + kTcRows * kLD;              // [kTcRows][kLD]
+  T* qs = vs + kTcRows * kLD;              // [2][kBQ][kLD]
+  T* dos = qs + 2 * kBQ * kLD;             // [2][kBQ][kLD]
+  float* lses = reinterpret_cast<float*>(dos + 2 * kBQ * kLD);  // [2][kBQ]
+  float* deltas = lses + 2 * kBQ;                                // [2][kBQ]
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTcRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int key0 = k0 + warp * 16 + g;  // this thread's key rows: key0, key0 + 8
@@ -438,8 +528,8 @@ __global__ void __launch_bounds__(kTcThreads)
   cp_async_wait_all();
   __syncthreads();
 
-  const float* my_k = ks + warp * 16 * kLD;
-  const float* my_v = vs + warp * 16 * kLD;
+  const T* my_k = ks + warp * 16 * kLD;
+  const T* my_v = vs + warp * 16 * kLD;
   float dk_acc[kNT][4], dv_acc[kNT][4];
 #pragma unroll
   for (int n = 0; n < kNT; ++n)
@@ -453,8 +543,8 @@ __global__ void __launch_bounds__(kTcThreads)
       cp_async_commit();
     }
     const int buf = it & 1;
-    const float* qt = qs + buf * kBQ * kLD;
-    const float* dot = dos + buf * kBQ * kLD;
+    const T* qt = qs + buf * kBQ * kLD;
+    const T* dot = dos + buf * kBQ * kLD;
     const float* lt = lses + buf * kBQ;
     const float* det = deltas + buf * kBQ;
 
@@ -474,8 +564,8 @@ __global__ void __launch_bounds__(kTcThreads)
         FragB bq, bd;
         load_b_nk(bq, qt + n * 8 * kLD + 8 * d8, kLD);
         load_b_nk(bd, dot + n * 8 * kLD + 8 * d8, kLD);
-        mma_3xtf32(st[n], ka, bq);
-        mma_3xtf32(dpt[n], va, bd);
+        mma_acc<kE, kE>(st[n], ka, bq);
+        mma_acc<kE, kE>(dpt[n], va, bd);
       }
     }
 
@@ -504,24 +594,25 @@ __global__ void __launch_bounds__(kTcThreads)
         FragB bd, bq;
         load_b_kn_permuted(bd, dot + 8 * j * kLD + 8 * n, kLD);
         load_b_kn_permuted(bq, qt + 8 * j * kLD + 8 * n, kLD);
-        mma_3xtf32(dv_acc[n], pa, bd);
-        mma_3xtf32(dk_acc[n], da, bq);
+        mma_acc<false, kE>(dv_acc[n], pa, bd);
+        mma_acc<false, kE>(dk_acc[n], da, bq);
       }
     }
     cp_async_wait_all();
     __syncthreads();
   }
   const float dk_mul[2] = {scale, scale}, dv_mul[2] = {1.f, 1.f};
-  store_acc<kNT>(dk, dk_acc, dk_mul, b, h, key0, Sk, H, D, vec);
-  store_acc<kNT>(dv, dv_acc, dv_mul, b, h, key0, Sk, H, D, vec);
+  store_acc<kNT, T>(dk, dk_acc, dk_mul, b, h, key0, Sk, H, D, vec);
+  store_acc<kNT, T>(dv, dv_acc, dv_mul, b, h, key0, Sk, H, D, vec);
 }
 
 // ------------------------------------------------------ dQ, tensor cores
 
-template <int kDP>
+template <int kDP, typename T>
 size_t dq_tc_smem() {
   // two stages of K and V; Q and dO of the block; lse and delta
-  return sizeof(float) * ((kDP + 4) * (4 * kDqKeyTile + 2 * kTcRows) + 2 * kTcRows);
+  return sizeof(T) * kLdOf<kDP, T> * (4 * kDqKeyTile + 2 * kTcRows) +
+         sizeof(float) * 2 * kTcRows;
 }
 
 // blocks an SM the register budget is set for: shared memory allows 3
@@ -530,23 +621,25 @@ __host__ __device__ constexpr int dq_min_blocks(int dp) {
   return dp > 64 ? 1 : kDqKeyTile == 16 ? 4 : 3;
 }
 
-template <int kDP>
+template <int kDP, typename T>
 __global__ void __launch_bounds__(kTcThreads, dq_min_blocks(kDP))
-    flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ dout,
+    flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
-                           float* __restrict__ dq, int Sq, int Sk, int H, int D, float scale,
+                           T* __restrict__ dq, int Sq, int Sk, int H, int D, float scale,
                            int causal, int vec) {
-  constexpr int kLD = kDP + 4;
+  constexpr int kLD = kLdOf<kDP, T>;
   constexpr int kNT = kDP / 8;
   constexpr int kBK = kDqKeyTile;
   constexpr int kKT = kBK / 8;
-  extern __shared__ __align__(16) float smem[];
+  constexpr bool kE = kExact<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   constexpr int kStage = 2 * kBK * kLD;  // a stage: kBK rows of K, then kBK rows of V
-  float* qs = smem + 2 * kStage;         // [kTcRows][kLD]
-  float* dos = qs + kTcRows * kLD;       // [kTcRows][kLD]
-  float* lses = dos + kTcRows * kLD;     // [kTcRows]
-  float* deltas = lses + kTcRows;        // [kTcRows]
+  T* qs = smem + 2 * kStage;             // [kTcRows][kLD]
+  T* dos = qs + kTcRows * kLD;           // [kTcRows][kLD]
+  float* lses = reinterpret_cast<float*>(dos + kTcRows * kLD);  // [kTcRows]
+  float* deltas = lses + kTcRows;                               // [kTcRows]
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTcRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = q0 + warp * 16 + g;  // this thread's query rows: row0, row0 + 8
@@ -564,8 +657,8 @@ __global__ void __launch_bounds__(kTcThreads, dq_min_blocks(kDP))
   cp_async_wait_all();
   __syncthreads();
 
-  const float* my_q = qs + warp * 16 * kLD;
-  const float* my_do = dos + warp * 16 * kLD;
+  const T* my_q = qs + warp * 16 * kLD;
+  const T* my_do = dos + warp * 16 * kLD;
   const float lse_r[2] = {lses[warp * 16 + g], lses[warp * 16 + g + 8]};
   const float delta_r[2] = {deltas[warp * 16 + g], deltas[warp * 16 + g + 8]};
   float acc[kNT][4];
@@ -575,15 +668,15 @@ __global__ void __launch_bounds__(kTcThreads, dq_min_blocks(kDP))
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = it * kBK;
     if (it + 1 < ntiles) {  // the next tile loads while this one is computed
-      float* next = smem + ((it + 1) & 1) * kStage;
+      T* next = smem + ((it + 1) & 1) * kStage;
       stage_tile<kBK, kDP, kLD>(next, k, b, h, k0 + kBK, Sk, H, D, vec);
       stage_tile<kBK, kDP, kLD>(next + kBK * kLD, v, b, h, k0 + kBK, Sk, H, D, vec);
       cp_async_commit();
     }
-    const float* kt = smem + (it & 1) * kStage;
-    const float* vt = kt + kBK * kLD;
+    const T* kt = smem + (it & 1) * kStage;
+    const T* vt = kt + kBK * kLD;
 
-    // S = (scale Q) K^T and dP = dO V^T, 16 x kBK per warp
+    // S = (scale Q) K^T (bf16: Q K^T, then scaled) and dP = dO V^T, 16 x kBK per warp
     float s[kKT][4], dp[kKT][4];
 #pragma unroll
     for (int n = 0; n < kKT; ++n)
@@ -592,16 +685,22 @@ __global__ void __launch_bounds__(kTcThreads, dq_min_blocks(kDP))
 #pragma unroll
     for (int d8 = 0; d8 < kNT; ++d8) {
       FragA qa, da;
-      load_a(qa, my_q + 8 * d8, kLD, scale);
+      load_a(qa, my_q + 8 * d8, kLD, kE ? 1.f : scale);
       load_a(da, my_do + 8 * d8, kLD, 1.f);
 #pragma unroll
       for (int n = 0; n < kKT; ++n) {
         FragB bk, bv;
         load_b_nk(bk, kt + n * 8 * kLD + 8 * d8, kLD);
         load_b_nk(bv, vt + n * 8 * kLD + 8 * d8, kLD);
-        mma_3xtf32(s[n], qa, bk);
-        mma_3xtf32(dp[n], da, bv);
+        mma_acc<kE, kE>(s[n], qa, bk);
+        mma_acc<kE, kE>(dp[n], da, bv);
       }
+    }
+    if constexpr (kE) {
+#pragma unroll
+      for (int n = 0; n < kKT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= scale;
     }
 
     // dS = P o (dP - delta), P = exp(S - lse), masked as the forward
@@ -625,7 +724,7 @@ __global__ void __launch_bounds__(kTcThreads, dq_min_blocks(kDP))
       for (int n = 0; n < kNT; ++n) {
         FragB bf;
         load_b_kn_permuted(bf, kt + 8 * j * kLD + 8 * n, kLD);
-        mma_3xtf32(acc[n], a, bf);
+        mma_acc<false, kE>(acc[n], a, bf);
       }
     }
     cp_async_wait_all();  // the next tile has landed
@@ -633,27 +732,29 @@ __global__ void __launch_bounds__(kTcThreads, dq_min_blocks(kDP))
   }
   // dQ = scale * dS K (the TPU kernel scales at the end too)
   const float mul[2] = {scale, scale};
-  store_acc<kNT>(dq, acc, mul, b, h, row0, Sq, H, D, vec);
+  store_acc<kNT, T>(dq, acc, mul, b, h, row0, Sq, H, D, vec);
 }
 
 // ============================================================== CUDA cores
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 4;                    // rows per warp
-constexpr int kBlockRows = kWarps * kRows;  // 32 rows per block tile
+
+// rows per warp: 4 (32 a block), or 2 (16) past D = 256, where 32 rows of
+// tiles 16 columns of 32 wide would not fit in shared memory
+__host__ __device__ constexpr int simt_rows(int ndc) { return ndc > 8 ? 2 : 4; }
 
 // rows [r0, r0 + nrows) of head (b, h) of a [B,S,H,D] tensor into shared
-// memory at leading dimension ld, times mul; zeros past S and past D
-template <int kDP>
-__device__ void load_tile(float* dst, int ld, const float* __restrict__ src, int b, int h, int r0,
+// memory at leading dimension ld, in fp32, times mul; zeros past S and past D
+template <int kDP, typename T>
+__device__ void load_tile(float* dst, int ld, const T* __restrict__ src, int b, int h, int r0,
                           int nrows, int S, int H, int D, float mul) {
   for (int i = threadIdx.x; i < nrows * kDP; i += kThreads) {
     const int r = i / kDP;
     const int d = i - r * kDP;
     const int s = r0 + r;
     float x = 0.f;
-    if (s < S && d < D) x = src[row_offset(b, s, S, h, H, D) + d] * mul;
+    if (s < S && d < D) x = to_f32(src[row_offset(b, s, S, h, H, D) + d]) * mul;
     dst[r * ld + d] = x;
   }
 }
@@ -668,7 +769,7 @@ __device__ void load_rows(float* dst, const float* __restrict__ src, int b, int 
 }
 
 // out[r] += dot(lane_row, rows[r]) for the warp's kRows broadcast rows
-template <int kDP>
+template <int kDP, int kRows>
 __device__ __forceinline__ void dot4(float (&out)[kRows], const float* lane_row,
                                      const float* rows, int ld) {
 #pragma unroll 4
@@ -685,8 +786,8 @@ __device__ __forceinline__ void dot4(float (&out)[kRows], const float* lane_row,
   }
 }
 
-template <int kNDC>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float (&acc)[kRows][kNDC],
+template <int kNDC, int kRows, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, const float (&acc)[kRows][kNDC],
                                            const float (&div)[kRows], int b, int h, int r0,
                                            int S, int H, int D) {
   const int lane = threadIdx.x & 31;
@@ -694,23 +795,24 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float 
   for (int r = 0; r < kRows; ++r) {
     const int s = r0 + r;
     if (s >= S) continue;
-    float* row = dst + row_offset(b, s, S, h, H, D);
+    T* row = dst + row_offset(b, s, S, h, H, D);
 #pragma unroll
     for (int c = 0; c < kNDC; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) row[d] = acc[r][c] / div[r];
+      if (d < D) row[d] = from_f32<T>(acc[r][c] / div[r]);
     }
   }
 }
 
 constexpr int kOtherTile = 32;  // rows of the other axis per staged tile
 
-template <int kNDC>
+template <int kNDC, typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int Sq, int Sk, int H, int D, float scale,
                      int causal) {
+  constexpr int kRows = simt_rows(kNDC), kBlockRows = kWarps * kRows;
   constexpr int kDP = 32 * kNDC;
   constexpr int kLD = kDP + 4;
   constexpr int kBK = kOtherTile;
@@ -741,7 +843,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int sub = 0; sub < kBK && k0 + sub < kv_end; sub += 32) {
       const int j = k0 + sub + lane;
       float s[kRows] = {};
-      dot4<kDP>(s, ks + (sub + lane) * kLD, my_q, kDP);
+      dot4<kDP, kRows>(s, ks + (sub + lane) * kLD, my_q, kDP);
       float p[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
@@ -777,16 +879,17 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 0 && row0 + r < Sq)
       lse[(static_cast<int64_t>(b) * Sq + row0 + r) * H + h] = m[r] + logf(div[r]);
   }
-  store_rows<kNDC>(o, acc, div, b, h, row0, Sq, H, D);
+  store_rows<kNDC, kRows, T>(o, acc, div, b, h, row0, Sq, H, D);
 }
 
-template <int kNDC>
+template <int kNDC, typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int Sq, int Sk, int H, int D, float scale,
+                        T* __restrict__ dq, int Sq, int Sk, int H, int D, float scale,
                         int causal) {
+  constexpr int kRows = simt_rows(kNDC), kBlockRows = kWarps * kRows;
   constexpr int kDP = 32 * kNDC;
   constexpr int kLD = kDP + 4;
   constexpr int kBK = kOtherTile;
@@ -820,8 +923,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int sub = 0; sub < kBK && k0 + sub < kv_end; sub += 32) {
       const int j = k0 + sub + lane;
       float s[kRows] = {}, dp[kRows] = {};
-      dot4<kDP>(s, ks + (sub + lane) * kLD, my_q, kDP);
-      dot4<kDP>(dp, vs + (sub + lane) * kLD, my_do, kDP);
+      dot4<kDP, kRows>(s, ks + (sub + lane) * kLD, my_q, kDP);
+      dot4<kDP, kRows>(dp, vs + (sub + lane) * kLD, my_do, kDP);
       float ds[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
@@ -851,16 +954,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kNDC; ++c) acc[r][c] *= scale;
   }
-  store_rows<kNDC>(dq, acc, one, b, h, row0, Sq, H, D);
+  store_rows<kNDC, kRows, T>(dq, acc, one, b, h, row0, Sq, H, D);
 }
 
-template <int kNDC>
+template <int kNDC, typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
+                         T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
                          int D, float scale, int causal) {
+  constexpr int kRows = simt_rows(kNDC), kBlockRows = kWarps * kRows;
   constexpr int kDP = 32 * kNDC;
   constexpr int kLD = kDP + 4;
   constexpr int kBQ = kOtherTile;
@@ -895,8 +999,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int sub = 0; sub < kBQ && q0 + sub < Sq; sub += 32) {
       const int i = q0 + sub + lane;
       float s[kRows] = {}, dp[kRows] = {};
-      dot4<kDP>(s, qs + (sub + lane) * kLD, my_k, kDP);
-      dot4<kDP>(dp, dos + (sub + lane) * kLD, my_v, kDP);
+      dot4<kDP, kRows>(s, qs + (sub + lane) * kLD, my_k, kDP);
+      dot4<kDP, kRows>(dp, dos + (sub + lane) * kLD, my_v, kDP);
       const float lse_i = lses[sub + lane], delta_i = deltas[sub + lane];
       float p[kRows], ds[kRows];
 #pragma unroll
@@ -932,8 +1036,8 @@ __global__ void __launch_bounds__(kThreads)
   float one[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) one[r] = 1.f;
-  store_rows<kNDC>(dk, dk_acc, one, b, h, key0, Sk, H, D);
-  store_rows<kNDC>(dv, dv_acc, one, b, h, key0, Sk, H, D);
+  store_rows<kNDC, kRows, T>(dk, dk_acc, one, b, h, key0, Sk, H, D);
+  store_rows<kNDC, kRows, T>(dv, dv_acc, one, b, h, key0, Sk, H, D);
 }
 
 // ================================================================== launch
@@ -942,7 +1046,7 @@ enum class Kind { kFwd, kDq, kDkv };
 
 template <int kNDC>
 size_t smem_bytes(Kind kind) {
-  constexpr size_t dp = 32 * kNDC, ld = dp + 4, t = kOtherTile, rows = kBlockRows;
+  constexpr size_t dp = 32 * kNDC, ld = dp + 4, t = kOtherTile, rows = kWarps * simt_rows(kNDC);
   switch (kind) {
     case Kind::kFwd: return sizeof(float) * (rows * dp + t * ld + t * dp);
     case Kind::kDq: return sizeof(float) * (2 * rows * dp + 2 * t * ld);
@@ -965,9 +1069,13 @@ int prepare(Kernel kernel, size_t smem, bool* ready) {
   return 0;
 }
 
+// device pointers of either form (float or bf16 for q, k, v, dO, o, dq,
+// dk, dv; float for lse and delta)
 struct Args {
-  const float *q, *k, *v, *dout, *lse_in, *delta;
-  float *o, *lse, *dq, *dk, *dv;
+  const void *q, *k, *v, *dout;
+  const float *lse_in, *delta;
+  void *o, *dq, *dk, *dv;
+  float* lse;
   int B, Sq, Sk, H, D, causal;
   float scale;
   cudaStream_t stream;
@@ -975,10 +1083,12 @@ struct Args {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-// 16-byte copies and paired stores need D % 4 == 0 and 16-byte aligned
-// rows in every tensor the kernel copies or stores
+// 16-byte copies and paired stores need whole 16-byte chunks a row (D a
+// multiple of 4 floats or 8 bf16) and 16-byte aligned rows in every
+// tensor the kernel copies or stores
+template <typename T>
 bool vector_rows(const Args& a, Kind kind) {
-  if (a.D % 4 != 0 || !aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v)) return false;
+  if (a.D % kPer16<T> != 0 || !aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v)) return false;
   switch (kind) {
     case Kind::kFwd: return aligned16(a.o);
     case Kind::kDq: return aligned16(a.dout) && aligned16(a.dq);
@@ -986,115 +1096,169 @@ bool vector_rows(const Args& a, Kind kind) {
   }
 }
 
-template <int kDP>
+template <typename T>
+const T* in(const void* p) { return static_cast<const T*>(p); }
+template <typename T>
+T* out(void* p) { return static_cast<T*>(p); }
+
+template <int kDP, typename T>
 int launch_tc(Kind kind, const Args& a) {
   static bool ready[3] = {false, false, false};
-  const int vec = vector_rows(a, kind) ? 1 : 0;
+  const int vec = vector_rows<T>(a, kind) ? 1 : 0;
   int rc = 0;
   if (kind == Kind::kFwd) {
-    const size_t smem = fwd_tc_smem<kDP>();
-    rc = prepare(flash_fwd_tc_kernel<kDP>, smem, &ready[0]);
+    const size_t smem = fwd_tc_smem<kDP, T>();
+    rc = prepare(flash_fwd_tc_kernel<kDP, T>, smem, &ready[0]);
     if (rc) return rc;
     const dim3 grid((a.Sq + kTcRows - 1) / kTcRows, a.H, a.B);
-    flash_fwd_tc_kernel<kDP><<<grid, kTcThreads, smem, a.stream>>>(
-        a.q, a.k, a.v, a.o, a.lse, a.Sq, a.Sk, a.H, a.D, a.scale, a.causal, vec);
-  } else if (kind == Kind::kDq) {
-    const size_t smem = dq_tc_smem<kDP>();
-    rc = prepare(flash_bwd_dq_tc_kernel<kDP>, smem, &ready[1]);
-    if (rc) return rc;
-    const dim3 grid((a.Sq + kTcRows - 1) / kTcRows, a.H, a.B);
-    flash_bwd_dq_tc_kernel<kDP><<<grid, kTcThreads, smem, a.stream>>>(
-        a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.Sq, a.Sk, a.H, a.D, a.scale,
+    flash_fwd_tc_kernel<kDP, T><<<grid, kTcThreads, smem, a.stream>>>(
+        in<T>(a.q), in<T>(a.k), in<T>(a.v), out<T>(a.o), a.lse, a.Sq, a.Sk, a.H, a.D, a.scale,
         a.causal, vec);
+  } else if (kind == Kind::kDq) {
+    const size_t smem = dq_tc_smem<kDP, T>();
+    rc = prepare(flash_bwd_dq_tc_kernel<kDP, T>, smem, &ready[1]);
+    if (rc) return rc;
+    const dim3 grid((a.Sq + kTcRows - 1) / kTcRows, a.H, a.B);
+    flash_bwd_dq_tc_kernel<kDP, T><<<grid, kTcThreads, smem, a.stream>>>(
+        in<T>(a.q), in<T>(a.k), in<T>(a.v), in<T>(a.dout), a.lse_in, a.delta, out<T>(a.dq),
+        a.Sq, a.Sk, a.H, a.D, a.scale, a.causal, vec);
   } else {
-    const size_t smem = dkv_tc_smem<kDP>();
-    rc = prepare(flash_bwd_dkv_tc_kernel<kDP>, smem, &ready[2]);
+    const size_t smem = dkv_tc_smem<kDP, T>();
+    rc = prepare(flash_bwd_dkv_tc_kernel<kDP, T>, smem, &ready[2]);
     if (rc) return rc;
     const dim3 grid((a.Sk + kTcRows - 1) / kTcRows, a.H, a.B);
-    flash_bwd_dkv_tc_kernel<kDP><<<grid, kTcThreads, smem, a.stream>>>(
-        a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dk, a.dv, a.Sq, a.Sk, a.H, a.D, a.scale,
-        a.causal, vec);
+    flash_bwd_dkv_tc_kernel<kDP, T><<<grid, kTcThreads, smem, a.stream>>>(
+        in<T>(a.q), in<T>(a.k), in<T>(a.v), in<T>(a.dout), a.lse_in, a.delta, out<T>(a.dk),
+        out<T>(a.dv), a.Sq, a.Sk, a.H, a.D, a.scale, a.causal, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// the CUDA-core kernels, D > 128 (kNDC = 5..8 columns of 32)
-template <int kNDC>
+// the CUDA-core kernels, D > 128 (kNDC = 5..8, 12 or 16 columns of 32)
+template <int kNDC, typename T>
 int launch_simt(Kind kind, const Args& a) {
   static_assert(kNDC > 4, "D <= 128 takes the tensor cores");
   const size_t smem = smem_bytes<kNDC>(kind);
+  const int rows = kWarps * simt_rows(kNDC);  // of the block's own axis
   static bool ready[3] = {false, false, false};
   bool* r = &ready[static_cast<int>(kind)];
   int rc = 0;
   if (kind == Kind::kFwd) {
-    rc = prepare(flash_fwd_kernel<kNDC>, smem, r);
+    rc = prepare(flash_fwd_kernel<kNDC, T>, smem, r);
     if (rc) return rc;
-    const dim3 grid((a.Sq + kBlockRows - 1) / kBlockRows, a.H, a.B);
-    flash_fwd_kernel<kNDC><<<grid, kThreads, smem, a.stream>>>(
-        a.q, a.k, a.v, a.o, a.lse, a.Sq, a.Sk, a.H, a.D, a.scale, a.causal);
+    const dim3 grid((a.Sq + rows - 1) / rows, a.H, a.B);
+    flash_fwd_kernel<kNDC, T><<<grid, kThreads, smem, a.stream>>>(
+        in<T>(a.q), in<T>(a.k), in<T>(a.v), out<T>(a.o), a.lse, a.Sq, a.Sk, a.H, a.D, a.scale,
+        a.causal);
   } else if (kind == Kind::kDq) {
-    rc = prepare(flash_bwd_dq_kernel<kNDC>, smem, r);
+    rc = prepare(flash_bwd_dq_kernel<kNDC, T>, smem, r);
     if (rc) return rc;
-    const dim3 grid((a.Sq + kBlockRows - 1) / kBlockRows, a.H, a.B);
-    flash_bwd_dq_kernel<kNDC><<<grid, kThreads, smem, a.stream>>>(
-        a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dq, a.Sq, a.Sk, a.H, a.D, a.scale,
-        a.causal);
+    const dim3 grid((a.Sq + rows - 1) / rows, a.H, a.B);
+    flash_bwd_dq_kernel<kNDC, T><<<grid, kThreads, smem, a.stream>>>(
+        in<T>(a.q), in<T>(a.k), in<T>(a.v), in<T>(a.dout), a.lse_in, a.delta, out<T>(a.dq),
+        a.Sq, a.Sk, a.H, a.D, a.scale, a.causal);
   } else {
-    rc = prepare(flash_bwd_dkv_kernel<kNDC>, smem, r);
+    rc = prepare(flash_bwd_dkv_kernel<kNDC, T>, smem, r);
     if (rc) return rc;
-    const dim3 grid((a.Sk + kBlockRows - 1) / kBlockRows, a.H, a.B);
-    flash_bwd_dkv_kernel<kNDC><<<grid, kThreads, smem, a.stream>>>(
-        a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.dk, a.dv, a.Sq, a.Sk, a.H, a.D, a.scale,
-        a.causal);
+    const dim3 grid((a.Sk + rows - 1) / rows, a.H, a.B);
+    flash_bwd_dkv_kernel<kNDC, T><<<grid, kThreads, smem, a.stream>>>(
+        in<T>(a.q), in<T>(a.k), in<T>(a.v), in<T>(a.dout), a.lse_in, a.delta, out<T>(a.dk),
+        out<T>(a.dv), a.Sq, a.Sk, a.H, a.D, a.scale, a.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
 int dispatch(Kind kind, const Args& a) {
-  if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.H < 1 || a.D < 1 || a.D > 256 || a.B > 65535 ||
-      a.H > 65535 || (a.causal && a.Sq != a.Sk))
+  if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.H < 1 || a.D < 1 || a.D > kMaxHeadDim ||
+      a.B > 65535 || a.H > 65535 || (a.causal && a.Sq != a.Sk))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a.D <= 32) return launch_tc<32>(kind, a);
-  if (a.D <= 64) return launch_tc<64>(kind, a);
-  if (a.D <= 96) return launch_tc<96>(kind, a);
-  if (a.D <= 128) return launch_tc<128>(kind, a);
+  if (a.D <= 32) return launch_tc<32, T>(kind, a);
+  if (a.D <= 64) return launch_tc<64, T>(kind, a);
+  if (a.D <= 96) return launch_tc<96, T>(kind, a);
+  if (a.D <= 128) return launch_tc<128, T>(kind, a);
   switch ((a.D + 31) / 32) {
-    case 5: return launch_simt<5>(kind, a);
-    case 6: return launch_simt<6>(kind, a);
-    case 7: return launch_simt<7>(kind, a);
-    default: return launch_simt<8>(kind, a);
+    case 5: return launch_simt<5, T>(kind, a);
+    case 6: return launch_simt<6, T>(kind, a);
+    case 7: return launch_simt<7, T>(kind, a);
+    case 8: return launch_simt<8, T>(kind, a);
+    case 9: case 10: case 11: case 12: return launch_simt<12, T>(kind, a);
+    default: return launch_simt<16, T>(kind, a);
   }
+}
+
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk,
+        int H, int D, float scale, int causal, void* stream) {
+  Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, nullptr, nullptr, lse,
+         B, Sq, Sk, H, D, causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<T>(Kind::kFwd, a);
+}
+
+template <typename T>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, void* dq, int B, int Sq, int Sk, int H, int D, float scale,
+           int causal, void* stream) {
+  Args a{q, k, v, dout, lse, delta, nullptr, dq, nullptr, nullptr, nullptr,
+         B, Sq, Sk, H, D, causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<T>(Kind::kDq, a);
+}
+
+template <typename T>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+            const float* delta, void* dk, void* dv, int B, int Sq, int Sk, int H, int D,
+            float scale, int causal, void* stream) {
+  Args a{q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, nullptr,
+         B, Sq, Sk, H, D, causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<T>(Kind::kDkv, a);
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes (flexflow_tpu_torch/ops/kernels/_build.py).
-// Every pointer is a device pointer to contiguous fp32 data: q, dout, o, dq
-// [B,Sq,H,D]; k, v, dk, dv [B,Sk,H,D]; lse, delta [B,Sq,H]. stream is a
+// Every pointer is a device pointer to contiguous data: q, dout, o, dq
+// [B,Sq,H,D]; k, v, dk, dv [B,Sk,H,D], fp32 in the _f32 form and bf16 in
+// the _bf16 form; lse, delta [B,Sq,H] fp32 in both. stream is a
 // cudaStream_t. Each returns the cudaError_t of its launch (0 on success).
 
 extern "C" int ff_flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
                                 float* lse, int B, int Sq, int Sk, int H, int D, float scale,
                                 int causal, void* stream) {
-  Args a{q, k, v, nullptr, nullptr, nullptr, o, lse, nullptr, nullptr, nullptr,
-         B, Sq, Sk, H, D, causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(Kind::kFwd, a);
+  return fwd<float>(q, k, v, o, lse, B, Sq, Sk, H, D, scale, causal, stream);
 }
 
 extern "C" int ff_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
                                    const float* dout, const float* lse, const float* delta,
                                    float* dq, int B, int Sq, int Sk, int H, int D, float scale,
                                    int causal, void* stream) {
-  Args a{q, k, v, dout, lse, delta, nullptr, nullptr, dq, nullptr, nullptr,
-         B, Sq, Sk, H, D, causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(Kind::kDq, a);
+  return bwd_dq<float>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, D, scale, causal, stream);
 }
 
 extern "C" int ff_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
                                     const float* dout, const float* lse, const float* delta,
                                     float* dk, float* dv, int B, int Sq, int Sk, int H, int D,
                                     float scale, int causal, void* stream) {
-  Args a{q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv,
-         B, Sq, Sk, H, D, causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(Kind::kDkv, a);
+  return bwd_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D, scale, causal,
+                        stream);
+}
+
+extern "C" int ff_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                                 float* lse, int B, int Sq, int Sk, int H, int D, float scale,
+                                 int causal, void* stream) {
+  return fwd<bf16>(q, k, v, o, lse, B, Sq, Sk, H, D, scale, causal, stream);
+}
+
+extern "C" int ff_flash_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                    const bf16* dout, const float* lse, const float* delta,
+                                    bf16* dq, int B, int Sq, int Sk, int H, int D, float scale,
+                                    int causal, void* stream) {
+  return bwd_dq<bf16>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, D, scale, causal, stream);
+}
+
+extern "C" int ff_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                     const bf16* dout, const float* lse, const float* delta,
+                                     bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int D,
+                                     float scale, int causal, void* stream) {
+  return bwd_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D, scale, causal,
+                       stream);
 }

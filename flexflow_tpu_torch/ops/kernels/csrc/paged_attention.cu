@@ -24,7 +24,9 @@
 // grid (C, H, B * tiles). The TPU kernel walks cache
 // blocks as a sequential grid axis and carries its online-softmax state in
 // VMEM scratch from one grid step to the next; here a CTA loops over its
-// own range and the ranges combine at the end.
+// own range and the ranges combine at the end. Head dims up to 512: past
+// 256 an instance holds twice the accumulators a thread and stages one
+// tile a round (a 32-query tile then fills most of the shared memory).
 //   * ff_paged_append_f32 splits each (head, sequence, query tile)
 //     across a thread-block cluster: grid (C, H, B * tiles), cluster
 //     (C, 1, 1), with C = ceil(MB * bs / 128) CTAs, at most 8 (the
@@ -115,7 +117,9 @@ constexpr int kMaxStages = 4;        // tiles a round can stage
 constexpr int kRound = kMaxStages * kTile;
 constexpr int kMaxCluster = 8;       // the portable cluster size
 constexpr int kCtaPositions = 128;   // table positions per CTA the cluster size aims at
-constexpr int kMaxHeadDim = 256;
+// the widest head dim: instances hold accumulators for up to 256 or 512
+// columns (kMaxD), so the 256-wide ones keep today's registers
+constexpr int kMaxHeadDim = 512;
 constexpr int kTableWindow = 2048;   // table columns a CTA holds in shared memory at most
 
 __host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
@@ -124,13 +128,15 @@ __host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
 // so the score reads of neighbouring positions are offset by 4 banks
 __host__ __device__ inline int tile_ld(int d) { return round4(d) + 4; }
 
-// kMaxW: the queries a CTA takes (1, 8 or 32), a compile-time bound so the
-// per-thread scores and accumulators stay in registers. A window wider than
+// kMaxW: the queries a CTA takes (1, 8 or 32), and kMaxD the widest head
+// dim of the instance (256 or 512), compile-time bounds so the per-thread
+// scores and accumulators stay in registers (kMaxW * kMaxD / 128 of them:
+// 128 for a 32-query tile past D = 256). A window wider than
 // kMaxW is cut into tiles of kMaxW queries, each its own cluster along
 // grid z (z = sequence * tiles + tile). kSplit: the split-KV form, whose
 // CTA r takes table columns [r * cta_cols, (r + 1) * cta_cols) instead of
 // a share of the live positions.
-template <int kMaxW, bool kSplit>
+template <int kMaxW, bool kSplit, int kMaxD>
 __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     const float* __restrict__ q,           // [B, W, H, D]
     const float* __restrict__ k_cache,     // [num_blocks, bs, H, D]
@@ -142,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     int cta_cols,  // split form: table columns a CTA takes
     int bt_held,   // table columns a CTA holds in shared memory, from its first
     int stages, int vec, float scale) {
-  constexpr int kPairs = kMaxW * kMaxHeadDim / kThreads;  // (query, column) pairs a thread owns
+  constexpr int kPairs = kMaxW * kMaxD / kThreads;  // (query, column) pairs a thread owns
   const int q_tiles = (W + kMaxW - 1) / kMaxW;
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z / q_tiles;
   const int w0 = (blockIdx.z - b * q_tiles) * kMaxW;  // the tile's first query
@@ -395,7 +401,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 // C: the cluster's CTAs per (head, sequence); cta_cols and bt_held as in
 // the kernel
-template <int kMaxW, bool kSplit>
+template <int kMaxW, bool kSplit, int kMaxD>
 int launch(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
            const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB, int C,
            int cta_cols, int bt_held, float scale, cudaStream_t stream) {
@@ -414,7 +420,7 @@ int launch(const float* q, const float* k_cache, const float* v_cache, const int
   static bool ready = false;
   if (!ready) {
     const cudaError_t e =
-        cudaFuncSetAttribute(paged_append_kernel<kMaxW, kSplit>,
+        cudaFuncSetAttribute(paged_append_kernel<kMaxW, kSplit, kMaxD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemLimit));
     if (e != cudaSuccess) return static_cast<int>(e);
     ready = true;
@@ -433,7 +439,7 @@ int launch(const float* q, const float* k_cache, const float* v_cache, const int
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, paged_append_kernel<kMaxW, kSplit>, q, k_cache, v_cache,
+      cudaLaunchKernelEx(&cfg, paged_append_kernel<kMaxW, kSplit, kMaxD>, q, k_cache, v_cache,
                          block_tables, q_positions, out, W, H, D, bs, MB, cta_cols, bt_held,
                          stages, vec, scale);
   if (e != cudaSuccess) {
@@ -441,6 +447,20 @@ int launch(const float* q, const float* k_cache, const float* v_cache, const int
     return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSplit, int kMaxD>
+int by_window(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
+              const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB,
+              int C, int cta_cols, int bt_held, float scale, cudaStream_t stream) {
+  if (W == 1)
+    return launch<1, kSplit, kMaxD>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H,
+                                    D, bs, MB, C, cta_cols, bt_held, scale, stream);
+  if (W <= 8)
+    return launch<8, kSplit, kMaxD>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H,
+                                    D, bs, MB, C, cta_cols, bt_held, scale, stream);
+  return launch<32, kSplit, kMaxD>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H,
+                                   D, bs, MB, C, cta_cols, bt_held, scale, stream);
 }
 
 template <bool kSplit>
@@ -452,14 +472,11 @@ int dispatch(const float* q, const float* k_cache, const float* v_cache, const i
       C < 1 || C > kMaxCluster || cta_cols < 1 || bt_held < 1 ||
       static_cast<long long>(B) * ((W + kTile - 1) / kTile) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (W == 1)
-    return launch<1, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs,
-                             MB, C, cta_cols, bt_held, scale, stream);
-  if (W <= 8)
-    return launch<8, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs,
-                             MB, C, cta_cols, bt_held, scale, stream);
-  return launch<32, kSplit>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs,
-                            MB, C, cta_cols, bt_held, scale, stream);
+  if (D > 256) return by_window<kSplit, 512>(q, k_cache, v_cache, block_tables, q_positions,
+                                             out, B, W, H, D, bs, MB, C, cta_cols, bt_held,
+                                             scale, stream);
+  return by_window<kSplit, 256>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D,
+                                bs, MB, C, cta_cols, bt_held, scale, stream);
 }
 
 }  // namespace

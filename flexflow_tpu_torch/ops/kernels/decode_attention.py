@@ -48,7 +48,7 @@ import torch
 NEG_INF = -1e30
 WINDOW_TILE = 32  # queries a kernel block takes; a wider window launches tiles of them
 MAX_GRID_Z = 65535  # (sequence, query tile) pairs a launch can hold
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 512  # the kernel's widest instance (kMaxD in csrc/paged_attention.cu)
 MAX_CLUSTER = 8  # the portable thread-block cluster size the kernels launch
 
 # launches of each CUDA kernel in this process (plain integers; a caller

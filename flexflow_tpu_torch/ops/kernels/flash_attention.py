@@ -28,6 +28,17 @@ Causal attention masks ``q_pos >= k_pos`` (top-left), as the TPU kernel
 does; it agrees with ``reference_attention``'s bottom-right mask only
 when Sq == Sk, so causal attention with Sq != Sk raises here.
 
+Types, as the TPU kernels: float32 or bfloat16 q, k, v (and dO) in, the
+arithmetic in float32, o, dq, dk and dv out in the inputs' dtype, the
+logsumexp and delta in float32. Each kernel has a float32 and a bfloat16
+form (``ff_flash_*_f32`` / ``ff_flash_*_bf16``); another dtype raises.
+
+Head dims: q and k share one (Dk), v may have its own (Dv); o and dv take
+Dv. The kernels take one head dim, up to :data:`MAX_HEAD_DIM`: for
+Dv != Dk :func:`flash_attention` zero-pads the narrower of (q, k) or v to
+the wider, which adds exact zeros to every product, and slices the
+outputs back (the scale stays Dk's).
+
 Each kernel launch adds one to its count in :data:`LAUNCHES`.
 """
 from __future__ import annotations
@@ -35,14 +46,20 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 512  # the CUDA-core kernels' widest instance (16 columns of 32)
 PLAIN_BLOCK_K = 64  # key rows per step of the plain forward's online softmax
 
 # launches of each CUDA kernel in this process (plain integers; a caller
 # resets them with reset_launch_counts() before the run it measures)
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES: Dict[str, int] = {
+    f"{kernel}{form}": 0
+    for form in ("", "_bf16") for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+}
+# the kernels' forms by input dtype: (suffix of the C function, of the count)
+_FORMS = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", "_bf16")}
 
 _BACKENDS = ("auto", "plain")
 
@@ -58,10 +75,11 @@ def _check_shapes(q, k, v, causal: bool) -> None:
             f"expected q, k, v as [B, S, H, D]; got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+    if (k.shape != q.shape[:1] + k.shape[1:2] + q.shape[2:]
+            or v.shape[:3] != k.shape[:3]):
         raise ValueError(
-            f"k {tuple(k.shape)} and v {tuple(v.shape)} must match q "
-            f"{tuple(q.shape)} in batch, heads and head_dim"
+            f"k {tuple(k.shape)} must match q {tuple(q.shape)} in batch, heads and "
+            f"head_dim, and v {tuple(v.shape)} k in batch, length and heads"
         )
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(
@@ -87,18 +105,18 @@ def reference_flash_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online-softmax attention over key blocks of ``PLAIN_BLOCK_K`` rows, in
-    fp32 (the TPU ``_fwd_kernel``'s arithmetic). q [B, Sq, H, D], k/v
-    [B, Sk, H, D]. Returns (o [B, Sq, H, D] in q's dtype, lse [B, Sq, H]
-    fp32)."""
+    fp32 (the TPU ``_fwd_kernel``'s arithmetic). q [B, Sq, H, Dk], k
+    [B, Sk, H, Dk], v [B, Sk, H, Dv]. Returns (o [B, Sq, H, Dv] in q's
+    dtype, lse [B, Sq, H] fp32)."""
     _check_shapes(q, k, v, causal)
-    b, sq, h, d = q.shape
+    b, sq, h, _ = q.shape
     sk = k.shape[1]
     qs = q.float().permute(0, 2, 1, 3) * scale  # [B, H, Sq, D]
     kf = k.float().permute(0, 2, 1, 3)
     vf = v.float().permute(0, 2, 1, 3)
     m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32, device=q.device)
     for k0 in range(0, sk, PLAIN_BLOCK_K):
         kb = kf[:, :, k0:k0 + PLAIN_BLOCK_K]
         vb = vf[:, :, k0:k0 + PLAIN_BLOCK_K]
@@ -177,16 +195,25 @@ def reference_flash_backward(
 # ---------------------------------------------------------------------------
 
 
-def _check_kernel_inputs(causal: bool, *tensors: torch.Tensor) -> None:
+def _check_kernel_inputs(causal: bool, *tensors: torch.Tensor) -> Tuple[str, str]:
     """What the CUDA kernels assume, checked before a pointer is passed:
-    one CUDA device, contiguous fp32, B and H within the grid, D <= 256."""
+    one CUDA device, contiguous tensors, q, k, v (and dO) all float32 or
+    all bfloat16 with one head dim, lse and delta float32, B and H within
+    the grid, D <= MAX_HEAD_DIM. Returns the form: (C suffix, count
+    suffix)."""
     q, k, v = tensors[:3]
     _check_shapes(q, k, v, causal)
-    for t in tensors:
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError(f"the kernels take one head dim, got q {q.shape[-1]} and "
+                         f"v {v.shape[-1]} (flash_attention pads them)")
+    if q.dtype not in _FORMS:
+        raise TypeError(f"flash attention kernels take float32 or bfloat16, got {q.dtype}")
+    for i, t in enumerate(tensors):
         if t.device != q.device:
             raise ValueError(f"tensors on {t.device} and {q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash attention kernels take float32, got {t.dtype}")
+        want = q.dtype if i < 4 else torch.float32  # q, k, v, dO; then lse, delta
+        if t.dtype != want:
+            raise TypeError(f"flash attention kernels take {want} here, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("flash attention kernels need contiguous tensors")
     b, sq, h, d = q.shape
@@ -194,6 +221,7 @@ def _check_kernel_inputs(causal: bool, *tensors: torch.Tensor) -> None:
         raise ValueError(f"head_dim {d} outside the kernels' 1..{MAX_HEAD_DIM}")
     if min(sq, k.shape[1]) < 1 or not (1 <= b <= 65535) or not (1 <= h <= 65535):
         raise ValueError(f"shapes {tuple(q.shape)} / {tuple(k.shape)} outside the kernels' grid")
+    return _FORMS[q.dtype]
 
 
 def _raise_on_error(rc: int, name: str) -> None:
@@ -209,17 +237,17 @@ def flash_forward_kernel(q, k, v, causal: bool, scale: float):
     """Launch the forward kernel: returns (o [B,Sq,H,D], lse [B,Sq,H])."""
     from ._build import load_library
 
-    _check_kernel_inputs(causal, q, k, v)
+    fn, count = _check_kernel_inputs(causal, q, k, v)
     lib = load_library()
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
-    rc = lib.ff_flash_fwd_f32(
+    rc = getattr(lib, f"ff_flash_fwd_{fn}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, sq, k.shape[1], h, d, float(scale), int(causal), _stream(q),
     )
-    _raise_on_error(rc, "ff_flash_fwd_f32")
-    LAUNCHES["flash_fwd"] += 1
+    _raise_on_error(rc, f"ff_flash_fwd_{fn}")
+    LAUNCHES["flash_fwd" + count] += 1
     return o, lse
 
 
@@ -227,17 +255,17 @@ def flash_backward_dq_kernel(q, k, v, dout, lse, delta, causal: bool, scale: flo
     """Launch the dQ kernel (gridded over query tiles): returns dq."""
     from ._build import load_library
 
-    _check_kernel_inputs(causal, q, k, v, dout, lse, delta)
+    fn, count = _check_kernel_inputs(causal, q, k, v, dout, lse, delta)
     lib = load_library()
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
-    rc = lib.ff_flash_bwd_dq_f32(
+    rc = getattr(lib, f"ff_flash_bwd_dq_{fn}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b, sq, k.shape[1], h, d, float(scale),
         int(causal), _stream(q),
     )
-    _raise_on_error(rc, "ff_flash_bwd_dq_f32")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _raise_on_error(rc, f"ff_flash_bwd_dq_{fn}")
+    LAUNCHES["flash_bwd_dq" + count] += 1
     return dq
 
 
@@ -245,18 +273,18 @@ def flash_backward_dkv_kernel(q, k, v, dout, lse, delta, causal: bool, scale: fl
     """Launch the dK/dV kernel (gridded over key tiles): returns (dk, dv)."""
     from ._build import load_library
 
-    _check_kernel_inputs(causal, q, k, v, dout, lse, delta)
+    fn, count = _check_kernel_inputs(causal, q, k, v, dout, lse, delta)
     lib = load_library()
     b, sq, h, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = lib.ff_flash_bwd_dkv_f32(
+    rc = getattr(lib, f"ff_flash_bwd_dkv_{fn}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, d,
         float(scale), int(causal), _stream(q),
     )
-    _raise_on_error(rc, "ff_flash_bwd_dkv_f32")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _raise_on_error(rc, f"ff_flash_bwd_dkv_{fn}")
+    LAUNCHES["flash_bwd_dkv" + count] += 1
     return dk, dv
 
 
@@ -302,7 +330,8 @@ def flash_attention(
     scale: Optional[float] = None,
     backend: str = "auto",
 ) -> torch.Tensor:
-    """Flash attention over [B, S, H, D] tensors (differentiable).
+    """Flash attention over [B, S, H, D] tensors (differentiable); v may
+    have its own head dim, which the output takes.
 
     ``backend="auto"``: CUDA tensors launch the CUDA kernels (and raise on
     shapes or types they do not take), CPU tensors take the plain
@@ -316,6 +345,15 @@ def flash_attention(
         use_kernel = False
     elif q.device.type == "cuda":
         use_kernel = True
+        dk, dv = q.shape[-1], v.shape[-1]
+        if dk != dv:
+            # one head dim for the kernels: zero columns add exact zeros to
+            # every product; autograd pads dO and slices the gradients
+            _check_shapes(q, k, v, causal)
+            d = max(dk, dv)
+            q, k, v = (F.pad(t, (0, d - t.shape[-1])).contiguous() for t in (q, k, v))
+            o = FlashAttention.apply(q, k, v, bool(causal), float(scale), True)
+            return o[..., :dv]
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     else:
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")

@@ -3,6 +3,13 @@
 ``y = x @ W + b`` with x[..., in_dim] and W[in_dim, out_dim]. The matrix
 product is a plain ``torch.matmul`` (cuBLAS on the card), as the JAX
 package leaves it to XLA: no hand-written GEMM.
+
+Types as the JAX lowering's ``jnp.dot(x, W, preferred_element_type=
+float32).astype(dtype)``: x and W are promoted to their common type (a
+bfloat16 layer fed float32 activations multiplies in float32), the
+product accumulates in float32 (cuBLAS's bfloat16 GEMMs and the CPU's
+accumulate in float32) and is rounded once to the layer's dtype; the
+bias and the activation then run in that dtype.
 """
 from __future__ import annotations
 
@@ -15,6 +22,15 @@ from ..core.tensor import TensorSpec
 from ..core.types import ActiMode, DataType, OpType
 from .base import OpDef, WeightSpec, register_op
 from .elementwise import apply_activation
+
+
+def promoted(*tensors: torch.Tensor):
+    """The tensors in their common type, as JAX promotes the operands of
+    a dot or an einsum (PyTorch's matmul refuses mixed dtypes)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in tensors]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +65,7 @@ class LinearOp(OpDef):
     @staticmethod
     def lower(params: LinearParams, inputs, weights, ctx):
         (x,) = inputs
-        y = torch.matmul(x, weights["kernel"]).to(params.dtype.torch)
+        y = torch.matmul(*promoted(x, weights["kernel"])).to(params.dtype.torch)
         if params.use_bias:
             y = y + weights["bias"]
         return [apply_activation(params.activation, y)]

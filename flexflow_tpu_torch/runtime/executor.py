@@ -25,6 +25,7 @@ from ..core.types import LossType, MetricsType, OpType
 from ..ops.base import LowerCtx, get_op_def
 from ..parallel.propagation import infer_all_specs
 from . import initializers, losses, metrics as metrics_mod
+from .convert import to_tensor
 from .optimizers import Optimizer, Params
 
 
@@ -98,7 +99,9 @@ class Executor:
         return [values[(g, i)] for g, i in self.outputs]
 
     def _as_inputs(self, inputs: Sequence) -> List[torch.Tensor]:
-        return [torch.as_tensor(x, device=self.device) for x in inputs]
+        """Inputs on the device in their own dtypes (no cast: a bfloat16
+        model fed float32 inputs promotes where the JAX package's does)."""
+        return [to_tensor(x, self.device) for x in inputs]
 
     # ---------------------------------------------------------------- API
     def train_batch(self, inputs: Sequence, label) -> Dict[str, torch.Tensor]:
@@ -107,7 +110,7 @@ class Executor:
         if self.optimizer is None or self.loss_type is None:
             raise RuntimeError("compile() with an optimizer and a loss to train")
         inputs = self._as_inputs(inputs)
-        label = torch.as_tensor(label, device=self.device)
+        label = to_tensor(label, self.device)
         leaves = [p for g in self.params.values() for p in g.values()]
         for p in leaves:
             p.grad = None
@@ -130,7 +133,7 @@ class Executor:
     @torch.no_grad()
     def eval_batch(self, inputs: Sequence, label) -> Dict[str, torch.Tensor]:
         inputs = self._as_inputs(inputs)
-        label = torch.as_tensor(label, device=self.device)
+        label = to_tensor(label, self.device)
         final = self._forward_impl(self.params, inputs, training=False)[-1]
         mets = metrics_mod.compute_metrics(self.metric_types, final, label)
         if self.loss_type is not None:

@@ -93,6 +93,16 @@ SITES = MappingProxyType({
         "(value: ('decode', n_states)); an error discards the frontier and "
         "re-runs the step sequentially under the supervisor"
     ),
+    GENERATION_PREFIX_LOOKUP: (
+        "before each radix prefix-index lookup at admission (value: prompt "
+        "tokens); an error degrades to a cache miss — full recompute, "
+        "byte-exact output"
+    ),
+    GENERATION_KV_OFFLOAD: (
+        "around host-tier KV block swaps (value: ('in'|'out', n_blocks)); an "
+        "error on swap-in falls back to recompute, on swap-out drops the "
+        "block instead of offloading"
+    ),
     GENERATION_MASK_BUILD: (
         "before a response_format grammar compiles into the per-model "
         "cache (value: the canonical spec key); an error fails the ONE "

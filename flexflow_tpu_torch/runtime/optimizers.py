@@ -6,12 +6,26 @@ The arithmetic is the JAX package's, but the update runs IN PLACE under
 optimizer's moment tensors) instead of returning new ones, so a step
 holds no second copy of the model. ``params``/``grads`` are the
 executor's nested ``{node key: {weight name: tensor}}`` dictionaries.
+
+Types follow JAX's promotion, so a bfloat16 parameter gets the JAX
+update's bits: ``lr`` (and Adam's ``alpha_t``) is a strong float32
+scalar in the JAX optimizers, so ``p - lr * g`` runs in float32 and is
+rounded once to the parameter's dtype; the other constants (momentum,
+betas, weight decay, epsilon) are weak Python scalars there, which take
+the dtype of the tensor they meet, so they are rounded to it here
+(:func:`_weak`) and the moment arithmetic runs, op by op, in the
+parameter's dtype. That is ``apply`` of the JAX optimizers bit for bit;
+inside a ``jax.jit`` XLA may keep a fused chain's intermediates in
+float32 instead, which moves some bfloat16 Adam updates by one unit in
+the last place.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Iterator, Tuple
 
+import numpy as np
 import torch
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -25,6 +39,23 @@ def _leaves(tree: Params) -> Iterator[Tuple[str, str, torch.Tensor]]:
 
 def _zeros_like(tree: Params) -> Params:
     return {k: {n: torch.zeros_like(t) for n, t in g.items()} for k, g in tree.items()}
+
+
+def _weak(x: float, like: torch.Tensor) -> float:
+    """``x`` as a weak-typed JAX scalar meeting ``like``: rounded to its
+    dtype (a no-op for float32, where PyTorch rounds the scalar alike)."""
+    return _rounded(float(x), like.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def _descend(p: torch.Tensor, step: float, direction: torch.Tensor) -> None:
+    """``p = (p - step * direction).astype(p.dtype)`` with ``step`` a
+    float32 scalar: in float32, rounded once to p's dtype, in place."""
+    p.copy_(p.float() - step * direction.float())
 
 
 class Optimizer:
@@ -54,14 +85,15 @@ class SGDOptimizer(Optimizer):
 
     @torch.no_grad()
     def apply(self, params: Params, grads: Params, opt_state):
-        lr = opt_state["lr"]
+        lr = float(np.float32(opt_state["lr"]))
         for key, name, p in _leaves(params):
-            g = grads[key][name] + self.weight_decay * p
+            g = grads[key][name] + _weak(self.weight_decay, p) * p
             if self.momentum > 0.0:
+                mom = _weak(self.momentum, p)
                 v = opt_state["v"][key][name]
-                v.mul_(self.momentum).add_(g)
-                g = g + self.momentum * v if self.nesterov else v
-            p.sub_(lr * g)
+                v.mul_(mom).add_(g)
+                g = g + mom * v if self.nesterov else v
+            _descend(p, lr, g)
         opt_state["step"] += 1
         return params, opt_state
 
@@ -84,11 +116,17 @@ class AdamOptimizer(Optimizer):
     @torch.no_grad()
     def apply(self, params: Params, grads: Params, opt_state):
         t = opt_state["step"] + 1
-        alpha_t = opt_state["lr"] * (1.0 - self.beta2**t) ** 0.5 / (1.0 - self.beta1**t)
+        # float32 throughout, as the JAX optimizer computes it from its
+        # float32 lr and step
+        one, tf = np.float32(1.0), np.float32(t)
+        alpha_t = float(np.float32(opt_state["lr"]) * np.sqrt(one - np.float32(self.beta2) ** tf)
+                        / (one - np.float32(self.beta1) ** tf))
         for key, name, p in _leaves(params):
-            g = grads[key][name] + self.weight_decay * p
-            m = opt_state["m"][key][name].mul_(self.beta1).add_((1 - self.beta1) * g)
-            v = opt_state["v"][key][name].mul_(self.beta2).add_((1 - self.beta2) * g.square())
-            p.sub_(alpha_t * m / (v.sqrt() + self.epsilon))
+            g = grads[key][name] + _weak(self.weight_decay, p) * p
+            m = opt_state["m"][key][name].mul_(_weak(self.beta1, p)).add_(
+                _weak(1 - self.beta1, p) * g)
+            v = opt_state["v"][key][name].mul_(_weak(self.beta2, p)).add_(
+                _weak(1 - self.beta2, p) * g.square())
+            _descend(p, 1.0, alpha_t * m.float() / (v.sqrt() + _weak(self.epsilon, p)).float())
         opt_state["step"] = t
         return params, opt_state

@@ -30,22 +30,22 @@ SPLIT_INT = """  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 SPLIT_CVT = """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
   const float rest = x - __uint_as_float(big);
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));"""
-B_NK = """  split_tf32(p[g * ld + t], f.big[0], f.small[0]);
-  split_tf32(p[g * ld + t + 4], f.big[1], f.small[1]);"""
-B_KN = """  split_tf32(p[2 * t * ld + g], f.big[0], f.small[0]);
-  split_tf32(p[(2 * t + 1) * ld + g], f.big[1], f.small[1]);"""
+B_NK = """  split_in(p[g * ld + t], 1.f, f.big[0], f.small[0]);
+  split_in(p[g * ld + t + 4], 1.f, f.big[1], f.small[1]);"""
+B_KN = """  split_in(p[2 * t * ld + g], 1.f, f.big[0], f.small[0]);
+  split_in(p[(2 * t + 1) * ld + g], 1.f, f.big[1], f.small[1]);"""
 
 DQ_A_FROM_SMEM = """      FragA qa, da;
-      load_a(qa, my_q + 8 * d8, kLD, scale);
+      load_a(qa, my_q + 8 * d8, kLD, kE ? 1.f : scale);
       load_a(da, my_do + 8 * d8, kLD, 1.f);"""
 DQ_A_FROM_REGS = """      const FragA& qa = q_frag[d8];
       const FragA& da = do_frag[d8];"""
-DQ_ROWS = """  const float* my_do = dos + warp * 16 * kLD;
+DQ_ROWS = """  const T* my_do = dos + warp * 16 * kLD;
 """
 DQ_ROWS_SPLIT_ONCE = DQ_ROWS + """  FragA q_frag[kNT], do_frag[kNT];  // split once, held for every key tile
 #pragma unroll
   for (int d8 = 0; d8 < kNT; ++d8) {
-    load_a(q_frag[d8], my_q + 8 * d8, kLD, scale);
+    load_a(q_frag[d8], my_q + 8 * d8, kLD, kE ? 1.f : scale);
     load_a(do_frag[d8], my_do + 8 * d8, kLD, 1.f);
   }
 """
@@ -60,16 +60,17 @@ VARIANTS = {
     "dq_a_in_registers": [(DQ_ROWS, DQ_ROWS_SPLIT_ONCE), (DQ_A_FROM_SMEM, DQ_A_FROM_REGS)],
     "split_by_cvt": [(SPLIT_INT, SPLIT_CVT)],
     "probe_no_b_split": [
-        (B_NK, B_NK.replace("split_tf32(p[g * ld + t], f.big[0], f.small[0]);",
+        (B_NK, B_NK.replace("split_in(p[g * ld + t], 1.f, f.big[0], f.small[0]);",
                             "f.big[0] = f.small[0] = __float_as_uint(p[g * ld + t]);")
-         .replace("split_tf32(p[g * ld + t + 4], f.big[1], f.small[1]);",
+         .replace("split_in(p[g * ld + t + 4], 1.f, f.big[1], f.small[1]);",
                   "f.big[1] = f.small[1] = __float_as_uint(p[g * ld + t + 4]);")),
-        (B_KN, B_KN.replace("split_tf32(p[2 * t * ld + g], f.big[0], f.small[0]);",
+        (B_KN, B_KN.replace("split_in(p[2 * t * ld + g], 1.f, f.big[0], f.small[0]);",
                             "f.big[0] = f.small[0] = __float_as_uint(p[2 * t * ld + g]);")
-         .replace("split_tf32(p[(2 * t + 1) * ld + g], f.big[1], f.small[1]);",
+         .replace("split_in(p[(2 * t + 1) * ld + g], 1.f, f.big[1], f.small[1]);",
                   "f.big[1] = f.small[1] = __float_as_uint(p[(2 * t + 1) * ld + g]);")),
     ],
-    "probe_one_tf32": [("  mma_tf32(c, a.big, b.small);\n  mma_tf32(c, a.small, b.big);\n", "")],
+    "probe_one_tf32": [("  if constexpr (!kExactB) mma_tf32(c, a.big, b.small);\n"
+                        "  if constexpr (!kExactA) mma_tf32(c, a.small, b.big);\n", "")],
 }
 
 MMA_PEAK_CU = r"""
@@ -184,9 +185,9 @@ def variants() -> int:
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
-        print(f"{name}: registers fwd<64> {_registers(log, 'flash_fwd_tc_kernelILi64')}, "
-              f"dq<64> {_registers(log, 'flash_bwd_dq_tc_kernelILi64')}, "
-              f"dkv<64> {_registers(log, 'flash_bwd_dkv_tc_kernelILi64')}")
+        print(f"{name}: registers fwd<64> {_registers(log, 'flash_fwd_tc_kernelILi64EfE')}, "
+              f"dq<64> {_registers(log, 'flash_bwd_dq_tc_kernelILi64EfE')}, "
+              f"dkv<64> {_registers(log, 'flash_bwd_dkv_tc_kernelILi64EfE')}")
 
     def run_fwd(lib, q, k, v, causal, scale):
         b, sq, h, d = q.shape

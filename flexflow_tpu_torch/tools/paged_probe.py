@@ -174,7 +174,7 @@ SPLIT_VARIANTS = {
     "cluster16": [("constexpr int kMaxCluster = 8;", "constexpr int kMaxCluster = 16;"),
                   ("    if (e != cudaSuccess) return static_cast<int>(e);\n    ready = true;\n",
                    "    if (e != cudaSuccess) return static_cast<int>(e);\n"
-                   "    cudaFuncSetAttribute(paged_append_kernel<kMaxW, kSplit>,\n"
+                   "    cudaFuncSetAttribute(paged_append_kernel<kMaxW, kSplit, kMaxD>,\n"
                    "                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
                    "    ready = true;\n")],
     # rounds of at most 3 tiles (a quarter of an SM's shared memory, as
@@ -198,7 +198,7 @@ extern "C" int ff_probe_max_active_clusters(int W, int D, int MB, int bs, int H,
   const int c = cluster_size(MB, bs);
   int stages = kMaxStages;
   while (stages > 1 && smem_bytes(W, D, MB, stages) > kSmemLimit / 4) --stages;
-  cudaFuncSetAttribute(paged_append_kernel<1, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(paged_append_kernel<1, false, 256>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(kSmemLimit));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c, H, B);
@@ -212,7 +212,7 @@ extern "C" int ff_probe_max_active_clusters(int W, int D, int MB, int bs, int H,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = -1;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, paged_append_kernel<1, false>, &cfg);
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, paged_append_kernel<1, false, 256>, &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 """

@@ -68,7 +68,8 @@ def test_cuda_kernels_match_plain_versions(cuda, sq, sk, d, causal):
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         (fa.flash_attention(*leaves, causal=causal, backend=backend) * do).sum().backward()
         grads.append([t.grad for t in leaves])
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                           "flash_fwd_bf16": 0, "flash_bwd_dq_bf16": 0, "flash_bwd_dkv_bf16": 0}
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
@@ -316,13 +317,181 @@ def test_cuda_paged_split_replays_in_a_cuda_graph(cuda):
                                    atol=1e-4, rtol=1e-4)
 
 
+def _bf16_close(name, got, want):
+    """bf16 outputs against the plain version's: within one bf16 unit in
+    the last place of the plain value, plus atol 1e-3 (the kernels sum
+    in another order, so a value near a rounding boundary may round to
+    the neighbour)."""
+    assert got.dtype == want.dtype == torch.bfloat16, name
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    bad = (g - w).abs() > ulp + 1e-3
+    assert not bad.any(), f"{name}: {int(bad.sum())} values past 1 ulp + 1e-3, " \
+        f"max abs err {float((g - w).abs().max()):.3e}"
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (128, 128, 64, False), (512, 512, 64, True), (65, 65, 128, True), (40, 70, 96, False),
+    # D % 8 != 0 (element copies), one row, D = 32, the CUDA-core forms
+    (70, 70, 33, False), (1, 1, 64, False), (129, 129, 32, True), (65, 65, 256, True),
+    (64, 64, 512, False),
+])
+def test_cuda_bf16_kernels_match_plain_versions(cuda, sq, sk, d, causal):
+    """The bf16 forms of the three flash kernels against the plain
+    versions on the same bf16 inputs: outputs within 1 bf16 ulp + 1e-3,
+    the logsumexp (fp32) within 1e-4."""
+    gen = torch.Generator().manual_seed(sq + sk + d + 7)
+    q, k, v, do = (torch.randn(2, s, 3, d, generator=gen).to(cuda, torch.bfloat16)
+                   for s in (sq, sk, sk, sq))
+    scale = d ** -0.5
+    fa.reset_launch_counts()
+    o, lse = fa.flash_forward_kernel(q, k, v, causal, scale)
+    po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
+    _bf16_close("o", o, po)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-4)
+    delta = fa.flash_delta(do, po)
+    dq = fa.flash_backward_dq_kernel(q, k, v, do, plse, delta, causal, scale)
+    dk, dv = fa.flash_backward_dkv_kernel(q, k, v, do, plse, delta, causal, scale)
+    pdq, pdk, pdv = fa.reference_flash_backward(q, k, v, do, plse, delta, causal, scale)
+    for name, got, want in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+        _bf16_close(name, got, want)
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                           "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_value_head_dim_other_than_key_head_dim(cuda, dtype):
+    """multihead attention with kdim=8, vdim=16 (and the reverse): the
+    kernels run on zero-padded head dims and match the plain versions,
+    forward and gradients."""
+    for dk, dv in ((8, 16), (64, 24)):
+        gen = torch.Generator().manual_seed(dk * 100 + dv)
+        base = [torch.randn(2, 8, 2, d, generator=gen).to(cuda, dtype) for d in (dk, dk, dv)]
+        dout = torch.randn(2, 8, 2, dv, generator=gen).to(cuda, dtype)
+        outs = {}
+        for backend in ("auto", "plain"):
+            q, k, v = (t.clone().requires_grad_(True) for t in base)
+            fa.reset_launch_counts()
+            o = fa.flash_attention(q, k, v, backend=backend)
+            o.backward(dout)
+            launched = sum(fa.LAUNCHES.values())
+            assert launched == (3 if backend == "auto" else 0)
+            outs[backend] = (o.detach(), q.grad, k.grad, v.grad)
+        assert outs["auto"][0].shape == (2, 8, 2, dv) and outs["auto"][3].shape == base[2].shape
+        for name, got, want in zip(("o", "dq", "dk", "dv"), outs["auto"], outs["plain"]):
+            if dtype == torch.bfloat16:
+                _bf16_close(name, got, want)
+            else:
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_model_with_value_head_dim_other_than_key_head_dim(cuda):
+    """multihead_attention(t, t, t, 32, 2, kdim=8, vdim=16) through
+    FFModel on the card: predict gives [2, 8, 32], and predict and three
+    SGD steps through the kernels equal those through the plain
+    attention from the same weights (fp32, atol 1e-4 + rtol 1e-4; the
+    parameters within 1e-5)."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    m = FFModel(FFConfig(batch_size=2), device=cuda)
+    t = m.create_tensor((2, 8, 32))
+    m.multihead_attention(t, t, t, 32, 2, kdim=8, vdim=16, name="attn")
+    m.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+    ex = m.executor
+    gen = torch.Generator().manual_seed(8)
+    x, y = (torch.randn(4, 2, 8, 32, generator=gen).to(cuda) for _ in range(2))
+    snap = {k: {n: p.detach().clone() for n, p in g.items()} for k, g in ex.params.items()}
+    runs = {}
+    for backend in ("auto", "plain"):
+        with torch.no_grad():
+            for k, g in ex.params.items():
+                for n, p in g.items():
+                    p.copy_(snap[k][n])
+        ex.backend = backend
+        fa.reset_launch_counts()
+        out = m.predict(x[0])
+        losses = [float(ex.train_batch([x[i]], y[i])["loss"]) for i in range(1, 4)]
+        assert sum(fa.LAUNCHES.values()) == (10 if backend == "auto" else 0)
+        runs[backend] = (out, losses, {k: {n: p.detach().clone() for n, p in g.items()}
+                                       for k, g in ex.params.items()})
+    (ok, lk, pk), (op, lp, pp) = runs["auto"], runs["plain"]
+    assert ok.shape == (2, 8, 32)
+    torch.testing.assert_close(ok, op, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(lk, lp, rtol=1e-5)
+    for k in pk:
+        for n in pk[k]:
+            torch.testing.assert_close(pk[k][n], pp[k][n], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("sq,d,causal", [(96, 512, False), (65, 512, True), (40, 300, False)])
+def test_cuda_flash_kernels_past_head_dim_256(cuda, sq, d, causal):
+    """fp32 forward, dQ and dK/dV at D = 512 (and a ragged D between 256
+    and 512) against the plain versions."""
+    gen = torch.Generator().manual_seed(sq + d)
+    q, k, v, do = (torch.randn(2, sq, 2, d, generator=gen).to(cuda) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_forward_kernel(q, k, v, causal, scale)
+    po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
+    torch.testing.assert_close(o, po, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-4)
+    delta = fa.flash_delta(do, po)
+    dq = fa.flash_backward_dq_kernel(q, k, v, do, plse, delta, causal, scale)
+    dk, dv = fa.flash_backward_dkv_kernel(q, k, v, do, plse, delta, causal, scale)
+    for got, want in zip((dq, dk, dv), fa.reference_flash_backward(q, k, v, do, plse, delta,
+                                                                   causal, scale)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("w", [1, 5, 40])
+def test_cuda_paged_kernel_past_head_dim_256(cuda, w):
+    """The paged append kernel at D = 512 (and D = 300) against its plain
+    version, single-pass and split-KV."""
+    for d in (512, 300):
+        qpos = np.asarray([[60 + i for i in range(w)], [200 + i for i in range(w)]])
+        args = _paged_case(cuda, qpos, 2, d, 16, 20, seed=w + d)
+        _check_paged(args)
+        _check_split(args, 4)
+
+
+def test_cuda_engine_with_head_dim_512_streams_as_plain_attention(cuda):
+    """A GenerationEngine at hidden 1024 with 2 heads (head dim 512): its
+    greedy streams (captured graphs, the paged kernel) equal a greedy
+    loop over the full forward with plain attention."""
+    from flexflow_tpu_torch.generation.decoder import forward_full
+
+    cfg = TransformerConfig(num_layers=2, hidden_size=1024, num_heads=2, ff_size=256,
+                            seq_length=64, vocab_size=97, causal=True)
+    params = init_decoder_params(torch.Generator().manual_seed(5), cfg)
+    engine = GenerationEngine(params, cfg, max_batch_slots=2, block_size=8,
+                              prompt_buckets=(8, 16, 32), device=cuda)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6], list(range(10, 30))]
+    da.reset_launch_counts()
+    got = engine.generate(prompts, SamplingParams(max_new_tokens=12))
+    assert da.LAUNCHES["paged_append"] + da.LAUNCHES["paged_append_split"] > 0
+    for prompt, stream in zip(prompts, got):
+        seq = list(prompt)
+        for _ in range(12):
+            with torch.no_grad():
+                logits = forward_full(engine.params, torch.tensor([seq], device=cuda))
+            seq.append(int(logits[0, -1].argmax()))
+        assert stream == seq[len(prompt):]
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
-    q = torch.randn(1, 16, 1, 300, device=cuda)
+    q = torch.randn(1, 16, 1, 600, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q)
     q = torch.randn(1, 16, 1, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
+    # the paged kernel has no bf16 form: a bf16 input raises, no fallback
+    args = list(_paged_case(cuda, np.asarray([[10]]), 2, 64, 16, 4, seed=3))
+    args[:3] = [t.bfloat16() for t in args[:3]]
+    with pytest.raises(TypeError):
+        da.paged_append_attention(*args)
 
 
 # ---------------------------------------------------------------------------

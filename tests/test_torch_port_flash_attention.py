@@ -127,7 +127,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     out.sum().backward()
     plain = attention_core(q.detach(), k.detach(), v.detach(), backend="plain")
     assert torch.equal(out.detach(), plain)
-    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert set(tfa.LAUNCHES) == {f"{k}{form}" for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                                 for form in ("", "_bf16")}
+    assert not any(tfa.LAUNCHES.values())
 
 
 def test_kernel_input_checks():
@@ -139,7 +141,16 @@ def test_kernel_input_checks():
         tfa._check_kernel_inputs(False, q.double(), k, v)
     with pytest.raises(ValueError, match="contiguous"):
         tfa._check_kernel_inputs(False, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    wide = torch.zeros(1, 4, 1, 300)
+    assert tfa._check_kernel_inputs(False, q.bfloat16(), k.bfloat16(), v.bfloat16()) == (
+        "bf16", "_bf16")
+    with pytest.raises(TypeError):  # one dtype for q, k and v
+        tfa._check_kernel_inputs(False, q.bfloat16(), k, v)
+    with pytest.raises(TypeError):  # lse and delta stay float32
+        tfa._check_kernel_inputs(False, *(t.bfloat16() for t in (q, k, v, q, q[..., 0], q[..., 0])))
+    with pytest.raises(ValueError, match="one head dim"):  # flash_attention pads Dv != Dk
+        tfa._check_kernel_inputs(False, q, k, v[..., :8].contiguous())
+    tfa._check_kernel_inputs(False, *(torch.zeros(1, 4, 1, 512),) * 3)
+    wide = torch.zeros(1, 4, 1, 600)
     with pytest.raises(ValueError, match="head_dim"):
         tfa._check_kernel_inputs(False, wide, wide, wide)
     with pytest.raises(ValueError, match="Sq == Sk"):

@@ -234,3 +234,39 @@ def test_optimizers_match_jax_over_three_updates(kind):
         for n, t in g.items():
             np.testing.assert_allclose(t.numpy(), np.asarray(jp[k][n]), rtol=1e-6, atol=1e-7)
     assert ts["step"] == 3
+
+
+def test_value_head_dim_other_than_key_head_dim_matches_jax():
+    """multihead_attention(t, t, t, 32, 2, kdim=8, vdim=16): v keeps its
+    own head dim (the flash arithmetic contracts over it, as JAX's
+    reference_attention does). The output is [2, 8, 32]; predict and
+    three SGD steps match JAX at this file's fp32 gates."""
+    from flexflow_tpu.model import FFModel as JFFModel
+
+    models = []
+    for cls, cfg, kw in ((JFFModel, JFFConfig(batch_size=2, workers_per_node=1), {}),
+                         (FFModel, FFConfig(batch_size=2), {"device": "cpu"})):
+        m = cls(cfg, **kw)
+        t = m.create_tensor((2, 8, 32), name="x")
+        m.multihead_attention(t, t, t, 32, 2, kdim=8, vdim=16, name="attn")
+        models.append(m)
+    jm, tm = models
+    jm.compile(optimizer=JSGDOptimizer(lr=LR), loss_type=JLossType.MEAN_SQUARED_ERROR)
+    tm.compile(optimizer=SGDOptimizer(lr=LR), loss_type=LossType.MEAN_SQUARED_ERROR)
+    tm.set_weights(params_from_numpy(_named(jm)))
+    assert tm.get_weight("attn", "wv").shape == (32, 2, 16)
+    rs = np.random.RandomState(4)
+    x, y = rs.randn(4, 2, 8, 32).astype(np.float32), rs.randn(4, 2, 8, 32).astype(np.float32)
+    want = np.asarray(jm.predict(jnp.asarray(x[0])))
+    got = tm.predict(x[0]).numpy()
+    assert got.shape == want.shape == (2, 8, 32)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    for step in range(1, 4):
+        jmets = jm.executor.train_batch([jnp.asarray(x[step])], jnp.asarray(y[step]),
+                                        jax.random.key(step))
+        tmets = tm.executor.train_batch([x[step]], y[step])
+        np.testing.assert_allclose(float(tmets["loss"]), float(jmets["loss"]), rtol=1e-5)
+    for layer, ws in _named(jm).items():
+        for name, arr in ws.items():
+            np.testing.assert_allclose(tm.get_weight(layer, name), arr, atol=1e-5, rtol=0,
+                                       err_msg=f"{layer}.{name}")

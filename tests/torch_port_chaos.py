@@ -50,6 +50,13 @@ RECOVERY_FIELDS = ("recoveries", "step_retries", "replayed_tokens", "quarantined
 # the scheduler's constrained-decoding counters (the grammar cache's live
 # on the cache's own stats object)
 CONSTRAINED_FIELDS = ("masked_steps", "dead_end_failures")
+# PrefixCache.snapshot(): the cumulative counters (a reused JAX engine
+# carries its earlier runs' in them, so a run counts their growth) and
+# the gauges of the index at the end of the run
+PREFIX_TOTALS = ("lookups", "hits", "tokens_reused_total", "blocks_reused_total",
+                 "cow_copies_total", "swaps_in_total", "swaps_out_total", "swap_in_failures",
+                 "recompute_fallbacks", "registered_total", "evicted_total")
+PREFIX_GAUGES = ("enabled", "resident_blocks", "offloaded_blocks", "shared_blocks", "host_bytes")
 
 
 class Side:
@@ -147,6 +154,7 @@ def run(side: Side, prompts, sampling, *, overlap, spec=None, plan=None, sched_k
     ``submit(side, sched, i, prompt, sampling)`` replaces the plain
     submit. Returns (outcomes, counters, engine, scheduler)."""
     eng, r0 = engine(side, **engine_kw)
+    prefix0 = eng.prefix_cache.snapshot()
     clock = FakeClock()
     kw = {"recovery": side.no_sleep(), "clock": clock}
     kw.update(sched_kw(side, clock) if sched_kw else {})
@@ -174,11 +182,17 @@ def run(side: Side, prompts, sampling, *, overlap, spec=None, plan=None, sched_k
         "pipe_drains": dict(sched.pipe_drains),
         "pipe_discards": sched.pipe_discards,
         "preemptions": sched.preemptions,
+        "prefix": _prefix_counters(prefix0, eng.prefix_cache.snapshot()),
         # the sites the port fires (the overload admission site included)
         "sites": {k: v for k, v in (fp.site_counters() if fp is not None else {}).items()
                   if k in faults.SITES},
     }
     return [outcome(h) for h in handles], counters, eng, sched
+
+
+def _prefix_counters(before, after):
+    return {**{k: after[k] - before[k] for k in PREFIX_TOTALS},
+            **{k: after[k] for k in PREFIX_GAUGES}}
 
 
 def both(prompts, sampling, *, overlap, **kw):
