@@ -13,8 +13,10 @@ prints no result line):
    and dK/dV tensor-core kernels, and the CUDA-core dQ only for head
    dims above 128.
 2. kernels: each paged attention kernel against its plain PyTorch
-   version on the card, fp32, atol 1e-4 + rtol 1e-4 (the kernel sums in
-   another order), at the serving path's shapes (with the cluster size
+   version on the card, in each form (an fp32, a bf16 and an fp16 cache
+   under fp32 queries: both sides widen K and V exactly and compute in
+   fp32), atol 1e-4 + rtol 1e-4 (the kernel sums in another order), at
+   the serving path's shapes (with the cluster size
    each launched), at windows past the kernel's 32-query tile (a suffix
    prefill's W = 33, 64, 256 and 1024 from positions 0 and 512, then
    padding queries; 40- and 41-query verify windows over 4 slots; the split
@@ -26,7 +28,9 @@ prints no result line):
    (CUDA events around a replayed CUDA graph of the calls) of the
    kernel, the plain version and one PyTorch library call over the same
    inputs (scaled_dot_product_attention on the gathered K/V, a yardstick
-   the port never calls), beside the card's bound.
+   the port never calls; for a 2-byte cache in that dtype with q cast to
+   it, a lower-precision function timed for speed only), beside the
+   card's bound (K and V at their element size).
 3. serving: a GPT-2-small-width decoder (12 x 768, 12 heads, vocab
    50257, 1024 positions, random weights from --seed, fp32) behind a
    4-slot engine and the continuous-batching scheduler (its default: the
@@ -40,24 +44,37 @@ prints no result line):
    identical, the launch counters must show one paged kernel launch per
    layer per decode step, and one decode step's logits must agree with
    the plain attention path within 1e-3.
-4. long context: the same model in a 1-slot engine with a ~900-token
+4. kv dtype: the serving cell over a bf16 KV cache of 257 blocks (half
+   the fp32 cell's bytes), graph and eager engines from zeroed caches:
+   identical streams, bit-identical caches and last logits, one bf16
+   kernel launch per layer per decode step and no fp32 one; greedy
+   streams equal to plain attention over the same cache dtype (tokens
+   equal to the fp32 cache's run printed, not gated); a decode step's
+   logits vs plain attention within 1e-3; a decode step's device time,
+   fp32 and bf16 engines in turns; greedy and k = 4 speculative streams
+   equal, with decode and verify logits vs plain; the long-context
+   request (split-KV, S = 8); the host tier (three 512-token prefixes
+   cycled twice through 80 blocks: swaps out and in, streams equal to the
+   uncached engine's). Then fp16: 4 requests with speculation (decode
+   and verify steps) and a long context, with the logits gates.
+5. long context: the same model in a 1-slot engine with a ~900-token
    prompt, where the split-KV (flash-decoding) kernel is selected (one
    launch per layer per decode step, combined on-chip); graph and eager
    engines as in 3.
-5. step graphs: prefill (four buckets), decode and verify steps replayed
+6. step graphs: prefill (four buckets), decode and verify steps replayed
    from their graphs against the same steps run eagerly, at GPT-2-small
    width: tokens, logits and the KV cache bit-identical, one capture per
    signature, num_layers paged launches counted per replay; and the
    device time of the threefry Gumbel draws a decode step ([4, V]) and a
    verify step (2 x [4, 5, V]) make.
-6. speculation: 4 slots, k = 4, the n-gram drafter, 4 prompts of
+7. speculation: 4 slots, k = 4, the n-gram drafter, 4 prompts of
    repeated segments, 48 new greedy tokens each: plain, then speculative
    through the graph engine and through the eager engine. The greedy
    streams must equal the plain ones, decode and verify logits must agree
    with the plain attention path within 1e-3, and the paged launches must
    be num_layers x (decode + verify steps). Reports the verify step ms,
    the acceptance rate and the tokens per verify step.
-7. prefix cache: the same model behind 4 slots with the cross-request
+8. prefix cache: the same model behind 4 slots with the cross-request
    prefix cache on and off, on graph and on eager steps: 8 requests
    sharing a 512-token system prompt (suffixes of 20-480 tokens, and one
    exact repeat, whose boundary block is copied), and a 64-token shared
@@ -72,7 +89,7 @@ prints no result line):
    host-to-device rate beside the swap model's).
    The earlier serving phases run with the cache off: they repeat their
    prompts across runs.
-8. overlap + recovery: the 4-slot serving cell (the serving phase's
+9. overlap + recovery: the 4-slot serving cell (the serving phase's
    request lengths and samplings) through the graph engine with the
    overlap pipeline on and off (on, off, off, on, after a warm-up):
    streams identical across the four runs and to the eager engine's
@@ -90,7 +107,7 @@ prints no result line):
    one slot (quarantine): surviving streams equal the fault-free ones,
    the expected resets, the cache tensors unmoved, nothing captured
    again.
-9. constrained decoding: a 50257-entry token table (the port's default
+10. constrained decoding: a 50257-entry token table (the port's default
    table, which stops at 1422 entries, then three-character fillers), a
    JSON-schema grammar ({"ok": boolean, "n": integer}) and a regex grammar
    ([a-z]{1,8}-[0-9]{2,4}) compiled against it (seconds printed); the
@@ -110,7 +127,7 @@ prints no result line):
    one constrained slot (an endless [a-z ]+ grammar), the mask bytes
    written per step, and a mask_advance error that must quarantine one
    constrained request while the rest equal the fault-free run.
-10. anatomy: torch.profiler over a short 4-slot run — the device's busy
+11. anatomy: torch.profiler over a short 4-slot run — the device's busy
    share of the wall time and the device time by kernel; eight decode
    steps of four live slots under the profiler, replayed and eager
    (device and wall ms a step, device kernels a step, one paged kernel a
@@ -120,7 +137,7 @@ prints no result line):
    whose device kernels must all be the paged kernel. The profiler runs
    only after the timed phases: once started, it slows the host's later
    launches.
-11. flash kernels: the flash-attention forward, dQ and dK/dV kernels,
+12. flash kernels: the flash-attention forward, dQ and dK/dV kernels,
    float32 and bf16 forms, against their plain PyTorch versions (fp32:
    atol 1e-4 + rtol 1e-4; bf16: within one bf16 ulp of the plain value
    plus 1e-3, the logsumexp at the fp32 gate) at the training path's
@@ -135,7 +152,7 @@ prints no result line):
    bound (fp32: fp32-accurate products on the tensor cores, and the same
    operations on the fp32 CUDA cores; bf16: 2-byte tensors, the dense
    bf16 rate).
-12. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
+13. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
    seq 128, batch 32, weights from --seed) through FFModel -> compile
    (SGD lr 0.01, MSE) -> fit, first in fp32, then bf16 (``bench.py``'s
    cell: bf16 parameters and activations): one step with the kernels and
@@ -156,6 +173,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -285,37 +303,41 @@ def check_bf16(name: str, got, want) -> float:
     return float(err.max())
 
 
-def paged_inputs(gen, num_blocks, bs, heads, head_dim, tables_np, qpos_np, copies):
+def paged_inputs(gen, num_blocks, bs, heads, head_dim, tables_np, qpos_np, copies,
+                 kv_dtype=None):
     """``copies`` distinct (q, k_cache, v_cache, block_tables, q_positions)
-    sets on the card, sharing tables and positions."""
+    sets on the card, sharing tables and positions; fp32 q, caches of
+    ``kv_dtype`` (fp32 by default)."""
     import torch
 
     dev = torch.device("cuda")
+    kv_dtype = kv_dtype or torch.float32
     b, w = qpos_np.shape
     tables = torch.from_numpy(tables_np).to(dev)
     qpos = torch.from_numpy(qpos_np).to(dev)
     sets = []
     for _ in range(copies):
-        k = torch.randn((num_blocks, bs, heads, head_dim), generator=gen).to(dev)
-        v = torch.randn((num_blocks, bs, heads, head_dim), generator=gen).to(dev)
+        k = torch.randn((num_blocks, bs, heads, head_dim), generator=gen).to(dev, kv_dtype)
+        v = torch.randn((num_blocks, bs, heads, head_dim), generator=gen).to(dev, kv_dtype)
         q = torch.randn((b, w, heads, head_dim), generator=gen).to(dev)
         sets.append((q, k, v, tables, qpos))
     return sets
 
 
-def bound(qpos_np, max_blocks, bs, heads, head_dim):
+def bound(qpos_np, max_blocks, bs, heads, head_dim, kv_bytes=4):
     """(bound_ms, bound_by) of one paged append attention call: bytes of
-    q, the live K/V rows (each read once), the tables, the positions and
-    the output, over the card's memory rate; against the fp32 operations
-    QK and PV need for these positions, over its fp32 rate."""
+    q, the live K/V rows (each read once, ``kv_bytes`` an element), the
+    tables, the positions and the output, over the card's memory rate;
+    against the fp32 operations QK and PV need for these positions, over
+    its fp32 rate."""
     import numpy as np
 
     b, w = qpos_np.shape
     live = np.minimum(qpos_np.max(axis=1) + 1, max_blocks * bs).clip(min=0)
-    nbytes = 4 * (
-        2 * b * w * heads * head_dim  # q in, output out
-        + 2 * int(live.sum()) * heads * head_dim  # K and V rows
-        + b * max_blocks + b * w  # tables, positions
+    nbytes = (
+        4 * 2 * b * w * heads * head_dim  # q in, output out
+        + kv_bytes * 2 * int(live.sum()) * heads * head_dim  # K and V rows
+        + 4 * (b * max_blocks + b * w)  # tables, positions
     )
     flops = 4 * int((qpos_np + 1).clip(min=0).sum()) * heads * head_dim
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -325,7 +347,9 @@ def bound(qpos_np, max_blocks, bs, heads, head_dim):
 
 def sdpa_inputs(sets):
     """The library yardstick's inputs: K/V gathered contiguous per
-    sequence, [B, H, S, D], and the same position mask [B, 1, W, S]."""
+    sequence, [B, H, S, D], in the cache's dtype, q cast to it (for a
+    2-byte cache a lower-precision function: a speed yardstick only),
+    and the same position mask [B, 1, W, S]."""
     import torch
 
     out = []
@@ -335,13 +359,23 @@ def sdpa_inputs(sets):
         vv = v[tables.long()].reshape(b, mb * v.shape[1], *v.shape[2:]).transpose(1, 2)
         pos = torch.arange(kk.shape[2], device=q.device)
         mask = (pos[None, None, :] <= qpos[:, :, None])[:, None]
-        out.append((q.transpose(1, 2).contiguous(), kk.contiguous(), vv.contiguous(), mask))
+        out.append((q.to(k.dtype).transpose(1, 2).contiguous(), kk.contiguous(), vv.contiguous(),
+                    mask))
     return out
 
 
+def kv_forms():
+    """(cache dtype, launch-count and row suffix) of each paged kernel form:
+    fp32, bf16, fp16."""
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    return tuple((dtype, count) for dtype, (_, count) in da._FORMS.items())
+
+
 def kernel_phase(seed: int):
-    """Each kernel against its plain version, then times. Returns the
-    per-kernel records (launches filled in by the serving phases)."""
+    """Each kernel form (fp32, bf16 and fp16 caches) against its plain
+    version, then times. Returns the per-kernel records, keyed by shape
+    and form suffix (launches filled in by the serving phases)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -403,8 +437,10 @@ def kernel_phase(seed: int):
     cases["split_w64"] = (tables_for([754]), qpos, splits)
 
     rows = {}
-    for name, (tables, qpos, s) in cases.items():
-        sets = paged_inputs(gen, nb, bs, h, d, tables, qpos, copies)
+    for (kv_dtype, form), (case, (tables, qpos, s)) in itertools.product(kv_forms(),
+                                                                         cases.items()):
+        name = case + form
+        sets = paged_inputs(gen, nb, bs, h, d, tables, qpos, copies, kv_dtype)
         q, k, v, bt, qp = sets[0]
         got = da.paged_append_attention(q, k, v, bt, qp, kv_splits=s)
         want = da.reference_paged_append_attention(q, k, v, bt, qp)
@@ -431,7 +467,7 @@ def kernel_phase(seed: int):
             lambda qq, kk, vv, mask: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask),
             lib_sets,
         )
-        bound_ms, bound_by = bound(qpos, mb, bs, h, d)
+        bound_ms, bound_by = bound(qpos, mb, bs, h, d, kv_bytes=k.element_size())
         # blocks per (head, sequence): the cluster of either kernel
         ctas = da.kernel_cluster_size(mb, bs) if s == 1 else da.split_plan(s, mb)[0]
         rows[name] = {
@@ -440,6 +476,7 @@ def kernel_phase(seed: int):
             "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
             "shape": {"B": int(qpos.shape[0]), "W": int(qpos.shape[1]), "H": h, "D": d,
                       "bs": bs, "MB": mb, "splits": s, "ctas_per_head": ctas,
+                      "kv_dtype": str(kv_dtype).replace("torch.", ""),
                       "live_positions": int(np.minimum(qpos.max(1) + 1, mb * bs).clip(0).sum())},
         }
         print(f"kernel {name}: " + json.dumps(rows[name]))
@@ -476,7 +513,8 @@ def edge_shapes(seed: int) -> None:
     position (0, 1, 15, 16, 17, and one position into the second block's
     share) beside a long one, and a table of 60000 columns through the
     single-pass kernel and the split kernel — each against the plain
-    version; padding queries must give exact zeros."""
+    version, every case in the fp32, bf16 and fp16 forms (the wide table
+    in fp32 and bf16); padding queries must give exact zeros."""
     import numpy as np
     import torch
 
@@ -485,9 +523,13 @@ def edge_shapes(seed: int) -> None:
     rs = np.random.RandomState(seed + 7)
     gen = torch.Generator().manual_seed(seed + 7)
 
-    def check(tag, tables, qpos, h, d, bs, s):
+    def check(tag, tables, qpos, h, d, bs, s, forms=kv_forms()):
+        for kv_dtype, form in forms:
+            check_form(f"{tag}{form}", tables, qpos, h, d, bs, s, kv_dtype)
+
+    def check_form(tag, tables, qpos, h, d, bs, s, kv_dtype):
         q, k, v, bt, qp = paged_inputs(gen, tables.shape[0] * tables.shape[1] + 1, bs, h, d,
-                                       tables, qpos, 1)[0]
+                                       tables, qpos, 1, kv_dtype)[0]
         got = da.paged_append_attention(q, k, v, bt, qp, kv_splits=s)
         want = da.reference_paged_append_attention(q, k, v, bt, qp)
         err = check_close(f"edge shape {tag}", got, want)
@@ -556,7 +598,8 @@ def edge_shapes(seed: int) -> None:
     tables = rs.randint(1, mb + 1, (1, mb)).astype(np.int32)
     qpos = np.asarray([[57000, 59999, -1]], np.int32)
     for s in (1, 16, mb):
-        check(f"wide table B=1 W=3 H=2 D=64 bs=1 MB={mb} S={s}", tables, qpos, 2, 64, 1, s)
+        check(f"wide table B=1 W=3 H=2 D=64 bs=1 MB={mb} S={s}", tables, qpos, 2, 64, 1, s,
+              kv_forms()[:2])
 
 
 def gpt2_small():
@@ -676,7 +719,7 @@ def run_stats(engine, handles, wall, ttft, decode0, dsec0, launches) -> dict:
 def serving_phase(seed: int, params):
     """The 4-slot engine behind the scheduler: 8 mixed requests, through
     the graph engine and the eager engine in turns (graph, eager, eager,
-    graph). Returns (engines, stats)."""
+    graph). Returns (engines, stats, (prompts, samplings, streams))."""
     import numpy as np
 
     from flexflow_tpu_torch.generation.engine import SamplingParams
@@ -733,7 +776,7 @@ def serving_phase(seed: int, params):
     stats["logits_max_abs_err"] = check_decode_logits(graph, sched, "serving")
     while not all(h.done() for h in extra):
         sched.step()
-    return engines, stats
+    return engines, stats, (prompts, samplings, streams)
 
 
 def decode_window_profile(engine, seed: int, steps: int = 8) -> dict:
@@ -1374,6 +1417,255 @@ def check_pipelined_logits(engine, seed: int) -> float:
         sched.step()
     torch.cuda.empty_cache()
     return err
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The decoder's paged attention through the plain PyTorch version (no
+    kernel launch) while the block runs. For an eager engine only: a
+    graph captured inside would hold the plain version's ops."""
+    from flexflow_tpu_torch.generation import decoder
+
+    saved = decoder.decode_attention_core, decoder.append_attention_core
+
+    def plain(core):
+        return lambda *a, **kw: core(*a, **{**kw, "backend": "plain"})
+
+    decoder.decode_attention_core, decoder.append_attention_core = map(plain, saved)
+    try:
+        yield
+    finally:
+        decoder.decode_attention_core, decoder.append_attention_core = saved
+
+
+def launched_only(expected: dict) -> dict:
+    """The launch counts since the last reset: each form named in
+    ``expected`` launched exactly that many times (at least once), every
+    other form none."""
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    got = dict(da.LAUNCHES)
+    want = {name: expected.get(name, 0) for name in got}
+    if got != want or not all(expected.values()):
+        raise AssertionError(f"launches {got}, expected {want}")
+    return got
+
+
+def kv_dtype_phase(seed: int, params, cell, fp32_engine) -> dict:
+    """Serving from a 2-byte KV cache at GPT-2-small width: a bf16 cache of
+    257 blocks of 16 (the serving cell's blocks, half its bytes) behind
+    graph and eager 4-slot engines, then a shorter fp16 run. Returns the
+    phase's numbers and the main-path launches of each 2-byte form."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.core.types import DataType
+    from flexflow_tpu_torch.generation.cache import CacheConfig
+    from flexflow_tpu_torch.generation.engine import GenerationEngine, SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+    from flexflow_tpu_torch.generation.speculative import SpeculationConfig
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    cfg = gpt2_small()
+    layers, v = cfg.num_layers, cfg.vocab_size
+    prompts, samplings, fp32_streams = cell
+    rs = np.random.RandomState(seed + 12)
+    spec = SpeculationConfig(k=4)
+    launches = {f"paged_append{split}{form}": 0
+                for form in ("_bf16", "_f16") for split in ("", "_split")}
+
+    def cache(dtype, num_blocks=257):
+        return CacheConfig(num_layers=layers, num_heads=cfg.num_heads,
+                           head_dim=cfg.hidden_size // cfg.num_heads,
+                           num_blocks=num_blocks, block_size=16, dtype=dtype)
+
+    def steps(engine, kinds=("decode",)):
+        return sum(engine.step_counts[k] for k in kinds)
+
+    def paged_calls(engine):
+        """Decode and verify steps, and (a graph engine) the warm-up run
+        before each capture of a step that launches the paged kernel:
+        one launch a layer each."""
+        captures = sum(n for k, n in engine.trace_counts.items()
+                       if k in ("decode", "verify") or k.startswith("prefix_prefill"))
+        return steps(engine, ("decode", "verify")) + (captures if engine.graphs else 0)
+
+    def main_path(run, expected):
+        """``run()`` with the counts set to 0 just before and read just
+        after: only ``expected(...)``'s forms launched."""
+        da.reset_launch_counts()
+        result = run()
+        for name, n in launched_only(expected()).items():
+            if name in launches:
+                launches[name] += n
+        return result
+
+    def seg_prompts(n):
+        out = []
+        for seg_len, reps in ((24, 4), (40, 3), (16, 6), (60, 2))[:n]:
+            seg = rs.randint(0, v, seg_len).tolist()
+            out.append(seg * reps + seg[:6])
+        return out
+
+    def speculate(engine, name, form, new_tokens):
+        """Greedy, then k = 4 n-gram speculation over the same requests:
+        equal streams, kernel launches per decode and verify step, and a
+        live speculating batch's decode and verify logits vs plain
+        attention."""
+        sp_prompts = seg_prompts(4)
+        greedy = [SamplingParams(max_new_tokens=new_tokens)] * len(sp_prompts)
+        p0 = paged_calls(engine)
+        handles = main_path(lambda: serve(engine, sp_prompts, greedy)[0],
+                            lambda: {"paged_append" + form: layers * (paged_calls(engine) - p0)})
+        plain = [h.result(0) for h in handles]
+        p0, v0, vs0 = paged_calls(engine), steps(engine, ("verify",)), engine.step_seconds["verify"]
+        handles = main_path(
+            lambda: serve(engine, sp_prompts, greedy, speculation=spec)[0],
+            lambda: {"paged_append" + form: layers * (paged_calls(engine) - p0)})
+        vsteps = steps(engine, ("verify",)) - v0
+        if [h.result(0) for h in handles] != plain or vsteps == 0:
+            raise AssertionError(f"{name}: speculative greedy streams differ from plain ones "
+                                 f"({vsteps} verify steps)")
+        sched = ContinuousBatchingScheduler(engine)
+        live = [sched.submit(p, SamplingParams(max_new_tokens=8), speculation=spec)
+                for p in sp_prompts]
+        sched.step()
+        errs = {"decode": check_decode_logits(engine, sched, f"{name} speculation"),
+                "verify": check_verify_logits(engine, sched)}
+        while not all(h.done() for h in live):
+            sched.step()
+        return {"verify_steps": vsteps,
+                "verify_step_ms": 1e3 * (engine.step_seconds["verify"] - vs0) / vsteps,
+                "logits_max_abs_err": errs}
+
+    def long_context(dtype, name, form, new_tokens):
+        """One ~900-token stream in a 1-slot engine: the split-KV kernel of
+        the cache's form, num_layers launches a decode step, and a decode
+        step's logits vs plain attention."""
+        cc = CacheConfig.for_slots(num_layers=layers, num_heads=cfg.num_heads,
+                                   head_dim=cfg.hidden_size // cfg.num_heads,
+                                   max_seq_len=cfg.seq_length, max_batch_slots=1,
+                                   block_size=16, dtype=dtype)
+        engine = GenerationEngine(params, cfg, cache_config=cc, max_batch_slots=1,
+                                  prefix_cache=False)
+        prompt = rs.randint(0, v, 900).tolist()
+        p0 = paged_calls(engine)
+        main_path(lambda: serve(engine, [prompt], [SamplingParams(max_new_tokens=new_tokens)]),
+                  lambda: {"paged_append_split" + form: layers * (paged_calls(engine) - p0)})
+        sched = ContinuousBatchingScheduler(engine)
+        h = sched.submit(rs.randint(0, v, 880).tolist(), SamplingParams(max_new_tokens=4))
+        sched.step()
+        err = check_decode_logits(engine, sched, f"{name} long context")
+        while not h.done():
+            sched.step()
+        return {"prompt_len": len(prompt), "logits_max_abs_err": err}
+
+    out = {}
+    # the bf16 cell: graph and eager engines, each from a zeroed cache
+    engines = engine_pair(params, cache_config=cache(DataType.BFLOAT16), max_batch_slots=4,
+                          max_spec_tokens=4)
+    graph, eager = engines["graph"], engines["eager"]
+    if (graph.cache.k.dtype != torch.bfloat16
+            or 2 * graph.cache.k.nbytes != fp32_engine.cache.k.nbytes):
+        raise AssertionError(f"bf16 cache {graph.cache.k.dtype}, {graph.cache.k.nbytes} bytes "
+                             f"against the fp32 cell's {fp32_engine.cache.k.nbytes}")
+    warm(graph, rs)
+    warm(graph, rs, speculation=spec)
+    runs, streams = {}, {}
+    for name, engine in (("graph", graph), ("eager", eager)):
+        engine.reset()
+        d0, p0, dsec0 = steps(engine), paged_calls(engine), engine.step_seconds["decode"]
+        handles, wall, ttft, _ = main_path(
+            lambda: serve(engine, prompts, samplings),
+            lambda: {"paged_append_bf16": layers * (paged_calls(engine) - p0)})
+        runs[name] = run_stats(engine, handles, wall, ttft, d0, dsec0, dict(da.LAUNCHES))
+        streams[name] = [h.result(0) for h in handles]
+        print(f"kv dtype bf16 (4 slots, {name} steps): " + json.dumps(runs[name]))
+    if streams["graph"] != streams["eager"]:
+        raise AssertionError("bf16 cache: graph and eager streams differ")
+    for t in ("k", "v"):  # past scratch block 0, where colliding padding writes land in any order
+        if not torch.equal(getattr(graph.cache, t)[:, 1:], getattr(eager.cache, t)[:, 1:]):
+            raise AssertionError(f"bf16 cache: graph replays and eager steps wrote different {t}")
+    if not torch.equal(graph.last_logits, eager.last_logits):
+        raise AssertionError("bf16 cache: the last step's logits differ, graph vs eager")
+    # the same requests with plain attention over the same cache dtype
+    eager.reset()
+    with plain_attention():
+        da.reset_launch_counts()
+        handles = serve(eager, prompts, samplings)[0]
+        if any(da.LAUNCHES.values()):
+            raise AssertionError(f"plain attention launched kernels: {da.LAUNCHES}")
+    plain = [h.result(0) for h in handles]
+    greedy = [i for i, sp in enumerate(samplings) if sp.temperature <= 0]
+    if [plain[i] for i in greedy] != [streams["graph"][i] for i in greedy]:
+        raise AssertionError("bf16 cache: greedy streams differ from plain attention's")
+    tokens = sum(len(s) for s in fp32_streams)
+    out.update({
+        "cache_bytes": 2 * graph.cache.k.nbytes,
+        "fp32_cache_bytes": 2 * fp32_engine.cache.k.nbytes,
+        "runs": runs,
+        "tokens_equal_to_plain_attention": sum(
+            a == b for x, y in zip(plain, streams["graph"]) for a, b in zip(x, y)),
+        "tokens_equal_to_fp32_cache": sum(
+            a == b for x, y in zip(fp32_streams, streams["graph"]) for a, b in zip(x, y)),
+        "tokens": tokens,
+    })
+    sched = ContinuousBatchingScheduler(graph)
+    extra = [sched.submit(rs.randint(0, v, n).tolist(), SamplingParams(max_new_tokens=4))
+             for n in (100, 37, 250, 16)]
+    sched.step()
+    out["logits_max_abs_err"] = check_decode_logits(graph, sched, "kv dtype bf16")
+    while not all(h.done() for h in extra):
+        sched.step()
+    # a 4-slot decode step's device time, its graph replayed back to back:
+    # the fp32 cell's engine and the bf16 one in turns
+    order = (("fp32", fp32_engine), ("bf16", graph), ("bf16", graph), ("fp32", fp32_engine))
+    device_ms = {"fp32": [], "bf16": []}
+    for label, engine in order:
+        device_ms[label].append(decode_graph_device_ms(engine))
+    out["decode_step_device_ms"] = device_ms
+    out["speculation"] = speculate(graph, "kv dtype bf16", "_bf16", 24)
+    out["long_context"] = long_context(DataType.BFLOAT16, "kv dtype bf16", "_bf16", 16)
+    # the host tier over a bf16 cache: the prefix cell's three 512-token
+    # prefixes cycled twice through 80 blocks, streams equal to the
+    # uncached bf16 engine's
+    small = GenerationEngine(params, cfg, cache_config=cache(DataType.BFLOAT16, 81),
+                             max_batch_slots=4)
+    prefixes = [rs.randint(0, v, 512).tolist() for _ in range(3)]
+    tier_prompts = [p + rs.randint(0, v, 16).tolist() for _ in range(2) for p in prefixes]
+    tier_sp = [SamplingParams(max_new_tokens=32), samplings[-1],
+               SamplingParams(max_new_tokens=32)] * 2
+    before = small.prefix_cache.snapshot()
+    s0, g0 = paged_calls(small), paged_calls(graph)
+
+    def tier():
+        for prompt, sp in zip(tier_prompts, tier_sp):
+            if small.generate([prompt], sp) != graph.generate([prompt], sp):
+                raise AssertionError("bf16 host tier: a stream differs from the uncached engine's")
+
+    hits = lambda: small.prefix_cache.snapshot()["hits"] - before["hits"]  # noqa: E731
+    main_path(tier, lambda: {"paged_append_bf16": layers * (
+        paged_calls(small) - s0 + paged_calls(graph) - g0 + hits())})
+    snap = small.prefix_cache.snapshot()
+    host = {k: snap[k] - before[k] for k in ("swaps_out_total", "swaps_in_total",
+                                              "recompute_fallbacks", "hits")}
+    if not (host["swaps_out_total"] > 0 and host["swaps_in_total"] > 0):
+        raise AssertionError(f"bf16 host tier: no offload and swap-in: {host}")
+    host["host_bytes_per_block"] = small.cache_config.bytes_per_block
+    out["host_tier"] = host
+    print("kv dtype bf16 host tier: " + json.dumps(host))
+    del engines, graph, eager, small, sched
+    torch.cuda.empty_cache()
+    # fp16: a shorter run, decode and verify steps, and a long context
+    half = GenerationEngine(params, cfg, cache_config=cache(DataType.HALF), max_batch_slots=4,
+                            max_spec_tokens=4, prefix_cache=False)
+    out["fp16"] = {"speculation": speculate(half, "kv dtype fp16", "_f16", 16),
+                   "long_context": long_context(DataType.HALF, "kv dtype fp16", "_f16", 8)}
+    del half
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    print("kv dtype: " + json.dumps(out))
+    return out
 
 
 def card_clocks() -> str:
@@ -2663,7 +2955,8 @@ def main(argv=None) -> int:
     rows = kernel_phase(args.seed)
     params = init_decoder_params(torch.Generator().manual_seed(args.seed), gpt2_small())
     params = params_to(params, "cuda")  # one copy on the card, shared by every engine
-    engines, serving = serving_phase(args.seed, params)
+    engines, serving, cell = serving_phase(args.seed, params)
+    kv_dtype = kv_dtype_phase(args.seed, params, cell, engines["graph"])
     long_ctx, long_engine = long_context_phase(args.seed, params)
     graphs = step_graph_phase(engines, args.seed)
     speculation = speculation_phase(args.seed, params)
@@ -2687,10 +2980,15 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         }
 
-    single = [r for name, r in rows.items() if r["shape"]["splits"] == 1]
+    def single(form):  # the single-pass rows of a cache form
+        return [r for name, r in rows.items()
+                if r["shape"]["splits"] == 1 and name.endswith(form)
+                and r["shape"]["kv_dtype"] == {"": "float32", "_bf16": "bfloat16",
+                                               "_f16": "float16"}[form]]
+
     kernels = [
         record("paged_append", "flexflow_tpu/ops/kernels/decode_attention.py:368",
-               dict(rows["decode"], max_abs_err=max(r["max_abs_err"] for r in single)),
+               dict(rows["decode"], max_abs_err=max(r["max_abs_err"] for r in single(""))),
                serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]
                + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]
                + constrained["launches"]["paged_append"] + server["launches"]["paged_append"]),
@@ -2709,6 +3007,14 @@ def main(argv=None) -> int:
                    flash["causal512"][f"{name}_bf16"]["max_abs_err"])),
                training_bf16["launches"][f"{name}_bf16"], FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
+    ] + [
+        record(f"{kernel}{form}", f"flexflow_tpu/ops/kernels/decode_attention.py:{line}",
+               dict(rows[case + form], max_abs_err=max(r["max_abs_err"] for r in (
+                   single(form) if kernel == "paged_append" else [rows[case + form]]))),
+               kv_dtype["launches"][kernel + form])
+        for form in ("_bf16", "_f16")
+        for kernel, case, line in (("paged_append", "decode", 368),
+                                   ("paged_append_split", "split", 338))
     ]
     for t in (training, training_bf16):
         print(f"{card}: BERT-Base training (12 x 768, seq 128, batch 32), {t['dtype']}: "
@@ -2780,11 +3086,24 @@ def main(argv=None) -> int:
               f"{b['pre_submit_ms_p50']:.2f}, max {b['pre_submit_ms_max']:.2f}; SSE delivery ms "
               f"p50 {b['sse_delivery_ms_p50']:.3f}; front end ms per token "
               f"{b['front_end_ms_per_token']:.4f}")
+    kv = kv_dtype
+    print(f"{card}: kv cache bf16 ({kv['cache_bytes']} bytes against fp32's "
+          f"{kv['fp32_cache_bytes']}), 4-slot serving cell: tokens/s "
+          + ", ".join(f"{kv['runs'][m]['tokens_per_s']:.1f} ({m})" for m in ("graph", "eager"))
+          + f"; decode step device ms fp32 {kv['decode_step_device_ms']['fp32']} bf16 "
+          f"{kv['decode_step_device_ms']['bf16']}; tokens equal to the fp32 cache's "
+          f"{kv['tokens_equal_to_fp32_cache']} of {kv['tokens']}; host tier {kv['host_tier']}")
+    for name, r in rows.items():
+        if name in {f"{case}{form}" for case in ("decode", "append_w5", "split")
+                    for form in ("_bf16", "_f16")}:
+            print(f"{card}: paged kernel {name} ms {r['ms']:.5f} (bound {r['bound_ms']:.5f} "
+                  f"by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
     for name, r in rows.items():
         if name.startswith(("wide", "verify_w4", "split_w64")):
             print(f"{card}: paged kernel {name} ms {r['ms']:.4f} (bound {r['bound_ms']:.4f} "
                   f"by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
-    print(json.dumps({"card": card, "serving": serving, "long_context": long_ctx,
+    print(json.dumps({"card": card, "serving": serving, "kv_dtype": kv_dtype,
+                      "long_context": long_ctx,
                       "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
                       "overlap": overlap, "constrained": constrained, "server": server,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,

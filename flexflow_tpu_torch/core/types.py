@@ -2,7 +2,8 @@
 
 Only the members the ported slices use: float32 parameters, activations
 and KV cache (the JAX default), bfloat16 parameters and activations for
-training (``bench.py``'s BERT-Base cell), int32 tokens, positions and
+training (``bench.py``'s BERT-Base cell), a bfloat16 or float16 KV cache
+for serving (``CacheConfig.dtype``), int32 tokens, positions and
 block tables, int64 for the sampler's emulated uint32 words; the five op types of the
 BERT-style training graph and the activation, loss, metric and
 compilation modes around them.
@@ -21,6 +22,7 @@ class DataType(enum.Enum):
     INT64 = "int64"
     FLOAT = "float32"
     BFLOAT16 = "bfloat16"
+    HALF = "float16"
 
     @property
     def torch(self) -> torch.dtype:

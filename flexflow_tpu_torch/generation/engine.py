@@ -100,7 +100,7 @@ from ..runtime import faults
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
 from . import prng
 from .decoder import DecoderParams, decode_step, params_to, prefill, verify_step
-from .prefix import PrefixCache, PrefixEntry
+from .prefix import PrefixCache, PrefixEntry, from_host, to_host
 from .step_graphs import InFlight, StepBody, StepRunner
 
 NEG_INF = -1e30
@@ -380,7 +380,9 @@ class GenerationEngine:
         # the serving roofline (the device's preset peaks): prefix_plan
         # weighs a swap-in against a recompute with it, MFU divides by its
         # peak, and the truth ledger predicts each step from it
-        self.flops_model = ServingFlops.from_config(cfg, chip=chip_spec_for(self.device))
+        self.flops_model = ServingFlops.from_config(
+            cfg, dtype=cache_config.dtype, chip=chip_spec_for(self.device)
+        )
         # useful model FLOPs per step kind (true prompt lengths and live
         # context only), accrued on success next to the time they pair with
         self.flops_by_kind: Dict[str, float] = {"prefill": 0.0, "decode": 0.0, "verify": 0.0}
@@ -577,9 +579,9 @@ class GenerationEngine:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
         slots = slot_mapping(x["table"], positions, bs)
         slots = torch.where(positions < length, slots, torch.zeros_like(slots)).long()
-        for li in range(cache_k.shape[0]):  # padding -> scratch block 0
-            cache_k[li].view(-1, *cache_k.shape[3:])[slots] = ks[li, 0]
-            cache_v[li].view(-1, *cache_v.shape[3:])[slots] = vs[li, 0]
+        for li in range(cache_k.shape[0]):  # padding -> scratch block 0, cast to the cache's dtype
+            cache_k[li].view(-1, *cache_k.shape[3:])[slots] = ks[li, 0].to(cache_k.dtype)
+            cache_v[li].view(-1, *cache_v.shape[3:])[slots] = vs[li, 0].to(cache_v.dtype)
         last = logits[0].index_select(0, (length - 1).long())  # [1, V], device-indexed
         ok = torch.isfinite(last).all(dim=-1)  # blame: a poisoned prompt
         last = last + self._mask1  # the grammar mask: finite, after the flag
@@ -663,14 +665,15 @@ class GenerationEngine:
 
     def _read_block(self, src: int) -> Tuple[np.ndarray, np.ndarray]:
         """Host-tier swap-out read: one block's K and V ([L, bs, H, D]
-        each), brought to the host in one copy."""
-        kv = torch.stack((self.cache.k[:, src], self.cache.v[:, src])).cpu().numpy()
+        each), brought to the host in one copy (``prefix.to_host``'s
+        bytes: a bfloat16 cache's as uint16 bits)."""
+        kv = to_host(torch.stack((self.cache.k[:, src], self.cache.v[:, src])))
         return kv[0], kv[1]
 
     def _write_block(self, dst: int, host_k: np.ndarray, host_v: np.ndarray) -> None:
         """Host-tier swap-in write: one block's K/V back into ``dst``."""
         for t, h in ((self.cache.k, host_k), (self.cache.v, host_v)):
-            t[:, dst].copy_(torch.from_numpy(h))
+            t[:, dst].copy_(from_host(h, t.dtype))
         self._block_writes += 1
 
     # --------------------------------------------------------------- steps

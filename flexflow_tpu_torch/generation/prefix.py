@@ -51,6 +51,7 @@ import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .cache import BlockAllocator, CacheConfig
 
@@ -102,11 +103,31 @@ def _crc(k: np.ndarray, v: np.ndarray) -> int:
     return zlib.crc32(v.tobytes(), zlib.crc32(k.tobytes()))
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A cache tensor's content as a host array of the same bytes:
+    float32 and float16 as themselves, bfloat16 (which numpy lacks) as
+    the uint16 bits of its elements — the bytes ``np.asarray`` gives of
+    a JAX bfloat16 array, so a block's CRC equals the JAX engine's."""
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of :func:`to_host`: the host array's bytes read as a
+    CPU tensor of the cache's ``dtype``."""
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    return torch.from_numpy(a).view(dtype)
+
+
 class PackedBlock:
     """One KV block's content on the host: full-head ``[layers,
-    block_size, heads, head_dim]`` K and V arrays and the CRC taken when
-    they were packed, so a copy corrupted on the host is detected before
-    it is written back to the device (the host tier's format)."""
+    block_size, heads, head_dim]`` K and V arrays (:func:`to_host`'s
+    bytes of the cache's dtype) and the CRC taken when they were packed,
+    so a copy corrupted on the host is detected before it is written
+    back to the device (the host tier's format)."""
 
     __slots__ = ("host_k", "host_v", "crc")
 

@@ -17,6 +17,9 @@ keeps there (the logits). A :class:`StepRunner` runs bodies by
   their library and sets their shared-memory attribute, neither of which
   may happen inside a capture), then captures it into a CUDA graph in the
   runner's one memory pool and replays it; every later step is a replay.
+  Python's cyclic garbage collector is run before a capture and held off
+  during it: a collection inside the capture could destroy an unreachable
+  engine's graphs, a CUDA call that invalidates the capture.
   A capture that fails raises; nothing falls back to eager steps.
 * **readback**: the readback tensor comes to a pinned host buffer in one
   non-blocking copy, followed by an event the step's collect waits on.
@@ -36,6 +39,7 @@ body at once and its collect returns the result.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Hashable, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -241,7 +245,14 @@ class StepRunner:
         stream.wait_stream(self._side)
         graph = torch.cuda.CUDAGraph()
         before = dict(da.LAUNCHES)
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            outputs = body(inputs)
+        collecting = gc.isenabled()
+        gc.collect()  # dead graphs are destroyed here, outside the capture
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                outputs = body(inputs)
+        finally:
+            if collecting:
+                gc.enable()
         step.launches = da.captured_launches(before)
         step.graph, step.outputs = graph, outputs

@@ -33,6 +33,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from ..core.types import DataType
+
 # utilization derates: achievable fraction of peak (the JAX search cost
 # model's constants)
 MXU_EFFICIENCY = 0.55
@@ -276,15 +278,22 @@ class ChipSpec:
     f32_flops: float  # FLOP/s
     hbm_bandwidth: float  # bytes/s
     hbm_capacity: float  # bytes
+    bf16_flops: float  # FLOP/s, bf16 and fp16
 
 
 CHIP_PRESETS = {
     # the JAX package's nominal CPU peaks (its calibration preset "cpu")
-    "cpu": ChipSpec(name="cpu", f32_flops=1e11, hbm_bandwidth=2e10, hbm_capacity=16e9),
+    "cpu": ChipSpec(name="cpu", f32_flops=1e11, hbm_bandwidth=2e10, hbm_capacity=16e9,
+                    bf16_flops=5e10),
     # datasheet figures, H100 SXM: fp32 on the CUDA cores, the rate the
-    # port's GEMMs run at (fp32, TF32 off)
-    "h100": ChipSpec(name="h100", f32_flops=67e12, hbm_bandwidth=3.35e12, hbm_capacity=80e9),
+    # port's GEMMs run at (fp32, TF32 off); bf16 and fp16 dense on the
+    # tensor cores
+    "h100": ChipSpec(name="h100", f32_flops=67e12, hbm_bandwidth=3.35e12, hbm_capacity=80e9,
+                     bf16_flops=989e12),
 }
+
+# the dtypes the roofline prices at 2 bytes and the chip's bf16 peak
+_TWO_BYTE = (DataType.BFLOAT16, DataType.HALF)
 
 
 def chip_spec_for(device: torch.device) -> ChipSpec:
@@ -295,9 +304,11 @@ def chip_spec_for(device: torch.device) -> ChipSpec:
 
 class ServingFlops:
     """Analytic per-step FLOPs and HBM bytes of the generation engine's
-    steps, folded into per-token and per-context-position constants, for
-    fp32 weights and cache (the port's float dtype) at the chip's fp32
-    rate.
+    steps, folded into per-token and per-context-position constants, at
+    the KV cache's dtype: a bf16 or fp16 cache is priced at 2 bytes per
+    element (weights and cache alike, as the JAX package's model does)
+    and the chip's bf16 peak, a float32 cache at 4 bytes and the fp32
+    peak.
 
     Per useful token (matmuls only, forward):
       qkv + out projections  8 * E^2          per layer
@@ -313,28 +324,33 @@ class ServingFlops:
         hidden_size: int,
         ff_size: int,
         vocab_size: int,
+        dtype: DataType = DataType.FLOAT,
         chip: Optional[ChipSpec] = None,
     ):
         e, f, l, v = hidden_size, ff_size, num_layers, vocab_size
         self.per_token_flops = l * (8 * e * e + 4 * e * f) + 2 * e * v
         self.per_ctx_flops = l * 4 * e
         self.chip = chip or CHIP_PRESETS["h100"]
-        self.peak_flops = self.chip.f32_flops
+        two_byte = dtype in _TWO_BYTE
+        self.peak_flops = self.chip.bf16_flops if two_byte else self.chip.f32_flops
         # each step streams the weights once and touches the KV cache per
         # live context position
-        self.dtype_bytes = 4
+        self.dtype_bytes = 2 if two_byte else 4
         self.param_count = 2 * v * e + l * (4 * e * e + 2 * e * f)
         self.param_bytes = self.param_count * self.dtype_bytes
         self.kv_bytes_per_pos = 2 * l * e * self.dtype_bytes  # k + v
 
     @classmethod
-    def from_config(cls, cfg, chip: Optional[ChipSpec] = None) -> "ServingFlops":
-        """Build from a TransformerConfig (the engine's ``cfg``)."""
+    def from_config(cls, cfg, dtype: DataType = DataType.FLOAT,
+                    chip: Optional[ChipSpec] = None) -> "ServingFlops":
+        """Build from a TransformerConfig (the engine's ``cfg``) and the
+        KV cache's dtype."""
         return cls(
             num_layers=cfg.num_layers,
             hidden_size=cfg.hidden_size,
             ff_size=cfg.ff_size,
             vocab_size=cfg.vocab_size,
+            dtype=dtype,
             chip=chip,
         )
 

@@ -41,19 +41,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # (name, argtypes) of every exported function; restype is an int: the
 # cudaError_t of a launch, or the answer of a query
-SIGNATURES = {
-    "ff_paged_append_f32": (
-        [_P] * 6  # q, k_cache, v_cache, block_tables, q_positions, out
-        + [_I] * 6  # B, W, H, D, bs, MB
-        + [_F, _P]  # scale, stream
-    ),
-    "ff_paged_append_cluster_size": [_I, _I],  # MB, bs
-    "ff_paged_append_split_f32": (
-        [_P] * 6  # q, k_cache, v_cache, block_tables, q_positions, out
-        + [_I] * 8  # B, W, H, D, bs, MB, ctas, cta_cols
-        + [_F, _P]  # scale, stream
-    ),
-}
+SIGNATURES = {"ff_paged_append_cluster_size": [_I, _I]}  # MB, bs
+# the paged kernels, one form per cache element type (q and out fp32)
+for _form in ("f32", "bf16", "f16"):
+    SIGNATURES.update({
+        f"ff_paged_append_{_form}": (
+            [_P] * 6  # q, k_cache, v_cache, block_tables, q_positions, out
+            + [_I] * 6  # B, W, H, D, bs, MB
+            + [_F, _P]  # scale, stream
+        ),
+        f"ff_paged_append_split_{_form}": (
+            [_P] * 6  # q, k_cache, v_cache, block_tables, q_positions, out
+            + [_I] * 8  # B, W, H, D, bs, MB, ctas, cta_cols
+            + [_F, _P]  # scale, stream
+        ),
+    })
 # the flash kernels, a float32 and a bfloat16 form of each
 for _form in ("f32", "bf16"):
     SIGNATURES.update({

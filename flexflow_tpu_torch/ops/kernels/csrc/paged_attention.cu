@@ -1,14 +1,24 @@
-// Paged decode/append attention for Hopper (sm_90a), fp32.
+// Paged decode/append attention for Hopper (sm_90a): fp32 queries and
+// outputs over an fp32, bf16 or fp16 KV cache, fp32 arithmetic.
 //
 // Replaces the Pallas TPU kernels of
 // flexflow_tpu/ops/kernels/decode_attention.py:
 //   * _append_kernel        (launched by paged_append_attention, kv_splits=1,
-//                            :368) -> ff_paged_append_f32
+//                            :368) -> ff_paged_append_{f32,bf16,f16}
 //   * _append_kernel_split  (launched by paged_append_attention, kv_splits>1,
 //                            :338) together with the plain-XLA
 //                            _combine_splits (:248-267, :351) that finishes
-//                            its partials -> ff_paged_append_split_f32, one
-//                            launch that combines the splits on-chip
+//                            its partials -> ff_paged_append_split_{f32,bf16,
+//                            f16}, one launch that combines the splits
+//                            on-chip
+// The suffix names the cache's element type. The Pallas kernels load K and
+// V in the cache's dtype and upcast them to fp32 before both products
+// (:145-147, :219-221); so do these: one body, templated on the cache
+// element, stages K and V rows in that type (a 2-byte cache moves half
+// the bytes of an fp32 one) and widens each element exactly where the
+// score and value loops read it (bf16: a 16-bit shift; fp16:
+// __half2float). Queries, scores, softmax state, accumulators, the
+// combine and the output are fp32 in every form.
 //
 // What it computes, per sequence b: a window of W queries q[b] [W,H,D]
 // attends over the cache blocks named by block_tables[b] in
@@ -27,7 +37,7 @@
 // own range and the ranges combine at the end. Head dims up to 512: past
 // 256 an instance holds twice the accumulators a thread and stages one
 // tile a round (a 32-query tile then fills most of the shared memory).
-//   * ff_paged_append_f32 splits each (head, sequence, query tile)
+//   * ff_paged_append_* splits each (head, sequence, query tile)
 //     across a thread-block cluster: grid (C, H, B * tiles), cluster
 //     (C, 1, 1), with C = ceil(MB * bs / 128) CTAs, at most 8 (the
 //     portable cluster size). The CTAs share the live positions of the
@@ -39,7 +49,7 @@
 //     columns of 16) that is 384 CTAs on the 132 SMs; shared memory is
 //     kept to a quarter of an SM's so they run in one wave (at a third,
 //     the card holds 45 of the 48 clusters at once).
-//   * ff_paged_append_split_f32 launches the same cluster, but CTA r
+//   * ff_paged_append_split_* launches the same cluster, but CTA r
 //     takes a fixed range of table columns: a run of whole splits of the
 //     JAX kernel (S splits of ceil(MB / S) columns; those holding a
 //     column are grouped into at most 8 runs of consecutive splits, so
@@ -58,14 +68,20 @@
 // serving CTA's whole share):
 //   * staging: the cache row of each position of the round is computed
 //     once, then the threads gather the K and V rows (one cache row of D
-//     floats per head) of every tile of the round into shared memory with
-//     16-byte cp.async (4-byte where D % 4 != 0 or the cache is not
-//     16-byte aligned), all in flight together: a round costs one memory
-//     latency, not one per tile and per K and V. Rows are padded to
-//     D + 4 floats;
+//     elements per head) of every tile of the round into shared memory
+//     with 16-byte cp.async (4 floats or 8 2-byte elements; 4-byte copies
+//     where D does not divide into 16-byte chunks or the cache is not
+//     16-byte aligned, and plain 2-byte loads for a 2-byte cache of odd
+//     D, which cp.async cannot copy), all in flight together: a round
+//     costs one memory latency, not one per tile and per K and V. fp32
+//     rows are padded to D + 4 floats, 2-byte rows to D (rounded up to
+//     8) + 16 elements: the score loop's 8-byte reads are served a
+//     half-warp (four positions) at a time, and rows 32 bytes apart put
+//     those four on distinct banks at D a multiple of 64;
 //   * scores: quad t of the CTA (4 lanes) owns position t of each tile
 //     and dots its K row with every query, the lanes taking interleaved
-//     16-byte chunks of the head dim;
+//     chunks of 4 elements of the head dim (16 bytes of an fp32 row, 8 of
+//     a 2-byte one), widened to fp32;
 //   * softmax: warp j takes queries j, j + 4, ...; lane t holds position
 //     t of each tile; one warp max and one warp sum per round update the
 //     CTA's state (m, l);
@@ -84,8 +100,8 @@
 //
 // Bound on this card. At decode and verify windows the kernel is bound by
 // bytes: it must read the live K and V rows once, 2 * sum(ctx) * H * D *
-// 4 bytes per layer, at the H100's 3.35 TB/s (2.1 us at the serving
-// shape); its 4 * sum(ctx) * H * D fp32 operations per window query are
+// 4 bytes per layer (2 for a bf16 or fp16 cache), at the H100's 3.35 TB/s
+// (2.1 us at the serving shape in fp32); its 4 * sum(ctx) * H * D fp32 operations per window query are
 // far below the 67 TFLOP/s fp32 rate. A wide causal window is bound by
 // operations instead (about 1.6 GFLOP unmasked per layer at W = 1024 over
 // 1024 positions, H = 12, D = 64): this form does them on the CUDA cores
@@ -99,10 +115,13 @@
 // global scratch that the last CTA of a head combines).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -122,13 +141,54 @@ constexpr int kCtaPositions = 128;   // table positions per CTA the cluster size
 constexpr int kMaxHeadDim = 512;
 constexpr int kTableWindow = 2048;   // table columns a CTA holds in shared memory at most
 
+using bf16 = __nv_bfloat16;
+using f16 = __half;
+
 __host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
 
-// row stride (floats) of a staged K or V tile: D rounded up to 4, plus 4,
-// so the score reads of neighbouring positions are offset by 4 banks
-__host__ __device__ inline int tile_ld(int d) { return round4(d) + 4; }
+// row stride (elements) of a staged K or V tile of cache element T. fp32:
+// D rounded up to 4, plus 4, so the score reads of neighbouring positions
+// are offset by 4 banks; 2 bytes: D rounded up to 8, plus 16 (32 bytes),
+// so the four rows of a half-warp's 8-byte reads are 8 banks apart
+template <typename T>
+__host__ __device__ inline int tile_ld(int d) {
+  return sizeof(T) == 4 ? round4(d) + 4 : ((d + 7) & ~7) + 16;
+}
 
-// kMaxW: the queries a CTA takes (1, 8 or 32), and kMaxD the widest head
+// four consecutive staged elements as fp32 (exact widening); p is 16-byte
+// aligned for fp32, 8-byte aligned for a 2-byte cache
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // element 0 in the low half of u.x
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const f16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__half2float(__ushort_as_half(static_cast<unsigned short>(u.x))),
+                     __half2float(__ushort_as_half(static_cast<unsigned short>(u.x >> 16))),
+                     __half2float(__ushort_as_half(static_cast<unsigned short>(u.y))),
+                     __half2float(__ushort_as_half(static_cast<unsigned short>(u.y >> 16))));
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) {
+  return __uint_as_float(static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16);
+}
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
+
+// one element, by its bits, from device memory (or zero when !ok): the
+// copy of a 2-byte cache whose rows cp.async cannot take
+template <typename T>
+__device__ __forceinline__ void copy1(T* dst, const T* src, bool ok) {
+  using U = typename std::conditional<sizeof(T) == 4, unsigned int, unsigned short>::type;
+  *reinterpret_cast<U*>(dst) = ok ? __ldg(reinterpret_cast<const U*>(src)) : U(0);
+}
+
+// T: the cache's element type (float, bf16, f16). kMaxW: the queries a CTA
+// takes (1, 8 or 32), and kMaxD the widest head
 // dim of the instance (256 or 512), compile-time bounds so the per-thread
 // scores and accumulators stay in registers (kMaxW * kMaxD / 128 of them:
 // 128 for a 32-query tile past D = 256). A window wider than
@@ -136,18 +196,20 @@ __host__ __device__ inline int tile_ld(int d) { return round4(d) + 4; }
 // grid z (z = sequence * tiles + tile). kSplit: the split-KV form, whose
 // CTA r takes table columns [r * cta_cols, (r + 1) * cta_cols) instead of
 // a share of the live positions.
-template <int kMaxW, bool kSplit, int kMaxD>
+template <typename T, int kMaxW, bool kSplit, int kMaxD>
 __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     const float* __restrict__ q,           // [B, W, H, D]
-    const float* __restrict__ k_cache,     // [num_blocks, bs, H, D]
-    const float* __restrict__ v_cache,     // [num_blocks, bs, H, D]
+    const T* __restrict__ k_cache,         // [num_blocks, bs, H, D]
+    const T* __restrict__ v_cache,         // [num_blocks, bs, H, D]
     const int* __restrict__ block_tables,  // [B, MB]
     const int* __restrict__ q_positions,   // [B, W]
     float* __restrict__ out,               // [B, W, H, D]
     int W, int H, int D, int bs, int MB,
     int cta_cols,  // split form: table columns a CTA takes
     int bt_held,   // table columns a CTA holds in shared memory, from its first
-    int stages, int vec, float scale) {
+    int stages,
+    int vec,  // 2: 16-byte cp.async, 1: 4-byte cp.async, 0: plain 2-byte loads
+    float scale) {
   constexpr int kPairs = kMaxW * kMaxD / kThreads;  // (query, column) pairs a thread owns
   const int q_tiles = (W + kMaxW - 1) / kMaxW;
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z / q_tiles;
@@ -156,11 +218,11 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
   const int Wl = min(kMaxW, W);  // queries the shared-memory layout holds, the same in every CTA
   const int S = gridDim.x;  // the cluster's CTAs
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int d4 = round4(D), ld = tile_ld(D);
+  const int d4 = round4(D), ld = tile_ld<T>(D);
   const long long HD = static_cast<long long>(H) * D;
 
   extern __shared__ __align__(16) float smem[];
-  float* tiles = smem;  // [stages][K, V][kTile][ld]: the tiles of a round
+  T* tiles = reinterpret_cast<T*>(smem);  // [stages][K, V][kTile][ld]: the tiles of a round
   long long* row_s = reinterpret_cast<long long*>(tiles + stages * 2 * kTile * ld);  // [kRound]
   float* q_s = reinterpret_cast<float*>(row_s + kRound);  // [Wl][d4] scaled queries, zero past D
   float* sp_s = q_s + Wl * d4;                   // [Wl][kRound + 1] scores, then probabilities
@@ -205,8 +267,10 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     pos1 = min(live, pos0 + share);
   }
 
-  // the copies: each thread takes one column chunk of every rows_per_pass-th row
-  const int chunk = vec ? 4 : 1;
+  // the copies: each thread takes one column chunk of every
+  // rows_per_pass-th row, of 16 or 4 bytes (or one element)
+  const int chunk = vec == 2 ? 16 / static_cast<int>(sizeof(T))
+                             : vec == 1 ? 4 / static_cast<int>(sizeof(T)) : 1;
   const int per_row = d4 / chunk, tpr = min(per_row, kThreads), rows_per_pass = kThreads / tpr;
   const int my_row = tid / tpr, my_c = (tid - my_row * tpr) * chunk;
   float acc[kPairs];
@@ -236,17 +300,20 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
     if (my_row < rows_per_pass) {
       for (int t = my_row; t < nt * kTile; t += rows_per_pass) {
         const long long off = row_s[t];
-        float* kd = tiles + (t / kTile) * 2 * kTile * ld + (t % kTile) * ld;
-        float* vd = kd + kTile * ld;
+        T* kd = tiles + (t / kTile) * 2 * kTile * ld + (t % kTile) * ld;
+        T* vd = kd + kTile * ld;
         for (int c = my_c; c < d4; c += tpr * chunk) {
           const bool ok = off >= 0 && c < D;
           const long long src = ok ? off + c : 0;
-          if (vec) {
+          if (vec == 2) {
             cp_async16(kd + c, k_cache + src, ok);
             cp_async16(vd + c, v_cache + src, ok);
-          } else {
+          } else if (vec == 1) {
             cp_async4(kd + c, k_cache + src, ok);
             cp_async4(vd + c, v_cache + src, ok);
+          } else {
+            copy1(kd + c, k_cache + src, ok);
+            copy1(vd + c, v_cache + src, ok);
           }
         }
       }
@@ -257,12 +324,12 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
 
     // scores of position quad_t of every tile with every query
     for (int j = 0; j < nt; ++j) {
-      const float* kr = tiles + j * 2 * kTile * ld + quad_t * ld;
+      const T* kr = tiles + j * 2 * kTile * ld + quad_t * ld;
       float dots[kMaxW];
 #pragma unroll
       for (int w = 0; w < kMaxW; ++w) dots[w] = 0.f;
       for (int c = quad_c; c < d4; c += 16) {
-        const float4 kk = *reinterpret_cast<const float4*>(kr + c);
+        const float4 kk = load4(kr + c);
 #pragma unroll
         for (int w = 0; w < kMaxW; ++w) {
           if (w < Wt) {
@@ -332,9 +399,9 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
         float a = acc[k] * c_s[w];
         for (int j = 0; j < nt; ++j) {
           const float* pr = sp_s + w * (kRound + 1) + j * kTile;
-          const float* vt = tiles + (2 * j + 1) * kTile * ld + d;
+          const T* vt = tiles + (2 * j + 1) * kTile * ld + d;
 #pragma unroll 8
-          for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], vt[t * ld], a);
+          for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], to_f32(vt[t * ld]), a);
         }
         acc[k] = a;
       }
@@ -344,7 +411,7 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
 
   // combine the cluster's CTAs exactly, through distributed shared memory
   cg::cluster_group cluster = cg::this_cluster();
-  float* acc_s = tiles;  // [Wt][D]
+  float* acc_s = smem;  // [Wt][D], over the tiles (at least kTile * D floats of any T)
 #pragma unroll
   for (int k = 0; k < kPairs; ++k) {
     const int idx = tid + k * kThreads;
@@ -391,28 +458,36 @@ int cluster_size(int MB, int bs) {
   return (MB + cols - 1) / cols;
 }
 
+// the tiles in T, the round's cache rows (long long), then fp32 queries,
+// scores and state and int positions and table columns
+template <typename T>
 size_t smem_bytes(int W, int D, int bt_held, int stages) {
   const size_t w = static_cast<size_t>(W);
-  return sizeof(float) * (static_cast<size_t>(stages) * 2 * kTile * tile_ld(D) + 2 * kRound +
-                          w * round4(D) + w * (kRound + 1) + 4 * w + static_cast<size_t>(bt_held));
+  return sizeof(T) * static_cast<size_t>(stages) * 2 * kTile * tile_ld<T>(D) +
+         sizeof(long long) * kRound +
+         sizeof(float) * (w * round4(D) + w * (kRound + 1) + 4 * w + static_cast<size_t>(bt_held));
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
 
 // C: the cluster's CTAs per (head, sequence); cta_cols and bt_held as in
 // the kernel
-template <int kMaxW, bool kSplit, int kMaxD>
-int launch(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
+template <typename T, int kMaxW, bool kSplit, int kMaxD>
+int launch(const float* q, const T* k_cache, const T* v_cache, const int* block_tables,
            const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB, int C,
            int cta_cols, int bt_held, float scale, cudaStream_t stream) {
   // the most stages (tiles a round holds) that leave room for 4 CTAs an
   // SM in a single-pass launch (so the 384 CTAs of the serving shape run
   // in one wave) or 2 in a split launch (its CTAs are few, and 4 stages
-  // take a 128-column range of 16 positions in one round); at least one
+  // take a 128-column range of 16 positions in one round); at least one. At D = 64 and W <= 8 that is 3 stages for
+  // an fp32 cache and 4 for a 2-byte one
   const int wl = std::min(W, kMaxW);  // queries a CTA holds
   int stages = kMaxStages;
-  while (stages > 1 && smem_bytes(wl, D, bt_held, stages) > kSmemLimit / (kSplit ? 2 : 4)) --stages;
-  const size_t smem = smem_bytes(wl, D, bt_held, stages);
+  while (stages > 1 && smem_bytes<T>(wl, D, bt_held, stages) > kSmemLimit / (kSplit ? 2 : 4))
+    --stages;
+  const size_t smem = smem_bytes<T>(wl, D, bt_held, stages);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // raise the dynamic shared-memory limit once (the first launch of each
   // instance); later launches, such as those captured into a CUDA graph,
@@ -420,12 +495,17 @@ int launch(const float* q, const float* k_cache, const float* v_cache, const int
   static bool ready = false;
   if (!ready) {
     const cudaError_t e =
-        cudaFuncSetAttribute(paged_append_kernel<kMaxW, kSplit, kMaxD>,
+        cudaFuncSetAttribute(paged_append_kernel<T, kMaxW, kSplit, kMaxD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemLimit));
     if (e != cudaSuccess) return static_cast<int>(e);
     ready = true;
   }
-  const int vec = D % 4 == 0 && aligned16(k_cache) && aligned16(v_cache) ? 1 : 0;
+  // the widest copy every row takes: 16 bytes, 4 bytes, or (a 2-byte
+  // cache of odd D, or one not 4-byte aligned) one element
+  constexpr int kVec16 = 16 / sizeof(T), kVec4 = 4 / sizeof(T);
+  const bool a16 = aligned(k_cache, 16) && aligned(v_cache, 16);
+  const bool a4 = aligned(k_cache, 4) && aligned(v_cache, 4);
+  const int vec = D % kVec16 == 0 && a16 ? 2 : D % kVec4 == 0 && a4 ? 1 : 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, H, B * ((W + kMaxW - 1) / kMaxW));  // a cluster per (tile, head, sequence)
   cfg.blockDim = dim3(kThreads);
@@ -439,7 +519,7 @@ int launch(const float* q, const float* k_cache, const float* v_cache, const int
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, paged_append_kernel<kMaxW, kSplit, kMaxD>, q, k_cache, v_cache,
+      cudaLaunchKernelEx(&cfg, paged_append_kernel<T, kMaxW, kSplit, kMaxD>, q, k_cache, v_cache,
                          block_tables, q_positions, out, W, H, D, bs, MB, cta_cols, bt_held,
                          stages, vec, scale);
   if (e != cudaSuccess) {
@@ -449,22 +529,22 @@ int launch(const float* q, const float* k_cache, const float* v_cache, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kSplit, int kMaxD>
-int by_window(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
+template <typename T, bool kSplit, int kMaxD>
+int by_window(const float* q, const T* k_cache, const T* v_cache, const int* block_tables,
               const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB,
               int C, int cta_cols, int bt_held, float scale, cudaStream_t stream) {
   if (W == 1)
-    return launch<1, kSplit, kMaxD>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H,
-                                    D, bs, MB, C, cta_cols, bt_held, scale, stream);
+    return launch<T, 1, kSplit, kMaxD>(q, k_cache, v_cache, block_tables, q_positions, out, B, W,
+                                       H, D, bs, MB, C, cta_cols, bt_held, scale, stream);
   if (W <= 8)
-    return launch<8, kSplit, kMaxD>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H,
-                                    D, bs, MB, C, cta_cols, bt_held, scale, stream);
-  return launch<32, kSplit, kMaxD>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H,
-                                   D, bs, MB, C, cta_cols, bt_held, scale, stream);
+    return launch<T, 8, kSplit, kMaxD>(q, k_cache, v_cache, block_tables, q_positions, out, B, W,
+                                       H, D, bs, MB, C, cta_cols, bt_held, scale, stream);
+  return launch<T, 32, kSplit, kMaxD>(q, k_cache, v_cache, block_tables, q_positions, out, B, W,
+                                      H, D, bs, MB, C, cta_cols, bt_held, scale, stream);
 }
 
-template <bool kSplit>
-int dispatch(const float* q, const float* k_cache, const float* v_cache, const int* block_tables,
+template <typename T, bool kSplit>
+int dispatch(const float* q, const T* k_cache, const T* v_cache, const int* block_tables,
              const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB, int C,
              int cta_cols, int bt_held, float scale, cudaStream_t stream) {
   // grid z holds (sequence, query tile) pairs: at most 65535 of them
@@ -472,11 +552,11 @@ int dispatch(const float* q, const float* k_cache, const float* v_cache, const i
       C < 1 || C > kMaxCluster || cta_cols < 1 || bt_held < 1 ||
       static_cast<long long>(B) * ((W + kTile - 1) / kTile) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D > 256) return by_window<kSplit, 512>(q, k_cache, v_cache, block_tables, q_positions,
-                                             out, B, W, H, D, bs, MB, C, cta_cols, bt_held,
-                                             scale, stream);
-  return by_window<kSplit, 256>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D,
-                                bs, MB, C, cta_cols, bt_held, scale, stream);
+  if (D > 256) return by_window<T, kSplit, 512>(q, k_cache, v_cache, block_tables, q_positions,
+                                                out, B, W, H, D, bs, MB, C, cta_cols, bt_held,
+                                                scale, stream);
+  return by_window<T, kSplit, 256>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H,
+                                   D, bs, MB, C, cta_cols, bt_held, scale, stream);
 }
 
 }  // namespace
@@ -484,37 +564,47 @@ int dispatch(const float* q, const float* k_cache, const float* v_cache, const i
 // Plain C interface, bound with ctypes (flexflow_tpu_torch/ops/kernels/_build.py).
 // Every pointer is a device pointer; stream is a cudaStream_t. The
 // launches return the cudaError_t of the launch (0 on success), also
-// where the card refuses the cluster.
+// where the card refuses the cluster. q and out are fp32 in every form;
+// the suffix names the caches' element type (f32, bf16, f16).
 
-extern "C" int ff_paged_append_f32(const float* q, const float* k_cache, const float* v_cache,
-                                   const int* block_tables, const int* q_positions, float* out,
-                                   int B, int W, int H, int D, int bs, int MB, float scale,
-                                   void* stream) {
-  if (MB < 1 || bs < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<false>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs, MB,
-                         cluster_size(MB, bs), MB, std::min(MB, kTableWindow), scale,
-                         static_cast<cudaStream_t>(stream));
-}
-
-// the cluster size ff_paged_append_f32 launches for a table of MB columns
-// of bs positions (0 for an empty table)
-extern "C" int ff_paged_append_cluster_size(int MB, int bs) {
-  return MB < 1 || bs < 1 ? 0 : cluster_size(MB, bs);
-}
+// The single-pass form over a table of MB columns of bs positions.
+#define FF_PAGED_APPEND(NAME, T)                                                                 \
+  extern "C" int ff_paged_append_##NAME(const float* q, const T* k_cache, const T* v_cache,      \
+                                        const int* block_tables, const int* q_positions,         \
+                                        float* out, int B, int W, int H, int D, int bs, int MB,  \
+                                        float scale, void* stream) {                             \
+    if (MB < 1 || bs < 1) return static_cast<int>(cudaErrorInvalidValue);                        \
+    return dispatch<T, false>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D,   \
+                              bs, MB, cluster_size(MB, bs), MB, std::min(MB, kTableWindow),      \
+                              scale, static_cast<cudaStream_t>(stream));                         \
+  }
 
 // The split-KV form: a cluster of `ctas` CTAs per (head, sequence), CTA r
 // over table columns [r * cta_cols, (r + 1) * cta_cols), writing the
 // normalised [B, W, H, D] output. The plan (decode_attention.split_plan)
 // must cover the table with every CTA holding a column.
-extern "C" int ff_paged_append_split_f32(const float* q, const float* k_cache,
-                                         const float* v_cache, const int* block_tables,
-                                         const int* q_positions, float* out, int B, int W, int H,
-                                         int D, int bs, int MB, int ctas, int cta_cols,
-                                         float scale, void* stream) {
-  if (MB < 1 || ctas < 1 || cta_cols < 1 || static_cast<long long>(ctas) * cta_cols < MB ||
-      static_cast<long long>(ctas - 1) * cta_cols >= MB)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<true>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D, bs, MB,
-                        ctas, cta_cols, std::min(cta_cols, kTableWindow), scale,
-                        static_cast<cudaStream_t>(stream));
+#define FF_PAGED_APPEND_SPLIT(NAME, T)                                                           \
+  extern "C" int ff_paged_append_split_##NAME(                                                   \
+      const float* q, const T* k_cache, const T* v_cache, const int* block_tables,               \
+      const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB, int ctas,  \
+      int cta_cols, float scale, void* stream) {                                                 \
+    if (MB < 1 || ctas < 1 || cta_cols < 1 || static_cast<long long>(ctas) * cta_cols < MB ||    \
+        static_cast<long long>(ctas - 1) * cta_cols >= MB)                                       \
+      return static_cast<int>(cudaErrorInvalidValue);                                            \
+    return dispatch<T, true>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H, D,    \
+                             bs, MB, ctas, cta_cols, std::min(cta_cols, kTableWindow), scale,    \
+                             static_cast<cudaStream_t>(stream));                                 \
+  }
+
+FF_PAGED_APPEND(f32, float)
+FF_PAGED_APPEND(bf16, bf16)
+FF_PAGED_APPEND(f16, f16)
+FF_PAGED_APPEND_SPLIT(f32, float)
+FF_PAGED_APPEND_SPLIT(bf16, bf16)
+FF_PAGED_APPEND_SPLIT(f16, f16)
+
+// the cluster size ff_paged_append_* launches for a table of MB columns
+// of bs positions (0 for an empty table)
+extern "C" int ff_paged_append_cluster_size(int MB, int bs) {
+  return MB < 1 || bs < 1 ? 0 : cluster_size(MB, bs);
 }

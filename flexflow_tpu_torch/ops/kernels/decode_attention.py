@@ -19,7 +19,9 @@ Two lowerings, chosen by where the tensors lie:
   :func:`reference_paged_append_partials` that :func:`_combine_splits`
   finishes. They run for CPU tensors and are the parity oracle the CUDA
   kernels are held against on the card.
-* the CUDA kernels of ``csrc/paged_attention.cu`` — thread blocks that
+* the CUDA kernels of ``csrc/paged_attention.cu``, one form per cache
+  dtype (float32, bfloat16, float16: K and V widen exactly to float32;
+  q, the arithmetic and the output stay float32) — thread blocks that
   each stage one range of a sequence's table columns through shared
   memory, one thread-block cluster per (head, sequence), whose blocks
   combine their softmax states through distributed shared memory in the
@@ -32,7 +34,9 @@ Two lowerings, chosen by where the tensors lie:
   tensor :func:`paged_append_attention` launches the kernel or raises; it
   never falls back to the plain version.
 
-Each kernel launch adds one to its count in :data:`LAUNCHES`, so a run
+Each kernel launch adds one to its form's count in :data:`LAUNCHES`
+(``paged_append`` and ``paged_append_split`` for a float32 cache, with
+``_bf16`` or ``_f16`` for a 2-byte one), so a run
 can show that its main path went through the kernels. The count is kept
 on the Python side, where the wrapper launches: a CUDA graph that
 captured the launches replays them without the wrapper, so the graph's
@@ -51,9 +55,15 @@ MAX_GRID_Z = 65535  # (sequence, query tile) pairs a launch can hold
 MAX_HEAD_DIM = 512  # the kernel's widest instance (kMaxD in csrc/paged_attention.cu)
 MAX_CLUSTER = 8  # the portable thread-block cluster size the kernels launch
 
+# the kernels' form per cache dtype: (symbol suffix, launch-count suffix)
+_FORMS = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", "_bf16"),
+          torch.float16: ("f16", "_f16")}
 # launches of each CUDA kernel in this process (plain integers; a caller
 # resets them with reset_launch_counts() before the run it measures)
-LAUNCHES: Dict[str, int] = {"paged_append": 0, "paged_append_split": 0}
+LAUNCHES: Dict[str, int] = {
+    f"{kernel}{count}": 0
+    for _, count in _FORMS.values() for kernel in ("paged_append", "paged_append_split")
+}
 
 
 def reset_launch_counts() -> None:
@@ -229,18 +239,23 @@ def default_kv_splits(batch: int, max_blocks: int) -> int:
 
 def _check_kernel_inputs(q, k_cache, v_cache, block_tables, q_positions) -> None:
     """Everything the CUDA kernel assumes, checked before a pointer is
-    passed: one device, fp32 data, int32 indices, the JAX layouts,
-    contiguity, head_dim <= 256, and at most 65535 (sequence, query
-    tile) pairs: any window W >= 1 is taken, in tiles of
+    passed: one device, float32 q, caches of one dtype the kernels have
+    a form for (float32, bfloat16, float16), int32 indices, the JAX
+    layouts, contiguity, head_dim <= 512, and at most 65535 (sequence,
+    query tile) pairs: any window W >= 1 is taken, in tiles of
     :data:`WINDOW_TILE` queries."""
     dev = q.device
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
                     ("block_tables", block_tables), ("q_positions", q_positions)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"paged attention kernel takes float32 {name}, got {t.dtype}")
+    if q.dtype != torch.float32:
+        raise TypeError(f"paged attention kernel takes float32 q, got {q.dtype}")
+    if k_cache.dtype not in _FORMS or v_cache.dtype != k_cache.dtype:
+        raise TypeError(
+            "paged attention kernel takes k_cache and v_cache of one dtype among "
+            f"{sorted(str(d) for d in _FORMS)}, got {k_cache.dtype} and {v_cache.dtype}"
+        )
     for name, t in (("block_tables", block_tables), ("q_positions", q_positions)):
         if t.dtype != torch.int32:
             raise TypeError(f"paged attention kernel takes int32 {name}, got {t.dtype}")
@@ -299,47 +314,49 @@ def kernel_cluster_size(max_blocks: int, block_size: int) -> int:
 def paged_append_attention_kernel(
     q, k_cache, v_cache, block_tables, q_positions, scale: float
 ) -> torch.Tensor:
-    """Launch the single-pass CUDA kernel (no split): returns the
-    normalised [B, W, H, D] output."""
+    """Launch the single-pass CUDA kernel (no split) of the caches'
+    dtype: returns the normalised float32 [B, W, H, D] output."""
     from ._build import load_library
 
     _check_kernel_inputs(q, k_cache, v_cache, block_tables, q_positions)
-    lib = load_library()
+    form, count = _FORMS[k_cache.dtype]
+    symbol = f"ff_paged_append_{form}"
     b, w, h, d = q.shape
     out = torch.empty_like(q)
-    rc = lib.ff_paged_append_f32(
+    rc = getattr(load_library(), symbol)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
         b, w, h, d, k_cache.shape[1], block_tables.shape[1], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on_error(rc, "ff_paged_append_f32")
-    LAUNCHES["paged_append"] += 1
+    _raise_on_error(rc, symbol)
+    LAUNCHES["paged_append" + count] += 1
     return out
 
 
 def paged_append_split_kernel(
     q, k_cache, v_cache, block_tables, q_positions, kv_splits: int, scale: float
 ) -> torch.Tensor:
-    """Launch the split-KV CUDA kernel: one cluster of
-    ``split_plan(kv_splits, MB)[0]`` blocks per (head, sequence), combined
-    on-chip; returns the normalised [B, W, H, D] output of
-    ``_combine_splits(reference_paged_append_partials(...))``."""
+    """Launch the split-KV CUDA kernel of the caches' dtype: one cluster
+    of ``split_plan(kv_splits, MB)[0]`` blocks per (head, sequence),
+    combined on-chip; returns the normalised float32 [B, W, H, D] output
+    of ``_combine_splits(reference_paged_append_partials(...))``."""
     from ._build import load_library
 
     _check_kernel_inputs(q, k_cache, v_cache, block_tables, q_positions)
-    lib = load_library()
+    form, count = _FORMS[k_cache.dtype]
+    symbol = f"ff_paged_append_split_{form}"
     b, w, h, d = q.shape
     ctas, cols = split_plan(kv_splits, block_tables.shape[1])
     out = torch.empty_like(q)
-    rc = lib.ff_paged_append_split_f32(
+    rc = getattr(load_library(), symbol)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
         b, w, h, d, k_cache.shape[1], block_tables.shape[1], ctas, cols,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on_error(rc, "ff_paged_append_split_f32")
-    LAUNCHES["paged_append_split"] += 1
+    _raise_on_error(rc, symbol)
+    LAUNCHES["paged_append_split" + count] += 1
     return out
 
 
@@ -358,8 +375,9 @@ def paged_append_attention(
     ``kv_splits`` independent ranges whose partial softmaxes recombine
     exactly.
 
-    CUDA tensors launch the CUDA kernel, one launch either way (and raise
-    on shapes or types it does not take); CPU tensors take the plain
+    CUDA tensors launch the CUDA kernel of the caches' dtype, one launch
+    either way (and raise on shapes or types it does not take: q must be
+    float32, the caches float32, bfloat16 or float16); CPU tensors take the plain
     PyTorch version of the same computation (for ``kv_splits > 1``, the
     partials and :func:`_combine_splits`)."""
     if scale is None:

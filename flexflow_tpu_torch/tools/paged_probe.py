@@ -1,6 +1,6 @@
 """Probes of the paged attention kernels' design on one NVIDIA GPU.
 
-    python3 -m flexflow_tpu_torch.tools.paged_probe
+    python3 -m flexflow_tpu_torch.tools.paged_probe [--kv-dtype float32|bfloat16|float16]
 
 Builds copies of ``ops/kernels/csrc/paged_attention.cu`` with one design
 choice changed each (a text substitution: :data:`VARIANTS` for the
@@ -18,7 +18,9 @@ measure what a part of the kernel costs). The split cases also time the
 single-pass kernel on the same inputs (its cluster of 8 = S at the
 long-context shape, sharing the live positions). It also prints how many
 clusters of the decode launch the card can hold at once
-(``cudaOccupancyMaxActiveClusters``).
+(``cudaOccupancyMaxActiveClusters``). ``--kv-dtype`` picks the cache
+form the cases run (the kernels' ``_f32``, ``_bf16`` or ``_f16``
+symbols over caches of that dtype; q stays float32).
 
 Builds land in ``ops/kernels/_build/probe/``; nothing runs at import.
 """
@@ -41,8 +43,11 @@ VARIANTS = {
                        "    const int cols = (MB + S - 1) / S;\n"
                        "    pos0 = s * cols * bs;\n"
                        "    pos1 = min(min(MB, (s + 1) * cols) * bs, live);\n")],
-    # rows padded to 16 mod 32 floats (no bank conflicts in the score reads)
-    "rows_16_mod_32": [("{ return round4(d) + 4; }", "{ return (round4(d) + 47) / 32 * 32 - 16; }")],
+    # fp32 rows padded to 16 mod 32 floats (no bank conflicts in the score
+    # reads); 2-byte rows padded by 8 elements (4 banks) instead of 16
+    "rows_16_mod_32": [("sizeof(T) == 4 ? round4(d) + 4 :",
+                        "sizeof(T) == 4 ? (round4(d) + 47) / 32 * 32 - 16 :")],
+    "two_byte_rows_plus_8": [("((d + 7) & ~7) + 16;", "((d + 7) & ~7) + 8;")],
     "cta_positions_256": [("constexpr int kCtaPositions = 128;",
                            "constexpr int kCtaPositions = 256;")],
     "probe_no_compute": [("    // scores of position quad_t of every tile with every query\n",
@@ -58,7 +63,7 @@ SPLIT_PROBES = ("probe_no_compute", "probe_no_combine", "probe_launch_only")
 
 _COMBINE_START = "  // combine the cluster's CTAs exactly, through distributed shared memory\n"
 _COMBINE_END = "  cluster.sync();  // no CTA exits while another still reads its shared memory\n"
-_KERNEL = "// kMaxW: the queries a CTA takes"
+_KERNEL = "// T: the cache's element type"
 
 # (b): no cluster; each CTA writes its partials to a global scratch, and
 # the last CTA of a (head, sequence) to arrive (an atomic ticket after a
@@ -124,32 +129,33 @@ _TICKET_COMBINE = """  {
 # rank 0's shared memory, arrives at the cluster barrier and exits; rank 0
 # alone waits and combines, so the combine costs one barrier, not two. A
 # barrier phase at the kernel's start (arrive at once, wait before the
-# remote writes) makes sure every CTA of the cluster has started.
+# remote writes) makes sure every CTA of the cluster has started. Each
+# CTA's record holds the layout's Wl queries; the tile's Wt are written.
 _PUSH_COMBINE = """  cg::cluster_group cluster = cg::this_cluster();
-  const int rec = 2 * W + W * D;
+  const int rec = 2 * Wl + Wl * D;
   float* recv_s = reinterpret_cast<float*>(bt_s + bt_held);  // rank 0: [S][m, l, acc]
   asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");
   float* dst = cluster.map_shared_rank(recv_s, 0) + s * rec;
-  for (int w = tid; w < W; w += kThreads) {
+  for (int w = tid; w < Wt; w += kThreads) {
     dst[w] = m_s[w];
-    dst[W + w] = l_s[w];
+    dst[Wl + w] = l_s[w];
   }
 #pragma unroll
   for (int k = 0; k < kPairs; ++k) {
     const int idx = tid + k * kThreads;
-    if (idx < W * D) dst[2 * W + idx] = acc[k];
+    if (idx < Wt * D) dst[2 * Wl + idx] = acc[k];
   }
   asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: "memory");
   if (s != 0) return;
   asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");
-  for (int idx = tid; idx < W * D; idx += kThreads) {
+  for (int idx = tid; idx < Wt * D; idx += kThreads) {
     const int w = idx / D, d = idx - w * D;
     float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r) {
       mr[r] = r < S ? recv_s[r * rec + w] : kNegInf;
-      lr[r] = r < S ? recv_s[r * rec + W + w] : 0.f;
-      ar[r] = r < S ? recv_s[r * rec + 2 * W + idx] : 0.f;
+      lr[r] = r < S ? recv_s[r * rec + Wl + w] : 0.f;
+      ar[r] = r < S ? recv_s[r * rec + 2 * Wl + idx] : 0.f;
     }
     float mx = kNegInf;
 #pragma unroll
@@ -162,7 +168,7 @@ _PUSH_COMBINE = """  cg::cluster_group cluster = cg::this_cluster();
       num = fmaf(ar[r], a, num);
       den = fmaf(lr[r], a, den);
     }
-    out[(static_cast<long long>(b) * W + w) * HD + static_cast<long long>(h) * D + d] =
+    out[(static_cast<long long>(b) * W + w0 + w) * HD + static_cast<long long>(h) * D + d] =
         qp_s[w] >= 0 ? num / fmaxf(den, 1e-30f) : 0.f;
   }
 """
@@ -174,7 +180,7 @@ SPLIT_VARIANTS = {
     "cluster16": [("constexpr int kMaxCluster = 8;", "constexpr int kMaxCluster = 16;"),
                   ("    if (e != cudaSuccess) return static_cast<int>(e);\n    ready = true;\n",
                    "    if (e != cudaSuccess) return static_cast<int>(e);\n"
-                   "    cudaFuncSetAttribute(paged_append_kernel<kMaxW, kSplit, kMaxD>,\n"
+                   "    cudaFuncSetAttribute(paged_append_kernel<T, kMaxW, kSplit, kMaxD>,\n"
                    "                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
                    "    ready = true;\n")],
     # rounds of at most 3 tiles (a quarter of an SM's shared memory, as
@@ -186,24 +192,25 @@ SPLIT_VARIANTS = {
                ("  cfg.numAttrs = 1;\n", "  cfg.numAttrs = kSplit ? 0 : 1;\n")],
     # the combine pushed into rank 0's shared memory (one barrier)
     "push": [((_COMBINE_START, _COMBINE_END), _PUSH_COMBINE),
-             ("  int* bt_s = qp_s + W;", "  asm volatile(\"barrier.cluster.arrive.relaxed.aligned;\\n\" ::: "
-              "\"memory\");\n  int* bt_s = qp_s + W;"),
+             ("  int* bt_s = qp_s + Wl;", "  asm volatile(\"barrier.cluster.arrive.relaxed.aligned;\\n\" ::: "
+              "\"memory\");\n  int* bt_s = qp_s + Wl;"),
              ("static_cast<size_t>(bt_held));",
               "static_cast<size_t>(bt_held) + kMaxCluster * (2 * w + w * D));")],
 }
 
 
 OCCUPANCY_CU = r"""
-extern "C" int ff_probe_max_active_clusters(int W, int D, int MB, int bs, int H, int B) {
+template <typename T>
+int max_active_clusters(int W, int D, int MB, int bs, int H, int B) {
   const int c = cluster_size(MB, bs);
   int stages = kMaxStages;
-  while (stages > 1 && smem_bytes(W, D, MB, stages) > kSmemLimit / 4) --stages;
-  cudaFuncSetAttribute(paged_append_kernel<1, false, 256>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(kSmemLimit));
+  while (stages > 1 && smem_bytes<T>(W, D, MB, stages) > kSmemLimit / 4) --stages;
+  cudaFuncSetAttribute(paged_append_kernel<T, 1, false, 256>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemLimit));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c, H, B);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes(W, D, MB, stages);
+  cfg.dynamicSmemBytes = smem_bytes<T>(W, D, MB, stages);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = c;
@@ -212,8 +219,17 @@ extern "C" int ff_probe_max_active_clusters(int W, int D, int MB, int bs, int H,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = -1;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, paged_append_kernel<1, false, 256>, &cfg);
+  const cudaError_t e =
+      cudaOccupancyMaxActiveClusters(&n, paged_append_kernel<T, 1, false, 256>, &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// the decode launch's clusters the card holds at once, by cache element
+// size (4: fp32, 2: bf16; fp16 takes bf16's shared memory)
+extern "C" int ff_probe_max_active_clusters(int W, int D, int MB, int bs, int H, int B,
+                                            int kv_bytes) {
+  return kv_bytes == 4 ? max_active_clusters<float>(W, D, MB, bs, H, B)
+                       : max_active_clusters<bf16>(W, D, MB, bs, H, B);
 }
 """
 
@@ -235,11 +251,11 @@ def _substituted(base: str, name: str, subs) -> str:
     return text
 
 
-def _inputs(torch, gen, ctx_lens, w, copies, nb=257, bs=16, h=12, d=64, mb=64):
+def _inputs(torch, gen, ctx_lens, w, copies, kv_dtype, nb=257, bs=16, h=12, d=64, mb=64):
     """``copies`` sets of (q, k, v, tables, positions) of the kernel phase
-    of chip_smoke.py: tables over a random permutation of the blocks,
-    window ``w`` ending at each context's last position (a context of 0
-    is a padding-only slot)."""
+    of chip_smoke.py, caches of ``kv_dtype``: tables over a random
+    permutation of the blocks, window ``w`` ending at each context's last
+    position (a context of 0 is a padding-only slot)."""
     import numpy as np
 
     rs = np.random.RandomState(0)
@@ -256,8 +272,9 @@ def _inputs(torch, gen, ctx_lens, w, copies, nb=257, bs=16, h=12, d=64, mb=64):
     bt = torch.from_numpy(tables).to(dev)
     qp = torch.from_numpy(qpos.astype(np.int32)).to(dev)
     return [(torch.randn((len(ctx_lens), w, h, d), generator=gen).to(dev),
-             torch.randn((nb, bs, h, d), generator=gen).to(dev),
-             torch.randn((nb, bs, h, d), generator=gen).to(dev), bt, qp) for _ in range(copies)]
+             torch.randn((nb, bs, h, d), generator=gen).to(dev, kv_dtype),
+             torch.randn((nb, bs, h, d), generator=gen).to(dev, kv_dtype), bt, qp)
+            for _ in range(copies)]
 
 
 def _graph_ms(torch, fn, sets, iters=16, reps=5):
@@ -280,11 +297,19 @@ def _graph_ms(torch, fn, sets, iters=16, reps=5):
 
 
 def main(argv=None) -> int:
+    import argparse
+
     import torch
 
     from flexflow_tpu_torch.ops.kernels import _build
     from flexflow_tpu_torch.ops.kernels import decode_attention as da
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kv-dtype", choices=("float32", "bfloat16", "float16"), default="float32",
+                    help="the KV cache's dtype: which form of the kernels the cases time")
+    args = ap.parse_args(argv)
+    kv_dtype = getattr(torch, args.kv_dtype)
+    form = da._FORMS[kv_dtype][0]
     if not torch.cuda.is_available():
         print("paged_probe: no CUDA device is available", file=sys.stderr)
         return 2
@@ -295,22 +320,24 @@ def main(argv=None) -> int:
     libs = {}
     for name, (so, _) in _compile(sources).items():
         lib = ctypes.CDLL(str(so))
-        for fn in ("ff_paged_append_f32", "ff_paged_append_split_f32"):
+        for fn in (f"ff_paged_append_{form}", f"ff_paged_append_split_{form}"):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     print(_card())
-    print("decode launch (W=1, D=64, 64 columns of 16, H=12, B=4): the card holds "
-          f"{libs['source'].ff_probe_max_active_clusters(1, 64, 64, 16, 12, 4)} clusters at once")
+    clusters = libs["source"].ff_probe_max_active_clusters(1, 64, 64, 16, 12, 4,
+                                                          kv_dtype.itemsize)
+    print(f"{args.kv_dtype} cache, decode launch (W=1, D=64, 64 columns of 16, H=12, B=4): "
+          f"the card holds {clusters} clusters at once")
 
     def single(lib):
         def run(q, k, v, bt, qp):
             b, w, h, d = q.shape
             out = torch.empty_like(q)
-            rc = lib.ff_paged_append_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(),
-                                         qp.data_ptr(), out.data_ptr(), b, w, h, d, k.shape[1],
-                                         bt.shape[1], d ** -0.5,
-                                         torch.cuda.current_stream().cuda_stream)
+            rc = getattr(lib, f"ff_paged_append_{form}")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(), qp.data_ptr(),
+                out.data_ptr(), b, w, h, d, k.shape[1], bt.shape[1], d ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"launch failed: cudaError_t {rc}")
             return out
@@ -321,7 +348,7 @@ def main(argv=None) -> int:
             b, w, h, d = q.shape
             ctas, cols = da.split_plan(s, bt.shape[1], max_ctas)
             out = torch.empty_like(q)
-            rc = lib.ff_paged_append_split_f32(
+            rc = getattr(lib, f"ff_paged_append_split_{form}")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(), qp.data_ptr(),
                 out.data_ptr(), b, w, h, d, k.shape[1], bt.shape[1], ctas, cols, d ** -0.5,
                 torch.cuda.current_stream().cuda_stream)
@@ -350,7 +377,7 @@ def main(argv=None) -> int:
              "split B=1 S=64 ctx 931": ([931], 1, split_runs(64)),
              "split B=1 S=8 ctx 300": ([300], 1, split_runs(8))}
     for case, (ctx, w, runs) in cases.items():
-        sets = _inputs(torch, gen, ctx, w, copies=8)
+        sets = _inputs(torch, gen, ctx, w, copies=8, kv_dtype=kv_dtype)
         want = da.reference_paged_append_attention(*sets[0])
         times = {name: [] for name in runs}
         for order in (list(runs), list(reversed(list(runs)))):

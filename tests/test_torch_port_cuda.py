@@ -28,6 +28,11 @@ from flexflow_tpu_torch.ops.kernels import flash_attention as fa
 pytestmark = [pytest.mark.torch_port, pytest.mark.gpu]
 
 
+# every form of the paged kernels (fp32, bf16 and fp16 caches) at no launch
+PAGED_NONE = {f"{kernel}{form}": 0 for form in ("", "_bf16", "_f16")
+              for kernel in ("paged_append", "paged_append_split")}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -139,15 +144,15 @@ def test_cuda_dq_kernel_into_unaligned_output(cuda):
                                atol=1e-4, rtol=1e-4)
 
 
-def _paged_case(cuda, qpos, h, d, bs, mb, seed):
-    """Random caches and tables for positions ``qpos`` [B, W]; block 0 is
-    scratch, as in the engine's cache."""
+def _paged_case(cuda, qpos, h, d, bs, mb, seed, kv_dtype=torch.float32):
+    """Random caches (of ``kv_dtype``) and tables for positions ``qpos``
+    [B, W]; block 0 is scratch, as in the engine's cache."""
     rs = np.random.RandomState(seed)
     b = qpos.shape[0]
     nb = b * mb + 1
     tables = rs.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb).astype(np.int32)
     gen = torch.Generator().manual_seed(seed)
-    k, v = (torch.randn(nb, bs, h, d, generator=gen).to(cuda) for _ in range(2))
+    k, v = (torch.randn(nb, bs, h, d, generator=gen).to(cuda, kv_dtype) for _ in range(2))
     q = torch.randn(b, qpos.shape[1], h, d, generator=gen).to(cuda)
     return (q, k, v, torch.from_numpy(tables).to(cuda),
             torch.from_numpy(np.ascontiguousarray(qpos, np.int32)).to(cuda))
@@ -199,7 +204,7 @@ def test_cuda_paged_wide_windows_match_plain(cuda, w, start):
     args = _paged_case(cuda, qpos, 4, 64, 16, 64, seed=w + start)
     da.reset_launch_counts()
     _check_paged(args)
-    assert da.LAUNCHES == {"paged_append": 1, "paged_append_split": 0}
+    assert da.LAUNCHES == {**PAGED_NONE, "paged_append": 1}
     _check_split(args, 8)
 
 
@@ -222,7 +227,7 @@ def _check_split(args, kv_splits):
     single-pass plain version: one launch, no single-pass launch."""
     da.reset_launch_counts()
     got = da.paged_append_attention(*args, kv_splits=kv_splits)
-    assert da.LAUNCHES == {"paged_append": 0, "paged_append_split": 1}
+    assert da.LAUNCHES == {**PAGED_NONE, "paged_append_split": 1}
     partials = da.reference_paged_append_partials(*args, kv_splits)
     torch.testing.assert_close(got, da._combine_splits(*partials, args[4], torch.float32),
                                atol=1e-4, rtol=1e-4)
@@ -274,7 +279,7 @@ def test_cuda_paged_split_takes_a_table_too_wide_for_the_single_pass_kernel(cuda
     args = (q, k, v, tables, qpos)
     da.reset_launch_counts()
     _check_paged(args)
-    assert da.LAUNCHES == {"paged_append": 1, "paged_append_split": 0}
+    assert da.LAUNCHES == {**PAGED_NONE, "paged_append": 1}
     for splits in (16, mb):
         _check_split(args, splits)
 
@@ -315,6 +320,102 @@ def test_cuda_paged_split_replays_in_a_cuda_graph(cuda):
                                    atol=0, rtol=0)
         torch.testing.assert_close(out, da.reference_paged_append_attention(*args),
                                    atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("w,h,d,bs,mb", [
+    (1, 12, 64, 16, 64),  # the serving decode shape (16-byte copies)
+    (5, 4, 33, 5, 30),  # odd head dim: plain 2-byte loads, odd block size
+    (3, 2, 6, 7, 12),  # D % 8 != 0, even: 4-byte copies
+    (40, 2, 512, 16, 20),  # the 512-wide instance, a 32-query tile and a second one
+    (1, 2, 512, 16, 20),
+])
+def test_cuda_paged_two_byte_cache_forms_match_plain(cuda, kv_dtype, w, h, d, bs, mb):
+    """The bf16 and fp16 forms of both paged kernels against the plain
+    version over the same 2-byte caches (both widen K and V exactly and
+    compute in fp32: the fp32 gate), each launching its own form only;
+    padding queries give exact zeros."""
+    rs = np.random.RandomState(w * 100 + d)
+    base = rs.randint(0, mb * bs - w, (3, 1))
+    qpos = base + np.arange(w)[None, :]
+    qpos[rs.rand(3, w) < 0.2] = -1
+    qpos[2] = -1
+    args = _paged_case(cuda, qpos, h, d, bs, mb, seed=w + d, kv_dtype=kv_dtype)
+    form = "_bf16" if kv_dtype == torch.bfloat16 else "_f16"
+    da.reset_launch_counts()
+    got = da.paged_append_attention(*args)
+    assert da.LAUNCHES == {**PAGED_NONE, f"paged_append{form}": 1}
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, da.reference_paged_append_attention(*args),
+                               atol=1e-4, rtol=1e-4)
+    assert bool((got[args[4] < 0] == 0).all()), "padding queries must give exact zeros"
+    for splits in (3, mb):
+        da.reset_launch_counts()
+        got = da.paged_append_attention(*args, kv_splits=splits)
+        assert da.LAUNCHES == {**PAGED_NONE, f"paged_append_split{form}": 1}
+        partials = da.reference_paged_append_partials(*args, splits)
+        torch.testing.assert_close(got, da._combine_splits(*partials, args[4], torch.float32),
+                                   atol=1e-4, rtol=1e-4)
+        assert bool((got[args[4] < 0] == 0).all())
+
+
+def test_cuda_paged_two_byte_cache_unaligned_rows(cuda):
+    """A bf16 cache that starts 4 bytes past a 16-byte boundary takes the
+    4-byte copies (D = 64), one 2 bytes past takes plain loads: both
+    match the plain version."""
+    qpos = np.asarray([[300, 301], [17, -1]])
+    q, k, v, bt, qp = _paged_case(cuda, qpos, 4, 64, 16, 32, seed=31, kv_dtype=torch.bfloat16)
+    for shift in (2, 1):  # elements: 4 and 2 bytes
+        kb = torch.empty(k.numel() + 8, dtype=k.dtype, device=cuda)
+        vb = torch.empty_like(kb)
+        ks, vs = kb[shift:shift + k.numel()].view_as(k), vb[shift:shift + v.numel()].view_as(v)
+        ks.copy_(k)
+        vs.copy_(v)
+        assert ks.data_ptr() % 16 == 2 * shift
+        got = da.paged_append_attention(q, ks, vs, bt, qp)
+        torch.testing.assert_close(got, da.reference_paged_append_attention(q, k, v, bt, qp),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_engine_serves_from_a_bf16_cache(cuda):
+    """A graph engine over a bf16 cache: its greedy streams equal an
+    eager engine's over the same cache dtype, every decode step launches
+    the bf16 kernel once a layer (the fp32 forms never), and a decode
+    step's logits agree with plain attention over the same cache within
+    1e-3."""
+    from flexflow_tpu_torch.core.types import DataType
+    from flexflow_tpu_torch.generation import CacheConfig
+    from flexflow_tpu_torch.generation.decoder import decode_step
+
+    cfg = TransformerConfig(num_layers=2, hidden_size=128, num_heads=2, ff_size=256,
+                            seq_length=64, vocab_size=97, causal=True)
+    params = init_decoder_params(torch.Generator().manual_seed(7), cfg)
+    cc = CacheConfig(num_layers=2, num_heads=2, head_dim=64, num_blocks=40, block_size=8,
+                     dtype=DataType.BFLOAT16)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6], list(range(10, 30)), [7] * 5]
+    streams = {}
+    for eager in (False, True):
+        engine = GenerationEngine(params, cfg, cache_config=cc, max_batch_slots=3,
+                                  prompt_buckets=(8, 16, 32, 64), device=cuda,
+                                  eager_steps=eager, prefix_cache=False)
+        assert engine.cache.k.dtype == torch.bfloat16
+        engine.generate(prompts, SamplingParams(max_new_tokens=3))  # every step captured
+        decode0 = engine.step_counts["decode"]
+        da.reset_launch_counts()
+        streams[eager] = engine.generate(prompts, SamplingParams(max_new_tokens=10))
+        steps = engine.step_counts["decode"] - decode0
+        assert da.LAUNCHES == {**PAGED_NONE, "paged_append_bf16": cfg.num_layers * steps}
+    assert streams[False] == streams[True]
+    tok = torch.tensor([5, 6, 7], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([8, 20, 5], dtype=torch.int32, device=cuda)
+    tables = torch.tensor([[1, 2, 0, 0, 0, 0, 0, 0], [3, 4, 5, 0, 0, 0, 0, 0],
+                           [6, 0, 0, 0, 0, 0, 0, 0]], dtype=torch.int32, device=cuda)
+    logits = {}
+    for backend in ("auto", "plain"):
+        ck, cv = engine.cache.k.clone(), engine.cache.v.clone()
+        logits[backend], _, _ = decode_step(engine.params, tok, pos, ck, cv, tables, pos + 1,
+                                            backend=backend)
+    torch.testing.assert_close(logits["auto"], logits["plain"], atol=1e-3, rtol=0)
 
 
 def _bf16_close(name, got, want):
@@ -487,11 +588,20 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.randn(1, 16, 1, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
-    # the paged kernel has no bf16 form: a bf16 input raises, no fallback
-    args = list(_paged_case(cuda, np.asarray([[10]]), 2, 64, 16, 4, seed=3))
-    args[:3] = [t.bfloat16() for t in args[:3]]
-    with pytest.raises(TypeError):
-        da.paged_append_attention(*args)
+    # the paged kernels take fp32 q over fp32, bf16 or fp16 caches of one
+    # dtype: a bf16 q, mismatched caches or a float64 cache raise, with no
+    # fallback and no launch
+    args = _paged_case(cuda, np.asarray([[10]]), 2, 64, 16, 4, seed=3)
+    q, k, v = args[:3]
+    da.reset_launch_counts()
+    for bad in ((q.bfloat16(), k.bfloat16(), v.bfloat16()),
+                (q, k.bfloat16(), v.half()),
+                (q, k.bfloat16(), v),
+                (q, k.double(), v.double())):
+        for splits in (1, 2):
+            with pytest.raises(TypeError):
+                da.paged_append_attention(*bad, *args[3:], kv_splits=splits)
+    assert da.LAUNCHES == PAGED_NONE
 
 
 # ---------------------------------------------------------------------------
@@ -902,6 +1012,30 @@ def test_cuda_masked_steps_replay_bit_identical_to_eager(cuda):
         assert not any(m.any() for m in _mask_tensors(graph))
     assert graph.trace_counts == eager.trace_counts == {
         "prefill[8]": 1, "prefill[16]": 1, "prefill[32]": 1, "decode": 1, "verify": 1}
+
+
+def test_cuda_capture_survives_a_dead_engine_in_a_reference_cycle(cuda):
+    """A graph engine that died in a reference cycle is collected before
+    the next capture, not inside it (destroying its graphs there would
+    invalidate the capture): with the cyclic collector at its most eager,
+    a second engine still captures its steps and serves."""
+    import gc
+
+    params = init_decoder_params(torch.Generator().manual_seed(4), GRAPH_CFG)
+    kw = dict(max_batch_slots=3, block_size=8, prompt_buckets=(8, 16, 32, 64), device=cuda)
+    dead = GenerationEngine(params, GRAPH_CFG, **kw)
+    want = dead.generate([[1, 2, 3]], SamplingParams(max_new_tokens=4))  # captures its graphs
+    dead.cycle = dead  # unreachable now only to the cyclic collector
+    del dead
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        live = GenerationEngine(params, GRAPH_CFG, **kw)
+        got = live.generate([[1, 2, 3]], SamplingParams(max_new_tokens=4))
+    finally:
+        gc.set_threshold(*threshold)
+    assert got == want
+    assert live.trace_counts["decode"] == 1
 
 
 def test_cuda_unconstrained_replay_after_a_masked_step_equals_a_fresh_engine(cuda):

@@ -234,7 +234,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tda.reset_launch_counts()
     for splits in (1, 2):
         tda.paged_append_attention(*inputs, kv_splits=splits)
-    assert tda.LAUNCHES == {"paged_append": 0, "paged_append_split": 0}
+    assert tda.LAUNCHES == {f"{kernel}{form}": 0 for form in ("", "_bf16", "_f16")
+                            for kernel in ("paged_append", "paged_append_split")}
 
 
 def test_kernel_input_checks():

@@ -22,10 +22,12 @@ from flexflow_tpu.generation import SamplingParams as JSamplingParams
 from flexflow_tpu.generation import SpeculationConfig as JSpeculationConfig
 from flexflow_tpu.generation import init_decoder_params as jinit_decoder_params
 from flexflow_tpu.generation import recovery as jrecovery
+from flexflow_tpu.core.types import DataType as JDataType
 from flexflow_tpu.generation.cache import CacheConfig as JCacheConfig
 from flexflow_tpu.models.transformer import TransformerConfig as JTransformerConfig
 from flexflow_tpu.runtime import faults as jfaults
 from flexflow_tpu.serving import resilience as jresilience
+from flexflow_tpu_torch.core.types import DataType
 from flexflow_tpu_torch.generation import (
     CacheConfig,
     ContinuousBatchingScheduler,
@@ -99,17 +101,20 @@ def jparams(nan: bool = False, cfg=None):
 
 
 def engine(side: Side, *, slots=3, num_blocks=40, prefix_cache=False, donate=None,
-           nan=False, cfg=None):
+           nan=False, cfg=None, kv_dtype="FLOAT"):
     """An engine of the tiny config (``cfg``: other TransformerConfig
-    kwargs) and its ``resets`` before the run."""
+    kwargs) over a KV cache of ``kv_dtype`` (a DataType member's name,
+    the same in both packages) and its ``resets`` before the run."""
     cfg = cfg or CFG_KW
     if side is JAX:
-        key = (slots, num_blocks, prefix_cache, donate, nan, tuple(sorted(cfg.items())))
+        key = (slots, num_blocks, prefix_cache, donate, nan, tuple(sorted(cfg.items())),
+               kv_dtype)
         eng = _JENGINES.get(key)
         if eng is None:
             cc = JCacheConfig(num_layers=cfg["num_layers"], num_heads=cfg["num_heads"],
                               head_dim=cfg["hidden_size"] // cfg["num_heads"],
-                              block_size=BLOCK, num_blocks=num_blocks)
+                              block_size=BLOCK, num_blocks=num_blocks,
+                              dtype=JDataType[kv_dtype])
             eng = _JENGINES[key] = JEngine(
                 jparams(nan, cfg), JTransformerConfig(**cfg), cache_config=cc,
                 max_batch_slots=slots, prompt_buckets=BUCKETS, prefix_cache=prefix_cache,
@@ -120,7 +125,7 @@ def engine(side: Side, *, slots=3, num_blocks=40, prefix_cache=False, donate=Non
         return eng, eng.resets
     cc = CacheConfig(num_layers=cfg["num_layers"], num_heads=cfg["num_heads"],
                      head_dim=cfg["hidden_size"] // cfg["num_heads"],
-                     block_size=BLOCK, num_blocks=num_blocks)
+                     block_size=BLOCK, num_blocks=num_blocks, dtype=DataType[kv_dtype])
     params = decoder_params_from_numpy(jax.tree.map(np.asarray, jparams(nan, cfg)))
     eng = GenerationEngine(params, TransformerConfig(**cfg), cache_config=cc,
                            max_batch_slots=slots, prompt_buckets=BUCKETS,
