@@ -11,16 +11,19 @@ prints no result line):
    and the built flash library's SASS (cuobjdump), which must hold
    tensor-core HMMA instructions in every instance of the forward, dQ
    and dK/dV tensor-core kernels, and the CUDA-core dQ only for head
-   dims above 128.
+   dims above 128; and the paged library's, which must hold HMMA in
+   every instance of the paged kernel's tensor-core body (3 cache forms
+   x single-pass and split x 3 head-dim pads) and none in its CUDA-core
+   body.
 2. kernels: each paged attention kernel against its plain PyTorch
    version on the card, in each form (an fp32, a bf16 and an fp16 cache
    under fp32 queries: both sides widen K and V exactly and compute in
    fp32), atol 1e-4 + rtol 1e-4 (the kernel sums in another order), at
    the serving path's shapes (with the cluster size
-   each launched), at windows past the kernel's 32-query tile (a suffix
-   prefill's W = 33, 64, 256 and 1024 from positions 0 and 512, then
-   padding queries; 40- and 41-query verify windows over 4 slots; the split
-   form at W = 64) and at edge shapes, among them contexts that leave
+   each launched), at a suffix prefill's windows (W = 16, 32, 33, 64,
+   256, 512 and 1024 from positions 0 and 512, then padding queries;
+   40- and 41-query verify windows over 4 slots; the split form at
+   W = 64: from W = 9 at D <= 128 the tensor-core body) and at edge shapes, among them contexts that leave
    blocks of a cluster without a live position, split counts up to the
    table's width, windows of padding only and a 60000-column table
    through both kernels; the split-KV path must run as one device
@@ -30,7 +33,9 @@ prints no result line):
    inputs (scaled_dot_product_attention on the gathered K/V, a yardstick
    the port never calls; for a 2-byte cache in that dtype with q cast to
    it, a lower-precision function timed for speed only), beside the
-   card's bound (K and V at their element size).
+   card's bound (K and V at their element size) for the body the window
+   runs: fp32 operations on the CUDA cores, or three TF32 products (two
+   over a 2-byte cache) on the tensor cores; both are printed.
 3. serving: a GPT-2-small-width decoder (12 x 768, 12 heads, vocab
    50257, 1024 positions, random weights from --seed, fp32) behind a
    4-slot engine and the continuous-batching scheduler (its default: the
@@ -83,7 +88,7 @@ prints no result line):
    on/off and graph/eager, the hit, reuse and copy counters > 0, each
    suffix prefill num_layers paged launches, one capture per suffix
    bucket. Reports TTFT p50 and the prefill step's time per request
-   (CUDA events) on and off. Then the host tier: three 512-token
+   (CUDA events) on and off, and the suffix prefill's by suffix bucket. Then the host tier: three 512-token
    prefixes cycled twice through an 80-block cache, streams equal to the
    uncached engine's, swaps out and in > 0 (and the pinned
    host-to-device rate beside the swap model's).
@@ -134,9 +139,13 @@ prints no result line):
    layer); then, in the long-context engine, a second stream's replayed
    decode steps under the profiler (device ms and device kernels per
    step, one paged kernel per layer) and ten split-KV attention calls,
-   whose device kernels must all be the paged kernel. The profiler runs
-   only after the timed phases: once started, it slows the host's later
-   launches.
+   whose device kernels must all be the paged kernel; then the prefix
+   cell's W = 1024 suffix prefill (a 700-token suffix after a cached
+   64-token prefix) through graph engines over fp32, bf16 and fp16
+   caches, whose paged kernels must all be the tensor-core body of the
+   cache's form, by name, with its device ms and launches by window. The
+   profiler runs only after the timed phases: once started, it slows the
+   host's later launches.
 12. flash kernels: the flash-attention forward, dQ and dK/dV kernels,
    float32 and bf16 forms, against their plain PyTorch versions (fp32:
    atol 1e-4 + rtol 1e-4; bf16: within one bf16 ulp of the plain value
@@ -325,11 +334,14 @@ def paged_inputs(gen, num_blocks, bs, heads, head_dim, tables_np, qpos_np, copie
 
 
 def bound(qpos_np, max_blocks, bs, heads, head_dim, kv_bytes=4):
-    """(bound_ms, bound_by) of one paged append attention call: bytes of
-    q, the live K/V rows (each read once, ``kv_bytes`` an element), the
-    tables, the positions and the output, over the card's memory rate;
-    against the fp32 operations QK and PV need for these positions, over
-    its fp32 rate."""
+    """{body: (bound_ms, bound_by)} of one paged append attention call:
+    bytes of q, the live K/V rows (each read once, ``kv_bytes`` an
+    element), the tables, the positions and the output, over the card's
+    memory rate; against the operations QK and PV need for these
+    positions, in fp32 on the CUDA cores ("cuda_cores", the fp32 rate)
+    or to fp32 accuracy on the tensor cores ("tensor_cores": three TF32
+    products each over an fp32 cache, two over a 2-byte one, at the
+    dense TF32 rate, as the kernel's tensor-core body takes them)."""
     import numpy as np
 
     b, w = qpos_np.shape
@@ -341,8 +353,12 @@ def bound(qpos_np, max_blocks, bs, heads, head_dim, kv_bytes=4):
     )
     flops = 4 * int((qpos_np + 1).clip(min=0).sum()) * heads * head_dim
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    products = TF32_PRODUCTS if kv_bytes == 4 else TF32_PRODUCTS - 1
+    out = {}
+    for body, t_ops in (("cuda_cores", flops / H100_FP32_FLOPS * 1e3),
+                        ("tensor_cores", products * flops / H100_TF32_FLOPS * 1e3)):
+        out[body] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
 
 
 def sdpa_inputs(sets):
@@ -414,10 +430,11 @@ def kernel_phase(seed: int):
         raise AssertionError(f"default_kv_splits(1, 64) = {splits}, expected 8")
     ctx1 = np.asarray([931], np.int32)
     cases["split"] = (tables_for(ctx1), (ctx1 - 1)[:, None].astype(np.int32), splits)
-    # windows past the 32-query tile, as a suffix prefill gives them: a
-    # causal run from `start` (one sixth of the window left as padding),
-    # then padding queries (-1)
-    for w in (33, 64, 256, 1024):
+    # suffix buckets (16, 32, 512) and windows past a query tile (33, 64,
+    # 256, 1024), as a suffix prefill gives them: a causal run from
+    # `start` (one sixth of the window left as padding), then padding
+    # queries (-1)
+    for w in (16, 32, 33, 64, 256, 512, 1024):
         for start in (0, 512):
             n_real = min(w - w // 6, mb * bs - start)
             qpos = np.full((1, w), -1, np.int32)
@@ -467,12 +484,19 @@ def kernel_phase(seed: int):
             lambda qq, kk, vv, mask: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask),
             lib_sets,
         )
-        bound_ms, bound_by = bound(qpos, mb, bs, h, d, kv_bytes=k.element_size())
-        # blocks per (head, sequence): the cluster of either kernel
-        ctas = da.kernel_cluster_size(mb, bs) if s == 1 else da.split_plan(s, mb)[0]
+        # the body this window runs, and its bound; the other body's beside it
+        body = da.kernel_body(qpos.shape[1], d)
+        bounds = bound(qpos, mb, bs, h, d, kv_bytes=k.element_size())
+        bound_ms, bound_by = bounds[body]
+        # blocks per (head, sequence) of the split kernel, or of the
+        # single-pass CUDA-core body (the tensor-core body sizes its own)
+        ctas = (da.split_plan(s, mb)[0] if s > 1
+                else da.kernel_cluster_size(mb, bs) if body == "cuda_cores" else None)
         rows[name] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "body": body,
+            "cuda_core_bound_ms": bounds["cuda_cores"][0],
+            "tensor_core_bound_ms": bounds["tensor_cores"][0],
             "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
             "shape": {"B": int(qpos.shape[0]), "W": int(qpos.shape[1]), "H": h, "D": d,
                       "bs": bs, "MB": mb, "splits": s, "ctas_per_head": ctas,
@@ -972,6 +996,85 @@ def long_context_profile(engine, seed: int) -> dict:
     return stats
 
 
+def suffix_prefill_bodies(seed: int, params) -> dict:
+    """The prefix cell's long suffix in each cache form: a 700-token
+    suffix after a cached 64-token prefix (suffix bucket W = 1024) through
+    a 4-slot graph engine over an fp32, a bf16 and an fp16 cache. The
+    suffix prefill replayed from its graph runs under torch.profiler: its
+    device kernels must include the paged kernel's tensor-core body of
+    the cache's form (by name) and no CUDA-core paged kernel. Reports that
+    step's device ms (CUDA events) and the form's launches by window over
+    the run (the counts set to 0 just before it). Run after the timed
+    phases: a profiler, once started, slows the host's later launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.core.types import DataType
+    from flexflow_tpu_torch.generation.cache import CacheConfig
+    from flexflow_tpu_torch.generation.engine import GenerationEngine, SamplingParams
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    cfg = gpt2_small()
+    layers, v = cfg.num_layers, cfg.vocab_size
+    rs = np.random.RandomState(seed + 13)
+    system = rs.randint(0, v, 64).tolist()
+    one = SamplingParams(max_new_tokens=1)
+    out = {}
+    for dtype, ctype, form in ((DataType.FLOAT, "float", ""),
+                               (DataType.BFLOAT16, "__nv_bfloat16", "_bf16"),
+                               (DataType.HALF, "__half", "_f16")):
+        cc = CacheConfig(num_layers=layers, num_heads=cfg.num_heads,
+                         head_dim=cfg.hidden_size // cfg.num_heads, num_blocks=257,
+                         block_size=16, dtype=dtype)
+        engine = GenerationEngine(params, cfg, cache_config=cc, max_batch_slots=4,
+                                  prefix_cache=True)
+        prefill_one, seen = engine.prefill_one, {}
+
+        def profiled(prompt, *a, prefix_len=0, **kw):
+            if prefix_len == 0 or "names" in seen:
+                return prefill_one(prompt, *a, prefix_len=prefix_len, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                start.record()
+                token = prefill_one(prompt, *a, prefix_len=prefix_len, **kw)
+                end.record()
+                torch.cuda.synchronize()
+            seen["bucket"] = engine.bucket_for(len(prompt) - prefix_len)
+            seen["ms"] = start.elapsed_time(end)
+            seen["names"] = sorted({e.name for e in prof.events()
+                                    if e.device_type == torch.autograd.DeviceType.CUDA
+                                    and "paged_append" in e.name})
+            return token
+
+        prompts = [system + rs.randint(0, v, 700).tolist() for _ in range(3)]
+        engine.generate(prompts[:1], one)  # registers the prefix's blocks
+        engine.generate(prompts[1:2], one)  # the suffix prefill's capture
+        engine.prefill_one = profiled
+        da.reset_launch_counts()
+        engine.generate(prompts[2:], one)  # its replay, profiled
+        engine.prefill_one = prefill_one
+        names = seen.get("names", [])
+        tc = [n for n in names if f"paged_append_tc_kernel<{ctype}, false, 64>" in n]
+        if seen.get("bucket") != 1024 or not tc or len(tc) != len(names):
+            raise AssertionError(f"{ctype} cache: the W = 1024 suffix prefill (bucket "
+                                 f"{seen.get('bucket')}) ran paged kernels {names}, expected "
+                                 "the tensor-core body only")
+        by_window = {k: n for k, n in da.LAUNCHES_BY_WINDOW.items() if n}
+        if by_window != {f"paged_append{form} W>=9": layers}:
+            raise AssertionError(f"{ctype} cache: launches by window {by_window}, expected "
+                                 f"{layers} of the wide body")
+        out[ctype] = {"bucket": seen["bucket"], "suffix_prefill_device_ms": seen["ms"],
+                      "device_kernels": [n[:90] for n in names],
+                      "launches_by_window": by_window, "launches": dict(da.LAUNCHES)}
+        print(f"suffix prefill W=1024, {ctype} cache: " + json.dumps(out[ctype]))
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
 def step_graph_phase(engines, seed: int) -> dict:
     """White box, at GPT-2-small width: the same prefill, decode and
     verify steps on the graph engine and the eager engine (the serving
@@ -1194,26 +1297,28 @@ def instrument_prefills(engine) -> dict:
     events around the step (the device is idle before it, as every step
     ends in a sync, so this is the step's span on the device, upload and
     readback included), and per suffix prefill (``prefix_len`` > 0) the
-    paged launches it counted. Returns the record lists, which a caller
-    empties between runs."""
+    paged launches it counted and (suffix bucket W, ms). Returns the
+    record lists, which a caller empties between runs."""
     import torch
 
     from flexflow_tpu_torch.ops.kernels import decode_attention as da
 
-    rec = {"prefill_ms": [], "suffix_launches": []}
+    rec = {"prefill_ms": [], "suffix_launches": [], "suffix_ms": []}
     prefill_one = engine.prefill_one
 
-    def timed(*a, prefix_len=0, **kw):
+    def timed(prompt, *a, prefix_len=0, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         launches = da.LAUNCHES["paged_append"]
         start.record()
-        out = prefill_one(*a, prefix_len=prefix_len, **kw)
+        out = prefill_one(prompt, *a, prefix_len=prefix_len, **kw)
         end.record()
         end.synchronize()
         rec["prefill_ms"].append(start.elapsed_time(end))
         if prefix_len > 0:
             rec["suffix_launches"].append(da.LAUNCHES["paged_append"] - launches)
+            rec["suffix_ms"].append((engine.bucket_for(len(prompt) - prefix_len),
+                                     rec["prefill_ms"][-1]))
         return out
 
     engine.prefill_one = timed
@@ -1298,6 +1403,7 @@ def prefix_phase(seed: int, params) -> dict:
         handles, wall, ttft, _ = serve(engine, prompts, samplings)
         launches = dict(da.LAUNCHES)
         stats = run_stats(engine, handles, wall, ttft, decode0, dsec0, launches)
+        stats["launches_by_window"] = {k: n for k, n in da.LAUNCHES_BY_WINDOW.items() if n}
         after = pc.snapshot()
         delta = {k: after[k] - before[k] for k in (
             "hits", "lookups", "tokens_reused_total", "blocks_reused_total", "cow_copies_total",
@@ -1329,6 +1435,10 @@ def prefix_phase(seed: int, params) -> dict:
             "prefill_ms_per_request": float(np.mean(rec["prefill_ms"])),
             "prefill_ms_p50": float(np.median(rec["prefill_ms"])),
             "prefill_ms_total": float(np.sum(rec["prefill_ms"])),
+            # device ms of a suffix prefill step, by its suffix bucket W
+            "suffix_prefill_ms_by_bucket": {
+                str(w): float(np.mean([ms for b, ms in rec["suffix_ms"] if b == w]))
+                for w in sorted({b for b, _ in rec["suffix_ms"]})},
         })
         runs.setdefault(name, []).append(stats)
         print(f"{name}: " + json.dumps(stats))
@@ -1490,6 +1600,9 @@ def kv_dtype_phase(seed: int, params, cell, fp32_engine) -> dict:
                        if k in ("decode", "verify") or k.startswith("prefix_prefill"))
         return steps(engine, ("decode", "verify")) + (captures if engine.graphs else 0)
 
+    by_window = {name: 0 for name in da.LAUNCHES_BY_WINDOW
+                 if name.split(" ")[0] in launches}
+
     def main_path(run, expected):
         """``run()`` with the counts set to 0 just before and read just
         after: only ``expected(...)``'s forms launched."""
@@ -1498,6 +1611,8 @@ def kv_dtype_phase(seed: int, params, cell, fp32_engine) -> dict:
         for name, n in launched_only(expected()).items():
             if name in launches:
                 launches[name] += n
+        for name in by_window:
+            by_window[name] += da.LAUNCHES_BY_WINDOW[name]
         return result
 
     def seg_prompts(n):
@@ -1664,6 +1779,7 @@ def kv_dtype_phase(seed: int, params, cell, fp32_engine) -> dict:
     del half
     torch.cuda.empty_cache()
     out["launches"] = launches
+    out["launches_by_window"] = by_window
     print("kv dtype: " + json.dumps(out))
     return out
 
@@ -2515,19 +2631,27 @@ def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: boo
     return (t_bytes, "bytes", fp32_ms) if t_bytes >= t_ops else (t_ops, "operations", fp32_ms)
 
 
+def library_sass(source: str) -> str:
+    """cuobjdump -sass of the built library of ``csrc/<source>``."""
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    src = next(p for p in _build.kernel_sources() if p.name == source)
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(_build.library_path(src))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+
+
 def tensor_core_check() -> dict:
     """The built flash library's SASS (cuobjdump -sass) must hold
     tensor-core HMMA instructions in every instance of the forward, dQ
     and dK/dV tensor-core kernels, float32 and bf16 forms, and the
     CUDA-core dQ must exist only for head dims above 128 (5..8, 12 and 16
-    columns of 32) in both forms; raises otherwise. Returns
+    columns of 32) in both forms; the paged library's, in every instance
+    of the tensor-core body (fp32, bf16 and fp16 caches, single-pass and
+    split, head dims padded to 32, 64 and 128). Raises otherwise. Returns
     {kernel<head-dim pad,form>: HMMA count}."""
-    from flexflow_tpu_torch.ops.kernels import _build
-
-    src = next(p for p in _build.kernel_sources() if p.name == "flash_attention.cu")
-    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(src))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
+    found = paged_tensor_core_check()
+    sass = library_sass("flash_attention.cu")
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : .*?(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)E", line)
@@ -2550,6 +2674,32 @@ def tensor_core_check() -> dict:
     if simt_dq != want:
         raise AssertionError(f"CUDA-core dQ instances {simt_dq}: expected only D > 128 ({want})")
     return found
+
+
+def paged_tensor_core_check() -> dict:
+    """HMMA counts of the paged library's tensor-core body, by instance
+    (cache form, single-pass or split, head-dim pad); raises unless all 18
+    instances hold HMMA and the CUDA-core body holds none."""
+    forms = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+    counts, name, simt_hmma = {}, None, 0
+    for line in library_sass("paged_attention.cu").splitlines():
+        m = re.search(r"Function : .*?paged_append_tc_kernelI(f|13__nv_bfloat16|6__half)Lb([01])"
+                      r"ELi(\d+)E", line)
+        if m:
+            name = (f"paged_append_tc_kernel<{forms[m.group(1)]},"
+                    f"{'split' if m.group(2) == '1' else 'single'},{m.group(3)}>")
+            counts[name] = 0
+        elif "Function : " in line:
+            name = "simt" if "paged_append_kernel" in line else None
+        elif name == "simt" and "HMMA" in line:
+            simt_hmma += 1
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    if len(counts) != 18 or not all(counts.values()) or simt_hmma:
+        raise AssertionError("paged tensor-core body: expected HMMA in 3 forms x 2 kernels x 3 "
+                             f"head dims and none in the CUDA-core body, got {counts or 'none'}, "
+                             f"{simt_hmma} in the CUDA-core body")
+    return counts
 
 
 def time_eager_ms(fn, iters: int = 20) -> float:
@@ -2966,6 +3116,7 @@ def main(argv=None) -> int:
     server = server_phase(args.seed, params)
     anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
+    suffix_bodies = suffix_prefill_bodies(args.seed, params)
     del engines, long_engine, params
     torch.cuda.empty_cache()
     flash = flash_phase(args.seed)
@@ -2991,7 +3142,8 @@ def main(argv=None) -> int:
                dict(rows["decode"], max_abs_err=max(r["max_abs_err"] for r in single(""))),
                serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]
                + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]
-               + constrained["launches"]["paged_append"] + server["launches"]["paged_append"]),
+               + constrained["launches"]["paged_append"] + server["launches"]["paged_append"]
+               + suffix_bodies["float"]["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
     ] + [
@@ -3011,8 +3163,9 @@ def main(argv=None) -> int:
         record(f"{kernel}{form}", f"flexflow_tpu/ops/kernels/decode_attention.py:{line}",
                dict(rows[case + form], max_abs_err=max(r["max_abs_err"] for r in (
                    single(form) if kernel == "paged_append" else [rows[case + form]]))),
-               kv_dtype["launches"][kernel + form])
-        for form in ("_bf16", "_f16")
+               kv_dtype["launches"][kernel + form]
+               + suffix_bodies[ctype]["launches"][kernel + form])
+        for form, ctype in (("_bf16", "__nv_bfloat16"), ("_f16", "__half"))
         for kernel, case, line in (("paged_append", "decode", 368),
                                    ("paged_append_split", "split", 338))
     ]
@@ -3048,7 +3201,10 @@ def main(argv=None) -> int:
                   "TTFT p50 s " + ", ".join(f"{r['ttft_p50_s']:.4f}" for r in rs_)
                   + "; prefill step ms per request "
                   + ", ".join(f"{r['prefill_ms_per_request']:.3f}" for r in rs_)
-                  + "; tokens/s " + ", ".join(f"{r['tokens_per_s']:.1f}" for r in rs_))
+                  + "; tokens/s " + ", ".join(f"{r['tokens_per_s']:.1f}" for r in rs_)
+                  + ("; suffix prefill ms by bucket " + "; ".join(
+                      ", ".join(f"W={w} {ms:.3f}" for w, ms in r["suffix_prefill_ms_by_bucket"]
+                                .items()) for r in rs_) if on == "on" else ""))
     for mode in ("on", "off"):
         rs_ = overlap["runs"][mode]
         print(f"{card}: 4-slot serving, graph steps, overlap {mode}: "
@@ -3100,14 +3256,32 @@ def main(argv=None) -> int:
                   f"by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
     for name, r in rows.items():
         if name.startswith(("wide", "verify_w4", "split_w64")):
-            print(f"{card}: paged kernel {name} ms {r['ms']:.4f} (bound {r['bound_ms']:.4f} "
-                  f"by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
+            print(f"{card}: paged kernel {name} ({r['body']}) ms {r['ms']:.4f} (bound "
+                  f"{r['bound_ms']:.5f} by {r['bound_by']}; CUDA-core bound "
+                  f"{r['cuda_core_bound_ms']:.5f}, tensor-core bound "
+                  f"{r['tensor_core_bound_ms']:.5f}; plain {r['plain_ms']:.4f}, SDPA "
+                  f"{r['library_ms']:.4f})")
+    # the paged forms' launches by window in the runs that count them: the
+    # prefix phase (fp32), the kv-dtype phase (2-byte forms) and the
+    # profiled suffix prefills (every form)
+    by_window = {}
+    for counts in ([r["launches_by_window"] for rs_ in prefix["runs"].values() for r in rs_]
+                   + [kv_dtype["launches_by_window"]]
+                   + [s["launches_by_window"] for s in suffix_bodies.values()]):
+        for k, n in counts.items():
+            by_window[k] = by_window.get(k, 0) + n
+    print(f"{card}: paged launches by window (prefix, kv-dtype and suffix-body runs): "
+          + json.dumps({k: n for k, n in by_window.items() if n}))
+    for ctype, s in suffix_bodies.items():
+        print(f"{card}: W=1024 suffix prefill over a {ctype} cache: device ms "
+              f"{s['suffix_prefill_device_ms']:.3f}, paged kernels {s['device_kernels']}")
     print(json.dumps({"card": card, "serving": serving, "kv_dtype": kv_dtype,
                       "long_context": long_ctx,
                       "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
                       "overlap": overlap, "constrained": constrained, "server": server,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
-                      "training": training, "training_bf16": training_bf16}))
+                      "training": training, "training_bf16": training_bf16,
+                      "suffix_prefill_bodies": suffix_bodies}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

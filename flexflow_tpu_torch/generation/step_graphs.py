@@ -244,7 +244,7 @@ class StepRunner:
             body(inputs)
         stream.wait_stream(self._side)
         graph = torch.cuda.CUDAGraph()
-        before = dict(da.LAUNCHES)
+        before = da.launch_counts()
         collecting = gc.isenabled()
         gc.collect()  # dead graphs are destroyed here, outside the capture
         gc.disable()

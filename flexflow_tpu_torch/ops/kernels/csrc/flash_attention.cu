@@ -125,13 +125,7 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kMaxHeadDim = 512;
-
-// bf16 inputs are TF32 values exactly: their products need no split
-template <typename T>
-constexpr bool kExact = std::is_same<T, bf16>::value;
 
 // elements of T a 16-byte copy moves (and the row padding of a tile)
 template <typename T>
@@ -212,102 +206,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
     const bool ok = s < S;
     cp_async4(dst + i, ok ? src + (static_cast<int64_t>(b) * S + s) * H + h : src, ok);
   }
-}
-
-// x = big + small + O(2^-22 |x|), both TF32 values. Both round as
-// cvt.rna.tf32.f32 does (to nearest, ties away from zero: add half a TF32
-// unit, drop the low 13 bits), written as integer operations, which give
-// the same bits for every finite x in half the instructions of ptxas's
-// guarded expansion of cvt. small keeps its low 13 bits: the mma drops
-// them as it reads a TF32 operand.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
-}
-
-// an input element as a TF32 operand: a float times mul, split; a bf16 is
-// its own TF32 value (its bits in the high half), and small is never read
-// (mul is 1 for bf16: those kernels scale the scores instead)
-__device__ __forceinline__ void split_in(float x, float mul, uint32_t& big, uint32_t& small) {
-  split_tf32(x * mul, big, small);
-}
-__device__ __forceinline__ void split_in(bf16 x, float, uint32_t& big, uint32_t& small) {
-  big = static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
-  small = 0u;
-}
-
-// operand fragments of mma.m16n8k8 (g = lane / 4, t = lane % 4), split
-struct FragA {  // 16 x 8: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
-  uint32_t big[4], small[4];
-};
-struct FragB {  // 8 x 8: b0 (k t, n g), b1 (k t+4, n g)
-  uint32_t big[2], small[2];
-};
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b to fp32 accuracy: big*small + small*big + big*big, in that
-// order, leaving out the small part of an exact operand (kExactA, kExactB:
-// a bf16 input), so the product of two exact operands is one mma
-template <bool kExactA, bool kExactB>
-__device__ __forceinline__ void mma_acc(float (&c)[4], const FragA& a, const FragB& b) {
-  if constexpr (!kExactB) mma_tf32(c, a.big, b.small);
-  if constexpr (!kExactA) mma_tf32(c, a.small, b.big);
-  mma_tf32(c, a.big, b.big);
-}
-
-// A fragment of the 16 x 8 tile at p (row major, leading dimension ld), times mul
-template <typename T>
-__device__ __forceinline__ void load_a(FragA& f, const T* p, int ld, float mul) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  split_in(p[g * ld + t], mul, f.big[0], f.small[0]);
-  split_in(p[(g + 8) * ld + t], mul, f.big[1], f.small[1]);
-  split_in(p[g * ld + t + 4], mul, f.big[2], f.small[2]);
-  split_in(p[(g + 8) * ld + t + 4], mul, f.big[3], f.small[3]);
-}
-
-// B fragment whose element (k, n) is p[n * ld + k] (a K^T tile: rows of p
-// are the product's columns)
-template <typename T>
-__device__ __forceinline__ void load_b_nk(FragB& f, const T* p, int ld) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  split_in(p[g * ld + t], 1.f, f.big[0], f.small[0]);
-  split_in(p[g * ld + t + 4], 1.f, f.big[1], f.small[1]);
-}
-
-// The permuted reduction order of an accumulator reused as an A operand:
-// A column t is accumulator column 2t, A column t+4 is column 2t+1. These
-// two read the matching operands: the A fragment from an accumulator
-// fragment, and the B fragment whose element (k, n) is p[k * ld + n] with
-// rows 2t and 2t+1 in place of t and t+4.
-__device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
-  split_tf32(c[0], f.big[0], f.small[0]);
-  split_tf32(c[2], f.big[1], f.small[1]);
-  split_tf32(c[1], f.big[2], f.small[2]);
-  split_tf32(c[3], f.big[3], f.small[3]);
-}
-
-template <typename T>
-__device__ __forceinline__ void load_b_kn_permuted(FragB& f, const T* p, int ld) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  split_in(p[2 * t * ld + g], 1.f, f.big[0], f.small[0]);
-  split_in(p[(2 * t + 1) * ld + g], 1.f, f.big[1], f.small[1]);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
 }
 
 // rows r and r + 8 of a [16, kDP] accumulator (each thread's columns

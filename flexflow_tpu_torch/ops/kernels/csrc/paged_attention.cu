@@ -27,14 +27,20 @@
 // q_positions[b,w] < 0 marks a padding query, which emits zeros. Softmax
 // is online, in fp32.
 //
+// Two bodies serve each exported form. A window of kTcMinWindow (9)
+// queries or more with a head dim up to 128 (a suffix prefill's, up to its
+// bucket of 1024, or a wide verify window) takes the tensor-core body,
+// paged_append_tc_kernel, described where it is defined below. Decode and
+// verify windows (W <= 8), and head dims past 128, take the CUDA-core body
+// described here.
+//
 // Design. A thread block (CTA) of 4 warps takes one head of one sequence
 // over one contiguous range of key positions, for up to 32 queries of the
-// window. A wider window (a suffix prefill's, up to its bucket of 1024) is
-// cut into tiles of 32 queries, each its own cluster of the same launch:
-// grid (C, H, B * tiles). The TPU kernel walks cache
-// blocks as a sequential grid axis and carries its online-softmax state in
-// VMEM scratch from one grid step to the next; here a CTA loops over its
-// own range and the ranges combine at the end. Head dims up to 512: past
+// window (a wider window with D > 128 is cut into tiles of 32 queries,
+// each its own cluster of the same launch: grid (C, H, B * tiles)). The
+// TPU kernel walks cache blocks as a sequential grid axis and carries its
+// online-softmax state in VMEM scratch from one grid step to the next;
+// here a CTA loops over its own range and the ranges combine at the end. Head dims up to 512: past
 // 256 an instance holds twice the accumulators a thread and stages one
 // tile a round (a 32-query tile then fills most of the shared memory).
 //   * ff_paged_append_* splits each (head, sequence, query tile)
@@ -103,10 +109,9 @@
 // 4 bytes per layer (2 for a bf16 or fp16 cache), at the H100's 3.35 TB/s
 // (2.1 us at the serving shape in fp32); its 4 * sum(ctx) * H * D fp32 operations per window query are
 // far below the 67 TFLOP/s fp32 rate. A wide causal window is bound by
-// operations instead (about 1.6 GFLOP unmasked per layer at W = 1024 over
-// 1024 positions, H = 12, D = 64): this form does them on the CUDA cores
-// in fp32, and each query tile stages its own K and V rows (the tiles
-// share them through L2). At decode sizes the time is latency, not bytes:
+// operations instead (about 1.1 GFLOP causal per layer at W = 1024 over
+// 1024 positions, H = 12, D = 64): the tensor-core body takes them. At
+// decode sizes the time is latency, not bytes:
 // the cluster's launch (about 2.3 us with nothing to do), two dependent
 // reads (positions, queries and table, then K and V), four barriers a
 // round and the combine's remote reads between the cluster's two barriers
@@ -140,9 +145,6 @@ constexpr int kCtaPositions = 128;   // table positions per CTA the cluster size
 // columns (kMaxD), so the 256-wide ones keep today's registers
 constexpr int kMaxHeadDim = 512;
 constexpr int kTableWindow = 2048;   // table columns a CTA holds in shared memory at most
-
-using bf16 = __nv_bfloat16;
-using f16 = __half;
 
 __host__ __device__ inline int round4(int d) { return (d + 3) & ~3; }
 
@@ -185,6 +187,49 @@ template <typename T>
 __device__ __forceinline__ void copy1(T* dst, const T* src, bool ok) {
   using U = typename std::conditional<sizeof(T) == 4, unsigned int, unsigned short>::type;
   *reinterpret_cast<U*>(dst) = ok ? __ldg(reinterpret_cast<const U*>(src)) : U(0);
+}
+
+// one chunk of a K row and of a V row into shared memory: 16 or 4 bytes
+// by cp.async (vec 2 or 1), or one element (vec 0); zeros where !ok
+template <typename T>
+__device__ __forceinline__ void copy_chunk(T* kd, T* vd, const T* k, const T* v, bool ok,
+                                           int vec) {
+  if (vec == 2) {
+    cp_async16(kd, k, ok);
+    cp_async16(vd, v, ok);
+  } else if (vec == 1) {
+    cp_async4(kd, k, ok);
+    cp_async4(vd, v, ok);
+  } else {
+    copy1(kd, k, ok);
+    copy1(vd, v, ok);
+  }
+}
+
+// output (w, d) of a query tile, combined exactly (as described at the top
+// of this file) over the cluster's S CTAs from each CTA's m_s[w], l_s[w]
+// and accumulator element acc_s[a]; 0 for a padding query (!real)
+__device__ __forceinline__ float combined(cg::cluster_group& cluster, int S, float* m_s,
+                                          float* l_s, float* acc_s, int w, int a, bool real) {
+  float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    mr[r] = r < S ? *cluster.map_shared_rank(m_s + w, r) : kNegInf;
+    lr[r] = r < S ? *cluster.map_shared_rank(l_s + w, r) : 0.f;
+    ar[r] = r < S ? cluster.map_shared_rank(acc_s, r)[a] : 0.f;
+  }
+  float mx = kNegInf;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
+  float num = 0.f, den = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    const float e = lr[r] > 0.f ? expf(mr[r] - mx) : 0.f;
+    num = fmaf(ar[r], e, num);
+    den = fmaf(lr[r], e, den);
+  }
+  return real ? num / fmaxf(den, 1e-30f) : 0.f;
 }
 
 // T: the cache's element type (float, bf16, f16). kMaxW: the queries a CTA
@@ -305,16 +350,7 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
         for (int c = my_c; c < d4; c += tpr * chunk) {
           const bool ok = off >= 0 && c < D;
           const long long src = ok ? off + c : 0;
-          if (vec == 2) {
-            cp_async16(kd + c, k_cache + src, ok);
-            cp_async16(vd + c, v_cache + src, ok);
-          } else if (vec == 1) {
-            cp_async4(kd + c, k_cache + src, ok);
-            cp_async4(vd + c, v_cache + src, ok);
-          } else {
-            copy1(kd + c, k_cache + src, ok);
-            copy1(vd + c, v_cache + src, ok);
-          }
+          copy_chunk(kd + c, vd + c, k_cache + src, v_cache + src, ok, vec);
         }
       }
     }
@@ -424,28 +460,331 @@ __global__ void __launch_bounds__(kThreads) paged_append_kernel(
   const int end = min(Wt * D, (s + 1) * per);
   for (int idx = s * per + tid; idx < end; idx += kThreads) {
     const int w = idx / D, d = idx - w * D;
-    float mr[kMaxCluster], lr[kMaxCluster], ar[kMaxCluster];
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r) {
-      mr[r] = r < S ? *cluster.map_shared_rank(m_s + w, r) : kNegInf;
-      lr[r] = r < S ? *cluster.map_shared_rank(l_s + w, r) : 0.f;
-      ar[r] = r < S ? cluster.map_shared_rank(acc_s, r)[idx] : 0.f;
-    }
-    float mx = kNegInf;
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r)
-      if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r) {
-      const float a = lr[r] > 0.f ? expf(mr[r] - mx) : 0.f;
-      num = fmaf(ar[r], a, num);
-      den = fmaf(lr[r], a, den);
-    }
     out[(static_cast<long long>(b) * W + w0 + w) * HD + static_cast<long long>(h) * D + d] =
-        qp_s[w] >= 0 ? num / fmaxf(den, 1e-30f) : 0.f;
+        combined(cluster, S, m_s, l_s, acc_s, w, idx, qp_s[w] >= 0);
   }
   cluster.sync();  // no CTA exits while another still reads its shared memory
+}
+
+// ================================ wide windows: the tensor-core body
+//
+// A window of kTcMinWindow queries or more with D <= 128 (a suffix
+// prefill's, or a wide verify window) takes this body: a flash-style tile
+// over the gathered table whose products run on the tensor cores.
+//   * A CTA of 4 warps takes 64 queries of one head of one sequence (16
+//     rows a warp, the M of mma.m16n8k8), grid (C, H, B * ceil(W / 64)),
+//     and the C CTAs of a cluster share its key range as the CUDA-core
+//     body's do (the single-pass form: the live positions, in whole tiles;
+//     the split form: runs of whole JAX splits), combined by the same
+//     exact DSMEM combine. The single-pass form sizes C from the launch:
+//     enough CTAs for kTcCtasPerSm a streaming multiprocessor, at most the
+//     portable 8 and one per tile of the table (C = 1 stores straight from
+//     the registers, with no combine).
+//   * Each thread splits its own A fragments of the scaled queries into
+//     TF32 big and small parts once, while its first K/V tile lands, and
+//     parks them in shared memory in fragment order (one 16-byte load per
+//     part per 8-column step, no bank conflict; held in registers they
+//     would take 64 of a thread's registers at D = 64; held as fp32 and
+//     split at every tile, 1% slower at W = 1024).
+//   * It walks its key range in tiles of kTcKeys positions, gathered row by
+//     row through the block table (position p is cache row
+//     bt[p / bs] * bs + p % bs) into shared memory by cp.async as the
+//     CUDA-core body copies (16 bytes, 4 bytes, or plain 2-byte loads), two
+//     stages deep: tile i + 1's copies are in flight while tile i is
+//     computed. Rows are padded by 16 bytes, so every fragment load of a
+//     warp hits distinct banks. The causal skip: a query tile's range ends
+//     at its largest q_position + 1, and a warp skips a tile that starts
+//     past its own largest q_position. The last query tiles of a window,
+//     which see the most positions, launch first (in launch order, a
+//     W = 1024 window took 0.094 ms against 0.071 in fp32).
+//   * S = (scale Q) K^T and O += P V on mma.sync m16n8k8 TF32 with fp32
+//     accumulation, the online softmax on the accumulator fragments (a row
+//     lives in one quad), P reused as the A operand through the permuted
+//     reduction order of common.cuh (acc_to_a, load_b_kn_permuted). The
+//     mask keeps key positions p <= q_positions[row] inside the range.
+//   * Precision: an fp32 cache takes 3xTF32 (big small + small big + big
+//     big) for both products; a bf16 or fp16 K or V element is a TF32
+//     value exactly, so Q K^T takes two products (q big and small against
+//     K) and P V two (P big and small against V). Every sum is fp32, as in
+//     the CUDA-core body, and the gate stays atol 1e-4 + rtol 1e-4 (one
+//     plain TF32 product would not hold it:
+//     tests/test_torch_port_paged_tc_numerics.py).
+//   * A padding query (q_position < 0) and a row with no live position
+//     give exact zeros, never NaN.
+// Bound: at W = 1024 over 1024 positions (H = 12, D = 64) the causal
+// products are about 1.1 GFLOP, 3 x that on the TF32 tensor cores (495
+// TFLOP/s): 0.0068 ms; 2 x for a 2-byte cache. The body takes about 10 x
+// that (0.072 ms in fp32, 0.051 over a 2-byte cache, on one H100 at
+// 700 W): with 2 CTAs an SM the mma.sync chains run at about a third of
+// the instruction's rate, as the flash kernels' do, and the probes of
+// tools/paged_probe.py --windows find the products without the copies
+// at 0.060 ms and the copies alone at 0.043 (K and V staged once per
+// query tile, from L2).
+
+constexpr int kTcQueries = 16 * kWarps;  // queries a CTA takes: 16 rows a warp
+constexpr int kTcKeys = 64;              // key positions per staged tile
+constexpr int kTcMaxHeadDim = 128;       // wider heads keep the CUDA-core body
+constexpr int kTcCtasPerSm = 2;          // CTAs a single-pass launch aims at per SM
+// The smallest window that takes the tensor-core body; decode and verify
+// windows up to 8 queries keep the CUDA-core body, tuned for them. Measured
+// by tools/paged_probe.py --windows (one H100 80GB HBM3 at 700 W; one
+// sequence's window from position 512, H = 12, D = 64, 64 columns of 16),
+// ms of the tensor-core body against the CUDA-core body, single-pass:
+//   W      9              16             32             33             40             64
+//   fp32   0.0194/0.0339  0.0195/0.0416  0.0202/0.0692  0.0207/0.0669  0.0209/0.0676  0.0218/0.0739
+//   bf16   0.0138/0.0235  0.0136/0.0300  0.0143/0.0472  0.0148/0.0474  0.0150/0.0479  0.0155/0.0531
+//   fp16   0.0138/0.0238  0.0137/0.0299  0.0142/0.0470  0.0148/0.0473  0.0149/0.0478  0.0155/0.0525
+// and split over 8 runs, 0.0185-0.0213 against 0.0275-0.0653 in every form:
+// the tensor-core body wins from W = 9 on.
+constexpr int kTcMinWindow = 9;
+
+// row stride (elements) of a staged K or V tile: kDP plus 16 bytes
+template <typename T, int kDP>
+constexpr int kTcLd = kDP + 16 / static_cast<int>(sizeof(T));
+
+// kDP: the head dim padded to 32, 64 or 128
+template <typename T, bool kSplit, int kDP>
+__global__ void __launch_bounds__(kThreads) paged_append_tc_kernel(
+    const float* __restrict__ q,           // [B, W, H, D]
+    const T* __restrict__ k_cache,         // [num_blocks, bs, H, D]
+    const T* __restrict__ v_cache,         // [num_blocks, bs, H, D]
+    const int* __restrict__ block_tables,  // [B, MB]
+    const int* __restrict__ q_positions,   // [B, W]
+    float* __restrict__ out,               // [B, W, H, D]
+    int W, int H, int D, int bs, int MB, int cta_cols, int bt_held, int vec, float scale) {
+  constexpr int kNT = kDP / 8;       // 8-column steps of the head dim
+  constexpr int kKT = kTcKeys / 8;   // 8-position steps of a tile
+  constexpr int kLD = kTcLd<T, kDP>;
+  constexpr bool kE = kExact<T>;
+  static_assert(kKT * 4 <= 32, "one mask bit per accumulator element");
+  const int q_tiles = (W + kTcQueries - 1) / kTcQueries;
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z / q_tiles;
+  // the tile's first query: the last tiles of a causal window, which see
+  // the most positions, launch first
+  const int w0 = (q_tiles - 1 - (blockIdx.z - b * q_tiles)) * kTcQueries;
+  const int Wt = min(kTcQueries, W - w0);                  // its queries
+  const int S = gridDim.x;                                 // the cluster's CTAs
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const long long HD = static_cast<long long>(H) * D;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);  // [2 stages][K, V][kTcKeys][kLD]
+  uint4* qf = reinterpret_cast<uint4*>(tiles + 4 * kTcKeys * kLD);  // [warp][kNT][big, small][lane]
+  float* m_s = reinterpret_cast<float*>(qf + kWarps * kNT * 2 * 32);  // [kTcQueries]
+  float* l_s = m_s + kTcQueries;                                     // [kTcQueries]
+  int* qp_s = reinterpret_cast<int*>(l_s + kTcQueries);              // [kTcQueries]
+  int* bt_s = qp_s + kTcQueries;                                     // [bt_held]
+
+  const int col0 = kSplit ? s * cta_cols : 0;
+  const int* bt = block_tables + static_cast<long long>(b) * MB;
+  for (int i = tid; i < min(bt_held, MB - col0); i += kThreads) bt_s[i] = bt[col0 + i];
+  for (int w = tid; w < kTcQueries; w += kThreads)
+    qp_s[w] = w < Wt ? q_positions[static_cast<long long>(b) * W + w0 + w] : -1;
+  __syncthreads();
+  const int row0 = warp * 16 + g;  // this thread's query rows: row0, row0 + 8
+  int max_qp = -1;
+  for (int w = 0; w < Wt; ++w) max_qp = max(max_qp, qp_s[w]);
+  const int qr[2] = {qp_s[row0], qp_s[row0 + 8]};
+  const int warp_qp = __reduce_max_sync(kFull, max(qr[0], qr[1]));
+  int pos0, pos1;  // the key positions this CTA takes
+  if (kSplit) {
+    const int col1 = static_cast<int>(
+        min(static_cast<long long>(col0) + cta_cols, static_cast<long long>(MB)));
+    pos0 = col0 * bs;
+    pos1 = min(col1 * bs, max_qp + 1);
+  } else {
+    const int live = min(MB * bs, max_qp + 1);
+    const int share = ((live + S - 1) / S + kTcKeys - 1) / kTcKeys * kTcKeys;
+    pos0 = s * share;
+    pos1 = min(live, pos0 + share);
+  }
+  const int ntiles = pos1 > pos0 ? (pos1 - pos0 + kTcKeys - 1) / kTcKeys : 0;
+
+  // the copies: each thread takes one column chunk of every
+  // rows_per_pass-th row, of 16 or 4 bytes (or one element)
+  const int chunk = vec == 2 ? 16 / static_cast<int>(sizeof(T))
+                             : vec == 1 ? 4 / static_cast<int>(sizeof(T)) : 1;
+  const int per_row = kDP / chunk, tpr = min(per_row, kThreads), rows_per_pass = kThreads / tpr;
+  const int my_row = tid / tpr, my_c = (tid - my_row * tpr) * chunk;
+  // K and V rows of positions [k0, k0 + kTcKeys) into stage buf; zeros
+  // past the range and past D
+  auto stage = [&](int k0, int buf) {
+    T* kd0 = tiles + buf * 2 * kTcKeys * kLD;
+    T* vd0 = kd0 + kTcKeys * kLD;
+    for (int r = my_row; r < kTcKeys; r += rows_per_pass) {
+      const int p = k0 + r;
+      long long off = -1;
+      if (p < pos1) {
+        const int col = p / bs, c = col - col0;
+        const int blk = c < bt_held ? bt_s[c] : __ldg(bt + col);
+        off = (static_cast<long long>(blk) * bs + (p - col * bs)) * HD +
+              static_cast<long long>(h) * D;
+      }
+      T* kd = kd0 + r * kLD;
+      T* vd = vd0 + r * kLD;
+      for (int c = my_c; c < kDP; c += tpr * chunk) {
+        const bool ok = off >= 0 && c < D;
+        const long long src = ok ? off + c : 0;
+        copy_chunk(kd + c, vd + c, k_cache + src, v_cache + src, ok, vec);
+      }
+    }
+  };
+  if (ntiles > 0) {
+    stage(pos0, 0);
+    cp_async_commit();
+  }
+  // while the first tile lands: this thread's A fragments of (scale Q),
+  // split, zero past D and past the tile (only this thread reads them)
+#pragma unroll
+  for (int d8 = 0; d8 < kNT; ++d8) {
+    uint32_t big[4], small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + 8 * (e & 1), c = 8 * d8 + t + 4 * (e >> 1);
+      const float x = r < Wt && c < D ? q[(static_cast<long long>(b) * W + w0 + r) * HD +
+                                          static_cast<long long>(h) * D + c]
+                                      : 0.f;
+      split_tf32(x * scale, big[e], small[e]);
+    }
+    qf[(warp * kNT + d8) * 64 + lane] = make_uint4(big[0], big[1], big[2], big[3]);
+    qf[(warp * kNT + d8) * 64 + 32 + lane] = make_uint4(small[0], small[1], small[2], small[3]);
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = pos0 + it * kTcKeys;
+    if (it + 1 < ntiles) {  // the next tile loads while this one is computed
+      stage(k0 + kTcKeys, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const T* kt = tiles + (it & 1) * 2 * kTcKeys * kLD;
+    const T* vt = kt + kTcKeys * kLD;
+    if (k0 <= warp_qp) {  // else no row of this warp sees the tile
+      // S = (scale Q) K^T, 16 x kTcKeys per warp
+      float sc[kKT][4];
+#pragma unroll
+      for (int n = 0; n < kKT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+      for (int d8 = 0; d8 < kNT; ++d8) {
+        FragA a;
+        const uint4 ab = qf[(warp * kNT + d8) * 64 + lane];
+        const uint4 as = qf[(warp * kNT + d8) * 64 + 32 + lane];
+        a.big[0] = ab.x, a.big[1] = ab.y, a.big[2] = ab.z, a.big[3] = ab.w;
+        a.small[0] = as.x, a.small[1] = as.y, a.small[2] = as.z, a.small[3] = as.w;
+#pragma unroll
+        for (int n = 0; n < kKT; ++n) {
+          FragB bf;
+          load_b_nk(bf, kt + n * 8 * kLD + 8 * d8, kLD);
+          mma_acc<false, kE>(sc[n], a, bf);
+        }
+      }
+      // online softmax on the fragments; element e of sc[n] is row
+      // row0 + 8 * (e / 2), key position k0 + 8n + 2t + e % 2
+      uint32_t valid = 0;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < kKT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = k0 + 8 * n + 2 * t + (e & 1);
+          if (p < pos1 && p <= qr[e >> 1]) {
+            valid |= 1u << (4 * n + e);
+            mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+          }
+        }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+#pragma unroll
+      for (int n = 0; n < kKT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // explicit zero for masked positions: with every position so far
+          // masked m is kNegInf and exp(sc - m) would be 1
+          const float pv = (valid >> (4 * n + e)) & 1u ? expf(sc[n][e] - m[e >> 1]) : 0.f;
+          sc[n][e] = pv;
+          l[e >> 1] += pv;
+        }
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+      // O += P V, the positions of each 8-step in the permuted order
+#pragma unroll
+      for (int j = 0; j < kKT; ++j) {
+        FragA a;
+        acc_to_a(a, sc[j]);
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          FragB bf;
+          load_b_kn_permuted(bf, vt + 8 * j * kLD + 8 * n, kLD);
+          mma_acc<false, kE>(acc[n], a, bf);
+        }
+      }
+    }
+    cp_async_wait_all();  // the next tile has landed
+    __syncthreads();      // and every warp is done with this one
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+
+  if (S == 1) {  // the whole range in this CTA: normalise and store
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (r >= Wt) continue;
+      const float inv = qr[i] >= 0 ? 1.f / fmaxf(l[i], 1e-30f) : 0.f;
+      float* dst = out + (static_cast<long long>(b) * W + w0 + r) * HD + static_cast<long long>(h) * D;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const int d = 8 * n + 2 * t;
+        if ((D & 1) == 0 && d + 1 < D) {
+          *reinterpret_cast<float2*>(dst + d) = make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+        } else {
+          if (d < D) dst[d] = acc[n][2 * i] * inv;
+          if (d + 1 < D) dst[d + 1] = acc[n][2 * i + 1] * inv;
+        }
+      }
+    }
+    return;
+  }
+
+  // the cluster's CTAs combine exactly through distributed shared memory,
+  // as in the CUDA-core body; the accumulators go over the tiles
+  cg::cluster_group cluster = cg::this_cluster();
+  float* acc_s = reinterpret_cast<float*>(smem_raw);  // [kTcQueries][kDP]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    if (t == 0) {
+      m_s[r] = m[i];
+      l_s[r] = l[i];
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+      *reinterpret_cast<float2*>(acc_s + r * kDP + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+  cluster.sync();  // every CTA's state is written and visible
+  const int per = (Wt * D + S - 1) / S;
+  const int end = min(Wt * D, (s + 1) * per);
+  for (int idx = s * per + tid; idx < end; idx += kThreads) {
+    const int w = idx / D, d = idx - w * D;
+    out[(static_cast<long long>(b) * W + w0 + w) * HD + static_cast<long long>(h) * D + d] =
+        combined(cluster, S, m_s, l_s, acc_s, w, w * kDP + d, qp_s[w] >= 0);
+  }
+  cluster.sync();  // this CTA's shared memory stays until the others have read it
 }
 
 // CTAs a sequence's table is split over: one per kCtaPositions positions
@@ -470,6 +809,40 @@ size_t smem_bytes(int W, int D, int bt_held, int stages) {
 
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// the widest copy every row takes: 2 (16 bytes), 1 (4 bytes), or 0 (one
+// element: a 2-byte cache of odd D, or one not 4-byte aligned)
+template <typename T>
+int copy_vec(const T* k_cache, const T* v_cache, int D) {
+  constexpr int kVec16 = 16 / sizeof(T), kVec4 = 4 / sizeof(T);
+  const bool a16 = aligned(k_cache, 16) && aligned(v_cache, 16);
+  const bool a4 = aligned(k_cache, 4) && aligned(v_cache, 4);
+  return D % kVec16 == 0 && a16 ? 2 : D % kVec4 == 0 && a4 ? 1 : 0;
+}
+
+// a launch of `kernel` as clusters of C CTAs along x
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), dim3 grid, int C, size_t smem,
+                    cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that the next launch does not report it
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // C: the cluster's CTAs per (head, sequence); cta_cols and bt_held as in
@@ -500,33 +873,53 @@ int launch(const float* q, const T* k_cache, const T* v_cache, const int* block_
     if (e != cudaSuccess) return static_cast<int>(e);
     ready = true;
   }
-  // the widest copy every row takes: 16 bytes, 4 bytes, or (a 2-byte
-  // cache of odd D, or one not 4-byte aligned) one element
-  constexpr int kVec16 = 16 / sizeof(T), kVec4 = 4 / sizeof(T);
-  const bool a16 = aligned(k_cache, 16) && aligned(v_cache, 16);
-  const bool a4 = aligned(k_cache, 4) && aligned(v_cache, 4);
-  const int vec = D % kVec16 == 0 && a16 ? 2 : D % kVec4 == 0 && a4 ? 1 : 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, H, B * ((W + kMaxW - 1) / kMaxW));  // a cluster per (tile, head, sequence)
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, paged_append_kernel<T, kMaxW, kSplit, kMaxD>, q, k_cache, v_cache,
-                         block_tables, q_positions, out, W, H, D, bs, MB, cta_cols, bt_held,
-                         stages, vec, scale);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // clear it, so that the next launch does not report it
-    return static_cast<int>(e);
+  // a cluster per (query tile, head, sequence)
+  return launch_clusters(paged_append_kernel<T, kMaxW, kSplit, kMaxD>,
+                         dim3(C, H, B * ((W + kMaxW - 1) / kMaxW)), C, smem, stream, q, k_cache,
+                         v_cache, block_tables, q_positions, out, W, H, D, bs, MB, cta_cols,
+                         bt_held, stages, copy_vec(k_cache, v_cache, D), scale);
+}
+
+// the tensor-core body's shared memory: two stages of K and V tiles, the
+// split query fragments, m, l and positions of its queries, table columns
+template <typename T, int kDP>
+size_t tc_smem_bytes(int bt_held) {
+  return sizeof(T) * 4 * kTcKeys * kTcLd<T, kDP> + sizeof(uint4) * kWarps * (kDP / 8) * 2 * 32 +
+         sizeof(float) * 3 * kTcQueries + static_cast<size_t>(bt_held) * sizeof(int);
+}
+
+// The single-pass tensor-core launch's CTAs per (head, sequence, query
+// tile): enough for kTcCtasPerSm CTAs on each SM of the card, at most the
+// portable cluster size and one per tile of table positions
+int tc_cluster_size(int B, int H, int W, int MB, int bs) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
+    sms = 132;  // an H100 SXM
+  const long long tiles = static_cast<long long>(B) * H * ((W + kTcQueries - 1) / kTcQueries);
+  const long long want = (static_cast<long long>(kTcCtasPerSm) * sms + tiles - 1) / tiles;
+  const long long table_tiles = (static_cast<long long>(MB) * bs + kTcKeys - 1) / kTcKeys;
+  return static_cast<int>(std::max(1LL, std::min<long long>({want, table_tiles, kMaxCluster})));
+}
+
+template <typename T, bool kSplit, int kDP>
+int launch_tc(const float* q, const T* k_cache, const T* v_cache, const int* block_tables,
+              const int* q_positions, float* out, int B, int W, int H, int D, int bs, int MB,
+              int C, int cta_cols, int bt_held, float scale, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<T, kDP>(bt_held);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  static bool ready = false;  // the limit is raised once, as in launch()
+  if (!ready) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(paged_append_tc_kernel<T, kSplit, kDP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemLimit));
+    ready = e == cudaSuccess;
+    if (!ready) return static_cast<int>(e);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_clusters(paged_append_tc_kernel<T, kSplit, kDP>,
+                         dim3(C, H, B * ((W + kTcQueries - 1) / kTcQueries)), C, smem, stream, q,
+                         k_cache, v_cache, block_tables, q_positions, out, W, H, D, bs, MB,
+                         cta_cols, bt_held, copy_vec(k_cache, v_cache, D), scale);
 }
 
 template <typename T, bool kSplit, int kMaxD>
@@ -552,6 +945,17 @@ int dispatch(const float* q, const T* k_cache, const T* v_cache, const int* bloc
       C < 1 || C > kMaxCluster || cta_cols < 1 || bt_held < 1 ||
       static_cast<long long>(B) * ((W + kTile - 1) / kTile) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (W >= kTcMinWindow && D <= kTcMaxHeadDim) {  // the tensor-core body
+    const int c = kSplit ? C : tc_cluster_size(B, H, W, MB, bs);
+    if (D <= 32)
+      return launch_tc<T, kSplit, 32>(q, k_cache, v_cache, block_tables, q_positions, out, B, W,
+                                      H, D, bs, MB, c, cta_cols, bt_held, scale, stream);
+    if (D <= 64)
+      return launch_tc<T, kSplit, 64>(q, k_cache, v_cache, block_tables, q_positions, out, B, W,
+                                      H, D, bs, MB, c, cta_cols, bt_held, scale, stream);
+    return launch_tc<T, kSplit, 128>(q, k_cache, v_cache, block_tables, q_positions, out, B, W, H,
+                                     D, bs, MB, c, cta_cols, bt_held, scale, stream);
+  }
   if (D > 256) return by_window<T, kSplit, 512>(q, k_cache, v_cache, block_tables, q_positions,
                                                 out, B, W, H, D, bs, MB, C, cta_cols, bt_held,
                                                 scale, stream);

@@ -25,18 +25,26 @@ Two lowerings, chosen by where the tensors lie:
   each stage one range of a sequence's table columns through shared
   memory, one thread-block cluster per (head, sequence), whose blocks
   combine their softmax states through distributed shared memory in the
-  same launch; a window wider than :data:`WINDOW_TILE` queries is cut
-  into tiles of that many, each its own cluster of the same launch. The
-  single-pass kernel shares the live positions among
-  :func:`kernel_cluster_size` blocks; the split-KV kernel gives each
-  block a run of whole splits (:func:`split_plan`) and writes the
-  combined output, so ``kv_splits > 1`` is one launch too. For a CUDA
-  tensor :func:`paged_append_attention` launches the kernel or raises; it
-  never falls back to the plain version.
+  same launch. Each form has two bodies (:func:`kernel_body`): a window
+  of :data:`TC_MIN_WINDOW` queries or more at a head dim up to
+  :data:`TC_MAX_HEAD_DIM` (a suffix prefill's, a wide verify window's)
+  takes tiles of 64 queries on the tensor cores (3xTF32 ``mma.sync``
+  over an fp32 cache, two TF32 products over a 2-byte one: fp32
+  accuracy); decode and verify windows up to 8 queries, and wider heads,
+  take the CUDA-core body, whose windows past :data:`WINDOW_TILE`
+  queries are cut into tiles of that many, each its own cluster of the
+  same launch. The single-pass kernel shares the live positions among
+  its cluster's blocks (:func:`kernel_cluster_size` for the CUDA-core
+  body); the split-KV kernel gives each block a run of whole splits
+  (:func:`split_plan`) and writes the combined output, so
+  ``kv_splits > 1`` is one launch too. For a CUDA tensor
+  :func:`paged_append_attention` launches the kernel or raises; it never
+  falls back to the plain version.
 
 Each kernel launch adds one to its form's count in :data:`LAUNCHES`
 (``paged_append`` and ``paged_append_split`` for a float32 cache, with
-``_bf16`` or ``_f16`` for a 2-byte one), so a run
+``_bf16`` or ``_f16`` for a 2-byte one), and to the same form's count of
+its window's class in :data:`LAUNCHES_BY_WINDOW`, so a run
 can show that its main path went through the kernels. The count is kept
 on the Python side, where the wrapper launches: a CUDA graph that
 captured the launches replays them without the wrapper, so the graph's
@@ -50,7 +58,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-WINDOW_TILE = 32  # queries a kernel block takes; a wider window launches tiles of them
+WINDOW_TILE = 32  # queries a CUDA-core block takes; a wider window launches tiles of them
+# the tensor-core body's windows and head dims (kTcMinWindow, kTcMaxHeadDim
+# in csrc/paged_attention.cu)
+TC_MIN_WINDOW = 9
+TC_MAX_HEAD_DIM = 128
 MAX_GRID_Z = 65535  # (sequence, query tile) pairs a launch can hold
 MAX_HEAD_DIM = 512  # the kernel's widest instance (kMaxD in csrc/paged_attention.cu)
 MAX_CLUSTER = 8  # the portable thread-block cluster size the kernels launch
@@ -66,25 +78,48 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+# the same launches by query window: "<LAUNCHES key> W=1" (decode),
+# "... W=2-8" (verify windows, on the CUDA-core body) and "... W>=9"
+# (suffix prefills and wide verify windows, the tensor-core body at D <= 128)
+WINDOW_CLASSES = ("W=1", "W=2-8", "W>=9")
+LAUNCHES_BY_WINDOW: Dict[str, int] = {
+    f"{name} {cls}": 0 for name in LAUNCHES for cls in WINDOW_CLASSES
+}
+
+
+def _count_launch(name: str, window: int) -> None:
+    LAUNCHES[name] += 1
+    cls = WINDOW_CLASSES[0 if window == 1 else 1 if window < TC_MIN_WINDOW else 2]
+    LAUNCHES_BY_WINDOW[f"{name} {cls}"] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_WINDOW):
+        for name in counts:
+            counts[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """A copy of :data:`LAUNCHES` and :data:`LAUNCHES_BY_WINDOW` together."""
+    return {**LAUNCHES, **LAUNCHES_BY_WINDOW}
 
 
 def captured_launches(before: Dict[str, int]) -> Dict[str, int]:
-    """The launches recorded since ``before`` (a copy of :data:`LAUNCHES`
-    taken just before a CUDA graph capture), which are the capture's: a
-    capture records its launches and runs none, so the counts go back to
+    """The launches recorded since ``before`` (:func:`launch_counts` taken
+    just before a CUDA graph capture), which are the capture's: a capture
+    records its launches and runs none, so the counts go back to
     ``before`` and each replay adds these with :func:`count_replay`."""
-    captured = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
-    LAUNCHES.update(before)
+    captured = {}
+    for counts in (LAUNCHES, LAUNCHES_BY_WINDOW):
+        captured.update({name: counts[name] - before[name] for name in counts})
+        counts.update({name: before[name] for name in counts})
     return captured
 
 
 def count_replay(captured: Dict[str, int]) -> None:
     """Count one replay of a graph whose capture recorded ``captured``."""
     for name, n in captured.items():
-        LAUNCHES[name] += n
+        (LAUNCHES if name in LAUNCHES else LAUNCHES_BY_WINDOW)[name] += n
 
 
 def _gather(cache: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -301,11 +336,21 @@ def _raise_on_error(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
 
 
+def kernel_body(window: int, head_dim: int) -> str:
+    """Which body of the CUDA kernels a launch of this query window and
+    head dim runs: ``"tensor_cores"`` or ``"cuda_cores"``."""
+    if window >= TC_MIN_WINDOW and head_dim <= TC_MAX_HEAD_DIM:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def kernel_cluster_size(max_blocks: int, block_size: int) -> int:
-    """The thread blocks (one cluster) the single-pass CUDA kernel splits
-    each (head, sequence) over for a table of ``max_blocks`` columns of
-    ``block_size`` positions, as its launcher derives it. Builds the
-    kernels on first use, like a launch."""
+    """The thread blocks (one cluster) the single-pass CUDA kernel's
+    CUDA-core body splits each (head, sequence) over for a table of
+    ``max_blocks`` columns of ``block_size`` positions, as its launcher
+    derives it (the tensor-core body sizes its cluster from the launch's
+    query tiles as well). Builds the kernels on first use, like a
+    launch."""
     from ._build import load_library
 
     return int(load_library().ff_paged_append_cluster_size(max_blocks, block_size))
@@ -330,7 +375,7 @@ def paged_append_attention_kernel(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on_error(rc, symbol)
-    LAUNCHES["paged_append" + count] += 1
+    _count_launch("paged_append" + count, w)
     return out
 
 
@@ -356,7 +401,7 @@ def paged_append_split_kernel(
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on_error(rc, symbol)
-    LAUNCHES["paged_append_split" + count] += 1
+    _count_launch("paged_append_split" + count, w)
     return out
 
 

@@ -3,9 +3,10 @@
     python3 -m flexflow_tpu_torch.tools.flash_probe variants
     python3 -m flexflow_tpu_torch.tools.flash_probe mma-peak
 
-``variants`` builds copies of ``ops/kernels/csrc/flash_attention.cu`` with
-one design choice changed each (a text substitution, :data:`VARIANTS`),
-all nvcc runs at once, and times the forward, dQ and dK/dV kernels of each
+``variants`` builds copies of ``ops/kernels/csrc/flash_attention.cu`` and
+the ``csrc/common.cuh`` it includes with one design choice changed each (a
+text substitution in the source it names, :data:`VARIANTS`), all nvcc
+runs at once, and times the forward, dQ and dK/dV kernels of each
 at the training shape (B=32, S=128, H=12, D=64) and at causal B=4 S=512 by
 CUDA events over 100 eager calls on one input set, in two rounds (forward
 order, then reverse), beside the unchanged source. Each variant is also
@@ -50,27 +51,34 @@ DQ_ROWS_SPLIT_ONCE = DQ_ROWS + """  FragA q_frag[kNT], do_frag[kNT];  // split o
   }
 """
 
-# name -> [(text in the source, replacement)]
+FLASH = "flash_attention.cu"
+COMMON = "common.cuh"  # the TF32 split, fragments and mma helpers
+
+# name -> [(source it patches, text in that source, replacement)]
 VARIANTS = {
-    "fwd_key_tile_64": [("constexpr int kFwdKeyTile = 32;", "constexpr int kFwdKeyTile = 64;")],
-    "fwd_min_blocks_2": [("kDP <= 64 ? 4 : 1)", "kDP <= 64 ? 2 : 1)")],
-    "dkv_query_tile_32": [("constexpr int kDkvQueryTile = 16;", "constexpr int kDkvQueryTile = 32;")],
-    "dkv_query_tile_64": [("constexpr int kDkvQueryTile = 16;", "constexpr int kDkvQueryTile = 64;")],
-    "dq_key_tile_16": [("constexpr int kDqKeyTile = 32;", "constexpr int kDqKeyTile = 16;")],
-    "dq_a_in_registers": [(DQ_ROWS, DQ_ROWS_SPLIT_ONCE), (DQ_A_FROM_SMEM, DQ_A_FROM_REGS)],
-    "split_by_cvt": [(SPLIT_INT, SPLIT_CVT)],
+    "fwd_key_tile_64": [(FLASH, "constexpr int kFwdKeyTile = 32;",
+                         "constexpr int kFwdKeyTile = 64;")],
+    "fwd_min_blocks_2": [(FLASH, "kDP <= 64 ? 4 : 1)", "kDP <= 64 ? 2 : 1)")],
+    "dkv_query_tile_32": [(FLASH, "constexpr int kDkvQueryTile = 16;",
+                           "constexpr int kDkvQueryTile = 32;")],
+    "dkv_query_tile_64": [(FLASH, "constexpr int kDkvQueryTile = 16;",
+                           "constexpr int kDkvQueryTile = 64;")],
+    "dq_key_tile_16": [(FLASH, "constexpr int kDqKeyTile = 32;", "constexpr int kDqKeyTile = 16;")],
+    "dq_a_in_registers": [(FLASH, DQ_ROWS, DQ_ROWS_SPLIT_ONCE),
+                          (FLASH, DQ_A_FROM_SMEM, DQ_A_FROM_REGS)],
+    "split_by_cvt": [(COMMON, SPLIT_INT, SPLIT_CVT)],
     "probe_no_b_split": [
-        (B_NK, B_NK.replace("split_in(p[g * ld + t], 1.f, f.big[0], f.small[0]);",
-                            "f.big[0] = f.small[0] = __float_as_uint(p[g * ld + t]);")
+        (COMMON, B_NK, B_NK.replace("split_in(p[g * ld + t], 1.f, f.big[0], f.small[0]);",
+                                    "f.big[0] = f.small[0] = __float_as_uint(p[g * ld + t]);")
          .replace("split_in(p[g * ld + t + 4], 1.f, f.big[1], f.small[1]);",
                   "f.big[1] = f.small[1] = __float_as_uint(p[g * ld + t + 4]);")),
-        (B_KN, B_KN.replace("split_in(p[2 * t * ld + g], 1.f, f.big[0], f.small[0]);",
-                            "f.big[0] = f.small[0] = __float_as_uint(p[2 * t * ld + g]);")
+        (COMMON, B_KN, B_KN.replace("split_in(p[2 * t * ld + g], 1.f, f.big[0], f.small[0]);",
+                                    "f.big[0] = f.small[0] = __float_as_uint(p[2 * t * ld + g]);")
          .replace("split_in(p[(2 * t + 1) * ld + g], 1.f, f.big[1], f.small[1]);",
                   "f.big[1] = f.small[1] = __float_as_uint(p[(2 * t + 1) * ld + g]);")),
     ],
-    "probe_one_tf32": [("  if constexpr (!kExactB) mma_tf32(c, a.big, b.small);\n"
-                        "  if constexpr (!kExactA) mma_tf32(c, a.small, b.big);\n", "")],
+    "probe_one_tf32": [(COMMON, "  if constexpr (!kExactB) mma_tf32(c, a.big, b.small);\n"
+                                "  if constexpr (!kExactA) mma_tf32(c, a.small, b.big);\n", "")],
 }
 
 MMA_PEAK_CU = r"""
@@ -119,8 +127,40 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def variant_sources(main: str, variants) -> dict:
+    """{name: {file: text}}: the checkout's ``csrc/<main>`` and the
+    ``common.cuh`` it includes as ``"source"``, and a copy of both per
+    variant with each (file, old, new) substitution made in the file it
+    names; an ``old`` of two texts replaces everything from the first
+    through the second. Raises where a text is not in its source, so a
+    variant cannot silently patch nothing."""
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    base = {main: (_build.CSRC_DIR / main).read_text(),
+            COMMON: (_build.CSRC_DIR / COMMON).read_text()}
+    out = {"source": dict(base)}
+    for name, subs in variants.items():
+        files = dict(base)
+        for file, old, new in subs:
+            text = files[file]
+            if isinstance(old, tuple):
+                if old[0] not in text or old[1] not in text:
+                    raise RuntimeError(f"{name}: {old[0][:60]!r} ... is not in {file}")
+                start, end = text.index(old[0]), text.index(old[1]) + len(old[1])
+                files[file] = text[:start] + new + text[end:]
+                continue
+            if old not in text:
+                raise RuntimeError(f"{name}: {old[:60]!r} is not in {file}")
+            files[file] = text.replace(old, new)
+        out[name] = files
+    return out
+
+
 def _compile(named_sources):
-    """{name: .so path} for {name: CUDA source text}, one nvcc each, in parallel."""
+    """{name: (.so path, nvcc's log)} for {name: {file name: text}} (the
+    one ``.cu`` among the files is compiled; the headers it includes are
+    read beside it), one nvcc each, in parallel. A plain text is one
+    ``.cu`` file of its own."""
     from flexflow_tpu_torch.ops.kernels import _build
 
     nvcc = _build.find_nvcc()
@@ -129,12 +169,16 @@ def _compile(named_sources):
     out_dir = _build.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in named_sources.items():
-        src = out_dir / f"{name}.cu"
-        src.write_text(text)
+    for name, files in named_sources.items():
+        if isinstance(files, str):
+            files = {f"{name}.cu": files}
+        var_dir = out_dir / name
+        var_dir.mkdir(exist_ok=True)
+        for file, text in files.items():
+            (var_dir / file).write_text(text)
+        src, = (var_dir / f for f in files if f.endswith(".cu"))
         so = out_dir / f"{name}.so"
-        # the copies build beside the others, so the shared headers come from csrc/
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o", str(so), str(src)]
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-o", str(so), str(src)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                             text=True))
     built = {}
@@ -169,17 +213,8 @@ def variants() -> int:
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA device is available", file=sys.stderr)
         return 2
-    base = (_build.CSRC_DIR / "flash_attention.cu").read_text()
-    sources = {"source": base}
-    for name, subs in VARIANTS.items():
-        text = base
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: {old[:60]!r} is not in the source")
-            text = text.replace(old, new)
-        sources[name] = text
     libs = {}
-    for name, (so, log) in _compile(sources).items():
+    for name, (so, log) in _compile(variant_sources(FLASH, VARIANTS)).items():
         lib = ctypes.CDLL(str(so))
         for fn in ("ff_flash_fwd_f32", "ff_flash_bwd_dq_f32", "ff_flash_bwd_dkv_f32"):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]

@@ -29,15 +29,18 @@ from __future__ import annotations
 import ctypes
 import sys
 
-from flexflow_tpu_torch.tools.flash_probe import _card, _compile
+from flexflow_tpu_torch.tools.flash_probe import VARIANTS as VARIANTS_OF_FLASH
+from flexflow_tpu_torch.tools.flash_probe import _card, _compile, variant_sources
 
-# single-pass variants: name -> [(text in the source, replacement)]
+PAGED = "paged_attention.cu"
+
+# single-pass variants: name -> [(source it patches, text in it, replacement)]
 VARIANTS = {
     # rounds of two tiles, or of one (no copies in flight beside it)
-    "two_tile_rounds": [("  int stages = kMaxStages;\n", "  int stages = 2;\n")],
-    "one_tile_rounds": [("  int stages = kMaxStages;\n", "  int stages = 1;\n")],
+    "two_tile_rounds": [(PAGED, "  int stages = kMaxStages;\n", "  int stages = 2;\n")],
+    "one_tile_rounds": [(PAGED, "  int stages = kMaxStages;\n", "  int stages = 1;\n")],
     # each CTA of the cluster takes a fixed share of the table's columns
-    "column_shares": [("    const int share = ((live + S - 1) / S + kTile - 1) / kTile * kTile;\n"
+    "column_shares": [(PAGED, "    const int share = ((live + S - 1) / S + kTile - 1) / kTile * kTile;\n"
                        "    pos0 = s * share;\n"
                        "    pos1 = min(live, pos0 + share);\n",
                        "    const int cols = (MB + S - 1) / S;\n"
@@ -45,16 +48,16 @@ VARIANTS = {
                        "    pos1 = min(min(MB, (s + 1) * cols) * bs, live);\n")],
     # fp32 rows padded to 16 mod 32 floats (no bank conflicts in the score
     # reads); 2-byte rows padded by 8 elements (4 banks) instead of 16
-    "rows_16_mod_32": [("sizeof(T) == 4 ? round4(d) + 4 :",
+    "rows_16_mod_32": [(PAGED, "sizeof(T) == 4 ? round4(d) + 4 :",
                         "sizeof(T) == 4 ? (round4(d) + 47) / 32 * 32 - 16 :")],
-    "two_byte_rows_plus_8": [("((d + 7) & ~7) + 16;", "((d + 7) & ~7) + 8;")],
-    "cta_positions_256": [("constexpr int kCtaPositions = 128;",
+    "two_byte_rows_plus_8": [(PAGED, "((d + 7) & ~7) + 16;", "((d + 7) & ~7) + 8;")],
+    "cta_positions_256": [(PAGED, "constexpr int kCtaPositions = 128;",
                            "constexpr int kCtaPositions = 256;")],
-    "probe_no_compute": [("    // scores of position quad_t of every tile with every query\n",
+    "probe_no_compute": [(PAGED, "    // scores of position quad_t of every tile with every query\n",
                           "    continue;  // probe\n")],
-    "probe_no_combine": [("  cluster.sync();  // every CTA's m, l and acc are written and visible\n",
+    "probe_no_combine": [(PAGED, "  cluster.sync();  // every CTA's m, l and acc are written and visible\n",
                           "  if (tid >= 0) return;  // probe\n")],
-    "probe_launch_only": [("  // the table columns this CTA holds: from its range's first, or from the row's first\n",
+    "probe_launch_only": [(PAGED, "  // the table columns this CTA holds: from its range's first, or from the row's first\n",
                            "  cg::this_cluster().sync();\n"
                            "  if (tid >= 0) return;  // probe\n")],
 }
@@ -177,24 +180,26 @@ _PUSH_COMBINE = """  cg::cluster_group cluster = cg::this_cluster();
 # split launch's parts as well
 SPLIT_VARIANTS = {
     # (a16) a non-portable cluster of up to 16 CTAs, one per split up to 16
-    "cluster16": [("constexpr int kMaxCluster = 8;", "constexpr int kMaxCluster = 16;"),
-                  ("    if (e != cudaSuccess) return static_cast<int>(e);\n    ready = true;\n",
+    "cluster16": [(PAGED, "constexpr int kMaxCluster = 8;", "constexpr int kMaxCluster = 16;"),
+                  (PAGED, "    if (e != cudaSuccess) return static_cast<int>(e);\n    ready = true;\n",
                    "    if (e != cudaSuccess) return static_cast<int>(e);\n"
                    "    cudaFuncSetAttribute(paged_append_kernel<T, kMaxW, kSplit, kMaxD>,\n"
                    "                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
                    "    ready = true;\n")],
     # rounds of at most 3 tiles (a quarter of an SM's shared memory, as
     # the single-pass form): a 128-position range takes two rounds
-    "split_stages3": [("kSmemLimit / (kSplit ? 2 : 4)", "kSmemLimit / 4")],
+    "split_stages3": [(PAGED, "kSmemLimit / (kSplit ? 2 : 4)", "kSmemLimit / 4")],
     # (b) partials in a global scratch, the last CTA to arrive combines
-    "ticket": [((_COMBINE_START, _COMBINE_END), _TICKET_COMBINE),
-               (_KERNEL, _TICKET_GLOBALS + _KERNEL),
-               ("  cfg.numAttrs = 1;\n", "  cfg.numAttrs = kSplit ? 0 : 1;\n")],
+    "ticket": [(PAGED, (_COMBINE_START, _COMBINE_END), _TICKET_COMBINE),
+               (PAGED, _KERNEL, _TICKET_GLOBALS + _KERNEL),
+               (PAGED, "  cfg.numAttrs = 1;\n", "  cfg.numAttrs = C > 0 ? 1 : 0;\n"),
+               (PAGED, "dim3(C, H, B * ((W + kMaxW - 1) / kMaxW)), C, smem",
+                "dim3(C, H, B * ((W + kMaxW - 1) / kMaxW)), kSplit ? 0 : C, smem")],
     # the combine pushed into rank 0's shared memory (one barrier)
-    "push": [((_COMBINE_START, _COMBINE_END), _PUSH_COMBINE),
-             ("  int* bt_s = qp_s + Wl;", "  asm volatile(\"barrier.cluster.arrive.relaxed.aligned;\\n\" ::: "
+    "push": [(PAGED, (_COMBINE_START, _COMBINE_END), _PUSH_COMBINE),
+             (PAGED, "  int* bt_s = qp_s + Wl;", "  asm volatile(\"barrier.cluster.arrive.relaxed.aligned;\\n\" ::: "
               "\"memory\");\n  int* bt_s = qp_s + Wl;"),
-             ("static_cast<size_t>(bt_held));",
+             (PAGED, "static_cast<size_t>(bt_held));",
               "static_cast<size_t>(bt_held) + kMaxCluster * (2 * w + w * D));")],
 }
 
@@ -234,28 +239,13 @@ extern "C" int ff_probe_max_active_clusters(int W, int D, int MB, int bs, int H,
 """
 
 
-def _substituted(base: str, name: str, subs) -> str:
-    """``base`` with each (old, new) substitution made; an ``old`` of two
-    texts replaces everything from the first through the second."""
-    text = base
-    for old, new in subs:
-        if isinstance(old, tuple):
-            if old[0] not in text or old[1] not in text:
-                raise RuntimeError(f"{name}: {old[0][:60]!r} ... is not in the source")
-            start, end = text.index(old[0]), text.index(old[1]) + len(old[1])
-            text = text[:start] + new + text[end:]
-            continue
-        if old not in text:
-            raise RuntimeError(f"{name}: {old[:60]!r} is not in the source")
-        text = text.replace(old, new)
-    return text
-
-
-def _inputs(torch, gen, ctx_lens, w, copies, kv_dtype, nb=257, bs=16, h=12, d=64, mb=64):
+def _inputs(torch, gen, ctx_lens, w, copies, kv_dtype, nb=257, bs=16, h=12, d=64, mb=64,
+            real=None):
     """``copies`` sets of (q, k, v, tables, positions) of the kernel phase
     of chip_smoke.py, caches of ``kv_dtype``: tables over a random
-    permutation of the blocks, window ``w`` ending at each context's last
-    position (a context of 0 is a padding-only slot)."""
+    permutation of the blocks, window ``w`` starting at each context's last
+    position (a context of 0 is a padding-only slot), queries past the
+    first ``real`` of each window padding."""
     import numpy as np
 
     rs = np.random.RandomState(0)
@@ -268,6 +258,8 @@ def _inputs(torch, gen, ctx_lens, w, copies, kv_dtype, nb=257, bs=16, h=12, d=64
         used += nblk
     qpos = np.asarray(ctx_lens)[:, None] - 1 + np.arange(w)[None, :]
     qpos[np.asarray(ctx_lens) == 0] = -1
+    if real is not None:
+        qpos[:, real:] = -1
     dev = torch.device("cuda")
     bt = torch.from_numpy(tables).to(dev)
     qp = torch.from_numpy(qpos.astype(np.int32)).to(dev)
@@ -275,6 +267,123 @@ def _inputs(torch, gen, ctx_lens, w, copies, kv_dtype, nb=257, bs=16, h=12, d=64
              torch.randn((nb, bs, h, d), generator=gen).to(dev, kv_dtype),
              torch.randn((nb, bs, h, d), generator=gen).to(dev, kv_dtype), bt, qp)
             for _ in range(copies)]
+
+
+def _load(so):
+    """The paged library at ``so`` with every form's argument types set."""
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _build.SIGNATURES.items():
+        if name.startswith("ff_paged_append_") and hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _single(torch, lib, form):
+    """A call of ``lib``'s single-pass kernel of cache form ``form``."""
+    def run(q, k, v, bt, qp):
+        b, w, h, d = q.shape
+        out = torch.empty_like(q)
+        rc = getattr(lib, f"ff_paged_append_{form}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(), qp.data_ptr(),
+            out.data_ptr(), b, w, h, d, k.shape[1], bt.shape[1], d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch failed: cudaError_t {rc}")
+        return out
+    return run
+
+
+def _split(torch, lib, form, s, max_ctas=None):
+    """A call of ``lib``'s split-KV kernel of form ``form`` over ``s`` splits."""
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    def run(q, k, v, bt, qp):
+        b, w, h, d = q.shape
+        ctas, cols = da.split_plan(s, bt.shape[1], max_ctas or da.MAX_CLUSTER)
+        out = torch.empty_like(q)
+        rc = getattr(lib, f"ff_paged_append_split_{form}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(), qp.data_ptr(),
+            out.data_ptr(), b, w, h, d, k.shape[1], bt.shape[1], ctas, cols, d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch failed: cudaError_t {rc}")
+        return out
+    return run
+
+
+# the wide-window body's variants: name -> [(source it patches, text, replacement)]
+WINDOW_VARIANTS = {
+    # every window on the CUDA-core body (the crossover's other side)
+    "cuda_cores": [(PAGED, "constexpr int kTcMinWindow = 9;",
+                    "constexpr int kTcMinWindow = 1 << 30;")],
+    # key tiles of 32 positions (less shared memory: more CTAs an SM)
+    "tc_keys_32": [(PAGED, "constexpr int kTcKeys = 64;", "constexpr int kTcKeys = 32;")],
+    # the query tiles launched first to last (the first see the fewest
+    # positions of a causal window)
+    "tc_tiles_in_order": [(PAGED, "  const int w0 = (q_tiles - 1 - (blockIdx.z - b * q_tiles)) * kTcQueries;",
+                           "  const int w0 = (blockIdx.z - b * q_tiles) * kTcQueries;")],
+    # the single-pass launch aims at 4 CTAs an SM (its cluster size)
+    "tc_ctas_per_sm_4": [(PAGED, "constexpr int kTcCtasPerSm = 2;",
+                          "constexpr int kTcCtasPerSm = 4;")],
+    # probes of the tensor-core body's parts (wrong results on purpose):
+    # the copies alone, the products without the copies, without P V, and
+    # without the split of K and V (an fp32 cache's B fragments: the flash
+    # probe's substitution in common.cuh)
+    "probe_tc_copies_only": [(PAGED, "    if (k0 <= warp_qp) {  // else no row of this warp sees the tile",
+                              "    if (k0 <= warp_qp && tid < 0) {  // probe")],
+    "probe_tc_no_copies": [(PAGED, "  auto stage = [&](int k0, int buf) {\n",
+                            "  auto stage = [&](int k0, int buf) {\n    if (tid >= 0) return;  // probe\n")],
+    "probe_tc_no_pv": [(PAGED, "      for (int j = 0; j < kKT; ++j) {\n        FragA a;\n        acc_to_a(a, sc[j]);",
+                        "      for (int j = 0; j < (tid < 0 ? kKT : 0); ++j) {  // probe\n        FragA a;\n"
+                        "        acc_to_a(a, sc[j]);")],
+    "probe_tc_no_b_split": VARIANTS_OF_FLASH["probe_no_b_split"],
+}
+
+
+def windows() -> int:
+    """The crossover and the tensor-core body's design at the serving
+    shapes (H=12, D=64, 64 columns of 16): one sequence's suffix window
+    of W queries from position 512 (from 0 at W = 1024) and a 4-slot
+    verify-like batch (contexts 700/40/0/300), single-pass in every build
+    of WINDOW_VARIANTS and split (S=8) in the checkout's and the
+    CUDA-core build, for each cache form; two rounds (forward order,
+    then reverse)."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    libs = {name: _load(so) for name, (so, _) in
+            _compile(variant_sources(PAGED, WINDOW_VARIANTS)).items()}
+    print(_card())
+    gen = torch.Generator().manual_seed(0)
+    for kv_dtype, (form, _) in da._FORMS.items():
+        # (case, contexts, window, real queries a window, every build timed)
+        cases = [(f"B=1 W={w}", [1 if w > 512 else 513], w, None, w in (64, 256, 1024))
+                 for w in (9, 16, 32, 33, 40, 64, 256, 1024)]
+        cases += [(f"B=4 W={w}", [700, 40, 0, 300], w, None, w == 40) for w in (9, 40)]
+        # the chip_smoke kernel phase's W = 1024 case: 854 real queries from 0
+        cases += [("B=1 W=1024 854 real", [1], 1024, 854, True)]
+        for case, ctx, w, real, every in cases:
+            sets = _inputs(torch, gen, ctx, w, copies=8, kv_dtype=kv_dtype, real=real)
+            want = da.reference_paged_append_attention(*sets[0])
+            runs = {name: _single(torch, lib, form) for name, lib in libs.items()
+                    if every or name in ("source", "cuda_cores")}
+            if w <= 64:
+                runs.update({f"{name} split S=8": _split(torch, libs[name], form, 8)
+                             for name in ("source", "cuda_cores")})
+            times = {name: [] for name in runs}
+            for order in (list(runs), list(reversed(list(runs)))):
+                for name in order:
+                    times[name].append(_graph_ms(torch, runs[name], sets))
+            for name, fn in runs.items():
+                err = float((fn(*sets[0]) - want).abs().max())
+                print(f"{form:4s} {case:10s} {name:24s} ms "
+                      + " ".join(f"{t:.5f}" for t in times[name]) + f"  max abs err {err:.2e}")
+            del sets
+    return 0
 
 
 def _graph_ms(torch, fn, sets, iters=16, reps=5):
@@ -307,23 +416,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kv-dtype", choices=("float32", "bfloat16", "float16"), default="float32",
                     help="the KV cache's dtype: which form of the kernels the cases time")
+    ap.add_argument("--windows", action="store_true",
+                    help="time the two bodies and the tensor-core body's variants at wide "
+                         "windows, every cache form (WINDOW_VARIANTS)")
     args = ap.parse_args(argv)
-    kv_dtype = getattr(torch, args.kv_dtype)
-    form = da._FORMS[kv_dtype][0]
     if not torch.cuda.is_available():
         print("paged_probe: no CUDA device is available", file=sys.stderr)
         return 2
-    base = (_build.CSRC_DIR / "paged_attention.cu").read_text()
-    sources = {"source": base + OCCUPANCY_CU}
-    for name, subs in {**VARIANTS, **SPLIT_VARIANTS}.items():
-        sources[name] = _substituted(base, name, subs)
-    libs = {}
-    for name, (so, _) in _compile(sources).items():
-        lib = ctypes.CDLL(str(so))
-        for fn in (f"ff_paged_append_{form}", f"ff_paged_append_split_{form}"):
-            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+    if args.windows:
+        return windows()
+    kv_dtype = getattr(torch, args.kv_dtype)
+    form = da._FORMS[kv_dtype][0]
+    sources = variant_sources(PAGED, {**VARIANTS, **SPLIT_VARIANTS})
+    sources["source"][PAGED] += OCCUPANCY_CU
+    libs = {name: _load(so) for name, (so, _) in _compile(sources).items()}
     print(_card())
     clusters = libs["source"].ff_probe_max_active_clusters(1, 64, 64, 16, 12, 4,
                                                           kv_dtype.itemsize)
@@ -331,31 +437,10 @@ def main(argv=None) -> int:
           f"the card holds {clusters} clusters at once")
 
     def single(lib):
-        def run(q, k, v, bt, qp):
-            b, w, h, d = q.shape
-            out = torch.empty_like(q)
-            rc = getattr(lib, f"ff_paged_append_{form}")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(), qp.data_ptr(),
-                out.data_ptr(), b, w, h, d, k.shape[1], bt.shape[1], d ** -0.5,
-                torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"launch failed: cudaError_t {rc}")
-            return out
-        return run
+        return _single(torch, lib, form)
 
-    def split(lib, s, max_ctas=da.MAX_CLUSTER):
-        def run(q, k, v, bt, qp):
-            b, w, h, d = q.shape
-            ctas, cols = da.split_plan(s, bt.shape[1], max_ctas)
-            out = torch.empty_like(q)
-            rc = getattr(lib, f"ff_paged_append_split_{form}")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(), qp.data_ptr(),
-                out.data_ptr(), b, w, h, d, k.shape[1], bt.shape[1], ctas, cols, d ** -0.5,
-                torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"launch failed: cudaError_t {rc}")
-            return out
-        return run
+    def split(lib, s, max_ctas=None):
+        return _split(torch, lib, form, s, max_ctas)
 
     single_runs = {name: single(libs[name]) for name in ["source", *VARIANTS]}
 

@@ -222,12 +222,146 @@ def test_cuda_paged_wide_window_edge_shapes(cuda):
     _check_paged(_paged_case(cuda, qpos, 12, 64, 16, 64, seed=23))
 
 
+FORMS = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_f16"}
+
+
+def _suffix_window(w, start, b=3, table_positions=1024):
+    """A suffix prefill's window of ``w`` queries: a causal run from
+    ``start`` (a seventh of the window left as padding), a short run
+    beside it, and a padding-only sequence."""
+    n_real = min(w, table_positions - start) - w // 7
+    qpos = np.full((b, w), -1)
+    qpos[0, :n_real] = start + np.arange(n_real)
+    qpos[1, :min(w, 5)] = 300 + np.arange(min(w, 5))
+    return qpos
+
+
+@pytest.mark.parametrize("kv_dtype", list(FORMS))
+@pytest.mark.parametrize("w", [9, 16, 32, 33, 64, 256, 1024])
+@pytest.mark.parametrize("start", [0, 512])
+def test_cuda_paged_tensor_core_windows_match_plain(cuda, kv_dtype, w, start):
+    """The tensor-core body (W >= 9, D <= 128) in each cache form, at the
+    suffix buckets and past a query tile, from positions 0 and 512 of a
+    64-column table of 16: one launch of the form's single-pass kernel,
+    then the split kernel, each against the plain version at the fp32
+    gate (both widen K and V exactly), padding queries exact zeros."""
+    args = _paged_case(cuda, _suffix_window(w, start), 4, 64, 16, 64, seed=w + start,
+                       kv_dtype=kv_dtype)
+    form = FORMS[kv_dtype]
+    da.reset_launch_counts()
+    _check_paged(args)
+    assert da.LAUNCHES == {**PAGED_NONE, f"paged_append{form}": 1}
+    da.reset_launch_counts()
+    got = da.paged_append_attention(*args, kv_splits=8)
+    assert da.LAUNCHES == {**PAGED_NONE, f"paged_append_split{form}": 1}
+    torch.testing.assert_close(got, da.reference_paged_append_attention(*args),
+                               atol=1e-4, rtol=1e-4)
+    assert bool((got[args[4] < 0] == 0).all()), "padding queries must give exact zeros"
+
+
+@pytest.mark.parametrize("kv_dtype", list(FORMS))
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])  # 256: the CUDA-core body
+def test_cuda_paged_tensor_core_head_dims(cuda, kv_dtype, d):
+    """Head dims 32, 64, 96 and 128 on the tensor-core body (96 padded to
+    128 in shared memory) and 256 on the CUDA-core body, at a 40-query
+    window with padding queries, single-pass and split."""
+    rs = np.random.RandomState(d)
+    qpos = rs.randint(0, 20 * 16 - 40, (2, 1)) + np.arange(40)[None, :]
+    qpos[rs.rand(2, 40) < 0.2] = -1
+    args = _paged_case(cuda, qpos, 2, d, 16, 20, seed=d, kv_dtype=kv_dtype)
+    _check_paged(args)
+    _check_split(args, 4)
+
+
+@pytest.mark.parametrize("kv_dtype", list(FORMS))
+def test_cuda_paged_tensor_core_ragged_tables(cuda, kv_dtype):
+    """The tensor-core body over block size 5 and a ragged 61-column
+    table (a 70-query window, padding rows among live ones, one
+    padding-only sequence), over a table wider than the 2048 columns a
+    CTA holds in shared memory (3000 columns of one position), and a
+    window of padding only: single-pass and split against the plain
+    version, every padding row exact zeros."""
+    rs = np.random.RandomState(17)
+    qpos = rs.randint(0, 61 * 5 - 70, (3, 1)) + np.arange(70)[None, :]
+    qpos[rs.rand(3, 70) < 0.25] = -1
+    qpos[2] = -1
+    args = _paged_case(cuda, qpos, 2, 64, 5, 61, seed=18, kv_dtype=kv_dtype)
+    _check_paged(args)
+    for splits in (3, 61):
+        _check_split(args, splits)
+    qpos = np.full((1, 24), -1)
+    qpos[0, :20] = 2970 + np.arange(20)
+    args = _paged_case(cuda, qpos, 2, 64, 1, 3000, seed=19, kv_dtype=kv_dtype)
+    _check_paged(args)
+    _check_split(args, 16)
+    args = _paged_case(cuda, np.full((2, 100), -1), 2, 64, 16, 8, seed=20, kv_dtype=kv_dtype)
+    _check_paged(args)
+    _check_split(args, 4)
+
+
+@pytest.mark.parametrize("kv_dtype", list(FORMS))
+@pytest.mark.parametrize("splits", [3, 8])
+def test_cuda_paged_tensor_core_split_w64(cuda, kv_dtype, splits):
+    """The split form's tensor-core body at a 64-query window (the
+    long-context cell's table of 64 columns of 16, context past 700)
+    against the plain split partials + combine and the single-pass plain
+    version."""
+    qpos = np.full((1, 64), -1)
+    qpos[0, :54] = 700 + np.arange(54)
+    _check_split(_paged_case(cuda, qpos, 12, 64, 16, 64, seed=splits, kv_dtype=kv_dtype), splits)
+
+
+@pytest.mark.parametrize("splits", [1, 8])
+def test_cuda_paged_tensor_core_body_replays_in_a_cuda_graph(cuda, splits):
+    """A 256-query window (both forms of the tensor-core body) captured
+    into a CUDA graph and replayed on new queries copied into the
+    captured buffer: each replay equals an eager launch exactly."""
+    args = _paged_case(cuda, _suffix_window(256, 512), 4, 64, 16, 64, seed=41)
+    da.paged_append_attention(*args, kv_splits=splits)  # first launch outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.paged_append_attention(*args, kv_splits=splits)
+    for _ in range(2):
+        args[0].copy_(torch.randn_like(args[0]))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, da.paged_append_attention(*args, kv_splits=splits),
+                                   atol=0, rtol=0)
+        torch.testing.assert_close(out, da.reference_paged_append_attention(*args),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_paged_body_by_window_and_head_dim(cuda):
+    """Which body a launch runs, by its device kernel's name: the
+    tensor-core body from W = 9 at D <= 128, the CUDA-core body for
+    W <= 8 and for D > 128, in both forms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(w, d, splits):
+        args = _paged_case(cuda, 100 + np.arange(w)[None, :], 2, d, 16, 20, seed=w + d)
+        da.paged_append_attention(*args, kv_splits=splits)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            da.paged_append_attention(*args, kv_splits=splits)
+            torch.cuda.synchronize()
+        return {e.name for e in prof.events() if "paged_append" in e.name}
+
+    for splits in (1, 4):
+        for w, d, body in ((1, 64, "paged_append_kernel<"), (8, 64, "paged_append_kernel<"),
+                           (9, 64, "paged_append_tc_kernel<"), (40, 128, "paged_append_tc_kernel<"),
+                           (40, 256, "paged_append_kernel<")):
+            names = kernels(w, d, splits)
+            assert names and all(body in n for n in names), (w, d, splits, names)
+
+
 def _check_split(args, kv_splits):
-    """The fused split kernel against the plain split + combine and the
-    single-pass plain version: one launch, no single-pass launch."""
+    """The fused split kernel of the caches' form against the plain split
+    + combine and the single-pass plain version: one launch, no
+    single-pass launch."""
     da.reset_launch_counts()
     got = da.paged_append_attention(*args, kv_splits=kv_splits)
-    assert da.LAUNCHES == {**PAGED_NONE, "paged_append_split": 1}
+    assert da.LAUNCHES == {**PAGED_NONE, f"paged_append_split{FORMS[args[1].dtype]}": 1}
     partials = da.reference_paged_append_partials(*args, kv_splits)
     torch.testing.assert_close(got, da._combine_splits(*partials, args[4], torch.float32),
                                atol=1e-4, rtol=1e-4)
