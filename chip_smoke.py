@@ -2631,6 +2631,22 @@ def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: boo
     return (t_bytes, "bytes", fp32_ms) if t_bytes >= t_ops else (t_ops, "operations", fp32_ms)
 
 
+def ptxas_report(log: str) -> list:
+    """[(kernel instance, "N registers, spills")] from nvcc's ptxas -v log:
+    each entry function by its mangled name past the source's namespace."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN\w*?_cu_[0-9a-f]+\d+(\w+)'", line)
+        if m:
+            name, spill = m.group(1).split("EEv")[0], ""  # up to the template arguments
+        elif name and "spill stores" in line:
+            spill = line.strip().split(",")[1].strip()
+        elif name and "Used" in line and "registers" in line:
+            out.append((name, line.split("Used", 1)[1].split(",")[0].strip() + ", " + spill))
+            name = None
+    return out
+
+
 def library_sass(source: str) -> str:
     """cuobjdump -sass of the built library of ``csrc/<source>``."""
     from flexflow_tpu_torch.ops.kernels import _build
@@ -2643,37 +2659,51 @@ def library_sass(source: str) -> str:
 
 def tensor_core_check() -> dict:
     """The built flash library's SASS (cuobjdump -sass) must hold
-    tensor-core HMMA instructions in every instance of the forward, dQ
-    and dK/dV tensor-core kernels, float32 and bf16 forms, and the
+    tensor-core HMMA instructions (mma.sync) in every instance of the
+    forward, dQ and dK/dV mma.sync kernels, float32 and bf16 forms (the
+    bf16 forms are the body the wgmma bodies leave calls to), and
+    warpgroup GMMA instructions (HGMMA, wgmma) in every instance of the
+    bf16 wgmma forward and dK/dV (head dims padded to 64 and 128); the
     CUDA-core dQ must exist only for head dims above 128 (5..8, 12 and 16
     columns of 32) in both forms; the paged library's, in every instance
     of the tensor-core body (fp32, bf16 and fp16 caches, single-pass and
     split, head dims padded to 32, 64 and 128). Raises otherwise. Returns
-    {kernel<head-dim pad,form>: HMMA count}."""
-    found = paged_tensor_core_check()
+    ({kernel<head-dim pad,form>: HMMA count}, {wgmma kernel<pad>: HGMMA
+    count})."""
+    paged_tensor_core_check()
     sass = library_sass("flash_attention.cu")
     counts, name = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : .*?(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)E", line)
+        m = re.search(r"Function : .*?(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)?E", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)},{'f32' if m.group(3) == 'f' else 'bf16'}>"
-            counts[name] = 0
+            form = {"f": ",f32", "13__nv_bfloat16": ",bf16", None: ""}[m.group(3)]
+            name = f"{m.group(1)}<{m.group(2)}{form}>"
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
         elif "Function : " in line:
             name = None
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
+        elif name is not None:
+            for op in ("HMMA", "HGMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
     found = {}
     for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
-        inst = {n: c for n, c in counts.items() if n.startswith(kernel + "<")}
+        inst = {n: c["HMMA"] for n, c in counts.items() if n.startswith(kernel + "<")}
         if len(inst) != 8 or not all(inst.values()):
             raise AssertionError(f"{kernel}: expected HMMA in 4 head dims x 2 forms, got "
                                  f"{inst or 'none in the built library'}")
         found.update(inst)
+    wgmma = {}
+    for kernel in ("flash_fwd_wg_kernel", "flash_bwd_dkv_wg_kernel"):
+        inst = {n: c["HGMMA"] for n, c in counts.items() if n.startswith(kernel + "<")}
+        if sorted(inst) != [f"{kernel}<128>", f"{kernel}<64>"] or not all(inst.values()):
+            raise AssertionError(f"{kernel}: expected HGMMA in head dims 64 and 128, got "
+                                 f"{inst or 'none in the built library'}")
+        wgmma.update(inst)
     simt_dq = sorted(n[n.index("<") + 1:-1] for n in counts if n.startswith("flash_bwd_dq_kernel<"))
     want = sorted(f"{c},{f}" for c in (5, 6, 7, 8, 12, 16) for f in ("f32", "bf16"))
     if simt_dq != want:
         raise AssertionError(f"CUDA-core dQ instances {simt_dq}: expected only D > 128 ({want})")
-    return found
+    return found, wgmma
 
 
 def paged_tensor_core_check() -> dict:
@@ -2762,11 +2792,13 @@ def flash_inputs(gen, b, sq, sk, h, d, causal, scale, copies=1, dtype=None):
     return sets
 
 
-def check_flash(name, sets, causal, scale):
+def check_flash(name, sets, causal, scale, body=None):
     """The three kernels against their plain versions on the first set,
     at the fp32 gate or, for bf16 inputs, the bf16 gate (the logsumexp,
-    fp32 in both forms, at the fp32 gate); returns {kernel: max abs err},
-    keyed as the launch counts are."""
+    fp32 in both forms, at the fp32 gate). ``body``: the body
+    (``fa.BODIES``) the forward and dK/dV launches must have taken.
+    Returns ({kernel: max abs err}, {kernel: body taken}), keyed as the
+    launch counts are."""
     import torch
 
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
@@ -2774,24 +2806,39 @@ def check_flash(name, sets, causal, scale):
     q, k, v, do, lse, delta = sets[0]
     bf16 = q.dtype == torch.bfloat16
     close, form = (check_bf16, "_bf16") if bf16 else (check_close, "")
+    before = dict(fa.LAUNCHES_BY_BODY)
     o, klse = fa.flash_forward_kernel(q, k, v, causal, scale)
     po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
     dq = fa.flash_backward_dq_kernel(q, k, v, do, lse, delta, causal, scale)
     dk, dv = fa.flash_backward_dkv_kernel(q, k, v, do, lse, delta, causal, scale)
     pdq, pdk, pdv = fa.reference_flash_backward(q, k, v, do, lse, delta, causal, scale)
+    took = dict(key.split() for key, n in fa.LAUNCHES_BY_BODY.items() if n > before[key])
+    for kernel in ("flash_fwd" + form, "flash_bwd_dkv" + form):
+        if body is not None and took.get(kernel) != body:
+            raise AssertionError(f"{name}: {kernel} took the {took.get(kernel)} body, not {body}")
     return {
         "flash_fwd" + form: max(close(f"{name} forward o", o, po),
                                 check_close(f"{name} forward lse", klse, plse)),
         "flash_bwd_dq" + form: close(f"{name} dq", dq, pdq),
         "flash_bwd_dkv" + form: max(close(f"{name} dk", dk, pdk), close(f"{name} dv", dv, pdv)),
-    }
+    }, took
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary (a view into a larger buffer): no TMA copy takes it."""
+    import torch
+
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    return buf[1:1 + t.numel()].view(t.shape).copy_(t)
 
 
 def check_value_head_dim(seed: int) -> None:
     """multihead attention's core with v's head dim other than q's and
     k's (kdim 8 / vdim 16, and 64 / 24), fp32 and bf16: the kernels run on
     zero-padded head dims (3 launches a forward and backward) and match the
-    plain versions, output and gradients."""
+    plain versions, output and gradients. In bf16 the padded D = 16 keeps
+    the mma.sync bodies and D = 64 takes the wgmma forward and dK/dV."""
     import torch
 
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
@@ -2810,6 +2857,12 @@ def check_value_head_dim(seed: int) -> None:
                 torch.cuda.synchronize()
                 if sum(fa.LAUNCHES.values()) != (3 if backend == "auto" else 0):
                     raise AssertionError(f"Dv != Dk, {backend}: launches {fa.LAUNCHES}")
+                if backend == "auto" and dtype == torch.bfloat16:
+                    body = "wgmma" if max(dk, dv) > 32 else "mma_sync"
+                    for kernel in ("flash_fwd_bf16", "flash_bwd_dkv_bf16"):
+                        if fa.LAUNCHES_BY_BODY[f"{kernel} {body}"] != 1:
+                            raise AssertionError(f"Dk={dk} Dv={dv} bf16: {kernel} not on the "
+                                                 f"{body} body ({fa.LAUNCHES_BY_BODY})")
                 outs[backend] = (o.detach(), q.grad, k.grad, v.grad)
             close = check_bf16 if dtype == torch.bfloat16 else check_close
             tag = f"flash Dk={dk} Dv={dv} {str(dtype)[6:]}"
@@ -2839,7 +2892,8 @@ def flash_phase(seed: int):
         bf16 = dtype == torch.bfloat16
         form = "_bf16" if bf16 else ""
         sets = flash_inputs(gen, b, s, s, h, d, causal, scale, copies, dtype)
-        errs = check_flash(f"flash {label}{form}", sets, causal, scale)
+        errs, bodies = check_flash(f"flash {label}{form}", sets, causal, scale,
+                                   body="wgmma" if bf16 else "mma_sync")
         lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in st[:4]) for st in sets]
         for qq, kk, vv, _ in lib_sets:
             for t in (qq, kk, vv):
@@ -2882,7 +2936,7 @@ def flash_phase(seed: int):
             row = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                    "fp32_cuda_core_bound_ms": fp32_bound_ms,
-                   "eager_ms": eager_ms, "shape": shape}
+                   "eager_ms": eager_ms, "body": bodies[name], "shape": shape}
             print(f"flash {label} {name}: " + json.dumps(row))
             rows.setdefault(label, {})[name] = row
         print(f"flash {label}{form}: SDPA forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv "
@@ -2891,22 +2945,38 @@ def flash_phase(seed: int):
     # edge shapes, correctness only: ragged S with D = 128, Sq != Sk, D = 256
     # (the CUDA-core forward and dK/dV), one query row, a ragged tile past
     # 64 rows, D = 8, head dims past 256 (the 16-row CUDA-core kernels);
-    # then the bf16 forms at D % 8 != 0 (element copies), Sq != Sk, D = 256
-    # and D = 512
+    # then the bf16 forms: the kept mma.sync bodies at D % 8 != 0 (element
+    # copies), D <= 32 and a misaligned view; the wgmma bodies at Sq != Sk,
+    # a ragged S, D = 40 and 96 (padded to 64 and 128), D = 128 and one
+    # query row; the CUDA cores at D = 256 and 512
     f32, bf16 = torch.float32, torch.bfloat16
-    for b, sq, sk, h, d, causal, dtype in [
-            (2, 100, 100, 3, 128, False, f32), (2, 64, 200, 4, 64, False, f32),
-            (2, 128, 128, 2, 256, False, f32), (2, 1, 1, 3, 64, False, f32),
-            (2, 65, 65, 3, 64, False, f32), (2, 65, 65, 3, 64, True, f32),
-            (2, 128, 128, 2, 8, False, f32), (2, 96, 96, 2, 512, False, f32),
-            (2, 65, 65, 2, 512, True, f32), (2, 40, 40, 2, 300, False, f32),
-            (2, 70, 70, 3, 33, False, bf16), (2, 64, 200, 4, 64, False, bf16),
-            (2, 65, 65, 3, 256, True, bf16), (2, 64, 64, 2, 512, False, bf16)]:
+    mma, wg, simt = "mma_sync", "wgmma", "cuda_cores"
+    for b, sq, sk, h, d, causal, dtype, body, offset in [
+            (2, 100, 100, 3, 128, False, f32, mma, False),
+            (2, 64, 200, 4, 64, False, f32, mma, False),
+            (2, 128, 128, 2, 256, False, f32, simt, False), (2, 1, 1, 3, 64, False, f32, mma, False),
+            (2, 65, 65, 3, 64, False, f32, mma, False), (2, 65, 65, 3, 64, True, f32, mma, False),
+            (2, 128, 128, 2, 8, False, f32, mma, False),
+            (2, 96, 96, 2, 512, False, f32, simt, False),
+            (2, 65, 65, 2, 512, True, f32, simt, False),
+            (2, 40, 40, 2, 300, False, f32, simt, False),
+            (2, 70, 70, 3, 33, False, bf16, mma, False), (2, 40, 40, 2, 32, True, bf16, mma, False),
+            (2, 96, 96, 2, 64, True, bf16, mma, True),
+            (2, 64, 200, 4, 64, False, bf16, wg, False),
+            (2, 100, 100, 3, 64, False, bf16, wg, False), (2, 65, 65, 2, 40, True, bf16, wg, False),
+            (2, 129, 129, 2, 96, True, bf16, wg, False),
+            (2, 200, 200, 2, 128, False, bf16, wg, False), (2, 1, 1, 3, 64, False, bf16, wg, False),
+            (2, 65, 65, 3, 256, True, bf16, simt, False),
+            (2, 64, 64, 2, 512, False, bf16, simt, False)]:
         sets = flash_inputs(gen, b, sq, sk, h, d, causal, d ** -0.5, dtype=dtype)
-        tag = f"Sq={sq} Sk={sk} D={d}" + (" causal" if causal else "") + f" {str(dtype)[6:]}"
-        errs = check_flash(f"flash edge {tag}", sets, causal, d ** -0.5)
+        if offset:
+            sets = [tuple(misaligned(t) for t in st[:4]) + st[4:] for st in sets]
+        tag = (f"Sq={sq} Sk={sk} D={d}" + (" causal" if causal else "") + f" {str(dtype)[6:]}"
+               + (" misaligned" if offset else ""))
+        errs, bodies = check_flash(f"flash edge {tag}", sets, causal, d ** -0.5, body=body)
         print(f"flash edge B={b} H={h} {tag}: max abs err "
-              + json.dumps({k: f"{e:.3e}" for k, e in errs.items()}))
+              + json.dumps({k: f"{e:.3e}" for k, e in errs.items()}) + " bodies "
+              + json.dumps(bodies))
     check_value_head_dim(seed)
     torch.cuda.empty_cache()
     return rows
@@ -3020,11 +3090,17 @@ def training_phase(seed: int, bf16: bool = False):
     fa.reset_launch_counts()
     model.fit(xs, ys, trace_window=steps)
     launches = dict(fa.LAUNCHES)
+    by_body = {key: n for key, n in fa.LAUNCHES_BY_BODY.items() if n}
     losses = model.step_losses
     for name, n in launches.items():
         if n != per_step[name] * steps:
             raise AssertionError(f"{tag} {name}: {n} launches in {steps} steps, expected "
                                  f"{per_step[name]} per step ({launches})")
+    # every bf16 forward and dK/dV launch of the cell on the wgmma bodies
+    for name in ("flash_fwd_bf16", "flash_bwd_dkv_bf16") if bf16 else ():
+        if by_body.get(f"{name} wgmma", 0) != launches[name]:
+            raise AssertionError(f"{tag}: {name} launches by body {by_body}, expected all "
+                                 f"{launches[name]} on the wgmma body")
     if any(p.dtype != cfg.dtype.torch for g in ex.params.values() for p in g.values()):
         raise AssertionError(f"{tag}: a parameter left {cfg.dtype.torch} in training")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -3055,6 +3131,7 @@ def training_phase(seed: int, bf16: bool = False):
         "step_ms": 1e3 * elapsed / steps, "samples_per_s": steps * batch / elapsed,
         "tokens_per_s": steps * batch * cfg.seq_length / elapsed,
         "loss_first": losses[0], "loss_last": losses[-1], "launches": launches,
+        "launches_by_body": by_body,
         "kernel_vs_plain": {"loss_kernel": lk, "loss_plain": lp, "param_max_abs_diff": param_err,
                             "param_max_update": moved},
         "profiled_steps": 2, "profiled_wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
@@ -3096,11 +3173,16 @@ def main(argv=None) -> int:
     _build.load_library()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.last_build_seconds:.2f} s)")
-    for line in _build.last_build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-    hmma = tensor_core_check()
+    for kernel, info in ptxas_report(_build.last_build_log):
+        print(f"  ptxas: {kernel}: {info}")
+    hmma, hgmma = tensor_core_check()
     print("tensor cores: HMMA instructions in the SASS of " + json.dumps(hmma))
+    print("tensor cores: HGMMA (wgmma) instructions in the SASS of " + json.dumps(hgmma))
+    lib = _build.load_library()
+    print("bf16 wgmma bodies, blocks an SM (occupancy calculator): " + json.dumps({
+        f"{kernel}<{d}>": lib.ff_flash_wg_blocks_per_sm(kind, d)
+        for kernel, kind in (("flash_fwd_wg_kernel", 0), ("flash_bwd_dkv_wg_kernel", 2))
+        for d in (64, 128)}))
 
     rows = kernel_phase(args.seed)
     params = init_decoder_params(torch.Generator().manual_seed(args.seed), gpt2_small())
@@ -3175,14 +3257,15 @@ def main(argv=None) -> int:
               f"{t['step_device_ms']:.3f} (" + ", ".join(
                   f"{g} {ms:.3f}" for g, ms in t["step_device_ms_by_group"].items())
               + f"), busy share {t['device_busy_share_of_timed_step']:.3f}, loss "
-              f"{t['loss_first']:.5f} -> {t['loss_last']:.5f}")
+              f"{t['loss_first']:.5f} -> {t['loss_last']:.5f}; flash launches by body "
+              + json.dumps(t["launches_by_body"]))
     for label in ("train", "causal512"):
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             for form in ("", "_bf16"):
                 r = flash[label][name + form]
-                print(f"{card}: flash {label} {name + form}: {r['ms']:.4f} ms (bound "
-                      f"{r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA "
-                      f"{r['library_ms']:.4f})")
+                print(f"{card}: flash {label} {name + form} ({r['body']} body): {r['ms']:.4f} ms "
+                      f"(bound {r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.4f}, "
+                      f"SDPA {r['library_ms']:.4f})")
     for label, run in (("graph", "graph"), ("eager", "eager")):
         print(f"{card}: 4-slot serving, {label} steps, overlap on: decode call ms "
               "(dispatch + consume wait, not a step time) "

@@ -41,7 +41,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # (name, argtypes) of every exported function; restype is an int: the
 # cudaError_t of a launch, or the answer of a query
-SIGNATURES = {"ff_paged_append_cluster_size": [_I, _I]}  # MB, bs
+SIGNATURES = {
+    "ff_paged_append_cluster_size": [_I, _I],  # MB, bs
+    # which body a flash launch takes: bf16 form, kind, q, k, v, dout,
+    # out0, out1, D
+    "ff_flash_body": [_I, _I] + [_P] * 6 + [_I],
+    # blocks an SM holds of a bf16 wgmma flash kernel: kind, D
+    "ff_flash_wg_blocks_per_sm": [_I, _I],
+}
 # the paged kernels, one form per cache element type (q and out fp32)
 for _form in ("f32", "bf16", "f16"):
     SIGNATURES.update({

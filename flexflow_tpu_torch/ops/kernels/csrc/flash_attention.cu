@@ -28,13 +28,82 @@
 //
 // Bound on this card. At BERT's shapes (S = 128, D = 64) one call moves
 // q, k, v, o (and dO, dq, dk, dv) once: 0.015 ms forward, 0.019 ms dQ
-// and 0.023 ms dK/dV at 3.35 TB/s. fp32-accurate products on the tensor
-// cores cost three TF32 products each (below), 3 * 4*S*S*D flops a head
-// forward, 3 * 6*S*S*D for dQ and 3 * 8*S*S*D for dK/dV, 0.010, 0.015 and
-// 0.020 ms at 495 TFLOP/s dense TF32; on the CUDA cores (67 TFLOP/s fp32)
-// the same work takes 0.024, 0.036 and 0.048 ms.
+// and 0.023 ms dK/dV at 3.35 TB/s in fp32, half that in bf16. fp32-accurate
+// products on the tensor cores cost three TF32 products each (below),
+// 3 * 4*S*S*D flops a head forward, 3 * 6*S*S*D for dQ and 3 * 8*S*S*D for
+// dK/dV, 0.010, 0.015 and 0.020 ms at 495 TFLOP/s dense TF32; on the CUDA
+// cores (67 TFLOP/s fp32) the same work takes 0.024, 0.036 and 0.048 ms.
+// The bf16 forms' flops at 989 TFLOP/s dense bf16 take a third of a TF32
+// product's time: every bf16 call is bound by its bytes.
 //
-// All three kernels, D <= 128: tensor cores (mma.sync m16n8k8 TF32).
+// Each kernel has up to three bodies; body_of() picks one per call and
+// ff_flash_body() reports it, so a caller can count launches by body:
+//   * wgmma (bf16 forward and dK/dV, 32 < D <= 128, D % 8 == 0, every
+//     tensor 16-byte aligned): warpgroup bf16 products fed by TMA, below;
+//   * mma.sync (every other call at D <= 128): TF32 m16n8k8 products, 3 a
+//     product in fp32, 1 or 2 in bf16, staged by cp.async;
+//   * CUDA cores (D > 128).
+//
+// ---- The bf16 wgmma bodies (flash_fwd_wg_kernel, flash_bwd_dkv_wg_kernel)
+//   * A block is one warpgroup (4 warps) owning 64 rows of its own axis
+//     (queries for the forward, keys for dK/dV), the M of every wgmma
+//     m64n64k16. The other axis streams through a ring of kWgStages
+//     shared-memory stages (K and V tiles of 64 keys for the forward; Q
+//     and dO tiles of 64 queries with their lse and delta rows for dK/dV),
+//     filled by TMA. Thread 0 (warp 0 for dK/dV) is the producer: before
+//     each tile it refills the stage the previous tile freed, announcing
+//     the bytes on the stage's full mbarrier and issuing the copies; each
+//     warp arrives on the stage's empty mbarrier once its products are
+//     done, and the producer waits on that before refilling (phase parity
+//     from the stage's use count). lse and delta are columns of [B,S,H]
+//     tensors, no TMA box: the producer warp's lanes copy them by 4-byte
+//     cp.async and arrive on the full barrier once they land
+//     (cp.async.mbarrier.arrive), so no thread waits on those loads.
+//   * TMA reads q, k, v, dO in place through 4-D tensor maps (D, H, S, B,
+//     innermost first) encoded on the host per call, passed as
+//     __grid_constant__ parameters; cuTensorMapEncodeTiled comes from
+//     libcuda through cudaGetDriverEntryPoint (the library does not link
+//     libcuda). A box is 64 columns (128 bytes) by the tile's rows of one
+//     head, written with the 128-byte swizzle; rows past S and columns past
+//     D land as zeros, so a ragged S and D padded to 64 or 128 need no
+//     masking of the copies.
+//   * Products. bf16 x bf16 products are exact in the fp32 accumulator, so
+//     a product of two inputs is one wgmma with both operands K-major in
+//     shared memory: the forward's S = Q K^T, dK/dV's S^T = K Q^T and
+//     dP^T = V dO^T. A product with a computed fp32 operand (P, P^T, dS^T)
+//     splits it into hi = bf16(x) and lo = bf16(x - hi) (x = hi + lo +
+//     e, |e| <= 2^-16 |x|) and takes two wgmmas, lo then hi, with the
+//     operand in registers: the forward's O += P V, dK/dV's dV += P^T dO
+//     and dK += dS^T Q. The accumulator of S (or S^T) is, 16 columns at a
+//     time, exactly the register A fragment of the next product, so P
+//     reaches it without shuffles. V, dO and Q are read MN-major (the
+//     reduction down their rows) by a second descriptor of the tile that
+//     the K-major products read: one copy, no transposes. A single bf16
+//     product of P would err by up to 2^-8 a term: SDPA's function, not
+//     the JAX kernels' (tests/test_torch_port_flash_split_numerics.py).
+//   * The scale multiplies the fp32 scores (q * scale is not a bf16
+//     value), and dK at its store. The softmax runs in base 2 on the scores
+//     times scale log2(e), by ex2.approx (about 2 ulp: the fp32 gates do
+//     not see it; the accurate exp2f costs the forward 5%). Tiles inside
+//     every bound skip the mask. The causal skips are the mma.sync
+//     bodies': the forward stops at the diagonal key tile, dK/dV starts at
+//     the first query tile that sees its keys.
+//   * The 64 x 64 accumulator blocks are stored as bf16 pairs straight
+//     from registers; the forward writes lse from the quad's first lane.
+//   * Occupancy: registers are shared out by an SM's four quarters, whole
+//     warps each, so a fifth (producer) warp cost dK/dV half its blocks an
+//     SM; with thread 0 producing, the forward holds 4 blocks an SM and
+//     dK/dV 3 (capped at 168 registers) at D <= 64. Two warpgroups a
+//     block (kWgGroups, copying each tile once for 128 rows) were slower
+//     at BERT's S = 128.
+//   * What bounds them (H100 at BERT's training shape, tools/flash_probe.py
+//     parts): the forward's copies alone take 85% of its time and its
+//     products alone 80% (the two overlap); dK/dV's copies 80% and its
+//     products 82%. TMA over [B,S,H,D] in place reads 128-byte rows 1.5 KB
+//     apart, and each block waits out its first tiles' latency: the
+//     kernels sit at about 2x their byte bound.
+//
+// ---- The mma.sync bodies, D <= 128 (all three kernels)
 //   * 3xTF32: every fp32 operand x is split into big = rna(x) and small =
 //     rna(x - big), TF32 values rounded as cvt.rna.tf32.f32 rounds, and
 //     each product is accumulated in fp32 as big*small + small*big +
@@ -74,38 +143,21 @@
 //     two mma chains, dS = P o (dP - delta) with P = exp(S - lse) on the
 //     accumulator fragments, and dQ += dS K with dS reused as the A
 //     operand through the same permutation; dQ is scaled once, at the
-//     store. It does 6 products of 16 x 8 x 8 per key and head-dim step
-//     against the forward's 4 (its softmax is a subtraction, not a
-//     running max), and holds 16 x D accumulators plus S and dP (32 + 16
-//     + 16 registers a thread at D = 64): like the others it is bound by
-//     latency, and registers and shared memory (about 69 KB a block:
-//     Q, dO and two stages of K and V) allow 3 blocks an SM.
+//     store. It holds 16 x D accumulators plus S and dP (32 + 16 + 16
+//     registers a thread at D = 64) and about 69 KB of shared memory a
+//     block (Q, dO and two stages of K and V): 3 blocks an SM.
 //   * Head dims are zero-padded to 32, 64, 96 or 128 in shared memory.
 //     Rows are copied 16 bytes at a time where D % 4 == 0 and the tensors
 //     are 16-byte aligned, else 4 bytes at a time.
-//   * What bounds them now: each warp splits every operand it reads (four
-//     integer or float instructions an element) and the mma.sync chain
-//     runs at about a third of the card's mma.sync TF32 rate, latency
-//     bound; wgmma with pre-split operands in shared memory is the next
-//     step.
+//   * The bf16 forms of these bodies (bf16 dQ, and bf16 forward and dK/dV
+//     calls the wgmma bodies do not take) run over bf16 tiles: a bf16
+//     value is a TF32 value exactly, so a product of two inputs is one TF32
+//     mma and one with P or dS two (small*big + big*big).
+//   * What bounds them: each warp splits every fp32 operand it reads and
+//     the mma.sync chain runs at about a third of the card's mma.sync TF32
+//     rate, latency bound.
 //
-// The bf16 forms are the same kernels over bf16 tiles in shared memory
-// (half the bytes, 16-byte cp.async of 8 values). A bf16 value is a TF32
-// value exactly (8 bits of mantissa against TF32's 10), so an operand read
-// from q, k, v or dO needs no split: its fragment is its bits shifted into
-// the high half. A product of two such operands (Q K^T, dO V^T, and K Q^T,
-// V dO^T in dK/dV) is one TF32 mma, exact products accumulated in fp32;
-// one with a computed operand (P or dS, fp32) keeps that operand's split,
-// two mmas: small*big + big*big. The scale is applied to the fp32 scores,
-// not to q (q * scale is not a bf16 value). The alternative, bf16
-// mma.sync m16n8k16 with P split into two bf16 halves, takes as many
-// products of twice the depth at twice the rate, but its A fragment
-// packs neighbouring k values in one register, so the accumulator-to-A
-// reuse of P and dS (the permuted order above) needs a repack; the TF32
-// route keeps one kernel body for both types, with the fp32 form's
-// instructions unchanged. The bf16 mma is the next step for speed.
-//
-// D > 128: CUDA cores (16 x D accumulators would not fit beside the
+// ---- D > 128: CUDA cores (16 x D accumulators would not fit beside the
 // tiles). One block of 8 warps owns 32 rows (16 past D = 256, where 32
 // would not fit in shared memory) and loops over tiles of the other axis
 // staged through shared memory, in fp32 for both types; lane t dots row t
@@ -115,6 +167,7 @@
 // and by the shuffles. Head dims are zero-padded to 160, 192, 224, 256,
 // 384 or 512; 512 is the kernels' limit.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -633,7 +686,472 @@ __global__ void __launch_bounds__(kTcThreads, dq_min_blocks(kDP))
   store_acc<kNT, T>(dq, acc, mul, b, h, row0, Sq, H, D, vec);
 }
 
-// ============================================================== CUDA cores
+// ===================================== bf16 forward and dK/dV, wgmma + TMA
+
+constexpr int kWgRows = 64;  // rows of the block's own axis a warpgroup owns: its wgmma M
+// consumer warpgroups a block: the block owns kWgGroups * 64 rows, and each
+// tile of the other axis is copied once for all of them (2 halves the
+// copies and was slower at BERT's S = 128: half the blocks, each longer)
+constexpr int kWgGroups = 1;
+constexpr int kWgBlockRows = kWgGroups * kWgRows;
+constexpr int kWgCols = 64;  // bf16 columns of a TMA box: one 128-byte swizzled row
+constexpr int kWgStages = 2;       // tiles of the other axis in the ring
+constexpr int kWgFwdKeys = 64;     // keys a forward tile
+constexpr int kWgDkvQueries = 64;  // queries a dK/dV tile
+// who starts the copies: thread 0 (warp 0 for dK/dV) between its tiles, or
+// a warp of its own (true), which costs the dK/dV body half its blocks an
+// SM (registers are shared out by the SM's four quarters, whole warps each)
+constexpr bool kWgProducerWarp = false;
+constexpr int kWgConsumers = 128 * kWgGroups;
+constexpr int kWgThreads = kWgConsumers + (kWgProducerWarp ? 32 : 0);
+constexpr float kLog2e = 1.4426950408889634f;
+// blocks an SM each body's register budget is set for at D <= 64 (shared
+// memory allows 5 forward and 4 dK/dV blocks there): dK/dV's 3 cap it at
+// 168 registers, where it would take 195 and fit 2; at D = 128 shared
+// memory allows 2 and the budget is left free
+constexpr int kWgFwdMinBlocks = 4;
+constexpr int kWgDkvMinBlocks = 3;
+
+// A tile of kR rows of kDP bf16 columns as TMA writes it: kDP / 64 blocks
+// of kR x 64, each row 128 bytes, swizzled (kR * 128 is a multiple of the
+// swizzle's 1024-byte period, so every block starts its period)
+template <int kR, int kDP>
+constexpr int kWgTile = kR * kDP;  // elements
+
+// rows [r0, r0 + kR) of head (b, h) into a tile, completing on bar
+template <int kR, int kDP>
+__device__ __forceinline__ void wg_load_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int b, int h, int r0) {
+#pragma unroll
+  for (int c = 0; c < kDP / kWgCols; ++c)
+    tma_load_4d(dst + c * kR * kWgCols, map, bar, c * kWgCols, h, r0, b);
+}
+
+// descriptor of rows [row0, row0 + 64) of a kR-row tile read K-major (the
+// head dim reduced), at its 16-column step k16
+template <int kR>
+__device__ __forceinline__ uint64_t wg_desc_k(const bf16* tile, int row0, int k16) {
+  return gmma_desc(tile + (k16 / 4) * kR * kWgCols + row0 * kWgCols + (k16 % 4) * 16, 16, 1024);
+}
+
+// descriptor of rows [k0, k0 + 16) of a kR-row tile read MN-major (its
+// rows reduced), at its 64-column block c
+template <int kR>
+__device__ __forceinline__ uint64_t wg_desc_mn(const bf16* tile, int k0, int c) {
+  return gmma_desc(tile + c * kR * kWgCols + k0 * kWgCols, kR * kWgCols * 2, 1024);
+}
+
+// the block's dynamic shared memory from its first 1024-byte boundary
+__device__ __forceinline__ unsigned char* wg_smem(unsigned char* raw) {
+  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
+}
+
+// row r and r + 8 of a 64 x 64 accumulator block (columns c0 + 8j + 2t,
+// + 1), times mul, as bf16 pairs into rows row0 (+ 8) of head (b, h)
+__device__ __forceinline__ void wg_store(bf16* __restrict__ dst, const float (&acc)[32], int c0,
+                                         float mul, int b, int h, int row0, int S, int H, int D) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = row0 + 8 * half;
+    if (s >= S) continue;
+    bf16* row = dst + row_offset(b, s, S, h, H, D);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = c0 + 8 * j + 2 * t;
+      if (d < D) store2(row + d, acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
+    }
+  }
+}
+
+// the 16-wide k step ks of a 64-column block of an fp32 accumulator (its
+// columns 16 (ks % 4) .. + 15) as bf16 hi and lo A fragments
+__device__ __forceinline__ void wg_split_a(const float (&acc)[32], int ks, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  const int j = 2 * (ks % 4);
+  split_bf16x2(acc[4 * j], acc[4 * j + 1], hi[0], lo[0]);
+  split_bf16x2(acc[4 * j + 2], acc[4 * j + 3], hi[1], lo[1]);
+  split_bf16x2(acc[4 * j + 4], acc[4 * j + 5], hi[2], lo[2]);
+  split_bf16x2(acc[4 * j + 6], acc[4 * j + 7], hi[3], lo[3]);
+}
+
+template <int kDP>
+size_t fwd_wg_smem() {
+  // Q, the ring of K and V tiles, barriers (q, full and empty a stage),
+  // and room to reach a 1024-byte boundary
+  return sizeof(bf16) * (kWgTile<kWgBlockRows, kDP> + 2 * kWgStages * kWgTile<kWgFwdKeys, kDP>) +
+         sizeof(uint64_t) * (1 + 2 * kWgStages) + 1024;
+}
+
+template <int kDP>
+__global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgFwdMinBlocks : 1)
+    flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                        float* __restrict__ lse, int Sq, int Sk, int H, int D, float scale,
+                        int causal) {
+  constexpr int kBK = kWgFwdKeys;
+  constexpr int kNC = kDP / kWgCols;  // 64-column blocks of the head dim
+  constexpr int kKC = kBK / 64;       // 64-key blocks of a tile (the wgmma N of S)
+  constexpr int kStage = 2 * kWgTile<kBK, kDP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(wg_smem(smem_raw));
+  bf16* ring = qs + kWgTile<kWgBlockRows, kDP>;  // a stage: the K tile, then the V tile
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kWgStages * kStage);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kWgStages;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kWgBlockRows;
+  const int kv_end = causal ? min(Sk, q0 + kWgBlockRows) : Sk;
+  const int ntiles = (kv_end + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWgGroups);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the copies of key tile it, once its stage is free
+  auto produce = [&](int it) {
+    const int s = it % kWgStages;
+    if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
+    bf16* kt = ring + s * kStage;
+    mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+    wg_load_tile<kBK, kDP>(kt, &tk, &full[s], b, h, it * kBK);
+    wg_load_tile<kBK, kDP>(kt + kWgTile<kBK, kDP>, &tv, &full[s], b, h, it * kBK);
+  };
+  if (threadIdx.x == (kWgProducerWarp ? kWgConsumers : 0)) {
+    mbar_arrive_expect_tx(qbar, sizeof(bf16) * kWgTile<kWgBlockRows, kDP>);
+    wg_load_tile<kWgBlockRows, kDP>(qs, &tq, qbar, b, h, q0);
+    for (int it = 0; it < (kWgProducerWarp ? ntiles : min(ntiles, kWgStages - 1)); ++it)
+      produce(it);
+  }
+  if (threadIdx.x >= kWgConsumers) return;  // the producer warp is done
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wg = warp / 4, qw = q0 + wg * kWgRows;  // this warpgroup's first query row
+  const int row0 = qw + (warp % 4) * 16 + g;       // this thread's query rows: row0, row0 + 8
+  const float scale2 = scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // m in base 2
+  float acc[kNC][32];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kWgStages;
+    if (!kWgProducerWarp) {
+      if (threadIdx.x == 0 && it + kWgStages - 1 < ntiles) produce(it + kWgStages - 1);
+      __syncwarp();
+    }
+    mbar_wait(&full[s], (it / kWgStages) & 1);
+    const bf16* kt = ring + s * kStage;
+    const bf16* vt = kt + kWgTile<kBK, kDP>;
+    const int k0 = it * kBK;
+    // a causal tile past this warpgroup's last row is all masked for it
+    if (!causal || k0 < qw + kWgRows) {
+      // S = Q K^T, one exact product (bf16 x bf16 into fp32)
+      float sc[kKC][32];
+#pragma unroll
+      for (int n = 0; n < kKC; ++n) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[n][i] = 0.f;
+        fence_acc(sc[n]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int n = 0; n < kKC; ++n)
+#pragma unroll
+        for (int ks = 0; ks < kDP / 16; ++ks)
+          wgmma_ss(sc[n], wg_desc_k<kWgBlockRows>(qs, wg * kWgRows, ks),
+                   wg_desc_k<kBK>(kt, 64 * n, ks));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int n = 0; n < kKC; ++n) fence_acc(sc[n]);
+
+      // online softmax in base 2 on the scores times scale log2(e), masked
+      // only in a tile that reaches past Sk or the diagonal; element i of
+      // sc[n] is row row0 + 8 ((i >> 1) & 1), key k0 + 64n + 8 (i >> 2) + 2t
+      // + (i & 1)
+      float mx[2] = {kNegInf, kNegInf};
+      auto scores = [&](auto masked) {
+#pragma unroll
+        for (int n = 0; n < kKC; ++n)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int r = (i >> 1) & 1, key = k0 + 64 * n + 8 * (i >> 2) + 2 * t + (i & 1);
+            const bool ok = !decltype(masked)::value ||
+                            (key < Sk && (!causal || key <= row0 + 8 * r));
+            sc[n][i] = ok ? sc[n][i] * scale2 : kNegInf;
+            mx[r] = fmaxf(mx[r], sc[n][i]);
+          }
+      };
+      if (k0 + kBK <= Sk && (!causal || k0 + kBK - 1 <= qw))
+        scores(std::false_type{});
+      else
+        scores(std::true_type{});
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = exp2_approx(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < kKC; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          const float p = sc[n][i] == kNegInf ? 0.f : exp2_approx(sc[n][i] - m[r]);
+          sc[n][i] = p;
+          l[r] += p;
+        }
+
+      // O = corr O + P V, P in two bf16 halves (lo, then hi), V read MN-major
+      uint32_t ph[kBK / 16][4], pl[kBK / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) wg_split_a(sc[ks / 4], ks, ph[ks], pl[ks]);
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i >> 1) & 1];
+        fence_acc(acc[c]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kNC; ++c)
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks) {
+          wgmma_rs(acc[c], pl[ks], wg_desc_mn<kBK>(vt, 16 * ks, c));
+          wgmma_rs(acc[c], ph[ks], wg_desc_mn<kBK>(vt, 16 * ks, c));
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) fence_acc(acc[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float div = fmaxf(quad_sum(l[r]), 1e-30f);
+    inv[r] = 1.f / div;
+    const int sr = row0 + 8 * r;
+    if (t == 0 && sr < Sq)
+      lse[(static_cast<int64_t>(b) * Sq + sr) * H + h] = m[r] / kLog2e + logf(div);
+  }
+#pragma unroll
+  for (int c = 0; c < kNC; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] *= inv[(i >> 1) & 1];
+    wg_store(o, acc[c], c * kWgCols, 1.f, b, h, row0, Sq, H, D);
+  }
+}
+
+template <int kDP>
+size_t dkv_wg_smem() {
+  // K and V of the block; the ring of Q and dO tiles with their lse and
+  // delta rows; barriers (K/V, full and empty a stage); 1024-byte room
+  return sizeof(bf16) *
+             (2 * kWgTile<kWgBlockRows, kDP> + 2 * kWgStages * kWgTile<kWgDkvQueries, kDP>) +
+         sizeof(float) * 2 * kWgStages * kWgDkvQueries + sizeof(uint64_t) * (1 + 2 * kWgStages) +
+         1024;
+}
+
+template <int kDP>
+__global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
+    flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+                            int D, float scale, int causal) {
+  constexpr int kBQ = kWgDkvQueries;
+  constexpr int kNC = kDP / kWgCols;
+  constexpr int kQC = kBQ / 64;  // 64-query blocks of a tile (the wgmma N of S^T)
+  constexpr int kStage = 2 * kWgTile<kBQ, kDP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(wg_smem(smem_raw));
+  bf16* vs = ks + kWgTile<kWgBlockRows, kDP>;
+  bf16* ring = vs + kWgTile<kWgBlockRows, kDP>;  // a stage: the Q tile, then the dO tile
+  float* lses = reinterpret_cast<float*>(ring + kWgStages * kStage);  // [kWgStages][kBQ]
+  float* deltas = lses + kWgStages * kBQ;                             // [kWgStages][kBQ]
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(deltas + kWgStages * kBQ);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + kWgStages;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kWgBlockRows;
+  // query rows before this block's first key see none of its keys
+  const int q_start = causal ? (k0 / kBQ) * kBQ : 0;
+  const int ntiles = (Sq - q_start + kBQ - 1) / kBQ;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      // lane 0's announcement of the tiles' bytes, then the producing
+      // warp's 32 lanes, each after its lse/delta rows
+      mbar_init(&full[s], 33);
+      mbar_init(&empty[s], 4 * kWgGroups);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the copies of query tile it by the 32 lanes of the producing warp,
+  // once its stage is free: the Q and dO tiles by lane 0's TMA, the lse
+  // and delta rows (a column of a [B,S,H] tensor is no TMA box) by 4-byte
+  // cp.async, zeros past Sq, each lane arriving once its copies land
+  const int lane = threadIdx.x & 31;
+  auto produce = [&](int it) {
+    const int s = it % kWgStages, q0 = q_start + it * kBQ;
+    if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
+    if (lane == 0) {
+      bf16* qt = ring + s * kStage;
+      mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+      wg_load_tile<kBQ, kDP>(qt, &tq, &full[s], b, h, q0);
+      wg_load_tile<kBQ, kDP>(qt + kWgTile<kBQ, kDP>, &tdo, &full[s], b, h, q0);
+    }
+    for (int i = lane; i < kBQ; i += 32) {
+      const bool ok = q0 + i < Sq;
+      const int64_t at = ok ? (static_cast<int64_t>(b) * Sq + q0 + i) * H + h : 0;
+      cp_async4(&lses[s * kBQ + i], lse + at, ok);
+      cp_async4(&deltas[s * kBQ + i], delta + at, ok);
+    }
+    cp_async_mbar_arrive(&full[s]);
+  };
+  const int warp = threadIdx.x >> 5;
+  if (warp == (kWgProducerWarp ? kWgConsumers / 32 : 0)) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kvbar, sizeof(bf16) * 2 * kWgTile<kWgBlockRows, kDP>);
+      wg_load_tile<kWgBlockRows, kDP>(ks, &tk, kvbar, b, h, k0);
+      wg_load_tile<kWgBlockRows, kDP>(vs, &tv, kvbar, b, h, k0);
+    }
+    for (int it = 0; it < (kWgProducerWarp ? ntiles : min(ntiles, kWgStages - 1)); ++it)
+      produce(it);
+  }
+  if (threadIdx.x >= kWgConsumers) return;  // the producer warp is done
+
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warp / 4, kw = k0 + wg * kWgRows;  // this warpgroup's first key row
+  const int key0 = kw + (warp % 4) * 16 + g;       // this thread's key rows: key0, key0 + 8
+  const float scale2 = scale * kLog2e;
+  float dk_acc[kNC][32], dv_acc[kNC][32];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
+  mbar_wait(kvbar, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kWgStages, q0 = q_start + it * kBQ;
+    if (!kWgProducerWarp && warp == 0 && it + kWgStages - 1 < ntiles) produce(it + kWgStages - 1);
+    mbar_wait(&full[s], (it / kWgStages) & 1);
+    const bf16* qt = ring + s * kStage;
+    const bf16* dot = qt + kWgTile<kBQ, kDP>;
+    const float* lt = lses + s * kBQ;
+    const float* det = deltas + s * kBQ;
+    // a causal tile of queries before this warpgroup's first key is all
+    // masked for it
+    if (!causal || q0 + kBQ > kw) {
+      // S^T = K Q^T and dP^T = V dO^T, one exact product each
+      float st[kQC][32], dpt[kQC][32];
+#pragma unroll
+      for (int n = 0; n < kQC; ++n) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) st[n][i] = dpt[n][i] = 0.f;
+        fence_acc(st[n]);
+        fence_acc(dpt[n]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int n = 0; n < kQC; ++n)
+#pragma unroll
+        for (int kk = 0; kk < kDP / 16; ++kk) {
+          wgmma_ss(st[n], wg_desc_k<kWgBlockRows>(ks, wg * kWgRows, kk),
+                   wg_desc_k<kBQ>(qt, 64 * n, kk));
+          wgmma_ss(dpt[n], wg_desc_k<kWgBlockRows>(vs, wg * kWgRows, kk),
+                   wg_desc_k<kBQ>(dot, 64 * n, kk));
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int n = 0; n < kQC; ++n) {
+        fence_acc(st[n]);
+        fence_acc(dpt[n]);
+      }
+
+      // P^T = exp(scale S^T - lse) = 2^(log2(e) (scale S^T - lse)) and
+      // dS^T = P^T o (dP^T - delta), masked only in a tile that reaches past
+      // Sq or Sk or below the diagonal; element i of st[n] is key key0 +
+      // 8 ((i >> 1) & 1), query q0 + 64n + 8 (i >> 2) + 2t + (i & 1)
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int n = 0; n < kQC; ++n)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int ql = 64 * n + 8 * (i >> 2) + 2 * t + (i & 1), qi = q0 + ql;
+            const int key = key0 + 8 * ((i >> 1) & 1);
+            const bool ok = !decltype(masked)::value ||
+                            (qi < Sq && key < Sk && (!causal || qi >= key));
+            const float p = ok ? exp2_approx(fmaf(st[n][i], scale2, -lt[ql] * kLog2e)) : 0.f;
+            st[n][i] = p;
+            dpt[n][i] = p * (dpt[n][i] - det[ql]);
+          }
+      };
+      if (q0 + kBQ <= Sq && kw + kWgRows <= Sk && (!causal || q0 >= kw + kWgRows - 1))
+        probs(std::false_type{});
+      else
+        probs(std::true_type{});
+
+      // dV += P^T dO and dK += dS^T Q (scaled at the store), P^T and dS^T in
+      // two bf16 halves (lo, then hi), dO and Q read MN-major from the tiles
+      // the products above read K-major
+      uint32_t ph[kBQ / 16][4], pl[kBQ / 16][4], dh[kBQ / 16][4], dl[kBQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        wg_split_a(st[kk / 4], kk, ph[kk], pl[kk]);
+        wg_split_a(dpt[kk / 4], kk, dh[kk], dl[kk]);
+      }
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) {
+        fence_acc(dv_acc[c]);
+        fence_acc(dk_acc[c]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kNC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < kBQ / 16; ++kk) {
+          wgmma_rs(dv_acc[c], pl[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));
+          wgmma_rs(dv_acc[c], ph[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));
+          wgmma_rs(dk_acc[c], dl[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));
+          wgmma_rs(dk_acc[c], dh[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) {
+        fence_acc(dv_acc[c]);
+        fence_acc(dk_acc[c]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+#pragma unroll
+  for (int c = 0; c < kNC; ++c) {
+    wg_store(dk, dk_acc[c], c * kWgCols, scale, b, h, key0, Sk, H, D);
+    wg_store(dv, dv_acc[c], c * kWgCols, 1.f, b, h, key0, Sk, H, D);
+  }
+}
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -1032,6 +1550,113 @@ int launch_tc(Kind kind, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Which body a call takes. The bf16 forward and dK/dV take the wgmma
+// bodies where their tensors suit TMA: 32 < D <= 128 with D % 8 == 0 (a
+// head's row is whole 16-byte chunks, and so is every stride of the
+// tensor map) and every tensor's base 16-byte aligned. Other calls at
+// D <= 128 keep the mma.sync bodies: the fp32 forms, bf16 dQ, and bf16
+// calls with D <= 32 (a 64-column tile would be mostly padding), D % 8 != 0
+// or a misaligned view. D > 128 runs on the CUDA cores.
+enum class Body { kMmaSync = 0, kWgmma = 1, kCudaCores = 2 };
+
+Body body_of(bool bf16_form, Kind kind, const Args& a) {
+  if (a.D > 128) return Body::kCudaCores;
+  if (!bf16_form || kind == Kind::kDq || a.D <= 32 || a.D % 8 != 0) return Body::kMmaSync;
+  const bool aligned = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+                       (kind == Kind::kFwd ? aligned16(a.o)
+                                           : aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv));
+  return aligned ? Body::kWgmma : Body::kMmaSync;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up once a process through
+// the runtime (the library does not link libcuda); null where it has none
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 4-D tensor map (D, H, S, B innermost first) of a [B,S,H,D] bf16
+// tensor in place, whose box is `rows` rows of 64 columns of one head,
+// written with the 128-byte swizzle; reads past S or D fill zeros
+int tile_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = 2ull * static_cast<cuuint64_t>(H) * D;  // bytes between rows of a head
+  const cuuint64_t strides[3] = {2ull * D, row, row * S};
+  const cuuint32_t box[4] = {kWgCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the bf16 wgmma bodies, head dims padded to 64 or 128
+template <int kDP>
+int launch_wg(Kind kind, const Args& a) {
+  static bool ready[2] = {false, false};
+  const bool fwd = kind == Kind::kFwd;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = tile_map(&tq, a.q, a.B, a.Sq, a.H, a.D, fwd ? kWgBlockRows : kWgDkvQueries);
+  if (!rc) rc = tile_map(&tk, a.k, a.B, a.Sk, a.H, a.D, fwd ? kWgFwdKeys : kWgBlockRows);
+  if (!rc) rc = tile_map(&tv, a.v, a.B, a.Sk, a.H, a.D, fwd ? kWgFwdKeys : kWgBlockRows);
+  if (!rc && !fwd) rc = tile_map(&tdo, a.dout, a.B, a.Sq, a.H, a.D, kWgDkvQueries);
+  if (rc) return rc;
+  if (fwd) {
+    const size_t smem = fwd_wg_smem<kDP>();
+    rc = prepare(flash_fwd_wg_kernel<kDP>, smem, &ready[0]);
+    if (rc) return rc;
+    const dim3 grid((a.Sq + kWgBlockRows - 1) / kWgBlockRows, a.H, a.B);
+    flash_fwd_wg_kernel<kDP><<<grid, kWgThreads, smem, a.stream>>>(
+        tq, tk, tv, out<bf16>(a.o), a.lse, a.Sq, a.Sk, a.H, a.D, a.scale, a.causal);
+  } else {
+    const size_t smem = dkv_wg_smem<kDP>();
+    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[1]);
+    if (rc) return rc;
+    const dim3 grid((a.Sk + kWgBlockRows - 1) / kWgBlockRows, a.H, a.B);
+    flash_bwd_dkv_wg_kernel<kDP><<<grid, kWgThreads, smem, a.stream>>>(
+        tq, tk, tv, tdo, a.lse_in, a.delta, out<bf16>(a.dk), out<bf16>(a.dv), a.Sq, a.Sk, a.H,
+        a.D, a.scale, a.causal);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blocks of a wgmma kernel an SM holds at its shared memory, by the
+// occupancy calculator; -1 if it cannot say
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, size_t smem) {
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -1;
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kWgThreads, smem) ==
+                 cudaSuccess
+             ? n
+             : -1;
+}
+
 // the CUDA-core kernels, D > 128 (kNDC = 5..8, 12 or 16 columns of 32)
 template <int kNDC, typename T>
 int launch_simt(Kind kind, const Args& a) {
@@ -1071,6 +1696,10 @@ int dispatch(Kind kind, const Args& a) {
   if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.H < 1 || a.D < 1 || a.D > kMaxHeadDim ||
       a.B > 65535 || a.H > 65535 || (a.causal && a.Sq != a.Sk))
     return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (body_of(true, kind, a) == Body::kWgmma)
+      return a.D <= 64 ? launch_wg<64>(kind, a) : launch_wg<128>(kind, a);
+  }
   if (a.D <= 32) return launch_tc<32, T>(kind, a);
   if (a.D <= 64) return launch_tc<64, T>(kind, a);
   if (a.D <= 96) return launch_tc<96, T>(kind, a);
@@ -1118,6 +1747,36 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 // [B,Sq,H,D]; k, v, dk, dv [B,Sk,H,D], fp32 in the _f32 form and bf16 in
 // the _bf16 form; lse, delta [B,Sq,H] fp32 in both. stream is a
 // cudaStream_t. Each returns the cudaError_t of its launch (0 on success).
+
+// The body a launch with these arguments takes (body_of): 0 the mma.sync
+// tensor-core body, 1 the bf16 wgmma body, 2 the CUDA cores. kind 0 is the
+// forward (out0 = o), 1 dQ (out0 = dq), 2 dK/dV (out0 = dk, out1 = dv).
+extern "C" int ff_flash_body(int bf16_form, int kind, const void* q, const void* k,
+                             const void* v, const void* dout, const void* out0,
+                             const void* out1, int D) {
+  Args a{q, k, v, dout, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         1, 1, 1, 1, D, 0, 1.f, nullptr};
+  const Kind kinds[3] = {Kind::kFwd, Kind::kDq, Kind::kDkv};
+  if (kind < 0 || kind > 2) return -1;
+  if (kind == 0) a.o = const_cast<void*>(out0);
+  if (kind == 1) a.dq = const_cast<void*>(out0);
+  if (kind == 2) {
+    a.dk = const_cast<void*>(out0);
+    a.dv = const_cast<void*>(out1);
+  }
+  return static_cast<int>(body_of(bf16_form != 0, kinds[kind], a));
+}
+
+// Blocks an SM holds of the bf16 wgmma forward (kind 0) or dK/dV (kind 2)
+// instance for head dim D (32 < D <= 128); -1 otherwise or on an error.
+extern "C" int ff_flash_wg_blocks_per_sm(int kind, int D) {
+  if (D <= 32 || D > 128 || (kind != 0 && kind != 2)) return -1;
+  if (kind == 0)
+    return D <= 64 ? blocks_per_sm(flash_fwd_wg_kernel<64>, fwd_wg_smem<64>())
+                   : blocks_per_sm(flash_fwd_wg_kernel<128>, fwd_wg_smem<128>());
+  return D <= 64 ? blocks_per_sm(flash_bwd_dkv_wg_kernel<64>, dkv_wg_smem<64>())
+                 : blocks_per_sm(flash_bwd_dkv_wg_kernel<128>, dkv_wg_smem<128>());
+}
 
 extern "C" int ff_flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
                                 float* lse, int B, int Sq, int Sk, int H, int D, float scale,

@@ -14,11 +14,20 @@ Two lowerings, chosen by where the tensors lie (or by ``backend``):
   tensors, or on any device when asked for by name (``backend="plain"``),
   and are the oracle the CUDA kernels are held against on the card.
 * the CUDA kernels of ``csrc/flash_attention.cu`` — the forward, dQ and
-  dK/dV kernels of the FlashAttention-2 decomposition; the forward and
-  dK/dV take their products on the tensor cores as three TF32 products
-  each (3xTF32, fp32 accuracy) for head dims up to 128. For a CUDA
-  tensor :func:`flash_attention` launches them or raises; it never
-  falls back to the plain version.
+  dK/dV kernels of the FlashAttention-2 decomposition. For a CUDA tensor
+  :func:`flash_attention` launches them or raises; it never falls back
+  to the plain version. Each kernel has up to three bodies, chosen by
+  the library per call (:func:`kernel_body`):
+
+  - ``"wgmma"``: the bf16 forward and dK/dV where the tensors suit TMA
+    copies — 32 < D <= 128, D a multiple of 8 and every tensor's base
+    16-byte aligned: warpgroup bf16 ``wgmma`` products fed by TMA, the
+    computed operand (P, dS) in two bf16 halves;
+  - ``"mma_sync"``: every other call at D <= 128 — the fp32 forms
+    (3xTF32 ``mma.sync``), bf16 dQ, and bf16 forward and dK/dV calls with
+    D <= 32, D % 8 != 0 or a misaligned view (one TF32 product for two
+    bf16 operands, two for a computed one);
+  - ``"cuda_cores"``: D > 128.
 
 The per-row logsumexp and ``delta = rowsum(dO * O)`` are [B, Sq, H] fp32,
 indexed like the rows of q. ``delta`` stays plain PyTorch, as it was
@@ -39,7 +48,8 @@ Dv != Dk :func:`flash_attention` zero-pads the narrower of (q, k) or v to
 the wider, which adds exact zeros to every product, and slices the
 outputs back (the scale stays Dk's).
 
-Each kernel launch adds one to its count in :data:`LAUNCHES`.
+Each kernel launch adds one to its count in :data:`LAUNCHES`, and to
+its body's in :data:`LAUNCHES_BY_BODY`.
 """
 from __future__ import annotations
 
@@ -60,13 +70,19 @@ LAUNCHES: Dict[str, int] = {
 }
 # the kernels' forms by input dtype: (suffix of the C function, of the count)
 _FORMS = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", "_bf16")}
+# the bodies behind each kernel, as ff_flash_body numbers them
+BODIES = ("mma_sync", "wgmma", "cuda_cores")
+# launches by the body that took them, keyed "<LAUNCHES key> <body>"
+LAUNCHES_BY_BODY: Dict[str, int] = {f"{name} {body}": 0 for name in LAUNCHES for body in BODIES}
+_KINDS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 
 _BACKENDS = ("auto", "plain")
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_BODY):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -233,6 +249,24 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def kernel_body(kernel: str, q, k, v, dout=None, out0=None, out1=None) -> str:
+    """The body (:data:`BODIES`) the CUDA library runs ``kernel``
+    (``"flash_fwd"``, ``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``) on for
+    these tensors, as the library itself decides it: ``out0`` is o, dq or
+    dk, ``out1`` dv."""
+    from ._build import load_library
+
+    ptr = [t.data_ptr() if t is not None else None for t in (q, k, v, dout, out0, out1)]
+    got = load_library().ff_flash_body(int(q.dtype == torch.bfloat16), _KINDS[kernel], *ptr,
+                                       q.shape[-1])
+    return BODIES[got]
+
+
+def _count(kernel: str, count: str, *tensors) -> None:
+    LAUNCHES[kernel + count] += 1
+    LAUNCHES_BY_BODY[f"{kernel}{count} {kernel_body(kernel, *tensors)}"] += 1
+
+
 def flash_forward_kernel(q, k, v, causal: bool, scale: float):
     """Launch the forward kernel: returns (o [B,Sq,H,D], lse [B,Sq,H])."""
     from ._build import load_library
@@ -247,7 +281,7 @@ def flash_forward_kernel(q, k, v, causal: bool, scale: float):
         b, sq, k.shape[1], h, d, float(scale), int(causal), _stream(q),
     )
     _raise_on_error(rc, f"ff_flash_fwd_{fn}")
-    LAUNCHES["flash_fwd" + count] += 1
+    _count("flash_fwd", count, q, k, v, None, o)
     return o, lse
 
 
@@ -265,7 +299,7 @@ def flash_backward_dq_kernel(q, k, v, dout, lse, delta, causal: bool, scale: flo
         int(causal), _stream(q),
     )
     _raise_on_error(rc, f"ff_flash_bwd_dq_{fn}")
-    LAUNCHES["flash_bwd_dq" + count] += 1
+    _count("flash_bwd_dq", count, q, k, v, dout, dq)
     return dq
 
 
@@ -284,7 +318,7 @@ def flash_backward_dkv_kernel(q, k, v, dout, lse, delta, causal: bool, scale: fl
         float(scale), int(causal), _stream(q),
     )
     _raise_on_error(rc, f"ff_flash_bwd_dkv_{fn}")
-    LAUNCHES["flash_bwd_dkv" + count] += 1
+    _count("flash_bwd_dkv", count, q, k, v, dout, dk, dv)
     return dk, dv
 
 

@@ -1,6 +1,6 @@
 """Times of one checkout of the port, for comparing two checkouts on one card.
 
-    PYTHONPATH=. python3 <this file> [--seed N]
+    PYTHONPATH=. python3 <this file> [--seed N] [--parts kernels,prefix,train_bf16]
 
 Run it from the root of each checkout in turn, one after another on one card
 (for example parent, change, change, parent), each in its own process,
@@ -9,14 +9,21 @@ package and ``chip_smoke.py`` come from the checkout it runs in, whichever
 checkout holds this file. It uses only entry points
 that the port has had since its paged kernels took any window and the
 flash kernels took bf16 (``chip_smoke.py``'s helpers, the kernel
-wrappers, the engine and the scheduler). It prints one JSON line:
+wrappers, the engine, the scheduler and the training phase). It prints one
+JSON line with the parts asked for (``kernels,prefix`` by default):
 
 * ``kernels``: device ms (a CUDA graph of 16 calls replayed between CUDA
   events, over 8 copies of the cache, as ``chip_smoke.py`` times) of the
   paged kernels at decode (B=4 W=1), W=5 and split (S=8) in each cache
   form, and at W = 1024 from positions 0 and 512; the flash forward, dQ
   and dK/dV kernels, fp32 and bf16, at BERT-Base's training shape and at
-  causal S=512;
+  causal S=512, beside SDPA's forward (the same graph timing) and
+  backward (dq, dk, dv together; device time by torch.profiler) in the
+  same dtype;
+* ``train_bf16``: ``chip_smoke.py``'s bf16 BERT-Base training cell (one
+  step against plain attention, 10 timed steps, a profiled pair): step
+  ms on the host clock, device ms a step by kernel group, the busy share
+  and the flash launches (by body where the checkout counts them);
 * ``prefix``: the prefix cell of ``chip_smoke.py`` (8 requests on a
   shared 512-token system prompt and a 700-token suffix after a 64-token
   prefix, 32 new tokens each) through a 4-slot graph engine at
@@ -80,6 +87,15 @@ def _kernels(cs, seed: int) -> dict:
             q, k, v, do = (torch.randn(b, s, 12, 64, generator=gen).cuda().to(dtype)
                            for _ in range(4))
             scale = 64 ** -0.5
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            out[f"{label} sdpa_fwd{form}"], _ = cs.time_ms(
+                lambda *_: torch.nn.functional.scaled_dot_product_attention(
+                    qt.detach(), kt.detach(), vt.detach(), is_causal=causal), [()])
+            ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            out[f"{label} sdpa_bwd{form}"] = cs.profiled_device_ms(
+                lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+            del qt, kt, vt, dot, ot
             o, lse = fa.flash_forward_kernel(q, k, v, causal, scale)
             delta = fa.flash_delta(do, o)
             for name, fn in (
@@ -146,10 +162,22 @@ def _prefix(cs, seed: int, params) -> dict:
     return out
 
 
+def _train_bf16(cs, seed: int) -> dict:
+    t = cs.training_phase(seed, bf16=True)
+    keep = ("step_ms", "samples_per_s", "step_device_ms", "step_device_ms_by_group",
+            "device_busy_share_of_timed_step", "launches", "launches_by_body")
+    return {key: t[key] for key in keep if key in t}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parts", default="kernels,prefix",
+                    help="comma-separated: kernels, prefix, train_bf16")
     args = ap.parse_args(argv)
+    parts = args.parts.split(",")
+    if set(parts) - {"kernels", "prefix", "train_bf16"}:
+        ap.error(f"unknown parts in {args.parts!r}")
     import torch
 
     if not torch.cuda.is_available():
@@ -162,11 +190,16 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.load_library()
-    card = cs.card_line()
-    kernels = _kernels(cs, args.seed)
-    params = params_to(init_decoder_params(torch.Generator().manual_seed(args.seed),
-                                           cs.gpt2_small()), "cuda")
-    print(json.dumps({"card": card, "kernels": kernels, "prefix": _prefix(cs, args.seed, params)}))
+    out = {"card": cs.card_line()}
+    if "kernels" in parts:
+        out["kernels"] = _kernels(cs, args.seed)
+    if "train_bf16" in parts:
+        out["train_bf16"] = _train_bf16(cs, args.seed)
+    if "prefix" in parts:
+        params = params_to(init_decoder_params(torch.Generator().manual_seed(args.seed),
+                                               cs.gpt2_small()), "cuda")
+        out["prefix"] = _prefix(cs, args.seed, params)
+    print(json.dumps(out))
     return 0
 
 

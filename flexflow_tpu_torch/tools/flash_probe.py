@@ -1,21 +1,31 @@
 """Probes of the flash kernels' design on one NVIDIA GPU.
 
-    python3 -m flexflow_tpu_torch.tools.flash_probe variants
+    python3 -m flexflow_tpu_torch.tools.flash_probe variants [NAME ...]
     python3 -m flexflow_tpu_torch.tools.flash_probe mma-peak
+    python3 -m flexflow_tpu_torch.tools.flash_probe wgmma-peak
 
 ``variants`` builds copies of ``ops/kernels/csrc/flash_attention.cu`` and
 the ``csrc/common.cuh`` it includes with one design choice changed each (a
 text substitution in the source it names, :data:`VARIANTS`), all nvcc
-runs at once, and times the forward, dQ and dK/dV kernels of each
-at the training shape (B=32, S=128, H=12, D=64) and at causal B=4 S=512 by
-CUDA events over 100 eager calls on one input set, in two rounds (forward
-order, then reverse), beside the unchanged source. Each variant is also
-held against the plain versions; the ``probe`` variants give wrong results
-on purpose (they measure what a part of the arithmetic costs).
+runs at once (every variant, or the NAMEs given), and times the
+forward, dQ and dK/dV kernels of each, fp32 and bf16 forms, at the
+training shape (B=32, S=128, H=12, D=64) and at causal B=4 S=512: device
+ms a call, a CUDA graph of 16 calls over 3 copies of the inputs (past the
+50 MB L2) replayed between CUDA events, in two rounds (forward order,
+then reverse), beside the unchanged source. The ``wg_`` variants change
+the bf16 wgmma bodies (warpgroups a block, blocks an SM, ring depth, tile
+of the other axis, who starts the copies, the accurate exp2), the others
+the mma.sync bodies. Each variant is also held against the plain
+versions; the ``probe``
+variants give wrong results on purpose (they measure what a part of the
+arithmetic costs).
 
 ``mma-peak`` times a kernel that only issues independent
-``mma.sync.m16n8k8`` TF32 products, the rate the tensor-core kernels'
-instruction could reach on this card.
+``mma.sync.m16n8k8`` TF32 products, the rate the mma.sync bodies'
+instruction could reach on this card. ``wgmma-peak`` does the same for
+the wgmma bodies' instruction, bf16 ``wgmma`` m64n64k16 with both
+operands in shared memory or A in registers (``common.cuh``'s
+``wgmma_ss`` and ``wgmma_rs``), 1 or 2 warpgroups a block.
 
 Builds land in ``ops/kernels/_build/probe/``; nothing runs at import.
 """
@@ -23,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import subprocess
 import sys
 
@@ -51,6 +62,36 @@ DQ_ROWS_SPLIT_ONCE = DQ_ROWS + """  FragA q_frag[kNT], do_frag[kNT];  // split o
   }
 """
 
+# regions of the wgmma bodies that the probe variants cut (each ends with
+# the close of the warpgroup's per-tile block, which the cut puts back)
+WG_FWD_PRODUCTS = "      // S = Q K^T, one exact product (bf16 x bf16 into fp32)\n"
+WG_FWD_PV = "      // O = corr O + P V, P in two bf16 halves (lo, then hi), V read MN-major\n"
+WG_FWD_END = "      for (int c = 0; c < kNC; ++c) fence_acc(acc[c]);\n    }\n    __syncwarp();\n"
+WG_FWD_PV_LO = "          wgmma_rs(acc[c], pl[ks], wg_desc_mn<kBK>(vt, 16 * ks, c));\n"
+WG_DKV_PRODUCTS = "      // S^T = K Q^T and dP^T = V dO^T, one exact product each\n"
+WG_DKV_RS = "      // dV += P^T dO and dK += dS^T Q (scaled at the store), P^T and dS^T in\n"
+WG_DKV_END = "        fence_acc(dk_acc[c]);\n      }\n    }\n    __syncwarp();\n"
+WG_DKV_RS_LO = ("          wgmma_rs(dv_acc[c], pl[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));\n"
+                "          wgmma_rs(dv_acc[c], ph[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));\n"
+                "          wgmma_rs(dk_acc[c], dl[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));\n")
+WG_CUT_END = "    }\n    __syncwarp();\n"
+# the TMA copies of the wgmma bodies, which the "no copies" probes replace
+# by a bare arrival (the products then read whatever shared memory holds)
+WG_FWD_TILE_COPY = """    mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+    wg_load_tile<kBK, kDP>(kt, &tk, &full[s], b, h, it * kBK);
+    wg_load_tile<kBK, kDP>(kt + kWgTile<kBK, kDP>, &tv, &full[s], b, h, it * kBK);
+"""
+WG_FWD_Q_COPY = """    mbar_arrive_expect_tx(qbar, sizeof(bf16) * kWgTile<kWgBlockRows, kDP>);
+    wg_load_tile<kWgBlockRows, kDP>(qs, &tq, qbar, b, h, q0);
+"""
+WG_DKV_TILE_COPY = """      mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+      wg_load_tile<kBQ, kDP>(qt, &tq, &full[s], b, h, q0);
+      wg_load_tile<kBQ, kDP>(qt + kWgTile<kBQ, kDP>, &tdo, &full[s], b, h, q0);
+"""
+WG_DKV_KV_COPY = """      mbar_arrive_expect_tx(kvbar, sizeof(bf16) * 2 * kWgTile<kWgBlockRows, kDP>);
+      wg_load_tile<kWgBlockRows, kDP>(ks, &tk, kvbar, b, h, k0);
+      wg_load_tile<kWgBlockRows, kDP>(vs, &tv, kvbar, b, h, k0);
+"""
 FLASH = "flash_attention.cu"
 COMMON = "common.cuh"  # the TF32 split, fragments and mma helpers
 
@@ -79,7 +120,108 @@ VARIANTS = {
     ],
     "probe_one_tf32": [(COMMON, "  if constexpr (!kExactB) mma_tf32(c, a.big, b.small);\n"
                                 "  if constexpr (!kExactA) mma_tf32(c, a.small, b.big);\n", "")],
+    # the bf16 wgmma bodies
+    "wg_stages_3": [(FLASH, "constexpr int kWgStages = 2;", "constexpr int kWgStages = 3;")],
+    "wg_stages_4": [(FLASH, "constexpr int kWgStages = 2;", "constexpr int kWgStages = 4;")],
+    "wg_fwd_key_tile_128": [(FLASH, "constexpr int kWgFwdKeys = 64;",
+                             "constexpr int kWgFwdKeys = 128;")],
+    "wg_dkv_query_tile_128": [(FLASH, "constexpr int kWgDkvQueries = 64;",
+                               "constexpr int kWgDkvQueries = 128;")],
+    "wg_groups_2": [(FLASH, "constexpr int kWgGroups = 1;", "constexpr int kWgGroups = 2;")],
+    "wg_fwd_min_blocks_5": [(FLASH, "constexpr int kWgFwdMinBlocks = 4;",
+                             "constexpr int kWgFwdMinBlocks = 5;")],
+    "wg_dkv_min_blocks_2": [(FLASH, "constexpr int kWgDkvMinBlocks = 3;",
+                             "constexpr int kWgDkvMinBlocks = 2;")],
+    "wg_l2_promotion_256": [(FLASH, "CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+                             "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")],
+    "wg_prefetch_maps": [
+        (FLASH, "  if (threadIdx.x == 0) {\n    mbar_init(qbar, 1);",
+         "  if (threadIdx.x == 0) {\n"
+         "    for (const CUtensorMap* m : {&tq, &tk, &tv})\n"
+         "      asm volatile(\"prefetch.tensormap [%0];\" ::\"l\"(reinterpret_cast<uint64_t>(m)) : \"memory\");\n"
+         "    mbar_init(qbar, 1);"),
+        (FLASH, "  if (threadIdx.x == 0) {\n    mbar_init(kvbar, 1);",
+         "  if (threadIdx.x == 0) {\n"
+         "    for (const CUtensorMap* m : {&tq, &tk, &tv, &tdo})\n"
+         "      asm volatile(\"prefetch.tensormap [%0];\" ::\"l\"(reinterpret_cast<uint64_t>(m)) : \"memory\");\n"
+         "    mbar_init(kvbar, 1);")],
+    "wg_producer_warp": [(FLASH, "constexpr bool kWgProducerWarp = false;",
+                          "constexpr bool kWgProducerWarp = true;")],
+    "wg_exp2f": [(COMMON, '  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+                  "  y = exp2f(x);")],
+    "wg_carveout_max": [
+        (FLASH, "    rc = prepare(flash_fwd_wg_kernel<kDP>, smem, &ready[0]);",
+         "    cudaFuncSetAttribute(flash_fwd_wg_kernel<kDP>,\n"
+         "                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
+         "    rc = prepare(flash_fwd_wg_kernel<kDP>, smem, &ready[0]);"),
+        (FLASH, "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[1]);",
+         "    cudaFuncSetAttribute(flash_bwd_dkv_wg_kernel<kDP>,\n"
+         "                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
+         "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[1]);")],
+    # parts of the wgmma bodies left out (wrong results: what each part costs)
+    "wg_probe_fwd_copies_only": [(FLASH, (WG_FWD_PRODUCTS, WG_FWD_END), WG_CUT_END)],
+    "wg_probe_fwd_no_pv": [(FLASH, (WG_FWD_PV, WG_FWD_END), WG_CUT_END)],
+    "wg_probe_fwd_pv_hi_only": [(FLASH, WG_FWD_PV_LO, "")],
+    "wg_probe_dkv_copies_only": [(FLASH, (WG_DKV_PRODUCTS, WG_DKV_END), WG_CUT_END)],
+    "wg_probe_dkv_no_rs": [(FLASH, (WG_DKV_RS, WG_DKV_END), WG_CUT_END)],
+    "wg_probe_fwd_no_copies": [(FLASH, WG_FWD_TILE_COPY, "    mbar_arrive(&full[s]);\n"),
+                               (FLASH, WG_FWD_Q_COPY, "    mbar_arrive(qbar);\n")],
+    "wg_probe_dkv_no_copies": [(FLASH, WG_DKV_TILE_COPY, "      mbar_arrive(&full[s]);\n"),
+                               (FLASH, WG_DKV_KV_COPY, "      mbar_arrive(kvbar);\n")],
+    "wg_probe_dkv_rs_hi_only": [(FLASH, WG_DKV_RS_LO, WG_DKV_RS_LO.splitlines(True)[1])],
 }
+
+WGMMA_PEAK_CU = r"""
+#include "common.cuh"
+// kIters batches of 16 dependent wgmma m64n64k16 into one accumulator a
+// warpgroup, operands from a zero-padded 128-byte-swizzled tile
+template <bool kRs>
+__global__ void wgmma_loop(float* out, int iters) {
+  __shared__ __align__(16) unsigned char raw[2 * 8192 + 1024];
+  bf16* tile = reinterpret_cast<bf16*>(raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u));
+  for (int i = threadIdx.x; i < 2 * 64 * 64; i += blockDim.x)
+    tile[i] = __float2bfloat16_rn(1e-3f * (i % 7));
+  __syncthreads();
+  float acc[32];
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  uint32_t a[4];
+  for (int i = 0; i < 4; ++i) a[i] = 0x3c003c00u + threadIdx.x + i;
+  const uint64_t da = gmma_desc(tile, 16, 1024), db = gmma_desc(tile + 64 * 64, 16, 1024);
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if constexpr (kRs) wgmma_rs(acc, a, db); else wgmma_ss(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+  float s = 0.f;
+  for (int i = 0; i < 32; ++i) s += acc[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+// ms of one launch of blocks x (128 x warpgroups) threads, after a warm-up launch
+extern "C" float ff_wgmma_peak_ms(int blocks, int warpgroups, int iters, int rs) {
+  float* out;
+  cudaMalloc(&out, sizeof(float) * blocks * 128 * warpgroups);
+  auto launch = [&] {
+    if (rs) wgmma_loop<true><<<blocks, 128 * warpgroups>>>(out, iters);
+    else wgmma_loop<false><<<blocks, 128 * warpgroups>>>(out, iters);
+  };
+  launch();
+  cudaEvent_t s, e;
+  cudaEventCreate(&s);
+  cudaEventCreate(&e);
+  cudaEventRecord(s);
+  launch();
+  cudaEventRecord(e);
+  cudaEventSynchronize(e);
+  float ms = 0.f;
+  cudaEventElapsedTime(&ms, s, e);
+  cudaFree(out);
+  return cudaGetLastError() == cudaSuccess ? ms : -1.f;
+}
+"""
 
 MMA_PEAK_CU = r"""
 #include <cuda_runtime.h>
@@ -204,7 +346,7 @@ def _registers(ptxas_log: str, kernel: str) -> str:
     return "?"
 
 
-def variants() -> int:
+def variants(names=()) -> int:
     import torch
 
     from flexflow_tpu_torch.ops.kernels import _build
@@ -214,22 +356,37 @@ def variants() -> int:
         print("flash_probe: no CUDA device is available", file=sys.stderr)
         return 2
     libs = {}
-    for name, (so, log) in _compile(variant_sources(FLASH, VARIANTS)).items():
+    unknown = sorted(set(names) - set(VARIANTS))
+    if unknown:
+        raise ValueError(f"no such variants: {unknown}")
+    chosen = {n: VARIANTS[n] for n in (names or VARIANTS)}
+    for name, (so, log) in _compile(variant_sources(FLASH, chosen)).items():
         lib = ctypes.CDLL(str(so))
-        for fn in ("ff_flash_fwd_f32", "ff_flash_bwd_dq_f32", "ff_flash_bwd_dkv_f32"):
-            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
+        for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
+            for form in ("f32", "bf16"):
+                fn = getattr(lib, f"ff_flash_{kernel}_{form}")
+                fn.argtypes = _build.SIGNATURES[f"ff_flash_{kernel}_{form}"]
+                fn.restype = ctypes.c_int
         libs[name] = lib
-        print(f"{name}: registers fwd<64> {_registers(log, 'flash_fwd_tc_kernelILi64EfE')}, "
+        lib.ff_flash_wg_blocks_per_sm.argtypes = _build.SIGNATURES["ff_flash_wg_blocks_per_sm"]
+        print(f"{name}: blocks an SM of the bf16 wgmma fwd<64> "
+              f"{lib.ff_flash_wg_blocks_per_sm(0, 64)}, dkv<64> "
+              f"{lib.ff_flash_wg_blocks_per_sm(2, 64)}; "
+              f"registers fwd<64> {_registers(log, 'flash_fwd_tc_kernelILi64EfE')}, "
               f"dq<64> {_registers(log, 'flash_bwd_dq_tc_kernelILi64EfE')}, "
-              f"dkv<64> {_registers(log, 'flash_bwd_dkv_tc_kernelILi64EfE')}")
+              f"dkv<64> {_registers(log, 'flash_bwd_dkv_tc_kernelILi64EfE')}; bf16 wgmma "
+              f"fwd<64> {_registers(log, 'flash_fwd_wg_kernelILi64EE')}, "
+              f"dkv<64> {_registers(log, 'flash_bwd_dkv_wg_kernelILi64EE')}")
+
+    def form_of(q):
+        return "bf16" if q.dtype == torch.bfloat16 else "f32"
 
     def run_fwd(lib, q, k, v, causal, scale):
         b, sq, h, d = q.shape
         o, lse = torch.empty_like(q), torch.empty(b, sq, h, device=q.device)
-        rc = lib.ff_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                  lse.data_ptr(), b, sq, k.shape[1], h, d, scale, int(causal),
-                                  torch.cuda.current_stream().cuda_stream)
+        rc = getattr(lib, f"ff_flash_fwd_{form_of(q)}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq,
+            k.shape[1], h, d, scale, int(causal), torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"forward launch failed: {rc}")
         return o
@@ -237,10 +394,10 @@ def variants() -> int:
     def run_dq(lib, q, k, v, do, lse, delta, causal, scale):
         b, sq, h, d = q.shape
         dq = torch.empty_like(q)
-        rc = lib.ff_flash_bwd_dq_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq,
-                                     k.shape[1], h, d, scale, int(causal),
-                                     torch.cuda.current_stream().cuda_stream)
+        rc = getattr(lib, f"ff_flash_bwd_dq_{form_of(q)}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), b, sq, k.shape[1], h, d, scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"dQ launch failed: {rc}")
         return dq
@@ -248,33 +405,49 @@ def variants() -> int:
     def run_dkv(lib, q, k, v, do, lse, delta, causal, scale):
         b, sq, h, d = q.shape
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        rc = lib.ff_flash_bwd_dkv_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                      lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                                      dv.data_ptr(), b, sq, k.shape[1], h, d, scale, int(causal),
-                                      torch.cuda.current_stream().cuda_stream)
+        rc = getattr(lib, f"ff_flash_bwd_dkv_{form_of(q)}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, d, scale,
+            int(causal), torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"dK/dV launch failed: {rc}")
         return dk, dv
 
-    def event_ms(fn, iters=100):
-        for _ in range(5):
-            fn()
+    def graph_ms(fn, sets, iters=16, reps=5):
+        """Device ms a call: ``iters`` calls cycling over ``sets`` captured
+        in one CUDA graph and replayed ``reps`` times between CUDA events,
+        free of the host's launch rate (the wgmma bodies encode their tensor
+        maps on the host at each call)."""
+        for st in sets:
+            fn(*st)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(iters):
+                fn(*sets[i % len(sets)])
+        graph.replay()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn()
+        for _ in range(reps):
+            graph.replay()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / iters
+        return start.elapsed_time(end) / (reps * iters)
 
     print(_card())
-    for b, s, h, d, causal in [(32, 128, 12, 64, False), (4, 512, 12, 64, True)]:
+    for (b, s, h, d, causal), dtype in itertools.product(
+            [(32, 128, 12, 64, False), (4, 512, 12, 64, True)], (torch.float32, torch.bfloat16)):
         gen = torch.Generator().manual_seed(1)
-        q, k, v, do = (torch.randn(b, s, h, d, generator=gen).cuda() for _ in range(4))
         scale = d ** -0.5
-        po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
-        delta = fa.flash_delta(do, po)
+        sets = []  # 3 copies of the inputs, together past the 50 MB L2
+        for _ in range(3):
+            q, k, v, do = (torch.randn(b, s, h, d, generator=gen).cuda().to(dtype)
+                           for _ in range(4))
+            po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
+            sets.append((q, k, v, do, plse, fa.flash_delta(do, po)))
+        q, k, v, do, plse, delta = sets[0]
+        po, _ = fa.reference_flash_forward(q, k, v, causal, scale)
         bwd = (q, k, v, do, plse, delta, causal, scale)
         pdq, pdk, pdv = fa.reference_flash_backward(*bwd)
         times = {name: [] for name in libs}
@@ -282,16 +455,16 @@ def variants() -> int:
             for name in order:
                 lib = libs[name]
                 times[name].append((
-                    event_ms(lambda: run_fwd(lib, q, k, v, causal, scale)),
-                    event_ms(lambda: run_dq(lib, *bwd)),
-                    event_ms(lambda: run_dkv(lib, *bwd))))
+                    graph_ms(lambda q, k, v, *_: run_fwd(lib, q, k, v, causal, scale), sets),
+                    graph_ms(lambda *a: run_dq(lib, *a, causal, scale), sets),
+                    graph_ms(lambda *a: run_dkv(lib, *a, causal, scale), sets)))
         for name, lib in libs.items():
             o = run_fwd(lib, q, k, v, causal, scale)
             dq = run_dq(lib, *bwd)
             dk, dv = run_dkv(lib, *bwd)
-            err = max(float((got - want).abs().max())
+            err = max(float((got.float() - want.float()).abs().max())
                       for got, want in ((o, po), (dq, pdq), (dk, pdk), (dv, pdv)))
-            print(f"B={b} S={s} causal={causal} {name:18s} ms "
+            print(f"B={b} S={s} causal={causal} {form_of(q)} {name:22s} ms "
                   + "  ".join(f"{kernel} " + " ".join(f"{t[i]:.4f}" for t in times[name])
                               for i, kernel in enumerate(("forward", "dQ", "dK/dV")))
                   + f"  max abs err {err:.2e}")
@@ -318,11 +491,41 @@ def mma_peak() -> int:
     return 0
 
 
+def wgmma_peak() -> int:
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("flash_probe: no CUDA device is available", file=sys.stderr)
+        return 2
+    sources = {"wgmma_peak.cu": WGMMA_PEAK_CU,
+               COMMON: (_build.CSRC_DIR / COMMON).read_text()}
+    (so, _), = _compile({"wgmma_peak": sources}).values()
+    lib = ctypes.CDLL(str(so))
+    lib.ff_wgmma_peak_ms.restype = ctypes.c_float
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(_card())
+    for rs, warpgroups in itertools.product((0, 1), (1, 2)):
+        blocks, iters = 4 * sms, 4000
+        ms = lib.ff_wgmma_peak_ms(blocks, warpgroups, iters, rs)
+        if ms <= 0:
+            raise RuntimeError("the wgmma peak kernel failed to launch")
+        flops = blocks * warpgroups * iters * 16 * (64 * 64 * 16 * 2)
+        print(f"{warpgroups} warpgroup(s) a block, {blocks} blocks, A from "
+              f"{'registers' if rs else 'shared memory'}: {flops / ms / 1e9:.1f} TFLOP/s "
+              f"(wgmma m64n64k16 bf16, {ms:.3f} ms)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probe", choices=["variants", "mma-peak"])
+    ap.add_argument("probe", choices=["variants", "mma-peak", "wgmma-peak"])
+    ap.add_argument("names", nargs="*", help="variants: the variants to build (default: all)")
     args = ap.parse_args(argv)
-    return variants() if args.probe == "variants" else mma_peak()
+    if args.probe == "variants":
+        return variants(args.names)
+    return mma_peak() if args.probe == "mma-peak" else wgmma_peak()
 
 
 if __name__ == "__main__":

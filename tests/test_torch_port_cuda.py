@@ -594,6 +594,43 @@ def test_cuda_bf16_kernels_match_plain_versions(cuda, sq, sk, d, causal):
                            "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1}
 
 
+@pytest.mark.parametrize("d,misaligned,body", [
+    (64, False, "wgmma"), (40, False, "wgmma"), (128, False, "wgmma"),
+    (32, False, "mma_sync"), (33, False, "mma_sync"), (64, True, "mma_sync"),
+    (160, False, "cuda_cores"),
+])
+def test_cuda_bf16_launches_are_counted_by_body(cuda, d, misaligned, body):
+    """The bf16 forward and dK/dV take the wgmma bodies where TMA takes the
+    tensors (32 < D <= 128, D % 8 == 0, 16-byte-aligned bases), else the
+    mma.sync bodies (D > 128: the CUDA cores); dQ keeps mma.sync. Each
+    launch is counted under the body the library reports, and every body
+    matches the plain versions."""
+    gen = torch.Generator().manual_seed(d)
+    tensors = []
+    for _ in range(4):
+        t = torch.randn(2, 70, 3, d, generator=gen).to(cuda, torch.bfloat16)
+        if misaligned:  # 2 bytes past a 16-byte boundary
+            t = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)[1:1 + t.numel()] \
+                .view(t.shape).copy_(t)
+        tensors.append(t)
+    q, k, v, do = tensors
+    scale = d ** -0.5
+    fa.reset_launch_counts()
+    o, lse = fa.flash_forward_kernel(q, k, v, True, scale)
+    po, plse = fa.reference_flash_forward(q, k, v, True, scale)
+    delta = fa.flash_delta(do, po)
+    dk, dv = fa.flash_backward_dkv_kernel(q, k, v, do, plse, delta, True, scale)
+    fa.flash_backward_dq_kernel(q, k, v, do, plse, delta, True, scale)
+    pdk, pdv = fa.reference_flash_backward_dkv(q, k, v, do, plse, delta, True, scale)
+    for name, got, want in (("o", o, po), ("dk", dk, pdk), ("dv", dv, pdv)):
+        _bf16_close(name, got, want)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-4)
+    dq_body = "cuda_cores" if d > 128 else "mma_sync"
+    assert {key: n for key, n in fa.LAUNCHES_BY_BODY.items() if n} == {
+        f"flash_fwd_bf16 {body}": 1, f"flash_bwd_dkv_bf16 {body}": 1,
+        f"flash_bwd_dq_bf16 {dq_body}": 1}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_value_head_dim_other_than_key_head_dim(cuda, dtype):
     """multihead attention with kdim=8, vdim=16 (and the reverse): the
