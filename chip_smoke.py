@@ -2663,7 +2663,7 @@ def tensor_core_check() -> dict:
     forward, dQ and dK/dV mma.sync kernels, float32 and bf16 forms (the
     bf16 forms are the body the wgmma bodies leave calls to), and
     warpgroup GMMA instructions (HGMMA, wgmma) in every instance of the
-    bf16 wgmma forward and dK/dV (head dims padded to 64 and 128); the
+    bf16 wgmma forward, dQ and dK/dV (head dims padded to 64 and 128); the
     CUDA-core dQ must exist only for head dims above 128 (5..8, 12 and 16
     columns of 32) in both forms; the paged library's, in every instance
     of the tensor-core body (fp32, bf16 and fp16 caches, single-pass and
@@ -2693,7 +2693,7 @@ def tensor_core_check() -> dict:
                                  f"{inst or 'none in the built library'}")
         found.update(inst)
     wgmma = {}
-    for kernel in ("flash_fwd_wg_kernel", "flash_bwd_dkv_wg_kernel"):
+    for kernel in ("flash_fwd_wg_kernel", "flash_bwd_dq_wg_kernel", "flash_bwd_dkv_wg_kernel"):
         inst = {n: c["HGMMA"] for n, c in counts.items() if n.startswith(kernel + "<")}
         if sorted(inst) != [f"{kernel}<128>", f"{kernel}<64>"] or not all(inst.values()):
             raise AssertionError(f"{kernel}: expected HGMMA in head dims 64 and 128, got "
@@ -2796,7 +2796,7 @@ def check_flash(name, sets, causal, scale, body=None):
     """The three kernels against their plain versions on the first set,
     at the fp32 gate or, for bf16 inputs, the bf16 gate (the logsumexp,
     fp32 in both forms, at the fp32 gate). ``body``: the body
-    (``fa.BODIES``) the forward and dK/dV launches must have taken.
+    (``fa.BODIES``) the forward, dQ and dK/dV launches must have taken.
     Returns ({kernel: max abs err}, {kernel: body taken}), keyed as the
     launch counts are."""
     import torch
@@ -2813,7 +2813,7 @@ def check_flash(name, sets, causal, scale, body=None):
     dk, dv = fa.flash_backward_dkv_kernel(q, k, v, do, lse, delta, causal, scale)
     pdq, pdk, pdv = fa.reference_flash_backward(q, k, v, do, lse, delta, causal, scale)
     took = dict(key.split() for key, n in fa.LAUNCHES_BY_BODY.items() if n > before[key])
-    for kernel in ("flash_fwd" + form, "flash_bwd_dkv" + form):
+    for kernel in ("flash_fwd" + form, "flash_bwd_dq" + form, "flash_bwd_dkv" + form):
         if body is not None and took.get(kernel) != body:
             raise AssertionError(f"{name}: {kernel} took the {took.get(kernel)} body, not {body}")
     return {
@@ -2838,7 +2838,8 @@ def check_value_head_dim(seed: int) -> None:
     k's (kdim 8 / vdim 16, and 64 / 24), fp32 and bf16: the kernels run on
     zero-padded head dims (3 launches a forward and backward) and match the
     plain versions, output and gradients. In bf16 the padded D = 16 keeps
-    the mma.sync bodies and D = 64 takes the wgmma forward and dK/dV."""
+    the mma.sync bodies and D = 64 takes the wgmma forward, dQ and
+    dK/dV."""
     import torch
 
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
@@ -2859,7 +2860,7 @@ def check_value_head_dim(seed: int) -> None:
                     raise AssertionError(f"Dv != Dk, {backend}: launches {fa.LAUNCHES}")
                 if backend == "auto" and dtype == torch.bfloat16:
                     body = "wgmma" if max(dk, dv) > 32 else "mma_sync"
-                    for kernel in ("flash_fwd_bf16", "flash_bwd_dkv_bf16"):
+                    for kernel in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
                         if fa.LAUNCHES_BY_BODY[f"{kernel} {body}"] != 1:
                             raise AssertionError(f"Dk={dk} Dv={dv} bf16: {kernel} not on the "
                                                  f"{body} body ({fa.LAUNCHES_BY_BODY})")
@@ -3096,8 +3097,8 @@ def training_phase(seed: int, bf16: bool = False):
         if n != per_step[name] * steps:
             raise AssertionError(f"{tag} {name}: {n} launches in {steps} steps, expected "
                                  f"{per_step[name]} per step ({launches})")
-    # every bf16 forward and dK/dV launch of the cell on the wgmma bodies
-    for name in ("flash_fwd_bf16", "flash_bwd_dkv_bf16") if bf16 else ():
+    # every bf16 forward, dQ and dK/dV launch of the cell on the wgmma bodies
+    for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16") if bf16 else ():
         if by_body.get(f"{name} wgmma", 0) != launches[name]:
             raise AssertionError(f"{tag}: {name} launches by body {by_body}, expected all "
                                  f"{launches[name]} on the wgmma body")
@@ -3181,7 +3182,8 @@ def main(argv=None) -> int:
     lib = _build.load_library()
     print("bf16 wgmma bodies, blocks an SM (occupancy calculator): " + json.dumps({
         f"{kernel}<{d}>": lib.ff_flash_wg_blocks_per_sm(kind, d)
-        for kernel, kind in (("flash_fwd_wg_kernel", 0), ("flash_bwd_dkv_wg_kernel", 2))
+        for kernel, kind in (("flash_fwd_wg_kernel", 0), ("flash_bwd_dq_wg_kernel", 1),
+                             ("flash_bwd_dkv_wg_kernel", 2))
         for d in (64, 128)}))
 
     rows = kernel_phase(args.seed)

@@ -38,27 +38,32 @@
 //
 // Each kernel has up to three bodies; body_of() picks one per call and
 // ff_flash_body() reports it, so a caller can count launches by body:
-//   * wgmma (bf16 forward and dK/dV, 32 < D <= 128, D % 8 == 0, every
-//     tensor 16-byte aligned): warpgroup bf16 products fed by TMA, below;
+//   * wgmma (bf16 forward, dQ and dK/dV, 32 < D <= 128, D % 8 == 0,
+//     every tensor 16-byte aligned): warpgroup bf16 products fed by TMA,
+//     below;
 //   * mma.sync (every other call at D <= 128): TF32 m16n8k8 products, 3 a
 //     product in fp32, 1 or 2 in bf16, staged by cp.async;
 //   * CUDA cores (D > 128).
 //
-// ---- The bf16 wgmma bodies (flash_fwd_wg_kernel, flash_bwd_dkv_wg_kernel)
+// ---- The bf16 wgmma bodies (flash_fwd_wg_kernel, flash_bwd_dq_wg_kernel,
+//      flash_bwd_dkv_wg_kernel)
 //   * A block is one warpgroup (4 warps) owning 64 rows of its own axis
-//     (queries for the forward, keys for dK/dV), the M of every wgmma
-//     m64n64k16. The other axis streams through a ring of kWgStages
-//     shared-memory stages (K and V tiles of 64 keys for the forward; Q
-//     and dO tiles of 64 queries with their lse and delta rows for dK/dV),
-//     filled by TMA. Thread 0 (warp 0 for dK/dV) is the producer: before
-//     each tile it refills the stage the previous tile freed, announcing
-//     the bytes on the stage's full mbarrier and issuing the copies; each
-//     warp arrives on the stage's empty mbarrier once its products are
-//     done, and the producer waits on that before refilling (phase parity
-//     from the stage's use count). lse and delta are columns of [B,S,H]
-//     tensors, no TMA box: the producer warp's lanes copy them by 4-byte
-//     cp.async and arrive on the full barrier once they land
-//     (cp.async.mbarrier.arrive), so no thread waits on those loads.
+//     (queries for the forward and dQ, keys for dK/dV), the M of every
+//     wgmma m64n64k16. Its own rows' tiles (Q; Q and dO; K and V) land
+//     once, by TMA on one barrier. The other axis streams through a ring
+//     of kWgStages shared-memory stages (K and V tiles of 64 keys for the
+//     forward and dQ; Q and dO tiles of 64 queries with their lse and
+//     delta rows for dK/dV), filled by TMA. Thread 0 (warp 0 for dK/dV)
+//     is the producer: before each tile it refills the stage the previous
+//     tile freed, announcing the bytes on the stage's full mbarrier and
+//     issuing the copies; each warp arrives on the stage's empty mbarrier
+//     once its products are done, and the producer waits on that before
+//     refilling (phase parity from the stage's use count). lse and delta
+//     are columns of [B,S,H] tensors, no TMA box: for dK/dV the producer
+//     warp's lanes copy them by 4-byte cp.async and arrive on the full
+//     barrier once they land (cp.async.mbarrier.arrive), so no thread
+//     waits on those loads; dQ needs only its own 64 rows', which land
+//     once, by one cp.async a consumer thread, on the barrier of Q and dO.
 //   * TMA reads q, k, v, dO in place through 4-D tensor maps (D, H, S, B,
 //     innermost first) encoded on the host per call, passed as
 //     __grid_constant__ parameters; cuTensorMapEncodeTiled comes from
@@ -69,39 +74,45 @@
 //     masking of the copies.
 //   * Products. bf16 x bf16 products are exact in the fp32 accumulator, so
 //     a product of two inputs is one wgmma with both operands K-major in
-//     shared memory: the forward's S = Q K^T, dK/dV's S^T = K Q^T and
-//     dP^T = V dO^T. A product with a computed fp32 operand (P, P^T, dS^T)
-//     splits it into hi = bf16(x) and lo = bf16(x - hi) (x = hi + lo +
-//     e, |e| <= 2^-16 |x|) and takes two wgmmas, lo then hi, with the
-//     operand in registers: the forward's O += P V, dK/dV's dV += P^T dO
-//     and dK += dS^T Q. The accumulator of S (or S^T) is, 16 columns at a
-//     time, exactly the register A fragment of the next product, so P
-//     reaches it without shuffles. V, dO and Q are read MN-major (the
+//     shared memory: the forward's S = Q K^T, dQ's S = Q K^T and dP =
+//     dO V^T, dK/dV's S^T = K Q^T and dP^T = V dO^T. A product with a
+//     computed fp32 operand (P, dS, P^T, dS^T) splits it into hi =
+//     bf16(x) and lo = bf16(x - hi) (x = hi + lo + e, |e| <= 2^-16 |x|)
+//     and takes two wgmmas, lo then hi, with the operand in registers: the
+//     forward's O += P V, dQ's dQ += dS K, dK/dV's dV += P^T dO and dK +=
+//     dS^T Q. The accumulator of S (or S^T) is, 16 columns at a time,
+//     exactly the register A fragment of the next product, so P and dS
+//     reach it without shuffles. V, K, dO and Q are read MN-major (the
 //     reduction down their rows) by a second descriptor of the tile that
 //     the K-major products read: one copy, no transposes. A single bf16
-//     product of P would err by up to 2^-8 a term: SDPA's function, not
-//     the JAX kernels' (tests/test_torch_port_flash_split_numerics.py).
+//     product of P or dS would err by up to 2^-8 a term: SDPA's function,
+//     not the JAX kernels' (tests/test_torch_port_flash_split_numerics.py).
 //   * The scale multiplies the fp32 scores (q * scale is not a bf16
-//     value), and dK at its store. The softmax runs in base 2 on the scores
-//     times scale log2(e), by ex2.approx (about 2 ulp: the fp32 gates do
-//     not see it; the accurate exp2f costs the forward 5%). Tiles inside
-//     every bound skip the mask. The causal skips are the mma.sync
-//     bodies': the forward stops at the diagonal key tile, dK/dV starts at
-//     the first query tile that sees its keys.
+//     value), and dQ and dK at their stores. The softmax runs in base 2
+//     on the scores times scale log2(e), by ex2.approx (about 2 ulp: the
+//     fp32 gates do not see it; the accurate exp2f costs the forward 5%).
+//     Tiles inside every bound skip the mask. The causal skips are the
+//     mma.sync bodies': the forward and dQ stop at the diagonal key tile,
+//     dK/dV starts at the first query tile that sees its keys. No atomics:
+//     dQ and dK/dV keep the split of the TPU kernels.
 //   * The 64 x 64 accumulator blocks are stored as bf16 pairs straight
 //     from registers; the forward writes lse from the quad's first lane.
 //   * Occupancy: registers are shared out by an SM's four quarters, whole
 //     warps each, so a fifth (producer) warp cost dK/dV half its blocks an
-//     SM; with thread 0 producing, the forward holds 4 blocks an SM and
-//     dK/dV 3 (capped at 168 registers) at D <= 64. Two warpgroups a
-//     block (kWgGroups, copying each tile once for 128 rows) were slower
-//     at BERT's S = 128.
+//     SM; with thread 0 producing, the forward holds 4 blocks an SM, dQ 4
+//     (S, dP and dQ accumulators and dS's halves in 128 registers; 3
+//     blocks were 6-8% slower) and dK/dV 3 (capped at 168 registers) at
+//     D <= 64. Two warpgroups a block (kWgGroups, copying each tile once
+//     for 128 rows) were slower at BERT's S = 128, and so were 3-stage
+//     rings and 128-key dQ tiles (which spill).
 //   * What bounds them (H100 at BERT's training shape, tools/flash_probe.py
 //     parts): the forward's copies alone take 85% of its time and its
 //     products alone 80% (the two overlap); dK/dV's copies 80% and its
-//     products 82%. TMA over [B,S,H,D] in place reads 128-byte rows 1.5 KB
-//     apart, and each block waits out its first tiles' latency: the
-//     kernels sit at about 2x their byte bound.
+//     products 82%; dQ's copies 85% and its products 71% (at causal
+//     S = 512, where a block walks up to 8 key tiles, its products take
+//     88%). TMA over [B,S,H,D] in place reads 128-byte rows 1.5 KB apart,
+//     and each block waits out its first tiles' latency: the kernels sit
+//     at about 2x their byte bound at S = 128.
 //
 // ---- The mma.sync bodies, D <= 128 (all three kernels)
 //   * 3xTF32: every fp32 operand x is split into big = rna(x) and small =
@@ -149,8 +160,8 @@
 //   * Head dims are zero-padded to 32, 64, 96 or 128 in shared memory.
 //     Rows are copied 16 bytes at a time where D % 4 == 0 and the tensors
 //     are 16-byte aligned, else 4 bytes at a time.
-//   * The bf16 forms of these bodies (bf16 dQ, and bf16 forward and dK/dV
-//     calls the wgmma bodies do not take) run over bf16 tiles: a bf16
+//   * The bf16 forms of these bodies (the bf16 calls the wgmma bodies do
+//     not take) run over bf16 tiles: a bf16
 //     value is a TF32 value exactly, so a product of two inputs is one TF32
 //     mma and one with P or dS two (small*big + big*big).
 //   * What bounds them: each warp splits every fp32 operand it reads and
@@ -698,6 +709,7 @@ constexpr int kWgCols = 64;  // bf16 columns of a TMA box: one 128-byte swizzled
 constexpr int kWgStages = 2;       // tiles of the other axis in the ring
 constexpr int kWgFwdKeys = 64;     // keys a forward tile
 constexpr int kWgDkvQueries = 64;  // queries a dK/dV tile
+constexpr int kWgDqKeys = 64;      // keys a dQ tile
 // who starts the copies: thread 0 (warp 0 for dK/dV) between its tiles, or
 // a warp of its own (true), which costs the dK/dV body half its blocks an
 // SM (registers are shared out by the SM's four quarters, whole warps each)
@@ -706,11 +718,12 @@ constexpr int kWgConsumers = 128 * kWgGroups;
 constexpr int kWgThreads = kWgConsumers + (kWgProducerWarp ? 32 : 0);
 constexpr float kLog2e = 1.4426950408889634f;
 // blocks an SM each body's register budget is set for at D <= 64 (shared
-// memory allows 5 forward and 4 dK/dV blocks there): dK/dV's 3 cap it at
-// 168 registers, where it would take 195 and fit 2; at D = 128 shared
-// memory allows 2 and the budget is left free
+// memory allows 5 forward, 4 dK/dV and 4 dQ blocks there): dK/dV's 3 cap
+// it at 168 registers, where it would take 195 and fit 2; at D = 128
+// shared memory allows 2 and the budget is left free
 constexpr int kWgFwdMinBlocks = 4;
 constexpr int kWgDkvMinBlocks = 3;
+constexpr int kWgDqMinBlocks = 4;
 
 // A tile of kR rows of kDP bf16 columns as TMA writes it: kDP / 64 blocks
 // of kR x 64, each row 128 bytes, swizzled (kR * 128 is a multiple of the
@@ -1153,6 +1166,191 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
   }
 }
 
+template <int kDP>
+size_t dq_wg_smem() {
+  // Q and dO of the block; the ring of K and V tiles; barriers (Q/dO,
+  // full and empty a stage); the block's lse and delta rows; 1024-byte room
+  return sizeof(bf16) *
+             (2 * kWgTile<kWgBlockRows, kDP> + 2 * kWgStages * kWgTile<kWgDqKeys, kDP>) +
+         sizeof(uint64_t) * (1 + 2 * kWgStages) + sizeof(float) * 2 * kWgBlockRows + 1024;
+}
+
+template <int kDP>
+__global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
+    flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dq, int Sq, int Sk, int H, int D, float scale,
+                           int causal) {
+  constexpr int kBK = kWgDqKeys;
+  constexpr int kNC = kDP / kWgCols;
+  constexpr int kKC = kBK / 64;  // 64-key blocks of a tile (the wgmma N of S and dP)
+  constexpr int kStage = 2 * kWgTile<kBK, kDP>;
+  static_assert(kWgConsumers == 2 * kWgBlockRows, "one lse or delta row a consumer thread");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(wg_smem(smem_raw));
+  bf16* dos = qs + kWgTile<kWgBlockRows, kDP>;
+  bf16* ring = dos + kWgTile<kWgBlockRows, kDP>;  // a stage: the K tile, then the V tile
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kWgStages * kStage);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kWgStages;
+  float* lses = reinterpret_cast<float*>(empty + kWgStages);  // [kWgBlockRows]
+  float* deltas = lses + kWgBlockRows;                        // [kWgBlockRows]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kWgBlockRows;
+  const int kv_end = causal ? min(Sk, q0 + kWgBlockRows) : Sk;
+  const int ntiles = (kv_end + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    // the producer's announcement of the Q and dO bytes, then one arrival
+    // a consumer thread once its lse or delta row lands
+    mbar_init(qbar, 1 + kWgConsumers);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWgGroups);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the copies of key tile it, once its stage is free
+  auto produce = [&](int it) {
+    const int s = it % kWgStages;
+    if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
+    bf16* kvt = ring + s * kStage;
+    mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+    wg_load_tile<kBK, kDP>(kvt, &tk, &full[s], b, h, it * kBK);
+    wg_load_tile<kBK, kDP>(kvt + kWgTile<kBK, kDP>, &tv, &full[s], b, h, it * kBK);
+  };
+  if (threadIdx.x == (kWgProducerWarp ? kWgConsumers : 0)) {
+    mbar_arrive_expect_tx(qbar, sizeof(bf16) * 2 * kWgTile<kWgBlockRows, kDP>);
+    wg_load_tile<kWgBlockRows, kDP>(qs, &tq, qbar, b, h, q0);
+    wg_load_tile<kWgBlockRows, kDP>(dos, &tdo, qbar, b, h, q0);
+    for (int it = 0; it < (kWgProducerWarp ? ntiles : min(ntiles, kWgStages - 1)); ++it)
+      produce(it);
+  }
+  if (threadIdx.x >= kWgConsumers) return;  // the producer warp is done
+
+  // the block's lse and delta rows (a column of a [B,S,H] tensor is no TMA
+  // box), one 4-byte cp.async a consumer thread, tracked by the Q/dO
+  // barrier; rows past Sq land as 0, and their Q and dO rows as zeros, so
+  // their dS is 0 (they are never stored)
+  {
+    const int i = threadIdx.x % kWgBlockRows;
+    const bool ok = q0 + i < Sq;
+    const int64_t at = ok ? (static_cast<int64_t>(b) * Sq + q0 + i) * H + h : 0;
+    if (threadIdx.x < kWgBlockRows)
+      cp_async4(&lses[i], lse + at, ok);
+    else
+      cp_async4(&deltas[i], delta + at, ok);
+    cp_async_mbar_arrive(qbar);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wg = warp / 4, qw = q0 + wg * kWgRows;  // this warpgroup's first query row
+  const int row0 = qw + (warp % 4) * 16 + g;       // this thread's query rows: row0, row0 + 8
+  const float scale2 = scale * kLog2e;
+  float acc[kNC][32];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  mbar_wait(qbar, 0);
+  // lse (times log2(e)) and delta of this thread's two rows
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = lses[row0 + 8 * r - q0] * kLog2e;
+    dlt[r] = deltas[row0 + 8 * r - q0];
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kWgStages;
+    if (!kWgProducerWarp) {
+      if (threadIdx.x == 0 && it + kWgStages - 1 < ntiles) produce(it + kWgStages - 1);
+      __syncwarp();
+    }
+    mbar_wait(&full[s], (it / kWgStages) & 1);
+    const bf16* kt = ring + s * kStage;
+    const bf16* vt = kt + kWgTile<kBK, kDP>;
+    const int k0 = it * kBK;
+    // a causal tile past this warpgroup's last row is all masked for it
+    if (!causal || k0 < qw + kWgRows) {
+      // S = Q K^T and dP = dO V^T, one exact product each
+      float sc[kKC][32], dp[kKC][32];
+#pragma unroll
+      for (int n = 0; n < kKC; ++n) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[n][i] = dp[n][i] = 0.f;
+        fence_acc(sc[n]);
+        fence_acc(dp[n]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int n = 0; n < kKC; ++n)
+#pragma unroll
+        for (int ks = 0; ks < kDP / 16; ++ks) {
+          wgmma_ss(sc[n], wg_desc_k<kWgBlockRows>(qs, wg * kWgRows, ks),
+                   wg_desc_k<kBK>(kt, 64 * n, ks));
+          wgmma_ss(dp[n], wg_desc_k<kWgBlockRows>(dos, wg * kWgRows, ks),
+                   wg_desc_k<kBK>(vt, 64 * n, ks));
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int n = 0; n < kKC; ++n) {
+        fence_acc(sc[n]);
+        fence_acc(dp[n]);
+      }
+
+      // dS = P o (dP - delta), P = exp(scale S - lse) = 2^(log2(e) (scale S
+      // - lse)), into sc; masked only in a tile that reaches past Sk or the
+      // diagonal; element i of sc[n] is row row0 + 8 ((i >> 1) & 1), key
+      // k0 + 64n + 8 (i >> 2) + 2t + (i & 1)
+      auto dscores = [&](auto masked) {
+#pragma unroll
+        for (int n = 0; n < kKC; ++n)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int r = (i >> 1) & 1, key = k0 + 64 * n + 8 * (i >> 2) + 2 * t + (i & 1);
+            const bool ok = !decltype(masked)::value ||
+                            (key < Sk && (!causal || key <= row0 + 8 * r));
+            const float p = ok ? exp2_approx(fmaf(sc[n][i], scale2, -lse2[r])) : 0.f;
+            sc[n][i] = p * (dp[n][i] - dlt[r]);
+          }
+      };
+      if (k0 + kBK <= Sk && (!causal || k0 + kBK - 1 <= qw))
+        dscores(std::false_type{});
+      else
+        dscores(std::true_type{});
+
+      // dQ += dS K (scaled at the store), dS in two bf16 halves (lo, then
+      // hi), K read MN-major from the tile S = Q K^T read K-major
+      uint32_t dh[kBK / 16][4], dl[kBK / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) wg_split_a(sc[ks / 4], ks, dh[ks], dl[ks]);
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) fence_acc(acc[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kNC; ++c)
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks) {
+          wgmma_rs(acc[c], dl[ks], wg_desc_mn<kBK>(kt, 16 * ks, c));
+          wgmma_rs(acc[c], dh[ks], wg_desc_mn<kBK>(kt, 16 * ks, c));
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) fence_acc(acc[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+  // dQ = scale * dS K (the TPU kernel scales at the end too)
+#pragma unroll
+  for (int c = 0; c < kNC; ++c) wg_store(dq, acc[c], c * kWgCols, scale, b, h, row0, Sq, H, D);
+}
+
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
@@ -1550,22 +1748,20 @@ int launch_tc(Kind kind, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Which body a call takes. The bf16 forward and dK/dV take the wgmma
+// Which body a call takes. The bf16 forward, dQ and dK/dV take the wgmma
 // bodies where their tensors suit TMA: 32 < D <= 128 with D % 8 == 0 (a
 // head's row is whole 16-byte chunks, and so is every stride of the
-// tensor map) and every tensor's base 16-byte aligned. Other calls at
-// D <= 128 keep the mma.sync bodies: the fp32 forms, bf16 dQ, and bf16
-// calls with D <= 32 (a 64-column tile would be mostly padding), D % 8 != 0
-// or a misaligned view. D > 128 runs on the CUDA cores.
+// tensor map) and the base of every tensor the kind reads or writes
+// 16-byte aligned (vector_rows). Other calls at D <= 128 keep the
+// mma.sync bodies: the fp32 forms, and bf16 calls with D <= 32 (a
+// 64-column tile would be mostly padding), D % 8 != 0 or a misaligned
+// view. D > 128 runs on the CUDA cores.
 enum class Body { kMmaSync = 0, kWgmma = 1, kCudaCores = 2 };
 
 Body body_of(bool bf16_form, Kind kind, const Args& a) {
   if (a.D > 128) return Body::kCudaCores;
-  if (!bf16_form || kind == Kind::kDq || a.D <= 32 || a.D % 8 != 0) return Body::kMmaSync;
-  const bool aligned = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-                       (kind == Kind::kFwd ? aligned16(a.o)
-                                           : aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv));
-  return aligned ? Body::kWgmma : Body::kMmaSync;
+  if (!bf16_form || a.D <= 32) return Body::kMmaSync;
+  return vector_rows<bf16>(a, kind) ? Body::kWgmma : Body::kMmaSync;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1615,24 +1811,37 @@ int tile_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, int
 // the bf16 wgmma bodies, head dims padded to 64 or 128
 template <int kDP>
 int launch_wg(Kind kind, const Args& a) {
-  static bool ready[2] = {false, false};
-  const bool fwd = kind == Kind::kFwd;
+  static bool ready[3] = {false, false, false};
+  // the rows of each tensor map's box: the block's own 64 rows, or a tile
+  // of the axis that streams through the ring
+  const int q_rows = kind == Kind::kDkv ? kWgDkvQueries : kWgBlockRows;
+  const int kv_rows = kind == Kind::kFwd  ? kWgFwdKeys
+                      : kind == Kind::kDq ? kWgDqKeys
+                                          : kWgBlockRows;
   CUtensorMap tq, tk, tv, tdo;
-  int rc = tile_map(&tq, a.q, a.B, a.Sq, a.H, a.D, fwd ? kWgBlockRows : kWgDkvQueries);
-  if (!rc) rc = tile_map(&tk, a.k, a.B, a.Sk, a.H, a.D, fwd ? kWgFwdKeys : kWgBlockRows);
-  if (!rc) rc = tile_map(&tv, a.v, a.B, a.Sk, a.H, a.D, fwd ? kWgFwdKeys : kWgBlockRows);
-  if (!rc && !fwd) rc = tile_map(&tdo, a.dout, a.B, a.Sq, a.H, a.D, kWgDkvQueries);
+  int rc = tile_map(&tq, a.q, a.B, a.Sq, a.H, a.D, q_rows);
+  if (!rc) rc = tile_map(&tk, a.k, a.B, a.Sk, a.H, a.D, kv_rows);
+  if (!rc) rc = tile_map(&tv, a.v, a.B, a.Sk, a.H, a.D, kv_rows);
+  if (!rc && kind != Kind::kFwd) rc = tile_map(&tdo, a.dout, a.B, a.Sq, a.H, a.D, q_rows);
   if (rc) return rc;
-  if (fwd) {
+  if (kind == Kind::kFwd) {
     const size_t smem = fwd_wg_smem<kDP>();
     rc = prepare(flash_fwd_wg_kernel<kDP>, smem, &ready[0]);
     if (rc) return rc;
     const dim3 grid((a.Sq + kWgBlockRows - 1) / kWgBlockRows, a.H, a.B);
     flash_fwd_wg_kernel<kDP><<<grid, kWgThreads, smem, a.stream>>>(
         tq, tk, tv, out<bf16>(a.o), a.lse, a.Sq, a.Sk, a.H, a.D, a.scale, a.causal);
+  } else if (kind == Kind::kDq) {
+    const size_t smem = dq_wg_smem<kDP>();
+    rc = prepare(flash_bwd_dq_wg_kernel<kDP>, smem, &ready[1]);
+    if (rc) return rc;
+    const dim3 grid((a.Sq + kWgBlockRows - 1) / kWgBlockRows, a.H, a.B);
+    flash_bwd_dq_wg_kernel<kDP><<<grid, kWgThreads, smem, a.stream>>>(
+        tq, tk, tv, tdo, a.lse_in, a.delta, out<bf16>(a.dq), a.Sq, a.Sk, a.H, a.D, a.scale,
+        a.causal);
   } else {
     const size_t smem = dkv_wg_smem<kDP>();
-    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[1]);
+    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[2]);
     if (rc) return rc;
     const dim3 grid((a.Sk + kWgBlockRows - 1) / kWgBlockRows, a.H, a.B);
     flash_bwd_dkv_wg_kernel<kDP><<<grid, kWgThreads, smem, a.stream>>>(
@@ -1767,13 +1976,17 @@ extern "C" int ff_flash_body(int bf16_form, int kind, const void* q, const void*
   return static_cast<int>(body_of(bf16_form != 0, kinds[kind], a));
 }
 
-// Blocks an SM holds of the bf16 wgmma forward (kind 0) or dK/dV (kind 2)
-// instance for head dim D (32 < D <= 128); -1 otherwise or on an error.
+// Blocks an SM holds of the bf16 wgmma forward (kind 0), dQ (kind 1) or
+// dK/dV (kind 2) instance for head dim D (32 < D <= 128); -1 otherwise or
+// on an error.
 extern "C" int ff_flash_wg_blocks_per_sm(int kind, int D) {
-  if (D <= 32 || D > 128 || (kind != 0 && kind != 2)) return -1;
+  if (D <= 32 || D > 128 || kind < 0 || kind > 2) return -1;
   if (kind == 0)
     return D <= 64 ? blocks_per_sm(flash_fwd_wg_kernel<64>, fwd_wg_smem<64>())
                    : blocks_per_sm(flash_fwd_wg_kernel<128>, fwd_wg_smem<128>());
+  if (kind == 1)
+    return D <= 64 ? blocks_per_sm(flash_bwd_dq_wg_kernel<64>, dq_wg_smem<64>())
+                   : blocks_per_sm(flash_bwd_dq_wg_kernel<128>, dq_wg_smem<128>());
   return D <= 64 ? blocks_per_sm(flash_bwd_dkv_wg_kernel<64>, dkv_wg_smem<64>())
                  : blocks_per_sm(flash_bwd_dkv_wg_kernel<128>, dkv_wg_smem<128>());
 }

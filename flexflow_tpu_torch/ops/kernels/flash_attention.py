@@ -19,14 +19,15 @@ Two lowerings, chosen by where the tensors lie (or by ``backend``):
   to the plain version. Each kernel has up to three bodies, chosen by
   the library per call (:func:`kernel_body`):
 
-  - ``"wgmma"``: the bf16 forward and dK/dV where the tensors suit TMA
-    copies — 32 < D <= 128, D a multiple of 8 and every tensor's base
-    16-byte aligned: warpgroup bf16 ``wgmma`` products fed by TMA, the
-    computed operand (P, dS) in two bf16 halves;
+  - ``"wgmma"``: the bf16 forward, dQ and dK/dV where the tensors suit
+    TMA copies — 32 < D <= 128, D a multiple of 8 and the base of every
+    tensor the kernel reads or writes 16-byte aligned: warpgroup bf16
+    ``wgmma`` products fed by TMA, the computed operand (P, dS) in two
+    bf16 halves;
   - ``"mma_sync"``: every other call at D <= 128 — the fp32 forms
-    (3xTF32 ``mma.sync``), bf16 dQ, and bf16 forward and dK/dV calls with
-    D <= 32, D % 8 != 0 or a misaligned view (one TF32 product for two
-    bf16 operands, two for a computed one);
+    (3xTF32 ``mma.sync``), and bf16 calls with D <= 32, D % 8 != 0 or a
+    misaligned view (one TF32 product for two bf16 operands, two for a
+    computed one);
   - ``"cuda_cores"``: D > 128.
 
 The per-row logsumexp and ``delta = rowsum(dO * O)`` are [B, Sq, H] fp32,

@@ -14,7 +14,8 @@ ms a call, a CUDA graph of 16 calls over 3 copies of the inputs (past the
 50 MB L2) replayed between CUDA events, in two rounds (forward order,
 then reverse), beside the unchanged source. The ``wg_`` variants change
 the bf16 wgmma bodies (warpgroups a block, blocks an SM, ring depth, tile
-of the other axis, who starts the copies, the accurate exp2), the others
+of the other axis, who starts the copies, the accurate exp2, how dQ reads
+its lse and delta rows), the others
 the mma.sync bodies. Each variant is also held against the plain
 versions; the ``probe``
 variants give wrong results on purpose (they measure what a part of the
@@ -74,6 +75,8 @@ WG_DKV_END = "        fence_acc(dk_acc[c]);\n      }\n    }\n    __syncwarp();\n
 WG_DKV_RS_LO = ("          wgmma_rs(dv_acc[c], pl[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));\n"
                 "          wgmma_rs(dv_acc[c], ph[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));\n"
                 "          wgmma_rs(dk_acc[c], dl[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));\n")
+WG_DQ_PRODUCTS = "      // S = Q K^T and dP = dO V^T, one exact product each\n"
+WG_DQ_END = "      for (int c = 0; c < kNC; ++c) fence_acc(acc[c]);\n    }\n    __syncwarp();\n"
 WG_CUT_END = "    }\n    __syncwarp();\n"
 # the TMA copies of the wgmma bodies, which the "no copies" probes replace
 # by a bare arrival (the products then read whatever shared memory holds)
@@ -91,6 +94,40 @@ WG_DKV_TILE_COPY = """      mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStag
 WG_DKV_KV_COPY = """      mbar_arrive_expect_tx(kvbar, sizeof(bf16) * 2 * kWgTile<kWgBlockRows, kDP>);
       wg_load_tile<kWgBlockRows, kDP>(ks, &tk, kvbar, b, h, k0);
       wg_load_tile<kWgBlockRows, kDP>(vs, &tv, kvbar, b, h, k0);
+"""
+WG_DQ_TILE_COPY = """    mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+    wg_load_tile<kBK, kDP>(kvt, &tk, &full[s], b, h, it * kBK);
+    wg_load_tile<kBK, kDP>(kvt + kWgTile<kBK, kDP>, &tv, &full[s], b, h, it * kBK);
+"""
+WG_DQ_QDO_COPY = """    mbar_arrive_expect_tx(qbar, sizeof(bf16) * 2 * kWgTile<kWgBlockRows, kDP>);
+    wg_load_tile<kWgBlockRows, kDP>(qs, &tq, qbar, b, h, q0);
+    wg_load_tile<kWgBlockRows, kDP>(dos, &tdo, qbar, b, h, q0);
+"""
+# dQ's lse and delta rows read by each thread into registers before it
+# waits for Q and dO, instead of by cp.async into shared memory tracked by
+# that barrier (each consumer thread still arrives on it once)
+WG_DQ_ROWS = ("  {\n    const int i = threadIdx.x % kWgBlockRows;\n",
+              "    dlt[r] = deltas[row0 + 8 * r - q0];\n  }\n")
+WG_DQ_ROWS_IN_REGISTERS = """  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warp / 4, qw = q0 + wg * kWgRows;
+  const int row0 = qw + (warp % 4) * 16 + g;
+  const float scale2 = scale * kLog2e;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int sr = row0 + 8 * r;
+    const int64_t at = (static_cast<int64_t>(b) * Sq + min(sr, Sq - 1)) * H + h;
+    lse2[r] = sr < Sq ? lse[at] * kLog2e : 0.f;
+    dlt[r] = sr < Sq ? delta[at] : 0.f;
+  }
+  mbar_arrive(qbar);
+  float acc[kNC][32];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  mbar_wait(qbar, 0);
 """
 FLASH = "flash_attention.cu"
 COMMON = "common.cuh"  # the TF32 split, fragments and mma helpers
@@ -132,6 +169,11 @@ VARIANTS = {
                              "constexpr int kWgFwdMinBlocks = 5;")],
     "wg_dkv_min_blocks_2": [(FLASH, "constexpr int kWgDkvMinBlocks = 3;",
                              "constexpr int kWgDkvMinBlocks = 2;")],
+    "wg_dq_min_blocks_3": [(FLASH, "constexpr int kWgDqMinBlocks = 4;",
+                            "constexpr int kWgDqMinBlocks = 3;")],
+    "wg_dq_key_tile_128": [(FLASH, "constexpr int kWgDqKeys = 64;",
+                            "constexpr int kWgDqKeys = 128;")],
+    "wg_dq_rows_in_registers": [(FLASH, WG_DQ_ROWS, WG_DQ_ROWS_IN_REGISTERS)],
     "wg_l2_promotion_256": [(FLASH, "CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
                              "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")],
     "wg_prefetch_maps": [
@@ -154,10 +196,14 @@ VARIANTS = {
          "    cudaFuncSetAttribute(flash_fwd_wg_kernel<kDP>,\n"
          "                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
          "    rc = prepare(flash_fwd_wg_kernel<kDP>, smem, &ready[0]);"),
-        (FLASH, "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[1]);",
+        (FLASH, "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[2]);",
          "    cudaFuncSetAttribute(flash_bwd_dkv_wg_kernel<kDP>,\n"
          "                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
-         "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[1]);")],
+         "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[2]);"),
+        (FLASH, "    rc = prepare(flash_bwd_dq_wg_kernel<kDP>, smem, &ready[1]);",
+         "    cudaFuncSetAttribute(flash_bwd_dq_wg_kernel<kDP>,\n"
+         "                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
+         "    rc = prepare(flash_bwd_dq_wg_kernel<kDP>, smem, &ready[1]);")],
     # parts of the wgmma bodies left out (wrong results: what each part costs)
     "wg_probe_fwd_copies_only": [(FLASH, (WG_FWD_PRODUCTS, WG_FWD_END), WG_CUT_END)],
     "wg_probe_fwd_no_pv": [(FLASH, (WG_FWD_PV, WG_FWD_END), WG_CUT_END)],
@@ -169,6 +215,9 @@ VARIANTS = {
     "wg_probe_dkv_no_copies": [(FLASH, WG_DKV_TILE_COPY, "      mbar_arrive(&full[s]);\n"),
                                (FLASH, WG_DKV_KV_COPY, "      mbar_arrive(kvbar);\n")],
     "wg_probe_dkv_rs_hi_only": [(FLASH, WG_DKV_RS_LO, WG_DKV_RS_LO.splitlines(True)[1])],
+    "wg_probe_dq_copies_only": [(FLASH, (WG_DQ_PRODUCTS, WG_DQ_END), WG_CUT_END)],
+    "wg_probe_dq_no_copies": [(FLASH, WG_DQ_TILE_COPY, "    mbar_arrive(&full[s]);\n"),
+                              (FLASH, WG_DQ_QDO_COPY, "    mbar_arrive(qbar);\n")],
 }
 
 WGMMA_PEAK_CU = r"""
@@ -274,7 +323,7 @@ def variant_sources(main: str, variants) -> dict:
     ``common.cuh`` it includes as ``"source"``, and a copy of both per
     variant with each (file, old, new) substitution made in the file it
     names; an ``old`` of two texts replaces everything from the first
-    through the second. Raises where a text is not in its source, so a
+    through the next occurrence of the second. Raises where a text is not in its source, so a
     variant cannot silently patch nothing."""
     from flexflow_tpu_torch.ops.kernels import _build
 
@@ -286,9 +335,10 @@ def variant_sources(main: str, variants) -> dict:
         for file, old, new in subs:
             text = files[file]
             if isinstance(old, tuple):
-                if old[0] not in text or old[1] not in text:
+                start = text.find(old[0])
+                if start < 0 or old[1] not in text[start:]:
                     raise RuntimeError(f"{name}: {old[0][:60]!r} ... is not in {file}")
-                start, end = text.index(old[0]), text.index(old[1]) + len(old[1])
+                end = text.index(old[1], start) + len(old[1])
                 files[file] = text[:start] + new + text[end:]
                 continue
             if old not in text:
@@ -370,12 +420,14 @@ def variants(names=()) -> int:
         libs[name] = lib
         lib.ff_flash_wg_blocks_per_sm.argtypes = _build.SIGNATURES["ff_flash_wg_blocks_per_sm"]
         print(f"{name}: blocks an SM of the bf16 wgmma fwd<64> "
-              f"{lib.ff_flash_wg_blocks_per_sm(0, 64)}, dkv<64> "
+              f"{lib.ff_flash_wg_blocks_per_sm(0, 64)}, dq<64> "
+              f"{lib.ff_flash_wg_blocks_per_sm(1, 64)}, dkv<64> "
               f"{lib.ff_flash_wg_blocks_per_sm(2, 64)}; "
               f"registers fwd<64> {_registers(log, 'flash_fwd_tc_kernelILi64EfE')}, "
               f"dq<64> {_registers(log, 'flash_bwd_dq_tc_kernelILi64EfE')}, "
               f"dkv<64> {_registers(log, 'flash_bwd_dkv_tc_kernelILi64EfE')}; bf16 wgmma "
               f"fwd<64> {_registers(log, 'flash_fwd_wg_kernelILi64EE')}, "
+              f"dq<64> {_registers(log, 'flash_bwd_dq_wg_kernelILi64EE')}, "
               f"dkv<64> {_registers(log, 'flash_bwd_dkv_wg_kernelILi64EE')}")
 
     def form_of(q):

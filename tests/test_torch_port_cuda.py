@@ -600,11 +600,11 @@ def test_cuda_bf16_kernels_match_plain_versions(cuda, sq, sk, d, causal):
     (160, False, "cuda_cores"),
 ])
 def test_cuda_bf16_launches_are_counted_by_body(cuda, d, misaligned, body):
-    """The bf16 forward and dK/dV take the wgmma bodies where TMA takes the
-    tensors (32 < D <= 128, D % 8 == 0, 16-byte-aligned bases), else the
-    mma.sync bodies (D > 128: the CUDA cores); dQ keeps mma.sync. Each
-    launch is counted under the body the library reports, and every body
-    matches the plain versions."""
+    """The bf16 forward, dQ and dK/dV take the wgmma bodies where TMA
+    takes the tensors (32 < D <= 128, D % 8 == 0, 16-byte-aligned bases),
+    else the mma.sync bodies (D > 128: the CUDA cores). Each launch is
+    counted under the body the library reports, and every body matches
+    the plain versions."""
     gen = torch.Generator().manual_seed(d)
     tensors = []
     for _ in range(4):
@@ -620,15 +620,42 @@ def test_cuda_bf16_launches_are_counted_by_body(cuda, d, misaligned, body):
     po, plse = fa.reference_flash_forward(q, k, v, True, scale)
     delta = fa.flash_delta(do, po)
     dk, dv = fa.flash_backward_dkv_kernel(q, k, v, do, plse, delta, True, scale)
-    fa.flash_backward_dq_kernel(q, k, v, do, plse, delta, True, scale)
-    pdk, pdv = fa.reference_flash_backward_dkv(q, k, v, do, plse, delta, True, scale)
-    for name, got, want in (("o", o, po), ("dk", dk, pdk), ("dv", dv, pdv)):
+    dq = fa.flash_backward_dq_kernel(q, k, v, do, plse, delta, True, scale)
+    pdq, pdk, pdv = fa.reference_flash_backward(q, k, v, do, plse, delta, True, scale)
+    for name, got, want in (("o", o, po), ("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
         _bf16_close(name, got, want)
     torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-4)
-    dq_body = "cuda_cores" if d > 128 else "mma_sync"
     assert {key: n for key, n in fa.LAUNCHES_BY_BODY.items() if n} == {
         f"flash_fwd_bf16 {body}": 1, f"flash_bwd_dkv_bf16 {body}": 1,
-        f"flash_bwd_dq_bf16 {dq_body}": 1}
+        f"flash_bwd_dq_bf16 {body}": 1}
+
+
+def test_cuda_bf16_dq_into_a_misaligned_output_alone_keeps_mma_sync(cuda):
+    """The dQ body rule checks dq's own alignment: with q, k, v and dO
+    aligned, a dq 2 bytes past a 16-byte boundary (paired bf16 stores
+    could not take it) sends the call to the mma.sync body, which writes
+    it and matches the plain version; the aligned output takes wgmma."""
+    from flexflow_tpu_torch.ops.kernels._build import load_library
+
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, do = (torch.randn(2, 96, 3, 64, generator=gen).to(cuda, torch.bfloat16)
+                   for _ in range(4))
+    scale = 64 ** -0.5
+    po, plse = fa.reference_flash_forward(q, k, v, True, scale)
+    delta = fa.flash_delta(do, po)
+    want = fa.reference_flash_backward_dq(q, k, v, do, plse, delta, True, scale)
+    buf = torch.full((q.numel() + 8,), float("nan"), dtype=torch.bfloat16, device=cuda)
+    dq = buf[1:1 + q.numel()].view(q.shape)
+    assert dq.data_ptr() % 16 == 2
+    assert fa.kernel_body("flash_bwd_dq", q, k, v, do, torch.empty_like(q)) == "wgmma"
+    assert fa.kernel_body("flash_bwd_dq", q, k, v, do, dq) == "mma_sync"
+    b, s, h, d = q.shape
+    rc = load_library().ff_flash_bwd_dq_bf16(
+        *(t.data_ptr() for t in (q, k, v, do, plse, delta)), dq.data_ptr(), b, s, s, h, d,
+        scale, 1, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    _bf16_close("dq", dq, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

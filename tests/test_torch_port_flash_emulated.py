@@ -8,12 +8,13 @@ mbarriers, TMA tile loads (zero fill, the 128-byte swizzle) and bf16
 register A) emulated, ``mma.sync`` TF32 as for the paged kernel, shared
 memory starting as NaN bits. Its exported launches then run on CPU
 tensors and are held against the port's plain versions,
-``reference_flash_forward`` and ``reference_flash_backward_dkv``, at the
-card's gates: bf16 outputs within one bf16 ulp of the plain value +
-1e-3 (``chip_smoke.py::check_bf16``), the fp32 logsumexp within atol
-1e-4 + rtol 1e-4.
+``reference_flash_forward``, ``reference_flash_backward_dq`` and
+``reference_flash_backward_dkv``, at the card's gates: bf16 outputs
+within one bf16 ulp of the plain value + 1e-3
+(``chip_smoke.py::check_bf16``), the fp32 logsumexp within atol 1e-4 +
+rtol 1e-4.
 
-The bf16 forward and dK/dV take the wgmma bodies (``ff_flash_body``
+The bf16 forward, dQ and dK/dV take the wgmma bodies (``ff_flash_body``
 says which body a call takes) at causal and non-causal shapes, a ragged
 S, Sq != Sk, D = 64 and 128, padded head dims (40, 96), and sequences of
 several ring wraps; the kept mma.sync bodies (D <= 32, D % 8 != 0, a
@@ -103,6 +104,14 @@ def _check(lib, b, sq, sk, h, d, causal, dtype=torch.bfloat16, body="wgmma", mis
     _close("dk", dk, pdk)
     _close("dv", dv, pdv)
 
+    dq = torch.full_like(q, float("nan"))
+    assert _body(lib, "dq", dtype, q, k, v, do, dq, None, d=d) == body
+    rc = getattr(lib, f"ff_flash_bwd_dq_{form}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), plse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, sq, sk, h, d, scale, int(causal), None)
+    assert rc == 0
+    _close("dq", dq, fa.reference_flash_backward_dq(q, k, v, do, plse, delta, causal, scale))
+
 
 @pytest.mark.parametrize("b,sq,sk,h,d,causal", [
     (1, 128, 128, 2, 64, False),  # the training shape's sequence and head dim
@@ -131,7 +140,7 @@ def test_kept_mma_sync_bodies_match_plain(lib, b, sq, sk, h, d, causal, dtype, m
 
 def test_body_rule(lib):
     """The library's choice of body by head dim, kind and form: bf16
-    forward and dK/dV at 32 < D <= 128, D % 8 == 0 take wgmma; dQ and the
+    forward, dQ and dK/dV at 32 < D <= 128, D % 8 == 0 take wgmma; the
     fp32 forms keep mma.sync; D > 128 runs on the CUDA cores."""
     q, k, v, do = _inputs(1, 8, 8, 1, 8, torch.bfloat16)
     got = {(kind, bf16, d): fa.BODIES[lib.ff_flash_body(bf16, KINDS[kind], q.data_ptr(),
@@ -142,7 +151,7 @@ def test_body_rule(lib):
     for (kind, bf16, d), body in got.items():
         if d > 128:
             want = "cuda_cores"
-        elif bf16 and kind != "dq" and d > 32 and d % 8 == 0:
+        elif bf16 and d > 32 and d % 8 == 0:
             want = "wgmma"
         else:
             want = "mma_sync"
