@@ -10,8 +10,9 @@ prints no result line):
    build the CUDA kernels from ``flexflow_tpu_torch/ops/kernels/csrc``,
    and the built flash library's SASS (cuobjdump), which must hold
    tensor-core HMMA instructions in every instance of the forward, dQ
-   and dK/dV tensor-core kernels, and the CUDA-core dQ only for head
-   dims above 128; and the paged library's, which must hold HMMA in
+   and dK/dV tensor-core kernels (fp32, bf16, fp16) and HGMMA in every
+   instance of their bf16 and fp16 wgmma bodies, and the CUDA-core dQ
+   only for head dims above 128; and the paged library's, which must hold HMMA in
    every instance of the paged kernel's tensor-core body (3 cache forms
    x single-pass and split x 3 head-dim pads) and none in its CUDA-core
    body.
@@ -147,31 +148,37 @@ prints no result line):
    profiler runs only after the timed phases: once started, it slows the
    host's later launches.
 12. flash kernels: the flash-attention forward, dQ and dK/dV kernels,
-   float32 and bf16 forms, against their plain PyTorch versions (fp32:
-   atol 1e-4 + rtol 1e-4; bf16: within one bf16 ulp of the plain value
-   plus 1e-3, the logsumexp at the fp32 gate) at the training path's
-   shape (B=32, S=128, H=12, D=64) and at a causal S=512 shape and edge
-   shapes (S=100 D=128, Sq=64 Sk=200, D=256, S=1, S=65 plain and causal,
-   D=8, D=300 and D=512; bf16 at D=33, Sq != Sk, D=256 and D=512), and
-   multihead attention's core with v's head dim other than q's (the
-   kernels on zero-padded head dims, both forms, forward and gradients);
+   float32, bf16 and fp16 forms, against their plain PyTorch versions
+   (fp32: atol 1e-4 + rtol 1e-4; bf16 and fp16: within one ulp of the
+   type at the plain value plus 1e-3, the logsumexp at the fp32 gate) at
+   the training path's shape (B=32, S=128, H=12, D=64) and at a causal
+   S=512 shape and edge shapes (S=100 D=128, Sq=64 Sk=200, D=256, S=1,
+   S=65 plain and causal, D=8, D=300 and D=512; bf16 at D=33, Sq != Sk,
+   D=256 and D=512; fp16 at a sample of those), fp16 where its range
+   matters (most of P below 2^-14, |dS| past 65504, dS of order 1e-6;
+   gated at one ulp + 1e-3 of each output's largest |value|),
+   and multihead attention's core with v's head dim other than q's (the
+   kernels on zero-padded head dims, all forms, forward and gradients);
    then device times of kernel, plain version and the library yardstick
    (scaled_dot_product_attention forward, and its backward: its kernels'
    durations by torch.profiler) in the same dtype, beside the card's
    bound (fp32: fp32-accurate products on the tensor cores, and the same
-   operations on the fp32 CUDA cores; bf16: 2-byte tensors, the dense
-   bf16 rate).
+   operations on the fp32 CUDA cores; bf16 and fp16: 2-byte tensors,
+   the dense bf16 / fp16 rate).
 13. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
    seq 128, batch 32, weights from --seed) through FFModel -> compile
    (SGD lr 0.01, MSE) -> fit, first in fp32, then bf16 (``bench.py``'s
-   cell: bf16 parameters and activations): one step with the kernels and
+   cell: bf16 parameters and activations), then fp16 (DataType.HALF: no
+   master weights and no loss scaling, as in the JAX package): one step
+   with the kernels and
    one with the plain attention from the same weights must agree (fp32:
    loss rtol 1e-5, parameters within 1e-3 of the step's largest update;
-   bf16: loss rtol 2^-8, each parameter within 2 bf16 ulps plus 1/8 of
-   its tensor's update), and every bf16 parameter must stay bf16; then
-   warm-up and 10 timed steps on one random batch, where each flash
-   launch counter of the cell's form must rise by 12 per step and the
-   other form's stay 0, and the loss must fall; and a profiled pair of
+   bf16 and fp16: loss rtol 2^-8 and 2^-11, each parameter within 2 ulps
+   of the type plus 1/8 of its tensor's update), and every parameter
+   must keep its type; then warm-up and 10 timed steps on one random
+   batch, where each flash launch counter of the cell's form must rise
+   by 12 per step, all on the wgmma bodies for bf16 and fp16, and the
+   other forms' stay 0, and the loss must fall; and a profiled pair of
    steps for the device's busy share and the device time by kernel group
    (the flash kernels, cuBLAS GEMMs, elementwise and other).
 
@@ -194,7 +201,7 @@ import time
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
 H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12  # dense bf16 (and fp16) on the tensor cores, H100 SXM data sheet
 TF32_PRODUCTS = 3  # TF32 products per fp32-accurate product (3xTF32 split)
 ATOL = 1e-4
 RTOL = 1e-4
@@ -205,17 +212,24 @@ LOSS_RTOL = 1e-5  # train-step loss, kernel vs plain attention
 # parameters after one SGD step, kernel vs plain attention: within this
 # share of the largest update the step made (fp32 summation order only)
 PARAM_STEP_RTOL = 1e-3
-# bf16 outputs of a kernel against its plain version: within one bf16
-# unit in the last place of the plain value plus this (both sum in fp32,
-# in other orders, and round once to bf16)
-BF16_ATOL = 1e-3
-# the bf16 training step, kernel vs plain attention: the loss within bf16's
-# unit roundoff (2^-8) relative; each parameter within 2 bf16 ulps (the
-# update is rounded once to bf16, and the two float32 results may straddle
-# a rounding boundary) plus this share of the step's largest update (a
-# gradient summed over 4096 rows of bf16 values rounded in other places)
-BF16_LOSS_RTOL = 2.0 ** -8
-BF16_PARAM_SHARE = 1 / 8
+# bf16 or fp16 outputs of a kernel against its plain version: within one
+# unit in the last place of the type at the plain value plus this (both
+# sum in fp32, in other orders, and round once to the type)
+HALF_ATOL = 1e-3
+# the fp16 range cases (check_fp16_range): in place of HALF_ATOL, this
+# share of the output's largest |plain value| (about one ulp there), since
+# HALF_ATOL would pass outputs of order 1e-6 whatever they held
+HALF_RANGE_SHARE = 1e-3
+# the 2-byte types: (stored mantissa bits, exponent of the smallest normal)
+HALF_BITS = {"bfloat16": (7, -126), "float16": (10, -14)}
+# the bf16 and fp16 training steps, kernel vs plain attention: the loss
+# within the type's unit roundoff (2^-8, 2^-11) relative; each parameter
+# within 2 ulps of the type (the update is rounded once, and the two
+# float32 results may straddle a rounding boundary) plus this share of the
+# step's largest update (a gradient summed over 4096 rows of 2-byte values
+# rounded in other places)
+HALF_LOSS_RTOL = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+HALF_PARAM_SHARE = 1 / 8
 
 
 def card_line() -> str:
@@ -287,29 +301,45 @@ def check_close(name: str, got, want) -> float:
     return float(err.max())
 
 
-def bf16_ulp(x):
-    """The spacing of bf16 values at |x| (8 significant bits), as float32."""
+def half_ulp(x, dtype):
+    """The spacing of ``dtype`` (bfloat16 or float16) values at |x|, no
+    finer than at the type's smallest normal (fp16's subnormals are
+    spaced 2^-24), as float32."""
     import torch
 
-    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))) - 7)
+    bits, low = HALF_BITS[str(dtype)[6:]]
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))).clamp_min(low)
+                      - bits)
 
 
-def check_bf16(name: str, got, want) -> float:
-    """bf16 ``got`` against the plain bf16 ``want``: within one bf16 ulp
-    of the plain value plus BF16_ATOL. Returns the max abs error."""
+def check_half(name: str, got, want, atol: float = HALF_ATOL) -> float:
+    """bf16 or fp16 ``got`` against the plain ``want`` of the same type:
+    within one ulp of the type at the plain value plus ``atol``.
+    Returns the max abs error."""
     import torch
 
-    if got.shape != want.shape or got.dtype != want.dtype or got.dtype != torch.bfloat16:
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or got.dtype not in (torch.bfloat16, torch.float16)):
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs plain "
                              f"{want.dtype} {tuple(want.shape)}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite output")
     err = (got.float() - want.float()).abs()
-    bad = err > bf16_ulp(want) + BF16_ATOL
+    bad = err > half_ulp(want, got.dtype) + atol
     if bad.any():
-        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond 1 bf16 ulp + {BF16_ATOL}; "
+        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond 1 ulp + {atol:.3g}; "
                              f"max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def range_atol(want) -> float:
+    """check_half's ``atol`` for an fp16 range case: HALF_RANGE_SHARE of
+    the largest |plain value|."""
+    return HALF_RANGE_SHARE * float(want.float().abs().max())
+
+
+# a flash kernel form's launch-count suffix by input dtype name
+FLASH_FORMS = {"float32": "", "bfloat16": "_bf16", "float16": "_f16"}
 
 
 def paged_inputs(gen, num_blocks, bs, heads, head_dim, tables_np, qpos_np, copies,
@@ -2602,19 +2632,20 @@ def server_phase(seed: int, params) -> dict:
 
 
 def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool,
-                bf16: bool = False):
+                two_byte: bool = False):
     """(bound_ms, bound_by, fp32_cuda_core_ms) of one flash kernel call:
     each input read once and each output written once over the card's
     memory rate, against the multiply-adds the kernel does on the
     unmasked (query, key) pairs (2 flops each: QK and PV forward; QK,
     dO.V and dS.K for dQ; QK, dO.V, P^T dO and dS^T Q for dK/dV) taken
     to fp32 accuracy on the tensor cores, three TF32 products each at
-    the dense TF32 rate (datasheet figures); for the bf16 form, 2-byte
-    q, k, v, o, dO and gradients (lse and delta stay 4) and the same
-    operations at the dense bf16 rate. fp32_cuda_core_ms is the larger
+    the dense TF32 rate (datasheet figures); for the bf16 and fp16 forms,
+    2-byte q, k, v, o, dO and gradients (lse and delta stay 4) and the
+    same operations at the dense bf16 / fp16 rate (the same 989 TFLOP/s).
+    fp32_cuda_core_ms is the larger
     of the byte time and those operations at the fp32 CUDA-core rate."""
     pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
-    e = 2 if bf16 else 4  # bytes an element of q, k, v, o, dO, dq, dk, dv
+    e = 2 if two_byte else 4  # bytes an element of q, k, v, o, dO, dq, dk, dv
     q_elems, kv_elems, rows = b * sq * h * d, b * sk * h * d, b * sq * h
     if kind == "fwd":
         flops = 2 * 2 * d * pairs
@@ -2626,7 +2657,7 @@ def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: boo
         flops = 4 * 2 * d * pairs
         nbytes = e * (2 * q_elems + 4 * kv_elems) + 8 * rows  # q, dO; k, v, dk, dv; lse, delta
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = (flops / H100_BF16_FLOPS if bf16 else TF32_PRODUCTS * flops / H100_TF32_FLOPS) * 1e3
+    t_ops = (flops / H100_BF16_FLOPS if two_byte else TF32_PRODUCTS * flops / H100_TF32_FLOPS) * 1e3
     fp32_ms = max(t_bytes, flops / H100_FP32_FLOPS * 1e3)
     return (t_bytes, "bytes", fp32_ms) if t_bytes >= t_ops else (t_ops, "operations", fp32_ms)
 
@@ -2660,23 +2691,24 @@ def library_sass(source: str) -> str:
 def tensor_core_check() -> dict:
     """The built flash library's SASS (cuobjdump -sass) must hold
     tensor-core HMMA instructions (mma.sync) in every instance of the
-    forward, dQ and dK/dV mma.sync kernels, float32 and bf16 forms (the
-    bf16 forms are the body the wgmma bodies leave calls to), and
+    forward, dQ and dK/dV mma.sync kernels, float32, bf16 and fp16 forms
+    (the 2-byte forms are the body the wgmma bodies leave calls to), and
     warpgroup GMMA instructions (HGMMA, wgmma) in every instance of the
-    bf16 wgmma forward, dQ and dK/dV (head dims padded to 64 and 128); the
-    CUDA-core dQ must exist only for head dims above 128 (5..8, 12 and 16
-    columns of 32) in both forms; the paged library's, in every instance
+    bf16 and fp16 wgmma forward, dQ and dK/dV (head dims padded to 64 and
+    128); the CUDA-core dQ must exist only for head dims above 128 (5..8,
+    12 and 16 columns of 32) in all three forms; the paged library's, in every instance
     of the tensor-core body (fp32, bf16 and fp16 caches, single-pass and
     split, head dims padded to 32, 64 and 128). Raises otherwise. Returns
-    ({kernel<head-dim pad,form>: HMMA count}, {wgmma kernel<pad>: HGMMA
-    count})."""
+    ({kernel<head-dim pad,form>: HMMA count}, {wgmma kernel<pad,form>:
+    HGMMA count})."""
     paged_tensor_core_check()
     sass = library_sass("flash_attention.cu")
     counts, name = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : .*?(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)?E", line)
+        m = re.search(r"Function : .*?(flash_[a-z_]+_kernel)ILi(\d+)E(f|13__nv_bfloat16|6__half)E",
+                      line)
         if m:
-            form = {"f": ",f32", "13__nv_bfloat16": ",bf16", None: ""}[m.group(3)]
+            form = {"f": ",f32", "13__nv_bfloat16": ",bf16", "6__half": ",f16"}[m.group(3)]
             name = f"{m.group(1)}<{m.group(2)}{form}>"
             counts[name] = {"HMMA": 0, "HGMMA": 0}
         elif "Function : " in line:
@@ -2688,19 +2720,21 @@ def tensor_core_check() -> dict:
     found = {}
     for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
         inst = {n: c["HMMA"] for n, c in counts.items() if n.startswith(kernel + "<")}
-        if len(inst) != 8 or not all(inst.values()):
-            raise AssertionError(f"{kernel}: expected HMMA in 4 head dims x 2 forms, got "
+        if len(inst) != 12 or not all(inst.values()):
+            raise AssertionError(f"{kernel}: expected HMMA in 4 head dims x 3 forms, got "
                                  f"{inst or 'none in the built library'}")
         found.update(inst)
     wgmma = {}
     for kernel in ("flash_fwd_wg_kernel", "flash_bwd_dq_wg_kernel", "flash_bwd_dkv_wg_kernel"):
         inst = {n: c["HGMMA"] for n, c in counts.items() if n.startswith(kernel + "<")}
-        if sorted(inst) != [f"{kernel}<128>", f"{kernel}<64>"] or not all(inst.values()):
-            raise AssertionError(f"{kernel}: expected HGMMA in head dims 64 and 128, got "
+        want = sorted(f"{kernel}<{d},{f}>" for d in (64, 128) for f in ("bf16", "f16"))
+        if sorted(inst) != want or not all(inst.values()):
+            raise AssertionError(f"{kernel}: expected HGMMA in head dims 64 and 128, bf16 "
+                                 f"and fp16, got "
                                  f"{inst or 'none in the built library'}")
         wgmma.update(inst)
     simt_dq = sorted(n[n.index("<") + 1:-1] for n in counts if n.startswith("flash_bwd_dq_kernel<"))
-    want = sorted(f"{c},{f}" for c in (5, 6, 7, 8, 12, 16) for f in ("f32", "bf16"))
+    want = sorted(f"{c},{f}" for c in (5, 6, 7, 8, 12, 16) for f in ("f32", "bf16", "f16"))
     if simt_dq != want:
         raise AssertionError(f"CUDA-core dQ instances {simt_dq}: expected only D > 128 ({want})")
     return found, wgmma
@@ -2792,11 +2826,12 @@ def flash_inputs(gen, b, sq, sk, h, d, causal, scale, copies=1, dtype=None):
     return sets
 
 
-def check_flash(name, sets, causal, scale, body=None):
+def check_flash(name, sets, causal, scale, body=None, range_case=False):
     """The three kernels against their plain versions on the first set,
-    at the fp32 gate or, for bf16 inputs, the bf16 gate (the logsumexp,
-    fp32 in both forms, at the fp32 gate). ``body``: the body
+    at the fp32 gate or, for bf16 and fp16 inputs, check_half's gate (the
+    logsumexp, fp32 in every form, at the fp32 gate). ``body``: the body
     (``fa.BODIES``) the forward, dQ and dK/dV launches must have taken.
+    ``range_case``: check_half's ``atol`` is range_atol of each output.
     Returns ({kernel: max abs err}, {kernel: body taken}), keyed as the
     launch counts are."""
     import torch
@@ -2804,8 +2839,12 @@ def check_flash(name, sets, causal, scale, body=None):
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
 
     q, k, v, do, lse, delta = sets[0]
-    bf16 = q.dtype == torch.bfloat16
-    close, form = (check_bf16, "_bf16") if bf16 else (check_close, "")
+    form = FLASH_FORMS[str(q.dtype)[6:]]
+    if range_case:
+        def close(what, got, want):
+            return check_half(what, got, want, range_atol(want))
+    else:
+        close = check_half if form else check_close
     before = dict(fa.LAUNCHES_BY_BODY)
     o, klse = fa.flash_forward_kernel(q, k, v, causal, scale)
     po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
@@ -2835,17 +2874,18 @@ def misaligned(t):
 
 def check_value_head_dim(seed: int) -> None:
     """multihead attention's core with v's head dim other than q's and
-    k's (kdim 8 / vdim 16, and 64 / 24), fp32 and bf16: the kernels run on
-    zero-padded head dims (3 launches a forward and backward) and match the
-    plain versions, output and gradients. In bf16 the padded D = 16 keeps
-    the mma.sync bodies and D = 64 takes the wgmma forward, dQ and
-    dK/dV."""
+    k's (kdim 8 / vdim 16, and 64 / 24), fp32, bf16 and fp16: the kernels
+    run on zero-padded head dims (3 launches a forward and backward) and
+    match the plain versions, output and gradients. In bf16 and fp16 the
+    padded D = 16 keeps the mma.sync bodies and D = 64 takes the wgmma
+    forward, dQ and dK/dV."""
     import torch
 
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator().manual_seed(seed + 23)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        form = FLASH_FORMS[str(dtype)[6:]]
         for dk, dv in ((8, 16), (64, 24)):
             base = [torch.randn(2, 8, 2, d, generator=gen).to("cuda", dtype) for d in (dk, dk, dv)]
             dout = torch.randn(2, 8, 2, dv, generator=gen).to("cuda", dtype)
@@ -2858,14 +2898,14 @@ def check_value_head_dim(seed: int) -> None:
                 torch.cuda.synchronize()
                 if sum(fa.LAUNCHES.values()) != (3 if backend == "auto" else 0):
                     raise AssertionError(f"Dv != Dk, {backend}: launches {fa.LAUNCHES}")
-                if backend == "auto" and dtype == torch.bfloat16:
+                if backend == "auto" and form:
                     body = "wgmma" if max(dk, dv) > 32 else "mma_sync"
-                    for kernel in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
-                        if fa.LAUNCHES_BY_BODY[f"{kernel} {body}"] != 1:
-                            raise AssertionError(f"Dk={dk} Dv={dv} bf16: {kernel} not on the "
-                                                 f"{body} body ({fa.LAUNCHES_BY_BODY})")
+                    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                        if fa.LAUNCHES_BY_BODY[f"{kernel}{form} {body}"] != 1:
+                            raise AssertionError(f"Dk={dk} Dv={dv} {form}: {kernel}{form} not on "
+                                                 f"the {body} body ({fa.LAUNCHES_BY_BODY})")
                 outs[backend] = (o.detach(), q.grad, k.grad, v.grad)
-            close = check_bf16 if dtype == torch.bfloat16 else check_close
+            close = check_half if form else check_close
             tag = f"flash Dk={dk} Dv={dv} {str(dtype)[6:]}"
             errs = [close(f"{tag} {n}", g, w)
                     for n, g, w in zip(("o", "dq", "dk", "dv"), outs["auto"], outs["plain"])]
@@ -2874,10 +2914,12 @@ def check_value_head_dim(seed: int) -> None:
 
 
 def flash_phase(seed: int):
-    """The flash kernels, float32 and bf16 forms, against their plain
-    versions at the training shape and edge shapes; device times at the
-    training shape and the causal S=512 shape. Returns per-kernel records
-    (launches filled in by the training phase)."""
+    """The flash kernels, float32, bf16 and fp16 forms, against their
+    plain versions at the training shape and edge shapes (fp16 also where
+    its range matters: most of P below 2^-14, dS past 65504, gradients of
+    order 1e-6); device times at the training shape and the causal S=512
+    shape. Returns per-kernel records (launches filled in by the training
+    phase)."""
     import torch
     import torch.nn.functional as F
 
@@ -2888,13 +2930,12 @@ def flash_phase(seed: int):
     for (label, (b, s, h, d, causal, copies)), dtype in itertools.product({
         "train": (32, 128, 12, 64, False, 3),  # 3 x 50 MB of q/k/v/dO: past the L2
         "causal512": (4, 512, 12, 64, True, 3),
-    }.items(), (torch.float32, torch.bfloat16)):
+    }.items(), (torch.float32, torch.bfloat16, torch.float16)):
         scale = d ** -0.5
-        bf16 = dtype == torch.bfloat16
-        form = "_bf16" if bf16 else ""
+        form = FLASH_FORMS[str(dtype)[6:]]
         sets = flash_inputs(gen, b, s, s, h, d, causal, scale, copies, dtype)
         errs, bodies = check_flash(f"flash {label}{form}", sets, causal, scale,
-                                   body="wgmma" if bf16 else "mma_sync")
+                                   body="wgmma" if form else "mma_sync")
         lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in st[:4]) for st in sets]
         for qq, kk, vv, _ in lib_sets:
             for t in (qq, kk, vv):
@@ -2933,7 +2974,8 @@ def flash_phase(seed: int):
         for name, (kern, plain, lib_ms, kind) in timed.items():
             ms, eager_ms = time_ms(kern, sets)
             plain_ms, _ = time_ms(plain, sets)
-            bound_ms, bound_by, fp32_bound_ms = flash_bound(kind, b, s, s, h, d, causal, bf16)
+            bound_ms, bound_by, fp32_bound_ms = flash_bound(kind, b, s, s, h, d, causal,
+                                                            bool(form))
             row = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                    "fp32_cuda_core_bound_ms": fp32_bound_ms,
@@ -2949,8 +2991,9 @@ def flash_phase(seed: int):
     # then the bf16 forms: the kept mma.sync bodies at D % 8 != 0 (element
     # copies), D <= 32 and a misaligned view; the wgmma bodies at Sq != Sk,
     # a ragged S, D = 40 and 96 (padded to 64 and 128), D = 128 and one
-    # query row; the CUDA cores at D = 256 and 512
-    f32, bf16 = torch.float32, torch.bfloat16
+    # query row; the CUDA cores at D = 256 and 512; the fp16 forms at a
+    # sample of the same
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     mma, wg, simt = "mma_sync", "wgmma", "cuda_cores"
     for b, sq, sk, h, d, causal, dtype, body, offset in [
             (2, 100, 100, 3, 128, False, f32, mma, False),
@@ -2968,7 +3011,10 @@ def flash_phase(seed: int):
             (2, 129, 129, 2, 96, True, bf16, wg, False),
             (2, 200, 200, 2, 128, False, bf16, wg, False), (2, 1, 1, 3, 64, False, bf16, wg, False),
             (2, 65, 65, 3, 256, True, bf16, simt, False),
-            (2, 64, 64, 2, 512, False, bf16, simt, False)]:
+            (2, 64, 64, 2, 512, False, bf16, simt, False),
+            (2, 70, 70, 3, 33, False, f16, mma, False), (2, 96, 96, 2, 64, True, f16, mma, True),
+            (2, 64, 200, 4, 64, False, f16, wg, False), (2, 129, 129, 2, 96, True, f16, wg, False),
+            (2, 1, 1, 3, 64, False, f16, wg, False), (2, 65, 65, 3, 256, True, f16, simt, False)]:
         sets = flash_inputs(gen, b, sq, sk, h, d, causal, d ** -0.5, dtype=dtype)
         if offset:
             sets = [tuple(misaligned(t) for t in st[:4]) + st[4:] for st in sets]
@@ -2978,9 +3024,62 @@ def flash_phase(seed: int):
         print(f"flash edge B={b} H={h} {tag}: max abs err "
               + json.dumps({k: f"{e:.3e}" for k, e in errs.items()}) + " bodies "
               + json.dumps(bodies))
+    check_fp16_range(seed)
     check_value_head_dim(seed)
     torch.cuda.empty_cache()
     return rows
+
+
+# the fp16 range cases: (name, q, k, v and dO multipliers of randn inputs)
+FP16_RANGE_CASES = (("P below 2^-14", (6, 1, 1, 1)),
+                    ("dS past 65504", (0.01, 0.01, 1000, 1000)),
+                    ("gradients 1e-6", (1, 1, 1, 1e-6)))
+
+
+def fp16_range_sets(seed: int):
+    """Yields (case, (q, k, v, dO, lse, delta), P's share below 2^-14,
+    largest |dS|) for each of FP16_RANGE_CASES at B=2 S=128 H=4 D=64 on
+    the card, after checking that each case is the range end it names."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(seed + 29)
+    b, s, h, d = 2, 128, 4, 64
+    scale = d ** -0.5
+    for case, mul in FP16_RANGE_CASES:
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen).mul(m).to("cuda", torch.float16)
+                       for m in mul)
+        o, lse = fa.reference_flash_forward(q, k, v, False, scale)
+        delta = fa.flash_delta(do, o)
+        _, _, _, p, ds = fa._plain_probs(q, k, v, do, lse, delta, False, scale)
+        low, ds_max = float((p < 2.0 ** -14).float().mean()), float(ds.abs().max())
+        if ((case == "P below 2^-14" and low <= 0.5)
+                or (case == "dS past 65504" and ds_max <= 65504)
+                or (case == "gradients 1e-6" and ds_max >= 2.0 ** -14)):
+            raise AssertionError(f"fp16 {case}: P below 2^-14 {low:.3f}, max |dS| {ds_max}")
+        yield case, (q, k, v, do, lse, delta), low, ds_max
+
+
+def check_fp16_range(seed: int) -> None:
+    """The fp16 forms where fp16's range matters (the cases
+    tests/test_torch_port_flash_split_numerics.py emulates): q times 6
+    (most of P below 2^-14, so P's halves are subnormal), q and k times
+    0.01 with v and dO times 1000 (|dS| past 65504: the wgmma bodies scale
+    each row of dS by a power of two before its split), dO times 1e-6 (dS
+    and the gradients subnormal in fp16, as training's are: each row of dS
+    scaled up). Each on the wgmma bodies, within one fp16 ulp of the plain
+    value (no finer than the subnormal spacing) + HALF_RANGE_SHARE of the
+    output's largest |value|: a body without the scaling errs by 2
+    subnormal ulps in dQ and dK at 1e-6 and is refused
+    (``python3 -m flexflow_tpu_torch.tools.flash_probe range``)."""
+    scale = 64 ** -0.5
+    for case, st, low, ds_max in fp16_range_sets(seed):
+        errs, _ = check_flash(f"flash fp16 {case}", [st], False, scale, body="wgmma",
+                              range_case=True)
+        print(f"flash fp16 {case} (B=2 S=128 H=4 D=64; P below 2^-14 {low:.3f}, max |dS| "
+              f"{ds_max:.4g}): max abs err "
+              + json.dumps({k_: f"{e:.3e}" for k_, e in errs.items()}))
 
 
 def bert_base(dtype=None):
@@ -3001,9 +3100,10 @@ def kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def training_phase(seed: int, bf16: bool = False):
+def training_phase(seed: int, dtype=None):
     """BERT-Base width through FFModel -> compile -> fit on the card, in
-    float32 or (``bench.py``'s cell) bf16."""
+    ``dtype``: DataType.FLOAT (the default), BFLOAT16 (``bench.py``'s
+    cell) or HALF."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3014,12 +3114,18 @@ def training_phase(seed: int, bf16: bool = False):
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
     from flexflow_tpu_torch.runtime import SGDOptimizer
 
-    cfg = bert_base(DataType.BFLOAT16 if bf16 else DataType.FLOAT)
+    cfg = bert_base(dtype or DataType.FLOAT)
     batch, warm, steps = 32, 2, 10
-    tag = "bf16" if bf16 else "fp32"
-    # the step's flash launches: num_layers of each kernel of its form, none of the other
-    per_step = {name: (cfg.num_layers if name.endswith("_bf16") == bf16 else 0)
-                for name in fa.LAUNCHES}
+    type_name = str(cfg.dtype.torch)[6:]
+    form = FLASH_FORMS[type_name]
+    tag = {"": "fp32", "_bf16": "bf16", "_f16": "fp16"}[form]
+    # the step's flash launches: num_layers of each kernel of its form, none of the others
+    per_step = {f"{kernel}{f}": (cfg.num_layers if f == form else 0)
+                for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                for f in FLASH_FORMS.values()}
+    if set(per_step) != set(fa.LAUNCHES):
+        raise AssertionError(f"flash launch counts {sorted(fa.LAUNCHES)}, expected "
+                             f"{sorted(per_step)}")
     t0 = time.perf_counter()
     model = build_transformer(FFConfig(batch_size=batch, seed=seed, printing_interval=5), cfg)
     model.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR,
@@ -3064,20 +3170,20 @@ def training_phase(seed: int, bf16: bool = False):
     moved = max(float((pk[k][n].float() - snap[k][n].float()).abs().max()) for k, n in leaves)
     print(f"training {tag}: one step, kernel vs plain attention: loss {lk:.7f} vs {lp:.7f}, "
           f"params max abs diff {param_err:.3e} (the step moved them by up to {moved:.3e})")
-    loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+    loss_rtol = HALF_LOSS_RTOL[type_name] if form else LOSS_RTOL
     if not (np.isfinite(lk) and abs(lk - lp) <= loss_rtol * abs(lp)):
         raise AssertionError(f"{tag} train-step loss kernel {lk} vs plain {lp} beyond rtol "
                              f"{loss_rtol}")
     if not 0 < moved:
         raise AssertionError(f"{tag}: the step moved no parameter")
-    if bf16:
+    if form:
         for k, n in leaves:
             a, b_ = pk[k][n].float(), pp[k][n].float()
-            lim = 2 * bf16_ulp(torch.maximum(a.abs(), b_.abs())) + BF16_PARAM_SHARE * float(
-                (pp[k][n].float() - snap[k][n].float()).abs().max())
+            lim = 2 * half_ulp(torch.maximum(a.abs(), b_.abs()), cfg.dtype.torch) + (
+                HALF_PARAM_SHARE * float((pp[k][n].float() - snap[k][n].float()).abs().max()))
             if ((a - b_).abs() > lim).any():
-                raise AssertionError(f"bf16 params {k}.{n} after one step: kernel vs plain "
-                                     f"beyond 2 ulps + {BF16_PARAM_SHARE} of the update")
+                raise AssertionError(f"{tag} params {k}.{n} after one step: kernel vs plain "
+                                     f"beyond 2 ulps + {HALF_PARAM_SHARE} of the update")
     elif param_err > PARAM_STEP_RTOL * moved:
         raise AssertionError(f"params after one step differ by {param_err}, more than "
                              f"{PARAM_STEP_RTOL} of the step's largest update {moved}")
@@ -3097,8 +3203,8 @@ def training_phase(seed: int, bf16: bool = False):
         if n != per_step[name] * steps:
             raise AssertionError(f"{tag} {name}: {n} launches in {steps} steps, expected "
                                  f"{per_step[name]} per step ({launches})")
-    # every bf16 forward, dQ and dK/dV launch of the cell on the wgmma bodies
-    for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16") if bf16 else ():
+    # every 2-byte forward, dQ and dK/dV launch of the cell on the wgmma bodies
+    for name in (f"{k}{form}" for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if form):
         if by_body.get(f"{name} wgmma", 0) != launches[name]:
             raise AssertionError(f"{tag}: {name} launches by body {by_body}, expected all "
                                  f"{launches[name]} on the wgmma body")
@@ -3121,6 +3227,11 @@ def training_phase(seed: int, bf16: bool = False):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # the elementwise group's largest kernels, device us a step, by name
+    # (long enough to tell the dtype and the functor apart)
+    elementwise = sorted(((name, us / 2) for name, us in by_name.items()
+                          if kernel_group(name) == "elementwise and other"),
+                         key=lambda kv: -kv[1])[:12]
     groups = {"flash kernels": 0.0, "GEMMs (cuBLAS)": 0.0, "elementwise and other": 0.0}
     for name, us in by_name.items():
         groups[kernel_group(name)] += us / 1e3 / 2
@@ -3143,6 +3254,7 @@ def training_phase(seed: int, bf16: bool = False):
             step_device_ms / (1e3 * elapsed / steps) if busy_us > 0 else None),
         "step_device_ms_by_group": groups,
         "top_device_us": {name[:80]: us for name, us in top},
+        "elementwise_step_us_by_kernel": {name[:200]: us for name, us in elementwise},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print(f"training (BERT-Base width, {tag}): " + json.dumps(stats))
@@ -3161,12 +3273,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from flexflow_tpu_torch.core.types import DataType
     from flexflow_tpu_torch.generation.decoder import init_decoder_params, params_to
     from flexflow_tpu_torch.ops.kernels import _build
 
     # full fp32 everywhere: TF32 would move the logits past the checks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS's 2-byte split-K reductions stay at PyTorch's default, as the
+    # port runs them: the BERT-Base steps take no split-K GEMM, and turning
+    # them off changes no bit of a step (tools/reduction_probe.py)
 
     card = card_line()
     print(card)
@@ -3180,7 +3296,8 @@ def main(argv=None) -> int:
     print("tensor cores: HMMA instructions in the SASS of " + json.dumps(hmma))
     print("tensor cores: HGMMA (wgmma) instructions in the SASS of " + json.dumps(hgmma))
     lib = _build.load_library()
-    print("bf16 wgmma bodies, blocks an SM (occupancy calculator): " + json.dumps({
+    print("bf16 wgmma bodies (the fp16 ones hold the same registers and shared memory), "
+          "blocks an SM (occupancy calculator): " + json.dumps({
         f"{kernel}<{d}>": lib.ff_flash_wg_blocks_per_sm(kind, d)
         for kernel, kind in (("flash_fwd_wg_kernel", 0), ("flash_bwd_dq_wg_kernel", 1),
                              ("flash_bwd_dkv_wg_kernel", 2))
@@ -3205,7 +3322,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash = flash_phase(args.seed)
     training = training_phase(args.seed)
-    training_bf16 = training_phase(args.seed, bf16=True)
+    training_bf16 = training_phase(args.seed, DataType.BFLOAT16)
+    training_f16 = training_phase(args.seed, DataType.HALF)
 
     def record(name, replaces, row, launches, source=SOURCE):
         return {
@@ -3237,11 +3355,12 @@ def main(argv=None) -> int:
                training["launches"][name], FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
-        record(f"{name}_bf16", f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
-               dict(flash["train"][f"{name}_bf16"], max_abs_err=max(
-                   flash["train"][f"{name}_bf16"]["max_abs_err"],
-                   flash["causal512"][f"{name}_bf16"]["max_abs_err"])),
-               training_bf16["launches"][f"{name}_bf16"], FLASH_SOURCE)
+        record(f"{name}{form}", f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
+               dict(flash["train"][f"{name}{form}"], max_abs_err=max(
+                   flash["train"][f"{name}{form}"]["max_abs_err"],
+                   flash["causal512"][f"{name}{form}"]["max_abs_err"])),
+               run["launches"][f"{name}{form}"], FLASH_SOURCE)
+        for form, run in (("_bf16", training_bf16), ("_f16", training_f16))
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
         record(f"{kernel}{form}", f"flexflow_tpu/ops/kernels/decode_attention.py:{line}",
@@ -3253,7 +3372,7 @@ def main(argv=None) -> int:
         for kernel, case, line in (("paged_append", "decode", 368),
                                    ("paged_append_split", "split", 338))
     ]
-    for t in (training, training_bf16):
+    for t in (training, training_bf16, training_f16):
         print(f"{card}: BERT-Base training (12 x 768, seq 128, batch 32), {t['dtype']}: "
               f"{t['samples_per_s']:.2f} samples/s, step {t['step_ms']:.3f} ms, device ms a step "
               f"{t['step_device_ms']:.3f} (" + ", ".join(
@@ -3263,7 +3382,7 @@ def main(argv=None) -> int:
               + json.dumps(t["launches_by_body"]))
     for label in ("train", "causal512"):
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            for form in ("", "_bf16"):
+            for form in ("", "_bf16", "_f16"):
                 r = flash[label][name + form]
                 print(f"{card}: flash {label} {name + form} ({r['body']} body): {r['ms']:.4f} ms "
                       f"(bound {r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.4f}, "
@@ -3366,6 +3485,7 @@ def main(argv=None) -> int:
                       "overlap": overlap, "constrained": constrained, "server": server,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training, "training_bf16": training_bf16,
+                      "training_f16": training_f16,
                       "suffix_prefill_bodies": suffix_bodies}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,10 @@ keeps there (the logits). A :class:`StepRunner` runs bodies by
   side, which a replay never reaches; the capture's launches are recorded
   and added per replay (``decode_attention.count_replay``).
 
+Everything a runner does on the card (its memory pool, side stream,
+events, captures and replays) runs under its own device, whatever the
+current device is: an engine on ``cuda:1`` captures and replays there.
+
 Eager steps (CPU tensors, or ``graphs=False`` on a CUDA device) run the
 same body on the same packed input buffer, so the only difference between
 the two paths on the card is the replay. On the CPU a dispatch runs the
@@ -157,8 +161,11 @@ class StepRunner:
         self.device = device
         self.graphs = graphs
         self._steps: Dict[Hashable, _Step] = {}
-        self._pool = torch.cuda.graph_pool_handle() if graphs else None
-        self._side = torch.cuda.Stream(device) if graphs else None  # warm-ups run here
+        self._pool = self._side = None
+        if graphs:
+            with torch.cuda.device(device):
+                self._pool = torch.cuda.graph_pool_handle()
+                self._side = torch.cuda.Stream(device)  # warm-ups run here
 
     def __contains__(self, sig: Hashable) -> bool:
         return sig in self._steps
@@ -184,6 +191,12 @@ class StepRunner:
         """Launch one step of ``sig`` without waiting for it. ``carry``
         maps input names to device tensors that replace those inputs'
         uploaded values."""
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                return self._dispatch(sig, arrays, body, carry)
+        return self._dispatch(sig, arrays, body, carry)
+
+    def _dispatch(self, sig, arrays, body, carry) -> InFlight:
         step = self._steps.get(sig)
         if step is None:
             step = self._steps[sig] = _Step(StepLayout(arrays), self.device)

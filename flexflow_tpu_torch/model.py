@@ -200,7 +200,7 @@ class FFModel:
     def _as_batches(self, x, y) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """The whole dataset on the model's device, once (loading counts
         as set-up, not as training time), each array in its own dtype
-        (float32 or bfloat16, numpy or torch)."""
+        (float32, bfloat16 or float16, numpy or torch)."""
         xs = [x] if isinstance(x, (np.ndarray, torch.Tensor)) else list(x)
         return [to_tensor(xx, self.device) for xx in xs], to_tensor(y, self.device)
 

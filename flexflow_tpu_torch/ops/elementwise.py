@@ -12,6 +12,9 @@ from ..core.types import ActiMode, OpType
 from .base import OpDef, register_op
 
 
+_SQRT_HALF_F16 = float(torch.tensor(0.5 ** 0.5, dtype=torch.float16))
+
+
 def apply_activation(mode: ActiMode, x: torch.Tensor) -> torch.Tensor:
     if mode == ActiMode.NONE:
         return x
@@ -23,6 +26,12 @@ def apply_activation(mode: ActiMode, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(x)
     if mode == ActiMode.GELU:
         # exact erf form, as the JAX package (approximate=False)
+        if x.dtype == torch.float16:
+            # jax.nn.gelu's own ops, each rounded to fp16 as JAX rounds
+            # them (0.5 x erfc(-x sqrt(1/2)), sqrt(1/2) an fp16 constant):
+            # one fused fp32 GELU rounded once differs from it by up to
+            # several fp16 ulps on a third of its outputs
+            return 0.5 * x * torch.special.erfc(-x * _SQRT_HALF_F16)
         return torch.nn.functional.gelu(x, approximate="none")
     raise ValueError(f"unknown activation {mode}")
 

@@ -43,8 +43,8 @@ _F = ctypes.c_float
 # cudaError_t of a launch, or the answer of a query
 SIGNATURES = {
     "ff_paged_append_cluster_size": [_I, _I],  # MB, bs
-    # which body a flash launch takes: bf16 form, kind, q, k, v, dout,
-    # out0, out1, D
+    # which body a flash launch takes: form (0 f32, 1 bf16, 2 f16), kind,
+    # q, k, v, dout, out0, out1, D
     "ff_flash_body": [_I, _I] + [_P] * 6 + [_I],
     # blocks an SM holds of a bf16 wgmma flash kernel: kind, D
     "ff_flash_wg_blocks_per_sm": [_I, _I],
@@ -63,8 +63,8 @@ for _form in ("f32", "bf16", "f16"):
             + [_F, _P]  # scale, stream
         ),
     })
-# the flash kernels, a float32 and a bfloat16 form of each
-for _form in ("f32", "bf16"):
+# the flash kernels, a float32, a bfloat16 and a float16 form of each
+for _form in ("f32", "bf16", "f16"):
     SIGNATURES.update({
         f"ff_flash_fwd_{_form}": (
             [_P] * 5  # q, k, v, o, lse

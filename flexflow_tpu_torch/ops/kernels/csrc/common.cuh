@@ -1,12 +1,14 @@
 // Helpers shared by the port's CUDA kernels for Hopper (sm_90a): the
-// shared-memory limit, warp reductions, cp.async copies from device to
-// shared memory, the TF32 tensor-core products (mma.sync m16n8k8) that
-// the flash kernels and the paged kernel's wide-window body take to fp32
-// accuracy, and the pieces of the bf16 flash bodies: mbarriers, TMA tile
-// copies, warpgroup bf16 products (wgmma m64n64k16) and the split of an
-// fp32 operand into two bf16 halves. Each .cu file includes this once and
-// builds into its own library (ops/kernels/_build.py), so everything here
-// is internal to the including file.
+// shared-memory limit and its once-a-device raise, warp reductions,
+// cp.async copies from device to shared memory, the TF32 tensor-core
+// products (mma.sync m16n8k8) that the flash kernels and the paged
+// kernel's wide-window body take to fp32 accuracy, and the pieces of the
+// 2-byte (bf16, fp16) flash bodies: the element traits, mbarriers, TMA
+// tile copies, warpgroup products (wgmma m64n64k16) and the split of an
+// fp32 operand into two halves of the element type. Each .cu file
+// includes this once and builds into its own library
+// (ops/kernels/_build.py), so everything here is internal to the
+// including file.
 #pragma once
 
 #include <cuda.h>
@@ -25,6 +27,27 @@ using f16 = __half;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kSmemLimit = 232448;  // bytes of shared memory a block can use on sm_90
+
+// The dynamic shared-memory limit of a kernel is an attribute of the
+// kernel on the current device: raising it on one card leaves it at 48 KB
+// on another. Each launcher keeps one flag a device (by cudaGetDevice) and
+// raises the limit at its first launch there, never again on that device
+// (a launch captured into a CUDA graph sets nothing). Devices past
+// kMaxDevices are refused.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+int raise_smem_once(Kernel kernel, int bytes, bool (&raised)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (raised[dev]) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  raised[dev] = true;
+  return 0;
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -64,6 +87,42 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// ============================================== the 2-byte element types
+
+// What the bf16 and fp16 bodies take from their element type: the pair
+// type and the conversions (round to nearest even), the TMA data type,
+// and whether a computed fp32 operand must be scaled into range before
+// it is split into two halves of the type (split_x2). bf16 has fp32's
+// exponent range; fp16 overflows past 65504 and keeps full precision
+// only down to 2^-14. The PTX type of a wgmma (kF16) must be a literal in
+// the asm template, so wgmma_ss/wgmma_rs pick it by kF16.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  using Pair = __nv_bfloat162;
+  static constexpr bool kF16 = false;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+  static __device__ __forceinline__ bf16 narrow(float x) { return __float2bfloat16_rn(x); }
+  static __device__ __forceinline__ Pair pair(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ float low(Pair p) { return __low2float(p); }
+  static __device__ __forceinline__ float high(Pair p) { return __high2float(p); }
+};
+template <>
+struct Elem<f16> {
+  using Pair = __half2;
+  static constexpr bool kF16 = true;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ float widen(f16 x) { return __half2float(x); }
+  static __device__ __forceinline__ f16 narrow(float x) { return __float2half_rn(x); }
+  static __device__ __forceinline__ Pair pair(float a, float b) { return __floats2half2_rn(a, b); }
+  static __device__ __forceinline__ float low(Pair p) { return __low2float(p); }
+  static __device__ __forceinline__ float high(Pair p) { return __high2float(p); }
+};
+
 // ============================================ TF32 tensor-core products
 
 // a bf16 or fp16 input is a TF32 value exactly: its products need no split
@@ -81,19 +140,17 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
 }
 
-// an input element as a TF32 operand: a float times mul, split; a bf16 is
-// its own TF32 value (its bits in the high half), an fp16 its value widened
-// to fp32 (10 mantissa bits, as TF32 keeps), and small is never read (mul
-// is 1 for a 2-byte input: those kernels scale the scores or the queries)
+// an input element as a TF32 operand: a float times mul, split; a bf16 or
+// fp16 is its own TF32 value once widened to fp32 (7 or 10 mantissa bits,
+// TF32 keeps 10, and fp16's exponents, subnormals included, are normal
+// fp32 ones), and small is never read (mul is 1 for a 2-byte input: those
+// kernels scale the scores or the queries)
 __device__ __forceinline__ void split_in(float x, float mul, uint32_t& big, uint32_t& small) {
   split_tf32(x * mul, big, small);
 }
-__device__ __forceinline__ void split_in(bf16 x, float, uint32_t& big, uint32_t& small) {
-  big = static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
-  small = 0u;
-}
-__device__ __forceinline__ void split_in(f16 x, float, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(__half2float(x));
+template <typename T>
+__device__ __forceinline__ void split_in(T x, float, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(Elem<T>::widen(x));
   small = 0u;
 }
 
@@ -171,7 +228,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
-// ================================= Hopper: mbarrier, TMA, bf16 wgmma
+// ============================ Hopper: mbarrier, TMA, bf16 and fp16 wgmma
 
 // Shared-memory barriers that count arrivals and the bytes of TMA copies
 // (mbarrier). A phase completes when every expected thread has arrived
@@ -245,7 +302,7 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 }
 
 // A wgmma shared-memory matrix descriptor of a tile written by TMA with
-// the 128-byte swizzle: rows of 64 bf16 (128 bytes), 8-row groups of
+// the 128-byte swizzle: rows of 64 bf16 or fp16 (128 bytes), 8-row groups of
 // 1024 bytes, the 16-byte chunks of row r XORed with r % 8. Fields (in
 // 16-byte units): start address, leading byte offset (lbo), stride byte
 // offset (sbo), layout 1 = 128-byte swizzle.
@@ -285,45 +342,66 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// d += A B for the warpgroup's 64 x 64 x 16 tile, bf16 operands, fp32
-// accumulator d (element i of warp w's thread (g, t) = lane (4g + t) is
-// row 16w + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2t + (i & 1)).
-// A and B from shared memory, both K-major.
+// d += A B for the warpgroup's 64 x 64 x 16 tile, operands of T (bf16
+// or fp16), fp32 accumulator d (element i of warp w's thread (g, t) =
+// lane (4g + t) is row 16w + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2t
+// + (i & 1)). A and B from shared memory, both K-major.
+#define FF_WGMMA_SS(TY)                                                   \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " FF_ACC_REGS \
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                   \
+      : FF_ACC8(0), FF_ACC8(8), FF_ACC8(16), FF_ACC8(24)                  \
+      : "l"(a), "l"(b), "r"(1))
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FF_ACC_REGS
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : FF_ACC8(0), FF_ACC8(8), FF_ACC8(16), FF_ACC8(24)
-      : "l"(a), "l"(b), "r"(1));
+  if constexpr (Elem<T>::kF16)
+    FF_WGMMA_SS("f16");
+  else
+    FF_WGMMA_SS("bf16");
 }
 
 // The same with A from registers (per warp the 16 x 16 fragment of
 // mma.m16n8k16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3
-// (g+8, 2t+8..), two bf16 a register, the lower column in the low half;
-// an accumulator's columns 16s..16s+15 are exactly this layout) and B
-// MN-major in shared memory.
+// (g+8, 2t+8..), two elements a register, the lower column in the low
+// half; an accumulator's columns 16s..16s+15 are exactly this layout)
+// and B MN-major in shared memory.
+#define FF_WGMMA_RS(TY)                                                   \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " FF_ACC_REGS \
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                     \
+      : FF_ACC8(0), FF_ACC8(8), FF_ACC8(16), FF_ACC8(24)                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FF_ACC_REGS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FF_ACC8(0), FF_ACC8(8), FF_ACC8(16), FF_ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (Elem<T>::kF16)
+    FF_WGMMA_RS("f16");
+  else
+    FF_WGMMA_RS("bf16");
 }
 
+#undef FF_WGMMA_SS
+#undef FF_WGMMA_RS
 #undef FF_ACC8
 #undef FF_ACC_REGS
 
-// Two fp32 values as two bf16 halves each: hi = bf16(x), lo = bf16(x - hi)
-// (x - hi is exact in fp32), so x = hi + lo + e with |e| <= 2^-16 |x|
-// (each rounding to nearest errs by at most 2^-8 of its input): a product
-// taken as lo*b + hi*b with bf16 b keeps x to 2^-16, where bf16(x) alone
-// keeps it to 2^-8. Packed as an A-fragment register: x0 in the low half.
-__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+// Two fp32 values as two halves of T each: hi = T(x), lo = T(x - hi)
+// (x - hi is exact in fp32), so x = hi + lo + e: a product taken as
+// lo*b + hi*b with b of T keeps x to |e|, where T(x) alone keeps it to
+// 2^-8 |x| (bf16) or 2^-11 |x| (fp16). Each rounding to nearest errs by at
+// most 2^-8 (bf16) or 2^-11 (fp16) of its input while that input is in
+// the type's normal range, so |e| <= 2^-16 |x| in bf16 (fp32's range) and
+// |e| <= 2^-22 |x| in fp16 for 2^-14 <= |x| <= 65504; below 2^-14 an
+// fp16 half is subnormal, spaced 2^-24, and |e| <= 2^-25 absolute. The
+// fp16 bodies keep the computed operand inside that range: P in [0, 1]
+// as it is, dS scaled by a power of two (exact) first. Packed as an
+// A-fragment register: x0 in the low half.
+template <typename T>
+__device__ __forceinline__ void split_x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  using E = Elem<T>;
+  const typename E::Pair h = E::pair(x0, x1);
+  const typename E::Pair l = E::pair(x0 - E::low(h), x1 - E::high(h));
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }

@@ -1,13 +1,15 @@
-// Flash attention forward and backward for Hopper (sm_90a), fp32 and bf16.
+// Flash attention forward and backward for Hopper (sm_90a), fp32, bf16 and
+// fp16.
 //
 // Replaces the Pallas TPU kernels of
 // flexflow_tpu/ops/kernels/flash_attention.py:
-//   * _fwd_kernel      (launched by _flash_fwd, :158)  -> ff_flash_fwd_{f32,bf16}
-//   * _bwd_dq_kernel   (launched by _flash_bwd, :262)  -> ff_flash_bwd_dq_{f32,bf16}
-//   * _bwd_dkv_kernel  (launched by _flash_bwd, :278)  -> ff_flash_bwd_dkv_{f32,bf16}
-// Like the Pallas kernels, each reads its inputs in either type, computes
-// in fp32 and writes o, dq, dk, dv in the inputs' type; lse and delta are
-// fp32 in both forms.
+//   * _fwd_kernel      (launched by _flash_fwd, :158)  -> ff_flash_fwd_{f32,bf16,f16}
+//   * _bwd_dq_kernel   (launched by _flash_bwd, :262)  -> ff_flash_bwd_dq_{f32,bf16,f16}
+//   * _bwd_dkv_kernel  (launched by _flash_bwd, :278)  -> ff_flash_bwd_dkv_{f32,bf16,f16}
+// Like the Pallas kernels, each reads its inputs in any of the three
+// types, computes in fp32 and writes o, dq, dk, dv in the inputs' type;
+// lse and delta are fp32 in every form. The bf16 and fp16 forms are one
+// templated body each (the element's traits: common.cuh's Elem).
 //
 // What they compute, per (batch b, head h), over q [B,Sq,H,D] and
 // k, v [B,Sk,H,D] (indexed in place: a row of one head is D floats at a
@@ -33,20 +35,21 @@
 // 3 * 4*S*S*D flops a head forward, 3 * 6*S*S*D for dQ and 3 * 8*S*S*D for
 // dK/dV, 0.010, 0.015 and 0.020 ms at 495 TFLOP/s dense TF32; on the CUDA
 // cores (67 TFLOP/s fp32) the same work takes 0.024, 0.036 and 0.048 ms.
-// The bf16 forms' flops at 989 TFLOP/s dense bf16 take a third of a TF32
-// product's time: every bf16 call is bound by its bytes.
+// The bf16 and fp16 forms' flops at 989 TFLOP/s dense take a third of a
+// TF32 product's time: every 2-byte call is bound by its bytes.
 //
 // Each kernel has up to three bodies; body_of() picks one per call and
 // ff_flash_body() reports it, so a caller can count launches by body:
-//   * wgmma (bf16 forward, dQ and dK/dV, 32 < D <= 128, D % 8 == 0,
-//     every tensor 16-byte aligned): warpgroup bf16 products fed by TMA,
-//     below;
+//   * wgmma (bf16 and fp16 forward, dQ and dK/dV, 32 < D <= 128,
+//     D % 8 == 0, every tensor 16-byte aligned): warpgroup products fed by
+//     TMA, below;
 //   * mma.sync (every other call at D <= 128): TF32 m16n8k8 products, 3 a
-//     product in fp32, 1 or 2 in bf16, staged by cp.async;
+//     product in fp32, 1 or 2 in bf16 and fp16, staged by cp.async;
 //   * CUDA cores (D > 128).
 //
-// ---- The bf16 wgmma bodies (flash_fwd_wg_kernel, flash_bwd_dq_wg_kernel,
-//      flash_bwd_dkv_wg_kernel)
+// ---- The wgmma bodies (flash_fwd_wg_kernel, flash_bwd_dq_wg_kernel,
+//      flash_bwd_dkv_wg_kernel), bf16 and fp16: the same body, T the
+//      element; described in bf16, with fp16's one difference at the end
 //   * A block is one warpgroup (4 warps) owning 64 rows of its own axis
 //     (queries for the forward and dQ, keys for dK/dV), the M of every
 //     wgmma m64n64k16. Its own rows' tiles (Q; Q and dO; K and V) land
@@ -113,6 +116,19 @@
 //     88%). TMA over [B,S,H,D] in place reads 128-byte rows 1.5 KB apart,
 //     and each block waits out its first tiles' latency: the kernels sit
 //     at about 2x their byte bound at S = 128.
+//   * fp16. A 64-element fp16 row is 128 bytes as a bf16 row is, so the
+//     tiles, swizzle and descriptors are the same; the tensor maps say
+//     FLOAT16 and the wgmma .f16. fp16's exact range is narrower: the
+//     split of a computed operand into fp16 halves keeps x to 2^-22 |x|
+//     only for 2^-14 <= |x| <= 65504 (common.cuh's split_x2). P in [0, 1]
+//     is split as it is (below 2^-14 its halves are subnormal, an
+//     absolute 2^-25 a term, inside the gate: most P of a row with one
+//     dominant key). dS can leave the range at both ends (|dS| past 65504;
+//     training's gradients, of order 1e-6), so dQ and dK/dV scale each
+//     row of dS (dS^T) by a power of two before the split, the running
+//     least exponent that puts the row's largest |dS| in [2^14, 2^15],
+//     rescale the accumulator row when it falls and undo it at the store
+//     (scale_rows, unscale_rows): exact in fp32.
 //
 // ---- The mma.sync bodies, D <= 128 (all three kernels)
 //   * 3xTF32: every fp32 operand x is split into big = rna(x) and small =
@@ -160,8 +176,8 @@
 //   * Head dims are zero-padded to 32, 64, 96 or 128 in shared memory.
 //     Rows are copied 16 bytes at a time where D % 4 == 0 and the tensors
 //     are 16-byte aligned, else 4 bytes at a time.
-//   * The bf16 forms of these bodies (the bf16 calls the wgmma bodies do
-//     not take) run over bf16 tiles: a bf16
+//   * The bf16 and fp16 forms of these bodies (the 2-byte calls the wgmma
+//     bodies do not take) run over tiles of their type: a bf16 or fp16
 //     value is a TF32 value exactly, so a product of two inputs is one TF32
 //     mma and one with P or dS two (small*big + big*big).
 //   * What bounds them: each warp splits every fp32 operand it reads and
@@ -180,6 +196,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -196,21 +213,21 @@ template <typename T>
 constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ float to_f32(T x) { return Elem<T>::widen(x); }
 
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
+__device__ __forceinline__ T from_f32(float x) { return Elem<T>::narrow(x); }
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 // two neighbouring outputs (d, d + 1) of one row, in one store
 __device__ __forceinline__ void store2(float* p, float x0, float x1) {
   *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
 }
-__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x0, float x1) {
+  *reinterpret_cast<typename Elem<T>::Pair*>(p) = Elem<T>::pair(x0, x1);
 }
 
 __device__ __forceinline__ int64_t row_offset(int b, int s, int S, int h, int H, int D) {
@@ -697,7 +714,7 @@ __global__ void __launch_bounds__(kTcThreads, dq_min_blocks(kDP))
   store_acc<kNT, T>(dq, acc, mul, b, h, row0, Sq, H, D, vec);
 }
 
-// ===================================== bf16 forward and dK/dV, wgmma + TMA
+// ============================ bf16 and fp16 forward, dQ and dK/dV, wgmma + TMA
 
 constexpr int kWgRows = 64;  // rows of the block's own axis a warpgroup owns: its wgmma M
 // consumer warpgroups a block: the block owns kWgGroups * 64 rows, and each
@@ -705,7 +722,7 @@ constexpr int kWgRows = 64;  // rows of the block's own axis a warpgroup owns: i
 // copies and was slower at BERT's S = 128: half the blocks, each longer)
 constexpr int kWgGroups = 1;
 constexpr int kWgBlockRows = kWgGroups * kWgRows;
-constexpr int kWgCols = 64;  // bf16 columns of a TMA box: one 128-byte swizzled row
+constexpr int kWgCols = 64;  // 2-byte columns of a TMA box: one 128-byte swizzled row
 constexpr int kWgStages = 2;       // tiles of the other axis in the ring
 constexpr int kWgFwdKeys = 64;     // keys a forward tile
 constexpr int kWgDkvQueries = 64;  // queries a dK/dV tile
@@ -725,15 +742,15 @@ constexpr int kWgFwdMinBlocks = 4;
 constexpr int kWgDkvMinBlocks = 3;
 constexpr int kWgDqMinBlocks = 4;
 
-// A tile of kR rows of kDP bf16 columns as TMA writes it: kDP / 64 blocks
+// A tile of kR rows of kDP 2-byte columns as TMA writes it: kDP / 64 blocks
 // of kR x 64, each row 128 bytes, swizzled (kR * 128 is a multiple of the
 // swizzle's 1024-byte period, so every block starts its period)
 template <int kR, int kDP>
 constexpr int kWgTile = kR * kDP;  // elements
 
 // rows [r0, r0 + kR) of head (b, h) into a tile, completing on bar
-template <int kR, int kDP>
-__device__ __forceinline__ void wg_load_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+template <int kR, int kDP, typename T>
+__device__ __forceinline__ void wg_load_tile(T* dst, const CUtensorMap* map, uint64_t* bar,
                                              int b, int h, int r0) {
 #pragma unroll
   for (int c = 0; c < kDP / kWgCols; ++c)
@@ -742,15 +759,15 @@ __device__ __forceinline__ void wg_load_tile(bf16* dst, const CUtensorMap* map, 
 
 // descriptor of rows [row0, row0 + 64) of a kR-row tile read K-major (the
 // head dim reduced), at its 16-column step k16
-template <int kR>
-__device__ __forceinline__ uint64_t wg_desc_k(const bf16* tile, int row0, int k16) {
+template <int kR, typename T>
+__device__ __forceinline__ uint64_t wg_desc_k(const T* tile, int row0, int k16) {
   return gmma_desc(tile + (k16 / 4) * kR * kWgCols + row0 * kWgCols + (k16 % 4) * 16, 16, 1024);
 }
 
 // descriptor of rows [k0, k0 + 16) of a kR-row tile read MN-major (its
 // rows reduced), at its 64-column block c
-template <int kR>
-__device__ __forceinline__ uint64_t wg_desc_mn(const bf16* tile, int k0, int c) {
+template <int kR, typename T>
+__device__ __forceinline__ uint64_t wg_desc_mn(const T* tile, int k0, int c) {
   return gmma_desc(tile + c * kR * kWgCols + k0 * kWgCols, kR * kWgCols * 2, 1024);
 }
 
@@ -760,15 +777,16 @@ __device__ __forceinline__ unsigned char* wg_smem(unsigned char* raw) {
 }
 
 // row r and r + 8 of a 64 x 64 accumulator block (columns c0 + 8j + 2t,
-// + 1), times mul, as bf16 pairs into rows row0 (+ 8) of head (b, h)
-__device__ __forceinline__ void wg_store(bf16* __restrict__ dst, const float (&acc)[32], int c0,
+// + 1), times mul, as pairs of T into rows row0 (+ 8) of head (b, h)
+template <typename T>
+__device__ __forceinline__ void wg_store(T* __restrict__ dst, const float (&acc)[32], int c0,
                                          float mul, int b, int h, int row0, int S, int H, int D) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int s = row0 + 8 * half;
     if (s >= S) continue;
-    bf16* row = dst + row_offset(b, s, S, h, H, D);
+    T* row = dst + row_offset(b, s, S, h, H, D);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = c0 + 8 * j + 2 * t;
@@ -778,29 +796,90 @@ __device__ __forceinline__ void wg_store(bf16* __restrict__ dst, const float (&a
 }
 
 // the 16-wide k step ks of a 64-column block of an fp32 accumulator (its
-// columns 16 (ks % 4) .. + 15) as bf16 hi and lo A fragments
+// columns 16 (ks % 4) .. + 15) as hi and lo A fragments of T
+template <typename T>
 __device__ __forceinline__ void wg_split_a(const float (&acc)[32], int ks, uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
   const int j = 2 * (ks % 4);
-  split_bf16x2(acc[4 * j], acc[4 * j + 1], hi[0], lo[0]);
-  split_bf16x2(acc[4 * j + 2], acc[4 * j + 3], hi[1], lo[1]);
-  split_bf16x2(acc[4 * j + 4], acc[4 * j + 5], hi[2], lo[2]);
-  split_bf16x2(acc[4 * j + 6], acc[4 * j + 7], hi[3], lo[3]);
+  split_x2<T>(acc[4 * j], acc[4 * j + 1], hi[0], lo[0]);
+  split_x2<T>(acc[4 * j + 2], acc[4 * j + 3], hi[1], lo[1]);
+  split_x2<T>(acc[4 * j + 4], acc[4 * j + 5], hi[2], lo[2]);
+  split_x2<T>(acc[4 * j + 6], acc[4 * j + 7], hi[3], lo[3]);
 }
 
-template <int kDP>
+// fp16's range for dS (dQ) and dS^T (dK/dV), the computed operands that
+// can leave it (P is in [0, 1]): before the split, each of this thread's
+// two rows r = (i >> 1) & 1 of the warpgroup's 64 x 64 block x (a row
+// spread over a quad) is multiplied by 2^e[r], with e[r] the least over
+// the tiles so far of 14 - floor(log2 of the row's largest |x|), clamped
+// to kMaxScaleExp: the row's largest scaled value lies in [2^14, 2^15]
+// at the tile that set e, and below it at every other, so no half
+// overflows and the largest keep fp16's full precision. The products
+// accumulate in units of 2^-e: a row's accumulators are rescaled by
+// 2^(e_new - e_old) when e falls (as the online softmax rescales by its
+// running max), and the store multiplies by 2^-e. Powers of two, so every
+// scaling is exact in fp32 (short of fp32's own underflow).
+constexpr int kMaxScaleExp = 60;
+
+// 2^k for -126 <= k <= 127, from its bits (ldexpf's range checks cost the
+// fp16 dK/dV 9% and dQ 5% at the training shape: tools/flash_probe.py)
+__device__ __forceinline__ float pow2(int k) {
+  return __uint_as_float(static_cast<uint32_t>(k + 127) << 23);
+}
+
+template <int kN, int kC>
+__device__ __forceinline__ void scale_rows(float (&x)[kN][32], float (&acc)[kC][32],
+                                           int (&e)[2]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], fabsf(x[n][i]));
+  float mul[2], corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // floor(log2 m) from m's exponent bits (-127 for 0 and subnormals),
+    // so -113 <= en <= 60; a fall past 2^-126 (a row whose earlier tiles
+    // were below 2^-126 of this one's) rescales by 2^-126 alone
+    const int lg = static_cast<int>((__float_as_uint(quad_max(mx[r])) >> 23) & 0xffu) - 127;
+    const int en = min(e[r], min(kMaxScaleExp, 14 - lg));
+    mul[r] = pow2(en);
+    corr[r] = pow2(max(en - e[r], -126));
+    e[r] = en;
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[n][i] *= mul[(i >> 1) & 1];
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i >> 1) & 1];
+}
+
+// undo scale_rows at the store: the rows of acc times 2^-e
+template <int kC>
+__device__ __forceinline__ void unscale_rows(float (&acc)[kC][32], const int (&e)[2]) {
+  const float mul[2] = {pow2(-e[0]), pow2(-e[1])};
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] *= mul[(i >> 1) & 1];
+}
+
+template <int kDP, typename T>
 size_t fwd_wg_smem() {
   // Q, the ring of K and V tiles, barriers (q, full and empty a stage),
   // and room to reach a 1024-byte boundary
-  return sizeof(bf16) * (kWgTile<kWgBlockRows, kDP> + 2 * kWgStages * kWgTile<kWgFwdKeys, kDP>) +
+  return sizeof(T) * (kWgTile<kWgBlockRows, kDP> + 2 * kWgStages * kWgTile<kWgFwdKeys, kDP>) +
          sizeof(uint64_t) * (1 + 2 * kWgStages) + 1024;
 }
 
-template <int kDP>
+template <int kDP, typename T>
 __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgFwdMinBlocks : 1)
     flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                        const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
                         float* __restrict__ lse, int Sq, int Sk, int H, int D, float scale,
                         int causal) {
   constexpr int kBK = kWgFwdKeys;
@@ -808,8 +887,8 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgFwdMinBlocks : 1)
   constexpr int kKC = kBK / 64;       // 64-key blocks of a tile (the wgmma N of S)
   constexpr int kStage = 2 * kWgTile<kBK, kDP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(wg_smem(smem_raw));
-  bf16* ring = qs + kWgTile<kWgBlockRows, kDP>;  // a stage: the K tile, then the V tile
+  T* qs = reinterpret_cast<T*>(wg_smem(smem_raw));
+  T* ring = qs + kWgTile<kWgBlockRows, kDP>;  // a stage: the K tile, then the V tile
   uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kWgStages * kStage);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + kWgStages;
@@ -830,13 +909,13 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgFwdMinBlocks : 1)
   auto produce = [&](int it) {
     const int s = it % kWgStages;
     if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
-    bf16* kt = ring + s * kStage;
-    mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+    T* kt = ring + s * kStage;
+    mbar_arrive_expect_tx(&full[s], sizeof(T) * kStage);
     wg_load_tile<kBK, kDP>(kt, &tk, &full[s], b, h, it * kBK);
     wg_load_tile<kBK, kDP>(kt + kWgTile<kBK, kDP>, &tv, &full[s], b, h, it * kBK);
   };
   if (threadIdx.x == (kWgProducerWarp ? kWgConsumers : 0)) {
-    mbar_arrive_expect_tx(qbar, sizeof(bf16) * kWgTile<kWgBlockRows, kDP>);
+    mbar_arrive_expect_tx(qbar, sizeof(T) * kWgTile<kWgBlockRows, kDP>);
     wg_load_tile<kWgBlockRows, kDP>(qs, &tq, qbar, b, h, q0);
     for (int it = 0; it < (kWgProducerWarp ? ntiles : min(ntiles, kWgStages - 1)); ++it)
       produce(it);
@@ -862,12 +941,12 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgFwdMinBlocks : 1)
       __syncwarp();
     }
     mbar_wait(&full[s], (it / kWgStages) & 1);
-    const bf16* kt = ring + s * kStage;
-    const bf16* vt = kt + kWgTile<kBK, kDP>;
+    const T* kt = ring + s * kStage;
+    const T* vt = kt + kWgTile<kBK, kDP>;
     const int k0 = it * kBK;
     // a causal tile past this warpgroup's last row is all masked for it
     if (!causal || k0 < qw + kWgRows) {
-      // S = Q K^T, one exact product (bf16 x bf16 into fp32)
+      // S = Q K^T, one exact product (T x T into fp32)
       float sc[kKC][32];
 #pragma unroll
       for (int n = 0; n < kKC; ++n) {
@@ -880,7 +959,7 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgFwdMinBlocks : 1)
       for (int n = 0; n < kKC; ++n)
 #pragma unroll
         for (int ks = 0; ks < kDP / 16; ++ks)
-          wgmma_ss(sc[n], wg_desc_k<kWgBlockRows>(qs, wg * kWgRows, ks),
+          wgmma_ss<T>(sc[n], wg_desc_k<kWgBlockRows>(qs, wg * kWgRows, ks),
                    wg_desc_k<kBK>(kt, 64 * n, ks));
       wgmma_commit();
       wgmma_wait_all();
@@ -926,10 +1005,10 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgFwdMinBlocks : 1)
           l[r] += p;
         }
 
-      // O = corr O + P V, P in two bf16 halves (lo, then hi), V read MN-major
+      // O = corr O + P V, P in two halves of T (lo, then hi), V read MN-major
       uint32_t ph[kBK / 16][4], pl[kBK / 16][4];
 #pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) wg_split_a(sc[ks / 4], ks, ph[ks], pl[ks]);
+      for (int ks = 0; ks < kBK / 16; ++ks) wg_split_a<T>(sc[ks / 4], ks, ph[ks], pl[ks]);
 #pragma unroll
       for (int c = 0; c < kNC; ++c) {
 #pragma unroll
@@ -941,8 +1020,8 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgFwdMinBlocks : 1)
       for (int c = 0; c < kNC; ++c)
 #pragma unroll
         for (int ks = 0; ks < kBK / 16; ++ks) {
-          wgmma_rs(acc[c], pl[ks], wg_desc_mn<kBK>(vt, 16 * ks, c));
-          wgmma_rs(acc[c], ph[ks], wg_desc_mn<kBK>(vt, 16 * ks, c));
+          wgmma_rs<T>(acc[c], pl[ks], wg_desc_mn<kBK>(vt, 16 * ks, c));
+          wgmma_rs<T>(acc[c], ph[ks], wg_desc_mn<kBK>(vt, 16 * ks, c));
         }
       wgmma_commit();
       wgmma_wait_all();
@@ -970,33 +1049,33 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgFwdMinBlocks : 1)
   }
 }
 
-template <int kDP>
+template <int kDP, typename T>
 size_t dkv_wg_smem() {
   // K and V of the block; the ring of Q and dO tiles with their lse and
   // delta rows; barriers (K/V, full and empty a stage); 1024-byte room
-  return sizeof(bf16) *
+  return sizeof(T) *
              (2 * kWgTile<kWgBlockRows, kDP> + 2 * kWgStages * kWgTile<kWgDkvQueries, kDP>) +
          sizeof(float) * 2 * kWgStages * kWgDkvQueries + sizeof(uint64_t) * (1 + 2 * kWgStages) +
          1024;
 }
 
-template <int kDP>
+template <int kDP, typename T>
 __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
     flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             const __grid_constant__ CUtensorMap tdo,
                             const float* __restrict__ lse, const float* __restrict__ delta,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+                            T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
                             int D, float scale, int causal) {
   constexpr int kBQ = kWgDkvQueries;
   constexpr int kNC = kDP / kWgCols;
   constexpr int kQC = kBQ / 64;  // 64-query blocks of a tile (the wgmma N of S^T)
   constexpr int kStage = 2 * kWgTile<kBQ, kDP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(wg_smem(smem_raw));
-  bf16* vs = ks + kWgTile<kWgBlockRows, kDP>;
-  bf16* ring = vs + kWgTile<kWgBlockRows, kDP>;  // a stage: the Q tile, then the dO tile
+  T* ks = reinterpret_cast<T*>(wg_smem(smem_raw));
+  T* vs = ks + kWgTile<kWgBlockRows, kDP>;
+  T* ring = vs + kWgTile<kWgBlockRows, kDP>;  // a stage: the Q tile, then the dO tile
   float* lses = reinterpret_cast<float*>(ring + kWgStages * kStage);  // [kWgStages][kBQ]
   float* deltas = lses + kWgStages * kBQ;                             // [kWgStages][kBQ]
   uint64_t* kvbar = reinterpret_cast<uint64_t*>(deltas + kWgStages * kBQ);
@@ -1027,8 +1106,8 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
     const int s = it % kWgStages, q0 = q_start + it * kBQ;
     if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
     if (lane == 0) {
-      bf16* qt = ring + s * kStage;
-      mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+      T* qt = ring + s * kStage;
+      mbar_arrive_expect_tx(&full[s], sizeof(T) * kStage);
       wg_load_tile<kBQ, kDP>(qt, &tq, &full[s], b, h, q0);
       wg_load_tile<kBQ, kDP>(qt + kWgTile<kBQ, kDP>, &tdo, &full[s], b, h, q0);
     }
@@ -1043,7 +1122,7 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
   const int warp = threadIdx.x >> 5;
   if (warp == (kWgProducerWarp ? kWgConsumers / 32 : 0)) {
     if (lane == 0) {
-      mbar_arrive_expect_tx(kvbar, sizeof(bf16) * 2 * kWgTile<kWgBlockRows, kDP>);
+      mbar_arrive_expect_tx(kvbar, sizeof(T) * 2 * kWgTile<kWgBlockRows, kDP>);
       wg_load_tile<kWgBlockRows, kDP>(ks, &tk, kvbar, b, h, k0);
       wg_load_tile<kWgBlockRows, kDP>(vs, &tv, kvbar, b, h, k0);
     }
@@ -1061,14 +1140,15 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
   for (int c = 0; c < kNC; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
+  int ex[2] = {kMaxScaleExp, kMaxScaleExp};  // fp16: dS^T's row exponents (scale_rows)
   mbar_wait(kvbar, 0);
 
   for (int it = 0; it < ntiles; ++it) {
     const int s = it % kWgStages, q0 = q_start + it * kBQ;
     if (!kWgProducerWarp && warp == 0 && it + kWgStages - 1 < ntiles) produce(it + kWgStages - 1);
     mbar_wait(&full[s], (it / kWgStages) & 1);
-    const bf16* qt = ring + s * kStage;
-    const bf16* dot = qt + kWgTile<kBQ, kDP>;
+    const T* qt = ring + s * kStage;
+    const T* dot = qt + kWgTile<kBQ, kDP>;
     const float* lt = lses + s * kBQ;
     const float* det = deltas + s * kBQ;
     // a causal tile of queries before this warpgroup's first key is all
@@ -1088,9 +1168,9 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
       for (int n = 0; n < kQC; ++n)
 #pragma unroll
         for (int kk = 0; kk < kDP / 16; ++kk) {
-          wgmma_ss(st[n], wg_desc_k<kWgBlockRows>(ks, wg * kWgRows, kk),
+          wgmma_ss<T>(st[n], wg_desc_k<kWgBlockRows>(ks, wg * kWgRows, kk),
                    wg_desc_k<kBQ>(qt, 64 * n, kk));
-          wgmma_ss(dpt[n], wg_desc_k<kWgBlockRows>(vs, wg * kWgRows, kk),
+          wgmma_ss<T>(dpt[n], wg_desc_k<kWgBlockRows>(vs, wg * kWgRows, kk),
                    wg_desc_k<kBQ>(dot, 64 * n, kk));
         }
       wgmma_commit();
@@ -1124,14 +1204,18 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
       else
         probs(std::true_type{});
 
+      // fp16: each key row of dS^T times 2^e first, dK's sum in units of
+      // 2^-e (scale_rows)
+      if constexpr (Elem<T>::kF16) scale_rows(dpt, dk_acc, ex);
+
       // dV += P^T dO and dK += dS^T Q (scaled at the store), P^T and dS^T in
-      // two bf16 halves (lo, then hi), dO and Q read MN-major from the tiles
+      // two halves of T (lo, then hi), dO and Q read MN-major from the tiles
       // the products above read K-major
       uint32_t ph[kBQ / 16][4], pl[kBQ / 16][4], dh[kBQ / 16][4], dl[kBQ / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kBQ / 16; ++kk) {
-        wg_split_a(st[kk / 4], kk, ph[kk], pl[kk]);
-        wg_split_a(dpt[kk / 4], kk, dh[kk], dl[kk]);
+        wg_split_a<T>(st[kk / 4], kk, ph[kk], pl[kk]);
+        wg_split_a<T>(dpt[kk / 4], kk, dh[kk], dl[kk]);
       }
 #pragma unroll
       for (int c = 0; c < kNC; ++c) {
@@ -1143,10 +1227,10 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
       for (int c = 0; c < kNC; ++c)
 #pragma unroll
         for (int kk = 0; kk < kBQ / 16; ++kk) {
-          wgmma_rs(dv_acc[c], pl[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));
-          wgmma_rs(dv_acc[c], ph[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));
-          wgmma_rs(dk_acc[c], dl[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));
-          wgmma_rs(dk_acc[c], dh[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));
+          wgmma_rs<T>(dv_acc[c], pl[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));
+          wgmma_rs<T>(dv_acc[c], ph[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));
+          wgmma_rs<T>(dk_acc[c], dl[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));
+          wgmma_rs<T>(dk_acc[c], dh[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));
         }
       wgmma_commit();
       wgmma_wait_all();
@@ -1159,6 +1243,7 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
+  if constexpr (Elem<T>::kF16) unscale_rows(dk_acc, ex);
 #pragma unroll
   for (int c = 0; c < kNC; ++c) {
     wg_store(dk, dk_acc[c], c * kWgCols, scale, b, h, key0, Sk, H, D);
@@ -1166,23 +1251,23 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDkvMinBlocks : 1)
   }
 }
 
-template <int kDP>
+template <int kDP, typename T>
 size_t dq_wg_smem() {
   // Q and dO of the block; the ring of K and V tiles; barriers (Q/dO,
   // full and empty a stage); the block's lse and delta rows; 1024-byte room
-  return sizeof(bf16) *
+  return sizeof(T) *
              (2 * kWgTile<kWgBlockRows, kDP> + 2 * kWgStages * kWgTile<kWgDqKeys, kDP>) +
          sizeof(uint64_t) * (1 + 2 * kWgStages) + sizeof(float) * 2 * kWgBlockRows + 1024;
 }
 
-template <int kDP>
+template <int kDP, typename T>
 __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
     flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tdo,
                            const float* __restrict__ lse, const float* __restrict__ delta,
-                           bf16* __restrict__ dq, int Sq, int Sk, int H, int D, float scale,
+                           T* __restrict__ dq, int Sq, int Sk, int H, int D, float scale,
                            int causal) {
   constexpr int kBK = kWgDqKeys;
   constexpr int kNC = kDP / kWgCols;
@@ -1190,9 +1275,9 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
   constexpr int kStage = 2 * kWgTile<kBK, kDP>;
   static_assert(kWgConsumers == 2 * kWgBlockRows, "one lse or delta row a consumer thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(wg_smem(smem_raw));
-  bf16* dos = qs + kWgTile<kWgBlockRows, kDP>;
-  bf16* ring = dos + kWgTile<kWgBlockRows, kDP>;  // a stage: the K tile, then the V tile
+  T* qs = reinterpret_cast<T*>(wg_smem(smem_raw));
+  T* dos = qs + kWgTile<kWgBlockRows, kDP>;
+  T* ring = dos + kWgTile<kWgBlockRows, kDP>;  // a stage: the K tile, then the V tile
   uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kWgStages * kStage);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + kWgStages;
@@ -1217,13 +1302,13 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
   auto produce = [&](int it) {
     const int s = it % kWgStages;
     if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
-    bf16* kvt = ring + s * kStage;
-    mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+    T* kvt = ring + s * kStage;
+    mbar_arrive_expect_tx(&full[s], sizeof(T) * kStage);
     wg_load_tile<kBK, kDP>(kvt, &tk, &full[s], b, h, it * kBK);
     wg_load_tile<kBK, kDP>(kvt + kWgTile<kBK, kDP>, &tv, &full[s], b, h, it * kBK);
   };
   if (threadIdx.x == (kWgProducerWarp ? kWgConsumers : 0)) {
-    mbar_arrive_expect_tx(qbar, sizeof(bf16) * 2 * kWgTile<kWgBlockRows, kDP>);
+    mbar_arrive_expect_tx(qbar, sizeof(T) * 2 * kWgTile<kWgBlockRows, kDP>);
     wg_load_tile<kWgBlockRows, kDP>(qs, &tq, qbar, b, h, q0);
     wg_load_tile<kWgBlockRows, kDP>(dos, &tdo, qbar, b, h, q0);
     for (int it = 0; it < (kWgProducerWarp ? ntiles : min(ntiles, kWgStages - 1)); ++it)
@@ -1254,6 +1339,7 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
   for (int c = 0; c < kNC; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  int ex[2] = {kMaxScaleExp, kMaxScaleExp};  // fp16: dS's row exponents (scale_rows)
   mbar_wait(qbar, 0);
   // lse (times log2(e)) and delta of this thread's two rows
   float lse2[2], dlt[2];
@@ -1270,8 +1356,8 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
       __syncwarp();
     }
     mbar_wait(&full[s], (it / kWgStages) & 1);
-    const bf16* kt = ring + s * kStage;
-    const bf16* vt = kt + kWgTile<kBK, kDP>;
+    const T* kt = ring + s * kStage;
+    const T* vt = kt + kWgTile<kBK, kDP>;
     const int k0 = it * kBK;
     // a causal tile past this warpgroup's last row is all masked for it
     if (!causal || k0 < qw + kWgRows) {
@@ -1289,9 +1375,9 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
       for (int n = 0; n < kKC; ++n)
 #pragma unroll
         for (int ks = 0; ks < kDP / 16; ++ks) {
-          wgmma_ss(sc[n], wg_desc_k<kWgBlockRows>(qs, wg * kWgRows, ks),
+          wgmma_ss<T>(sc[n], wg_desc_k<kWgBlockRows>(qs, wg * kWgRows, ks),
                    wg_desc_k<kBK>(kt, 64 * n, ks));
-          wgmma_ss(dp[n], wg_desc_k<kWgBlockRows>(dos, wg * kWgRows, ks),
+          wgmma_ss<T>(dp[n], wg_desc_k<kWgBlockRows>(dos, wg * kWgRows, ks),
                    wg_desc_k<kBK>(vt, 64 * n, ks));
         }
       wgmma_commit();
@@ -1323,11 +1409,15 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
       else
         dscores(std::true_type{});
 
-      // dQ += dS K (scaled at the store), dS in two bf16 halves (lo, then
+      // fp16: each row of dS times 2^e first, dQ's sum in units of 2^-e
+      // (scale_rows)
+      if constexpr (Elem<T>::kF16) scale_rows(sc, acc, ex);
+
+      // dQ += dS K (scaled at the store), dS in two halves of T (lo, then
       // hi), K read MN-major from the tile S = Q K^T read K-major
       uint32_t dh[kBK / 16][4], dl[kBK / 16][4];
 #pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) wg_split_a(sc[ks / 4], ks, dh[ks], dl[ks]);
+      for (int ks = 0; ks < kBK / 16; ++ks) wg_split_a<T>(sc[ks / 4], ks, dh[ks], dl[ks]);
 #pragma unroll
       for (int c = 0; c < kNC; ++c) fence_acc(acc[c]);
       wgmma_fence();
@@ -1335,8 +1425,8 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
       for (int c = 0; c < kNC; ++c)
 #pragma unroll
         for (int ks = 0; ks < kBK / 16; ++ks) {
-          wgmma_rs(acc[c], dl[ks], wg_desc_mn<kBK>(kt, 16 * ks, c));
-          wgmma_rs(acc[c], dh[ks], wg_desc_mn<kBK>(kt, 16 * ks, c));
+          wgmma_rs<T>(acc[c], dl[ks], wg_desc_mn<kBK>(kt, 16 * ks, c));
+          wgmma_rs<T>(acc[c], dh[ks], wg_desc_mn<kBK>(kt, 16 * ks, c));
         }
       wgmma_commit();
       wgmma_wait_all();
@@ -1347,6 +1437,7 @@ __global__ void __launch_bounds__(kWgThreads, kDP <= 64 ? kWgDqMinBlocks : 1)
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
   }
   // dQ = scale * dS K (the TPU kernel scales at the end too)
+  if constexpr (Elem<T>::kF16) unscale_rows(acc, ex);
 #pragma unroll
   for (int c = 0; c < kNC; ++c) wg_store(dq, acc[c], c * kWgCols, scale, b, h, row0, Sq, H, D);
 }
@@ -1668,23 +1759,18 @@ size_t smem_bytes(Kind kind) {
   }
 }
 
-// raise the kernel's dynamic shared-memory limit once (the first launch
-// of each instance); later launches, such as those captured into a CUDA
-// graph, set nothing here
+// raise the kernel's dynamic shared-memory limit once a device (the first
+// launch of each instance on it, raise_smem_once); later launches, such as
+// those captured into a CUDA graph, set nothing here
 template <typename Kernel>
-int prepare(Kernel kernel, size_t smem, bool* ready) {
+int prepare(Kernel kernel, size_t smem, bool (&raised)[kMaxDevices]) {
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024 && !*ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  *ready = true;
-  return 0;
+  if (smem <= 48 * 1024) return 0;
+  return raise_smem_once(kernel, static_cast<int>(smem), raised);
 }
 
-// device pointers of either form (float or bf16 for q, k, v, dO, o, dq,
-// dk, dv; float for lse and delta)
+// device pointers of any form (float, bf16 or fp16 for q, k, v, dO, o,
+// dq, dk, dv; float for lse and delta)
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse_in, *delta;
@@ -1698,7 +1784,7 @@ struct Args {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // 16-byte copies and paired stores need whole 16-byte chunks a row (D a
-// multiple of 4 floats or 8 bf16) and 16-byte aligned rows in every
+// multiple of 4 floats or 8 2-byte elements) and 16-byte aligned rows in every
 // tensor the kernel copies or stores
 template <typename T>
 bool vector_rows(const Args& a, Kind kind) {
@@ -1715,14 +1801,17 @@ const T* in(const void* p) { return static_cast<const T*>(p); }
 template <typename T>
 T* out(void* p) { return static_cast<T*>(p); }
 
+// the limit-raised flags of a launcher's three kernels, by device
+using Raised = bool[3][kMaxDevices];
+
 template <int kDP, typename T>
 int launch_tc(Kind kind, const Args& a) {
-  static bool ready[3] = {false, false, false};
+  static Raised ready = {};
   const int vec = vector_rows<T>(a, kind) ? 1 : 0;
   int rc = 0;
   if (kind == Kind::kFwd) {
     const size_t smem = fwd_tc_smem<kDP, T>();
-    rc = prepare(flash_fwd_tc_kernel<kDP, T>, smem, &ready[0]);
+    rc = prepare(flash_fwd_tc_kernel<kDP, T>, smem, ready[0]);
     if (rc) return rc;
     const dim3 grid((a.Sq + kTcRows - 1) / kTcRows, a.H, a.B);
     flash_fwd_tc_kernel<kDP, T><<<grid, kTcThreads, smem, a.stream>>>(
@@ -1730,7 +1819,7 @@ int launch_tc(Kind kind, const Args& a) {
         a.causal, vec);
   } else if (kind == Kind::kDq) {
     const size_t smem = dq_tc_smem<kDP, T>();
-    rc = prepare(flash_bwd_dq_tc_kernel<kDP, T>, smem, &ready[1]);
+    rc = prepare(flash_bwd_dq_tc_kernel<kDP, T>, smem, ready[1]);
     if (rc) return rc;
     const dim3 grid((a.Sq + kTcRows - 1) / kTcRows, a.H, a.B);
     flash_bwd_dq_tc_kernel<kDP, T><<<grid, kTcThreads, smem, a.stream>>>(
@@ -1738,7 +1827,7 @@ int launch_tc(Kind kind, const Args& a) {
         a.Sq, a.Sk, a.H, a.D, a.scale, a.causal, vec);
   } else {
     const size_t smem = dkv_tc_smem<kDP, T>();
-    rc = prepare(flash_bwd_dkv_tc_kernel<kDP, T>, smem, &ready[2]);
+    rc = prepare(flash_bwd_dkv_tc_kernel<kDP, T>, smem, ready[2]);
     if (rc) return rc;
     const dim3 grid((a.Sk + kTcRows - 1) / kTcRows, a.H, a.B);
     flash_bwd_dkv_tc_kernel<kDP, T><<<grid, kTcThreads, smem, a.stream>>>(
@@ -1748,20 +1837,29 @@ int launch_tc(Kind kind, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Which body a call takes. The bf16 forward, dQ and dK/dV take the wgmma
-// bodies where their tensors suit TMA: 32 < D <= 128 with D % 8 == 0 (a
-// head's row is whole 16-byte chunks, and so is every stride of the
-// tensor map) and the base of every tensor the kind reads or writes
-// 16-byte aligned (vector_rows). Other calls at D <= 128 keep the
-// mma.sync bodies: the fp32 forms, and bf16 calls with D <= 32 (a
+// Which body a call takes. The bf16 and fp16 forward, dQ and dK/dV take
+// the wgmma bodies where their tensors suit TMA: 32 < D <= 128 with
+// D % 8 == 0 (a head's row is whole 16-byte chunks, and so is every
+// stride of the tensor map) and the base of every tensor the kind reads
+// or writes 16-byte aligned (vector_rows). Other calls at D <= 128 keep
+// the mma.sync bodies: the fp32 forms, and 2-byte calls with D <= 32 (a
 // 64-column tile would be mostly padding), D % 8 != 0 or a misaligned
 // view. D > 128 runs on the CUDA cores.
 enum class Body { kMmaSync = 0, kWgmma = 1, kCudaCores = 2 };
+// the forms, as ff_flash_body numbers them
+enum class Form { kF32 = 0, kBf16 = 1, kF16 = 2 };
 
-Body body_of(bool bf16_form, Kind kind, const Args& a) {
+Body body_of(Form form, Kind kind, const Args& a) {
   if (a.D > 128) return Body::kCudaCores;
-  if (!bf16_form || a.D <= 32) return Body::kMmaSync;
-  return vector_rows<bf16>(a, kind) ? Body::kWgmma : Body::kMmaSync;
+  if (form == Form::kF32 || a.D <= 32) return Body::kMmaSync;
+  return vector_rows<bf16>(a, kind) ? Body::kWgmma : Body::kMmaSync;  // any 2-byte type
+}
+
+template <typename T>
+constexpr Form form_of() {
+  return std::is_same<T, float>::value ? Form::kF32
+         : std::is_same<T, bf16>::value ? Form::kBf16
+                                        : Form::kF16;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1789,10 +1887,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 4-D tensor map (D, H, S, B innermost first) of a [B,S,H,D] bf16
-// tensor in place, whose box is `rows` rows of 64 columns of one head,
-// written with the 128-byte swizzle; reads past S or D fill zeros
-int tile_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, int rows) {
+// a 4-D tensor map (D, H, S, B innermost first) of a [B,S,H,D] tensor of
+// a 2-byte type in place, whose box is `rows` rows of 64 columns of one
+// head, written with the 128-byte swizzle; reads past S or D fill zeros
+int tile_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int B, int S, int H,
+             int D, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
@@ -1801,17 +1900,18 @@ int tile_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, int
   const cuuint64_t strides[3] = {2ull * D, row, row * S};
   const cuuint32_t box[4] = {kWgCols, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the bf16 wgmma bodies, head dims padded to 64 or 128
-template <int kDP>
+// the wgmma bodies of T (bf16 or fp16), head dims padded to 64 or 128
+template <int kDP, typename T>
 int launch_wg(Kind kind, const Args& a) {
-  static bool ready[3] = {false, false, false};
+  static Raised ready = {};
+  constexpr CUtensorMapDataType kType = Elem<T>::kTma;
   // the rows of each tensor map's box: the block's own 64 rows, or a tile
   // of the axis that streams through the ring
   const int q_rows = kind == Kind::kDkv ? kWgDkvQueries : kWgBlockRows;
@@ -1819,33 +1919,33 @@ int launch_wg(Kind kind, const Args& a) {
                       : kind == Kind::kDq ? kWgDqKeys
                                           : kWgBlockRows;
   CUtensorMap tq, tk, tv, tdo;
-  int rc = tile_map(&tq, a.q, a.B, a.Sq, a.H, a.D, q_rows);
-  if (!rc) rc = tile_map(&tk, a.k, a.B, a.Sk, a.H, a.D, kv_rows);
-  if (!rc) rc = tile_map(&tv, a.v, a.B, a.Sk, a.H, a.D, kv_rows);
-  if (!rc && kind != Kind::kFwd) rc = tile_map(&tdo, a.dout, a.B, a.Sq, a.H, a.D, q_rows);
+  int rc = tile_map(&tq, kType, a.q, a.B, a.Sq, a.H, a.D, q_rows);
+  if (!rc) rc = tile_map(&tk, kType, a.k, a.B, a.Sk, a.H, a.D, kv_rows);
+  if (!rc) rc = tile_map(&tv, kType, a.v, a.B, a.Sk, a.H, a.D, kv_rows);
+  if (!rc && kind != Kind::kFwd) rc = tile_map(&tdo, kType, a.dout, a.B, a.Sq, a.H, a.D, q_rows);
   if (rc) return rc;
   if (kind == Kind::kFwd) {
-    const size_t smem = fwd_wg_smem<kDP>();
-    rc = prepare(flash_fwd_wg_kernel<kDP>, smem, &ready[0]);
+    const size_t smem = fwd_wg_smem<kDP, T>();
+    rc = prepare(flash_fwd_wg_kernel<kDP, T>, smem, ready[0]);
     if (rc) return rc;
     const dim3 grid((a.Sq + kWgBlockRows - 1) / kWgBlockRows, a.H, a.B);
-    flash_fwd_wg_kernel<kDP><<<grid, kWgThreads, smem, a.stream>>>(
-        tq, tk, tv, out<bf16>(a.o), a.lse, a.Sq, a.Sk, a.H, a.D, a.scale, a.causal);
+    flash_fwd_wg_kernel<kDP, T><<<grid, kWgThreads, smem, a.stream>>>(
+        tq, tk, tv, out<T>(a.o), a.lse, a.Sq, a.Sk, a.H, a.D, a.scale, a.causal);
   } else if (kind == Kind::kDq) {
-    const size_t smem = dq_wg_smem<kDP>();
-    rc = prepare(flash_bwd_dq_wg_kernel<kDP>, smem, &ready[1]);
+    const size_t smem = dq_wg_smem<kDP, T>();
+    rc = prepare(flash_bwd_dq_wg_kernel<kDP, T>, smem, ready[1]);
     if (rc) return rc;
     const dim3 grid((a.Sq + kWgBlockRows - 1) / kWgBlockRows, a.H, a.B);
-    flash_bwd_dq_wg_kernel<kDP><<<grid, kWgThreads, smem, a.stream>>>(
-        tq, tk, tv, tdo, a.lse_in, a.delta, out<bf16>(a.dq), a.Sq, a.Sk, a.H, a.D, a.scale,
+    flash_bwd_dq_wg_kernel<kDP, T><<<grid, kWgThreads, smem, a.stream>>>(
+        tq, tk, tv, tdo, a.lse_in, a.delta, out<T>(a.dq), a.Sq, a.Sk, a.H, a.D, a.scale,
         a.causal);
   } else {
-    const size_t smem = dkv_wg_smem<kDP>();
-    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[2]);
+    const size_t smem = dkv_wg_smem<kDP, T>();
+    rc = prepare(flash_bwd_dkv_wg_kernel<kDP, T>, smem, ready[2]);
     if (rc) return rc;
     const dim3 grid((a.Sk + kWgBlockRows - 1) / kWgBlockRows, a.H, a.B);
-    flash_bwd_dkv_wg_kernel<kDP><<<grid, kWgThreads, smem, a.stream>>>(
-        tq, tk, tv, tdo, a.lse_in, a.delta, out<bf16>(a.dk), out<bf16>(a.dv), a.Sq, a.Sk, a.H,
+    flash_bwd_dkv_wg_kernel<kDP, T><<<grid, kWgThreads, smem, a.stream>>>(
+        tq, tk, tv, tdo, a.lse_in, a.delta, out<T>(a.dk), out<T>(a.dv), a.Sq, a.Sk, a.H,
         a.D, a.scale, a.causal);
   }
   return static_cast<int>(cudaGetLastError());
@@ -1872,8 +1972,8 @@ int launch_simt(Kind kind, const Args& a) {
   static_assert(kNDC > 4, "D <= 128 takes the tensor cores");
   const size_t smem = smem_bytes<kNDC>(kind);
   const int rows = kWarps * simt_rows(kNDC);  // of the block's own axis
-  static bool ready[3] = {false, false, false};
-  bool* r = &ready[static_cast<int>(kind)];
+  static Raised ready = {};
+  bool(&r)[kMaxDevices] = ready[static_cast<int>(kind)];
   int rc = 0;
   if (kind == Kind::kFwd) {
     rc = prepare(flash_fwd_kernel<kNDC, T>, smem, r);
@@ -1905,9 +2005,9 @@ int dispatch(Kind kind, const Args& a) {
   if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.H < 1 || a.D < 1 || a.D > kMaxHeadDim ||
       a.B > 65535 || a.H > 65535 || (a.causal && a.Sq != a.Sk))
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (body_of(true, kind, a) == Body::kWgmma)
-      return a.D <= 64 ? launch_wg<64>(kind, a) : launch_wg<128>(kind, a);
+  if constexpr (!std::is_same<T, float>::value) {
+    if (body_of(form_of<T>(), kind, a) == Body::kWgmma)
+      return a.D <= 64 ? launch_wg<64, T>(kind, a) : launch_wg<128, T>(kind, a);
   }
   if (a.D <= 32) return launch_tc<32, T>(kind, a);
   if (a.D <= 64) return launch_tc<64, T>(kind, a);
@@ -1953,42 +2053,44 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 
 // Plain C interface, bound with ctypes (flexflow_tpu_torch/ops/kernels/_build.py).
 // Every pointer is a device pointer to contiguous data: q, dout, o, dq
-// [B,Sq,H,D]; k, v, dk, dv [B,Sk,H,D], fp32 in the _f32 form and bf16 in
-// the _bf16 form; lse, delta [B,Sq,H] fp32 in both. stream is a
-// cudaStream_t. Each returns the cudaError_t of its launch (0 on success).
+// [B,Sq,H,D]; k, v, dk, dv [B,Sk,H,D], fp32 in the _f32 form, bf16 in the
+// _bf16 form and fp16 in the _f16 form; lse, delta [B,Sq,H] fp32 in all
+// three. stream is a cudaStream_t. Each launch runs on the current device
+// and returns the cudaError_t of its launch (0 on success).
 
 // The body a launch with these arguments takes (body_of): 0 the mma.sync
-// tensor-core body, 1 the bf16 wgmma body, 2 the CUDA cores. kind 0 is the
-// forward (out0 = o), 1 dQ (out0 = dq), 2 dK/dV (out0 = dk, out1 = dv).
-extern "C" int ff_flash_body(int bf16_form, int kind, const void* q, const void* k,
-                             const void* v, const void* dout, const void* out0,
-                             const void* out1, int D) {
+// tensor-core body, 1 the wgmma body, 2 the CUDA cores. form 0 is fp32, 1
+// bf16, 2 fp16; kind 0 is the forward (out0 = o), 1 dQ (out0 = dq), 2
+// dK/dV (out0 = dk, out1 = dv).
+extern "C" int ff_flash_body(int form, int kind, const void* q, const void* k, const void* v,
+                             const void* dout, const void* out0, const void* out1, int D) {
   Args a{q, k, v, dout, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
          1, 1, 1, 1, D, 0, 1.f, nullptr};
   const Kind kinds[3] = {Kind::kFwd, Kind::kDq, Kind::kDkv};
-  if (kind < 0 || kind > 2) return -1;
+  if (kind < 0 || kind > 2 || form < 0 || form > 2) return -1;
   if (kind == 0) a.o = const_cast<void*>(out0);
   if (kind == 1) a.dq = const_cast<void*>(out0);
   if (kind == 2) {
     a.dk = const_cast<void*>(out0);
     a.dv = const_cast<void*>(out1);
   }
-  return static_cast<int>(body_of(bf16_form != 0, kinds[kind], a));
+  return static_cast<int>(body_of(static_cast<Form>(form), kinds[kind], a));
 }
 
 // Blocks an SM holds of the bf16 wgmma forward (kind 0), dQ (kind 1) or
-// dK/dV (kind 2) instance for head dim D (32 < D <= 128); -1 otherwise or
-// on an error.
+// dK/dV (kind 2) instance for head dim D (32 < D <= 128), the fp16 ones'
+// too (the same shared memory and register budget); -1 otherwise or on an
+// error.
 extern "C" int ff_flash_wg_blocks_per_sm(int kind, int D) {
   if (D <= 32 || D > 128 || kind < 0 || kind > 2) return -1;
   if (kind == 0)
-    return D <= 64 ? blocks_per_sm(flash_fwd_wg_kernel<64>, fwd_wg_smem<64>())
-                   : blocks_per_sm(flash_fwd_wg_kernel<128>, fwd_wg_smem<128>());
+    return D <= 64 ? blocks_per_sm(flash_fwd_wg_kernel<64, bf16>, fwd_wg_smem<64, bf16>())
+                   : blocks_per_sm(flash_fwd_wg_kernel<128, bf16>, fwd_wg_smem<128, bf16>());
   if (kind == 1)
-    return D <= 64 ? blocks_per_sm(flash_bwd_dq_wg_kernel<64>, dq_wg_smem<64>())
-                   : blocks_per_sm(flash_bwd_dq_wg_kernel<128>, dq_wg_smem<128>());
-  return D <= 64 ? blocks_per_sm(flash_bwd_dkv_wg_kernel<64>, dkv_wg_smem<64>())
-                 : blocks_per_sm(flash_bwd_dkv_wg_kernel<128>, dkv_wg_smem<128>());
+    return D <= 64 ? blocks_per_sm(flash_bwd_dq_wg_kernel<64, bf16>, dq_wg_smem<64, bf16>())
+                   : blocks_per_sm(flash_bwd_dq_wg_kernel<128, bf16>, dq_wg_smem<128, bf16>());
+  return D <= 64 ? blocks_per_sm(flash_bwd_dkv_wg_kernel<64, bf16>, dkv_wg_smem<64, bf16>())
+                 : blocks_per_sm(flash_bwd_dkv_wg_kernel<128, bf16>, dkv_wg_smem<128, bf16>());
 }
 
 extern "C" int ff_flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
@@ -2031,4 +2133,24 @@ extern "C" int ff_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v
                                      float scale, int causal, void* stream) {
   return bwd_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D, scale, causal,
                        stream);
+}
+
+extern "C" int ff_flash_fwd_f16(const f16* q, const f16* k, const f16* v, f16* o, float* lse,
+                                int B, int Sq, int Sk, int H, int D, float scale, int causal,
+                                void* stream) {
+  return fwd<f16>(q, k, v, o, lse, B, Sq, Sk, H, D, scale, causal, stream);
+}
+
+extern "C" int ff_flash_bwd_dq_f16(const f16* q, const f16* k, const f16* v, const f16* dout,
+                                   const float* lse, const float* delta, f16* dq, int B, int Sq,
+                                   int Sk, int H, int D, float scale, int causal, void* stream) {
+  return bwd_dq<f16>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, D, scale, causal, stream);
+}
+
+extern "C" int ff_flash_bwd_dkv_f16(const f16* q, const f16* k, const f16* v, const f16* dout,
+                                    const float* lse, const float* delta, f16* dk, f16* dv,
+                                    int B, int Sq, int Sk, int H, int D, float scale, int causal,
+                                    void* stream) {
+  return bwd_dkv<f16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D, scale, causal,
+                      stream);
 }

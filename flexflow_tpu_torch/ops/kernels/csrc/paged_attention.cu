@@ -862,17 +862,13 @@ int launch(const float* q, const T* k_cache, const T* v_cache, const int* block_
     --stages;
   const size_t smem = smem_bytes<T>(wl, D, bt_held, stages);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  // raise the dynamic shared-memory limit once (the first launch of each
-  // instance); later launches, such as those captured into a CUDA graph,
-  // set nothing
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(paged_append_kernel<T, kMaxW, kSplit, kMaxD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemLimit));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
-  }
+  // raise the dynamic shared-memory limit once a device (the first launch
+  // of each instance on it); later launches, such as those captured into a
+  // CUDA graph, set nothing
+  static bool raised[kMaxDevices] = {};
+  const int rc = raise_smem_once(paged_append_kernel<T, kMaxW, kSplit, kMaxD>,
+                                 static_cast<int>(kSmemLimit), raised);
+  if (rc) return rc;
   // a cluster per (query tile, head, sequence)
   return launch_clusters(paged_append_kernel<T, kMaxW, kSplit, kMaxD>,
                          dim3(C, H, B * ((W + kMaxW - 1) / kMaxW)), C, smem, stream, q, k_cache,
@@ -908,14 +904,10 @@ int launch_tc(const float* q, const T* k_cache, const T* v_cache, const int* blo
               int C, int cta_cols, int bt_held, float scale, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<T, kDP>(bt_held);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  static bool ready = false;  // the limit is raised once, as in launch()
-  if (!ready) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(paged_append_tc_kernel<T, kSplit, kDP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemLimit));
-    ready = e == cudaSuccess;
-    if (!ready) return static_cast<int>(e);
-  }
+  static bool raised[kMaxDevices] = {};  // the limit is raised once a device, as in launch()
+  const int rc = raise_smem_once(paged_append_tc_kernel<T, kSplit, kDP>,
+                                 static_cast<int>(kSmemLimit), raised);
+  if (rc) return rc;
   return launch_clusters(paged_append_tc_kernel<T, kSplit, kDP>,
                          dim3(C, H, B * ((W + kTcQueries - 1) / kTcQueries)), C, smem, stream, q,
                          k_cache, v_cache, block_tables, q_positions, out, W, H, D, bs, MB,

@@ -41,7 +41,8 @@ Two lowerings, chosen by where the tensors lie:
   :func:`paged_append_attention` launches the kernel or raises; it never
   falls back to the plain version.
 
-Each kernel launch adds one to its form's count in :data:`LAUNCHES`
+Each kernel launch runs on the device of its tensors (whatever the
+current device is) and adds one to its form's count in :data:`LAUNCHES`
 (``paged_append`` and ``paged_append_split`` for a float32 cache, with
 ``_bf16`` or ``_f16`` for a 2-byte one), and to the same form's count of
 its window's class in :data:`LAUNCHES_BY_WINDOW`, so a run
@@ -368,12 +369,14 @@ def paged_append_attention_kernel(
     symbol = f"ff_paged_append_{form}"
     b, w, h, d = q.shape
     out = torch.empty_like(q)
-    rc = getattr(load_library(), symbol)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-        b, w, h, d, k_cache.shape[1], block_tables.shape[1], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, symbol)(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
+            b, w, h, d, k_cache.shape[1], block_tables.shape[1], float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _raise_on_error(rc, symbol)
     _count_launch("paged_append" + count, w)
     return out
@@ -394,12 +397,14 @@ def paged_append_split_kernel(
     b, w, h, d = q.shape
     ctas, cols = split_plan(kv_splits, block_tables.shape[1])
     out = torch.empty_like(q)
-    rc = getattr(load_library(), symbol)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-        b, w, h, d, k_cache.shape[1], block_tables.shape[1], ctas, cols,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, symbol)(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
+            b, w, h, d, k_cache.shape[1], block_tables.shape[1], ctas, cols,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _raise_on_error(rc, symbol)
     _count_launch("paged_append_split" + count, w)
     return out

@@ -19,15 +19,16 @@ Two lowerings, chosen by where the tensors lie (or by ``backend``):
   to the plain version. Each kernel has up to three bodies, chosen by
   the library per call (:func:`kernel_body`):
 
-  - ``"wgmma"``: the bf16 forward, dQ and dK/dV where the tensors suit
-    TMA copies — 32 < D <= 128, D a multiple of 8 and the base of every
-    tensor the kernel reads or writes 16-byte aligned: warpgroup bf16
-    ``wgmma`` products fed by TMA, the computed operand (P, dS) in two
-    bf16 halves;
+  - ``"wgmma"``: the bf16 and fp16 forward, dQ and dK/dV where the
+    tensors suit TMA copies — 32 < D <= 128, D a multiple of 8 and the
+    base of every tensor the kernel reads or writes 16-byte aligned:
+    warpgroup bf16 or fp16 ``wgmma`` products fed by TMA, the computed
+    operand (P, dS) in two halves of the type (fp16's dS scaled by a
+    power of two a row first, to stay in fp16's range);
   - ``"mma_sync"``: every other call at D <= 128 — the fp32 forms
-    (3xTF32 ``mma.sync``), and bf16 calls with D <= 32, D % 8 != 0 or a
-    misaligned view (one TF32 product for two bf16 operands, two for a
-    computed one);
+    (3xTF32 ``mma.sync``), and bf16 or fp16 calls with D <= 32,
+    D % 8 != 0 or a misaligned view (one TF32 product for two 2-byte
+    operands, two for a computed one);
   - ``"cuda_cores"``: D > 128.
 
 The per-row logsumexp and ``delta = rowsum(dO * O)`` are [B, Sq, H] fp32,
@@ -38,10 +39,11 @@ Causal attention masks ``q_pos >= k_pos`` (top-left), as the TPU kernel
 does; it agrees with ``reference_attention``'s bottom-right mask only
 when Sq == Sk, so causal attention with Sq != Sk raises here.
 
-Types, as the TPU kernels: float32 or bfloat16 q, k, v (and dO) in, the
-arithmetic in float32, o, dq, dk and dv out in the inputs' dtype, the
-logsumexp and delta in float32. Each kernel has a float32 and a bfloat16
-form (``ff_flash_*_f32`` / ``ff_flash_*_bf16``); another dtype raises.
+Types, as the TPU kernels: float32, bfloat16 or float16 q, k, v (and dO)
+in, the arithmetic in float32, o, dq, dk and dv out in the inputs'
+dtype, the logsumexp and delta in float32. Each kernel has a float32, a
+bfloat16 and a float16 form (``ff_flash_*_f32`` / ``_bf16`` / ``_f16``);
+another dtype raises.
 
 Head dims: q and k share one (Dk), v may have its own (Dv); o and dv take
 Dv. The kernels take one head dim, up to :data:`MAX_HEAD_DIM`: for
@@ -49,8 +51,9 @@ Dv != Dk :func:`flash_attention` zero-pads the narrower of (q, k) or v to
 the wider, which adds exact zeros to every product, and slices the
 outputs back (the scale stays Dk's).
 
-Each kernel launch adds one to its count in :data:`LAUNCHES`, and to
-its body's in :data:`LAUNCHES_BY_BODY`.
+Each kernel launch runs on the device of its tensors (whatever the
+current device is) and adds one to its count in :data:`LAUNCHES`, and
+to its body's in :data:`LAUNCHES_BY_BODY`.
 """
 from __future__ import annotations
 
@@ -67,10 +70,12 @@ PLAIN_BLOCK_K = 64  # key rows per step of the plain forward's online softmax
 # resets them with reset_launch_counts() before the run it measures)
 LAUNCHES: Dict[str, int] = {
     f"{kernel}{form}": 0
-    for form in ("", "_bf16") for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for form in ("", "_bf16", "_f16") for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 }
-# the kernels' forms by input dtype: (suffix of the C function, of the count)
-_FORMS = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", "_bf16")}
+# the kernels' forms by input dtype, in ff_flash_body's order (0, 1, 2):
+# (suffix of the C function, of the count)
+_FORMS = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", "_bf16"),
+          torch.float16: ("f16", "_f16")}
 # the bodies behind each kernel, as ff_flash_body numbers them
 BODIES = ("mma_sync", "wgmma", "cuda_cores")
 # launches by the body that took them, keyed "<LAUNCHES key> <body>"
@@ -214,17 +219,18 @@ def reference_flash_backward(
 
 def _check_kernel_inputs(causal: bool, *tensors: torch.Tensor) -> Tuple[str, str]:
     """What the CUDA kernels assume, checked before a pointer is passed:
-    one CUDA device, contiguous tensors, q, k, v (and dO) all float32 or
-    all bfloat16 with one head dim, lse and delta float32, B and H within
-    the grid, D <= MAX_HEAD_DIM. Returns the form: (C suffix, count
-    suffix)."""
+    one CUDA device, contiguous tensors, q, k, v (and dO) all float32, all
+    bfloat16 or all float16 with one head dim, lse and delta float32, B
+    and H within the grid, D <= MAX_HEAD_DIM. Returns the form: (C
+    suffix, count suffix)."""
     q, k, v = tensors[:3]
     _check_shapes(q, k, v, causal)
     if v.shape[-1] != q.shape[-1]:
         raise ValueError(f"the kernels take one head dim, got q {q.shape[-1]} and "
                          f"v {v.shape[-1]} (flash_attention pads them)")
     if q.dtype not in _FORMS:
-        raise TypeError(f"flash attention kernels take float32 or bfloat16, got {q.dtype}")
+        raise TypeError(
+            f"flash attention kernels take float32, bfloat16 or float16, got {q.dtype}")
     for i, t in enumerate(tensors):
         if t.device != q.device:
             raise ValueError(f"tensors on {t.device} and {q.device}")
@@ -258,7 +264,7 @@ def kernel_body(kernel: str, q, k, v, dout=None, out0=None, out1=None) -> str:
     from ._build import load_library
 
     ptr = [t.data_ptr() if t is not None else None for t in (q, k, v, dout, out0, out1)]
-    got = load_library().ff_flash_body(int(q.dtype == torch.bfloat16), _KINDS[kernel], *ptr,
+    got = load_library().ff_flash_body(list(_FORMS).index(q.dtype), _KINDS[kernel], *ptr,
                                        q.shape[-1])
     return BODIES[got]
 
@@ -277,10 +283,11 @@ def flash_forward_kernel(q, k, v, causal: bool, scale: float):
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
-    rc = getattr(lib, f"ff_flash_fwd_{fn}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, sq, k.shape[1], h, d, float(scale), int(causal), _stream(q),
-    )
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, f"ff_flash_fwd_{fn}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, sq, k.shape[1], h, d, float(scale), int(causal), _stream(q),
+        )
     _raise_on_error(rc, f"ff_flash_fwd_{fn}")
     _count("flash_fwd", count, q, k, v, None, o)
     return o, lse
@@ -294,11 +301,12 @@ def flash_backward_dq_kernel(q, k, v, dout, lse, delta, causal: bool, scale: flo
     lib = load_library()
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
-    rc = getattr(lib, f"ff_flash_bwd_dq_{fn}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, sq, k.shape[1], h, d, float(scale),
-        int(causal), _stream(q),
-    )
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, f"ff_flash_bwd_dq_{fn}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), b, sq, k.shape[1], h, d, float(scale),
+            int(causal), _stream(q),
+        )
     _raise_on_error(rc, f"ff_flash_bwd_dq_{fn}")
     _count("flash_bwd_dq", count, q, k, v, dout, dq)
     return dq
@@ -313,11 +321,12 @@ def flash_backward_dkv_kernel(q, k, v, dout, lse, delta, causal: bool, scale: fl
     b, sq, h, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = getattr(lib, f"ff_flash_bwd_dkv_{fn}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, d,
-        float(scale), int(causal), _stream(q),
-    )
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, f"ff_flash_bwd_dkv_{fn}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, d,
+            float(scale), int(causal), _stream(q),
+        )
     _raise_on_error(rc, f"ff_flash_bwd_dkv_{fn}")
     _count("flash_bwd_dkv", count, q, k, v, dout, dk, dv)
     return dk, dv

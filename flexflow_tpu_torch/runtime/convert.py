@@ -10,7 +10,8 @@ executor. This module needs neither JAX nor the JAX package.
 numpy has no bfloat16 of its own: JAX's bfloat16 arrays carry the
 ``ml_dtypes`` type, recognised here by its name (``ml_dtypes`` itself is
 not imported, so the port runs where it is not installed) and carried
-over bit for bit through a ``uint16`` view.
+over bit for bit through a ``uint16`` view. float16 arrays are numpy's
+own and come across as float16, bit for bit.
 """
 from __future__ import annotations
 
@@ -45,13 +46,13 @@ def params_from_numpy(
     tree: Mapping[str, Mapping[str, Any]],
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{layer_name: {weight_name: array}}`` as CPU tensors: bfloat16
-    arrays stay bfloat16 (bit for bit), every other array becomes
-    float32."""
-    return {
-        layer: {
-            name: (_bf16_from_numpy(arr) if _is_bf16(arr)
-                   else torch.from_numpy(np.array(arr, dtype=np.float32, copy=True)))
-            for name, arr in weights.items()
-        }
-        for layer, weights in tree.items()
-    }
+    and float16 arrays keep their type (bit for bit), every other array
+    becomes float32."""
+    def one(arr) -> torch.Tensor:
+        if _is_bf16(arr):
+            return _bf16_from_numpy(arr)
+        keep = np.float16 if np.asarray(arr).dtype == np.float16 else np.float32
+        return torch.from_numpy(np.array(arr, dtype=keep, copy=True))
+
+    return {layer: {name: one(arr) for name, arr in weights.items()}
+            for layer, weights in tree.items()}

@@ -16,7 +16,8 @@ JSON line with the parts asked for (``kernels,prefix`` by default):
   events, over 8 copies of the cache, as ``chip_smoke.py`` times) of the
   paged kernels at decode (B=4 W=1), W=5 and split (S=8) in each cache
   form, and at W = 1024 from positions 0 and 512; the flash forward, dQ
-  and dK/dV kernels, fp32 and bf16, at BERT-Base's training shape and at
+  and dK/dV kernels, fp32, bf16 and (where the checkout has it) fp16, at
+  BERT-Base's training shape and at
   causal S=512, beside SDPA's forward (the same graph timing) and
   backward (dq, dk, dv together; device time by torch.profiler) in the
   same dtype;
@@ -83,7 +84,10 @@ def _kernels(cs, seed: int) -> dict:
                 lambda *a, s=s: da.paged_append_attention(*a, kv_splits=s), sets)
             del sets
     for label, (b, s, causal) in (("train", (32, 128, False)), ("causal512", (4, 512, True))):
-        for dtype, form in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        for dtype, form in ((torch.float32, ""), (torch.bfloat16, "_bf16"),
+                            (torch.float16, "_f16")):
+            if f"flash_fwd{form}" not in fa.LAUNCHES:  # a checkout without the form
+                continue
             q, k, v, do = (torch.randn(b, s, 12, 64, generator=gen).cuda().to(dtype)
                            for _ in range(4))
             scale = 64 ** -0.5
@@ -163,7 +167,14 @@ def _prefix(cs, seed: int, params) -> dict:
 
 
 def _train_bf16(cs, seed: int) -> dict:
-    t = cs.training_phase(seed, bf16=True)
+    import inspect
+
+    from flexflow_tpu_torch.core.types import DataType
+
+    if "bf16" in inspect.signature(cs.training_phase).parameters:  # before fp16 training
+        t = cs.training_phase(seed, bf16=True)
+    else:
+        t = cs.training_phase(seed, DataType.BFLOAT16)
     keep = ("step_ms", "samples_per_s", "step_device_ms", "step_device_ms_by_group",
             "device_busy_share_of_timed_step", "launches", "launches_by_body")
     return {key: t[key] for key in keep if key in t}

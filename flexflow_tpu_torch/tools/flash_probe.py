@@ -1,6 +1,7 @@
 """Probes of the flash kernels' design on one NVIDIA GPU.
 
     python3 -m flexflow_tpu_torch.tools.flash_probe variants [NAME ...]
+    python3 -m flexflow_tpu_torch.tools.flash_probe range [NAME ...]
     python3 -m flexflow_tpu_torch.tools.flash_probe mma-peak
     python3 -m flexflow_tpu_torch.tools.flash_probe wgmma-peak
 
@@ -8,18 +9,25 @@
 the ``csrc/common.cuh`` it includes with one design choice changed each (a
 text substitution in the source it names, :data:`VARIANTS`), all nvcc
 runs at once (every variant, or the NAMEs given), and times the
-forward, dQ and dK/dV kernels of each, fp32 and bf16 forms, at the
+forward, dQ and dK/dV kernels of each, fp32, bf16 and fp16 forms, at the
 training shape (B=32, S=128, H=12, D=64) and at causal B=4 S=512: device
 ms a call, a CUDA graph of 16 calls over 3 copies of the inputs (past the
 50 MB L2) replayed between CUDA events, in two rounds (forward order,
 then reverse), beside the unchanged source. The ``wg_`` variants change
-the bf16 wgmma bodies (warpgroups a block, blocks an SM, ring depth, tile
+the wgmma bodies (warpgroups a block, blocks an SM, ring depth, tile
 of the other axis, who starts the copies, the accurate exp2, how dQ reads
-its lse and delta rows), the others
+its lse and delta rows, the fp16 bodies' row scaling of dS), the others
 the mma.sync bodies. Each variant is also held against the plain
 versions; the ``probe``
 variants give wrong results on purpose (they measure what a part of the
 arithmetic costs).
+
+``range`` builds the source and the named variants (by default
+``wg_probe_f16_no_scaling``) and runs ``chip_smoke.py``'s fp16 range
+cases (most of P below 2^-14, |dS| past 65504, dO of order 1e-6) through
+each, printing every output's largest error as a share of
+``check_fp16_range``'s gate (above 1 refused; the run's root must hold
+``chip_smoke.py``).
 
 ``mma-peak`` times a kernel that only issues independent
 ``mma.sync.m16n8k8`` TF32 products, the rate the mma.sync bodies'
@@ -65,41 +73,41 @@ DQ_ROWS_SPLIT_ONCE = DQ_ROWS + """  FragA q_frag[kNT], do_frag[kNT];  // split o
 
 # regions of the wgmma bodies that the probe variants cut (each ends with
 # the close of the warpgroup's per-tile block, which the cut puts back)
-WG_FWD_PRODUCTS = "      // S = Q K^T, one exact product (bf16 x bf16 into fp32)\n"
-WG_FWD_PV = "      // O = corr O + P V, P in two bf16 halves (lo, then hi), V read MN-major\n"
+WG_FWD_PRODUCTS = "      // S = Q K^T, one exact product (T x T into fp32)\n"
+WG_FWD_PV = "      // O = corr O + P V, P in two halves of T (lo, then hi), V read MN-major\n"
 WG_FWD_END = "      for (int c = 0; c < kNC; ++c) fence_acc(acc[c]);\n    }\n    __syncwarp();\n"
-WG_FWD_PV_LO = "          wgmma_rs(acc[c], pl[ks], wg_desc_mn<kBK>(vt, 16 * ks, c));\n"
+WG_FWD_PV_LO = "          wgmma_rs<T>(acc[c], pl[ks], wg_desc_mn<kBK>(vt, 16 * ks, c));\n"
 WG_DKV_PRODUCTS = "      // S^T = K Q^T and dP^T = V dO^T, one exact product each\n"
 WG_DKV_RS = "      // dV += P^T dO and dK += dS^T Q (scaled at the store), P^T and dS^T in\n"
 WG_DKV_END = "        fence_acc(dk_acc[c]);\n      }\n    }\n    __syncwarp();\n"
-WG_DKV_RS_LO = ("          wgmma_rs(dv_acc[c], pl[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));\n"
-                "          wgmma_rs(dv_acc[c], ph[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));\n"
-                "          wgmma_rs(dk_acc[c], dl[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));\n")
+WG_DKV_RS_LO = ("          wgmma_rs<T>(dv_acc[c], pl[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));\n"
+                "          wgmma_rs<T>(dv_acc[c], ph[kk], wg_desc_mn<kBQ>(dot, 16 * kk, c));\n"
+                "          wgmma_rs<T>(dk_acc[c], dl[kk], wg_desc_mn<kBQ>(qt, 16 * kk, c));\n")
 WG_DQ_PRODUCTS = "      // S = Q K^T and dP = dO V^T, one exact product each\n"
 WG_DQ_END = "      for (int c = 0; c < kNC; ++c) fence_acc(acc[c]);\n    }\n    __syncwarp();\n"
 WG_CUT_END = "    }\n    __syncwarp();\n"
 # the TMA copies of the wgmma bodies, which the "no copies" probes replace
 # by a bare arrival (the products then read whatever shared memory holds)
-WG_FWD_TILE_COPY = """    mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+WG_FWD_TILE_COPY = """    mbar_arrive_expect_tx(&full[s], sizeof(T) * kStage);
     wg_load_tile<kBK, kDP>(kt, &tk, &full[s], b, h, it * kBK);
     wg_load_tile<kBK, kDP>(kt + kWgTile<kBK, kDP>, &tv, &full[s], b, h, it * kBK);
 """
-WG_FWD_Q_COPY = """    mbar_arrive_expect_tx(qbar, sizeof(bf16) * kWgTile<kWgBlockRows, kDP>);
+WG_FWD_Q_COPY = """    mbar_arrive_expect_tx(qbar, sizeof(T) * kWgTile<kWgBlockRows, kDP>);
     wg_load_tile<kWgBlockRows, kDP>(qs, &tq, qbar, b, h, q0);
 """
-WG_DKV_TILE_COPY = """      mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+WG_DKV_TILE_COPY = """      mbar_arrive_expect_tx(&full[s], sizeof(T) * kStage);
       wg_load_tile<kBQ, kDP>(qt, &tq, &full[s], b, h, q0);
       wg_load_tile<kBQ, kDP>(qt + kWgTile<kBQ, kDP>, &tdo, &full[s], b, h, q0);
 """
-WG_DKV_KV_COPY = """      mbar_arrive_expect_tx(kvbar, sizeof(bf16) * 2 * kWgTile<kWgBlockRows, kDP>);
+WG_DKV_KV_COPY = """      mbar_arrive_expect_tx(kvbar, sizeof(T) * 2 * kWgTile<kWgBlockRows, kDP>);
       wg_load_tile<kWgBlockRows, kDP>(ks, &tk, kvbar, b, h, k0);
       wg_load_tile<kWgBlockRows, kDP>(vs, &tv, kvbar, b, h, k0);
 """
-WG_DQ_TILE_COPY = """    mbar_arrive_expect_tx(&full[s], sizeof(bf16) * kStage);
+WG_DQ_TILE_COPY = """    mbar_arrive_expect_tx(&full[s], sizeof(T) * kStage);
     wg_load_tile<kBK, kDP>(kvt, &tk, &full[s], b, h, it * kBK);
     wg_load_tile<kBK, kDP>(kvt + kWgTile<kBK, kDP>, &tv, &full[s], b, h, it * kBK);
 """
-WG_DQ_QDO_COPY = """    mbar_arrive_expect_tx(qbar, sizeof(bf16) * 2 * kWgTile<kWgBlockRows, kDP>);
+WG_DQ_QDO_COPY = """    mbar_arrive_expect_tx(qbar, sizeof(T) * 2 * kWgTile<kWgBlockRows, kDP>);
     wg_load_tile<kWgBlockRows, kDP>(qs, &tq, qbar, b, h, q0);
     wg_load_tile<kWgBlockRows, kDP>(dos, &tdo, qbar, b, h, q0);
 """
@@ -129,6 +137,26 @@ WG_DQ_ROWS_IN_REGISTERS = """  const int warp = threadIdx.x >> 5, lane = threadI
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
   mbar_wait(qbar, 0);
 """
+# the fp16 bodies' row scaling of dS (scale_rows): the accumulator rows'
+# rescale on every tile
+F16_RESCALE = """#pragma unroll
+  for (int c = 0; c < kC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i >> 1) & 1];
+}
+"""
+F16_RESCALE_ON_CHANGE = """  if (__any_sync(kFull, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i >> 1) & 1];
+  }
+}
+"""
+F16_SCALE_CALLS = ("      if constexpr (Elem<T>::kF16) scale_rows(dpt, dk_acc, ex);\n",
+                   "  if constexpr (Elem<T>::kF16) unscale_rows(dk_acc, ex);\n",
+                   "      if constexpr (Elem<T>::kF16) scale_rows(sc, acc, ex);\n",
+                   "  if constexpr (Elem<T>::kF16) unscale_rows(acc, ex);\n")
 FLASH = "flash_attention.cu"
 COMMON = "common.cuh"  # the TF32 split, fragments and mma helpers
 
@@ -192,18 +220,18 @@ VARIANTS = {
     "wg_exp2f": [(COMMON, '  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                   "  y = exp2f(x);")],
     "wg_carveout_max": [
-        (FLASH, "    rc = prepare(flash_fwd_wg_kernel<kDP>, smem, &ready[0]);",
-         "    cudaFuncSetAttribute(flash_fwd_wg_kernel<kDP>,\n"
+        (FLASH, "    rc = prepare(flash_fwd_wg_kernel<kDP, T>, smem, ready[0]);",
+         "    cudaFuncSetAttribute(flash_fwd_wg_kernel<kDP, T>,\n"
          "                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
-         "    rc = prepare(flash_fwd_wg_kernel<kDP>, smem, &ready[0]);"),
-        (FLASH, "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[2]);",
-         "    cudaFuncSetAttribute(flash_bwd_dkv_wg_kernel<kDP>,\n"
+         "    rc = prepare(flash_fwd_wg_kernel<kDP, T>, smem, ready[0]);"),
+        (FLASH, "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP, T>, smem, ready[2]);",
+         "    cudaFuncSetAttribute(flash_bwd_dkv_wg_kernel<kDP, T>,\n"
          "                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
-         "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP>, smem, &ready[2]);"),
-        (FLASH, "    rc = prepare(flash_bwd_dq_wg_kernel<kDP>, smem, &ready[1]);",
-         "    cudaFuncSetAttribute(flash_bwd_dq_wg_kernel<kDP>,\n"
+         "    rc = prepare(flash_bwd_dkv_wg_kernel<kDP, T>, smem, ready[2]);"),
+        (FLASH, "    rc = prepare(flash_bwd_dq_wg_kernel<kDP, T>, smem, ready[1]);",
+         "    cudaFuncSetAttribute(flash_bwd_dq_wg_kernel<kDP, T>,\n"
          "                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
-         "    rc = prepare(flash_bwd_dq_wg_kernel<kDP>, smem, &ready[1]);")],
+         "    rc = prepare(flash_bwd_dq_wg_kernel<kDP, T>, smem, ready[1]);")],
     # parts of the wgmma bodies left out (wrong results: what each part costs)
     "wg_probe_fwd_copies_only": [(FLASH, (WG_FWD_PRODUCTS, WG_FWD_END), WG_CUT_END)],
     "wg_probe_fwd_no_pv": [(FLASH, (WG_FWD_PV, WG_FWD_END), WG_CUT_END)],
@@ -218,6 +246,11 @@ VARIANTS = {
     "wg_probe_dq_copies_only": [(FLASH, (WG_DQ_PRODUCTS, WG_DQ_END), WG_CUT_END)],
     "wg_probe_dq_no_copies": [(FLASH, WG_DQ_TILE_COPY, "    mbar_arrive(&full[s]);\n"),
                               (FLASH, WG_DQ_QDO_COPY, "    mbar_arrive(qbar);\n")],
+    # the fp16 bodies' row scaling of dS: the accumulators rescaled only in
+    # a tile where a row's exponent fell; and (a probe, right only while dS
+    # stays inside fp16's range) no scaling
+    "wg_f16_rescale_on_change": [(FLASH, F16_RESCALE, F16_RESCALE_ON_CHANGE)],
+    "wg_probe_f16_no_scaling": [(FLASH, call, "") for call in F16_SCALE_CALLS],
 }
 
 WGMMA_PEAK_CU = r"""
@@ -240,7 +273,7 @@ __global__ void wgmma_loop(float* out, int iters) {
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      if constexpr (kRs) wgmma_rs(acc, a, db); else wgmma_ss(acc, da, db);
+      if constexpr (kRs) wgmma_rs<bf16>(acc, a, db); else wgmma_ss<bf16>(acc, da, db);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -396,6 +429,66 @@ def _registers(ptxas_log: str, kernel: str) -> str:
     return "?"
 
 
+def form_of(q):
+    import torch
+
+    return {torch.bfloat16: "bf16", torch.float16: "f16"}.get(q.dtype, "f32")
+
+
+def run_fwd(lib, q, k, v, causal, scale):
+    import torch
+
+    b, sq, h, d = q.shape
+    o, lse = torch.empty_like(q), torch.empty(b, sq, h, device=q.device)
+    rc = getattr(lib, f"ff_flash_fwd_{form_of(q)}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq,
+        k.shape[1], h, d, scale, int(causal), torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"forward launch failed: {rc}")
+    return o
+
+
+def run_dq(lib, q, k, v, do, lse, delta, causal, scale):
+    import torch
+
+    b, sq, h, d = q.shape
+    dq = torch.empty_like(q)
+    rc = getattr(lib, f"ff_flash_bwd_dq_{form_of(q)}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, sq, k.shape[1], h, d, scale, int(causal),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"dQ launch failed: {rc}")
+    return dq
+
+
+def run_dkv(lib, q, k, v, do, lse, delta, causal, scale):
+    import torch
+
+    b, sq, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = getattr(lib, f"ff_flash_bwd_dkv_{form_of(q)}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, d, scale,
+        int(causal), torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"dK/dV launch failed: {rc}")
+    return dk, dv
+
+
+def _load(so):
+    """A built flash library with its three kernels' argument types set."""
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    lib = ctypes.CDLL(str(so))
+    for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
+        for form in ("f32", "bf16", "f16"):
+            fn = getattr(lib, f"ff_flash_{kernel}_{form}")
+            fn.argtypes = _build.SIGNATURES[f"ff_flash_{kernel}_{form}"]
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def variants(names=()) -> int:
     import torch
 
@@ -411,12 +504,7 @@ def variants(names=()) -> int:
         raise ValueError(f"no such variants: {unknown}")
     chosen = {n: VARIANTS[n] for n in (names or VARIANTS)}
     for name, (so, log) in _compile(variant_sources(FLASH, chosen)).items():
-        lib = ctypes.CDLL(str(so))
-        for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
-            for form in ("f32", "bf16"):
-                fn = getattr(lib, f"ff_flash_{kernel}_{form}")
-                fn.argtypes = _build.SIGNATURES[f"ff_flash_{kernel}_{form}"]
-                fn.restype = ctypes.c_int
+        lib = _load(so)
         libs[name] = lib
         lib.ff_flash_wg_blocks_per_sm.argtypes = _build.SIGNATURES["ff_flash_wg_blocks_per_sm"]
         print(f"{name}: blocks an SM of the bf16 wgmma fwd<64> "
@@ -426,44 +514,12 @@ def variants(names=()) -> int:
               f"registers fwd<64> {_registers(log, 'flash_fwd_tc_kernelILi64EfE')}, "
               f"dq<64> {_registers(log, 'flash_bwd_dq_tc_kernelILi64EfE')}, "
               f"dkv<64> {_registers(log, 'flash_bwd_dkv_tc_kernelILi64EfE')}; bf16 wgmma "
-              f"fwd<64> {_registers(log, 'flash_fwd_wg_kernelILi64EE')}, "
-              f"dq<64> {_registers(log, 'flash_bwd_dq_wg_kernelILi64EE')}, "
-              f"dkv<64> {_registers(log, 'flash_bwd_dkv_wg_kernelILi64EE')}")
-
-    def form_of(q):
-        return "bf16" if q.dtype == torch.bfloat16 else "f32"
-
-    def run_fwd(lib, q, k, v, causal, scale):
-        b, sq, h, d = q.shape
-        o, lse = torch.empty_like(q), torch.empty(b, sq, h, device=q.device)
-        rc = getattr(lib, f"ff_flash_fwd_{form_of(q)}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq,
-            k.shape[1], h, d, scale, int(causal), torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"forward launch failed: {rc}")
-        return o
-
-    def run_dq(lib, q, k, v, do, lse, delta, causal, scale):
-        b, sq, h, d = q.shape
-        dq = torch.empty_like(q)
-        rc = getattr(lib, f"ff_flash_bwd_dq_{form_of(q)}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), b, sq, k.shape[1], h, d, scale, int(causal),
-            torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"dQ launch failed: {rc}")
-        return dq
-
-    def run_dkv(lib, q, k, v, do, lse, delta, causal, scale):
-        b, sq, h, d = q.shape
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        rc = getattr(lib, f"ff_flash_bwd_dkv_{form_of(q)}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, d, scale,
-            int(causal), torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"dK/dV launch failed: {rc}")
-        return dk, dv
+              f"fwd<64> {_registers(log, 'flash_fwd_wg_kernelILi64E13__nv_bfloat16E')}, "
+              f"dq<64> {_registers(log, 'flash_bwd_dq_wg_kernelILi64E13__nv_bfloat16E')}, "
+              f"dkv<64> {_registers(log, 'flash_bwd_dkv_wg_kernelILi64E13__nv_bfloat16E')}; "
+              f"fp16 wgmma fwd<64> {_registers(log, 'flash_fwd_wg_kernelILi64E6__halfE')}, "
+              f"dq<64> {_registers(log, 'flash_bwd_dq_wg_kernelILi64E6__halfE')}, "
+              f"dkv<64> {_registers(log, 'flash_bwd_dkv_wg_kernelILi64E6__halfE')}")
 
     def graph_ms(fn, sets, iters=16, reps=5):
         """Device ms a call: ``iters`` calls cycling over ``sets`` captured
@@ -489,7 +545,8 @@ def variants(names=()) -> int:
 
     print(_card())
     for (b, s, h, d, causal), dtype in itertools.product(
-            [(32, 128, 12, 64, False), (4, 512, 12, 64, True)], (torch.float32, torch.bfloat16)):
+            [(32, 128, 12, 64, False), (4, 512, 12, 64, True)],
+            (torch.float32, torch.bfloat16, torch.float16)):
         gen = torch.Generator().manual_seed(1)
         scale = d ** -0.5
         sets = []  # 3 copies of the inputs, together past the 50 MB L2
@@ -521,6 +578,50 @@ def variants(names=()) -> int:
                               for i, kernel in enumerate(("forward", "dQ", "dK/dV")))
                   + f"  max abs err {err:.2e}")
     return 0
+
+
+def range_cases(names) -> int:
+    """``chip_smoke.py``'s fp16 range cases through the source and each
+    named variant: every output's largest error as a share of
+    check_fp16_range's gate. Returns 0 if the source passes every case
+    (a variant may fail: that is what the probe shows)."""
+    import torch
+
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        print("flash_probe: no CUDA device is available", file=sys.stderr)
+        return 2
+    unknown = sorted(set(names) - set(VARIANTS))
+    if unknown:
+        raise ValueError(f"no such variants: {unknown}")
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    libs = {name: _load(so) for name, (so, _) in
+            _compile(variant_sources(FLASH, {n: VARIANTS[n] for n in names})).items()}
+    print(_card())
+    scale = 64 ** -0.5
+    source_ok = True
+    for case, (q, k, v, do, lse, delta), low, ds_max in cs.fp16_range_sets(0):
+        po, plse = fa.reference_flash_forward(q, k, v, False, scale)
+        pdq, pdk, pdv = fa.reference_flash_backward(q, k, v, do, lse, delta, False, scale)
+        for name, lib in libs.items():
+            o = run_fwd(lib, q, k, v, False, scale)
+            dq = run_dq(lib, q, k, v, do, lse, delta, False, scale)
+            dk, dv = run_dkv(lib, q, k, v, do, lse, delta, False, scale)
+            shares = {}
+            for out, got, want in (("o", o, po), ("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+                if not torch.isfinite(got).all():
+                    shares[out] = float("inf")
+                    continue
+                gate = cs.half_ulp(want, got.dtype) + cs.range_atol(want)
+                shares[out] = float(((got.float() - want.float()).abs() / gate).max())
+            ok = all(x <= 1.0 for x in shares.values())
+            source_ok &= ok or name != "source"
+            print(f"fp16 {case} (P below 2^-14 {low:.3f}, max |dS| {ds_max:.4g}) {name:24s} "
+                  "share of the gate " + " ".join(f"{o_} {x:.3f}" for o_, x in shares.items())
+                  + ("" if ok else "  REFUSED"))
+    return 0 if source_ok else 1
 
 
 def mma_peak() -> int:
@@ -572,11 +673,13 @@ def wgmma_peak() -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probe", choices=["variants", "mma-peak", "wgmma-peak"])
-    ap.add_argument("names", nargs="*", help="variants: the variants to build (default: all)")
+    ap.add_argument("probe", choices=["variants", "range", "mma-peak", "wgmma-peak"])
+    ap.add_argument("names", nargs="*", help="variants, range: the variants to build")
     args = ap.parse_args(argv)
     if args.probe == "variants":
         return variants(args.names)
+    if args.probe == "range":
+        return range_cases(args.names or ["wg_probe_f16_no_scaling"])
     return mma_peak() if args.probe == "mma-peak" else wgmma_peak()
 
 

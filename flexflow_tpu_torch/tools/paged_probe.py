@@ -181,11 +181,11 @@ _PUSH_COMBINE = """  cg::cluster_group cluster = cg::this_cluster();
 SPLIT_VARIANTS = {
     # (a16) a non-portable cluster of up to 16 CTAs, one per split up to 16
     "cluster16": [(PAGED, "constexpr int kMaxCluster = 8;", "constexpr int kMaxCluster = 16;"),
-                  (PAGED, "    if (e != cudaSuccess) return static_cast<int>(e);\n    ready = true;\n",
-                   "    if (e != cudaSuccess) return static_cast<int>(e);\n"
-                   "    cudaFuncSetAttribute(paged_append_kernel<T, kMaxW, kSplit, kMaxD>,\n"
-                   "                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
-                   "    ready = true;\n")],
+                  (PAGED, "  if (rc) return rc;\n  // a cluster per (query tile, head, sequence)\n",
+                   "  if (rc) return rc;\n"
+                   "  cudaFuncSetAttribute(paged_append_kernel<T, kMaxW, kSplit, kMaxD>,\n"
+                   "                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
+                   "  // a cluster per (query tile, head, sequence)\n")],
     # rounds of at most 3 tiles (a quarter of an SM's shared memory, as
     # the single-pass form): a 128-position range takes two rounds
     "split_stages3": [(PAGED, "kSmemLimit / (kSplit ? 2 : 4)", "kSmemLimit / 4")],

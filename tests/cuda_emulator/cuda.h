@@ -12,7 +12,10 @@ constexpr CUresult CUDA_SUCCESS = 0, CUDA_ERROR_INVALID_VALUE = 1;
 typedef uint32_t cuuint32_t;
 typedef uint64_t cuuint64_t;
 struct alignas(64) CUtensorMap { unsigned long long opaque[16]; };
-enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_FLOAT32 = 7, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
+enum CUtensorMapDataType {
+  CU_TENSOR_MAP_DATA_TYPE_FLOAT16 = 6, CU_TENSOR_MAP_DATA_TYPE_FLOAT32 = 7,
+  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9
+};
 enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
 enum CUtensorMapSwizzle {
   CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_SWIZZLE_64B,
@@ -38,7 +41,9 @@ inline CUresult emu_encode_tiled(CUtensorMap* map, CUtensorMapDataType type, cuu
                                  CUtensorMapInterleave interleave, CUtensorMapSwizzle swizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill fill) {
   EmuTensorMap m{};
-  m.esize = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 0;
+  m.esize = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || type == CU_TENSOR_MAP_DATA_TYPE_FLOAT16 ? 2
+            : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32                                       ? 4
+                                                                                            : 0;
   const uint32_t sw[4] = {0, 32, 64, 128};
   m.swizzle_bytes = sw[swizzle];
   if (m.esize == 0 || rank < 1 || rank > 5 || interleave != CU_TENSOR_MAP_INTERLEAVE_NONE ||

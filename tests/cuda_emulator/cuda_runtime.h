@@ -10,17 +10,26 @@
 // m16n8k8 TF32 reads its operands as TF32 (the low 13 bits dropped) and
 // adds exact products to fp32.
 //
-// Hopper's pieces of the bf16 flash bodies: an mbarrier counts arrivals
+// Hopper's pieces of the bf16 and fp16 flash bodies: an mbarrier counts arrivals
 // and transaction bytes and completes its phase when both reach zero
 // (a wait blocks on a condition variable, and gives up after five minutes); a
 // TMA tile load copies its box at once, past-the-bounds elements as
 // zeros, through the 128-byte swizzle (16-byte chunk bits 4-6 of the
 // shared-memory address XORed with bits 7-9), then completes its bytes on
-// the barrier; wgmma m64n64k16 bf16 decodes its shared-memory descriptors
+// the barrier; wgmma m64n64k16 bf16 or fp16 decodes its shared-memory descriptors
 // (start, lbo, sbo, the 128-byte swizzle; K-major or MN-major), takes A
 // from the warp's registers where asked, and adds exact products to the
 // fp32 accumulator. A wgmma completes as it is called, so the kernels'
 // fences, commits and waits are no-ops here.
+//
+// Devices: a current device a host thread (cudaSetDevice, cudaGetDevice;
+// emu_devices of them), and each kernel's dynamic shared-memory limit
+// kept by (kernel, device), as the real runtime keeps it: a launch that
+// asks for more than 48 KB on a device where cudaFuncSetAttribute did not
+// raise that kernel's limit far enough is refused with
+// cudaErrorInvalidValue, reported by the launch (cudaLaunchKernelEx) or by
+// the next cudaGetLastError (a <<<...>>> launch). The kernels do not run
+// on any particular device here: the device only keys the limits.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -258,19 +267,30 @@ inline uint32_t emu_gmma_addr(uint64_t desc, int mn, int k, bool mn_major) {
   return emu_swizzle128(a);
 }
 inline float emu_bf16_bits(uint32_t b) { return __uint_as_float((b & 0xffffu) << 16); }
-inline float emu_bf16_at(uint32_t addr) {
+// an fp16 value from its low 16 bits, exactly
+inline float emu_half_bits(uint32_t b) {
+  const unsigned s = (b >> 15) & 1, e = (b >> 10) & 31, m = b & 1023;
+  float v;
+  if (e == 0) v = std::ldexp(static_cast<float>(m), -24);
+  else if (e == 31) v = m ? NAN : INFINITY;
+  else v = std::ldexp(static_cast<float>(m | 1024), static_cast<int>(e) - 25);
+  return s ? -v : v;
+}
+// a wgmma operand element from its 16 bits: fp16 or bf16
+inline float emu_elem_bits(uint32_t b, bool f16) { return f16 ? emu_half_bits(b & 0xffffu) : emu_bf16_bits(b); }
+inline float emu_elem_at(uint32_t addr, bool f16) {
   if (addr + 2 > emu_block->smem.size()) emu_fail("wgmma operand past the block's shared memory");
   uint16_t b;
   std::memcpy(&b, emu_smem() + addr, 2);
-  return emu_bf16_bits(b);
+  return emu_elem_bits(b, f16);
 }
 // d += A B for the warpgroup's 64 x 64 x 16 tile: this thread's 32
 // accumulators (element i: row 16w + g + 8 ((i >> 1) & 1), column
 // 8 (i >> 2) + 2t + (i & 1)); A from the warp's registers (a_regs, the
 // m16n8k16 A layout) or from shared memory (K-major, a_desc); B from
-// shared memory, K-major or MN-major
+// shared memory, K-major or MN-major; f16: the operands are fp16, else bf16
 inline void emu_wgmma(float (&d)[32], const uint32_t* a_regs, uint64_t a_desc, uint64_t b_desc,
-                      bool b_mn_major) {
+                      bool b_mn_major, bool f16) {
   const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float a[2][16];  // rows 16w + g and 16w + g + 8 of A
   if (a_regs != nullptr) {
@@ -278,24 +298,25 @@ inline void emu_wgmma(float (&d)[32], const uint32_t* a_regs, uint64_t a_desc, u
     emu_warp_exchange(mine, 4, [&](uint64_t (&s)[32][8]) {
       for (int r = 0; r < 2; ++r)
         for (int k = 0; k < 16; ++k)
-          a[r][k] = emu_bf16_bits(static_cast<uint32_t>(
-              s[4 * g + (k % 8) / 2][r + 2 * (k >= 8)] >> (16 * (k & 1))));
+          a[r][k] = emu_elem_bits(static_cast<uint32_t>(
+              s[4 * g + (k % 8) / 2][r + 2 * (k >= 8)] >> (16 * (k & 1))), f16);
     });
   } else {
     for (int r = 0; r < 2; ++r)
-      for (int k = 0; k < 16; ++k) a[r][k] = emu_bf16_at(emu_gmma_addr(a_desc, 16 * w + g + 8 * r, k, false));
+      for (int k = 0; k < 16; ++k) a[r][k] = emu_elem_at(emu_gmma_addr(a_desc, 16 * w + g + 8 * r, k, false), f16);
   }
   for (int i = 0; i < 32; ++i) {
     const int r = (i >> 1) & 1, n = 8 * (i >> 2) + 2 * t + (i & 1);
     double acc = 0.0;
     for (int k = 0; k < 16; ++k)
-      acc += static_cast<double>(a[r][k]) * static_cast<double>(emu_bf16_at(emu_gmma_addr(b_desc, n, k, b_mn_major)));
+      acc += static_cast<double>(a[r][k]) * static_cast<double>(emu_elem_at(emu_gmma_addr(b_desc, n, k, b_mn_major), f16));
     d[i] = static_cast<float>(static_cast<double>(d[i]) + acc);
   }
 }
 
 typedef int cudaError_t;
-constexpr cudaError_t cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801;
+constexpr cudaError_t cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
+                      cudaErrorNotSupported = 801;
 enum cudaDriverEntryPointQueryResult {
   cudaDriverEntryPointSuccess = 0, cudaDriverEntryPointSymbolNotFound = 1
 };
@@ -325,11 +346,44 @@ struct cudaLaunchConfig_t {
 };
 // the streaming multiprocessors the launchers size their clusters for
 inline int emu_sms = 132;
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline int emu_devices = 2;
+inline thread_local int emu_device = 0;
+inline thread_local cudaError_t emu_last_error = cudaSuccess;
+inline cudaError_t emu_error(cudaError_t e) {
+  if (e != cudaSuccess) emu_last_error = e;
+  return e;
+}
+inline cudaError_t cudaGetDevice(int* d) { *d = emu_device; return cudaSuccess; }
+inline cudaError_t cudaSetDevice(int d) {
+  if (d < 0 || d >= emu_devices) return emu_error(cudaErrorInvalidDevice);
+  emu_device = d;
+  return cudaSuccess;
+}
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = emu_sms; return cudaSuccess; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = emu_last_error;
+  emu_last_error = cudaSuccess;
+  return e;
+}
+// each kernel's raised dynamic shared-memory limit, by (kernel, device)
+inline std::mutex emu_limit_mu;
+inline std::map<std::pair<const void*, int>, int> emu_smem_limits;
 template <typename K>
-cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
+cudaError_t cudaFuncSetAttribute(K kernel, int attr, int value) {
+  if (attr == cudaFuncAttributeMaxDynamicSharedMemorySize) {
+    std::lock_guard<std::mutex> lk(emu_limit_mu);
+    emu_smem_limits[{reinterpret_cast<const void*>(kernel), emu_device}] = value;
+  }
+  return cudaSuccess;
+}
+// may this kernel launch with `bytes` of dynamic shared memory on the
+// current device
+inline bool emu_smem_allowed(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return true;
+  std::lock_guard<std::mutex> lk(emu_limit_mu);
+  const auto it = emu_smem_limits.find({kernel, emu_device});
+  return it != emu_smem_limits.end() && static_cast<size_t>(it->second) >= bytes;
+}
 // one block an SM: the emulator runs the grid block by block
 template <typename K>
 cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
@@ -344,7 +398,9 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P..
   unsigned C = 1;
   for (unsigned i = 0; i < cfg->numAttrs; ++i)
     if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) C = cfg->attrs[i].val.clusterDim.x;
-  if (C < 1 || cfg->gridDim.x % C) return cudaErrorInvalidValue;
+  if (C < 1 || cfg->gridDim.x % C) return emu_error(cudaErrorInvalidValue);
+  if (!emu_smem_allowed(reinterpret_cast<const void*>(kernel), cfg->dynamicSmemBytes))
+    return emu_error(cudaErrorInvalidValue);
   const unsigned nt = cfg->blockDim.x;
   const dim3 grid = cfg->gridDim;
   for (unsigned z = 0; z < grid.z; ++z)
@@ -378,7 +434,8 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P..
   return cudaSuccess;
 }
 
-// kernel<<<grid, block, smem, stream>>>(args...), rewritten as a call
+// kernel<<<grid, block, smem, stream>>>(args...), rewritten as a call; a
+// refused launch is reported by the next cudaGetLastError, as on the card
 template <typename... P, typename... A>
 cudaError_t emu_launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
                        cudaStream_t stream, A... args) {

@@ -31,6 +31,11 @@ pytestmark = [pytest.mark.torch_port, pytest.mark.gpu]
 # every form of the paged kernels (fp32, bf16 and fp16 caches) at no launch
 PAGED_NONE = {f"{kernel}{form}": 0 for form in ("", "_bf16", "_f16")
               for kernel in ("paged_append", "paged_append_split")}
+# every form of the flash kernels (fp32, bf16, fp16) at no launch
+FLASH_NONE = {f"{kernel}{form}": 0 for form in ("", "_bf16", "_f16")
+              for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+# a 2-byte flash form's launch-count suffix
+HALF_FORMS = {torch.bfloat16: "_bf16", torch.float16: "_f16"}
 
 
 @pytest.fixture
@@ -73,8 +78,7 @@ def test_cuda_kernels_match_plain_versions(cuda, sq, sk, d, causal):
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         (fa.flash_attention(*leaves, causal=causal, backend=backend) * do).sum().backward()
         grads.append([t.grad for t in leaves])
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                           "flash_fwd_bf16": 0, "flash_bwd_dq_bf16": 0, "flash_bwd_dkv_bf16": 0}
+    assert fa.LAUNCHES == dict(FLASH_NONE, flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1)
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
@@ -552,63 +556,68 @@ def test_cuda_engine_serves_from_a_bf16_cache(cuda):
     torch.testing.assert_close(logits["auto"], logits["plain"], atol=1e-3, rtol=0)
 
 
-def _bf16_close(name, got, want):
-    """bf16 outputs against the plain version's: within one bf16 unit in
-    the last place of the plain value, plus atol 1e-3 (the kernels sum
-    in another order, so a value near a rounding boundary may round to
-    the neighbour)."""
-    assert got.dtype == want.dtype == torch.bfloat16, name
+def _half_close(name, got, want):
+    """bf16 or fp16 outputs against the plain version's: within one unit
+    in the last place of the type at the plain value (no finer than the
+    type's smallest normal's), plus atol 1e-3 (the kernels sum in another
+    order, so a value near a rounding boundary may round to the
+    neighbour)."""
+    assert got.dtype == want.dtype and got.dtype in HALF_FORMS, name
+    bits, low = (7, -126) if got.dtype == torch.bfloat16 else (10, -14)
     g, w = got.float(), want.float()
-    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))).clamp_min(low) - bits)
     bad = (g - w).abs() > ulp + 1e-3
     assert not bad.any(), f"{name}: {int(bad.sum())} values past 1 ulp + 1e-3, " \
         f"max abs err {float((g - w).abs().max()):.3e}"
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
 @pytest.mark.parametrize("sq,sk,d,causal", [
     (128, 128, 64, False), (512, 512, 64, True), (65, 65, 128, True), (40, 70, 96, False),
     # D % 8 != 0 (element copies), one row, D = 32, the CUDA-core forms
     (70, 70, 33, False), (1, 1, 64, False), (129, 129, 32, True), (65, 65, 256, True),
     (64, 64, 512, False),
 ])
-def test_cuda_bf16_kernels_match_plain_versions(cuda, sq, sk, d, causal):
-    """The bf16 forms of the three flash kernels against the plain
-    versions on the same bf16 inputs: outputs within 1 bf16 ulp + 1e-3,
-    the logsumexp (fp32) within 1e-4."""
+def test_cuda_bf16_kernels_match_plain_versions(cuda, sq, sk, d, causal, dtype):
+    """The bf16 and fp16 forms of the three flash kernels against the
+    plain versions on the same inputs of that type: outputs within 1 ulp
+    of the type + 1e-3, the logsumexp (fp32) within 1e-4."""
     gen = torch.Generator().manual_seed(sq + sk + d + 7)
-    q, k, v, do = (torch.randn(2, s, 3, d, generator=gen).to(cuda, torch.bfloat16)
+    q, k, v, do = (torch.randn(2, s, 3, d, generator=gen).to(cuda, dtype)
                    for s in (sq, sk, sk, sq))
     scale = d ** -0.5
     fa.reset_launch_counts()
     o, lse = fa.flash_forward_kernel(q, k, v, causal, scale)
     po, plse = fa.reference_flash_forward(q, k, v, causal, scale)
-    _bf16_close("o", o, po)
+    _half_close("o", o, po)
     torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-4)
     delta = fa.flash_delta(do, po)
     dq = fa.flash_backward_dq_kernel(q, k, v, do, plse, delta, causal, scale)
     dk, dv = fa.flash_backward_dkv_kernel(q, k, v, do, plse, delta, causal, scale)
     pdq, pdk, pdv = fa.reference_flash_backward(q, k, v, do, plse, delta, causal, scale)
     for name, got, want in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
-        _bf16_close(name, got, want)
-    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                           "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1}
+        _half_close(name, got, want)
+    form = HALF_FORMS[dtype]
+    assert fa.LAUNCHES == dict(FLASH_NONE, **{f"flash_fwd{form}": 1, f"flash_bwd_dq{form}": 1,
+                                             f"flash_bwd_dkv{form}": 1})
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
 @pytest.mark.parametrize("d,misaligned,body", [
     (64, False, "wgmma"), (40, False, "wgmma"), (128, False, "wgmma"),
     (32, False, "mma_sync"), (33, False, "mma_sync"), (64, True, "mma_sync"),
     (160, False, "cuda_cores"),
 ])
-def test_cuda_bf16_launches_are_counted_by_body(cuda, d, misaligned, body):
-    """The bf16 forward, dQ and dK/dV take the wgmma bodies where TMA
-    takes the tensors (32 < D <= 128, D % 8 == 0, 16-byte-aligned bases),
-    else the mma.sync bodies (D > 128: the CUDA cores). Each launch is
-    counted under the body the library reports, and every body matches
-    the plain versions."""
+def test_cuda_bf16_launches_are_counted_by_body(cuda, d, misaligned, body, dtype):
+    """The bf16 and fp16 forward, dQ and dK/dV take the wgmma bodies
+    where TMA takes the tensors (32 < D <= 128, D % 8 == 0,
+    16-byte-aligned bases), else the mma.sync bodies (D > 128: the CUDA
+    cores). Each launch is counted under the body the library reports,
+    and every body matches the plain versions."""
     gen = torch.Generator().manual_seed(d)
     tensors = []
     for _ in range(4):
-        t = torch.randn(2, 70, 3, d, generator=gen).to(cuda, torch.bfloat16)
+        t = torch.randn(2, 70, 3, d, generator=gen).to(cuda, dtype)
         if misaligned:  # 2 bytes past a 16-byte boundary
             t = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)[1:1 + t.numel()] \
                 .view(t.shape).copy_(t)
@@ -623,11 +632,12 @@ def test_cuda_bf16_launches_are_counted_by_body(cuda, d, misaligned, body):
     dq = fa.flash_backward_dq_kernel(q, k, v, do, plse, delta, True, scale)
     pdq, pdk, pdv = fa.reference_flash_backward(q, k, v, do, plse, delta, True, scale)
     for name, got, want in (("o", o, po), ("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
-        _bf16_close(name, got, want)
+        _half_close(name, got, want)
     torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-4)
+    form = HALF_FORMS[dtype]
     assert {key: n for key, n in fa.LAUNCHES_BY_BODY.items() if n} == {
-        f"flash_fwd_bf16 {body}": 1, f"flash_bwd_dkv_bf16 {body}": 1,
-        f"flash_bwd_dq_bf16 {body}": 1}
+        f"flash_fwd{form} {body}": 1, f"flash_bwd_dkv{form} {body}": 1,
+        f"flash_bwd_dq{form} {body}": 1}
 
 
 def test_cuda_bf16_dq_into_a_misaligned_output_alone_keeps_mma_sync(cuda):
@@ -655,10 +665,10 @@ def test_cuda_bf16_dq_into_a_misaligned_output_alone_keeps_mma_sync(cuda):
         scale, 1, torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()
-    _bf16_close("dq", dq, want)
+    _half_close("dq", dq, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_cuda_value_head_dim_other_than_key_head_dim(cuda, dtype):
     """multihead attention with kdim=8, vdim=16 (and the reverse): the
     kernels run on zero-padded head dims and match the plain versions,
@@ -678,8 +688,8 @@ def test_cuda_value_head_dim_other_than_key_head_dim(cuda, dtype):
             outs[backend] = (o.detach(), q.grad, k.grad, v.grad)
         assert outs["auto"][0].shape == (2, 8, 2, dv) and outs["auto"][3].shape == base[2].shape
         for name, got, want in zip(("o", "dq", "dk", "dv"), outs["auto"], outs["plain"]):
-            if dtype == torch.bfloat16:
-                _bf16_close(name, got, want)
+            if dtype in HALF_FORMS:
+                _half_close(name, got, want)
             else:
                 torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
@@ -723,6 +733,64 @@ def test_cuda_model_with_value_head_dim_other_than_key_head_dim(cuda):
     for k in pk:
         for n in pk[k]:
             torch.testing.assert_close(pk[k][n], pp[k][n], atol=1e-5, rtol=0)
+
+
+def test_cuda_model_and_engine_on_a_second_device(cuda):
+    """An FFModel and a GenerationEngine on cuda:1 while the current
+    device is 0: the flash kernels (the fp32 forward at D = 64 asks for
+    more than 48 KB of shared memory) and the paged kernel's tensor-core
+    body (an 11-token prompt) launch on cuda:1 after their first launches
+    on cuda:0 raised the limit there, the step graphs capture and replay
+    on cuda:1, and both match their plain versions. Needs two GPUs."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.generation.decoder import forward_full
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    torch.cuda.set_device(0)
+    one = torch.device("cuda:1")
+    cfg = TransformerConfig(num_layers=2, hidden_size=128, num_heads=2, ff_size=256,
+                            seq_length=64, vocab_size=97, causal=True)
+    prompts = [list(range(3, 14)), [5, 1, 4]]
+    for device in (cuda, one):  # first the current device, then the other
+        m = FFModel(FFConfig(batch_size=2), device=device)
+        t = m.create_tensor((2, 128, 128))
+        m.multihead_attention(t, t, t, 128, 2, name="attn")
+        m.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+        ex = m.executor
+        gen = torch.Generator().manual_seed(4)
+        x, y = (torch.randn(2, 128, 128, generator=gen).to(device) for _ in range(2))
+        snap = {k: {n: p.detach().clone() for n, p in g.items()} for k, g in ex.params.items()}
+        losses = {}
+        for backend in ("auto", "plain"):
+            with torch.no_grad():
+                for k, g in ex.params.items():
+                    for n, p in g.items():
+                        p.copy_(snap[k][n])
+            ex.backend = backend
+            fa.reset_launch_counts()
+            losses[backend] = float(ex.train_batch([x], y)["loss"])
+            assert sum(fa.LAUNCHES.values()) == (3 if backend == "auto" else 0)
+        np.testing.assert_allclose(losses["auto"], losses["plain"], rtol=1e-5)
+
+        params = init_decoder_params(torch.Generator().manual_seed(5), cfg)
+        engine = GenerationEngine(params, cfg, max_batch_slots=2, block_size=8,
+                                  prompt_buckets=(8, 16, 32), device=device)
+        da.reset_launch_counts()
+        got = engine.generate(prompts, SamplingParams(max_new_tokens=6))
+        assert da.LAUNCHES["paged_append"] > 0
+        for prompt, stream in zip(prompts, got):
+            seq = list(prompt)
+            for _ in range(6):
+                with torch.no_grad():
+                    logits = forward_full(engine.params, torch.tensor([seq], device=device))
+                seq.append(int(logits[0, -1].argmax()))
+            assert stream == seq[len(prompt):]
+        torch.cuda.synchronize(device)
+        assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.parametrize("sq,d,causal", [(96, 512, False), (65, 512, True), (40, 300, False)])

@@ -128,7 +128,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     plain = attention_core(q.detach(), k.detach(), v.detach(), backend="plain")
     assert torch.equal(out.detach(), plain)
     assert set(tfa.LAUNCHES) == {f"{k}{form}" for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-                                 for form in ("", "_bf16")}
+                                 for form in ("", "_bf16", "_f16")}
     assert not any(tfa.LAUNCHES.values())
 
 
@@ -143,6 +143,9 @@ def test_kernel_input_checks():
         tfa._check_kernel_inputs(False, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     assert tfa._check_kernel_inputs(False, q.bfloat16(), k.bfloat16(), v.bfloat16()) == (
         "bf16", "_bf16")
+    assert tfa._check_kernel_inputs(False, q.half(), k.half(), v.half()) == ("f16", "_f16")
+    with pytest.raises(TypeError):  # fp16 and bf16 do not mix
+        tfa._check_kernel_inputs(False, q.half(), k.bfloat16(), v.half())
     with pytest.raises(TypeError):  # one dtype for q, k and v
         tfa._check_kernel_inputs(False, q.bfloat16(), k, v)
     with pytest.raises(TypeError):  # lse and delta stay float32

@@ -145,3 +145,19 @@ def test_tensor_core_body_narrow_copies(lib, kv_dtype, d):
     qpos = np.full((1, 12), -1)
     qpos[0, :10] = 30 + np.arange(10)
     _check(lib, _case(qpos, 2, d, 5, 10, seed=5, kv_dtype=kv_dtype))
+
+
+def test_second_device_raises_its_own_limit(lib):
+    """The dynamic shared-memory limit is a kernel's attribute on one
+    device: the fp32 tensor-core instance at D = 64 asks for more than
+    48 KB, and after a launch on device 0 it launches on device 1 only if
+    its launcher raises the limit there too (the emulated runtime refuses
+    the launch otherwise, as the card's does)."""
+    args = _case(_window(2, 16, 0, 14), 2, 64, 16, 8, seed=3, kv_dtype=torch.float32)
+    assert da.kernel_body(16, 64) == "tensor_cores"
+    try:
+        for device in (0, 1):
+            assert lib.emu_set_device(device) == 0
+            _check(lib, args)
+    finally:
+        lib.emu_set_device(0)

@@ -4,15 +4,17 @@
 ``flash_attention.cu`` compile with the host C++ compiler against the
 stand-in CUDA headers of ``tests/cuda_emulator/`` (one thread per CUDA
 thread, barriers for the block, the warp and the cluster, TF32
-``mma.sync``, mbarriers, TMA tile loads and bf16 ``wgmma`` emulated).
+``mma.sync``, mbarriers, TMA tile loads and bf16 and fp16 ``wgmma``
+emulated, and each kernel's shared-memory limit kept by device).
 Only the inline PTX of ``common.cuh`` (``cp.async``, ``mma.sync``,
 ``mbarrier``, ``cp.async.bulk.tensor``, ``wgmma``), the ``extern
 __shared__`` declarations and the ``<<<...>>>`` launches are replaced;
 everything else is the source the card builds. A library exports the same
 C interface as the card's (``ff_paged_append_*``, ``ff_flash_*``), called
 with CPU pointers, plus ``emu_set_sms`` (the streaming multiprocessors the
-launchers size their clusters for). Nothing runs when this module is
-imported.
+launchers size their clusters for) and ``emu_set_device`` (the host
+thread's current device, as ``cudaSetDevice``; returns its
+``cudaError_t``). Nothing runs when this module is imported.
 """
 from __future__ import annotations
 
@@ -59,9 +61,13 @@ inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 inline void wgmma_wait_all() {}
 inline void fence_acc(float (&)[32]) {}
-inline void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) { emu_wgmma(d, nullptr, a, b, false); }
+template <typename T>
+inline void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  emu_wgmma(d, nullptr, a, b, false, std::is_same<T, __half>::value);
+}
+template <typename T>
 inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  emu_wgmma(d, a, 0, b, true);
+  emu_wgmma(d, a, 0, b, true, std::is_same<T, __half>::value);
 }
 """
 _PTX_FUNCTIONS = ("smem_addr", "cp_async16", "cp_async4", "cp_async_commit",
@@ -75,9 +81,13 @@ _LAUNCH = re.compile(r"^(\s*)(\S.*?)<<<(.*?)>>>\(", re.M)
 
 
 def _without(text: str, function: str) -> str:
-    """``text`` without the definition of ``__device__ ... function(...)``."""
+    """``text`` without the definition of ``__device__ ... function(...)``
+    (and its ``template <...>`` line, if it has one)."""
     start = text.index(f" {function}(", text.index("__device__ __forceinline__"))
     start = text.rindex("__device__ __forceinline__", 0, start)
+    template = re.search(r"template <[^>]*>\n$", text[:start])
+    if template:
+        start = template.start()
     end = text.index("\n}\n", start) + 3
     return text[:start] + text[end:]
 
@@ -99,7 +109,8 @@ def build(out_dir: Path, source: str = "paged_attention.cu") -> Path:
     text = text.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
                         "unsigned char* smem_raw = emu_smem();")
     text = _LAUNCH.sub(r"\1emu_launch(\2, \3, ", text)
-    text += '\nextern "C" void emu_set_sms(int n) { emu_sms = n; }\n'
+    text += ('\nextern "C" void emu_set_sms(int n) { emu_sms = n; }\n'
+             'extern "C" int emu_set_device(int d) { return cudaSetDevice(d); }\n')
     out_dir.mkdir(parents=True, exist_ok=True)
     stem = Path(source).stem
     (out_dir / "common.cuh").write_text(common)
@@ -121,4 +132,6 @@ def load(lib: Path) -> ctypes.CDLL:
             getattr(handle, name).argtypes = argtypes
             getattr(handle, name).restype = ctypes.c_int
     handle.emu_set_sms.argtypes = [ctypes.c_int]
+    handle.emu_set_device.argtypes = [ctypes.c_int]
+    handle.emu_set_device.restype = ctypes.c_int
     return handle
