@@ -133,7 +133,34 @@ prints no result line):
    one constrained slot (an endless [a-z ]+ grammar), the mask bytes
    written per step, and a mask_advance error that must quarantine one
    constrained request while the rest equal the fault-free run.
-11. anatomy: torch.profiler over a short 4-slot run — the device's busy
+11. server: the port's InferenceServer on 127.0.0.1 with a
+   GenerationModel over a 4-slot graph engine (prefix cache on): the
+   serving cell's 8 requests (4 SSE, 4 JSON) from client threads at once,
+   cold and warm, then a JSON-schema, a speculation and a best-effort
+   request; streams equal to the same requests straight to a scheduler,
+   no new capture, num_layers paged launches per step, /metrics valid.
+12. durable: durable serving and request journeys across a SIGKILL. A
+   child process (this script with ``--durable-child WAL_DIR``) serves
+   the serving cell's engine (4 slots, 257 fp32 blocks, graph steps,
+   overlap on) through a GenerationModel with durability (fsync on) and
+   journeys on; the parent posts the cell's 4 JSON requests, then, once
+   they are admitted, its 4 SSE ones with a client traceparent, tails the
+   WAL and polls /v2/durable, and SIGKILLs the child once every stream
+   holds >= 8 journaled tokens and one is unfinished. A fresh engine in
+   this process then warm-restarts from the same WAL and serves over
+   HTTP: all 8 streams must equal the serving phase's fault-free ones,
+   /v2/generate/resume/{id} must give each restarted stream whole from
+   event 0 and only its tail after the client's Last-Event-ID, each
+   traceparent request's /v2/debug/journey/{id} must carry the client's
+   trace id, spans from both sides of the kill and a warm_restart hop,
+   and be complete; one fingerprint on both sides, num_layers paged
+   launches per decode step on the restarted engine, one capture per
+   signature; torn records are counted and printed. Then the steady
+   4-slot stretch (128 steps, overlap on) with durability off, on with
+   fsync and on without, in turns over two rounds (ms per step,
+   flush_step host ms p50 / p99, fsyncs per second, WAL bytes per token,
+   the garbage collector's pauses), and with journeys on and off.
+13. anatomy: torch.profiler over a short 4-slot run — the device's busy
    share of the wall time and the device time by kernel; eight decode
    steps of four live slots under the profiler, replayed and eager
    (device and wall ms a step, device kernels a step, one paged kernel a
@@ -147,7 +174,7 @@ prints no result line):
    cache's form, by name, with its device ms and launches by window. The
    profiler runs only after the timed phases: once started, it slows the
    host's later launches.
-12. flash kernels: the flash-attention forward, dQ and dK/dV kernels,
+14. flash kernels: the flash-attention forward, dQ and dK/dV kernels,
    float32, bf16 and fp16 forms, against their plain PyTorch versions
    (fp32: atol 1e-4 + rtol 1e-4; bf16 and fp16: within one ulp of the
    type at the plain value plus 1e-3, the logsumexp at the fp32 gate) at
@@ -165,7 +192,7 @@ prints no result line):
    bound (fp32: fp32-accurate products on the tensor cores, and the same
    operations on the fp32 CUDA cores; bf16 and fp16: 2-byte tensors,
    the dense bf16 / fp16 rate).
-13. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
+15. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
    seq 128, batch 32, weights from --seed) through FFModel -> compile
    (SGD lr 0.01, MSE) -> fit, first in fp32, then bf16 (``bench.py``'s
    cell: bf16 parameters and activations), then fp16 (DataType.HALF: no
@@ -1871,7 +1898,8 @@ class LaunchTimer:
         return sum(a.elapsed_time(b) for a, b in self.marks) / 1e3
 
 
-def steady_stretch(engine, prompts, overlap: bool, steps: int, device_of=None) -> dict:
+def steady_stretch(engine, prompts, overlap: bool, steps: int, device_of=None,
+                   sched=None) -> dict:
     """Four slots decoding ``steps`` steps with nothing non-steady in
     between (admitted before, finishing after): host-clock ms per step,
     the engine's dispatch / execute / readback split of it
@@ -1882,13 +1910,15 @@ def steady_stretch(engine, prompts, overlap: bool, steps: int, device_of=None) -
     was idle), the card's SM clock and power just after the window, and
     the device's busy share: a decode step's device time (``device_of``
     (engine), or the engine's own graph replayed back to back right after
-    the window, on the last step's inputs) over the ms per step."""
+    the window, on the last step's inputs) over the ms per step. ``sched``
+    replaces the scheduler (durability attached, journeys off)."""
     import torch
 
     from flexflow_tpu_torch.generation.engine import SamplingParams
     from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
 
-    sched = ContinuousBatchingScheduler(engine, overlap=overlap)
+    if sched is None:
+        sched = ContinuousBatchingScheduler(engine, overlap=overlap)
     handles = [sched.submit(p, SamplingParams(max_new_tokens=steps + 8)) for p in prompts]
     sched.step()  # the admissions and one sequential decode step
     sched.step()  # with overlap: the pipeline's first dispatch
@@ -2631,6 +2661,516 @@ def server_phase(seed: int, params) -> dict:
     return stats
 
 
+# the parent span of the durable phase's client traceparents (W3C)
+DURABLE_PARENT_SPAN = "00f067aa0ba902b7"
+
+
+class WalTail:
+    """Reads the WAL in a directory while its writer appends: each read
+    parses only the bytes past the last whole frame it parsed (a frame
+    still being written ends that read). ``streams()``: {durable id:
+    StreamReplay} of everything whole so far."""
+
+    def __init__(self, wal_dir: str):
+        self.dir, self.offsets, self.records = wal_dir, {}, []
+
+    def streams(self) -> dict:
+        import struct
+        import zlib
+
+        from flexflow_tpu_torch.runtime import wal
+
+        for _, path in wal.list_segments(self.dir):
+            start = self.offsets.get(path, 0)
+            with open(path, "rb") as f:
+                f.seek(start)
+                data = f.read()
+            off = 0
+            while off + 8 <= len(data):
+                n, crc = struct.unpack_from("<II", data, off)
+                payload = data[off + 8:off + 8 + n]
+                if len(payload) < n or zlib.crc32(payload) != crc:
+                    break
+                self.records.append(json.loads(payload))
+                off += 8 + n
+            self.offsets[path] = start + off
+        return {s.admit["id"]: s for s in wal.replay_streams(self.records)}
+
+
+def durable_engine(params):
+    """The serving cell's engine: GPT-2 small, 4 slots, 257 fp32 blocks of
+    16, graph steps, the prefix cache off (as the serving phase's)."""
+    from flexflow_tpu_torch.generation.engine import GenerationEngine
+
+    engine = GenerationEngine(params, gpt2_small(), max_batch_slots=4, block_size=16,
+                              prefix_cache=False)
+    if engine.cache_config.num_blocks != 257 or not engine.graphs:
+        raise AssertionError(f"durable: {engine.cache_config.num_blocks} blocks, "
+                             f"graphs {engine.graphs}")
+    return engine
+
+
+def durable_child(seed: int, wal_dir: str) -> int:
+    """Leg 1 of the durable phase, in its own process (``chip_smoke.py
+    --durable-child DIR``): the serving cell's engine behind a
+    GenerationModel with durability (fsync on, WAL in ``wal_dir``) and
+    journeys on, served by an InferenceServer on 127.0.0.1. Prints one
+    JSON line (its port and fingerprint) once it serves, then waits to be
+    killed; it exits by itself after 300 s."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.generation.decoder import init_decoder_params, params_to
+    from flexflow_tpu_torch.serving import GenerationModel, InferenceServer
+    from flexflow_tpu_torch.serving.durable import DurabilityConfig
+
+    params = params_to(
+        init_decoder_params(torch.Generator().manual_seed(seed), gpt2_small()), "cuda")
+    engine = durable_engine(params)
+    warm(engine, np.random.RandomState(seed + 11))
+    model = GenerationModel(engine, name="lm")
+    model.enable_durability(DurabilityConfig(wal_dir=wal_dir, fsync=True))
+    srv = InferenceServer(port=0)
+    srv.register_generation(model)
+    srv.start()
+    print(json.dumps({"durable_child": {"port": srv.port,
+                                        "fingerprint": model.durable.fingerprint}}), flush=True)
+    time.sleep(300)
+    return 3
+
+
+def durable_client(base: str, body: dict, traceparent, out: dict) -> None:
+    """One generate request; what arrived before the server died stays
+    in ``out`` (tokens, SSE event ids, the durable id, the journey id,
+    the error that ended it)."""
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if traceparent is not None:
+        headers["traceparent"] = traceparent
+    req = urllib.request.Request(base + "/v2/models/lm/generate",
+                                 data=json.dumps(body).encode(), headers=headers)
+    out.update(tokens=[], ids=[], done=None, error=None)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out["durable_id"] = r.headers.get("X-Durable-Id")
+            out["traceparent_out"] = r.headers.get("traceparent")
+            if not body["stream"]:
+                out["done"] = json.loads(r.read())
+                return
+            eid = None
+            for line in r:
+                if line.startswith(b"id: "):
+                    eid = int(line[4:])
+                elif line.startswith(b"data: "):
+                    ev = json.loads(line[6:])
+                    if "token" in ev:
+                        out["tokens"].append(ev["token"])
+                        out["ids"].append(eid)
+                    else:
+                        out["done"] = ev
+    except Exception as e:  # noqa: BLE001 - a killed server ends the request
+        out["error"] = repr(e)[:200]
+
+
+def sse_events(base: str, path: str, last_event_id=None) -> list:
+    """GET an SSE endpoint to its end: [(event id or None, data)]."""
+    import urllib.request
+
+    headers = {} if last_event_id is None else {"Last-Event-ID": str(last_event_id)}
+    with urllib.request.urlopen(urllib.request.Request(base + path, headers=headers),
+                                timeout=120) as r:
+        text = r.read().decode()
+    out = []
+    for chunk in text.strip().split("\n\n"):
+        lines = dict(ln.split(": ", 1) for ln in chunk.split("\n"))
+        out.append((None if "id" not in lines else int(lines["id"]), json.loads(lines["data"])))
+    return out
+
+
+def durable_leg1(seed: int, cell, wal_dir: str, engine) -> dict:
+    """Start the child, warm ``engine`` (leg 2's) while it boots, post the
+    serving cell's requests (the 4 JSON ones first, the 4 SSE ones with a
+    client traceparent once the JSON ones are admitted), poll the WAL and
+    /v2/durable, and SIGKILL the child once every stream holds >= 8
+    journaled tokens and one is unfinished."""
+    import queue
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    prompts, samplings, _ = cell
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--durable-child", wal_dir], stdout=subprocess.PIPE, text=True)
+    try:
+        lines: "queue.Queue" = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(ln) for ln in child.stdout],
+                         daemon=True).start()
+        t0 = time.perf_counter()
+        warm(engine, np.random.RandomState(seed + 11))
+        warm_s = time.perf_counter() - t0
+        ready = None
+        while ready is None:
+            try:
+                line = lines.get(timeout=max(1.0, 150 - (time.perf_counter() - t0)))
+            except queue.Empty:
+                raise AssertionError("durable: the child did not start serving") from None
+            if line.startswith('{"durable_child"'):
+                ready = json.loads(line)["durable_child"]
+        boot_s = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{ready['port']}"
+        reports = []
+        polling = threading.Event()
+
+        def poll_durable():
+            while not polling.is_set():
+                try:
+                    with urllib.request.urlopen(base + "/v2/durable", timeout=5) as r:
+                        reports.append(json.loads(r.read())["models"]["lm"])
+                except Exception:  # noqa: BLE001 - the child is being killed
+                    return
+                polling.wait(0.02)
+
+        clients, threads = {}, []
+        for i, (p, s) in enumerate(zip(prompts, samplings)):
+            body = {"prompt": p, "max_new_tokens": s.max_new_tokens,
+                    "temperature": s.temperature, "top_k": s.top_k, "seed": s.seed,
+                    "stream": bool(i % 2)}
+            tp = f"00-{0xd0ab1e00 + i:032x}-{DURABLE_PARENT_SPAN}-01" if body["stream"] else None
+            clients[i] = {"body": body, "traceparent": tp}
+            threads.append(threading.Thread(target=durable_client,
+                                            args=(base, body, tp, clients[i]), daemon=True))
+        poller = threading.Thread(target=poll_durable, daemon=True)
+        poller.start()
+        t_post = time.perf_counter()
+        for t in threads[0::2]:  # the JSON requests: the first wave
+            t.start()
+        tail = WalTail(wal_dir)
+        while len(tail.streams()) < 4:
+            if time.perf_counter() - t_post > 60:
+                raise AssertionError("durable: the JSON requests were not admitted")
+            time.sleep(0.001)
+        for t in threads[1::2]:  # the SSE requests, with a client traceparent
+            t.start()
+        polls = 0
+        while True:
+            streams = tail.streams()
+            polls += 1
+            if (len(streams) == len(prompts) and all(len(s.tokens) >= 8 for s in streams.values())
+                    and any(not s.ended for s in streams.values())):
+                os.kill(child.pid, signal.SIGKILL)
+                break
+            if len(streams) == len(prompts) and all(s.ended for s in streams.values()):
+                raise AssertionError("durable: every stream finished before the kill")
+            if time.perf_counter() - t_post > 60:
+                raise AssertionError(f"durable: no kill point in 60 s ({len(streams)} streams)")
+        t_kill = time.perf_counter()
+        child.wait(timeout=30)
+        polling.set()
+        poller.join(timeout=10)
+        for t in threads:
+            t.join(timeout=30)
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(f"durable: the child exited with {child.returncode}")
+        at_kill = WalTail(wal_dir).streams()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+    if not reports or reports[-1]["fingerprint"] != ready["fingerprint"]:
+        raise AssertionError(f"durable: /v2/durable gave {reports[-1:]}")
+    return {"child": ready, "clients": clients, "at_kill": at_kill, "polls": polls,
+            "post_to_kill_s": t_kill - t_post, "child_boot_s": boot_s, "warm_s": warm_s,
+            "durable_reports": len(reports), "last_report": reports[-1]}
+
+
+def durable_leg2(engine, cell, wal_dir: str, scan_dir: str, leg1: dict) -> dict:
+    """Warm restart in this process: a fresh GenerationModel with
+    durability on leg 1's WAL, ``warm_restart()``, then an InferenceServer
+    serving the adopted streams to the end, the resume endpoint (from
+    event 0 while they run, from each SSE client's Last-Event-ID after)
+    and the journeys of the traceparent requests."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+    from flexflow_tpu_torch.runtime import wal
+    from flexflow_tpu_torch.serving import GenerationModel, InferenceServer
+    from flexflow_tpu_torch.serving.durable import DurabilityConfig
+
+    prompts, _, streams = cell
+    want = {tuple(p): s for p, s in zip(prompts, streams)}
+    captures = dict(engine.trace_counts)
+    # the warm restart's scan, timed on a copy (a scan truncates torn tails)
+    os.makedirs(scan_dir)
+    for _, path in wal.list_segments(wal_dir):
+        shutil.copy(path, scan_dir)
+    t0 = time.perf_counter()
+    records, torn = wal.scan_wal(scan_dir)
+    scan_s = time.perf_counter() - t0
+    model = GenerationModel(engine, name="lm")
+    dur = model.enable_durability(DurabilityConfig(wal_dir=wal_dir, fsync=True))
+    srv = InferenceServer(port=0)
+    try:
+        t0 = time.perf_counter()
+        report = dur.warm_restart()
+        restart_s = time.perf_counter() - t0
+        adopted = [e.req for e in model.scheduler.journal.entries()]
+        n0 = [r.n_generated for r in adopted]
+        da.reset_launch_counts()
+        decode0 = engine.step_counts["decode"]
+        srv.register_generation(model)
+        srv.start()
+        t_serve = time.perf_counter()
+        base = f"http://127.0.0.1:{srv.port}"
+        resumed = {}
+        threads = [threading.Thread(
+            target=lambda r=r: resumed.__setitem__(
+                r.durable_id, sse_events(base, f"/v2/generate/resume/{r.durable_id}")),
+            daemon=True) for r in adopted]
+        for t in threads:
+            t.start()
+        first = [None] * len(adopted)
+        while not all(first) and time.perf_counter() - t_serve < 60:
+            now = time.perf_counter()
+            for i, r in enumerate(adopted):
+                if first[i] is None and (r.n_generated > n0[i] or r.handle.done()):
+                    first[i] = now
+            time.sleep(0.0002)
+        for r in adopted:
+            r.handle.result(timeout=120)
+        for t in threads:
+            t.join(timeout=120)
+        launches = dict(da.LAUNCHES)
+        decode_steps = engine.step_counts["decode"] - decode0
+        # the SSE clients reconnect from the last event id they hold
+        tails, journeys = {}, {}
+        by_prompt = {tuple(c["body"]["prompt"]): c for c in leg1["clients"].values()}
+        for r in adopted:
+            c = by_prompt[tuple(r.original_prompt)]
+            last = c["ids"][-1] if c["ids"] else None
+            tails[r.durable_id] = (last, sse_events(
+                base, f"/v2/generate/resume/{r.durable_id}", last_event_id=last))
+            if c["traceparent"] is not None:
+                trace = c["traceparent"].split("-")[1]
+                with urllib.request.urlopen(f"{base}/v2/debug/journey/{trace}", timeout=60) as h:
+                    journeys[trace] = json.loads(h.read())["journey"]
+        with urllib.request.urlopen(base + "/v2/durable", timeout=60) as h:
+            restarted_report = json.loads(h.read())["models"]["lm"]
+    finally:
+        if srv._httpd is not None:
+            srv.stop()  # stops the model's scheduler and closes its Durability
+        else:
+            dur.close()
+    return {"adopted": adopted, "n0": n0, "report": report, "scan_records": len(records),
+            "scan_torn": torn, "scan_s": scan_s, "restart_s": restart_s,
+            "ttft_s": [f - t0 for f in first if f is not None], "resumed": resumed,
+            "tails": tails, "journeys": journeys, "launches": launches,
+            "decode_steps": decode_steps, "captures_before": captures,
+            "restarted_report": restarted_report, "want": want}
+
+
+def durable_gates(leg1: dict, leg2: dict, fingerprint: str) -> dict:
+    """Every stream token-identical to the serving phase's fault-free run;
+    the resume endpoint's events; the journeys; one fingerprint; the
+    paged launches and captures of the restarted engine."""
+    cfg = gpt2_small()
+    want = leg2["want"]
+    engine_captures = leg2["captures_before"]
+    got = {}
+    for s in leg1["at_kill"].values():  # finished before the kill: the journal holds them
+        if s.ended:
+            if s.outcome != "completed":
+                raise AssertionError(f"durable: a stream ended {s.outcome} before the kill")
+            got[tuple(s.admit["prompt"])] = s.tokens
+    for c in leg1["clients"].values():
+        done = c["done"]
+        if done is not None and "tokens" in done:  # delivered before the kill
+            if list(done["tokens"]) != want[tuple(c["body"]["prompt"])]:
+                raise AssertionError("durable: a stream served before the kill differs")
+    for r in leg2["adopted"]:
+        got[tuple(r.original_prompt)] = r.handle.result(0)
+        events = leg2["resumed"][r.durable_id]
+        tokens = [e["token"] for _, e in events[:-1]]
+        if (tokens != want[tuple(r.original_prompt)] or [i for i, _ in events[:-1]]
+                != list(range(len(tokens))) or events[-1][1].get("outcome") != "completed"):
+            raise AssertionError(f"durable: resume from event 0 of {r.durable_id}: {events[-1]}")
+        last, tail = leg2["tails"][r.durable_id]
+        k = 0 if last is None else last + 1
+        if [e["token"] for _, e in tail[:-1]] != want[tuple(r.original_prompt)][k:]:
+            raise AssertionError(f"durable: resume after Last-Event-ID {last} of {r.durable_id}")
+    if set(got) != set(want):
+        raise AssertionError(f"durable: {len(got)} of {len(want)} streams accounted for")
+    for p, tokens in got.items():
+        if list(tokens) != want[p]:
+            raise AssertionError(f"durable: the stream of a {len(p)}-token prompt differs "
+                                 "from the fault-free run")
+    sse = [c for c in leg1["clients"].values() if c["traceparent"] is not None]
+    for c in sse:
+        trace = c["traceparent"].split("-")[1]
+        j = leg2["journeys"].get(trace)
+        names = [s["name"] for s in j["spans"]] if j else []
+        if (j is None or j["journey_id"] != trace or not j["complete"]
+                or not {"submit", "admit", "prefill", "adopt", "warm_restart", "sse_resume",
+                        "finish"} <= set(names)):
+            raise AssertionError(f"durable: journey {trace}: {names}")
+    if leg2["report"]["fingerprint"] != fingerprint or fingerprint != leg1["child"]["fingerprint"]:
+        raise AssertionError("durable: the fingerprints of the two legs differ")
+    steps = leg2["decode_steps"]
+    if (leg2["launches"]["paged_append"] != cfg.num_layers * steps or steps == 0
+            or leg2["launches"]["paged_append_split"]):
+        raise AssertionError(f"durable: launches {leg2['launches']} != {cfg.num_layers} x "
+                             f"{steps} decode steps")
+    return {"streams": len(got), "adopted": len(leg2["adopted"]), "journeys": len(sse),
+            "captures": engine_captures}
+
+
+def durable_stretches(engine, seed: int, root: str) -> dict:
+    """The steady 4-slot stretch (overlap on, 128 steps) with durability
+    off, on with fsync and on without, in turns over two rounds, then with
+    journeys on and off: ms per step and the garbage collector's pauses
+    in the stretch, and with durability each iteration's flush_step host
+    time (its WAL write's longest too), fsyncs per second and WAL bytes
+    per token (the stretch's admit records included)."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+    from flexflow_tpu_torch.serving.durable import Durability, DurabilityConfig
+
+    gc_marks: list = []
+
+    def gc_timer(phase, info):  # the garbage collector's pauses, by generation
+        gc_marks.append((phase, info["generation"], time.perf_counter()))
+
+    def gc_pauses():
+        out, start = [], {}
+        for phase, gen, t in gc_marks:
+            if phase == "start":
+                start[gen] = t
+            elif gen in start:
+                out.append((gen, t - start.pop(gen)))
+        gc_marks.clear()
+        return {"gc_collections": len(out), "gc_ms": 1e3 * sum(d for _, d in out),
+                "gc_max_ms": 1e3 * max((d for _, d in out), default=0.0),
+                "gc_gen2": sum(g == 2 for g, _ in out)}
+
+    def timed(fn, times):
+        def call():
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        return call
+
+    rs = np.random.RandomState(seed + 12)
+    four = [rs.randint(0, engine.cfg.vocab_size, n).tolist() for n in (300, 64, 700, 128)]
+    steps = 128
+    out: dict = {}
+    gc.callbacks.append(gc_timer)
+    try:
+        for k, mode in enumerate(("off", "fsync", "no_fsync", "no_fsync", "fsync", "off")):
+            sched = ContinuousBatchingScheduler(engine)
+            dur, flushes, writes = None, [], []
+            if mode != "off":
+                dur = Durability(sched, DurabilityConfig(
+                    wal_dir=os.path.join(root, f"steady{k}"), fsync=mode == "fsync"))
+                # flush_step, and inside it the WAL's buffered write
+                dur.journal.flush_step = timed(dur.journal.flush_step, flushes)
+                dur.wal.flush = timed(dur.wal.flush, writes)
+            try:
+                c0 = dur.wal.counters() if dur else None
+                gc_pauses()
+                t0 = time.perf_counter()
+                r = steady_stretch(engine, four, True, steps, sched=sched)
+                wall = time.perf_counter() - t0
+                r.update(gc_pauses())
+                if dur:
+                    c1 = dur.wal.counters()
+                    ms = sorted(1e3 * t for t in flushes)
+                    r.update(flush_step_ms_p50=ms[len(ms) // 2],
+                             flush_step_ms_p99=ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+                             flush_step_ms_max=ms[-1],
+                             flush_steps_over_1ms=sum(t > 1.0 for t in ms),
+                             wal_write_ms_max=1e3 * max(writes),
+                             fsyncs_per_s=(c1["fsyncs"] - c0["fsyncs"]) / wall,
+                             wal_bytes_per_token=(c1["bytes"] - c0["bytes"]) / (4 * (steps + 8)),
+                             wal_appends=c1["appends"] - c0["appends"])
+            finally:
+                if dur:
+                    dur.close()
+            out.setdefault(f"durable_{mode}", []).append(r)
+            print(f"durable steady stretch, durability {mode}: " + json.dumps(r))
+        for mode in ("on", "off", "off", "on"):
+            sched = ContinuousBatchingScheduler(engine, journeys=mode == "on")
+            gc_pauses()
+            r = steady_stretch(engine, four, True, steps, sched=sched)
+            r.update(gc_pauses())
+            out.setdefault(f"journeys_{mode}", []).append(r)
+            print(f"durable steady stretch, journeys {mode}: " + json.dumps(r))
+    finally:
+        gc.callbacks.remove(gc_timer)
+    return out
+
+
+def durable_phase(seed: int, params, cell) -> dict:
+    """Durable serving and request journeys, killed mid-stream: leg 1 in a
+    child process (the serving cell over HTTP, durability with fsync and
+    journeys on, SIGKILLed mid-stream), leg 2 in this process (a fresh
+    engine and GenerationModel on the same WAL, ``warm_restart()``, served
+    to the end), the gates, then the steady stretches with durability and
+    journeys on and off."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ff_durable_")
+    try:
+        wal_dir = os.path.join(root, "wal")
+        engine = durable_engine(params)
+        leg1 = durable_leg1(seed, cell, wal_dir, engine)
+        leg2 = durable_leg2(engine, cell, wal_dir, os.path.join(root, "scan"), leg1)
+        gates = durable_gates(leg1, leg2, leg2["report"]["fingerprint"])
+        legs_s = time.perf_counter() - t0
+        stretches = durable_stretches(engine, seed, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if (engine.trace_counts != leg2["captures_before"] or engine.recompiles()
+            or any(n != 1 for n in engine.trace_counts.values())):
+        raise AssertionError(f"durable: captures {engine.trace_counts} after "
+                             f"{leg2['captures_before']}")
+    report = leg2["report"]
+    at_kill = leg1["at_kill"].values()
+    stats = {
+        **gates, "fingerprint": report["fingerprint"],
+        "child_boot_s": leg1["child_boot_s"], "parent_warm_s": leg1["warm_s"],
+        "post_to_kill_s": leg1["post_to_kill_s"], "wal_polls": leg1["polls"],
+        "durable_reports_polled": leg1["durable_reports"],
+        "journaled_tokens_at_kill": sorted(len(s.tokens) for s in at_kill),
+        "ended_at_kill": sum(s.ended for s in at_kill),
+        "sse_tokens_at_kill": sorted(len(c["tokens"]) for c in leg1["clients"].values()
+                                     if c["body"]["stream"]),
+        "torn_records": report["torn_records"], "scan_torn": leg2["scan_torn"],
+        "scan_records": leg2["scan_records"], "scan_s": leg2["scan_s"],
+        "warm_restart_s": leg2["restart_s"], "replayed_streams": report["replayed_streams"],
+        "replayed_tokens": report["replayed_tokens"],
+        "resumed_ttft_s": leg2["ttft_s"], "decode_steps": leg2["decode_steps"],
+        "launches": leg2["launches"],
+        "sse_resume_hops": sum("sse_resume" in [s["name"] for s in j["spans"]]
+                               for j in leg2["journeys"].values()),
+        "journey_lanes": sorted({ln for j in leg2["journeys"].values() for ln in j["lanes"]}),
+        "restarted_wal": leg2["restarted_report"]["wal"],
+        "legs_s": legs_s, "steady": stretches, "phase_s": time.perf_counter() - t0,
+    }
+    print("durable (SIGKILL mid-stream, warm restart): " + json.dumps(
+        {k: v for k, v in stats.items() if k != "steady"}))
+    return stats
+
+
 def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool,
                 two_byte: bool = False):
     """(bound_ms, bound_by, fp32_cuda_core_ms) of one flash kernel call:
@@ -3266,6 +3806,9 @@ def training_phase(seed: int, dtype=None):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed for weights, prompts and inputs")
+    ap.add_argument("--durable-child", metavar="WAL_DIR",
+                    help="serve leg 1 of the durable phase from WAL_DIR (started by the "
+                         "durable phase itself, which kills it)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3283,6 +3826,8 @@ def main(argv=None) -> int:
     # cuBLAS's 2-byte split-K reductions stay at PyTorch's default, as the
     # port runs them: the BERT-Base steps take no split-K GEMM, and turning
     # them off changes no bit of a step (tools/reduction_probe.py)
+    if args.durable_child:
+        return durable_child(args.seed, args.durable_child)
 
     card = card_line()
     print(card)
@@ -3315,6 +3860,7 @@ def main(argv=None) -> int:
     overlap = overlap_phase(args.seed, params)
     constrained = constrained_phase(args.seed, params)
     server = server_phase(args.seed, params)
+    durable = durable_phase(args.seed, params, cell)
     anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
     suffix_bodies = suffix_prefill_bodies(args.seed, params)
@@ -3345,6 +3891,7 @@ def main(argv=None) -> int:
                serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]
                + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]
                + constrained["launches"]["paged_append"] + server["launches"]["paged_append"]
+               + durable["launches"]["paged_append"]
                + suffix_bodies["float"]["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
@@ -3446,6 +3993,32 @@ def main(argv=None) -> int:
               f"{b['pre_submit_ms_p50']:.2f}, max {b['pre_submit_ms_max']:.2f}; SSE delivery ms "
               f"p50 {b['sse_delivery_ms_p50']:.3f}; front end ms per token "
               f"{b['front_end_ms_per_token']:.4f}")
+    st = durable["steady"]
+
+    def per_step(rs_, key="ms_per_step", fmt="{:.3f}"):
+        return ", ".join(fmt.format(r[key]) for r in rs_)
+
+    print(f"{card}: durable serving, steady 4-slot decode (graph steps, overlap on, 128 steps; "
+          f"rounds in turns): ms per step durability off {per_step(st['durable_off'])}; on with "
+          f"fsync {per_step(st['durable_fsync'])}; on without fsync "
+          f"{per_step(st['durable_no_fsync'])}; device busy share off / fsync / no fsync "
+          + " / ".join(per_step(st[f"durable_{m}"], "device_busy_share")
+                       for m in ("off", "fsync", "no_fsync")))
+    for m in ("fsync", "no_fsync"):
+        print(f"{card}: durable serving, {m.replace('_', ' ')}: flush_step host ms p50 "
+              f"{per_step(st[f'durable_{m}'], 'flush_step_ms_p50', '{:.4f}')}, p99 "
+              f"{per_step(st[f'durable_{m}'], 'flush_step_ms_p99', '{:.4f}')}, its WAL write's max "
+              f"{per_step(st[f'durable_{m}'], 'wal_write_ms_max', '{:.4f}')}; fsyncs per s "
+              f"{per_step(st[f'durable_{m}'], 'fsyncs_per_s', '{:.1f}')}; WAL bytes per token "
+              f"{per_step(st[f'durable_{m}'], 'wal_bytes_per_token', '{:.1f}')}")
+    print(f"{card}: warm restart after SIGKILL (GPT-2 small, 4 slots, 257 fp32 blocks): scan s "
+          f"{durable['scan_s']:.4f} ({durable['scan_records']} records), warm_restart() s "
+          f"{durable['warm_restart_s']:.4f}, replayed {durable['replayed_streams']} streams / "
+          f"{durable['replayed_tokens']} tokens, torn records {durable['torn_records']}; TTFT of "
+          "the resumed streams s " + ", ".join(f"{t:.4f}" for t in durable["resumed_ttft_s"])
+          + f"; journaled tokens at the kill {durable['journaled_tokens_at_kill']}")
+    print(f"{card}: steady 4-slot decode, journeys on: ms per step {per_step(st['journeys_on'])}; "
+          f"journeys off: {per_step(st['journeys_off'])}")
     kv = kv_dtype
     print(f"{card}: kv cache bf16 ({kv['cache_bytes']} bytes against fp32's "
           f"{kv['fp32_cache_bytes']}), 4-slot serving cell: tokens/s "
@@ -3483,6 +4056,7 @@ def main(argv=None) -> int:
                       "long_context": long_ctx,
                       "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
                       "overlap": overlap, "constrained": constrained, "server": server,
+                      "durable": durable,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training, "training_bf16": training_bf16,
                       "training_f16": training_f16,

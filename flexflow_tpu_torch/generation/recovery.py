@@ -210,9 +210,17 @@ class GenerationJournal:
             self._entries.clear()
             return out
 
+    # Durable-serving hooks: no-ops here, overridden by
+    # serving.durable.DurableJournal to mirror the journal into the WAL.
+    # The scheduler calls note_token from every emitted-token path and
+    # flush_step once per scheduling iteration (the group-commit
+    # boundary); on the base class, the scheduler never imports the
+    # serving tier.
     def note_token(self, req: "Request", token: int) -> None:
-        """Emitted-token hook (a durable journal mirrors each token; a
-        no-op here)."""
+        pass
+
+    def flush_step(self) -> None:
+        pass
 
 
 class EngineSupervisor:

@@ -73,7 +73,16 @@ batch recomposes freely —
   per iteration, the step-anatomy profiler's host spans and device
   execute span, KV-cache block telemetry, SLO burn rates and goodput,
   all registered as gauges on the scheduler's :class:`ServingStats`
-  (``/v2/stats``, ``/metrics``).
+  (``/v2/stats``, ``/metrics``); and the request's journey
+  (``obs/journey.py``): one parent-linked span per hop (submit, admit,
+  prefill, replay, adopt, finish) in the scheduler's
+  :class:`JourneyRecorder`, whose id tags the TTFT/TPOT/queue-time
+  exemplars;
+* **durable serving** (``serving/durable.py``): the journal's
+  ``note_token`` and its once-per-iteration ``flush_step`` (the WAL's
+  group commit, inside the overlap pipeline's execute window) are no-ops
+  on the base journal; ``adopt`` re-admits a warm-restarted stream by
+  recompute prefill.
 
 Requests carry deadlines (:class:`DeadlineExceededError` before OR during
 generation), on an injectable clock so tests run on virtual time.
@@ -95,9 +104,13 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..obs import (
+    NULL_JOURNEY,
     NULL_TRACE,
     CacheTelemetry,
     FlightRecorder,
+    JourneyContext,
+    JourneyRecorder,
+    JourneyStats,
     RequestTrace,
     SLOMonitor,
     StepAnatomy,
@@ -227,7 +240,12 @@ class Request:
     advance for the step loop's quarantine sweep. ``priority`` orders
     admission, preemption victims and sheds; ``overload_release`` returns
     the request's limiter slot when it settles. Ids come from the
-    process-wide ``obs`` counter, so a trace id names one request."""
+    process-wide ``obs`` counter, so a trace id names one request.
+    ``journey`` is the request's journey context (NULL_JOURNEY when
+    journeys are off), minted or joined at submit and restored from the
+    WAL on a warm restart; ``durable_id`` is its WAL identity, stable
+    across process restarts (set by a DurableJournal; None when the
+    stream is not journaled)."""
 
     def __init__(
         self,
@@ -248,6 +266,8 @@ class Request:
         # at submit when observability is on
         self.trace = NULL_TRACE
         self.trace_ring: Optional[TraceRing] = None
+        self.journey = NULL_JOURNEY
+        self.durable_id: Optional[str] = None
         self.slo_sink: Optional[Callable[["Request"], None]] = None
         self.submitted_at = 0.0  # stamped by the scheduler
         # admission-wait blame: when the queue's head first stalled on
@@ -287,7 +307,8 @@ class Request:
     def _trace_done(self, outcome: str, err: Optional[BaseException]) -> None:
         """Terminal hook, called once by the handle's settle winner: the
         limiter slot goes back (observability off must not leak it), the
-        trace finishes into its ring and the SLO/goodput sink records it."""
+        trace finishes into its ring, the SLO/goodput sink records it and
+        the journey takes its terminal hop."""
         release, self.overload_release = self.overload_release, None
         if release is not None:
             try:
@@ -303,6 +324,22 @@ class Request:
                     self.slo_sink(self)
                 except Exception:
                     pass  # SLO accounting must never poison a settle path
+        if self.journey is not NULL_JOURNEY:
+            # the terminal span carries the trace's decomposition and event
+            # log; recorded even when the trace is NULL (a warm-restored
+            # stream has a journey but no trace): the journey must end
+            try:
+                tr = {} if self.trace is NULL_TRACE else self.trace.to_dict()
+                self.journey.hop(
+                    "finish", outcome=outcome, n_generated=len(self.generated),
+                    queue_time_s=tr.get("queue_time_s"), ttft_s=tr.get("ttft_s"),
+                    tpot_s=tr.get("tpot_s"), total_s=tr.get("total_s"),
+                    preemptions=tr.get("preemptions"), replays=tr.get("replays"),
+                    error=None if err is None else str(err),
+                    trace_events=tr.get("events"),
+                )
+            except Exception:
+                pass  # journeys must never poison a settle path
 
     def update_speculation(self, proposed: int, accepted: int) -> None:
         """Fold one verification window into the adaptive-k state."""
@@ -391,8 +428,9 @@ class ContinuousBatchingScheduler:
     size them, ``slo_objectives`` replaces the default SLOs,
     ``pressure_threshold`` is the free-block fraction under which the
     cache counts as under pressure, and ``overload`` tunes the overload
-    controller. ``journeys`` stays None: request journeys are not ported
-    yet."""
+    controller. ``journeys`` (default: on with observability) records
+    each request's journey; ``journeys=False`` keeps tracing on with
+    journeys off."""
 
     def __init__(
         self,
@@ -408,6 +446,7 @@ class ContinuousBatchingScheduler:
         recovery: Optional[RecoveryPolicy] = None,
         watchdog: Optional[WatchdogPolicy] = None,
         observability: bool = True,
+        journeys: Optional[bool] = None,
         trace_ring_size: int = 256,
         flight_capacity: int = 512,
         trace_progress_every: int = 8,
@@ -437,7 +476,6 @@ class ContinuousBatchingScheduler:
         self._hard_stop = False
         self._stopped = False  # a started-then-stopped scheduler rejects submits
         self._admitted_seq = itertools.count()
-        self.journeys = None  # request journeys: not ported yet
         # observability, surfaced on /v2/stats and /metrics through the
         # serving front end (the gauge names are the JAX scheduler's)
         self.stats = ServingStats()
@@ -471,6 +509,16 @@ class ContinuousBatchingScheduler:
         self.obs_enabled = observability
         self.trace_progress_every = trace_progress_every
         self.trace_ring = TraceRing(trace_ring_size)
+        # request journeys: this scheduler's span ring (lane "local"),
+        # stitched with the HTTP ingress lane and the on-disk spool at
+        # query time. Rides observability by default
+        self.journey_stats = JourneyStats()
+        self.journey_stats.register_gauges(self.stats)
+        journeys_on = observability and (journeys is None or bool(journeys))
+        self.journeys: Optional[JourneyRecorder] = (
+            JourneyRecorder(lane="local", clock=self.clock, stats=self.journey_stats)
+            if journeys_on else None
+        )
         # dual-clock records: t (perf_counter, the timeline's clock) and
         # t_sched (this scheduler's possibly virtual clock)
         self.flight = FlightRecorder(
@@ -590,6 +638,7 @@ class ContinuousBatchingScheduler:
         priority: Optional[str] = None,
         grammar=None,
         response_format: Optional[Dict] = None,
+        journey: Optional[JourneyContext] = None,
     ) -> GenerationHandle:
         """Enqueue one request (priority-ordered, FCFS within a class).
         Raises OverloadedError (a QueueFullError carrying reason /
@@ -607,7 +656,9 @@ class ContinuousBatchingScheduler:
         ``Priority.ORDER`` (default standard). ``grammar`` is a compiled
         constrained-decoding TokenDFA (see ``generation/constrained/``),
         checked against the engine's vocabulary; ``response_format`` is
-        the wire spec it came from."""
+        the wire spec it came from. ``journey`` is a context handed in
+        from ingress (it keeps its id and parents onto the ingress span);
+        without one, the journey roots here."""
         if self._draining:
             raise ShuttingDownError("generation scheduler draining")
         if self._stopped:
@@ -686,6 +737,13 @@ class ContinuousBatchingScheduler:
                 )
                 if transport is not None:
                     req.trace.mark_transport(transport)
+                if self.journeys is not None:
+                    ctx = journey if journey is not None else self.journeys.mint()
+                    ctx.recorder = self.journeys
+                    req.journey = ctx
+                    req.trace.journey_id = ctx.journey_id
+                    ctx.hop("submit", request_id=req.id, prompt_len=len(prompt),
+                            priority=priority, transport=transport)
             # the sequence can never outgrow max_seq_len NOR the TOTAL
             # cache: a sequence needing more blocks than exist would
             # preempt itself forever at the head of the queue
@@ -886,6 +944,7 @@ class ContinuousBatchingScheduler:
             req.mask_state = None
             req.replays += 1
             req.trace.note_replay()
+            req.journey.hop("replay", n_generated=req.n_generated, reason="engine_restart")
             replayed += req.n_generated
             requeue.append(req)
         with self._lock:
@@ -893,6 +952,74 @@ class ContinuousBatchingScheduler:
                 self._queue.appendleft(req)
         if replayed:
             self.recovery_stats.incr("replayed_tokens", replayed)
+        self._wake.set()
+
+    def adopt(self, req: Request, *, front: bool = True, imported=None) -> None:
+        """Journal-replay admission of a stream this scheduler did not
+        submit (a warm restart's re-admission, ``serving/durable.py``).
+        The replay state IS the request object (original prompt, every
+        emitted token, the seeded sampling stream, speculation config), so
+        the recompute-prefill path resumes the stream byte-exactly.
+        Bypasses the max_queue bound and the breaker on purpose: the
+        stream was admitted once already. ``front`` requeues it ahead of
+        fresh work. ``imported`` (a prefilled KV payload from a
+        disaggregated prefill pool) is not ported: it raises
+        NotImplementedError."""
+        if imported is not None:
+            raise NotImplementedError("adopt(imported=...): KV handoff is not ported")
+        req.prompt = req.original_prompt + list(req.generated)
+        req.mask_state = None  # rebuilt from `generated` at admission
+        # mirror submit()'s can-never-be-admitted checks, or the adopted
+        # stream wedges the queue's head forever
+        room = self.engine.max_seq_len - len(req.prompt)
+        cache_room = (
+            self.engine.allocator.num_total * self.engine.cache_config.block_size
+            - len(req.prompt)
+        )
+        if (
+            len(req.prompt) > self.engine.buckets[-1]
+            or room < 1
+            or self.engine.cache_config.blocks_for(len(req.prompt) + 1)
+            > self.engine.allocator.num_total
+        ):
+            if req.handle._fail(ValueError(
+                f"adopted stream length {len(req.prompt)} can never be admitted on this "
+                f"engine (max bucket {self.engine.buckets[-1]}, max_seq_len "
+                f"{self.engine.max_seq_len}, cache blocks {self.engine.allocator.num_total})"
+            )):
+                self.stats.incr("failed")
+            return
+        # re-clamp the budget against THIS engine's geometry
+        req.max_new = min(req.max_new, req.n_generated + room, req.n_generated + cache_room)
+        if req.n_generated > 0:
+            req.replays += 1
+            req.trace.note_replay()
+            self.recovery_stats.incr("replayed_tokens", req.n_generated)
+        # terminal observability lands where the stream completes
+        if req.trace_ring is not None:
+            req.trace_ring = self.trace_ring
+        if req.slo_sink is not None:
+            req.slo_sink = self._slo_record
+        if req.journey is not NULL_JOURNEY:
+            # from here on the hops land in THIS scheduler's ring (or
+            # nowhere with journeys off: the context stays intact)
+            req.journey.recorder = self.journeys
+            req.journey.hop("adopt", imported=False, front=front, n_generated=req.n_generated)
+        # the stream counts against this limiter, forced past the limit: it
+        # must never be dropped for headroom it cleared before
+        release, req.overload_release = req.overload_release, None
+        if release is not None:
+            try:
+                release()
+            except Exception:
+                pass
+        self.overload.limiter.acquire_forced()
+        req.overload_release = self.overload.limiter.release
+        with self._lock:
+            if front:
+                self._queue.appendleft(req)
+            else:
+                self._queue.append(req)
         self._wake.set()
 
     def _reset_slots(self) -> None:
@@ -1003,7 +1130,7 @@ class ContinuousBatchingScheduler:
         self.stats.latency.record(max(0.0, self.clock() - req.submitted_at))
         tpot = req.trace.tpot_s
         if tpot is not None:
-            self.stats.observe("tpot", tpot)
+            self.stats.observe("tpot", tpot, exemplar=req.journey.journey_id)
         req.handle._finish(list(req.generated))
         self.stats.incr("completed")
 
@@ -1331,14 +1458,19 @@ class ContinuousBatchingScheduler:
         now = self.clock()
         req.trace.mark_admit(slot=slot, prompt_len=len(req.prompt),
                              preemptions=req.preemptions, replays=req.replays)
+        req.journey.hop("admit", slot=slot, prompt_len=len(req.prompt),
+                        preemptions=req.preemptions, replays=req.replays)
         if self.obs_enabled and was_first and req.preemptions == 0 and req.replays == 0:
             # first-life admission only: a recompute re-admission is a
             # scheduling event, not client-visible queueing
-            self.stats.observe("queue_time", max(0.0, now - req.submitted_at))
+            self.stats.observe("queue_time", max(0.0, now - req.submitted_at),
+                               exemplar=req.journey.journey_id)
         self._emit_token(state, token)
         req.trace.note_tokens(1, "prefill")
+        req.journey.hop("prefill", prompt_len=len(req.prompt), prefix_reused=prefix_len)
         if self.obs_enabled and was_first:
-            self.stats.observe("ttft", max(0.0, now - req.submitted_at))
+            self.stats.observe("ttft", max(0.0, now - req.submitted_at),
+                               exemplar=req.journey.journey_id)
         self.flight.record_step(
             "prefill",
             phases={"prefix_plan": (t_p1 - t_p0) + (t_q1 - t_q0), "device": t_dev_end - t_dev},
@@ -1355,6 +1487,9 @@ class ContinuousBatchingScheduler:
     def _emit_token(self, state: _Running, token: int) -> None:
         state.req.generated.append(int(token))
         state.req.handle._emit(int(token))
+        # durable serving: the journal buffers the token delta (a no-op on
+        # the base journal); the write happens once per iteration in
+        # journal.flush_step()
         self.journal.note_token(state.req, int(token))
         if state.req.mask_state is not None:
             self._advance_mask(state.req, int(token))
@@ -2085,8 +2220,8 @@ class ContinuousBatchingScheduler:
         speculates. Returns True if any work happened. A working iteration
         writes one flight record and one step-anatomy observation (a
         handled failure stays out of the anatomy's hot window); every
-        iteration then integrates the cache's time at pressure and ticks
-        the overload controller."""
+        iteration then flushes the journal's group commit, integrates the
+        cache's time at pressure and ticks the overload controller."""
         self._step_phases = {}
         info = self._step_info = {}
         self._step_spans = []
@@ -2102,6 +2237,9 @@ class ContinuousBatchingScheduler:
                         tokens=int(info.get("emitted", 0)),
                         hot=not info.get("handled_failure", False),
                     )
+                # the WAL's group commit runs while the dispatched step
+                # executes (a no-op on the base journal)
+                self.journal.flush_step()
                 self.capacity.tick()
                 self._overload_tick()
                 return r
@@ -2128,6 +2266,9 @@ class ContinuousBatchingScheduler:
                 tokens=int(info.get("emitted", 0)) + admitted,
                 hot=not info.get("handled_failure", False),
             )
+        # durable group commit: one write for every journal record this
+        # iteration buffered (admits, token deltas, ends)
+        self.journal.flush_step()
         # time at pressure integrates AFTER the step's allocations; the
         # overload controller ticks on the fresh pressure flag
         self.capacity.tick()

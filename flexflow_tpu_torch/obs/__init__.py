@@ -1,5 +1,4 @@
-"""Serving observability of the port (port of ``flexflow_tpu/obs``
-without request journeys, which wait for the fleet):
+"""Serving observability of the port (port of ``flexflow_tpu/obs``):
 
 * :mod:`trace` — per-request :class:`RequestTrace` (accept -> queue ->
   admit -> prefill -> decode progress -> finish/fail) feeding the
@@ -17,6 +16,11 @@ without request journeys, which wait for the fleet):
   the device execute span per scheduler iteration (``GET /v2/debug/anatomy``);
 * :mod:`truth` — the :class:`PredictionLedger` of predicted vs measured
   step times (``GET /v2/debug/predictions``);
+* :mod:`journey` — request journeys: a journey id minted (or joined
+  from a W3C ``traceparent``) at ingress, one parent-linked span per hop
+  in a :class:`JourneyRecorder` ring and, with durability on, in the
+  on-disk :class:`JourneySpool` beside the WAL, stitched by a
+  :class:`JourneyIndex` (``GET /v2/debug/journey/{id}``);
 * :mod:`prom` — Prometheus text exposition (``GET /metrics``).
 """
 from .capacity import (
@@ -28,6 +32,22 @@ from .capacity import (
     chip_spec_for,
 )
 from .flight import FlightRecorder
+from .journey import (
+    NULL_JOURNEY,
+    JourneyContext,
+    JourneyIndex,
+    JourneyRecorder,
+    JourneySpan,
+    JourneySpool,
+    JourneyStats,
+    format_traceparent,
+    new_journey_id,
+    new_span_id,
+    parse_traceparent,
+    stitch,
+)
+from .journey import to_chrome_trace as journey_to_chrome_trace
+from .journey import to_otlp as journey_to_otlp
 from .prom import (
     escape_label_value,
     format_value,
@@ -47,6 +67,13 @@ __all__ = [
     "DEFAULT_OBJECTIVES",
     "FlightRecorder",
     "GLOBAL_LEDGER",
+    "JourneyContext",
+    "JourneyIndex",
+    "JourneyRecorder",
+    "JourneySpan",
+    "JourneySpool",
+    "JourneyStats",
+    "NULL_JOURNEY",
     "NULL_TRACE",
     "PredictionLedger",
     "ProgramRegistry",
@@ -58,9 +85,16 @@ __all__ = [
     "TraceRing",
     "chip_spec_for",
     "escape_label_value",
+    "format_traceparent",
     "format_value",
+    "journey_to_chrome_trace",
+    "journey_to_otlp",
+    "new_journey_id",
+    "new_span_id",
     "next_request_id",
+    "parse_traceparent",
     "render_prometheus",
     "sanitize_name",
+    "stitch",
     "validate_exposition",
 ]

@@ -1,8 +1,8 @@
 """Per-request tracing: the answer to "why was THIS request slow?".
 
 (Port of ``flexflow_tpu/obs/trace.py``, which imports nothing of JAX:
-the same code, kept as the port's own copy. ``journey_id`` stays None in
-the port until request journeys are ported.)
+the same code, kept as the port's own copy. ``journey_id`` is the
+request's journey id while journeys are on: obs/journey.py.)
 
 A :class:`RequestTrace` rides every generation request from accept to
 finish (its transport, e.g. "http", annotated) and records the

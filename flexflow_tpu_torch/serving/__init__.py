@@ -1,8 +1,10 @@
 """Serving around the generation engine (port of ``flexflow_tpu/serving``
-without the batched ``/infer`` path, the model repository, gRPC, the
-fleet and durable serving): typed rejections, retry with backoff and the
-circuit breaker, the overload controller, the serving statistics, and the
-HTTP front end — :class:`GenerationModel` behind :class:`InferenceServer`.
+without the batched ``/infer`` path, the model repository, gRPC and the
+fleet): typed rejections, retry with backoff and the circuit breaker, the
+overload controller, the serving statistics, durable serving
+(``durable.py``: the WAL journal, warm restart and the resume index), and
+the HTTP front end — :class:`GenerationModel` behind
+:class:`InferenceServer`.
 
 ``GenerationModel`` and ``InferenceServer`` resolve lazily: they import
 the generation package, which imports this package's resilience module.
@@ -29,6 +31,7 @@ from .resilience import (
 )
 from .stats import (
     ConstrainedStats,
+    DurableStats,
     GoodputStats,
     Histogram,
     LatencyWindow,
@@ -44,6 +47,7 @@ __all__ = [
     "ConstrainedStats",
     "DeadlineExceededError",
     "DegradeLadder",
+    "DurableStats",
     "GenerationModel",
     "GoodputStats",
     "Histogram",

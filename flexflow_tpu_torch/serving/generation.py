@@ -15,8 +15,12 @@ a hung or dead engine; the recovery, overload, SLO, constrained-decoding
 and prefix-cache counters ride the model's block on ``GET /v2/stats``.
 ``response_format`` grammars compile through the model's
 :class:`GrammarCache` against its vocabulary before the request is
-queued. Durable serving (the WAL journal and ``/v2/generate/resume``) is
-not ported yet: ``metadata()["durable"]["enabled"]`` is false.
+queued. ``enable_durability`` attaches a crash-safe WAL journal
+(``serving/durable.py``): every admission journals into the WAL,
+``self.durable.warm_restart()`` replays a predecessor's journal from the
+same directory, and ``GET /v2/generate/resume/{id}`` re-attaches
+clients. The scheduler's journey recorder (and, with durability, the
+journey spool) feed ``GET /v2/debug/journey/{id}``.
 """
 from __future__ import annotations
 
@@ -56,6 +60,8 @@ class GenerationModel:
         self.grammar_cache = GrammarCache(
             self.vocabulary, stats=self.scheduler.constrained_stats
         )
+        # durable serving: set by enable_durability()
+        self.durable = None
 
     # --------------------------------------------------------- lifecycle
     def start(self) -> None:
@@ -63,6 +69,18 @@ class GenerationModel:
 
     def stop(self, drain: bool = True) -> None:
         self.scheduler.stop(drain=drain)
+        if self.durable is not None:
+            self.durable.close()
+
+    def enable_durability(self, config) -> "Durability":  # noqa: F821
+        """Attach a crash-safe WAL journal to this model's scheduler
+        (``serving/durable.py``). Call before traffic; follow with
+        ``self.durable.warm_restart()`` to replay a predecessor's journal
+        from the same directory."""
+        from .durable import Durability  # late: keeps the tier optional
+
+        self.durable = Durability(self.scheduler, config, grammar_cache=self.grammar_cache)
+        return self.durable
 
     def ready(self) -> bool:
         return self.scheduler.ready()
@@ -83,6 +101,28 @@ class GenerationModel:
     def trace_ring(self):
         """Recently finished RequestTraces (GET /v2/debug/traces)."""
         return self.scheduler.trace_ring
+
+    @property
+    def journeys(self):
+        """The scheduler's journey span recorder (None when journeys are
+        off): one lane of the stitched timeline (GET /v2/debug/journey/{id})."""
+        return self.scheduler.journeys
+
+    @property
+    def journey_spool(self):
+        """The on-disk journey span ring (set by enable_durability)
+        keeping pre-crash spans joinable after process death."""
+        rec = self.scheduler.journeys
+        return rec.spool if rec is not None else None
+
+    def journey_recorders(self):
+        """The recorders the server's journey index stitches."""
+        rec = self.scheduler.journeys
+        return [rec] if rec is not None else []
+
+    def journey_spools(self):
+        spool = self.journey_spool
+        return [spool] if spool is not None else []
 
     @property
     def flight(self):
@@ -162,6 +202,7 @@ class GenerationModel:
         transport: Optional[str] = None,
         priority: Optional[str] = None,
         response_format: Optional[Dict] = None,
+        journey=None,
     ) -> GenerationHandle:
         grammar = None
         if response_format is not None:
@@ -169,11 +210,18 @@ class GenerationModel:
             # queue: a malformed grammar is the submitter's 400, it
             # never reaches the batch
             grammar = self.grammar_cache.get(response_format)
-        return self.scheduler.submit(
+        handle = self.scheduler.submit(
             prompt, sampling, deadline_s=deadline_s, speculation=speculation,
             transport=transport, priority=priority,
             grammar=grammar, response_format=response_format,
+            journey=journey,
         )
+        if self.durable is not None:
+            # the durable id is assigned at submit (admission journals
+            # later), so the HTTP response carries the resume handle from
+            # its first byte
+            self.durable.track(handle._request)
+        return handle
 
     def generate(
         self,
@@ -260,7 +308,7 @@ class GenerationModel:
                 "flight_capacity": self.scheduler.flight.capacity,
                 "progress_every": self.scheduler.trace_progress_every,
                 "anatomy": self.scheduler.anatomy.enabled,
-                "journeys": False,
+                "journeys": self.scheduler.journeys is not None,
             },
             "compute": {
                 "chip": self.engine.flops_model.chip.name,
@@ -294,8 +342,13 @@ class GenerationModel:
                 "grammar_cache_entries": len(self.grammar_cache),
                 "vocabulary_tokens": len(self.vocabulary),
             },
-            # durable serving is not ported yet
-            "durable": {"enabled": False, "fingerprint": None, "wal_segments": 0},
+            "durable": {
+                "enabled": self.durable is not None,
+                "fingerprint": self.durable.fingerprint if self.durable is not None else None,
+                "wal_segments": (
+                    self.durable.wal.segment_count() if self.durable is not None else 0
+                ),
+            },
             "inputs": [{"name": "tokens", "shape": (-1,), "datatype": "INT32"}],
             "outputs": [{"name": "tokens", "shape": (-1,), "datatype": "INT32"}],
         }

@@ -206,6 +206,13 @@ class AdaptiveLimiter:
             self._inflight += 1
             return True
 
+    def acquire_forced(self) -> None:
+        """Count one admission regardless of the limit (``adopt``: a
+        warm-restarted stream was admitted once already and must not be
+        dropped here, but its load must be visible)."""
+        with self._lock:
+            self._inflight += 1
+
     def note_throttled(self) -> None:
         """Count one limiter refusal decided by the plan-before-shed
         gate (``can_admit``), which — unlike ``try_acquire`` — never

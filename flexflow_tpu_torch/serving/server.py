@@ -29,7 +29,21 @@ library only):
                                               capture=K, arms a K-step
                                               two-lane capture)
   GET  /v2/debug/slow[?model=M]            -> worst-decile latency samples
-                                              that carry an exemplar id
+                                              with their journey ids
+  GET  /v2/debug/journey[?slow=p99&n=K]    -> known journey ids (with
+                                              slow=: the exemplars' ids)
+  GET  /v2/debug/journey/{id}              -> one stitched journey (HTTP
+                                              lane, scheduler lane, the
+                                              on-disk spool) with its
+                                              chrome://tracing and OTLP
+                                              renderings
+  GET  /v2/durable                         -> per-model WAL, journal and
+                                              warm-restart state
+  GET  /v2/generate/resume/{id}            -> SSE replay of a durable
+                                              stream from its journaled
+                                              tokens, following it live
+                                              to its end (Last-Event-ID
+                                              skips what the client holds)
   GET  /v2/slo                             -> SLO objectives and burn rates
   GET  /v2/overload[?model=M]              -> overload controller state
   GET  /v2/models                          -> served model names
@@ -47,12 +61,14 @@ to statuses by :func:`~flexflow_tpu_torch.serving.resilience.http_status`
 -> 504); overload rejections add ``Retry-After`` and a structured body
 (``reason``, ``priority``, ``retry_after_s``). A failed generation embeds
 its RequestTrace and, for quarantines and restarts, the flight-recorder
-snapshot riding the error.
+snapshot riding the error. A W3C ``traceparent`` header on a generate
+request joins its journey to the client's trace; the response carries
+the journey's ``traceparent`` (and ``journey_id`` in the body), and with
+durability on an SSE response names its stream in ``X-Durable-Id``.
 
 Not ported yet: ``/v2/models/{name}/infer`` (with ``InferenceModel``,
 the dynamic batcher and the model repository), ``/v2/repository/*``,
-``/v2/fleet*``, ``/v2/durable*``, ``/v2/generate/resume/*`` and
-``/v2/debug/journey*``.
+``/v2/fleet*`` and the gRPC front end.
 """
 from __future__ import annotations
 
@@ -64,7 +80,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
-from ..obs import GLOBAL_LEDGER, render_prometheus
+from ..obs import (
+    GLOBAL_LEDGER,
+    JourneyIndex,
+    JourneyRecorder,
+    journey_to_chrome_trace,
+    journey_to_otlp,
+    parse_traceparent,
+    render_prometheus,
+)
 from ..runtime import faults
 from .generation import GenerationModel
 from .resilience import ResilienceError, http_status, retry_after_s
@@ -102,6 +126,10 @@ class InferenceServer:
         self._draining = False
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # the HTTP ingress span lane: contexts are minted here (or joined
+        # from an inbound traceparent) only for models whose journeys are
+        # on, so a journeys-off deployment stays inert
+        self.journeys = JourneyRecorder(lane="http")
 
     def register_generation(self, model: GenerationModel) -> None:
         """Serve a GenerationModel; started at once if the server runs."""
@@ -220,10 +248,65 @@ class InferenceServer:
             out["models"][name] = payload
         return out
 
+    def durable_report(self) -> Dict:
+        """GET /v2/durable: per-model WAL, journal and warm-restart state
+        (commit watermark, counters, degraded streams, resume-index
+        sizes)."""
+        return {"models": {name: g.durable.report() for name, g in self._units()
+                           if g.durable is not None}}
+
+    def durable_lookup(self, durable_id: str):
+        """The model and resume state owning a durable stream id:
+        ``(model_name, ("live", Request) | ("done", dict))``, or None."""
+        for name, g in self._units():
+            if g.durable is not None:
+                hit = g.durable.lookup(durable_id)
+                if hit is not None:
+                    return name, hit
+        return None
+
+    def journey_index(self) -> JourneyIndex:
+        """A fresh stitcher over the HTTP ingress lane, every model's
+        recorder and every on-disk spool, built per query."""
+        idx = JourneyIndex().add(self.journeys)
+        for g in list(self.generators.values()):
+            for rec in g.journey_recorders():
+                idx.add(rec)
+            for spool in g.journey_spools():
+                idx.add_spool(spool)
+        return idx
+
+    def debug_journey(self, journey_id: str) -> Optional[Dict]:
+        """GET /v2/debug/journey/{id}: the stitched causal timeline (spans
+        in parent-chain order with the connectivity verdict) and its
+        chrome://tracing and OTLP renderings; None for an unknown id."""
+        journey = self.journey_index().get(journey_id)
+        if journey is None:
+            return None
+        return {
+            "journey": journey,
+            "chrome_trace": journey_to_chrome_trace(journey),
+            "otlp": journey_to_otlp(journey),
+        }
+
+    def debug_journeys(self, slow: Optional[str] = None, n: int = 32) -> Dict:
+        """GET /v2/debug/journey[?slow=p99]: known journey ids, newest
+        first; with ``slow=``, only the ids the latency windows kept as
+        worst-decile exemplars."""
+        if slow:
+            rows = self.debug_slow()
+            ids: list = []
+            for windows in rows["models"].values():
+                for entries in windows.values():
+                    for e in entries:
+                        if e["journey_id"] not in ids:
+                            ids.append(e["journey_id"])
+            return {"journeys": ids[:n], "slow": rows["models"]}
+        return {"journeys": self.journey_index().journey_ids()[:n]}
+
     def debug_slow(self, model: Optional[str] = None) -> Dict:
-        """Per model, each latency window's worst-decile samples that
-        carry an exemplar id (request journeys supply the ids, so the
-        port's windows hold none yet)."""
+        """Per model, each latency window's worst-decile samples with
+        their journey ids (the tail-latency exemplar table)."""
         out: Dict = {"models": {}}
         for name, unit in self._units(model):
             rows = unit.stats.slow_exemplars()
@@ -309,6 +392,19 @@ class InferenceServer:
                         model=model, capture=qint("capture")))
                 if path == "/v2/debug/slow":
                     return self._json(200, server.debug_slow(model=model))
+                if path.startswith("/v2/debug/journey/"):
+                    jid = path[len("/v2/debug/journey/"):]
+                    payload = server.debug_journey(jid)
+                    if payload is None:
+                        return self._json(404, {"error": f"unknown journey {jid}"})
+                    return self._json(200, payload)
+                if path == "/v2/debug/journey":
+                    return self._json(200, server.debug_journeys(
+                        slow=(query.get("slow") or [None])[0], n=qint("n") or 32))
+                if path == "/v2/durable":
+                    return self._json(200, server.durable_report())
+                if path.startswith("/v2/generate/resume/"):
+                    return self._resume(path[len("/v2/generate/resume/"):], query)
                 if path == "/v2/slo":
                     return self._json(200, server.slo_report())
                 if path == "/v2/overload":
@@ -338,7 +434,9 @@ class InferenceServer:
                 "json_schema"|"regex", ...}}. A malformed body or grammar is
                 THIS request's 400, never the batch's. Non-streaming: one
                 JSON object. "stream": true: SSE — one ``data:`` event per
-                token (``id:`` = its index), then a final done event."""
+                token (``id:`` = its index), then a final done event. A
+                ``traceparent`` header joins the request's journey to the
+                client's trace."""
                 gen = server.generators.get(name)
                 if gen is None:
                     return self._json(404, {"error": f"unknown generation model {name}"})
@@ -356,9 +454,18 @@ class InferenceServer:
                     # priority class: body field first, then the header
                     priority = req.get("priority", self.headers.get("X-Request-Priority"))
                     response_format = gen.response_format_from(req)
+                    # journey ingress: mint (or join the client's W3C
+                    # traceparent) only when the model records journeys
+                    journey = None
+                    if gen.journeys is not None:
+                        journey = server.journeys.mint(
+                            parent=parse_traceparent(self.headers.get("traceparent")))
+                        journey.hop("ingress", transport="http", model=name, stream=stream,
+                                    prompt_len=len(prompt))
                     handle = gen.submit(
                         prompt, sampling, deadline_s=deadline_s, speculation=speculation,
                         transport="http", priority=priority, response_format=response_format,
+                        journey=journey,
                     )
                 except ResilienceError as e:
                     return self._json(http_status(e), _reject_payload(e),
@@ -391,13 +498,26 @@ class InferenceServer:
                         return self._json(504, {"error": "generation timed out"})
                     except Exception as e:
                         return self._json(500, error_payload(e))
-                    return self._json(200, {"model_name": name, "tokens": tokens,
-                                            "num_generated": len(tokens)})
+                    body = {"model_name": name, "tokens": tokens,
+                            "num_generated": len(tokens)}
+                    if journey is None:
+                        return self._json(200, body)
+                    body["journey_id"] = journey.journey_id
+                    return self._json(200, body,
+                                      headers={"traceparent": journey.traceparent()})
                 # SSE: status and headers are committed once the first
-                # token flushes, so a mid-stream failure is an error event
+                # token flushes, so a mid-stream failure is an error event.
+                # With durability on, X-Durable-Id names the stream for
+                # GET /v2/generate/resume/{id}, whose event ids continue
+                # these (the token index)
+                durable_id = handle._request.durable_id
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")
+                if durable_id is not None:
+                    self.send_header("X-Durable-Id", durable_id)
+                if journey is not None:
+                    self.send_header("traceparent", journey.traceparent())
                 self.end_headers()
 
                 def event(payload: dict, eid=None):
@@ -409,13 +529,101 @@ class InferenceServer:
                     for tok in handle.tokens(timeout=wait):
                         event({"token": int(tok), "index": count}, eid=count)
                         count += 1
-                    event({"done": True, "tokens": handle.result(timeout=wait)})
+                    done = {"done": True, "tokens": handle.result(timeout=wait)}
+                    if durable_id is not None:
+                        done["durable_id"] = durable_id
+                    if journey is not None:
+                        done["journey_id"] = journey.journey_id
+                    event(done)
                 except Exception as e:
                     handle.cancel()
                     try:
                         event({**error_payload(e), "done": True})
                     except OSError:
                         pass  # client went away mid-stream
+
+            def _resume(self, durable_id: str, query):
+                """GET /v2/generate/resume/{durable_id}: SSE replay and
+                re-attach. The journaled tokens replay from the resume
+                index (event ids continue the original stream's); a live
+                stream is then followed to its end. ``Last-Event-ID``
+                (header) or ``?last_event_id=`` skips the events the
+                client holds."""
+                last = self.headers.get("Last-Event-ID")
+                if last is None:
+                    last = (query.get("last_event_id") or [None])[0]
+                try:
+                    sent = int(last) + 1 if last is not None else 0
+                except ValueError:
+                    return self._json(400, {"error": f"bad Last-Event-ID {last!r}"})
+                found = server.durable_lookup(durable_id)
+                if found is None:
+                    return self._json(404, {"error": f"unknown durable stream {durable_id}"})
+                name, (state, obj) = found
+                # a resumed live stream keeps its journey (the WAL snapshot
+                # restored it across a restart): the hop joins that chain
+                journey_id = None
+                if state == "live" and obj.journey.journey_id is not None:
+                    journey_id = obj.journey.journey_id
+                    obj.journey.hop("sse_resume", durable_id=durable_id,
+                                    last_event_id=last, from_index=sent)
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("X-Durable-Id", durable_id)
+                if journey_id is not None:
+                    self.send_header("traceparent", obj.journey.traceparent())
+                self.end_headers()
+
+                def event(payload: dict, eid=None):
+                    head = "" if eid is None else f"id: {eid}\n"
+                    self.wfile.write(f"{head}data: {json.dumps(payload)}\n\n".encode())
+
+                def drain(tokens):
+                    nonlocal sent
+                    while sent < len(tokens):
+                        event({"token": int(tokens[sent]), "index": sent, "model_name": name},
+                              eid=sent)
+                        sent += 1
+
+                try:
+                    if state == "done":
+                        tokens = obj["tokens"]
+                        drain(tokens)
+                        event({"done": True, "tokens": list(tokens), "outcome": obj["outcome"],
+                               "durable_id": durable_id})
+                        return
+                    # live: poll the request's generated list (the handle's
+                    # token queue belongs to the original connection). The
+                    # scheduler only appends; a prefix read is safe
+                    req = obj
+                    handle = req.handle
+                    # ~300 s ceiling: each poll waits up to 50 ms on the
+                    # settle future
+                    for _ in range(6000):
+                        drain(req.generated)
+                        if handle.done():
+                            break
+                        try:
+                            handle.future.exception(timeout=0.05)
+                        except _FuturesTimeout:
+                            pass
+                        except Exception:
+                            break  # settled (cancelled counts); drain below
+                    drain(req.generated)
+                    if not handle.done():
+                        event({"done": True, "error": "resume timed out",
+                               "durable_id": durable_id})
+                        return
+                    try:
+                        tokens = handle.result(timeout=0)
+                        event({"done": True, "tokens": tokens, "outcome": "completed",
+                               "durable_id": durable_id})
+                    except Exception as e:
+                        event({**_reject_payload(e), "done": True,
+                               "outcome": type(e).__name__, "durable_id": durable_id})
+                except OSError:
+                    pass  # client went away mid-replay
 
             def do_POST(self):
                 parts = self.path.split("/")

@@ -8,8 +8,8 @@ per-reason rejection split), named latency windows (queue_time / ttft /
 tpot) that also feed histograms, and ``gauges`` (zero-arg callables
 evaluated at snapshot time, so the endpoints read live values without
 the stats object holding references into hot-path state). The
-speculation, constrained-decoding, goodput and recovery counters
-register their gauges into it. :class:`RecoveryStats` lives in
+speculation, constrained-decoding, goodput, recovery and durable-serving
+counters register their gauges into it. :class:`RecoveryStats` lives in
 ``generation/recovery.py`` and is re-exported here, so both import paths
 name the one class.
 
@@ -390,6 +390,74 @@ class GoodputStats:
         stats.add_gauge("goodput_tokens_total", lambda: self.totals()[0])
         stats.add_gauge("goodput_tokens_good", lambda: self.totals()[1])
         stats.add_gauge("goodput_ratio", self.ratio)
+
+
+class DurableStats:
+    """Durable-serving counters for one generation engine
+    (``serving/durable.py`` + ``runtime/wal.py``), surfaced as /v2/stats
+    gauges and the ``flexflow_serving_durable_*`` Prometheus families:
+
+      wal_appends          journal records framed into the WAL buffer
+      wal_bytes            framed bytes appended (headers included)
+      fsyncs               group commits that reached fsync
+      replayed_streams     unfinished streams a warm restart re-admitted
+      replayed_tokens      journaled tokens those streams carried back
+      torn_records         torn segment tails truncated on scan (crash
+                           mid-append: expected)
+      rolling_restarts     completed rolling-restart cycles (the gauge
+                           the JAX package's fleet drives; 0 on one GPU)
+      wal_append_failures  streams degraded to non-durable by a failed
+                           journal append
+
+    The wal_* write/commit counters live inside the WriteAheadLog; set
+    :attr:`wal` and the gauge read path merges them live.
+    ``wal_segments`` is a level gauge over the segment directory.
+    Writers: the scheduler loop thread (through the DurableJournal) and
+    the warm restart; the lock keeps the replay counters exact.
+    """
+
+    FIELDS = (
+        "replayed_streams", "replayed_tokens", "torn_records",
+        "rolling_restarts", "wal_append_failures",
+    )
+    WAL_FIELDS = ("wal_appends", "wal_bytes", "fsyncs")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        for f in self.FIELDS:
+            setattr(self, f, 0)
+        # the attached WriteAheadLog (counters() + segment_count()); None
+        # until a Durability wires one in
+        self.wal = None
+
+    def incr(self, field: str, n: int = 1) -> None:
+        if field not in self.FIELDS:
+            raise ValueError(f"unknown durable counter {field!r}")
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def counts(self) -> Dict[str, int]:
+        """Locked snapshot merged with the live WAL write counters (the
+        gauge read path: scrape threads race the loop thread)."""
+        with self._lock:
+            out = {f: getattr(self, f) for f in self.FIELDS}
+        wal = self.wal
+        wc = wal.counters() if wal is not None else {}
+        out["wal_appends"] = wc.get("appends", 0)
+        out["wal_bytes"] = wc.get("bytes", 0)
+        out["fsyncs"] = wc.get("fsyncs", 0)
+        return out
+
+    def segments(self) -> int:
+        wal = self.wal
+        return wal.segment_count() if wal is not None else 0
+
+    def register_gauges(self, stats: "ServingStats") -> None:
+        # cumulative counters -> _total names (flexflow_serving_durable_*
+        # once prom.py prefixes them), plus the segments on disk now
+        for f in self.WAL_FIELDS + self.FIELDS:
+            stats.add_gauge(f"durable_{f}_total", lambda f=f: self.counts()[f])
+        stats.add_gauge("durable_wal_segments", self.segments)
 
 
 class TokenRate:

@@ -323,7 +323,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert 'flexflow_tpu_torch.generation.constrained' in names, names\n"
         "assert 'flexflow_tpu_torch.serving.stats' in names, names\n"
         "for m in ('serving.server', 'serving.generation', 'serving.overload', 'obs.trace',\n"
-        "          'obs.flight', 'obs.slo', 'obs.steptrace', 'obs.truth', 'obs.prom'):\n"
+        "          'obs.flight', 'obs.slo', 'obs.steptrace', 'obs.truth', 'obs.prom',\n"
+        "          'runtime.wal', 'obs.journey', 'serving.durable'):\n"
         "    assert 'flexflow_tpu_torch.' + m in names, names\n"
         "print(len(names))\n"
     )

@@ -19,13 +19,13 @@ SIDES = (JAX, PORT)
 
 
 def make_sched(side, eng, **kw):
-    """A scheduler on a virtual clock with instant recovery backoff (the
-    JAX one with request journeys off: the port has none yet)."""
+    """A scheduler on a virtual clock with instant recovery backoff, with
+    request journeys off on both sides (their random ids would differ;
+    test_torch_port_journey.py holds the journeys)."""
     clock = kw.pop("clock", None) or FakeClock()
     kw.setdefault("max_queue", 8)
     kw.setdefault("recovery", side.no_sleep())
-    if side is JAX:
-        kw["journeys"] = False
+    kw["journeys"] = False
     return side.Scheduler(eng, clock=clock, **kw), clock
 
 

@@ -2,12 +2,12 @@
 ``serving/generation.py``) against the JAX package's: one
 ``InferenceServer`` of each package on loopback, each serving a
 ``GenerationModel`` over the same weights (the JAX parameters converted
-with ``decoder_params_from_numpy``; the JAX model with request journeys
-off, which the port has not ported). The same requests must give the
-same tokens, the same SSE event streams, the same statuses and error
-bodies (400, 504, 503 with ``Retry-After``), and ``/v2/stats``,
-``/v2/models/{name}`` and ``/metrics`` must carry the same keys and
-families apart from the journey and durable ones."""
+with ``decoder_params_from_numpy``; both models with request journeys
+off, which ``test_torch_port_journey.py`` holds against each other). The
+same requests must give the same tokens, the same SSE event streams, the
+same statuses and error bodies (400, 504, 503 with ``Retry-After``), and
+``/v2/stats``, ``/v2/models/{name}`` and ``/metrics`` must carry the same
+keys and families."""
 import json
 import re
 import urllib.error
@@ -28,19 +28,13 @@ pytestmark = pytest.mark.torch_port
 VOCAB = default_vocabulary(CFG_KW["vocab_size"])
 SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}, "n": {"type": "integer"}}}
 SPEC = {"type": "json_schema", "json_schema": SCHEMA}
-# /v2/stats gauges the JAX scheduler registers for request journeys and
-# durable serving, which the port has not ported
-JAX_ONLY_STATS = {
-    "journey_journeys_total", "journey_spans_total", "journey_spooled_spans_total",
-    "journey_spool_truncated_total", "journey_remote_parents_total",
-}
 
 
 @pytest.fixture(scope="module")
 def servers():
     """(JAX base URL, port base URL, JAX model, port model)."""
     jmodel = JGenerationModel(engine(JAX)[0], name="lm", journeys=False)
-    pmodel = GenerationModel(engine(PORT)[0], name="lm")
+    pmodel = GenerationModel(engine(PORT)[0], name="lm", journeys=False)
     jsrv, psrv = JInferenceServer(port=0), InferenceServer(port=0)
     jsrv.register_generation(jmodel)
     psrv.register_generation(pmodel)
@@ -206,7 +200,7 @@ def test_stats_and_metadata_same_keys(servers):
     (jc, js), (pc, ps) = get(jbase, "/v2/stats"), get(pbase, "/v2/stats")
     assert jc == pc == 200 and js.keys() == ps.keys()
     jlm, plm = js["generation"]["lm"], ps["generation"]["lm"]
-    assert set(jlm) - set(plm) == JAX_ONLY_STATS and set(plm) <= set(jlm)
+    assert set(plm) == set(jlm)
     (_, jm), (_, pm) = get(jbase, "/v2/models/lm"), get(pbase, "/v2/models/lm")
     assert _keys(pm) == _keys(jm)
     assert pm["platform"] == "flexflow_tpu_torch_generation" and pm["durable"]["enabled"] is False
@@ -223,10 +217,7 @@ def test_metrics_same_families(servers):
     def families(text):
         return {ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE ")}
 
-    assert families(jt) - families(pt) == {
-        f"flexflow_serving_{n}" for n in JAX_ONLY_STATS
-    }
-    assert families(pt) <= families(jt)
+    assert families(pt) == families(jt)
 
 
 @pytest.mark.parametrize("path", [
