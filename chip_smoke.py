@@ -208,6 +208,35 @@ prints no result line):
    other forms' stay 0, and the loss must fall; and a profiled pair of
    steps for the device's busy share and the device time by kernel group
    (the flash kernels, cuBLAS GEMMs, elementwise and other).
+16. heads: the BERT that users train, with its token embedding, a head
+   and dropout 0.1, through FFModel -> compile (SGD lr 0.01, sparse
+   categorical cross-entropy, accuracy) -> fit: bert-cls
+   (bert-base-uncased: 12 layers, hidden 768, 12 heads, ff 3072, vocab
+   30522; seq 128, batch 32, SST-2's 2-class CLS head) in fp32, then in
+   bf16; bert-mlm (the same encoder with the LM head, a softmax over
+   30522, fp32); seq2seq (Transformer-base: 6 + 6 layers, d_model 512, 8
+   heads, ff 2048, an LM head over 37000; source 128, target 96, batch
+   32, fp32; the cross-attention's flash kernels take 96 queries over 128
+   keys). Each: one step with the kernels and one with plain attention
+   from the same weights and step key must draw the same dropout masks
+   (bit for bit, keeping ~0.9 of the elements) and agree at the training
+   phase's gates; then warm-up and 10 timed steps (5 for bert-mlm and
+   seq2seq), where each flash counter of the cell's form rises by the
+   attention layers a step (by attention kind for seq2seq), all on the
+   wgmma bodies for bf16, and the loss on the batch without dropout must
+   fall; the dropout masks' device ms a step (CUDA events around each
+   draw) and a profiled pair's device ms by kernel group, the masks'
+   int64 threefry kernels a group of their own.
+17. infer: bert-cls's fp32 model after its fit, saved by ``save_model``
+   to a temporary repository, loaded by an ``InferenceServer`` through
+   ``POST /v2/repository/models/bert_sst2/load`` (max batch 32); 16
+   client threads post 64 requests of 1-4 rows as KServe v2 JSON to
+   ``/v2/models/bert_sst2/infer``: each response within 1e-5 of
+   ``predict`` on the same rows with the same argmax, more than one
+   request a device batch on average, 12 ``ff_flash_fwd_f32`` launches
+   a device batch and no other, ``/metrics``' completed requests equal
+   to what the clients received; then the unload, after which the model
+   reads not ready. Requests/s and client latency p50 / p99.
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -3803,6 +3832,426 @@ def training_phase(seed: int, dtype=None):
     return stats
 
 
+# the full-width heads cells: (TransformerConfig fields, source length or
+# None, batch); bert-base-uncased as published, its SST-2 (2-class) and
+# masked-LM heads, and Transformer-base (Vaswani et al. 2017: 6 + 6 layers,
+# d_model 512, 8 heads, ff 2048, a shared BPE vocabulary of 37000) at
+# source 128, target 96
+HEADS_CELLS = {
+    "bert-cls": (dict(num_layers=12, hidden_size=768, num_heads=12, ff_size=3072, seq_length=128,
+                      vocab_size=30522, num_classes=2, dropout=0.1), None, 32),
+    "bert-mlm": (dict(num_layers=12, hidden_size=768, num_heads=12, ff_size=3072, seq_length=128,
+                      vocab_size=30522, dropout=0.1), None, 32),
+    "seq2seq": (dict(num_layers=6, hidden_size=512, num_heads=8, ff_size=2048, seq_length=96,
+                     vocab_size=37000, dropout=0.1), 128, 32),
+}
+
+
+def heads_kernel_group(name: str) -> str:
+    """kernel_group, with the int64 elementwise kernels (the threefry mask
+    draws of the dropout nodes) as a group of their own."""
+    group = kernel_group(name)
+    if group == "elementwise and other" and re.search(r"\blong\b|int64", name):
+        return "dropout masks (int64 threefry)"
+    return group
+
+
+@contextlib.contextmanager
+def recorded_masks(store: list, events: list = None):
+    """Every dropout mask drawn inside the block appended to ``store``
+    (``prng.bernoulli`` wrapped); with ``events``, a CUDA event pair
+    around each draw."""
+    import torch
+
+    from flexflow_tpu_torch.generation import prng
+
+    draw = prng.bernoulli
+
+    def recording(*a, **kw):
+        if events is not None:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        mask = draw(*a, **kw)
+        if events is not None:
+            end.record()
+            events.append((start, end))
+        store.append(mask)
+        return mask
+
+    prng.bernoulli = recording
+    try:
+        yield
+    finally:
+        prng.bernoulli = draw
+
+
+@contextlib.contextmanager
+def flash_by_attention_kind(counts: dict):
+    """Count each flash launch inside the block by its kernel and its
+    (query length, key length) as well (``fa._count`` wrapped)."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    count = fa._count
+
+    def counting(kernel, form, q, k, *rest):
+        key = f"{kernel}{form} Sq={q.shape[1]} Sk={k.shape[1]}"
+        counts[key] = counts.get(key, 0) + 1
+        return count(kernel, form, q, k, *rest)
+
+    fa._count = counting
+    try:
+        yield
+    finally:
+        fa._count = count
+
+
+def heads_inputs(kind: str, cfg, src_len, batch: int, gen):
+    """One batch on the card: int32 tokens (or fp32 source and target
+    embeddings for seq2seq) and int32 labels."""
+    import torch
+
+    dev = "cuda"
+    if kind == "seq2seq":
+        xs = [torch.randn((batch, src_len, cfg.hidden_size), generator=gen, device=dev),
+              torch.randn((batch, cfg.seq_length, cfg.hidden_size), generator=gen, device=dev)]
+        y = torch.randint(0, cfg.vocab_size, (batch, cfg.seq_length), generator=gen, device=dev)
+        return xs, y.int()
+    xs = [torch.randint(0, cfg.vocab_size, (batch, cfg.seq_length), generator=gen,
+                        device=dev).int()]
+    if kind == "bert-cls":
+        return xs, torch.randint(0, 2, (batch, 1), generator=gen, device=dev).int()
+    return xs, torch.randint(0, cfg.vocab_size, (batch, cfg.seq_length), generator=gen,
+                             device=dev).int()
+
+
+def heads_phase(seed: int, kind: str, dtype=None, steps: int = 10) -> tuple:
+    """One heads cell through FFModel -> compile (SGD lr 0.01, sparse
+    categorical cross-entropy, accuracy) -> fit on the card, dropout 0.1:
+    one step with the kernels and one with plain attention from the same
+    weights and step key (masks bit-identical, the training gates), then
+    warm-up and ``steps`` timed steps (flash launches a step, a falling
+    loss without dropout), a profiled pair and the masks' device ms.
+    Returns (stats, model, one batch)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import DataType, LossType, MetricsType
+    from flexflow_tpu_torch.generation import prng
+    from flexflow_tpu_torch.models import TransformerConfig, build_transformer
+    from flexflow_tpu_torch.models import build_transformer_seq2seq
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    fields, src_len, batch = HEADS_CELLS[kind]
+    cfg = TransformerConfig(**fields, dtype=dtype or DataType.FLOAT)
+    type_name = str(cfg.dtype.torch)[6:]
+    form = FLASH_FORMS[type_name]
+    tag = f"{kind} {'fp32' if not form else type_name}"
+    layers = cfg.num_layers * (3 if kind == "seq2seq" else 1)  # + decoder self and cross
+    per_step = {f"{kernel}{f}": (layers if f == form else 0)
+                for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                for f in FLASH_FORMS.values()}
+    t0 = time.perf_counter()
+    config = FFConfig(batch_size=batch, seed=seed, printing_interval=5)
+    if kind == "seq2seq":
+        model = build_transformer_seq2seq(config, cfg, src_seq_length=src_len)
+    else:
+        model = build_transformer(config, cfg)
+    model.compile(optimizer=SGDOptimizer(lr=0.01),
+                  loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                  metrics=[MetricsType.ACCURACY])
+    ex = model.executor
+    n_params = sum(p.numel() for g in ex.params.values() for p in g.values())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs, y = heads_inputs(kind, cfg, src_len, batch, gen)
+    key = tuple(t.cuda() for t in prng.split(prng.key(seed))[1])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # one step from the same weights and key, kernel vs plain attention
+    snap = {k: {n: p.detach().clone() for n, p in g.items()} for k, g in ex.params.items()}
+
+    def restore():
+        with torch.no_grad():
+            for k, g in ex.params.items():
+                for n, p in g.items():
+                    p.copy_(snap[k][n])
+
+    after, masks = {}, {}
+    for backend in ("auto", "plain"):
+        restore()
+        ex.backend = backend
+        fa.reset_launch_counts()
+        masks[backend] = []
+        with recorded_masks(masks[backend]):
+            loss = float(ex.train_batch(xs, y, rng=key)["loss"])
+        launches = dict(fa.LAUNCHES)
+        after[backend] = (loss, {k: {n: p.detach().clone() for n, p in g.items()}
+                                 for k, g in ex.params.items()})
+        want = per_step if backend == "auto" else {name: 0 for name in per_step}
+        if launches != want:
+            raise AssertionError(f"{tag} {backend} step launched {launches}, expected {want}")
+    ex.backend = "auto"
+    restore()
+    # an attention and an FFN dropout an encoder block; a decoder block's
+    # self-attention, cross-attention and FFN
+    n_drop = cfg.num_layers * (5 if kind == "seq2seq" else 2)
+    if len(masks["auto"]) != n_drop or len(masks["plain"]) != n_drop:
+        raise AssertionError(f"{tag}: {len(masks['auto'])} / {len(masks['plain'])} masks drawn, "
+                             f"expected {n_drop}")
+    if not all(torch.equal(a, b) for a, b in zip(masks["auto"], masks["plain"])):
+        raise AssertionError(f"{tag}: the dropout masks differ between the kernel and plain steps")
+    mask_elems = sum(m.numel() for m in masks["auto"])
+    keep_share = sum(int(m.sum()) for m in masks["auto"]) / mask_elems
+    if not 0.895 < keep_share < 0.905:
+        raise AssertionError(f"{tag}: masks keep {keep_share:.4f} of their elements, not ~0.9")
+    del masks
+    (lk, pk), (lp, pp) = after["auto"], after["plain"]
+    leaves = [(k, n) for k in pk for n in pk[k]]
+    param_err = max(float((pk[k][n].float() - pp[k][n].float()).abs().max()) for k, n in leaves)
+    moved = max(float((pk[k][n].float() - snap[k][n].float()).abs().max()) for k, n in leaves)
+    print(f"{tag}: one step, kernel vs plain attention, the same {n_drop} dropout masks: loss "
+          f"{lk:.7f} vs {lp:.7f}, params max abs diff {param_err:.3e} (moved up to {moved:.3e})")
+    loss_rtol = HALF_LOSS_RTOL[type_name] if form else LOSS_RTOL
+    if not (np.isfinite(lk) and abs(lk - lp) <= loss_rtol * abs(lp)):
+        raise AssertionError(f"{tag} loss kernel {lk} vs plain {lp} beyond rtol {loss_rtol}")
+    if not 0 < moved:
+        raise AssertionError(f"{tag}: the step moved no parameter")
+    if any(pk[k][n].dtype != cfg.dtype.torch for k, n in leaves):
+        raise AssertionError(f"{tag}: a parameter left {cfg.dtype.torch} in the step")
+    if form:
+        for k, n in leaves:
+            a, b_ = pk[k][n].float(), pp[k][n].float()
+            lim = 2 * half_ulp(torch.maximum(a.abs(), b_.abs()), cfg.dtype.torch) + (
+                HALF_PARAM_SHARE * float((pp[k][n].float() - snap[k][n].float()).abs().max()))
+            if ((a - b_).abs() > lim).any():
+                raise AssertionError(f"{tag} params {k}.{n}: kernel vs plain beyond 2 ulps + "
+                                     f"{HALF_PARAM_SHARE} of the update")
+    elif param_err > PARAM_STEP_RTOL * moved:
+        raise AssertionError(f"{tag} params differ by {param_err}, more than {PARAM_STEP_RTOL} "
+                             f"of the step's largest update {moved}")
+    del after, snap, pk, pp
+
+    # the loss without dropout before and after training on the batch
+    eval_before = float(ex.eval_batch(xs, y)["loss"])
+    warm = 2
+    model.fit([x.repeat(warm, *([1] * (x.dim() - 1))) for x in xs],
+              y.repeat(warm, 1), verbose=False)
+    rep = [x.repeat(steps, *([1] * (x.dim() - 1))) for x in xs]
+    ys = y.repeat(steps, 1)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    by_kind = {}
+    with flash_by_attention_kind(by_kind):
+        model.fit(rep, ys, trace_window=steps)
+    launches = dict(fa.LAUNCHES)
+    for name, n in launches.items():
+        if n != per_step[name] * steps:
+            raise AssertionError(f"{tag} {name}: {n} launches in {steps} steps, expected "
+                                 f"{per_step[name]} a step ({launches})")
+    by_body = {k_: n for k_, n in fa.LAUNCHES_BY_BODY.items() if n}
+    for name in (f"{k_}{form}" for k_ in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if form):
+        if by_body.get(f"{name} wgmma", 0) != launches[name]:
+            raise AssertionError(f"{tag}: {name} launches by body {by_body}, expected all "
+                                 f"{launches[name]} on the wgmma body")
+    eval_after = float(ex.eval_batch(xs, y)["loss"])
+    losses = model.step_losses
+    if not (all(np.isfinite(losses)) and np.isfinite(eval_after) and eval_after < eval_before):
+        raise AssertionError(f"{tag}: losses not finite or not falling (without dropout "
+                             f"{eval_before} -> {eval_after}; steps {losses})")
+    elapsed = model.last_elapsed
+
+    # the masks' device time (CUDA events around each draw) in one step
+    events = []
+    with recorded_masks([], events):
+        model.fit([x[:batch] for x in rep], ys[:batch], verbose=False)
+    torch.cuda.synchronize()
+    mask_ms = sum(a.elapsed_time(b) for a, b in events)
+    # a profiled pair of steps: device time by kernel group
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        model.fit([x[:2 * batch] for x in rep], ys[:2 * batch], verbose=False)
+        prof_wall = time.perf_counter() - tp
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    groups = {}
+    for name, us in by_name.items():
+        g = heads_kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / 2
+    step_device_ms = sum(by_name.values()) / 1e3 / 2
+    stats = {
+        "cell": kind, "dtype": "fp32" if not form else type_name, **fields,
+        "source_length": src_len, "batch": batch, "params": n_params, "setup_s": setup_s,
+        "warmup_steps": warm, "timed_steps": steps, "elapsed_s": elapsed,
+        "step_ms": 1e3 * elapsed / steps, "samples_per_s": steps * batch / elapsed,
+        "loss_steps": losses, "loss_without_dropout": [eval_before, eval_after],
+        "launches": launches, "launches_by_body": by_body,
+        "flash_launches_by_attention_kind": by_kind,
+        "kernel_vs_plain": {"loss_kernel": lk, "loss_plain": lp, "param_max_abs_diff": param_err,
+                            "param_max_update": moved, "masks": n_drop,
+                            "mask_elements": mask_elems, "keep_share": keep_share},
+        "dropout_mask_ms_per_step_cuda_events": mask_ms,
+        "profiled_wall_s": prof_wall, "step_device_ms": step_device_ms,
+        "step_device_ms_by_group": groups,
+        "device_busy_share_of_timed_step": step_device_ms / (1e3 * elapsed / steps),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"heads {tag}: " + json.dumps(stats))
+    return stats, model, (xs, y)
+
+
+def infer_post(base: str, name: str, rows) -> dict:
+    """One POST /v2/models/{name}/infer of int32 token rows: the output
+    array and the client's latency."""
+    import urllib.request
+
+    import numpy as np
+
+    body = {"inputs": [{"name": "tokens", "shape": list(rows.shape), "datatype": "INT32",
+                        "data": rows.reshape(-1).tolist()}]}
+    req = urllib.request.Request(f"{base}/v2/models/{name}/infer", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        resp = json.loads(r.read())
+    out = resp["outputs"][0]
+    return {"out": np.asarray(out["data"], np.float32).reshape(out["shape"]),
+            "latency_s": time.perf_counter() - t0}
+
+
+def infer_phase(seed: int, model) -> dict:
+    """bert-cls's fp32 model after its fit, saved with ``save_model`` to a
+    temporary repository, loaded by an ``InferenceServer`` through
+    ``POST /v2/repository/models/bert_sst2/load`` and served over
+    ``/v2/models/bert_sst2/infer`` (KServe v2 JSON) to 16 client threads
+    posting 64 requests of 1-4 rows; then unloaded."""
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.obs import validate_exposition
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.serving import (InferenceModel, InferenceServer, ModelRepository,
+                                            save_model)
+
+    name, clients, requests = "bert_sst2", 16, 64
+    rs = np.random.RandomState(seed)
+    vocab, seq = HEADS_CELLS["bert-cls"][0]["vocab_size"], HEADS_CELLS["bert-cls"][0]["seq_length"]
+    bodies = [rs.randint(0, vocab, (int(rs.randint(1, 5)), seq)).astype(np.int32)
+              for _ in range(requests)]
+    results = [None] * requests
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        save_model(InferenceModel(model, name=name, max_batch=32), root)
+        save_s = time.perf_counter() - t0
+        server = InferenceServer(port=0, repository=ModelRepository(root))
+        server.start()
+        try:
+            base = f"http://127.0.0.1:{server.port}"
+
+            def post(path):
+                req = urllib.request.Request(base + path, data=b"{}", method="POST")
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    return json.loads(r.read())
+
+            t0 = time.perf_counter()
+            if post(f"/v2/repository/models/{name}/load")["state"] != "READY":
+                raise AssertionError("infer: the repository load did not report READY")
+            load_s = time.perf_counter() - t0
+            im = server.models[name]
+            if im.max_batch != 32:
+                raise AssertionError(f"infer: max_batch {im.max_batch}, expected 32")
+            infer_post(base, name, bodies[0][:1])  # warm-up, not counted
+            batcher = server.batchers[name]
+            calls0, batched0 = batcher.device_calls, batcher.batched_requests
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            lock = threading.Lock()
+            todo = list(range(requests))
+
+            def client():
+                while True:
+                    with lock:
+                        if not todo:
+                            return
+                        i = todo.pop(0)
+                    results[i] = infer_post(base, name, bodies[i])
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client) for _ in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            if any(t.is_alive() for t in threads) or any(r is None for r in results):
+                raise AssertionError("infer: a client did not finish")
+            launches = dict(fa.LAUNCHES)
+            calls = batcher.device_calls - calls0
+            batched = batcher.batched_requests - batched0
+            metrics = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+            stats = server.stats()["models"][name]
+            # the same rows through predict on the trained model (its
+            # graph's batch: the CLS head reshapes to [32, hidden])
+            errs = []
+            for rows, res in zip(bodies, results):
+                padded = np.zeros((32, seq), np.int32)
+                padded[:len(rows)] = rows
+                want = model.predict(torch.from_numpy(padded).cuda()).float().cpu().numpy()
+                want = want[:len(rows)]
+                got = res["out"]
+                if got.shape != want.shape or not np.array_equal(got.argmax(-1), want.argmax(-1)):
+                    raise AssertionError(f"infer: response {got} vs predict {want}")
+                errs.append(float(np.abs(got - want).max()))
+            post(f"/v2/repository/models/{name}/unload")
+            try:
+                urllib.request.urlopen(f"{base}/v2/models/{name}/ready", timeout=60)
+                ready_after = True
+            except urllib.error.HTTPError as e:
+                ready_after = e.code == 200
+        finally:
+            server.stop()
+    validate_exposition(metrics)
+    completed = re.search(r'flexflow_serving_requests_total\{model="%s",outcome="completed"\} '
+                          r"(\d+)" % name, metrics)
+    want_launches = {k: 0 for k in launches}
+    want_launches["flash_fwd"] = HEADS_CELLS["bert-cls"][0]["num_layers"] * calls
+    lat = sorted(r["latency_s"] for r in results)
+    out = {
+        "clients": clients, "requests": requests, "rows": sum(len(b) for b in bodies),
+        "save_s": save_s, "load_s": load_s, "wall_s": wall, "requests_per_s": requests / wall,
+        "rows_per_s": sum(len(b) for b in bodies) / wall,
+        "latency_p50_s": lat[len(lat) // 2], "latency_p99_s": lat[min(len(lat) - 1,
+                                                                                                  int(0.99 * len(lat)))],
+        "device_batches": calls, "requests_per_device_batch": batched / max(1, calls),
+        "launches": launches, "max_abs_err_vs_predict": max(errs),
+        "metrics_completed": int(completed.group(1)) if completed else None,
+        "stats_completed": stats["completed"], "ready_after_unload": ready_after,
+    }
+    print("infer (bert_sst2 over /v2/models/{name}/infer): " + json.dumps(out))
+    if max(errs) > 1e-5:
+        raise AssertionError(f"infer: responses differ from predict by {max(errs)} > 1e-5")
+    if not out["requests_per_device_batch"] > 1:
+        raise AssertionError(f"infer: {out['requests_per_device_batch']} requests a device batch")
+    if launches != want_launches:
+        raise AssertionError(f"infer: flash launches {launches}, expected {want_launches} "
+                             f"(12 forward launches per device batch)")
+    if out["metrics_completed"] != requests + 1 or stats["completed"] != requests + 1:
+        raise AssertionError(f"infer: /metrics counts {out['metrics_completed']} completed, "
+                             f"the clients received {requests} + 1 warm-up")
+    if ready_after:
+        raise AssertionError("infer: the model reads ready after its unload")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed for weights, prompts and inputs")
@@ -3870,6 +4319,18 @@ def main(argv=None) -> int:
     training = training_phase(args.seed)
     training_bf16 = training_phase(args.seed, DataType.BFLOAT16)
     training_f16 = training_phase(args.seed, DataType.HALF)
+    heads = {}
+    heads["bert-cls"], cls_model, _ = heads_phase(args.seed, "bert-cls")
+    heads["infer"] = infer_phase(args.seed, cls_model)
+    del cls_model
+    torch.cuda.empty_cache()
+    heads["bert-cls bf16"] = heads_phase(args.seed, "bert-cls", DataType.BFLOAT16)[0]
+    torch.cuda.empty_cache()
+    heads["bert-mlm"] = heads_phase(args.seed, "bert-mlm", steps=5)[0]
+    torch.cuda.empty_cache()
+    heads["seq2seq"] = heads_phase(args.seed, "seq2seq", steps=5)[0]
+    torch.cuda.empty_cache()
+    fp32_heads = ("bert-cls", "bert-mlm", "seq2seq", "infer")
 
     def record(name, replaces, row, launches, source=SOURCE):
         return {
@@ -3899,14 +4360,17 @@ def main(argv=None) -> int:
         record(name, f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
                dict(flash["train"][name], max_abs_err=max(
                    flash["train"][name]["max_abs_err"], flash["causal512"][name]["max_abs_err"])),
-               training["launches"][name], FLASH_SOURCE)
+               training["launches"][name]
+               + sum(heads[cell]["launches"][name] for cell in fp32_heads), FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
         record(f"{name}{form}", f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
                dict(flash["train"][f"{name}{form}"], max_abs_err=max(
                    flash["train"][f"{name}{form}"]["max_abs_err"],
                    flash["causal512"][f"{name}{form}"]["max_abs_err"])),
-               run["launches"][f"{name}{form}"], FLASH_SOURCE)
+               run["launches"][f"{name}{form}"]
+               + (heads["bert-cls bf16"]["launches"][f"{name}{form}"] if form == "_bf16" else 0),
+               FLASH_SOURCE)
         for form, run in (("_bf16", training_bf16), ("_f16", training_f16))
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
@@ -3927,6 +4391,24 @@ def main(argv=None) -> int:
               + f"), busy share {t['device_busy_share_of_timed_step']:.3f}, loss "
               f"{t['loss_first']:.5f} -> {t['loss_last']:.5f}; flash launches by body "
               + json.dumps(t["launches_by_body"]))
+    for cell in ("bert-cls", "bert-cls bf16", "bert-mlm", "seq2seq"):
+        h = heads[cell]
+        print(f"{card}: {cell} ({h['num_layers']} x {h['hidden_size']}, vocab {h['vocab_size']}, "
+              f"seq {h['seq_length']}" + (f", source {h['source_length']}" if h["source_length"]
+                                          else "") + f", batch {h['batch']}, dropout 0.1): "
+              f"{h['samples_per_s']:.2f} samples/s, step {h['step_ms']:.3f} ms, device ms a step "
+              f"{h['step_device_ms']:.3f} (" + ", ".join(
+                  f"{g} {ms:.3f}" for g, ms in h["step_device_ms_by_group"].items())
+              + f"), dropout masks {h['dropout_mask_ms_per_step_cuda_events']:.3f} ms a step "
+              f"(CUDA events), loss without dropout {h['loss_without_dropout'][0]:.5f} -> "
+              f"{h['loss_without_dropout'][1]:.5f}; flash launches by attention kind "
+              + json.dumps(h["flash_launches_by_attention_kind"]))
+    inf = heads["infer"]
+    print(f"{card}: bert_sst2 over /v2/models/bert_sst2/infer ({inf['clients']} clients, "
+          f"{inf['requests']} requests of 1-4 rows): {inf['requests_per_s']:.2f} requests/s, "
+          f"{inf['rows_per_s']:.2f} rows/s, client latency p50 {inf['latency_p50_s']:.4f} s, "
+          f"p99 {inf['latency_p99_s']:.4f} s, {inf['requests_per_device_batch']:.2f} requests a "
+          f"device batch over {inf['device_batches']}; load {inf['load_s']:.2f} s")
     for label in ("train", "causal512"):
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             for form in ("", "_bf16", "_f16"):
@@ -4059,7 +4541,7 @@ def main(argv=None) -> int:
                       "durable": durable,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training, "training_bf16": training_bf16,
-                      "training_f16": training_f16,
+                      "training_f16": training_f16, "heads": heads,
                       "suffix_prefill_bodies": suffix_bodies}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

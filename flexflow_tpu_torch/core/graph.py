@@ -1,14 +1,19 @@
-"""Parallel computation graph (port of the construction and query parts
-of ``flexflow_tpu/core/graph.py``; serialization, DOT export and the
-subgraph algorithms the search uses wait for the search slice).
+"""Parallel computation graph (port of the construction, query and JSON
+parts of ``flexflow_tpu/core/graph.py``; DOT export and the subgraph
+algorithms the search uses wait for the search slice).
 
 Nodes are operator instances (OpType + frozen, hashable param record);
-edges carry (src output index, dst input index).
+edges carry (src output index, dst input index). :meth:`PCGraph.to_json`
+writes the JAX package's JSON, guids kept, and :meth:`PCGraph.from_json`
+reads it back: each package reads the other's graphs (the model
+repository's ``graph.json``).
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
 import itertools
+import json
 from typing import Any, Dict, List
 
 from .types import OpType
@@ -92,3 +97,69 @@ class PCGraph:
         if len(order) != len(self.nodes):
             raise ValueError("graph has a cycle")
         return order
+
+    # ----------------------------------------------------------------- serde
+    def to_json(self) -> str:
+        nodes = []
+        for n in self.topo_order():
+            p = dataclasses.asdict(n.params) if dataclasses.is_dataclass(n.params) else n.params
+            nodes.append(
+                {"guid": n.guid, "op_type": n.op_type.value, "name": n.name, "params": _jsonable(p)}
+            )
+        edges = [
+            dataclasses.asdict(e)
+            for g in sorted(self.nodes)
+            for e in self._out_edges[g]
+        ]
+        return json.dumps({"nodes": nodes, "edges": edges}, indent=1)
+
+    @classmethod
+    def from_json(cls, text: str) -> "PCGraph":
+        """Inverse of :meth:`to_json`: params dataclasses are rebuilt from
+        the op registry, enum and tuple fields coerced from their field
+        types."""
+        from ..ops.base import get_op_def
+
+        d = json.loads(text)
+        g = cls()
+        for nd in d["nodes"]:
+            op_type = OpType(nd["op_type"])
+            params_cls = get_op_def(op_type).params_cls
+            raw = nd["params"] or {}
+            kwargs = {f.name: _coerce_field(f.type, raw[f.name])
+                      for f in dataclasses.fields(params_cls) if f.name in raw}
+            g.add_node(Node(nd["guid"], op_type, params_cls(**kwargs), nd.get("name", "")))
+        for e in d["edges"]:
+            g.add_edge(e["src"], e["dst"], e.get("src_idx", 0), e.get("dst_idx", 0))
+        return g
+
+
+def _coerce_field(field_type, value):
+    """A params field from its JSON form by the dataclass's type hint:
+    enums from their values, tuples from lists, everything else as it
+    is."""
+    if isinstance(field_type, str):
+        # the ops modules use `from __future__ import annotations`: resolve
+        # the string against the core.types namespace
+        from . import types as _types
+
+        field_type = getattr(_types, field_type, None) or {
+            "int": int, "float": float, "str": str, "bool": bool, "tuple": tuple
+        }.get(field_type, None)
+    if isinstance(field_type, type) and issubclass(field_type, enum.Enum):
+        return field_type(value)
+    if isinstance(value, list):
+        return tuple(tuple(v) if isinstance(v, list) else v for v in value)
+    return value
+
+
+def _jsonable(x):
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, enum.Enum):
+        return x.value
+    if isinstance(x, (int, float, str, bool)) or x is None:
+        return x
+    return str(x)

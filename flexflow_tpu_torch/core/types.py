@@ -4,9 +4,10 @@ Only the members the ported slices use: float32 parameters, activations
 and KV cache (the JAX default), bfloat16 parameters and activations for
 training (``bench.py``'s BERT-Base cell), a bfloat16 or float16 KV cache
 for serving (``CacheConfig.dtype``), int32 tokens, positions and
-block tables, int64 for the sampler's emulated uint32 words; the five op types of the
-BERT-style training graph and the activation, loss, metric and
-compilation modes around them.
+block tables, int64 for the sampler's emulated uint32 words, bool and
+float64 for Cast; the op types of the BERT graphs with their heads and
+of the seq2seq transformer, and the activation, aggregation, loss,
+metric and compilation modes around them.
 """
 from __future__ import annotations
 
@@ -18,11 +19,13 @@ import torch
 class DataType(enum.Enum):
     """Tensor element types (reference: ffconst.h DataType)."""
 
+    BOOL = "bool"
     INT32 = "int32"
     INT64 = "int64"
-    FLOAT = "float32"
-    BFLOAT16 = "bfloat16"
     HALF = "float16"
+    BFLOAT16 = "bfloat16"
+    FLOAT = "float32"
+    DOUBLE = "float64"
 
     @property
     def torch(self) -> torch.dtype:
@@ -31,6 +34,10 @@ class DataType(enum.Enum):
     @property
     def size_bytes(self) -> int:
         return torch.empty((), dtype=self.torch).element_size()
+
+    @classmethod
+    def from_torch(cls, dtype: torch.dtype) -> "DataType":
+        return cls(str(dtype).replace("torch.", ""))
 
 
 class ActiMode(enum.Enum):
@@ -41,6 +48,14 @@ class ActiMode(enum.Enum):
     SIGMOID = "sigmoid"
     TANH = "tanh"
     GELU = "gelu"
+
+
+class AggrMode(enum.Enum):
+    """Embedding aggregation (reference: ffconst.h AggrMode)."""
+
+    NONE = "none"
+    SUM = "sum"
+    AVG = "avg"
 
 
 class LossType(enum.Enum):
@@ -78,6 +93,16 @@ class OpType(enum.Enum):
 
     INPUT = "input"
     LINEAR = "linear"
+    EMBEDDING = "embedding"
     MULTIHEAD_ATTENTION = "multihead_attention"
     LAYERNORM = "layer_norm"
     EW_ADD = "add"
+    FLAT = "flat"
+    RESHAPE = "reshape"
+    TRANSPOSE = "transpose"
+    REVERSE = "reverse"
+    CONCAT = "concat"
+    SPLIT = "split"
+    SOFTMAX = "softmax"
+    DROPOUT = "dropout"
+    CAST = "cast"

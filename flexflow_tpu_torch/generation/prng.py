@@ -9,6 +9,8 @@ on (the default of the JAX versions the repository targets):
 * :func:`key` — ``jax.random.key(seed)`` for a 32-bit seed: the key words
   are ``(seed >> 32, seed & 0xFFFFFFFF)``, i.e. ``(0, seed mod 2**32)``;
 * :func:`fold_in` — ``threefry2x32(key, (0, data))``;
+* :func:`split` — ``jax.random.split(key, n)``: key ``i`` is
+  ``fold_in(key, i)``;
 * :func:`random_bits` — 32-bit bits over the partitionable counter layout:
   element ``i`` hashes the 64-bit counter ``(hi, lo) = (0, i)`` and keeps
   ``bits1 ^ bits2``;
@@ -17,7 +19,10 @@ on (the default of the JAX versions the repository targets):
   rounding (as XLA's fused multiply-add rounds), clamped below by
   ``minval``;
 * :func:`gumbel` — the default ("low") mode, ``-log(-log(u))`` with ``u``
-  uniform on ``[tiny, 1)``.
+  uniform on ``[tiny, 1)``;
+* :func:`bernoulli` — ``jax.random.bernoulli(key, p, shape)``: the float32
+  uniforms on ``[0, 1)`` below ``p`` rounded to float32 (the dropout
+  masks of the training graph's Dropout and attention ops).
 
 Everything is integer arithmetic except the two logarithms, so keys, bits
 and uniforms equal JAX's exactly; Gumbel values agree to the last ulp or
@@ -83,6 +88,13 @@ def fold_in(k: Key, data: Union[int, torch.Tensor]) -> Key:
     return threefry2x32(k1, k2, torch.zeros_like(d), d)
 
 
+def split(k: Key, num: int = 2) -> Tuple[Key, ...]:
+    """``jax.random.split(key, num)`` under the partitionable layout: the
+    ``num`` keys ``fold_in(key, i)``, one hash over a batch of counters."""
+    k1, k2 = fold_in(k, torch.arange(num, dtype=torch.int64, device=k[0].device))
+    return tuple((k1[i], k2[i]) for i in range(num))
+
+
 def random_bits(k: Key, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` under the partitionable
     layout: int64 [*batch, *shape] of uint32 values, batched over the
@@ -99,13 +111,18 @@ def random_bits(k: Key, shape: Sequence[int]) -> torch.Tensor:
     return b1 ^ b2
 
 
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """float32 in [0, 1) from uint32 bits: a random mantissa under
+    exponent 0, minus one (exact)."""
+    one = (bits >> 9) | 0x3F800000
+    return one.to(torch.int32).view(torch.float32) - 1.0
+
+
 def uniform(
     k: Key, shape: Sequence[int], minval: float = 0.0, maxval: float = 1.0
 ) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    bits = random_bits(k, shape)
-    one = (bits >> 9) | 0x3F800000  # random mantissa under exponent 0
-    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    floats = _unit_floats(random_bits(k, shape))
     # the float32 bounds and their float32 difference, as host scalars
     lo = torch.tensor(minval, dtype=torch.float32)
     span = float(torch.tensor(maxval, dtype=torch.float32) - lo)
@@ -118,3 +135,12 @@ def uniform(
 def gumbel(k: Key, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.gumbel(key, shape)`` in float32, default mode."""
     return -torch.log(-torch.log(uniform(k, shape, minval=TINY32, maxval=1.0)))
+
+
+def bernoulli(k: Key, p: float, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low"): a bool tensor,
+    ``uniform(key, shape) < p`` with ``p`` rounded to float32, drawn on the
+    key's device. ``uniform`` on ``[0, 1)`` is the unit floats themselves
+    (``* 1 + 0`` and the clamp at 0 change no value)."""
+    p32 = float(torch.tensor(p, dtype=torch.float32))
+    return _unit_floats(random_bits(k, shape)) < p32

@@ -1,12 +1,20 @@
 """FFModel: the model-building and training API (port of the builders
-the BERT-style training graph uses, and of compile/fit/evaluate/predict,
-from ``flexflow_tpu/model.py``).
+the BERT graphs with their heads and the seq2seq transformer use, and of
+compile/fit/evaluate/predict, from ``flexflow_tpu/model.py``).
 
 Building a layer records a graph node; ``compile`` makes a single-GPU
 :class:`~flexflow_tpu_torch.runtime.executor.Executor` and its weights;
 ``fit`` runs the training loop and prints the reference's ELAPSED TIME /
-THROUGHPUT line. The model runs on the GPU unless ``device="cpu"`` is
-passed.
+THROUGHPUT line. :meth:`FFModel.from_graph` wraps a graph read back from
+JSON (the model repository's). The model runs on the GPU unless
+``device="cpu"`` is passed.
+
+``fit`` draws the JAX package's step keys: the chain starts at
+``key(seed + 1)`` and each window of steps (``trace_window``; the tail
+steps one at a time) splits it once, ``rng, sub = split(rng)``; a
+one-step window trains with ``sub``, a window of k steps with
+``split(sub, k)``, as the JAX package's traced windows do. So a model
+with dropout trains on the JAX package's masks at any ``trace_window``.
 """
 from __future__ import annotations
 
@@ -20,13 +28,24 @@ from .config import FFConfig
 from .core.device import resolve_device
 from .core.graph import Node, PCGraph
 from .core.tensor import TensorSpec
-from .core.types import ActiMode, CompMode, DataType, LossType, MetricsType, OpType
+from .core.types import ActiMode, AggrMode, CompMode, DataType, LossType, MetricsType, OpType
 from .ops import get_op_def
 from .ops.attention import MultiHeadAttentionParams
 from .ops.elementwise import ElementBinaryParams
+from .ops.embedding import EmbeddingParams
 from .ops.io_ops import InputParams
 from .ops.linear import LinearParams
 from .ops.norm import LayerNormParams
+from .ops.shape_ops import (
+    CastParams,
+    ConcatParams,
+    FlatParams,
+    ReshapeParams,
+    ReverseParams,
+    SplitParams,
+    TransposeParams,
+)
+from .ops.softmax import DropoutParams, SoftmaxParams
 from .parallel.propagation import infer_all_specs
 from .runtime.convert import to_tensor
 from .runtime.executor import Executor, node_key
@@ -64,7 +83,8 @@ class FFModel:
 
     ``device`` None means CUDA, and raises where no GPU is present;
     ``device="cpu"`` runs the plain PyTorch path. ``seed`` (default
-    ``config.seed``) seeds the weights."""
+    ``config.seed``) seeds the weights and starts ``fit``'s key chain at
+    ``key(seed + 1)``, as the JAX package's ``FFModel(seed=...)``."""
 
     def __init__(self, config: Optional[FFConfig] = None, seed: Optional[int] = None,
                  device=None):
@@ -74,7 +94,27 @@ class FFModel:
         self._num_inputs = 0
         self._seed = self.config.seed if seed is None else seed
         self.executor: Optional[Executor] = None
+        # one device, no search: the JAX package's compiled strategy
+        # has no counterpart yet
+        self.strategy = None
         self._outputs: List[Tensor] = []
+
+    @classmethod
+    def from_graph(cls, graph: PCGraph, config: Optional[FFConfig] = None,
+                   seed: Optional[int] = None, device=None) -> "FFModel":
+        """A model over an existing graph (``PCGraph.from_json``: the model
+        repository's ``graph.json``, or a graph the JAX package wrote),
+        guids kept; ``compile(outputs=model.output_tensors(...))`` picks
+        its outputs."""
+        model = cls(config, seed=seed, device=device)
+        model.graph = graph
+        model._num_inputs = sum(1 for n in graph.nodes.values() if n.op_type == OpType.INPUT)
+        return model
+
+    def output_tensors(self, outputs: Sequence[Tuple[int, int]]) -> List["Tensor"]:
+        """Tensor handles of ``(node guid, output index)`` pairs."""
+        specs = infer_all_specs(self.graph)
+        return [Tensor(self, self.graph.nodes[g], i, specs[g][i]) for g, i in outputs]
 
     # ------------------------------------------------------------ helpers
     def _add(self, op_type: OpType, params, inputs: Sequence[Tensor], name: str = "") -> List[Tensor]:
@@ -120,6 +160,19 @@ class FFModel:
         )
         return self._one(OpType.LINEAR, p, [input], name=name)
 
+    def embedding(
+        self,
+        input: Tensor,
+        num_entries: int,
+        out_dim: int,
+        aggr: AggrMode = AggrMode.NONE,
+        datatype: DataType = DataType.FLOAT,
+        kernel_initializer: str = "glorot_uniform",
+        name: str = "",
+    ) -> Tensor:
+        p = EmbeddingParams(num_entries, out_dim, aggr, datatype, kernel_initializer)
+        return self._one(OpType.EMBEDDING, p, [input], name=name)
+
     def multihead_attention(
         self,
         query: Tensor,
@@ -138,8 +191,6 @@ class FFModel:
     ) -> Tensor:
         if add_bias_kv or add_zero_attn:
             raise NotImplementedError("add_bias_kv / add_zero_attn are not supported")
-        if dropout > 0.0:
-            raise NotImplementedError("attention dropout is not ported; use dropout=0")
         p = MultiHeadAttentionParams(embed_dim, num_heads, kdim, vdim, dropout, bias, causal, query.dtype)
         return self._one(OpType.MULTIHEAD_ATTENTION, p, [query, key, value], name=name)
 
@@ -158,6 +209,42 @@ class FFModel:
 
     def add(self, x: Tensor, y: Tensor, inplace_a: bool = False, name: str = "") -> Tensor:
         return self._one(OpType.EW_ADD, ElementBinaryParams(OpType.EW_ADD, inplace_a), [x, y], name=name)
+
+    # ----------------------------------------------------------- shape ops
+    def reshape(self, input: Tensor, shape: Sequence[int], name: str = "") -> Tensor:
+        return self._one(OpType.RESHAPE, ReshapeParams(tuple(shape)), [input], name=name)
+
+    def transpose(self, input: Tensor, perm: Sequence[int], name: str = "") -> Tensor:
+        return self._one(OpType.TRANSPOSE, TransposeParams(tuple(perm)), [input], name=name)
+
+    def reverse(self, input: Tensor, axis: int, name: str = "") -> Tensor:
+        return self._one(OpType.REVERSE, ReverseParams(axis), [input], name=name)
+
+    def flat(self, input: Tensor, name: str = "") -> Tensor:
+        return self._one(OpType.FLAT, FlatParams(), [input], name=name)
+
+    def concat(self, tensors: Sequence[Tensor], axis: int, name: str = "") -> Tensor:
+        return self._one(OpType.CONCAT, ConcatParams(axis, len(tensors)), list(tensors), name=name)
+
+    def split(self, input: Tensor, sizes: Union[int, Sequence[int]], axis: int,
+              name: str = "") -> List[Tensor]:
+        if isinstance(sizes, int):
+            total = input.shape[axis]
+            if total % sizes != 0:
+                raise ValueError(f"split: dim {axis} of size {total} not divisible into {sizes} chunks")
+            sizes = [total // sizes] * sizes
+        if sum(sizes) != input.shape[axis]:
+            raise ValueError(f"split sizes {sizes} do not sum to dim size {input.shape[axis]}")
+        return self._add(OpType.SPLIT, SplitParams(tuple(sizes), axis), [input], name=name)
+
+    def cast(self, input: Tensor, dtype: DataType, name: str = "") -> Tensor:
+        return self._one(OpType.CAST, CastParams(dtype), [input], name=name)
+
+    def softmax(self, input: Tensor, axis: int = -1, name: str = "") -> Tensor:
+        return self._one(OpType.SOFTMAX, SoftmaxParams(axis), [input], name=name)
+
+    def dropout(self, input: Tensor, rate: float, seed: int = 0, name: str = "") -> Tensor:
+        return self._one(OpType.DROPOUT, DropoutParams(rate, seed), [input], name=name)
 
     # -------------------------------------------------------------- compile
     def compile(
@@ -204,6 +291,24 @@ class FFModel:
         xs = [x] if isinstance(x, (np.ndarray, torch.Tensor)) else list(x)
         return [to_tensor(xx, self.device) for xx in xs], to_tensor(y, self.device)
 
+    def _step_keys(self, epochs: int, steps: int, tw: int) -> List[List[tuple]]:
+        """Every step's threefry key of a ``fit``, per epoch, on the device:
+        the JAX package's chain (module docstring), derived on the host and
+        moved in one copy, so the steps themselves never sync the host."""
+        from .generation import prng  # the generation package imports the model's ops
+
+        rng, keys = prng.key(self._seed + 1), []
+        for _ in range(epochs):
+            step = 0
+            while step < steps:
+                k = tw if steps - step >= tw else 1
+                rng, sub = prng.split(rng)
+                keys.extend([sub] if k == 1 else prng.split(sub, k))
+                step += k
+        words = torch.stack([torch.stack(kk) for kk in keys]).to(self.device) if keys else None
+        return [[(words[e * steps + i, 0], words[e * steps + i, 1]) for i in range(steps)]
+                for e in range(epochs)]
+
     def fit(
         self,
         x: Union[np.ndarray, torch.Tensor, Sequence],
@@ -217,8 +322,11 @@ class FFModel:
 
         Steps run one after another; their metrics are read back to the
         host once per window of ``trace_window`` steps (default
-        ``FFConfig.trace_window``), so the host may queue a window's work
-        ahead of the device. The arithmetic is the same for any window."""
+        ``FFConfig.trace_window``; the tail steps that fill no whole
+        window one at a time, as the JAX package runs them), so the host
+        may queue a window's work ahead of the device. The arithmetic
+        is the same for any window; the step keys follow the JAX
+        package's windows (module docstring)."""
         if self.executor is None:
             raise RuntimeError("call compile() first")
         xs, y = self._as_batches(x, y)
@@ -226,17 +334,20 @@ class FFModel:
         bs = batch_size or self.config.batch_size
         tw = max(1, trace_window or self.config.trace_window)
         steps = xs[0].shape[0] // bs
+        keys = self._step_keys(epochs, steps, tw)
         perf = PerfMetrics()
         interval = max(1, self.config.printing_interval)
         self.step_losses: List[float] = []
         t0 = time.perf_counter()
         for epoch in range(epochs):
-            for w0 in range(0, steps, tw):
+            w0 = 0
+            while w0 < steps:
+                n = tw if steps - w0 >= tw else 1
                 window = []
-                for step in range(w0, min(steps, w0 + tw)):
+                for step in range(w0, w0 + n):
                     lo = step * bs
                     window.append(self.executor.train_batch(
-                        [xx[lo:lo + bs] for xx in xs], y[lo:lo + bs]))
+                        [xx[lo:lo + bs] for xx in xs], y[lo:lo + bs], rng=keys[epoch][step]))
                 for i, mets in enumerate(window):  # one host sync per window
                     host = {k: float(v) for k, v in mets.items()}
                     perf.update({k: v for k, v in host.items() if k != "loss"})
@@ -244,6 +355,7 @@ class FFModel:
                     if verbose and (w0 + i) % interval == 0:
                         print(f"epoch {epoch} step {w0 + i}/{steps} "
                               f"loss {host['loss']:.4f} acc {perf.accuracy:.4f}")
+                w0 += n
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0

@@ -5,8 +5,9 @@ Tensors are [B, S, H, D], as in the JAX package. The training path's
 ``MultiHeadAttentionOp`` projects with einsums and runs its core through
 :func:`attention_core` (the flash kernels on a GPU); the generation path
 uses the paged decode/append cores and the masked prefill attention.
-Ring/Ulysses context parallelism, the mesh branches and attention
-dropout wait for the multi-GPU slices.
+Dropout after the output projection and its bias draws JAX's mask
+(``softmax.dropout``). Ring/Ulysses context parallelism and the mesh
+branches wait for the multi-GPU slices.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..core.tensor import TensorSpec
 from ..core.types import DataType, OpType
 from .base import LowerCtx, OpDef, WeightSpec, register_op
 from .linear import promoted
+from .softmax import dropout
 from .kernels.flash_attention import flash_attention
 from .kernels.decode_attention import (
     paged_append_attention,
@@ -58,6 +60,7 @@ class MultiHeadAttentionParams:
 @register_op
 class MultiHeadAttentionOp(OpDef):
     op_type = OpType.MULTIHEAD_ATTENTION
+    params_cls = MultiHeadAttentionParams
 
     @staticmethod
     def infer_output_specs(params: MultiHeadAttentionParams, input_specs: List[TensorSpec]):
@@ -102,6 +105,7 @@ class MultiHeadAttentionOp(OpDef):
         out = torch.einsum("bshd,hde->bse", *promoted(ctx_out, weights["wo"]))
         if params.use_bias:
             out = out + weights["bo"]
+        out = dropout(out, params.dropout, ctx)
         return [out.to(params.dtype.torch)]
 
 

@@ -9,7 +9,7 @@ slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,17 +32,31 @@ class LowerCtx:
     """Context threaded through op lowering."""
 
     training: bool = True
-    # randomness for stochastic ops (none on the ported path yet)
-    generator: Optional[torch.Generator] = None
+    # the step's base threefry key (``generation/prng.py``: a pair of
+    # int64 tensors holding uint32 words); a stochastic op folds in its
+    # node's guid, as the JAX package does
+    rng: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    node_guid: int = 0
     # "auto": kernels on CUDA tensors, plain versions on CPU tensors;
     # "plain": plain versions everywhere (to hold the kernels against)
     backend: str = "auto"
+
+    def node_rng(self):
+        """``fold_in(rng, node_guid)``: the current node's key (the JAX
+        package's ``node_rng``; on one device ``shard_rng`` adds
+        nothing to it)."""
+        if self.rng is None:
+            raise ValueError("op requires an RNG but none was provided")
+        from ..generation import prng  # the generation package imports the ops
+
+        return prng.fold_in(self.rng, self.node_guid)
 
 
 class OpDef:
     """Base operator definition; subclasses register per OpType."""
 
     op_type: OpType = None  # type: ignore
+    params_cls: type = None  # type: ignore  # the frozen params record (graph JSON)
 
     @staticmethod
     def infer_output_specs(params, input_specs: List[TensorSpec]) -> List[TensorSpec]:

@@ -45,6 +45,7 @@ class ElementBinaryParams:
 @register_op
 class AddOp(OpDef):
     op_type = OpType.EW_ADD
+    params_cls = ElementBinaryParams
 
     @staticmethod
     def infer_output_specs(params, input_specs: List[TensorSpec]):

@@ -1,0 +1,70 @@
+"""Embedding (port of ``flexflow_tpu/ops/embedding.py``).
+
+A per-token lookup (``AggrMode.NONE``: [..., ] -> [..., out_dim]) or a
+bag of indices per sample summed or averaged over its last dim (SUM /
+AVG: [B, bag] -> [B, out_dim]). Indices may be int32 or int64. The
+lookup keeps ``jnp.take``'s semantics: a negative index counts from the
+end of the table and an index outside it gives a row of NaN (JAX's
+"fill" mode), with no host sync on the card. The bag sums and means
+accumulate in float32 and round once to the table's dtype, as
+``jnp.sum`` / ``jnp.mean`` do for a 2-byte input.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import torch
+
+from ..core.tensor import TensorSpec
+from ..core.types import AggrMode, DataType, OpType
+from .base import LowerCtx, OpDef, WeightSpec, register_op
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingParams:
+    num_entries: int
+    out_dim: int
+    aggr: AggrMode = AggrMode.NONE
+    dtype: DataType = DataType.FLOAT
+    initializer: str = "glorot_uniform"
+
+
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, idx, axis=0)`` with its gradient (a scatter-add
+    into the table's rows)."""
+    n = table.shape[0]
+    i = idx.long()
+    i = torch.where(i < 0, i + n, i)
+    inside = (i >= 0) & (i < n)
+    vecs = torch.nn.functional.embedding(i.clamp(0, n - 1), table)
+    return torch.where(inside[..., None], vecs, float("nan"))
+
+
+@register_op
+class EmbeddingOp(OpDef):
+    op_type = OpType.EMBEDDING
+    params_cls = EmbeddingParams
+
+    @staticmethod
+    def infer_output_specs(params: EmbeddingParams, input_specs: List[TensorSpec]):
+        (idx,) = input_specs
+        if params.aggr == AggrMode.NONE:
+            return [TensorSpec(idx.shape + (params.out_dim,), params.dtype)]
+        return [TensorSpec(idx.shape[:-1] + (params.out_dim,), params.dtype)]
+
+    @staticmethod
+    def weight_specs(params: EmbeddingParams, input_specs: List[TensorSpec]) -> List[WeightSpec]:
+        return [WeightSpec("embedding", TensorSpec((params.num_entries, params.out_dim),
+                                                   params.dtype), params.initializer)]
+
+    @staticmethod
+    def lower(params: EmbeddingParams, inputs, weights, ctx: LowerCtx):
+        (idx,) = inputs
+        table = weights["embedding"]
+        vecs = lookup(table, idx)
+        if params.aggr == AggrMode.SUM:
+            vecs = vecs.float().sum(dim=-2).to(table.dtype)
+        elif params.aggr == AggrMode.AVG:
+            vecs = vecs.float().mean(dim=-2).to(table.dtype)
+        return [vecs]

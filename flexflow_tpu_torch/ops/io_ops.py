@@ -20,6 +20,7 @@ class InputParams:
 @register_op
 class InputOp(OpDef):
     op_type = OpType.INPUT
+    params_cls = InputParams
 
     @staticmethod
     def infer_output_specs(params: InputParams, input_specs: List[TensorSpec]) -> List[TensorSpec]:

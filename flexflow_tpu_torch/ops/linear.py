@@ -46,6 +46,7 @@ class LinearParams:
 @register_op
 class LinearOp(OpDef):
     op_type = OpType.LINEAR
+    params_cls = LinearParams
 
     @staticmethod
     def infer_output_specs(params: LinearParams, input_specs: List[TensorSpec]) -> List[TensorSpec]:

@@ -27,6 +27,7 @@ class LayerNormParams:
 @register_op
 class LayerNormOp(OpDef):
     op_type = OpType.LAYERNORM
+    params_cls = LayerNormParams
 
     @staticmethod
     def infer_output_specs(params, input_specs: List[TensorSpec]):

@@ -7,6 +7,13 @@ graph in topological order, op by op, and autograd records the backward
 (the flash attention backward included). A train step is forward, loss,
 ``backward()`` and the optimizer's in-place update.
 
+Each node lowers with its guid in ``LowerCtx.node_guid`` and the step's
+threefry key in ``LowerCtx.rng`` (``train_batch(..., rng=key)``), so a
+dropout node draws the JAX package's mask. Compiled for inference
+(``optimizer=None``) the executor holds no optimizer state; ``predict``
+runs under ``torch.no_grad()`` through the ``executor.predict`` fault
+site.
+
 Weights are keyed ``"{op_type}_{guid}"`` as in the JAX executor, and
 reachable by layer name through :meth:`Executor.node_key`. There is no
 GSPMD sharding, pipeline, rematerialization, ZeRO, gradient
@@ -24,7 +31,7 @@ from ..core.graph import Node, PCGraph
 from ..core.types import LossType, MetricsType, OpType
 from ..ops.base import LowerCtx, get_op_def
 from ..parallel.propagation import infer_all_specs
-from . import initializers, losses, metrics as metrics_mod
+from . import faults, initializers, losses, metrics as metrics_mod
 from .convert import to_tensor
 from .optimizers import Optimizer, Params
 
@@ -81,16 +88,18 @@ class Executor:
         return self._by_name[name]
 
     # ----------------------------------------------------------- forward
-    def _forward_impl(self, params: Params, inputs: Sequence[torch.Tensor], training: bool):
+    def _forward_impl(self, params: Params, inputs: Sequence[torch.Tensor], training: bool,
+                      rng=None):
         """Interpret the graph in topological order (the reference's
         FFModel::forward op loop, model.cc:2423)."""
         values: Dict[Tuple[int, int], torch.Tensor] = {}
-        ctx = LowerCtx(training=training, backend=self.backend)
+        ctx = LowerCtx(training=training, rng=rng, backend=self.backend)
         for node in self.graph.topo_order():
             if node.op_type == OpType.INPUT:
                 values[(node.guid, 0)] = inputs[node.params.input_index]
                 continue
             node_inputs = [values[(e.src, e.src_idx)] for e in self.graph.in_edges(node)]
+            ctx.node_guid = node.guid
             outs = get_op_def(node.op_type).lower(
                 node.params, node_inputs, params.get(node_key(node), {}), ctx
             )
@@ -104,18 +113,29 @@ class Executor:
         return [to_tensor(x, self.device) for x in inputs]
 
     # ---------------------------------------------------------------- API
-    def train_batch(self, inputs: Sequence, label) -> Dict[str, torch.Tensor]:
-        """Forward, loss, backward, optimizer update (in place). Returns
-        the batch's metrics and loss as device tensors (no host sync)."""
+    def _step_key(self, rng):
+        """A threefry key (``generation/prng.py``) on the device; ``key(0)``
+        (the JAX executor's default outside training) when ``rng`` is
+        None."""
+        from ..generation import prng  # the generation package imports the runtime
+
+        k1, k2 = prng.key(0) if rng is None else rng
+        return k1.to(self.device), k2.to(self.device)
+
+    def train_batch(self, inputs: Sequence, label, rng=None) -> Dict[str, torch.Tensor]:
+        """Forward, loss, backward, optimizer update (in place). ``rng``
+        is the step's threefry key (dropout masks). Returns the batch's
+        metrics and loss as device tensors (no host sync)."""
         if self.optimizer is None or self.loss_type is None:
             raise RuntimeError("compile() with an optimizer and a loss to train")
-        inputs = self._as_inputs(inputs)
+        inputs = self._as_inputs(faults.inject(faults.EXECUTOR_TRAIN_BATCH, inputs))
         label = to_tensor(label, self.device)
         leaves = [p for g in self.params.values() for p in g.values()]
         for p in leaves:
             p.grad = None
         with torch.enable_grad():
-            final = self._forward_impl(self.params, inputs, training=True)[-1]
+            final = self._forward_impl(self.params, inputs, training=True,
+                                       rng=self._step_key(rng))[-1]
             loss = losses.get_loss_fn(self.loss_type)(final, label)
             loss.backward()
         # a weight the loss does not reach has a zero gradient, as in JAX
@@ -142,4 +162,6 @@ class Executor:
 
     @torch.no_grad()
     def predict(self, inputs: Sequence) -> List[torch.Tensor]:
-        return self._forward_impl(self.params, self._as_inputs(inputs), training=False)
+        outs = self._forward_impl(self.params, self._as_inputs(inputs), training=False)
+        # chaos hook: error / stall / NaN-poisoned outputs
+        return faults.inject(faults.EXECUTOR_PREDICT, outs)

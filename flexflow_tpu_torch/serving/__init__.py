@@ -1,13 +1,15 @@
-"""Serving around the generation engine (port of ``flexflow_tpu/serving``
-without the batched ``/infer`` path, the model repository, gRPC and the
-fleet): typed rejections, retry with backoff and the circuit breaker, the
-overload controller, the serving statistics, durable serving
-(``durable.py``: the WAL journal, warm restart and the resume index), and
-the HTTP front end — :class:`GenerationModel` behind
-:class:`InferenceServer`.
+"""Serving (port of ``flexflow_tpu/serving`` without gRPC and the fleet):
+typed rejections, retry with backoff and the circuit breaker, the
+overload controller, the serving statistics, the batched path
+(:class:`InferenceModel` behind a :class:`DynamicBatcher`, the
+:class:`ModelRepository` with ``save_model`` / ``load_model``), durable
+serving (``durable.py``: the WAL journal, warm restart and the resume
+index), and the HTTP front end — :class:`InferenceModel` and
+:class:`GenerationModel` behind :class:`InferenceServer`.
 
-``GenerationModel`` and ``InferenceServer`` resolve lazily: they import
-the generation package, which imports this package's resilience module.
+``GenerationModel``, ``InferenceServer`` and the batched path resolve
+lazily: they import the generation package or the model, which import
+this package's resilience module.
 """
 from .overload import (
     AdaptiveLimiter,
@@ -48,12 +50,15 @@ __all__ = [
     "DeadlineExceededError",
     "DegradeLadder",
     "DurableStats",
+    "DynamicBatcher",
     "GenerationModel",
     "GoodputStats",
     "Histogram",
+    "InferenceModel",
     "InferenceServer",
     "InfeasibleError",
     "LatencyWindow",
+    "ModelRepository",
     "OverloadConfig",
     "OverloadController",
     "OverloadedError",
@@ -64,19 +69,31 @@ __all__ = [
     "ServingStats",
     "ShuttingDownError",
     "SpeculationStats",
+    "TensorMeta",
     "TokenRate",
     "http_status",
+    "load_model",
+    "make_batcher",
     "retry_after_s",
+    "save_model",
 ]
+
+_LAZY = {
+    "GenerationModel": "generation",
+    "InferenceServer": "server",
+    "InferenceModel": "model",
+    "TensorMeta": "model",
+    "DynamicBatcher": "batcher",
+    "make_batcher": "batcher",
+    "ModelRepository": "repository",
+    "load_model": "repository",
+    "save_model": "repository",
+}
 
 
 def __getattr__(name):
-    if name == "GenerationModel":
-        from .generation import GenerationModel
+    if name in _LAZY:
+        import importlib
 
-        return GenerationModel
-    if name == "InferenceServer":
-        from .server import InferenceServer
-
-        return InferenceServer
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,6 +1,6 @@
-"""HTTP front end of the generation engine, speaking the KServe/Triton v2
-protocol subset (port of ``flexflow_tpu/serving/server.py``, standard
-library only):
+"""HTTP front end of the batched models and the generation engine,
+speaking the KServe/Triton v2 protocol subset (port of
+``flexflow_tpu/serving/server.py``, standard library only):
 
   GET  /v2/health/live                     -> 200 while the process runs
   GET  /v2/health/ready                    -> 200 only when able to serve
@@ -49,13 +49,23 @@ library only):
   GET  /v2/models                          -> served model names
   GET  /v2/models/{name}                   -> model metadata
   GET  /v2/models/{name}/ready             -> per-model readiness
+  POST /v2/models/{name}/infer             -> batched inference (KServe v2
+                                              JSON tensors) through the
+                                              model's dynamic batcher
   POST /v2/models/{name}/generate          -> generation: one JSON body, or
                                               an SSE token stream with
                                               "stream": true
+  POST /v2/repository/index                -> the repository's models and
+                                              their state (READY /
+                                              UNAVAILABLE)
+  POST /v2/repository/models/{name}/load   -> load from the repository and
+                                              serve
+  POST /v2/repository/models/{name}/unload -> stop serving and drop
 
 A request's deadline rides ``{"parameters": {"timeout_ms": N}}`` or the
-``X-Request-Timeout-Ms`` header; its priority class the body's
-``"priority"`` or the ``X-Request-Priority`` header. Typed rejections map
+``X-Request-Timeout-Ms`` header; its priority class the generate body's
+``"priority"``, the infer body's ``{"parameters": {"priority": ...}}``,
+or the ``X-Request-Priority`` header. Typed rejections map
 to statuses by :func:`~flexflow_tpu_torch.serving.resilience.http_status`
 (queue full / limiter / circuit open / draining -> 503, expired deadline
 -> 504); overload rejections add ``Retry-After`` and a structured body
@@ -66,9 +76,7 @@ request joins its journey to the client's trace; the response carries
 the journey's ``traceparent`` (and ``journey_id`` in the body), and with
 durability on an SSE response names its stream in ``X-Durable-Id``.
 
-Not ported yet: ``/v2/models/{name}/infer`` (with ``InferenceModel``,
-the dynamic batcher and the model repository), ``/v2/repository/*``,
-``/v2/fleet*`` and the gRPC front end.
+Not ported yet: ``/v2/fleet*`` and the gRPC front end.
 """
 from __future__ import annotations
 
@@ -80,6 +88,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
+import numpy as np
+
 from ..obs import (
     GLOBAL_LEDGER,
     JourneyIndex,
@@ -90,8 +100,28 @@ from ..obs import (
     render_prometheus,
 )
 from ..runtime import faults
+from .batcher import DynamicBatcher, make_batcher
 from .generation import GenerationModel
+from .model import InferenceModel
 from .resilience import ResilienceError, http_status, retry_after_s
+
+# the KServe v2 tensor datatypes and numpy's (numpy has no bfloat16: a
+# BF16 request tensor arrives as float32, which holds its values)
+_V2_DTYPES = {
+    "FP32": np.float32, "FP64": np.float64, "FP16": np.float16, "BF16": np.float32,
+    "INT32": np.int32, "INT64": np.int64, "BOOL": np.bool_,
+}
+_NP_TO_V2 = {
+    "float32": "FP32", "float64": "FP64", "float16": "FP16",
+    "bfloat16": "BF16", "int32": "INT32", "int64": "INT64", "bool": "BOOL",
+}
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # the listen backlog: socketserver's default of 5 drops the SYNs of a
+    # burst of concurrent clients past it, which the clients' kernels
+    # resend only after a second
+    request_queue_size = 128
 
 
 def _reject_payload(e: ResilienceError) -> dict:
@@ -115,14 +145,29 @@ def _reject_headers(e: ResilienceError) -> "dict | None":
 
 
 class InferenceServer:
-    """Serves GenerationModels over HTTP (``register_generation``);
-    ``start()`` binds ``host:port`` (port 0 picks a free one, read back
-    from ``self.port``) and starts every model's scheduler."""
+    """Serves InferenceModels behind dynamic batchers (``register``) and
+    GenerationModels (``register_generation``) over HTTP; ``start()``
+    binds ``host:port`` (port 0 picks a free one, read back from
+    ``self.port``) and starts every batcher and scheduler.
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 8000):
+    With a :class:`~flexflow_tpu_torch.serving.repository.ModelRepository`
+    attached, the v2 repository lifecycle routes are live. Each model's
+    batcher is built from ``batcher_kwargs`` (``breaker``/``retry`` may be
+    zero-arg factories, so each model gets its own; ``clock`` is
+    injectable for tests on virtual time)."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 8000, max_delay_s: float = 0.005,
+                 repository=None, max_queue: int = 256, batcher_kwargs: Optional[dict] = None):
         self.host = host
         self.port = port
+        self.models: Dict[str, InferenceModel] = {}
+        self.batchers: Dict[str, DynamicBatcher] = {}
         self.generators: Dict[str, GenerationModel] = {}
+        self.max_delay_s = max_delay_s
+        self.repository = repository
+        self._batcher_kwargs = dict(batcher_kwargs or {})
+        self._batcher_kwargs.setdefault("max_delay_s", max_delay_s)
+        self._batcher_kwargs.setdefault("max_queue", max_queue)
         self._draining = False
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -130,6 +175,21 @@ class InferenceServer:
         # from an inbound traceparent) only for models whose journeys are
         # on, so a journeys-off deployment stays inert
         self.journeys = JourneyRecorder(lane="http")
+
+    def register(self, model: InferenceModel) -> None:
+        """Serve an InferenceModel behind its own dynamic batcher; started
+        at once if the server runs."""
+        self.models[model.name] = model
+        b = make_batcher(model, self._batcher_kwargs)
+        self.batchers[model.name] = b
+        if self._httpd is not None:
+            b.start()
+
+    def unregister(self, name: str) -> bool:
+        b = self.batchers.pop(name, None)
+        if b is not None:
+            b.stop()
+        return self.models.pop(name, None) is not None
 
     def register_generation(self, model: GenerationModel) -> None:
         """Serve a GenerationModel; started at once if the server runs."""
@@ -152,26 +212,34 @@ class InferenceServer:
         breaker holding traffic."""
         if self._httpd is None or self._draining:
             return False
-        return all(g.breaker.ready() for g in list(self.generators.values()))
+        # snapshots: repository load/unload mutates the dicts concurrently
+        return all(b.breaker.ready() for b in list(self.batchers.values())) and all(
+            g.breaker.ready() for g in list(self.generators.values()))
 
     def model_ready(self, name: str) -> bool:
         g = self.generators.get(name)
-        return g is not None and g.ready()
+        if g is not None:
+            return g.ready()
+        b = self.batchers.get(name)
+        return b is not None and b.ready()
 
     def readiness(self) -> Dict:
-        """Readiness and, per model, its rationale: breaker state,
-        watchdog/recovery evidence, SLO burn and the degrade level."""
-        return {
-            "ready": self.ready(),
-            "draining": self._draining,
-            "models": {n: g.readiness_rationale() for n, g in list(self.generators.items())},
+        """Readiness and, per model, its rationale: a batched model's
+        breaker state; a generation model's breaker state,
+        watchdog/recovery evidence, SLO burn and degrade level."""
+        models: Dict[str, Dict] = {
+            n: {"ready": b.ready(), "breaker": b.breaker.state}
+            for n, b in list(self.batchers.items())
         }
+        models.update({n: g.readiness_rationale() for n, g in list(self.generators.items())})
+        return {"ready": self.ready(), "draining": self._draining, "models": models}
 
     def stats(self) -> Dict:
-        """The /v2/stats payload: one entry per generation model
-        (``models`` holds the batched models, none in the port yet)."""
+        """The /v2/stats payload: the batchers' counters, latency and
+        queue depth under ``models``, the generation models' under
+        ``generation``."""
         return {
-            "models": {},
+            "models": {n: b.stats.snapshot() for n, b in list(self.batchers.items())},
             "generation": {n: g.stats.snapshot() for n, g in list(self.generators.items())},
         }
 
@@ -183,8 +251,10 @@ class InferenceServer:
                 yield name, g
 
     def metrics_text(self) -> str:
+        stats = {n: b.stats for n, b in list(self.batchers.items())}
+        stats.update({n: g.stats for n, g in list(self.generators.items())})
         return render_prometheus(
-            {n: g.stats for n, g in list(self.generators.items())},
+            stats,
             fault_sites=faults.site_counters(),
             ledger=GLOBAL_LEDGER,
             anatomy={n: g.anatomy.prom_snapshot() for n, g in list(self.generators.items())
@@ -193,10 +263,13 @@ class InferenceServer:
 
     def debug_traces(self, request_id: Optional[int] = None, model: Optional[str] = None,
                      n: int = 32) -> Dict:
-        """Recent finished request traces, most recent first."""
+        """Recent finished request traces, most recent first, across the
+        generation schedulers and the dynamic batchers."""
+        rings = [(name, unit.trace_ring) for name, unit in self._units(model)]
+        rings += [(name, b.trace_ring) for name, b in sorted(self.batchers.items())
+                  if model is None or name == model]
         traces = []
-        for name, unit in self._units(model):
-            ring = unit.trace_ring
+        for name, ring in rings:
             found = [ring.get(request_id)] if request_id is not None else ring.recent(n)
             for tr in found:
                 if tr is not None:
@@ -410,20 +483,114 @@ class InferenceServer:
                 if path == "/v2/overload":
                     return self._json(200, server.overload_report(model=model))
                 if path == "/v2/models":
-                    return self._json(200, {"models": sorted(server.generators)})
+                    return self._json(200, {"models": sorted(set(server.models)
+                                                             | set(server.generators))})
                 if path.startswith("/v2/models/"):
                     parts = path.split("/")
                     name = parts[3]
                     g = server.generators.get(name)
-                    if g is None:
+                    m = server.models.get(name) or g
+                    if m is None:
                         return self._json(404, {"error": f"unknown model {name}"})
                     if len(parts) == 5 and parts[4] == "ready":
                         ok = server.model_ready(name)
-                        payload = {"name": name, "ready": ok,
-                                   "rationale": g.readiness_rationale()}
+                        payload = {"name": name, "ready": ok}
+                        if g is not None:
+                            payload["rationale"] = g.readiness_rationale()
                         return self._json(200 if ok else 503, payload)
-                    return self._json(200, g.metadata())
+                    return self._json(200, m.metadata())
                 return self._json(404, {"error": "not found"})
+
+            def _repository(self, parts):
+                """POST /v2/repository/index and
+                /v2/repository/models/{name}/{load,unload}."""
+                repo = server.repository
+                if repo is None:
+                    return self._json(400, {"error": "no model repository configured"})
+                if len(parts) == 4 and parts[3] == "index":
+                    return self._json(200, [
+                        {"name": n, "state": "READY" if n in server.models else "UNAVAILABLE"}
+                        for n in sorted(set(repo.available()) | set(server.models))
+                    ])
+                if len(parts) == 6 and parts[3] == "models" and parts[5] in ("load", "unload"):
+                    name = parts[4]
+                    if parts[5] == "load":
+                        try:
+                            server.register(repo.load(name))
+                        except KeyError as e:
+                            return self._json(404, {"error": str(e)})
+                        except Exception as e:
+                            return self._json(500, {"error": str(e)})
+                        return self._json(200, {"name": name, "state": "READY"})
+                    if not server.unregister(name):
+                        return self._json(404, {"error": f"model {name} not loaded"})
+                    return self._json(200, {"name": name, "state": "UNAVAILABLE"})
+                return self._json(404, {"error": "not found"})
+
+            def _infer(self, name: str):
+                """POST /v2/models/{name}/infer — body: {"inputs": [{"name",
+                "shape", "datatype", "data"}], "parameters": {"timeout_ms",
+                "priority"}}. Parsing and validation errors -> 400;
+                backpressure, breaker and drain -> 503; an expired deadline
+                -> 504; a stopped batcher or a failed inference -> 500."""
+                batcher = server.batchers.get(name)
+                model = server.models.get(name)
+                if batcher is None or model is None:
+                    return self._json(404, {"error": f"unknown model {name}"})
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(length))
+                    params = req.get("parameters") or {}
+                    timeout_ms = params.get("timeout_ms", self.headers.get("X-Request-Timeout-Ms"))
+                    deadline_s = None if timeout_ms is None else float(timeout_ms) / 1000.0
+                    by_name = {t["name"]: t for t in req["inputs"]}
+                    arrays = []
+                    for meta in model.inputs:
+                        t = by_name.get(meta.name)
+                        if t is None:
+                            raise ValueError(f"missing input {meta.name}")
+                        dt = _V2_DTYPES.get(t.get("datatype", "FP32"), np.float32)
+                        arrays.append(np.asarray(t["data"], dtype=dt).reshape(t["shape"]))
+                    priority = params.get("priority", self.headers.get("X-Request-Priority"))
+                    fut = batcher.submit(arrays, deadline_s=deadline_s, transport="http",
+                                         priority=priority)
+                except ResilienceError as e:  # backpressure / deadline / breaker / drain
+                    return self._json(http_status(e), _reject_payload(e),
+                                      headers=_reject_headers(e))
+                except RuntimeError as e:  # batcher stopped: server-side
+                    return self._json(500, {"error": str(e)})
+                except Exception as e:
+                    return self._json(400, {"error": str(e)})
+                try:
+                    # a request-supplied deadline owns the wait; 60 s is
+                    # only the default for budget-less requests
+                    outs = fut.result(timeout=deadline_s if deadline_s is not None else 60.0)
+                except ResilienceError as e:
+                    return self._json(http_status(e), _reject_payload(e),
+                                      headers=_reject_headers(e))
+                except (TimeoutError, _FuturesTimeout):
+                    # cancel so the abandoned request never occupies space
+                    # in a later device batch
+                    fut.cancel()
+                    return self._json(504, {"error": "inference timed out"})
+                except Exception as e:
+                    return self._json(500, {"error": str(e)})
+                return self._json(200, {
+                    "model_name": name,
+                    "outputs": [
+                        {
+                            "name": meta.name,
+                            "shape": list(o.shape),
+                            # a bfloat16 output comes back widened to float32
+                            "datatype": _NP_TO_V2.get(
+                                meta.dtype if meta.dtype == "bfloat16" else str(o.dtype), "FP32"),
+                            "data": np.asarray(
+                                o, dtype=np.float64 if o.dtype.kind == "f" else o.dtype
+                            ).reshape(-1).tolist(),
+                        }
+                        for meta, o in zip(model.outputs, outs)
+                    ],
+                })
 
             def _generate(self, name: str):
                 """POST /v2/models/{name}/generate — body: {"prompt": [ids],
@@ -627,13 +794,19 @@ class InferenceServer:
 
             def do_POST(self):
                 parts = self.path.split("/")
-                if (len(parts) == 5 and parts[1] == "v2" and parts[2] == "models"
-                        and parts[4] == "generate"):
-                    return self._generate(parts[3])
+                if len(parts) >= 3 and parts[1] == "v2" and parts[2] == "repository":
+                    return self._repository(parts)
+                if len(parts) == 5 and parts[1] == "v2" and parts[2] == "models":
+                    if parts[4] == "generate":
+                        return self._generate(parts[3])
+                    if parts[4] == "infer":
+                        return self._infer(parts[3])
                 return self._json(404, {"error": "not found"})
 
-        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
+        self._httpd = _HTTPServer((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]  # resolve port 0
+        for b in self.batchers.values():
+            b.start()
         for g in self.generators.values():
             g.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
@@ -645,6 +818,8 @@ class InferenceServer:
         ``drain=False`` fails queued work typed."""
         self._draining = True
         try:
+            for b in self.batchers.values():
+                b.stop(drain=drain)
             for g in self.generators.values():
                 g.stop(drain=drain)
             if self._httpd:

@@ -2,10 +2,11 @@
 per-model counters, latency windows, Prometheus histograms and gauges,
 surfaced on the HTTP server's ``/v2/stats`` and ``/metrics``.
 
-The generation scheduler reports into one :class:`ServingStats` per
-model: counters (admitted / rejected / ... and dynamic ones such as the
-per-reason rejection split), named latency windows (queue_time / ttft /
-tpot) that also feed histograms, and ``gauges`` (zero-arg callables
+The generation scheduler and the dynamic batcher each report into one
+:class:`ServingStats` per model: counters (admitted / rejected / ... and
+dynamic ones such as the per-reason rejection split), named latency
+windows (queue_time, and ttft / tpot in generation) that also feed
+histograms, and ``gauges`` (the batcher's ``queue_depth``; zero-arg callables
 evaluated at snapshot time, so the endpoints read live values without
 the stats object holding references into hot-path state). The
 speculation, constrained-decoding, goodput, recovery and durable-serving
@@ -13,8 +14,9 @@ counters register their gauges into it. :class:`RecoveryStats` lives in
 ``generation/recovery.py`` and is re-exported here, so both import paths
 name the one class.
 
-Thread-safety: counters take a lock (HTTP handler threads and the
-scheduler's loop and watchdog threads write concurrently); snapshots are
+Thread-safety: counters take a lock (HTTP handler threads, the batchers'
+collector threads and the scheduler's loop and watchdog threads write
+concurrently); snapshots are
 consistent-enough reads for monitoring, not transactions.
 """
 from __future__ import annotations

@@ -324,7 +324,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert 'flexflow_tpu_torch.serving.stats' in names, names\n"
         "for m in ('serving.server', 'serving.generation', 'serving.overload', 'obs.trace',\n"
         "          'obs.flight', 'obs.slo', 'obs.steptrace', 'obs.truth', 'obs.prom',\n"
-        "          'runtime.wal', 'obs.journey', 'serving.durable'):\n"
+        "          'runtime.wal', 'obs.journey', 'serving.durable', 'ops.softmax',\n"
+        "          'ops.embedding', 'ops.shape_ops', 'serving.model', 'serving.batcher',\n"
+        "          'serving.repository', 'tools.heads_probe'):\n"
         "    assert 'flexflow_tpu_torch.' + m in names, names\n"
         "print(len(names))\n"
     )
