@@ -160,7 +160,29 @@ prints no result line):
    fsync and on without, in turns over two rounds (ms per step,
    flush_step host ms p50 / p99, fsyncs per second, WAL bytes per token,
    the garbage collector's pauses), and with journeys on and off.
-13. anatomy: torch.profiler over a short 4-slot run — the device's busy
+13. fleet: the fleet tier on one card (``serving/fleet.py``), GPT-2-small
+   width, fp32, 4-slot graph engines of 257 blocks from one factory that
+   warms every prefill bucket, every replica stepping on its own loop
+   thread: the single engine (a started GenerationModel) for the
+   baseline; ``Fleet(factory, 2)`` over the serving cell (streams equal
+   to the serving phase's, 12 paged launches per decode step); the
+   prefix cell through ``Fleet(factory, 2)`` with the prefix cache on
+   (router affinity decisions > 0, prefix hits only on replicas holding
+   the system prompt, streams equal to the prefix phase's); failover:
+   ``replica_kill(plan, "r0", every=1)`` once each replica holds >= 2
+   residents (streams equal to the fault-free run, >= 1 failover, one
+   replacement spawned and captured while the survivor serves, nothing
+   captured on the survivor); ``DisaggregatedFleet`` (1 prefill + 1
+   decode replica) over the serving cell (streams equal, 8 imports and 0
+   rejected, no prefill step on the decode replica, 12 paged launches
+   per decode-pool step, the payload bytes of 125 blocks), then with a
+   NaN on one handoff block (caught by its CRC, replayed on the decode
+   pool, streams equal); the serving fleet behind ``InferenceServer``
+   (4 SSE + 4 JSON streams equal, /v2/fleet, /v2/fleet/autoscale and
+   /metrics with the fleet families). Tokens/s, TTFT p50 and the steady
+   decode ms per step of each beside the single engine's, the handoff's
+   pack and import ms and bytes, the replacement's spawn-and-capture s.
+14. anatomy: torch.profiler over a short 4-slot run — the device's busy
    share of the wall time and the device time by kernel; eight decode
    steps of four live slots under the profiler, replayed and eager
    (device and wall ms a step, device kernels a step, one paged kernel a
@@ -174,7 +196,7 @@ prints no result line):
    cache's form, by name, with its device ms and launches by window. The
    profiler runs only after the timed phases: once started, it slows the
    host's later launches.
-14. flash kernels: the flash-attention forward, dQ and dK/dV kernels,
+15. flash kernels: the flash-attention forward, dQ and dK/dV kernels,
    float32, bf16 and fp16 forms, against their plain PyTorch versions
    (fp32: atol 1e-4 + rtol 1e-4; bf16 and fp16: within one ulp of the
    type at the plain value plus 1e-3, the logsumexp at the fp32 gate) at
@@ -192,7 +214,7 @@ prints no result line):
    bound (fp32: fp32-accurate products on the tensor cores, and the same
    operations on the fp32 CUDA cores; bf16 and fp16: 2-byte tensors,
    the dense bf16 / fp16 rate).
-15. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
+16. training: BERT-Base width (12 layers, hidden 768, 12 heads, ff 3072,
    seq 128, batch 32, weights from --seed) through FFModel -> compile
    (SGD lr 0.01, MSE) -> fit, first in fp32, then bf16 (``bench.py``'s
    cell: bf16 parameters and activations), then fp16 (DataType.HALF: no
@@ -208,7 +230,7 @@ prints no result line):
    other forms' stay 0, and the loss must fall; and a profiled pair of
    steps for the device's busy share and the device time by kernel group
    (the flash kernels, cuBLAS GEMMs, elementwise and other).
-16. heads: the BERT that users train, with its token embedding, a head
+17. heads: the BERT that users train, with its token embedding, a head
    and dropout 0.1, through FFModel -> compile (SGD lr 0.01, sparse
    categorical cross-entropy, accuracy) -> fit: bert-cls
    (bert-base-uncased: 12 layers, hidden 768, 12 heads, ff 3072, vocab
@@ -227,7 +249,7 @@ prints no result line):
    fall; the dropout masks' device ms a step (CUDA events around each
    draw) and a profiled pair's device ms by kernel group, the masks'
    int64 threefry kernels a group of their own.
-17. infer: bert-cls's fp32 model after its fit, saved by ``save_model``
+18. infer: bert-cls's fp32 model after its fit, saved by ``save_model``
    to a temporary repository, loaded by an ``InferenceServer`` through
    ``POST /v2/repository/models/bert_sst2/load`` (max batch 32); 16
    client threads post 64 requests of 1-4 rows as KServe v2 JSON to
@@ -1436,6 +1458,23 @@ def h2d_pinned_gb_per_s(nbytes: int = 64 << 20, reps: int = 5) -> float:
     return nbytes * reps / (start.elapsed_time(end) / 1e3) / 1e9
 
 
+def prefix_cell_requests(rs, v: int):
+    """The prefix cell's requests, drawn from ``rs``: 8 sharing one
+    512-token system prompt (suffixes of 20-480 tokens, and one exact
+    repeat) and a 64-token shared prefix with a 700-token suffix, 32 new
+    tokens each (two of them seeded)."""
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+
+    system = rs.randint(0, v, 512).tolist()
+    prompts = [system + rs.randint(0, v, n).tolist() for n in (20, 40, 90, 150, 260, 300, 480)]
+    prompts.append(list(system))  # fully covered: the boundary block is copied
+    prompts.append(system[:64] + rs.randint(0, v, 700).tolist())  # suffix bucket 1024
+    samplings = [SamplingParams(max_new_tokens=32)] * len(prompts)
+    samplings[1] = SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=1234)
+    samplings[7] = SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=5678)
+    return prompts, samplings
+
+
 def prefix_phase(seed: int, params) -> dict:
     """Cross-request prefix caching at GPT-2-small width behind the 4-slot
     engine: 8 requests sharing one 512-token system prompt (suffixes of
@@ -1454,14 +1493,8 @@ def prefix_phase(seed: int, params) -> dict:
     cfg = gpt2_small()
     v, layers = cfg.vocab_size, cfg.num_layers
     rs = np.random.RandomState(seed + 8)
-    system = rs.randint(0, v, 512).tolist()
-    prompts = [system + rs.randint(0, v, n).tolist() for n in (20, 40, 90, 150, 260, 300, 480)]
-    prompts.append(list(system))  # fully covered: the boundary block is copied
-    prompts.append(system[:64] + rs.randint(0, v, 700).tolist())  # suffix bucket 1024
-    greedy = SamplingParams(max_new_tokens=32)
-    samplings = [greedy] * len(prompts)
-    samplings[1] = SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=1234)
-    samplings[7] = SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50, seed=5678)
+    prompts, samplings = prefix_cell_requests(rs, v)
+    greedy = samplings[0]
     engines, recs = {}, {}
     wsys = rs.randint(0, v, 512).tolist()  # the warm-up's own system prompt
     warm_prompts = [wsys + rs.randint(0, v, n).tolist() for n in (9, 20, 40, 90, 150, 300)]
@@ -1562,7 +1595,8 @@ def prefix_phase(seed: int, params) -> dict:
     print("prefix host tier: " + json.dumps(host))
     return {"prompt_lens": [len(p) for p in prompts], "runs": runs,
             "captures": captures, "host_tier": host,
-            "launches": runs["prefix on, graph steps"][0]["launches"]}
+            "launches": runs["prefix on, graph steps"][0]["launches"],
+            "cell": (prompts, samplings, streams)}
 
 
 def check_pipelined_logits(engine, seed: int) -> float:
@@ -3200,6 +3234,380 @@ def durable_phase(seed: int, params, cell) -> dict:
     return stats
 
 
+def fleet_factory(params, seed: int, prefix_cache: bool = False, spawns=None, fleet_of=None):
+    """Engine factory of the fleet phase: a 4-slot GPT-2-small graph engine
+    over the shared weights (257 fp32 blocks of 16), every prefill bucket
+    warmed (so its graphs are captured) before the fleet sees it; with the
+    prefix cache on, the prefix cell's suffix buckets too (a warm-up
+    system prompt of its own, then the index cleared). Each call appends
+    (start, end, survivors' decode steps at start and at end) to
+    ``spawns``; ``fleet_of()`` names the fleet whose active replicas are
+    the survivors (none while the fleet is being built)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.generation.engine import GenerationEngine, SamplingParams
+
+    cfg = gpt2_small()
+    v = cfg.vocab_size
+
+    def decode_steps():
+        f = fleet_of() if fleet_of is not None else None
+        if f is None:
+            return {}
+        return {r.id: r.engine.step_counts["decode"] for r in f.replicas if r.state == "active"}
+
+    def factory():
+        t0, before = time.perf_counter(), decode_steps()
+        engine = GenerationEngine(params, cfg, max_batch_slots=4, block_size=16,
+                                  prefix_cache=prefix_cache)
+        rs = np.random.RandomState(seed + 20)
+        warm(engine, rs)
+        if prefix_cache:
+            wsys = rs.randint(0, v, 512).tolist()
+            prompts = [wsys + rs.randint(0, v, n).tolist() for n in (9, 20, 40, 90, 150, 300)]
+            prompts += [list(wsys), wsys[:64] + rs.randint(0, v, 700).tolist()]
+            engine.generate(prompts, SamplingParams(max_new_tokens=2))
+            clear_prefix_cache(engine)
+        if spawns is not None:
+            spawns.append((t0, time.perf_counter(), before, decode_steps()))
+        return engine
+    return factory
+
+
+def fleet_serve(model, prompts, samplings, timeout_s: float = 300.0):
+    """Submit every request at once to a started fleet (or model) and wait
+    for all: (streams, wall seconds, per-request TTFT seconds by polling
+    every 5 ms, handles)."""
+    t0 = time.perf_counter()
+    handles = [model.submit(p, s) for p, s in zip(prompts, samplings)]
+    ttft = [None] * len(handles)
+    while not all(h.done() for h in handles):
+        now = time.perf_counter()
+        if now - t0 > timeout_s:
+            raise AssertionError("fleet: requests did not finish")
+        for i, h in enumerate(handles):
+            if ttft[i] is None and h._request.generated:
+                ttft[i] = now - t0
+        time.sleep(0.005)
+    wall = time.perf_counter() - t0
+    ttft = [t if t is not None else wall for t in ttft]
+    return [h.result(0) for h in handles], wall, ttft, handles
+
+
+def fleet_steady(model, engines, seed: int, steps: int = 64) -> dict:
+    """Four requests per decoding engine (48-token prompts), once every
+    one holds 8 tokens: wall ms per decode step of each engine over
+    ``steps`` tokens of each stream (the started fleet's loops step on
+    their own threads; this thread polls every 5 ms)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+
+    rs = np.random.RandomState(seed + 21)
+    v = gpt2_small().vocab_size
+    reqs = [model.submit(rs.randint(0, v, 48).tolist(), SamplingParams(max_new_tokens=steps + 24))
+            for _ in range(4 * len(engines))]
+
+    def until(n):
+        t_end = time.perf_counter() + 300
+        while min(len(h._request.generated) for h in reqs) < n:
+            if time.perf_counter() > t_end:
+                raise AssertionError("fleet steady stretch stalled")
+            time.sleep(0.005)
+
+    until(8)
+    c0, t0 = [e.step_counts["decode"] for e in engines], time.perf_counter()
+    until(8 + steps)
+    wall, c1 = time.perf_counter() - t0, [e.step_counts["decode"] for e in engines]
+    for h in reqs:
+        h.result(timeout=300)
+    ms = [1e3 * wall / max(1, b - a) for a, b in zip(c0, c1)]
+    return {"ms_per_step": ms, "steps": [b - a for a, b in zip(c0, c1)],
+            "tokens_per_s": len(reqs) * steps / wall}
+
+
+def fleet_phase(seed: int, params, cell, prefix_cell) -> dict:
+    """The fleet on one card at GPT-2-small width (``serving/fleet.py``):
+    replicas behind the cache-aware router, each stepping on its own loop
+    thread and replaying its own graphs. In order: the single engine
+    (a started GenerationModel) for the baseline; ``Fleet(factory, 2)``
+    over the serving cell; ``Fleet(factory, 2)`` with the prefix cache
+    over the prefix cell; failover: ``replica_kill(plan, "r0", every=1)``
+    once each replica holds >= 2 residents, r0's streams journal-replayed
+    onto r1 and r0 replaced while r1 serves; ``DisaggregatedFleet`` (one
+    prefill and one decode replica) over the serving cell, clean and then
+    with a NaN on one handoff block; the serving fleet behind
+    ``InferenceServer`` over HTTP (4 SSE + 4 JSON). Every stream must
+    equal its single-engine run, and the paged kernel must run on every
+    decode step of every replica."""
+    import urllib.request
+
+    import numpy as np
+
+    from flexflow_tpu_torch.generation.recovery import RecoveryPolicy
+    from flexflow_tpu_torch.obs import validate_exposition
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+    from flexflow_tpu_torch.runtime import faults
+    from flexflow_tpu_torch.serving import (
+        DisaggregatedFleet, Fleet, GenerationModel, InferenceServer)
+
+    cfg = gpt2_small()
+    layers = cfg.num_layers
+    prompts, samplings, streams = cell
+    t_phase = time.perf_counter()
+    launches_total = {k: 0 for k in da.LAUNCHES}
+    out: dict = {}
+
+    def counted(fn):
+        """Run ``fn`` with the launch counts set to 0 just before; returns
+        (its result, the launches it made), added to the phase's total."""
+        da.reset_launch_counts()
+        res = fn()
+        got = dict(da.LAUNCHES)
+        for k, n in got.items():
+            launches_total[k] += n
+        return res, got
+
+    def run_stats(streams_, wall, ttft):
+        tokens = sum(len(s) for s in streams_)
+        return {"wall_s": wall, "tokens_per_s": tokens / wall,
+                "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": float(max(ttft))}
+
+    def decode_steps(engines):
+        return sum(e.step_counts["decode"] for e in engines)
+
+    # 0. the single engine, threaded like a replica
+    factory = fleet_factory(params, seed)
+    single = GenerationModel(factory(), name="lm")
+    single.start()
+    try:
+        (got, wall, ttft, _), launches = counted(lambda: fleet_serve(single, prompts, samplings))
+        if got != streams:
+            raise AssertionError("fleet: the single engine's threaded streams differ")
+        out["single"] = {**run_stats(got, wall, ttft), "launches": launches,
+                         "steady": fleet_steady(single, [single.engine], seed)}
+    finally:
+        single.stop()
+    del single
+
+    # 1. Fleet(factory, 2) over the serving cell (kept for the HTTP leg)
+    t0 = time.perf_counter()
+    fleet = Fleet(factory, 2, name="lm", poll_s=0.05)
+    build_s = time.perf_counter() - t0
+    fleet.start()
+    engines = [r.engine for r in fleet.replicas]
+    d0 = decode_steps(engines)
+    (got, wall, ttft, _), launches = counted(lambda: fleet_serve(fleet, prompts, samplings))
+    steps = decode_steps(engines) - d0
+    if got != streams:
+        raise AssertionError("fleet serving cell: streams differ from the serving phase's")
+    if launches["paged_append"] != layers * steps or launches["paged_append_split"]:
+        raise AssertionError(f"fleet serving cell: launches {launches} != {layers} x {steps}")
+    out["fleet"] = {**run_stats(got, wall, ttft), "launches": launches, "decode_steps": steps,
+                    "build_s": build_s, "decisions": fleet.fleet_stats.decisions(),
+                    "per_replica_decode_steps": [e.step_counts["decode"] for e in engines],
+                    "steady": fleet_steady(fleet, engines, seed)}
+    print("fleet serving cell (2 replicas): " + json.dumps(out["fleet"]))
+
+    # 2. the prefix cell through Fleet(factory, 2) with the prefix cache on
+    p_prompts, p_samplings, p_streams = prefix_cell
+    pfleet = Fleet(fleet_factory(params, seed, prefix_cache=True), 2, name="lm-prefix",
+                   poll_s=0.05)
+    pfleet.start()
+    try:
+        hits0 = {r.id: r.engine.prefix_cache.hits for r in pfleet.replicas}
+        (got, wall, ttft, _), launches = counted(
+            lambda: fleet_serve(pfleet, p_prompts, p_samplings))
+        decisions = pfleet.fleet_stats.decisions()
+        hits = {r.id: r.engine.prefix_cache.hits - hits0[r.id] for r in pfleet.replicas}
+        holds = {r.id: r.engine.prefix_cache.probe(p_prompts[0][:512]) for r in pfleet.replicas}
+    finally:
+        pfleet.stop()
+    if got != p_streams:
+        raise AssertionError("fleet prefix cell: streams differ from the single engine's")
+    if not decisions.get("affinity"):
+        raise AssertionError(f"fleet prefix cell: no affinity decision: {decisions}")
+    if not sum(hits.values()) or any(n and not holds[rid] for rid, n in hits.items()):
+        raise AssertionError(f"fleet prefix cell: hits {hits} on replicas holding {holds}")
+    out["prefix"] = {**run_stats(got, wall, ttft), "launches": launches,
+                     "decisions": decisions, "hits": hits, "prefix_tokens_held": holds}
+    print("fleet prefix cell (2 replicas, prefix cache on): " + json.dumps(out["prefix"]))
+    del pfleet
+
+    # 3. failover: r0 killed with >= 2 residents on each replica
+    spawns, holder = [], {}
+    ffleet = Fleet(fleet_factory(params, seed, spawns=spawns, fleet_of=lambda: holder.get("f")),
+                   2, name="lm-failover", poll_s=0.05,
+                   scheduler_kwargs=dict(recovery=RecoveryPolicy(max_restarts=1)))
+    holder["f"] = ffleet
+    r0, r1 = ffleet.replicas
+    survivor_captures = dict(r1.engine.trace_counts)
+    ffleet.start()
+    plan = faults.FaultPlan(seed=seed)
+    faults.replica_kill(plan, "r0", every=1)
+    try:
+        def failover_run():
+            t0 = time.perf_counter()
+            handles = [ffleet.submit(p, s) for p, s in zip(prompts, samplings)]
+            while min(len(r.scheduler._running) for r in (r0, r1)) < 2:
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError("failover: the replicas never held 2 residents each")
+                time.sleep(0.001)
+            plan.install()
+            for h in handles:
+                h.result(timeout=300)
+            while ffleet.fleet_stats.replaced < 1 and time.perf_counter() - t0 < 300:
+                time.sleep(0.01)
+            return [h.result(0) for h in handles], time.perf_counter() - t0, handles
+
+        (got, wall, handles), launches = counted(failover_run)
+    finally:
+        plan.remove()
+        ffleet.stop()
+    fs = ffleet.fleet_stats.snapshot()
+    if got != streams:
+        raise AssertionError("failover: streams differ from the fault-free run")
+    if fs["failovers"] < 1 or fs["replaced"] != 1 or fs["migrated_streams"] < 2:
+        raise AssertionError(f"failover: fleet counters {fs}")
+    spawn = spawns[-1]
+    if len(spawns) != 3 or not spawn[2] or not any(
+            spawn[3].get(rid, 0) > n for rid, n in spawn[2].items()):
+        raise AssertionError(f"failover: the replacement's spawn did not overlap the survivor's "
+                             f"serving: {spawns}")
+    if r1.engine.trace_counts != survivor_captures or r1.engine.recompiles():
+        raise AssertionError(f"failover: the survivor captured {r1.engine.trace_counts} after "
+                             f"{survivor_captures}")
+    out["failover"] = {
+        "wall_s": wall, "launches": launches, "fleet": fs,
+        "replays": [h._request.replays for h in handles],
+        "replacement_spawn_capture_s": spawn[1] - spawn[0],
+        "survivor_decode_steps_during_spawn": {rid: spawn[3].get(rid, 0) - n
+                                               for rid, n in spawn[2].items()},
+        "r0_resets": r0.engine.resets,
+        "states": ffleet.states(),
+    }
+    print("fleet failover (r0 killed mid-stream): " + json.dumps(out["failover"]))
+    del ffleet, r0, r1
+
+    # 4 and 5. disaggregated: one prefill and one decode replica
+    dfleet = DisaggregatedFleet(factory, n_prefill=1, n_decode=1, name="lm-disagg", poll_s=0.05)
+    pre, dec = dfleet.prefill.replicas[0], dfleet.decode.replicas[0]
+    pack_ms, import_ms = [], []
+
+    def timed(engine, name, rec):
+        fn = getattr(engine, name)
+
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            rec.append(1e3 * (time.perf_counter() - t0))
+            return res
+        setattr(engine, name, call)
+
+    timed(pre.engine, "pack_kv_blocks", pack_ms)
+    timed(dec.engine, "import_kv_blocks", import_ms)
+    head = cfg.hidden_size // cfg.num_heads
+    block_bytes = layers * 16 * cfg.num_heads * head * 4 * 2
+    want_bytes = sum(-(-len(p) // 16) for p in prompts) * block_bytes
+    dfleet.start()
+    try:
+        def snap():
+            rs_ = dec.scheduler.recovery_stats
+            return {"imports": rs_.kv_imports, "rejected": rs_.kv_imports_rejected,
+                    "bytes": dfleet.handoff.bytes_total, "replays": dfleet.handoff.replay_fallbacks,
+                    "transfers": dict(dfleet.handoff.transfers),
+                    "dec_prefill": dec.engine.step_counts["prefill"],
+                    "dec_decode": dec.engine.step_counts["decode"],
+                    "pre_decode": pre.engine.step_counts["decode"]}
+
+        s0 = snap()
+        (got, wall, ttft, _), launches = counted(lambda: fleet_serve(dfleet, prompts, samplings))
+        s1 = snap()
+        delta = {k: s1[k] - s0[k] for k in s0 if k != "transfers"}
+        if got != streams:
+            raise AssertionError("disaggregated: streams differ from the serving phase's")
+        if (delta["imports"], delta["rejected"], delta["replays"]) != (len(prompts), 0, 0):
+            raise AssertionError(f"disaggregated: handoff counters {delta}")
+        if delta["dec_prefill"] or delta["pre_decode"]:
+            raise AssertionError(f"disaggregated: the decode replica prefilled or the prefill "
+                                 f"replica decoded: {delta}")
+        if launches["paged_append"] != layers * delta["dec_decode"] or \
+                launches["paged_append_split"]:
+            raise AssertionError(f"disaggregated: launches {launches} != {layers} x "
+                                 f"{delta['dec_decode']} decode-pool steps")
+        if delta["bytes"] != want_bytes:
+            raise AssertionError(f"disaggregated: payload bytes {delta['bytes']} != {want_bytes}")
+        out["disagg"] = {**run_stats(got, wall, ttft), "launches": launches, "counters": delta,
+                         "payload_bytes": delta["bytes"],
+                         "pack_ms_p50": float(np.median(pack_ms[-len(prompts):])),
+                         "pack_ms_max": max(pack_ms[-len(prompts):]),
+                         "import_ms_p50": float(np.median(import_ms[-len(prompts):])),
+                         "import_ms_max": max(import_ms[-len(prompts):]),
+                         "steady": fleet_steady(dfleet, [dec.engine], seed)}
+        print("disaggregated serving cell (1 prefill + 1 decode): " + json.dumps(out["disagg"]))
+
+        plan = faults.FaultPlan(seed=seed)
+        plan.on(faults.FLEET_KV_HANDOFF, mode="nan", nth=(0,))
+        s0 = snap()
+        with plan.active():
+            (got, wall, ttft, _), launches = counted(
+                lambda: fleet_serve(dfleet, prompts, samplings))
+        s1 = snap()
+        corrupt = s1["transfers"]["corrupt"] - s0["transfers"]["corrupt"]
+        delta = {k: s1[k] - s0[k] for k in s0 if k != "transfers"}
+        if got != streams:
+            raise AssertionError("disaggregated, corrupt block: streams differ")
+        if corrupt != 1 or delta["replays"] != 1 or delta["imports"] != len(prompts) - 1:
+            raise AssertionError(f"disaggregated, corrupt block: corrupt {corrupt}, {delta}")
+        out["disagg_corrupt"] = {**run_stats(got, wall, ttft), "launches": launches,
+                                 "corrupt": corrupt, "counters": delta,
+                                 "fires": plan.fired(faults.FLEET_KV_HANDOFF)}
+        print("disaggregated, NaN on one handoff block: " + json.dumps(out["disagg_corrupt"]))
+    finally:
+        dfleet.stop()
+    del dfleet, pre, dec
+
+    # 6. the serving fleet behind the HTTP front end
+    srv = InferenceServer(port=0)
+    srv.register_generation(fleet)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        keys = ("max_new_tokens", "temperature", "top_k", "seed")
+        bodies = [dict({k: getattr(s, k) for k in keys if getattr(s, k) is not None},
+                       prompt=p, stream=bool(i % 2))
+                  for i, (p, s) in enumerate(zip(prompts, samplings))]
+        burst, launches = counted(lambda: http_burst(base, bodies))
+        docs = {}
+        for path in ("/v2/fleet", "/v2/fleet/autoscale", "/metrics"):
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                docs[path] = r.read().decode()
+    finally:
+        srv.stop()
+    if [g["tokens"] for g in burst["results"]] != streams:
+        raise AssertionError("fleet over HTTP: streams differ from the serving phase's")
+    report = json.loads(docs["/v2/fleet"])["models"]["lm"]
+    autoscale = json.loads(docs["/v2/fleet/autoscale"])["models"]["lm"]
+    if sorted(r["id"] for r in report["replicas"]) != ["r0", "r1"] or \
+            autoscale["signal"] not in (-1, 0, 1) or autoscale["current_replicas"] != 2:
+        raise AssertionError(f"fleet over HTTP: /v2/fleet {report['replicas']}, "
+                             f"/v2/fleet/autoscale {autoscale}")
+    errors = validate_exposition(docs["/metrics"])
+    fam = 'flexflow_serving_fleet_replicas{model="lm",state="active"} 2'
+    if errors or fam not in docs["/metrics"] or 'replica="r1"' not in docs["/metrics"]:
+        raise AssertionError(f"fleet over HTTP: /metrics {errors[:5]}, fleet families missing")
+    out["http"] = {k: v for k, v in burst.items() if k != "results"}
+    out["http"].update(launches=launches, router_decisions=report["router_decisions"])
+    print("fleet over HTTP (4 SSE + 4 JSON): " + json.dumps(out["http"]))
+    del fleet
+    import torch
+
+    torch.cuda.empty_cache()
+    out["launches"] = launches_total
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool,
                 two_byte: bool = False):
     """(bound_ms, bound_by, fp32_cuda_core_ms) of one flash kernel call:
@@ -4310,6 +4718,7 @@ def main(argv=None) -> int:
     constrained = constrained_phase(args.seed, params)
     server = server_phase(args.seed, params)
     durable = durable_phase(args.seed, params, cell)
+    fleet = fleet_phase(args.seed, params, cell, prefix.pop("cell"))
     anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
     suffix_bodies = suffix_prefill_bodies(args.seed, params)
@@ -4352,7 +4761,7 @@ def main(argv=None) -> int:
                serving["launches"]["paged_append"] + speculation["launches"]["paged_append"]
                + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]
                + constrained["launches"]["paged_append"] + server["launches"]["paged_append"]
-               + durable["launches"]["paged_append"]
+               + durable["launches"]["paged_append"] + fleet["launches"]["paged_append"]
                + suffix_bodies["float"]["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
@@ -4501,6 +4910,25 @@ def main(argv=None) -> int:
           + f"; journaled tokens at the kill {durable['journaled_tokens_at_kill']}")
     print(f"{card}: steady 4-slot decode, journeys on: ms per step {per_step(st['journeys_on'])}; "
           f"journeys off: {per_step(st['journeys_off'])}")
+    for name in ("single", "fleet", "disagg"):
+        f = fleet[name]
+        print(f"{card}: fleet phase, serving cell, "
+              + {"single": "single engine", "fleet": "Fleet of 2 replicas",
+                 "disagg": "DisaggregatedFleet 1 prefill + 1 decode"}[name]
+              + f" (threaded loops): tokens/s {f['tokens_per_s']:.1f}, TTFT p50 s "
+              f"{f['ttft_p50_s']:.4f}, max {f['ttft_max_s']:.4f}; steady decode ms per step "
+              + ", ".join(f"{ms:.3f}" for ms in f["steady"]["ms_per_step"])
+              + f" ({f['steady']['tokens_per_s']:.1f} tokens/s over "
+              f"{4 * len(f['steady']['ms_per_step'])} streams)")
+    d = fleet["disagg"]
+    print(f"{card}: KV handoff, serving cell: {d['payload_bytes']} payload bytes; pack ms p50 "
+          f"{d['pack_ms_p50']:.3f}, max {d['pack_ms_max']:.3f}; import ms p50 "
+          f"{d['import_ms_p50']:.3f}, max {d['import_ms_max']:.3f} (host ms of the calls)")
+    fo = fleet["failover"]
+    print(f"{card}: fleet failover: replacement spawn and capture "
+          f"{fo['replacement_spawn_capture_s']:.2f} s while the survivor took "
+          f"{sum(fo['survivor_decode_steps_during_spawn'].values())} decode steps; counters "
+          + json.dumps(fo["fleet"]))
     kv = kv_dtype
     print(f"{card}: kv cache bf16 ({kv['cache_bytes']} bytes against fp32's "
           f"{kv['fp32_cache_bytes']}), 4-slot serving cell: tokens/s "
@@ -4538,7 +4966,7 @@ def main(argv=None) -> int:
                       "long_context": long_ctx,
                       "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
                       "overlap": overlap, "constrained": constrained, "server": server,
-                      "durable": durable,
+                      "durable": durable, "fleet": fleet,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training, "training_bf16": training_bf16,
                       "training_f16": training_f16, "heads": heads,

@@ -100,7 +100,14 @@ from ..runtime import faults
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
 from . import prng
 from .decoder import DecoderParams, decode_step, params_to, prefill, verify_step
-from .prefix import PrefixCache, PrefixEntry, from_host, to_host
+from .prefix import (
+    KVHandoffPayload,
+    PackedBlock,
+    PrefixCache,
+    PrefixEntry,
+    from_host,
+    to_host,
+)
 from .step_graphs import InFlight, StepBody, StepRunner
 
 NEG_INF = -1e30
@@ -675,6 +682,42 @@ class GenerationEngine:
         for t, h in ((self.cache.k, host_k), (self.cache.v, host_v)):
             t[:, dst].copy_(from_host(h, t.dtype))
         self._block_writes += 1
+
+    # ------------------------------------------------- prefill->decode wire
+    def pack_kv_blocks(self, table: Sequence[int], n_positions: int) -> KVHandoffPayload:
+        """Pack the blocks covering positions ``[0, n_positions)`` into
+        the prefill->decode wire format: one gather of the table's blocks
+        from ``cache.k``/``cache.v`` and one copy to the host
+        (:func:`~.prefix.to_host`'s bytes, a bfloat16 cache's as uint16
+        bits), each block CRC-stamped at packing time."""
+        n = self.cache_config.blocks_for(n_positions)
+        idx = torch.tensor(list(table[:n]), dtype=torch.long).to(self.device)
+        kv = to_host(torch.stack((self.cache.k.index_select(1, idx),
+                                  self.cache.v.index_select(1, idx))))
+        blocks = [
+            PackedBlock(np.ascontiguousarray(kv[0][:, i]), np.ascontiguousarray(kv[1][:, i]))
+            for i in range(n)
+        ]
+        return KVHandoffPayload(n_positions, self.cache_config.block_size, blocks)
+
+    def import_kv_block(self, dst: int, host_k: np.ndarray, host_v: np.ndarray) -> None:
+        """Commit one wire block into this engine's cache at ``dst``."""
+        self.import_kv_blocks([dst], [PackedBlock(host_k, host_v)])
+
+    def import_kv_blocks(self, dsts: Sequence[int], blocks: Sequence[PackedBlock]) -> None:
+        """Commit one payload's wire blocks (CRC-verified by the caller):
+        one upload of K and V and one indexed write into ``cache.k`` and
+        ``cache.v`` each, in place (the step graphs hold the cache
+        tensors' addresses). The writes run on the current stream, ahead
+        of any later step that reads the blocks."""
+        k, v = self.cache.k, self.cache.v
+        idx = torch.tensor(list(dsts), dtype=torch.long)
+        hk = from_host(np.stack([b.host_k for b in blocks], axis=1), k.dtype)
+        hv = from_host(np.stack([b.host_v for b in blocks], axis=1), v.dtype)
+        kv = torch.stack((hk, hv)).to(self.device)
+        idx = idx.to(self.device)
+        k.index_copy_(1, idx, kv[0])
+        v.index_copy_(1, idx, kv[1])
 
     # --------------------------------------------------------------- steps
     def prefill_one(

@@ -116,29 +116,69 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 def from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     """The inverse of :func:`to_host`: the host array's bytes read as a
-    CPU tensor of the cache's ``dtype``."""
-    if a.dtype == np.uint16:
+    CPU tensor of the cache's ``dtype`` (a 2-byte array of another numpy
+    type, such as ml_dtypes' bfloat16, is read by its bytes too)."""
+    if a.dtype.itemsize == 2 and a.dtype != np.float16:
         a = a.view(np.int16)
-    return torch.from_numpy(a).view(dtype)
+    return torch.from_numpy(np.ascontiguousarray(a)).view(dtype)
 
 
 class PackedBlock:
     """One KV block's content on the host: full-head ``[layers,
     block_size, heads, head_dim]`` K and V arrays (:func:`to_host`'s
-    bytes of the cache's dtype) and the CRC taken when they were packed,
-    so a copy corrupted on the host is detected before it is written
-    back to the device (the host tier's format)."""
+    bytes of the cache's dtype) and the CRC taken when they were packed
+    (or carried with them, ``crc=``), so a copy corrupted on the host or
+    on the prefill->decode handoff wire is detected before it is written
+    to a device (the host tier's format, and the handoff's)."""
 
     __slots__ = ("host_k", "host_v", "crc")
 
-    def __init__(self, host_k: np.ndarray, host_v: np.ndarray):
+    def __init__(self, host_k: np.ndarray, host_v: np.ndarray,
+                 crc: Optional[int] = None):
         self.host_k = host_k
         self.host_v = host_v
-        self.crc = _crc(host_k, host_v)
+        self.crc = _crc(host_k, host_v) if crc is None else crc
 
     def verify(self) -> bool:
         """True when the payload still matches its packing-time CRC."""
-        return _crc(self.host_k, self.host_v) == self.crc
+        try:
+            return _crc(self.host_k, self.host_v) == self.crc
+        except Exception:
+            return False
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.host_k.nbytes) + int(self.host_v.nbytes)
+
+
+class KVHandoffPayload:
+    """A prefilled prompt's KV state in transit between pools.
+
+    ``n_positions`` is the number of cache positions the payload covers
+    (the full prompt length: the prefill side packs every block the
+    prompt wrote, the trailing partial one included). ``geometry`` is
+    the full-head per-block shape ``(layers, block_size, heads,
+    head_dim)``. The wire is engine-agnostic: a payload packed by the
+    JAX engine imports into the port's and the reverse (a bfloat16
+    cache crosses as its elements' uint16 bits)."""
+
+    __slots__ = ("n_positions", "block_size", "blocks", "geometry")
+
+    def __init__(self, n_positions: int, block_size: int,
+                 blocks: List[PackedBlock]):
+        self.n_positions = n_positions
+        self.block_size = block_size
+        self.blocks = blocks
+        self.geometry: Tuple[int, ...] = (
+            tuple(blocks[0].host_k.shape) if blocks else ()
+        )
+
+    def verify(self) -> bool:
+        return all(b.verify() for b in self.blocks)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.nbytes for b in self.blocks)
 
 
 class PrefixCache:

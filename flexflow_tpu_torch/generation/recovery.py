@@ -104,12 +104,13 @@ class RecoveryStats:
       watchdog_trips   stalled device steps detected by the watchdog
       engine_failures  restart budgets exhausted (engine declared dead)
       kv_imports       handed-off KV payloads committed into this cache
-      kv_imports_rejected  imported payloads rejected and recomputed
+                       (a disaggregated decode-pool admission)
+      kv_imports_rejected  imported payloads rejected (CRC, geometry or
+                       an injected fault) and recomputed instead
 
-    The two ``kv_imports`` counters keep the JAX package's gauge set; the
-    port has no KV handoff yet, so they stay 0. Written by the loop thread
-    and the watchdog thread under a lock; :meth:`register_gauges` puts
-    every field on the scheduler's ``ServingStats``."""
+    Written by the loop thread and the watchdog thread under a lock;
+    :meth:`register_gauges` puts every field on the scheduler's
+    ``ServingStats``."""
 
     FIELDS = (
         "recoveries", "step_retries", "replayed_tokens",

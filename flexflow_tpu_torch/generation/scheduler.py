@@ -299,6 +299,10 @@ class Request:
         self.response_format = response_format
         self.mask_state = None
         self.mask_error: Optional[PoisonedRequestError] = None
+        # disaggregated serving: a CRC-stamped KVHandoffPayload attached
+        # by adopt(imported=...), consumed (imported or rejected) at
+        # admission
+        self.imported_kv = None
 
     @property
     def n_generated(self) -> int:
@@ -430,7 +434,9 @@ class ContinuousBatchingScheduler:
     cache counts as under pressure, and ``overload`` tunes the overload
     controller. ``journeys`` (default: on with observability) records
     each request's journey; ``journeys=False`` keeps tracing on with
-    journeys off."""
+    journeys off. ``fault_scope`` (a fleet replica's id) runs every
+    iteration inside that fault-injection scope and names the journey
+    lane; the fleet sets ``failover_sink`` and ``handoff_sink``."""
 
     def __init__(
         self,
@@ -452,10 +458,24 @@ class ContinuousBatchingScheduler:
         trace_progress_every: int = 8,
         slo_objectives=None,
         pressure_threshold: float = 0.10,
+        fault_scope: Optional[str] = None,
         overlap: Optional[bool] = None,
         overload: Optional[OverloadConfig] = None,
     ):
         self.engine = engine
+        # fleet integration (serving/fleet.py): fault_scope tags every
+        # step's injection sites with this replica's id (so chaos plans
+        # can target ONE replica) and names this scheduler's journey lane;
+        # failover_sink, when set, receives every live request instead of
+        # a terminal EngineFailedError when the restart budget exhausts
+        # (the fleet journal-replays them onto surviving replicas via
+        # adopt()); handoff_sink, when set (prefill-pool replicas only),
+        # ends admission at the first token: the prompt's KV packs into
+        # the wire format and (request, payload) goes to the sink for the
+        # decode pool
+        self.fault_scope = fault_scope
+        self.failover_sink: Optional[Callable] = None
+        self.handoff_sink: Optional[Callable] = None
         self.max_queue = max_queue
         self.clock = clock
         self.breaker = breaker or CircuitBreaker(clock=clock)
@@ -509,14 +529,16 @@ class ContinuousBatchingScheduler:
         self.obs_enabled = observability
         self.trace_progress_every = trace_progress_every
         self.trace_ring = TraceRing(trace_ring_size)
-        # request journeys: this scheduler's span ring (lane "local"),
+        # request journeys: this scheduler's span ring (lane: the fleet
+        # replica id, else "local"),
         # stitched with the HTTP ingress lane and the on-disk spool at
         # query time. Rides observability by default
         self.journey_stats = JourneyStats()
         self.journey_stats.register_gauges(self.stats)
         journeys_on = observability and (journeys is None or bool(journeys))
         self.journeys: Optional[JourneyRecorder] = (
-            JourneyRecorder(lane="local", clock=self.clock, stats=self.journey_stats)
+            JourneyRecorder(lane=fault_scope or "local", clock=self.clock,
+                            stats=self.journey_stats)
             if journeys_on else None
         )
         # dual-clock records: t (perf_counter, the timeline's clock) and
@@ -890,11 +912,20 @@ class ContinuousBatchingScheduler:
         """Restart budget exhausted: every slot-resident stream is lost to
         this engine and fails with the typed EngineFailedError. The
         engine is reset, so slot/allocator bookkeeping restarts from
-        empty rather than freeing stale block ids into the fresh list."""
+        empty rather than freeing stale block ids into the fresh list.
+
+        With a ``failover_sink`` installed (fleet mode) the streams are
+        not lost: every live request (slot-resident, replay-requeued
+        mid-stream, and fresh queued) leaves this scheduler entirely
+        (journal drained, slots cleared, queue emptied) and goes to the
+        sink, which journal-replays it onto a surviving replica
+        (``adopt()``). The requests fully exit this scheduler's
+        bookkeeping before the sink runs, so nothing is emitted twice."""
         self.journal.drain()
         states = sorted(self._running.values(), key=lambda s: s.admitted_seq)
         self._reset_slots()
         self.engine.reset()
+        live = []
         for state in states:
             state.blocks = []
             state.shared_idx = set()
@@ -906,7 +937,24 @@ class ContinuousBatchingScheduler:
                 # it holds every token
                 state.req.handle._finish(list(state.req.generated))
                 self.stats.incr("completed")
-            elif state.req.handle._fail(err):
+            else:
+                live.append(state.req)
+        sink = self.failover_sink
+        if sink is not None:
+            with self._lock:
+                queued, self._queue = list(self._queue), deque()
+            try:
+                sink(live + [r for r in queued if not r.handle.done()], err)
+                return
+            except Exception:
+                # the fleet must never make a dying engine worse: put the
+                # taken queue back (ahead of anything submitted meanwhile)
+                # and fall through to the single-engine terminal semantics
+                with self._lock:
+                    for req in reversed(queued):
+                        self._queue.appendleft(req)
+        for req in live:
+            if req.handle._fail(err):
                 self.stats.incr("failed")
         # replay-requeued MID-STREAM requests are as lost as the
         # slot-resident ones; fresh queued requests stay held
@@ -954,19 +1002,33 @@ class ContinuousBatchingScheduler:
             self.recovery_stats.incr("replayed_tokens", replayed)
         self._wake.set()
 
+    def steal_queue(self) -> List[Request]:
+        """Fleet rescue: atomically take every QUEUED request (never
+        slot-resident this life, or held behind the breaker) off this
+        scheduler, for adoption elsewhere. Slot-resident streams are not
+        stealable (the loop thread owns them): they finish, fail over
+        through the supervisor, or expire."""
+        with self._lock:
+            stolen, self._queue = list(self._queue), deque()
+        return [r for r in stolen if not r.handle.done()]
+
     def adopt(self, req: Request, *, front: bool = True, imported=None) -> None:
         """Journal-replay admission of a stream this scheduler did not
-        submit (a warm restart's re-admission, ``serving/durable.py``).
-        The replay state IS the request object (original prompt, every
-        emitted token, the seeded sampling stream, speculation config), so
-        the recompute-prefill path resumes the stream byte-exactly.
-        Bypasses the max_queue bound and the breaker on purpose: the
-        stream was admitted once already. ``front`` requeues it ahead of
-        fresh work. ``imported`` (a prefilled KV payload from a
-        disaggregated prefill pool) is not ported: it raises
-        NotImplementedError."""
-        if imported is not None:
-            raise NotImplementedError("adopt(imported=...): KV handoff is not ported")
+        submit: a warm restart's re-admission (``serving/durable.py``) or
+        a fleet failover from a dead sibling replica. The replay state IS
+        the request object (original prompt, every emitted token, the
+        seeded sampling stream, speculation config), so the
+        recompute-prefill path resumes the stream byte-exactly (fleet
+        replicas come from one factory). Bypasses the max_queue bound and
+        the breaker on purpose: the stream was admitted once already.
+        ``front`` requeues it ahead of fresh work.
+
+        ``imported`` (disaggregated serving) attaches a CRC-stamped
+        :class:`~.prefix.KVHandoffPayload`: admission imports the
+        prefilled blocks instead of recompute-prefilling, and any import
+        failure falls back to the recompute path, so a handoff can
+        degrade but never corrupt a stream."""
+        req.imported_kv = imported
         req.prompt = req.original_prompt + list(req.generated)
         req.mask_state = None  # rebuilt from `generated` at admission
         # mirror submit()'s can-never-be-admitted checks, or the adopted
@@ -991,7 +1053,10 @@ class ContinuousBatchingScheduler:
             return
         # re-clamp the budget against THIS engine's geometry
         req.max_new = min(req.max_new, req.n_generated + room, req.n_generated + cache_room)
-        if req.n_generated > 0:
+        if req.n_generated > 0 and imported is None:
+            # a recompute adoption replays the stream; an imported handoff
+            # is the disaggregated steady state and counts only if the
+            # import is later rejected (see _admit_imported)
             req.replays += 1
             req.trace.note_replay()
             self.recovery_stats.incr("replayed_tokens", req.n_generated)
@@ -1004,7 +1069,8 @@ class ContinuousBatchingScheduler:
             # from here on the hops land in THIS scheduler's ring (or
             # nowhere with journeys off: the context stays intact)
             req.journey.recorder = self.journeys
-            req.journey.hop("adopt", imported=False, front=front, n_generated=req.n_generated)
+            req.journey.hop("adopt", replica=self.fault_scope, imported=imported is not None,
+                            front=front, n_generated=req.n_generated)
         # the stream counts against this limiter, forced past the limit: it
         # must never be dropped for headroom it cleared before
         release, req.overload_release = req.overload_release, None
@@ -1327,6 +1393,10 @@ class ContinuousBatchingScheduler:
                     self.stats.incr("failed")
                     self.recovery_stats.incr("quarantined")
                 return True
+        if req.imported_kv is not None:
+            # disaggregated decode pool: the prompt's KV arrived over the
+            # handoff wire; import it instead of prefilling
+            return self._admit_imported(req)
         # radix planning is its own anatomy phase (prefix_plan)
         t_p0 = time.perf_counter()
         plan = engine.prefix_plan(req.prompt)
@@ -1351,6 +1421,12 @@ class ContinuousBatchingScheduler:
             req.cache_wait_short = need - engine.allocator.num_free
             return False
         with self._lock:
+            if not self._queue or self._queue[0] is not req or not self._free_slots:
+                # the head changed while blocks were gathered (a fleet's
+                # steal_queue / adopt mutate the queue from other
+                # threads): hand the blocks back, retry next iteration
+                engine.allocator.free(blocks)
+                return False
             self._queue.popleft()
             slot = self._free_slots.pop()
         if req.cache_wait_start is not None:
@@ -1459,7 +1535,8 @@ class ContinuousBatchingScheduler:
         req.trace.mark_admit(slot=slot, prompt_len=len(req.prompt),
                              preemptions=req.preemptions, replays=req.replays)
         req.journey.hop("admit", slot=slot, prompt_len=len(req.prompt),
-                        preemptions=req.preemptions, replays=req.replays)
+                        replica=self.fault_scope, preemptions=req.preemptions,
+                        replays=req.replays)
         if self.obs_enabled and was_first and req.preemptions == 0 and req.replays == 0:
             # first-life admission only: a recompute re-admission is a
             # scheduling event, not client-visible queueing
@@ -1467,7 +1544,8 @@ class ContinuousBatchingScheduler:
                                exemplar=req.journey.journey_id)
         self._emit_token(state, token)
         req.trace.note_tokens(1, "prefill")
-        req.journey.hop("prefill", prompt_len=len(req.prompt), prefix_reused=prefix_len)
+        req.journey.hop("prefill", prompt_len=len(req.prompt), prefix_reused=prefix_len,
+                        replica=self.fault_scope)
         if self.obs_enabled and was_first:
             self.stats.observe("ttft", max(0.0, now - req.submitted_at),
                                exemplar=req.journey.journey_id)
@@ -1481,7 +1559,122 @@ class ContinuousBatchingScheduler:
         self.token_rate.record(1)
         if req.finished():
             self._finish(state)
+        elif self.handoff_sink is not None:
+            self._hand_off(state)
         self._span("admit", t_dev_end, time.perf_counter())
+        return True
+
+    def _hand_off(self, state: _Running) -> None:
+        """Disaggregated prefill pool: this replica's job ends at the
+        first token. Pack the prompt's KV into the CRC-stamped wire
+        format while the blocks are still resident, hand the slot back,
+        and ship (request, payload) to the handoff supervisor; the
+        stream continues on the decode pool."""
+        req = state.req
+        with self._stamped():
+            payload = self.engine.pack_kv_blocks(state.blocks, state.cached_len)
+        self._release(state)
+        req.trace.event("kv_handoff_pack", n_blocks=len(payload.blocks),
+                        payload_bytes=payload.nbytes)
+        req.journey.hop("kv_handoff_pack", n_blocks=len(payload.blocks),
+                        payload_bytes=payload.nbytes, replica=self.fault_scope)
+        try:
+            self.handoff_sink(req, payload)
+        except Exception as e:
+            # the sink must never kill the loop: a sink crash fails the
+            # stream typed instead of losing it silently
+            if req.handle._fail(e):
+                self.stats.incr("failed")
+
+    def _admit_imported(self, req: Request) -> bool:
+        """Disaggregated decode-pool admission: commit a handed-off
+        prompt's KV blocks into this engine's cache (every block
+        CRC-verified before any device write) and seat the stream
+        directly in a decode slot, with no prefill step. Any failure
+        (injected fault, CRC mismatch, geometry mismatch) rejects the
+        import and falls back to the recompute-prefill path, which
+        replays the stream byte-exactly from the request object. The
+        frontier was drained before this admission (a queued request
+        with a free slot is a non-steady event), and the write runs on
+        the stream the next step runs on, so no step in flight reads the
+        blocks and the next one sees them written."""
+        payload = req.imported_kv
+        engine = self.engine
+        t0 = time.perf_counter()
+        need = engine.cache_config.blocks_for(payload.n_positions + 1)
+        blocks = engine.allocator.allocate(need)
+        if blocks is None:
+            with self._stamped():
+                reclaimed = engine.reclaim_cached(need - engine.allocator.num_free)
+            if reclaimed:
+                blocks = engine.allocator.allocate(need)
+        if blocks is None:
+            if self.obs_enabled and req.cache_wait_start is None:
+                req.cache_wait_start = self.clock()
+            req.cache_wait_short = need - engine.allocator.num_free
+            return False
+        with self._lock:
+            if not self._queue or self._queue[0] is not req or not self._free_slots:
+                engine.allocator.free(blocks)
+                return False
+            self._queue.popleft()
+            slot = self._free_slots.pop()
+        try:
+            faults.inject(faults.GENERATION_KV_IMPORT, (req.id, len(payload.blocks)))
+            bs = engine.cache_config.block_size
+            if payload.block_size != bs:
+                raise ValueError(
+                    f"handoff block size {payload.block_size} != this engine's {bs}")
+            n_import = engine.cache_config.blocks_for(payload.n_positions)
+            if len(payload.blocks) < n_import:
+                raise ValueError("handoff payload is missing blocks")
+            wire = payload.blocks[:n_import]
+            for pb in wire:
+                if not pb.verify():
+                    raise ValueError("imported KV block failed CRC verification")
+            # every block verified BEFORE any device write, then one
+            # upload and one indexed write commit the whole payload
+            with self._stamped():
+                engine.import_kv_blocks(blocks[:n_import], wire)
+        except Exception as e:
+            # reject the import: hand everything back and requeue for the
+            # recompute path (the replay adopt() did not count)
+            req.imported_kv = None
+            engine.allocator.free(blocks)
+            with self._lock:
+                self._free_slots.append(slot)
+                self._queue.appendleft(req)
+            self.recovery_stats.incr("kv_imports_rejected")
+            if req.n_generated > 0:
+                req.replays += 1
+                req.trace.note_replay()
+                self.recovery_stats.incr("replayed_tokens", req.n_generated)
+            req.trace.event("kv_import_rejected", reason=type(e).__name__,
+                            n_blocks=len(payload.blocks))
+            return True
+        req.imported_kv = None
+        self.recovery_stats.incr("kv_imports")
+        state = _Running(req, slot, blocks, cached_len=payload.n_positions,
+                         admitted_seq=next(self._admitted_seq))
+        self._running[slot] = state
+        self.journal.record(req, state.admitted_seq)
+        if req.handle.done():  # reaped while the blocks were in flight
+            self._release(state)
+            return True
+        req.trace.mark_admit(slot=slot, prompt_len=len(req.prompt),
+                             preemptions=req.preemptions, replays=req.replays)
+        req.trace.event("kv_import", n_blocks=len(payload.blocks),
+                        n_positions=payload.n_positions, payload_bytes=payload.nbytes)
+        req.journey.hop("admit", slot=slot, prompt_len=len(req.prompt),
+                        replica=self.fault_scope, imported=True,
+                        n_blocks=len(payload.blocks))
+        self.flight.record_step(
+            "kv_import", phases={"admit": time.perf_counter() - t0},
+            request_id=req.id, prompt_len=len(req.prompt),
+            occupancy=len(self._running), queue_depth=len(self._queue),
+            blocks_free=engine.allocator.num_free,
+        )
+        self._span("admit", t0, time.perf_counter())
         return True
 
     def _emit_token(self, state: _Running, token: int) -> None:
@@ -2221,7 +2414,18 @@ class ContinuousBatchingScheduler:
         writes one flight record and one step-anatomy observation (a
         handled failure stays out of the anatomy's hot window); every
         iteration then flushes the journal's group commit, integrates the
-        cache's time at pressure and ticks the overload controller."""
+        cache's time at pressure and ticks the overload controller.
+
+        With a ``fault_scope`` (a fleet replica) the whole iteration runs
+        inside that injection scope (the pipeline's dispatch and its
+        consume, which happen in step() calls, and the supervisor's
+        recovery path), so chaos plans can target this replica alone."""
+        if self.fault_scope is None:
+            return self._step_impl()
+        with faults.scope(self.fault_scope):
+            return self._step_impl()
+
+    def _step_impl(self) -> bool:
         self._step_phases = {}
         info = self._step_info = {}
         self._step_spans = []

@@ -257,15 +257,15 @@ class StepRunner:
             body(inputs)
         stream.wait_stream(self._side)
         graph = torch.cuda.CUDAGraph()
-        before = da.launch_counts()
         collecting = gc.isenabled()
         gc.collect()  # dead graphs are destroyed here, outside the capture
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            with da.capturing() as captured, torch.cuda.graph(
+                    graph, pool=self._pool, capture_error_mode="thread_local"):
                 outputs = body(inputs)
         finally:
             if collecting:
                 gc.enable()
-        step.launches = da.captured_launches(before)
+        step.launches = captured
         step.graph, step.outputs = graph, outputs

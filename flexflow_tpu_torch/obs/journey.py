@@ -12,8 +12,9 @@ and a WAL warm restart in another process. The model is Dapper's
 * a stable 32-hex **journey id** is minted at ingress or at first
   submit, and accepted/emitted as a W3C ``traceparent`` header so
   external tracers join the same tree;
-* every **hop** (ingress -> submit -> admit -> prefill -> journal replay
-  -> warm restart -> adopt -> SSE resume -> finish) records one
+* every **hop** (ingress -> route -> submit -> admit -> prefill -> KV
+  handoff -> decode-pool adopt -> failover re-admission -> journal
+  replay -> warm restart -> SSE resume -> finish) records one
   :class:`JourneySpan` whose parent is the previous hop's span id. The
   chain is sequential on purpose: "gap-free parent links" is then a
   checkable property (every non-root span's parent exists);
@@ -34,8 +35,12 @@ its next spans parent onto the pre-crash chain. ``ctx.hops`` counts
 every hop *attempted*, independent of what the rings retained, so a
 completeness check can compare it with the stitched span count.
 
+A fleet's journey crosses lanes: the router's (``{rid_prefix}router``),
+then each replica's (its id), so one journey stitches across a failover
+or a prefill -> decode handoff.
+
 Thread-safety: contexts are touched by transport threads, the scheduler
-loop and the watchdog; a per-context lock keeps the (parent chain, hop
+loops, the watchdog and the handoff worker; a per-context lock keeps the (parent chain, hop
 count) pair consistent, and recorders and spools guard their rings with
 their own locks. ``NULL_JOURNEY`` is the journeys-off stand-in: every
 method is a no-op, so the disabled path stays branch-free and

@@ -3,8 +3,8 @@
 (Port of ``flexflow_tpu/obs/prom.py``, which imports nothing of JAX:
 the same code, kept as the port's own copy, with the same families and
 labels, pinned by ``tests/data/prometheus_golden.txt``. The fleet and
-KV-handoff families render only when a caller passes ``fleets=``, which
-the port's server does not until the fleet is ported.)
+KV-handoff families render only when a caller passes ``fleets=``, as the
+server does for its fleets.)
 
 Renders every :class:`~flexflow_tpu_torch.serving.stats.ServingStats`
 counter, gauge, latency window, and histogram under STABLE metric

@@ -49,11 +49,15 @@ its window's class in :data:`LAUNCHES_BY_WINDOW`, so a run
 can show that its main path went through the kernels. The count is kept
 on the Python side, where the wrapper launches: a CUDA graph that
 captured the launches replays them without the wrapper, so the graph's
-owner counts them per replay (:func:`captured_launches`,
-:func:`count_replay`).
+owner counts them per replay (:func:`capturing`, :func:`count_replay`).
+Several threads may launch at once (a fleet's replicas each step on their
+own thread): the counts are taken under a lock, and a capture records
+only its own thread's launches.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -88,39 +92,50 @@ LAUNCHES_BY_WINDOW: Dict[str, int] = {
 }
 
 
+_COUNT_LOCK = threading.Lock()
+_CAPTURE = threading.local()  # .launches: this thread's capture record, or None
+
+
 def _count_launch(name: str, window: int) -> None:
-    LAUNCHES[name] += 1
     cls = WINDOW_CLASSES[0 if window == 1 else 1 if window < TC_MIN_WINDOW else 2]
-    LAUNCHES_BY_WINDOW[f"{name} {cls}"] += 1
+    rec = getattr(_CAPTURE, "launches", None)
+    if rec is not None:
+        # a capture records its launches and runs none: they are counted
+        # at each replay
+        for key in (name, f"{name} {cls}"):
+            rec[key] = rec.get(key, 0) + 1
+        return
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        LAUNCHES_BY_WINDOW[f"{name} {cls}"] += 1
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_WINDOW):
-        for name in counts:
-            counts[name] = 0
+    with _COUNT_LOCK:
+        for counts in (LAUNCHES, LAUNCHES_BY_WINDOW):
+            for name in counts:
+                counts[name] = 0
 
 
-def launch_counts() -> Dict[str, int]:
-    """A copy of :data:`LAUNCHES` and :data:`LAUNCHES_BY_WINDOW` together."""
-    return {**LAUNCHES, **LAUNCHES_BY_WINDOW}
-
-
-def captured_launches(before: Dict[str, int]) -> Dict[str, int]:
-    """The launches recorded since ``before`` (:func:`launch_counts` taken
-    just before a CUDA graph capture), which are the capture's: a capture
-    records its launches and runs none, so the counts go back to
-    ``before`` and each replay adds these with :func:`count_replay`."""
-    captured = {}
-    for counts in (LAUNCHES, LAUNCHES_BY_WINDOW):
-        captured.update({name: counts[name] - before[name] for name in counts})
-        counts.update({name: before[name] for name in counts})
-    return captured
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA graph capture: this thread's launches inside go into
+    the dict yielded (the capture's launches, for :func:`count_replay`)
+    and not into the counts; other threads' launches count as usual."""
+    prev = getattr(_CAPTURE, "launches", None)
+    rec: Dict[str, int] = {}
+    _CAPTURE.launches = rec
+    try:
+        yield rec
+    finally:
+        _CAPTURE.launches = prev
 
 
 def count_replay(captured: Dict[str, int]) -> None:
     """Count one replay of a graph whose capture recorded ``captured``."""
-    for name, n in captured.items():
-        (LAUNCHES if name in LAUNCHES else LAUNCHES_BY_WINDOW)[name] += n
+    with _COUNT_LOCK:
+        for name, n in captured.items():
+            (LAUNCHES if name in LAUNCHES else LAUNCHES_BY_WINDOW)[name] += n
 
 
 def _gather(cache: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:

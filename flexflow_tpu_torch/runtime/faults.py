@@ -16,11 +16,12 @@ fail, stall, get delayed or get NaN-poisoned.
 Production call sites name a site by its module constant
 (``faults.GENERATION_DECODE_STEP``), never by a raw string. The site
 names are the JAX package's, so one plan description drives both
-packages; the port fires the ``generation.*`` sites of :data:`SITES`.
+packages; the port fires the sites of :data:`SITES`.
 
 **Scopes**: rules registered with ``scope=`` fire only inside
 ``with scope(name):`` and count their ``nth``/``every`` triggers per
-(site, scope).
+(site, scope). A fleet replica's scheduler steps inside its replica id's
+scope, so :func:`replica_kill` murders one replica deterministically.
 
 Usage::
 
@@ -114,6 +115,26 @@ SITES = MappingProxyType({
         "state, token)); an error quarantines the one constrained request "
         "while the rest of the batch keeps streaming"
     ),
+    FLEET_ROUTE: (
+        "before each fleet routing decision (value: (prompt tokens, "
+        "candidate replica ids))"
+    ),
+    FLEET_REPLICA_SPAWN: (
+        "before a fleet replica is built/warmed (value: the new replica id); "
+        "an error here is a failed replacement spawn"
+    ),
+    FLEET_KV_HANDOFF: (
+        "around each per-block prefill->decode KV transfer (value: (host_k, "
+        "host_v) wire arrays); `nan` mode corrupts the block in flight (CRC "
+        "catches it on arrival), an error fails the attempt into bounded "
+        "retry, a stall wedges the transfer until the deadline expires — "
+        "every path terminates in decode-pool journal replay, byte-exact"
+    ),
+    GENERATION_KV_IMPORT: (
+        "before the decode-side unpack of an imported KV payload (value: "
+        "(request id, n_blocks)); an error rejects the import and the "
+        "stream falls back to recompute-prefill on the decode replica"
+    ),
     SERVING_ADMISSION: (
         "inside the generation scheduler's submit, before the overload "
         "gates (value: (priority, queue depth)); an error here is a forced "
@@ -161,6 +182,32 @@ class scope:
 
 def current_scope() -> Optional[str]:
     return getattr(_SCOPE, "name", None)
+
+
+def replica_kill(
+    plan: "FaultPlan",
+    replica: str,
+    *,
+    site: str = GENERATION_DECODE_STEP,
+    mode: str = "error",
+    error: Any = None,
+    gate: Optional[threading.Event] = None,
+    nth=None,
+    every: Optional[int] = None,
+    max_fires: Optional[int] = None,
+) -> "FaultPlan":
+    """Chaos helper: deterministically murder ONE fleet replica
+    mid-step. Registers a scoped rule on ``site`` (default: the batched
+    decode step) that fires only for ``replica``'s own calls, with
+    ``nth``/``every`` counted per replica — ``replica_kill(plan, "r1",
+    every=1)`` fails every one of r1's decode steps until its restart
+    budget exhausts and the fleet fails its streams over."""
+    if error is None and mode == "error":
+        error = RuntimeError(f"injected kill of replica {replica}")
+    return plan.on(
+        site, mode=mode, error=error, gate=gate, nth=nth, every=every,
+        max_fires=max_fires, scope=replica,
+    )
 
 
 def inject(site: str, value: Any = None) -> Any:

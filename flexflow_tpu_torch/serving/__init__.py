@@ -1,18 +1,22 @@
-"""Serving (port of ``flexflow_tpu/serving`` without gRPC and the fleet):
-typed rejections, retry with backoff and the circuit breaker, the
-overload controller, the serving statistics, the batched path
-(:class:`InferenceModel` behind a :class:`DynamicBatcher`, the
-:class:`ModelRepository` with ``save_model`` / ``load_model``), durable
-serving (``durable.py``: the WAL journal, warm restart and the resume
-index), and the HTTP front end — :class:`InferenceModel` and
-:class:`GenerationModel` behind :class:`InferenceServer`.
+"""Serving (port of ``flexflow_tpu/serving`` without gRPC): typed
+rejections, retry with backoff and the circuit breaker, the overload
+controller and the fleet's autoscale advisor, the serving statistics,
+the batched path (:class:`InferenceModel` behind a
+:class:`DynamicBatcher`, the :class:`ModelRepository` with
+``save_model`` / ``load_model``), durable serving (``durable.py``: the
+WAL journal, warm restart and the resume index), the fleet tier
+(``fleet.py``: :class:`Fleet` replicas behind the cache-aware router,
+:class:`DisaggregatedFleet` prefill and decode pools joined by the KV
+handoff), and the HTTP front end: :class:`InferenceModel`,
+:class:`GenerationModel` and either fleet behind :class:`InferenceServer`.
 
-``GenerationModel``, ``InferenceServer`` and the batched path resolve
-lazily: they import the generation package or the model, which import
-this package's resilience module.
+``GenerationModel``, the fleet classes, ``InferenceServer`` and the
+batched path resolve lazily: they import the generation package or the
+model, which import this package's resilience module.
 """
 from .overload import (
     AdaptiveLimiter,
+    AutoscaleAdvisor,
     DegradeLadder,
     OverloadConfig,
     OverloadController,
@@ -34,6 +38,7 @@ from .resilience import (
 from .stats import (
     ConstrainedStats,
     DurableStats,
+    FleetStats,
     GoodputStats,
     Histogram,
     LatencyWindow,
@@ -44,19 +49,25 @@ from .stats import (
 
 __all__ = [
     "AdaptiveLimiter",
+    "AutoscaleAdvisor",
     "CircuitBreaker",
     "CircuitOpenError",
     "ConstrainedStats",
     "DeadlineExceededError",
     "DegradeLadder",
+    "DisaggregatedFleet",
     "DurableStats",
     "DynamicBatcher",
+    "Fleet",
+    "FleetRouter",
+    "FleetStats",
     "GenerationModel",
     "GoodputStats",
     "Histogram",
     "InferenceModel",
     "InferenceServer",
     "InfeasibleError",
+    "HandoffManager",
     "LatencyWindow",
     "ModelRepository",
     "OverloadConfig",
@@ -64,6 +75,7 @@ __all__ = [
     "OverloadedError",
     "Priority",
     "QueueFullError",
+    "ReplicaState",
     "ResilienceError",
     "RetryPolicy",
     "ServingStats",
@@ -80,6 +92,11 @@ __all__ = [
 
 _LAZY = {
     "GenerationModel": "generation",
+    "Fleet": "fleet",
+    "FleetRouter": "fleet",
+    "ReplicaState": "fleet",
+    "HandoffManager": "fleet",
+    "DisaggregatedFleet": "fleet",
     "InferenceServer": "server",
     "InferenceModel": "model",
     "TensorMeta": "model",

@@ -37,7 +37,11 @@ Three pieces, layered over the recovery machinery
     the journey spool next to the segments, and the resume index that
     ``GET /v2/generate/resume/{id}`` reads (live streams by durable id,
     plus a bounded LRU of terminal outcomes). Attaches at scheduler level
-    or through ``GenerationModel.enable_durability``.
+    or through ``GenerationModel.enable_durability``; a fleet with a
+    ``durability_root`` attaches one per replica slot (``slot-N``): a
+    replacement inherits its slot's journal, a stream that fails over is
+    retired from the dead replica's journal with END("migrated"), and a
+    fleet built after process death warm-restarts every slot.
 
 The WAL bytes and :func:`engine_fingerprint` are the JAX package's, so a
 journal either package wrote is replayed by the other for the same

@@ -39,8 +39,9 @@ graceful-degradation ladder with hysteresis.
   submit (typed :class:`~flexflow_tpu_torch.serving.resilience.InfeasibleError`,
   counted apart from sheds).
 
-:class:`OverloadController` composes the three for one scheduler. The
-fleet's ``AutoscaleAdvisor`` is not ported yet. Everything runs on
+:class:`OverloadController` composes the three for one scheduler;
+:class:`AutoscaleAdvisor` turns a fleet's sustained saturation or
+idleness into a want-more / want-fewer replica signal. Everything runs on
 injectable clocks, so tests drive saturation, shedding and recovery on
 virtual time; the machinery is inert off the pressure path.
 """
@@ -136,6 +137,12 @@ class OverloadConfig:
     )
     # ---- rejections
     retry_after_base_s: float = 1.0     # Retry-After = base * (1 + level)
+    # ---- AutoscaleAdvisor (fleet-level: serving/fleet.py builds its
+    # advisor from the same config that tunes each replica's controller,
+    # one tuning surface for replica-count and admission dynamics)
+    autoscale_up_hold_s: float = 3.0    # full saturation this long -> +1
+    autoscale_down_hold_s: float = 30.0  # idle this long -> -1
+    autoscale_low_util: float = 0.25    # "idle" = no saturation, util <= this
 
 
 class AdaptiveLimiter:
@@ -189,6 +196,12 @@ class AdaptiveLimiter:
     # ------------------------------------------------------------ admission
     def _allowed_locked(self, priority: str) -> float:
         return self._limit * self.cfg.class_headroom.get(priority, 1.0)
+
+    def would_admit(self, priority: str) -> bool:
+        """Non-mutating admission probe (the fleet router's spill
+        input)."""
+        with self._lock:
+            return self._inflight < self._allowed_locked(priority)
 
     def can_admit(self, priority: str, freed: int = 0) -> bool:
         """Would ``try_acquire`` succeed after ``freed`` pending
@@ -495,6 +508,17 @@ class OverloadController:
         self._by_priority: Dict[str, int] = {}  # guarded-by: _lock
 
     # ------------------------------------------------------------ admission
+    def would_admit(self, priority: str) -> bool:
+        """Non-mutating probe: would ``submit`` at this priority pass the
+        overload gates right now? (The fleet router's spill input;
+        queue-full displacement is not modeled: a spill beats a
+        displacement.)"""
+        if self.ladder.shed_best_effort() and priority == Priority.BEST_EFFORT:
+            return False
+        if self.queue_depth() >= self.max_queue:
+            return False
+        return self.limiter.would_admit(priority)
+
     def degraded_reject(self, priority: str) -> bool:
         return self.ladder.shed_best_effort() and priority == Priority.BEST_EFFORT
 
@@ -651,3 +675,105 @@ class OverloadController:
         stats.add_gauge(
             "degrade_transitions_total", lambda: self.ladder.transitions
         )
+
+
+class AutoscaleAdvisor:
+    """Fleet want-more/want-fewer replica signal from sustained limiter
+    state.
+
+    The fleet supervisor feeds one ``observe`` per ``check()`` with the
+    fraction of eligible replicas that are saturated (their controller
+    would not admit standard-priority work, or their ladder is
+    degraded) and the mean limiter utilization. The signal is +1 after
+    EVERY eligible replica has been saturated for ``up_hold_s``
+    (spilling no longer has anywhere to go), -1 after the fleet has
+    been idle-ish (no saturation, utilization under ``low_util``) for
+    ``down_hold_s``, else 0 — the same sustained-signal hysteresis
+    shape as the degrade ladder, so a burst the ladder absorbs does
+    not also thrash the replica count.
+    """
+
+    def __init__(
+        self,
+        *,
+        clock: Callable[[], float],
+        up_hold_s: float = 3.0,
+        down_hold_s: float = 30.0,
+        low_util: float = 0.25,
+    ):
+        self.clock = clock
+        self.up_hold_s = up_hold_s
+        self.down_hold_s = down_hold_s
+        self.low_util = low_util
+        self._lock = threading.Lock()
+        self._saturated_since: Optional[float] = None  # guarded-by: _lock
+        self._idle_since: Optional[float] = None  # guarded-by: _lock
+        self._signal = 0  # guarded-by: _lock
+        self._last: Dict = {}  # guarded-by: _lock
+
+    @classmethod
+    def from_config(
+        cls, cfg: OverloadConfig, *, clock: Callable[[], float],
+    ) -> "AutoscaleAdvisor":
+        """Build from the typed overload config: the fleet's replica
+        count and each replica's admission tune from one surface."""
+        return cls(
+            clock=clock,
+            up_hold_s=cfg.autoscale_up_hold_s,
+            down_hold_s=cfg.autoscale_down_hold_s,
+            low_util=cfg.autoscale_low_util,
+        )
+
+    def observe(self, saturated_frac: float, mean_util: float) -> int:
+        now = self.clock()
+        with self._lock:
+            if saturated_frac >= 1.0:
+                self._idle_since = None
+                if self._saturated_since is None:
+                    self._saturated_since = now
+                self._signal = (
+                    1 if now - self._saturated_since >= self.up_hold_s else 0
+                )
+            elif saturated_frac == 0.0 and mean_util <= self.low_util:
+                self._saturated_since = None
+                if self._idle_since is None:
+                    self._idle_since = now
+                self._signal = (
+                    -1 if now - self._idle_since >= self.down_hold_s else 0
+                )
+            else:
+                self._saturated_since = None
+                self._idle_since = None
+                self._signal = 0
+            self._last = {
+                "t": now,
+                "saturated_frac": saturated_frac,
+                "mean_utilization": mean_util,
+            }
+            return self._signal
+
+    @property
+    def signal(self) -> int:
+        with self._lock:
+            return self._signal
+
+    def want_replicas(self, current: int) -> int:
+        return max(1, current + self.signal)
+
+    def report(self, current: int) -> Dict:
+        now = self.clock()
+        with self._lock:
+            sustained = 0.0
+            if self._signal > 0 and self._saturated_since is not None:
+                sustained = now - self._saturated_since
+            elif self._signal < 0 and self._idle_since is not None:
+                sustained = now - self._idle_since
+            return {
+                "signal": self._signal,
+                "want_replicas": max(1, current + self._signal),
+                "current_replicas": current,
+                "sustained_s": sustained,
+                "last_observation": dict(self._last),
+                "up_hold_s": self.up_hold_s,
+                "down_hold_s": self.down_hold_s,
+            }

@@ -46,6 +46,11 @@ speaking the KServe/Triton v2 protocol subset (port of
                                               skips what the client holds)
   GET  /v2/slo                             -> SLO objectives and burn rates
   GET  /v2/overload[?model=M]              -> overload controller state
+  GET  /v2/fleet                           -> per fleet: replica states,
+                                              residency, router decisions,
+                                              lifecycle events, handoffs
+  GET  /v2/fleet/autoscale                 -> per fleet: the want-more /
+                                              want-fewer replica signal
   GET  /v2/models                          -> served model names
   GET  /v2/models/{name}                   -> model metadata
   GET  /v2/models/{name}/ready             -> per-model readiness
@@ -61,6 +66,11 @@ speaking the KServe/Triton v2 protocol subset (port of
   POST /v2/repository/models/{name}/load   -> load from the repository and
                                               serve
   POST /v2/repository/models/{name}/unload -> stop serving and drop
+
+A fleet (``serving/fleet.py``) registers like a GenerationModel: each of
+its replicas is one unit of the per-engine reports, labeled
+``name/replica`` (``?model=name`` matches them all, ``?model=name/r0``
+one), and one ``(model, replica)`` entry of ``/metrics``.
 
 A request's deadline rides ``{"parameters": {"timeout_ms": N}}`` or the
 ``X-Request-Timeout-Ms`` header; its priority class the generate body's
@@ -192,7 +202,10 @@ class InferenceServer:
         return self.models.pop(name, None) is not None
 
     def register_generation(self, model: GenerationModel) -> None:
-        """Serve a GenerationModel; started at once if the server runs."""
+        """Serve a GenerationModel, or a fleet of them
+        (:class:`~flexflow_tpu_torch.serving.fleet.Fleet`,
+        :class:`~flexflow_tpu_torch.serving.fleet.DisaggregatedFleet`);
+        started at once if the server runs."""
         self.generators[model.name] = model
         if self._httpd is not None:
             model.start()
@@ -245,20 +258,49 @@ class InferenceServer:
 
     # ------------------------------------------------------ observability
     def _units(self, model: Optional[str] = None):
-        """(name, GenerationModel) pairs, filtered by ``?model=``."""
+        """(label, GenerationModel) pairs across all generators, filtered
+        by ``?model=``: a fleet contributes one unit per replica, labeled
+        ``name/replica``, which its plain name matches as a whole and
+        ``name/rN`` alone (the per-engine debug, SLO and overload
+        reports)."""
         for name, g in sorted(self.generators.items()):
-            if model is None or name == model:
-                yield name, g
+            reps = getattr(g, "replicas", None)
+            units = [(name, g)] if reps is None else [
+                (f"{name}/{r.id}", r.model) for r in list(reps)]
+            for label, unit in units:
+                if model is None or label == model or label.split("/", 1)[0] == model:
+                    yield label, unit
+
+    def _metric_units(self) -> Dict:
+        """The generation units of /metrics by key: a model by its name, a
+        fleet's replicas one by one under ``(model, replica)`` keys, so
+        every serving family renders with a ``replica`` label."""
+        out: Dict = {}
+        for n, g in list(self.generators.items()):
+            reps = getattr(g, "replicas", None)
+            if reps is None:
+                out[n] = g
+            else:
+                out.update({(n, r.id): r.model for r in list(reps)})
+        return out
+
+    def _fleets(self) -> Dict:
+        """model name -> fleet lifecycle metrics (fleet generators only):
+        the ``fleets=`` input to render_prometheus."""
+        return {n: g.prom_fleet() for n, g in list(self.generators.items())
+                if hasattr(g, "prom_fleet")}
 
     def metrics_text(self) -> str:
         stats = {n: b.stats for n, b in list(self.batchers.items())}
-        stats.update({n: g.stats for n, g in list(self.generators.items())})
+        units = self._metric_units()
+        stats.update({k: u.stats for k, u in units.items()})
         return render_prometheus(
             stats,
             fault_sites=faults.site_counters(),
             ledger=GLOBAL_LEDGER,
-            anatomy={n: g.anatomy.prom_snapshot() for n, g in list(self.generators.items())
-                     if g.anatomy.enabled},
+            fleets=self._fleets(),
+            anatomy={k: u.anatomy.prom_snapshot() for k, u in units.items()
+                     if u.anatomy.enabled},
         )
 
     def debug_traces(self, request_id: Optional[int] = None, model: Optional[str] = None,
@@ -321,26 +363,55 @@ class InferenceServer:
             out["models"][name] = payload
         return out
 
+    def fleet_report(self) -> Dict:
+        """GET /v2/fleet: per fleet, the replica states, residency,
+        router score inputs and decisions, and recent lifecycle events
+        (a disaggregated fleet: both pools and the handoffs)."""
+        return {"models": {name: g.report() for name, g in sorted(self.generators.items())
+                           if hasattr(g, "replicas")}}
+
+    def autoscale_report(self) -> Dict:
+        """GET /v2/fleet/autoscale: per fleet, the want-more / want-fewer
+        replica signal from sustained limiter state."""
+        return {"models": {name: g.autoscale_report()
+                           for name, g in sorted(self.generators.items())
+                           if hasattr(g, "autoscale_report")}}
+
     def durable_report(self) -> Dict:
         """GET /v2/durable: per-model WAL, journal and warm-restart state
         (commit watermark, counters, degraded streams, resume-index
-        sizes)."""
-        return {"models": {name: g.durable.report() for name, g in self._units()
-                           if g.durable is not None}}
+        sizes); a fleet's, per replica."""
+        out: Dict = {"models": {}}
+        for name, g in sorted(self.generators.items()):
+            dur = getattr(g, "durable", None)
+            if dur is not None:
+                out["models"][name] = dur.report()
+            elif hasattr(g, "durable_report"):
+                rep = g.durable_report()
+                if rep is not None:
+                    out["models"][name] = rep
+        return out
 
     def durable_lookup(self, durable_id: str):
-        """The model and resume state owning a durable stream id:
-        ``(model_name, ("live", Request) | ("done", dict))``, or None."""
-        for name, g in self._units():
-            if g.durable is not None:
-                hit = g.durable.lookup(durable_id)
-                if hit is not None:
-                    return name, hit
+        """The model and resume state owning a durable stream id, across
+        plain models and fleets: ``(model_name, ("live", Request) |
+        ("done", dict))``, or None."""
+        for name, g in sorted(self.generators.items()):
+            dur = getattr(g, "durable", None)
+            hit = None
+            if dur is not None:
+                hit = dur.lookup(durable_id)
+            elif hasattr(g, "durable_lookup"):
+                hit = g.durable_lookup(durable_id)
+            if hit is not None:
+                return name, hit
         return None
 
     def journey_index(self) -> JourneyIndex:
-        """A fresh stitcher over the HTTP ingress lane, every model's
-        recorder and every on-disk spool, built per query."""
+        """A fresh stitcher over the CURRENT topology: the HTTP ingress
+        lane, every model's recorder (a fleet's router and replica lanes,
+        retiring and torn-down replicas included) and every on-disk
+        spool, built per query so replica churn never leaves it stale."""
         idx = JourneyIndex().add(self.journeys)
         for g in list(self.generators.values()):
             for rec in g.journey_recorders():
@@ -482,6 +553,10 @@ class InferenceServer:
                     return self._json(200, server.slo_report())
                 if path == "/v2/overload":
                     return self._json(200, server.overload_report(model=model))
+                if path == "/v2/fleet":
+                    return self._json(200, server.fleet_report())
+                if path == "/v2/fleet/autoscale":
+                    return self._json(200, server.autoscale_report())
                 if path == "/v2/models":
                     return self._json(200, {"models": sorted(set(server.models)
                                                              | set(server.generators))})

@@ -462,6 +462,68 @@ class DurableStats:
         stats.add_gauge("durable_wal_segments", self.segments)
 
 
+class FleetStats:
+    """Fleet-lifecycle counters for one replicated generation service
+    (serving/fleet.py), surfaced on ``GET /v2/fleet`` and as the
+    ``flexflow_serving_fleet_*`` / ``router_decisions_total`` Prometheus
+    families:
+
+      failovers        replica deaths (restart budget exhausted) whose
+                       live streams were handed to the fleet for
+                       cross-replica journal-replay
+      migrated_streams requests journal-replayed onto a surviving (or
+                       replacement) replica
+      replaced         replicas retired and swapped for a fresh warmed
+                       replica (drain completion, drain timeout, or
+                       post-failover replacement)
+      drains           replicas transitioned to DRAINING by a health
+                       signal or operator call
+      spawn_failures   replacement spawns that failed (engine factory or
+                       warmup error; retried on the next check)
+      sheds            fleet-wide sheds: requests refused because EVERY
+                       eligible replica was saturated (the router's
+                       per-replica spill had nowhere left to go)
+
+    Router decisions are counted by reason ("affinity", "least_loaded",
+    "only_candidate", "no_candidate", "spill", "fleet_shed"): the
+    ``router_decisions_total{reason}`` counter.
+
+    Writers: replica loop threads (failover sinks) and the fleet
+    supervisor; the lock keeps increments exact.
+    """
+
+    FIELDS = (
+        "failovers", "migrated_streams", "replaced", "drains",
+        "spawn_failures", "sheds",
+    )
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        for f in self.FIELDS:
+            setattr(self, f, 0)
+        self._decisions: Dict[str, int] = {}  # guarded-by: _lock
+
+    def incr(self, field: str, n: int = 1) -> None:
+        if field not in self.FIELDS:
+            raise ValueError(f"unknown fleet counter {field!r}")
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def note_decision(self, reason: str) -> None:
+        with self._lock:
+            self._decisions[reason] = self._decisions.get(reason, 0) + 1
+
+    def decisions(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._decisions)
+
+    def snapshot(self) -> Dict:
+        with self._lock:
+            out: Dict = {f: getattr(self, f) for f in self.FIELDS}
+            out["router_decisions"] = dict(self._decisions)
+            return out
+
+
 class TokenRate:
     """Windowed tokens/s gauge for the generation engine: record token
     batches as they are emitted; ``rate()`` is tokens over the trailing

@@ -326,7 +326,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'obs.flight', 'obs.slo', 'obs.steptrace', 'obs.truth', 'obs.prom',\n"
         "          'runtime.wal', 'obs.journey', 'serving.durable', 'ops.softmax',\n"
         "          'ops.embedding', 'ops.shape_ops', 'serving.model', 'serving.batcher',\n"
-        "          'serving.repository', 'tools.heads_probe'):\n"
+        "          'serving.repository', 'tools.heads_probe', 'serving.fleet',\n"
+        "          'tools.fleet_probe'):\n"
         "    assert 'flexflow_tpu_torch.' + m in names, names\n"
         "print(len(names))\n"
     )

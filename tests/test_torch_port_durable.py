@@ -573,3 +573,60 @@ def test_resume_endpoint_same_events(tmp_path):
     finally:
         for srv in servers.values():
             srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# rolling restart of a durable virtual-clock fleet
+# ---------------------------------------------------------------------------
+
+
+def _rolling_restart(fside, sess, root):
+    from torch_port_fleet import make_fleet
+
+    clock = FakeClock()
+    f = make_fleet(fside, sess, n=2, clock=clock, warmup=False,
+                   durability_root=root, durability_fsync=False)
+    prompts = PROMPTS + [[2, 4, 6, 8]]
+    handles = [f.submit(p, fside.SamplingParams(**GREEDY)) for p in prompts]
+
+    def pump():
+        f.step()
+        clock.advance(0.05)
+
+    try:
+        roll = f.rolling_restart(drain_wait_s=30.0, pump=pump)
+        for _ in range(500):
+            if all(h.done() for h in handles):
+                break
+            pump()
+        rep = f.durable_report()
+        out = {
+            "roll": roll, "streams": [h.result(0) for h in handles],
+            "replicas": sorted(rep["replicas"]) == sorted(r.id for r in f.replicas),
+            "counts": [v["counters"]["rolling_restarts"] for v in rep["replicas"].values()],
+            "slots": sorted(os.listdir(root)), "stats": f.fleet_stats.snapshot(),
+        }
+    finally:
+        f.stop()
+    return out
+
+
+def test_fleet_rolling_restart_zero_loss(tmp_path):
+    """tests/test_durable.py's 2-replica rolling restart through both
+    packages' fleets: every in-flight stream finishes byte-exactly (equal
+    to the JAX package's), both slots swap with a passed report, and the
+    successors' durable stats count the rotation."""
+    from torch_port_fleet import JAX as FJAX
+    from torch_port_fleet import PORT as FPORT
+    from torch_port_fleet import Session
+
+    out = {s.name: _rolling_restart(s, Session(s), str(tmp_path / s.name))
+           for s in (FJAX, FPORT)}
+    assert out["port"] == out["jax"]
+    got = out["port"]
+    assert got["roll"]["ok"] and [e["slot"] for e in got["roll"]["replicas"]] == [0, 1]
+    assert got["replicas"] and got["counts"] == [1, 1]
+    assert got["slots"] == ["slot-0", "slot-1"]
+    ref = [make_engine(JAX).generate([list(p)], JAX.SamplingParams(**GREEDY))[0]
+           for p in PROMPTS + [[2, 4, 6, 8]]]
+    assert got["streams"] == [list(t) for t in ref]

@@ -410,3 +410,71 @@ def test_warm_restart_keeps_journey_identity(tmp_path):
             assert hop in names, names
         # the restart's hops parent onto the pre-crash chain
         assert (("local", "submit"), ("local", "adopt"), ("local", "warm_restart")) in journey
+
+
+# ---------------------------------------------------------------------------
+# one journey stitched across replicas: failover and the KV handoff
+# ---------------------------------------------------------------------------
+
+
+def _fleet_journeys(fside, sess, disagg):
+    """tests/test_journey.py's failover (a 2-replica fleet whose r0 dies)
+    or disaggregated-handoff (1+1 pools) case on ``fside``: each stream's
+    stitched journey over the fleet's recorders, as its (lane, name)
+    paths, with the attempted-hop count."""
+    from torch_port_fleet import drive as fdrive
+    from torch_port_fleet import make_disagg, make_fleet
+
+    m = obs if fside.name == "port" else jobs
+    if disagg:
+        f = make_disagg(fside, sess)
+        prompts = PROMPTS[:2]
+        handles = [f.submit(p, fside.greedy()) for p in prompts]
+        fdrive(f.step, handles)
+    else:
+        f = make_fleet(fside, sess, n=2, warmup=True,
+                       recovery=fside.policy(max_restarts=1))
+        prompts = PROMPTS
+        plan = fside.faults.FaultPlan(seed=0)
+        fside.faults.replica_kill(plan, "r0", every=1)
+        with plan.active():
+            handles = [f.submit(p, fside.greedy()) for p in prompts]
+            fdrive(f.step, handles)
+        assert f.fleet_stats.snapshot()["failovers"] == 1
+    assert all(h.done() for h in handles)
+    index = m.JourneyIndex(recorders=f.journey_recorders())
+    out = {}
+    for h in handles:
+        req = h._request
+        journey = index.get(req.journey.journey_id)
+        assert_gap_free(journey)
+        assert journey["n_spans"] == req.journey.hops  # every attempted hop stitched
+        out[tuple(req.original_prompt)] = (paths(journey), journey["lanes"])
+    f.stop()
+    return out
+
+
+def test_failover_yields_single_stitched_journey():
+    from torch_port_fleet import both
+
+    out = both(_fleet_journeys, False)
+    migrated = 0
+    for journey, lanes in out.values():
+        names = [p[-1][1] for p in journey]
+        if "failover" in names:
+            migrated += 1
+            assert "adopt" in names
+            assert len(lanes) >= 3, lanes  # router lane + both schedulers
+    assert migrated >= 1
+
+
+def test_disagg_handoff_yields_single_stitched_journey():
+    from torch_port_fleet import both
+
+    out = both(_fleet_journeys, True)
+    for journey, lanes in out.values():
+        names = [p[-1][1] for p in journey]
+        for hop in ("kv_handoff_pack", "kv_handoff", "adopt", "finish"):
+            assert hop in names, names
+        assert any(lane.startswith("p") for lane in lanes), lanes
+        assert any(lane.startswith("d") for lane in lanes), lanes
