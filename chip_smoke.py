@@ -259,6 +259,41 @@ prints no result line):
    a device batch and no other, ``/metrics``' completed requests equal
    to what the clients received; then the unload, after which the model
    reads not ready. Requests/s and client latency p50 / p99.
+19. trainer: a real job's switches at BERT-Base width (as the training
+   phase, SGD lr 0.01, MSE, batch 32), in fp32 and then bf16: one step
+   with ``FFConfig(remat_blocks=True)`` (each layer a rematerialized
+   block: 24 ``ff_flash_fwd`` launches a step, 12 of dQ and of dK/dV) and
+   one with ``grad_accum_steps=4`` (4 strided microbatches of 8: 48 of
+   each) against the plain step (12 of each), from the same weights and
+   step key, at the training phase's gates (bitwise equality reported);
+   peak device memory over a step lower with remat and with
+   accumulation; step ms in turns. Then the DataLoader
+   (``create_data_loader``: pinned host gathers, copies ``non_blocking``
+   from its prefetch thread) feeds 8 shuffled batches into
+   ``train_batch``, against the same batches staged on the card (the
+   same losses), with each one's ms a step and profiled busy share. Then
+   the checkpoint cell: bert-cls at full width with dropout 0.1 trains 4
+   steps on explicit keys, ``CheckpointManager(max_to_keep=2)`` saves
+   after steps 1 and 2, a fresh process (``chip_smoke.py --resume-child
+   DIR``) rebuilds the model from its graph, restores the newest and
+   runs steps 3-4: their losses and final parameters equal the
+   uninterrupted run's bit for bit; a torn newest falls back to step 1;
+   a ``checkpoint.save`` fault leaves no step dir.
+20. vision: ResNet-50 at its published ImageNet width (3 x 224 x 224,
+   1000 classes, fp32 with TF32 off for cuDNN; SGD lr 0.01, momentum
+   0.9, sparse categorical cross-entropy, accuracy): one step at batch 4
+   on the card against the same step of the port on the CPU from the
+   same weights (loss rtol 1e-4; parameters within 1e-3 of the step's
+   largest change; each running statistic within 1e-3 of its largest
+   |value|), eval (``predict`` reading the running statistics) against
+   the CPU's at atol 1e-4 + rtol 1e-4; warm-up and 10 timed steps at
+   batch 32 (images/s, the loss on the fixed batch falling, peak
+   memory) and a profiled pair (busy share, device ms by kernel group:
+   convolution, BatchNorm and elementwise, GEMM, other); the same step
+   with ``remat_blocks`` (stage 3's 5 blocks, BatchNorms inside) against
+   without at the card-against-CPU gates, the running statistics moved
+   by one update, peak memory lower; one forward each at batch 8 of
+   AlexNet (224), ResNeXt-50 32x4d (224) and Inception-v3 (299).
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -4660,12 +4695,640 @@ def infer_phase(seed: int, model) -> dict:
     return out
 
 
+def params_copy(tree) -> dict:
+    """A detached copy of a ``{node key: {name: tensor}}`` tree."""
+    return {k: {n: t.detach().clone() for n, t in g.items()} for k, g in tree.items()}
+
+
+def load_tree(dst, src) -> None:
+    """Copy ``src`` into the tensors of ``dst`` (the same keys), in place."""
+    import torch
+
+    with torch.no_grad():
+        for k, g in dst.items():
+            for n, t in g.items():
+                t.copy_(src[k][n])
+
+
+def step_gates(tag: str, dtype, before, a, b, loss_a: float, loss_b: float,
+               loss_rtol=None) -> dict:
+    """One training step two ways (``a`` the reference, ``b`` the other),
+    from the weights ``before``: the training phase's gates (fp32: loss
+    rtol 1e-5 unless ``loss_rtol``, parameters within PARAM_STEP_RTOL of
+    the step's largest update; 2-byte: loss within the type's roundoff,
+    each parameter within 2 ulps + HALF_PARAM_SHARE of its tensor's
+    update). Returns the differences and whether they are bitwise equal."""
+    import numpy as np
+    import torch
+
+    type_name = str(dtype)[6:]
+    half = type_name in HALF_BITS
+    leaves = [(k, n) for k in a for n in a[k]]
+    moved = max(float((a[k][n].float() - before[k][n].float()).abs().max()) for k, n in leaves)
+    err = max(float((a[k][n].float() - b[k][n].float()).abs().max()) for k, n in leaves)
+    rtol = HALF_LOSS_RTOL[type_name] if half else (loss_rtol or LOSS_RTOL)
+    if not (np.isfinite(loss_b) and abs(loss_b - loss_a) <= rtol * abs(loss_a)):
+        raise AssertionError(f"{tag}: loss {loss_b} vs {loss_a} beyond rtol {rtol}")
+    if not 0 < moved:
+        raise AssertionError(f"{tag}: the step moved no parameter")
+    if half:
+        for k, n in leaves:
+            x, y = a[k][n].float(), b[k][n].float()
+            lim = 2 * half_ulp(torch.maximum(x.abs(), y.abs()), dtype) + HALF_PARAM_SHARE * float(
+                (x - before[k][n].float()).abs().max())
+            if ((x - y).abs() > lim).any():
+                raise AssertionError(f"{tag}: {k}.{n} beyond 2 ulps + {HALF_PARAM_SHARE} of "
+                                     "the update")
+    elif err > PARAM_STEP_RTOL * moved:
+        raise AssertionError(f"{tag}: parameters differ by {err}, more than {PARAM_STEP_RTOL} "
+                             f"of the step's largest update {moved}")
+    bitwise = loss_a == loss_b and all(torch.equal(a[k][n], b[k][n]) for k, n in leaves)
+    return {"loss_a": loss_a, "loss_b": loss_b, "param_max_abs_diff": err,
+            "param_max_update": moved, "bitwise_equal": bitwise}
+
+
+def measured_step(ex, inputs, label, key) -> tuple:
+    """One ``train_batch``: (loss, host ms, peak device bytes over the
+    step, device bytes allocated before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(ex.train_batch(inputs, label, rng=key)["loss"])
+    torch.cuda.synchronize()
+    return loss, 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated(), base
+
+
+def busy_share(fn) -> tuple:
+    """(wall s, device busy s) of ``fn()`` under torch.profiler: the
+    durations of its GPU kernels and copies, summed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device activity")
+    return wall, us / 1e6
+
+
+def trainer_phase(seed: int, dtype=None) -> dict:
+    """A real job's trainer at BERT-Base width (12 x 768, 12 heads, ff
+    3072, seq 128, batch 32, SGD lr 0.01, MSE) in ``dtype``: remat on
+    against off and ``grad_accum_steps=4`` against 1 from the same weights
+    and step key (gates, launches, peak memory, step ms), then the
+    DataLoader feeding 8 shuffled batches against pre-staged ones."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import DataType, LossType, MetricsType
+    from flexflow_tpu_torch.generation import prng
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    cfg = bert_base(dtype or DataType.FLOAT)
+    batch, layers = 32, cfg.num_layers
+    form = FLASH_FORMS[str(cfg.dtype.torch)[6:]]
+    tag = {"": "fp32", "_bf16": "bf16", "_f16": "fp16"}[form]
+    t_phase = time.perf_counter()
+
+    def compiled(graph=None, **kw):
+        conf = FFConfig(batch_size=batch, seed=seed, **kw)
+        m = (build_transformer(conf, cfg) if graph is None
+             else FFModel.from_graph(graph, conf))
+        return m.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR,
+                         metrics=[MetricsType.MEAN_SQUARED_ERROR])
+
+    plain = compiled()
+    remat = compiled(plain.graph, remat_blocks=True)
+    accum = compiled(plain.graph, grad_accum_steps=4)
+    blocks = remat.executor._remat_plan[1]
+    if len(blocks) != layers:
+        raise AssertionError(f"{tag}: remat found {len(blocks)} blocks, expected {layers}")
+    snap = params_copy(plain.executor.params)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    shape = (batch, cfg.seq_length, cfg.hidden_size)
+    x = torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype.torch)
+    y = torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype.torch)
+    key = tuple(t.cuda() for t in prng.split(prng.key(seed + 9))[1])
+
+    def per_step(fwd):
+        return {f"{k}{f}": (n if f == form else 0)
+                for k, n in (("flash_fwd", fwd), ("flash_bwd_dq", layers),
+                             ("flash_bwd_dkv", layers))
+                for f in FLASH_FORMS.values()}
+
+    want = {"plain": per_step(layers), "remat": per_step(2 * layers),
+            "accum": {k: 4 * n for k, n in per_step(layers).items()}}
+    models = {"plain": plain, "remat": remat, "accum": accum}
+    runs = {name: [] for name in models}
+    after = {}
+    launches = {name: {k: 0 for k in want["plain"]} for name in models}
+    # warm-up once each, then in turns: plain, remat, accum, accum, remat, plain
+    order = ["plain", "remat", "accum", "plain", "remat", "accum", "accum", "remat", "plain"]
+    for i, name in enumerate(order):
+        ex = models[name].executor
+        load_tree(ex.params, snap)
+        fa.reset_launch_counts()
+        loss, ms, peak, base = measured_step(ex, [x], y, key)
+        got = dict(fa.LAUNCHES)
+        if got != want[name]:
+            raise AssertionError(f"trainer {tag} {name}: a step launched {got}, expected "
+                                 f"{want[name]}")
+        for k, n in got.items():
+            launches[name][k] += n
+        if i >= len(models):  # the warm-up steps are not timed
+            runs[name].append({"loss": loss, "ms": ms, "peak_bytes": peak,
+                               "peak_over_before_bytes": peak - base})
+        if name not in after:
+            after[name] = (loss, params_copy(ex.params))
+    gates = {
+        "remat": step_gates(f"trainer {tag} remat vs plain", cfg.dtype.torch, snap,
+                            after["plain"][1], after["remat"][1], after["plain"][0],
+                            after["remat"][0]),
+        "accum": step_gates(f"trainer {tag} accumulation 4 vs 1", cfg.dtype.torch, snap,
+                            after["plain"][1], after["accum"][1], after["plain"][0],
+                            after["accum"][0]),
+    }
+    del after
+    for name in ("remat", "accum"):
+        if max(r["peak_bytes"] for r in runs[name]) >= min(r["peak_bytes"] for r in runs["plain"]):
+            raise AssertionError(f"trainer {tag}: {name}'s peak memory "
+                                 f"{[r['peak_bytes'] for r in runs[name]]} is not below the "
+                                 f"plain step's {[r['peak_bytes'] for r in runs['plain']]}")
+    for m in (remat, accum):
+        del m.executor
+    del remat, accum, models
+    torch.cuda.empty_cache()
+
+    # the DataLoader: 8 shuffled batches from host memory into train_batch,
+    # against the same batches staged on the card first (in turns)
+    n = 8 * batch
+    rs = np.random.RandomState(seed + 3)
+    hx = torch.from_numpy(rs.randn(n, cfg.seq_length, cfg.hidden_size).astype(np.float32))
+    hy = torch.from_numpy(rs.randn(n, cfg.seq_length, cfg.hidden_size).astype(np.float32))
+    hx, hy = hx.to(cfg.dtype.torch), hy.to(cfg.dtype.torch)
+    loader = plain.create_data_loader(hx, hy, batch_size=batch, shuffle=True, seed=seed)
+    order = [np.random.RandomState(seed + e).permutation(n) for e in range(3)]
+    ex = plain.executor
+
+    def from_loader():
+        return [float(ex.train_batch(ins, lab, rng=key)["loss"]) for ins, lab in loader.epoch()]
+
+    def staged(epoch):
+        """The loader's ``epoch`` (its permutation), staged on the card."""
+        idx = [torch.from_numpy(order[epoch][i * batch:(i + 1) * batch]) for i in range(8)]
+        bx = [hx[i].cuda() for i in idx]
+        by = [hy[i].cuda() for i in idx]
+        torch.cuda.synchronize()
+        return lambda: [float(ex.train_batch([a], b, rng=key)["loss"]) for a, b in zip(bx, by)]
+
+    fa.reset_launch_counts()
+    dl = {"loader": [], "staged": []}
+    # in turns: the loader's epoch 0, staged epoch 0, staged epoch 1, the loader's epoch 1
+    for name, epoch in (("loader", 0), ("staged", 0), ("staged", 1), ("loader", 1)):
+        load_tree(ex.params, snap)
+        fn = from_loader if name == "loader" else staged(epoch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = fn()
+        torch.cuda.synchronize()
+        dl[name].append({"epoch": epoch, "ms_per_step": 1e3 * (time.perf_counter() - t0) / 8,
+                         "losses": losses})
+    # an epoch's batches give the same losses from either source
+    loss_rtol = HALF_LOSS_RTOL.get(str(cfg.dtype.torch)[6:], LOSS_RTOL)
+    for a, b in zip(dl["loader"], dl["staged"]):
+        if not all(abs(u - v) <= loss_rtol * abs(v) for u, v in zip(a["losses"], b["losses"])):
+            raise AssertionError(f"trainer {tag}: the loader's batches gave other losses than "
+                                 f"the staged ones: {a['losses']} vs {b['losses']}")
+        a["losses_bitwise_equal_to_staged"] = a["losses"] == b["losses"]
+    for name in ("loader", "staged"):  # the loader's epoch 2, the same batches staged
+        load_tree(ex.params, snap)
+        wall, busy = busy_share(from_loader if name == "loader" else staged(2))
+        dl[f"{name}_profiled"] = {"wall_s": wall, "device_busy_s": busy,
+                                  "device_busy_share": busy / wall}
+    launches["dataloader"] = dict(fa.LAUNCHES)
+    del plain, ex, loader, x, y
+    torch.cuda.empty_cache()
+    out = {"dtype": tag, "layers": layers, "batch": batch, "runs": runs, "gates": gates,
+           "launches": launches, "dataloader": dl, "phase_s": time.perf_counter() - t_phase}
+    print(f"trainer ({tag}): " + json.dumps(out))
+    return out
+
+
+def trainer_resume_data(seed: int, steps: int = 4):
+    """The resume cell's batches and step keys, made on the host from
+    ``seed`` (the same in the parent and in the resuming child): bert-cls
+    at full width, batch 32."""
+    import numpy as np
+
+    from flexflow_tpu_torch.generation import prng
+
+    kw, _, batch = HEADS_CELLS["bert-cls"]
+    rs = np.random.RandomState(seed + 13)
+    x = rs.randint(0, kw["vocab_size"], (steps * batch, kw["seq_length"])).astype(np.int32)
+    y = rs.randint(0, kw["num_classes"], (steps * batch, 1)).astype(np.int32)
+    keys = prng.split(prng.key(seed + 17), steps)
+    return batch, [(x[i * batch:(i + 1) * batch], y[i * batch:(i + 1) * batch], keys[i])
+                   for i in range(steps)]
+
+
+def resume_model(seed: int, graph_json: str):
+    """bert-cls over the saved graph (its guids, so its dropout masks),
+    compiled as the resume cell trains it."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.graph import PCGraph
+    from flexflow_tpu_torch.core.types import LossType, MetricsType
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    _, _, batch = HEADS_CELLS["bert-cls"]
+    m = FFModel.from_graph(PCGraph.from_json(graph_json), FFConfig(batch_size=batch, seed=seed))
+    return m.compile(optimizer=SGDOptimizer(lr=0.01),
+                     loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                     metrics=[MetricsType.ACCURACY])
+
+
+def resume_child(seed: int, ckpt_dir: str) -> int:
+    """The resuming process of the checkpoint cell (``chip_smoke.py
+    --resume-child DIR``): rebuilds bert-cls from DIR's graph, restores
+    the newest checkpoint, runs steps 3-4 and writes their losses and the
+    final parameters to DIR/resumed.pt."""
+    import torch
+
+    from flexflow_tpu_torch.runtime import CheckpointManager
+
+    with open(os.path.join(ckpt_dir, "graph.json")) as f:
+        model = resume_model(seed, f.read())
+    step = CheckpointManager(os.path.join(ckpt_dir, "ckpt"), max_to_keep=2).restore_latest(
+        model.executor)
+    _, data = trainer_resume_data(seed)
+    losses = [float(model.executor.train_batch([x], y, rng=tuple(k.cuda() for k in key))["loss"])
+              for x, y, key in data[step:]]
+    torch.save({"step": step, "losses": losses,
+                "params": {k: {n: p.detach().cpu() for n, p in g.items()}
+                           for k, g in model.executor.params.items()}},
+               os.path.join(ckpt_dir, "resumed.pt"))
+    return 0
+
+
+def checkpoint_phase(seed: int) -> dict:
+    """bert-cls at full width with dropout 0.1 trains 4 steps on explicit
+    keys; ``CheckpointManager(max_to_keep=2)`` saves after steps 1 and 2;
+    a fresh process rebuilds the model from its graph, restores the newest
+    and runs steps 3-4, whose losses and final parameters must equal the
+    uninterrupted run's bit for bit. Then a corrupted newest falls back to
+    step 1, and a ``checkpoint.save`` fault leaves no step dir."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flexflow_tpu_torch.models import TransformerConfig, build_transformer
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.runtime import CheckpointManager
+    from flexflow_tpu_torch.runtime.faults import FaultInjected, FaultPlan
+
+    t_phase = time.perf_counter()
+    kw, _, batch = HEADS_CELLS["bert-cls"]
+    root = tempfile.mkdtemp(prefix="ff_ckpt_")
+    try:
+        graph_json = build_transformer(FFConfig(batch_size=batch, seed=seed),
+                                       TransformerConfig(**kw)).graph.to_json()
+        with open(os.path.join(root, "graph.json"), "w") as f:
+            f.write(graph_json)
+        model = resume_model(seed, graph_json)
+        ex = model.executor
+        mgr = CheckpointManager(os.path.join(root, "ckpt"), max_to_keep=2)
+        _, data = trainer_resume_data(seed)
+        fa.reset_launch_counts()
+        losses, save_s, step1 = [], [], None
+        for i, (x, y, key) in enumerate(data):
+            losses.append(float(ex.train_batch([x], y, rng=tuple(k.cuda() for k in key))["loss"]))
+            if i < 2:
+                t0 = time.perf_counter()
+                mgr.save(ex, i + 1)
+                save_s.append(time.perf_counter() - t0)
+            if i == 0:
+                step1 = params_copy(ex.params)
+        launches = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                               "--resume-child", root], capture_output=True, text=True,
+                              timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"resume child failed ({proc.returncode}): {proc.stderr[-3000:]}")
+        resumed = torch.load(os.path.join(root, "resumed.pt"), weights_only=True)
+        if resumed["step"] != 2 or resumed["losses"] != losses[2:]:
+            raise AssertionError(f"resumed from step {resumed['step']} with losses "
+                                 f"{resumed['losses']}, the uninterrupted run {losses[2:]}")
+        diff = [f"{k}.{n}" for k, g in ex.params.items() for n, p in g.items()
+                if not torch.equal(p.detach().cpu(), resumed["params"][k][n])]
+        if diff:
+            raise AssertionError(f"resumed parameters differ from the uninterrupted run's: "
+                                 f"{diff[:5]}")
+        # a torn newest (cut to half its bytes): restore_latest falls back to step 1
+        torn = os.path.join(root, "ckpt", "step_2", "train_state.pt")
+        os.truncate(torn, os.path.getsize(torn) // 2)
+        back = mgr.restore_latest(ex)
+        if back != 1 or any(not torch.equal(p, step1[k][n]) for k, g in ex.params.items()
+                            for n, p in g.items()):
+            raise AssertionError(f"a corrupt newest restored step {back}, not step 1's weights")
+        with FaultPlan().on("checkpoint.save", mode="error").active():
+            try:
+                mgr.save(ex, 3)
+                raise AssertionError("the checkpoint.save fault did not fire")
+            except FaultInjected:
+                pass
+        left = sorted(os.listdir(mgr.directory))
+        if left != ["step_1", "step_2"]:
+            raise AssertionError(f"after a failed save the checkpoint dir holds {left}")
+        ckpt_bytes = os.path.getsize(os.path.join(root, "ckpt", "step_1", "train_state.pt"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model, ex, step1
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "resumed_losses": resumed["losses"], "bitwise_equal": True,
+           "save_s": save_s, "checkpoint_bytes": ckpt_bytes, "child_s": child_s,
+           "fallback_step": back, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print("trainer checkpoint (bert-cls fp32, dropout 0.1): " + json.dumps(out))
+    return out
+
+
+def sgd_first_step_f64(graph, params, state, x, y, lr: float) -> dict:
+    """SGD's first step (-lr * grad; sparse categorical cross-entropy) of
+    ``graph`` from ``params`` and ``state`` (by node key), run in float64
+    on the CPU: the graph with every float32 tensor made float64."""
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.graph import PCGraph
+    from flexflow_tpu_torch.core.types import CompMode
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.runtime import losses
+
+    g64 = PCGraph.from_json(graph.to_json().replace('"float32"', '"float64"'))
+    m = FFModel.from_graph(g64, FFConfig(batch_size=x.shape[0]), device="cpu")
+    ex = m.compile(comp_mode=CompMode.INFERENCE).executor
+    load_tree(ex.params, params)
+    load_tree(ex.state, state)
+    with torch.enable_grad():
+        final = ex._forward_impl(ex.params, ex.state, [torch.from_numpy(x).double()],
+                                 training=True)[0][-1]
+        losses.sparse_categorical_crossentropy(final, torch.from_numpy(y)).backward()
+    return {k: {n: -lr * t.grad for n, t in g.items()} for k, g in ex.params.items()}
+
+
+def vision_kernel_group(name: str) -> str:
+    """A device kernel's group in a CNN step: cuDNN's convolutions,
+    BatchNorm and elementwise, GEMMs, or other (pooling, softmax, copies)."""
+    low = name.lower()
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn", "winograd",
+                              "implicit", "im2col", "col2im")):
+        return "convolution"
+    if any(k in low for k in ("gemm", "cutlass", "nvjet", "xmma")):
+        return "GEMM"
+    if any(k in low for k in ("pool", "softmax", "memcpy", "memset")):
+        return "other"
+    return "BatchNorm and elementwise"
+
+
+def vision_phase(seed: int) -> dict:
+    """ResNet-50 at its published ImageNet width (3 x 224 x 224, 1000
+    classes, batch 32, fp32; SGD lr 0.01, momentum 0.9, sparse categorical
+    cross-entropy, accuracy): one step at batch 4 on the card against the
+    port on the CPU from the same weights; warm-up and 10 timed steps at
+    batch 32 (images/s, busy share, device ms by kernel group, peak
+    memory); the same step with remat (stage 3's 5 blocks) against
+    without; eval against the CPU's; one forward of AlexNet, ResNeXt-50
+    and Inception-v3 at batch 8."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import CompMode, LossType, MetricsType, OpType
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.models import (build_alexnet, build_inception_v3, build_resnet50,
+                                           build_resnext50)
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    t_phase = time.perf_counter()
+    classes, hw = 1000, 224
+
+    def compiled(m):
+        return m.compile(optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+                         loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                         metrics=[MetricsType.ACCURACY])
+
+    def images(n, s):
+        rs = np.random.RandomState(s)
+        return (rs.randn(n, 3, hw, hw).astype(np.float32),
+                rs.randint(0, classes, (n,)).astype(np.int32))
+
+    # --- the card against the CPU, one step at batch 4
+    card = compiled(build_resnet50(FFConfig(batch_size=4, seed=seed), classes, hw))
+    host = compiled(FFModel.from_graph(card.graph, FFConfig(batch_size=4, seed=seed),
+                                       device="cpu"))
+    for tree in ("params", "state"):
+        load_tree(getattr(host.executor, tree), getattr(card.executor, tree))
+    before_p, snap_s4 = params_copy(host.executor.params), params_copy(host.executor.state)
+    x4, y4 = images(4, seed + 21)
+    t0 = time.perf_counter()
+    lc = float(card.executor.train_batch([x4], y4)["loss"])
+    torch.cuda.synchronize()
+    card_step_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lh = float(host.executor.train_batch([x4], y4)["loss"])
+    cpu_step_s = time.perf_counter() - t0
+    if not (np.isfinite(lc) and abs(lc - lh) <= 1e-4 * abs(lh)):
+        raise AssertionError(f"vision: card loss {lc} vs CPU {lh} beyond rtol 1e-4")
+    # the same step in float64 on the CPU (SGD's first step: -lr * grad),
+    # the yardstick of how close two float32 runs of this step can be
+    t0 = time.perf_counter()
+    upd64 = sgd_first_step_f64(card.graph, before_p, snap_s4, x4, y4, lr=0.01)
+    f64_s = time.perf_counter() - t0
+    hp, cp = host.executor.params, card.executor.params
+
+    def off(tree, k, n):  # a step's update against the float64 one
+        return float(((tree[k][n].detach().cpu().double() - before_p[k][n].double())
+                      - upd64[k][n]).abs().max())
+
+    moved = max(float((hp[k][n].detach() - before_p[k][n]).abs().max()) for k in hp for n in hp[k])
+    perr = max(float((cp[k][n].detach().cpu() - hp[k][n].detach()).abs().max())
+               for k in hp for n in hp[k])
+    cpu_off = max(off(hp, k, n) for k in hp for n in hp[k])
+    card_off = max(off(cp, k, n) for k in hp for n in hp[k])
+    # PARAM gate: 1e-3 of the largest change, or, where float32 itself is
+    # farther from float64 than that (this step is: ~2% on the CPU too),
+    # twice the CPU port's own distance from the float64 step
+    param_lim = max(1e-3 * moved, 2 * cpu_off)
+    if not 0 < moved or perr > param_lim or card_off > param_lim:
+        raise AssertionError(f"vision: card params differ from the CPU's by {perr} and from the "
+                             f"float64 step by {card_off}, beyond {param_lim} (the CPU's own "
+                             f"distance from float64 {cpu_off}, the largest change {moved})")
+    hs, cs_ = host.executor.state, card.executor.state
+    serr = 0.0
+    for k in hs:
+        for n in hs[k]:
+            e = float((cs_[k][n].cpu() - hs[k][n]).abs().max())
+            if e > 1e-3 * float(hs[k][n].abs().max()):
+                raise AssertionError(f"vision: running stat {k}.{n} differs by {e}")
+            serr = max(serr, e)
+    # eval mode reads the running statistics: the card's weights and stats on both
+    for tree in ("params", "state"):
+        load_tree(getattr(host.executor, tree), getattr(card.executor, tree))
+    pe = check_close("vision eval (card vs CPU)", card.predict(x4).cpu(), host.predict(x4))
+    n_bn = sum(1 for n in card.graph.nodes.values() if n.op_type == OpType.BATCHNORM)
+    del host, before_p
+    card_vs_cpu = {"loss_card": lc, "loss_cpu": lh, "param_max_abs_diff": perr,
+                   "param_max_update": moved, "card_update_off_f64": card_off,
+                   "cpu_update_off_f64": cpu_off, "param_gate": param_lim, "f64_step_s": f64_s,
+                   "running_stat_max_abs_diff": serr,
+                   "eval_max_abs_diff": pe, "card_step_s": card_step_s, "cpu_step_s": cpu_step_s,
+                   "batchnorms": n_bn}
+
+    # --- timed steps at batch 32
+    batch, warm, steps = 32, 2, 10
+    model = compiled(build_resnet50(FFConfig(batch_size=batch, seed=seed), classes, hw))
+    ex = model.executor
+    snap_p, snap_s = params_copy(ex.params), params_copy(ex.state)
+    n_params = sum(p.numel() for g in ex.params.values() for p in g.values())
+    xb, yb = images(batch, seed + 22)
+    x, y = torch.from_numpy(xb).cuda(), torch.from_numpy(yb).cuda()
+    model.fit(x.repeat(warm, 1, 1, 1), y.repeat(warm), verbose=False)
+    load_tree(ex.params, snap_p)
+    load_tree(ex.state, snap_s)
+    ex.opt_state = ex.optimizer.init_state(ex.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.fit(x.repeat(steps, 1, 1, 1), y.repeat(steps), verbose=False, trace_window=steps)
+    peak = torch.cuda.max_memory_allocated()
+    losses, elapsed = model.step_losses, model.last_elapsed
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"vision: losses not finite or not falling: {losses}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        model.fit(x.repeat(2, 1, 1, 1), y.repeat(2), verbose=False)
+        prof_wall = time.perf_counter() - tp
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    groups = {"convolution": 0.0, "BatchNorm and elementwise": 0.0, "GEMM": 0.0, "other": 0.0}
+    for name, us in by_name.items():
+        groups[vision_kernel_group(name)] += us / 1e3 / 2
+    step_device_ms = sum(by_name.values()) / 1e3 / 2
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+
+    # --- remat: the same step with stage 3's blocks rematerialized
+    rm = compiled(FFModel.from_graph(model.graph, FFConfig(batch_size=batch, seed=seed,
+                                                            remat_blocks=True)))
+    _, blocks, _ = rm.executor._remat_plan
+    block_names = [[n.name for n in b.nodes] for b in blocks]
+    if len(blocks) != 5 or not all(any(n.op_type == OpType.BATCHNORM for n in b.nodes)
+                                   for b in blocks):
+        raise AssertionError(f"vision remat: blocks {block_names}")
+    step = {}
+    for name, m in (("plain", model), ("remat", rm), ("remat", rm), ("plain", model)):
+        e = m.executor
+        load_tree(e.params, snap_p)
+        load_tree(e.state, snap_s)
+        e.opt_state = e.optimizer.init_state(e.params)
+        loss, ms, pk, base = measured_step(e, [x], y, None)
+        step.setdefault(name, {"runs": []})["runs"].append(
+            {"loss": loss, "ms": ms, "peak_bytes": pk, "peak_over_before_bytes": pk - base})
+        if "params" not in step[name]:
+            step[name].update(params=params_copy(e.params), state=params_copy(e.state), loss=loss)
+    a, b = step["plain"], step["remat"]
+    if abs(a["loss"] - b["loss"]) > 1e-4 * abs(a["loss"]):
+        raise AssertionError(f"vision remat: loss {b['loss']} vs {a['loss']}")
+    rmoved = max(float((a["params"][k][n] - snap_p[k][n]).abs().max()) for k in snap_p
+                 for n in snap_p[k])
+    rerr = max(float((a["params"][k][n] - b["params"][k][n]).abs().max()) for k in snap_p
+               for n in snap_p[k])
+    if rerr > param_lim / moved * rmoved:
+        raise AssertionError(f"vision remat: params differ by {rerr}, beyond the card-against-"
+                             f"CPU gate's share {param_lim / moved} of the update {rmoved}")
+    rserr = 0.0
+    for k in snap_s:
+        for n in snap_s[k]:
+            e = float((a["state"][k][n] - b["state"][k][n]).abs().max())
+            if e > 1e-3 * float(a["state"][k][n].abs().max()):
+                raise AssertionError(f"vision remat: running stat {k}.{n} differs by {e}: "
+                                     "applied other than once")
+            rserr = max(rserr, e)
+    bitwise = all(torch.equal(a["params"][k][n], b["params"][k][n]) for k in snap_p
+                  for n in snap_p[k])
+    if max(r["peak_bytes"] for r in b["runs"]) >= min(r["peak_bytes"] for r in a["runs"]):
+        raise AssertionError(f"vision remat: peak memory not lower ({b['runs']} vs {a['runs']})")
+    remat = {"blocks": len(blocks), "block_nodes": block_names[0],
+             "runs": {k: step[k]["runs"] for k in step}, "param_max_abs_diff": rerr,
+             "param_max_update": rmoved, "running_stat_max_abs_diff": rserr,
+             "bitwise_equal": bitwise}
+    del rm, step, a, b, model, ex
+    torch.cuda.empty_cache()
+
+    # --- the other builders: one forward each at batch 8, published sizes
+    fwd = {}
+    for name, build, size in (("alexnet", build_alexnet, 224), ("resnext50_32x4d", build_resnext50, 224),
+                              ("inception_v3", build_inception_v3, 299)):
+        m = build(FFConfig(batch_size=8, seed=seed), classes, size)
+        m.compile(comp_mode=CompMode.INFERENCE)
+        xi = torch.randn((8, 3, size, size), generator=torch.Generator(device="cuda")
+                         .manual_seed(seed), device="cuda")
+        probs = m.predict(xi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = m.predict(xi)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if (tuple(probs.shape) != (8, classes) or not torch.isfinite(probs).all()
+                or float((probs.sum(-1) - 1).abs().max()) > 1e-4):
+            raise AssertionError(f"vision {name}: output {tuple(probs.shape)} not 8 rows of "
+                                 "probabilities")
+        fwd[name] = {"image_hw": size, "forward_ms": ms,
+                     "params": sum(p.numel() for g in m.executor.params.values()
+                                   for p in g.values())}
+        del m, probs
+        torch.cuda.empty_cache()
+    out = {"model": "resnet50", "image_hw": hw, "classes": classes, "batch": batch,
+           "params": n_params, "card_vs_cpu": card_vs_cpu, "warmup_steps": warm,
+           "timed_steps": steps, "elapsed_s": elapsed, "step_ms": 1e3 * elapsed / steps,
+           "images_per_s": steps * batch / elapsed, "loss_first": losses[0],
+           "loss_last": losses[-1], "peak_mem_gb": peak / 1e9,
+           "profiled_wall_s": prof_wall, "step_device_ms": step_device_ms,
+           "device_busy_share_of_timed_step": step_device_ms / (1e3 * elapsed / steps),
+           "step_device_ms_by_group": groups,
+           "top_device_us": {n[:100]: us / 2 for n, us in top},
+           "remat": remat, "forward_other": fwd, "phase_s": time.perf_counter() - t_phase}
+    print("vision (ResNet-50, 224 x 224, batch 32, fp32): " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed for weights, prompts and inputs")
     ap.add_argument("--durable-child", metavar="WAL_DIR",
                     help="serve leg 1 of the durable phase from WAL_DIR (started by the "
                          "durable phase itself, which kills it)")
+    ap.add_argument("--resume-child", metavar="CKPT_DIR",
+                    help="resume the checkpoint cell from CKPT_DIR (started by the trainer "
+                         "phase itself)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4685,6 +5348,8 @@ def main(argv=None) -> int:
     # them off changes no bit of a step (tools/reduction_probe.py)
     if args.durable_child:
         return durable_child(args.seed, args.durable_child)
+    if args.resume_child:
+        return resume_child(args.seed, args.resume_child)
 
     card = card_line()
     print(card)
@@ -4740,6 +5405,14 @@ def main(argv=None) -> int:
     heads["seq2seq"] = heads_phase(args.seed, "seq2seq", steps=5)[0]
     torch.cuda.empty_cache()
     fp32_heads = ("bert-cls", "bert-mlm", "seq2seq", "infer")
+    trainer = {"fp32": trainer_phase(args.seed), "bf16": trainer_phase(args.seed, DataType.BFLOAT16)}
+    trainer["checkpoint"] = checkpoint_phase(args.seed)
+    vision = vision_phase(args.seed)
+
+    def trainer_launches(name):  # the trainer phase's launches of a flash form
+        return (sum(sum(r["launches"][k][name] for k in r["launches"])
+                    for r in (trainer["fp32"], trainer["bf16"]))
+                + trainer["checkpoint"]["launches"][name])
 
     def record(name, replaces, row, launches, source=SOURCE):
         return {
@@ -4770,7 +5443,8 @@ def main(argv=None) -> int:
                dict(flash["train"][name], max_abs_err=max(
                    flash["train"][name]["max_abs_err"], flash["causal512"][name]["max_abs_err"])),
                training["launches"][name]
-               + sum(heads[cell]["launches"][name] for cell in fp32_heads), FLASH_SOURCE)
+               + sum(heads[cell]["launches"][name] for cell in fp32_heads)
+               + trainer_launches(name), FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
         record(f"{name}{form}", f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
@@ -4778,8 +5452,8 @@ def main(argv=None) -> int:
                    flash["train"][f"{name}{form}"]["max_abs_err"],
                    flash["causal512"][f"{name}{form}"]["max_abs_err"])),
                run["launches"][f"{name}{form}"]
-               + (heads["bert-cls bf16"]["launches"][f"{name}{form}"] if form == "_bf16" else 0),
-               FLASH_SOURCE)
+               + (heads["bert-cls bf16"]["launches"][f"{name}{form}"] if form == "_bf16" else 0)
+               + trainer_launches(f"{name}{form}"), FLASH_SOURCE)
         for form, run in (("_bf16", training_bf16), ("_f16", training_f16))
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
@@ -4812,6 +5486,39 @@ def main(argv=None) -> int:
               f"(CUDA events), loss without dropout {h['loss_without_dropout'][0]:.5f} -> "
               f"{h['loss_without_dropout'][1]:.5f}; flash launches by attention kind "
               + json.dumps(h["flash_launches_by_attention_kind"]))
+    for t in (trainer["fp32"], trainer["bf16"]):
+        r = t["runs"]
+        print(f"{card}: trainer, BERT-Base {t['dtype']} (12 x 768, seq 128, batch 32): step ms "
+              + "; ".join(f"{k} " + ", ".join(f"{x['ms']:.3f}" for x in r[k]) for k in r)
+              + "; peak GB " + "; ".join(f"{k} " + ", ".join(f"{x['peak_bytes'] / 1e9:.3f}"
+                                                        for x in r[k]) for k in r)
+              + f"; remat bitwise {t['gates']['remat']['bitwise_equal']}, accumulation param "
+              f"diff {t['gates']['accum']['param_max_abs_diff']:.3e} of update "
+              f"{t['gates']['accum']['param_max_update']:.3e}; DataLoader ms a step "
+              + ", ".join(f"{x['ms_per_step']:.3f}" for x in t["dataloader"]["loader"])
+              + " vs staged " + ", ".join(f"{x['ms_per_step']:.3f}" for x in t["dataloader"]["staged"])
+              + f", busy share {t['dataloader']['loader_profiled']['device_busy_share']:.3f} vs "
+              f"{t['dataloader']['staged_profiled']['device_busy_share']:.3f}")
+    ck = trainer["checkpoint"]
+    print(f"{card}: checkpoint and resume, bert-cls fp32: {ck['checkpoint_bytes']} bytes a "
+          f"checkpoint, save s " + ", ".join(f"{x:.3f}" for x in ck["save_s"])
+          + f", resuming process {ck['child_s']:.1f} s, resumed losses bit for bit "
+          f"{ck['resumed_losses']}, torn newest fell back to step {ck['fallback_step']}")
+    v = vision
+    print(f"{card}: ResNet-50 (224 x 224, 1000 classes, batch 32, fp32, TF32 off): "
+          f"{v['images_per_s']:.2f} images/s, step {v['step_ms']:.3f} ms, device ms a step "
+          f"{v['step_device_ms']:.3f} (" + ", ".join(
+              f"{g} {ms:.3f}" for g, ms in v["step_device_ms_by_group"].items())
+          + f"), busy share {v['device_busy_share_of_timed_step']:.3f}, peak "
+          f"{v['peak_mem_gb']:.3f} GB, loss {v['loss_first']:.5f} -> {v['loss_last']:.5f}; "
+          f"card vs CPU loss {v['card_vs_cpu']['loss_card']:.6f} vs "
+          f"{v['card_vs_cpu']['loss_cpu']:.6f}; remat step ms "
+          + ", ".join(f"{x['ms']:.3f}" for x in v["remat"]["runs"]["remat"]) + " vs "
+          + ", ".join(f"{x['ms']:.3f}" for x in v["remat"]["runs"]["plain"]) + ", peak GB "
+          + ", ".join(f"{x['peak_bytes'] / 1e9:.3f}" for x in v["remat"]["runs"]["remat"])
+          + " vs " + ", ".join(f"{x['peak_bytes'] / 1e9:.3f}" for x in v["remat"]["runs"]["plain"])
+          + "; forward ms at batch 8 " + ", ".join(
+              f"{k} {f['forward_ms']:.2f}" for k, f in v["forward_other"].items()))
     inf = heads["infer"]
     print(f"{card}: bert_sst2 over /v2/models/bert_sst2/infer ({inf['clients']} clients, "
           f"{inf['requests']} requests of 1-4 rows): {inf['requests_per_s']:.2f} requests/s, "
@@ -4970,7 +5677,8 @@ def main(argv=None) -> int:
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training, "training_bf16": training_bf16,
                       "training_f16": training_f16, "heads": heads,
-                      "suffix_prefill_bodies": suffix_bodies}))
+                      "suffix_prefill_bodies": suffix_bodies, "trainer": trainer,
+                      "vision": vision}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,13 @@ class FFConfig:
     trace_window: int = 1
     # weights and the training loop's randomness derive from it
     seed: int = 0
+    # activation rematerialization: each repeated block's activations
+    # are recomputed in the backward pass instead of stored
+    # (torch.utils.checkpoint per block; engages at >= 2 blocks)
+    remat_blocks: bool = False
+    # gradient accumulation: microbatches per optimizer update (one
+    # microbatch's activations live at a time). 1 = off.
+    grad_accum_steps: int = 1
     # what the port does not run yet: each must keep its default
     num_nodes: int = 1
     workers_per_node: int = 0  # 0 -> the one local device

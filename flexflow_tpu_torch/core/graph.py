@@ -77,6 +77,10 @@ class PCGraph:
         g = n.guid if isinstance(n, Node) else n
         return sorted(self._in_edges.get(g, []), key=lambda e: e.dst_idx)
 
+    def out_edges(self, n: Node | int) -> List[Edge]:
+        g = n.guid if isinstance(n, Node) else n
+        return sorted(self._out_edges.get(g, []), key=lambda e: (e.src_idx, e.dst))
+
     def sink_nodes(self) -> List[Node]:
         return [self.nodes[g] for g in self.nodes if not self._out_edges[g]]
 

@@ -5,9 +5,11 @@ and KV cache (the JAX default), bfloat16 parameters and activations for
 training (``bench.py``'s BERT-Base cell), a bfloat16 or float16 KV cache
 for serving (``CacheConfig.dtype``), int32 tokens, positions and
 block tables, int64 for the sampler's emulated uint32 words, bool and
-float64 for Cast; the op types of the BERT graphs with their heads and
-of the seq2seq transformer, and the activation, aggregation, loss,
-metric and compilation modes around them.
+float64 for Cast; the op types of the BERT graphs with their heads, of
+the seq2seq transformer and of the vision models (convolution, pooling,
+BatchNorm, the elementwise unary and binary families), and the
+activation, pooling, aggregation, loss, metric and compilation modes
+around them.
 """
 from __future__ import annotations
 
@@ -50,6 +52,13 @@ class ActiMode(enum.Enum):
     GELU = "gelu"
 
 
+class PoolType(enum.Enum):
+    """Pooling modes (reference: ffconst.h PoolType)."""
+
+    MAX = "max"
+    AVG = "avg"
+
+
 class AggrMode(enum.Enum):
     """Embedding aggregation (reference: ffconst.h AggrMode)."""
 
@@ -88,15 +97,40 @@ class CompMode(enum.Enum):
 
 
 class OpType(enum.Enum):
-    """The operators of the ported training graph (values as in the JAX
+    """The operators of the ported training graphs (values as in the JAX
     package, so node keys read the same in both)."""
 
     INPUT = "input"
     LINEAR = "linear"
+    CONV2D = "conv2d"
+    POOL2D = "pool2d"
     EMBEDDING = "embedding"
     MULTIHEAD_ATTENTION = "multihead_attention"
     LAYERNORM = "layer_norm"
+    BATCHNORM = "batch_norm"
+    # elementwise binary
     EW_ADD = "add"
+    EW_SUB = "subtract"
+    EW_MUL = "multiply"
+    EW_DIV = "divide"
+    EW_MAX = "max"
+    EW_MIN = "min"
+    # elementwise unary
+    RELU = "relu"
+    SIGMOID = "sigmoid"
+    TANH = "tanh"
+    ELU = "elu"
+    GELU = "gelu"
+    IDENTITY = "identity"
+    EXP = "exp"
+    SIN = "sin"
+    COS = "cos"
+    RSQRT = "rsqrt"
+    POW = "pow"
+    SCALAR_ADD = "scalar_add"
+    SCALAR_SUB = "scalar_sub"
+    SCALAR_MUL = "scalar_multiply"
+    SCALAR_TRUE_DIV = "scalar_true_div"
     FLAT = "flat"
     RESHAPE = "reshape"
     TRANSPOSE = "transpose"

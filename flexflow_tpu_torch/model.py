@@ -1,6 +1,7 @@
 """FFModel: the model-building and training API (port of the builders
-the BERT graphs with their heads and the seq2seq transformer use, and of
-compile/fit/evaluate/predict, from ``flexflow_tpu/model.py``).
+the BERT graphs with their heads, the seq2seq transformer and the vision
+models use, of compile/fit/evaluate/predict, and of the checkpoint and
+data-loader entry points, from ``flexflow_tpu/model.py``).
 
 Building a layer records a graph node; ``compile`` makes a single-GPU
 :class:`~flexflow_tpu_torch.runtime.executor.Executor` and its weights;
@@ -28,14 +29,24 @@ from .config import FFConfig
 from .core.device import resolve_device
 from .core.graph import Node, PCGraph
 from .core.tensor import TensorSpec
-from .core.types import ActiMode, AggrMode, CompMode, DataType, LossType, MetricsType, OpType
+from .core.types import (
+    ActiMode,
+    AggrMode,
+    CompMode,
+    DataType,
+    LossType,
+    MetricsType,
+    OpType,
+    PoolType,
+)
 from .ops import get_op_def
 from .ops.attention import MultiHeadAttentionParams
-from .ops.elementwise import ElementBinaryParams
+from .ops.conv import Conv2DParams, Pool2DParams
+from .ops.elementwise import ElementBinaryParams, ElementUnaryParams
 from .ops.embedding import EmbeddingParams
 from .ops.io_ops import InputParams
 from .ops.linear import LinearParams
-from .ops.norm import LayerNormParams
+from .ops.norm import BatchNormParams, LayerNormParams
 from .ops.shape_ops import (
     CastParams,
     ConcatParams,
@@ -207,8 +218,120 @@ class FFModel:
         p = LayerNormParams(tuple(axes), elementwise_affine, eps, input.dtype)
         return self._one(OpType.LAYERNORM, p, [input], name=name)
 
+    def conv2d(
+        self,
+        input: Tensor,
+        out_channels: int,
+        kernel_h: int,
+        kernel_w: int,
+        stride_h: int,
+        stride_w: int,
+        padding_h: int,
+        padding_w: int,
+        activation: ActiMode = ActiMode.NONE,
+        groups: int = 1,
+        use_bias: bool = True,
+        name: str = "",
+    ) -> Tensor:
+        p = Conv2DParams(
+            out_channels, (kernel_h, kernel_w), (stride_h, stride_w), (padding_h, padding_w),
+            groups, use_bias, self._acti(activation), input.dtype,
+        )
+        return self._one(OpType.CONV2D, p, [input], name=name)
+
+    def pool2d(
+        self,
+        input: Tensor,
+        kernel_h: int,
+        kernel_w: int,
+        stride_h: int,
+        stride_w: int,
+        padding_h: int,
+        padding_w: int,
+        pool_type: PoolType = PoolType.MAX,
+        activation: ActiMode = ActiMode.NONE,
+        name: str = "",
+    ) -> Tensor:
+        p = Pool2DParams((kernel_h, kernel_w), (stride_h, stride_w), (padding_h, padding_w),
+                         pool_type, self._acti(activation))
+        return self._one(OpType.POOL2D, p, [input], name=name)
+
+    def batch_norm(self, input: Tensor, relu: bool = True, eps: float = 1e-5,
+                   name: str = "") -> Tensor:
+        p = BatchNormParams(relu=relu, eps=eps, dtype=input.dtype)
+        return self._one(OpType.BATCHNORM, p, [input], name=name)
+
+    # --------------------------------------------------------- elementwise
+    def _binary(self, op: OpType, x: Tensor, y: Tensor, inplace_a: bool = False,
+                name: str = "") -> Tensor:
+        return self._one(op, ElementBinaryParams(op, inplace_a), [x, y], name=name)
+
     def add(self, x: Tensor, y: Tensor, inplace_a: bool = False, name: str = "") -> Tensor:
-        return self._one(OpType.EW_ADD, ElementBinaryParams(OpType.EW_ADD, inplace_a), [x, y], name=name)
+        return self._binary(OpType.EW_ADD, x, y, inplace_a, name)
+
+    def subtract(self, x, y, inplace_a=False, name=""):
+        return self._binary(OpType.EW_SUB, x, y, inplace_a, name)
+
+    def multiply(self, x, y, inplace_a=False, name=""):
+        return self._binary(OpType.EW_MUL, x, y, inplace_a, name)
+
+    def divide(self, x, y, inplace_a=False, name=""):
+        return self._binary(OpType.EW_DIV, x, y, inplace_a, name)
+
+    def max(self, x, y, inplace_a=False, name=""):
+        return self._binary(OpType.EW_MAX, x, y, inplace_a, name)
+
+    def min(self, x, y, inplace_a=False, name=""):
+        return self._binary(OpType.EW_MIN, x, y, inplace_a, name)
+
+    def _unary(self, op: OpType, x: Tensor, scalar: float = 0.0, inplace: bool = False,
+               name: str = "") -> Tensor:
+        return self._one(op, ElementUnaryParams(op, scalar, inplace), [x], name=name)
+
+    def relu(self, x, inplace=True, name=""):
+        return self._unary(OpType.RELU, x, inplace=inplace, name=name)
+
+    def sigmoid(self, x, name=""):
+        return self._unary(OpType.SIGMOID, x, name=name)
+
+    def tanh(self, x, name=""):
+        return self._unary(OpType.TANH, x, name=name)
+
+    def elu(self, x, inplace=True, name=""):
+        return self._unary(OpType.ELU, x, inplace=inplace, name=name)
+
+    def gelu(self, x, name=""):
+        return self._unary(OpType.GELU, x, name=name)
+
+    def identity(self, x, name=""):
+        return self._unary(OpType.IDENTITY, x, name=name)
+
+    def exp(self, x, name=""):
+        return self._unary(OpType.EXP, x, name=name)
+
+    def sin(self, x, name=""):
+        return self._unary(OpType.SIN, x, name=name)
+
+    def cos(self, x, name=""):
+        return self._unary(OpType.COS, x, name=name)
+
+    def rsqrt(self, x, name=""):
+        return self._unary(OpType.RSQRT, x, name=name)
+
+    def pow(self, x, exponent: float, name=""):
+        return self._unary(OpType.POW, x, scalar=exponent, name=name)
+
+    def scalar_add(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OpType.SCALAR_ADD, x, scalar=scalar, inplace=inplace, name=name)
+
+    def scalar_sub(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OpType.SCALAR_SUB, x, scalar=scalar, inplace=inplace, name=name)
+
+    def scalar_multiply(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OpType.SCALAR_MUL, x, scalar=scalar, inplace=inplace, name=name)
+
+    def scalar_true_divide(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OpType.SCALAR_TRUE_DIV, x, scalar=scalar, inplace=inplace, name=name)
 
     # ----------------------------------------------------------- shape ops
     def reshape(self, input: Tensor, shape: Sequence[int], name: str = "") -> Tensor:
@@ -271,6 +394,8 @@ class FFModel:
             metric_types=tuple(metrics),
             optimizer=optimizer if comp_mode == CompMode.TRAINING else None,
             outputs=[(t.node.guid, t.idx) for t in self._outputs],
+            remat_blocks=self.config.remat_blocks,
+            grad_accum_steps=self.config.grad_accum_steps,
         )
         self.executor.initialize(torch.Generator().manual_seed(self._seed))
         return self
@@ -384,18 +509,47 @@ class FFModel:
         xs = [x] if isinstance(x, (np.ndarray, torch.Tensor)) else list(x)
         return self.executor.predict(xs)[0]
 
+    # --------------------------------------------- checkpoint / dataloader
+    def save_checkpoint(self, path: str, step: int = 0) -> None:
+        """Save weights, state and optimizer state (``runtime/checkpoint.py``)."""
+        from .runtime.checkpoint import save_checkpoint
+
+        if self.executor is None:
+            raise RuntimeError("call compile() first")
+        save_checkpoint(path, self.executor, step=step)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore a checkpoint into the compiled model; returns its step."""
+        from .runtime.checkpoint import restore_checkpoint
+
+        if self.executor is None:
+            raise RuntimeError("call compile() first")
+        return restore_checkpoint(path, self.executor)
+
+    def create_data_loader(self, x, y, batch_size: Optional[int] = None, shuffle: bool = True,
+                           seed: int = 0):
+        """Reference: FFModel.create_data_loader (flexflow_cffi.py:2178);
+        batches land on the model's device."""
+        from .runtime.dataloader import DataLoader
+
+        xs = [x] if isinstance(x, (np.ndarray, torch.Tensor)) else list(x)
+        return DataLoader(xs, y, batch_size or self.config.batch_size, shuffle=shuffle,
+                          seed=seed, device=self.device)
+
     # ------------------------------------------------------------- weights
     def _weight_group(self, layer: Union[Tensor, str]) -> Tuple[str, Dict[str, torch.Tensor]]:
+        """A layer's weights, trainable and state together."""
         if self.executor is None:
             raise RuntimeError("call compile() first")
         key = node_key(layer.node) if isinstance(layer, Tensor) else self.executor.node_key(layer)
-        return key, self.executor.params.get(key, {})
+        return key, {**self.executor.params.get(key, {}), **self.executor.state.get(key, {})}
 
     def get_weight(self, layer: Union[Tensor, str], name: str) -> np.ndarray:
-        """One weight as a host array; ``layer`` is the layer's output
-        Tensor or its name (reference: ParallelTensorBase::get_tensor).
-        numpy has no bfloat16: a bfloat16 weight comes back as float32,
-        which holds every bfloat16 value exactly."""
+        """One weight (or state entry, as BatchNorm's running mean) as a
+        host array; ``layer`` is the layer's output Tensor or its name
+        (reference: ParallelTensorBase::get_tensor). numpy has no
+        bfloat16: a bfloat16 weight comes back as float32, which holds
+        every bfloat16 value exactly."""
         key, group = self._weight_group(layer)
         if name not in group:
             raise KeyError(f"no weight {name!r} on {key}; has {sorted(group)}")
@@ -411,24 +565,59 @@ class FFModel:
         key, group = self._weight_group(layer)
         if name not in group:
             raise KeyError(f"no weight {name!r} on {key}")
-        cur = group[name]
-        src = to_tensor(value).to(cur.dtype)
-        if tuple(src.shape) != tuple(cur.shape):
-            raise ValueError(f"shape {tuple(src.shape)} != {tuple(cur.shape)} for {key}.{name}")
-        cur.copy_(src)
+        _copy_into(group[name], value, f"{key}.{name}")
 
-    def set_weights(self, named: Dict[str, Dict[str, torch.Tensor]]) -> None:
+    @torch.no_grad()
+    def set_weights(self, named: Dict[str, Dict[str, torch.Tensor]],
+                    state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                    opt_state: Optional[Dict] = None) -> None:
         """Every weight from ``{layer_name: {weight_name: tensor}}``
         (``runtime/convert.py::params_from_numpy``); the named layers'
-        weight sets must match the model's exactly."""
+        weight sets must match the model's exactly. ``state`` carries the
+        non-trainable state the same way (BatchNorm's running statistics)
+        and ``opt_state`` the optimizer's (``runtime/convert.py::
+        opt_state_from_numpy``: the moments by layer name, the step and
+        the learning rate)."""
         if self.executor is None:
             raise RuntimeError("call compile() first")
-        by_key = {self.executor.node_key(layer): (layer, ws) for layer, ws in named.items()}
-        if set(by_key) != set(self.executor.params):
-            raise ValueError("the named layers do not cover the model's weights exactly")
-        for key, (layer, ws) in by_key.items():
-            if set(ws) != set(self.executor.params[key]):
-                raise ValueError(f"layer {layer!r} has weights {sorted(ws)}, "
-                                 f"expected {sorted(self.executor.params[key])}")
+        ex = self.executor
+        by_name = self._by_layer(named, ex.params, "weights")
+        for key, ws in by_name.items():
             for name, value in ws.items():
-                self.set_weight(layer, name, value)
+                _copy_into(ex.params[key][name], value, f"{key}.{name}")
+        if state is not None:
+            for key, ws in self._by_layer(state, ex.state, "state").items():
+                for name, value in ws.items():
+                    _copy_into(ex.state[key][name], value, f"{key}.{name}")
+        if opt_state is not None:
+            if ex.opt_state is None:
+                raise ValueError("the model holds no optimizer state (compiled for inference)")
+            for field in ("m", "v"):
+                have, given = ex.opt_state.get(field), opt_state.get(field)
+                if (have is None) != (given is None):
+                    raise ValueError(f"optimizer state {field!r}: the model "
+                                     f"{'has' if have is not None else 'lacks'} it")
+                if have is not None:
+                    for key, ws in self._by_layer(given, have, f"opt_state[{field!r}]").items():
+                        for name, value in ws.items():
+                            _copy_into(have[key][name], value, f"{field}.{key}.{name}")
+            ex.opt_state["step"] = int(opt_state["step"])
+            ex.opt_state["lr"] = float(opt_state["lr"])
+
+    def _by_layer(self, named, store, what: str) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``named`` ({layer name: {weight: value}}) re-keyed by node key,
+        checked to cover ``store`` exactly."""
+        by_key = {self.executor.node_key(layer): ws for layer, ws in named.items()}
+        if set(by_key) != set(store):
+            raise ValueError(f"the named layers do not cover the model's {what} exactly")
+        for key, ws in by_key.items():
+            if set(ws) != set(store[key]):
+                raise ValueError(f"{what} of {key}: {sorted(ws)}, expected {sorted(store[key])}")
+        return by_key
+
+
+def _copy_into(cur: torch.Tensor, value, what: str) -> None:
+    src = to_tensor(value).to(cur.dtype)
+    if tuple(src.shape) != tuple(cur.shape):
+        raise ValueError(f"shape {tuple(src.shape)} != {tuple(cur.shape)} for {what}")
+    cur.copy_(src)

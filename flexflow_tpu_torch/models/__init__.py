@@ -8,6 +8,7 @@ from .transformer import (
     build_transformer,
     build_transformer_seq2seq,
 )
+from .vision import build_alexnet, build_inception_v3, build_resnet50, build_resnext50
 
 __all__ = [
     "BERT_BASE",
@@ -15,6 +16,10 @@ __all__ = [
     "TransformerConfig",
     "attention_decoder_layer",
     "attention_encoder_layer",
+    "build_alexnet",
+    "build_inception_v3",
+    "build_resnet50",
+    "build_resnext50",
     "build_transformer",
     "build_transformer_seq2seq",
 ]

@@ -1,8 +1,10 @@
 """Operators of the port: the training graphs' ops (registered on
 import: the BERT encoder, its heads and dropout, the seq2seq decoder's,
-the shape ops) and the generation path's attention."""
+the shape ops, the vision models' convolution, pooling, BatchNorm and
+elementwise families) and the generation path's attention."""
 from . import (  # noqa: F401 (registers the ops)
     attention,
+    conv,
     elementwise,
     embedding,
     io_ops,

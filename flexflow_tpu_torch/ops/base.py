@@ -40,6 +40,12 @@ class LowerCtx:
     # "auto": kernels on CUDA tensors, plain versions on CPU tensors;
     # "plain": plain versions everywhere (to hold the kernels against)
     backend: str = "auto"
+    # functional state written by ops (BatchNorm's running statistics),
+    # keyed (node guid, weight name); the executor applies it once,
+    # after the step
+    state_updates: Dict = dataclasses.field(default_factory=dict)
+    # auxiliary losses appended by ops, summed into the step's loss
+    aux_losses: List = dataclasses.field(default_factory=list)
 
     def node_rng(self):
         """``fold_in(rng, node_guid)``: the current node's key (the JAX

@@ -1,8 +1,16 @@
-"""LayerNorm (port of ``LayerNormOp`` in ``flexflow_tpu/ops/norm.py``;
-BatchNorm waits for the convolution slice).
+"""LayerNorm and BatchNorm (port of ``flexflow_tpu/ops/norm.py``).
 
 Statistics in fp32, eps 1e-5, ``(x - mean) * rsqrt(var + eps)`` then the
 affine scale and bias, as the JAX lowering computes them.
+
+BatchNorm normalises over (N, H, W) with the biased variance (JAX's
+``jnp.var``) while training and keeps its running statistics as
+non-trainable state: ``running = 0.9 * running + 0.1 * batch`` (JAX's
+``momentum`` 0.9, PyTorch's 0.1), written functionally into
+``LowerCtx.state_updates`` and applied by the executor once a step, so
+a block recomputed under rematerialization does not apply them twice.
+``F.batch_norm`` is not used: its momentum is the other way round and
+its running variance unbiased. Evaluation reads the running statistics.
 """
 from __future__ import annotations
 
@@ -13,7 +21,8 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import DataType, OpType
-from .base import OpDef, WeightSpec, register_op
+from .base import LowerCtx, OpDef, WeightSpec, register_op
+from .elementwise import _weak
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,3 +65,60 @@ class LayerNormOp(OpDef):
             bshape = [x.shape[a] if a in axes else 1 for a in range(x.dim())]
             y = y * weights["scale"].reshape(bshape) + weights["bias"].reshape(bshape)
         return [y.to(x.dtype)]
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchNormParams:
+    relu: bool = True  # the reference's fused ReLU option
+    eps: float = 1e-5
+    momentum: float = 0.9
+    dtype: DataType = DataType.FLOAT
+
+
+@register_op
+class BatchNormOp(OpDef):
+    """BatchNorm over NCHW input, stats over (N, H, W) per channel."""
+
+    op_type = OpType.BATCHNORM
+    params_cls = BatchNormParams
+
+    @staticmethod
+    def infer_output_specs(params, input_specs: List[TensorSpec]):
+        return [input_specs[0]]
+
+    @staticmethod
+    def weight_specs(params: BatchNormParams, input_specs: List[TensorSpec]) -> List[WeightSpec]:
+        (x,) = input_specs
+        c = (x.shape[1],)
+        return [
+            WeightSpec("scale", TensorSpec(c, params.dtype), "ones"),
+            WeightSpec("bias", TensorSpec(c, params.dtype), "zeros"),
+            WeightSpec("running_mean", TensorSpec(c, params.dtype), "zeros", trainable=False),
+            WeightSpec("running_var", TensorSpec(c, params.dtype), "ones", trainable=False),
+        ]
+
+    @staticmethod
+    def lower(params: BatchNormParams, inputs, weights, ctx: LowerCtx):
+        (x,) = inputs
+        dims = (0, 2, 3) if x.dim() == 4 else (0,)
+        shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # float64 stays float64
+        if ctx.training:
+            mean = xf.mean(dim=dims)
+            var = (xf - mean.reshape(shape)).square().mean(dim=dims)
+            with torch.no_grad():
+                rm, rv = weights["running_mean"], weights["running_var"]
+                m, dt = params.momentum, params.dtype.torch
+                ctx.state_updates[(ctx.node_guid, "running_mean")] = (
+                    _weak(m, rm) * rm + _weak(1 - m, rm) * mean.to(dt))
+                ctx.state_updates[(ctx.node_guid, "running_var")] = (
+                    _weak(m, rv) * rv + _weak(1 - m, rv) * var.to(dt))
+        else:
+            mean = weights["running_mean"].to(xf.dtype)
+            var = weights["running_var"].to(xf.dtype)
+        y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + params.eps)
+        y = y * weights["scale"].reshape(shape) + weights["bias"].reshape(shape)
+        y = y.to(x.dtype)
+        if params.relu:
+            y = torch.relu(y)
+        return [y]

@@ -1,5 +1,7 @@
-"""Shape propagation over the graph (the sharding half waits for the
-multi-GPU slices)."""
+"""Shape propagation over the graph and the repeated-block discovery
+that rematerialization uses (the sharding half and the pipeline schedule
+wait for the multi-GPU slices)."""
+from .pipeline import detect_repeats
 from .propagation import infer_all_specs
 
-__all__ = ["infer_all_specs"]
+__all__ = ["detect_repeats", "infer_all_specs"]

@@ -1,16 +1,25 @@
 """The single-GPU training runtime: executor, optimizers, losses,
-metrics, initializers and the weight converter."""
-from .convert import params_from_numpy
+metrics, initializers, the weight converter, the data loader and the
+checkpoints."""
+from .checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint
+from .convert import opt_state_from_numpy, params_from_numpy
+from .dataloader import DataLoader, SingleDataLoader
 from .executor import Executor
 from .metrics import PerfMetrics, compute_metrics
 from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
 
 __all__ = [
     "AdamOptimizer",
+    "CheckpointManager",
+    "DataLoader",
     "Executor",
     "Optimizer",
     "PerfMetrics",
     "SGDOptimizer",
+    "SingleDataLoader",
     "compute_metrics",
+    "opt_state_from_numpy",
     "params_from_numpy",
+    "restore_checkpoint",
+    "save_checkpoint",
 ]

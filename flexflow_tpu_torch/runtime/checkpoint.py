@@ -1,0 +1,174 @@
+"""Checkpoint / resume of training state (port of
+``flexflow_tpu/runtime/checkpoint.py``).
+
+A checkpoint is a directory holding ``train_state.pt``: the executor's
+``params``, ``state`` (BatchNorm's running statistics) and ``opt_state``
+as CPU tensors, plus the step. The JAX package writes an orbax pytree
+instead; orbax does not run here, so this on-disk format is the port's
+own (``torch.save``, read back with ``weights_only=True``): bfloat16 and
+float16 tensors are stored as they are, bit for bit. As in the JAX
+package, the node level is keyed canonically,
+``"{topo index:04d}.{op_type}[.{name}]"`` (:func:`_canon_map`), so a
+model rebuilt in another process restores whatever its guids are. The
+file is written beside its final name and renamed into place, so a
+process that dies mid-save leaves no readable half file.
+
+:class:`CheckpointManager` keeps the newest ``max_to_keep`` step
+directories, restores the newest one that reads back (falling back past
+a corrupt or partial newest), and removes the step directory of a save
+that failed. The ``checkpoint.save`` fault site fires at the top of a
+save, as in the JAX package. Loading a parallelization strategy
+(``load_strategy``) waits for the strategy slices.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Any, Dict, Optional
+
+import torch
+
+_FILE = "train_state.pt"
+
+
+def _canon_map(executor) -> Dict[str, str]:
+    """Executor node key -> canonical key stable across process restarts."""
+    from .executor import node_key
+
+    return {node_key(node): f"{i:04d}.{node.op_type.value}" + (f".{node.name}" if node.name else "")
+            for i, node in enumerate(executor.graph.topo_order())}
+
+
+def _rekey(tree: Optional[dict], mapping: Dict[str, str]) -> Optional[dict]:
+    """Rename the node-key level of a params-shaped dict."""
+    if tree is None:
+        return None
+    return {mapping.get(k, k): v for k, v in tree.items()}
+
+
+def _opt_rekey(opt_state: Optional[dict], mapping: Dict[str, str]) -> Optional[dict]:
+    if opt_state is None:
+        return None
+    out = dict(opt_state)
+    for field in ("v", "m"):
+        if isinstance(out.get(field), dict):
+            out[field] = _rekey(out[field], mapping)
+    return out
+
+
+def _to_cpu(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def save_checkpoint(path: str, executor, step: int = 0) -> None:
+    """Write a checkpoint directory at ``path``."""
+    from . import faults
+
+    faults.inject(faults.CHECKPOINT_SAVE, path)  # chaos hook: storage failure
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    fwd = _canon_map(executor)
+    tree = {
+        "params": _to_cpu(_rekey(executor.params, fwd)),
+        "state": _to_cpu(_rekey(executor.state, fwd)) or {},
+        "opt_state": _to_cpu(_opt_rekey(executor.opt_state, fwd)) or {},
+        "step": int(step),
+    }
+    tmp = os.path.join(path, _FILE + ".tmp")
+    torch.save(tree, tmp)
+    os.replace(tmp, os.path.join(path, _FILE))
+
+
+def _restore_into(have: dict, saved: dict, what: str, pending: list) -> None:
+    """Check ``saved`` against ``have`` ({node key: {name: tensor}})
+    exactly, then queue the copies (nothing is written before every part
+    of the checkpoint has been checked)."""
+    if set(saved) != set(have):
+        raise ValueError(f"checkpoint {what} cover other layers than the model's")
+    for key, ws in have.items():
+        if set(saved[key]) != set(ws):
+            raise ValueError(f"checkpoint {what} of {key}: {sorted(saved[key])}, "
+                             f"expected {sorted(ws)}")
+        for name, cur in ws.items():
+            src = saved[key][name]
+            if not isinstance(src, torch.Tensor) or src.shape != cur.shape \
+                    or src.dtype != cur.dtype:
+                raise ValueError(f"checkpoint {what} {key}.{name} does not match the model's")
+            pending.append((cur, src))
+
+
+def restore_checkpoint(path: str, executor) -> int:
+    """Restore into a compiled executor, in place; returns the saved step."""
+    path = os.path.abspath(path)
+    saved = torch.load(os.path.join(path, _FILE), map_location="cpu", weights_only=True)
+    rev = {v: k for k, v in _canon_map(executor).items()}
+    pending: list = []
+    _restore_into(executor.params, _rekey(saved["params"], rev), "params", pending)
+    _restore_into(executor.state or {}, _rekey(saved["state"], rev), "state", pending)
+    opt = executor.opt_state
+    if opt is not None and saved["opt_state"]:
+        sopt = _opt_rekey(saved["opt_state"], rev)
+        for field in ("v", "m"):
+            if (opt.get(field) is None) != (sopt.get(field) is None):
+                raise ValueError(f"checkpoint optimizer state {field!r} does not match the model's")
+            if opt.get(field) is not None:
+                _restore_into(opt[field], sopt[field], f"opt_state[{field!r}]", pending)
+    with torch.no_grad():
+        for cur, src in pending:
+            cur.copy_(src)
+    if opt is not None and saved["opt_state"]:
+        opt["step"], opt["lr"] = int(saved["opt_state"]["step"]), float(saved["opt_state"]["lr"])
+    return int(saved["step"])
+
+
+class CheckpointManager:
+    """Rolling checkpoints with ``max_to_keep``, orbax-style."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _steps(self):
+        return sorted(int(d[5:]) for d in os.listdir(self.directory)
+                      if d.startswith("step_") and d[5:].isdigit())
+
+    def save(self, executor, step: int) -> str:
+        p = os.path.join(self.directory, f"step_{step}")
+        try:
+            save_checkpoint(p, executor, step=step)
+        except Exception:
+            # a failed save must not leave a partial step dir that a
+            # later restore_latest would pick as "newest"; the previous
+            # checkpoints stay untouched and usable
+            shutil.rmtree(p, ignore_errors=True)
+            raise
+        for s in self._steps()[: -self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s}"), ignore_errors=True)
+        return p
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def restore_latest(self, executor) -> Optional[int]:
+        """Restore the newest restorable checkpoint, falling back to
+        older ones if the newest is corrupt or partial (the process died
+        mid-save). Returns the restored step, None when the directory
+        holds no checkpoints, and re-raises the newest error when every
+        candidate is unreadable."""
+        last_err: Optional[Exception] = None
+        for s in reversed(self._steps()):
+            try:
+                restore_checkpoint(os.path.join(self.directory, f"step_{s}"), executor)
+                return s
+            except Exception as e:  # corrupt/partial: try the previous one
+                if last_err is None:
+                    last_err = e
+        if last_err is not None:
+            raise last_err
+        return None

@@ -5,7 +5,12 @@ between two builds of one model, layer names do not. Turn the JAX
 parameters into ``{layer_name: {weight_name: numpy array}}`` on the JAX
 side and hand that here: :func:`params_from_numpy` gives CPU tensors in
 the same layouts, which ``FFModel.set_weights`` copies into the port's
-executor. This module needs neither JAX nor the JAX package.
+executor. The JAX executor's ``state`` (BatchNorm's running statistics)
+crosses the same way, and its ``opt_state`` through
+:func:`opt_state_from_numpy` (the moments ``v`` and ``m`` by layer name,
+as the JAX checkpoint's ``_opt_rekey`` renames them, and the step and
+learning rate), so a JAX run continues in the port where it stopped.
+This module needs neither JAX nor the JAX package.
 
 numpy has no bfloat16 of its own: JAX's bfloat16 arrays carry the
 ``ml_dtypes`` type, recognised here by its name (``ml_dtypes`` itself is
@@ -56,3 +61,16 @@ def params_from_numpy(
 
     return {layer: {name: one(arr) for name, arr in weights.items()}
             for layer, weights in tree.items()}
+
+
+def opt_state_from_numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """An optimizer state ``{"v": {layer: {weight: array}} or None,
+    "m": ... (Adam), "step": int, "lr": float}`` with its moments as CPU
+    tensors (:func:`params_from_numpy`) and its scalars as Python
+    numbers, for ``FFModel.set_weights(..., opt_state=...)``."""
+    out: Dict[str, Any] = {"step": int(np.asarray(tree["step"])),
+                           "lr": float(np.asarray(tree["lr"]))}
+    for field in ("v", "m"):
+        if field in tree:
+            out[field] = None if tree[field] is None else params_from_numpy(tree[field])
+    return out

@@ -6,15 +6,16 @@ Layout per model: ``<root>/<name>/``
   config.json   -- name, max batch, batch size, input names, outputs
   graph.json    -- the graph (``PCGraph.to_json``, guids kept)
   weights.npz   -- the weights, keyed ``"p::<op_type>_<guid>::<weight>"``,
-                   written to a temporary file, then renamed
+                   and the non-trainable state (BatchNorm's running
+                   statistics), keyed ``"s::..."``; written to a
+                   temporary file, then renamed
 
 A bfloat16 weight is stored as its two-byte bit patterns (numpy dtype
 ``V2``), as numpy stores the JAX package's bfloat16 arrays; it is read
 back by the compiled parameter's dtype, bit for bit, without
 ``ml_dtypes``. The JAX package also writes ``strategy.json`` (its
-sharding over a device mesh) and non-trainable state (``s::`` keys);
-the port runs on one device and its ops hold no state, so it reads
-neither and writes neither.
+sharding over a device mesh); the port runs on one device and neither
+reads nor writes it.
 """
 from __future__ import annotations
 
@@ -67,8 +68,9 @@ def save_model(im: InferenceModel, root: str) -> str:
     }
     (d / "config.json").write_text(json.dumps(cfg, indent=1))
     flat: Dict[str, np.ndarray] = {
-        f"p::{nkey}::{wname}": _to_numpy(w)
-        for nkey, ws in ex.params.items() for wname, w in ws.items()
+        f"{prefix}::{nkey}::{wname}": _to_numpy(w)
+        for store, prefix in ((ex.params, "p"), (ex.state, "s"))
+        for nkey, ws in store.items() for wname, w in ws.items()
     }
     # write-then-rename: a crash mid-save never leaves a truncated
     # weights.npz that a later load would read as a corrupt model
@@ -92,13 +94,14 @@ def load_model(root: str, name: str, device=None) -> InferenceModel:
     model = FFModel.from_graph(graph, FFConfig(batch_size=cfg["batch_size"]), device=device)
     outputs = model.output_tensors([tuple(o) for o in cfg["outputs"]])
     model.compile(comp_mode=CompMode.INFERENCE, outputs=outputs)
-    params = model.executor.params
+    stores = {"p": model.executor.params, "s": model.executor.state}
     with np.load(d / "weights.npz") as z, torch.no_grad():
         for key in z.files:
             prefix, nkey, wname = key.split("::", 2)
-            if prefix != "p" or nkey not in params or wname not in params[nkey]:
+            store = stores.get(prefix, {})
+            if nkey not in store or wname not in store[nkey]:
                 continue
-            cur = params[nkey][wname]
+            cur = store[nkey][wname]
             value = z[key]
             if tuple(value.shape) != tuple(cur.shape):
                 raise ValueError(

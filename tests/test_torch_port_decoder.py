@@ -327,7 +327,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'runtime.wal', 'obs.journey', 'serving.durable', 'ops.softmax',\n"
         "          'ops.embedding', 'ops.shape_ops', 'serving.model', 'serving.batcher',\n"
         "          'serving.repository', 'tools.heads_probe', 'serving.fleet',\n"
-        "          'tools.fleet_probe'):\n"
+        "          'tools.fleet_probe', 'ops.conv', 'parallel.pipeline', 'models.vision',\n"
+        "          'runtime.checkpoint', 'runtime.dataloader', 'tools.trainer_probe'):\n"
         "    assert 'flexflow_tpu_torch.' + m in names, names\n"
         "print(len(names))\n"
     )
