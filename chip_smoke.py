@@ -294,6 +294,31 @@ prints no result line):
    without at the card-against-CPU gates, the running statistics moved
    by one update, peak memory lower; one forward each at batch 8 of
    AlexNet (224), ResNeXt-50 32x4d (224) and Inception-v3 (299).
+   The earlier training phases run eager steps (``fit`` at
+   ``trace_window=1``); the window phase holds the captured graph
+   against them.
+21. window: the executor's window path, each step kind captured once as
+   a CUDA graph and replayed once a step, against the eager steps from
+   the same weights and keys. BERT-Base (the trainer phase's model, SGD
+   lr 0.01, MSE, batch 32) in fp32 and bf16: 16 steps as
+   ``fit(trace_window=8)`` (two windows) against 16 ``train_batch``
+   calls: every loss and the final parameters bit for bit, one capture,
+   12 + 12 + 12 flash launches a step (replays counted); then in turns
+   (window, eager, eager, window) host ms a step, a profiled run of each
+   (device ms a step, busy share), the capture's seconds and the peak
+   memory over a window. bf16 also: ``train_batch_repeated(num_steps=8)``
+   and ``eval_window`` / ``evaluate(trace_window=8)`` against eager steps
+   (bit for bit), and Adam with ``set_learning_rate`` between two
+   windows (no second capture) against eager steps with the same change.
+   NMT at ``build_nmt``'s default widths (vocab 32000 both sides, embed 256,
+   hidden 256, 2 LSTM layers, length 32, attention; batch 64, SGD lr
+   0.01, sparse categorical cross-entropy): a batch-4 step on the card
+   against the port on the CPU from the same weights (the training
+   phase's fp32 gates), then 16 steps eager against ``trace_window=8``
+   as above. DLRM at ``build_dlrm``'s default widths (8 tables x 1,000,000 rows x
+   64, bag 1, dense 64, bottom 512-256-64, top 512-256-1; batch 256,
+   SGD lr 0.01, MSE): a batch-4 step card against CPU on 10,000-row
+   tables, then eager against window at full width (samples/s).
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -4207,7 +4232,7 @@ def training_phase(seed: int, dtype=None):
     xs, ys = x.repeat(steps, 1, 1), y.repeat(steps, 1, 1)
     torch.cuda.synchronize()
     fa.reset_launch_counts()
-    model.fit(xs, ys, trace_window=steps)
+    model.fit(xs, ys, trace_window=1)  # eager steps: the window phase holds graphs against them
     launches = dict(fa.LAUNCHES)
     by_body = {key: n for key, n in fa.LAUNCHES_BY_BODY.items() if n}
     losses = model.step_losses
@@ -4488,7 +4513,7 @@ def heads_phase(seed: int, kind: str, dtype=None, steps: int = 10) -> tuple:
     fa.reset_launch_counts()
     by_kind = {}
     with flash_by_attention_kind(by_kind):
-        model.fit(rep, ys, trace_window=steps)
+        model.fit(rep, ys, trace_window=1)  # eager steps, as the training phase
     launches = dict(fa.LAUNCHES)
     for name, n in launches.items():
         if n != per_step[name] * steps:
@@ -5216,7 +5241,8 @@ def vision_phase(seed: int) -> dict:
     ex.opt_state = ex.optimizer.init_state(ex.params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    model.fit(x.repeat(steps, 1, 1, 1), y.repeat(steps), verbose=False, trace_window=steps)
+    # eager steps, as the training phase
+    model.fit(x.repeat(steps, 1, 1, 1), y.repeat(steps), verbose=False, trace_window=1)
     peak = torch.cuda.max_memory_allocated()
     losses, elapsed = model.step_losses, model.last_elapsed
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -5320,6 +5346,421 @@ def vision_phase(seed: int) -> dict:
     return out
 
 
+WINDOW_STEPS, WINDOW_TW = 16, 8  # the window phase: 16 steps, two windows of 8
+
+
+def take_launches(total: dict) -> dict:
+    """The flash launches since the last reset, added into ``total``;
+    the counts are reset."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    got = dict(fa.LAUNCHES)
+    for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+    fa.reset_launch_counts()
+    return got
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(a[k][n], b[k][n]) for k in a for n in a[k])
+
+
+def max_tree_diff(a, b) -> float:
+    return max((float((a[k][n].detach().float() - b[k][n].detach().float()).abs().max())
+                for k in a for n in a[k]), default=0.0)
+
+
+def window_cell(tag: str, model, xs, y, batch: int, per_step=None, steps: int = WINDOW_STEPS,
+                tw: int = WINDOW_TW) -> dict:
+    """``steps`` train steps of ``model`` (SGD without momentum: its
+    parameters are its whole training state) two ways from the same
+    weights and keys: ``fit(trace_window=tw)`` (the window path: a warm-up
+    step, the capture, then replays) against ``train_batch`` calls. Gate:
+    every loss and the final parameters bit for bit (else the largest
+    difference, held to ``step_gates``), one capture, ``per_step`` flash
+    launches a step on both paths. Then host ms a step in turns (window,
+    eager, eager, window), a profiled run of 8 steps of each (device ms a
+    step, busy share) and the peak memory of each path."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    ex = model.executor
+    snap = params_copy(ex.params)
+    words = model._step_words(1, steps, tw)
+    total = {}
+
+    def eager(n):
+        mets = [ex.train_batch([t[i * batch:(i + 1) * batch] for t in xs],
+                               y[i * batch:(i + 1) * batch], rng=(words[i, 0], words[i, 1]))
+                for i in range(n)]
+        return [float(m["loss"]) for m in mets]  # one host sync, after the last step
+
+    def window(n):
+        model.fit([t[:n * batch] for t in xs], y[:n * batch], batch_size=batch, verbose=False,
+                  trace_window=min(tw, n))
+        return list(model.step_losses)
+
+    def timed(fn, n):
+        load_tree(ex.params, snap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        losses = fn(n)
+        torch.cuda.synchronize()
+        return losses, 1e3 * (time.perf_counter() - t0) / n, torch.cuda.max_memory_allocated() - base
+
+    fa.reset_launch_counts()  # an earlier phase's counts are its own
+    le, e_ms, e_peak = timed(eager, steps)
+    pe, launch_e = params_copy(ex.params), take_launches(total)
+    captures0 = ex.graph_captures
+    lw, w_first_ms, w_peak = timed(window, steps)
+    pw, launch_w = params_copy(ex.params), take_launches(total)
+    captures = ex.graph_captures - captures0
+    bitwise = le == lw and trees_equal(pe, pw)
+    gate = {"bitwise_equal": bitwise, "loss_max_abs_diff": max(abs(a - b) for a, b in zip(le, lw)),
+            "param_max_abs_diff": max_tree_diff(pe, pw)}
+    if not bitwise:
+        print(f"{tag}: window vs eager not bit for bit: losses {lw} vs {le}, parameters differ "
+              f"by up to {gate['param_max_abs_diff']}")
+        dtype = next(iter(next(iter(snap.values())).values())).dtype
+        gate.update(step_gates(f"{tag} window vs eager", dtype, snap, pe, pw, le[-1], lw[-1]))
+    if captures != 1:
+        raise AssertionError(f"{tag}: {captures} captures for one geometry")
+    if per_step is not None:
+        want = {k: n * steps for k, n in per_step.items()}
+        for name, got in (("eager", launch_e), ("window", launch_w)):
+            if {k: n for k, n in got.items() if n} != {k: n for k, n in want.items() if n}:
+                raise AssertionError(f"{tag} {name}: flash launches {got}, expected {want}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), le)):
+        raise AssertionError(f"{tag}: losses not finite: {le}")
+    del pe, pw
+    runs = {"window": [], "eager": []}
+    for mode in ("window", "eager", "eager", "window"):
+        runs[mode].append(timed(window if mode == "window" else eager, steps)[1])
+    take_launches(total)
+    prof = {}
+    for mode in ("eager", "window"):
+        load_tree(ex.params, snap)
+        fn = window if mode == "window" else eager
+        wall, busy = busy_share(lambda: fn(8))
+        prof[mode] = {"wall_s": wall, "device_busy_s": busy, "device_ms_per_step": 1e3 * busy / 8,
+                      "busy_share": busy / wall}
+    take_launches(total)
+    load_tree(ex.params, snap)
+    graphs = list(ex._graphs.values())
+    out = {"gate": gate, "steps": steps, "trace_window": tw, "batch": batch,
+           "host_ms_per_step": runs, "first_window_run_ms_per_step": w_first_ms,
+           "first_eager_run_ms_per_step": e_ms,
+           "device_ms_per_step": {m: p["device_ms_per_step"] for m, p in prof.items()},
+           "busy_share_profiled": {m: p["busy_share"] for m, p in prof.items()},
+           "busy_share_of_timed_step": {m: prof[m]["device_ms_per_step"] / min(runs[m])
+                                        for m in prof},
+           "profiled": prof, "captures": captures,
+           "capture_s": [g.capture_s for g in graphs if g.capture_s is not None],
+           "peak_bytes_over_run": {"eager": e_peak, "window": w_peak},
+           "launches": total, "losses": le}
+    print(f"window {tag}: " + json.dumps(out))
+    return out
+
+
+def window_bert(seed: int, dtype) -> dict:
+    """BERT-Base (the trainer phase's model) in ``dtype``: the window cell;
+    for bf16 also ``train_batch_repeated`` and the eval window against
+    eager steps, and Adam with ``set_learning_rate`` between two windows."""
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import DataType, LossType, MetricsType
+    from flexflow_tpu_torch.generation import prng
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.runtime import AdamOptimizer, SGDOptimizer
+
+    t_phase = time.perf_counter()
+    cfg = bert_base(dtype)
+    batch, layers = 32, cfg.num_layers
+    form = FLASH_FORMS[str(cfg.dtype.torch)[6:]]
+    tag = "bert-base " + {"": "fp32", "_bf16": "bf16", "_f16": "fp16"}[form]
+
+    def compiled(opt):
+        m = build_transformer(FFConfig(batch_size=batch, seed=seed), cfg)
+        return m.compile(optimizer=opt, loss_type=LossType.MEAN_SQUARED_ERROR,
+                         metrics=[MetricsType.MEAN_SQUARED_ERROR])
+
+    model = compiled(SGDOptimizer(lr=0.01))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    shape = (WINDOW_STEPS * batch, cfg.seq_length, cfg.hidden_size)
+    x = torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype.torch)
+    y = torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype.torch)
+    per_step = {f"{k}{form}": layers for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    out = window_cell(tag, model, [x], y, batch, per_step)
+    if dtype != DataType.BFLOAT16:
+        out["phase_s"] = time.perf_counter() - t_phase
+        del model, x, y
+        torch.cuda.empty_cache()
+        return out
+
+    ex, total = model.executor, out["launches"]
+    snap = params_copy(ex.params)
+    rng = tuple(t.cuda() for t in prng.key(seed + 33))
+    xb, yb = x[:batch], y[:batch]
+    # train_batch_repeated: 8 steps on one batch, keys fold_in(rng, i)
+    captures0 = ex.graph_captures
+    words = ex._split_words(rng, 8)
+    eager = [float(ex.train_batch([xb], yb, rng=(w[0], w[1]))["loss"]) for w in words][-1]
+    pe = params_copy(ex.params)
+    load_tree(ex.params, snap)
+    last = float(ex.train_batch_repeated([xb], yb, rng, 8)["loss"])
+    repeated = {"loss_eager": eager, "loss_window": last, "bitwise_equal":
+                last == eager and trees_equal(pe, ex.params),
+                "param_max_abs_diff": max_tree_diff(pe, ex.params)}
+    if not repeated["bitwise_equal"]:
+        repeated.update(step_gates(f"{tag} train_batch_repeated vs eager", cfg.dtype.torch, snap,
+                                   pe, params_copy(ex.params), eager, last))
+    # the eval window and evaluate(trace_window=8) against eval steps
+    xs, ys = x.reshape(WINDOW_STEPS, batch, *shape[1:]), y.reshape(WINDOW_STEPS, batch, *shape[1:])
+    ev_window = ex.eval_window([xs[:8]], ys[:8])["loss"].tolist()
+    ev_eager = [float(ex.eval_batch([xs[i]], ys[i])["loss"]) for i in range(8)]
+    perf_w = model.evaluate(x, y, trace_window=8)
+    perf_e = model.evaluate(x, y, trace_window=1)
+    evaluate = {"losses_window": ev_window, "losses_eager": ev_eager,
+                "bitwise_equal": ev_window == ev_eager and perf_w.mse_loss == perf_e.mse_loss,
+                "mse_loss_window": perf_w.mse_loss, "mse_loss_eager": perf_e.mse_loss}
+    if not evaluate["bitwise_equal"] and not all(
+            abs(a - b) <= HALF_LOSS_RTOL["bfloat16"] * abs(b) for a, b in zip(ev_window, ev_eager)):
+        raise AssertionError(f"{tag}: eval window losses {ev_window} vs eval steps {ev_eager}")
+    if ex.graph_captures - captures0 != 1:  # the eval step's; the train step's exists
+        raise AssertionError(f"{tag}: {ex.graph_captures - captures0} captures for the repeated "
+                             "train steps and the eval window, expected the eval step's alone")
+    take_launches(total)
+    del model, ex, snap, pe
+    torch.cuda.empty_cache()
+
+    # Adam with the learning rate changed between two windows of 8
+    model = compiled(AdamOptimizer(alpha=1e-4))
+    ex = model.executor
+    snap = params_copy(ex.params)
+    words = model._step_words(1, WINDOW_STEPS, WINDOW_TW)
+
+    def reset():
+        load_tree(ex.params, snap)
+        for f in ("m", "v"):
+            for g in ex.opt_state[f].values():
+                for t in g.values():
+                    t.zero_()
+        ex.opt_state["step"] = 0
+        ex.set_learning_rate(1e-4)
+
+    reset()
+    le = []
+    for i in range(WINDOW_STEPS):
+        if i == WINDOW_TW:
+            ex.set_learning_rate(5e-5)
+        le.append(ex.train_batch([xs[i]], ys[i], rng=(words[i, 0], words[i, 1])))
+    le = [float(m["loss"]) for m in le]
+    pe = params_copy(ex.params)
+    reset()
+    lw = ex._train_window([xs[:WINDOW_TW]], ys[:WINDOW_TW], words[:WINDOW_TW])["loss"]
+    ex.set_learning_rate(5e-5)
+    lw = lw.tolist() + ex._train_window([xs[WINDOW_TW:]], ys[WINDOW_TW:],
+                                        words[WINDOW_TW:])["loss"].tolist()
+    lr = {"captures": ex.graph_captures, "bitwise_equal": le == lw and trees_equal(pe, ex.params),
+          "param_max_abs_diff": max_tree_diff(pe, ex.params), "losses_window": lw,
+          "losses_eager": le}
+    if ex.graph_captures != 1:
+        raise AssertionError(f"{tag} Adam: {ex.graph_captures} captures across the rate change")
+    if not lr["bitwise_equal"]:
+        lr.update(step_gates(f"{tag} Adam set_learning_rate window vs eager", cfg.dtype.torch, snap,
+                             pe, params_copy(ex.params), le[-1], lw[-1]))
+    take_launches(total)
+    out.update(repeated=repeated, evaluate=evaluate, set_learning_rate=lr,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"window {tag} repeated / evaluate / set_learning_rate: " + json.dumps(
+        {"repeated": repeated, "evaluate": evaluate, "set_learning_rate": lr}))
+    del model, ex, snap, pe, x, y, xs, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_cpu_step(tag: str, card, xs, y) -> dict:
+    """One SGD step of ``card`` (a compiled model on the card) and of the
+    same graph on the CPU from the same weights and key: the training
+    phase's fp32 gates (loss rtol 1e-5, parameters within PARAM_STEP_RTOL
+    of the step's largest update)."""
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+
+    host = FFModel.from_graph(card.graph, FFConfig(batch_size=card.config.batch_size),
+                              device="cpu")
+    host.compile(optimizer=type(card.optimizer)(lr=card.optimizer.lr),
+                 loss_type=card.loss_type,
+                 outputs=host.output_tensors([(t.node.guid, t.idx) for t in card._outputs]))
+    load_tree(host.executor.params, card.executor.params)
+    before = params_copy(host.executor.params)
+    t0 = time.perf_counter()
+    lc = float(card.executor.train_batch([t.cuda() for t in xs], y.cuda())["loss"])
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lh = float(host.executor.train_batch(xs, y)["loss"])
+    cpu_s = time.perf_counter() - t0
+    cp = {k: {n: t.detach().cpu() for n, t in g.items()} for k, g in card.executor.params.items()}
+    gates = step_gates(f"{tag} card vs CPU", torch.float32, before, host.executor.params, cp, lh,
+                       lc)
+    gates.update(card_step_s=card_s, cpu_step_s=cpu_s)
+    return gates
+
+
+# the window phase's NMT and DLRM cells at build_nmt's and build_dlrm's default widths
+# (flexflow_tpu_torch/models/nmt.py, recommender.py) and batches
+NMT_WIDTHS = dict(src_vocab=32000, tgt_vocab=32000, embed_dim=256, hidden_size=256, num_layers=2,
+                  src_len=32, tgt_len=32)
+NMT_BATCH = 64
+DLRM_WIDTHS = dict(embedding_sizes=(1000000,) * 8, embedding_dim=64, embedding_bag_size=1,
+                   dense_dim=64, bottom_mlp=(512, 256, 64), top_mlp=(512, 256, 1))
+DLRM_BATCH, DLRM_SMALL_ROWS = 256, 10000  # examples/dlrm.py's -b 256
+
+
+def window_nmt(seed: int) -> dict:
+    """NMT at ``build_nmt``'s default widths (``NMT_WIDTHS``: vocab 32000 both
+    sides, embed 256, hidden 256, 2 LSTM layers, source and target 32,
+    attention; fp32, SGD lr 0.01, sparse categorical cross-entropy): a
+    batch-4 step card against CPU, then the window cell at batch 64."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.models import build_nmt
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    t_phase = time.perf_counter()
+    w = NMT_WIDTHS
+
+    def compiled(batch):
+        m = build_nmt(FFConfig(batch_size=batch, seed=seed), **w)
+        return m.compile(optimizer=SGDOptimizer(lr=0.01),
+                         loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+
+    def tokens(n, s):
+        rs = np.random.RandomState(s)
+        src = rs.randint(0, w["src_vocab"], (n, w["src_len"])).astype(np.int32)
+        tgt = rs.randint(0, w["tgt_vocab"], (n, w["tgt_len"])).astype(np.int32)
+        lab = rs.randint(0, w["tgt_vocab"], (n, w["tgt_len"])).astype(np.int32)
+        return [torch.from_numpy(src), torch.from_numpy(tgt)], torch.from_numpy(lab)
+
+    small = compiled(4)
+    cpu = card_vs_cpu_step("nmt", small, *tokens(4, seed + 41))
+    del small
+    model = compiled(NMT_BATCH)
+    xs, y = tokens(WINDOW_STEPS * NMT_BATCH, seed + 42)
+    out = window_cell("nmt", model, [t.cuda() for t in xs], y.cuda(), NMT_BATCH, per_step={})
+    out.update(card_vs_cpu=cpu, widths=dict(w), phase_s=time.perf_counter() - t_phase)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_dlrm(seed: int) -> dict:
+    """DLRM at ``build_dlrm``'s default widths (``DLRM_WIDTHS``: 8 tables x
+    1,000,000 rows x 64, bag 1, dense 64, bottom 512-256-64, top
+    512-256-1; batch 256, fp32, SGD lr 0.01, MSE): a batch-4 step card
+    against CPU on 10,000-row tables, then the window cell at full width."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.models import build_dlrm
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    t_phase = time.perf_counter()
+    w = DLRM_WIDTHS
+    tables = len(w["embedding_sizes"])
+
+    def compiled(batch, rows):
+        m = build_dlrm(FFConfig(batch_size=batch, seed=seed),
+                       **{**w, "embedding_sizes": (rows,) * tables})
+        return m.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+
+    def inputs(n, rows, s):
+        rs = np.random.RandomState(s)
+        xs = [torch.from_numpy(rs.randint(0, rows, (n, w["embedding_bag_size"])).astype(np.int32))
+              for _ in range(tables)]
+        xs.append(torch.from_numpy(rs.randn(n, w["dense_dim"]).astype(np.float32)))
+        return xs, torch.from_numpy(rs.rand(n, 1).astype(np.float32))
+
+    small = compiled(4, DLRM_SMALL_ROWS)
+    cpu = card_vs_cpu_step("dlrm", small, *inputs(4, DLRM_SMALL_ROWS, seed + 51))
+    del small
+    rows = w["embedding_sizes"][0]
+    t0 = time.perf_counter()
+    model = compiled(DLRM_BATCH, rows)
+    setup_s = time.perf_counter() - t0
+    table_bytes = sum(t.numel() * t.element_size() for g in model.executor.params.values()
+                      for n, t in g.items() if n == "embedding")
+    xs, y = inputs(WINDOW_STEPS * DLRM_BATCH, rows, seed + 52)
+    out = window_cell("dlrm", model, [t.cuda() for t in xs], y.cuda(), DLRM_BATCH, per_step={})
+    out.update(card_vs_cpu=cpu, table_bytes=table_bytes, setup_s=setup_s,
+               widths={k: list(v) if isinstance(v, tuple) else v for k, v in w.items()},
+               samples_per_s={m: [1e3 * DLRM_BATCH / ms for ms in r]
+                              for m, r in out["host_ms_per_step"].items()},
+               phase_s=time.perf_counter() - t_phase)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_phase(seed: int) -> dict:
+    """The executor's window path against its eager steps: BERT-Base in
+    fp32 and bf16 (with the repeated steps, the eval window and Adam's
+    rate change in bf16), NMT and DLRM."""
+    from flexflow_tpu_torch.core.types import DataType
+
+    t0 = time.perf_counter()
+    out = {"bert-base fp32": window_bert(seed, DataType.FLOAT),
+           "bert-base bf16": window_bert(seed, DataType.BFLOAT16),
+           "nmt": window_nmt(seed), "dlrm": window_dlrm(seed)}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_window(card: str, window: dict) -> None:
+    """The window phase's lines of the summary."""
+    for cell in ("bert-base fp32", "bert-base bf16", "nmt", "dlrm"):
+        w = window[cell]
+        print(f"{card}: window phase, {cell} (batch {w['batch']}, {w['steps']} steps, windows of "
+              f"{w['trace_window']}): host ms a step eager "
+              + ", ".join(f"{ms:.3f}" for ms in w["host_ms_per_step"]["eager"]) + " / window "
+              + ", ".join(f"{ms:.3f}" for ms in w["host_ms_per_step"]["window"])
+              + f"; device ms a step eager {w['device_ms_per_step']['eager']:.3f} / window "
+              f"{w['device_ms_per_step']['window']:.3f}; busy share of the timed step eager "
+              f"{w['busy_share_of_timed_step']['eager']:.3f} / window "
+              f"{w['busy_share_of_timed_step']['window']:.3f} (profiled "
+              f"{w['busy_share_profiled']['eager']:.3f} / {w['busy_share_profiled']['window']:.3f})"
+              f"; capture s " + ", ".join(f"{c:.3f}" for c in w["capture_s"])
+              + f"; peak GB over a run eager {w['peak_bytes_over_run']['eager'] / 1e9:.3f} / "
+              f"window {w['peak_bytes_over_run']['window'] / 1e9:.3f}; bit for bit "
+              f"{w['gate']['bitwise_equal']}"
+              + (f"; samples/s eager " + ", ".join(f"{v:.1f}" for v in w["samples_per_s"]["eager"])
+                 + " / window " + ", ".join(f"{v:.1f}" for v in w["samples_per_s"]["window"])
+                 if "samples_per_s" in w else ""))
+    wb = window["bert-base bf16"]
+    print(f"{card}: window phase, bert-base bf16: train_batch_repeated(8) bit for bit "
+          f"{wb['repeated']['bitwise_equal']}, eval window bit for bit "
+          f"{wb['evaluate']['bitwise_equal']}, Adam set_learning_rate between windows bit for "
+          f"bit {wb['set_learning_rate']['bitwise_equal']} with "
+          f"{wb['set_learning_rate']['captures']} capture; NMT card vs CPU loss "
+          f"{window['nmt']['card_vs_cpu']['loss_b']:.6f} vs "
+          f"{window['nmt']['card_vs_cpu']['loss_a']:.6f}, DLRM "
+          f"{window['dlrm']['card_vs_cpu']['loss_b']:.6f} vs "
+          f"{window['dlrm']['card_vs_cpu']['loss_a']:.6f}; phase {window['phase_s']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed for weights, prompts and inputs")
@@ -5408,11 +5849,15 @@ def main(argv=None) -> int:
     trainer = {"fp32": trainer_phase(args.seed), "bf16": trainer_phase(args.seed, DataType.BFLOAT16)}
     trainer["checkpoint"] = checkpoint_phase(args.seed)
     vision = vision_phase(args.seed)
+    torch.cuda.empty_cache()
+    window = window_phase(args.seed)
 
-    def trainer_launches(name):  # the trainer phase's launches of a flash form
+    def trainer_launches(name):  # the trainer and window phases' launches of a flash form
         return (sum(sum(r["launches"][k][name] for k in r["launches"])
                     for r in (trainer["fp32"], trainer["bf16"]))
-                + trainer["checkpoint"]["launches"][name])
+                + trainer["checkpoint"]["launches"][name]
+                + sum(window[c]["launches"].get(name, 0) for c in ("bert-base fp32",
+                                                                   "bert-base bf16")))
 
     def record(name, replaces, row, launches, source=SOURCE):
         return {
@@ -5519,6 +5964,7 @@ def main(argv=None) -> int:
           + " vs " + ", ".join(f"{x['peak_bytes'] / 1e9:.3f}" for x in v["remat"]["runs"]["plain"])
           + "; forward ms at batch 8 " + ", ".join(
               f"{k} {f['forward_ms']:.2f}" for k, f in v["forward_other"].items()))
+    print_window(card, window)
     inf = heads["infer"]
     print(f"{card}: bert_sst2 over /v2/models/bert_sst2/infer ({inf['clients']} clients, "
           f"{inf['requests']} requests of 1-4 rows): {inf['requests_per_s']:.2f} requests/s, "
@@ -5678,7 +6124,7 @@ def main(argv=None) -> int:
                       "training": training, "training_bf16": training_bf16,
                       "training_f16": training_f16, "heads": heads,
                       "suffix_prefill_bodies": suffix_bodies, "trainer": trainer,
-                      "vision": vision}))
+                      "vision": vision, "window": window}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

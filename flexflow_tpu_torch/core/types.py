@@ -6,8 +6,10 @@ training (``bench.py``'s BERT-Base cell), a bfloat16 or float16 KV cache
 for serving (``CacheConfig.dtype``), int32 tokens, positions and
 block tables, int64 for the sampler's emulated uint32 words, bool and
 float64 for Cast; the op types of the BERT graphs with their heads, of
-the seq2seq transformer and of the vision models (convolution, pooling,
-BatchNorm, the elementwise unary and binary families), and the
+the seq2seq transformer, of the vision models (convolution, pooling,
+BatchNorm, the elementwise unary and binary families), of NMT (RNN,
+LSTM, batch matmul) and the recommenders, the reductions and the graph's
+weight and no-op nodes, and the
 activation, pooling, aggregation, loss, metric and compilation modes
 around them.
 """
@@ -140,3 +142,14 @@ class OpType(enum.Enum):
     SOFTMAX = "softmax"
     DROPOUT = "dropout"
     CAST = "cast"
+    # graph sources (reference: noop.cc; the weight node roots a tensor)
+    WEIGHT = "weight"
+    NOOP = "noop"
+    BATCH_MATMUL = "batch_matmul"
+    # reductions (reference: gather.cc, reduce.cc, mean.cc)
+    GATHER = "gather"
+    REDUCE_SUM = "reduce_sum"
+    MEAN = "mean"
+    # recurrent (reference: nmt/ LSTM/RNN via cudnnRNN)
+    RNN = "rnn"
+    LSTM = "lstm"

@@ -161,7 +161,13 @@ class KVCache:
         self.v = v
 
     @classmethod
-    def create(cls, config: CacheConfig, device: Union[str, torch.device] = "cpu") -> "KVCache":
+    def create(cls, config: CacheConfig,
+               device: Optional[Union[str, torch.device]] = None) -> "KVCache":
+        """Zeroed storage on ``device``: the GPU unless the caller asks
+        for the CPU (``core/device.py::resolve_device``)."""
+        from ..core.device import resolve_device
+
+        device = resolve_device(device)
         shape = (
             config.num_layers,
             config.num_blocks,

@@ -1,7 +1,9 @@
 """FFModel: the model-building and training API (port of the builders
-the BERT graphs with their heads, the seq2seq transformer and the vision
-models use, of compile/fit/evaluate/predict, and of the checkpoint and
-data-loader entry points, from ``flexflow_tpu/model.py``).
+the BERT graphs with their heads, the seq2seq transformer, the vision
+models, NMT and the recommenders use, of the graph's weight, reduction,
+batch-matmul and recurrent builders, of compile/fit/evaluate/predict, and
+of the checkpoint and data-loader entry points, from
+``flexflow_tpu/model.py``).
 
 Building a layer records a graph node; ``compile`` makes a single-GPU
 :class:`~flexflow_tpu_torch.runtime.executor.Executor` and its weights;
@@ -16,6 +18,9 @@ steps one at a time) splits it once, ``rng, sub = split(rng)``; a
 one-step window trains with ``sub``, a window of k steps with
 ``split(sub, k)``, as the JAX package's traced windows do. So a model
 with dropout trains on the JAX package's masks at any ``trace_window``.
+A full window runs through ``Executor.train_window`` (on the card, a
+captured CUDA graph of the step replayed once a step), a tail step
+through ``train_batch``; ``evaluate`` windows the same way.
 """
 from __future__ import annotations
 
@@ -41,12 +46,15 @@ from .core.types import (
 )
 from .ops import get_op_def
 from .ops.attention import MultiHeadAttentionParams
+from .ops.batch_matmul import BatchMatmulParams
 from .ops.conv import Conv2DParams, Pool2DParams
 from .ops.elementwise import ElementBinaryParams, ElementUnaryParams
 from .ops.embedding import EmbeddingParams
-from .ops.io_ops import InputParams
+from .ops.io_ops import InputParams, WeightParams
 from .ops.linear import LinearParams
 from .ops.norm import BatchNormParams, LayerNormParams
+from .ops.recurrent import RecurrentParams
+from .ops.reduction_ops import GatherParams, MeanParams, ReduceSumParams
 from .ops.shape_ops import (
     CastParams,
     ConcatParams,
@@ -154,6 +162,12 @@ class FFModel:
         self._num_inputs += 1
         return self._one(OpType.INPUT, params, [], name=name or f"input{params.input_index}")
 
+    def create_weight(self, shape: Sequence[int], dtype: DataType = DataType.FLOAT,
+                      initializer: str = "glorot_uniform", name: str = "") -> Tensor:
+        """A learnable tensor rooted in the graph (a WEIGHT node)."""
+        params = WeightParams(tuple(int(s) for s in shape), dtype, initializer)
+        return self._one(OpType.WEIGHT, params, [], name=name)
+
     def dense(
         self,
         input: Tensor,
@@ -204,6 +218,42 @@ class FFModel:
             raise NotImplementedError("add_bias_kv / add_zero_attn are not supported")
         p = MultiHeadAttentionParams(embed_dim, num_heads, kdim, vdim, dropout, bias, causal, query.dtype)
         return self._one(OpType.MULTIHEAD_ATTENTION, p, [query, key, value], name=name)
+
+    def rnn(
+        self,
+        input: Tensor,
+        hidden_size: int,
+        initial_state: Optional[Tensor] = None,
+        activation: ActiMode = ActiMode.TANH,
+        name: str = "",
+    ) -> Tuple[Tensor, Tensor]:
+        """Elman RNN over [B, T, D] -> (sequence [B, T, H], final_h [B, H]).
+        Reference: nmt/ RNN mode."""
+        p = RecurrentParams(hidden_size, input.dtype, self._acti(activation))
+        ins = [input] + ([initial_state] if initial_state is not None else [])
+        outs = self._add(OpType.RNN, p, ins, name=name)
+        return outs[0], outs[1]
+
+    def lstm(
+        self,
+        input: Tensor,
+        hidden_size: int,
+        initial_h: Optional[Tensor] = None,
+        initial_c: Optional[Tensor] = None,
+        name: str = "",
+    ) -> Tuple[Tensor, Tensor, Tensor]:
+        """LSTM over [B, T, D] -> (sequence, final_h, final_c).
+        Reference: nmt/lstm.cc (cudnnRNN LSTM mode)."""
+        p = RecurrentParams(hidden_size, input.dtype)
+        if initial_c is not None and initial_h is None:
+            raise ValueError("lstm: initial_c requires initial_h (pass zeros for h explicitly)")
+        ins = [input]
+        if initial_h is not None:
+            ins.append(initial_h)
+            if initial_c is not None:
+                ins.append(initial_c)
+        outs = self._add(OpType.LSTM, p, ins, name=name)
+        return outs[0], outs[1], outs[2]
 
     def layer_norm(
         self,
@@ -260,6 +310,17 @@ class FFModel:
                    name: str = "") -> Tensor:
         p = BatchNormParams(relu=relu, eps=eps, dtype=input.dtype)
         return self._one(OpType.BATCHNORM, p, [input], name=name)
+
+    def batch_matmul(
+        self,
+        A: Tensor,
+        B: Tensor,
+        a_seq_length_dim: int = -1,
+        b_seq_length_dim: int = -1,
+        name: str = "",
+    ) -> Tensor:
+        p = BatchMatmulParams(a_seq_length_dim, b_seq_length_dim)
+        return self._one(OpType.BATCH_MATMUL, p, [A, B], name=name)
 
     # --------------------------------------------------------- elementwise
     def _binary(self, op: OpType, x: Tensor, y: Tensor, inplace_a: bool = False,
@@ -369,6 +430,21 @@ class FFModel:
     def dropout(self, input: Tensor, rate: float, seed: int = 0, name: str = "") -> Tensor:
         return self._one(OpType.DROPOUT, DropoutParams(rate, seed), [input], name=name)
 
+    def gather(self, input: Tensor, index: Tensor, axis: int, name: str = "") -> Tensor:
+        return self._one(OpType.GATHER, GatherParams(axis), [input, index], name=name)
+
+    def reduce_sum(self, input: Tensor, axes: Sequence[int], keepdims: bool = False,
+                   name: str = "") -> Tensor:
+        return self._one(OpType.REDUCE_SUM, ReduceSumParams(tuple(axes), keepdims), [input],
+                         name=name)
+
+    def mean(self, input: Tensor, dims: Sequence[int], keepdims: bool = False,
+             name: str = "") -> Tensor:
+        return self._one(OpType.MEAN, MeanParams(tuple(dims), keepdims), [input], name=name)
+
+    def residual(self, x: Tensor, fx: Tensor, name: str = "") -> Tensor:
+        return self.add(x, fx, name=name)
+
     # -------------------------------------------------------------- compile
     def compile(
         self,
@@ -416,10 +492,11 @@ class FFModel:
         xs = [x] if isinstance(x, (np.ndarray, torch.Tensor)) else list(x)
         return [to_tensor(xx, self.device) for xx in xs], to_tensor(y, self.device)
 
-    def _step_keys(self, epochs: int, steps: int, tw: int) -> List[List[tuple]]:
-        """Every step's threefry key of a ``fit``, per epoch, on the device:
-        the JAX package's chain (module docstring), derived on the host and
-        moved in one copy, so the steps themselves never sync the host."""
+    def _step_words(self, epochs: int, steps: int, tw: int) -> Optional[torch.Tensor]:
+        """Every step's threefry key of a ``fit`` as words, [epochs *
+        steps, 2] int64 on the device: the JAX package's chain (module
+        docstring), derived on the host and moved in one copy, so the
+        steps themselves never sync the host."""
         from .generation import prng  # the generation package imports the model's ops
 
         rng, keys = prng.key(self._seed + 1), []
@@ -430,9 +507,25 @@ class FFModel:
                 rng, sub = prng.split(rng)
                 keys.extend([sub] if k == 1 else prng.split(sub, k))
                 step += k
-        words = torch.stack([torch.stack(kk) for kk in keys]).to(self.device) if keys else None
-        return [[(words[e * steps + i, 0], words[e * steps + i, 1]) for i in range(steps)]
-                for e in range(epochs)]
+        return torch.stack([torch.stack(kk) for kk in keys]).to(self.device) if keys else None
+
+    @staticmethod
+    def _windows(steps: int, tw: int):
+        """(first step, steps) of each window: full ``tw``-step windows,
+        then the tail one step at a time (the JAX package's
+        ``_iter_windows``)."""
+        step = 0
+        while step < steps:
+            k = tw if steps - step >= tw else 1
+            yield step, k
+            step += k
+
+    @staticmethod
+    def _stacked(xs, y, lo: int, k: int, bs: int):
+        """Rows ``lo : lo + k * bs`` as ``[k, bs, ...]`` views."""
+        hi = lo + k * bs
+        return ([xx[lo:hi].reshape((k, bs) + tuple(xx.shape[1:])) for xx in xs],
+                y[lo:hi].reshape((k, bs) + tuple(y.shape[1:])))
 
     def fit(
         self,
@@ -445,13 +538,16 @@ class FFModel:
     ) -> PerfMetrics:
         """Training loop (reference: FFModel.fit flexflow_cffi.py:2044).
 
-        Steps run one after another; their metrics are read back to the
-        host once per window of ``trace_window`` steps (default
-        ``FFConfig.trace_window``; the tail steps that fill no whole
-        window one at a time, as the JAX package runs them), so the host
-        may queue a window's work ahead of the device. The arithmetic
-        is the same for any window; the step keys follow the JAX
-        package's windows (module docstring)."""
+        ``trace_window`` > 1 (default ``FFConfig.trace_window``) is the
+        analog of the reference's Legion iteration tracing
+        (begin_trace/end_trace, flexflow_cffi.py:2079-2086), as in the
+        JAX package: each full window of that many steps runs through
+        ``executor.train_window`` on stacked ``[k, bs, ...]`` views (on
+        the card one captured CUDA graph of the step, replayed once a
+        step), the tail steps that fill no whole window one at a time
+        through ``train_batch``. Metrics come back to the host once per
+        window. The step keys follow the JAX package's windows (module
+        docstring)."""
         if self.executor is None:
             raise RuntimeError("call compile() first")
         xs, y = self._as_batches(x, y)
@@ -459,28 +555,30 @@ class FFModel:
         bs = batch_size or self.config.batch_size
         tw = max(1, trace_window or self.config.trace_window)
         steps = xs[0].shape[0] // bs
-        keys = self._step_keys(epochs, steps, tw)
+        words = self._step_words(epochs, steps, tw)
+        ex = self.executor
         perf = PerfMetrics()
         interval = max(1, self.config.printing_interval)
         self.step_losses: List[float] = []
         t0 = time.perf_counter()
         for epoch in range(epochs):
-            w0 = 0
-            while w0 < steps:
-                n = tw if steps - w0 >= tw else 1
-                window = []
-                for step in range(w0, w0 + n):
-                    lo = step * bs
-                    window.append(self.executor.train_batch(
-                        [xx[lo:lo + bs] for xx in xs], y[lo:lo + bs], rng=keys[epoch][step]))
-                for i, mets in enumerate(window):  # one host sync per window
-                    host = {k: float(v) for k, v in mets.items()}
-                    perf.update({k: v for k, v in host.items() if k != "loss"})
-                    self.step_losses.append(host["loss"])
+            for w0, n in self._windows(steps, tw):
+                s0 = epoch * steps + w0
+                if n > 1:
+                    wx, wy = self._stacked(xs, y, w0 * bs, n, bs)
+                    mets = ex._train_window(wx, wy, words[s0:s0 + n])
+                else:
+                    lo = w0 * bs
+                    mets = ex.train_batch([xx[lo:lo + bs] for xx in xs], y[lo:lo + bs],
+                                          rng=(words[s0, 0], words[s0, 1]))
+                # one host sync per window
+                host = {k: v.reshape(n).tolist() for k, v in mets.items()}
+                for i in range(n):
+                    perf.update({k: v[i] for k, v in host.items() if k != "loss"})
+                    self.step_losses.append(host["loss"][i])
                     if verbose and (w0 + i) % interval == 0:
                         print(f"epoch {epoch} step {w0 + i}/{steps} "
-                              f"loss {host['loss']:.4f} acc {perf.accuracy:.4f}")
-                w0 += n
+                              f"loss {host['loss'][i]:.4f} acc {perf.accuracy:.4f}")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0
@@ -491,16 +589,27 @@ class FFModel:
         self.last_throughput = thru
         return perf
 
-    def evaluate(self, x, y, batch_size: Optional[int] = None) -> PerfMetrics:
+    def evaluate(self, x, y, batch_size: Optional[int] = None,
+                 trace_window: Optional[int] = None) -> PerfMetrics:
+        """Inference-mode metrics over the batches; full windows of
+        ``trace_window`` steps (default ``FFConfig.trace_window``) run
+        through ``executor.eval_window``, the tail through ``eval_batch``,
+        as the JAX package's ``evaluate``."""
         if self.executor is None:
             raise RuntimeError("call compile() first")
         xs, y = self._as_batches(x, y)
         bs = batch_size or self.config.batch_size
+        tw = max(1, trace_window or self.config.trace_window)
         perf = PerfMetrics()
-        for step in range(xs[0].shape[0] // bs):
-            lo = step * bs
-            mets = self.executor.eval_batch([xx[lo:lo + bs] for xx in xs], y[lo:lo + bs])
-            perf.update({k: float(v) for k, v in mets.items() if k != "loss"})
+        for w0, n in self._windows(xs[0].shape[0] // bs, tw):
+            if n > 1:
+                mets = self.executor.eval_window(*self._stacked(xs, y, w0 * bs, n, bs))
+            else:
+                lo = w0 * bs
+                mets = self.executor.eval_batch([xx[lo:lo + bs] for xx in xs], y[lo:lo + bs])
+            host = {k: v.reshape(n).tolist() for k, v in mets.items() if k != "loss"}
+            for i in range(n):
+                perf.update({k: v[i] for k, v in host.items()})
         return perf
 
     def predict(self, x) -> torch.Tensor:
@@ -602,7 +711,7 @@ class FFModel:
                         for name, value in ws.items():
                             _copy_into(have[key][name], value, f"{field}.{key}.{name}")
             ex.opt_state["step"] = int(opt_state["step"])
-            ex.opt_state["lr"] = float(opt_state["lr"])
+            ex.set_learning_rate(float(opt_state["lr"]))
 
     def _by_layer(self, named, store, what: str) -> Dict[str, Dict[str, torch.Tensor]]:
         """``named`` ({layer name: {weight: value}}) re-keyed by node key,

@@ -1,4 +1,6 @@
 """Model configurations and builders."""
+from .nmt import build_nmt
+from .recommender import build_candle_uno, build_dlrm, build_mlp_unify, build_xdl
 from .transformer import (
     BERT_BASE,
     BERT_LARGE,
@@ -17,9 +19,14 @@ __all__ = [
     "attention_decoder_layer",
     "attention_encoder_layer",
     "build_alexnet",
+    "build_candle_uno",
+    "build_dlrm",
     "build_inception_v3",
+    "build_mlp_unify",
+    "build_nmt",
     "build_resnet50",
     "build_resnext50",
     "build_transformer",
     "build_transformer_seq2seq",
+    "build_xdl",
 ]

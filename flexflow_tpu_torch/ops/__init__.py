@@ -1,15 +1,20 @@
 """Operators of the port: the training graphs' ops (registered on
 import: the BERT encoder, its heads and dropout, the seq2seq decoder's,
 the shape ops, the vision models' convolution, pooling, BatchNorm and
-elementwise families) and the generation path's attention."""
+elementwise families, NMT's recurrent ops and batch matmul, the
+reductions, the weight and no-op nodes) and the generation path's
+attention."""
 from . import (  # noqa: F401 (registers the ops)
     attention,
+    batch_matmul,
     conv,
     elementwise,
     embedding,
     io_ops,
     linear,
     norm,
+    recurrent,
+    reduction_ops,
     shape_ops,
     softmax,
 )

@@ -46,6 +46,9 @@ class LowerCtx:
     state_updates: Dict = dataclasses.field(default_factory=dict)
     # auxiliary losses appended by ops, summed into the step's loss
     aux_losses: List = dataclasses.field(default_factory=list)
+    # iteration-level sequence truncation (FFIterationConfig.seq_length):
+    # batch_matmul keeps the first seq_length entries of its marked dims
+    seq_length: Optional[int] = None
 
     def node_rng(self):
         """``fold_in(rng, node_guid)``: the current node's key (the JAX

@@ -53,10 +53,16 @@ outputs back (the scale stays Dk's).
 
 Each kernel launch runs on the device of its tensors (whatever the
 current device is) and adds one to its count in :data:`LAUNCHES`, and
-to its body's in :data:`LAUNCHES_BY_BODY`.
+to its body's in :data:`LAUNCHES_BY_BODY`. The count is kept on the
+Python side, where the wrapper launches: a CUDA graph of a train step
+(``runtime/step_graph.py``) replays its launches without the wrapper, so
+a capture records them (:func:`capturing`) and each replay adds them
+back (:func:`count_replay`). The record is process-wide, not per thread:
+autograd launches the backward kernels from its own thread.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -85,10 +91,34 @@ _KINDS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 _BACKENDS = ("auto", "plain")
 
 
+# the launches of the capture under way (capturing()), or None
+_CAPTURE: Optional[Dict[str, int]] = None
+
+
 def reset_launch_counts() -> None:
     for counts in (LAUNCHES, LAUNCHES_BY_BODY):
         for name in counts:
             counts[name] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA graph capture: the launches recorded into the graph
+    go into the dict yielded (the capture's launches, for
+    :func:`count_replay`) and not into the counts."""
+    global _CAPTURE
+    prev, rec = _CAPTURE, {}
+    _CAPTURE = rec
+    try:
+        yield rec
+    finally:
+        _CAPTURE = prev
+
+
+def count_replay(captured: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``captured``."""
+    for name, n in captured.items():
+        (LAUNCHES if name in LAUNCHES else LAUNCHES_BY_BODY)[name] += n
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -270,8 +300,15 @@ def kernel_body(kernel: str, q, k, v, dout=None, out0=None, out1=None) -> str:
 
 
 def _count(kernel: str, count: str, *tensors) -> None:
-    LAUNCHES[kernel + count] += 1
-    LAUNCHES_BY_BODY[f"{kernel}{count} {kernel_body(kernel, *tensors)}"] += 1
+    names = (kernel + count, f"{kernel}{count} {kernel_body(kernel, *tensors)}")
+    rec = _CAPTURE
+    if rec is not None and torch.cuda.is_current_stream_capturing():
+        # recorded into a graph, not run: counted at each replay
+        for name in names:
+            rec[name] = rec.get(name, 0) + 1
+        return
+    LAUNCHES[names[0]] += 1
+    LAUNCHES_BY_BODY[names[1]] += 1
 
 
 def flash_forward_kernel(q, k, v, causal: bool, scale: float):

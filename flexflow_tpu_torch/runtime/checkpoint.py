@@ -121,7 +121,8 @@ def restore_checkpoint(path: str, executor) -> int:
         for cur, src in pending:
             cur.copy_(src)
     if opt is not None and saved["opt_state"]:
-        opt["step"], opt["lr"] = int(saved["opt_state"]["step"]), float(saved["opt_state"]["lr"])
+        opt["step"] = int(saved["opt_state"]["step"])
+        executor.set_learning_rate(float(saved["opt_state"]["lr"]))
     return int(saved["step"])
 
 

@@ -40,6 +40,21 @@ Float32 stays float32: cuDNN runs float32 convolutions in TF32 unless
 told otherwise (``torch.backends.cudnn.allow_tf32`` is True by default),
 so each step, forward and backward, runs with TF32 off for cuDNN and
 cuBLAS (:func:`_full_fp32`), and the flags are put back after it.
+
+The window path (the JAX executor's ``train_window``, ``train_batch_
+repeated`` and ``eval_window``, which run ``k`` steps as one XLA
+program): on a CUDA device each step kind is captured once per geometry
+as a CUDA graph (``runtime/step_graph.py``) and replayed once a step;
+the window's first step is the capture's eager warm-up. On the CPU the
+same methods run the eager step ``k`` times. Keys as JAX's:
+``train_window`` and ``eval_window`` give step ``i`` the key
+``split(rng, k)[i]``, ``train_batch_repeated`` ``fold_in(rng, i)`` (the
+same key). The window methods fire no fault site, as JAX's fire none. A
+step writes the new non-trainable state into the state tensors in place
+and the optimizer updates in place, so a graph, which reads the tensors
+it was captured with, stays valid; replacing a tensor of ``params``,
+``state`` or ``opt_state`` (``initialize``, or a caller's own rebinding)
+drops the graphs and the next window captures again.
 """
 from __future__ import annotations
 
@@ -97,6 +112,9 @@ class Executor:
     backend: str = "auto"
     remat_blocks: bool = False
     grad_accum_steps: int = 1
+    # iteration-level sequence truncation (FFIterationConfig.seq_length),
+    # carried into LowerCtx.seq_length; None = off
+    seq_length: Optional[int] = None
 
     params: Optional[Params] = None
     state: Optional[Params] = None  # non-trainable (BatchNorm's running stats)
@@ -104,6 +122,11 @@ class Executor:
     _by_name: Optional[Dict[str, str]] = None
     # (pre nodes, repeated blocks, post nodes) when remat_blocks engaged
     _remat_plan: Optional[tuple] = None
+    # the window path's step graphs by geometry, the leaf identities they
+    # were captured with, and the number of captures made
+    _graphs: Dict = dataclasses.field(default_factory=dict)
+    _graph_leaves: Optional[tuple] = None
+    graph_captures: int = 0
 
     def initialize(self, generator: torch.Generator) -> "Executor":
         """Materialise every weight on the device: drawn on the CPU from
@@ -130,6 +153,7 @@ class Executor:
         self.state = state
         if self.optimizer is not None:
             self.opt_state = self.optimizer.init_state(params)
+        self._graphs, self._graph_leaves = {}, None
         return self
 
     def _build_remat_plan(self):
@@ -163,7 +187,8 @@ class Executor:
         """Lower ``nodes`` in order into ``values`` (seeded with their
         inputs); returns the context with the state updates and aux
         losses they wrote."""
-        ctx = LowerCtx(training=training, rng=rng, backend=self.backend)
+        ctx = LowerCtx(training=training, rng=rng, backend=self.backend,
+                       seq_length=self.seq_length)
         for node in nodes:
             key = node_key(node)
             node_inputs = [values[(e.src, e.src_idx)] for e in self.graph.in_edges(node)]
@@ -231,12 +256,30 @@ class Executor:
     # ---------------------------------------------------------------- API
     def _step_key(self, rng):
         """A threefry key (``generation/prng.py``) on the device; ``key(0)``
-        (the JAX executor's default outside training) when ``rng`` is
-        None."""
+        (the JAX executor's default outside training), made on the
+        device, when ``rng`` is None."""
         from ..generation import prng  # the generation package imports the runtime
 
-        k1, k2 = prng.key(0) if rng is None else rng
+        if rng is None:
+            return prng.key(torch.zeros((), dtype=torch.int64, device=self.device))
+        k1, k2 = rng
         return k1.to(self.device), k2.to(self.device)
+
+    def _split_words(self, rng, n: int) -> torch.Tensor:
+        """[n, 2] int64 on the device: row i holds the words of
+        ``split(rng, n)[i]``, which is ``fold_in(rng, i)``."""
+        from ..generation import prng  # the generation package imports the runtime
+
+        k = self._step_key(rng)
+        k1, k2 = prng.fold_in(k, torch.arange(n, dtype=torch.int64, device=k[0].device))
+        return torch.stack([k1, k2], dim=1)
+
+    def set_learning_rate(self, lr: float) -> None:
+        """Set the learning rate in place (it lives in ``opt_state`` as a
+        float32 device scalar the step reads, so a captured step takes it
+        with no re-capture; reference: flexflow_c.cc set_learning_rate)."""
+        if self.opt_state is not None and "lr" in self.opt_state:
+            self.opt_state["lr"].fill_(float(lr))
 
     def _backward(self, inputs, label, rng, state):
         """Forward, loss and ``backward()`` of one (micro)batch: the
@@ -253,15 +296,11 @@ class Executor:
         mets["loss"] = loss.detach()
         return mets, new_state
 
-    def train_batch(self, inputs: Sequence, label, rng=None) -> Dict[str, torch.Tensor]:
-        """Forward, loss, backward, optimizer update (in place). ``rng``
-        is the step's threefry key (dropout masks). Returns the batch's
-        metrics and loss as device tensors (no host sync)."""
-        if self.optimizer is None or self.loss_type is None:
-            raise RuntimeError("compile() with an optimizer and a loss to train")
-        inputs = self._as_inputs(faults.inject(faults.EXECUTOR_TRAIN_BATCH, inputs))
-        label = to_tensor(label, self.device)
-        key = self._step_key(rng)
+    def _train_body(self, inputs, label, key) -> Dict[str, torch.Tensor]:
+        """The device work of one train step: forward, loss, backward, the
+        optimizer's in-place update (its host scalars already written by
+        ``prepare``) and the new state copied into the state tensors.
+        Launches only, no host sync: a CUDA graph captures it."""
         leaves = [p for g in self.params.values() for p in g.values()]
         for p in leaves:
             p.grad = None
@@ -291,22 +330,146 @@ class Executor:
             k: {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in g.items()}
             for k, g in self.params.items()
         }
-        self.optimizer.apply(self.params, grads, self.opt_state)
-        self.state = new_state
+        self.optimizer.update(self.params, grads, self.opt_state)
+        self._store_state(new_state)
         for p in leaves:
             p.grad = None
         return mets
 
     @torch.no_grad()
-    def eval_batch(self, inputs: Sequence, label) -> Dict[str, torch.Tensor]:
-        inputs = self._as_inputs(inputs)
+    def _store_state(self, new_state: Params) -> None:
+        """Copy the step's new state into the state tensors, in place."""
+        if new_state is self.state:
+            return
+        for key, group in new_state.items():
+            for name, val in group.items():
+                cur = self.state[key][name]
+                if val is not cur:
+                    cur.copy_(val)
+
+    def _check_trainable(self, what: str) -> None:
+        if self.optimizer is None or self.loss_type is None:
+            raise RuntimeError(f"{what} requires a compiled optimizer and loss")
+
+    def train_batch(self, inputs: Sequence, label, rng=None) -> Dict[str, torch.Tensor]:
+        """Forward, loss, backward, optimizer update (in place). ``rng``
+        is the step's threefry key (dropout masks). Returns the batch's
+        metrics and loss as device tensors (no host sync)."""
+        self._check_trainable("train_batch")
+        inputs = self._as_inputs(faults.inject(faults.EXECUTOR_TRAIN_BATCH, inputs))
         label = to_tensor(label, self.device)
+        key = self._step_key(rng)
+        self.optimizer.prepare(self.opt_state)
+        mets = self._train_body(inputs, label, key)
+        self.opt_state["step"] += 1
+        return mets
+
+    @torch.no_grad()
+    def _eval_body(self, inputs, label, key) -> Dict[str, torch.Tensor]:
         with _full_fp32():
-            final = self._forward_impl(self.params, self.state, inputs, training=False)[0][-1]
+            final = self._forward_impl(self.params, self.state, inputs, training=False,
+                                       rng=key)[0][-1]
         mets = metrics_mod.compute_metrics(self.metric_types, final, label)
         if self.loss_type is not None:
             mets["loss"] = losses.get_loss_fn(self.loss_type)(final, label)
         return mets
+
+    def eval_batch(self, inputs: Sequence, label, rng=None) -> Dict[str, torch.Tensor]:
+        """The batch's metrics and loss in inference mode; ``rng`` reaches
+        the ops as the step key (no op reads it outside training)."""
+        inputs = self._as_inputs(inputs)
+        label = to_tensor(label, self.device)
+        return self._eval_body(inputs, label, None if rng is None else self._step_key(rng))
+
+    # ------------------------------------------------------------ windows
+    def train_window(self, inputs: Sequence, labels, rng) -> Dict[str, torch.Tensor]:
+        """One optimizer step per stacked batch: ``inputs``/``labels``
+        carry a leading ``[steps, ...]`` axis, step i takes slice i and
+        the key ``split(rng, steps)[i]``. Returns every step's metrics
+        stacked ``[steps]`` (device tensors)."""
+        self._check_trainable("train_window")
+        inputs = self._as_inputs(inputs)
+        labels = to_tensor(labels, self.device)
+        return self._train_window(inputs, labels, self._split_words(rng, int(inputs[0].shape[0])))
+
+    def _train_window(self, inputs, labels, words) -> Dict[str, torch.Tensor]:
+        """``train_window`` with its keys given as words ([steps, 2])."""
+        return self._window("train", inputs, labels, words, per_step=True)
+
+    def train_batch_repeated(self, inputs: Sequence, label, rng,
+                             num_steps: int) -> Dict[str, torch.Tensor]:
+        """``num_steps`` optimizer steps on ONE batch, step i with the key
+        ``fold_in(rng, i)``. Returns the last step's metrics."""
+        self._check_trainable("train_batch_repeated")
+        inputs = self._as_inputs(inputs)
+        label = to_tensor(label, self.device)
+        mets = self._window("train", inputs, label, self._split_words(rng, int(num_steps)),
+                            per_step=False)
+        return {k: v[-1] for k, v in mets.items()}
+
+    def eval_window(self, inputs: Sequence, labels, rng=None) -> Dict[str, torch.Tensor]:
+        """Evaluate one batch per leading-axis slice, step i with the key
+        ``split(rng, steps)[i]`` (``rng`` defaults to ``key(0)``). Returns
+        every step's metrics stacked ``[steps]``."""
+        inputs = self._as_inputs(inputs)
+        labels = to_tensor(labels, self.device)
+        return self._window("eval", inputs, labels, self._split_words(rng, int(inputs[0].shape[0])),
+                            per_step=True)
+
+    def _window(self, kind: str, inputs, labels, words, per_step: bool):
+        """Run ``len(words)`` steps of ``kind`` ("train" or "eval"): step
+        i on slice i of the stacked inputs (``per_step``) or on the same
+        batch, with the key words ``words[i]``; a captured graph on a
+        CUDA device, the eager body on the CPU."""
+        body = self._train_body if kind == "train" else self._eval_body
+        w = int(words.shape[0])
+        first = ([x[0] for x in inputs], labels[0]) if per_step else (inputs, labels)
+        graph = self._step_graph(kind, body, *first) if self._captures() else None
+        out: Dict[str, torch.Tensor] = {}
+        for i in range(w):
+            ins, lab = ([x[i] for x in inputs], labels[i]) if per_step else (inputs, labels)
+            if kind == "train":
+                self.optimizer.prepare(self.opt_state)
+            if graph is None:
+                mets = body(ins, lab, (words[i, 0], words[i, 1]))
+            else:
+                new = graph.graph is None
+                if per_step or i == 0:
+                    graph.load(ins, lab, words[i])
+                else:
+                    graph.load(key=words[i])
+                mets = graph.run()
+                self.graph_captures += int(new)
+            if kind == "train":
+                self.opt_state["step"] += 1
+            if not out:
+                out = {k: torch.empty((w,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+                       for k, v in mets.items()}
+            for k, v in mets.items():
+                out[k][i].copy_(v)
+        return out
+
+    def _captures(self) -> bool:
+        """Whether the window path runs captured graphs: on a CUDA device."""
+        return self.device.type == "cuda"
+
+    def _step_graph(self, kind: str, body, inputs, label):
+        """The step graph of this geometry, made (not yet captured) when
+        new; every graph is dropped first if a tensor of the params,
+        state or optimizer state was replaced since the captures."""
+        from .step_graph import StepGraph, leaf_ids
+
+        leaves = leaf_ids(self.params, self.state, self.opt_state)
+        if leaves != self._graph_leaves:
+            self._graphs, self._graph_leaves = {}, leaves
+        sig = (kind, tuple((tuple(x.shape), x.dtype) for x in inputs),
+               (tuple(label.shape), label.dtype), self.seq_length,
+               int(self.grad_accum_steps), self._remat_plan is not None)
+        graph = self._graphs.get(sig)
+        if graph is None:
+            graph = self._graphs[sig] = StepGraph(self.device, body, inputs, label,
+                                                  wrap=_full_fp32)
+        return graph
 
     @torch.no_grad()
     def predict(self, inputs: Sequence) -> List[torch.Tensor]:

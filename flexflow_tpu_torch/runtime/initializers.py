@@ -35,10 +35,43 @@ def ones(gen: torch.Generator, spec: TensorSpec) -> torch.Tensor:
     return torch.ones(spec.shape, dtype=spec.dtype.torch)
 
 
+def make_uniform(minv: float, maxv: float):
+    def init(gen: torch.Generator, spec: TensorSpec) -> torch.Tensor:
+        return torch.empty(spec.shape, dtype=spec.dtype.torch).uniform_(minv, maxv, generator=gen)
+
+    return init
+
+
+def make_normal(mean: float = 0.0, stddev: float = 1.0):
+    def init(gen: torch.Generator, spec: TensorSpec) -> torch.Tensor:
+        return torch.empty(spec.shape, dtype=spec.dtype.torch).normal_(mean, stddev,
+                                                                        generator=gen)
+
+    return init
+
+
+def orthogonal(gen: torch.Generator, spec: TensorSpec) -> torch.Tensor:
+    """Orthogonal init (recurrent kernels; gain 1.0): the Q of a float32
+    Gaussian's QR, its columns' signs fixed by R's diagonal, cut to the
+    spec's shape. Not 2-D: Glorot uniform, as the JAX package."""
+    shape = spec.shape
+    if len(shape) != 2:
+        return glorot_uniform(gen, spec)
+    rows, cols = shape
+    n = max(rows, cols)
+    a = torch.empty((n, n), dtype=torch.float32).normal_(generator=gen)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return q[:rows, :cols].to(spec.dtype.torch).contiguous()
+
+
 _REGISTRY: Dict[str, Callable[[torch.Generator, TensorSpec], torch.Tensor]] = {
     "glorot_uniform": glorot_uniform,
     "zeros": zeros,
     "ones": ones,
+    "normal": make_normal(),
+    "uniform": make_uniform(-0.05, 0.05),
+    "orthogonal": orthogonal,
 }
 
 
@@ -46,3 +79,4 @@ def get_initializer(name: str) -> Callable[[torch.Generator, TensorSpec], torch.
     if name not in _REGISTRY:
         raise KeyError(f"unknown initializer {name!r}")
     return _REGISTRY[name]
+

@@ -1420,3 +1420,163 @@ def test_cuda_generation_model_over_http_gives_the_scheduler_streams(cuda):
         srv.stop()
     assert got == want
     assert graph.trace_counts == captures and not graph.recompiles()
+
+
+# ------------------------------------------------------------ window path
+def _snapshot(tree):
+    return {k: {n: t.detach().clone() for n, t in g.items()} for k, g in tree.items()}
+
+
+def _trees_equal(a, b) -> bool:
+    return all(torch.equal(a[k][n], b[k][n]) for k in a for n in a[k])
+
+
+def _window_models(build, optimizer, loss):
+    """Two compiled models of one graph from the same weights (the first
+    model's, copied in): the window path's and the eager steps'."""
+    from flexflow_tpu_torch.model import FFModel
+
+    a = build()
+    a.compile(optimizer=optimizer(), loss_type=loss)
+    b = FFModel.from_graph(a.graph, a.config, seed=a._seed, device=a.device)
+    b.compile(optimizer=optimizer(), loss_type=loss,
+              outputs=b.output_tensors([(t.node.guid, t.idx) for t in a._outputs]))
+    with torch.no_grad():
+        for k, g in a.executor.params.items():
+            for n, p in g.items():
+                b.executor.params[k][n].copy_(p)
+    return a, b
+
+
+def _bert(cuda, dropout=0.1):
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.models import build_transformer
+
+    return build_transformer(FFConfig(batch_size=4, seed=3),
+                             TransformerConfig(num_layers=2, hidden_size=128, num_heads=2,
+                                               ff_size=256, seq_length=32, dropout=dropout),
+                             device=cuda)
+
+
+def test_cuda_fit_window_replays_bit_identical_to_eager_steps(cuda):
+    """``fit(trace_window=4)`` over 8 batches (two windows: a warm-up step
+    and the capture, then 7 replays) against 8 ``train_batch`` calls with
+    the same keys, from the same weights, with dropout: every loss and
+    every parameter bit for bit (the same kernels in the same order), one
+    capture, and the flash launches of 8 steps (replays counted)."""
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    a, b = _window_models(lambda: _bert(cuda), lambda: SGDOptimizer(lr=0.01),
+                          LossType.MEAN_SQUARED_ERROR)
+    gen = torch.Generator().manual_seed(2)
+    x, y = (torch.randn(32, 32, 128, generator=gen).to(cuda) for _ in range(2))
+    fa.reset_launch_counts()
+    a.fit(x, y, batch_size=4, verbose=False, trace_window=4)
+    assert a.executor.graph_captures == 1
+    assert {k: n for k, n in fa.LAUNCHES.items() if n} == \
+        {"flash_fwd": 16, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
+    words = b._step_words(1, 8, 4)
+    losses = [float(b.executor.train_batch([x[4 * i:4 * i + 4]], y[4 * i:4 * i + 4],
+                                           rng=(words[i, 0], words[i, 1]))["loss"])
+              for i in range(8)]
+    assert a.step_losses == losses
+    assert _trees_equal(a.executor.params, b.executor.params)
+
+
+def test_cuda_repeated_eval_window_and_learning_rate_replay_as_eager(cuda):
+    """Adam: ``train_batch_repeated`` (4 steps), then the rate changed and
+    a ``train_window`` of 3 on the same geometry (no new capture), then
+    ``eval_window``: against the eager steps with the same keys, bit for
+    bit."""
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.generation import prng
+    from flexflow_tpu_torch.runtime import AdamOptimizer
+
+    a, b = _window_models(lambda: _bert(cuda, dropout=0.0), lambda: AdamOptimizer(alpha=1e-3),
+                          LossType.MEAN_SQUARED_ERROR)
+    gen = torch.Generator().manual_seed(3)
+    x, y = (torch.randn(3, 4, 32, 128, generator=gen).to(cuda) for _ in range(2))
+    key = prng.key(7)
+    last = a.executor.train_batch_repeated([x[0]], y[0], key, 4)
+    a.executor.set_learning_rate(5e-4)
+    mets = a.executor.train_window([x], y, key)
+    ev = a.executor.eval_window([x], y)
+    assert a.executor.graph_captures == 2  # the train step and the eval step
+    words = b.executor._split_words(key, 4)
+    eager = [float(b.executor.train_batch([x[0]], y[0], rng=(w[0], w[1]))["loss"])
+             for w in words]
+    b.executor.set_learning_rate(5e-4)
+    words = b.executor._split_words(key, 3)
+    eager += [float(b.executor.train_batch([x[i]], y[i], rng=(words[i, 0], words[i, 1]))["loss"])
+              for i in range(3)]
+    assert float(last["loss"]) == eager[3] and mets["loss"].tolist() == eager[4:]
+    assert _trees_equal(a.executor.params, b.executor.params)
+    assert _trees_equal(a.executor.opt_state["m"], b.executor.opt_state["m"])
+    assert ev["loss"].tolist() == [float(b.executor.eval_batch([x[i]], y[i])["loss"])
+                                   for i in range(3)]
+
+
+def _tiny_nmt(cuda):
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.models import build_nmt
+
+    return build_nmt(FFConfig(batch_size=4, seed=5), src_vocab=50, tgt_vocab=50, embed_dim=16,
+                     hidden_size=16, src_len=6, tgt_len=6, device=cuda)
+
+
+def _tiny_dlrm(cuda):
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.models import build_dlrm
+
+    return build_dlrm(FFConfig(batch_size=4, seed=6), embedding_sizes=(100,) * 3,
+                      embedding_dim=8, embedding_bag_size=2, dense_dim=8, bottom_mlp=(16, 8),
+                      top_mlp=(16, 1), device=cuda)
+
+
+@pytest.mark.parametrize("model", ["nmt", "dlrm"])
+def test_cuda_nmt_and_dlrm_windows_replay_as_eager(cuda, model):
+    """The LSTM recurrence and the embedding lookups (their backward a
+    scatter into the tables) inside a captured step: ``fit(trace_window=
+    3)`` over 6 batches against ``train_batch`` with the same keys, bit
+    for bit."""
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    build, loss = ((_tiny_nmt, LossType.SPARSE_CATEGORICAL_CROSSENTROPY) if model == "nmt"
+                   else (_tiny_dlrm, LossType.MEAN_SQUARED_ERROR))
+    a, b = _window_models(lambda: build(cuda), lambda: SGDOptimizer(lr=0.1), loss)
+    gen = torch.Generator().manual_seed(9)
+    if model == "nmt":
+        xs = [torch.randint(0, 50, (24, 6), generator=gen, dtype=torch.int32) for _ in range(2)]
+        y = torch.randint(0, 50, (24, 6), generator=gen, dtype=torch.int32)
+    else:
+        xs = [torch.randint(0, 100, (24, 2), generator=gen, dtype=torch.int32) for _ in range(3)]
+        xs.append(torch.randn(24, 8, generator=gen))
+        y = torch.rand(24, 1, generator=gen)
+    xs, y = [t.to(cuda) for t in xs], y.to(cuda)
+    a.fit(xs, y, verbose=False, trace_window=3)
+    assert a.executor.graph_captures == 1
+    words = b._step_words(1, 6, 3)
+    losses = [float(b.executor.train_batch([t[4 * i:4 * i + 4] for t in xs], y[4 * i:4 * i + 4],
+                                           rng=(words[i, 0], words[i, 1]))["loss"])
+              for i in range(6)]
+    assert a.step_losses == losses
+    assert _trees_equal(a.executor.params, b.executor.params)
+
+
+def test_cuda_a_capture_that_fails_raises(cuda):
+    """A step body that syncs the host cannot be captured: the capture
+    raises after the eager warm-up ran, and nothing is replayed."""
+    from flexflow_tpu_torch.runtime.executor import _full_fp32
+    from flexflow_tpu_torch.runtime.step_graph import StepGraph
+
+    def body(inputs, label, key):
+        s = inputs[0].sum()
+        return {"loss": s * float(s)}  # float() waits for the device
+
+    g = StepGraph(cuda, body, [torch.ones(4, device=cuda)], torch.zeros(1, device=cuda),
+                  wrap=_full_fp32)
+    with pytest.raises(RuntimeError):
+        g.run()
+    assert g.graph is None

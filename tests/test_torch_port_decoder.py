@@ -161,7 +161,7 @@ def test_incremental_decode_matches_full_forward(params, prompt_len):
     every decode step's logits equal the full-context forward's."""
     _, tp = params
     cc = CacheConfig(num_layers=2, num_heads=4, head_dim=8, num_blocks=10, block_size=BLOCK)
-    cache = KVCache.create(cc)
+    cache = KVCache.create(cc, device="cpu")
     blocks = torch.arange(1, 9, dtype=torch.int32)
     seq = _tokens(prompt_len + 30, (prompt_len,)).tolist()
     _, ks, vs = tdec.prefill(tp, torch.tensor([seq], dtype=torch.int32),
@@ -301,6 +301,18 @@ def test_gpt2_small_cache_geometry():
 # ---------------------------------------------------------------------------
 
 
+def test_kv_cache_is_made_on_the_card_unless_the_cpu_is_asked_for():
+    """``KVCache.create`` without a device makes the cache on the GPU, and
+    raises where there is none (it never falls back to the CPU)."""
+    cc = CacheConfig(num_layers=1, num_heads=2, head_dim=4, num_blocks=3, block_size=BLOCK)
+    assert KVCache.create(cc, device="cpu").k.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert KVCache.create(cc).k.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            KVCache.create(cc)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of flexflow_tpu_torch in a fresh interpreter:
     neither jax nor flexflow_tpu may be loaded."""
@@ -328,7 +340,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'ops.embedding', 'ops.shape_ops', 'serving.model', 'serving.batcher',\n"
         "          'serving.repository', 'tools.heads_probe', 'serving.fleet',\n"
         "          'tools.fleet_probe', 'ops.conv', 'parallel.pipeline', 'models.vision',\n"
-        "          'runtime.checkpoint', 'runtime.dataloader', 'tools.trainer_probe'):\n"
+        "          'runtime.checkpoint', 'runtime.dataloader', 'tools.trainer_probe',\n"
+        "          'ops.recurrent', 'ops.batch_matmul', 'ops.reduction_ops', 'models.nmt',\n"
+        "          'models.recommender', 'runtime.step_graph', 'tools.window_probe'):\n"
         "    assert 'flexflow_tpu_torch.' + m in names, names\n"
         "print(len(names))\n"
     )

@@ -14,6 +14,15 @@ broadcast sums, tanh's 1 - y^2) where PyTorch rounds a float32
 result once. JAX's own gradient of a bf16 convolution raises a dtype
 TypeError (its transpose meets the float32 cotangent of
 ``preferred_element_type``), so the bf16 convolution holds its forward.
+float16: every forward bit for bit with JAX's except ELU, whose
+``expm1`` XLA's CPU backend rounds less exactly than PyTorch's
+correctly rounded ``elu``; the port keeps the exact ELU (the JAX
+package means ``alpha * expm1(x)``), so ELU is held within 2 fp16 ulps
+of JAX's value and within half an ulp of the float64 ELU. Every fp16
+gradient within 2^-9 (four units of fp16 roundoff, as bf16's four) of
+the largest |JAX value| (7.5e-4 of it measured). JAX's fp16 convolution
+gradient raises as its bf16 one does: the fp16 convolution holds its
+forward.
 
 The CNN (``tests/torch_port_cnn.py``): three SGD steps (lr 0.01,
 momentum 0.9) from the JAX model's weights, losses rtol 1e-5, then
@@ -63,12 +72,20 @@ pytestmark = pytest.mark.torch_port
 
 F32_SHARE = 1e-5
 BF16_GRAD_SHARE = 2.0 ** -6
+F16_GRAD_SHARE = 2.0 ** -9
 
 
 def _bf16_ulp(a: np.ndarray) -> np.ndarray:
     """One bf16 unit in the last place at |a| (8 significant bits)."""
     mag = np.maximum(np.abs(a), 2.0 ** -126)
     return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def _f16_ulp(a: np.ndarray) -> np.ndarray:
+    """One fp16 unit in the last place at |a| (11 significant bits;
+    subnormals below 2^-14 have the spacing 2^-24)."""
+    mag = np.maximum(np.abs(a), 2.0 ** -14)
+    return 2.0 ** (np.floor(np.log2(mag)) - 10)
 
 
 def _conv(out, k, s, p, groups, bias, acti):
@@ -139,20 +156,24 @@ CASES = [
                   ("SCALAR_TRUE_DIV", 3.0))]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+_TYPES = {"float32": ("FLOAT", np.float32), "bfloat16": ("BFLOAT16", ml_dtypes.bfloat16),
+          "float16": ("HALF", np.float16)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case,op,make,kind,training", CASES, ids=[c[0] for c in CASES])
 def test_op_forward_and_gradient_match_jax(case, op, make, kind, training, dtype):
     rs = np.random.RandomState(sum(map(ord, case)))
     xs, ws = _inputs(kind, rs)
     jmod = {"conv": jconv, "pool": jconv, "bn": jnorm}.get(kind, jew)
     tmod = {"conv": conv, "pool": conv, "bn": norm}.get(kind, ew)
-    jp = make(jmod, JActi, JDataType, "FLOAT" if dtype == "float32" else "BFLOAT16")
-    tp = make(tmod, ActiMode, DataType, "FLOAT" if dtype == "float32" else "BFLOAT16")
-    jdt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    dname, jdt = _TYPES[dtype]
+    jp = make(jmod, JActi, JDataType, dname)
+    tp = make(tmod, ActiMode, DataType, dname)
     jx = tuple(jnp.asarray(x.astype(jdt)) for x in xs)
     jw = {k: jnp.asarray(v.astype(jdt)) for k, v in ws.items()}
     trainable = [k for k in jw if not k.startswith("running")]
-    backward = not (op == "CONV2D" and dtype == "bfloat16")
+    backward = not (op == "CONV2D" and dtype != "float32")
 
     def jf(xs_, wt):
         return jget_op_def(getattr(JOpType, op)).lower(
@@ -185,8 +206,16 @@ def test_op_forward_and_gradient_match_jax(case, op, make, kind, training, dtype
         err = np.abs(got - want)
         if dtype == "float32":
             lim = F32_SHARE * np.abs(want).max()
+        elif dtype == "float16" and (name == "y" or name.startswith("state")):
+            lim = 2 * _f16_ulp(want) if op == "ELU" else 0.0
+            if op == "ELU":  # the exact ELU: half an ulp of float64's
+                x64 = np.asarray(jx[0], np.float64)
+                exact = np.where(x64 > 0, x64, np.expm1(x64))
+                assert (np.abs(got - exact) <= 0.5 * _f16_ulp(exact)).all(), case
         elif name == "y" or name.startswith("state"):
             lim = _bf16_ulp(want)
+        elif dtype == "float16":
+            lim = F16_GRAD_SHARE * np.abs(want).max()
         else:
             lim = BF16_GRAD_SHARE * np.abs(want).max()
         assert (err <= lim).all(), f"{case} {dtype} {name}: max err {err.max()}"
