@@ -293,7 +293,10 @@ prints no result line):
    with ``remat_blocks`` (stage 3's 5 blocks, BatchNorms inside) against
    without at the card-against-CPU gates, the running statistics moved
    by one update, peak memory lower; one forward each at batch 8 of
-   AlexNet (224), ResNeXt-50 32x4d (224) and Inception-v3 (299).
+   AlexNet (224), ResNeXt-50 32x4d (224) and Inception-v3 (299); and
+   ``FFModel.profile`` of ResNet-50's forward at batch 32 (each op alone,
+   CUDA events around its second call): the device ms by op type and the
+   slowest ops, every op taking time.
    The earlier training phases run eager steps (``fit`` at
    ``trace_window=1``); the window phase holds the captured graph
    against them.
@@ -319,6 +322,34 @@ prints no result line):
    64, bag 1, dense 64, bottom 512-256-64, top 512-256-1; batch 256,
    SGD lr 0.01, MSE): a batch-4 step card against CPU on 10,000-row
    tables, then eager against window at full width (samples/s).
+22. moe: the mixture-of-experts MLP at examples/moe.py's shape
+   (``build_moe_mlp``: 784 in, 10 classes, 8 experts, k 2, expert hidden
+   64, alpha 2.0, lambda_bal 0.04; batch 64, fp32, SGD lr 0.01, sparse
+   categorical cross-entropy, weights and data from --seed). The card
+   against the CPU port from the same weights: routing first (top-k
+   indices equal, the smallest margin between the k-th and the (k+1)-th
+   gate value and the dropped slots printed), then one step at the
+   training phase's fp32 gates; 16 steps as ``fit(trace_window=8)``
+   against 16 ``train_batch`` calls, bit for bit with one capture (host
+   ms a step in turns, device ms and busy share, capture s); the batched
+   layer against the per-expert one from the same weights (rtol 1e-5,
+   atol 1e-6); ``use_cache=True`` with ``recompile_on_condition``: the
+   trigger fires on ``cache_score``, the weights are kept bit for bit by
+   name, the old executor's graphs are dropped and the next window fit
+   captures once and trains; AggregateSpec alone, card against CPU (rows
+   and expert gradient bit for bit, gate gradient rtol 1e-5); an
+   ``ElasticTrainer`` run with an error injected at ``elastic.step``
+   ending bit for bit with the fault-free run; ``FFConfig(profiling=
+   True)`` printing the per-op table once.
+23. keras: examples/keras_mnist.py's Sequential model (Dense 128 ReLU over
+   784, Dropout 0.2, Dense 10 softmax; SGD 0.05, batch 64, 512 samples,
+   one epoch) on the card against the same graph on the CPU from the same
+   weights and key chain: the dropout masks bit for bit, the first loss
+   rtol 1e-5, every loss rtol 1e-4, each parameter within 1e-3 of its
+   largest change; the functional CNN of tests/test_keras_frontend.py
+   (two convolutions concatenated, Adam, batch 16): eval against the CPU
+   (atol 1e-4 + rtol 1e-4), the first loss rtol 1e-5, ``predict`` rows of
+   probabilities.
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -5260,6 +5291,8 @@ def vision_phase(seed: int) -> dict:
         groups[vision_kernel_group(name)] += us / 1e3 / 2
     step_device_ms = sum(by_name.values()) / 1e3 / 2
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # the forward op by op (FFModel.profile), after the timed steps
+    forward_profile = resnet_forward_profile(model, x)
 
     # --- remat: the same step with stage 3's blocks rematerialized
     rm = compiled(FFModel.from_graph(model.graph, FFConfig(batch_size=batch, seed=seed,
@@ -5341,7 +5374,8 @@ def vision_phase(seed: int) -> dict:
            "device_busy_share_of_timed_step": step_device_ms / (1e3 * elapsed / steps),
            "step_device_ms_by_group": groups,
            "top_device_us": {n[:100]: us / 2 for n, us in top},
-           "remat": remat, "forward_other": fwd, "phase_s": time.perf_counter() - t_phase}
+           "remat": remat, "forward_other": fwd, "forward_profile": forward_profile,
+           "phase_s": time.perf_counter() - t_phase}
     print("vision (ResNet-50, 224 x 224, batch 32, fp32): " + json.dumps(out))
     return out
 
@@ -5761,6 +5795,457 @@ def print_window(card: str, window: dict) -> None:
           f"{window['dlrm']['card_vs_cpu']['loss_a']:.6f}; phase {window['phase_s']:.1f} s")
 
 
+# examples/moe.py's shape (build_moe_mlp's defaults) and its -b 64
+MOE_SHAPE = dict(in_dim=784, num_classes=10, num_experts=8, num_select=2, expert_hidden=64,
+                 alpha=2.0, lambda_bal=0.04)
+MOE_BATCH, MOE_LR = 64, 0.01
+
+
+def moe_compiled(config, **kw):
+    """``build_moe_mlp`` at ``MOE_SHAPE`` on the card, compiled as
+    examples/moe.py (SGD, sparse categorical cross-entropy, accuracy)."""
+    from flexflow_tpu_torch.core.types import LossType, MetricsType
+    from flexflow_tpu_torch.models import build_moe_mlp
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    m = build_moe_mlp(config, **{**MOE_SHAPE, **kw})
+    return m.compile(optimizer=SGDOptimizer(lr=MOE_LR),
+                     loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                     metrics=[MetricsType.ACCURACY])
+
+
+def moe_data(n: int, seed: int):
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    return (torch.from_numpy(rs.randn(n, MOE_SHAPE["in_dim"]).astype(np.float32)),
+            torch.from_numpy(rs.randint(0, MOE_SHAPE["num_classes"], (n,)).astype(np.int32)))
+
+
+def moe_routing(model, x) -> tuple:
+    """(top-k values, top-k indices, gate probabilities) of one batch from
+    ``model``'s weights: its executor's inference forward with the outputs
+    swapped for the top-k node's and the gate's."""
+    ex = model.executor
+    order = model.graph.topo_order()
+    topk = next(n for n in order if n.op_type.value == "topk")
+    gate = next(n for n in order if n.name == "moe_gate_sm")
+    saved = ex.outputs
+    ex.outputs = [(topk.guid, 0), (topk.guid, 1), (gate.guid, 0)]
+    try:
+        return tuple(ex.predict([x]))
+    finally:
+        ex.outputs = saved
+
+
+def moe_per_expert(config):
+    """The MoE MLP with ``batched=False``: the reference's n Dense pairs
+    (the per-expert model of tests/test_moe_ep.py, at MOE_SHAPE)."""
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    s = MOE_SHAPE
+    m = FFModel(config)
+    x = m.create_tensor((config.batch_size, s["in_dim"]), name="input")
+    t = m.moe(x, s["num_experts"], s["num_select"], s["expert_hidden"], s["alpha"],
+              s["lambda_bal"], batched=False, name="moe")
+    m.softmax(m.dense(t, s["num_classes"], name="head"), name="softmax")
+    return m.compile(optimizer=SGDOptimizer(lr=MOE_LR),
+                     loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+
+
+def moe_aggregate_spec(seed: int) -> dict:
+    """AggregateSpec alone at the phase's shape (B 64, k 2, 8 experts of
+    capacity 32, D 784; token 0 picks one expert twice): forward and the
+    gate and expert gradients on the card against the CPU. The rows and
+    the expert gradient are gathers (bit for bit); the gate gradient sums
+    squares over D in another order (rtol 1e-5, atol 1e-6)."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.ops import moe_ops
+    from flexflow_tpu_torch.ops.base import LowerCtx
+
+    b, k, n, d = MOE_BATCH, MOE_SHAPE["num_select"], MOE_SHAPE["num_experts"], MOE_SHAPE["in_dim"]
+    cap = moe_ops.expert_capacity(b, k, n, MOE_SHAPE["alpha"])
+    rs = np.random.RandomState(seed + 63)
+    gate = torch.from_numpy(rs.rand(b, k).astype(np.float32))
+    assign = torch.from_numpy(rs.randint(0, n, (b, k)).astype(np.int32))
+    assign[0, 1] = assign[0, 0]
+    stacked = torch.from_numpy(rs.randn(n, cap, d).astype(np.float32))
+    ct = torch.from_numpy(rs.randn(b * k, d).astype(np.float32))
+    res = {}
+    for dev, put in (("cuda", lambda t: t.cuda()), ("cpu", lambda t: t)):
+        g, e = put(gate).requires_grad_(True), put(stacked).requires_grad_(True)
+        (out,) = moe_ops.AggregateSpecOp.lower(
+            moe_ops.AggregateSpecParams(n, MOE_SHAPE["lambda_bal"]), [g, put(assign), e], {},
+            LowerCtx())
+        (out * put(ct)).sum().backward()
+        res[dev] = [t.detach().cpu() for t in (out, g.grad, e.grad)]
+    (oc, gc, ec), (oh, gh, eh) = res["cuda"], res["cpu"]
+    if not (torch.equal(oc, oh) and torch.equal(ec, eh)):
+        raise AssertionError("moe aggregate_spec: rows or expert gradient differ card vs CPU")
+    if not torch.allclose(gc, gh, rtol=1e-5, atol=1e-6) or not bool((gh != 0).any()):
+        raise AssertionError(f"moe aggregate_spec: gate gradient differs by "
+                             f"{float((gc - gh).abs().max())}")
+    return {"shape": {"batch": b, "k": k, "experts": n, "capacity": cap, "d": d},
+            "gate_grad_max_abs_diff": float((gc - gh).abs().max()),
+            "rows_and_expert_grad_bitwise": True}
+
+
+def moe_elastic(seed: int, xs, y) -> dict:
+    """``ElasticTrainer`` over the MoE MLP on the card, 8 steps with
+    checkpoints every 4: clean, then from the same weights with an error
+    injected at ``elastic.step`` on step 6 (restored from step 4, steps
+    4-7 replayed): the final parameters and loss bit for bit."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.runtime import faults
+    from flexflow_tpu_torch.runtime.elastic import ElasticTrainer
+
+    m = moe_compiled(FFConfig(batch_size=MOE_BATCH, seed=seed))
+    ex = m.executor
+    snap = params_copy(ex.params)
+
+    def batches(step):
+        lo = step * MOE_BATCH
+        return [xs[lo:lo + MOE_BATCH]], y[lo:lo + MOE_BATCH]
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        t0 = time.perf_counter()
+        clean = ElasticTrainer(m, os.path.join(root, "clean"), checkpoint_every=4,
+                               sleep=lambda s: None).run(batches, 8)
+        clean_s = time.perf_counter() - t0
+        p_clean = params_copy(ex.params)
+        load_tree(ex.params, snap)
+        ex.opt_state = ex.optimizer.init_state(ex.params)
+        plan = faults.FaultPlan().on("elastic.step", mode="error",
+                                     error=RuntimeError("injected device loss"),
+                                     when=lambda step: step == 6, max_fires=1)
+        t0 = time.perf_counter()
+        with plan.active():
+            fault = ElasticTrainer(m, os.path.join(root, "fault"), checkpoint_every=4,
+                                   sleep=lambda s: None).run(batches, 8)
+        fault_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if fault.restarts != 1 or fault.steps_completed != 8 or clean.restarts != 0:
+        raise AssertionError(f"moe elastic: reports {clean} / {fault}")
+    bitwise = fault.final_loss == clean.final_loss and trees_equal(p_clean, ex.params)
+    if not bitwise:
+        raise AssertionError(f"moe elastic: the recovered run differs from the clean one (loss "
+                             f"{fault.final_loss} vs {clean.final_loss}, parameters by "
+                             f"{max_tree_diff(p_clean, ex.params)})")
+    return {"steps": 8, "checkpoint_every": 4, "fault_at_step": 6, "restarts": fault.restarts,
+            "checkpoints_saved": [clean.checkpoints_saved, fault.checkpoints_saved],
+            "final_loss": fault.final_loss, "bitwise_equal": bitwise, "clean_s": clean_s,
+            "fault_s": fault_s}
+
+
+def moe_phase(seed: int) -> dict:
+    """The mixture-of-experts MLP at examples/moe.py's shape (MOE_SHAPE,
+    batch 64, fp32, SGD lr 0.01, sparse categorical cross-entropy):
+    card against CPU, the window path against eager steps, batched
+    against per-expert, the recompile, AggregateSpec alone, elastic
+    recovery and the profiling flag."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.ops import moe_ops
+    from flexflow_tpu_torch.runtime.executor import node_key
+
+    t_phase = time.perf_counter()
+    n, k = MOE_SHAPE["num_experts"], MOE_SHAPE["num_select"]
+    cap = moe_ops.expert_capacity(MOE_BATCH, k, n, MOE_SHAPE["alpha"])
+    xs, y = moe_data(WINDOW_STEPS * MOE_BATCH, seed + 61)
+
+    # --- the card against the CPU: routing, then one step (training gates)
+    card = moe_compiled(FFConfig(batch_size=MOE_BATCH, seed=seed))
+    host = FFModel.from_graph(card.graph, FFConfig(batch_size=MOE_BATCH, seed=seed), device="cpu")
+    host.compile(optimizer=type(card.optimizer)(lr=MOE_LR), loss_type=card.loss_type,
+                 outputs=host.output_tensors([(t.node.guid, t.idx) for t in card._outputs]))
+    load_tree(host.executor.params, card.executor.params)
+    x0, y0 = xs[:MOE_BATCH], y[:MOE_BATCH]
+    vc, ic, _ = moe_routing(card, x0.cuda())
+    vh, ih, gate = moe_routing(host, x0)
+    if not torch.equal(ic.cpu(), ih):
+        raise AssertionError(f"moe: routing differs card vs CPU at "
+                             f"{int((ic.cpu() != ih).sum())} of {ih.numel()} slots")
+    _, pos = moe_ops._dispatch_positions(ih, n)
+    top = gate.sort(dim=-1, descending=True).values
+    margin = float((top[:, k - 1] - top[:, k]).min())
+    routing = {"slots": ih.numel(), "dropped": int((pos >= cap).sum()), "capacity": cap,
+               "topk_values_max_abs_diff": float((vc.cpu() - vh).abs().max()),
+               "smallest_topk_margin": margin,
+               "tokens_per_expert": torch.bincount(ih.reshape(-1).long(), minlength=n).tolist()}
+    print(f"moe routing card vs CPU: equal; " + json.dumps(routing))
+    del host
+    step = card_vs_cpu_step("moe", card, [x0], y0)
+
+    # --- the window path against eager steps (bit for bit, one capture)
+    window = window_cell("moe", card, [xs.cuda()], y.cuda(), MOE_BATCH, per_step={})
+    if not window["gate"]["bitwise_equal"]:
+        raise AssertionError("moe: the window fit is not bit for bit with the eager steps")
+
+    # --- batched against per-expert, from the same weights
+    per = moe_per_expert(FFConfig(batch_size=MOE_BATCH, seed=seed))
+    for layer in ("moe_gate", "head"):
+        for w in ("kernel", "bias"):
+            per.set_weight(layer, w, card.get_weight(layer, w))
+    for e in range(n):
+        for src, dst in (("w1", ("", "kernel")), ("b1", ("", "bias")),
+                         ("w2", ("_out", "kernel")), ("b2", ("_out", "bias"))):
+            per.set_weight(f"moe_exp{e}{dst[0]}", dst[1], card.get_weight("moe_experts", src)[e])
+    xb = xs[MOE_BATCH:2 * MOE_BATCH].cuda()
+    ob, op = card.predict(xb), per.predict(xb)
+    if not torch.allclose(op, ob, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"moe: per-expert output differs from batched by "
+                             f"{float((op - ob).abs().max())}")
+    batched = {"max_abs_diff": float((op - ob).abs().max()), "rtol": 1e-5, "atol": 1e-6}
+    del per
+
+    # --- recompile: the cache op, the trigger on cache_score, weights kept
+    rc = moe_compiled(FFConfig(batch_size=MOE_BATCH, seed=seed), use_cache=True)
+    xw, yw = xs[:8 * MOE_BATCH].cuda(), y[:8 * MOE_BATCH].cuda()
+    rc.fit(xw, yw, batch_size=MOE_BATCH, verbose=False, trace_window=8)
+    old = rc.executor
+    captures_before = old.graph_captures
+    named = {nd.name: list(old.params[node_key(nd)]) for nd in rc.graph.nodes.values()
+             if node_key(nd) in old.params}
+    before = {layer: {w: rc.get_weight(layer, w) for w in ws} for layer, ws in named.items()}
+    calls = []
+    st = rc.recompile_on_condition(lambda s: s.cache_score > 0.5, lambda s: calls.append(1))
+    st.cache_score = 0.1
+    quiet = st.trigger_and_alter()
+    st.cache_score = 0.9
+    t0 = time.perf_counter()
+    fired = st.trigger_and_alter()
+    recompile_s = time.perf_counter() - t0
+    if quiet or not fired or calls != [1] or st.recompilations != 1 or rc.executor is old:
+        raise AssertionError(f"moe recompile: fired {quiet}, {fired}, {st.recompilations}")
+    if old._graphs:
+        raise AssertionError("moe recompile: the old executor keeps its captured graphs")
+    for layer, ws in before.items():
+        for w, a in ws.items():
+            if not np.array_equal(rc.get_weight(layer, w), a):
+                raise AssertionError(f"moe recompile: {layer}.{w} changed")
+    rc.fit(xw, yw, batch_size=MOE_BATCH, verbose=False, trace_window=8)
+    after = list(rc.step_losses)
+    if rc.executor.graph_captures != 1 or not all(np.isfinite(after)) or not after[-1] < after[0]:
+        raise AssertionError(f"moe recompile: {rc.executor.graph_captures} captures after it, "
+                             f"losses {after}")
+    recompile = {"captures_before": captures_before, "captures_after": rc.executor.graph_captures,
+                 "recompilations": st.recompilations, "weights_kept_bitwise": True,
+                 "layers": len(before), "recompile_s": recompile_s,
+                 "losses_after": [after[0], after[-1]]}
+    del rc, old
+
+    spec = moe_aggregate_spec(seed)
+    elastic = moe_elastic(seed, xs.cuda(), y.cuda())
+
+    # --- FFConfig(profiling=True): fit prints the per-op table once
+    pm = moe_compiled(FFConfig(batch_size=MOE_BATCH, seed=seed, profiling=True))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pm.fit(xs[:2 * MOE_BATCH].cuda(), y[:2 * MOE_BATCH].cuda(), batch_size=MOE_BATCH,
+               verbose=False)
+    table = buf.getvalue()
+    if table.count("TFLOP/s") != 1 or "experts" not in table:
+        raise AssertionError(f"moe profiling: fit printed {table!r}")
+    print("moe per-op forward (FFConfig(profiling=True), CUDA events):\n" + table.rstrip())
+    del pm, card
+    torch.cuda.empty_cache()
+    out = {"shape": dict(MOE_SHAPE), "batch": MOE_BATCH, "routing": routing,
+           "card_vs_cpu": step, "window": window, "batched_vs_per_expert": batched,
+           "recompile": recompile, "aggregate_spec": spec, "elastic": elastic,
+           "profile_table": table, "phase_s": time.perf_counter() - t_phase}
+    print("moe: " + json.dumps({k_: v for k_, v in out.items() if k_ != "profile_table"}))
+    return out
+
+
+def keras_phase(seed: int) -> dict:
+    """The Keras frontend on the card. examples/keras_mnist.py's
+    Sequential model (Dense 128 ReLU over 784, Dropout 0.2, Dense 10
+    softmax; SGD 0.05, batch 64, 512 samples, one epoch) against the
+    same graph on the CPU from the same weights and key chain: the
+    dropout masks bit for bit, the first step's loss within rtol 1e-5,
+    every loss within rtol 1e-4 and each parameter within 1e-3 of its
+    largest change over the epoch. Then the functional CNN of
+    tests/test_keras_frontend.py (two 3x3 convolutions concatenated,
+    max pool, Dense 10 softmax over 3 x 16 x 16; Adam 0.001, batch 16,
+    64 samples, one epoch): eval card against CPU before training (atol
+    1e-4 + rtol 1e-4), the first step's loss within rtol 1e-5, then ``predict``:
+    probabilities, finite; the distance to the CPU's after the epoch is
+    reported (Adam's first steps move each weight by about lr times the
+    sign of its gradient, so a gradient near zero may move the two runs
+    apart by 2 lr)."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.frontends import keras
+    from flexflow_tpu_torch.model import FFModel
+
+    t_phase = time.perf_counter()
+
+    def cpu_twin(card_ff, optimizer):
+        host = FFModel.from_graph(card_ff.graph, card_ff.config, seed=card_ff._seed, device="cpu")
+        host.compile(optimizer=optimizer, loss_type=card_ff.loss_type, metrics=card_ff.metrics,
+                     outputs=host.output_tensors([(t.node.guid, t.idx) for t in card_ff._outputs]))
+        load_tree(host.executor.params, card_ff.executor.params)
+        return host
+
+    # --- examples/keras_mnist.py
+    bs = 64
+    seq = keras.Sequential([keras.Dense(128, activation="relu", input_shape=(784,)),
+                            keras.Dropout(0.2), keras.Dense(10, activation="softmax")])
+    seq.compile(optimizer=keras.SGD(learning_rate=0.05), loss="sparse_categorical_crossentropy",
+                metrics=["accuracy"], config=FFConfig(batch_size=bs, seed=seed,
+                                                      printing_interval=1000))
+    seq._ensure_built(bs)
+    card = seq.ffmodel
+    host = cpu_twin(card, seq.optimizer.to_ff())
+    before = params_copy(host.executor.params)
+    rs = np.random.RandomState(seed + 71)
+    x = rs.rand(512, 784).astype(np.float32)
+    y = rs.randint(0, 10, 512).astype(np.int32)
+    masks = {"card": [], "cpu": []}
+    with recorded_masks(masks["card"]):
+        t0 = time.perf_counter()
+        hist = seq.fit(x, y, batch_size=bs, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    with recorded_masks(masks["cpu"]):
+        host.fit(x, y, batch_size=bs, epochs=1, verbose=False)
+    if len(masks["card"]) != 8 or len(masks["cpu"]) != 8 or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(masks["card"], masks["cpu"])):
+        raise AssertionError("keras mnist: dropout masks differ card vs CPU")
+    keep = float(torch.stack([m.float().mean() for m in masks["cpu"]]).mean())
+    lc, lh = card.step_losses, host.step_losses
+    if (len(lc) != 8 or not all(np.isfinite(lc)) or abs(lc[0] - lh[0]) > LOSS_RTOL * abs(lh[0])
+            or any(abs(a - b) > 1e-4 * abs(b) for a, b in zip(lc, lh))):
+        raise AssertionError(f"keras mnist: losses {lc} vs CPU {lh}")
+    hp, cp = host.executor.params, card.executor.params
+    for k_ in hp:
+        for n_ in hp[k_]:
+            moved = float((hp[k_][n_] - before[k_][n_]).abs().max())
+            err = float((cp[k_][n_].detach().cpu() - hp[k_][n_].detach()).abs().max())
+            if err > 1e-3 * moved:
+                raise AssertionError(f"keras mnist: {k_}.{n_} differs by {err}, moved {moved}")
+    mnist = {"steps": len(lc), "losses_card": lc, "losses_cpu": lh, "masks": len(masks["card"]),
+             "mask_keep_share": keep, "accuracy": hist[0].accuracy, "fit_s": fit_s,
+             "samples_per_s": 512 / fit_s,
+             "param_max_abs_diff": max_tree_diff({k_: {n_: t.detach().cpu() for n_, t in g.items()}
+                                                  for k_, g in cp.items()}, hp)}
+    del seq, card, host
+
+    # --- the functional CNN of tests/test_keras_frontend.py
+    bs = 16
+    inp = keras.Input(shape=(3, 16, 16))
+    a = keras.Conv2D(8, 3, padding="same", activation="relu")(inp)
+    b = keras.Conv2D(8, 3, padding="same", activation="relu")(inp)
+    c = keras.Flatten()(keras.MaxPooling2D()(keras.Concatenate(axis=1)([a, b])))
+    cnn = keras.Model(inp, keras.Dense(10, activation="softmax")(c))
+    cnn.compile(optimizer=keras.Adam(learning_rate=0.001), loss="sparse_categorical_crossentropy",
+                metrics=["accuracy"], config=FFConfig(batch_size=bs, seed=seed,
+                                                      printing_interval=1000))
+    cnn._ensure_built(bs)
+    host = cpu_twin(cnn.ffmodel, cnn.optimizer.to_ff())
+    xc = np.random.RandomState(seed).rand(64, 3, 16, 16).astype(np.float32)
+    yc = np.random.RandomState(seed + 1).randint(0, 10, size=(64,)).astype(np.int32)
+    eval_err = check_close("keras cnn eval (card vs CPU)", cnn.ffmodel.predict(xc[:bs]).cpu(),
+                           host.predict(xc[:bs]))
+    t0 = time.perf_counter()
+    cnn.fit(xc, yc, epochs=1, batch_size=bs, verbose=False)
+    torch.cuda.synchronize()
+    cnn_fit_s = time.perf_counter() - t0
+    host.fit(xc, yc, epochs=1, batch_size=bs, verbose=False)
+    lc, lh = cnn.ffmodel.step_losses, host.step_losses
+    if not all(np.isfinite(lc)) or abs(lc[0] - lh[0]) > LOSS_RTOL * abs(lh[0]):
+        raise AssertionError(f"keras cnn: losses {lc} vs CPU {lh}")
+    preds = cnn.predict(xc[:bs])
+    if (preds.shape != (bs, 10) or not np.isfinite(preds).all()
+            or float(np.abs(preds.sum(-1) - 1).max()) > 1e-5):
+        raise AssertionError(f"keras cnn: predictions {preds.shape} not rows of probabilities")
+    cnn_out = {"eval_max_abs_diff": eval_err, "losses_card": lc, "losses_cpu": lh,
+               "predict_max_abs_diff_after_epoch": float(np.abs(preds - host.predict(
+                   xc[:bs]).numpy()).max()), "fit_s": cnn_fit_s}
+    del cnn, host
+    torch.cuda.empty_cache()
+    out = {"mnist_mlp": mnist, "functional_cnn": cnn_out, "phase_s": time.perf_counter() - t_phase}
+    print("keras: " + json.dumps(out))
+    return out
+
+
+def resnet_forward_profile(model, x) -> dict:
+    """``FFModel.profile`` of ResNet-50's forward (CUDA events around each
+    op's second call, inference mode): the device ms by op type, the
+    ops' total and the twelve slowest ops."""
+    from flexflow_tpu_torch.runtime.profiling import format_profiles
+
+    t0 = time.perf_counter()
+    profs = model.profile(x=[x], verbose=False)
+    profile_s = time.perf_counter() - t0
+    by_type = {}
+    for p in profs:
+        agg = by_type.setdefault(p.op_type, {"ops": 0, "ms": 0.0, "gflop": 0.0})
+        agg["ops"] += 1
+        agg["ms"] += p.ms
+        agg["gflop"] += p.flops / 1e9
+    if not profs or not all(p.ms > 0 for p in profs):
+        raise AssertionError("resnet profile: an op took no time")
+    top = sorted(profs, key=lambda p: -p.ms)[:12]
+    return {"ops": len(profs), "total_ms": sum(p.ms for p in profs), "profile_s": profile_s,
+            "by_op_type": dict(sorted(by_type.items(), key=lambda kv: -kv[1]["ms"])),
+            "top": [{"op": p.op_type, "name": p.name, "ms": p.ms, "tflops": p.tflops}
+                    for p in top],
+            "table_head": "\n".join(format_profiles(profs).splitlines()[:13])}
+
+
+def print_moe_keras(card: str, moe: dict, keras_: dict, profile: dict) -> None:
+    """The moe, keras and ResNet-50 per-op lines of the summary."""
+    w = moe["window"]
+    print(f"{card}: moe phase (examples/moe.py shape: 784 in, 8 experts, k 2, hidden 64, alpha "
+          f"2.0, lambda_bal 0.04, batch 64, fp32): routing card vs CPU equal "
+          f"({moe['routing']['dropped']} of {moe['routing']['slots']} slots dropped, smallest "
+          f"top-k margin {moe['routing']['smallest_topk_margin']:.3e}); loss card "
+          f"{moe['card_vs_cpu']['loss_b']:.6f} vs CPU {moe['card_vs_cpu']['loss_a']:.6f}; host ms "
+          f"a step eager " + ", ".join(f"{ms:.3f}" for ms in w["host_ms_per_step"]["eager"])
+          + " / window " + ", ".join(f"{ms:.3f}" for ms in w["host_ms_per_step"]["window"])
+          + f"; device ms a step eager {w['device_ms_per_step']['eager']:.3f} / window "
+          f"{w['device_ms_per_step']['window']:.3f}; busy share of the timed step eager "
+          f"{w['busy_share_of_timed_step']['eager']:.3f} / window "
+          f"{w['busy_share_of_timed_step']['window']:.3f}; capture s "
+          + ", ".join(f"{c:.3f}" for c in w["capture_s"])
+          + f"; window bit for bit {w['gate']['bitwise_equal']} with {w['captures']} capture; "
+          f"batched vs per-expert {moe['batched_vs_per_expert']['max_abs_diff']:.2e}; recompile "
+          f"{moe['recompile']['recompile_s']:.3f} s, weights kept bit for bit, "
+          f"{moe['recompile']['captures_after']} capture after; elastic recovered bit for bit "
+          f"{moe['elastic']['bitwise_equal']}; phase {moe['phase_s']:.1f} s")
+    m, c = keras_["mnist_mlp"], keras_["functional_cnn"]
+    print(f"{card}: keras phase: keras_mnist Sequential (784-128-10, dropout 0.2, batch 64, 512 "
+          f"samples): masks bit for bit over {m['masks']} steps (keep {m['mask_keep_share']:.4f}),"
+          f" loss {m['losses_card'][0]:.6f} -> {m['losses_card'][-1]:.6f} (CPU "
+          f"{m['losses_cpu'][-1]:.6f}), parameters within {m['param_max_abs_diff']:.2e} of the "
+          f"CPU's, {m['samples_per_s']:.1f} samples/s; functional CNN eval vs CPU "
+          f"{c['eval_max_abs_diff']:.2e}, after the epoch {c['predict_max_abs_diff_after_epoch']:.2e}"
+          f"; phase {keras_['phase_s']:.1f} s")
+    print(f"{card}: ResNet-50 forward per op (FFModel.profile, batch 32, CUDA events, "
+          f"{profile['ops']} ops, {profile['total_ms']:.3f} ms summed): by op type "
+          + "; ".join(f"{t} {a['ms']:.3f} ms over {a['ops']}" for t, a in profile["by_op_type"]
+                      .items()))
+    print(profile["table_head"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed for weights, prompts and inputs")
@@ -5851,6 +6336,8 @@ def main(argv=None) -> int:
     vision = vision_phase(args.seed)
     torch.cuda.empty_cache()
     window = window_phase(args.seed)
+    moe = moe_phase(args.seed)
+    keras_ = keras_phase(args.seed)
 
     def trainer_launches(name):  # the trainer and window phases' launches of a flash form
         return (sum(sum(r["launches"][k][name] for k in r["launches"])
@@ -5965,6 +6452,7 @@ def main(argv=None) -> int:
           + "; forward ms at batch 8 " + ", ".join(
               f"{k} {f['forward_ms']:.2f}" for k, f in v["forward_other"].items()))
     print_window(card, window)
+    print_moe_keras(card, moe, keras_, vision["forward_profile"])
     inf = heads["infer"]
     print(f"{card}: bert_sst2 over /v2/models/bert_sst2/infer ({inf['clients']} clients, "
           f"{inf['requests']} requests of 1-4 rows): {inf['requests_per_s']:.2f} requests/s, "
@@ -6124,7 +6612,7 @@ def main(argv=None) -> int:
                       "training": training, "training_bf16": training_bf16,
                       "training_f16": training_f16, "heads": heads,
                       "suffix_prefill_bodies": suffix_bodies, "trainer": trainer,
-                      "vision": vision, "window": window}))
+                      "vision": vision, "window": window, "moe": moe, "keras": keras_}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ and :meth:`FFConfig.from_args` parses the reference's CLI surface into
 the same field values. The port trains on one GPU: a configuration that
 asks for what it cannot run yet raises instead of silently training
 another way: the strategy search (``search_budget``), pipeline stages,
-more than one node or device, ZeRO-1 (``zero_optimizer``) and per-op
-profiling (``profiling``). The search knobs, export paths and the
+more than one node or device and ZeRO-1 (``zero_optimizer``).
+``profiling`` prints the per-op table (``FFModel.profile``) before
+``fit`` trains. The search knobs, export paths and the
 XLA-era flags are kept for CLI parity and read by nothing.
 """
 from __future__ import annotations
@@ -70,7 +71,7 @@ class FFConfig:
     grad_accum_steps: int = 1
     # execution flags
     perform_fusion: bool = False  # kept for CLI parity
-    profiling: bool = False  # per-op profiling (must stay False)
+    profiling: bool = False  # per-op timing table before fit (FFModel.profile)
     allow_tensor_op_math_conversion: bool = True  # kept for CLI parity (TF32 stays off)
     seq_length: Optional[int] = None
     # export flags
@@ -97,8 +98,6 @@ class FFConfig:
         if self.zero_optimizer:
             raise NotImplementedError("ZeRO-1 optimizer sharding is not ported; use "
                                       "zero_optimizer=False")
-        if self.profiling:
-            raise NotImplementedError("per-op profiling is not ported; use profiling=False")
         if self.batch_size < 1 or self.epochs < 1 or self.trace_window < 1:
             raise ValueError("batch_size, epochs and trace_window must be >= 1")
 

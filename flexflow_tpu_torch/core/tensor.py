@@ -4,6 +4,7 @@ multi-GPU slices)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 from .types import DataType
@@ -26,4 +27,12 @@ class TensorSpec:
     @property
     def ndim(self) -> int:
         return len(self.shape)
+
+    @property
+    def num_elements(self) -> int:
+        return math.prod(self.shape) if self.shape else 1
+
+    @property
+    def size_bytes(self) -> int:
+        return self.num_elements * self.dtype.size_bytes
 

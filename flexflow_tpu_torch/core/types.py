@@ -153,3 +153,11 @@ class OpType(enum.Enum):
     # recurrent (reference: nmt/ LSTM/RNN via cudnnRNN)
     RNN = "rnn"
     LSTM = "lstm"
+    # mixture of experts (reference: topk.cc, group_by.cc, aggregate.cc,
+    # aggregate_spec.cc, cache.cc; EXPERTS is the batched expert FFN)
+    TOPK = "topk"
+    GROUP_BY = "group_by"
+    AGGREGATE = "aggregate"
+    AGGREGATE_SPEC = "aggregate_spec"
+    CACHE = "cache"
+    EXPERTS = "experts"

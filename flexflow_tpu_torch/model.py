@@ -1,9 +1,10 @@
-"""FFModel: the model-building and training API (port of the builders
-the BERT graphs with their heads, the seq2seq transformer, the vision
-models, NMT and the recommenders use, of the graph's weight, reduction,
-batch-matmul and recurrent builders, of compile/fit/evaluate/predict, and
-of the checkpoint and data-loader entry points, from
-``flexflow_tpu/model.py``).
+"""FFModel: the model-building and training API (port of the layer
+methods the BERT graphs with their heads, the seq2seq transformer, the
+vision models, NMT, the recommenders and the mixture of experts use, of
+the graph's weight, reduction, batch-matmul and recurrent layers, of
+compile/fit/evaluate/predict, of the checkpoint and data-loader entry
+points, and of ``profile``, ``recompile_on_condition``, ``get_output``
+and ``num_layers``, from ``flexflow_tpu/model.py``).
 
 Building a layer records a graph node; ``compile`` makes a single-GPU
 :class:`~flexflow_tpu_torch.runtime.executor.Executor` and its weights;
@@ -52,6 +53,14 @@ from .ops.elementwise import ElementBinaryParams, ElementUnaryParams
 from .ops.embedding import EmbeddingParams
 from .ops.io_ops import InputParams, WeightParams
 from .ops.linear import LinearParams
+from .ops.moe_ops import (
+    AggregateParams,
+    AggregateSpecParams,
+    CacheParams,
+    ExpertsParams,
+    GroupByParams,
+    TopKParams,
+)
 from .ops.norm import BatchNormParams, LayerNormParams
 from .ops.recurrent import RecurrentParams
 from .ops.reduction_ops import GatherParams, MeanParams, ReduceSumParams
@@ -445,6 +454,68 @@ class FFModel:
     def residual(self, x: Tensor, fx: Tensor, name: str = "") -> Tensor:
         return self.add(x, fx, name=name)
 
+    # ----------------------------------------------------------- MoE layers
+    def top_k(self, input: Tensor, k: int, sorted: bool = True, name: str = "") -> Tuple[Tensor, Tensor]:
+        outs = self._add(OpType.TOPK, TopKParams(k, sorted), [input], name=name)
+        return outs[0], outs[1]
+
+    def group_by(self, input: Tensor, assign: Tensor, n: int, alpha: float, stacked: bool = False,
+                 name: str = "") -> Union[List[Tensor], Tensor]:
+        outs = self._add(OpType.GROUP_BY, GroupByParams(n, alpha, stacked), [input, assign],
+                         name=name)
+        return outs[0] if stacked else outs
+
+    def experts(self, grouped: Tensor, num_exp: int, hidden_size: int, out_dim: int,
+                activation: ActiMode = ActiMode.RELU, name: str = "") -> Tensor:
+        """Batched expert FFN over stacked [n, cap, D]."""
+        p = ExpertsParams(num_exp, hidden_size, out_dim, activation, grouped.dtype)
+        return self._one(OpType.EXPERTS, p, [grouped], name=name)
+
+    def aggregate(self, gate_preds: Tensor, gate_assign: Tensor, exp_preds: Sequence[Tensor],
+                  n: int, lambda_bal: float, name: str = "") -> Tensor:
+        p = AggregateParams(n, lambda_bal)
+        return self._one(OpType.AGGREGATE, p, [gate_preds, gate_assign] + list(exp_preds),
+                         name=name)
+
+    def aggregate_spec(self, gate_preds: Tensor, gate_assign: Tensor,
+                       exp_preds: Sequence[Tensor], n: int, lambda_bal: float,
+                       name: str = "") -> Tensor:
+        p = AggregateSpecParams(n, lambda_bal)
+        return self._one(OpType.AGGREGATE_SPEC, p, [gate_preds, gate_assign] + list(exp_preds),
+                         name=name)
+
+    def cache(self, input: Tensor, num_batches: int = 1, trigger_threshold: float = 0.0,
+              name: str = "") -> Tensor:
+        return self._one(OpType.CACHE, CacheParams(num_batches, trigger_threshold), [input],
+                         name=name)
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int, expert_hidden_size: int,
+            alpha: float = 2.0, lambda_bal: float = 0.04, batched: bool = True,
+            name: str = "") -> Tensor:
+        """Composite MoE layer (reference: FFModel::moe, src/ops/moe.cc:20):
+        dense gate -> softmax -> top-k -> group_by -> experts -> aggregate.
+        ``batched=True``: one stacked dispatch and one batched Experts op;
+        ``batched=False``: the reference's n separate per-expert Dense
+        pairs. Node names as the JAX package's (weights cross by name)."""
+        gate = self.dense(input, num_exp, ActiMode.NONE, name=f"{name}_gate")
+        gate = self.softmax(gate, name=f"{name}_gate_sm")
+        topk_vals, topk_idx = self.top_k(gate, num_select, name=f"{name}_topk")
+        if batched:
+            grouped = self.group_by(input, topk_idx, num_exp, alpha, stacked=True,
+                                    name=f"{name}_groupby")
+            expert_out = self.experts(grouped, num_exp, expert_hidden_size, input.shape[-1],
+                                      name=f"{name}_experts")
+            return self.aggregate(topk_vals, topk_idx, [expert_out], num_exp, lambda_bal,
+                                  name=f"{name}_agg")
+        grouped = self.group_by(input, topk_idx, num_exp, alpha, name=f"{name}_groupby")
+        expert_outs = []
+        for e, g in enumerate(grouped):
+            h = self.dense(g, expert_hidden_size, ActiMode.RELU, name=f"{name}_exp{e}")
+            h = self.dense(h, input.shape[-1], ActiMode.NONE, name=f"{name}_exp{e}_out")
+            expert_outs.append(h)
+        return self.aggregate(topk_vals, topk_idx, expert_outs, num_exp, lambda_bal,
+                              name=f"{name}_agg")
+
     # -------------------------------------------------------------- compile
     def compile(
         self,
@@ -558,6 +629,8 @@ class FFModel:
         words = self._step_words(epochs, steps, tw)
         ex = self.executor
         perf = PerfMetrics()
+        if self.config.profiling:  # reference: --profiling per-op timings
+            self.profile(x=[xx[:bs] for xx in xs])
         interval = max(1, self.config.printing_interval)
         self.step_losses: List[float] = []
         t0 = time.perf_counter()
@@ -617,6 +690,46 @@ class FFModel:
             raise RuntimeError("call compile() first")
         xs = [x] if isinstance(x, (np.ndarray, torch.Tensor)) else list(x)
         return self.executor.predict(xs)[0]
+
+    def profile(self, x=None, verbose: bool = True):
+        """Per-op forward timing table (reference: --profiling cudaEvent
+        brackets in every kernel, e.g. linear_kernels.cu:95-118); without
+        ``x``, inputs drawn as the JAX package draws them
+        (``RandomState(0)``: 0/1 integers, else standard normals)."""
+        from .runtime.profiling import format_profiles, profile_step
+
+        if self.executor is None:
+            raise RuntimeError("call compile() first")
+        if x is None:
+            specs = infer_all_specs(self.graph)
+            ins = sorted((n for n in self.graph.nodes.values() if n.op_type == OpType.INPUT),
+                         key=lambda n: n.params.input_index)
+            rs = np.random.RandomState(0)
+            x = []
+            for n in ins:
+                s = specs[n.guid][0]
+                if s.dtype in (DataType.INT32, DataType.INT64):
+                    x.append(rs.randint(0, 2, s.shape).astype(np.int32))
+                else:
+                    x.append(rs.randn(*s.shape).astype(np.float32))
+        profiles = profile_step(self.executor, x)
+        if verbose:
+            print(format_profiles(profiles))
+        return profiles
+
+    def recompile_on_condition(self, trigger, alter):
+        """Reference: FFModel::recompile_on_condition (model.cc:2430)."""
+        from .runtime.recompile import RecompileState
+
+        if self.executor is None:
+            raise RuntimeError("call compile() first")
+        return RecompileState(trigger, alter, self)
+
+    def get_output(self) -> Tensor:
+        return self._outputs[0] if self._outputs else self._default_output()
+
+    def num_layers(self) -> int:
+        return sum(1 for n in self.graph.nodes.values() if n.op_type != OpType.INPUT)
 
     # --------------------------------------------- checkpoint / dataloader
     def save_checkpoint(self, path: str, step: int = 0) -> None:

@@ -1,4 +1,5 @@
 """Model configurations and builders."""
+from .moe import build_moe_mlp
 from .nmt import build_nmt
 from .recommender import build_candle_uno, build_dlrm, build_mlp_unify, build_xdl
 from .transformer import (
@@ -23,6 +24,7 @@ __all__ = [
     "build_dlrm",
     "build_inception_v3",
     "build_mlp_unify",
+    "build_moe_mlp",
     "build_nmt",
     "build_resnet50",
     "build_resnext50",

@@ -2,8 +2,8 @@
 import: the BERT encoder, its heads and dropout, the seq2seq decoder's,
 the shape ops, the vision models' convolution, pooling, BatchNorm and
 elementwise families, NMT's recurrent ops and batch matmul, the
-reductions, the weight and no-op nodes) and the generation path's
-attention."""
+reductions, the weight and no-op nodes, the mixture-of-experts family)
+and the generation path's attention."""
 from . import (  # noqa: F401 (registers the ops)
     attention,
     batch_matmul,
@@ -12,12 +12,23 @@ from . import (  # noqa: F401 (registers the ops)
     embedding,
     io_ops,
     linear,
+    moe_ops,
     norm,
     recurrent,
     reduction_ops,
     shape_ops,
     softmax,
 )
-from .base import LowerCtx, OpDef, WeightSpec, get_op_def, register_op
+from .base import (
+    LowerCtx,
+    OpCost,
+    OpDef,
+    WeightSpec,
+    get_op_def,
+    io_cost,
+    register_op,
+    registered_ops,
+)
 
-__all__ = ["LowerCtx", "OpDef", "WeightSpec", "get_op_def", "register_op"]
+__all__ = ["LowerCtx", "OpCost", "OpDef", "WeightSpec", "get_op_def", "io_cost", "register_op",
+           "registered_ops"]

@@ -18,7 +18,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import DataType, OpType
-from .base import LowerCtx, OpDef, WeightSpec, register_op
+from .base import LowerCtx, OpCost, OpDef, WeightSpec, io_cost, register_op
 from .linear import promoted
 from .softmax import dropout
 from .kernels.flash_attention import flash_attention
@@ -107,6 +107,21 @@ class MultiHeadAttentionOp(OpDef):
             out = out + weights["bo"]
         out = dropout(out, params.dropout, ctx)
         return [out.to(params.dtype.torch)]
+
+    @staticmethod
+    def cost(params: MultiHeadAttentionParams, input_specs, output_specs) -> OpCost:
+        q, k, v = input_specs
+        b, sq = q.shape[0], q.shape[1]
+        sk = k.shape[1]
+        h, dk, dv, e = params.num_heads, params.head_dim, params.v_head_dim, params.embed_dim
+        proj = 2.0 * b * (sq * q.shape[-1] * h * dk + sk * k.shape[-1] * h * dk
+                          + sk * v.shape[-1] * h * dv + sq * h * dv * e)
+        core = 2.0 * b * h * sq * sk * (dk + dv)
+        w_elems = q.shape[-1] * h * dk + k.shape[-1] * h * dk + v.shape[-1] * h * dv + h * dv * e
+        w_bytes = w_elems * params.dtype.size_bytes
+        c = io_cost(input_specs, output_specs, flops=proj + core, extra_mem=w_bytes)
+        c.bytes_accessed += w_bytes
+        return c
 
 
 def attention_core(

@@ -1,15 +1,17 @@
 """Operator definition registry (port of ``flexflow_tpu/ops/base.py``).
 
 Each op provides a frozen params record, shape inference
-(``infer_output_specs``), weight specs with their initializers, and a
-PyTorch lowering (``lower``) that the executor calls eagerly; autograd
-records the backward. The analytic cost model waits for the search
-slice.
+(``infer_output_specs``), weight specs with their initializers, a
+PyTorch lowering (``lower``) that the executor calls eagerly (autograd
+records the backward), and an analytic cost (``cost``: flops, bytes
+moved and resident bytes, the JAX package's numbers for the same specs),
+which the per-op profile (``runtime/profiling.py``) reports beside each
+op's measured time.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,6 +27,22 @@ class WeightSpec:
     spec: TensorSpec
     initializer: str = "glorot_uniform"  # name into runtime/initializers.py
     trainable: bool = True
+
+
+@dataclasses.dataclass
+class OpCost:
+    """Analytic per-op cost (reference: CostMetrics simulator.h:54-88)."""
+
+    flops: float = 0.0
+    bytes_accessed: float = 0.0  # memory traffic: inputs + outputs + weights
+    memory_bytes: float = 0.0  # resident memory: weights + activations
+
+    def __add__(self, other: "OpCost") -> "OpCost":
+        return OpCost(
+            self.flops + other.flops,
+            self.bytes_accessed + other.bytes_accessed,
+            self.memory_bytes + other.memory_bytes,
+        )
 
 
 @dataclasses.dataclass
@@ -81,6 +99,12 @@ class OpDef:
     ) -> List[torch.Tensor]:
         raise NotImplementedError
 
+    @staticmethod
+    def cost(params, input_specs: List[TensorSpec], output_specs: List[TensorSpec]) -> OpCost:
+        io_bytes = sum(s.size_bytes for s in input_specs) + sum(s.size_bytes for s in output_specs)
+        return OpCost(flops=0.0, bytes_accessed=io_bytes,
+                      memory_bytes=sum(s.size_bytes for s in output_specs))
+
 
 _REGISTRY: Dict[OpType, type] = {}
 
@@ -96,3 +120,16 @@ def get_op_def(op_type: OpType) -> type:
     if op_type not in _REGISTRY:
         raise KeyError(f"no OpDef registered for {op_type}")
     return _REGISTRY[op_type]
+
+
+def registered_ops() -> Dict[OpType, type]:
+    return dict(_REGISTRY)
+
+
+def io_cost(input_specs: Sequence[TensorSpec], output_specs: Sequence[TensorSpec],
+            flops: float = 0.0, extra_mem: float = 0.0) -> OpCost:
+    """Every input read once and every output written once; resident:
+    the outputs plus ``extra_mem`` (an op's weights)."""
+    io = sum(s.size_bytes for s in input_specs) + sum(s.size_bytes for s in output_specs)
+    out_mem = sum(s.size_bytes for s in output_specs)
+    return OpCost(flops=flops, bytes_accessed=io, memory_bytes=out_mem + extra_mem)

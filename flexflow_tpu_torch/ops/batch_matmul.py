@@ -21,7 +21,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import OpType
-from .base import LowerCtx, OpDef, register_op
+from .base import LowerCtx, OpCost, OpDef, io_cost, register_op
 from .linear import promoted
 
 
@@ -55,3 +55,10 @@ class BatchMatmulOp(OpDef):
             if params.b_seq_length_dim >= 0:
                 b = b.narrow(params.b_seq_length_dim, 0, seq)
         return [torch.matmul(*promoted(a, b)).to(a.dtype)]
+
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        a, b = input_specs
+        k = a.shape[-1]
+        flops = 2.0 * output_specs[0].num_elements * k
+        return io_cost(input_specs, output_specs, flops=flops)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..core.tensor import TensorSpec
 from ..core.types import ActiMode, DataType, OpType, PoolType
-from .base import LowerCtx, OpDef, WeightSpec, register_op
+from .base import LowerCtx, OpCost, OpDef, WeightSpec, io_cost, register_op
 from .elementwise import apply_activation
 
 
@@ -131,6 +131,18 @@ class Conv2DOp(OpDef):
             y = y + weights["bias"].reshape(1, -1, 1, 1)
         return [apply_activation(params.activation, y)]
 
+    @staticmethod
+    def cost(params: Conv2DParams, input_specs, output_specs) -> OpCost:
+        (x,) = input_specs
+        (y,) = output_specs
+        cin = x.shape[1]
+        flops = 2.0 * y.num_elements * (cin // params.groups) * params.kernel[0] * params.kernel[1]
+        w_bytes = (params.out_channels * (cin // params.groups) * params.kernel[0]
+                   * params.kernel[1] * params.dtype.size_bytes)
+        c = io_cost(input_specs, output_specs, flops=flops, extra_mem=w_bytes)
+        c.bytes_accessed += w_bytes
+        return c
+
 
 @dataclasses.dataclass(frozen=True)
 class Pool2DParams:
@@ -173,3 +185,8 @@ class Pool2DOp(OpDef):
             y = (_window_sum(_explicit_pad(x, params.padding, 0.0), k, s)
                  / _window_sum(_explicit_pad(ones, params.padding, 0.0), k, s))
         return [apply_activation(params.activation, y)]
+
+    @staticmethod
+    def cost(params: Pool2DParams, input_specs, output_specs) -> OpCost:
+        k = params.kernel[0] * params.kernel[1]
+        return io_cost(input_specs, output_specs, flops=float(k) * output_specs[0].num_elements)

@@ -29,7 +29,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import ActiMode, OpType
-from .base import OpDef, register_op
+from .base import OpDef, io_cost, register_op
 
 
 _SQRT_HALF_F16 = float(torch.tensor(0.5 ** 0.5, dtype=torch.float16))
@@ -151,6 +151,9 @@ def _register(op_type: OpType, params_cls, infer, fn) -> type:
         "params_cls": params_cls,
         "infer_output_specs": staticmethod(infer),
         "lower": staticmethod(lambda params, inputs, weights, ctx: [fn(params, *inputs)]),
+        # one operation an output element, as the JAX package counts
+        "cost": staticmethod(lambda params, input_specs, output_specs: io_cost(
+            input_specs, output_specs, flops=output_specs[0].num_elements)),
     })
     return register_op(cls)
 

@@ -18,7 +18,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import AggrMode, DataType, OpType
-from .base import LowerCtx, OpDef, WeightSpec, register_op
+from .base import LowerCtx, OpCost, OpDef, WeightSpec, io_cost, register_op
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,3 +68,13 @@ class EmbeddingOp(OpDef):
         elif params.aggr == AggrMode.AVG:
             vecs = vecs.float().mean(dim=-2).to(table.dtype)
         return [vecs]
+
+    @staticmethod
+    def cost(params: EmbeddingParams, input_specs, output_specs) -> OpCost:
+        (idx,) = input_specs
+        gathered = idx.num_elements * params.out_dim * params.dtype.size_bytes
+        table_bytes = params.num_entries * params.out_dim * params.dtype.size_bytes
+        c = io_cost(input_specs, output_specs, flops=float(idx.num_elements * params.out_dim),
+                    extra_mem=table_bytes)
+        c.bytes_accessed += gathered
+        return c

@@ -13,7 +13,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import DataType, OpType
-from .base import LowerCtx, OpDef, WeightSpec, register_op
+from .base import LowerCtx, OpCost, OpDef, WeightSpec, register_op
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +35,10 @@ class InputOp(OpDef):
     @staticmethod
     def lower(params, inputs, weights, ctx):
         raise RuntimeError("Input nodes are bound by the executor, not lowered")
+
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        return OpCost()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +65,10 @@ class WeightOp(OpDef):
     def lower(params, inputs, weights: Dict[str, torch.Tensor], ctx: LowerCtx):
         return [weights["weight"]]
 
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        return OpCost()
+
 
 @dataclasses.dataclass(frozen=True)
 class NoOpParams:
@@ -79,3 +87,7 @@ class NoOp(OpDef):
     @staticmethod
     def lower(params, inputs, weights, ctx):
         return list(inputs)
+
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        return OpCost()

@@ -20,7 +20,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import ActiMode, DataType, OpType
-from .base import OpDef, WeightSpec, register_op
+from .base import OpCost, OpDef, WeightSpec, io_cost, register_op
 from .elementwise import apply_activation
 
 
@@ -70,3 +70,14 @@ class LinearOp(OpDef):
         if params.use_bias:
             y = y + weights["bias"]
         return [apply_activation(params.activation, y)]
+
+    @staticmethod
+    def cost(params: LinearParams, input_specs, output_specs) -> OpCost:
+        (x,) = input_specs
+        in_dim = x.shape[-1]
+        batch = x.num_elements // in_dim
+        flops = 2.0 * batch * in_dim * params.out_dim
+        w_bytes = in_dim * params.out_dim * params.dtype.size_bytes
+        c = io_cost(input_specs, output_specs, flops=flops, extra_mem=w_bytes)
+        c.bytes_accessed += w_bytes
+        return c

@@ -21,7 +21,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import DataType, OpType
-from .base import LowerCtx, OpDef, WeightSpec, register_op
+from .base import LowerCtx, OpCost, OpDef, WeightSpec, io_cost, register_op
 from .elementwise import _weak
 
 
@@ -65,6 +65,10 @@ class LayerNormOp(OpDef):
             bshape = [x.shape[a] if a in axes else 1 for a in range(x.dim())]
             y = y * weights["scale"].reshape(bshape) + weights["bias"].reshape(bshape)
         return [y.to(x.dtype)]
+
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        return io_cost(input_specs, output_specs, flops=8.0 * output_specs[0].num_elements)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +126,7 @@ class BatchNormOp(OpDef):
         if params.relu:
             y = torch.relu(y)
         return [y]
+
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        return io_cost(input_specs, output_specs, flops=10.0 * output_specs[0].num_elements)

@@ -25,7 +25,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import ActiMode, DataType, OpType
-from .base import LowerCtx, OpDef, WeightSpec, register_op
+from .base import LowerCtx, OpCost, OpDef, WeightSpec, io_cost, register_op
 from .elementwise import _sigmoid, _weak, apply_activation
 from .linear import promoted
 
@@ -83,6 +83,17 @@ class RNNOp(OpDef):
             ys.append(h)
         return [torch.stack(ys, dim=1), h]
 
+    @staticmethod
+    def cost(params: RecurrentParams, input_specs, output_specs) -> OpCost:
+        x = input_specs[0]
+        b, t, d = x.shape[0], x.shape[1], x.shape[-1]
+        h = params.hidden_size
+        flops = 2.0 * b * t * (d * h + h * h)
+        w_bytes = (d * h + h * h + h) * params.dtype.size_bytes
+        c = io_cost(input_specs, output_specs, flops=flops, extra_mem=w_bytes)
+        c.bytes_accessed += w_bytes + t * b * h * params.dtype.size_bytes
+        return c
+
 
 @register_op
 class LSTMOp(OpDef):
@@ -130,3 +141,14 @@ class LSTMOp(OpDef):
             h = o * torch.tanh(c)
             ys.append(h)
         return [torch.stack(ys, dim=1), h, c]
+
+    @staticmethod
+    def cost(params: RecurrentParams, input_specs, output_specs) -> OpCost:
+        x = input_specs[0]
+        b, t, d = x.shape[0], x.shape[1], x.shape[-1]
+        h = params.hidden_size
+        flops = 2.0 * b * t * 4 * (d * h + h * h)
+        w_bytes = (d * 4 * h + h * 4 * h + 4 * h) * params.dtype.size_bytes
+        c = io_cost(input_specs, output_specs, flops=flops, extra_mem=w_bytes)
+        c.bytes_accessed += w_bytes + t * b * h * params.dtype.size_bytes
+        return c

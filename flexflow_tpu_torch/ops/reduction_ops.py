@@ -17,7 +17,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import OpType
-from .base import OpDef, register_op
+from .base import OpCost, OpDef, io_cost, register_op
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +86,10 @@ class ReduceSumOp(OpDef):
     def lower(params: ReduceSumParams, inputs, weights, ctx):
         return [_reduce(torch.sum, inputs[0], params.axes, params.keepdims)]
 
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        return io_cost(input_specs, output_specs, flops=float(input_specs[0].num_elements))
+
 
 @dataclasses.dataclass(frozen=True)
 class MeanParams:
@@ -106,3 +110,7 @@ class MeanOp(OpDef):
     @staticmethod
     def lower(params: MeanParams, inputs, weights, ctx):
         return [_reduce(torch.mean, inputs[0], params.axes, params.keepdims)]
+
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        return io_cost(input_specs, output_specs, flops=float(input_specs[0].num_elements))

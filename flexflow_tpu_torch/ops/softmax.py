@@ -25,7 +25,7 @@ import torch
 
 from ..core.tensor import TensorSpec
 from ..core.types import OpType
-from .base import LowerCtx, OpDef, register_op
+from .base import LowerCtx, OpCost, OpDef, io_cost, register_op
 
 
 def _sum_f32(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -95,6 +95,10 @@ class SoftmaxOp(OpDef):
     def lower(params: SoftmaxParams, inputs, weights, ctx):
         return [softmax(inputs[0], params.axis)]
 
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        return io_cost(input_specs, output_specs, flops=5.0 * output_specs[0].num_elements)
+
 
 @dataclasses.dataclass(frozen=True)
 class DropoutParams:
@@ -114,3 +118,7 @@ class DropoutOp(OpDef):
     @staticmethod
     def lower(params: DropoutParams, inputs, weights, ctx: LowerCtx):
         return [dropout(inputs[0], params.rate, ctx)]
+
+    @staticmethod
+    def cost(params, input_specs, output_specs) -> OpCost:
+        return io_cost(input_specs, output_specs, flops=2.0 * output_specs[0].num_elements)

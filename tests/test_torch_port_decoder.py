@@ -342,7 +342,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'tools.fleet_probe', 'ops.conv', 'parallel.pipeline', 'models.vision',\n"
         "          'runtime.checkpoint', 'runtime.dataloader', 'tools.trainer_probe',\n"
         "          'ops.recurrent', 'ops.batch_matmul', 'ops.reduction_ops', 'models.nmt',\n"
-        "          'models.recommender', 'runtime.step_graph', 'tools.window_probe'):\n"
+        "          'models.recommender', 'runtime.step_graph', 'tools.window_probe',\n"
+        "          'ops.moe_ops', 'models.moe', 'runtime.recompile', 'runtime.profiling',\n"
+        "          'runtime.elastic', 'frontends.keras', 'frontends.keras.tensor',\n"
+        "          'frontends.keras.initializers', 'frontends.keras.losses',\n"
+        "          'frontends.keras.metrics', 'frontends.keras.optimizers',\n"
+        "          'frontends.keras.callbacks', 'frontends.keras.datasets',\n"
+        "          'frontends.keras.layers', 'frontends.keras.models', 'tools.moe_probe'):\n"
         "    assert 'flexflow_tpu_torch.' + m in names, names\n"
         "print(len(names))\n"
     )

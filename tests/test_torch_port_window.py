@@ -272,7 +272,6 @@ UNPORTED = {
     "nodes": (["--nodes", "2"], "num_nodes"),
     "devices": (["--ll:gpu", "4"], "workers_per_node"),
     "zero": (["--zero-optimizer"], "zero_optimizer"),
-    "profiling": (["--profiling"], "profiling"),
 }
 
 
