@@ -350,6 +350,23 @@ prints no result line):
    (two convolutions concatenated, Adam, batch 16): eval against the CPU
    (atol 1e-4 + rtol 1e-4), the first loss rtol 1e-5, ``predict`` rows of
    probabilities.
+24. onnx: an ONNX BERT-Base as onnxruntime's transformer fusion writes it
+   (com.microsoft ``Attention`` nodes; vocab 30522, 12 x 768, 12 heads,
+   ff 3072, seq 128, bert-cls's 2-class head; weights from --seed),
+   loaded by ``InferenceModel.from_onnx(max_batch=32)`` and served over
+   ``/v2/models/bert_onnx/infer`` to 16 clients posting 64 requests of
+   1-4 rows: logits against a CPU ``from_onnx`` of the same proto (atol
+   1e-4 + rtol 1e-4), each response equal to ``infer`` on its rows, 12
+   ``ff_flash_fwd_f32`` launches a device batch, ``/metrics`` counting
+   every request; requests/s, client p50 / p99, requests a device batch,
+   build-and-load s, device ms of a full batch.
+25. fx: tests/test_torch_frontend.py's HF-style BERT encoder at BERT-Base
+   width imported by torch.fx (``PyTorchModel``, ``copy_weights``; SGD
+   0.05, MSE, batch 32): ``predict`` against the module's own forward on
+   the card (atol 1e-4 + rtol 1e-4), the ``.ff`` export replayed as the
+   import, four batch-4 steps card against CPU (the first loss rtol 1e-5,
+   every loss rtol 1e-4, parameters within 1e-3 of the largest change);
+   step ms and samples/s. No hand-written kernel is on this path.
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -4603,23 +4620,23 @@ def heads_phase(seed: int, kind: str, dtype=None, steps: int = 10) -> tuple:
     return stats, model, (xs, y)
 
 
-def infer_post(base: str, name: str, rows) -> dict:
-    """One POST /v2/models/{name}/infer of int32 token rows: the output
-    array and the client's latency."""
+def infer_post(base: str, name: str, rows, input_name: str = "tokens") -> dict:
+    """One POST /v2/models/{name}/infer of int32 token rows: the first
+    output array (``out``), every output (``outs``) and the client's
+    latency."""
     import urllib.request
 
     import numpy as np
 
-    body = {"inputs": [{"name": "tokens", "shape": list(rows.shape), "datatype": "INT32",
+    body = {"inputs": [{"name": input_name, "shape": list(rows.shape), "datatype": "INT32",
                         "data": rows.reshape(-1).tolist()}]}
     req = urllib.request.Request(f"{base}/v2/models/{name}/infer", data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=600) as r:
         resp = json.loads(r.read())
-    out = resp["outputs"][0]
-    return {"out": np.asarray(out["data"], np.float32).reshape(out["shape"]),
-            "latency_s": time.perf_counter() - t0}
+    outs = [np.asarray(o["data"], np.float32).reshape(o["shape"]) for o in resp["outputs"]]
+    return {"out": outs[0], "outs": outs, "latency_s": time.perf_counter() - t0}
 
 
 def infer_phase(seed: int, model) -> dict:
@@ -6211,6 +6228,334 @@ def resnet_forward_profile(model, x) -> dict:
             "table_head": "\n".join(format_profiles(profs).splitlines()[:13])}
 
 
+ONNX_BERT = dict(vocab=30522, layers=12, hidden=768, heads=12, ff=3072, classes=2)
+ONNX_SEQ = 128
+FX_BERT = dict(hidden=768, heads=12, ff_dim=3072, seq=128, layers=12)
+
+
+def onnx_phase(seed: int) -> dict:
+    """An ONNX BERT-Base served on the card through the flash forward.
+    The fused encoder graph of ``flexflow_tpu_torch/tools/frontend_probe.py``
+    (onnxruntime's transformer fusion: com.microsoft ``Attention`` nodes)
+    at BERT-Base width (vocab 30522, 12 x 768, 12 heads, ff 3072, seq
+    128, 2 classes: bert-cls's SST-2 head; weights from --seed at std
+    0.02, LayerNorm scales 1; outputs ``logits`` and ``probs``), built by
+    ``InferenceModel.from_onnx(max_batch=32)``, registered on an
+    ``InferenceServer`` and served over ``/v2/models/bert_onnx/infer`` to
+    16 client threads posting 64 requests of 1-4 rows. Gates: 4 rows'
+    logits against a second ``from_onnx`` of the same proto on the CPU at
+    ``max_batch=4`` (plain attention) within atol 1e-4 + rtol 1e-4; each
+    response's outputs equal to ``infer`` on the same rows; 12
+    ``ff_flash_fwd_f32`` launches a device batch and no other kernel;
+    ``/metrics`` counting every request the clients received."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.core.types import DataType
+    from flexflow_tpu_torch.obs import validate_exposition
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.serving import InferenceModel, InferenceServer
+    from flexflow_tpu_torch.tools.frontend_probe import bert_onnx_graph
+
+    t_phase = time.perf_counter()
+    name, clients, requests, max_batch = "bert_onnx", 16, 64, 32
+    layers, vocab = ONNX_BERT["layers"], ONNX_BERT["vocab"]
+    t0 = time.perf_counter()
+    proto = bert_onnx_graph(seed, **ONNX_BERT)
+    graph_s = time.perf_counter() - t0
+    kw = dict(input_shapes={"ids": (ONNX_SEQ,)}, name=name, input_dtypes={"ids": DataType.INT32})
+    t0 = time.perf_counter()
+    im = InferenceModel.from_onnx(proto, max_batch=max_batch, **kw)
+    torch.cuda.synchronize()
+    build_load_s = time.perf_counter() - t0
+    rs = np.random.RandomState(seed + 1)
+    four = rs.randint(0, vocab, (4, ONNX_SEQ)).astype(np.int32)
+    card4 = im.infer([four])[0]
+    host = InferenceModel.from_onnx(proto, max_batch=4, device="cpu", **kw)
+    cpu4 = host.infer([four])[0]
+    del host, proto
+    cpu_err = float(np.abs(card4 - cpu4).max())
+    if not (np.isfinite(card4).all() and (np.abs(card4 - cpu4) <= ATOL + RTOL * np.abs(cpu4)).all()):
+        raise AssertionError(f"onnx: card logits {card4} vs CPU {cpu4} beyond atol 1e-4 + rtol 1e-4")
+    full = torch.from_numpy(rs.randint(0, vocab, (max_batch, ONNX_SEQ)).astype(np.int32)).cuda()
+    batch_device_ms = profiled_device_ms(lambda: im.model.executor.predict([full]), iters=10)
+    infer_host_ms = []  # host clock around infer of a full batch (it ends in a copy to the host)
+    for _ in range(5):
+        t0 = time.perf_counter()
+        im.infer([full.cpu().numpy()])
+        infer_host_ms.append((time.perf_counter() - t0) * 1e3)
+    bodies = [rs.randint(0, vocab, (int(rs.randint(1, 5)), ONNX_SEQ)).astype(np.int32)
+              for _ in range(requests)]
+    results = [None] * requests
+    server = InferenceServer(port=0)
+    server.register(im)
+    server.start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        infer_post(base, name, bodies[0][:1], "ids")  # warm-up, not counted
+        batcher = server.batchers[name]
+        calls0, batched0 = batcher.device_calls, batcher.batched_requests
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        lock = threading.Lock()
+        todo = list(range(requests))
+
+        def client():
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    i = todo.pop(0)
+                results[i] = infer_post(base, name, bodies[i], "ids")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client) for _ in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or any(r is None for r in results):
+            raise AssertionError("onnx: a client did not finish")
+        launches = dict(fa.LAUNCHES)
+        calls = batcher.device_calls - calls0
+        batched = batcher.batched_requests - batched0
+        metrics = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+    finally:
+        server.stop()
+    validate_exposition(metrics)
+    unequal = 0
+    for rows, res in zip(bodies, results):
+        want = im.infer([rows])
+        if len(res["outs"]) != 2 or not all(np.array_equal(g, w) for g, w in zip(res["outs"], want)):
+            unequal += 1
+    completed = re.search(r'flexflow_serving_requests_total\{model="%s",outcome="completed"\} '
+                          r"(\d+)" % name, metrics)
+    want_launches = {k: 0 for k in launches}
+    want_launches["flash_fwd"] = layers * calls
+    lat = sorted(r["latency_s"] for r in results)
+    out = {
+        "clients": clients, "requests": requests, "rows": sum(len(b) for b in bodies),
+        "graph_s": graph_s, "build_and_load_s": build_load_s, "wall_s": wall,
+        "requests_per_s": requests / wall, "rows_per_s": sum(len(b) for b in bodies) / wall,
+        "latency_p50_s": lat[len(lat) // 2],
+        "latency_p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "device_batches": calls, "requests_per_device_batch": batched / max(1, calls),
+        "full_batch_device_ms": batch_device_ms, "full_batch_infer_host_ms": infer_host_ms,
+        "launches": launches,
+        "card_vs_cpu_max_abs_err": cpu_err, "responses_unequal_to_infer": unequal,
+        "metrics_completed": int(completed.group(1)) if completed else None,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print("onnx (bert_onnx over /v2/models/bert_onnx/infer): " + json.dumps(out), flush=True)
+    if unequal:
+        raise AssertionError(f"onnx: {unequal} responses differ from infer on the same rows")
+    if launches != want_launches:
+        raise AssertionError(f"onnx: flash launches {launches}, expected {want_launches} "
+                             f"({layers} forward launches a device batch)")
+    if out["metrics_completed"] != requests + 1:
+        raise AssertionError(f"onnx: /metrics counts {out['metrics_completed']} completed, "
+                             f"the clients received {requests} + 1 warm-up")
+    return out
+
+
+def fx_encoder(hidden: int, heads: int, ff_dim: int, seq: int, layers: int):
+    """``tests/test_torch_frontend.py``'s HF-style ``_BertEncoder``: q/k/v/o
+    Linears with view/permute/matmul attention, post-LayerNorm residuals,
+    a GELU MLP."""
+    import torch
+    import torch.nn as nn
+
+    class SelfAttention(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.q = nn.Linear(hidden, hidden)
+            self.k = nn.Linear(hidden, hidden)
+            self.v = nn.Linear(hidden, hidden)
+            self.o = nn.Linear(hidden, hidden)
+            self.heads, self.hd, self.seq, self.hidden = heads, hidden // heads, seq, hidden
+
+        def forward(self, x):
+            q = self.q(x).view(-1, self.seq, self.heads, self.hd).permute(0, 2, 1, 3)
+            k = self.k(x).view(-1, self.seq, self.heads, self.hd).permute(0, 2, 1, 3)
+            v = self.v(x).view(-1, self.seq, self.heads, self.hd).permute(0, 2, 1, 3)
+            att = torch.matmul(q, k.transpose(-1, -2)) / (self.hd ** 0.5)
+            att = torch.nn.functional.softmax(att, dim=-1)
+            ctx = torch.matmul(att, v).permute(0, 2, 1, 3).reshape(-1, self.seq, self.hidden)
+            return self.o(ctx)
+
+    class Layer(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.attn = SelfAttention()
+            self.ln1 = nn.LayerNorm(hidden)
+            self.ln2 = nn.LayerNorm(hidden)
+            self.fc1 = nn.Linear(hidden, ff_dim)
+            self.fc2 = nn.Linear(ff_dim, hidden)
+
+        def forward(self, x):
+            x = self.ln1(x + self.attn(x))
+            h = self.fc2(torch.nn.functional.gelu(self.fc1(x)))
+            return self.ln2(x + h)
+
+    class Encoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layers = nn.ModuleList([Layer() for _ in range(layers)])
+
+        def forward(self, x):
+            for layer in self.layers:
+                x = layer(x)
+            return x
+
+    return Encoder()
+
+
+def fx_phase(seed: int) -> dict:
+    """The torch.fx importer training BERT-Base on the card. The HF-style
+    encoder of tests/test_torch_frontend.py at BERT-Base width (12 x 768,
+    12 heads, ff 3072, seq 128; fp32, TF32 off), traced by the port's
+    ``PyTorchModel``, compiled with SGD 0.05 and MSE at batch 32 and
+    given the module's weights by ``copy_weights``. Gates: ``predict``
+    against the same module's own forward on the card (atol 1e-4 + rtol
+    1e-4); the ``.ff`` export replayed into a fresh model predicting as
+    the direct import (rtol 1e-5, atol 1e-6); four steps at batch 4 on the
+    card against the same graph on the CPU from the same weights (the
+    first loss rtol 1e-5, every loss rtol 1e-4, each parameter within
+    1e-3 of the largest change). Then step ms and samples/s at batch 32.
+    No hand-written kernel is on this path: the JAX package computes this
+    attention (``torch.matmul`` and softmax) as batch_matmul and softmax
+    in plain XLA, so the port runs them as torch ops."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import CompMode, LossType
+    from flexflow_tpu_torch.frontends.torch import PyTorchModel, copy_weights, replay_ff
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.runtime.optimizers import SGDOptimizer
+
+    t_phase = time.perf_counter()
+    batch, seq, hidden = 32, FX_BERT["seq"], FX_BERT["hidden"]
+    torch.manual_seed(seed)
+    module = fx_encoder(**FX_BERT).eval()
+    rs = np.random.RandomState(seed + 2)
+
+    def imported(bs, device=None, lr=0.05):
+        ff = FFModel(FFConfig(batch_size=bs, seed=seed), device=device)
+        pt = PyTorchModel(module)
+        outs = pt.torch_to_ff(ff, [ff.create_tensor((bs, seq, hidden))])
+        ff.compile(optimizer=SGDOptimizer(lr=lr), loss_type=LossType.MEAN_SQUARED_ERROR,
+                   outputs=outs)
+        copy_weights(module, ff, pt.name_map)
+        return ff, pt
+
+    t0 = time.perf_counter()
+    card, pt = imported(batch)
+    import_s = time.perf_counter() - t0
+    x = torch.from_numpy(rs.randn(batch, seq, hidden).astype(np.float32)).cuda()
+    y = torch.from_numpy(rs.randn(batch, seq, hidden).astype(np.float32)).cuda()
+    fa.reset_launch_counts()
+    got = card.predict(x)
+    with torch.no_grad():
+        want = copy.deepcopy(module).cuda()(x)
+    fwd_err = float((got - want).abs().max())
+    if not bool(((got - want).abs() <= ATOL + RTOL * want.abs()).all()):
+        raise AssertionError(f"fx: predict vs the module's forward differs by {fwd_err}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "bert.ff")
+        pt.export_ff(path, lambda: FFModel(FFConfig(batch_size=batch)), [(batch, seq, hidden)])
+        ff_bytes = os.path.getsize(path)
+        replayed = FFModel(FFConfig(batch_size=batch, seed=seed))
+        outs = replay_ff(path, replayed, [replayed.create_tensor((batch, seq, hidden))])
+    replayed.compile(comp_mode=CompMode.INFERENCE, outputs=outs)
+    copy_weights(module, replayed, pt.name_map)
+    again = replayed.predict(x)
+    replay_err = float((again - got).abs().max())
+    if not bool(((again - got).abs() <= 1e-6 + 1e-5 * got.abs()).all()):
+        raise AssertionError(f"fx: the replayed .ff predicts {replay_err} away from the import")
+    replay_bitwise = bool(torch.equal(again, got))
+    del replayed, again
+    # four steps at batch 4, card against CPU from the same weights
+    x4, y4 = (rs.randn(4, seq, hidden).astype(np.float32) for _ in range(2))
+    small, _ = imported(4)
+    host, _ = imported(4, device="cpu")
+    before = params_copy(host.executor.params)
+    losses = {"card": [], "cpu": []}
+    for tag, m, dev in (("card", small, "cuda"), ("cpu", host, "cpu")):
+        xs, ys = torch.from_numpy(x4).to(dev), torch.from_numpy(y4).to(dev)
+        for _ in range(4):
+            losses[tag].append(float(m.executor.train_batch([xs], ys)["loss"]))
+    lc, lh = np.array(losses["card"]), np.array(losses["cpu"])
+    if not (np.isfinite(lc).all() and abs(lc[0] - lh[0]) <= LOSS_RTOL * abs(lh[0])
+            and (np.abs(lc - lh) <= 1e-4 * np.abs(lh)).all()):
+        raise AssertionError(f"fx: card losses {lc} vs CPU {lh}")
+    a = host.executor.params
+    # the two builds' guids differ: the card's weights by layer name
+    b = {k: small.executor.params[small.executor.node_key(
+        host.graph.nodes[int(k.rsplit("_", 1)[1])].name)] for k in a}
+    leaves = [(k, n) for k in a for n in a[k]]
+    with torch.no_grad():
+        moved = max(float((a[k][n] - before[k][n]).abs().max()) for k, n in leaves)
+        err = max(float((a[k][n] - b[k][n].cpu()).abs().max()) for k, n in leaves)
+    if not 0 < moved or err > PARAM_STEP_RTOL * moved:
+        raise AssertionError(f"fx: parameters differ by {err}, more than {PARAM_STEP_RTOL} of "
+                             f"the largest change {moved}")
+    del small, host, before
+    # step time at batch 32
+    ex = card.executor
+    ex.train_batch([x], y)
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        ex.train_batch([x], y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v for k, v in fa.LAUNCHES.items() if v}
+    out = {
+        "batch": batch, "import_compile_copy_s": import_s, "predict_max_abs_err": fwd_err,
+        "ff_file_bytes": ff_bytes, "replay_max_abs_err": replay_err,
+        "replay_bitwise_equal": replay_bitwise, "losses_card": losses["card"],
+        "losses_cpu": losses["cpu"], "param_max_abs_diff": err, "param_max_change": moved,
+        "step_ms": step_ms, "samples_per_s": batch * 1e3 / float(np.median(step_ms)),
+        "flash_launches": launches, "phase_s": time.perf_counter() - t_phase,
+    }
+    print("fx (HF-style BERT-Base by torch.fx): " + json.dumps(out), flush=True)
+    if launches:
+        raise AssertionError(f"fx: a flash kernel launched on a path that has none: {launches}")
+    return out
+
+
+def print_frontends(card: str, onnx: dict, fx: dict) -> None:
+    """The onnx and fx lines of the summary."""
+    if onnx:
+        print(f"{card}: ONNX BERT-Base (12 x 768, seq 128, fused Attention) over "
+              f"/v2/models/bert_onnx/infer ({onnx['clients']} clients, {onnx['requests']} "
+              f"requests of 1-4 rows): {onnx['requests_per_s']:.2f} requests/s, client latency "
+              f"p50 {onnx['latency_p50_s']:.4f} s, p99 {onnx['latency_p99_s']:.4f} s, "
+              f"{onnx['requests_per_device_batch']:.2f} requests a device batch over "
+              f"{onnx['device_batches']}; build and load {onnx['build_and_load_s']:.2f} s; device "
+              f"ms of a full batch of 32 {onnx['full_batch_device_ms']:.3f}, host ms of its infer "
+              + ", ".join(f"{ms:.2f}" for ms in onnx["full_batch_infer_host_ms"])
+              + f"; card vs CPU logits "
+              f"{onnx['card_vs_cpu_max_abs_err']:.2e}; phase {onnx['phase_s']:.1f} s")
+    if fx:
+        print(f"{card}: torch.fx BERT-Base (12 x 768, seq 128, batch 32, fp32): step ms "
+              + ", ".join(f"{ms:.3f}" for ms in fx["step_ms"])
+              + f", {fx['samples_per_s']:.2f} samples/s; predict vs module "
+              f"{fx['predict_max_abs_err']:.2e}; .ff replay {fx['replay_max_abs_err']:.2e}; card "
+              f"vs CPU losses {fx['losses_card'][-1]:.6f} vs {fx['losses_cpu'][-1]:.6f}; phase "
+              f"{fx['phase_s']:.1f} s")
+
+
 def print_moe_keras(card: str, moe: dict, keras_: dict, profile: dict) -> None:
     """The moe, keras and ResNet-50 per-op lines of the summary."""
     w = moe["window"]
@@ -6338,6 +6683,10 @@ def main(argv=None) -> int:
     window = window_phase(args.seed)
     moe = moe_phase(args.seed)
     keras_ = keras_phase(args.seed)
+    torch.cuda.empty_cache()
+    onnx_ = onnx_phase(args.seed)
+    torch.cuda.empty_cache()
+    fx_ = fx_phase(args.seed)
 
     def trainer_launches(name):  # the trainer and window phases' launches of a flash form
         return (sum(sum(r["launches"][k][name] for k in r["launches"])
@@ -6376,7 +6725,7 @@ def main(argv=None) -> int:
                    flash["train"][name]["max_abs_err"], flash["causal512"][name]["max_abs_err"])),
                training["launches"][name]
                + sum(heads[cell]["launches"][name] for cell in fp32_heads)
-               + trainer_launches(name), FLASH_SOURCE)
+               + trainer_launches(name) + onnx_["launches"][name], FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
         record(f"{name}{form}", f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
@@ -6453,6 +6802,7 @@ def main(argv=None) -> int:
               f"{k} {f['forward_ms']:.2f}" for k, f in v["forward_other"].items()))
     print_window(card, window)
     print_moe_keras(card, moe, keras_, vision["forward_profile"])
+    print_frontends(card, onnx_, fx_)
     inf = heads["infer"]
     print(f"{card}: bert_sst2 over /v2/models/bert_sst2/infer ({inf['clients']} clients, "
           f"{inf['requests']} requests of 1-4 rows): {inf['requests_per_s']:.2f} requests/s, "
@@ -6612,7 +6962,8 @@ def main(argv=None) -> int:
                       "training": training, "training_bf16": training_bf16,
                       "training_f16": training_f16, "heads": heads,
                       "suffix_prefill_bodies": suffix_bodies, "trainer": trainer,
-                      "vision": vision, "window": window, "moe": moe, "keras": keras_}))
+                      "vision": vision, "window": window, "moe": moe, "keras": keras_,
+                      "onnx": onnx_, "fx": fx_}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

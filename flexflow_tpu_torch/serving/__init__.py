@@ -1,4 +1,4 @@
-"""Serving (port of ``flexflow_tpu/serving`` without gRPC): typed
+"""Serving (port of ``flexflow_tpu/serving``): typed
 rejections, retry with backoff and the circuit breaker, the overload
 controller and the fleet's autoscale advisor, the serving statistics,
 the batched path (:class:`InferenceModel` behind a
@@ -7,8 +7,10 @@ the batched path (:class:`InferenceModel` behind a
 WAL journal, warm restart and the resume index), the fleet tier
 (``fleet.py``: :class:`Fleet` replicas behind the cache-aware router,
 :class:`DisaggregatedFleet` prefill and decode pools joined by the KV
-handoff), and the HTTP front end: :class:`InferenceModel`,
-:class:`GenerationModel` and either fleet behind :class:`InferenceServer`.
+handoff), the HTTP front end (:class:`InferenceModel`,
+:class:`GenerationModel` and either fleet behind :class:`InferenceServer`)
+and the KServe v2 gRPC front end (:class:`GrpcInferenceServer`, which
+needs grpcio and protobuf; it raises where they are not installed).
 
 ``GenerationModel``, the fleet classes, ``InferenceServer`` and the
 batched path resolve lazily: they import the generation package or the
@@ -63,6 +65,7 @@ __all__ = [
     "FleetStats",
     "GenerationModel",
     "GoodputStats",
+    "GrpcInferenceServer",
     "Histogram",
     "InferenceModel",
     "InferenceServer",
@@ -98,6 +101,7 @@ _LAZY = {
     "HandoffManager": "fleet",
     "DisaggregatedFleet": "fleet",
     "InferenceServer": "server",
+    "GrpcInferenceServer": "grpc_server",
     "InferenceModel": "model",
     "TensorMeta": "model",
     "DynamicBatcher": "batcher",

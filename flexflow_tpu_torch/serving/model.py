@@ -17,7 +17,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.types import OpType
+from ..core.types import CompMode, DataType, OpType
 from ..parallel.propagation import infer_all_specs
 from ..runtime import faults
 
@@ -65,10 +65,41 @@ class InferenceModel:
         ]
 
     @classmethod
-    def from_onnx(cls, *args, **kwargs) -> "InferenceModel":
-        raise NotImplementedError(
-            "InferenceModel.from_onnx needs the ONNX frontend, which is not ported yet "
-            "(ROADMAP.md queue 1, item 9)")
+    def from_onnx(
+        cls,
+        onnx_model,
+        input_shapes: Dict[str, Sequence[int]],
+        name: str = "model",
+        max_batch: int = 8,
+        strategy_file: str = "",
+        input_dtypes: Optional[Dict[str, DataType]] = None,
+        config=None,
+        device=None,
+    ) -> "InferenceModel":
+        """Load an ONNX graph, compile it for inference on ``device`` (the
+        GPU unless ``"cpu"``) and serve the graph's own weights (reference:
+        triton/src/onnx_parser.cc + strategy.cc + model.cc). A strategy
+        file needs ``parallel/strategy.py``, which is not ported yet."""
+        from ..config import FFConfig
+        from ..frontends.onnx import ONNXModel
+        from ..model import FFModel
+
+        if strategy_file:
+            raise NotImplementedError(
+                "from_onnx(strategy_file=...) needs parallel/strategy.py, which is not "
+                "ported yet (ROADMAP.md queue 1, item 5)")
+        config = config or FFConfig(batch_size=max_batch)
+        ff = FFModel(config, device=device)
+        dtypes = input_dtypes or {}
+        in_names = list(input_shapes)
+        tensors = {nm: ff.create_tensor([max_batch] + list(input_shapes[nm]),
+                                        dtype=dtypes.get(nm, DataType.FLOAT), name=nm)
+                   for nm in in_names}
+        om = ONNXModel(onnx_model)
+        outs = om.apply(ff, tensors)
+        ff.compile(comp_mode=CompMode.INFERENCE, outputs=outs)
+        om.load_weights(ff)  # serve the graph's weights, not random init
+        return cls(ff, name=name, max_batch=max_batch, input_names=in_names)
 
     # --------------------------------------------------------------- run
     def infer(self, inputs: Sequence[np.ndarray]) -> List[np.ndarray]:

@@ -1,6 +1,5 @@
 """Typed serving rejections, retry with backoff and the circuit breaker
-(port of ``flexflow_tpu/serving/resilience.py`` without ``grpc_code``:
-the port has no gRPC front end yet).
+(port of ``flexflow_tpu/serving/resilience.py``).
 
 The errors map 1:1 onto protocol status codes, so transports can tell
 backpressure from an expired deadline without string matching.
@@ -101,6 +100,16 @@ class ShuttingDownError(ResilienceError):
 def http_status(err: ResilienceError) -> int:
     """The single source of truth for ResilienceError -> HTTP status."""
     return 504 if isinstance(err, DeadlineExceededError) else 503
+
+
+def grpc_code(err: ResilienceError, grpc):
+    """ResilienceError -> grpc.StatusCode (``grpc`` passed in so this
+    module stays importable without grpcio)."""
+    if isinstance(err, DeadlineExceededError):
+        return grpc.StatusCode.DEADLINE_EXCEEDED
+    if isinstance(err, QueueFullError):
+        return grpc.StatusCode.RESOURCE_EXHAUSTED
+    return grpc.StatusCode.UNAVAILABLE
 
 
 class RetryPolicy:
