@@ -367,6 +367,23 @@ prints no result line):
    import, four batch-4 steps card against CPU (the first loss rtol 1e-5,
    every loss rtol 1e-4, parameters within 1e-3 of the largest change);
    step ms and samples/s. No hand-written kernel is on this path.
+26. search: the Unity strategy search on the card. ``calibrate()`` of
+   the default suite (each op's forward captured in a CUDA graph, timed
+   by events; the attention entry through ``ff_flash_fwd_bf16`` on the
+   wgmma body only): every op measured, each ratio to its roofline
+   finite and > 0, the table reloaded unchanged; each ratio and class
+   derate printed. BERT-Base bf16 (batch 32, SGD 0.01, MSE, weights from
+   --seed) built with ``only_data_parallel`` and with ``search_budget=8``
+   and trained 4 steps each: the search ran with the H100 spec and its
+   table, axes all 1, the same graph, losses and parameters bit for bit,
+   12 of each bf16 flash kernel a step in both; the predicted step
+   (``best_cost`` and the task-graph simulator's) beside the measured.
+   Then ``unity_optimize`` for 8 H100s (allreduce schedules on): its
+   strategy file's ``to_json`` -> ``from_json`` -> ``remap_to`` onto a
+   fresh build unchanged, a compile importing it refused with "mesh
+   needs 8 devices, have 1" after exporting and before training, and
+   the native library (built from ``native/src``) answering the
+   simulator's replays with none in Python.
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -6591,6 +6608,262 @@ def print_moe_keras(card: str, moe: dict, keras_: dict, profile: dict) -> None:
     print(profile["table_head"])
 
 
+# the search phase's cells: BERT-Base bf16 (bench.py's cell, 12 x 768, 12
+# heads, ff 3072, seq 128) at batch 32, SGD 0.01, MSE, 4 steps a build;
+# the searched build's budget; the machine the card's owner does not have
+SEARCH_BATCH = 32
+SEARCH_STEPS = 4
+SEARCH_BUDGET = 8
+SEARCH_WORKERS = 8
+
+
+def search_build(seed: int, cfg, **kw):
+    """BERT-Base in ``cfg``'s dtype, weights from ``seed``, compiled with
+    the FFConfig fields ``kw`` (the strategy's branch of compile)."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    model = build_transformer(FFConfig(batch_size=SEARCH_BATCH, seed=seed, **kw), cfg)
+    t0 = time.perf_counter()
+    model.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+    return model, time.perf_counter() - t0
+
+
+def named_params(model) -> dict:
+    """The model's parameters by layer name (two builds' guids differ)."""
+    from flexflow_tpu_torch.runtime.executor import node_key
+
+    return {(n.name, w): p.detach().clone() for n in model.graph.topo_order() if n.name
+            for w, p in model.executor.params.get(node_key(n), {}).items()}
+
+
+def search_phase(seed: int) -> dict:
+    """The Unity search on the card: calibrate the default suite through
+    the port's ops (its attention entry through the bf16 flash forward),
+    then a data-parallel and a searched build of BERT-Base bf16 trained 4
+    steps each from the same weights, then a search for 8 H100s this
+    machine does not have, its strategy file round trip and the
+    device-count refusal of a compile that imports it."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import flexflow_tpu_torch._native as native
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import DataType
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.ops.base import get_op_def
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel.machine import MachineSpec
+    from flexflow_tpu_torch.parallel.strategy import ParallelStrategy
+    from flexflow_tpu_torch.search import calibration as calib
+    from flexflow_tpu_torch.search import simulator as sim
+    from flexflow_tpu_torch.search.cost_model import CostModel
+    from flexflow_tpu_torch.search.machine_model import build_machine_model
+    from flexflow_tpu_torch.search.unity import predict_step_time, unity_optimize
+
+    kind = torch.cuda.get_device_name(0)
+    chip = calib.chip_spec_for(kind)
+    if "h100" not in kind.lower() or chip.name != kind or chip.bf16_flops != 989e12:
+        raise AssertionError(f"search: the card {kind!r} maps to {chip}, not the H100 spec")
+    out = {"device_kind": kind, "chip": dict(vars(chip))}
+    cache = tempfile.mkdtemp(prefix="ff_search_")
+    prev_cache = os.environ.get("FLEXFLOW_TPU_TORCH_CACHE")
+    os.environ["FLEXFLOW_TPU_TORCH_CACHE"] = cache  # the port's calibration cache, this run's
+    launches = {}
+    try:
+        # 1. calibrate the default suite on the card
+        suite = calib.default_suite()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        cal = calib.calibrate()
+        out["calibrate_s"] = time.perf_counter() - t0
+        launches["calibrate"] = {k: n for k, n in fa.LAUNCHES.items() if n}
+        by_body = {k: n for k, n in fa.LAUNCHES_BY_BODY.items() if n}
+        roof = CostModel(MachineSpec(num_nodes=1, devices_per_node=1, chip=chip))
+        ratios = {}
+        for op_type, params, specs in suite:
+            key = calib.cost_key(op_type, params, specs, 1)
+            if key not in cal.entries:
+                raise AssertionError(f"calibrate: {op_type.name} not measured (failed {cal.failed})")
+            c = get_op_def(op_type).cost(params, list(specs), get_op_def(op_type)
+                                         .infer_output_specs(params, list(specs)))
+            analytic = roof._roofline_time(c.flops, c.bytes_accessed, specs[0].dtype)
+            label = f"{op_type.name} " + " ".join("x".join(map(str, s.shape)) for s in specs)
+            ratios[label] = {"measured_s": cal.entries[key], "roofline_s": analytic,
+                             "ratio": cal.entries[key] / analytic, "class": calib.op_class(op_type)}
+            if not (np.isfinite(ratios[label]["ratio"]) and ratios[label]["ratio"] > 0):
+                raise AssertionError(f"calibrate: {label} ratio {ratios[label]}")
+        if cal.failed or len(cal.entries) != len(suite):
+            raise AssertionError(f"calibrate: {len(cal.entries)} of {len(suite)} measured, "
+                                 f"failed {cal.failed}")
+        fwd = launches["calibrate"].get("flash_fwd_bf16", 0)
+        if not fwd or by_body.get("flash_fwd_bf16 wgmma", 0) != fwd or set(
+                launches["calibrate"]) != {"flash_fwd_bf16"}:
+            raise AssertionError(f"calibrate: flash launches {launches['calibrate']}, by body "
+                                 f"{by_body}: expected ff_flash_fwd_bf16 on the wgmma body only")
+        reloaded = calib.load_calibration(kind)
+        if reloaded is None or reloaded.to_json() != cal.to_json() or not reloaded.source.startswith(
+                cache):
+            raise AssertionError("calibrate: the saved table does not reload unchanged")
+        out.update(ratios=ratios, derates=dict(cal.derates), table=reloaded.source)
+
+        # 2. BERT-Base bf16 on this card: data parallel, then searched
+        cfg = bert_base(DataType.BFLOAT16)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        shape = (SEARCH_STEPS * SEARCH_BATCH, cfg.seq_length, cfg.hidden_size)
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        y = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        per_step = {f"{k}_bf16": cfg.num_layers for k in ("flash_fwd", "flash_bwd_dq",
+                                                          "flash_bwd_dkv")}
+        runs = {}
+        for name, kw in (("data_parallel", {"only_data_parallel": True}),
+                         ("searched", {"search_budget": SEARCH_BUDGET})):
+            model, compile_s = search_build(seed, cfg, **kw)
+            before = named_params(model)
+            fa.reset_launch_counts()
+            torch.cuda.synchronize()
+            model.fit(x, y, trace_window=1, verbose=False)
+            got = {k: n for k, n in fa.LAUNCHES.items() if n}
+            want = {k: n * SEARCH_STEPS for k, n in per_step.items()}
+            if got != want:
+                raise AssertionError(f"search {name}: flash launches {got}, expected {want}")
+            launches[name] = got
+            runs[name] = {"model": model, "compile_s": compile_s, "before": before,
+                          "losses": list(model.step_losses), "after": named_params(model),
+                          "step_ms": 1e3 * model.last_elapsed / SEARCH_STEPS}
+        dp, sr = runs["data_parallel"], runs["searched"]
+        res = sr["model"]._search_result
+        if res is None or res.machine is None or res.machine.chip != chip or (
+                res.calibration.device_kind != kind):
+            raise AssertionError("search: compile(search_budget>0) did not run unity_optimize "
+                                 "with the H100 spec and its calibration")
+        axes = sr["model"].strategy.axis_sizes
+        if any(v != 1 for v in axes.values()):
+            raise AssertionError(f"search: one GPU, axes {axes}")
+        same_graph = sr["model"].graph.structural_hash() == dp["model"].graph.structural_hash()
+        if not same_graph:
+            raise AssertionError("search: the one-GPU search rewrote the graph")
+        if any(not torch.equal(dp["before"][k], sr["before"][k]) for k in dp["before"]) or (
+                set(dp["before"]) != set(sr["before"])):
+            raise AssertionError("search: the two builds start from different weights")
+        if dp["losses"] != sr["losses"] or any(
+                not torch.equal(dp["after"][k], sr["after"][k]) for k in dp["after"]):
+            raise AssertionError(f"search: losses {dp['losses']} vs {sr['losses']} or the "
+                                 "parameters differ after the steps")
+        if not all(np.isfinite(dp["losses"])):
+            raise AssertionError(f"search: losses {dp['losses']}")
+        t0 = time.perf_counter()
+        unity_optimize(sr["model"].graph, sr["model"].config)
+        one_gpu_search_s = time.perf_counter() - t0
+        predicted_sim = predict_step_time(sr["model"].graph, sr["model"].config, views=res.views,
+                                          machine=res.machine, calibration=res.calibration)
+        out["one_gpu"] = {
+            "axes": axes, "search_s": one_gpu_search_s, "candidates": res.candidates_explored,
+            "best_cost_ms": 1e3 * res.best_cost, "simulated_step_ms": 1e3 * predicted_sim,
+            "measured_step_ms": {k: r["step_ms"] for k, r in runs.items()},
+            "measured_over_predicted": sr["step_ms"] / (1e3 * res.best_cost),
+            "compile_s": {k: r["compile_s"] for k, r in runs.items()},
+            "losses": sr["losses"], "bitwise_equal": True, "same_graph": same_graph,
+        }
+        del runs, dp, sr, res
+        torch.cuda.empty_cache()
+
+        # 3. a search for 8 H100s, which this machine does not have
+        cfg8 = FFConfig(batch_size=SEARCH_BATCH, seed=seed, search_budget=SEARCH_BUDGET,
+                        search_num_workers=SEARCH_WORKERS, allreduce_optimize=True)
+        graph = build_transformer(cfg8, cfg).graph
+        native.reset_call_counts()
+        replays0 = dict(sim.REPLAYS)
+        t0 = time.perf_counter()
+        st8, r8 = unity_optimize(graph, cfg8, machine=MachineSpec(
+            num_nodes=1, devices_per_node=SEARCH_WORKERS, chip=chip))
+        search8_s = time.perf_counter() - t0
+        simulated8 = sim.Simulator(r8.machine, CostModel(r8.machine, calibration=r8.calibration),
+                                   build_machine_model(r8.machine)).simulate(r8.graph, r8.views)
+        calls = {k: n for k, n in native.CALLS.items() if n}
+        replays = {k: sim.REPLAYS[k] - replays0[k] for k in replays0}
+        lib = native._LIB_PATH
+        if (not calls or replays["python"] or not replays["native"]
+                or lib.parent.name != "_build" or not all(p.exists() for p in native._SOURCES)):
+            raise AssertionError(f"search: native calls {calls}, replays {replays}, library {lib}")
+        if r8.machine.num_devices != SEARCH_WORKERS or r8.machine.chip != chip:
+            raise AssertionError(f"search: searched for {r8.machine}")
+        fresh = build_transformer(cfg8, cfg).graph
+        back = ParallelStrategy.from_json(st8.to_json()).remap_to(fresh)
+        if back is None:
+            raise AssertionError("search: the 8-GPU strategy does not remap onto a fresh build")
+
+        def by_name(st):
+            return {st.node_names[g]: (sh.outputs, sh.weights, sh.machine_view)
+                    for g, sh in st.node_shardings.items()}
+        if back.axis_sizes != st8.axis_sizes or by_name(back) != by_name(st8):
+            raise AssertionError("search: to_json -> from_json -> remap_to changed the strategy")
+        need = 1
+        for v in st8.axis_sizes.values():
+            need *= v
+        path, exported = os.path.join(cache, "strategy8.json"), os.path.join(cache, "again.json")
+        with open(path, "w") as f:
+            f.write(st8.to_json())
+        m = build_transformer(FFConfig(batch_size=SEARCH_BATCH, seed=seed, import_strategy_file=path,
+                                       export_strategy_file=exported), cfg)
+        fa.reset_launch_counts()
+        try:
+            m.compile()
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("search: a compile importing the 8-GPU strategy did not raise")
+        if (refusal != f"mesh needs {need} devices, have 1" or m.executor is not None
+                or any(fa.LAUNCHES.values()) or not os.path.exists(exported)):
+            raise AssertionError(f"search: the import raised {refusal!r} (executor "
+                                 f"{m.executor}, launches {dict(fa.LAUNCHES)})")
+        out["eight_gpus"] = {
+            "axes": st8.axis_sizes, "search_s": search8_s, "candidates": r8.candidates_explored,
+            "best_cost_ms": 1e3 * r8.best_cost, "simulated_step_ms": 1e3 * simulated8,
+            "memory_per_device_gb": r8.memory_per_device / 1e9, "pipeline": r8.pipeline,
+            "context_parallel": r8.context_parallel, "context_parallel_tp": r8.context_parallel_tp,
+            "allreduce_saved_ms": 1e3 * r8.allreduce_saved, "native_calls": calls,
+            "replays": replays, "native_build_s": native.last_build_seconds,
+            "refusal": refusal,
+        }
+    finally:
+        if prev_cache is None:
+            os.environ.pop("FLEXFLOW_TPU_TORCH_CACHE", None)
+        else:
+            os.environ["FLEXFLOW_TPU_TORCH_CACHE"] = prev_cache
+        shutil.rmtree(cache, ignore_errors=True)
+    out["launches"] = {name: sum(run.get(name, 0) for run in launches.values())
+                       for name in fa.LAUNCHES}
+    out["launches_by_run"] = launches
+    print("search: " + json.dumps(out))
+    return out
+
+
+def print_search(card: str, s: dict) -> None:
+    print(f"{card}: calibration ({s['device_kind']}, {s['calibrate_s']:.2f} s), measured over "
+          "roofline: " + "; ".join(f"{k} {r['ratio']:.3f} ({r['measured_s'] * 1e3:.4f} ms)"
+                                   for k, r in s["ratios"].items())
+          + "; derates " + ", ".join(f"{c} {d:.4f}" for c, d in s["derates"].items()))
+    o = s["one_gpu"]
+    print(f"{card}: searched BERT-Base bf16 (batch 32, budget 8) on one GPU: axes {o['axes']}, "
+          f"search {o['search_s']:.3f} s, {o['candidates']} candidates; predicted step "
+          f"{o['best_cost_ms']:.3f} ms (task-graph simulator {o['simulated_step_ms']:.3f}), "
+          f"measured {o['measured_step_ms']['searched']:.3f} (data parallel "
+          f"{o['measured_step_ms']['data_parallel']:.3f}), measured / predicted "
+          f"{o['measured_over_predicted']:.3f}; losses bit for bit {o['losses']}")
+    e = s["eight_gpus"]
+    print(f"{card}: search for 8 H100s (budget 8): axes {e['axes']}, best cost "
+          f"{e['best_cost_ms']:.4f} ms (task-graph simulator {e['simulated_step_ms']:.4f}), "
+          f"{e['candidates']} candidates, {e['search_s']:.2f} s, memory a device "
+          f"{e['memory_per_device_gb']:.3f} GB; native calls {e['native_calls']}; "
+          f"import refused: {e['refusal']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed for weights, prompts and inputs")
@@ -6687,6 +6960,8 @@ def main(argv=None) -> int:
     onnx_ = onnx_phase(args.seed)
     torch.cuda.empty_cache()
     fx_ = fx_phase(args.seed)
+    torch.cuda.empty_cache()
+    search = search_phase(args.seed)
 
     def trainer_launches(name):  # the trainer and window phases' launches of a flash form
         return (sum(sum(r["launches"][k][name] for k in r["launches"])
@@ -6733,7 +7008,8 @@ def main(argv=None) -> int:
                    flash["train"][f"{name}{form}"]["max_abs_err"],
                    flash["causal512"][f"{name}{form}"]["max_abs_err"])),
                run["launches"][f"{name}{form}"]
-               + (heads["bert-cls bf16"]["launches"][f"{name}{form}"] if form == "_bf16" else 0)
+               + (heads["bert-cls bf16"]["launches"][f"{name}{form}"] + search["launches"][
+                   f"{name}{form}"] if form == "_bf16" else 0)
                + trainer_launches(f"{name}{form}"), FLASH_SOURCE)
         for form, run in (("_bf16", training_bf16), ("_f16", training_f16))
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
@@ -6803,6 +7079,7 @@ def main(argv=None) -> int:
     print_window(card, window)
     print_moe_keras(card, moe, keras_, vision["forward_profile"])
     print_frontends(card, onnx_, fx_)
+    print_search(card, search)
     inf = heads["infer"]
     print(f"{card}: bert_sst2 over /v2/models/bert_sst2/infer ({inf['clients']} clients, "
           f"{inf['requests']} requests of 1-4 rows): {inf['requests_per_s']:.2f} requests/s, "
@@ -6963,7 +7240,7 @@ def main(argv=None) -> int:
                       "training_f16": training_f16, "heads": heads,
                       "suffix_prefill_bodies": suffix_bodies, "trainer": trainer,
                       "vision": vision, "window": window, "moe": moe, "keras": keras_,
-                      "onnx": onnx_, "fx": fx_}))
+                      "onnx": onnx_, "fx": fx_, "search": search}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,14 @@ Every field of the JAX package's ``FFConfig`` is here, with its default,
 and :meth:`FFConfig.from_args` parses the reference's CLI surface into
 the same field values. The port trains on one GPU: a configuration that
 asks for what it cannot run yet raises instead of silently training
-another way: the strategy search (``search_budget``), pipeline stages,
-more than one node or device and ZeRO-1 (``zero_optimizer``).
+another way: pipeline stages, more than one node or device and ZeRO-1
+(``zero_optimizer``). ``search_budget > 0`` runs the Unity search in
+``FFModel.compile`` (``search/unity.py``), which reads the search knobs
+(``search_num_nodes`` / ``search_num_workers`` search for a machine the
+port does not have: compile then raises the device-count error);
 ``profiling`` prints the per-op table (``FFModel.profile``) before
-``fit`` trains. The search knobs, export paths and the
-XLA-era flags are kept for CLI parity and read by nothing.
+``fit`` trains. The XLA-era flags are kept for CLI parity and read by
+nothing.
 """
 from __future__ import annotations
 
@@ -49,8 +52,8 @@ class FFConfig:
     machine_model_file: str = ""
     simulator_segment_size: int = 16777216
     simulator_max_num_segments: int = 1
-    # the search's op-cost source (None = auto, True = measured, False =
-    # analytic); read by nothing until the search is ported
+    # the search's op-cost source: the calibration table always; True
+    # also times every op the table lacks, live (None and False: not)
     measure_op_costs: Optional[bool] = None
     # pipeline parallelism (must stay 1)
     pipeline_stages: int = 1
@@ -89,8 +92,6 @@ class FFConfig:
     seed: int = 0
 
     def __post_init__(self):
-        if self.search_budget > 0:
-            raise NotImplementedError("the strategy search is not ported; use search_budget=0")
         if self.pipeline_stages > 1:
             raise NotImplementedError("pipeline stages are not ported; use pipeline_stages=1")
         if self.num_nodes > 1 or self.workers_per_node > 1:

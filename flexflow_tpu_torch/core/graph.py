@@ -17,7 +17,7 @@ import itertools
 import json
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
-from .types import OpType
+from .types import OpType, PARALLEL_OP_TYPES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,13 +227,13 @@ class PCGraph:
         return out
 
     def to_dot(self, label_fn: Optional[Callable[[Node], str]] = None) -> str:
-        """DOT export (reference: --compgraph export, graph.h:339). The
-        JAX package draws its parallel ops as ellipses; the port's graphs
-        hold none, so every node is a box."""
+        """DOT export (reference: --compgraph export, graph.h:339):
+        parallel ops as ellipses, the others as boxes."""
         lines = ["digraph PCG {"]
         for n in self.topo_order():
             label = label_fn(n) if label_fn else f"{n.op_type.value}\\n{n.name or n.guid}"
-            lines.append(f'  n{n.guid} [label="{label}", shape=box];')
+            shape = "ellipse" if n.op_type in PARALLEL_OP_TYPES else "box"
+            lines.append(f'  n{n.guid} [label="{label}", shape={shape}];')
         for g in sorted(self.nodes):
             for e in self._out_edges[g]:
                 lines.append(f"  n{e.src} -> n{e.dst};")

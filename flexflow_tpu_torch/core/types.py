@@ -9,9 +9,9 @@ float64 for Cast; the op types of the BERT graphs with their heads, of
 the seq2seq transformer, of the vision models (convolution, pooling,
 BatchNorm, the elementwise unary and binary families), of NMT (RNN,
 LSTM, batch matmul) and the recommenders, the reductions and the graph's
-weight and no-op nodes, and the
-activation, pooling, aggregation, loss, metric and compilation modes
-around them.
+weight and no-op nodes, the parallel ops the strategy search writes
+into a graph, and the activation, pooling, aggregation, loss, metric,
+compilation and gradient-sync modes around them.
 """
 from __future__ import annotations
 
@@ -98,6 +98,25 @@ class CompMode(enum.Enum):
     INFERENCE = "inference"
 
 
+class ParameterSyncType(enum.Enum):
+    """Gradient sync strategy (reference: ffconst.h:46-50)."""
+
+    NONE = "none"
+    PS = "ps"
+    NCCL = "allreduce"
+
+
+class ParameterSyncOption(enum.Enum):
+    """Per-parameter allreduce schedule (fork feature, ffconst.h:52-57):
+    what the simulator and the allreduce-schedule pass
+    (``search/simulator.py::allreduce_optimize``) choose between."""
+
+    DEFAULT = "default"
+    RING = "ring"
+    BUTTERFLY = "butterfly"
+    DOUBLE_BINARY_TREE = "double_binary_tree"
+
+
 class OpType(enum.Enum):
     """The operators of the ported training graphs (values as in the JAX
     package, so node keys read the same in both)."""
@@ -161,3 +180,26 @@ class OpType(enum.Enum):
     AGGREGATE_SPEC = "aggregate_spec"
     CACHE = "cache"
     EXPERTS = "experts"
+    FUSED = "fused"
+    # parallel ops: sharding transitions the search writes into the graph
+    # (reference: src/parallel_ops/; ops/parallel_ops.py)
+    REPARTITION = "repartition"
+    COMBINE = "combine"
+    REPLICATE = "replicate"
+    REDUCTION = "reduction"
+    ALLREDUCE = "allreduce"
+    FUSED_PARALLEL = "fused_parallel"
+    PIPELINE = "pipeline"
+
+
+PARALLEL_OP_TYPES = frozenset(
+    {
+        OpType.REPARTITION,
+        OpType.COMBINE,
+        OpType.REPLICATE,
+        OpType.REDUCTION,
+        OpType.ALLREDUCE,
+        OpType.FUSED_PARALLEL,
+        OpType.PIPELINE,
+    }
+)

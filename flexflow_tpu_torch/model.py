@@ -3,11 +3,14 @@ methods the BERT graphs with their heads, the seq2seq transformer, the
 vision models, NMT, the recommenders and the mixture of experts use, of
 the graph's weight, reduction, batch-matmul and recurrent layers, of
 compile/fit/evaluate/predict, of the checkpoint and data-loader entry
-points, and of ``profile``, ``recompile_on_condition``, ``get_output``
-and ``num_layers``, from ``flexflow_tpu/model.py``).
+points, and of ``profile``, ``recompile_on_condition``, ``get_output``,
+``num_layers``, ``parallel_tensor`` and ``parallel_weight``, from
+``flexflow_tpu/model.py``).
 
-Building a layer records a graph node; ``compile`` makes a single-GPU
-:class:`~flexflow_tpu_torch.runtime.executor.Executor` and its weights;
+Building a layer records a graph node; ``compile`` picks the strategy
+(data parallelism, a strategy file, or the Unity search) and makes a
+single-GPU :class:`~flexflow_tpu_torch.runtime.executor.Executor` and
+its weights;
 ``fit`` runs the training loop and prints the reference's ELAPSED TIME /
 THROUGHPUT line. :meth:`FFModel.from_graph` wraps a graph read back from
 JSON (the model repository's). The model runs on the GPU unless
@@ -122,9 +125,10 @@ class FFModel:
         self._num_inputs = 0
         self._seed = self.config.seed if seed is None else seed
         self.executor: Optional[Executor] = None
-        # one device, no search: the JAX package's compiled strategy
-        # has no counterpart yet
+        # the compiled ParallelStrategy, and the search's result when
+        # compile ran the Unity search
         self.strategy = None
+        self._search_result = None
         self._outputs: List[Tensor] = []
 
     @classmethod
@@ -524,9 +528,27 @@ class FFModel:
         metrics: Sequence[MetricsType] = (),
         comp_mode: CompMode = CompMode.TRAINING,
         outputs: Optional[Sequence[Tensor]] = None,
+        strategy=None,
     ) -> "FFModel":
-        """Build the single-GPU executor and its weights (reference:
-        FFModel::compile, model.cc:2811)."""
+        """Pick the parallelization strategy as the JAX package's compile
+        does, then build the single-GPU executor and its weights
+        (reference: FFModel::compile, model.cc:2811).
+
+        The strategy is, in this order: ``strategy``; the file
+        ``config.import_strategy_file``; data parallelism when
+        ``only_data_parallel`` or ``search_budget <= 0``; else the Unity
+        search (``search/unity.py::unity_optimize``), whose rewritten
+        graph the model adopts. It is remapped onto this graph by layer
+        name (a strategy of another graph raises), exported when asked
+        (``export_strategy_file``,
+        ``export_strategy_computation_graph_file``), and then its mesh
+        must fit the one device the port runs on: a strategy that needs
+        more raises ``mesh needs N devices, have 1`` (the JAX package's
+        ``build_mesh``), after the files are written. On one device every
+        axis is 1 and the searched graph's parallel ops are identities."""
+        from .parallel.mesh import build_mesh
+        from .parallel.strategy import ParallelStrategy, data_parallel_strategy
+
         if optimizer is None:
             optimizer = SGDOptimizer(lr=self.config.learning_rate, weight_decay=self.config.weight_decay)
         self.optimizer = optimizer
@@ -534,6 +556,37 @@ class FFModel:
         self.metrics = list(metrics)
         self.comp_mode = comp_mode
         self._outputs = list(outputs) if outputs else [self._default_output()]
+        num_devices = self.config.num_devices
+        if strategy is not None:
+            self.strategy = strategy
+        elif self.config.import_strategy_file:
+            with open(self.config.import_strategy_file) as f:
+                self.strategy = ParallelStrategy.from_json(f.read())
+        elif self.config.only_data_parallel or self.config.search_budget <= 0:
+            self.strategy = data_parallel_strategy(self.graph, num_devices)
+        else:
+            from .search.unity import unity_optimize
+
+            self.strategy, self._search_result = unity_optimize(self.graph, self.config)
+            # adopt the rewritten PCG (reference: convert_graph_to_operators
+            # model.cc:2856-2858); compute-node guids survive rewrites
+            if self._search_result.graph is not None:
+                self.graph = self._search_result.graph
+        remapped = self.strategy.remap_to(self.graph)
+        if remapped is None:
+            raise ValueError(
+                "strategy was built for a different graph: its node guids "
+                "match nothing here and name-based remapping failed "
+                "(missing or ambiguous layer names); rebuild or re-export "
+                "the strategy against THIS model's graph")
+        self.strategy = remapped
+        if self.config.export_strategy_file:
+            with open(self.config.export_strategy_file, "w") as f:
+                f.write(self.strategy.to_json())
+        if self.config.export_strategy_computation_graph_file:
+            with open(self.config.export_strategy_computation_graph_file, "w") as f:
+                f.write(self.graph.to_dot())
+        self.mesh = build_mesh(self.strategy.axis_sizes, devices=[self.device])
         self.executor = Executor(
             graph=self.graph,
             device=self.device,
@@ -546,6 +599,35 @@ class FFModel:
         )
         self.executor.initialize(torch.Generator().manual_seed(self._seed))
         return self
+
+    # ------------------------------------------------------- introspection
+    def parallel_tensor(self, tensor: Tensor):
+        """How ``tensor`` is sharded under the compiled strategy
+        (reference: ParallelTensorBase's per-dim degree / replica dims,
+        parallel_tensor.h:36-71)."""
+        from .core.parallel_tensor import view_from_spec
+
+        assert self.strategy is not None, "compile() first"
+        sh = self.strategy.node_shardings.get(tensor.node.guid)
+        return view_from_spec(tensor.spec, self.strategy.output_spec(tensor.node.guid, tensor.idx),
+                              self.strategy.axis_sizes,
+                              machine_view_hash=sh.machine_view_hash if sh else 0)
+
+    def parallel_weight(self, tensor: Tensor, name: str):
+        """Sharding view of one of ``tensor``'s op's weights."""
+        from .core.parallel_tensor import view_from_spec
+
+        assert self.strategy is not None, "compile() first"
+        node = tensor.node
+        specs = infer_all_specs(self.graph)
+        in_specs = [specs[e.src][e.src_idx] for e in self.graph.in_edges(node)]
+        wspecs = {w.name: w for w in get_op_def(node.op_type).weight_specs(node.params, in_specs)}
+        if name not in wspecs:
+            raise KeyError(f"op {node} has no weight {name!r}; has {sorted(wspecs)}")
+        sh = self.strategy.node_shardings.get(node.guid)
+        return view_from_spec(wspecs[name].spec, self.strategy.weight_spec(node.guid, name),
+                              self.strategy.axis_sizes,
+                              machine_view_hash=sh.machine_view_hash if sh else 0)
 
     def _default_output(self) -> Tensor:
         sinks = self.graph.sink_nodes()

@@ -2,7 +2,8 @@
 import: the BERT encoder, its heads and dropout, the seq2seq decoder's,
 the shape ops, the vision models' convolution, pooling, BatchNorm and
 elementwise families, NMT's recurrent ops and batch matmul, the
-reductions, the weight and no-op nodes, the mixture-of-experts family)
+reductions, the weight and no-op nodes, the mixture-of-experts family,
+the parallel ops the strategy search writes into a graph)
 and the generation path's attention."""
 from . import (  # noqa: F401 (registers the ops)
     attention,
@@ -14,6 +15,7 @@ from . import (  # noqa: F401 (registers the ops)
     linear,
     moe_ops,
     norm,
+    parallel_ops,
     recurrent,
     reduction_ops,
     shape_ops,

@@ -1,7 +1,7 @@
 """The single-GPU training runtime: executor, optimizers, losses,
 metrics, initializers, the weight converter, the data loader and the
 checkpoints."""
-from .checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint
+from .checkpoint import CheckpointManager, load_strategy, restore_checkpoint, save_checkpoint
 from .convert import opt_state_from_numpy, params_from_numpy
 from .dataloader import DataLoader, SingleDataLoader
 from .executor import Executor
@@ -20,6 +20,7 @@ __all__ = [
     "compute_metrics",
     "opt_state_from_numpy",
     "params_from_numpy",
+    "load_strategy",
     "restore_checkpoint",
     "save_checkpoint",
 ]

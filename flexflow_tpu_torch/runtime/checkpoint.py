@@ -17,8 +17,9 @@ process that dies mid-save leaves no readable half file.
 directories, restores the newest one that reads back (falling back past
 a corrupt or partial newest), and removes the step directory of a save
 that failed. The ``checkpoint.save`` fault site fires at the top of a
-save, as in the JAX package. Loading a parallelization strategy
-(``load_strategy``) waits for the strategy slices.
+save, as in the JAX package. ``save_checkpoint(..., strategy=)`` writes
+the parallelization strategy beside the state as ``strategy.json`` (the
+JAX package's file and format) and :func:`load_strategy` reads it back.
 """
 from __future__ import annotations
 
@@ -64,8 +65,9 @@ def _to_cpu(tree: Any) -> Any:
     return tree
 
 
-def save_checkpoint(path: str, executor, step: int = 0) -> None:
-    """Write a checkpoint directory at ``path``."""
+def save_checkpoint(path: str, executor, step: int = 0, strategy=None) -> None:
+    """Write a checkpoint directory at ``path``: the training state and,
+    when given, ``strategy`` as ``strategy.json``."""
     from . import faults
 
     faults.inject(faults.CHECKPOINT_SAVE, path)  # chaos hook: storage failure
@@ -81,6 +83,9 @@ def save_checkpoint(path: str, executor, step: int = 0) -> None:
     tmp = os.path.join(path, _FILE + ".tmp")
     torch.save(tree, tmp)
     os.replace(tmp, os.path.join(path, _FILE))
+    if strategy is not None:
+        with open(os.path.join(path, "strategy.json"), "w") as f:
+            f.write(strategy.to_json())
 
 
 def _restore_into(have: dict, saved: dict, what: str, pending: list) -> None:
@@ -126,6 +131,17 @@ def restore_checkpoint(path: str, executor) -> int:
     return int(saved["step"])
 
 
+def load_strategy(path: str):
+    """Load the strategy saved next to a checkpoint, if present."""
+    from ..parallel.strategy import ParallelStrategy
+
+    sp = os.path.join(os.path.abspath(path), "strategy.json")
+    if not os.path.exists(sp):
+        return None
+    with open(sp) as f:
+        return ParallelStrategy.from_json(f.read())
+
+
 class CheckpointManager:
     """Rolling checkpoints with ``max_to_keep``, orbax-style."""
 
@@ -138,10 +154,10 @@ class CheckpointManager:
         return sorted(int(d[5:]) for d in os.listdir(self.directory)
                       if d.startswith("step_") and d[5:].isdigit())
 
-    def save(self, executor, step: int) -> str:
+    def save(self, executor, step: int, strategy=None) -> str:
         p = os.path.join(self.directory, f"step_{step}")
         try:
-            save_checkpoint(p, executor, step=step)
+            save_checkpoint(p, executor, step=step, strategy=strategy)
         except Exception:
             # a failed save must not leave a partial step dir that a
             # later restore_latest would pick as "newest"; the previous

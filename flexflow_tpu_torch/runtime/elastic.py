@@ -18,8 +18,9 @@ The reference has no failure detection or elastic recovery (SURVEY.md
 Each step passes through the ``elastic.step`` fault site
 (``runtime/faults.py``), so the recovery paths are testable without a
 real device loss. Step ``i`` trains with the key ``fold_in(rng, i)``, so
-a replayed step draws the same randomness. The port has no strategy:
-a checkpoint holds the weights, the state and the optimizer state.
+a replayed step draws the same randomness. A checkpoint holds the
+weights, the state, the optimizer state and the model's strategy
+(``strategy.json``), as the JAX package's.
 """
 from __future__ import annotations
 
@@ -89,7 +90,7 @@ class ElasticTrainer:
 
     # ----------------------------------------------------------- plumbing
     def _save(self, step: int) -> None:
-        self.manager.save(self.model.executor, step)
+        self.manager.save(self.model.executor, step, strategy=self.model.strategy)
 
     def _restore(self) -> Optional[int]:
         """Latest restorable step, or None when nothing is saved yet."""

@@ -8,8 +8,9 @@ op by op and times each op's lowering: on the card with CUDA events
 around its second call (the first is a warm-up), on the CPU with the
 host clock. Beside each time stand the op's analytic flops and bytes
 (``OpDef.cost``). :func:`trace` wraps ``torch.profiler`` and writes a
-Chrome trace (the analog of Legion's -lg:prof logs). The cost-annotated
-DOT export waits for the search's cost model.
+Chrome trace (the analog of Legion's -lg:prof logs).
+:func:`export_cost_dot` writes the graph as DOT with each op's analytic
+flops, bytes and the search's cost-model forward time.
 """
 from __future__ import annotations
 
@@ -123,3 +124,34 @@ def trace(logdir: str):
         yield
     n = sum(1 for f in os.listdir(logdir) if f.startswith("trace_"))
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{n}.json"))
+
+
+def export_cost_dot(graph, machine=None) -> str:
+    """PCG DOT annotated with analytic per-op costs (reference:
+    --include-costs-dot-graph, config.h:145): flops and bytes from
+    ``OpDef.cost`` and the forward time of the search's cost model
+    (``search/cost_model.py``) for ``machine`` (default: its reference
+    machine), as the JAX package's labels."""
+    from ..parallel.propagation import infer_all_specs
+    from ..search.cost_model import CostModel
+
+    cm = CostModel(machine) if machine else CostModel()
+    specs = infer_all_specs(graph)
+
+    def label(node):
+        base = f"{node.op_type.value}\\n{node.name or node.guid}"
+        if node.op_type in (OpType.INPUT, OpType.WEIGHT):
+            return base
+        in_specs = [specs[e.src][e.src_idx] for e in graph.in_edges(node)]
+        try:
+            op_def = get_op_def(node.op_type)
+            c = op_def.cost(node.params, in_specs, specs[node.guid])
+            m = cm.op_cost_metrics(node.op_type, node.params, in_specs, specs[node.guid])
+            return (
+                f"{base}\\n{c.flops/1e9:.2f} GFLOP, {c.bytes_accessed/1e6:.1f} MB"
+                f"\\n~{m.forward_time*1e6:.1f} us fwd"
+            )
+        except Exception:
+            return base
+
+    return graph.to_dot(label_fn=label)

@@ -78,16 +78,16 @@ class InferenceModel:
     ) -> "InferenceModel":
         """Load an ONNX graph, compile it for inference on ``device`` (the
         GPU unless ``"cpu"``) and serve the graph's own weights (reference:
-        triton/src/onnx_parser.cc + strategy.cc + model.cc). A strategy
-        file needs ``parallel/strategy.py``, which is not ported yet."""
+        triton/src/onnx_parser.cc + strategy.cc + model.cc).
+        ``strategy_file`` (a ``ParallelStrategy`` JSON, either package's)
+        is read after the graph is built and compiled with, as the JAX
+        package does: remapped onto the graph by layer name, and refused
+        with the device-count error when its mesh needs more devices
+        than the one the port runs on."""
         from ..config import FFConfig
         from ..frontends.onnx import ONNXModel
         from ..model import FFModel
 
-        if strategy_file:
-            raise NotImplementedError(
-                "from_onnx(strategy_file=...) needs parallel/strategy.py, which is not "
-                "ported yet (ROADMAP.md queue 1, item 5)")
         config = config or FFConfig(batch_size=max_batch)
         ff = FFModel(config, device=device)
         dtypes = input_dtypes or {}
@@ -97,7 +97,13 @@ class InferenceModel:
                    for nm in in_names}
         om = ONNXModel(onnx_model)
         outs = om.apply(ff, tensors)
-        ff.compile(comp_mode=CompMode.INFERENCE, outputs=outs)
+        strategy = None
+        if strategy_file:
+            from ..parallel.strategy import ParallelStrategy
+
+            with open(strategy_file) as f:
+                strategy = ParallelStrategy.from_json(f.read())
+        ff.compile(comp_mode=CompMode.INFERENCE, outputs=outs, strategy=strategy)
         om.load_weights(ff)  # serve the graph's weights, not random init
         return cls(ff, name=name, max_batch=max_batch, input_names=in_names)
 

@@ -175,7 +175,7 @@ def test_port_builders_train_and_infer():
     from flexflow_tpu_torch.core.types import CompMode
 
     s2s.compile(comp_mode=CompMode.INFERENCE)
-    assert s2s.executor.opt_state is None and s2s.strategy is None
+    assert s2s.executor.opt_state is None and s2s.strategy.axis_sizes == {"data": 1}
     xs, _ = _data("seq2seq", 5, BATCH)
     probs = s2s.predict(xs)
     assert probs.shape == (BATCH, KW["seq_length"], VOCAB) and not probs.requires_grad

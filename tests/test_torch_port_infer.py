@@ -39,7 +39,7 @@ from flexflow_tpu.serving import RetryPolicy as JRetryPolicy
 from flexflow_tpu.serving import resilience as jresilience
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.core.graph import PCGraph
-from flexflow_tpu_torch.core.types import CompMode
+from flexflow_tpu_torch.core.types import CompMode, DataType
 from flexflow_tpu_torch.model import FFModel
 from flexflow_tpu_torch.runtime import faults
 from flexflow_tpu_torch.runtime.convert import to_tensor
@@ -148,11 +148,21 @@ def test_metadata_equals_jax_but_the_platform(models):
     assert tmd["inputs"][0]["shape"] == (16,) and tmd["max_batch_size"] == 8
 
 
-def test_from_onnx_is_not_ported():
-    # from_onnx itself is ported (tests/test_torch_port_onnx.py); its
-    # strategy file waits for parallel/strategy.py
-    with pytest.raises(NotImplementedError, match="strategy"):
-        InferenceModel.from_onnx(None, {}, strategy_file="strategy.json", device="cpu")
+def test_from_onnx_is_not_ported(tmp_path):
+    # from_onnx is ported (tests/test_torch_port_onnx.py), its strategy
+    # file too (tests/test_torch_port_strategy.py): the file is opened
+    # after the graph is built, so a missing one raises there, in both
+    # packages
+    from flexflow_tpu_torch.tools.frontend_probe import bert_onnx_graph
+
+    proto = bert_onnx_graph(0, vocab=20, layers=1, hidden=16, heads=2, ff=32)
+    missing = str(tmp_path / "strategy.json")
+    with pytest.raises(FileNotFoundError):
+        JInferenceModel.from_onnx(proto, {"ids": (4,)}, strategy_file=missing,
+                                  input_dtypes={"ids": JDataType.INT32})
+    with pytest.raises(FileNotFoundError):
+        InferenceModel.from_onnx(proto, {"ids": (4,)}, strategy_file=missing,
+                                 input_dtypes={"ids": DataType.INT32}, device="cpu")
 
 
 # ------------------------------------------------------------- the batcher

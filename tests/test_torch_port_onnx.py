@@ -375,16 +375,28 @@ def test_bert_graph_from_onnx_and_infer_equal_jaxs():
     assert len(om.weight_map) == 1 + 5 + 2 + 6 + 1
 
 
-def test_from_onnx_refuses_a_strategy_file():
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        InferenceModel.from_onnx(bert_onnx_graph(0, **BERT), {"ids": (SEQ,)},
-                                 strategy_file="strategy.json", device="cpu")
+def test_from_onnx_refuses_a_strategy_file(tmp_path):
+    """The JAX package's served BERT on its 8 CPU devices writes a
+    data-parallel strategy over 8; the port reads that file, remaps it
+    by layer name and refuses it with the JAX package's device-count
+    error (it runs on one device). A one-device strategy file compiles
+    (tests/test_torch_port_strategy.py)."""
+    proto = bert_onnx_graph(0, **BERT)
+    jim = JInferenceModel.from_onnx(proto, {"ids": (SEQ,)}, max_batch=8,
+                                    input_dtypes={"ids": JDataType.INT32})
+    assert jim.model.strategy.axis_sizes == {"data": 8}
+    path = tmp_path / "strategy.json"
+    path.write_text(jim.model.strategy.to_json())
+    with pytest.raises(ValueError, match="^mesh needs 8 devices, have 1$"):
+        InferenceModel.from_onnx(proto, {"ids": (SEQ,)}, max_batch=8, strategy_file=str(path),
+                                 input_dtypes={"ids": DataType.INT32}, device="cpu")
 
 
 def test_new_modules_import_with_jax_grpc_and_protobuf_blocked():
-    """The frontends, the gRPC module and the twin import in a fresh
-    interpreter where jax, the JAX package, grpc and protobuf cannot be
-    imported; there ``GrpcInferenceServer(...)`` alone raises."""
+    """The frontends, the gRPC module, the twin, and the search with the
+    strategy layer and the native binding import in a fresh interpreter
+    where jax, the JAX package, grpc and protobuf cannot be imported;
+    there ``GrpcInferenceServer(...)`` alone raises."""
     import subprocess
     import sys
     from pathlib import Path
@@ -399,6 +411,8 @@ def test_new_modules_import_with_jax_grpc_and_protobuf_blocked():
         "sys.meta_path.insert(0, Block())\n"
         "import flexflow_tpu_torch.frontends.onnx, flexflow_tpu_torch.frontends.torch\n"
         "import flexflow_tpu_torch.serving.grpc_server, flexflow_tpu_torch.sim\n"
+        "import flexflow_tpu_torch.search, flexflow_tpu_torch.parallel.strategy\n"
+        "import flexflow_tpu_torch.core.parallel_tensor, flexflow_tpu_torch._native\n"
         "from flexflow_tpu_torch.serving import GrpcInferenceServer\n"
         "try:\n"
         "    GrpcInferenceServer()\n"

@@ -132,7 +132,9 @@ def _cost(c):
 def test_every_registered_op_cost_equals_jax(graphs):
     """Each node's cost (flops, bytes accessed, resident bytes) in the
     port equals JAX's for the same specs, over every op the port
-    registers; NOOP, which no layer method records, at a spec of its own."""
+    registers; NOOP, which no layer method records, and the parallel ops,
+    which only the strategy search writes into a graph, at a spec of
+    their own."""
     seen = set()
     for name, (jg, tg) in graphs.items():
         jspecs, tspecs = jinfer_all_specs(jg), infer_all_specs(tg)
@@ -149,6 +151,17 @@ def test_every_registered_op_cost_equals_jax(graphs):
     assert _cost(get_op_def(types.OpType.NOOP).cost(None, [spec], [spec])) == _cost(
         jget_op_def(jtypes.OpType.NOOP).cost(None, [JTensorSpec((3, 5))], [JTensorSpec((3, 5))]))
     seen.add(types.OpType.NOOP)
+    from flexflow_tpu.ops import parallel_ops as jpo
+    from flexflow_tpu_torch.ops import parallel_ops as tpo
+
+    for cls, args in (("RepartitionParams", (0, 2)), ("CombineParams", (1, 2)),
+                      ("ReplicateParams", (2,)), ("ReductionParams", (2,)),
+                      ("AllReduceParams", (4,)), ("FusedParallelParams", ())):
+        tp, jp = getattr(tpo, cls)(*args), getattr(jpo, cls)(*args)
+        op = next(t for t, d in registered_ops().items() if d.params_cls is type(tp))
+        assert _cost(get_op_def(op).cost(tp, [spec], [spec])) == _cost(jget_op_def(
+            jtypes.OpType(op.value)).cost(jp, [JTensorSpec((3, 5))], [JTensorSpec((3, 5))]))
+        seen.add(op)
     assert seen == set(registered_ops())
 
 
