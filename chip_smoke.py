@@ -182,6 +182,22 @@ prints no result line):
    /metrics with the fleet families). Tokens/s, TTFT p50 and the steady
    decode ms per step of each beside the single engine's, the handoff's
    pack and import ms and bytes, the replacement's spawn-and-capture s.
+13b. tools: the port's serving tools (``flexflow_tpu_torch/tools``)
+   through their own functions at GPT-2-small width: genbench's base
+   mode twice (one capture per prefill bucket and one decode, none in
+   steady state, no self-healing, streams = ``engine.generate``'s, 12
+   paged launches per decode step; prefill and decode tokens/s); loadgen
+   ``--url`` against an InferenceServer over that engine (max_queue 16;
+   12 arrivals/s for 4 s, then 80/s for 2 s; answers only 200/503/504,
+   none failed, nothing shed in the first leg, every 200's tokens =
+   ``engine.generate``'s, loadgen's token total = /metrics', no capture;
+   per class submitted, shed, expired and latency p50/p99); obsreport's
+   summary, cache, slo, anatomy and predict views, ``predict --export``
+   of the card's ledger (device tag ``h100``) calibrating
+   ``SimCosts.from_ledger_export`` from its measured p50s and refused as
+   ``cpu``, two identical ``simfleet sweep``s over it; ``simfleet
+   simcheck`` with its live storm on the card; chaoscheck's recovery
+   sweep on the card; perfwatch over the two base runs' history.
 14. anatomy: torch.profiler over a short 4-slot run — the device's busy
    share of the wall time and the device time by kernel; eight decode
    steps of four live slots under the profiler, replayed and eager
@@ -3733,6 +3749,310 @@ def fleet_phase(seed: int, params, cell, prefix_cell) -> dict:
     return out
 
 
+# the tools phase's loadgen legs: (name, rate/s, seconds, seed)
+TOOLS_LEGS = (("under capacity", 12.0, 4.0, 1), ("overload", 80.0, 2.0, 2))
+TOOLS_MAX_QUEUE = 16
+# the ledger export's device tag on the card (``compute.chip``), and a tag
+# whose cost table must refuse the card's measurements
+CARD_TAG, OTHER_TAG = "h100", "cpu"
+
+
+def captured_view(fn, *args, **kw) -> tuple:
+    """Run one of obsreport's views, returning (exit code, its text)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args, **kw)
+    return rc, buf.getvalue()
+
+
+def metric_total(exposition: str, family: str, model: str = "lm") -> float:
+    rows = [ln for ln in exposition.splitlines() if ln.startswith(f'{family}{{model="{model}"}}')]
+    if len(rows) != 1:
+        raise AssertionError(f"tools: /metrics has {len(rows)} {family} rows for {model}")
+    return float(rows[0].split()[-1])
+
+
+def tools_phase(seed: int, params, card: str) -> dict:
+    """The port's serving tools (``flexflow_tpu_torch/tools``) driven on the
+    card at GPT-2-small width, through their own functions:
+
+    1. genbench's base mode (12 requests of 4-1007 prompt tokens, 16 new
+       tokens, 4 slots, graph steps): one capture per prefill bucket and
+       one decode, none after the warm-up, no reset / quarantine /
+       watchdog trip, greedy streams equal to ``engine.generate``'s, 12
+       fp32 paged launches per decode step; its prefill and decode
+       tokens/s;
+    2. loadgen ``--url`` against an ``InferenceServer`` serving that
+       engine (max_queue 16): 12 arrivals/s for 4 s, then 80/s for 2 s,
+       mix 0.2,0.3,0.5, deadlines none,5,30 s, 32 new tokens: answers only
+       200, 503 or 504, none failed, the first leg sheds nothing, every
+       200's tokens equal ``engine.generate``'s stream (a prefix of it
+       where the degrade ladder clamped max_new), loadgen's token total
+       equal to /metrics', no capture during the traffic;
+    3. obsreport's summary, cache, slo, anatomy and predict views render
+       against that server; ``predict --export`` writes the card's ledger,
+       which ``SimCosts.from_ledger_export(expect_device="h100")`` turns
+       into prefill and decode costs from its measured p50s and which it
+       refuses under ``expect_device="cpu"``; ``simfleet sweep --costs``
+       over it, twice, gives byte-identical reports;
+    4. ``simfleet simcheck`` with its live storm on the card;
+    5. chaoscheck's recovery sweep on the card;
+    6. perfwatch over the history the base run and a second base run
+       appended: exit 0.
+    """
+    import tempfile
+    import shutil
+    import urllib.request
+
+    import torch
+
+    from flexflow_tpu_torch.generation import SamplingParams
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+    from flexflow_tpu_torch.serving import GenerationModel, InferenceServer
+    from flexflow_tpu_torch.sim import SimCosts
+    from flexflow_tpu_torch.tools import chaoscheck, genbench, loadgen, obsreport, perfwatch
+    from flexflow_tpu_torch.tools import simfleet
+    from flexflow_tpu_torch.tools._common import pct
+
+    t_phase = time.perf_counter()
+    cfg = gpt2_small()
+    tmp = tempfile.mkdtemp(prefix="tools-phase-")
+    out = {}
+    da.reset_launch_counts()
+    try:
+        # ---------------------------------------------- 1. genbench base mode
+        history = os.path.join(tmp, "history.jsonl")
+        args = genbench.parse_args([
+            "--requests", "12", "--max-new", "16", "--layers", str(cfg.num_layers),
+            "--hidden", str(cfg.hidden_size), "--heads", str(cfg.num_heads),
+            "--vocab", str(cfg.vocab_size), "--seq-len", str(cfg.seq_length),
+            "--bench-out", os.path.join(tmp, "bench.json"), "--history-out", history])
+        bases = []
+        for i in range(2):
+            before = dict(da.LAUNCHES)
+            report, ok, outs, engine, prompts = genbench.base_bench(args, cfg, params)
+            launches = {k: da.LAUNCHES[k] - before[k] for k in da.LAUNCHES}
+            genbench.append_history(history, "baseline", report, ok, args.device)
+            if not ok:
+                raise AssertionError(f"tools: genbench base run {i} failed its guard: "
+                                     + json.dumps({k: report[k] for k in (
+                                         "trace_counts", "steady_state_retraces",
+                                         "engine_restarts", "quarantined", "watchdog_trips")}))
+            counts = report["trace_counts"]
+            buckets = {f"prefill[{engine.bucket_for(len(p))}]" for p in prompts + [[1] * 8]}
+            if counts.get("decode") != 1 or any(v != 1 for v in counts.values()) or (
+                    {k for k in counts if k.startswith("prefill[")} - buckets):
+                raise AssertionError(f"tools: captures {counts}, buckets {sorted(buckets)}")
+            if report["steady_state_retraces"] or any(report[k] for k in (
+                    "engine_restarts", "quarantined", "watchdog_trips")):
+                raise AssertionError(f"tools: genbench run {i}: {report}")
+            # every decode step launches 12 kernels; the step that captures
+            # the decode graph runs its body once eagerly first (its
+            # launches are real), the capture itself launches nothing
+            decode_steps = engine.step_counts["decode"]
+            ran = decode_steps + (counts["decode"] if engine.graphs else 0)
+            if launches["paged_append"] != cfg.num_layers * ran or any(
+                    n for k, n in launches.items() if k != "paged_append"):
+                raise AssertionError(f"tools: genbench launches {launches} != "
+                                     f"{cfg.num_layers} x ({decode_steps} decode steps + "
+                                     f"{counts['decode']} capture warm-up)")
+            want = engine.generate(prompts, SamplingParams(max_new_tokens=args.max_new))
+            if outs != want:
+                raise AssertionError("tools: genbench streams differ from engine.generate's")
+            bases.append({k: report[k] for k in (
+                "prompt_tokens", "generated_tokens", "scheduler_steps", "stream_s",
+                "prefill_tokens_per_s", "decode_tokens_per_s", "trace_counts", "warmup_s")}
+                | {"decode_steps": decode_steps, "launches": launches})
+            if i == 0:
+                served = engine
+            else:
+                del engine
+        out["genbench"] = bases
+        for i, b in enumerate(bases):
+            print(f"{card}: tools, genbench base run {i} (GPT-2 small, 4 slots, 12 requests, "
+                  f"{b['prompt_tokens']} prompt + {b['generated_tokens']} new tokens): prefill "
+                  f"{b['prefill_tokens_per_s']:.2f} tokens/s, decode "
+                  f"{b['decode_tokens_per_s']:.2f} tokens/s over the stream of "
+                  f"{b['stream_s']:.4f} s; captures {b['trace_counts']}; "
+                  f"{b['launches']['paged_append']} paged launches for {b['decode_steps']} "
+                  "decode steps and the decode capture's eager warm-up")
+
+        # ------------------------------------------------------ 2. loadgen --url
+        served.generate([[1] * 8], SamplingParams(max_new_tokens=2))  # the prompts' bucket
+        model = GenerationModel(served, name="lm", vocabulary=serving_vocabulary(cfg.vocab_size),
+                                max_queue=TOOLS_MAX_QUEUE)
+        srv = InferenceServer(port=0)
+        srv.register_generation(model)
+        srv.start()
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            captures = dict(served.trace_counts)
+            steps0 = dict(served.step_counts)
+            before = dict(da.LAUNCHES)
+            legs = {}
+
+            def served_tokens():
+                with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+                    return metric_total(r.read().decode(), "flexflow_serving_tokens_generated")
+
+            for name, rate, duration, leg_seed in TOOLS_LEGS:
+                tokens0 = served_tokens()
+                largs = loadgen.parse_args([
+                    "--url", base, "--model", "lm", "--rate", str(rate),
+                    "--duration", str(duration), "--mix", "0.2,0.3,0.5",
+                    "--deadlines", "none,5,30", "--max-new", "32", "--seed", str(leg_seed),
+                    "--vocab", str(cfg.vocab_size), "--timeout", "120"])
+                rep = loadgen.LoadReport()
+                t0 = time.perf_counter()
+                rendered = loadgen.run_http(largs, rep)
+                legs[name] = {"report": rendered, "wall_s": time.perf_counter() - t0,
+                              "streams": rep.streams(), "ttfts": rep.ttfts(),
+                              "metrics_tokens": served_tokens() - tokens0}
+            launches = {k: da.LAUNCHES[k] - before[k] for k in da.LAUNCHES}
+            steps = {k: served.step_counts[k] - steps0[k] for k in steps0}
+            if served.trace_counts != captures:
+                raise AssertionError(f"tools: the load captured {served.trace_counts} "
+                                     f"after {captures}")
+            # ---------------------------------------------------- 3. obsreport
+            for view, fn, kw in (("summary", obsreport.summarize, {}),
+                                 ("cache", obsreport.show_cache, {}),
+                                 ("slo", obsreport.show_slo, {}),
+                                 ("anatomy", obsreport.show_anatomy, {}),
+                                 ("predict", obsreport.show_predictions, {})):
+                rc, text = captured_view(fn, base, **kw)
+                if rc != 0 or not text.strip():
+                    raise AssertionError(f"tools: obsreport {view} did not render: {rc}")
+                print(f"obsreport {view}:\n{text.rstrip()}")
+            export = os.path.join(tmp, "ledger.json")
+            rc, text = captured_view(obsreport.export_predictions, base, export)
+            if rc != 0:
+                raise AssertionError("tools: obsreport predict --export failed")
+        finally:
+            srv.stop()
+        for name, leg in legs.items():
+            rendered = leg["report"]
+            per = rendered["per_priority"]
+            if rendered["unfinished"] or any(p["failed"] for p in per.values()):
+                raise AssertionError(f"tools: loadgen {name}: failed or unfinished "
+                                     f"requests: {rendered}")
+            if name == "under capacity" and any(p["shed"] for p in per.values()):
+                raise AssertionError(f"tools: loadgen {name} shed requests: {per}")
+            # the server's count of generated tokens equals what the
+            # clients received where nothing was dropped once running (the
+            # first leg); under overload it also holds the tokens of
+            # streams shed or cancelled after they started
+            leg["received_tokens"] = sum(p["tokens"] for p in per.values())
+            dropped = leg["metrics_tokens"] - leg["received_tokens"]
+            if dropped < 0 or (name == "under capacity" and dropped):
+                raise AssertionError(f"tools: loadgen {name}: /metrics counted "
+                                     f"{leg['metrics_tokens']} tokens, the clients received "
+                                     f"{leg['received_tokens']}")
+        # the reference streams, batched (a request's tokens do not depend
+        # on its batch)
+        uniq = sorted({tuple(p) for leg in legs.values() for p, _ in leg["streams"]})
+        refs = dict(zip(uniq, served.generate([list(p) for p in uniq],
+                                              SamplingParams(max_new_tokens=32))))
+        clamped = 0
+        for leg in legs.values():
+            for prompt, tokens in leg["streams"]:
+                if not tokens or tokens != refs[tuple(prompt)][:len(tokens)]:
+                    raise AssertionError(f"tools: a 200's tokens differ from "
+                                         f"engine.generate's for {prompt}")
+                clamped += len(tokens) < 32
+        if launches["paged_append"] != cfg.num_layers * (steps["decode"] + steps["verify"]):
+            raise AssertionError(f"tools: load launches {launches} for steps {steps}")
+
+        with open(export) as f:
+            doc = json.load(f)
+        tag = doc["models"]["lm"]["device_kind"]
+        costs = SimCosts.from_ledger_export(export, expect_device=CARD_TAG)
+        measured = {e["key"]: e["measured_p50_s"] for e in doc["models"]["lm"]["entries"]
+                    if e["pairs"] > 0}
+        if tag != CARD_TAG or costs.decode_s != measured.get("decode") or not costs.prefill_s or any(
+                costs.prefill_s[b] != measured.get(f"prefill[{b}]", costs.prefill_s[b])
+                for b in costs.prefill_s) or not any(
+                k.startswith("prefill[") for k in measured):
+            raise AssertionError(f"tools: the card's export ({tag}) did not calibrate the "
+                                 f"twin from its measured p50s: {costs.describe()} vs {measured}")
+        try:
+            SimCosts.from_ledger_export(export, expect_device=OTHER_TAG)
+            raise AssertionError(f"tools: a {OTHER_TAG} cost table accepted the card's ledger")
+        except ValueError:
+            pass
+        sweeps = []
+        for i in range(2):
+            path = os.path.join(tmp, f"sweep{i}.json")
+            rc, text = captured_view(simfleet.main, [
+                "sweep", "--costs", export, "--expect-device", CARD_TAG,
+                "--arms", "unified,disagg", "--replicas", "1,2", "--out", path])
+            if rc != 0:
+                raise AssertionError(f"tools: simfleet sweep exited {rc}")
+            with open(path, "rb") as f:
+                sweeps.append(f.read())
+        if sweeps[0] != sweeps[1]:
+            raise AssertionError("tools: two simfleet sweeps over the card's ledger differ")
+        print(f"simfleet sweep over the card's ledger:\n{text.rstrip()}")
+
+        # --------------------------------------------------- 4. simcheck
+        sim_out = os.path.join(tmp, "simcheck.json")
+        rc, text = captured_view(simfleet.main, ["simcheck", "--out", sim_out])
+        print(text.rstrip())
+        with open(sim_out) as f:
+            simcheck = json.load(f)
+        if rc != 0 or not simcheck["ok"]:
+            raise AssertionError(f"tools: simcheck failed: {simcheck['failures']}")
+
+        # --------------------------------------------- 5. recovery sweep
+        sweep, text = captured_view(chaoscheck.run_recovery_sweep)
+        print(text.rstrip())
+        if not sweep["ok"] or not all(sweep[c].get("exact", True) for c in (
+                "crash", "stall", "double_fault")):
+            raise AssertionError(f"tools: the recovery sweep failed on the card: {sweep}")
+
+        # ------------------------------------------------------ 6. perfwatch
+        rc, text = captured_view(perfwatch.main, ["--history", history])
+        print(text.rstrip())
+        if rc != 0:
+            raise AssertionError(f"tools: perfwatch exited {rc}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["loadgen"] = {
+        name: {"report": leg["report"], "wall_s": leg["wall_s"],
+               "metrics_tokens": leg["metrics_tokens"], "received_tokens": leg["received_tokens"],
+               "ttft_p50_s": {p: pct(t, 0.50) for p, t in leg["ttfts"].items()},
+               "ttft_p99_s": {p: pct(t, 0.99) for p, t in leg["ttfts"].items()}}
+        for name, leg in legs.items()}
+    out["loadgen_steps"] = steps
+    out["loadgen_launches"] = launches
+    out["clamped_streams"] = clamped
+    out["export"] = {"device_kind": tag, "costs": costs.describe(), "measured_p50_s": measured}
+    out["simcheck"] = {k: simcheck[k] for k in ("divergence", "ledger_keys", "bound_s")}
+    out["recovery_sweep"] = sweep
+    out["launches"] = dict(da.LAUNCHES)
+    out["phase_s"] = time.perf_counter() - t_phase
+    for name, leg in out["loadgen"].items():
+        r = leg["report"]
+        print(f"{card}: tools, loadgen --url {name} ({r['submitted']} arrivals over "
+              f"{r['duration_s']} s, wall {leg['wall_s']:.2f} s): " + "; ".join(
+                  f"{p} submitted {d['submitted']} completed {d['completed']} shed {d['shed']} "
+                  f"expired {d['expired']} response latency (loadgen's TTFT) p50 "
+                  f"{_fmt(leg['ttft_p50_s'][p])} s p99 "
+                  f"{_fmt(leg['ttft_p99_s'][p])} s" for p, d in r["per_priority"].items())
+              + f"; tokens/s {r['tokens_per_s']:.1f}; tokens received {leg['received_tokens']}, "
+              f"counted by /metrics {leg['metrics_tokens']:.0f}")
+    c = out["export"]["costs"]
+    print(f"{card}: tools, the card's ledger ({tag}) calibrating the twin: "
+          + json.dumps(c) + f"; simcheck divergence " + json.dumps(out["simcheck"]["divergence"]))
+    print(f"{card}: tools phase {out['phase_s']:.1f} s")
+    return out
+
+
+def _fmt(x) -> str:
+    return "-" if x is None else f"{x:.4f}"
+
+
 def flash_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int, causal: bool,
                 two_byte: bool = False):
     """(bound_ms, bound_by, fp32_cuda_core_ms) of one flash kernel call:
@@ -6928,6 +7248,7 @@ def main(argv=None) -> int:
     server = server_phase(args.seed, params)
     durable = durable_phase(args.seed, params, cell)
     fleet = fleet_phase(args.seed, params, cell, prefix.pop("cell"))
+    tools = tools_phase(args.seed, params, card)
     anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
     suffix_bodies = suffix_prefill_bodies(args.seed, params)
@@ -6991,6 +7312,7 @@ def main(argv=None) -> int:
                + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]
                + constrained["launches"]["paged_append"] + server["launches"]["paged_append"]
                + durable["launches"]["paged_append"] + fleet["launches"]["paged_append"]
+               + tools["launches"]["paged_append"]
                + suffix_bodies["float"]["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",
                rows["split"], long_ctx["launches"]["paged_append_split"]),
@@ -7234,7 +7556,7 @@ def main(argv=None) -> int:
                       "long_context": long_ctx,
                       "step_graphs": graphs, "speculation": speculation, "prefix": prefix,
                       "overlap": overlap, "constrained": constrained, "server": server,
-                      "durable": durable, "fleet": fleet,
+                      "durable": durable, "fleet": fleet, "tools": tools,
                       "anatomy": anatomy, "kernel_shapes": rows, "flash_shapes": flash,
                       "training": training, "training_bf16": training_bf16,
                       "training_f16": training_f16, "heads": heads,

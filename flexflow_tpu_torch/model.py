@@ -715,7 +715,8 @@ class FFModel:
             self.profile(x=[xx[:bs] for xx in xs])
         interval = max(1, self.config.printing_interval)
         self.step_losses: List[float] = []
-        t0 = time.perf_counter()
+        # physical wall time: the reference's ELAPSED TIME / THROUGHPUT line
+        t0 = time.perf_counter()  # flexlint: disable=clock-discipline
         for epoch in range(epochs):
             for w0, n in self._windows(steps, tw):
                 s0 = epoch * steps + w0
@@ -736,7 +737,7 @@ class FFModel:
                               f"loss {host['loss'][i]:.4f} acc {perf.accuracy:.4f}")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        elapsed = time.perf_counter() - t0
+        elapsed = time.perf_counter() - t0  # flexlint: disable=clock-discipline
         thru = epochs * steps * bs / max(1e-9, elapsed)
         if verbose:
             print(f"ELAPSED TIME = {elapsed:.4f}s THROUGHPUT = {thru:.2f} samples/s")

@@ -316,7 +316,9 @@ class Executor:
             # microbatch i = rows {i, i + accum, ...}, its key split(rng)[i],
             # the state chained through the microbatches in order
             new_state, mets_all = self.state, []
-            for i, k in enumerate(prng.split(key, accum)):
+            # grad_accum_steps is static: the loop unrolls over the keys'
+            # leading axis (an unbind, no host sync)
+            for i, k in enumerate(prng.split(key, accum)):  # flexlint: disable=capture-discipline
                 m, new_state = self._backward([x[i::accum] for x in inputs], label[i::accum],
                                               k, new_state)
                 mets_all.append(m)

@@ -59,7 +59,8 @@ GENERATION_DECODE_STEP = "generation.decode_step"
 GENERATION_VERIFY = "generation.verify"
 GENERATION_JOURNAL_REPLAY = "generation.journal_replay"
 GENERATION_ASYNC_READBACK = "generation.async_readback"
-GENERATION_COLLECTIVE = "generation.collective"
+# (the JAX package's generation.collective site belongs to its
+# tensor-parallel engine, which the port does not have yet)
 GENERATION_PREFIX_LOOKUP = "generation.prefix_lookup"
 GENERATION_KV_OFFLOAD = "generation.kv_offload"
 FLEET_ROUTE = "fleet.route"
@@ -74,6 +75,13 @@ SERVING_WAL_REPLAY = "serving.wal_replay"
 
 # the sites the port fires -> where (read-only)
 SITES = MappingProxyType({
+    EXECUTOR_TRAIN_BATCH: "before each train dispatch (value: inputs)",
+    EXECUTOR_PREDICT: "around forward outputs (value: outputs)",
+    ELASTIC_STEP: "top of each `ElasticTrainer` step",
+    SERVING_MODEL_INFER: "before a served model's device call (value: inputs)",
+    SERVING_BATCHER_DISPATCH: "before the batcher runs a device batch",
+    SERVING_REPOSITORY_LOAD: "before a repository model load",
+    CHECKPOINT_SAVE: "top of `save_checkpoint`",
     GENERATION_PREFILL: "before a generation prefill (value: prompt tokens)",
     GENERATION_DECODE_STEP: (
         "before each batched decode step (value: (slot tokens, per-slot "
@@ -140,6 +148,23 @@ SITES = MappingProxyType({
         "gates (value: (priority, queue depth)); an error here is a forced "
         "admission failure, so chaos plans can drive the limiter/shed "
         "paths deterministically"
+    ),
+    SERVING_WAL_APPEND: (
+        "before a durable-journal record is framed into the WAL buffer "
+        "(value: the record type); an error degrades the ONE appending "
+        "stream to non-durable with a counted warning — the decode hot "
+        "path never blocks on the log"
+    ),
+    SERVING_WAL_FSYNC: (
+        "around every WAL fsync — a paced background commit cycle or a "
+        "blocking sync() (value: the commit frontier); an error is "
+        "absorbed and counted — the next commit cycle retries and no "
+        "caller ever sees it"
+    ),
+    SERVING_WAL_REPLAY: (
+        "top of a warm restart's WAL replay, after the fingerprint check "
+        "(value: unfinished streams found); an error fails the restart "
+        "typed before any stream is re-admitted"
     ),
 })
 

@@ -353,9 +353,9 @@ class DynamicBatcher:
         # so it must run on physical time: the injectable self.clock is
         # virtual in chaos tests and would turn max_delay_s into either
         # zero or forever. Request deadlines still use self.clock.
-        deadline = time.monotonic() + self.max_delay_s
+        deadline = time.monotonic() + self.max_delay_s  # flexlint: disable=clock-discipline
         while total < self.model.max_batch:
-            remaining = deadline - time.monotonic()
+            remaining = deadline - time.monotonic()  # flexlint: disable=clock-discipline
             if remaining <= 0:
                 break
             try:

@@ -2042,8 +2042,8 @@ class DisaggregatedFleet:
             # real wall clock on purpose: this bounds a shutdown wait
             # (self.clock may be virtual in tests, and a frozen clock
             # must not wedge stop() forever)
-            deadline = time.monotonic() + 10.0
-            while self.handoff.in_flight and time.monotonic() < deadline:
+            deadline = time.monotonic() + 10.0  # flexlint: disable=clock-discipline
+            while self.handoff.in_flight and time.monotonic() < deadline:  # flexlint: disable=clock-discipline
                 self.handoff.check()
                 time.sleep(0.01)
         self.decode.stop(drain=drain)

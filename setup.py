@@ -48,6 +48,8 @@ setup(
         "flexflow_tpu.search": ["calibration_data/*.json"],
         # CUDA sources of the PyTorch port, compiled by nvcc at first use
         "flexflow_tpu_torch.ops.kernels": ["csrc/*.cu", "csrc/*.cuh"],
+        # the port's tools: the canned overload storm and flexlint's baseline
+        "flexflow_tpu_torch.tools": ["data/*.json", "flexlint_baseline.json"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
