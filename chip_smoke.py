@@ -400,6 +400,30 @@ prints no result line):
    needs 8 devices, have 1" after exporting and before training, and
    the native library (built from ``native/src``) answering the
    simulator's replays with none in Python.
+27. programs: the executor's program registry and truth ledger, then the
+   card's tools. (a) BERT-Base bf16 (batch 32, seq 128, SGD 0.01, MSE)
+   fit as two windows of 8 with the search phase's H100 table as the
+   calibration: ``GLOBAL_PROGRAMS`` holds one ``train_window[8]`` trace
+   (the capture) and no other program or retrace, one capture in all,
+   16 x 12 launches of each bf16 flash kernel, the ledger's
+   ``executor[n].train_step`` a prediction from that table and a
+   measured pair, ``/v2/debug/programs`` on an ``InferenceServer``
+   listing the program; (b) ``tools/mfu_profile.py`` as a child (batch
+   32, 8 steps a window): exit 0, bf16 flash launches, flash kernels in
+   its groups, the groups summing to the profiled total within 1%, the
+   H100's 989 TFLOP/s as the MFU's peak; (c) ``calib_debug``'s steps
+   A-E: every figure finite and > 0 (the two intercepts finite), both
+   framework ops in the ledger; (d) ``evidence.py --quick``: the
+   batch-32 lever recorded, a rerun recording nothing, a child killed
+   at its 2 s timeout leaving the file valid with its error; (e) the
+   port's C driver compiled with gcc and run on the card: the MLP loop,
+   then 2 attention layers at 768 wide, 12 heads, seq 128, batch 8 for
+   3 steps: the loss falls, 6 ``ff_flash_bwd_{dq,dkv}_f32`` launches
+   and >= 6 forward, the losses equal the same calls through the Python
+   API here (rtol 1e-5); (f) fp32 BERT-Base fed by the DataLoader
+   (shuffled, 8 batches): every batch equal to ``index_select``'s, the
+   native gather answering each, ms a step against staged batches in
+   turns and the busy share.
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -7031,6 +7055,7 @@ def search_phase(seed: int) -> dict:
                 cache):
             raise AssertionError("calibrate: the saved table does not reload unchanged")
         out.update(ratios=ratios, derates=dict(cal.derates), table=reloaded.source)
+        table_json = cal.to_json()
 
         # 2. BERT-Base bf16 on this card: data parallel, then searched
         cfg = bert_base(DataType.BFLOAT16)
@@ -7161,6 +7186,7 @@ def search_phase(seed: int) -> dict:
                        for name in fa.LAUNCHES}
     out["launches_by_run"] = launches
     print("search: " + json.dumps(out))
+    out["table_json"] = table_json  # the programs phase's calibration (not printed)
     return out
 
 
@@ -7182,6 +7208,367 @@ def print_search(card: str, s: dict) -> None:
           f"{e['candidates']} candidates, {e['search_s']:.2f} s, memory a device "
           f"{e['memory_per_device_gb']:.3f} GB; native calls {e['native_calls']}; "
           f"import refused: {e['refusal']}")
+
+
+# ---------------------------------------------------------------- programs
+PROGRAMS_STEPS, PROGRAMS_TW = 16, 8  # the registry leg: 16 steps, two windows of 8
+CAPI_LEG = {"width": 768, "heads": 12, "seq": 128, "batch": 8, "layers": 2, "steps": 3}
+
+
+def lcg_values(state: int, n: int) -> tuple:
+    """(next state, ``n`` values in [-1, 1)) of the C driver's LCG."""
+    out = []
+    for _ in range(n):
+        state = (state * 1103515245 + 12345) & 0xFFFFFFFF
+        out.append(((state >> 16 & 0x7FFF) / 32768.0 - 0.5) * 2.0)
+    return state, out
+
+
+def c_driver_reference(device: str, leg: dict) -> list:
+    """The C driver's MHA leg through the Python API in this process:
+    the same layers, data and steps; its losses."""
+    import numpy as np
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import ActiMode, LossType
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    b, s, w = leg["batch"], leg["seq"], leg["width"]
+    m = FFModel(FFConfig(batch_size=b), device=device)
+    t = m.create_tensor((b, s, w), name="x")
+    for _ in range(leg["layers"]):
+        t = m.multihead_attention(t, t, t, w, leg["heads"], name="")
+    m.dense(t, w, ActiMode.NONE, name="head")
+    m.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+    state, xv = lcg_values(777, b * s * w)
+    _, yv = lcg_values(state, b * s * w)
+    x = np.asarray(xv).reshape(b, s, w).astype(np.float32)
+    y = np.asarray(yv).reshape(b, s, w).astype(np.float32)
+    return [float(m.executor.train_batch([x], y)["loss"]) for _ in range(leg["steps"])]
+
+
+def build_c_driver(out_dir: str) -> str:
+    """Compile the port's C driver against the port's ``libffcore.so``
+    (built at the native module's import) and libpython; its path."""
+    import shutil
+    import sysconfig
+
+    import flexflow_tpu_torch._native as native
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    libdir = str(native._BUILD_DIR)
+    pylib = sysconfig.get_config_var("LIBDIR")
+    exe = os.path.join(out_dir, "c_model_driver")
+    cc = shutil.which(os.environ.get("CC", "gcc")) or shutil.which("cc")
+    if cc is None:
+        raise AssertionError("programs: no C compiler for the C driver")
+    subprocess.run([cc, "-O1", os.path.join(repo, "flexflow_tpu_torch", "_native", "src",
+                                            "c_model_driver.c"),
+                    "-I", os.path.join(repo, "native", "include"),
+                    "-I", sysconfig.get_path("include"), "-L", libdir, "-lffcore",
+                    "-L", pylib, f"-lpython{sysconfig.get_config_var('LDVERSION')}",
+                    f"-Wl,-rpath,{libdir}", f"-Wl,-rpath,{pylib}", "-o", exe],
+                   check=True, capture_output=True, text=True, timeout=300)
+    return exe
+
+
+def parse_c_driver(stdout: str) -> dict:
+    """The C driver's losses by leg, its OK lines and its launch counts."""
+    out = {"mlp": [], "mha": [], "ok": [], "launches": None}
+    for line in stdout.splitlines():
+        parts = line.split()
+        if len(parts) == 5 and parts[1] == "step" and parts[0] in ("mlp", "mha"):
+            out[parts[0]].append(float(parts[4]))
+        elif line.startswith(("C_MODEL_OK", "C_MHA_OK")):
+            out["ok"].append(parts[0])
+        elif line.startswith("FLASH_LAUNCHES "):
+            out["launches"] = json.loads(line[len("FLASH_LAUNCHES "):])
+    return out
+
+
+def programs_phase(seed: int, table_json: str) -> dict:
+    """The executor's programs and measured steps, then the card's
+    profiling and evidence tools, the C API and the DataLoader's native
+    gather. ``table_json`` is the search phase's H100 calibration table,
+    written into this phase's own calibration cache."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import flexflow_tpu_torch._native as native
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import DataType, LossType
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.obs.capacity import GLOBAL_PROGRAMS
+    from flexflow_tpu_torch.obs.truth import GLOBAL_LEDGER
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+    from flexflow_tpu_torch.search import calibration as calib
+    from flexflow_tpu_torch.serving import InferenceServer
+    from flexflow_tpu_torch.tools import calib_debug
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    work = tempfile.mkdtemp(prefix="ff_programs_")
+    cache = os.path.join(work, "cache")
+    os.makedirs(cache)
+    with open(os.path.join(cache, f"opcosts_{calib._slug(kind)}.json"), "w") as f:
+        f.write(table_json)
+    prev_cache = os.environ.get("FLEXFLOW_TPU_TORCH_CACHE")
+    os.environ["FLEXFLOW_TPU_TORCH_CACHE"] = cache
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    out, launches, seconds = {}, {}, {}
+    try:
+        # (a) the registry and the ledger: BERT-Base bf16, 16 steps as two windows of 8
+        t0 = time.perf_counter()
+        cfg = bert_base(DataType.BFLOAT16)
+        batch = 32
+        model = build_transformer(FFConfig(batch_size=batch, seed=seed), cfg)
+        model.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+        ex = model.executor
+        ns = ex._prog_ns
+        gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+        shape = (PROGRAMS_STEPS * batch, cfg.seq_length, cfg.hidden_size)
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        y = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        fa.reset_launch_counts()
+        model.fit(x, y, epochs=1, trace_window=PROGRAMS_TW, verbose=False)
+        launches["registry"] = {k: n for k, n in fa.LAUNCHES.items() if n}
+        progs = {e["name"]: e for e in GLOBAL_PROGRAMS.snapshot() if e["name"].startswith(ns + ".")}
+        window = progs.get(f"{ns}.train_window[{PROGRAMS_TW}]")
+        if (window is None or window["traces"] != 1 or set(progs) != {window["name"]}
+                or ex.graph_captures != 1
+                or any(r["program"].startswith(ns + ".") for r in GLOBAL_PROGRAMS.recent_retraces())):
+            raise AssertionError(f"programs: registry {progs}, captures {ex.graph_captures}: "
+                                 f"expected one train_window[{PROGRAMS_TW}] capture")
+        entry = next((e for e in GLOBAL_LEDGER.report()["entries"]
+                      if e["key"] == f"{ns}.train_step"), None)
+        if (entry is None or not entry["predicted_s"] > 0 or entry["pairs"] < 1
+                or cache not in entry["provenance"]):
+            raise AssertionError(f"programs: ledger entry {entry}: expected a prediction from "
+                                 "the card's table and a measured pair")
+        want = {f"flash_{k}_bf16": PROGRAMS_STEPS * cfg.num_layers
+                for k in ("fwd", "bwd_dq", "bwd_dkv")}
+        if launches["registry"] != want:
+            raise AssertionError(f"programs: launches {launches['registry']}, expected {want}")
+        srv = InferenceServer(port=0)
+        srv.start()
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/v2/debug/programs",
+                                        timeout=60) as r:
+                listed = json.loads(r.read())
+        finally:
+            srv.stop()
+        names = {e["name"] for e in listed.get("executor", {}).get("programs", [])}
+        if window["name"] not in names:
+            raise AssertionError(f"programs: /v2/debug/programs lists {sorted(names)}")
+        out["registry"] = {
+            "program": window["name"].replace(ns, "executor[n]"), "traces": window["traces"],
+            "capture_s": window["compile_s"], "signature": window["signature"],
+            "predicted_step_ms": entry["predicted_s"] * 1e3,
+            "measured_step_ms_p50": entry["measured_p50_s"] * 1e3, "pairs": entry["pairs"],
+            "rel_err_p50": entry["rel_err_p50"], "provenance": entry["provenance"],
+            "fit_s": model.last_elapsed,
+        }
+        del model, ex, x, y
+        torch.cuda.empty_cache()
+        seconds["a"] = time.perf_counter() - t0
+
+        # (b) mfu_profile as a child: BERT-Base bf16, batch 32, 8 steps a window
+        t0 = time.perf_counter()
+        mfu_out = os.path.join(work, "MFU_PROFILE.json")
+        proc = subprocess.run([sys.executable, "-m", "flexflow_tpu_torch.tools.mfu_profile",
+                               "--batch", "32", "--iters", "8", "--out", mfu_out],
+                              env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"programs: mfu_profile exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        with open(mfu_out) as f:
+            prof = json.load(f)["runs"][-1]
+        br = prof["breakdown"]
+        flash_ops = [o["op"] for o in br.get("top_ops", []) if o["category"] == "flash"]
+        bf16 = {k: n for k, n in prof["flash_launches"].items() if k.endswith("_bf16")}
+        if (len(bf16) != 3 or not flash_ops
+                or abs(sum(br["category_us"].values()) - br["total_device_us"])
+                > 0.01 * br["total_device_us"] or prof["peak_flops"] != 989e12):
+            raise AssertionError(f"programs: mfu_profile entry {prof}")
+        out["mfu_profile"] = {k: prof[k] for k in ("step_ms", "mfu", "prediction", "breakdown",
+                                                   "flash_launches", "device_kind")}
+        seconds["b"] = time.perf_counter() - t0
+
+        # (c) calib_debug's steps A-E on the card
+        t0 = time.perf_counter()
+        cd = calib_debug.run(torch.device("cuda"))["steps"]
+        figures = [cd["launch_floor_us"], *cd["launch_jitter_us"], cd["matmul_per_iter_us"],
+                   cd["matmul_achieved_tflops"], cd["ln_per_iter_us"], cd["ln_effective_gbps"],
+                   cd["framework_linear_us"], cd["framework_ln_us"],
+                   *cd["matmul_loop_s"].values(), *cd["ln_loop_s"].values()]
+        if (not all(v is not None and np.isfinite(v) and v > 0 for v in figures)
+                or not all(np.isfinite(cd[k]) for k in ("matmul_fixed_overhead_us",
+                                                        "ln_fixed_overhead_us"))
+                or set(cd["prediction_error"]) != {"linear", "ln"}):
+            raise AssertionError(f"programs: calib_debug steps {cd}")
+        out["calib_debug"] = cd
+        seconds["c"] = time.perf_counter() - t0
+
+        # (d) evidence.py --quick: one lever lands, a rerun skips it, a
+        # child killed by its timeout leaves the file valid
+        t0 = time.perf_counter()
+        ev = os.path.join(work, "evidence.json")
+        ev_cmd = [sys.executable, "-m", "flexflow_tpu_torch.tools.evidence", "--quick",
+                  "--iters", "8"]
+        runs = []
+        for path, extra in ((ev, []), (ev, []), (os.path.join(work, "killed.json"),
+                                                 ["--child-timeout", "2"])):
+            proc = subprocess.run(ev_cmd + ["--out", path] + extra, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            with open(path) as f:
+                runs.append((proc.returncode, json.load(f)["runs"]))
+        (rc1, r1), (rc2, r2), (rc3, r3) = runs
+        lever = [r for r in r1 if r.get("phase") == "lever"]
+        if (rc1 != 0 or len(lever) != 1 or lever[0]["config"] != "bert_base_b32_dp"
+                or not lever[0].get("step_ms", 0) > 0 or rc2 != 0 or r2 != r1
+                or rc3 != 0 or [r.get("error", "")[:7] for r in r3] != ["timeout"]):
+            raise AssertionError(f"programs: evidence runs {runs}")
+        out["evidence"] = {"lever": lever[0], "killed": r3}
+        seconds["d"] = time.perf_counter() - t0
+
+        # (e) the C driver on the card: the MLP loop, then the MHA leg at
+        # BERT-Base width; its losses against the Python API's here
+        t0 = time.perf_counter()
+        exe = build_c_driver(work)
+        leg = CAPI_LEG
+        proc = subprocess.run([exe, "cuda", *(str(leg[k]) for k in (
+            "width", "heads", "seq", "batch", "layers", "steps"))],
+            env=env, capture_output=True, text=True, timeout=600)
+        cd_out = parse_c_driver(proc.stdout)
+        if proc.returncode != 0 or cd_out["ok"] != ["C_MODEL_OK", "C_MHA_OK"]:
+            raise AssertionError(f"programs: C driver exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        n_bwd = leg["steps"] * leg["layers"]
+        cl = cd_out["launches"] or {}
+        if (cl.get("flash_bwd_dq") != n_bwd or cl.get("flash_bwd_dkv") != n_bwd
+                or cl.get("flash_fwd", 0) < n_bwd or not cd_out["mha"][-1] < cd_out["mha"][0]):
+            raise AssertionError(f"programs: C driver launches {cl}, losses {cd_out['mha']}")
+        fa.reset_launch_counts()
+        ref = c_driver_reference("cuda", leg)
+        launches["c_api_reference"] = {k: n for k, n in fa.LAUNCHES.items() if n}
+        if not all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(cd_out["mha"], ref)) or len(
+                ref) != len(cd_out["mha"]):
+            raise AssertionError(f"programs: C driver losses {cd_out['mha']} vs the Python "
+                                 f"API's {ref}")
+        out["c_api"] = {"mlp_losses": cd_out["mlp"], "mha_losses": cd_out["mha"],
+                        "python_losses": ref, "launches": cl, "leg": leg}
+        seconds["e"] = time.perf_counter() - t0
+
+        # (f) the DataLoader's native gather: fp32 BERT-Base, shuffled
+        t0 = time.perf_counter()
+        cfg = bert_base(DataType.FLOAT)
+        model = build_transformer(FFConfig(batch_size=batch, seed=seed), cfg)
+        model.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+        ex = model.executor
+        n = 8 * batch
+        rs = np.random.RandomState(seed + 5)
+        hx = torch.from_numpy(rs.randn(n, cfg.seq_length, cfg.hidden_size).astype(np.float32))
+        hy = torch.from_numpy(rs.randn(n, cfg.seq_length, cfg.hidden_size).astype(np.float32))
+        loader = model.create_data_loader(hx, hy, batch_size=batch, shuffle=True, seed=seed)
+        order = np.random.RandomState(seed).permutation(n)
+        native.reset_call_counts()
+        batches = list(loader.epoch())
+        gathers = native.CALLS["batch_gather"]
+        for i, (ins, lab) in enumerate(batches):
+            idx = torch.from_numpy(order[i * batch:(i + 1) * batch])
+            if not (torch.equal(ins[0].cpu(), torch.index_select(hx, 0, idx))
+                    and torch.equal(lab.cpu(), torch.index_select(hy, 0, idx))):
+                raise AssertionError(f"programs: the loader's batch {i} differs from "
+                                     "index_select's")
+        if gathers < 2 * len(batches) or len(batches) != 8:
+            raise AssertionError(f"programs: {gathers} native gathers for {len(batches)} batches")
+        del batches
+        fa.reset_launch_counts()
+
+        def from_loader():
+            return [float(ex.train_batch(i, lab)["loss"]) for i, lab in loader.epoch()]
+
+        staged_x = [hx[torch.from_numpy(order[i * batch:(i + 1) * batch])].cuda() for i in range(8)]
+        staged_y = [hy[torch.from_numpy(order[i * batch:(i + 1) * batch])].cuda() for i in range(8)]
+
+        def staged():
+            return [float(ex.train_batch([a], b)["loss"]) for a, b in zip(staged_x, staged_y)]
+
+        timed = {"loader": [], "staged": []}
+        for name in ("loader", "staged", "staged", "loader"):  # in turns
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (from_loader if name == "loader" else staged)()
+            torch.cuda.synchronize()
+            timed[name].append(1e3 * (time.perf_counter() - t1) / 8)
+        wall, busy = busy_share(from_loader)
+        launches["dataloader"] = {k: n for k, n in fa.LAUNCHES.items() if n}
+        out["dataloader"] = {"gathers": gathers, "loader_ms_per_step": timed["loader"],
+                             "staged_ms_per_step": timed["staged"],
+                             "loader_busy_share": busy / wall}
+        del model, ex, loader, staged_x, staged_y
+        torch.cuda.empty_cache()
+        seconds["f"] = time.perf_counter() - t0
+    finally:
+        if prev_cache is None:
+            os.environ.pop("FLEXFLOW_TPU_TORCH_CACHE", None)
+        else:
+            os.environ["FLEXFLOW_TPU_TORCH_CACHE"] = prev_cache
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches_by_leg"] = launches
+    out["launches"] = {name: sum(leg_.get(name, 0) for leg_ in launches.values())
+                       for name in fa.LAUNCHES}
+    out["seconds"] = seconds
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("programs: " + json.dumps(out))
+    return out
+
+
+def print_programs(card: str, p: dict) -> None:
+    r = p["registry"]
+    print(f"{card}: executor programs, BERT-Base bf16 (batch 32, seq 128) fit as two windows of "
+          f"8: {r['program']} traced {r['traces']}x (capture {r['capture_s']:.3f} s); step "
+          f"predicted {r['predicted_step_ms']:.3f} ms, measured p50 "
+          f"{r['measured_step_ms_p50']:.3f} ms over {r['pairs']} pair(s) (rel err "
+          f"{r['rel_err_p50']:.3f}; PR 24's private path: 11.6-11.8 predicted, 57.8-81.1 "
+          f"measured)")
+    m = p["mfu_profile"]
+    br = m["breakdown"]
+    print(f"{card}: mfu_profile BERT-Base bf16 batch 32: step {m['step_ms']:.3f} ms, MFU "
+          f"{m['mfu']:.4f} of 989 TFLOP/s; device us {br['total_device_us']:.1f} by group "
+          + ", ".join(f"{k} {us:.1f}" for k, us in br["category_us"].items())
+          + "; top " + "; ".join(f"{o['op'][:60]} {o['us']:.1f}" for o in br["top_ops"][:6]))
+    c = p["calib_debug"]
+    print(f"{card}: calib_debug: launch floor {c['launch_floor_us']:.3f} us (jitter "
+          f"{min(c['launch_jitter_us']):.3f}-{max(c['launch_jitter_us']):.3f}); matmul "
+          f"{c['matmul_per_iter_us']:.3f} us a call ({c['matmul_achieved_tflops']:.1f} TFLOP/s, "
+          f"fixed {c['matmul_fixed_overhead_us']:.3f} us); LayerNorm {c['ln_per_iter_us']:.3f} "
+          f"us a call ({c['ln_effective_gbps']:.1f} GB/s, fixed {c['ln_fixed_overhead_us']:.3f} "
+          "us); framework " + "; ".join(
+              f"{k} predicted {e['predicted_us']:.3f} us, measured {e['measured_p50_us']:.3f}"
+              for k, e in c["prediction_error"].items()))
+    e = p["evidence"]["lever"]
+    print(f"{card}: evidence --quick lever bert_base_b32_dp: step {e['step_ms']:.3f} ms, "
+          f"{e['samples_per_s']:.1f} samples/s, MFU {e['mfu']:.4f}")
+    a = p["c_api"]
+    print(f"{card}: C driver: MLP losses {a['mlp_losses']}; MHA leg ({a['leg']}) losses "
+          f"{a['mha_losses']} vs the Python API's {a['python_losses']}; launches "
+          + json.dumps({k: v for k, v in a["launches"].items() if v}))
+    d = p["dataloader"]
+    print(f"{card}: DataLoader, fp32 BERT-Base batch 32, native gather ({d['gathers']} calls): "
+          "ms a step " + ", ".join(f"{x:.3f}" for x in d["loader_ms_per_step"])
+          + " vs staged " + ", ".join(f"{x:.3f}" for x in d["staged_ms_per_step"])
+          + f" (PR 20: 78.4-104.9, staged 66.1-74.7), busy share {d['loader_busy_share']:.3f}")
+    print(f"{card}: programs phase {p['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {s:.1f}" for k, s in p["seconds"].items()) + ")")
 
 
 def main(argv=None) -> int:
@@ -7283,6 +7670,8 @@ def main(argv=None) -> int:
     fx_ = fx_phase(args.seed)
     torch.cuda.empty_cache()
     search = search_phase(args.seed)
+    torch.cuda.empty_cache()
+    programs = programs_phase(args.seed, search.pop("table_json"))
 
     def trainer_launches(name):  # the trainer and window phases' launches of a flash form
         return (sum(sum(r["launches"][k][name] for k in r["launches"])
@@ -7322,7 +7711,8 @@ def main(argv=None) -> int:
                    flash["train"][name]["max_abs_err"], flash["causal512"][name]["max_abs_err"])),
                training["launches"][name]
                + sum(heads[cell]["launches"][name] for cell in fp32_heads)
-               + trainer_launches(name) + onnx_["launches"][name], FLASH_SOURCE)
+               + trainer_launches(name) + onnx_["launches"][name]
+               + programs["launches"][name], FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
         record(f"{name}{form}", f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
@@ -7331,7 +7721,8 @@ def main(argv=None) -> int:
                    flash["causal512"][f"{name}{form}"]["max_abs_err"])),
                run["launches"][f"{name}{form}"]
                + (heads["bert-cls bf16"]["launches"][f"{name}{form}"] + search["launches"][
-                   f"{name}{form}"] if form == "_bf16" else 0)
+                   f"{name}{form}"] + programs["launches"][f"{name}{form}"]
+                  if form == "_bf16" else 0)
                + trainer_launches(f"{name}{form}"), FLASH_SOURCE)
         for form, run in (("_bf16", training_bf16), ("_f16", training_f16))
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
@@ -7402,6 +7793,7 @@ def main(argv=None) -> int:
     print_moe_keras(card, moe, keras_, vision["forward_profile"])
     print_frontends(card, onnx_, fx_)
     print_search(card, search)
+    print_programs(card, programs)
     inf = heads["infer"]
     print(f"{card}: bert_sst2 over /v2/models/bert_sst2/infer ({inf['clients']} clients, "
           f"{inf['requests']} requests of 1-4 rows): {inf['requests_per_s']:.2f} requests/s, "
@@ -7562,7 +7954,7 @@ def main(argv=None) -> int:
                       "training_f16": training_f16, "heads": heads,
                       "suffix_prefill_bodies": suffix_bodies, "trainer": trainer,
                       "vision": vision, "window": window, "moe": moe, "keras": keras_,
-                      "onnx": onnx_, "fx": fx_, "search": search}))
+                      "onnx": onnx_, "fx": fx_, "search": search, "programs": programs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,12 @@ repo's shared sources in ``native/src`` at first import, with ``g++``
 (``$CXX``), into ``flexflow_tpu_torch/_native/_build/`` (git ignores
 it), one compiler process a source, then one link; it is rebuilt when a
 source or header is newer. It never loads or writes the JAX package's
-library. ``model_capi.cc``, which embeds the JAX package's ``FFModel``
-behind a C API, is left out (ROADMAP).
+library. The model C API (``ffc_model_*``) is the port's own source,
+``src/model_capi.cc`` beside this file: it embeds CPython and drives
+``flexflow_tpu_torch``'s ``FFModel``, compiled against ``sysconfig``'s
+include directory (its Python symbols resolve from the hosting process,
+or from the ``-lpython`` of a C host); where the Python headers are
+missing the library is built without it, as the JAX package's is.
 
 ``FF_NATIVE_DISABLE=1`` skips the library: importing this module then
 raises ImportError, which every consumer treats as "use the Python
@@ -41,6 +45,8 @@ _SOURCES = [
     _NATIVE_DIR / "src" / "dataloader.cc",
     _NATIVE_DIR / "src" / "pcg_search.cc",
 ]
+# the model C API (embeds CPython; compiled with the Python headers)
+_CAPI_SOURCE = _HERE / "src" / "model_capi.cc"
 _HEADERS = [
     _NATIVE_DIR / "include" / "ffcore.h",
     _NATIVE_DIR / "src" / "ffcore_internal.h",
@@ -73,7 +79,7 @@ def _needs_build() -> bool:
     if not _LIB_PATH.exists():
         return True
     lib_mtime = _LIB_PATH.stat().st_mtime
-    return any(p.stat().st_mtime > lib_mtime for p in _SOURCES + _HEADERS)
+    return any(p.stat().st_mtime > lib_mtime for p in _SOURCES + [_CAPI_SOURCE] + _HEADERS)
 
 
 def _build() -> None:
@@ -86,21 +92,31 @@ def _build() -> None:
     global last_build_seconds
     t0 = time.perf_counter()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    import sysconfig
+
     cxx = os.environ.get("CXX", "g++")
     pid = os.getpid()
-    objs = [_BUILD_DIR / f"{s.stem}.{pid}.o" for s in _SOURCES]
+    sources = _SOURCES + [_CAPI_SOURCE]
+    objs = [_BUILD_DIR / f"{s.stem}.{pid}.o" for s in sources]
     tmp = _BUILD_DIR / f"libffcore.so.tmp{pid}"
 
     def compile_one(pair):
         src, obj = pair
-        subprocess.run([cxx, *_CXXFLAGS, "-I", str(_NATIVE_DIR / "include"), "-c", str(src),
-                        "-o", str(obj)], check=True, capture_output=True, timeout=300)
+        extra = ["-I", sysconfig.get_path("include")] if src == _CAPI_SOURCE else []
+        try:
+            subprocess.run([cxx, *_CXXFLAGS, "-I", str(_NATIVE_DIR / "include"), *extra,
+                            "-c", str(src), "-o", str(obj)],
+                           check=True, capture_output=True, timeout=300)
+        except subprocess.CalledProcessError:
+            if src != _CAPI_SOURCE:
+                raise
+            # no CPython headers: keep every other native component
 
     try:
-        with ThreadPoolExecutor(len(_SOURCES)) as pool:
-            list(pool.map(compile_one, zip(_SOURCES, objs)))
-        subprocess.run([cxx, *_CXXFLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
-                       check=True, capture_output=True, timeout=300)
+        with ThreadPoolExecutor(len(sources)) as pool:
+            list(pool.map(compile_one, zip(sources, objs)))
+        subprocess.run([cxx, *_CXXFLAGS, "-shared", *[str(o) for o in objs if o.exists()],
+                        "-o", str(tmp)], check=True, capture_output=True, timeout=300)
         os.replace(tmp, _LIB_PATH)
     finally:
         for f in objs + [tmp]:

@@ -596,6 +596,7 @@ class FFModel:
             outputs=[(t.node.guid, t.idx) for t in self._outputs],
             remat_blocks=self.config.remat_blocks,
             grad_accum_steps=self.config.grad_accum_steps,
+            strategy=self.strategy,
         )
         self.executor.initialize(torch.Generator().manual_seed(self._seed))
         return self

@@ -9,7 +9,8 @@
   errors and dumpable as chrome://tracing JSON (``GET /v2/debug/timeline``);
 * :mod:`capacity` — KV-cache block telemetry (:class:`CacheTelemetry`),
   the serving FLOPs model (:class:`ServingFlops`) and the step-program
-  registry (:class:`ProgramRegistry`);
+  registry (:class:`ProgramRegistry`, the executors' in
+  :data:`GLOBAL_PROGRAMS`);
 * :mod:`slo` — per-model objectives as multi-window burn rates
   (:class:`SLOMonitor`, ``GET /v2/slo``);
 * :mod:`steptrace` — the :class:`StepAnatomy` profiler: host spans and
@@ -26,6 +27,7 @@
 from .capacity import (
     CHIP_PRESETS,
     CacheTelemetry,
+    GLOBAL_PROGRAMS,
     ChipSpec,
     ProgramRegistry,
     ServingFlops,
@@ -67,6 +69,7 @@ __all__ = [
     "DEFAULT_OBJECTIVES",
     "FlightRecorder",
     "GLOBAL_LEDGER",
+    "GLOBAL_PROGRAMS",
     "JourneyContext",
     "JourneyIndex",
     "JourneyRecorder",

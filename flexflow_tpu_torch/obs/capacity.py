@@ -15,7 +15,8 @@
   CUDA graph per step signature on a GPU, one eager signature on the
   CPU) with their input signatures, capture counts and capture wall
   times; a new signature of a known program carries a blame string
-  (``GET /v2/debug/programs``).
+  (``GET /v2/debug/programs``); :data:`GLOBAL_PROGRAMS` is the
+  process-wide one the executors register under ``executor[n].*``.
 
 The derates are the JAX package's search cost model's
 (``flexflow_tpu/search/cost_model.py``), copied so the two engines take
@@ -26,6 +27,7 @@ the JAX CPU engine does), ``h100`` the H100 SXM's datasheet figures.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
 from collections import deque
@@ -404,22 +406,54 @@ class ProgramEntry:
     last_blame: Optional[str] = None
 
 
+def _dtype_name(dt) -> str:
+    """A dtype as the JAX package spells it: ``float32`` for numpy's and
+    torch's alike (``torch.float32`` loses its module prefix)."""
+    return str(dt).replace("torch.", "")
+
+
+class _Scalar:
+    shape = ()
+
+
+def _leaves(x, nested: bool = False) -> list:
+    """The array leaves of a nested dict / list / tuple; a number inside
+    one counts as a 0-d leaf (the JAX package keeps such state, a step
+    counter, as a 0-d array)."""
+    if isinstance(x, dict):
+        return [l for v in x.values() for l in _leaves(v, True)]
+    if isinstance(x, (list, tuple)):
+        return [l for v in x for l in _leaves(v, True)]
+    if hasattr(x, "shape"):
+        return [x]
+    if nested and isinstance(x, (int, float)) and not isinstance(x, bool):
+        return [_Scalar()]
+    return []
+
+
 def _summarize(x) -> str:
     """Compact signature for one step input: ``dtype[shape]`` for arrays
-    and tensors, ``repr`` for scalars."""
+    and tensors, a leaf-count/element-count digest for nested dicts,
+    lists and tuples of them, ``repr`` for scalars (the JAX package's
+    spelling throughout)."""
     shape = getattr(x, "shape", None)
     if shape is not None:
-        dt = getattr(x, "dtype", "?")
+        dt = _dtype_name(getattr(x, "dtype", "?"))
         return f"{dt}[{','.join(str(d) for d in shape)}]"
+    leaves = _leaves(x)
+    if leaves:
+        elems = sum(math.prod(int(d) for d in l.shape) for l in leaves)
+        return f"pytree({len(leaves)} leaves, {elems} elems)"
     return repr(x)[:40]
 
 
 class ProgramRegistry:
-    """Registry of the engine's step programs with new-signature blame.
+    """Registry of the engine's and the executor's step programs with
+    new-signature blame.
 
-    ``note_trace(name, args)`` is called where the engine meets a step
-    signature it has not run before (where ``trace_counts`` counts it: a
-    CUDA graph capture on a GPU). The first call registers the program's
+    ``note_trace(name, args)`` is called where the engine or the executor
+    meets a step signature it has not run before (on a GPU the step that
+    captures its CUDA graph). The first call registers the program's
     input signature; a later one diffs against it and produces a blame
     string naming the input that changed ("decode retraced: tables
     int32[4,8] -> int32[4,9]").
@@ -486,6 +520,22 @@ class ProgramRegistry:
             if entry is not None:
                 entry.compile_s = seconds
 
+    def remove_namespace(self, prefix: str) -> None:
+        """Drop every program named ``prefix`` or ``prefix.*`` (and its
+        retrace records). Executors register under per-instance
+        namespaces and evict them through a weakref finalizer, so a
+        process that builds executors in a loop does not grow the global
+        registry without bound."""
+        dot = prefix + "."
+        with self._lock:
+            for name in [n for n in self.entries
+                         if n == prefix or n.startswith(dot)]:
+                del self.entries[name]
+            kept = [r for r in self.retraces
+                    if not (r["program"] == prefix or r["program"].startswith(dot))]
+            self.retraces.clear()
+            self.retraces.extend(kept)
+
     def snapshot(self) -> List[Dict]:
         with self._lock:
             return [
@@ -514,3 +564,8 @@ class ProgramRegistry:
     def total_retraces(self) -> int:
         with self._lock:
             return sum(max(0, e.traces - 1) for e in self.entries.values())
+
+
+# Executor programs register here (runtime/executor.py); the server
+# merges this registry into GET /v2/debug/programs under "executor".
+GLOBAL_PROGRAMS = ProgramRegistry()

@@ -4,16 +4,21 @@
 Reference: SingleDataLoader (python/flexflow_dataloader.h:34). The
 dataset stays in host memory as CPU tensors (numpy arrays, bfloat16 ones
 included, cross bit for bit: ``runtime/convert.py``); each batch is a
-row gather (``index_select``) into pinned host memory when the target is
-a GPU, copied ``non_blocking`` to the device. A bounded background thread
+row gather into pinned host memory when the target is a GPU, copied
+``non_blocking`` to the device. The gather is the native library's
+threaded row copy (``_native.batch_gather``, the JAX package's too),
+straight into the host buffer viewed as numpy; a bfloat16 dataset goes
+through as its two-byte bit patterns (an int16 view), bit for bit. With
+``FF_NATIVE_DISABLE=1``, or where the library does not load, the gather
+is ``index_select``; ``_native.CALLS["batch_gather"]`` shows which path
+answered. A bounded background thread
 prefetches the next batches while the current step runs; it issues its
 copies on the device's default stream, the stream the steps run on, so
 a batch is on the device before a step reads it without a cross-stream
 wait. PyTorch's pinned-memory cache keeps a buffer until its copy has
 ended, so every batch takes a fresh one. The shuffled order of an epoch
 is ``np.random.RandomState(seed + epoch).permutation``, as in the JAX
-package. The JAX package's native threaded gather (``_native``) waits
-for its own slice.
+package.
 """
 from __future__ import annotations
 
@@ -26,6 +31,25 @@ import torch
 
 from ..core.device import resolve_device
 from .convert import to_tensor
+
+_native_gather = None  # cached: the function, or False after a failed import
+
+
+def _get_native_gather():
+    global _native_gather
+    if _native_gather is None:
+        try:
+            from .._native import batch_gather as f
+
+            _native_gather = f
+        except Exception:
+            _native_gather = False
+    return _native_gather or None
+
+
+def _as_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's memory as numpy (bfloat16 as its int16 bits)."""
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
 
 
 class SingleDataLoader:
@@ -59,6 +83,13 @@ class SingleDataLoader:
         pinned = self.device.type == "cuda"
         out = torch.empty((len(idx),) + tuple(self.data.shape[1:]), dtype=self.data.dtype,
                           pin_memory=pinned)
+        native = _get_native_gather()
+        if native is not None:
+            try:
+                native(_as_numpy(self.data), _as_numpy(out), idx)
+                return out
+            except Exception:
+                pass
         return torch.index_select(self.data, 0, torch.from_numpy(idx), out=out)
 
     def batches(self) -> Iterator[torch.Tensor]:

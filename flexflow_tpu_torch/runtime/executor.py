@@ -55,17 +55,39 @@ and the optimizer updates in place, so a graph, which reads the tensors
 it was captured with, stays valid; replacing a tensor of ``params``,
 ``state`` or ``opt_state`` (``initialize``, or a caller's own rebinding)
 drops the graphs and the next window captures again.
+
+Each executor registers its programs in the process-wide
+:data:`~flexflow_tpu_torch.obs.capacity.GLOBAL_PROGRAMS` under its own
+namespace ``executor[n]``, with the JAX executor's names: ``.forward``
+(``predict``), ``.eval_step``, ``.train_step``, ``.train_window[w]``,
+``.train_repeat[w]`` and ``.eval_window[w]``. Where XLA traces a jitted
+program, the port "traces" where the executor first meets a step
+signature (a program at a new input geometry), and on a CUDA device the
+window path's graph capture too (:meth:`Executor._program_call`): the
+trace counts and the retrace blame follow JAX's. Compiled with an
+optimizer, the executor registers the strategy simulator's whole-step
+prediction in :data:`~flexflow_tpu_torch.obs.truth.GLOBAL_LEDGER` under
+``executor[n].train_step`` (:meth:`Executor._register_step_prediction`),
+and sampled train calls measure beside it (:meth:`Executor._truth_sample`):
+the first four calls of a program, then every eighth, each timed between
+two device syncs, a call that traced never. A collected executor takes
+its namespace out of both.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
+import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.graph import Node, PCGraph
 from ..core.types import LossType, MetricsType, OpType
+from ..obs.capacity import GLOBAL_PROGRAMS
+from ..obs.truth import GLOBAL_LEDGER
 from ..ops.base import LowerCtx, get_op_def
 from ..parallel.propagation import infer_all_specs
 from . import faults, initializers, losses, metrics as metrics_mod
@@ -75,6 +97,26 @@ from .optimizers import Optimizer, Params
 
 def node_key(node: Node) -> str:
     return f"{node.op_type.value}_{node.guid}"
+
+
+# Per-executor program namespace in GLOBAL_PROGRAMS ("executor[N].forward"):
+# distinct executors run distinct programs, which must not read as
+# retraces of one another in /v2/debug/programs.
+_EXECUTOR_IDS = itertools.count()
+
+
+class _KeySig:
+    """A step key as the JAX package's signature spells it (``key<fry>[]``):
+    the port's keys are two int64 words, JAX's a typed key array."""
+
+    shape = ()
+    dtype = "key<fry>"
+
+
+def _device_count(device: torch.device) -> int:
+    """Devices the step prediction's machine holds: the one device the
+    executor runs on."""
+    return 1
 
 
 @contextlib.contextmanager
@@ -127,6 +169,19 @@ class Executor:
     _graphs: Dict = dataclasses.field(default_factory=dict)
     _graph_leaves: Optional[tuple] = None
     graph_captures: int = 0
+    # the compiled strategy (the step prediction walks it)
+    strategy: Optional[object] = None
+    # program -> the input geometries it has met (a new one is a trace)
+    _seen: Dict = dataclasses.field(default_factory=dict)
+    # program -> window calls (truth-ledger sampling)
+    _truth_counts: Dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        self._prog_ns = f"executor[{next(_EXECUTOR_IDS)}]"
+        # evict this executor's namespace when it is collected: rebuilding
+        # executors in a loop must not grow GLOBAL_PROGRAMS or the ledger
+        weakref.finalize(self, GLOBAL_PROGRAMS.remove_namespace, self._prog_ns)
+        weakref.finalize(self, GLOBAL_LEDGER.remove_namespace, self._prog_ns)
 
     def initialize(self, generator: torch.Generator) -> "Executor":
         """Materialise every weight on the device: drawn on the CPU from
@@ -153,8 +208,128 @@ class Executor:
         self.state = state
         if self.optimizer is not None:
             self.opt_state = self.optimizer.init_state(params)
+            # predict side of the truth ledger: the strategy simulator's
+            # whole-step estimate, keyed so the measured train calls join it
+            self._register_step_prediction()
         self._graphs, self._graph_leaves = {}, None
         return self
+
+    # ------------------------------------------------ programs and truth
+    def _register_step_prediction(self) -> None:
+        """Register the strategy simulator's step time for this
+        executor's train program in the truth ledger, from the calibration
+        table ``load_or_calibrate`` finds (the user cache, the factory
+        table, else the analytic default: it never measures). Telemetry
+        only, as in the JAX package: a graph the predictor cannot walk
+        never breaks compile."""
+        try:
+            from ..parallel.machine import MachineSpec
+            from ..search.calibration import (
+                CPU_FITTED_CONTENTION,
+                chip_spec_for,
+                detected_device_kind,
+                load_or_calibrate,
+            )
+            from ..search.simulator import predict_strategy_time
+
+            n = max(1, _device_count(self.device))
+            if self.device.type == "cpu":
+                # the JAX package's CPU convention: N devices share one
+                # host, so the peaks divide by N x the fitted contention
+                chip = chip_spec_for("cpu")
+                scale = n * CPU_FITTED_CONTENTION
+                chip = dataclasses.replace(
+                    chip,
+                    bf16_flops=chip.bf16_flops / scale,
+                    f32_flops=chip.f32_flops / scale,
+                    hbm_bandwidth=chip.hbm_bandwidth / scale,
+                )
+            else:
+                chip = chip_spec_for(detected_device_kind("cpu"))
+            machine = MachineSpec(num_nodes=1, devices_per_node=n, chip=chip)
+            predict_strategy_time(
+                self.graph,
+                self.strategy,
+                machine=machine,
+                calibration=load_or_calibrate(machine),
+                ledger_key=f"{self._prog_ns}.train_step",
+            )
+        except Exception:
+            pass
+
+    def _signature(self, kind: str, inputs, label) -> Dict[str, object]:
+        """The JAX program's arguments, by position, for the registry:
+        (params, opt_state, state, inputs, label, key) for a train program,
+        (params, state, inputs, label, key) for an eval one, (params,
+        state, inputs, key) for ``forward``. Window programs stack their
+        inputs ``[w, ...]``."""
+        ins = tuple(inputs)
+        if kind == "forward":
+            args = (self.params, self.state, ins, _KeySig())
+        elif kind == "eval":
+            args = (self.params, self.state, ins, label, _KeySig())
+        else:
+            args = (self.params, self.opt_state, self.state, ins, label, _KeySig())
+        return {f"arg{i}": a for i, a in enumerate(args)}
+
+    @contextlib.contextmanager
+    def _program_call(self, program: str, kind: str, inputs, label, steps: int = 1,
+                      measure_train: bool = False):
+        """Run one call of ``program`` (the body runs inside): register a
+        trace when the call meets a new input geometry or captures a step
+        graph (``self.graph_captures`` grows), stamp a trace's wall time
+        as its compile time, and, for a sampled train call that did not
+        trace, measure its seconds a step into the truth ledger. Only a
+        traced or a sampled call syncs the device."""
+        geom = (tuple((tuple(x.shape), x.dtype) for x in inputs),
+                None if label is None else (tuple(label.shape), label.dtype))
+        seen = self._seen.setdefault(program, set())
+        traces_before = GLOBAL_PROGRAMS.trace_count(program)
+        new = geom not in seen
+        if new:
+            seen.add(geom)
+            GLOBAL_PROGRAMS.note_trace(program, self._signature(kind, inputs, label))
+        measure = measure_train and self._truth_sample(program)
+        captures = self.graph_captures
+        if measure or new:
+            # drain the backlog first: unsampled calls never sync, so the
+            # device may still run earlier steps
+            self._sync()
+        t0 = time.perf_counter()  # flexlint: disable=clock-discipline
+        yield
+        if not new and self.graph_captures > captures:
+            # a capture of a geometry met before (the graphs were dropped)
+            GLOBAL_PROGRAMS.note_trace(program, self._signature(kind, inputs, label))
+        traced = GLOBAL_PROGRAMS.trace_count(program) > traces_before
+        if traced or measure:
+            self._sync()
+            elapsed = time.perf_counter() - t0  # flexlint: disable=clock-discipline
+            if traced:
+                GLOBAL_PROGRAMS.set_compile_time(program, elapsed)
+            if measure:
+                self._measure_window_step(program, traces_before, elapsed, steps)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _truth_sample(self, program: str) -> bool:
+        """Whether to measure THIS call for the truth ledger. Measuring
+        syncs the device, which serializes the host/device overlap a
+        training loop otherwise has, so sample: the first four calls of a
+        program, then every eighth."""
+        n = self._truth_counts.get(program, 0)
+        self._truth_counts[program] = n + 1
+        return n < 4 or n % 8 == 0
+
+    def _measure_window_step(self, program: str, traces_before: int,
+                             elapsed: float, num_steps: int) -> None:
+        """Measure side of the truth ledger: seconds per optimizer step of
+        one call. A call that traced its program is left out: its time is
+        the capture's, not a step's."""
+        if GLOBAL_PROGRAMS.trace_count(program) > traces_before:
+            return
+        GLOBAL_LEDGER.measure(f"{self._prog_ns}.train_step", elapsed / max(1, num_steps))
 
     def _build_remat_plan(self):
         """The repeated blocks with their boundary values; None below two
@@ -362,7 +537,9 @@ class Executor:
         label = to_tensor(label, self.device)
         key = self._step_key(rng)
         self.optimizer.prepare(self.opt_state)
-        mets = self._train_body(inputs, label, key)
+        with self._program_call(f"{self._prog_ns}.train_step", "train", inputs, label,
+                                measure_train=True):
+            mets = self._train_body(inputs, label, key)
         self.opt_state["step"] += 1
         return mets
 
@@ -381,7 +558,8 @@ class Executor:
         the ops as the step key (no op reads it outside training)."""
         inputs = self._as_inputs(inputs)
         label = to_tensor(label, self.device)
-        return self._eval_body(inputs, label, None if rng is None else self._step_key(rng))
+        with self._program_call(f"{self._prog_ns}.eval_step", "eval", inputs, label):
+            return self._eval_body(inputs, label, None if rng is None else self._step_key(rng))
 
     # ------------------------------------------------------------ windows
     def train_window(self, inputs: Sequence, labels, rng) -> Dict[str, torch.Tensor]:
@@ -423,6 +601,14 @@ class Executor:
         i on slice i of the stacked inputs (``per_step``) or on the same
         batch, with the key words ``words[i]``; a captured graph on a
         CUDA device, the eager body on the CPU."""
+        w = int(words.shape[0])
+        name = ("eval_window" if kind == "eval" else
+                "train_window" if per_step else "train_repeat")
+        with self._program_call(f"{self._prog_ns}.{name}[{w}]", kind, inputs, labels, steps=w,
+                                measure_train=kind == "train"):
+            return self._window_steps(kind, inputs, labels, words, per_step)
+
+    def _window_steps(self, kind: str, inputs, labels, words, per_step: bool):
         body = self._train_body if kind == "train" else self._eval_body
         w = int(words.shape[0])
         first = ([x[0] for x in inputs], labels[0]) if per_step else (inputs, labels)
@@ -475,9 +661,10 @@ class Executor:
 
     @torch.no_grad()
     def predict(self, inputs: Sequence) -> List[torch.Tensor]:
-        with _full_fp32():
-            outs = self._forward_impl(self.params, self.state, self._as_inputs(inputs),
-                                      training=False)[0]
+        inputs = self._as_inputs(inputs)
+        with self._program_call(f"{self._prog_ns}.forward", "forward", inputs, None), \
+                _full_fp32():
+            outs = self._forward_impl(self.params, self.state, inputs, training=False)[0]
         # chaos hook: error / stall / NaN-poisoned outputs
         return faults.inject(faults.EXECUTOR_PREDICT, outs)
 

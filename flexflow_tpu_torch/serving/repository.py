@@ -5,6 +5,8 @@ so each package loads the models the other saved).
 Layout per model: ``<root>/<name>/``
   config.json   -- name, max batch, batch size, input names, outputs
   graph.json    -- the graph (``PCGraph.to_json``, guids kept)
+  strategy.json -- the compiled parallelization strategy
+                   (``ParallelStrategy.to_json``), when the model has one
   weights.npz   -- the weights, keyed ``"p::<op_type>_<guid>::<weight>"``,
                    and the non-trainable state (BatchNorm's running
                    statistics), keyed ``"s::..."``; written to a
@@ -13,9 +15,10 @@ Layout per model: ``<root>/<name>/``
 A bfloat16 weight is stored as its two-byte bit patterns (numpy dtype
 ``V2``), as numpy stores the JAX package's bfloat16 arrays; it is read
 back by the compiled parameter's dtype, bit for bit, without
-``ml_dtypes``. The JAX package also writes ``strategy.json`` (its
-sharding over a device mesh); the port runs on one device and neither
-reads nor writes it.
+``ml_dtypes``. ``load_model`` compiles the graph with the stored
+strategy, as the JAX package does: a strategy whose mesh needs more
+devices than the port's one is refused by ``compile`` (``mesh needs N
+devices, have 1``).
 """
 from __future__ import annotations
 
@@ -59,6 +62,8 @@ def save_model(im: InferenceModel, root: str) -> str:
     model = im.model
     ex = model.executor
     (d / "graph.json").write_text(model.graph.to_json())
+    if model.strategy is not None:
+        (d / "strategy.json").write_text(model.strategy.to_json())
     cfg = {
         "name": im.name,
         "max_batch": im.max_batch,
@@ -83,17 +88,22 @@ def save_model(im: InferenceModel, root: str) -> str:
 
 def load_model(root: str, name: str, device=None) -> InferenceModel:
     """Rebuild a servable model from the repository: its graph compiled
-    for inference on ``device`` (the GPU unless ``"cpu"``), then its
-    weights."""
+    with its strategy for inference on ``device`` (the GPU unless
+    ``"cpu"``), then its weights."""
     from ..model import FFModel
+    from ..parallel.strategy import ParallelStrategy
 
     faults.inject(faults.SERVING_REPOSITORY_LOAD, name)
     d = Path(root) / name
     cfg = json.loads((d / "config.json").read_text())
     graph = PCGraph.from_json((d / "graph.json").read_text())
+    strategy = None
+    spath = d / "strategy.json"
+    if spath.exists():
+        strategy = ParallelStrategy.from_json(spath.read_text())
     model = FFModel.from_graph(graph, FFConfig(batch_size=cfg["batch_size"]), device=device)
     outputs = model.output_tensors([tuple(o) for o in cfg["outputs"]])
-    model.compile(comp_mode=CompMode.INFERENCE, outputs=outputs)
+    model.compile(comp_mode=CompMode.INFERENCE, outputs=outputs, strategy=strategy)
     stores = {"p": model.executor.params, "s": model.executor.state}
     with np.load(d / "weights.npz") as z, torch.no_grad():
         for key in z.files:

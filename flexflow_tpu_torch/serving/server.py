@@ -102,6 +102,7 @@ import numpy as np
 
 from ..obs import (
     GLOBAL_LEDGER,
+    GLOBAL_PROGRAMS,
     JourneyIndex,
     JourneyRecorder,
     journey_to_chrome_trace,
@@ -334,13 +335,23 @@ class InferenceServer:
         return {"models": {name: unit.cache_report() for name, unit in self._units(model)}}
 
     def debug_programs(self, model: Optional[str] = None) -> Dict:
-        return {
+        """Step-program registries: per generation model (prefill
+        buckets / decode / verify) plus the process-wide executor
+        registry, each with signatures, compile times and any retrace
+        blame."""
+        out: Dict = {
             "models": {
                 name: {"programs": unit.programs.snapshot(),
                        "retraces": unit.programs.recent_retraces()}
                 for name, unit in self._units(model)
             }
         }
+        if model is None:
+            out["executor"] = {
+                "programs": GLOBAL_PROGRAMS.snapshot(),
+                "retraces": GLOBAL_PROGRAMS.recent_retraces(),
+            }
+        return out
 
     def debug_predictions(self, model: Optional[str] = None) -> Dict:
         """Per model, the engine ledger's predicted/measured pairs, error

@@ -81,7 +81,7 @@ Self-check (no server needed):
       signature leaves a blame string on the program registry, the step
       anatomy reports a finite bubble ratio and a two-lane capture, the
       truth ledger holds (predicted, measured) pairs for prefill/decode/
-      verify, a deliberately scaled calibration entry trips the
+      verify plus an executor program, a deliberately scaled calibration entry trips the
       calibration-drift alarm with the op-level blame string, and request
       journeys (a client traceparent at ingress, a forced replica
       failover, a warm restart stitched from the on-disk spool) stitch
@@ -963,6 +963,35 @@ def selfcheck(device=None) -> int:
         check(all(e["predicted_s"] > 0 for e in entries.values()),
               "ledger entry with non-positive prediction")
 
+        # executor program: a tiny compiled model's train window must
+        # join the strategy simulator's compile-time prediction in the
+        # process-wide ledger
+        from flexflow_tpu_torch.config import FFConfig
+        from flexflow_tpu_torch.core.types import ActiMode, LossType
+        from flexflow_tpu_torch.generation import prng
+        from flexflow_tpu_torch.model import FFModel
+        from flexflow_tpu_torch.obs.truth import GLOBAL_LEDGER
+        from flexflow_tpu_torch.runtime import SGDOptimizer
+
+        mdl = FFModel(FFConfig(batch_size=8), device=device)
+        t = mdl.create_tensor((8, 8))
+        t = mdl.dense(t, 8, ActiMode.RELU)
+        t = mdl.dense(t, 4)
+        t = mdl.softmax(t)
+        mdl.compile(optimizer=SGDOptimizer(lr=0.1),
+                    loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+        xs = np.random.RandomState(0).randn(8, 8).astype(np.float32)
+        ys = np.zeros((8,), np.int32)
+        rng = prng.key(0)
+        mdl.executor.train_batch_repeated([xs], ys, rng, num_steps=2)  # compile
+        mdl.executor.train_batch_repeated([xs], ys, rng, num_steps=2)  # measured
+        ex_key = f"{mdl.executor._prog_ns}.train_step"
+        ex_entry = next((e for e in GLOBAL_LEDGER.report()["entries"]
+                         if e["key"] == ex_key), None)
+        check(ex_entry is not None and ex_entry["pairs"] >= 1
+              and ex_entry["predicted_s"] > 0,
+              f"executor program {ex_key} has no (predicted, measured) pair")
+
         # forced miscalibration: a calibration entry deliberately scaled
         # to 1/4 of the measured op time must trip the drift alarm with
         # op-level blame naming the calibration table
@@ -1166,9 +1195,9 @@ def selfcheck(device=None) -> int:
           "each captured a flight-recorder postmortem, cache telemetry "
           "conserves blocks, program registry populated and a forced new "
           "signature produced a correct blame string, SLO + readiness "
-          "rationale live, truth ledger joined prefill/decode/verify, a "
-          "scaled calibration entry tripped the drift alarm with correct "
-          "blame, the step-anatomy profiler reported a finite bubble ratio "
+          "rationale live, truth ledger joined prefill/decode/verify + an "
+          "executor program, a scaled calibration entry tripped the "
+          "drift alarm with correct blame, the step-anatomy profiler reported a finite bubble ratio "
           "+ overlap headroom with a successful forced two-lane capture, an "
           "abandoned durable journal warm-restarted with a non-empty replay "
           "report, and request journeys joined the client traceparent, "

@@ -1580,3 +1580,45 @@ def test_cuda_a_capture_that_fails_raises(cuda):
     with pytest.raises(RuntimeError):
         g.run()
     assert g.graph is None
+
+
+def test_cuda_window_capture_is_one_trace_and_a_measured_pair(cuda):
+    """On the card a window's capture is the executor program's trace: a
+    fit of two windows registers ``train_window[4]`` once, captures once,
+    and its second window joins the step prediction in the ledger."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import ActiMode, LossType
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.obs.capacity import GLOBAL_PROGRAMS
+    from flexflow_tpu_torch.obs.truth import GLOBAL_LEDGER
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    m = FFModel(FFConfig(batch_size=8))
+    t = m.dense(m.create_tensor((8, 8)), 8, ActiMode.RELU)
+    m.softmax(m.dense(t, 4))
+    m.compile(optimizer=SGDOptimizer(lr=0.1), loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(64, 8, generator=gen).to(cuda)
+    y = torch.randint(0, 4, (64,), generator=gen, dtype=torch.int32).to(cuda)
+    m.fit(x, y, epochs=1, trace_window=4, verbose=False)
+    ns = m.executor._prog_ns
+    progs = {e["name"]: e for e in GLOBAL_PROGRAMS.snapshot() if e["name"].startswith(ns + ".")}
+    assert set(progs) == {f"{ns}.train_window[4]"} and progs[f"{ns}.train_window[4]"]["traces"] == 1
+    assert m.executor.graph_captures == 1
+    entry = next(e for e in GLOBAL_LEDGER.report()["entries"] if e["key"] == f"{ns}.train_step")
+    assert entry["predicted_s"] > 0 and entry["pairs"] == 1
+
+
+def test_cuda_dataloader_gathers_natively_into_pinned_memory(cuda):
+    import flexflow_tpu_torch._native as native
+    from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
+
+    data = torch.randn(40, 3, 5).to(torch.bfloat16)
+    loader = SingleDataLoader(data, 8, shuffle=True, seed=2)
+    native.reset_call_counts()
+    order = np.random.RandomState(2).permutation(40)
+    for i, b in enumerate(loader.batches()):
+        assert b.device.type == "cuda"
+        want = data[torch.from_numpy(order[i * 8:(i + 1) * 8])]
+        assert torch.equal(b.cpu().view(torch.int16), want.view(torch.int16))
+    assert native.CALLS["batch_gather"] == 5
