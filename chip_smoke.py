@@ -182,6 +182,29 @@ prints no result line):
    /metrics with the fleet families). Tokens/s, TTFT p50 and the steady
    decode ms per step of each beside the single engine's, the handoff's
    pack and import ms and bytes, the replacement's spawn-and-capture s.
+13a. tp: tensor-parallel serving (``generation/sharding.py``,
+   ``parallel/distributed.py``). Kernel parity in this process: for tp
+   2, 3 and 4 over the 12 heads, each rank's head slice through its own
+   paged launch (decode W = 1, verify W = 5, a W = 64 tensor-core window,
+   a split table of context 931 at S = 8; fp32 and bf16 caches), joined
+   and held against the plain full-head version at atol 1e-4 + rtol
+   1e-4. Then GPT-2 small behind a tp=2 engine whose two ranks share the
+   card over gloo (``serving_mesh(2, ["cuda:0"] * 2, backend="gloo")``,
+   6 heads a rank, eager steps) through the scheduler: the serving
+   cell's streams equal to the tp=1 graph engine's (a greedy stream may
+   part only at a near tie: the tp=1 top-2 logit gap and the two
+   engines' logits both within 1e-3, the margin printed), 12 paged
+   launches a decode step counted in each rank's process; k = 4
+   speculation and the prefix cell (prefix cache on in both engines,
+   equal hits) against the tp=1 engine; a ``generation.collective``
+   restart (nth 2 and 3) equal to the fault-free run; one HTTP generate
+   through ``InferenceServer``; the gauges (tp_degree 2,
+   cache_shard_heads 6) and ``from_budget(kv_shards=2)`` buying twice
+   the blocks. Printed, not gated: steady 4-slot decode ms a step of the
+   tp=1 and tp=2 engines in turns, each rank's ms a step inside its
+   all-reduces, each rank's peak memory, the phase's seconds. The NCCL
+   leg (ranks on cuda:0 and cuda:1) runs where there are two GPUs; on one
+   card a line says it was not run.
 13b. tools: the port's serving tools (``flexflow_tpu_torch/tools``)
    through their own functions at GPT-2-small width: genbench's base
    mode twice (one capture per prefill bucket and one decode, none in
@@ -3774,6 +3797,342 @@ def fleet_phase(seed: int, params, cell, prefix_cell) -> dict:
 
 
 # the tools phase's loadgen legs: (name, rate/s, seconds, seed)
+TP_DEGREE = 2  # ranks of the tp phase, both on the one card, over gloo
+TP_PARITY_DEGREES = (2, 3, 4)
+
+
+def tp_kernel_parity(seed: int) -> dict:
+    """The tp phase's kernel parity, in this process: for tp 2, 3 and 4
+    over GPT-2 small's 12 heads (D 64, block 16), each rank's contiguous
+    head slice of q and the caches through the paged kernels (one launch
+    a rank: ``sharded_paged_append_attention``), the slices joined and
+    held against the plain full-head version at atol 1e-4 + rtol 1e-4:
+    decode (W = 1), verify (W = 5), a tensor-core window (W = 64) and a
+    split table (context 931, S = 8), over fp32 and bf16 caches. Returns
+    the largest error and the launches (not the main path's)."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    rs = np.random.RandomState(seed + 27)
+    gen = torch.Generator().manual_seed(seed + 27)
+    nb, bs, h, d, mb = 257, 16, 12, 64, 64
+
+    def tables_for(ctx_lens):
+        t = np.zeros((len(ctx_lens), mb), np.int32)
+        perm = rs.permutation(np.arange(1, nb)).astype(np.int32)
+        used = 0
+        for i, n in enumerate(ctx_lens):
+            nblk = -(-int(n) // bs)
+            t[i, :nblk] = perm[used:used + nblk]
+            used += nblk
+        return t
+
+    ctx = np.asarray([731, 18, 0, 377], np.int32)
+    base = np.asarray([700, 40, 0, 300], np.int32)
+    w5 = base[:, None] + np.arange(5, dtype=np.int32)[None, :]
+    w5[1, 3:] = -1
+    w5[2, :] = -1
+    w64 = np.full((1, 64), -1, np.int32)
+    w64[0, :54] = 700 + np.arange(54)
+    ctx1 = np.asarray([931], np.int32)
+    cases = {
+        "decode W=1": (tables_for(ctx), (ctx - 1)[:, None].astype(np.int32), 1),
+        "verify W=5": (tables_for(base + 5), w5.astype(np.int32), 1),
+        "tensor-core W=64": (tables_for([754]), w64, 1),
+        "split ctx 931 S=8": (tables_for(ctx1), (ctx1 - 1)[:, None].astype(np.int32), 8),
+    }
+    worst, n_checks = 0.0, 0
+    da.reset_launch_counts()
+    for kv_dtype in (torch.float32, torch.bfloat16):
+        form = da._FORMS[kv_dtype][1]
+        for case, (tables, qpos, s) in cases.items():
+            (q, k, v, bt, qp), = paged_inputs(gen, nb, bs, h, d, tables, qpos, 1, kv_dtype)
+            want = da.reference_paged_append_attention(q, k, v, bt, qp)
+            kernel = ("paged_append" if s == 1 else "paged_append_split") + form
+            for tp in TP_PARITY_DEGREES:
+                before = da.LAUNCHES[kernel]
+                got = da.sharded_paged_append_attention(q, k, v, bt, qp, tp, kv_splits=s)
+                if da.LAUNCHES[kernel] - before != tp:
+                    raise AssertionError(f"tp {tp} {case}: {da.LAUNCHES[kernel] - before} "
+                                         f"{kernel} launches, expected one a rank")
+                name = f"tp {tp} {case} {str(kv_dtype).replace('torch.', '')}"
+                worst = max(worst, check_close(f"{name}: ranks' slices vs plain", got, want))
+                n_checks += 1
+    out = {"max_abs_err": worst, "checks": n_checks, "launches": dict(da.LAUNCHES)}
+    print("tp kernel parity (each rank's heads through its own launch, joined, vs the plain "
+          "full-head version): " + json.dumps(out))
+    return out
+
+
+def tp_ranks_launches(engine) -> dict:
+    """The paged kernels' launches summed over the engine's ranks, each
+    counted in its own process."""
+    total: dict = {}
+    for info in engine.rank_info():
+        for name, n in info["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def tp_check_streams(name, got, want, prompts, samplings, ref_engine, tp_engine) -> list:
+    """Streams equal, or a greedy stream that parts at a token where the
+    reference engine's top-2 logit gap is under LOGITS_ATOL and the two
+    engines' logits agree within it (a near tie, not a fault). Returns
+    the margins printed for such streams."""
+    import torch
+
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+
+    margins = []
+    for i, (g, w, s) in enumerate(zip(got, want, samplings)):
+        if g == w:
+            continue
+        if s.temperature > 0 or len(g) != len(w):
+            raise AssertionError(f"{name}: stream {i} differs from the tp=1 engine's")
+        j = next(k for k, (a, b) in enumerate(zip(g, w)) if a != b)
+        prefix = list(prompts[i]) + list(w[:j])
+        logits = []
+        for eng in (ref_engine, tp_engine):
+            eng.generate([prefix], SamplingParams(max_new_tokens=1))
+            logits.append(eng.last_logits.float().clone())
+        top2 = torch.topk(logits[0], 2).values
+        gap, diff = float(top2[0] - top2[1]), float((logits[0] - logits[1]).abs().max())
+        margins.append({"stream": i, "token": j, "top2_gap": gap, "logits_diff": diff})
+        print(f"{name}: stream {i} parts at token {j}: tp=1 top-2 gap {gap:.3e}, "
+              f"logits tp=1 vs tp={TP_DEGREE} {diff:.3e} (tolerance {LOGITS_ATOL})")
+        if not (gap < LOGITS_ATOL and diff <= LOGITS_ATOL):
+            raise AssertionError(f"{name}: stream {i} differs at token {j} beyond a near tie")
+    return margins
+
+
+def tp_steady_ms(engine, prompts, steps: int = 32) -> dict:
+    """Host ms a decode step, four slots decoding ``steps`` steps with
+    nothing else in between (the scheduler's default loop); for a
+    tensor-parallel engine also each rank's host ms a step inside its
+    all-reduces (staging and waiting for the peer included)."""
+    import torch
+
+    from flexflow_tpu_torch.generation.engine import SamplingParams
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+
+    sched = ContinuousBatchingScheduler(engine)
+    handles = [sched.submit(p, SamplingParams(max_new_tokens=steps + 8)) for p in prompts]
+    sched.step()
+    sched.step()
+    torch.cuda.synchronize()
+    tp = engine.tp_degree > 1
+    if tp:
+        engine.reset_rank_counters()
+    d0 = engine.step_counts["decode"]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = max(engine.step_counts["decode"] - d0, 1)
+    out = {"ms_per_step": 1e3 * wall / n}
+    if tp:
+        out["all_reduce_ms_per_step"] = [1e3 * r["all_reduce_s"] / n
+                                         for r in engine.rank_info()]
+    while not all(h.done() for h in handles):
+        sched.step()
+    return out
+
+
+def tp_phase(seed: int, params, cell, tp1) -> dict:
+    """Tensor-parallel serving on the card (``generation/sharding.py``,
+    ``parallel/distributed.py``): the kernel parity of every rank's head
+    slice, then GPT-2 small behind a tp=2 engine whose two ranks share
+    the one H100 over gloo (``backend="gloo"``, 6 heads a rank), through
+    the scheduler: the serving cell's streams equal to the tp=1 graph
+    engine's (``tp1``), 12 paged launches a decode step in each rank,
+    k = 4 speculation, the prefix cell, a ``generation.collective``
+    restart, one HTTP generate, the gauges; the steady decode ms a step
+    of both engines in turns (printed, not gated); the NCCL leg where
+    there are two GPUs."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.generation.cache import CacheConfig
+    from flexflow_tpu_torch.generation.engine import GenerationEngine
+    from flexflow_tpu_torch.generation.recovery import RecoveryPolicy
+    from flexflow_tpu_torch.generation.scheduler import ContinuousBatchingScheduler
+    from flexflow_tpu_torch.generation.speculative import SpeculationConfig
+    from flexflow_tpu_torch.parallel.mesh import serving_mesh
+    from flexflow_tpu_torch.runtime import faults
+    from flexflow_tpu_torch.serving import GenerationModel, InferenceServer
+
+    t_phase = time.perf_counter()
+    cfg = gpt2_small()
+    parity = tp_kernel_parity(seed)
+    prompts, samplings, streams = cell
+    out = {"parity": parity, "launches": {}, "legs": {}}
+
+    def add_launches(counts):
+        for name, n in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+
+    mesh = serving_mesh(TP_DEGREE, ["cuda:0"] * TP_DEGREE, backend="gloo")
+    t0 = time.perf_counter()
+    eng = GenerationEngine(params, cfg, mesh=mesh, max_batch_slots=4, block_size=16,
+                           prefix_cache=False)
+    out["start_s"] = time.perf_counter() - t0
+    try:
+        ss = eng.serving_strategy_block()
+        if (eng.cache_config.num_blocks != 257 or eng.graphs or ss["tp_degree"] != TP_DEGREE
+                or ss["transport"] != "gloo" or ss["layout"]["kv_heads_per_shard"] != 6):
+            raise AssertionError(f"tp engine: {eng.cache_config}, graphs {eng.graphs}, {ss}")
+        # the serving cell: the tp=1 engine's streams, 12 launches a decode
+        # step in each rank, each rank holding 6 heads
+        eng.reset_rank_counters()
+        decode0 = eng.step_counts["decode"]
+        handles, wall, ttft, _ = serve(eng, prompts, samplings)
+        got = [h.result(0) for h in handles]
+        steps = eng.step_counts["decode"] - decode0
+        info = eng.rank_info()
+        for r in info:
+            la = r["launches"]
+            if (la["paged_append"] != cfg.num_layers * steps or la["paged_append_split"]
+                    or r["cache_heads"] != 6 or r["wq_heads"] != 6):
+                raise AssertionError(f"tp rank {r['rank']}: launches {la}, cache heads "
+                                     f"{r['cache_heads']}, wq heads {r['wq_heads']} over "
+                                     f"{steps} decode steps")
+        add_launches(tp_ranks_launches(eng))
+        margins = tp_check_streams("tp serving", got, streams, prompts, samplings, tp1, eng)
+        out["legs"]["serving"] = {
+            "decode_steps": steps, "wall_s": wall, "ttft_p50_s": float(np.median(ttft)),
+            "launches_per_rank": [r["launches"]["paged_append"] for r in info],
+            "all_reduces_per_rank": [r["collectives"]["all_reduce"] for r in info],
+            "near_ties": margins}
+        print("tp serving (GPT-2 small, 2 ranks on one card over gloo, 4 slots): "
+              + json.dumps(out["legs"]["serving"]))
+        tp_streams = got
+
+        # k = 4 speculation, against the tp=1 engine's
+        spec = SpeculationConfig(k=4, method="ngram")
+        want = [h.result(0) for h in serve(tp1, prompts, samplings, speculation=spec)[0]]
+        eng.reset_rank_counters()
+        got = [h.result(0) for h in serve(eng, prompts, samplings, speculation=spec)[0]]
+        add_launches(tp_ranks_launches(eng))
+        out["legs"]["speculation"] = {
+            "verify_steps": eng.step_counts["verify"],
+            "near_ties": tp_check_streams("tp speculation", got, want, prompts, samplings,
+                                          tp1, eng)}
+
+        # the prefix cell, the prefix cache on in both engines
+        p_prompts, p_samplings = prefix_cell_requests(np.random.RandomState(seed + 1),
+                                                      cfg.vocab_size)
+        runs = []
+        for e in (tp1, eng):
+            clear_prefix_cache(e)
+            e.prefix_cache.enabled = True
+            hits0 = e.prefix_cache.hits
+            try:
+                if e is eng:
+                    eng.reset_rank_counters()
+                runs.append(([h.result(0) for h in serve(e, p_prompts, p_samplings)[0]],
+                             e.prefix_cache.hits - hits0))
+                if e is eng:
+                    add_launches(tp_ranks_launches(eng))
+            finally:
+                e.prefix_cache.enabled = False
+                clear_prefix_cache(e)
+        if runs[1][1] < 1 or runs[1][1] != runs[0][1]:
+            raise AssertionError(f"tp prefix cell: hits tp=1 {runs[0][1]}, tp=2 {runs[1][1]}")
+        out["legs"]["prefix"] = {"hits": runs[1][1], "near_ties": tp_check_streams(
+            "tp prefix", runs[1][0], runs[0][0], p_prompts, p_samplings, tp1, eng)}
+
+        # a failed collective at the 2nd and 3rd decode steps: reset of
+        # every rank's shard and journal replay, the fault-free streams
+        plan = faults.FaultPlan(seed=0)
+        plan.on(faults.GENERATION_COLLECTIVE, mode="error",
+                error=RuntimeError("collective down"), nth=(2, 3))
+        sched = ContinuousBatchingScheduler(eng, recovery=RecoveryPolicy(sleep=lambda _s: None))
+        eng.reset_rank_counters()
+        with plan.active():
+            hs = [sched.submit(p, s) for p, s in zip(prompts, samplings)]
+            for _ in range(10_000):
+                if all(h.done() for h in hs):
+                    break
+                sched.step()
+        add_launches(tp_ranks_launches(eng))
+        got = [h.result(0) for h in hs]
+        rec = sched.recovery_stats
+        if got != tp_streams or rec.recoveries < 1 or plan.fired(faults.GENERATION_COLLECTIVE) < 1:
+            raise AssertionError(f"tp restart leg: streams equal {got == tp_streams}, "
+                                 f"recoveries {rec.recoveries}, fired "
+                                 f"{plan.fired(faults.GENERATION_COLLECTIVE)}")
+        out["legs"]["restart"] = {"recoveries": rec.recoveries,
+                                  "replayed_tokens": rec.replayed_tokens,
+                                  "fired": plan.fired(faults.GENERATION_COLLECTIVE),
+                                  "resets": eng.resets}
+
+        # one HTTP generate through InferenceServer, the gauges and metadata
+        model = GenerationModel(eng, name="lm")
+        srv = InferenceServer(port=0)
+        srv.register_generation(model)
+        srv.start()
+        eng.reset_rank_counters()
+        try:
+            base = f"http://127.0.0.1:{srv.port}"
+            res = http_generate(base, {"prompt": prompts[0], "max_new_tokens": 32})
+            with urllib.request.urlopen(base + "/v2/models/lm", timeout=60) as r:
+                meta = json.loads(r.read())
+            gauges = model.stats.gauge_values()
+        finally:
+            srv.stop()
+        add_launches(tp_ranks_launches(eng))
+        if res["tokens"] != streams[0]:
+            raise AssertionError("tp HTTP generate differs from the tp=1 engine's stream")
+        if (gauges["tp_degree"] != TP_DEGREE or gauges["cache_shard_heads"] != 6
+                or gauges["mesh_devices"] != TP_DEGREE
+                or meta["serving_strategy"]["transport"] != "gloo"):
+            raise AssertionError(f"tp gauges {gauges} / metadata {meta['serving_strategy']}")
+        per_block = 2 * cfg.num_layers * 16 * cfg.num_heads * 64 * 4
+        budget = 100 * per_block
+        one, two = (CacheConfig.from_budget(budget, cfg.num_layers, cfg.num_heads, 64, 16,
+                                            kv_shards=n).num_blocks for n in (1, TP_DEGREE))
+        if two != TP_DEGREE * one:
+            raise AssertionError(f"from_budget(kv_shards=2) buys {two} blocks, 1 shard {one}")
+        out["gauges"] = {k: gauges[k] for k in ("tp_degree", "mesh_devices", "cache_shard_heads",
+                                                "cache_shard_bytes")}
+
+        # steady decode ms a step, tp=1 (graphs) and tp=2 (eager, gloo
+        # host-staged), in turns
+        rs = np.random.RandomState(seed + 2)
+        steady_prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in (300, 40, 128, 512)]
+        out["peak_memory_bytes_per_rank"] = [r["max_memory_allocated"] for r in eng.rank_info()]
+        times = {"tp1": [], f"tp{TP_DEGREE}": []}
+        for name, e in (("tp1", tp1), (f"tp{TP_DEGREE}", eng), (f"tp{TP_DEGREE}", eng),
+                        ("tp1", tp1)):
+            times[name].append(tp_steady_ms(e, steady_prompts))
+        out["steady_decode"] = times
+    finally:
+        eng.close()
+
+    # NCCL: ranks on distinct GPUs, where the machine has two
+    if torch.cuda.device_count() >= 2:
+        eng = GenerationEngine(params, cfg, mesh=serving_mesh(2), max_batch_slots=4,
+                               block_size=16, prefix_cache=False)
+        try:
+            got = [h.result(0) for h in serve(eng, prompts, samplings)[0]]
+            tp_check_streams("tp nccl", got, streams, prompts, samplings, tp1, eng)
+            out["nccl"] = "ran: streams equal to tp=1"
+        finally:
+            eng.close()
+    else:
+        out["nccl"] = ("not run: one CUDA device (NCCL cannot put two ranks of one "
+                       "communicator on one device)")
+    print(f"tp nccl leg: {out['nccl']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("tp: " + json.dumps({k: v for k, v in out.items() if k != "parity"}))
+    return out
+
+
 TOOLS_LEGS = (("under capacity", 12.0, 4.0, 1), ("overload", 80.0, 2.0, 2))
 TOOLS_MAX_QUEUE = 16
 # the ledger export's device tag on the card (``compute.chip``), and a tag
@@ -7635,6 +7994,7 @@ def main(argv=None) -> int:
     server = server_phase(args.seed, params)
     durable = durable_phase(args.seed, params, cell)
     fleet = fleet_phase(args.seed, params, cell, prefix.pop("cell"))
+    tp = tp_phase(args.seed, params, cell, engines["graph"])
     tools = tools_phase(args.seed, params, card)
     anatomy = anatomy_phase(engines, args.seed)
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
@@ -7701,6 +8061,7 @@ def main(argv=None) -> int:
                + prefix["launches"]["paged_append"] + overlap["launches"]["paged_append"]
                + constrained["launches"]["paged_append"] + server["launches"]["paged_append"]
                + durable["launches"]["paged_append"] + fleet["launches"]["paged_append"]
+               + tp["launches"]["paged_append"]
                + tools["launches"]["paged_append"]
                + suffix_bodies["float"]["launches"]["paged_append"]),
         record("paged_append_split", "flexflow_tpu/ops/kernels/decode_attention.py:338",

@@ -14,7 +14,8 @@ Which functions are captured step bodies (the same anchors as the JAX
 rule's traced bodies): a function is in scope when its name is
 
 * the body an engine step registers through ``note_trace`` and runs:
-  passed to ``<runner>.dispatch(sig, arrays, body)`` (third argument or
+  passed to ``<runner>.dispatch(sig, arrays, body)`` or
+  ``<engine>._dispatch_step(sig, arrays, body, ...)`` (third argument or
   ``body=``) or ``<engine>._run(kind, shape, arrays, body, ...)``
   (fourth argument), or
 * a body ``runtime/step_graph.py::StepGraph`` captures: passed to
@@ -55,7 +56,7 @@ _CONCRETIZERS = {"int", "float", "bool"}
 _HOST_METHODS = {"item", "cpu", "tolist", "numpy"}
 _NP_ROOTS = {"np", "numpy"}
 # call name -> the positional index of its step-body argument
-_BODY_ARGS = {"dispatch": 2, "_run": 3, "StepGraph": 1, "_step_graph": 1}
+_BODY_ARGS = {"dispatch": 2, "_dispatch_step": 2, "_run": 3, "StepGraph": 1, "_step_graph": 1}
 
 
 def _param_names(args: ast.arguments) -> Set[str]:

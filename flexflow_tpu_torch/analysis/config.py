@@ -53,6 +53,10 @@ CLOCK_WHITELIST: Dict[str, Union[str, FrozenSet[str]]] = {
     # (g++): how long a compile took is physical wall time.
     "flexflow_tpu_torch/ops/kernels/_build.py": frozenset({"perf_counter"}),
     "flexflow_tpu_torch/_native/__init__.py": frozenset({"perf_counter"}),
+    # The tensor-parallel group's all-reduce seconds: how long a rank
+    # waited inside its collectives is physical profiling data, like the
+    # engine's phase spans (perf_counter only).
+    "flexflow_tpu_torch/parallel/distributed.py": frozenset({"perf_counter"}),
 }
 
 # Paths where clock-discipline runs in STRICT virtual-time mode: ANY

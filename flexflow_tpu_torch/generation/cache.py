@@ -93,10 +93,9 @@ class CacheConfig:
         blocks). Raises when the heads do not divide across the shards,
         or when the budget cannot hold even scratch + one usable block.
         """
-        if kv_shards < 1 or num_heads % kv_shards != 0:
-            raise ValueError(
-                f"{num_heads} heads do not shard evenly over {kv_shards} device(s)"
-            )
+        from .sharding import validate_kv_shards
+
+        validate_kv_shards(num_heads, kv_shards)
         per_block = 2 * num_layers * block_size * num_heads * head_dim * dtype.size_bytes
         num_blocks = budget_bytes * kv_shards // per_block
         if num_blocks < 2:
@@ -162,17 +161,22 @@ class KVCache:
 
     @classmethod
     def create(cls, config: CacheConfig,
-               device: Optional[Union[str, torch.device]] = None) -> "KVCache":
+               device: Optional[Union[str, torch.device]] = None,
+               kv_shards: int = 1) -> "KVCache":
         """Zeroed storage on ``device``: the GPU unless the caller asks
-        for the CPU (``core/device.py::resolve_device``)."""
+        for the CPU (``core/device.py::resolve_device``). ``kv_shards``
+        > 1 makes one rank's part of a tensor-parallel cache
+        (``sharding.py``): ``H / kv_shards`` heads of every block."""
         from ..core.device import resolve_device
+        from .sharding import validate_kv_shards
 
+        validate_kv_shards(config.num_heads, kv_shards)
         device = resolve_device(device)
         shape = (
             config.num_layers,
             config.num_blocks,
             config.block_size,
-            config.num_heads,
+            config.num_heads // kv_shards,
             config.head_dim,
         )
         return cls(

@@ -21,6 +21,15 @@ front end with an LM head.
 ``decode_step`` and ``verify_step`` write K/V into ``cache_k``/``cache_v``
 IN PLACE (the JAX forwards return new arrays); they return the same
 tensors so the call shape matches the JAX package.
+
+Tensor parallelism (``sharding.py``): every forward takes ``tp``, the
+calling rank's :class:`~.sharding.RankContext`, or None on one device.
+With ``tp`` the parameters and the caches are the rank's slices (H/N
+heads; the FFN's F/N columns when it is sharded) and each layer runs two
+sum all-reduces: after the head-split output projection and after the
+row-split FFN down projection (none there when the FFN stays whole). The
+down projection's bias and the residuals are added once, after the
+reduce, so every rank holds the same activations, logits and samples.
 """
 from __future__ import annotations
 
@@ -115,9 +124,13 @@ def _embed(params, tokens, positions):
     return params["tok_embed"][tokens.long()] + params["pos_embed"][positions.long()]
 
 
-def _ffn(layer, x):
+def _ffn(layer, x, tp=None):
     h = _ln(x, layer["ln2_g"], layer["ln2_b"])
     h = F.gelu(h @ layer["ff1"] + layer["ff1_b"], approximate="tanh")
+    if tp is not None and tp.ffn_sharded:
+        # the row-split down projection's partial sums, reduced before
+        # the bias (added once)
+        return x + tp.all_reduce(h @ layer["ff2"]) + layer["ff2_b"]
     return x + h @ layer["ff2"] + layer["ff2_b"]
 
 
@@ -127,10 +140,12 @@ def _heads(x, w):
     return (x @ w.reshape(e, h * d)).reshape(*x.shape[:-1], h, d)
 
 
-def _merge(ctx, wo):
-    """ctx [..., H, D] @ wo [H, D, E] -> [..., E]."""
+def _merge(ctx, wo, tp=None):
+    """ctx [..., H, D] @ wo [H, D, E] -> [..., E]; with ``tp``, the
+    ranks' partial sums over their heads, reduced."""
     h, d, e = wo.shape
-    return ctx.reshape(*ctx.shape[:-2], h * d) @ wo.reshape(h * d, e)
+    out = ctx.reshape(*ctx.shape[:-2], h * d) @ wo.reshape(h * d, e)
+    return out if tp is None else tp.all_reduce(out)
 
 
 def _write_kv(cache, layer_idx, slots, kv):
@@ -145,14 +160,15 @@ def forward_full(
     params: DecoderParams,
     tokens: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Full-context causal forward: [B, S] int -> logits [B, S, V].
     ``lengths`` masks padded key positions (bucketed prompts)."""
-    logits, _, _ = _forward(params, tokens, lengths, keep_kv=False)
+    logits, _, _ = _forward(params, tokens, lengths, keep_kv=False, tp=tp)
     return logits
 
 
-def _forward(params, tokens, lengths, keep_kv):
+def _forward(params, tokens, lengths, keep_kv, tp=None):
     b, s = tokens.shape
     pos = torch.arange(s, device=tokens.device)[None, :]
     x = _embed(params, tokens, pos)
@@ -167,8 +183,8 @@ def _forward(params, tokens, lengths, keep_kv):
             ks.append(k)
             vs.append(v)
         ctx = masked_attention(q, k, v, lens, causal=True)
-        x = x + _merge(ctx, layer["wo"])
-        x = _ffn(layer, x)
+        x = x + _merge(ctx, layer["wo"], tp)
+        x = _ffn(layer, x, tp)
     x = _ln(x, params["final_ln_g"], params["final_ln_b"])
     return x @ params["lm_head"], ks, vs
 
@@ -177,10 +193,12 @@ def prefill(
     params: DecoderParams,
     tokens: torch.Tensor,
     lengths: torch.Tensor,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill forward: logits [B, S, V] plus every layer's K/V
-    ([L, B, S, H, D] each) for the engine to write into the cache."""
-    logits, ks, vs = _forward(params, tokens, lengths, keep_kv=True)
+    ([L, B, S, H, D] each; with ``tp``, the rank's heads) for the engine
+    to write into the cache."""
+    logits, ks, vs = _forward(params, tokens, lengths, keep_kv=True, tp=tp)
     return logits, torch.stack(ks), torch.stack(vs)
 
 
@@ -193,6 +211,7 @@ def decode_step(
     block_tables: torch.Tensor,
     context_lens: torch.Tensor,
     backend: str = "auto",
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for every batch slot.
 
@@ -218,10 +237,11 @@ def decode_step(
         _write_kv(cache_k, li, slots, k)
         _write_kv(cache_v, li, slots, v)
         ctx = decode_attention_core(
-            q, cache_k[li], cache_v[li], block_tables, context_lens, backend=backend
+            q, cache_k[li], cache_v[li], block_tables, context_lens, backend=backend,
+            shard=tp,
         )
-        x = x + _merge(ctx, layer["wo"])
-        x = _ffn(layer, x)
+        x = x + _merge(ctx, layer["wo"], tp)
+        x = _ffn(layer, x, tp)
     x = _ln(x, params["final_ln_g"], params["final_ln_b"])
     return x @ params["lm_head"], cache_k, cache_v
 
@@ -234,6 +254,7 @@ def verify_step(
     cache_v: torch.Tensor,
     block_tables: torch.Tensor,
     backend: str = "auto",
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One chunked-append (speculative verification) step for every
     batch slot.
@@ -260,9 +281,10 @@ def verify_step(
         _write_kv(cache_k, li, flat_slots, k.reshape(-1, *k.shape[2:]))
         _write_kv(cache_v, li, flat_slots, v.reshape(-1, *v.shape[2:]))
         ctx = append_attention_core(
-            q, cache_k[li], cache_v[li], block_tables, positions, backend=backend
+            q, cache_k[li], cache_v[li], block_tables, positions, backend=backend,
+            shard=tp,
         )
-        x = x + _merge(ctx, layer["wo"])
-        x = _ffn(layer, x)
+        x = x + _merge(ctx, layer["wo"], tp)
+        x = _ffn(layer, x, tp)
     x = _ln(x, params["final_ln_g"], params["final_ln_b"])
     return x @ params["lm_head"], cache_k, cache_v

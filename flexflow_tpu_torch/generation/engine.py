@@ -71,6 +71,25 @@ persistent device tensor of zeros that the graphs read; a fault plan's
 ``nan`` mode writes NaN into it in place for one step, which makes the
 poison indistinguishable from model-produced NaN to the finiteness flags.
 
+Tensor-parallel serving (``sharding.py``, ``parallel/distributed.py``):
+``tp_degree=N`` (or ``mesh=`` / ``mesh_devices=``, as in the JAX engine)
+splits the decoder and the cache over N ranks by KV heads. This engine is
+rank 0: it keeps all host state (allocator, tables, prefix index,
+sampling, ledger, programs) and starts ranks 1..N-1 itself, each a
+``spawn`` process holding an engine of its own shard
+(:func:`_rank_engine`). Everything that touches the cache is one call on
+the group: rank 0 sends the op and its host inputs to every rank, then
+runs the same op on its own shard (the step bodies with their two sum
+all-reduces a layer, the block programs, the handoff's packs and imports,
+``reset``). Reads of blocks gather every rank's heads to rank 0 (the
+handoff's wire keeps full-head blocks, as in the JAX package); writes
+send each rank its own heads. Every rank samples alike from the same
+logits, and only rank 0's tokens are read. A tp > 1 engine runs its step
+bodies eagerly (a CUDA graph cannot capture a gloo collective), and its
+``generation.collective`` fault site fires on rank 0 before each decode
+and verify step's command is sent. :meth:`GenerationEngine.close` stops
+the ranks (a finalizer does it for an engine never closed).
+
 Constrained decoding (``constrained/``): every step kind adds a grammar
 mask to its logits before sampling, as the JAX engine's programs do —
 [V] at prefill and suffix prefill (after the finiteness flag, which must
@@ -99,6 +118,7 @@ from ..obs.truth import PredictionLedger
 from ..runtime import faults
 from .cache import BlockAllocator, CacheConfig, KVCache, slot_mapping
 from . import prng
+from .sharding import RankContext, ServingLayout
 from .decoder import DecoderParams, decode_step, params_to, prefill, verify_step
 from .prefix import (
     KVHandoffPayload,
@@ -221,11 +241,12 @@ class InFlightDecode:
     this step only starts executing then."""
 
     __slots__ = ("handle", "t0", "t_disp", "t_started", "n_active", "n_slots", "ctx_sum",
-                 "traced", "consumed")
+                 "traced", "consumed", "seq")
 
     def __init__(self, handle: InFlight, t0: float, t_disp: float, n_active: int,
-                 n_slots: int, ctx_sum: int, traced: bool):
+                 n_slots: int, ctx_sum: int, traced: bool, seq: int = 0):
         self.handle = handle
+        self.seq = seq  # the engine's decode dispatch number (the ranks' carry key)
         self.t0 = t0
         self.t_disp = t_disp
         self.t_started = t_disp
@@ -265,7 +286,17 @@ class GenerationEngine:
     false on the CPU, true on an accelerator. With it set, a failed step
     is not retried or bisected: the supervisor resets the engine and
     replays the journal (the JAX engine's steps then donate their cache
-    buffers, so a failed step has consumed its inputs)."""
+    buffers, so a failed step has consumed its inputs).
+
+    Tensor parallelism, three ways in, as in the JAX engine: ``mesh=`` an
+    explicit :class:`~flexflow_tpu_torch.parallel.mesh.ServingMesh` (its
+    ranks' devices and transport), ``tp_degree=N`` a pinned degree (on the
+    first N GPUs from ``device``, or N CPU ranks for ``device="cpu"``), or
+    ``mesh_devices=N`` the devices to serve on, the degree chosen by the
+    serving-layout search (``search/serving_strategy.py``). All None is the
+    single-device engine; ``tp_degree=1`` is that engine too, bit for bit.
+    Every collective and every wait on a rank is bounded by
+    ``parallel/distributed.py``'s ``DEFAULT_TIMEOUT_S``."""
 
     def __init__(
         self,
@@ -285,21 +316,49 @@ class GenerationEngine:
         device=None,
         eager_steps: bool = False,
         donate: Optional[bool] = None,
+        mesh=None,
+        tp_degree: Optional[int] = None,
+        mesh_devices: Optional[int] = None,
+        _rank: Optional[RankContext] = None,
     ):
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.max_seq_len = max_seq_len or cfg.seq_length
         self.max_batch_slots = max_batch_slots
+        # ------------------------------------------------- serving mesh
+        # the layout (rank 0 of a group, or any engine given mesh
+        # arguments), the search's choice, the group of ranks (rank 0 with
+        # tp > 1) and this rank's context for the decoder (None on one
+        # device); a worker rank is built with its context (_rank)
+        self.layout: Optional[ServingLayout] = None
+        self.serving_strategy = None
+        self._group = None
+        self._tp = _rank
+        if _rank is None and (mesh is not None or tp_degree is not None
+                              or mesh_devices is not None):
+            self.device = self._plan_layout(mesh, tp_degree, mesh_devices, device)
+        else:
+            self.device = resolve_device(device)
+        if _rank is not None:
+            self.tp_degree = self.mesh_devices = _rank.tp_degree
+        else:
+            self.tp_degree = self.layout.tp_degree if self.layout else 1
+            self.mesh_devices = self.layout.mesh.size if self.layout else 1
+        full_params = params
+        if _rank is None and self.tp_degree > 1:
+            params = self.layout.shard_params(params, 0)
         self.params = params_to(params, self.device)
         if cache_config is None:
             head_dim = cfg.hidden_size // cfg.num_heads
             if cache_budget_bytes is not None:
+                # a per-device budget: each rank holds H / tp heads of
+                # every block, so the same budget buys tp x the blocks
                 cache_config = CacheConfig.from_budget(
                     cache_budget_bytes,
                     num_layers=cfg.num_layers,
                     num_heads=cfg.num_heads,
                     head_dim=head_dim,
                     block_size=block_size,
+                    kv_shards=self.tp_degree,
                 )
             else:
                 # enough for every slot to reach max_seq_len (discounted
@@ -314,7 +373,7 @@ class GenerationEngine:
                     expected_prefix_sharing=expected_prefix_sharing,
                 )
         self.cache_config = cache_config
-        self.cache = KVCache.create(cache_config, device=self.device)
+        self.cache = KVCache.create(cache_config, device=self.device, kv_shards=self.tp_degree)
         self.allocator = BlockAllocator(cache_config)
         self.max_blocks_per_seq = cache_config.blocks_for(self.max_seq_len)
         self.buckets = tuple(sorted(prompt_buckets or default_buckets(self.max_seq_len)))
@@ -382,13 +441,18 @@ class GenerationEngine:
         # that wrote any
         self.mask_bytes_staged = 0
         self.masked_step_count = 0
-        self.graphs = self.device.type == "cuda" and not eager_steps
+        # a CUDA graph cannot capture a gloo collective: a tp > 1 engine
+        # runs its step bodies eagerly, on either transport
+        self.graphs = self.device.type == "cuda" and not eager_steps and self.tp_degree == 1
         self._steps = StepRunner(self.device, self.graphs)
         # the serving roofline (the device's preset peaks): prefix_plan
         # weighs a swap-in against a recompute with it, MFU divides by its
         # peak, and the truth ledger predicts each step from it
+        # over the mesh's aggregate chip (peaks x the degree), as the JAX
+        # engine's mesh_device_kind: a tp-way engine's MFU divides by the
+        # mesh's peak
         self.flops_model = ServingFlops.from_config(
-            cfg, dtype=cache_config.dtype, chip=chip_spec_for(self.device)
+            cfg, dtype=cache_config.dtype, chip=chip_spec_for(self.device, self.tp_degree)
         )
         # useful model FLOPs per step kind (true prompt lengths and live
         # context only), accrued on success next to the time they pair with
@@ -405,15 +469,177 @@ class GenerationEngine:
         # host-tier block writes so far: the JAX engine compiles its block
         # writer at the first, whose swap-in it keeps out of the ledger
         self._block_writes = 0
-        # one GPU until the tensor-parallel engine is ported
-        self.tp_degree = 1
-        self.mesh_devices = 1
         # cross-request prefix caching (prefix.py): radix index +
         # refcounted copy-on-write blocks + host-RAM offload tier; its
         # block programs run at admission only, outside the step graphs
         self.prefix_cache = PrefixCache(
             self.allocator, cache_config,
             enabled=prefix_cache, host_budget_bytes=host_cache_bytes,
+        )
+        # decode dispatches so far: a worker rank keys the sampled tokens a
+        # later pipelined step carries by this number
+        self._decode_seq = 0
+        self._carried: Dict[int, torch.Tensor] = {}
+        if _rank is None and self.tp_degree > 1:
+            self._start_ranks(full_params, dict(
+                max_batch_slots=max_batch_slots, prompt_buckets=self.buckets,
+                max_seq_len=self.max_seq_len, max_spec_tokens=max_spec_tokens,
+                donate=self.donate))
+        self._register_strategy_predictions()
+
+    # ------------------------------------------------------ serving mesh
+    def _plan_layout(self, mesh, tp_degree, mesh_devices, device) -> torch.device:
+        """Build the serving layout and the search's choice from the mesh
+        arguments (the JAX engine's rules); returns rank 0's device."""
+        from ..parallel.mesh import available_devices
+        from ..search.serving_strategy import choose_serving_strategy
+
+        cfg = self.cfg
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.devices[0]:
+                raise ValueError(
+                    f"device {device} is not the mesh's rank 0 device {mesh.devices[0]}")
+            dev = resolve_device(mesh.devices[0])
+            self.layout = ServingLayout.build(cfg.num_heads, mesh.size, mesh=mesh)
+            n_dev = mesh.size
+        else:
+            dev = resolve_device(device)
+            n_dev = mesh_devices or tp_degree
+        self.serving_strategy = choose_serving_strategy(
+            cfg, mesh_devices=n_dev, max_batch_slots=self.max_batch_slots,
+            prefill_len=self.max_seq_len,
+            pinned_tp=self.layout.tp_degree if self.layout is not None else tp_degree,
+        )
+        if self.layout is None:
+            tp = self.serving_strategy.tp_degree
+            if dev.type == "cpu":
+                devices = [dev] * tp  # CPU ranks are processes
+            else:
+                devices = available_devices()[dev.index or 0:]
+            self.layout = ServingLayout.build(cfg.num_heads, tp, devices=devices)
+            dev = self.layout.mesh.devices[0]
+        return dev
+
+    def _start_ranks(self, full_params, engine_kwargs) -> None:
+        """Start ranks 1..N-1, each with its shard of the parameters (on
+        the host) and this engine's geometry, and join their group."""
+        from ..parallel import distributed
+
+        layout = self.layout
+        if self.device.type == "cuda":
+            # build the kernels here, before any rank starts: two processes
+            # never build the same library at once
+            from ..ops.kernels._build import load_library
+
+            load_library()
+        ffn = layout.ffn_sharded(self.cfg.ff_size)
+        worker_kwargs = [
+            dict(rank=r, tp_degree=self.tp_degree, ffn_sharded=ffn,
+                 params=_host_tree(layout.shard_params(full_params, r)),
+                 cfg=self.cfg, cache_config=self.cache_config,
+                 device=str(layout.mesh.devices[r]), **engine_kwargs)
+            for r in range(1, self.tp_degree)
+        ]
+        self._group = distributed.start_group(
+            layout.mesh.devices, layout.mesh.backend, _rank_engine, worker_kwargs)
+        self._tp = RankContext(0, self.tp_degree, ffn, self._group)
+
+    def close(self) -> None:
+        """Stop and join the tensor-parallel ranks (nothing on one
+        device); idempotent."""
+        if self._group is not None:
+            self._group.close()
+            self._group = None
+
+    def _on_ranks(self, op: str, *args, worker_op: Optional[str] = None, worker_args=None):
+        """Run ``getattr(self, op)(*args)`` on every rank: send it to the
+        workers (``worker_op`` / ``worker_args`` in place of ``op`` /
+        ``args`` where given), run it here, then collect their answers.
+        Returns this rank's result. On one device it is the local call."""
+        local = getattr(self, op)
+        g = self._group
+        if g is None:
+            return local(*args)
+        with g.lock:
+            g.send(worker_op or op, *(args if worker_args is None else worker_args))
+            try:
+                out = local(*args)
+            except BaseException:
+                # the workers' answers to this command must not be read as
+                # the next one's
+                with contextlib.suppress(Exception):
+                    g.replies()
+                raise
+            g.replies()
+        return out
+
+    def rank_info(self) -> List[Dict]:
+        """Each rank's view, rank 0 first: the heads of its cache and of
+        its ``wq``, its FFN columns, its paged-kernel launches
+        (``decode_attention.LAUNCHES``, counted in that rank's process),
+        its collectives and the host seconds inside its all-reduces, and
+        its peak device memory."""
+        g = self._group
+        if g is None:
+            return [self._rank_info()]
+        with g.lock:
+            return [self._rank_info()] + g.call("_rank_info")
+
+    def _rank_info(self) -> Dict:
+        from ..ops.kernels import decode_attention as da
+
+        cuda = self.device.type == "cuda"
+        return {
+            "rank": 0 if self._tp is None else self._tp.rank,
+            "cache_heads": int(self.cache.k.shape[3]),
+            "wq_heads": int(self.params["layers"][0]["wq"].shape[1]),
+            "ff1_cols": int(self.params["layers"][0]["ff1"].shape[1]),
+            "launches": dict(da.LAUNCHES),
+            "collectives": dict(self._tp.group.counts) if self._tp is not None else {},
+            "all_reduce_s": self._tp.group.all_reduce_s if self._tp is not None else 0.0,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(self.device)
+                                     if cuda else 0),
+        }
+
+    def reset_rank_counters(self) -> None:
+        """Zero the paged-kernel launch counts and the collective counts
+        on every rank (and the peak memory statistic on a GPU)."""
+        self._on_ranks("_rank_reset_counters")
+
+    def _rank_reset_counters(self) -> None:
+        from ..ops.kernels import decode_attention as da
+
+        da.reset_launch_counts()
+        if self._tp is not None:
+            for k in self._tp.group.counts:
+                self._tp.group.counts[k] = 0
+            self._tp.group.all_reduce_s = 0.0
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    def _register_strategy_predictions(self) -> None:
+        """Put the chosen serving layout's predicted step times into the
+        truth ledger (keys ``serving_strategy:prefill`` / ``:decode``), so
+        drift telemetry covers the layout decision: measured steps pair
+        against the search's estimate. ``alarm=False``: the strategy
+        simulator ranks layouts and is expected to miss wall seconds."""
+        ch = self.serving_strategy
+        if ch is None:
+            return
+        prov = (
+            f"predict_strategy_time over TP candidates "
+            f"{[c['tp_degree'] for c in ch.candidates]} on "
+            f"{ch.device_kind}"
+        )
+        self.ledger.predict(
+            "serving_strategy:prefill", ch.prefill_s,
+            label=f"serving layout tp={ch.tp_degree} (prefill)",
+            provenance=prov, alarm=False,
+        )
+        self.ledger.predict(
+            "serving_strategy:decode", ch.decode_s,
+            label=f"serving layout tp={ch.tp_degree} (decode)",
+            provenance=prov, alarm=False,
         )
 
     # ------------------------------------------------------------ geometry
@@ -431,27 +657,42 @@ class GenerationEngine:
         its addresses), restore the allocator's free list and drop the
         prefix index. Graphs and ``trace_counts`` survive, so recovery
         captures nothing again; the scheduler journal-replays every live
-        stream into the fresh cache."""
-        self.cache.reset()
+        stream into the fresh cache. A tensor-parallel engine zeroes every
+        rank's shard."""
+        self._on_ranks("_rank_reset")
         self.allocator.reset()
         # the prefix index is bound to the zeroed cache: drop every entry
         # wholesale (replay then recomputes, which is byte-exact)
         self.prefix_cache.reset()
         self.last_finite = np.ones((self.max_batch_slots,), bool)
+        self.resets += 1
+
+    def _rank_reset(self) -> None:
+        """This rank's device state: the cache, the bias, the masks (in
+        place: graphs hold their addresses)."""
+        self.cache.reset()
         self._bias.zero_()
         for m in (self._mask1, self._mask_dec, self._mask_ver):
             if m is not None:
                 m.zero_()
-        self.resets += 1
 
     def recompiles(self) -> Dict[str, int]:
         """Shape signatures beyond the first, per step kind."""
         return {k: v - 1 for k, v in self.trace_counts.items() if v > 1}
 
     def serving_strategy_block(self) -> Dict:
-        """The ``serving_strategy`` metadata block: one GPU, no tensor
-        parallelism (the layout search is not ported)."""
-        return {"tp_degree": self.tp_degree, "mesh_devices": self.mesh_devices}
+        """The ``serving_strategy`` metadata block (engine metadata,
+        ``GET /v2/models/{name}``, ``obsreport summary``): mesh geometry,
+        the chosen layout and every scored TP candidate."""
+        block: Dict = {"tp_degree": self.tp_degree, "mesh_devices": self.mesh_devices}
+        if self.layout is not None:
+            block["layout"] = self.layout.describe()
+            block["transport"] = self.layout.mesh.backend
+            block["devices"] = [str(d) for d in self.layout.mesh.devices]
+            block["graphs"] = self.graphs  # false at tp > 1: eager steps
+        if self.serving_strategy is not None:
+            block["search"] = self.serving_strategy.describe()
+        return block
 
     def total_flops(self) -> float:
         """Cumulative useful model FLOPs across all step kinds."""
@@ -492,7 +733,9 @@ class GenerationEngine:
         """Post-success accounting of one step: FLOPs accrue next to the
         time they pair with; a step that captured its program stamps its
         wall time into the registry instead of feeding the truth ledger
-        (a capture is not a steady step)."""
+        (a capture is not a steady step). A steady full prefill or decode
+        step also pairs with the layout search's estimate, as in the JAX
+        engine."""
         self.flops_by_kind[kind] += flops
         if traced:
             self.programs.set_compile_time(name, elapsed)
@@ -503,18 +746,25 @@ class GenerationEngine:
             provenance="serving roofline (ServingFlops x chip peak)",
             alarm=self._roofline_alarm,
         )
+        if self.serving_strategy is not None:
+            if name == "decode":
+                self.ledger.measure("serving_strategy:decode", execute_s)
+            elif name.startswith("prefill["):
+                self.ledger.measure("serving_strategy:prefill", execute_s)
 
     def _run(self, kind: str, shape: Tuple[int, ...], arrays, body: StepBody,
-             phase: str, t0: float) -> Tuple[np.ndarray, bool, float, float]:
+             phase: str, t0: float, bias=None, mask_name: str = "1",
+             mask=None) -> Tuple[np.ndarray, bool, float, float]:
         """One sequential step of ``kind`` whose input signature is
-        ``shape``, started at host time ``t0``: counts a new signature,
-        keeps the step's logits in ``last_logits``, stamps its dispatch /
-        execute / readback split under ``phase`` and its spans. Returns
-        (readback, whether it met a new signature, elapsed seconds,
-        execute seconds)."""
+        ``shape``, run by the body method ``body`` with the step inputs
+        ``bias`` / ``mask`` (:meth:`_step_inputs`) and started at
+        host time ``t0``: counts a new signature, keeps the step's logits
+        in ``last_logits``, stamps its dispatch / execute / readback split
+        under ``phase`` and its spans. Returns (readback, whether it met a
+        new signature, elapsed seconds, execute seconds)."""
         sig = (kind, shape)
         traced = self._new_signature(kind, sig, arrays)
-        handle = self._steps.dispatch(sig, arrays, body)
+        handle = self._dispatch_step(sig, arrays, body, bias, mask_name, mask)
         t_disp = time.perf_counter()
         readback, self.last_logits = self._steps.collect(handle)
         t_exec = time.perf_counter()
@@ -576,13 +826,68 @@ class GenerationEngine:
         self.masked_step_count += 1
         return lo, hi
 
+    def _mask_tensor(self, name: str) -> torch.Tensor:
+        """The grammar-mask tensor a step kind reads: ``"1"`` ([V], both
+        prefill kinds), ``"dec"`` ([B, V]) or ``"ver"`` ([B, W, V], made
+        at the first verify, as the JAX engine makes its verify zeros)."""
+        if name == "1":
+            return self._mask1
+        if name == "dec":
+            return self._mask_dec
+        if self._mask_ver is None:
+            self._mask_ver = torch.zeros(
+                (self.max_batch_slots, self.spec_window, self.cfg.vocab_size),
+                dtype=torch.float32, device=self.device)
+        return self._mask_ver
+
+    def _rank_step(self, body: StepBody, sig, arrays, bias, mask_name: str, mask,
+                   carry: Optional[Dict[str, torch.Tensor]] = None) -> InFlight:
+        """Dispatch one step of ``sig`` on this rank: the step inputs
+        written (:meth:`_step_inputs`), then the body method ``body``."""
+        with self._step_inputs(bias, self._mask_tensor(mask_name), mask):
+            return self._steps.dispatch(sig, arrays, body, carry=carry)
+
+    def _dispatch_step(self, sig, arrays, body: StepBody, bias, mask_name: str, mask,
+                       carry: Optional[InFlightDecode] = None, seq: Optional[int] = None
+                       ) -> InFlight:
+        """Dispatch one step on every rank (rank 0's handle is returned):
+        the workers get the op with its host inputs (the body by name),
+        the poisoned bias
+        (None when there is none), the grammar rows, and for a decode step
+        its dispatch number and the number of the step whose tokens it
+        carries (each rank carries its own sampled tokens, which equal rank
+        0's)."""
+        carry_dev = None if carry is None else {"tokens": carry.tokens_dev}
+        if self._group is None:
+            return self._rank_step(body, sig, arrays, bias, mask_name, mask, carry_dev)
+        poison = None if bias is None or bias is self._zero_bias else np.asarray(bias, np.float32)
+        return self._on_ranks(
+            "_rank_step", body, sig, arrays, poison, mask_name, mask, carry_dev,
+            worker_op="_worker_step",
+            worker_args=(body.__name__, sig, arrays, poison, mask_name, mask, seq,
+                         None if carry is None else carry.seq))
+
+    def _worker_step(self, body_name: str, sig, arrays, bias, mask_name: str, mask,
+                     seq: Optional[int], carry_seq: Optional[int]) -> None:
+        """A worker rank's side of :meth:`_dispatch_step`: run the step
+        (the body method named ``body_name``) to its end; keep a decode
+        step's sampled tokens for the step that carries them."""
+        carry = None if carry_seq is None else {"tokens": self._carried[carry_seq]}
+        handle = self._rank_step(getattr(self, body_name), sig, arrays, bias, mask_name, mask,
+                                 carry)
+        self._steps.collect(handle)
+        if seq is not None:
+            self._carried[seq] = handle.readback_dev[: self.max_batch_slots]
+            for old in [k for k in self._carried if k < seq - 1]:
+                del self._carried[old]
+
     # --------------------------------------------------------- step bodies
     def _prefill_body(self, x: Dict[str, torch.Tensor]):
         tokens, length = x["tokens"], x["length"]
         s = tokens.shape[1]
         cache_k, cache_v = self.cache.k, self.cache.v
         bs = cache_k.shape[2]
-        logits, ks, vs = prefill(self.params, tokens, length)
+        logits, ks, vs = prefill(self.params, tokens, length, tp=self._tp)
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
         slots = slot_mapping(x["table"], positions, bs)
         slots = torch.where(positions < length, slots, torch.zeros_like(slots)).long()
@@ -599,7 +904,7 @@ class GenerationEngine:
     def _decode_body(self, x: Dict[str, torch.Tensor]):
         logits, _, _ = decode_step(
             self.params, x["tokens"], x["positions"], self.cache.k, self.cache.v,
-            x["tables"], x["context_lens"],
+            x["tables"], x["context_lens"], tp=self._tp,
         )
         # the fault plan's per-slot NaN poison (zeros outside chaos runs),
         # added before the finiteness reduce, then the grammar rows
@@ -627,7 +932,7 @@ class GenerationEngine:
         # drafts (and whole inactive rows) are padding -> position -1
         positions = torch.where(offs <= n_draft[:, None], x["start"][:, None] + offs, -1)
         logits, _, _ = verify_step(
-            self.params, window, positions, self.cache.k, self.cache.v, x["tables"]
+            self.params, window, positions, self.cache.k, self.cache.v, x["tables"], tp=self._tp
         )
         # the grammar rows per window position: draft and target score the
         # same masked logits, so acceptance stays exact
@@ -653,7 +958,8 @@ class GenerationEngine:
         offs = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
         positions = torch.where(offs < n_real, start + offs, -1)[None, :]
         logits, _, _ = verify_step(
-            self.params, tokens, positions, self.cache.k, self.cache.v, x["table"][None]
+            self.params, tokens, positions, self.cache.k, self.cache.v, x["table"][None],
+            tp=self._tp,
         )
         last = logits[0].index_select(0, (n_real - 1).long())  # [1, V], device-indexed
         ok = torch.isfinite(last).all(dim=-1)  # blame: a poisoned prompt
@@ -664,24 +970,71 @@ class GenerationEngine:
 
     # ------------------------------------------------------ block programs
     # admission-time copies over whole blocks of every layer, in place:
-    # the step graphs hold the cache tensors' addresses
+    # the step graphs hold the cache tensors' addresses. Each runs on
+    # every rank's shard.
     def _copy_block(self, src: int, dst: int) -> None:
         """COW: duplicate one block's K/V across all layers."""
+        self._on_ranks("_rank_copy_block", src, dst)
+
+    def _rank_copy_block(self, src: int, dst: int) -> None:
         for t in (self.cache.k, self.cache.v):
             t[:, dst].copy_(t[:, src])
 
     def _read_block(self, src: int) -> Tuple[np.ndarray, np.ndarray]:
         """Host-tier swap-out read: one block's K and V ([L, bs, H, D]
-        each), brought to the host in one copy (``prefix.to_host``'s
-        bytes: a bfloat16 cache's as uint16 bits)."""
-        kv = to_host(torch.stack((self.cache.k[:, src], self.cache.v[:, src])))
-        return kv[0], kv[1]
+        each, every rank's heads), brought to the host in one copy
+        (``prefix.to_host``'s bytes: a bfloat16 cache's as uint16 bits)."""
+        kv = self._on_ranks("_rank_read_blocks", [src])
+        return np.ascontiguousarray(kv[0][:, 0]), np.ascontiguousarray(kv[1][:, 0])
+
+    def _rank_read_blocks(self, ids: Sequence[int]) -> Optional[np.ndarray]:
+        """Blocks ``ids``' K and V, [2, L, n, bs, H, D], on the host
+        (``to_host``'s bytes) on rank 0: one gather from the cache, and on
+        a group the ranks' heads gathered to rank 0 and joined; None on
+        the other ranks."""
+        idx = torch.tensor(list(ids), dtype=torch.long).to(self.device)
+        kv = torch.stack((self.cache.k.index_select(1, idx), self.cache.v.index_select(1, idx)))
+        if self._tp is not None:
+            from ..parallel.distributed import gather_to_root
+
+            parts = gather_to_root(kv, self._tp.group)
+            if parts is None:
+                return None
+            kv = torch.cat(parts, dim=4)
+        return to_host(kv)
 
     def _write_block(self, dst: int, host_k: np.ndarray, host_v: np.ndarray) -> None:
         """Host-tier swap-in write: one block's K/V back into ``dst``."""
-        for t, h in ((self.cache.k, host_k), (self.cache.v, host_v)):
-            t[:, dst].copy_(from_host(h, t.dtype))
+        self._write_blocks([dst], host_k[:, None], host_v[:, None])
         self._block_writes += 1
+
+    def _write_blocks(self, ids: Sequence[int], host_k: np.ndarray, host_v: np.ndarray) -> None:
+        """Write full-head K and V ([L, n, bs, H, D] host arrays, a
+        bfloat16 cache's as uint16 bits) into blocks ``ids`` on every
+        rank, each rank its own heads."""
+        dt = self.cache.k.dtype
+        kv = torch.stack((from_host(host_k, dt), from_host(host_v, dt)))
+        self._on_ranks("_rank_write_blocks", list(ids), kv,
+                       worker_args=(list(ids), None))
+
+    def _rank_write_blocks(self, ids: List[int], kv: Optional[torch.Tensor]) -> None:
+        """This rank's heads of ``kv`` ([2, L, n, bs, H, D] on rank 0;
+        None on the others, which get theirs scattered from rank 0) into
+        blocks ``ids``: one upload and one indexed write into ``cache.k``
+        and ``cache.v`` each, in place, on the current stream."""
+        k, v = self.cache.k, self.cache.v
+        if self._tp is not None:
+            from ..parallel.distributed import scatter_from_root
+
+            hl = k.shape[3]
+            parts = None if kv is None else [
+                kv.narrow(4, r * hl, hl) for r in range(self._tp.tp_degree)]
+            kv = scatter_from_root(parts, (2, k.shape[0], len(ids)) + tuple(k.shape[2:]),
+                                   k.dtype, self._tp.group)
+        kv = kv.to(self.device)
+        idx = torch.tensor(ids, dtype=torch.long).to(self.device)
+        k.index_copy_(1, idx, kv[0])
+        v.index_copy_(1, idx, kv[1])
 
     # ------------------------------------------------- prefill->decode wire
     def pack_kv_blocks(self, table: Sequence[int], n_positions: int) -> KVHandoffPayload:
@@ -691,9 +1044,7 @@ class GenerationEngine:
         (:func:`~.prefix.to_host`'s bytes, a bfloat16 cache's as uint16
         bits), each block CRC-stamped at packing time."""
         n = self.cache_config.blocks_for(n_positions)
-        idx = torch.tensor(list(table[:n]), dtype=torch.long).to(self.device)
-        kv = to_host(torch.stack((self.cache.k.index_select(1, idx),
-                                  self.cache.v.index_select(1, idx))))
+        kv = self._on_ranks("_rank_read_blocks", list(table[:n]))
         blocks = [
             PackedBlock(np.ascontiguousarray(kv[0][:, i]), np.ascontiguousarray(kv[1][:, i]))
             for i in range(n)
@@ -709,15 +1060,10 @@ class GenerationEngine:
         one upload of K and V and one indexed write into ``cache.k`` and
         ``cache.v`` each, in place (the step graphs hold the cache
         tensors' addresses). The writes run on the current stream, ahead
-        of any later step that reads the blocks."""
-        k, v = self.cache.k, self.cache.v
-        idx = torch.tensor(list(dsts), dtype=torch.long)
-        hk = from_host(np.stack([b.host_k for b in blocks], axis=1), k.dtype)
-        hv = from_host(np.stack([b.host_v for b in blocks], axis=1), v.dtype)
-        kv = torch.stack((hk, hv)).to(self.device)
-        idx = idx.to(self.device)
-        k.index_copy_(1, idx, kv[0])
-        v.index_copy_(1, idx, kv[1])
+        of any later step that reads the blocks. The wire's full-head
+        blocks are re-split over a tensor-parallel engine's ranks."""
+        self._write_blocks(list(dsts), np.stack([b.host_k for b in blocks], axis=1),
+                           np.stack([b.host_v for b in blocks], axis=1))
 
     # --------------------------------------------------------------- steps
     def prefill_one(
@@ -763,9 +1109,9 @@ class GenerationEngine:
             seed=np.asarray([sampling.seed & MASK32], np.uint32),
             count=np.asarray([sample_index], np.int32),
         )
-        with self._step_inputs(None, self._mask1, None if mask is None else {0: mask}):
-            (token, ok), traced, elapsed, execute_s = self._run(
-                kind, (bucket,), arrays, body, "prefill", t0)
+        (token, ok), traced, elapsed, execute_s = self._run(
+            kind, (bucket,), arrays, body, "prefill", t0,
+            mask_name="1", mask=None if mask is None else {0: mask})
         self.last_finite = np.asarray([bool(ok)])
         self.step_seconds["prefill"] += time.perf_counter() - t0
         fm = self.flops_model
@@ -1096,6 +1442,11 @@ class GenerationEngine:
         else:
             masked = None
         masked, bias = faults.inject(faults.GENERATION_DECODE_STEP, (masked, self._zero_bias))
+        if self.tp_degree > 1:
+            # the ranks' collectives can fail or wedge like any device
+            # work: chaos plans target them here, before any rank is sent
+            # the step
+            faults.inject(faults.GENERATION_COLLECTIVE, ("decode", self.tp_degree))
         self.step_counts["decode"] += 1
         t0 = time.perf_counter()
         host_tokens = masked if masked is not None else np.zeros((self.max_batch_slots,), np.int32)
@@ -1109,16 +1460,15 @@ class GenerationEngine:
         b, mb = arrays["tables"].shape
         sig = ("decode", (b, mb))
         traced = self._new_signature("decode", sig, arrays)
-        with self._step_inputs(bias, self._mask_dec, mask):
-            handle = self._steps.dispatch(
-                sig, arrays, self._decode_body,
-                carry=None if carry is None else {"tokens": carry.tokens_dev},
-            )
+        self._decode_seq += 1
+        handle = self._dispatch_step(sig, arrays, self._decode_body, bias, "dec", mask,
+                                     carry=carry, seq=self._decode_seq)
         t_disp = time.perf_counter()
         self.phase_time_s["decode"]["dispatch"] += t_disp - t0
         self.step_seconds["decode"] += t_disp - t0
         return InFlightDecode(handle, t0, t_disp, int(np.sum(active)), b,
-                              ctx_sum=int(arrays["context_lens"].sum()), traced=traced)
+                              ctx_sum=int(arrays["context_lens"].sum()), traced=traced,
+                              seq=self._decode_seq)
 
     def consume_decode(self, step: InFlightDecode) -> np.ndarray:
         """Wait for an in-flight decode step and read it back: the
@@ -1203,6 +1553,8 @@ class GenerationEngine:
             raise ValueError(f"verify window {window_tokens.shape}, the engine's is {(b, w)}")
         window = np.asarray(window_tokens, np.int32)
         window, bias = faults.inject(faults.GENERATION_VERIFY, (window, self._zero_bias))
+        if self.tp_degree > 1:
+            faults.inject(faults.GENERATION_COLLECTIVE, ("verify", self.tp_degree))
         self.step_counts["verify"] += 1
         t0 = time.perf_counter()
         arrays = {
@@ -1215,13 +1567,9 @@ class GenerationEngine:
             "seeds": np.asarray(seeds).astype(np.uint32),
             "counts": np.asarray(counts, np.int32),
         }
-        if self._mask_ver is None:
-            self._mask_ver = torch.zeros((b, w, self.cfg.vocab_size), dtype=torch.float32,
-                                         device=self.device)
-        with self._step_inputs(bias, self._mask_ver, mask):
-            readback, traced, elapsed, execute_s = self._run(
-                "verify", (b, w, arrays["tables"].shape[1]), arrays, self._verify_body,
-                "verify", t0)
+        readback, traced, elapsed, execute_s = self._run(
+            "verify", (b, w, arrays["tables"].shape[1]), arrays, self._verify_body,
+            "verify", t0, bias=bias, mask_name="ver", mask=mask)
         self.last_finite = readback[b * w + b:].astype(bool)
         self.step_seconds["verify"] += time.perf_counter() - t0
         # useful work per live slot: n_draft + 1 window tokens, token j at
@@ -1259,3 +1607,37 @@ class GenerationEngine:
             if not sched.step():
                 break
         return [h.result(timeout=0) for h in handles]
+
+
+def _rank_engine(group, rank: int, tp_degree: int, ffn_sharded: bool, params, cfg,
+                 cache_config, device: str, **kwargs) -> GenerationEngine:
+    """A worker rank's engine (the factory ``parallel/distributed.py``
+    calls in each spawned rank): its shard of the parameters, a cache of
+    its heads, eager steps, no prefix index (the host state is rank
+    0's)."""
+    return GenerationEngine(
+        _from_host_tree(params), cfg, cache_config, device=device, eager_steps=True,
+        prefix_cache=False, _rank=RankContext(rank, tp_degree, ffn_sharded, group), **kwargs)
+
+
+def _host_tree(params: DecoderParams) -> Dict:
+    """A parameter dictionary as host arrays (``prefix.to_host``'s bytes):
+    a rank's shard crosses to its process by value through the pipe,
+    never through shared memory, whose size a container may cap."""
+    out = {k: to_host(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: to_host(t) for k, t in layer.items()} for layer in params["layers"]]
+    out["dtypes"] = {k: str(v.dtype) for k, v in params.items() if k != "layers"}
+    out["layer_dtypes"] = [{k: str(t.dtype) for k, t in layer.items()}
+                           for layer in params["layers"]]
+    return out
+
+
+def _from_host_tree(tree: Dict) -> DecoderParams:
+    def dt(name):
+        return getattr(torch, name.replace("torch.", ""))
+
+    out = {k: from_host(v, dt(tree["dtypes"][k])) for k, v in tree.items()
+           if k not in ("layers", "dtypes", "layer_dtypes")}
+    out["layers"] = [{k: from_host(a, dt(dts[k])) for k, a in layer.items()}
+                     for layer, dts in zip(tree["layers"], tree["layer_dtypes"])]
+    return out

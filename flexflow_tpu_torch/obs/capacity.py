@@ -298,10 +298,19 @@ CHIP_PRESETS = {
 _TWO_BYTE = (DataType.BFLOAT16, DataType.HALF)
 
 
-def chip_spec_for(device: torch.device) -> ChipSpec:
+def chip_spec_for(device: torch.device, count: int = 1) -> ChipSpec:
     """The preset for the engine's device: ``cpu`` for the CPU, ``h100``
-    for a CUDA device (the card the port is built for)."""
-    return CHIP_PRESETS["cpu" if device.type == "cpu" else "h100"]
+    for a CUDA device (the card the port is built for). ``count`` > 1 is
+    a tensor-parallel engine's aggregate chip, ``"<name> x<count>"``: peaks
+    and capacity scaled by the count (the JAX package's
+    ``mesh_device_kind``), so its MFU divides by the mesh's peak."""
+    base = CHIP_PRESETS["cpu" if device.type == "cpu" else "h100"]
+    if count <= 1:
+        return base
+    return dataclasses.replace(
+        base, name=f"{base.name} x{count}", f32_flops=base.f32_flops * count,
+        hbm_bandwidth=base.hbm_bandwidth * count, hbm_capacity=base.hbm_capacity * count,
+        bf16_flops=base.bf16_flops * count)
 
 
 class ServingFlops:

@@ -27,6 +27,8 @@ from .kernels.decode_attention import (
     paged_decode_attention,
     reference_paged_append_attention,
     reference_paged_attention,
+    sharded_paged_append_attention,
+    sharded_paged_decode_attention,
 )
 
 _BACKENDS = ("auto", "plain")
@@ -152,6 +154,7 @@ def decode_attention_core(
     context_lens: torch.Tensor,
     scale: Optional[float] = None,
     backend: str = "auto",
+    shard=None,
 ) -> torch.Tensor:
     """Decode-mode attention: one query token per sequence ([B, H, D])
     over the block-structured KV cache with position masking, so
@@ -161,11 +164,19 @@ def decode_attention_core(
     launch the paged CUDA kernel (kernels/decode_attention.py, split-KV
     auto-selected), CPU tensors take the plain PyTorch version.
     ``backend="plain"`` asks for the plain version on any device — the
-    check a caller runs to hold the kernel path against it."""
+    check a caller runs to hold the kernel path against it. ``shard`` (a
+    tensor-parallel rank's :class:`~..generation.sharding.RankContext`,
+    degree > 1) routes through the head-sharded form: q and the caches
+    are the rank's own heads."""
     _check_backend(backend)
     if backend == "plain":
         return reference_paged_attention(
             q, k_cache, v_cache, block_tables, context_lens, scale=scale
+        )
+    if shard is not None and shard.tp_degree > 1:
+        return sharded_paged_decode_attention(
+            q, k_cache, v_cache, block_tables, context_lens, shard.tp_degree,
+            rank=shard.rank, scale=scale,
         )
     return paged_decode_attention(
         q, k_cache, v_cache, block_tables, context_lens, scale=scale
@@ -180,16 +191,22 @@ def append_attention_core(
     q_positions: torch.Tensor,
     scale: Optional[float] = None,
     backend: str = "auto",
+    shard=None,
 ) -> torch.Tensor:
     """Chunked-append attention: a W-token window per sequence
     ([B, W, H, D], K/V already written) over the block-structured KV
     cache. Query (b, w) attends cache positions ``<= q_positions[b, w]``;
     ``q_positions < 0`` marks padding queries (they emit zeros). Dispatch
-    as in :func:`decode_attention_core`."""
+    (and ``shard``) as in :func:`decode_attention_core`."""
     _check_backend(backend)
     if backend == "plain":
         return reference_paged_append_attention(
             q, k_cache, v_cache, block_tables, q_positions, scale=scale
+        )
+    if shard is not None and shard.tp_degree > 1:
+        return sharded_paged_append_attention(
+            q, k_cache, v_cache, block_tables, q_positions, shard.tp_degree,
+            rank=shard.rank, scale=scale,
         )
     return paged_append_attention(
         q, k_cache, v_cache, block_tables, q_positions, scale=scale

@@ -481,3 +481,77 @@ def paged_decode_attention(
         scale=scale, kv_splits=kv_splits,
     )
     return out[:, 0]
+
+
+def sharded_paged_append_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    q_positions: torch.Tensor,
+    tp_degree: int,
+    rank: Optional[int] = None,
+    scale: Optional[float] = None,
+    kv_splits: int = 1,
+) -> torch.Tensor:
+    """Head-sharded paged append attention (the JAX package's
+    ``sharded_paged_append_attention``, whose shard_map becomes each
+    rank's own call): each of ``tp_degree`` ranks runs
+    :func:`paged_append_attention` over its contiguous slice of the KV
+    heads. Attention is independent across heads, so no collective runs
+    here; the cross-rank boundary is the decoder's all-reduce after the
+    output projection. ``scale`` defaults to the head dim's, which the
+    split leaves whole.
+
+    With ``rank`` r, ``q`` [B, W, H/tp, D] and the caches
+    [blocks, block, H/tp, D] are rank r's own heads (the engine's rank):
+    one launch, its output [B, W, H/tp, D]. With ``rank`` None they hold
+    all H heads: every rank's slice runs through its own launch, in this
+    process, and the outputs join back to [B, W, H, D], what the JAX
+    function returns over its mesh. Tables and positions are whole on
+    every rank."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if tp_degree < 1:
+        raise ValueError(f"tp_degree must be >= 1, got {tp_degree}")
+    args = (block_tables, q_positions)
+    if rank is not None:
+        if not 0 <= rank < tp_degree:
+            raise ValueError(f"rank {rank} outside a group of {tp_degree}")
+        return paged_append_attention(q, k_cache, v_cache, *args, scale=scale,
+                                      kv_splits=kv_splits)
+    h = q.shape[2]
+    if h % tp_degree:
+        raise ValueError(f"{h} heads do not split over {tp_degree} ranks")
+    n = h // tp_degree
+    outs = []
+    for r in range(tp_degree):
+        heads = slice(r * n, (r + 1) * n)
+        outs.append(paged_append_attention(
+            q[:, :, heads].contiguous(), k_cache[:, :, heads].contiguous(),
+            v_cache[:, :, heads].contiguous(), *args, scale=scale, kv_splits=kv_splits))
+    return torch.cat(outs, dim=2)
+
+
+def sharded_paged_decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    tp_degree: int,
+    rank: Optional[int] = None,
+    scale: Optional[float] = None,
+    kv_splits: Optional[int] = None,
+) -> torch.Tensor:
+    """One-token (decode) form of :func:`sharded_paged_append_attention`
+    (q [B, H/tp, D] with ``rank``, [B, H, D] without). ``kv_splits`` None
+    auto-selects via :func:`default_kv_splits`, as on one device."""
+    if kv_splits is None:
+        kv_splits = default_kv_splits(q.shape[0], block_tables.shape[1])
+    out = sharded_paged_append_attention(
+        q[:, None], k_cache, v_cache, block_tables,
+        (context_lens[:, None] - 1).to(torch.int32), tp_degree, rank=rank,
+        scale=scale, kv_splits=kv_splits,
+    )
+    return out[:, 0]

@@ -1,0 +1,342 @@
+"""A tensor-parallel group of processes, one rank per device: its
+bootstrap, its command channel, its collectives and its shutdown.
+
+The generation engine serves over KV heads split across ranks
+(``generation/sharding.py``). Rank 0 lives in the caller's process and
+is the engine the scheduler sees; it starts ranks 1..N-1 itself
+(:func:`start_group`), as ``spawn`` processes running :func:`_worker_main`,
+whose target object (built in the worker by a factory the caller names)
+executes the commands rank 0 sends. Everything runs in one Python
+program from the caller's view: ``GenerationEngine(params, cfg,
+tp_degree=2)``.
+
+* **Rendezvous.** A ``FileStore`` in a fresh temporary directory (never
+  a fixed port: several groups, and several test processes, may start at
+  once). The process group object is built directly on the store, not as
+  ``torch.distributed``'s default group, so one process may hold several
+  groups (several engines).
+* **Transport.** Explicit (``parallel/mesh.py::serving_mesh``): ``nccl``
+  for ranks on distinct GPUs, ``gloo`` on the CPU and for ranks that
+  share one GPU. Gloo's collectives here run on host tensors: a CUDA
+  tensor is staged through a pinned host buffer in :func:`all_reduce`
+  and copied through host memory in :func:`gather_to_root` and
+  :func:`scatter_from_root` (admission-time block moves), explicitly.
+  Gather and scatter move bytes, so every dtype crosses either
+  transport.
+* **Timeouts.** Every collective and every wait on a worker's answer
+  carries the group's timeout, so a dead rank raises on rank 0 instead of
+  hanging it.
+* **Commands.** :meth:`TPGroup.send` pickles ``(op, args)`` to every
+  worker over its pipe; each worker calls ``getattr(target, op)(*args)``
+  and answers ``("ok", result)`` or ``("err", traceback)``;
+  :meth:`TPGroup.replies` collects the answers. A command and the local
+  work that pairs with it run under :attr:`TPGroup.lock`, so two threads
+  never interleave their collectives.
+
+The multi-host part of the JAX package's ``parallel/distributed.py``
+(training across hosts) waits for the parallel training slice (ROADMAP
+queue 1, item 5).
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import multiprocessing as mp
+import os
+import shutil
+import sys
+import tempfile
+import threading
+import time
+import traceback
+import types
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+DEFAULT_TIMEOUT_S = 120.0
+
+
+def _process_group(store_path: str, rank: int, size: int, backend: str, timeout_s: float):
+    """The group's collectives object for ``rank``, built on the file store."""
+    store = dist.FileStore(store_path, size)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if backend == "gloo":
+        opts = dist.ProcessGroupGloo._Options()
+        opts._timeout = timeout
+        # every rank is on this host: the loopback interface
+        opts._devices = [dist.ProcessGroupGloo.create_device(hostname="127.0.0.1")]
+        return dist.ProcessGroupGloo(store, rank, size, opts)
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        return dist.ProcessGroupNCCL(store, rank, size, opts)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+class TPGroup:
+    """One rank's view of a tensor-parallel group: its process group
+    (``pg``), rank, size, transport and device. On rank 0 it also holds
+    the workers' processes and pipes (:meth:`send`, :meth:`replies`,
+    :meth:`close`)."""
+
+    def __init__(self, pg, rank: int, size: int, backend: str, device: torch.device,
+                 timeout_s: float):
+        self.pg = pg
+        self.rank = rank
+        self.size = size
+        self.backend = backend
+        self.device = device
+        self.timeout_s = timeout_s
+        self.lock = threading.RLock()
+        self._pinned: Dict[Tuple[Tuple[int, ...], torch.dtype], torch.Tensor] = {}
+        self._conns: List[Any] = []
+        self._procs: List[Any] = []
+        self._finalizer = None
+        # collectives run so far on this rank, by kind, and the host
+        # seconds spent inside the all-reduces (staging included: on a
+        # group whose ranks share a card, mostly waiting for the peer)
+        self.counts: Dict[str, int] = {"all_reduce": 0, "gather": 0, "scatter": 0}
+        self.all_reduce_s = 0.0
+
+    # ---------------------------------------------------------- staging
+    @property
+    def host_staged(self) -> bool:
+        """Gloo on a CUDA rank: collectives go through pinned host memory."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def _staging(self, t: torch.Tensor) -> torch.Tensor:
+        key = (tuple(t.shape), t.dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return buf
+
+    # -------------------------------------------------------- commands
+    def send(self, op: str, *args) -> None:
+        """Rank 0: send one command to every worker (no wait)."""
+        for r, conn in enumerate(self._conns, start=1):
+            try:
+                conn.send((op, args))
+            except (BrokenPipeError, EOFError, OSError) as e:
+                raise RuntimeError(f"tensor-parallel rank {r} is gone ({e!r})") from e
+
+    def replies(self) -> List[Any]:
+        """Rank 0: every worker's answer to the last command, in rank
+        order; raises with the worker's traceback on an error, or when a
+        worker does not answer within the group's timeout."""
+        out = []
+        for r, conn in enumerate(self._conns, start=1):
+            out.append(_answer(conn, r, self.timeout_s, self._procs[r - 1]))
+        return out
+
+    def call(self, op: str, *args) -> List[Any]:
+        """Rank 0: a command answered before anything else runs (the
+        workers' results)."""
+        with self.lock:
+            self.send(op, *args)
+            return self.replies()
+
+    def close(self) -> None:
+        """Stop and join the workers, drop the store (rank 0); idempotent."""
+        if self._finalizer is not None:
+            self._finalizer()
+
+
+def _answer(conn, rank: int, timeout_s: float, proc) -> Any:
+    if not conn.poll(timeout_s):
+        state = "dead" if not proc.is_alive() else "alive"
+        raise RuntimeError(
+            f"tensor-parallel rank {rank} did not answer within {timeout_s} s ({state})")
+    try:
+        status, value = conn.recv()
+    except (EOFError, OSError) as e:
+        raise RuntimeError(f"tensor-parallel rank {rank} is gone ({e!r})") from e
+    if status != "ok":
+        raise RuntimeError(f"tensor-parallel rank {rank} failed:\n{value}")
+    return value
+
+
+def _shutdown(conns, procs, store_dir, timeout_s) -> None:
+    for conn in conns:
+        try:
+            conn.send(None)
+        except Exception:
+            pass
+    for p in procs:
+        p.join(timeout=min(timeout_s, 30.0))
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=10.0)
+    for conn in conns:
+        try:
+            conn.close()
+        except Exception:
+            pass
+    shutil.rmtree(store_dir, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _main_module_hidden():
+    """While a worker starts: ``spawn`` imports the parent's main module
+    in the child (a script without a ``__main__`` guard would run again
+    there; a test module would bring its imports). The workers need none
+    of it: their entry point and factory are this package's, imported by
+    name."""
+    main = sys.modules["__main__"]
+    sys.modules["__main__"] = types.ModuleType("__main__")
+    try:
+        yield
+    finally:
+        sys.modules["__main__"] = main
+
+
+def start_group(
+    devices: Sequence[torch.device],
+    backend: str,
+    factory: Callable[..., Any],
+    worker_kwargs: Sequence[Dict[str, Any]],
+    timeout_s: float = DEFAULT_TIMEOUT_S,
+) -> TPGroup:
+    """Start a group of ``len(devices)`` ranks: rank 0 here, on
+    ``devices[0]``; rank r >= 1 in a new ``spawn`` process on
+    ``devices[r]``, where ``factory(group=<the worker's TPGroup>,
+    **worker_kwargs[r - 1])`` builds the object that executes rank 0's
+    commands. ``factory`` must be importable by name (a module-level
+    function of this package). Returns rank 0's group once every worker
+    is ready; a worker that fails to start raises here with its
+    traceback."""
+    size = len(devices)
+    store_dir = tempfile.mkdtemp(prefix="ff_tp_")
+    store_path = os.path.join(store_dir, "store")
+    ctx = mp.get_context("spawn")
+    conns, procs = [], []
+    try:
+        for r in range(1, size):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(
+                target=_worker_main,
+                args=(r, size, store_path, backend, str(devices[r]), timeout_s, child,
+                      factory, worker_kwargs[r - 1]),
+                daemon=True, name=f"ff-tp-rank{r}",
+            )
+            with _main_module_hidden():
+                p.start()
+            child.close()
+            conns.append(parent)
+            procs.append(p)
+        device = torch.device(devices[0])
+        pg = _process_group(store_path, 0, size, backend, timeout_s)
+        group = TPGroup(pg, 0, size, backend, device, timeout_s)
+        group._conns, group._procs = conns, procs
+        for r, conn in enumerate(conns, start=1):
+            _answer(conn, r, timeout_s, procs[r - 1])  # "ready"
+    except BaseException:
+        _shutdown(conns, procs, store_dir, timeout_s)
+        raise
+    # stops the workers when the group is closed, collected, or at exit
+    group._finalizer = weakref.finalize(group, _shutdown, conns, procs, store_dir, timeout_s)
+    return group
+
+
+def _worker_main(rank, size, store_path, backend, device, timeout_s, conn, factory, kwargs):
+    """A worker rank: join the group, build its target, then execute
+    commands until rank 0 sends None or its pipe closes."""
+    torch.set_num_threads(1)  # N ranks share the host's cores
+    device = torch.device(device)
+    try:
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        pg = _process_group(store_path, rank, size, backend, timeout_s)
+        group = TPGroup(pg, rank, size, backend, device, timeout_s)
+        target = factory(group=group, **kwargs)
+        conn.send(("ok", "ready"))
+    except BaseException:
+        conn.send(("err", traceback.format_exc()))
+        return
+    while True:
+        try:
+            msg = conn.recv()
+        except (EOFError, OSError):
+            break
+        if msg is None:
+            break
+        op, args = msg
+        try:
+            result = getattr(target, op)(*args)
+            conn.send(("ok", result))
+        except BaseException:
+            conn.send(("err", traceback.format_exc()))
+    close = getattr(target, "close", None)
+    if close is not None:
+        close()
+
+
+# ------------------------------------------------------------ collectives
+def all_reduce(t: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """Sum ``t`` over every rank of ``group``, in place, and return it.
+    Every rank gets the same sum, bit for bit. Gloo on a CUDA rank stages
+    through a pinned host buffer (a device sync)."""
+    group.counts["all_reduce"] += 1
+    t0 = time.perf_counter()
+    if group.host_staged:
+        buf = _staged_copy(group, t)
+        group.pg.allreduce([buf]).wait()
+        t.copy_(buf)
+    else:
+        if not t.is_contiguous():
+            raise ValueError("all_reduce needs a contiguous tensor")
+        group.pg.allreduce([t]).wait()
+    group.all_reduce_s += time.perf_counter() - t0
+    return t
+
+
+def _staged_copy(group: TPGroup, t: torch.Tensor) -> torch.Tensor:
+    buf = group._staging(t)
+    buf.copy_(t)  # blocking: the device's writes to t are done after it
+    return buf
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as a uint8 tensor (gather and scatter move bytes, so
+    any dtype crosses either transport)."""
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dim() else t.reshape(1).view(torch.uint8)
+
+
+def gather_to_root(t: torch.Tensor, group: TPGroup) -> Optional[List[torch.Tensor]]:
+    """Every rank's ``t`` (the same shape and dtype on each) to rank 0:
+    rank 0 gets the list in rank order, on its device; the others None."""
+    group.counts["gather"] += 1
+    staged = group.backend == "gloo"
+    src = _bytes(t.cpu() if staged else t)
+    opts = dist.GatherOptions()
+    opts.rootRank = 0
+    if group.rank == 0:
+        outs = [torch.empty_like(src) for _ in range(group.size)]
+        group.pg.gather([outs], [src], opts).wait()
+        return [o.view(t.dtype).view(t.shape).to(t.device) for o in outs]
+    group.pg.gather([], [src], opts).wait()
+    return None
+
+
+def scatter_from_root(parts: Optional[Sequence[torch.Tensor]], shape, dtype: torch.dtype,
+                      group: TPGroup) -> torch.Tensor:
+    """Rank 0's ``parts[r]`` to rank r (every part ``shape`` and
+    ``dtype``); every rank returns its own part, on its device. The other
+    ranks pass None for ``parts``."""
+    group.counts["scatter"] += 1
+    staged = group.backend == "gloo"
+    dev = torch.device("cpu") if staged else group.device
+    shape = tuple(shape)
+    out = _bytes(torch.empty(shape, dtype=dtype, device=dev))
+    opts = dist.ScatterOptions()
+    opts.rootRank = 0
+    if group.rank == 0:
+        ins = [_bytes(p.to(device=dev, dtype=dtype)) for p in parts]
+        group.pg.scatter([out], [ins], opts).wait()
+    else:
+        group.pg.scatter([out], [], opts).wait()
+    return out.view(dtype).view(shape).to(group.device)

@@ -59,8 +59,7 @@ GENERATION_DECODE_STEP = "generation.decode_step"
 GENERATION_VERIFY = "generation.verify"
 GENERATION_JOURNAL_REPLAY = "generation.journal_replay"
 GENERATION_ASYNC_READBACK = "generation.async_readback"
-# (the JAX package's generation.collective site belongs to its
-# tensor-parallel engine, which the port does not have yet)
+GENERATION_COLLECTIVE = "generation.collective"
 GENERATION_PREFIX_LOOKUP = "generation.prefix_lookup"
 GENERATION_KV_OFFLOAD = "generation.kv_offload"
 FLEET_ROUTE = "fleet.route"
@@ -101,6 +100,13 @@ SITES = MappingProxyType({
         "before the overlap pipeline consumes an in-flight decode step "
         "(value: ('decode', n_states)); an error discards the frontier and "
         "re-runs the step sequentially under the supervisor"
+    ),
+    GENERATION_COLLECTIVE: (
+        "on rank 0 of a tensor-parallel (tp_degree > 1) engine, before each "
+        "decode/verify step's command goes to the ranks (value: (step kind, "
+        "tp_degree)); an error or stall here models a failed or wedged "
+        "collective and routes through the supervisor's retry -> restart "
+        "ladder with byte-exact journal replay (never fires at tp 1)"
     ),
     GENERATION_PREFIX_LOOKUP: (
         "before each radix prefix-index lookup at admission (value: prompt "

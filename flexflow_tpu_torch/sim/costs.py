@@ -11,8 +11,8 @@ This module gives the twin three sources, strongest first:
   device's measurements are never folded into another device's table.
 * :meth:`SimCosts.from_roofline` — the serving roofline
   (``obs.capacity.ServingFlops``). :meth:`SimCosts.from_strategy` (the
-  strategy-search cost model, a tensor-parallel degree per pool) waits
-  for the port of ``search/serving_strategy.py`` and raises.
+  strategy-search cost model, a tensor-parallel degree per pool:
+  ``search/serving_strategy.py``'s scores).
 * :meth:`SimCosts.fixed_tick` — every working iteration costs exactly
   ``dt``, mirroring ``loadgen.drive_virtual``'s virtual-clock tick
   loop. This is the sim-vs-live gating mode (``simfleet simcheck``):
@@ -170,11 +170,37 @@ class SimCosts:
         handoff_per_block_s: float = 0.0,
     ) -> "SimCosts":
         """Price steps for a tensor-parallel degree with the strategy
-        search's cost plumbing (``score_serving_layouts``). It needs
-        ``search/serving_strategy.py``, which is not ported yet."""
-        raise NotImplementedError(
-            "SimCosts.from_strategy needs search/serving_strategy.py, which is not "
-            "ported yet (ROADMAP.md queue 1, item 4)")
+        search's cost plumbing (``score_serving_layouts``: graph build +
+        per-op roofline + collective costs): the twin answers "what TP
+        per pool" with the arithmetic the live layout chooser uses. It
+        imports the search lazily and detects the device, so it belongs
+        to the CLI, not the inner sim loop."""
+        from ..search.serving_strategy import score_serving_layouts
+
+        prefill_s: Dict[int, float] = {}
+        decode_s = None
+        for b in buckets:
+            scored = score_serving_layouts(
+                cfg, mesh_devices, max_batch_slots=slots,
+                prefill_len=int(b), calibration=calibration,
+            )
+            row = next((c for c in scored if c["tp_degree"] == tp), None)
+            if row is None:
+                raise ValueError(
+                    f"tp={tp} is not a candidate for {cfg.num_heads} heads "
+                    f"over {mesh_devices} device(s) "
+                    f"(candidates: {[c['tp_degree'] for c in scored]})"
+                )
+            prefill_s[int(b)] = float(row["prefill_s"])
+            decode_s = float(row["decode_s"])
+        return cls(
+            device_kind=f"tp{tp}x{mesh_devices}",
+            prefill_s=prefill_s,
+            decode_s=decode_s,
+            kv_swap_in_s=kv_swap_in_s,
+            handoff_per_block_s=handoff_per_block_s,
+            source=f"strategy-search cost model (tp={tp}/{mesh_devices})",
+        )
 
     @classmethod
     def from_ledger_export(

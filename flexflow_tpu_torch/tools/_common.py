@@ -1,6 +1,7 @@
 """What the port's serving tools share: their output directory, the
 virtual clock they drive schedulers on, the seeded decoder weights of
-their in-process engines, and the history line's stamps.
+their in-process engines, the ranks of their tensor-parallel engines,
+and the history line's stamps.
 
 The tools write their default outputs (bench artifacts, the bench
 history, simfleet's reports) into :data:`OUT_DIR`, a git-ignored
@@ -54,6 +55,20 @@ def seeded_params(cfg, seed: int = 0, device=None):
 
     params = init_decoder_params(torch.Generator().manual_seed(seed), cfg)
     return params if device is None else params_to(params, device)
+
+
+def tool_mesh(n: int, device=None, devices: Optional[Sequence] = None,
+              backend: Optional[str] = None):
+    """The ranks of a tool's tp=N engine (the port's counterpart of the
+    JAX tools' ``_meshenv.py``, which forces N host devices): ``devices``,
+    or N CPU ranks for ``device="cpu"``, or the first N GPUs; over
+    ``backend`` (default: gloo on the CPU, nccl on distinct GPUs; ranks
+    sharing a GPU must name gloo). Returns the ``ServingMesh``."""
+    from flexflow_tpu_torch.parallel.mesh import serving_mesh
+
+    if devices is None and device == "cpu":
+        devices = ["cpu"] * n
+    return serving_mesh(n, devices, backend=backend or None)
 
 
 def backend(device) -> str:

@@ -77,9 +77,12 @@ fleet joined by the supervised KV-block handoff —
                  the supervisor expires its deadline -> journal replay
                  on the decode pool; the late un-wedged delivery is
                  discarded (no double adoption); byte-exact
-  tp mismatch    prefill pool tp=1, decode pool tp=2: needs the
-                 tensor-parallel engine (ROADMAP.md queue 1, item 4);
-                 reported as skipped
+  tp mismatch    prefill pool tp=1, decode pool tp=2 (two CPU ranks
+                 over gloo with device "cpu", the first two GPUs over
+                 nccl on the card; skipped, with its reason, on one
+                 GPU): the full-head wire re-splits on import and greedy
+                 + seeded-temperature streams match the unified tp=1
+                 reference byte for byte
 
 Part 4 (``--overload``) is the **overload storm**: a
 loadgen-driven ~3x saturation burst (loadgen's Poisson schedule,
@@ -93,8 +96,10 @@ unloaded run of the same prompt.
 Part 6 (``--constrained``) is the constrained-decoding sweep and part 7
 (``--durable``) the durable-serving sweep (a SIGKILLed child process,
 ``python -m flexflow_tpu_torch.tools._durable_child``, warm-restarted).
-``--mesh N`` (the tensor-parallel sweep) raises: the port has no
-tensor-parallel engine yet (ROADMAP.md queue 1, item 4).
+``--mesh N`` adds the tensor-parallel sweep: a tp=N engine's failed and
+stalled collectives ride the retry -> restart ladder with byte-exact
+journal replay (``--mesh-devices``, ``--mesh-backend``: the ranks'
+devices and transport; N CPU ranks over gloo with ``--device cpu``).
 
 Usage: python -m flexflow_tpu_torch.tools.chaoscheck [--sweep-only | --no-sweep]
            [--fleet] [--overload] [--disagg] [--constrained] [--durable]
@@ -108,7 +113,7 @@ import sys
 import threading
 import time
 
-from flexflow_tpu_torch.tools._common import Clock, seeded_params
+from flexflow_tpu_torch.tools._common import Clock, seeded_params, tool_mesh
 
 # the port's chaos and recovery tests (part 1)
 CHAOS_TESTS = (
@@ -1558,9 +1563,61 @@ def run_disagg_sweep(device=None) -> dict:
                          "exact": got_s == ref[2]}
 
     # ------------------- TP mismatch: tp=1 prefill -> tp=2 decode pool
-    # needs the tensor-parallel engine, which the port does not have yet
-    report["tp_mismatch"] = {
-        "skipped": "no tensor-parallel engine in the port (ROADMAP.md queue 1, item 4)"}
+    # the wire carries full-head blocks; the decode engine's ranks each
+    # take their heads of them on import
+    import torch
+
+    if device == "cpu" or torch.cuda.device_count() >= 2:
+        from flexflow_tpu_torch.search.serving_strategy import choose_pool_strategies
+
+        choices = choose_pool_strategies(cfg, 2, pinned_prefill_tp=1, pinned_decode_tp=2)
+        check("tp_mismatch",
+              choices["prefill"].tp_degree == 1 and choices["decode"].tp_degree == 2,
+              "choose_pool_strategies did not honor the per-pool pins")
+        engines = []
+
+        def tp_factory(tp):
+            def make():
+                kw = dict(mesh=tool_mesh(tp, device)) if tp > 1 else dict(device=device)
+                eng = GenerationEngine(params, cfg, max_batch_slots=3, block_size=8,
+                                       prompt_buckets=(8, 32, 64), **kw)
+                engines.append(eng)
+                return eng
+            return make
+
+        dfleet = DisaggregatedFleet(tp_factory(1), tp_factory(2), n_prefill=1, n_decode=1,
+                                    scheduler_kwargs=dict(recovery=tight))
+        try:
+            base_ok = dfleet.handoff.transfers["ok"]
+            temp = SamplingParams(max_new_tokens=10, temperature=0.8, seed=11)
+            exact = True
+            for samp in (sampling, temp):
+                refs = [ref_eng.generate([p], samp)[0] for p in prompts]
+                handles = [dfleet.submit(p, samp) for p in prompts]
+                drive(dfleet, handles)
+                got = [h.result(timeout=0) for h in handles]
+                if got != refs:
+                    exact = False
+                    check("tp_mismatch", False,
+                          f"resharded streams diverged ({samp.temperature=}): "
+                          f"{got} != {refs}")
+            ho = dfleet.handoff.report()
+            check("tp_mismatch", ho["transfers"]["ok"] - base_ok == 2 * len(prompts),
+                  f"resharded handoffs not all delivered: {ho['transfers']}")
+            check("tp_mismatch", ho["replay_fallbacks_total"] == 0,
+                  "TP-mismatch handoff fell back to replay")
+            report["tp_mismatch"] = {
+                "prefill_tp": 1, "decode_tp": 2,
+                "transfers": ho["transfers"], "exact": exact,
+            }
+        finally:
+            dfleet.stop()
+            for eng in engines:
+                eng.close()
+    else:
+        report["tp_mismatch"] = {
+            "skipped": "one GPU: a tp=2 decode pool needs two (NCCL cannot put two ranks "
+                       "of one communicator on one device)"}
 
     report["ok"] = not failures
     print(json.dumps({"disagg_sweep": report}, indent=2))
@@ -1573,16 +1630,150 @@ def run_disagg_sweep(device=None) -> dict:
               "error retried, corruption CRC-caught (replay recorded as a "
               "kv_handoff_replay hop), prefill death isolated, and a "
               "stalled handoff expired into decode-pool journal replay, "
-              "all byte-identical to the unified run")
+              "all byte-identical to the unified run"
+              + ("" if "skipped" in report["tp_mismatch"]
+                 else "; tp=1 -> tp=2 resharded handoff exact"))
     return report
 
 
-def run_mesh_sweep(n: int) -> dict:
-    """Sharded-generation chaos: needs the tensor-parallel engine
-    (``generation/sharding.py``), which the port does not have yet."""
-    raise NotImplementedError(
-        "chaoscheck --mesh needs the tensor-parallel engine (generation/sharding.py), "
-        "which is not ported yet (ROADMAP.md queue 1, item 4)")
+def run_mesh_sweep(n: int, device=None, devices=None, backend=None, params=None) -> dict:
+    """Tensor-parallel chaos: a tp=N engine (N ranks, ``_common.tool_mesh``)
+    rides the same self-healing ladder as the single-device engine when
+    its collectives fail (``generation.collective``, fired on rank 0
+    before a step's command reaches the ranks). Legs:
+
+      * reference   fault-free tp=N run; the byte-exactness baseline of
+                    every leg below
+      * retry       one failed collective is absorbed by the
+                    supervisor's single step retry; byte-exact
+      * restart     a collective that fails again on the retry walks the
+                    ladder to an engine reset (every rank's shard) and
+                    journal replay; byte-exact
+      * stall       a wedged collective trips the real-clock watchdog,
+                    the stale step is discarded, and replay is exact
+
+    ``params`` (default: seeded from 0) are the decoder's weights."""
+    from flexflow_tpu_torch.generation import (
+        ContinuousBatchingScheduler,
+        GenerationEngine,
+        RecoveryPolicy,
+        SamplingParams,
+        WatchdogPolicy,
+    )
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.runtime import faults
+    from flexflow_tpu_torch.runtime.faults import FaultPlan
+
+    cfg = TransformerConfig(
+        num_layers=2, hidden_size=32, num_heads=4, ff_size=64,
+        seq_length=64, vocab_size=50, causal=True,
+    )
+    params = params if params is not None else seeded_params(cfg, device=device)
+    prompts = [[1, 2, 3], [4, 5, 6, 7], [9, 8, 7, 6, 5]]
+    sampling = SamplingParams(max_new_tokens=10)
+    policy = RecoveryPolicy(sleep=lambda _s: None)
+
+    # donate=False on every device: the retry leg's counters are the
+    # retry -> bisect -> restart ladder (a CUDA engine donates by default
+    # and resets at the first failure)
+    eng = GenerationEngine(params, cfg, max_batch_slots=3, block_size=8, donate=False,
+                           mesh=tool_mesh(n, device, devices, backend))
+    report, failures = {"devices": [str(d) for d in eng.layout.mesh.devices],
+                        "transport": eng.layout.mesh.backend}, []
+
+    def check(scenario, cond, msg):
+        if not cond:
+            failures.append(f"{scenario}: {msg}")
+
+    def make(**kw):
+        return ContinuousBatchingScheduler(eng, recovery=policy, **kw)
+
+    def drive(sched, handles, steps=500):
+        for _ in range(steps):
+            if all(h.done() for h in handles):
+                return
+            if not sched.step():
+                return
+
+    try:
+        eng.generate([[1] * 12], SamplingParams(max_new_tokens=2))
+        check("geometry", eng.tp_degree == n, f"engine tp_degree {eng.tp_degree} != {n}")
+        check("geometry", f"x{n}" in eng.flops_model.chip.name,
+              f"chip spec did not scale: {eng.flops_model.chip.name}")
+
+        # --------------------------------------------------- reference run
+        sched = make()
+        handles = [sched.submit(p, sampling) for p in prompts]
+        drive(sched, handles)
+        ref = [h.result(timeout=0) for h in handles]
+        check("reference", eng.resets == 0, "fault-free sharded run restarted")
+        report["reference"] = {"tokens": sum(len(r) for r in ref)}
+
+        # --------------------------------------------- collective retry
+        resets0 = eng.resets
+        sched = make()
+        plan = FaultPlan(seed=0)
+        plan.on(faults.GENERATION_COLLECTIVE, mode="error",
+                error=RuntimeError("injected collective failure"), nth=(2,))
+        with plan.active():
+            handles = [sched.submit(p, sampling) for p in prompts]
+            drive(sched, handles)
+        got = [h.result(timeout=0) for h in handles]
+        rs = sched.recovery_stats
+        check("retry", got == ref, f"streams diverged after retry: {got} != {ref}")
+        check("retry", rs.step_retries >= 1, "failed collective was not retried")
+        check("retry", eng.resets == resets0, "single collective failure restarted")
+        report["retry"] = {"step_retries": rs.step_retries, "exact": got == ref}
+
+        # ------------------------------------- collective restart + replay
+        sched = make()
+        plan = FaultPlan(seed=0)
+        plan.on(faults.GENERATION_COLLECTIVE, mode="error",
+                error=RuntimeError("injected collective failure"), nth=(2, 3))
+        with plan.active():
+            handles = [sched.submit(p, sampling) for p in prompts]
+            drive(sched, handles)
+        got = [h.result(timeout=0) for h in handles]
+        rs = sched.recovery_stats
+        check("restart", got == ref,
+              f"streams diverged after restart replay: {got} != {ref}")
+        check("restart", rs.recoveries >= 1,
+              f"persistent collective failure never restarted: {rs.recoveries}")
+        report["restart"] = {"recoveries": rs.recoveries,
+                             "replayed_tokens": rs.replayed_tokens,
+                             "exact": got == ref}
+
+        # -------------------------------------------------- collective stall
+        sched = make(watchdog=WatchdogPolicy(stall_timeout_s=1.0, poll_s=0.05))
+        gate = threading.Event()
+        plan = FaultPlan(seed=0)
+        plan.on(faults.GENERATION_COLLECTIVE, mode="stall", gate=gate, nth=(2,))
+        with plan.active():
+            sched.start()
+            handles = [sched.submit(p, sampling) for p in prompts]
+            t0 = time.monotonic()
+            while sched.recovery_stats.watchdog_trips == 0 and time.monotonic() - t0 < 10:
+                time.sleep(0.02)
+            gate.set()
+            got = [h.result(timeout=30) for h in handles]
+        rs = sched.recovery_stats
+        sched.stop()
+        check("stall", rs.watchdog_trips >= 1, "watchdog never tripped")
+        check("stall", got == ref, f"streams diverged after stall: {got} != {ref}")
+        report["stall"] = {"watchdog_trips": rs.watchdog_trips,
+                           "recoveries": rs.recoveries, "exact": got == ref}
+    finally:
+        eng.close()
+
+    report["ok"] = not failures
+    print(json.dumps({"mesh_sweep": report, "devices": n}, indent=2))
+    for f in failures:
+        print(f"FAIL: {f}", file=sys.stderr)
+    if not failures:
+        print(f"OK: mesh sweep — failed/stalled collectives on the tp={n} "
+              "engine rode the retry -> restart ladder with byte-exact "
+              "journal replay over the sharded cache")
+    return report
 
 
 def _package_root() -> str:
@@ -1619,15 +1810,19 @@ def main(argv=None) -> int:
                          "fingerprint-drift refusal, 3-replica rolling "
                          "restart with zero stream loss)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="the sharded-generation sweep (needs the "
-                         "tensor-parallel engine: not ported yet, raises)")
+                    help="also run the tensor-parallel sweep on a tp=N "
+                         "engine (collective retry, restart, stall)")
+    ap.add_argument("--mesh-devices", default="",
+                    help="with --mesh: the ranks' devices, comma-separated "
+                         "(default: N CPU ranks with --device cpu, else the "
+                         "first N GPUs)")
+    ap.add_argument("--mesh-backend", default=None, choices=("gloo", "nccl"),
+                    help="with --mesh: the collectives' transport (default: "
+                         "gloo on the CPU, nccl on distinct GPUs)")
     ap.add_argument("--device", default=None,
                     help="the sweeps' engine device (default: the GPU; "
                          "'cpu' for the CPU)")
     args, pytest_args = ap.parse_known_args(argv)
-
-    if args.mesh:
-        run_mesh_sweep(args.mesh)
 
     rc = 0
     if not args.sweep_only:
@@ -1647,6 +1842,11 @@ def main(argv=None) -> int:
     )
     for wanted, sweep in sweeps:
         if wanted and rc == 0 and not sweep(device=args.device)["ok"]:
+            rc = 1
+    if args.mesh and rc == 0:
+        devices = args.mesh_devices.split(",") if args.mesh_devices else None
+        if not run_mesh_sweep(args.mesh, device=args.device, devices=devices,
+                              backend=args.mesh_backend)["ok"]:
             rc = 1
     return rc
 

@@ -76,9 +76,13 @@ change, and APPENDS the run to
 timestamped + git-sha-stamped) — the trajectory
 ``python -m flexflow_tpu_torch.tools.perfwatch`` gates on.
 
-``--mesh`` (tensor-parallel generation) needs the tensor-parallel
-engine, which the port does not have yet (ROADMAP.md queue 1, item 4):
-it raises NotImplementedError.
+``--mesh N`` gates tensor-parallel generation: the same streams through
+a single-device engine and a tp=N engine byte-identical (mixed sampling
+and speculative), no steady-state capture, the pinned degree in the
+metadata. The ranks' devices and transport are explicit
+(``--mesh-devices``, ``--mesh-backend``) and printed: by default N CPU
+ranks over gloo with ``--device cpu``, the first N GPUs over nccl
+otherwise; ranks sharing one GPU need ``--mesh-backend gloo``.
 
 Usage:
   python -m flexflow_tpu_torch.tools.genbench [--device cpu] [--out genbench.json] [--requests 12]
@@ -106,7 +110,8 @@ from flexflow_tpu_torch.generation import (
     SpeculationConfig,
 )
 from flexflow_tpu_torch.models.transformer import TransformerConfig
-from flexflow_tpu_torch.tools._common import backend, git_sha, out_path, seeded_params
+from flexflow_tpu_torch.tools._common import (backend, git_sha, out_path, seeded_params,
+                                              tool_mesh)
 
 
 def capacity_block(sched) -> dict:
@@ -1071,11 +1076,137 @@ def durable_bench(args, cfg, params) -> tuple:
 
 
 def mesh_bench(args, cfg, params) -> tuple:
-    """Multi-GPU sharded generation: needs the tensor-parallel engine
-    (``generation/sharding.py``), which the port does not have yet."""
-    raise NotImplementedError(
-        "genbench --mesh needs the tensor-parallel engine (generation/sharding.py), "
-        "which is not ported yet (ROADMAP.md queue 1, item 4)")
+    """Tensor-parallel generation gate: the same request streams through
+    a single-device engine and a tp=N engine (``--mesh N``: N ranks, the
+    devices and transport of :func:`mesh_devices`, printed). Gates:
+    byte-identical token streams across mixed sampling (greedy / seeded
+    temperature / top-k) and speculative decoding; no steady-state
+    capture or new signature on either engine; no self-healing misfire;
+    the serving-strategy metadata reporting the pinned degree and the
+    chip spec at the mesh's geometry. Throughput lands in the history as
+    ``mesh_*`` metrics; ranks on one host over gloo are expected slower
+    (their collectives cross host memory). Returns (report dict, ok)."""
+    n = args.mesh
+    if n < 2:
+        print(f"FAIL: --mesh needs N >= 2, got {n}", file=sys.stderr)
+        return {}, False
+    if args.heads % n != 0:
+        print(f"FAIL: --heads {args.heads} does not divide over --mesh {n}",
+              file=sys.stderr)
+        return {}, False
+    mesh = tool_mesh(n, args.device, args.mesh_devices.split(",") if args.mesh_devices else None,
+                     args.mesh_backend)
+    print(f"mesh: {n} ranks on {[str(d) for d in mesh.devices]} over {mesh.backend}")
+    rs = np.random.RandomState(5)
+    max_new = args.max_new if args.max_new_set else 16
+    lengths = [int(rs.randint(4, args.seq_len - max_new)) for _ in range(args.requests)]
+    prompts = [rs.randint(0, args.vocab, k).tolist() for k in lengths]
+    # mixed sampling: greedy / seeded temperature / temperature+top-k,
+    # cycling per request: one batch carries all three in both arms
+    samplings = [
+        (SamplingParams(max_new_tokens=max_new),
+         SamplingParams(max_new_tokens=max_new, temperature=0.8, seed=100 + i),
+         SamplingParams(max_new_tokens=max_new, temperature=1.0, top_k=8,
+                        seed=200 + i))[i % 3]
+        for i in range(len(prompts))
+    ]
+    motif = rs.randint(0, args.vocab, 4).tolist()
+    spec_prompts = [(motif * 12)[: int(rs.randint(10, 24))] for _ in range(4)]
+    spec = SpeculationConfig(k=args.spec_k, method="ngram")
+
+    def build(tp):
+        kw = dict(mesh=mesh) if tp > 1 else dict(device=args.device)
+        eng = GenerationEngine(
+            params, cfg, max_batch_slots=args.slots, block_size=16,
+            max_spec_tokens=args.spec_k, prefix_cache=False, **kw,
+        )
+        # steady state: every bucket + decode + verify (>= 4 new tokens
+        # so the scheduler reaches the verify step)
+        eng.generate([prompts[0]], SamplingParams(max_new_tokens=2))
+        eng.generate([spec_prompts[0]], SamplingParams(max_new_tokens=4),
+                     speculation=spec)
+        for b in sorted({eng.bucket_for(len(p)) for p in prompts + spec_prompts}):
+            eng.generate([[1] * min(b, args.seq_len - 2)],
+                         SamplingParams(max_new_tokens=1))
+        return eng
+
+    def drive(eng):
+        sched = ContinuousBatchingScheduler(eng)
+        t0 = time.perf_counter()
+        handles = [sched.submit(p, s) for p, s in zip(prompts, samplings)]
+        while any(not h.done() for h in handles):
+            if not sched.step():
+                break
+        elapsed = time.perf_counter() - t0
+        outs = [h.result(timeout=0) for h in handles]
+        s_out, s_sched, _ = run_stream(eng, spec_prompts,
+                                       SamplingParams(max_new_tokens=max_new),
+                                       speculation=spec)
+        return outs, s_out, elapsed, sched, s_sched
+
+    eng1 = build(1)
+    warm1 = dict(eng1.trace_counts)
+    out1, spec1, s1, sched1a, sched1b = drive(eng1)
+    engN = build(n)
+    try:
+        warmN = dict(engN.trace_counts)
+        outN, specN, sN, schedNa, schedNb = drive(engN)
+    finally:
+        engN.close()
+
+    gen_tokens = sum(len(o) for o in outN)
+    tps1 = gen_tokens / max(s1, 1e-9)
+    tpsN = gen_tokens / max(sN, 1e-9)
+    steady_retraces = {}
+    for eng, warm in ((eng1, warm1), (engN, warmN)):
+        for k in eng.trace_counts:
+            d = eng.trace_counts[k] - warm.get(k, 0)
+            if d > 0:
+                steady_retraces[k] = steady_retraces.get(k, 0) + d
+    strategy = engN.serving_strategy_block()
+    report = {
+        "requests": args.requests,
+        "mesh_devices": n,
+        "generated_tokens": gen_tokens,
+        "exact": out1 == outN,
+        "exact_speculative": spec1 == specN,
+        "stream_s_tp1": round(s1, 4),
+        "stream_s_tpN": round(sN, 4),
+        "mesh_decode_tokens_per_s": round(tpsN, 2),
+        "mesh_tokens_per_s_ratio": round(tpsN / max(tps1, 1e-9), 4),
+        "steady_state_retraces": steady_retraces,
+        "serving_strategy": strategy,
+        "chip": engN.flops_model.chip.name,
+        "capacity": capacity_block(schedNa),
+        "backend": backend(args.device),
+        "transport": mesh.backend,
+        "rank_devices": [str(d) for d in mesh.devices],
+    }
+    ok = check_no_self_healing(
+        report, [sched1a, sched1b, schedNa, schedNb], [eng1, engN]
+    )
+    print(json.dumps(report, indent=2))
+    if not report["exact"]:
+        print("FAIL: sharded streams differ from single-device (mixed "
+              "sampling arm)", file=sys.stderr)
+        ok = False
+    if not report["exact_speculative"]:
+        print("FAIL: sharded speculative streams differ from single-device",
+              file=sys.stderr)
+        ok = False
+    if steady_retraces:
+        print(f"FAIL: steady-state stream retraced: {steady_retraces}",
+              file=sys.stderr)
+        ok = False
+    if strategy.get("tp_degree") != n:
+        print(f"FAIL: serving strategy reports tp_degree "
+              f"{strategy.get('tp_degree')}, expected {n}", file=sys.stderr)
+        ok = False
+    if f"x{n}" not in report["chip"]:
+        print(f"FAIL: chip spec did not scale to mesh geometry: "
+              f"{report['chip']}", file=sys.stderr)
+        ok = False
+    return report, ok
 
 
 def trace_overhead_bench(args, cfg, params) -> tuple:
@@ -1388,8 +1519,15 @@ def parse_args(argv=None):
                     help="interleaved (off, on) stream pairs; best-of-N "
                          "TTFT per arm")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="multi-GPU sharded generation (needs the "
-                         "tensor-parallel engine: not ported yet, raises)")
+                    help="tensor-parallel generation over N ranks: streams "
+                         "byte-identical to the single-device engine")
+    ap.add_argument("--mesh-devices", default="",
+                    help="with --mesh: the ranks' devices, comma-separated "
+                         "(default: N CPU ranks with --device cpu, else the "
+                         "first N GPUs)")
+    ap.add_argument("--mesh-backend", default="", choices=("", "gloo", "nccl"),
+                    help="with --mesh: the collectives' transport (default: "
+                         "gloo on the CPU, nccl on distinct GPUs)")
     ap.add_argument("--overlap", action="store_true",
                     help="benchmark overlapped decode: interleaved A/B of "
                          "the same stream with the pipeline off vs on, "
@@ -1526,9 +1664,23 @@ MODES = (
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = model_config(args)
-    if args.mesh:
-        mesh_bench(args, cfg, None)
     params = seeded_params(cfg, device=args.device)
+    if args.mesh:
+        report, ok = mesh_bench(args, cfg, params)
+        write_bench_artifact(args.bench_out, "mesh", report, args.device)
+        append_history(args.history_out, "mesh", report, ok, args.device)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=2)
+        if not ok:
+            return 1
+        print(
+            f"OK: tp={args.mesh} streams byte-identical to single-device "
+            f"(mixed sampling + speculative) at "
+            f"{report['mesh_tokens_per_s_ratio']}x tokens/s, zero "
+            "steady-state retraces"
+        )
+        return 0
 
     for flag, mode, bench, success in MODES:
         if not getattr(args, flag):

@@ -690,9 +690,35 @@ def dump_timeline(base: str, out: str) -> int:
 
 
 # --------------------------------------------------------------- selfcheck
-def selfcheck(device=None) -> int:
+def selfcheck(device=None, tp_degree=None) -> int:
     """End-to-end observability proof on a tiny in-process model (on
-    ``device``: the GPU by default; weights seeded)."""
+    ``device``: the GPU by default; weights seeded). ``tp_degree`` N > 1
+    serves it tensor-parallel over N ranks (4 heads: N in 2, 4)."""
+    from flexflow_tpu_torch.generation import GenerationEngine
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.tools._common import seeded_params
+
+    failures = []
+
+    def check(cond, msg):
+        if not cond:
+            failures.append(msg)
+            print(f"FAIL: {msg}", file=sys.stderr)
+
+    cfg = TransformerConfig(
+        num_layers=2, hidden_size=32, num_heads=4, ff_size=64,
+        seq_length=64, vocab_size=50, causal=True,
+    )
+    eng = GenerationEngine(seeded_params(cfg), cfg,
+                           max_batch_slots=3, block_size=8, device=device,
+                           tp_degree=tp_degree)
+    try:
+        return _selfcheck(eng, cfg, device, check, failures)
+    finally:
+        eng.close()
+
+
+def _selfcheck(eng, cfg, device, check, failures) -> int:
     import numpy as np
 
     from flexflow_tpu_torch.core.tensor import TensorSpec
@@ -721,19 +747,6 @@ def selfcheck(device=None) -> int:
     from flexflow_tpu_torch.serving.fleet import Fleet
     from flexflow_tpu_torch.tools._common import seeded_params
 
-    failures = []
-
-    def check(cond, msg):
-        if not cond:
-            failures.append(msg)
-            print(f"FAIL: {msg}", file=sys.stderr)
-
-    cfg = TransformerConfig(
-        num_layers=2, hidden_size=32, num_heads=4, ff_size=64,
-        seq_length=64, vocab_size=50, causal=True,
-    )
-    eng = GenerationEngine(seeded_params(cfg), cfg,
-                           max_batch_slots=3, block_size=8, device=device)
     eng.generate([[1] * 8], SamplingParams(max_new_tokens=2))  # capture the steps
     model = GenerationModel(eng, name="lm")
     srv = InferenceServer(port=0)
@@ -871,11 +884,21 @@ def selfcheck(device=None) -> int:
         check(eng.prefix_cache.tokens_reused_total > reused_before,
               "repeat admission did not reuse cached prefix blocks")
 
-        # -------------------- serving-strategy metadata: one GPU
+        # -------------------- serving-strategy metadata: the engine's mesh
         meta = _get_json(f"{base}/v2/models/lm")
         ss = meta.get("serving_strategy") or {}
-        check(ss.get("tp_degree") == 1 and ss.get("mesh_devices") == 1,
-              f"single-device serving_strategy block wrong: {ss}")
+        check(ss.get("tp_degree") == eng.tp_degree
+              and ss.get("mesh_devices") == eng.mesh_devices,
+              f"serving_strategy block {ss} is not the engine's "
+              f"(tp {eng.tp_degree}, {eng.mesh_devices} device(s))")
+        if eng.tp_degree > 1:
+            lay = ss.get("layout") or {}
+            check(lay.get("kv_heads_per_shard") == cfg.num_heads // eng.tp_degree
+                  and (ss.get("search") or {}).get("pinned") is True,
+                  f"tensor-parallel layout block wrong: {ss}")
+            gauges = _get_json(f"{base}/v2/stats")
+            check(str(gauges).count("cache_shard_heads") >= 1,
+                  "cache_shard_heads gauge missing from /v2/stats")
 
         # -------------------- program registry: non-empty, blame works
         progs = _get_json(f"{base}/v2/debug/programs")
@@ -1251,10 +1274,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="with --selfcheck: the engine's device (default: the "
                          "GPU; 'cpu' for the CPU)")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="with --selfcheck: serve tensor-parallel over this "
+                         "many ranks (2 or 4)")
     args = ap.parse_args(argv)
 
     if args.selfcheck:
-        return selfcheck(device=args.device)
+        return selfcheck(device=args.device, tp_degree=args.tp)
     if not args.url:
         ap.error("--url required (or --selfcheck)")
     base = args.url.rstrip("/")

@@ -30,10 +30,12 @@ always produce byte-identical event traces and reports.
       snapshot (measured p50s; cross-device loads are refused: a card's
       export is tagged ``h100``) or the pinned demo table.
 
-  python -m flexflow_tpu_torch.tools.simfleet tp ...
-      "What TP degree per pool": needs the tensor-parallel serving
-      layout search, which the port does not have yet (ROADMAP.md
-      queue 1, item 4); it raises NotImplementedError.
+  python -m flexflow_tpu_torch.tools.simfleet tp --tp 1,2,4
+      [--mesh-devices 4] [--heads 4] ...
+      "What TP degree per pool": replay the schedule with each degree's
+      step costs priced by the serving-layout search
+      (``SimCosts.from_strategy``) and rank the degrees (no shedding
+      first, then TTFT p99).
 
   python -m flexflow_tpu_torch.tools.simfleet tune [--out FILE]
       Sweep OverloadConfig's degrade/admission thresholds in the twin on
@@ -205,13 +207,58 @@ def cmd_sweep(args) -> int:
 
 # -------------------------------------------------------------------- tp
 def cmd_tp(args) -> int:
-    """Rank candidate TP degrees for one pool: needs the strategy
-    search's tensor-parallel serving layouts (``SimCosts.from_strategy``),
-    which the port does not have yet."""
-    raise NotImplementedError(
-        "simfleet tp needs the tensor-parallel serving layout search "
-        "(search/serving_strategy.py), which is not ported yet (ROADMAP.md "
-        "queue 1, item 4)")
+    """Rank candidate TP degrees for one pool by replaying the
+    schedule with strategy-search-priced costs per degree."""
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(
+        num_layers=args.layers, hidden_size=args.hidden,
+        num_heads=args.heads, ff_size=4 * args.hidden,
+        seq_length=max(args.buckets), vocab_size=args.vocab, causal=True,
+    )
+    buckets = tuple(args.buckets)
+    degrees = [int(d) for d in args.tp.split(",")]
+    scens, tables = [], {}
+    for tp in degrees:
+        tables[f"tp{tp}"] = SimCosts.from_strategy(
+            cfg, tp=tp, mesh_devices=args.mesh_devices, buckets=buckets,
+            slots=args.slots,
+        )
+        scens.append((tp, Scenario(
+            name=f"tp{tp}", arm="unified", replicas=args.replicas_per,
+            slots=args.slots, max_queue=args.max_queue,
+            num_blocks=args.num_blocks, traffic_x=args.traffic_x,
+        )))
+    rows = []
+    for tp, sc in scens:
+        rep = run_scenario(args.schedule, tables[f"tp{tp}"], sc).render()
+        rows.append({
+            "tp_degree": tp,
+            "ttft_p50_s": rep["ttft_p50_s"],
+            "ttft_p99_s": rep["ttft_p99_s"],
+            "tpot_p50_s": rep["tpot_p50_s"],
+            "shed_rate": rep["shed_rate"],
+            "goodput_tokens_per_s": rep["goodput_tokens_per_s"],
+            "costs": rep["costs"],
+        })
+    big = 1e18
+    rows.sort(key=lambda r: (
+        r["shed_rate"],
+        r["ttft_p99_s"] if r["ttft_p99_s"] is not None else big,
+        r["tp_degree"],
+    ))
+    print(f"mesh={args.mesh_devices} heads={args.heads} buckets={buckets}")
+    for i, r in enumerate(rows):
+        print(
+            f"{i + 1}. tp={r['tp_degree']} "
+            f"ttft_p99={(r['ttft_p99_s'] or 0) * 1e3:.1f}ms "
+            f"tpot_p50={(r['tpot_p50_s'] or 0) * 1e3:.2f}ms "
+            f"shed={r['shed_rate']:.3f} "
+            f"goodput={r['goodput_tokens_per_s']:.1f} tok/s"
+        )
+    if args.out:
+        _write({"mesh_devices": args.mesh_devices, "ranked": rows}, args.out)
+    return 0
 
 
 # -------------------------------------------------------------- simcheck

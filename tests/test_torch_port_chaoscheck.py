@@ -8,7 +8,8 @@ stall (a real watchdog on real clocks), nan, double fault, budget and the
 combined case. Every case's counters (recoveries, quarantined, watchdog
 trips, replayed tokens, engine failures, typed failures) and its
 exactness flags equal the JAX sweep's (the two real-clock cases' trip
-and replay counts at least 1 on both sides), and both pass.
+and replay counts at least 1 on both sides), and both pass. The tensor-parallel sweep (``--mesh 2``) is held against
+the JAX tool's the same way.
 """
 import json
 
@@ -52,6 +53,20 @@ def test_recovery_sweep_counters_equal_jax(capsys):
     assert report["crash"]["recoveries"] == 1 and report["nan"]["quarantined"] == 1
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tchaos.main(["--mesh", "2"])
+def test_mesh_sweep_equals_jax(capsys):
+    """``--mesh 2``: a tp=2 engine (two CPU ranks over gloo) through the
+    collective retry, restart and stall legs, against the JAX tool's tp=2
+    engine over the same weights: exact streams, the same counters (the
+    stall's real-clock trips at least 1 on both sides)."""
+    assert jchaos.run_mesh_sweep(2)
+    out = capsys.readouterr().out
+    jreport = json.loads(out[:out.rindex("}") + 1])["mesh_sweep"]
+    params = decoder_params_from_numpy(
+        jax.tree.map(np.asarray, jinit(jax.random.key(0), JConfig(**CFG))))
+    report = tchaos.run_mesh_sweep(2, device="cpu", params=params)
+    assert report["ok"]
+    assert (report["devices"], report["transport"]) == (["cpu", "cpu"], "gloo")
+    for case in ("reference", "retry", "restart"):
+        assert report[case] == jreport[case], case
+    assert report["stall"]["exact"] and jreport["stall"]["exact"]
+    assert min(report["stall"]["watchdog_trips"], jreport["stall"]["watchdog_trips"]) >= 1

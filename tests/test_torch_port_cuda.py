@@ -1622,3 +1622,36 @@ def test_cuda_dataloader_gathers_natively_into_pinned_memory(cuda):
         want = data[torch.from_numpy(order[i * 8:(i + 1) * 8])]
         assert torch.equal(b.cpu().view(torch.int16), want.view(torch.int16))
     assert native.CALLS["batch_gather"] == 5
+
+
+def test_cuda_tensor_parallel_engine_over_nccl(cuda):
+    """A tp=2 engine whose ranks sit on cuda:0 and cuda:1, its collectives
+    over NCCL: greedy and seeded streams equal to the single-device
+    engine's, each rank's paged kernel launched once a layer a decode
+    step over its own heads. Needs two GPUs."""
+    from flexflow_tpu_torch.parallel.mesh import serving_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs (NCCL cannot put two ranks of one communicator on "
+                    "one device)")
+    cfg = TransformerConfig(num_layers=2, hidden_size=128, num_heads=4, ff_size=256,
+                            seq_length=64, vocab_size=97, causal=True)
+    params = init_decoder_params(torch.Generator().manual_seed(5), cfg)
+    prompts = [list(range(3, 14)), [5, 1, 4], [7] * 20]
+    one = GenerationEngine(params, cfg, max_batch_slots=2, block_size=8, device=cuda)
+    mesh = serving_mesh(2, ["cuda:0", "cuda:1"])
+    assert mesh.backend == "nccl"
+    tp = GenerationEngine(params, cfg, max_batch_slots=2, block_size=8, mesh=mesh)
+    try:
+        for samp in (SamplingParams(max_new_tokens=8),
+                     SamplingParams(max_new_tokens=8, temperature=0.8, top_k=5, seed=3)):
+            assert tp.generate(prompts, samp) == one.generate(prompts, samp)
+        tp.reset_rank_counters()
+        decode0 = tp.step_counts["decode"]
+        tp.generate(prompts[:1], SamplingParams(max_new_tokens=6))
+        steps = tp.step_counts["decode"] - decode0
+        for info in tp.rank_info():
+            assert info["cache_heads"] == 2
+            assert info["launches"]["paged_append"] == cfg.num_layers * steps
+    finally:
+        tp.close()

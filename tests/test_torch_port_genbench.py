@@ -8,7 +8,8 @@ token counts, scheduler steps and preemptions, the engine's captures per
 step kind against the JAX engine's trace counts (one per prefill bucket,
 one decode, none in steady state), and the self-healing / overload
 counters (all zero). The port's streams equal the JAX engine's for the
-same prompts. ``--mesh`` raises (no tensor-parallel engine yet).
+same prompts. ``--mesh 2`` gates the tp=2 engine's streams as the JAX
+tool gates its tp=2 engine's.
 """
 import json
 import sys
@@ -73,6 +74,29 @@ def test_streams_equal_jax(runs):
     assert runs["outs"] == want
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tgen.main(["--mesh", "2", "--device", "cpu", "--bench-out", "", "--history-out", ""])
+MESH_KEYS = ("requests", "mesh_devices", "generated_tokens", "exact", "exact_speculative",
+             "steady_state_retraces", "engine_restarts", "quarantined", "watchdog_trips",
+             "supervisor_step_retries", "overload_activations")
+
+
+def test_mesh_gate_equals_jax(tmp_path, capsys):
+    """``--mesh 2``: the tp=2 engine's streams byte-identical to the
+    single-device engine's (mixed sampling and speculative), in both
+    tools, with the same deterministic report fields; the port's ranks
+    and transport printed (two CPU ranks over gloo)."""
+    args = ARGS + ["--mesh", "2", "--requests", "4", "--max-new", "4"]
+    jout, tout = tmp_path / "jax.json", tmp_path / "port.json"
+    old, sys.argv = sys.argv, ["genbench"] + args + ["--out", str(jout)]
+    try:
+        assert jgen.main() == 0
+    finally:
+        sys.argv = old
+    assert tgen.main(args + ["--device", "cpu", "--out", str(tout)]) == 0
+    assert "mesh: 2 ranks on ['cpu', 'cpu'] over gloo" in capsys.readouterr().out
+    j, t = json.loads(jout.read_text()), json.loads(tout.read_text())
+    assert {k: t[k] for k in MESH_KEYS} == {k: j[k] for k in MESH_KEYS}
+    assert t["exact"] and t["exact_speculative"] and t["chip"] == "cpu x2"
+    assert t["serving_strategy"]["tp_degree"] == j["serving_strategy"]["tp_degree"] == 2
+    assert t["serving_strategy"]["layout"] == j["serving_strategy"]["layout"]
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        tgen.tool_mesh(2, devices=["cuda:0", "cuda:0"])

@@ -146,9 +146,33 @@ def test_ledger_export_loads_and_refuses_as_jax(tmp_path):
         tsim.SimCosts.from_ledger_export({"schema": "x"})
 
 
-def test_from_strategy_waits_for_the_serving_strategy_port():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tsim.SimCosts.from_strategy(None, tp=1, mesh_devices=1, buckets=[8])
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_from_strategy_prices_as_jaxs(tp):
+    """``SimCosts.from_strategy``: the serving-layout search's prefill and
+    decode seconds at the degree, per bucket, as the JAX twin's."""
+    from flexflow_tpu.models.transformer import TransformerConfig as JConfig
+    from flexflow_tpu_torch.models.transformer import TransformerConfig as TConfig
+
+    kw = dict(num_layers=2, hidden_size=32, num_heads=4, ff_size=64, seq_length=64,
+              vocab_size=61, causal=True)
+    costs = [pkg.SimCosts.from_strategy(C(**kw), tp=tp, mesh_devices=4, buckets=[16, 64])
+             for pkg, C in ((jsim, JConfig), (tsim, TConfig))]
+    j, t = (vars(c) for c in costs)
+    assert set(t) == set(j)
+    for key in t:
+        if key == "prefill_s":
+            assert t[key].keys() == j[key].keys()
+            assert all(abs(t[key][b] - j[key][b]) <= 1e-12 * j[key][b] for b in j[key])
+        elif isinstance(t[key], float):
+            assert abs(t[key] - j[key]) <= 1e-12 * abs(j[key]), key
+        else:
+            assert t[key] == j[key], key
+    msgs = []
+    for pkg, C in ((jsim, JConfig), (tsim, TConfig)):
+        with pytest.raises(ValueError) as e:
+            pkg.SimCosts.from_strategy(C(**kw), tp=3, mesh_devices=4, buckets=[16])
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 def test_sim_ledger_pairs_equal_jaxs():

@@ -7,7 +7,8 @@ the JAX tool's (the live storm runs the port's engine on the CPU on the
 virtual clock, the JAX tool's its engine: TTFTs in virtual time do not
 depend on the weights); a ledger export written by the port's obsreport
 from a port server loads in both packages' ``from_ledger_export`` under
-its device tag and is refused under another device's; ``tp`` raises.
+its device tag and is refused under another device's; ``tp`` ranks the
+degrees the serving-layout search prices as the JAX tool does.
 """
 import argparse
 import json
@@ -81,9 +82,16 @@ def test_simcheck_equals_jax(tmp_path):
     assert tsimfleet.STORM_OVERLOAD == jsimfleet.STORM_OVERLOAD
 
 
-def test_tp_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tsimfleet.cmd_tp(argparse.Namespace())
+@pytest.mark.parametrize("mesh,degrees", [(4, "1,2,4"), (2, "1,2")])
+def test_tp_ranks_degrees_as_jax(tmp_path, mesh, degrees):
+    """``simfleet tp``: each degree's costs priced by the serving-layout
+    search, the storm replayed per degree, the same ranked document."""
+    kw = dict(mesh_devices=mesh, tp=degrees, layers=2, hidden=64, heads=4, vocab=64,
+              buckets=[16, 32], replicas_per=1, slots=4, max_queue=16, num_blocks=64,
+              traffic_x=1.0)
+    (j, t), rcs = _both(tmp_path, "tp", **kw)
+    assert rcs == [0, 0] and t == j
+    assert sorted(r["tp_degree"] for r in t["ranked"]) == [int(d) for d in degrees.split(",")]
 
 
 def test_port_ledger_export_loads_in_both(tmp_path, capsys):
