@@ -448,6 +448,20 @@ prints no result line):
    native gather answering each, ms a step against staged batches in
    turns and the busy share.
 
+28. dp: data-parallel training (``runtime/data_parallel.py``) on two
+   ranks sharing the card over gloo. BERT-Base (12 x 768, seq 128) at a
+   global batch of 32, fp32 and bf16, 4 SGD steps at N=1 and N=2 on the
+   same batches and keys: the ranks start from N=1's weights and hold
+   bit-identical parameters after every step, losses within the training
+   phase's gates (fp32 rtol 1e-5, bf16 2^-8), parameters within its
+   parameter gate, 12 launches of each flash kernel a step in each rank
+   (bf16 all on the wgmma body); the step ms at N=1 and N=2 in turns,
+   each rank's all-reduce ms and bytes a step and peak memory (printed,
+   not gated). ZeRO-1 (Adam) against the replicated run at N=2: losses
+   and parameters bit for bit, half the moment bytes a rank. BERT-CLS
+   with dropout 0.1: each rank's 24 masks its rows of N=1's, bit for
+   bit. The NCCL leg runs where there are two GPUs.
+
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
@@ -7930,6 +7944,304 @@ def print_programs(card: str, p: dict) -> None:
         f"{k} {s:.1f}" for k, s in p["seconds"].items()) + ")")
 
 
+DP_RANKS = 2  # ranks of the dp phase, both on the one card, over gloo
+DP_STEPS = 4  # parity steps of each dtype at N=1 and N=2
+DP_TIMED = 3  # steps of each timed round
+
+
+def dp_pair(mesh, seed: int, cfg, optimizer, zero: bool = False):
+    """BERT-Base at ``cfg`` on one card (N=1) and the same graph over
+    ``mesh``'s ranks, both compiled with ``optimizer()`` and MSE from the
+    same seed (the same initial weights: one graph, one generator)."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.models import build_transformer
+
+    one = build_transformer(FFConfig(batch_size=32, seed=seed), cfg, device="cuda")
+    loss = LossType.MEAN_SQUARED_ERROR if cfg.num_classes == 0 else \
+        LossType.SPARSE_CATEGORICAL_CROSSENTROPY
+    one.compile(optimizer=optimizer(), loss_type=loss)
+    two = FFModel.from_graph(one.graph, FFConfig(batch_size=32, seed=seed, zero_optimizer=zero),
+                             mesh=mesh)
+    two.compile(optimizer=optimizer(), loss_type=loss,
+                outputs=two.output_tensors([(t.node.guid, t.idx) for t in one._outputs]))
+    return one, two
+
+
+def dp_rank_counts(two) -> list:
+    """Each rank's counters (flash launches, collectives, peak memory,
+    the digest of its parameters); the ranks must hold the same bits."""
+    info = two.executor.rank_info()
+    if len({i["params_sha"] for i in info}) != 1:
+        raise AssertionError("dp: the ranks' parameters differ")
+    return info
+
+
+def dp_check_launches(tag: str, form: str, info: list, want: dict) -> None:
+    """Each rank launched exactly ``want`` of the flash kernels (its own
+    counters), the bf16 ones all on the wgmma body."""
+    for r, i in enumerate(info):
+        la = {k: n for k, n in i["flash_launches"].items() if n}
+        if la != want:
+            raise AssertionError(f"dp {tag}: rank {r} launched {la}, expected {want}")
+        if form == "_bf16":
+            bodies = {k: n for k, n in i["flash_launches_by_body"].items() if n}
+            if bodies != {f"{k} wgmma": n for k, n in want.items()}:
+                raise AssertionError(f"dp bf16: rank {r}'s launches by body {bodies}")
+
+
+def dp_parity(mesh, seed: int, dtype) -> dict:
+    """BERT-Base (12 x 768, seq 128) at a global batch of 32 in ``dtype``:
+    DP_STEPS SGD steps at N=1 and over the mesh's 2 ranks on the same
+    batches and keys, under the training phase's gates; the ranks
+    bit-identical after every step; each rank's flash launches; then the
+    step ms at N=1 and N=2 in turns (two rounds), each rank's all-reduce
+    ms and bytes a step and its peak memory (recorded, not gated)."""
+    import torch
+
+    from flexflow_tpu_torch.generation import prng
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+    from flexflow_tpu_torch.runtime.data_parallel import _tree_digest
+
+    cfg = bert_base(dtype)
+    tdt = cfg.dtype.torch
+    form = FLASH_FORMS[str(tdt)[6:]]
+    tag = {"": "fp32", "_bf16": "bf16", "_f16": "fp16"}[form]
+    one, two = dp_pair(mesh, seed, cfg, lambda: SGDOptimizer(lr=0.01))
+    try:
+        if dp_rank_counts(two)[0]["params_sha"] != _tree_digest(one.executor.params):
+            raise AssertionError(f"dp {tag}: the N=2 ranks start from other weights")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 28)
+        shape = (DP_STEPS, 32, cfg.seq_length, cfg.hidden_size)
+        xs = torch.randn(shape, generator=gen, device="cuda").to(tdt)
+        ys = torch.randn(shape, generator=gen, device="cuda").to(tdt)
+        before = params_copy(one.executor.params)
+        losses = {"n1": [], "n2": []}
+        for s in range(DP_STEPS):
+            losses["n1"].append(float(one.executor.train_batch([xs[s]], ys[s],
+                                                               rng=prng.key(seed + s))["loss"]))
+        # rank 0 shares its process (and its launch counters) with N=1's
+        # model: the counts are set to 0 after N=1's steps
+        two.executor.reset_rank_counters()
+        for s in range(DP_STEPS):
+            losses["n2"].append(float(two.executor.train_batch([xs[s]], ys[s],
+                                                               rng=prng.key(seed + s))["loss"]))
+            info = dp_rank_counts(two)  # bit-identical ranks after every step
+        launches = [i["flash_launches"] for i in info]
+        want = {f"{k}{form}": cfg.num_layers * DP_STEPS
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        dp_check_launches(tag, form, info, want)
+        gates = step_gates(f"dp {tag}", tdt, before, params_copy(one.executor.params),
+                           params_copy(two.executor.params), losses["n1"][-1], losses["n2"][-1])
+        rtol = HALF_LOSS_RTOL[str(tdt)[6:]] if form else LOSS_RTOL
+        for a, b in zip(losses["n1"], losses["n2"]):
+            if abs(a - b) > rtol * abs(a):
+                raise AssertionError(f"dp {tag}: losses N=1 {losses['n1']} vs N=2 "
+                                     f"{losses['n2']} beyond rtol {rtol}")
+        del before
+        # the step ms in turns, each rank's all-reduce and peak memory
+        rounds = {"n1": [], "n2": []}
+        for name in ("n1", "n2", "n2", "n1"):
+            model = one if name == "n1" else two
+            if name == "n2":
+                two.executor.reset_rank_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for s in range(DP_TIMED):
+                model.executor.train_batch([xs[s]], ys[s], rng=prng.key(seed + s))
+            torch.cuda.synchronize()
+            rec = {"step_ms": 1e3 * (time.perf_counter() - t0) / DP_TIMED}
+            if name == "n2":
+                info = dp_rank_counts(two)
+                rec["all_reduce_ms_per_step"] = [1e3 * i["all_reduce_s"] / DP_TIMED for i in info]
+                rec["all_reduce_bytes_per_step"] = [i["all_reduce_bytes"] // DP_TIMED
+                                                    for i in info]
+                rec["peak_memory_bytes"] = [i["max_memory_allocated"] for i in info]
+            rounds[name].append(rec)
+        n_params = sum(p.numel() for g in one.executor.params.values() for p in g.values())
+        return {"dtype": tag, "losses": losses, "gates": gates, "launches_per_rank": launches,
+                "rounds": rounds, "params": n_params,
+                "launches": {k: sum(la.get(k, 0) for la in launches) for k in want}}
+    finally:
+        two.close()
+        del one, two
+        torch.cuda.empty_cache()
+
+
+def dp_zero(mesh, seed: int) -> dict:
+    """Adam at N=2, ``zero_optimizer=True`` against False, fp32 BERT-Base:
+    losses and parameters bit for bit after 2 steps; each rank's moment
+    bytes against the replicated run's."""
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import DataType, LossType
+    from flexflow_tpu_torch.generation import prng
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.runtime import AdamOptimizer
+
+    cfg = bert_base(DataType.FLOAT)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    shape = (2, 32, cfg.seq_length, cfg.hidden_size)
+    xs = torch.randn(shape, generator=gen, device="cuda")
+    ys = torch.randn(shape, generator=gen, device="cuda")
+    runs = {}
+    # one graph for both runs: the same node keys, so the digests compare
+    graph = build_transformer(FFConfig(batch_size=32, seed=seed), cfg, device="cuda").graph
+    for zero in (True, False):
+        two = FFModel.from_graph(graph, FFConfig(batch_size=32, seed=seed, zero_optimizer=zero),
+                                 mesh=mesh)
+        two.compile(optimizer=AdamOptimizer(alpha=1e-4), loss_type=LossType.MEAN_SQUARED_ERROR)
+        try:
+            losses = [float(two.executor.train_batch([xs[s]], ys[s], rng=prng.key(seed + s))[
+                "loss"]) for s in range(2)]
+            info = dp_rank_counts(two)
+            runs[zero] = {"losses": losses, "sha": info[0]["params_sha"],
+                          "moment_bytes": [i["moment_bytes"] for i in info]}
+        finally:
+            two.close()
+            del two
+            torch.cuda.empty_cache()
+    z, r = runs[True], runs[False]
+    if z["losses"] != r["losses"] or z["sha"] != r["sha"]:
+        raise AssertionError(f"dp ZeRO-1: losses {z['losses']} vs {r['losses']}, parameters "
+                             f"equal {z['sha'] == r['sha']}")
+    if any(2 * zb != rb for zb, rb in zip(z["moment_bytes"], r["moment_bytes"])):
+        raise AssertionError(f"dp ZeRO-1: moment bytes a rank {z['moment_bytes']} vs "
+                             f"replicated {r['moment_bytes']}")
+    return {"losses": z["losses"], "moment_bytes_per_rank": z["moment_bytes"],
+            "replicated_moment_bytes_per_rank": r["moment_bytes"]}
+
+
+def dp_dropout(mesh, seed: int) -> dict:
+    """BERT-CLS (BERT-Base, vocab 30522, 2 classes, dropout 0.1) at N=2:
+    each rank's dropout masks are its rows of the N=1 run's, bit for bit;
+    one step's loss within the fp32 gate."""
+    import torch
+
+    from flexflow_tpu_torch.core.types import DataType
+    from flexflow_tpu_torch.generation import prng
+    from flexflow_tpu_torch.models import TransformerConfig
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    base = bert_base(DataType.FLOAT)
+    cfg = TransformerConfig(num_layers=base.num_layers, hidden_size=base.hidden_size,
+                            num_heads=base.num_heads, ff_size=base.ff_size,
+                            seq_length=base.seq_length, vocab_size=30522, num_classes=2,
+                            dropout=0.1)
+    one, two = dp_pair(mesh, seed, cfg, lambda: SGDOptimizer(lr=0.01))
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+        x = torch.randint(0, cfg.vocab_size, (32, cfg.seq_length), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        y = torch.randint(0, 2, (32, 1), generator=gen, device="cuda", dtype=torch.int32)
+        key = prng.key(seed + 31)
+        (want,) = one.executor.dropout_masks([x], key)
+        ranks = two.executor.dropout_masks([x], key)
+        if not (len(want) == 2 * cfg.num_layers and all(len(m) == len(want) for m in ranks)):
+            raise AssertionError(f"dp dropout: {len(want)} masks at N=1, "
+                                 f"{[len(m) for m in ranks]} a rank")
+        for i, w in enumerate(want):
+            if not torch.equal(torch.cat([m[i].to(w.device) for m in ranks]), w):
+                raise AssertionError(f"dp dropout: mask {i} is not the ranks' rows")
+        la = float(one.executor.train_batch([x], y, rng=key)["loss"])
+        lb = float(two.executor.train_batch([x], y, rng=key)["loss"])
+        if abs(la - lb) > LOSS_RTOL * abs(la):
+            raise AssertionError(f"dp dropout: loss N=1 {la} vs N=2 {lb}")
+        dp_rank_counts(two)
+        return {"masks": len(want), "mask_elements": sum(m.numel() for m in want),
+                "loss_n1": la, "loss_n2": lb}
+    finally:
+        two.close()
+        del one, two
+        torch.cuda.empty_cache()
+
+
+def dp_phase(seed: int) -> dict:
+    """Data-parallel training on the card (``runtime/data_parallel.py``):
+    two ranks sharing the one H100 over gloo (``data_parallel_mesh(2,
+    ["cuda:0"] * 2, backend="gloo")``), BERT-Base fp32 and bf16 against
+    N=1 (``dp_parity``), ZeRO-1 (``dp_zero``), the dropout masks
+    (``dp_dropout``); the NCCL leg where there are two GPUs. A gloo run
+    says nothing of multi-GPU speed: both ranks share one card and every
+    collective crosses host memory."""
+    import torch
+
+    from flexflow_tpu_torch.core.types import DataType
+    from flexflow_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = data_parallel_mesh(DP_RANKS, ["cuda:0"] * DP_RANKS, backend="gloo")
+    t0 = time.perf_counter()
+    mesh.group()
+    out = {"start_s": time.perf_counter() - t0}
+    try:
+        out["fp32"] = dp_parity(mesh, seed, DataType.FLOAT)
+        out["bf16"] = dp_parity(mesh, seed, DataType.BFLOAT16)
+        out["zero"] = dp_zero(mesh, seed)
+        out["dropout"] = dp_dropout(mesh, seed)
+    finally:
+        mesh.close()
+    out["launches"] = {}
+    for t in ("fp32", "bf16"):
+        for k, n in out[t]["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    if torch.cuda.device_count() >= 2:
+        from flexflow_tpu_torch.generation import prng
+        from flexflow_tpu_torch.runtime import SGDOptimizer
+
+        nccl = data_parallel_mesh(2)
+        try:
+            cfg = bert_base(DataType.FLOAT)
+            one, two = dp_pair(nccl, seed, cfg, lambda: SGDOptimizer(lr=0.01))
+            x = torch.randn(32, cfg.seq_length, cfg.hidden_size, device="cuda")
+            la = float(one.executor.train_batch([x], x, rng=prng.key(seed))["loss"])
+            lb = float(two.executor.train_batch([x], x, rng=prng.key(seed))["loss"])
+            if abs(la - lb) > LOSS_RTOL * abs(la):
+                raise AssertionError(f"dp nccl: loss N=1 {la} vs N=2 {lb}")
+            dp_rank_counts(two)
+            two.close()
+            out["nccl"] = "ran: one step's loss within rtol 1e-5 of N=1, ranks identical"
+        finally:
+            nccl.close()
+    else:
+        out["nccl"] = ("not run: one CUDA device (NCCL cannot put two ranks of one "
+                       "communicator on one device)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dp nccl leg: {out['nccl']}")
+    print("dp: " + json.dumps({k: v for k, v in out.items() if k not in ("fp32", "bf16")}))
+    return out
+
+
+def print_dp(card: str, dp: dict) -> None:
+    for t in ("fp32", "bf16"):
+        r = dp[t]
+        n1, n2 = r["rounds"]["n1"], r["rounds"]["n2"]
+        print(f"{card}: data parallel, BERT-Base {t} (12 x 768, seq 128, global batch 32), "
+              f"2 ranks sharing the card over gloo: step ms N=1 "
+              + ", ".join(f"{x['step_ms']:.3f}" for x in n1) + " vs N=2 "
+              + ", ".join(f"{x['step_ms']:.3f}" for x in n2) + "; all-reduce ms a step by rank "
+              + "; ".join(", ".join(f"{ms:.3f}" for ms in x["all_reduce_ms_per_step"])
+                          for x in n2)
+              + f"; all-reduce bytes a step {n2[0]['all_reduce_bytes_per_step'][0]}; peak GB "
+              "a rank " + ", ".join(f"{b / 1e9:.3f}" for b in n2[0]["peak_memory_bytes"])
+              + f"; losses N=1 {r['losses']['n1']} N=2 {r['losses']['n2']}; parameter diff "
+              f"{r['gates']['param_max_abs_diff']:.3e} of update "
+              f"{r['gates']['param_max_update']:.3e}")
+    z = dp["zero"]
+    print(f"{card}: data parallel ZeRO-1 (Adam, fp32 BERT-Base, N=2): losses {z['losses']} bit "
+          f"for bit with the replicated run; moment bytes a rank {z['moment_bytes_per_rank']} vs "
+          f"{z['replicated_moment_bytes_per_rank']}")
+    d = dp["dropout"]
+    print(f"{card}: data parallel dropout (BERT-CLS, N=2): {d['masks']} masks "
+          f"({d['mask_elements']} elements) each the ranks' rows of N=1's bit for bit; loss "
+          f"N=1 {d['loss_n1']:.7f} vs N=2 {d['loss_n2']:.7f}; group start {dp['start_s']:.2f} s, "
+          f"phase {dp['phase_s']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed for weights, prompts and inputs")
@@ -8032,6 +8344,8 @@ def main(argv=None) -> int:
     search = search_phase(args.seed)
     torch.cuda.empty_cache()
     programs = programs_phase(args.seed, search.pop("table_json"))
+    torch.cuda.empty_cache()
+    dp = dp_phase(args.seed)
 
     def trainer_launches(name):  # the trainer and window phases' launches of a flash form
         return (sum(sum(r["launches"][k][name] for k in r["launches"])
@@ -8073,7 +8387,7 @@ def main(argv=None) -> int:
                training["launches"][name]
                + sum(heads[cell]["launches"][name] for cell in fp32_heads)
                + trainer_launches(name) + onnx_["launches"][name]
-               + programs["launches"][name], FLASH_SOURCE)
+               + programs["launches"][name] + dp["launches"].get(name, 0), FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
         record(f"{name}{form}", f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
@@ -8084,7 +8398,8 @@ def main(argv=None) -> int:
                + (heads["bert-cls bf16"]["launches"][f"{name}{form}"] + search["launches"][
                    f"{name}{form}"] + programs["launches"][f"{name}{form}"]
                   if form == "_bf16" else 0)
-               + trainer_launches(f"{name}{form}"), FLASH_SOURCE)
+               + trainer_launches(f"{name}{form}") + dp["launches"].get(f"{name}{form}", 0),
+               FLASH_SOURCE)
         for form, run in (("_bf16", training_bf16), ("_f16", training_f16))
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
@@ -8155,6 +8470,7 @@ def main(argv=None) -> int:
     print_frontends(card, onnx_, fx_)
     print_search(card, search)
     print_programs(card, programs)
+    print_dp(card, dp)
     inf = heads["infer"]
     print(f"{card}: bert_sst2 over /v2/models/bert_sst2/infer ({inf['clients']} clients, "
           f"{inf['requests']} requests of 1-4 rows): {inf['requests_per_s']:.2f} requests/s, "
@@ -8315,7 +8631,8 @@ def main(argv=None) -> int:
                       "training_f16": training_f16, "heads": heads,
                       "suffix_prefill_bodies": suffix_bodies, "trainer": trainer,
                       "vision": vision, "window": window, "moe": moe, "keras": keras_,
-                      "onnx": onnx_, "fx": fx_, "search": search, "programs": programs}))
+                      "onnx": onnx_, "fx": fx_, "search": search, "programs": programs,
+                      "dp": dp}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,14 @@
 
 Every field of the JAX package's ``FFConfig`` is here, with its default,
 and :meth:`FFConfig.from_args` parses the reference's CLI surface into
-the same field values. The port trains on one GPU: a configuration that
-asks for what it cannot run yet raises instead of silently training
-another way: pipeline stages, more than one node or device and ZeRO-1
-(``zero_optimizer``). ``search_budget > 0`` runs the Unity search in
+the same field values. ``num_devices`` is the JAX package's:
+``workers_per_node``, or else the GPUs of this process, over
+``num_nodes``; a strategy over N > 1 devices trains data-parallel over N
+ranks (``runtime/data_parallel.py``), with ZeRO-1 moments under
+``zero_optimizer``. A configuration that asks for what the port cannot
+run yet raises instead of silently training another way: pipeline
+stages and more than one node (ROADMAP queue 1, item 5's later parts).
+``search_budget > 0`` runs the Unity search in
 ``FFModel.compile`` (``search/unity.py``), which reads the search knobs
 (``search_num_nodes`` / ``search_num_workers`` search for a machine the
 port does not have: compile then raises the device-count error);
@@ -32,7 +36,7 @@ class FFConfig:
     dataset_path: str = ""
     # machine (reference: -ll:gpu / -ll:cpu / numNodes)
     num_nodes: int = 1
-    workers_per_node: int = 0  # 0 -> the one local device
+    workers_per_node: int = 0  # 0 -> every GPU of this process
     # search flags (reference: config.h:128-163)
     search_budget: int = 0
     search_alpha: float = 1.05
@@ -55,7 +59,7 @@ class FFConfig:
     # the search's op-cost source: the calibration table always; True
     # also times every op the table lacks, live (None and False: not)
     measure_op_costs: Optional[bool] = None
-    # pipeline parallelism (must stay 1)
+    # pipeline parallelism (must stay 1: not ported yet)
     pipeline_stages: int = 1
     pipeline_microbatches: int = 0  # 0 -> auto (parallel/strategy.py)
     # activation rematerialization: each repeated block's activations
@@ -67,7 +71,7 @@ class FFConfig:
     # many steps through Executor.train_window, which on the card replays
     # one captured CUDA graph of the step per step. 1 = eager steps.
     trace_window: int = 1
-    # ZeRO-1 optimizer-state sharding (must stay False: one device)
+    # ZeRO-1: the optimizer's moments sharded over the "data" axis
     zero_optimizer: bool = False
     # gradient accumulation: microbatches per optimizer update (one
     # microbatch's activations live at a time). 1 = off.
@@ -93,18 +97,25 @@ class FFConfig:
 
     def __post_init__(self):
         if self.pipeline_stages > 1:
-            raise NotImplementedError("pipeline stages are not ported; use pipeline_stages=1")
-        if self.num_nodes > 1 or self.workers_per_node > 1:
-            raise NotImplementedError("the port trains on one GPU: num_nodes=1, workers_per_node<=1")
-        if self.zero_optimizer:
-            raise NotImplementedError("ZeRO-1 optimizer sharding is not ported; use "
-                                      "zero_optimizer=False")
+            raise NotImplementedError(
+                "pipeline stages are not ported (ROADMAP queue 1, item 5: GPipe with "
+                "models/pipeline_transformer.py); use pipeline_stages=1")
+        if self.num_nodes > 1:
+            raise NotImplementedError(
+                "training across nodes is not ported (ROADMAP queue 1, item 5: the multi-host "
+                "FF_* entry); use num_nodes=1")
         if self.batch_size < 1 or self.epochs < 1 or self.trace_window < 1:
             raise ValueError("batch_size, epochs and trace_window must be >= 1")
 
     @property
     def num_devices(self) -> int:
-        return 1
+        """The JAX package's device count: ``workers_per_node`` or the
+        GPUs of this process, over ``num_nodes`` (at least 1)."""
+        import torch
+
+        n_gpu = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        per_node = self.workers_per_node or (n_gpu // max(1, self.num_nodes))
+        return max(1, self.num_nodes * per_node)
 
     @classmethod
     def from_args(cls, argv: Optional[Sequence[str]] = None) -> "FFConfig":

@@ -13,7 +13,9 @@ on (the default of the JAX versions the repository targets):
   ``fold_in(key, i)``;
 * :func:`random_bits` — 32-bit bits over the partitionable counter layout:
   element ``i`` hashes the 64-bit counter ``(hi, lo) = (0, i)`` and keeps
-  ``bits1 ^ bits2``;
+  ``bits1 ^ bits2``; an element ``offset`` draws elements ``offset ..
+  offset + n - 1`` of a larger array (a data-parallel rank draws its rows
+  of the global mask, and only those);
 * :func:`uniform` — the mantissa construction: ``(bits >> 9) | 0x3F800000``
   bit-cast to float32, minus 1, scaled to ``[minval, maxval)`` with one
   rounding (as XLA's fused multiply-add rounds), clamped below by
@@ -95,17 +97,20 @@ def split(k: Key, num: int = 2) -> Tuple[Key, ...]:
     return tuple((k1[i], k2[i]) for i in range(num))
 
 
-def random_bits(k: Key, shape: Sequence[int]) -> torch.Tensor:
+def random_bits(k: Key, shape: Sequence[int], offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` under the partitionable
     layout: int64 [*batch, *shape] of uint32 values, batched over the
-    keys' own shape."""
+    keys' own shape. ``offset`` > 0 gives the ``prod(shape)`` elements
+    that start at flat index ``offset`` of a larger array drawn with the
+    same key (row-major: the rows after the first ``offset`` elements)."""
     k1, k2 = k
     n = 1
     for s in shape:
         n *= int(s)
-    if n >= 2**32:
+    if offset < 0 or offset + n >= 2**32:
         raise ValueError("random_bits over 2**32 or more elements needs 64-bit counters")
-    lo = torch.arange(n, dtype=torch.int64, device=k1.device).reshape(tuple(shape))
+    lo = torch.arange(offset, offset + n, dtype=torch.int64,
+                      device=k1.device).reshape(tuple(shape))
     expand = (...,) + (None,) * len(shape)
     b1, b2 = threefry2x32(k1[expand], k2[expand], torch.zeros_like(lo), lo)
     return b1 ^ b2
@@ -137,10 +142,11 @@ def gumbel(k: Key, shape: Sequence[int]) -> torch.Tensor:
     return -torch.log(-torch.log(uniform(k, shape, minval=TINY32, maxval=1.0)))
 
 
-def bernoulli(k: Key, p: float, shape: Sequence[int]) -> torch.Tensor:
+def bernoulli(k: Key, p: float, shape: Sequence[int], offset: int = 0) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` (mode "low"): a bool tensor,
     ``uniform(key, shape) < p`` with ``p`` rounded to float32, drawn on the
     key's device. ``uniform`` on ``[0, 1)`` is the unit floats themselves
-    (``* 1 + 0`` and the clamp at 0 change no value)."""
+    (``* 1 + 0`` and the clamp at 0 change no value). ``offset``: the
+    elements from that flat index on of a larger mask (:func:`random_bits`)."""
     p32 = float(torch.tensor(p, dtype=torch.float32))
-    return _unit_floats(random_bits(k, shape)) < p32
+    return _unit_floats(random_bits(k, shape, offset)) < p32

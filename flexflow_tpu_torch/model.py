@@ -8,13 +8,17 @@ points, and of ``profile``, ``recompile_on_condition``, ``get_output``,
 ``flexflow_tpu/model.py``).
 
 Building a layer records a graph node; ``compile`` picks the strategy
-(data parallelism, a strategy file, or the Unity search) and makes a
-single-GPU :class:`~flexflow_tpu_torch.runtime.executor.Executor` and
-its weights;
-``fit`` runs the training loop and prints the reference's ELAPSED TIME /
-THROUGHPUT line. :meth:`FFModel.from_graph` wraps a graph read back from
-JSON (the model repository's). The model runs on the GPU unless
-``device="cpu"`` is passed.
+(data parallelism, a strategy file, or the Unity search) and makes the
+:class:`~flexflow_tpu_torch.runtime.executor.Executor` of one device and
+its weights, or, for a ``"data"`` axis of N > 1 devices, a
+:class:`~flexflow_tpu_torch.runtime.data_parallel.DataParallelExecutor`
+on each of N ranks; ``fit`` runs the training loop and prints the
+reference's ELAPSED TIME / THROUGHPUT line. :meth:`FFModel.from_graph`
+wraps a graph read back from JSON (the model repository's). The model
+runs on the GPU unless ``device="cpu"`` is passed; ``mesh=`` (a
+``parallel/mesh.py::Mesh``, e.g. ``data_parallel_mesh(2, ["cpu", "cpu"])``)
+names the ranks' devices and transport instead, and the model's
+:meth:`FFModel.close` releases them.
 
 ``fit`` draws the JAX package's step keys: the chain starts at
 ``key(seed + 1)`` and each window of steps (``trace_window``; the tail
@@ -28,7 +32,9 @@ through ``train_batch``; ``evaluate`` windows the same way.
 """
 from __future__ import annotations
 
+import contextlib
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -115,12 +121,25 @@ class FFModel:
     ``device`` None means CUDA, and raises where no GPU is present;
     ``device="cpu"`` runs the plain PyTorch path. ``seed`` (default
     ``config.seed``) seeds the weights and starts ``fit``'s key chain at
-    ``key(seed + 1)``, as the JAX package's ``FFModel(seed=...)``."""
+    ``key(seed + 1)``, as the JAX package's ``FFModel(seed=...)``.
+    ``mesh`` (``parallel/mesh.py``: ``data_parallel_mesh``,
+    ``build_mesh``) gives the devices of the ranks, one each, and their
+    transport: the model's device is rank 0's. Without it a model on the
+    default device spans the GPUs of this process (``FFConfig.
+    num_devices``), and one given a ``device`` that device alone."""
 
     def __init__(self, config: Optional[FFConfig] = None, seed: Optional[int] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config or FFConfig()
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's rank 0 ({mesh.devices[0]})")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        self._mesh_arg = mesh
+        self._device_arg = device
+        self.mesh = None
+        self._mesh_finalizer = None
         self.graph = PCGraph()
         self._num_inputs = 0
         self._seed = self.config.seed if seed is None else seed
@@ -133,12 +152,12 @@ class FFModel:
 
     @classmethod
     def from_graph(cls, graph: PCGraph, config: Optional[FFConfig] = None,
-                   seed: Optional[int] = None, device=None) -> "FFModel":
+                   seed: Optional[int] = None, device=None, mesh=None) -> "FFModel":
         """A model over an existing graph (``PCGraph.from_json``: the model
         repository's ``graph.json``, or a graph the JAX package wrote),
         guids kept; ``compile(outputs=model.output_tensors(...))`` picks
         its outputs."""
-        model = cls(config, seed=seed, device=device)
+        model = cls(config, seed=seed, device=device, mesh=mesh)
         model.graph = graph
         model._num_inputs = sum(1 for n in graph.nodes.values() if n.op_type == OpType.INPUT)
         return model
@@ -531,8 +550,8 @@ class FFModel:
         strategy=None,
     ) -> "FFModel":
         """Pick the parallelization strategy as the JAX package's compile
-        does, then build the single-GPU executor and its weights
-        (reference: FFModel::compile, model.cc:2811).
+        does, then build the executor (one device, or one a rank) and its
+        weights (reference: FFModel::compile, model.cc:2811).
 
         The strategy is, in this order: ``strategy``; the file
         ``config.import_strategy_file``; data parallelism when
@@ -542,11 +561,14 @@ class FFModel:
         name (a strategy of another graph raises), exported when asked
         (``export_strategy_file``,
         ``export_strategy_computation_graph_file``), and then its mesh
-        must fit the one device the port runs on: a strategy that needs
-        more raises ``mesh needs N devices, have 1`` (the JAX package's
-        ``build_mesh``), after the files are written. On one device every
+        must fit the model's devices (``mesh=``'s, else the given
+        ``device``, else the GPUs of this process): a strategy that needs
+        more raises ``mesh needs N devices, have M`` (the JAX package's
+        ``build_mesh``), after the files are written. Only then does a
+        strategy with an axis other than ``"data"`` above 1 raise (those
+        axes are not ported yet). A ``"data"`` axis of N > 1 starts the
+        mesh's ranks (``runtime/data_parallel.py``); on one device every
         axis is 1 and the searched graph's parallel ops are identities."""
-        from .parallel.mesh import build_mesh
         from .parallel.strategy import ParallelStrategy, data_parallel_strategy
 
         if optimizer is None:
@@ -556,7 +578,8 @@ class FFModel:
         self.metrics = list(metrics)
         self.comp_mode = comp_mode
         self._outputs = list(outputs) if outputs else [self._default_output()]
-        num_devices = self.config.num_devices
+        self._release()
+        num_devices = self._num_devices()
         if strategy is not None:
             self.strategy = strategy
         elif self.config.import_strategy_file:
@@ -586,8 +609,8 @@ class FFModel:
         if self.config.export_strategy_computation_graph_file:
             with open(self.config.export_strategy_computation_graph_file, "w") as f:
                 f.write(self.graph.to_dot())
-        self.mesh = build_mesh(self.strategy.axis_sizes, devices=[self.device])
-        self.executor = Executor(
+        mesh = self._mesh_for(self.strategy.axis_sizes)
+        kw = dict(
             graph=self.graph,
             device=self.device,
             loss_type=loss_type,
@@ -598,8 +621,85 @@ class FFModel:
             grad_accum_steps=self.config.grad_accum_steps,
             strategy=self.strategy,
         )
-        self.executor.initialize(torch.Generator().manual_seed(self._seed))
+        gen = torch.Generator().manual_seed(self._seed)
+        if mesh.size == 1:
+            self.mesh = mesh
+            self.executor = Executor(**kw).initialize(gen)
+            return self
+        from .ops.moe_ops import refuse_data_parallel
+        from .runtime.data_parallel import DataParallelExecutor, graph_batch, rank_plan
+
+        # refusals before any rank starts
+        refuse_data_parallel(self.graph, mesh.size)
+        rank_plan(self.graph, graph_batch(self.graph), mesh.size)
+        if self._mesh_arg is not None and self._mesh_arg == mesh \
+                and self._mesh_arg.timeout_s == mesh.timeout_s:
+            mesh = self._mesh_arg  # the caller's mesh: its ranks serve every model on it
+        else:
+            # a mesh of this model's own, stopped with it
+            self._mesh_finalizer = weakref.finalize(self, mesh.close)
+        self.mesh = mesh
+        ex = DataParallelExecutor(**kw, group=mesh.group(), zero=self.config.zero_optimizer)
+        self.executor = ex.initialize(gen)
+        ex.start_ranks()
         return self
+
+    def _num_devices(self) -> int:
+        """The devices the default strategy spans: ``workers_per_node``,
+        else the mesh's ranks, else the one ``device`` given, else the
+        GPUs of this process (``FFConfig.num_devices``)."""
+        if self._mesh_arg is not None:
+            return self.config.workers_per_node or self._mesh_arg.size
+        if self._device_arg is not None:
+            return self.config.workers_per_node or 1
+        return self.config.num_devices
+
+    def _mesh_for(self, axis_sizes):
+        """The strategy's mesh over the model's devices, checked: the
+        device count first (the JAX package's error), then the axes the
+        port trains (``"data"`` alone)."""
+        from .parallel.mesh import DATA_AXIS, build_mesh, gpus
+
+        m = self._mesh_arg
+        if m is not None:
+            mesh = build_mesh(axis_sizes, m.devices, m.backend, m.timeout_s)
+        elif self._device_arg is not None:
+            mesh = build_mesh(axis_sizes, [self.device])
+        else:
+            mesh = build_mesh(axis_sizes, gpus() or [self.device])
+        later = {
+            "model": "the 'model' axis (tensor parallelism with the parallel ops' data movement)",
+            "seq": "the 'seq' axis (ring and Ulysses attention, ROADMAP queue 2)",
+            "expert": "the 'expert' axis (expert parallelism)",
+            "pipe": "the 'pipe' axis (GPipe with models/pipeline_transformer.py)",
+        }
+        for axis, size in mesh.shape.items():
+            if axis != DATA_AXIS and size > 1:
+                raise NotImplementedError(
+                    f"{later.get(axis, repr(axis))} of size {size} is not ported for training "
+                    "(ROADMAP queue 1, item 5); the port trains data-parallel ('data' axis)")
+        return mesh
+
+    def _release(self) -> None:
+        """Drop a data-parallel executor from the ranks and stop a mesh
+        of this model's own."""
+        from .runtime.data_parallel import DataParallelExecutor
+
+        ex = self.executor
+        if isinstance(ex, DataParallelExecutor):
+            with contextlib.suppress(Exception):
+                ex.close()
+        if self._mesh_finalizer is not None:
+            self._mesh_finalizer()
+            self._mesh_finalizer = None
+
+    def close(self) -> None:
+        """Release the model's ranks (nothing on one device): its executor
+        leaves the mesh's workers, and a mesh the model made for itself
+        stops (a finalizer does that for a model never closed);
+        idempotent."""
+        self._release()
+        self.executor = None
 
     # ------------------------------------------------------- introspection
     def parallel_tensor(self, tensor: Tensor):
@@ -648,9 +748,9 @@ class FFModel:
 
     def _step_words(self, epochs: int, steps: int, tw: int) -> Optional[torch.Tensor]:
         """Every step's threefry key of a ``fit`` as words, [epochs *
-        steps, 2] int64 on the device: the JAX package's chain (module
-        docstring), derived on the host and moved in one copy, so the
-        steps themselves never sync the host."""
+        steps, 2] int64 on the host: the JAX package's chain (module
+        docstring), derived on the host; ``fit`` moves it in one copy, so
+        the steps themselves never sync the host."""
         from .generation import prng  # the generation package imports the model's ops
 
         rng, keys = prng.key(self._seed + 1), []
@@ -661,7 +761,7 @@ class FFModel:
                 rng, sub = prng.split(rng)
                 keys.extend([sub] if k == 1 else prng.split(sub, k))
                 step += k
-        return torch.stack([torch.stack(kk) for kk in keys]).to(self.device) if keys else None
+        return torch.stack([torch.stack(kk) for kk in keys]) if keys else None
 
     @staticmethod
     def _windows(steps: int, tw: int):
@@ -701,7 +801,9 @@ class FFModel:
         step), the tail steps that fill no whole window one at a time
         through ``train_batch``. Metrics come back to the host once per
         window. The step keys follow the JAX package's windows (module
-        docstring)."""
+        docstring). Data-parallel, each rank gets its rows of the
+        dataset once (``DataParallelExecutor.load_rows``) and each window
+        runs its steps eagerly on every rank (``fit_window``)."""
         if self.executor is None:
             raise RuntimeError("call compile() first")
         xs, y = self._as_batches(x, y)
@@ -711,6 +813,13 @@ class FFModel:
         steps = xs[0].shape[0] // bs
         words = self._step_words(epochs, steps, tw)
         ex = self.executor
+        from .runtime.data_parallel import DataParallelExecutor
+
+        dp = isinstance(ex, DataParallelExecutor)
+        if dp:
+            ex.load_rows(xs, y, bs, steps)
+        elif words is not None:
+            words = words.to(self.device)
         perf = PerfMetrics()
         if self.config.profiling:  # reference: --profiling per-op timings
             self.profile(x=[xx[:bs] for xx in xs])
@@ -721,7 +830,9 @@ class FFModel:
         for epoch in range(epochs):
             for w0, n in self._windows(steps, tw):
                 s0 = epoch * steps + w0
-                if n > 1:
+                if dp:
+                    mets = ex.fit_window(w0, n, words[s0:s0 + n], bs)
+                elif n > 1:
                     wx, wy = self._stacked(xs, y, w0 * bs, n, bs)
                     mets = ex._train_window(wx, wy, words[s0:s0 + n])
                 else:
@@ -872,6 +983,7 @@ class FFModel:
         if name not in group:
             raise KeyError(f"no weight {name!r} on {key}")
         _copy_into(group[name], value, f"{key}.{name}")
+        self.executor.broadcast_state()
 
     @torch.no_grad()
     def set_weights(self, named: Dict[str, Dict[str, torch.Tensor]],
@@ -895,11 +1007,13 @@ class FFModel:
             for key, ws in self._by_layer(state, ex.state, "state").items():
                 for name, value in ws.items():
                     _copy_into(ex.state[key][name], value, f"{key}.{name}")
+        full = None
         if opt_state is not None:
             if ex.opt_state is None:
                 raise ValueError("the model holds no optimizer state (compiled for inference)")
+            full = ex.full_opt_state()  # whole moments (gathered under ZeRO-1)
             for field in ("m", "v"):
-                have, given = ex.opt_state.get(field), opt_state.get(field)
+                have, given = full.get(field), opt_state.get(field)
                 if (have is None) != (given is None):
                     raise ValueError(f"optimizer state {field!r}: the model "
                                      f"{'has' if have is not None else 'lacks'} it")
@@ -907,8 +1021,9 @@ class FFModel:
                     for key, ws in self._by_layer(given, have, f"opt_state[{field!r}]").items():
                         for name, value in ws.items():
                             _copy_into(have[key][name], value, f"{field}.{key}.{name}")
-            ex.opt_state["step"] = int(opt_state["step"])
+            ex.opt_state["step"] = full["step"] = int(opt_state["step"])
             ex.set_learning_rate(float(opt_state["lr"]))
+        ex.broadcast_state(full)
 
     def _by_layer(self, named, store, what: str) -> Dict[str, Dict[str, torch.Tensor]]:
         """``named`` ({layer name: {weight: value}}) re-keyed by node key,

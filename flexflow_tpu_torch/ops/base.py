@@ -67,6 +67,22 @@ class LowerCtx:
     # iteration-level sequence truncation (FFIterationConfig.seq_length):
     # batch_matmul keeps the first seq_length entries of its marked dims
     seq_length: Optional[int] = None
+    # data parallelism (runtime/data_parallel.py): the rank's group
+    # (parallel/distributed.py::RankGroup; None on one device), and
+    # whether the current node's tensors hold this rank's rows, a leading
+    # block of the global tensor (False: the whole tensor, on every rank)
+    group: Optional[object] = None
+    split: bool = False
+    # a probe's list: every dropout mask drawn is appended to it (None: off)
+    masks: Optional[List] = None
+
+    def row_offset(self, x: torch.Tensor) -> int:
+        """Where ``x``, the current node's tensor on this rank, starts in
+        the flat global tensor: ``rank * numel`` for a rank's rows, 0 for
+        a whole tensor (and on one device)."""
+        if self.group is None or not self.split:
+            return 0
+        return self.group.rank * x.numel()
 
     def node_rng(self):
         """``fold_in(rng, node_guid)``: the current node's key (the JAX

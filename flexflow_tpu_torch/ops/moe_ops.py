@@ -17,6 +17,12 @@ map, and its transpose a gather through the map itself
 (:class:`_Route`). A token's k copies are summed back by a reduction
 over the k axis. So no backward adds atomically, and a step gives the
 same bits every run on the card.
+
+Routing is global over the batch: ``group_by``'s capacity positions are
+a cumsum over every token of the batch and the load-balance loss a mean
+over them, so a data-parallel rank routing its rows alone would give
+other numbers. A graph with routing ops refuses a data-parallel mesh
+(:func:`refuse_data_parallel`) until expert parallelism is ported.
 """
 from __future__ import annotations
 
@@ -414,3 +420,23 @@ class CacheOp(OpDef):
     @staticmethod
     def cost(params, input_specs, output_specs) -> OpCost:
         return OpCost()
+
+
+# the ops whose arithmetic spans the whole batch's tokens (the capacity
+# cumsum, the load-balance mean over every routed token)
+ROUTING_OPS = (OpType.GROUP_BY, OpType.AGGREGATE, OpType.AGGREGATE_SPEC, OpType.EXPERTS)
+
+
+def refuse_data_parallel(graph, ranks: int) -> None:
+    """Raise ``NotImplementedError`` for a graph with routing ops on more
+    than one data-parallel rank: the capacity positions and the
+    load-balance loss are global over the batch's tokens, which the
+    expert-parallel part of ROADMAP queue 1, item 5 will carry."""
+    if ranks <= 1:
+        return
+    found = sorted({n.op_type.value for n in graph.nodes.values() if n.op_type in ROUTING_OPS})
+    if found:
+        raise NotImplementedError(
+            f"a mixture of experts ({', '.join(found)}) on {ranks} data-parallel ranks is not "
+            "ported: its routing is global over the batch's tokens (ROADMAP queue 1, item 5: "
+            "expert parallelism); train it on one device")

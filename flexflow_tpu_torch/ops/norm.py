@@ -11,6 +11,10 @@ non-trainable state: ``running = 0.9 * running + 0.1 * batch`` (JAX's
 a block recomputed under rematerialization does not apply them twice.
 ``F.batch_norm`` is not used: its momentum is the other way round and
 its running variance unbiased. Evaluation reads the running statistics.
+On a data-parallel rank holding its rows of the batch the training
+statistics are the global batch's, as GSPMD computes ``jnp.mean`` and
+``jnp.var`` over the sharded batch (:func:`_global_moments`), so the
+running statistics agree on every rank and with one device's.
 """
 from __future__ import annotations
 
@@ -71,6 +75,20 @@ class LayerNormOp(OpDef):
         return io_cost(input_specs, output_specs, flops=8.0 * output_specs[0].num_elements)
 
 
+def _global_moments(xf: torch.Tensor, dims, shape, group):
+    """The batch's mean and variance over every data-parallel rank's rows,
+    in two passes as ``jnp.mean`` and ``jnp.var`` over the global batch:
+    the mean from the summed sums, then the mean of the squares centred
+    on it (never E[x^2] - E[x]^2). The sums reduce through an all-reduce
+    with a backward, so the gradient sees the global statistics too."""
+    from ..parallel.distributed import all_reduce_sum
+
+    count = (xf.numel() // xf.shape[1]) * group.size
+    mean = all_reduce_sum(xf.sum(dim=dims), group) / count
+    var = all_reduce_sum((xf - mean.reshape(shape)).square().sum(dim=dims), group) / count
+    return mean, var
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchNormParams:
     relu: bool = True  # the reference's fused ReLU option
@@ -108,8 +126,11 @@ class BatchNormOp(OpDef):
         shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))  # float64 stays float64
         if ctx.training:
-            mean = xf.mean(dim=dims)
-            var = (xf - mean.reshape(shape)).square().mean(dim=dims)
+            if ctx.group is not None and ctx.split:
+                mean, var = _global_moments(xf, dims, shape, ctx.group)
+            else:
+                mean = xf.mean(dim=dims)
+                var = (xf - mean.reshape(shape)).square().mean(dim=dims)
             with torch.no_grad():
                 rm, rv = weights["running_mean"], weights["running_var"]
                 m, dt = params.momentum, params.dtype.torch

@@ -14,7 +14,11 @@ Dropout draws JAX's mask: ``bernoulli(fold_in(step key, node guid), keep,
 shape)`` on threefry2x32 bits (``generation/prng.py``), bit for bit, and
 returns ``where(mask, x / keep, 0)`` in x's dtype, with ``keep`` rounded to
 x's dtype first (a Python float against a 2-byte array is weakly typed
-in JAX). Outside training it is the identity.
+in JAX). Outside training it is the identity. A data-parallel rank
+draws its rows of JAX's global mask, and only those: the threefry
+counters start at the rank's element offset (``LowerCtx.row_offset``),
+so its mask is rows ``r`` of the mask GSPMD draws at the global shape,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -70,7 +74,9 @@ def dropout(x: torch.Tensor, rate: float, ctx: LowerCtx) -> torch.Tensor:
     keep = 1.0 - rate
     from ..generation import prng  # the generation package imports the ops
 
-    mask = prng.bernoulli(ctx.node_rng(), keep, tuple(x.shape))
+    mask = prng.bernoulli(ctx.node_rng(), keep, tuple(x.shape), offset=ctx.row_offset(x))
+    if ctx.masks is not None:
+        ctx.masks.append(mask)
     # a 0-d tensor on x's device, in x's dtype: a true division, as JAX
     # divides (CUDA multiplies by the reciprocal of a host scalar)
     k = torch.full((), keep, dtype=x.dtype, device=x.device)

@@ -1,14 +1,17 @@
-"""A tensor-parallel group of processes, one rank per device: its
-bootstrap, its command channel, its collectives and its shutdown.
+"""A group of processes, one rank per device: its bootstrap, its
+command channel, its collectives and its shutdown.
 
-The generation engine serves over KV heads split across ranks
-(``generation/sharding.py``). Rank 0 lives in the caller's process and
-is the engine the scheduler sees; it starts ranks 1..N-1 itself
-(:func:`start_group`), as ``spawn`` processes running :func:`_worker_main`,
-whose target object (built in the worker by a factory the caller names)
-executes the commands rank 0 sends. Everything runs in one Python
-program from the caller's view: ``GenerationEngine(params, cfg,
-tp_degree=2)``.
+Two users share it. The generation engine serves over KV heads split
+across ranks (``generation/sharding.py``, a ``"tensor-parallel"``
+group), and the trainer runs data parallelism, each rank a full replica
+on its rows of the batch (``runtime/data_parallel.py``, a
+``"data-parallel"`` group). Rank 0 lives in the caller's process; it
+starts ranks 1..N-1 itself (:func:`start_group`), as ``spawn`` processes
+running :func:`_worker_main`, whose target object (built in the worker
+by a factory the caller names) executes the commands rank 0 sends.
+Everything runs in one Python program from the caller's view:
+``GenerationEngine(params, cfg, tp_degree=2)``, or ``FFModel(config,
+mesh=data_parallel_mesh(2))``.
 
 * **Rendezvous.** A ``FileStore`` in a fresh temporary directory (never
   a fixed port: several groups, and several test processes, may start at
@@ -21,21 +24,31 @@ tp_degree=2)``.
   tensor is staged through a pinned host buffer in :func:`all_reduce`
   and copied through host memory in :func:`gather_to_root` and
   :func:`scatter_from_root` (admission-time block moves), explicitly.
-  Gather and scatter move bytes, so every dtype crosses either
-  transport.
+  Gather, scatter, broadcast and all-gather move bytes, so every dtype
+  crosses either transport; an all-reduce sums in the tensor's own
+  dtype (gloo and NCCL both add bfloat16 and float16).
+* **Flat collectives.** Over gloo a call costs milliseconds whatever its
+  size, so the trainer moves a step's tensors in one call per dtype:
+  :func:`all_reduce_flat` (the gradients), :func:`broadcast_flat` (rank
+  0's parameters) and :func:`all_gather_flat` (ZeRO-1's parameter
+  slices) pack every tensor of a dtype into one flat buffer.
+* **Autograd.** :func:`all_reduce_sum` is an all-reduce with a backward
+  (the all-reduce of the output's gradient): BatchNorm's global
+  statistics reduce through it.
 * **Timeouts.** Every collective and every wait on a worker's answer
   carries the group's timeout, so a dead rank raises on rank 0 instead of
   hanging it.
-* **Commands.** :meth:`TPGroup.send` pickles ``(op, args)`` to every
-  worker over its pipe; each worker calls ``getattr(target, op)(*args)``
-  and answers ``("ok", result)`` or ``("err", traceback)``;
-  :meth:`TPGroup.replies` collects the answers. A command and the local
-  work that pairs with it run under :attr:`TPGroup.lock`, so two threads
-  never interleave their collectives.
+* **Commands.** :meth:`RankGroup.send` pickles ``(op, args)`` to every
+  worker over its pipe (:meth:`RankGroup.send_each`: each worker its own
+  args); each worker calls ``getattr(target, op)(*args)`` and answers
+  ``("ok", result)`` or ``("err", traceback)``; :meth:`RankGroup.replies`
+  collects the answers. A command and the local work that pairs with it
+  run under :attr:`RankGroup.lock`, so two threads never interleave
+  their collectives.
 
 The multi-host part of the JAX package's ``parallel/distributed.py``
-(training across hosts) waits for the parallel training slice (ROADMAP
-queue 1, item 5).
+(the ``FF_*`` environment, training across hosts) waits for the last
+part of ROADMAP queue 1, item 5.
 """
 from __future__ import annotations
 
@@ -76,15 +89,17 @@ def _process_group(store_path: str, rank: int, size: int, backend: str, timeout_
     raise ValueError(f"unknown backend {backend!r}")
 
 
-class TPGroup:
-    """One rank's view of a tensor-parallel group: its process group
-    (``pg``), rank, size, transport and device. On rank 0 it also holds
-    the workers' processes and pipes (:meth:`send`, :meth:`replies`,
-    :meth:`close`)."""
+class RankGroup:
+    """One rank's view of a group: its process group (``pg``), rank,
+    size, transport and device, and what it is (``kind``, the word its
+    errors use: ``"tensor-parallel"`` or ``"data-parallel"``). On rank 0
+    it also holds the workers' processes and pipes (:meth:`send`,
+    :meth:`replies`, :meth:`close`)."""
 
     def __init__(self, pg, rank: int, size: int, backend: str, device: torch.device,
-                 timeout_s: float):
+                 timeout_s: float, kind: str = "tensor-parallel"):
         self.pg = pg
+        self.kind = kind
         self.rank = rank
         self.size = size
         self.backend = backend
@@ -98,8 +113,10 @@ class TPGroup:
         # collectives run so far on this rank, by kind, and the host
         # seconds spent inside the all-reduces (staging included: on a
         # group whose ranks share a card, mostly waiting for the peer)
-        self.counts: Dict[str, int] = {"all_reduce": 0, "gather": 0, "scatter": 0}
+        self.counts: Dict[str, int] = {"all_reduce": 0, "gather": 0, "scatter": 0,
+                                       "broadcast": 0, "all_gather": 0}
         self.all_reduce_s = 0.0
+        self.all_reduce_bytes = 0
 
     # ---------------------------------------------------------- staging
     @property
@@ -117,11 +134,16 @@ class TPGroup:
     # -------------------------------------------------------- commands
     def send(self, op: str, *args) -> None:
         """Rank 0: send one command to every worker (no wait)."""
-        for r, conn in enumerate(self._conns, start=1):
+        self.send_each(op, [args] * len(self._conns))
+
+    def send_each(self, op: str, args_by_worker: Sequence[tuple]) -> None:
+        """Rank 0: send ``op`` to every worker, worker r with
+        ``args_by_worker[r - 1]`` (no wait)."""
+        for r, (conn, args) in enumerate(zip(self._conns, args_by_worker), start=1):
             try:
-                conn.send((op, args))
+                conn.send((op, tuple(args)))
             except (BrokenPipeError, EOFError, OSError) as e:
-                raise RuntimeError(f"tensor-parallel rank {r} is gone ({e!r})") from e
+                raise RuntimeError(f"{self.kind} rank {r} is gone ({e!r})") from e
 
     def replies(self) -> List[Any]:
         """Rank 0: every worker's answer to the last command, in rank
@@ -129,7 +151,7 @@ class TPGroup:
         worker does not answer within the group's timeout."""
         out = []
         for r, conn in enumerate(self._conns, start=1):
-            out.append(_answer(conn, r, self.timeout_s, self._procs[r - 1]))
+            out.append(_answer(conn, r, self.timeout_s, self._procs[r - 1], self.kind))
         return out
 
     def call(self, op: str, *args) -> List[Any]:
@@ -145,17 +167,20 @@ class TPGroup:
             self._finalizer()
 
 
-def _answer(conn, rank: int, timeout_s: float, proc) -> Any:
+# the engine's name for the group, kept for its callers
+TPGroup = RankGroup
+
+
+def _answer(conn, rank: int, timeout_s: float, proc, kind: str = "tensor-parallel") -> Any:
     if not conn.poll(timeout_s):
         state = "dead" if not proc.is_alive() else "alive"
-        raise RuntimeError(
-            f"tensor-parallel rank {rank} did not answer within {timeout_s} s ({state})")
+        raise RuntimeError(f"{kind} rank {rank} did not answer within {timeout_s} s ({state})")
     try:
         status, value = conn.recv()
     except (EOFError, OSError) as e:
-        raise RuntimeError(f"tensor-parallel rank {rank} is gone ({e!r})") from e
+        raise RuntimeError(f"{kind} rank {rank} is gone ({e!r})") from e
     if status != "ok":
-        raise RuntimeError(f"tensor-parallel rank {rank} failed:\n{value}")
+        raise RuntimeError(f"{kind} rank {rank} failed:\n{value}")
     return value
 
 
@@ -199,17 +224,18 @@ def start_group(
     factory: Callable[..., Any],
     worker_kwargs: Sequence[Dict[str, Any]],
     timeout_s: float = DEFAULT_TIMEOUT_S,
-) -> TPGroup:
+    kind: str = "tensor-parallel",
+) -> RankGroup:
     """Start a group of ``len(devices)`` ranks: rank 0 here, on
     ``devices[0]``; rank r >= 1 in a new ``spawn`` process on
-    ``devices[r]``, where ``factory(group=<the worker's TPGroup>,
+    ``devices[r]``, where ``factory(group=<the worker's RankGroup>,
     **worker_kwargs[r - 1])`` builds the object that executes rank 0's
     commands. ``factory`` must be importable by name (a module-level
     function of this package). Returns rank 0's group once every worker
     is ready; a worker that fails to start raises here with its
     traceback."""
     size = len(devices)
-    store_dir = tempfile.mkdtemp(prefix="ff_tp_")
+    store_dir = tempfile.mkdtemp(prefix="ff_tp_" if kind == "tensor-parallel" else "ff_dp_")
     store_path = os.path.join(store_dir, "store")
     ctx = mp.get_context("spawn")
     conns, procs = [], []
@@ -219,8 +245,8 @@ def start_group(
             p = ctx.Process(
                 target=_worker_main,
                 args=(r, size, store_path, backend, str(devices[r]), timeout_s, child,
-                      factory, worker_kwargs[r - 1]),
-                daemon=True, name=f"ff-tp-rank{r}",
+                      factory, worker_kwargs[r - 1], kind),
+                daemon=True, name=f"ff-{'tp' if kind == 'tensor-parallel' else 'dp'}-rank{r}",
             )
             with _main_module_hidden():
                 p.start()
@@ -229,10 +255,10 @@ def start_group(
             procs.append(p)
         device = torch.device(devices[0])
         pg = _process_group(store_path, 0, size, backend, timeout_s)
-        group = TPGroup(pg, 0, size, backend, device, timeout_s)
+        group = RankGroup(pg, 0, size, backend, device, timeout_s, kind)
         group._conns, group._procs = conns, procs
         for r, conn in enumerate(conns, start=1):
-            _answer(conn, r, timeout_s, procs[r - 1])  # "ready"
+            _answer(conn, r, timeout_s, procs[r - 1], kind)  # "ready"
     except BaseException:
         _shutdown(conns, procs, store_dir, timeout_s)
         raise
@@ -241,7 +267,8 @@ def start_group(
     return group
 
 
-def _worker_main(rank, size, store_path, backend, device, timeout_s, conn, factory, kwargs):
+def _worker_main(rank, size, store_path, backend, device, timeout_s, conn, factory, kwargs,
+                 kind="tensor-parallel"):
     """A worker rank: join the group, build its target, then execute
     commands until rank 0 sends None or its pipe closes."""
     torch.set_num_threads(1)  # N ranks share the host's cores
@@ -250,7 +277,7 @@ def _worker_main(rank, size, store_path, backend, device, timeout_s, conn, facto
         if device.type == "cuda":
             torch.cuda.set_device(device)
         pg = _process_group(store_path, rank, size, backend, timeout_s)
-        group = TPGroup(pg, rank, size, backend, device, timeout_s)
+        group = RankGroup(pg, rank, size, backend, device, timeout_s, kind)
         target = factory(group=group, **kwargs)
         conn.send(("ok", "ready"))
     except BaseException:
@@ -275,11 +302,12 @@ def _worker_main(rank, size, store_path, backend, device, timeout_s, conn, facto
 
 
 # ------------------------------------------------------------ collectives
-def all_reduce(t: torch.Tensor, group: TPGroup) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, group: RankGroup) -> torch.Tensor:
     """Sum ``t`` over every rank of ``group``, in place, and return it.
     Every rank gets the same sum, bit for bit. Gloo on a CUDA rank stages
     through a pinned host buffer (a device sync)."""
     group.counts["all_reduce"] += 1
+    group.all_reduce_bytes += t.numel() * t.element_size()
     t0 = time.perf_counter()
     if group.host_staged:
         buf = _staged_copy(group, t)
@@ -293,7 +321,7 @@ def all_reduce(t: torch.Tensor, group: TPGroup) -> torch.Tensor:
     return t
 
 
-def _staged_copy(group: TPGroup, t: torch.Tensor) -> torch.Tensor:
+def _staged_copy(group: RankGroup, t: torch.Tensor) -> torch.Tensor:
     buf = group._staging(t)
     buf.copy_(t)  # blocking: the device's writes to t are done after it
     return buf
@@ -306,7 +334,7 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dim() else t.reshape(1).view(torch.uint8)
 
 
-def gather_to_root(t: torch.Tensor, group: TPGroup) -> Optional[List[torch.Tensor]]:
+def gather_to_root(t: torch.Tensor, group: RankGroup) -> Optional[List[torch.Tensor]]:
     """Every rank's ``t`` (the same shape and dtype on each) to rank 0:
     rank 0 gets the list in rank order, on its device; the others None."""
     group.counts["gather"] += 1
@@ -323,7 +351,7 @@ def gather_to_root(t: torch.Tensor, group: TPGroup) -> Optional[List[torch.Tenso
 
 
 def scatter_from_root(parts: Optional[Sequence[torch.Tensor]], shape, dtype: torch.dtype,
-                      group: TPGroup) -> torch.Tensor:
+                      group: RankGroup) -> torch.Tensor:
     """Rank 0's ``parts[r]`` to rank r (every part ``shape`` and
     ``dtype``); every rank returns its own part, on its device. The other
     ranks pass None for ``parts``."""
@@ -340,3 +368,103 @@ def scatter_from_root(parts: Optional[Sequence[torch.Tensor]], shape, dtype: tor
     else:
         group.pg.scatter([out], [], opts).wait()
     return out.view(dtype).view(shape).to(group.device)
+
+
+def broadcast_from_root(t: Optional[torch.Tensor], shape, dtype: torch.dtype,
+                        group: RankGroup) -> torch.Tensor:
+    """Rank 0's ``t`` to every rank (``shape`` and ``dtype`` given on
+    each; the other ranks pass None for ``t``); every rank returns it on
+    its device."""
+    group.counts["broadcast"] += 1
+    staged = group.backend == "gloo"
+    dev = torch.device("cpu") if staged else group.device
+    shape = tuple(shape)
+    if group.rank == 0:
+        buf = _bytes(t.to(device=dev, dtype=dtype).contiguous())
+    else:
+        buf = _bytes(torch.empty(shape, dtype=dtype, device=dev))
+    opts = dist.BroadcastOptions()
+    opts.rootRank = 0
+    group.pg.broadcast([buf], opts).wait()
+    return buf.view(dtype).view(shape).to(group.device)
+
+
+def all_gather_flat(t: torch.Tensor, group: RankGroup) -> List[torch.Tensor]:
+    """Every rank's 1-D ``t`` (the same length and dtype on each), in
+    rank order, on every rank's device."""
+    group.counts["all_gather"] += 1
+    staged = group.backend == "gloo"
+    src = _bytes(t.cpu() if staged else t)
+    outs = [torch.empty_like(src) for _ in range(group.size)]
+    group.pg.allgather([outs], [src]).wait()
+    return [o.view(t.dtype).to(group.device) for o in outs]
+
+
+def _by_dtype(tensors: Sequence[torch.Tensor]) -> Dict[torch.dtype, List[torch.Tensor]]:
+    """``tensors`` bucketed by dtype, each bucket in the given order."""
+    out: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        out.setdefault(t.dtype, []).append(t)
+    return out
+
+
+def _flat(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+def _unflat(flat: torch.Tensor, ts: Sequence[torch.Tensor]) -> None:
+    """Copy the consecutive pieces of ``flat`` back into ``ts``."""
+    o = 0
+    for t in ts:
+        n = t.numel()
+        t.copy_(flat[o:o + n].view(t.shape))
+        o += n
+
+
+@torch.no_grad()
+def all_reduce_flat(tensors: Sequence[torch.Tensor], group: RankGroup,
+                    average: bool = False) -> None:
+    """Sum ``tensors`` over the group, in place, with one all-reduce per
+    dtype: each dtype's tensors, in the given order, packed into one
+    flat buffer. The sum runs in that dtype: a bfloat16 or float16
+    gradient is summed in bfloat16 or float16 (each partial sum rounds
+    to it, as a GSPMD all-reduce of a 2-byte gradient does), a float32
+    one in float32. ``average`` then divides by the group's size, in the
+    same dtype. Every rank holds the same bits after it. Every rank must
+    pass tensors of the same shapes, dtypes and order."""
+    for ts in _by_dtype(tensors).values():
+        flat = _flat(ts)
+        all_reduce(flat, group)
+        if average:
+            flat.div_(group.size)
+        _unflat(flat, ts)
+
+
+@torch.no_grad()
+def broadcast_flat(tensors: Sequence[torch.Tensor], group: RankGroup) -> None:
+    """Overwrite ``tensors`` on every rank with rank 0's, in place, with
+    one broadcast per dtype (the same shapes, dtypes and order on every
+    rank)."""
+    for dtype, ts in _by_dtype(tensors).items():
+        n = sum(t.numel() for t in ts)
+        flat = broadcast_from_root(_flat(ts) if group.rank == 0 else None, (n,), dtype, group)
+        _unflat(flat, ts)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's output is the sum of every rank's input: the
+        # gradient of an input gathers every rank's output gradient
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """``x`` summed over the group, with a backward (a new tensor; the
+    backward is the all-reduce of the output's gradient)."""
+    return _AllReduceSum.apply(x, group)

@@ -1,5 +1,6 @@
-"""The single-GPU training runtime: executor, optimizers, losses,
-metrics, initializers, the weight converter, the data loader and the
+"""The training runtime: the executor (one device, or a rank of a
+data-parallel group: ``data_parallel.py``), optimizers, losses, metrics,
+initializers, the weight converter, the data loader and the
 checkpoints."""
 from .checkpoint import CheckpointManager, load_strategy, restore_checkpoint, save_checkpoint
 from .convert import opt_state_from_numpy, params_from_numpy

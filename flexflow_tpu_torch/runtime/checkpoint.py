@@ -20,6 +20,12 @@ that failed. The ``checkpoint.save`` fault site fires at the top of a
 save, as in the JAX package. ``save_checkpoint(..., strategy=)`` writes
 the parallelization strategy beside the state as ``strategy.json`` (the
 JAX package's file and format) and :func:`load_strategy` reads it back.
+
+A data-parallel model (``runtime/data_parallel.py``) saves from rank 0,
+the caller's process, with its ZeRO-1 moments gathered whole first
+(``executor.full_opt_state()``), so the file is the one a single device
+writes after the same steps; a restore loads whole moments at any number
+of ranks, then every rank takes them (``executor.broadcast_state``).
 """
 from __future__ import annotations
 
@@ -77,7 +83,7 @@ def save_checkpoint(path: str, executor, step: int = 0, strategy=None) -> None:
     tree = {
         "params": _to_cpu(_rekey(executor.params, fwd)),
         "state": _to_cpu(_rekey(executor.state, fwd)) or {},
-        "opt_state": _to_cpu(_opt_rekey(executor.opt_state, fwd)) or {},
+        "opt_state": _to_cpu(_opt_rekey(executor.full_opt_state(), fwd)) or {},
         "step": int(step),
     }
     tmp = os.path.join(path, _FILE + ".tmp")
@@ -114,7 +120,7 @@ def restore_checkpoint(path: str, executor) -> int:
     pending: list = []
     _restore_into(executor.params, _rekey(saved["params"], rev), "params", pending)
     _restore_into(executor.state or {}, _rekey(saved["state"], rev), "state", pending)
-    opt = executor.opt_state
+    opt = executor.full_opt_state()
     if opt is not None and saved["opt_state"]:
         sopt = _opt_rekey(saved["opt_state"], rev)
         for field in ("v", "m"):
@@ -126,8 +132,9 @@ def restore_checkpoint(path: str, executor) -> int:
         for cur, src in pending:
             cur.copy_(src)
     if opt is not None and saved["opt_state"]:
-        opt["step"] = int(saved["opt_state"]["step"])
+        opt["step"] = executor.opt_state["step"] = int(saved["opt_state"]["step"])
         executor.set_learning_rate(float(saved["opt_state"]["lr"]))
+    executor.broadcast_state(opt)
     return int(saved["step"])
 
 

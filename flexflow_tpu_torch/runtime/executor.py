@@ -1,5 +1,6 @@
-"""Single-GPU executor (port of the interpreter core of
-``flexflow_tpu/runtime/executor.py``).
+"""The executor of one device (port of the interpreter core of
+``flexflow_tpu/runtime/executor.py``); ``runtime/data_parallel.py``
+runs one on each rank of a data-parallel group.
 
 The JAX executor traces the graph into jitted, mesh-sharded programs.
 Here PyTorch runs eagerly: :meth:`Executor._forward_impl` interprets the
@@ -105,18 +106,19 @@ def node_key(node: Node) -> str:
 _EXECUTOR_IDS = itertools.count()
 
 
+def _device_count(device: torch.device) -> int:
+    """Devices the step prediction's machine holds on one device: the one
+    device the executor runs on (a data-parallel executor's machine holds
+    its group's ranks instead)."""
+    return 1
+
+
 class _KeySig:
     """A step key as the JAX package's signature spells it (``key<fry>[]``):
     the port's keys are two int64 words, JAX's a typed key array."""
 
     shape = ()
     dtype = "key<fry>"
-
-
-def _device_count(device: torch.device) -> int:
-    """Devices the step prediction's machine holds: the one device the
-    executor runs on."""
-    return 1
 
 
 @contextlib.contextmanager
@@ -175,6 +177,13 @@ class Executor:
     _seen: Dict = dataclasses.field(default_factory=dict)
     # program -> window calls (truth-ledger sampling)
     _truth_counts: Dict = dataclasses.field(default_factory=dict)
+    # data parallelism (runtime/data_parallel.py): the rank's group, and
+    # the rank plan of the step being run (its re-batched nodes, which
+    # nodes hold the rank's rows); None on one device
+    group: Optional[object] = None
+    _plan: Optional[object] = None
+    # dropout_masks' list while it runs
+    _mask_sink: Optional[list] = None
 
     def __post_init__(self):
         self._prog_ns = f"executor[{next(_EXECUTOR_IDS)}]"
@@ -232,7 +241,7 @@ class Executor:
             )
             from ..search.simulator import predict_strategy_time
 
-            n = max(1, _device_count(self.device))
+            n = max(1, _device_count(self.device)) if self.group is None else self.group.size
             if self.device.type == "cpu":
                 # the JAX package's CPU convention: N devices share one
                 # host, so the peaks divide by N x the fitted contention
@@ -363,8 +372,13 @@ class Executor:
         inputs); returns the context with the state updates and aux
         losses they wrote."""
         ctx = LowerCtx(training=training, rng=rng, backend=self.backend,
-                       seq_length=self.seq_length)
+                       seq_length=self.seq_length, group=self.group, masks=self._mask_sink)
+        plan = self._plan
         for node in nodes:
+            if plan is not None:
+                # the rank's node (its batch literals re-batched), same guid
+                node = plan.nodes.get(node.guid, node)
+                ctx.split = plan.rows[node.guid]
             key = node_key(node)
             node_inputs = [values[(e.src, e.src_idx)] for e in self.graph.in_edges(node)]
             weights = {**params.get(key, {}), **state.get(key, {})}
@@ -507,11 +521,20 @@ class Executor:
             k: {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in g.items()}
             for k, g in self.params.items()
         }
-        self.optimizer.update(self.params, grads, self.opt_state)
+        self._sync_grads(grads)
+        self._apply_update(grads)
         self._store_state(new_state)
         for p in leaves:
             p.grad = None
         return mets
+
+    def _sync_grads(self, grads: Params) -> None:
+        """Between the backward and the update: nothing on one device (a
+        data-parallel rank all-reduces them here)."""
+
+    def _apply_update(self, grads: Params) -> None:
+        """The optimizer's in-place update of the parameters."""
+        self.optimizer.update(self.params, grads, self.opt_state)
 
     @torch.no_grad()
     def _store_state(self, new_state: Params) -> None:
@@ -533,9 +556,13 @@ class Executor:
         is the step's threefry key (dropout masks). Returns the batch's
         metrics and loss as device tensors (no host sync)."""
         self._check_trainable("train_batch")
-        inputs = self._as_inputs(faults.inject(faults.EXECUTOR_TRAIN_BATCH, inputs))
+        inputs = faults.inject(faults.EXECUTOR_TRAIN_BATCH, inputs)
+        return self._train_step(inputs, label, self._step_key(rng))
+
+    def _train_step(self, inputs: Sequence, label, key) -> Dict[str, torch.Tensor]:
+        """``train_batch`` after its fault site, with its key made."""
+        inputs = self._as_inputs(inputs)
         label = to_tensor(label, self.device)
-        key = self._step_key(rng)
         self.optimizer.prepare(self.opt_state)
         with self._program_call(f"{self._prog_ns}.train_step", "train", inputs, label,
                                 measure_train=True):
@@ -556,10 +583,13 @@ class Executor:
     def eval_batch(self, inputs: Sequence, label, rng=None) -> Dict[str, torch.Tensor]:
         """The batch's metrics and loss in inference mode; ``rng`` reaches
         the ops as the step key (no op reads it outside training)."""
+        return self._eval_step(inputs, label, None if rng is None else self._step_key(rng))
+
+    def _eval_step(self, inputs: Sequence, label, key) -> Dict[str, torch.Tensor]:
         inputs = self._as_inputs(inputs)
         label = to_tensor(label, self.device)
         with self._program_call(f"{self._prog_ns}.eval_step", "eval", inputs, label):
-            return self._eval_body(inputs, label, None if rng is None else self._step_key(rng))
+            return self._eval_body(inputs, label, key)
 
     # ------------------------------------------------------------ windows
     def train_window(self, inputs: Sequence, labels, rng) -> Dict[str, torch.Tensor]:
@@ -659,14 +689,43 @@ class Executor:
                                                   wrap=_full_fp32)
         return graph
 
-    @torch.no_grad()
     def predict(self, inputs: Sequence) -> List[torch.Tensor]:
+        # chaos hook: error / stall / NaN-poisoned outputs
+        return faults.inject(faults.EXECUTOR_PREDICT, self._predict_outputs(inputs))
+
+    @torch.no_grad()
+    def _predict_outputs(self, inputs: Sequence) -> List[torch.Tensor]:
         inputs = self._as_inputs(inputs)
         with self._program_call(f"{self._prog_ns}.forward", "forward", inputs, None), \
                 _full_fp32():
-            outs = self._forward_impl(self.params, self.state, inputs, training=False)[0]
-        # chaos hook: error / stall / NaN-poisoned outputs
-        return faults.inject(faults.EXECUTOR_PREDICT, outs)
+            return self._forward_impl(self.params, self.state, inputs, training=False)[0]
+
+    @torch.no_grad()
+    def dropout_masks(self, inputs: Sequence, rng) -> List[List[torch.Tensor]]:
+        """A probe: the dropout masks a training step on ``inputs`` with
+        the key ``rng`` draws, in the order drawn, from a training-mode
+        forward that updates nothing. One list per rank (one here)."""
+        return [self._masks_of(self._as_inputs(inputs), self._step_key(rng))]
+
+    def _masks_of(self, inputs, key) -> List[torch.Tensor]:
+        self._mask_sink = []
+        try:
+            with _full_fp32():
+                self._forward_impl(self.params, self.state, inputs, training=True, rng=key)
+            return self._mask_sink
+        finally:
+            self._mask_sink = None
+
+    # ------------------------------------------------ whole training state
+    def full_opt_state(self) -> Optional[dict]:
+        """The optimizer state with every moment whole (a checkpoint's and
+        ``set_weights``'): on one device, ``opt_state`` itself."""
+        return self.opt_state
+
+    def broadcast_state(self, opt_state: Optional[dict] = None) -> None:
+        """Make every rank hold this rank's parameters, state and
+        optimizer state (``opt_state``: whole moments to load, else the
+        current ones): nothing to do on one device."""
 
 
 def _merge_microbatch_metrics(mets_all: List[Dict[str, torch.Tensor]], batch: int):

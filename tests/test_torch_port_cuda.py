@@ -1655,3 +1655,79 @@ def test_cuda_tensor_parallel_engine_over_nccl(cuda):
             assert info["launches"]["paged_append"] == cfg.num_layers * steps
     finally:
         tp.close()
+
+
+def _dp_pair(mesh, cuda, seed=3):
+    """A 2-layer encoder (2 heads of 64, seq 64) at batch 8 on one card
+    and over ``mesh``'s ranks, from one graph and seed (the same initial
+    weights)."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    cfg = TransformerConfig(num_layers=2, hidden_size=128, num_heads=2, ff_size=256,
+                            seq_length=64)
+    one = build_transformer(FFConfig(batch_size=8, seed=seed), cfg, device=cuda)
+    one.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+    two = FFModel.from_graph(one.graph, FFConfig(batch_size=8, seed=seed), mesh=mesh)
+    two.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR,
+                outputs=two.output_tensors([(t.node.guid, t.idx) for t in one._outputs]))
+    return cfg, one, two
+
+
+def _dp_steps(cfg, one, two, steps=2):
+    """``steps`` steps of both models on the same batches: losses rtol
+    1e-5, the ranks bit-identical, each rank's own flash launches."""
+    from flexflow_tpu_torch.generation import prng
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    xs = torch.randn(steps, 8, cfg.seq_length, cfg.hidden_size, generator=gen, device="cuda")
+    ys = torch.randn(steps, 8, cfg.seq_length, cfg.hidden_size, generator=gen, device="cuda")
+    want = [float(one.executor.train_batch([xs[s]], ys[s], rng=prng.key(s))["loss"])
+            for s in range(steps)]
+    two.executor.reset_rank_counters()
+    got = [float(two.executor.train_batch([xs[s]], ys[s], rng=prng.key(s))["loss"])
+           for s in range(steps)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    info = two.executor.rank_info()
+    assert len({i["params_sha"] for i in info}) == 1
+    for i in info:
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert i["flash_launches"][k] == cfg.num_layers * steps
+    return info
+
+
+def test_cuda_data_parallel_two_ranks_share_one_card_over_gloo(cuda):
+    """Two data-parallel ranks on cuda:0 over gloo (host-staged
+    collectives): the losses of the one-card run, bit-identical ranks,
+    each rank's flash kernels on its 4 rows."""
+    from flexflow_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    mesh = data_parallel_mesh(2, ["cuda:0", "cuda:0"], backend="gloo")
+    try:
+        cfg, one, two = _dp_pair(mesh, cuda)
+        info = _dp_steps(cfg, one, two)
+        assert all(i["collectives"]["all_reduce"] == 2 for i in info)
+        two.close()
+    finally:
+        mesh.close()
+
+
+def test_cuda_data_parallel_training_over_nccl(cuda):
+    """Two data-parallel ranks on cuda:0 and cuda:1, their collectives
+    over NCCL (the default for distinct GPUs). Needs two GPUs."""
+    from flexflow_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs (NCCL cannot put two ranks of one communicator on "
+                    "one device)")
+    mesh = data_parallel_mesh(2)
+    assert mesh.backend == "nccl"
+    try:
+        cfg, one, two = _dp_pair(mesh, cuda)
+        _dp_steps(cfg, one, two)
+        two.close()
+    finally:
+        mesh.close()

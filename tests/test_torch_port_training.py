@@ -143,7 +143,8 @@ def test_weights_by_layer_name_and_key():
 def test_entry_point_defaults_to_cuda_and_raises_without_it():
     """FFModel() without a device means CUDA; without a GPU that raises,
     never a silent run on the CPU. Unported configurations raise too; the
-    search (``search_budget``) runs (tests/test_torch_port_strategy.py)."""
+    search (``search_budget``) runs (tests/test_torch_port_strategy.py),
+    and several devices train data-parallel (tests/test_torch_port_dp.py)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -151,11 +152,12 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError):
         build_transformer(FFConfig(batch_size=2), TransformerConfig(**CFG_KW))
     assert FFModel(FFConfig(), device="cpu").device.type == "cpu"
-    for kw in ({"pipeline_stages": 2}, {"num_nodes": 2}, {"workers_per_node": 4}):
+    for kw in ({"pipeline_stages": 2}, {"num_nodes": 2}):
         with pytest.raises(NotImplementedError):
             FFConfig(**kw)
     assert FFConfig(search_budget=10).search_budget == 10
     assert FFConfig().num_devices == 1
+    assert FFConfig(workers_per_node=4).num_devices == 4
 
 
 # ---------------------------------------------------------------------------

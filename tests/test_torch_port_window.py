@@ -276,8 +276,9 @@ UNPORTED = {
 
 
 # flags of UNPORTED that the port has since come to take: the search runs
-# on one GPU (tests/test_torch_port_strategy.py)
-NOW_TAKEN = {"search"}
+# on one GPU (tests/test_torch_port_strategy.py); several devices and
+# ZeRO-1 train data-parallel (tests/test_torch_port_dp.py)
+NOW_TAKEN = {"search", "devices", "zero"}
 
 
 @pytest.mark.parametrize("case", list(UNPORTED))
