@@ -417,7 +417,8 @@ prints no result line):
    table, axes all 1, the same graph, losses and parameters bit for bit,
    12 of each bf16 flash kernel a step in both; the predicted step
    (``best_cost`` and the task-graph simulator's) beside the measured.
-   Then ``unity_optimize`` for 8 H100s (allreduce schedules on): its
+   Then ``unity_optimize`` for 8 H100s (allreduce schedules on) over
+   BERT-Base's widths at 4 layers (``SEARCH8_LAYERS``): its
    strategy file's ``to_json`` -> ``from_json`` -> ``remap_to`` onto a
    fresh build unchanged, a compile importing it refused with "mesh
    needs 8 devices, have 1" after exporting and before training, and
@@ -461,6 +462,19 @@ prints no result line):
    and parameters bit for bit, half the moment bytes a rank. BERT-CLS
    with dropout 0.1: each rank's 24 masks its rows of N=1's, bit for
    bit. The NCCL leg runs where there are two GPUs.
+29. tpt: tensor-parallel training (``runtime/tensor_parallel.py``) on
+   ranks sharing the card over gloo: BERT-Base at a global batch of 32
+   under ``megatron_strategy(dp=1, tp=2)`` in fp32 and bf16 (2 SGD steps
+   each), with ``sp=True`` in fp32 (1 step) and ``megatron_strategy(dp=2,
+   tp=2)`` over 4 ranks in fp32 (1 step), each against N=1 on the same
+   batches and keys: the ranks' shards are N=1's weights, losses and the
+   gathered parameters within the training phase's gates, the ranks of
+   one shard bit-identical after every step, 12 launches of each flash
+   kernel a step in each rank on its 6 heads (bf16 on the wgmma body);
+   the step ms at N=1 and tp=2 in turns (fp32 and bf16), each rank's
+   collective ms and bytes a step by kind, its parameter bytes and peak
+   memory, the groups' start (printed, not gated). The NCCL leg runs
+   where there are two GPUs.
 
 Prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -470,6 +484,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -7332,6 +7347,10 @@ SEARCH_BATCH = 32
 SEARCH_STEPS = 4
 SEARCH_BUDGET = 8
 SEARCH_WORKERS = 8
+# the 8-H100 search's graph: BERT-Base's widths at this depth (the search
+# runs on the host and grows with the graph; the script must end within
+# its time limit)
+SEARCH8_LAYERS = 4
 
 
 def search_build(seed: int, cfg, **kw):
@@ -7494,7 +7513,8 @@ def search_phase(seed: int) -> dict:
         # 3. a search for 8 H100s, which this machine does not have
         cfg8 = FFConfig(batch_size=SEARCH_BATCH, seed=seed, search_budget=SEARCH_BUDGET,
                         search_num_workers=SEARCH_WORKERS, allreduce_optimize=True)
-        graph = build_transformer(cfg8, cfg).graph
+        model8 = dataclasses.replace(cfg, num_layers=SEARCH8_LAYERS)
+        graph = build_transformer(cfg8, model8).graph
         native.reset_call_counts()
         replays0 = dict(sim.REPLAYS)
         t0 = time.perf_counter()
@@ -7511,7 +7531,7 @@ def search_phase(seed: int) -> dict:
             raise AssertionError(f"search: native calls {calls}, replays {replays}, library {lib}")
         if r8.machine.num_devices != SEARCH_WORKERS or r8.machine.chip != chip:
             raise AssertionError(f"search: searched for {r8.machine}")
-        fresh = build_transformer(cfg8, cfg).graph
+        fresh = build_transformer(cfg8, model8).graph
         back = ParallelStrategy.from_json(st8.to_json()).remap_to(fresh)
         if back is None:
             raise AssertionError("search: the 8-GPU strategy does not remap onto a fresh build")
@@ -7528,7 +7548,7 @@ def search_phase(seed: int) -> dict:
         with open(path, "w") as f:
             f.write(st8.to_json())
         m = build_transformer(FFConfig(batch_size=SEARCH_BATCH, seed=seed, import_strategy_file=path,
-                                       export_strategy_file=exported), cfg)
+                                       export_strategy_file=exported), model8)
         fa.reset_launch_counts()
         try:
             m.compile()
@@ -7576,7 +7596,8 @@ def print_search(card: str, s: dict) -> None:
           f"{o['measured_step_ms']['data_parallel']:.3f}), measured / predicted "
           f"{o['measured_over_predicted']:.3f}; losses bit for bit {o['losses']}")
     e = s["eight_gpus"]
-    print(f"{card}: search for 8 H100s (budget 8): axes {e['axes']}, best cost "
+    print(f"{card}: search for 8 H100s ({SEARCH8_LAYERS} x 768, budget 8): axes {e['axes']}, "
+          f"best cost "
           f"{e['best_cost_ms']:.4f} ms (task-graph simulator {e['simulated_step_ms']:.4f}), "
           f"{e['candidates']} candidates, {e['search_s']:.2f} s, memory a device "
           f"{e['memory_per_device_gb']:.3f} GB; native calls {e['native_calls']}; "
@@ -8054,8 +8075,9 @@ def dp_parity(mesh, seed: int, dtype) -> dict:
             rec = {"step_ms": 1e3 * (time.perf_counter() - t0) / DP_TIMED}
             if name == "n2":
                 info = dp_rank_counts(two)
-                rec["all_reduce_ms_per_step"] = [1e3 * i["all_reduce_s"] / DP_TIMED for i in info]
-                rec["all_reduce_bytes_per_step"] = [i["all_reduce_bytes"] // DP_TIMED
+                rec["all_reduce_ms_per_step"] = [1e3 * i["collective_s"]["all_reduce"] / DP_TIMED
+                                                  for i in info]
+                rec["all_reduce_bytes_per_step"] = [i["collective_bytes"]["all_reduce"] // DP_TIMED
                                                     for i in info]
                 rec["peak_memory_bytes"] = [i["max_memory_allocated"] for i in info]
             rounds[name].append(rec)
@@ -8242,6 +8264,222 @@ def print_dp(card: str, dp: dict) -> None:
           f"phase {dp['phase_s']:.1f} s")
 
 
+# the tpt phase's legs: (tag, dtype, data ranks, sp, parity steps, timed);
+# a fp32 step over gloo takes seconds, so the steps are few (the whole
+# script must end within its time limit)
+TPT_LEGS = (("tp2 fp32", "float32", 1, False, 2, True),
+            ("tp2 bf16", "bfloat16", 1, False, 2, True),
+            ("tp2 sp fp32", "float32", 1, True, 1, False),
+            ("dp2 x tp2 fp32", "float32", 2, False, 1, False))
+TPT_TIMED = 1  # steps of each timed round
+
+
+def tpt_rank_counts(tp, tag: str) -> list:
+    """Each rank's counters; the ranks that hold one shard (one model
+    coordinate) must hold the same bits, and every rank the same
+    replicated weights."""
+    info = tp.executor.rank_info()
+    for m in {i["model_rank"] for i in info}:
+        if len({i["params_sha"] for i in info if i["model_rank"] == m}) != 1:
+            raise AssertionError(f"tpt {tag}: the ranks of model coordinate {m} differ")
+    if len({i["replicated_sha"] for i in info}) != 1:
+        raise AssertionError(f"tpt {tag}: the ranks' replicated weights differ")
+    return info
+
+
+def tpt_check_launches(tag: str, form: str, info: list, want: dict, heads: int) -> None:
+    """Each rank launched exactly ``want`` of the flash kernels (its own
+    counters), all on ``heads`` heads, the bf16 ones on the wgmma body."""
+    for r, i in enumerate(info):
+        la = {k: n for k, n in i["flash_launches"].items() if n}
+        by_heads = {k: n for k, n in i["flash_launches_by_heads"].items() if n}
+        if la != want or by_heads != {f"{k} H={heads}": n for k, n in want.items()}:
+            raise AssertionError(f"tpt {tag}: rank {r} launched {la} by heads {by_heads}, "
+                                 f"expected {want} on {heads} heads")
+        if form == "_bf16":
+            bodies = {k: n for k, n in i["flash_launches_by_body"].items() if n}
+            if bodies != {f"{k} wgmma": n for k, n in want.items()}:
+                raise AssertionError(f"tpt {tag}: rank {r}'s launches by body {bodies}")
+
+
+def tpt_leg(mesh, seed: int, tag: str, dtype_name: str, dp: int, sp: bool, steps: int,
+            timed: bool, device: str = "cuda") -> dict:
+    """BERT-Base (12 x 768, 12 heads, seq 128) at a global batch of 32 in
+    ``dtype_name``: ``steps`` SGD steps at N=1 and under
+    ``megatron_strategy(dp, tp=2, sp)`` over the mesh's ranks on the same
+    batches and keys, from the same weights (every rank draws N=1's from
+    the seed and keeps its shards); the training phase's gates on the
+    losses and the gathered parameters; the ranks of one shard
+    bit-identical after every step; each rank's 12 launches of each flash
+    kernel a step on 6 heads (bf16 on the wgmma body). With ``timed``,
+    the step ms at N=1 and tp=2 in turns, each rank's collective ms and
+    bytes a step by kind and its peak memory (printed, not gated)."""
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import DataType, LossType
+    from flexflow_tpu_torch.generation import prng
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.parallel.strategy import megatron_strategy
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+    from flexflow_tpu_torch.runtime.data_parallel import _tree_digest
+
+    cfg = bert_base(DataType(dtype_name))
+    tdt = cfg.dtype.torch
+    form = FLASH_FORMS[dtype_name]
+    one = build_transformer(FFConfig(batch_size=32, seed=seed), cfg, device=device)
+    one.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+    tp = FFModel.from_graph(one.graph, FFConfig(batch_size=32, seed=seed), mesh=mesh)
+    t0 = time.perf_counter()
+    tp.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR,
+               outputs=tp.output_tensors([(t.node.guid, t.idx) for t in one._outputs]),
+               strategy=megatron_strategy(one.graph, dp=dp, tp=2, sp=sp))
+    compile_s = time.perf_counter() - t0
+    try:
+        if _tree_digest(tp.executor.whole_params()) != _tree_digest(one.executor.params):
+            raise AssertionError(f"tpt {tag}: the ranks' shards are not N=1's weights")
+        gen = torch.Generator(device=device).manual_seed(seed + 32)
+        shape = (steps, 32, cfg.seq_length, cfg.hidden_size)
+        xs = torch.randn(shape, generator=gen, device=device).to(tdt)
+        ys = torch.randn(shape, generator=gen, device=device).to(tdt)
+        before = params_copy(one.executor.params)
+        losses = {"n1": [], "tp2": []}
+        for s in range(steps):
+            losses["n1"].append(float(one.executor.train_batch([xs[s]], ys[s],
+                                                               rng=prng.key(seed + s))["loss"]))
+        # rank 0 shares its process (and its launch counters) with N=1's
+        # model: the counts are set to 0 after N=1's steps
+        tp.executor.reset_rank_counters()
+        for s in range(steps):
+            losses["tp2"].append(float(tp.executor.train_batch([xs[s]], ys[s],
+                                                               rng=prng.key(seed + s))["loss"]))
+            info = tpt_rank_counts(tp, tag)  # bit-identical shards after every step
+        want = {f"{k}{form}": cfg.num_layers * steps
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        tpt_check_launches(tag, form, info, want, cfg.num_heads // 2)
+        gates = step_gates(f"tpt {tag}", tdt, before, params_copy(one.executor.params),
+                           tp.executor.whole_params(), losses["n1"][-1], losses["tp2"][-1])
+        rtol = HALF_LOSS_RTOL[dtype_name] if form else LOSS_RTOL
+        for a, b in zip(losses["n1"], losses["tp2"]):
+            if abs(a - b) > rtol * abs(a):
+                raise AssertionError(f"tpt {tag}: losses N=1 {losses['n1']} vs tp=2 "
+                                     f"{losses['tp2']} beyond rtol {rtol}")
+        del before
+        n1_bytes = sum(p.numel() * p.element_size() for g in one.executor.params.values()
+                       for p in g.values())
+        out = {"dtype": dtype_name, "dp": dp, "sp": sp, "steps": steps, "losses": losses,
+               "gates": gates, "compile_s": compile_s, "param_bytes_n1": n1_bytes,
+               "param_bytes_per_rank": [i["param_bytes"] for i in info],
+               "collectives_per_step": [{k: n / steps for k, n in i["collectives"].items() if n}
+                                        for i in info],
+               "collective_bytes_per_step": [{k: n / steps for k, n in
+                                              i["collective_bytes"].items() if n} for i in info],
+               "launches_per_rank": [i["flash_launches"] for i in info],
+               "launches": {k: sum(i["flash_launches"].get(k, 0) for i in info) for k in want}}
+        if timed:
+            rounds = {"n1": [], "tp2": []}
+            for name in ("n1", "tp2", "tp2", "n1"):
+                model = one if name == "n1" else tp
+                if name == "tp2":
+                    tp.executor.reset_rank_counters()
+                one.executor._sync()
+                t0 = time.perf_counter()
+                for s in range(TPT_TIMED):
+                    model.executor.train_batch([xs[s]], ys[s], rng=prng.key(seed + s))
+                one.executor._sync()
+                rec = {"step_ms": 1e3 * (time.perf_counter() - t0) / TPT_TIMED}
+                if name == "tp2":
+                    info = tpt_rank_counts(tp, tag)
+                    rec["collective_ms_per_step"] = [
+                        {k: 1e3 * v / TPT_TIMED for k, v in i["collective_s"].items() if v}
+                        for i in info]
+                    rec["collective_bytes_per_step"] = [
+                        {k: v // TPT_TIMED for k, v in i["collective_bytes"].items() if v}
+                        for i in info]
+                    rec["peak_memory_bytes"] = [i.get("max_memory_allocated", 0) for i in info]
+                    for k in want:  # the timed steps launch too
+                        out["launches"][k] += sum(i["flash_launches"].get(k, 0) for i in info)
+                rounds[name].append(rec)
+            out["rounds"] = rounds
+        return out
+    finally:
+        tp.close()
+        del one, tp
+        torch.cuda.empty_cache()
+
+
+def tpt_phase(seed: int) -> dict:
+    """Tensor-parallel training on the card (``runtime/tensor_parallel.py``):
+    BERT-Base under ``megatron_strategy`` on ranks sharing the one H100
+    over gloo (``tensor_parallel_mesh(2, dp, ["cuda:0"] * n,
+    backend="gloo")``), each leg of ``TPT_LEGS`` against N=1
+    (``tpt_leg``); the NCCL leg where there are two GPUs. A gloo run says
+    nothing of multi-GPU speed: the ranks share one card and every
+    collective crosses host memory."""
+    import torch
+
+    from flexflow_tpu_torch.parallel.mesh import tensor_parallel_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"legs": {}, "start_s": {}, "launches": {}}
+    for dp in (1, 2):
+        mesh = tensor_parallel_mesh(2, dp=dp, devices=["cuda:0"] * (2 * dp), backend="gloo")
+        t0 = time.perf_counter()
+        mesh.group()
+        out["start_s"][f"{dp * 2} ranks"] = time.perf_counter() - t0
+        try:
+            for tag, dtype_name, leg_dp, sp, steps, timed in TPT_LEGS:
+                if leg_dp == dp:
+                    out["legs"][tag] = tpt_leg(mesh, seed, tag, dtype_name, dp, sp, steps,
+                                               timed)
+        finally:
+            mesh.close()
+    for leg in out["legs"].values():
+        for k, n in leg["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    if torch.cuda.device_count() >= 2:
+        mesh = tensor_parallel_mesh(2)
+        try:
+            r = tpt_leg(mesh, seed, "nccl", "float32", 1, False, 1, False)
+            for k, n in r["launches"].items():
+                out["launches"][k] += n
+            out["nccl"] = "ran: one step's loss within rtol 1e-5 of N=1, shards identical"
+        finally:
+            mesh.close()
+    else:
+        out["nccl"] = ("not run: one CUDA device (NCCL cannot put two ranks of one "
+                       "communicator on one device)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"tpt nccl leg: {out['nccl']}")
+    print("tpt: " + json.dumps({k: v for k, v in out.items() if k != "legs"}))
+    return out
+
+
+def print_tpt(card: str, tpt: dict) -> None:
+    for tag, r in tpt["legs"].items():
+        line = (f"{card}: tensor parallel {tag}, BERT-Base (12 x 768, 12 heads, seq 128, global "
+                f"batch 32), megatron_strategy(dp={r['dp']}, tp=2, sp={r['sp']}) on "
+                f"{2 * r['dp']} ranks sharing the card over gloo: losses N=1 {r['losses']['n1']} "
+                f"tp {r['losses']['tp2']}; parameter diff {r['gates']['param_max_abs_diff']:.3e} "
+                f"of update {r['gates']['param_max_update']:.3e}; parameter bytes a rank "
+                f"{r['param_bytes_per_rank']} of N=1's {r['param_bytes_n1']}; collectives a "
+                f"step by rank {r['collectives_per_step']}, bytes a step "
+                f"{r['collective_bytes_per_step']}")
+        if "rounds" in r:
+            n1, tp = r["rounds"]["n1"], r["rounds"]["tp2"]
+            line += ("; step ms N=1 " + ", ".join(f"{x['step_ms']:.3f}" for x in n1) + " vs tp=2 "
+                     + ", ".join(f"{x['step_ms']:.3f}" for x in tp) + "; collective ms a step by "
+                     "rank " + "; ".join(json.dumps([{k: round(v, 3) for k, v in d.items()}
+                                                     for d in x["collective_ms_per_step"]])
+                                         for x in tp)
+                     + "; peak GB a rank " + ", ".join(f"{b / 1e9:.3f}"
+                                                       for b in tp[0]["peak_memory_bytes"]))
+        print(line)
+    print(f"{card}: tensor parallel group start s {tpt['start_s']}, phase {tpt['phase_s']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed for weights, prompts and inputs")
@@ -8278,7 +8516,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.last_build_seconds:.2f} s)")
+          f"(nvcc {_build.last_build_seconds:.2f} s; by part " + json.dumps(
+              {k: round(v, 1) for k, v in _build.last_build_part_seconds.items()}) + ")")
     for kernel, info in ptxas_report(_build.last_build_log):
         print(f"  ptxas: {kernel}: {info}")
     hmma, hgmma = tensor_core_check()
@@ -8292,60 +8531,109 @@ def main(argv=None) -> int:
                              ("flash_bwd_dkv_wg_kernel", 2))
         for d in (64, 128)}))
 
+    # each phase's wall seconds (the script must end within its time
+    # limit: these say where the time goes)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = laps.get(name, 0.0) + now - t_lap[0]
+        t_lap[0] = now
+
     rows = kernel_phase(args.seed)
+    lap("kernel")
     params = init_decoder_params(torch.Generator().manual_seed(args.seed), gpt2_small())
     params = params_to(params, "cuda")  # one copy on the card, shared by every engine
     engines, serving, cell = serving_phase(args.seed, params)
+    lap("serving")
     kv_dtype = kv_dtype_phase(args.seed, params, cell, engines["graph"])
+    lap("kv_dtype")
     long_ctx, long_engine = long_context_phase(args.seed, params)
+    lap("long_context")
     graphs = step_graph_phase(engines, args.seed)
+    lap("step_graph")
     speculation = speculation_phase(args.seed, params)
+    lap("speculation")
     prefix = prefix_phase(args.seed, params)
+    lap("prefix")
     overlap = overlap_phase(args.seed, params)
+    lap("overlap")
     constrained = constrained_phase(args.seed, params)
+    lap("constrained")
     server = server_phase(args.seed, params)
+    lap("server")
     durable = durable_phase(args.seed, params, cell)
+    lap("durable")
     fleet = fleet_phase(args.seed, params, cell, prefix.pop("cell"))
+    lap("fleet")
     tp = tp_phase(args.seed, params, cell, engines["graph"])
+    lap("tp")
     tools = tools_phase(args.seed, params, card)
+    lap("tools")
     anatomy = anatomy_phase(engines, args.seed)
+    lap("anatomy")
     long_ctx["profiled"] = long_context_profile(long_engine, args.seed)
+    lap("long_context_profile")
     suffix_bodies = suffix_prefill_bodies(args.seed, params)
+    lap("suffix_prefill_bodies")
     del engines, long_engine, params
     torch.cuda.empty_cache()
     flash = flash_phase(args.seed)
+    lap("flash")
     training = training_phase(args.seed)
+    lap("training")
     training_bf16 = training_phase(args.seed, DataType.BFLOAT16)
+    lap("training bfloat16")
     training_f16 = training_phase(args.seed, DataType.HALF)
+    lap("training half")
     heads = {}
     heads["bert-cls"], cls_model, _ = heads_phase(args.seed, "bert-cls")
+    lap("heads bert-cls")
     heads["infer"] = infer_phase(args.seed, cls_model)
+    lap("infer")
     del cls_model
     torch.cuda.empty_cache()
     heads["bert-cls bf16"] = heads_phase(args.seed, "bert-cls", DataType.BFLOAT16)[0]
+    lap("heads bert-cls bfloat16")
     torch.cuda.empty_cache()
     heads["bert-mlm"] = heads_phase(args.seed, "bert-mlm", steps=5)[0]
+    lap("heads bert-mlm")
     torch.cuda.empty_cache()
     heads["seq2seq"] = heads_phase(args.seed, "seq2seq", steps=5)[0]
+    lap("heads seq2seq")
     torch.cuda.empty_cache()
     fp32_heads = ("bert-cls", "bert-mlm", "seq2seq", "infer")
     trainer = {"fp32": trainer_phase(args.seed), "bf16": trainer_phase(args.seed, DataType.BFLOAT16)}
+    lap("trainer")
     trainer["checkpoint"] = checkpoint_phase(args.seed)
+    lap("checkpoint")
     vision = vision_phase(args.seed)
+    lap("vision")
     torch.cuda.empty_cache()
     window = window_phase(args.seed)
+    lap("window")
     moe = moe_phase(args.seed)
+    lap("moe")
     keras_ = keras_phase(args.seed)
+    lap("keras")
     torch.cuda.empty_cache()
     onnx_ = onnx_phase(args.seed)
+    lap("onnx")
     torch.cuda.empty_cache()
     fx_ = fx_phase(args.seed)
+    lap("fx")
     torch.cuda.empty_cache()
     search = search_phase(args.seed)
+    lap("search")
     torch.cuda.empty_cache()
     programs = programs_phase(args.seed, search.pop("table_json"))
+    lap("programs")
     torch.cuda.empty_cache()
     dp = dp_phase(args.seed)
+    lap("dp")
+    torch.cuda.empty_cache()
+    tpt = tpt_phase(args.seed)
+    lap("tpt")
 
     def trainer_launches(name):  # the trainer and window phases' launches of a flash form
         return (sum(sum(r["launches"][k][name] for k in r["launches"])
@@ -8387,7 +8675,8 @@ def main(argv=None) -> int:
                training["launches"][name]
                + sum(heads[cell]["launches"][name] for cell in fp32_heads)
                + trainer_launches(name) + onnx_["launches"][name]
-               + programs["launches"][name] + dp["launches"].get(name, 0), FLASH_SOURCE)
+               + programs["launches"][name] + dp["launches"].get(name, 0)
+               + tpt["launches"].get(name, 0), FLASH_SOURCE)
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
         record(f"{name}{form}", f"flexflow_tpu/ops/kernels/flash_attention.py:{line}",
@@ -8398,8 +8687,8 @@ def main(argv=None) -> int:
                + (heads["bert-cls bf16"]["launches"][f"{name}{form}"] + search["launches"][
                    f"{name}{form}"] + programs["launches"][f"{name}{form}"]
                   if form == "_bf16" else 0)
-               + trainer_launches(f"{name}{form}") + dp["launches"].get(f"{name}{form}", 0),
-               FLASH_SOURCE)
+               + trainer_launches(f"{name}{form}") + dp["launches"].get(f"{name}{form}", 0)
+               + tpt["launches"].get(f"{name}{form}", 0), FLASH_SOURCE)
         for form, run in (("_bf16", training_bf16), ("_f16", training_f16))
         for name, line in (("flash_fwd", 158), ("flash_bwd_dq", 262), ("flash_bwd_dkv", 278))
     ] + [
@@ -8471,6 +8760,7 @@ def main(argv=None) -> int:
     print_search(card, search)
     print_programs(card, programs)
     print_dp(card, dp)
+    print_tpt(card, tpt)
     inf = heads["infer"]
     print(f"{card}: bert_sst2 over /v2/models/bert_sst2/infer ({inf['clients']} clients, "
           f"{inf['requests']} requests of 1-4 rows): {inf['requests_per_s']:.2f} requests/s, "
@@ -8632,7 +8922,8 @@ def main(argv=None) -> int:
                       "suffix_prefill_bodies": suffix_bodies, "trainer": trainer,
                       "vision": vision, "window": window, "moe": moe, "keras": keras_,
                       "onnx": onnx_, "fx": fx_, "search": search, "programs": programs,
-                      "dp": dp}))
+                      "dp": dp, "tpt": tpt, "phase_seconds": laps}))
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in laps.items()}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

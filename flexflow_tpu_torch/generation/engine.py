@@ -596,7 +596,7 @@ class GenerationEngine:
             "ff1_cols": int(self.params["layers"][0]["ff1"].shape[1]),
             "launches": dict(da.LAUNCHES),
             "collectives": dict(self._tp.group.counts) if self._tp is not None else {},
-            "all_reduce_s": self._tp.group.all_reduce_s if self._tp is not None else 0.0,
+            "all_reduce_s": self._tp.group.seconds["all_reduce"] if self._tp is not None else 0.0,
             "max_memory_allocated": (torch.cuda.max_memory_allocated(self.device)
                                      if cuda else 0),
         }
@@ -611,9 +611,7 @@ class GenerationEngine:
 
         da.reset_launch_counts()
         if self._tp is not None:
-            for k in self._tp.group.counts:
-                self._tp.group.counts[k] = 0
-            self._tp.group.all_reduce_s = 0.0
+            self._tp.group.reset_counters()
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
 

@@ -12,7 +12,10 @@ Building a layer records a graph node; ``compile`` picks the strategy
 :class:`~flexflow_tpu_torch.runtime.executor.Executor` of one device and
 its weights, or, for a ``"data"`` axis of N > 1 devices, a
 :class:`~flexflow_tpu_torch.runtime.data_parallel.DataParallelExecutor`
-on each of N ranks; ``fit`` runs the training loop and prints the
+on each of N ranks, or, with a ``"model"`` axis (alone or with
+``"data"``), a
+:class:`~flexflow_tpu_torch.runtime.tensor_parallel.TensorParallelExecutor`
+on each rank of the mesh; ``fit`` runs the training loop and prints the
 reference's ELAPSED TIME / THROUGHPUT line. :meth:`FFModel.from_graph`
 wraps a graph read back from JSON (the model repository's). The model
 runs on the GPU unless ``device="cpu"`` is passed; ``mesh=`` (a
@@ -565,10 +568,14 @@ class FFModel:
         ``device``, else the GPUs of this process): a strategy that needs
         more raises ``mesh needs N devices, have M`` (the JAX package's
         ``build_mesh``), after the files are written. Only then does a
-        strategy with an axis other than ``"data"`` above 1 raise (those
-        axes are not ported yet). A ``"data"`` axis of N > 1 starts the
-        mesh's ranks (``runtime/data_parallel.py``); on one device every
-        axis is 1 and the searched graph's parallel ops are identities."""
+        strategy with a ``"seq"``, ``"expert"`` or ``"pipe"`` axis above
+        1 raise (ROADMAP queue 1 items 5b–5d). A ``"data"`` axis of N > 1
+        starts the mesh's ranks (``runtime/data_parallel.py``), a
+        ``"model"`` axis, alone or with ``"data"``, its tensor-parallel
+        ranks (``runtime/tensor_parallel.py``: each rank holds its shards
+        of the weights the strategy shards on ``"model"``); on one device
+        every axis is 1 and the searched graph's parallel ops are
+        identities."""
         from .parallel.strategy import ParallelStrategy, data_parallel_strategy
 
         if optimizer is None:
@@ -627,11 +634,16 @@ class FFModel:
             self.executor = Executor(**kw).initialize(gen)
             return self
         from .ops.moe_ops import refuse_data_parallel
+        from .parallel.mesh import DATA_AXIS, MODEL_AXIS
         from .runtime.data_parallel import DataParallelExecutor, graph_batch, rank_plan
+        from .runtime.tensor_parallel import TensorParallelExecutor, layout_plan
 
         # refusals before any rank starts
         refuse_data_parallel(self.graph, mesh.size)
-        rank_plan(self.graph, graph_batch(self.graph), mesh.size)
+        rank_plan(self.graph, graph_batch(self.graph), mesh.shape.get(DATA_AXIS, 1))
+        tp = mesh.shape.get(MODEL_AXIS, 1)
+        if tp > 1:
+            layout_plan(self.graph, self.strategy, tp)
         if self._mesh_arg is not None and self._mesh_arg == mesh \
                 and self._mesh_arg.timeout_s == mesh.timeout_s:
             mesh = self._mesh_arg  # the caller's mesh: its ranks serve every model on it
@@ -639,7 +651,12 @@ class FFModel:
             # a mesh of this model's own, stopped with it
             self._mesh_finalizer = weakref.finalize(self, mesh.close)
         self.mesh = mesh
-        ex = DataParallelExecutor(**kw, group=mesh.group(), zero=self.config.zero_optimizer)
+        if tp > 1:
+            ex = TensorParallelExecutor(**kw, group=mesh.group(), zero=self.config.zero_optimizer,
+                                        mesh_shape=mesh.shape, init_seed=self._seed)
+        else:
+            ex = DataParallelExecutor(**kw, group=mesh.group(), zero=self.config.zero_optimizer,
+                                      init_seed=self._seed)
         self.executor = ex.initialize(gen)
         ex.start_ranks()
         return self
@@ -657,8 +674,8 @@ class FFModel:
     def _mesh_for(self, axis_sizes):
         """The strategy's mesh over the model's devices, checked: the
         device count first (the JAX package's error), then the axes the
-        port trains (``"data"`` alone)."""
-        from .parallel.mesh import DATA_AXIS, build_mesh, gpus
+        port trains (``"data"`` and ``"model"``)."""
+        from .parallel.mesh import DATA_AXIS, MODEL_AXIS, build_mesh, gpus
 
         m = self._mesh_arg
         if m is not None:
@@ -668,16 +685,16 @@ class FFModel:
         else:
             mesh = build_mesh(axis_sizes, gpus() or [self.device])
         later = {
-            "model": "the 'model' axis (tensor parallelism with the parallel ops' data movement)",
-            "seq": "the 'seq' axis (ring and Ulysses attention, ROADMAP queue 2)",
-            "expert": "the 'expert' axis (expert parallelism)",
-            "pipe": "the 'pipe' axis (GPipe with models/pipeline_transformer.py)",
+            "seq": "the 'seq' axis (ring and Ulysses attention, ROADMAP queue 1 item 5b)",
+            "expert": "the 'expert' axis (expert parallelism, ROADMAP queue 1 item 5c)",
+            "pipe": "the 'pipe' axis (GPipe with models/pipeline_transformer.py, ROADMAP "
+                    "queue 1 item 5d)",
         }
         for axis, size in mesh.shape.items():
-            if axis != DATA_AXIS and size > 1:
+            if axis not in (DATA_AXIS, MODEL_AXIS) and size > 1:
                 raise NotImplementedError(
-                    f"{later.get(axis, repr(axis))} of size {size} is not ported for training "
-                    "(ROADMAP queue 1, item 5); the port trains data-parallel ('data' axis)")
+                    f"{later.get(axis, repr(axis))} of size {size} is not ported for training; "
+                    "the port trains the 'data' and 'model' axes")
         return mesh
 
     def _release(self) -> None:
@@ -954,36 +971,40 @@ class FFModel:
                           seed=seed, device=self.device)
 
     # ------------------------------------------------------------- weights
-    def _weight_group(self, layer: Union[Tensor, str]) -> Tuple[str, Dict[str, torch.Tensor]]:
-        """A layer's weights, trainable and state together."""
+    def _leaf(self, layer: Union[Tensor, str], name: str) -> Tuple[str, str]:
+        """(node key, part) of one weight or state entry of a layer."""
         if self.executor is None:
             raise RuntimeError("call compile() first")
         key = node_key(layer.node) if isinstance(layer, Tensor) else self.executor.node_key(layer)
-        return key, {**self.executor.params.get(key, {}), **self.executor.state.get(key, {})}
+        specs = self.executor.whole_specs()
+        for part in ("params", "state"):
+            if name in specs[part].get(key, {}):
+                return key, part
+        have = sorted({**specs["params"].get(key, {}), **specs["state"].get(key, {})})
+        raise KeyError(f"no weight {name!r} on {key}; has {have}")
 
     def get_weight(self, layer: Union[Tensor, str], name: str) -> np.ndarray:
         """One weight (or state entry, as BatchNorm's running mean) as a
-        host array; ``layer`` is the layer's output Tensor or its name
-        (reference: ParallelTensorBase::get_tensor). numpy has no
-        bfloat16: a bfloat16 weight comes back as float32, which holds
-        every bfloat16 value exactly."""
-        key, group = self._weight_group(layer)
-        if name not in group:
-            raise KeyError(f"no weight {name!r} on {key}; has {sorted(group)}")
-        w = group[name].detach()
+        host array, whole (a tensor-parallel model gathers its shards);
+        ``layer`` is the layer's output Tensor or its name (reference:
+        ParallelTensorBase::get_tensor). numpy has no bfloat16: a bfloat16
+        weight comes back as float32, which holds every bfloat16 value
+        exactly."""
+        key, _ = self._leaf(layer, name)
+        w = self.executor.whole_weight(key, name).detach()
         if w.dtype == torch.bfloat16:
             w = w.float()
         return w.cpu().numpy().copy()  # never a view of the weight
 
     @torch.no_grad()
     def set_weight(self, layer: Union[Tensor, str], name: str, value) -> None:
-        """Overwrite one weight in place from host data (reference:
-        ParallelTensorBase::set_tensor); the weight keeps its dtype."""
-        key, group = self._weight_group(layer)
-        if name not in group:
-            raise KeyError(f"no weight {name!r} on {key}")
-        _copy_into(group[name], value, f"{key}.{name}")
-        self.executor.broadcast_state()
+        """Overwrite one weight from whole host data (reference:
+        ParallelTensorBase::set_tensor); the weight keeps its dtype, and
+        every rank takes its part."""
+        key, part = self._leaf(layer, name)
+        shape, dtype = self.executor.whole_specs()[part][key][name]
+        self.executor.load_whole(**{part: {key: {name: _whole(value, shape, dtype,
+                                                                f"{key}.{name}")}}})
 
     @torch.no_grad()
     def set_weights(self, named: Dict[str, Dict[str, torch.Tensor]],
@@ -995,50 +1016,49 @@ class FFModel:
         non-trainable state the same way (BatchNorm's running statistics)
         and ``opt_state`` the optimizer's (``runtime/convert.py::
         opt_state_from_numpy``: the moments by layer name, the step and
-        the learning rate)."""
+        the learning rate). Every value is whole; each rank takes its
+        part."""
         if self.executor is None:
             raise RuntimeError("call compile() first")
         ex = self.executor
-        by_name = self._by_layer(named, ex.params, "weights")
-        for key, ws in by_name.items():
-            for name, value in ws.items():
-                _copy_into(ex.params[key][name], value, f"{key}.{name}")
-        if state is not None:
-            for key, ws in self._by_layer(state, ex.state, "state").items():
-                for name, value in ws.items():
-                    _copy_into(ex.state[key][name], value, f"{key}.{name}")
-        full = None
+        specs = ex.whole_specs()
+        params = self._checked(named, specs["params"], "weights")
+        st = None if state is None else self._checked(state, specs["state"], "state")
+        opt = None
         if opt_state is not None:
             if ex.opt_state is None:
                 raise ValueError("the model holds no optimizer state (compiled for inference)")
-            full = ex.full_opt_state()  # whole moments (gathered under ZeRO-1)
+            opt = {"step": int(opt_state["step"]), "lr": float(opt_state["lr"])}
             for field in ("m", "v"):
-                have, given = full.get(field), opt_state.get(field)
+                have, given = ex.opt_state.get(field), opt_state.get(field)
                 if (have is None) != (given is None):
                     raise ValueError(f"optimizer state {field!r}: the model "
                                      f"{'has' if have is not None else 'lacks'} it")
                 if have is not None:
-                    for key, ws in self._by_layer(given, have, f"opt_state[{field!r}]").items():
-                        for name, value in ws.items():
-                            _copy_into(have[key][name], value, f"{field}.{key}.{name}")
-            ex.opt_state["step"] = full["step"] = int(opt_state["step"])
-            ex.set_learning_rate(float(opt_state["lr"]))
-        ex.broadcast_state(full)
+                    mspecs = {k: {n: (shape, have[k][n].dtype)
+                                  for n, (shape, _) in g.items()}
+                              for k, g in specs["params"].items()}
+                    opt[field] = self._checked(given, mspecs, f"opt_state[{field!r}]")
+        ex.load_whole(params, st, opt)
 
-    def _by_layer(self, named, store, what: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    def _checked(self, named, specs, what: str) -> Dict[str, Dict[str, torch.Tensor]]:
         """``named`` ({layer name: {weight: value}}) re-keyed by node key,
-        checked to cover ``store`` exactly."""
+        checked to cover ``specs`` ({node key: {name: (shape, dtype)}})
+        exactly, each value a whole tensor of its leaf's shape and dtype."""
         by_key = {self.executor.node_key(layer): ws for layer, ws in named.items()}
-        if set(by_key) != set(store):
+        if set(by_key) != set(specs):
             raise ValueError(f"the named layers do not cover the model's {what} exactly")
+        out = {}
         for key, ws in by_key.items():
-            if set(ws) != set(store[key]):
-                raise ValueError(f"{what} of {key}: {sorted(ws)}, expected {sorted(store[key])}")
-        return by_key
+            if set(ws) != set(specs[key]):
+                raise ValueError(f"{what} of {key}: {sorted(ws)}, expected {sorted(specs[key])}")
+            out[key] = {n: _whole(v, *specs[key][n], f"{key}.{n}") for n, v in ws.items()}
+        return out
 
 
-def _copy_into(cur: torch.Tensor, value, what: str) -> None:
-    src = to_tensor(value).to(cur.dtype)
-    if tuple(src.shape) != tuple(cur.shape):
-        raise ValueError(f"shape {tuple(src.shape)} != {tuple(cur.shape)} for {what}")
-    cur.copy_(src)
+def _whole(value, shape, dtype: torch.dtype, what: str) -> torch.Tensor:
+    """``value`` as a tensor of ``dtype``, checked to have ``shape``."""
+    src = to_tensor(value).to(dtype)
+    if tuple(src.shape) != tuple(shape):
+        raise ValueError(f"shape {tuple(src.shape)} != {tuple(shape)} for {what}")
+    return src

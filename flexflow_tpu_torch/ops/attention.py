@@ -6,8 +6,13 @@ Tensors are [B, S, H, D], as in the JAX package. The training path's
 :func:`attention_core` (the flash kernels on a GPU); the generation path
 uses the paged decode/append cores and the masked prefill attention.
 Dropout after the output projection and its bias draws JAX's mask
-(``softmax.dropout``). Ring/Ulysses context parallelism and the mesh
-branches wait for the multi-GPU slices.
+(``softmax.dropout``). Head parallel (``runtime/tensor_parallel.py``):
+with ``wq/wk/wv`` sharded on H and ``wo`` on its first dim, a rank's
+q, k and v hold its H/tp heads, the flash kernels run on those at the
+whole head dim's scale, and the output projection's partial sums meet
+(an all-reduce over the model axis) before ``bo`` and the dropout, which
+then draws the same rows of JAX's mask on every model rank. Ring/Ulysses
+context parallelism waits for ROADMAP queue 1 item 5b.
 """
 from __future__ import annotations
 
@@ -105,6 +110,10 @@ class MultiHeadAttentionOp(OpDef):
             vh = vh + weights["bv"]
         ctx_out = attention_core(qh, kh, vh, causal=params.causal, backend=ctx.backend)
         out = torch.einsum("bshd,hde->bse", *promoted(ctx_out, weights["wo"]))
+        if ctx.sharded.get("wo") == 0:
+            # head parallel: this rank's heads give a partial sum of the
+            # projection, summed over the model axis before bo and dropout
+            out = ctx.reduce_partial(out)
         if params.use_bias:
             out = out + weights["bo"]
         out = dropout(out, params.dropout, ctx)

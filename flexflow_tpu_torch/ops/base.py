@@ -75,6 +75,21 @@ class LowerCtx:
     split: bool = False
     # a probe's list: every dropout mask drawn is appended to it (None: off)
     masks: Optional[List] = None
+    # tensor parallelism (runtime/tensor_parallel.py): this rank's
+    # coordinate on the "model" axis and its model sub-group (None: no
+    # model axis), and the current node's weights sharded on that axis
+    # (weight name -> the dim its shard cuts; empty: every weight whole).
+    # ``group``, ``split`` and ``row_offset`` keep to the "data" axis.
+    model_rank: int = 0
+    model_group: Optional[object] = None
+    sharded: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def reduce_partial(self, x: torch.Tensor) -> torch.Tensor:
+        """A partial sum over the model axis made whole (an all-reduce over
+        the model sub-group; backward, the identity)."""
+        from ..parallel.distributed import reduce_partial
+
+        return reduce_partial(x, self.model_group)
 
     def row_offset(self, x: torch.Tensor) -> int:
         """Where ``x``, the current node's tensor on this rank, starts in

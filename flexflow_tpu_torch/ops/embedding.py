@@ -8,6 +8,12 @@ end of the table and an index outside it gives a row of NaN (JAX's
 "fill" mode), with no host sync on the card. The bag sums and means
 accumulate in float32 and round once to the table's dtype, as
 ``jnp.sum`` / ``jnp.mean`` do for a 2-byte input.
+
+Tensor parallel (``runtime/tensor_parallel.py``): with the table's rows
+sharded on the ``model`` axis a rank looks up the ids of its vocabulary
+range, zeros for the rest, and its bag sums sum those: a partial sum the
+executor reduces over the model axis; with its columns sharded a rank
+looks up its columns of every id.
 """
 from __future__ import annotations
 
@@ -41,6 +47,28 @@ def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(inside[..., None], vecs, float("nan"))
 
 
+def _row_shard_lookup(table: torch.Tensor, idx: torch.Tensor, rank: int,
+                      ranks: int) -> torch.Tensor:
+    """This rank's part of ``lookup(whole table, idx)`` when the table's
+    rows are sharded on the ``model`` axis (``table`` holds rows ``[rank *
+    n, (rank + 1) * n)``): the rows of the ids in that range, zeros for
+    the others, so the ranks' parts sum to the whole lookup. An id outside
+    the whole table gives NaN, from rank 0 (``jnp.take``'s fill)."""
+    n = table.shape[0]
+    total = n * ranks
+    i = idx.long()
+    i = torch.where(i < 0, i + total, i)
+    local = i - rank * n
+    mine = (local >= 0) & (local < n)
+    vecs = torch.nn.functional.embedding(local.clamp(0, n - 1), table)
+    vecs = torch.where(mine[..., None], vecs, torch.zeros((), dtype=table.dtype,
+                                                          device=table.device))
+    if rank == 0:
+        inside = (i >= 0) & (i < total)
+        vecs = torch.where(inside[..., None], vecs, float("nan"))
+    return vecs
+
+
 @register_op
 class EmbeddingOp(OpDef):
     op_type = OpType.EMBEDDING
@@ -62,7 +90,10 @@ class EmbeddingOp(OpDef):
     def lower(params: EmbeddingParams, inputs, weights, ctx: LowerCtx):
         (idx,) = inputs
         table = weights["embedding"]
-        vecs = lookup(table, idx)
+        if ctx.sharded.get("embedding") == 0:
+            vecs = _row_shard_lookup(table, idx, ctx.model_rank, ctx.model_group.size)
+        else:
+            vecs = lookup(table, idx)
         if params.aggr == AggrMode.SUM:
             vecs = vecs.float().sum(dim=-2).to(table.dtype)
         elif params.aggr == AggrMode.AVG:

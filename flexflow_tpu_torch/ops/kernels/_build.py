@@ -1,10 +1,16 @@
 """Build and bind the port's CUDA kernels.
 
 The CUDA C++ sources under ``csrc/`` export a plain C interface. At first
-use, :func:`load_library` compiles each ``.cu`` file with its own ``nvcc``
-for ``sm_90a``, all at once in parallel, into one shared library per
-source, loads them with ``ctypes`` and declares every function's
-argument types. The libraries land in ``_build/`` beside this file, each
+use, :func:`load_library` compiles each ``.cu`` file for ``sm_90a`` into
+one shared library per source, loads them with ``ctypes`` and declares
+every function's argument types. Each source compiles in the parts :data:`PARTS` names
+(a source not named there is one part): one ``nvcc -c`` per part, its
+flags picking the functions, and so the kernel instances, its object
+holds, every part of every source started together; each source's
+objects then link into its one library. The flash source builds as its
+three forms and the paged source as its six (form x single-pass or
+split). ``last_build_part_seconds`` holds each part's compile seconds.
+The libraries land in ``_build/`` beside this file, each
 named by a hash of its source, the shared headers and the flags, so an
 unchanged checkout builds once and an edited source rebuilds only its
 own library. Nothing here runs when the module is imported.
@@ -35,6 +41,18 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+# each source's parts: file name -> each part's extra nvcc flags (a source
+# not named here is one part, with none); the parts' objects link into the
+# source's one library
+PARTS = {"flash_attention.cu": tuple((f"-DFF_FLASH_FORM={i}",) for i in range(3)),
+         "paged_attention.cu": tuple((f"-DFF_PAGED_PART={i}",) for i in range(6))}
+
+
+def source_parts(source: Path) -> tuple:
+    """The flags of each part ``source`` compiles in."""
+    return PARTS.get(source.name, ((),))
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,6 +109,8 @@ last_build_seconds: Optional[float] = None
 # nvcc's stderr of the last compile, every source (ptxas register and
 # shared-memory report)
 last_build_log: str = ""
+# seconds of each compile of the last build, by source (and part)
+last_build_part_seconds: dict = {}
 
 
 def _sources():
@@ -111,6 +131,8 @@ def source_digest(source: Optional[Path] = None) -> str:
             h.update(path.name.encode())
             h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    if source is not None:
+        h.update(repr(source_parts(source)).encode())
     return h.hexdigest()[:16]
 
 
@@ -134,9 +156,25 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
+def _start(cmd):
+    """Start ``cmd``; a thread reads its stderr (ptxas -v fills a pipe)
+    and notes when it ended."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    t0, done = time.perf_counter(), {}
+
+    def wait():
+        done["err"] = proc.communicate()[1]
+        done["s"] = time.perf_counter() - t0
+
+    reader = threading.Thread(target=wait, daemon=True)
+    reader.start()
+    return cmd, proc, reader, done
+
+
 def _compile(sources) -> None:
-    """One nvcc per source, all started together; raises if any fails."""
-    global last_build_log
+    """One ``nvcc -c`` per part of every source, all started together,
+    then each source's link; raises if any fails."""
+    global last_build_log, last_build_part_seconds
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -144,24 +182,48 @@ def _compile(sources) -> None:
             "/usr/local/cuda/bin): the CUDA kernels cannot be built"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []  # (source, target, tmp, [(part flags, object, started compile)])
     for src in sources:
         target = library_path(src)
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        jobs.append((target, tmp, cmd, proc))
-    logs, failures = [], []
-    for target, tmp, cmd, proc in jobs:
-        _, err = proc.communicate()
-        logs.append(err)
-        if proc.returncode != 0:
+        parts = []
+        for i, flags in enumerate(source_parts(src)):
+            obj = tmp.with_name(f"{tmp.name}.{i}.o")
+            parts.append((flags, obj, _start([nvcc, *compile_flags, *flags, "-c", "-o",
+                                              str(obj), str(src)])))
+        jobs.append((src, target, tmp, parts))
+    logs, failures, seconds = [], [], {}
+    for src, target, tmp, parts in jobs:
+        errs, ok = [], True
+        for flags, _, (cmd, proc, reader, done) in parts:
+            reader.join()
+            errs.append(done["err"])
+            label = " ".join(f[2:] for f in flags)  # the part's defines, "-D" dropped
+            seconds[f"{src.name}[{label}]" if flags else src.name] = done["s"]
+            if proc.returncode != 0:
+                ok = False
+                failures.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                                f"{done['err']}")
+        if ok:
+            cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+                   *(str(obj) for _, obj, _ in parts)]
+            link = subprocess.run(cmd, capture_output=True, text=True)
+            errs.append(link.stderr)
+            if link.returncode != 0:
+                ok = False
+                failures.append(f"nvcc failed (exit {link.returncode}): {' '.join(cmd)}\n"
+                                f"{link.stderr}")
+        for _, obj, _ in parts:
+            obj.unlink(missing_ok=True)
+        logs.extend(errs)
+        if not ok:
             tmp.unlink(missing_ok=True)
-            failures.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
             continue
-        target.with_suffix(".log").write_text(err)
+        target.with_suffix(".log").write_text("".join(errs))
         os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
     last_build_log = "".join(logs)
+    last_build_part_seconds = seconds
     if failures:
         raise RuntimeError("\n".join(failures))
 

@@ -2052,6 +2052,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 }  // namespace
 
 // Plain C interface, bound with ctypes (flexflow_tpu_torch/ops/kernels/_build.py).
+// The build compiles this file once per form, in parallel, with
+// FF_FLASH_FORM set to 0 (fp32), 1 (bf16, with the two queries) or 2
+// (fp16), and links the three objects into one library; each object then
+// instantiates only its form's kernels. Without FF_FLASH_FORM the file
+// holds every function.
 // Every pointer is a device pointer to contiguous data: q, dout, o, dq
 // [B,Sq,H,D]; k, v, dk, dv [B,Sk,H,D], fp32 in the _f32 form, bf16 in the
 // _bf16 form and fp16 in the _f16 form; lse, delta [B,Sq,H] fp32 in all
@@ -2062,6 +2067,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 // tensor-core body, 1 the wgmma body, 2 the CUDA cores. form 0 is fp32, 1
 // bf16, 2 fp16; kind 0 is the forward (out0 = o), 1 dQ (out0 = dq), 2
 // dK/dV (out0 = dk, out1 = dv).
+#if !defined(FF_FLASH_FORM) || FF_FLASH_FORM == 1
 extern "C" int ff_flash_body(int form, int kind, const void* q, const void* k, const void* v,
                              const void* dout, const void* out0, const void* out1, int D) {
   Args a{q, k, v, dout, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
@@ -2093,6 +2099,9 @@ extern "C" int ff_flash_wg_blocks_per_sm(int kind, int D) {
                  : blocks_per_sm(flash_bwd_dkv_wg_kernel<128, bf16>, dkv_wg_smem<128, bf16>());
 }
 
+#endif
+
+#if !defined(FF_FLASH_FORM) || FF_FLASH_FORM == 0
 extern "C" int ff_flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
                                 float* lse, int B, int Sq, int Sk, int H, int D, float scale,
                                 int causal, void* stream) {
@@ -2114,6 +2123,9 @@ extern "C" int ff_flash_bwd_dkv_f32(const float* q, const float* k, const float*
                         stream);
 }
 
+#endif
+
+#if !defined(FF_FLASH_FORM) || FF_FLASH_FORM == 1
 extern "C" int ff_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                                  float* lse, int B, int Sq, int Sk, int H, int D, float scale,
                                  int causal, void* stream) {
@@ -2135,6 +2147,9 @@ extern "C" int ff_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v
                        stream);
 }
 
+#endif
+
+#if !defined(FF_FLASH_FORM) || FF_FLASH_FORM == 2
 extern "C" int ff_flash_fwd_f16(const f16* q, const f16* k, const f16* v, f16* o, float* lse,
                                 int B, int Sq, int Sk, int H, int D, float scale, int causal,
                                 void* stream) {
@@ -2154,3 +2169,4 @@ extern "C" int ff_flash_bwd_dkv_f16(const f16* q, const f16* k, const f16* v, co
   return bwd_dkv<f16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D, scale, causal,
                       stream);
 }
+#endif

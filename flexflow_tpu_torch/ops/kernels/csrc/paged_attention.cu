@@ -992,15 +992,32 @@ int dispatch(const float* q, const T* k_cache, const T* v_cache, const int* bloc
                              static_cast<cudaStream_t>(stream));                                 \
   }
 
+// The build compiles this file in six parts, in parallel, with
+// FF_PAGED_PART set to 2 * form + split (form 0 f32, with the cluster-size
+// query; 1 bf16; 2 f16; split 0 the single-pass form, 1 the split-KV
+// form), and links the objects into one library; without FF_PAGED_PART
+// the file holds every function.
+#if !defined(FF_PAGED_PART) || FF_PAGED_PART == 0
 FF_PAGED_APPEND(f32, float)
-FF_PAGED_APPEND(bf16, bf16)
-FF_PAGED_APPEND(f16, f16)
-FF_PAGED_APPEND_SPLIT(f32, float)
-FF_PAGED_APPEND_SPLIT(bf16, bf16)
-FF_PAGED_APPEND_SPLIT(f16, f16)
 
 // the cluster size ff_paged_append_* launches for a table of MB columns
 // of bs positions (0 for an empty table)
 extern "C" int ff_paged_append_cluster_size(int MB, int bs) {
   return MB < 1 || bs < 1 ? 0 : cluster_size(MB, bs);
 }
+#endif
+#if !defined(FF_PAGED_PART) || FF_PAGED_PART == 1
+FF_PAGED_APPEND_SPLIT(f32, float)
+#endif
+#if !defined(FF_PAGED_PART) || FF_PAGED_PART == 2
+FF_PAGED_APPEND(bf16, bf16)
+#endif
+#if !defined(FF_PAGED_PART) || FF_PAGED_PART == 3
+FF_PAGED_APPEND_SPLIT(bf16, bf16)
+#endif
+#if !defined(FF_PAGED_PART) || FF_PAGED_PART == 4
+FF_PAGED_APPEND(f16, f16)
+#endif
+#if !defined(FF_PAGED_PART) || FF_PAGED_PART == 5
+FF_PAGED_APPEND_SPLIT(f16, f16)
+#endif

@@ -53,7 +53,8 @@ outputs back (the scale stays Dk's).
 
 Each kernel launch runs on the device of its tensors (whatever the
 current device is) and adds one to its count in :data:`LAUNCHES`, and
-to its body's in :data:`LAUNCHES_BY_BODY`. The count is kept on the
+to its body's in :data:`LAUNCHES_BY_BODY` and its head count's in
+:data:`LAUNCHES_BY_HEADS`. The count is kept on the
 Python side, where the wrapper launches: a CUDA graph of a train step
 (``runtime/step_graph.py``) replays its launches without the wrapper, so
 a capture records them (:func:`capturing`) and each replay adds them
@@ -86,6 +87,9 @@ _FORMS = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", "_bf16"),
 BODIES = ("mma_sync", "wgmma", "cuda_cores")
 # launches by the body that took them, keyed "<LAUNCHES key> <body>"
 LAUNCHES_BY_BODY: Dict[str, int] = {f"{name} {body}": 0 for name in LAUNCHES for body in BODIES}
+# launches by the head count of their q, keyed "<LAUNCHES key> H=<heads>"
+# (a tensor-parallel rank launches on its share of the heads)
+LAUNCHES_BY_HEADS: Dict[str, int] = {}
 _KINDS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 
 _BACKENDS = ("auto", "plain")
@@ -99,6 +103,7 @@ def reset_launch_counts() -> None:
     for counts in (LAUNCHES, LAUNCHES_BY_BODY):
         for name in counts:
             counts[name] = 0
+    LAUNCHES_BY_HEADS.clear()
 
 
 @contextlib.contextmanager
@@ -118,7 +123,10 @@ def capturing():
 def count_replay(captured: Dict[str, int]) -> None:
     """Count one replay of a graph whose capture recorded ``captured``."""
     for name, n in captured.items():
-        (LAUNCHES if name in LAUNCHES else LAUNCHES_BY_BODY)[name] += n
+        if name in LAUNCHES or name in LAUNCHES_BY_BODY:
+            (LAUNCHES if name in LAUNCHES else LAUNCHES_BY_BODY)[name] += n
+        else:
+            LAUNCHES_BY_HEADS[name] = LAUNCHES_BY_HEADS.get(name, 0) + n
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -300,7 +308,8 @@ def kernel_body(kernel: str, q, k, v, dout=None, out0=None, out1=None) -> str:
 
 
 def _count(kernel: str, count: str, *tensors) -> None:
-    names = (kernel + count, f"{kernel}{count} {kernel_body(kernel, *tensors)}")
+    names = (kernel + count, f"{kernel}{count} {kernel_body(kernel, *tensors)}",
+             f"{kernel}{count} H={tensors[0].shape[2]}")
     rec = _CAPTURE
     if rec is not None and torch.cuda.is_current_stream_capturing():
         # recorded into a graph, not run: counted at each replay
@@ -309,6 +318,7 @@ def _count(kernel: str, count: str, *tensors) -> None:
         return
     LAUNCHES[names[0]] += 1
     LAUNCHES_BY_BODY[names[1]] += 1
+    LAUNCHES_BY_HEADS[names[2]] = LAUNCHES_BY_HEADS.get(names[2], 0) + 1
 
 
 def flash_forward_kernel(q, k, v, causal: bool, scale: float):

@@ -10,6 +10,12 @@ bfloat16 layer fed float32 activations multiplies in float32), the
 product accumulates in float32 (cuBLAS's bfloat16 GEMMs and the CPU's
 accumulate in float32) and is rounded once to the layer's dtype; the
 bias and the activation then run in that dtype.
+
+Tensor parallel (``runtime/tensor_parallel.py``): a column-parallel
+linear (kernel dim 1 and bias sharded on the ``model`` axis) is the same
+product on the rank's columns; a row-parallel one (kernel dim 0) takes
+the rank's block of the input's last dim and sums the partial products
+over the model axis before its bias and activation.
 """
 from __future__ import annotations
 
@@ -43,6 +49,14 @@ class LinearParams:
     bias_initializer: str = "zeros"
 
 
+def row_parallel_reduces(params: LinearParams) -> bool:
+    """Whether a row-parallel linear (its kernel's rows sharded on the
+    ``model`` axis) sums its partials itself: when a bias or an activation
+    follows the product. Else its output stays a partial sum for the
+    consumer's reduction (``runtime/tensor_parallel.py``)."""
+    return params.use_bias or params.activation != ActiMode.NONE
+
+
 @register_op
 class LinearOp(OpDef):
     op_type = OpType.LINEAR
@@ -67,6 +81,11 @@ class LinearOp(OpDef):
     def lower(params: LinearParams, inputs, weights, ctx):
         (x,) = inputs
         y = torch.matmul(*promoted(x, weights["kernel"])).to(params.dtype.torch)
+        if ctx.sharded.get("kernel") == 0 and row_parallel_reduces(params):
+            # row parallel: x is this rank's block of the input's last dim,
+            # y its partial sum; the sum comes before the bias (added once)
+            # and the activation (not linear)
+            y = ctx.reduce_partial(y)
         if params.use_bias:
             y = y + weights["bias"]
         return [apply_activation(params.activation, y)]

@@ -14,7 +14,11 @@ its running variance unbiased. Evaluation reads the running statistics.
 On a data-parallel rank holding its rows of the batch the training
 statistics are the global batch's, as GSPMD computes ``jnp.mean`` and
 ``jnp.var`` over the sharded batch (:func:`_global_moments`), so the
-running statistics agree on every rank and with one device's.
+running statistics agree on every rank and with one device's. Under
+``megatron_strategy(sp=True)`` LayerNorm runs on a rank's block of the
+sequence (it normalizes the last dim only); the tensor-parallel executor
+sums its whole ``scale`` and ``bias`` gradients over the model axis
+(``runtime/tensor_parallel.py``).
 """
 from __future__ import annotations
 

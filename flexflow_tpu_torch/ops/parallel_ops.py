@@ -12,10 +12,16 @@ partitioned regions:
   FusedParallelOp -> one combined reshard  (fused_parallel_op.cc)
 Logical shapes are unchanged. Each op's params, output specs and (zero)
 cost are the JAX package's, so the strategy search writes the same
-graphs in both packages. Each lowers as the JAX package's does with no
-mesh (its ``_constrain`` without a mesh): the identity on values, so a
-searched graph runs on one device. Moving shards between GPUs waits for
-the multi-GPU slice (ROADMAP queue 1, item 5).
+graphs in both packages. Each lowers as the identity on values (the JAX
+package's ``_constrain`` without a mesh), so a searched graph runs on
+one device. On a ``"model"`` axis of N > 1 ranks each moves the data
+its params name, as GSPMD does under the JAX package's sharding
+constraint: the tensor-parallel executor moves its input to the layout
+the op names (``runtime/tensor_parallel.py``: ``Repartition`` the
+rank's block, ``Combine`` an all-gather, ``Replicate`` the whole,
+``Reduction`` and ``AllReduce`` the sum of a partial, ``FusedParallelOp``
+its ``out_spec``), through the one move function every node's layouts
+go through.
 """
 from __future__ import annotations
 

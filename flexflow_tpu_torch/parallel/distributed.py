@@ -3,9 +3,9 @@ command channel, its collectives and its shutdown.
 
 Two users share it. The generation engine serves over KV heads split
 across ranks (``generation/sharding.py``, a ``"tensor-parallel"``
-group), and the trainer runs data parallelism, each rank a full replica
-on its rows of the batch (``runtime/data_parallel.py``, a
-``"data-parallel"`` group). Rank 0 lives in the caller's process; it
+group), and the trainer runs a mesh of ``"data"`` and ``"model"`` axes:
+each rank on its rows of the batch (``runtime/data_parallel.py``) and
+its shards of the model-sharded weights (``runtime/tensor_parallel.py``). Rank 0 lives in the caller's process; it
 starts ranks 1..N-1 itself (:func:`start_group`), as ``spawn`` processes
 running :func:`_worker_main`, whose target object (built in the worker
 by a factory the caller names) executes the commands rank 0 sends.
@@ -32,9 +32,21 @@ mesh=data_parallel_mesh(2))``.
   :func:`all_reduce_flat` (the gradients), :func:`broadcast_flat` (rank
   0's parameters) and :func:`all_gather_flat` (ZeRO-1's parameter
   slices) pack every tensor of a dtype into one flat buffer.
+* **Sub-groups.** :func:`split_axes` gives every rank of a mesh's group
+  its sub-group along each axis (the ranks whose other coordinates are
+  its own, renumbered), each a process group on a prefix of the group's
+  store, built by every rank in axis order.
 * **Autograd.** :func:`all_reduce_sum` is an all-reduce with a backward
   (the all-reduce of the output's gradient): BatchNorm's global
-  statistics reduce through it.
+  statistics reduce through it. The tensor-parallel layout moves each
+  have one too: :func:`reduce_partial` (all-reduce; identity),
+  :func:`copy_to_group` (identity; all-reduce), :func:`gather_dim`
+  (all-gather along a dim; the rank's block), :func:`slice_dim` (the
+  rank's block; all-gather) and :func:`reduce_scatter_dim` (the rank's
+  block of the sum; all-gather).
+* **Counts.** Each group counts its collectives by kind, with the host
+  seconds spent in them and the bytes each rank put in
+  (``RankGroup.counts``, ``seconds``, ``moved``).
 * **Timeouts.** Every collective and every wait on a worker's answer
   carries the group's timeout, so a dead rank raises on rank 0 instead of
   hanging it.
@@ -47,7 +59,7 @@ mesh=data_parallel_mesh(2))``.
   their collectives.
 
 The multi-host part of the JAX package's ``parallel/distributed.py``
-(the ``FF_*`` environment, training across hosts) waits for the last
+(the ``FF_*`` environment, training across hosts) waits for a later
 part of ROADMAP queue 1, item 5.
 """
 from __future__ import annotations
@@ -71,10 +83,13 @@ import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 120.0
 
+# the kinds of collective a group counts
+KINDS = ("all_reduce", "gather", "scatter", "broadcast", "all_gather", "reduce_scatter")
 
-def _process_group(store_path: str, rank: int, size: int, backend: str, timeout_s: float):
-    """The group's collectives object for ``rank``, built on the file store."""
-    store = dist.FileStore(store_path, size)
+
+def _process_group(store, rank: int, size: int, backend: str, timeout_s: float):
+    """The group's collectives object for ``rank``, built on ``store`` (the
+    group's file store, or a prefix of it for a sub-group)."""
     timeout = datetime.timedelta(seconds=timeout_s)
     if backend == "gloo":
         opts = dist.ProcessGroupGloo._Options()
@@ -110,13 +125,44 @@ class RankGroup:
         self._conns: List[Any] = []
         self._procs: List[Any] = []
         self._finalizer = None
-        # collectives run so far on this rank, by kind, and the host
-        # seconds spent inside the all-reduces (staging included: on a
-        # group whose ranks share a card, mostly waiting for the peer)
-        self.counts: Dict[str, int] = {"all_reduce": 0, "gather": 0, "scatter": 0,
-                                       "broadcast": 0, "all_gather": 0}
-        self.all_reduce_s = 0.0
-        self.all_reduce_bytes = 0
+        # the file store the group was built on (its sub-groups take
+        # prefixes of it), and the mesh's axes once split (:func:`split_axes`):
+        # axis name -> this rank's sub-group along it, and its coordinates
+        self.store = None
+        self.axes: Dict[str, "RankGroup"] = {}
+        self.coords: Dict[str, int] = {}
+        # collectives run so far on this rank, by kind, with the host
+        # seconds spent inside them and the bytes each rank put in
+        # (staging included: on a group whose ranks share a card, mostly
+        # waiting for the peer)
+        self.counts: Dict[str, int] = {k: 0 for k in KINDS}
+        self.seconds: Dict[str, float] = {k: 0.0 for k in KINDS}
+        self.moved: Dict[str, int] = {k: 0 for k in KINDS}
+
+    def reset_counters(self) -> None:
+        """Zero the counts, seconds and bytes of every kind, here and in
+        the axes' sub-groups."""
+        for g in {id(g): g for g in [self, *self.axes.values()]}.values():
+            for k in KINDS:
+                g.counts[k], g.seconds[k], g.moved[k] = 0, 0.0, 0
+
+    def axis(self, name: str) -> "RankGroup":
+        """This rank's sub-group along the mesh axis ``name``
+        (:func:`split_axes`; a group of one rank for an axis the mesh
+        lacks)."""
+        if name not in self.axes:
+            self.axes[name] = solo_group(self)
+        return self.axes[name]
+
+    @contextlib.contextmanager
+    def _timed(self, kind: str, nbytes: int):
+        self.counts[kind] += 1
+        self.moved[kind] += nbytes
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[kind] += time.perf_counter() - t0
 
     # ---------------------------------------------------------- staging
     @property
@@ -254,8 +300,10 @@ def start_group(
             conns.append(parent)
             procs.append(p)
         device = torch.device(devices[0])
-        pg = _process_group(store_path, 0, size, backend, timeout_s)
+        store = dist.FileStore(store_path, size)
+        pg = _process_group(store, 0, size, backend, timeout_s)
         group = RankGroup(pg, 0, size, backend, device, timeout_s, kind)
+        group.store = store
         group._conns, group._procs = conns, procs
         for r, conn in enumerate(conns, start=1):
             _answer(conn, r, timeout_s, procs[r - 1], kind)  # "ready"
@@ -276,8 +324,10 @@ def _worker_main(rank, size, store_path, backend, device, timeout_s, conn, facto
     try:
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        pg = _process_group(store_path, rank, size, backend, timeout_s)
+        store = dist.FileStore(store_path, size)
+        pg = _process_group(store, rank, size, backend, timeout_s)
         group = RankGroup(pg, rank, size, backend, device, timeout_s, kind)
+        group.store = store
         target = factory(group=group, **kwargs)
         conn.send(("ok", "ready"))
     except BaseException:
@@ -301,23 +351,81 @@ def _worker_main(rank, size, store_path, backend, device, timeout_s, conn, facto
         close()
 
 
+# ------------------------------------------------------------ sub-groups
+def solo_group(parent: RankGroup) -> RankGroup:
+    """A group of one rank (an axis of size 1): every collective over it
+    returns its input."""
+    return RankGroup(None, 0, 1, parent.backend, parent.device, parent.timeout_s, parent.kind)
+
+
+def mesh_coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s coordinate on each axis of ``shape`` (axis name ->
+    size, in the mesh's order): the row-major reshape of the rank list,
+    as the JAX package's ``build_mesh`` reshapes its device list (the
+    last axis varies fastest)."""
+    out: Dict[str, int] = {}
+    for name in reversed(list(shape)):
+        out[name] = rank % shape[name]
+        rank //= shape[name]
+    return {name: out[name] for name in shape}
+
+
+def split_axes(group: RankGroup, shape: Dict[str, int]) -> Dict[str, RankGroup]:
+    """Give ``group`` (a mesh's whole group, ``group.size`` the product of
+    ``shape``'s sizes) one sub-group per axis: along axis a, the ranks
+    whose other coordinates are this rank's, renumbered in rank order.
+    Every rank of ``group`` calls it with the same ``shape`` (it is
+    collective): each sub-group is a process group on a prefix of the
+    group's store (``axis/<name>/<other coordinates>``), and every rank
+    builds its sub-groups in axis order, or gloo's rendezvous would wait
+    until the timeout. An axis of the whole group is the group itself;
+    an axis of size 1 a group of one rank. Sets ``group.axes`` and
+    ``group.coords`` and returns the axes."""
+    total = 1
+    for v in shape.values():
+        total *= int(v)
+    if total != group.size:
+        raise ValueError(f"mesh {shape} needs {total} ranks, the group has {group.size}")
+    mine = mesh_coords(shape, group.rank)
+    axes: Dict[str, RankGroup] = {}
+    for name, size in shape.items():
+        if size == group.size:
+            axes[name] = group
+            continue
+        if size == 1:
+            axes[name] = solo_group(group)
+            continue
+        others = tuple(c for a, c in mine.items() if a != name)
+        members = [r for r in range(group.size)
+                   if tuple(c for a, c in mesh_coords(shape, r).items() if a != name) == others]
+        prefix = f"axis/{name}/" + ".".join(map(str, others))
+        sub_rank = members.index(group.rank)
+        pg = _process_group(dist.PrefixStore(prefix, group.store), sub_rank, len(members),
+                            group.backend, group.timeout_s)
+        sub = RankGroup(pg, sub_rank, len(members), group.backend, group.device,
+                        group.timeout_s, group.kind)
+        sub.members = members
+        axes[name] = sub
+    group.axes, group.coords = axes, mine
+    return axes
+
+
 # ------------------------------------------------------------ collectives
 def all_reduce(t: torch.Tensor, group: RankGroup) -> torch.Tensor:
     """Sum ``t`` over every rank of ``group``, in place, and return it.
     Every rank gets the same sum, bit for bit. Gloo on a CUDA rank stages
     through a pinned host buffer (a device sync)."""
-    group.counts["all_reduce"] += 1
-    group.all_reduce_bytes += t.numel() * t.element_size()
-    t0 = time.perf_counter()
-    if group.host_staged:
-        buf = _staged_copy(group, t)
-        group.pg.allreduce([buf]).wait()
-        t.copy_(buf)
-    else:
-        if not t.is_contiguous():
-            raise ValueError("all_reduce needs a contiguous tensor")
-        group.pg.allreduce([t]).wait()
-    group.all_reduce_s += time.perf_counter() - t0
+    if group.size == 1:
+        return t
+    with group._timed("all_reduce", t.numel() * t.element_size()):
+        if group.host_staged:
+            buf = _staged_copy(group, t)
+            group.pg.allreduce([buf]).wait()
+            t.copy_(buf)
+        else:
+            if not t.is_contiguous():
+                raise ValueError("all_reduce needs a contiguous tensor")
+            group.pg.allreduce([t]).wait()
     return t
 
 
@@ -337,16 +445,18 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 def gather_to_root(t: torch.Tensor, group: RankGroup) -> Optional[List[torch.Tensor]]:
     """Every rank's ``t`` (the same shape and dtype on each) to rank 0:
     rank 0 gets the list in rank order, on its device; the others None."""
-    group.counts["gather"] += 1
+    if group.size == 1:
+        return [t]
     staged = group.backend == "gloo"
     src = _bytes(t.cpu() if staged else t)
     opts = dist.GatherOptions()
     opts.rootRank = 0
-    if group.rank == 0:
-        outs = [torch.empty_like(src) for _ in range(group.size)]
-        group.pg.gather([outs], [src], opts).wait()
-        return [o.view(t.dtype).view(t.shape).to(t.device) for o in outs]
-    group.pg.gather([], [src], opts).wait()
+    with group._timed("gather", src.numel()):
+        if group.rank == 0:
+            outs = [torch.empty_like(src) for _ in range(group.size)]
+            group.pg.gather([outs], [src], opts).wait()
+            return [o.view(t.dtype).view(t.shape).to(t.device) for o in outs]
+        group.pg.gather([], [src], opts).wait()
     return None
 
 
@@ -355,18 +465,20 @@ def scatter_from_root(parts: Optional[Sequence[torch.Tensor]], shape, dtype: tor
     """Rank 0's ``parts[r]`` to rank r (every part ``shape`` and
     ``dtype``); every rank returns its own part, on its device. The other
     ranks pass None for ``parts``."""
-    group.counts["scatter"] += 1
+    if group.size == 1:
+        return parts[0].to(device=group.device, dtype=dtype).reshape(tuple(shape))
     staged = group.backend == "gloo"
     dev = torch.device("cpu") if staged else group.device
     shape = tuple(shape)
     out = _bytes(torch.empty(shape, dtype=dtype, device=dev))
     opts = dist.ScatterOptions()
     opts.rootRank = 0
-    if group.rank == 0:
-        ins = [_bytes(p.to(device=dev, dtype=dtype)) for p in parts]
-        group.pg.scatter([out], [ins], opts).wait()
-    else:
-        group.pg.scatter([out], [], opts).wait()
+    with group._timed("scatter", out.numel()):
+        if group.rank == 0:
+            ins = [_bytes(p.to(device=dev, dtype=dtype)) for p in parts]
+            group.pg.scatter([out], [ins], opts).wait()
+        else:
+            group.pg.scatter([out], [], opts).wait()
     return out.view(dtype).view(shape).to(group.device)
 
 
@@ -375,7 +487,6 @@ def broadcast_from_root(t: Optional[torch.Tensor], shape, dtype: torch.dtype,
     """Rank 0's ``t`` to every rank (``shape`` and ``dtype`` given on
     each; the other ranks pass None for ``t``); every rank returns it on
     its device."""
-    group.counts["broadcast"] += 1
     staged = group.backend == "gloo"
     dev = torch.device("cpu") if staged else group.device
     shape = tuple(shape)
@@ -383,21 +494,56 @@ def broadcast_from_root(t: Optional[torch.Tensor], shape, dtype: torch.dtype,
         buf = _bytes(t.to(device=dev, dtype=dtype).contiguous())
     else:
         buf = _bytes(torch.empty(shape, dtype=dtype, device=dev))
+    if group.size == 1:
+        return buf.view(dtype).view(shape).to(group.device)
     opts = dist.BroadcastOptions()
     opts.rootRank = 0
-    group.pg.broadcast([buf], opts).wait()
+    with group._timed("broadcast", buf.numel()):
+        group.pg.broadcast([buf], opts).wait()
     return buf.view(dtype).view(shape).to(group.device)
 
 
 def all_gather_flat(t: torch.Tensor, group: RankGroup) -> List[torch.Tensor]:
-    """Every rank's 1-D ``t`` (the same length and dtype on each), in
-    rank order, on every rank's device."""
-    group.counts["all_gather"] += 1
+    """Every rank's ``t`` (one shape and dtype on all), in rank order, on
+    this rank's device: bytes through host memory on gloo."""
+    if group.size == 1:
+        return [t]
     staged = group.backend == "gloo"
     src = _bytes(t.cpu() if staged else t)
     outs = [torch.empty_like(src) for _ in range(group.size)]
-    group.pg.allgather([outs], [src]).wait()
-    return [o.view(t.dtype).to(group.device) for o in outs]
+    with group._timed("all_gather", src.numel()):
+        group.pg.allgather([outs], [src]).wait()
+    return [o.view(t.dtype).view(t.shape).to(group.device) for o in outs]
+
+
+def all_gather(t: torch.Tensor, group: RankGroup, dim: int) -> torch.Tensor:
+    """The ranks' ``t`` (one shape and dtype on all) concatenated along
+    ``dim`` in rank order: a tensor sharded on ``dim`` made whole."""
+    return torch.cat(all_gather_flat(t.contiguous(), group), dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, group: RankGroup, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``t``
+    (a new tensor). Over gloo the sum is one all-reduce of the whole
+    tensor, then the rank's block (the same bits as a reduce-scatter:
+    each element is the same sum of the same ranks' values)."""
+    if group.size == 1:
+        return t
+    full = t.contiguous().clone()
+    with group._timed("reduce_scatter", full.numel() * full.element_size()):
+        if group.host_staged:
+            buf = _staged_copy(group, full)
+            group.pg.allreduce([buf]).wait()
+            full.copy_(buf)
+        else:
+            group.pg.allreduce([full]).wait()
+    return _block(full, group, dim).contiguous()
+
+
+def _block(t: torch.Tensor, group: RankGroup, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` (a view)."""
+    b = t.shape[dim] // group.size
+    return t.narrow(dim, group.rank * b, b)
 
 
 def _by_dtype(tensors: Sequence[torch.Tensor]) -> Dict[torch.dtype, List[torch.Tensor]]:
@@ -432,6 +578,8 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], group: RankGroup,
     one in float32. ``average`` then divides by the group's size, in the
     same dtype. Every rank holds the same bits after it. Every rank must
     pass tensors of the same shapes, dtypes and order."""
+    if group.size == 1:
+        return
     for ts in _by_dtype(tensors).values():
         flat = _flat(ts)
         all_reduce(flat, group)
@@ -445,12 +593,15 @@ def broadcast_flat(tensors: Sequence[torch.Tensor], group: RankGroup) -> None:
     """Overwrite ``tensors`` on every rank with rank 0's, in place, with
     one broadcast per dtype (the same shapes, dtypes and order on every
     rank)."""
+    if group.size == 1:
+        return
     for dtype, ts in _by_dtype(tensors).items():
         n = sum(t.numel() for t in ts)
         flat = broadcast_from_root(_flat(ts) if group.rank == 0 else None, (n,), dtype, group)
         _unflat(flat, ts)
 
 
+# ------------------------------------------------- collectives with a backward
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -468,3 +619,93 @@ def all_reduce_sum(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
     """``x`` summed over the group, with a backward (a new tensor; the
     backward is the all-reduce of the output's gradient)."""
     return _AllReduceSum.apply(x, group)
+
+
+class _ReducePartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # each rank's partial reaches the sum once: its gradient is the
+        # sum's, which every rank holds whole
+        return g, None
+
+
+def reduce_partial(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """A partial sum made whole: the all-reduce of ``x`` over ``group``;
+    backward, the identity (layout rule "partial -> replicated")."""
+    return _ReducePartial.apply(x, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def copy_to_group(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """A replicated tensor fed to an op whose weight is sharded over
+    ``group``: the identity forward; backward, the all-reduce of the
+    gradient (each rank's is the part its shard of the weight gives)."""
+    return _CopyToGroup.apply(x, group)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+def gather_dim(x: torch.Tensor, group: RankGroup, dim: int) -> torch.Tensor:
+    """A tensor sharded on ``dim`` over ``group`` made whole (all-gather);
+    backward, the rank's block of the gradient (layout rule "sharded ->
+    replicated")."""
+    return _GatherDim.apply(x, group, dim)
+
+
+class _SliceDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def slice_dim(x: torch.Tensor, group: RankGroup, dim: int) -> torch.Tensor:
+    """A replicated tensor's block for this rank along ``dim``; backward,
+    the all-gather of the blocks' gradients (layout rule "replicated ->
+    sharded")."""
+    return _SliceDim.apply(x, group, dim)
+
+
+class _ReduceScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def reduce_scatter_dim(x: torch.Tensor, group: RankGroup, dim: int) -> torch.Tensor:
+    """A partial sum's block for this rank along ``dim``, summed over
+    ``group``; backward, the all-gather of the blocks' gradients (layout
+    rule "partial -> sharded")."""
+    return _ReduceScatterDim.apply(x, group, dim)

@@ -16,10 +16,18 @@ strategy's axes (the JAX package's error otherwise) and returns a
 collectives' transport. A mesh of one rank is the one device it names.
 A ``"data"`` axis of N > 1 ranks trains data-parallel
 (``runtime/data_parallel.py``): ``FFModel(config, mesh=
-data_parallel_mesh(2, ...))``. The mesh starts its group of ranks
+data_parallel_mesh(2, ...))``; a ``"model"`` axis, alone or with
+``"data"``, tensor-parallel (``runtime/tensor_parallel.py``): ``mesh=
+tensor_parallel_mesh(tp, dp, ...)``. Rank r's coordinates follow the JAX
+package's ``build_mesh``: its device list reshaped row-major to the
+axes' sizes, so with ``{"data": dp, "model": tp}`` rank r sits at
+``(r // tp, r % tp)``. The mesh starts its group of ranks
 (``parallel/distributed.py``) at the first model compiled on it, and
-every model compiled on it shares the group; :meth:`Mesh.close` stops
-it (a finalizer does it for a mesh never closed).
+every model compiled on it shares the group; every rank then builds its
+sub-group along each axis (:meth:`Mesh.group`: the data sub-group of the
+ranks that share its model coordinate, the model sub-group of the ranks
+that share its rows). :meth:`Mesh.close` stops it (a finalizer does it
+for a mesh never closed).
 
 The transport is explicit (:func:`transport`, the same rule for the
 training mesh and the engine's :func:`serving_mesh`): ``nccl`` by default
@@ -135,7 +143,9 @@ class Mesh:
     def group(self):
         """Rank 0's :class:`~.distributed.RankGroup` over the mesh's
         devices, started at the first call (the kernels are built here
-        first on a GPU, so no two ranks build them at once)."""
+        first on a GPU, so no two ranks build them at once), with every
+        rank's sub-group along each axis (``group.axis("data")``,
+        ``group.axis("model")``)."""
         if self._group is None:
             from ..runtime import data_parallel
             from . import distributed
@@ -144,9 +154,20 @@ class Mesh:
                 from ..ops.kernels._build import load_library
 
                 load_library()
-            self._group = distributed.start_group(
+            kind = "tensor-parallel" if MODEL_AXIS in self._shape else "data-parallel"
+            group = distributed.start_group(
                 self.devices, self.backend, data_parallel.rank_host, [{}] * (self.size - 1),
-                timeout_s=self.timeout_s, kind="data-parallel")
+                timeout_s=self.timeout_s, kind=kind)
+            try:
+                # every rank builds its sub-group along each axis, together
+                with group.lock:
+                    group.send("split_axes", self._shape)
+                    distributed.split_axes(group, self._shape)
+                    group.replies()
+            except BaseException:
+                group.close()
+                raise
+            self._group = group
         return self._group
 
     @property
@@ -200,6 +221,21 @@ def data_parallel_mesh(n: int, devices: Optional[Sequence] = None,
         raise ValueError(f"a data-parallel mesh needs n >= 1, got {n}")
     return build_mesh({DATA_AXIS: n}, gpus() if devices is None else devices, backend,
                       timeout_s)
+
+
+def tensor_parallel_mesh(tp: int, dp: int = 1, devices: Optional[Sequence] = None,
+                         backend: Optional[str] = None,
+                         timeout_s: Optional[float] = None) -> Mesh:
+    """A ``{"data": dp, "model": tp}`` training mesh (``megatron_strategy(
+    graph, dp, tp)``'s) over the first ``dp * tp`` of ``devices`` (default:
+    the GPUs of this process; never the CPU unless listed). Rank r sits
+    at data coordinate ``r // tp`` and model coordinate ``r % tp``, the
+    JAX package's row-major device order. Ranks sharing one card:
+    ``devices=["cuda:0"] * n, backend="gloo"``; CPU ranks: ``["cpu"] * n``."""
+    if tp < 1 or dp < 1:
+        raise ValueError(f"a tensor-parallel mesh needs tp, dp >= 1, got tp={tp}, dp={dp}")
+    return build_mesh({DATA_AXIS: dp, MODEL_AXIS: tp}, gpus() if devices is None else devices,
+                      backend, timeout_s)
 
 
 @dataclasses.dataclass(frozen=True)

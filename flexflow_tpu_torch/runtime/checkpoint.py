@@ -21,11 +21,15 @@ save, as in the JAX package. ``save_checkpoint(..., strategy=)`` writes
 the parallelization strategy beside the state as ``strategy.json`` (the
 JAX package's file and format) and :func:`load_strategy` reads it back.
 
-A data-parallel model (``runtime/data_parallel.py``) saves from rank 0,
-the caller's process, with its ZeRO-1 moments gathered whole first
-(``executor.full_opt_state()``), so the file is the one a single device
-writes after the same steps; a restore loads whole moments at any number
-of ranks, then every rank takes them (``executor.broadcast_state``).
+A checkpoint holds whole tensors. A data-parallel or tensor-parallel
+model (``runtime/data_parallel.py``, ``runtime/tensor_parallel.py``)
+saves from rank 0, the caller's process, with its shards and ZeRO-1
+moments gathered whole first (``executor.whole_params()``,
+``whole_state()``, ``full_opt_state()``), so the file is the one a
+single device writes after the same steps; a restore checks the file
+against the whole shapes (``executor.whole_specs()``) and loads it at
+any number of ranks and any mesh, every rank taking its part
+(``executor.load_whole``).
 """
 from __future__ import annotations
 
@@ -81,8 +85,8 @@ def save_checkpoint(path: str, executor, step: int = 0, strategy=None) -> None:
     os.makedirs(path, exist_ok=True)
     fwd = _canon_map(executor)
     tree = {
-        "params": _to_cpu(_rekey(executor.params, fwd)),
-        "state": _to_cpu(_rekey(executor.state, fwd)) or {},
+        "params": _to_cpu(_rekey(executor.whole_params(), fwd)),
+        "state": _to_cpu(_rekey(executor.whole_state(), fwd)) or {},
         "opt_state": _to_cpu(_opt_rekey(executor.full_opt_state(), fwd)) or {},
         "step": int(step),
     }
@@ -94,47 +98,47 @@ def save_checkpoint(path: str, executor, step: int = 0, strategy=None) -> None:
             f.write(strategy.to_json())
 
 
-def _restore_into(have: dict, saved: dict, what: str, pending: list) -> None:
-    """Check ``saved`` against ``have`` ({node key: {name: tensor}})
-    exactly, then queue the copies (nothing is written before every part
-    of the checkpoint has been checked)."""
+def _checked(have: dict, saved: dict, what: str) -> dict:
+    """``saved`` checked against ``have`` ({node key: {name: (shape,
+    dtype)}}) exactly: the same leaves, each a tensor of its shape and
+    dtype (nothing is written before every part of the checkpoint has
+    been checked)."""
     if set(saved) != set(have):
         raise ValueError(f"checkpoint {what} cover other layers than the model's")
     for key, ws in have.items():
         if set(saved[key]) != set(ws):
             raise ValueError(f"checkpoint {what} of {key}: {sorted(saved[key])}, "
                              f"expected {sorted(ws)}")
-        for name, cur in ws.items():
+        for name, (shape, dtype) in ws.items():
             src = saved[key][name]
-            if not isinstance(src, torch.Tensor) or src.shape != cur.shape \
-                    or src.dtype != cur.dtype:
+            if not isinstance(src, torch.Tensor) or tuple(src.shape) != tuple(shape) \
+                    or src.dtype != dtype:
                 raise ValueError(f"checkpoint {what} {key}.{name} does not match the model's")
-            pending.append((cur, src))
+    return saved
 
 
 def restore_checkpoint(path: str, executor) -> int:
-    """Restore into a compiled executor, in place; returns the saved step."""
+    """Restore into a compiled executor (every rank takes its part of the
+    whole tensors); returns the saved step."""
     path = os.path.abspath(path)
     saved = torch.load(os.path.join(path, _FILE), map_location="cpu", weights_only=True)
     rev = {v: k for k, v in _canon_map(executor).items()}
-    pending: list = []
-    _restore_into(executor.params, _rekey(saved["params"], rev), "params", pending)
-    _restore_into(executor.state or {}, _rekey(saved["state"], rev), "state", pending)
-    opt = executor.full_opt_state()
-    if opt is not None and saved["opt_state"]:
+    specs = executor.whole_specs()
+    params = _checked(specs["params"], _rekey(saved["params"], rev), "params")
+    state = _checked(specs["state"], _rekey(saved["state"], rev), "state")
+    opt = None
+    if executor.opt_state is not None and saved["opt_state"]:
         sopt = _opt_rekey(saved["opt_state"], rev)
+        opt = {"step": int(sopt["step"]), "lr": float(sopt["lr"])}
         for field in ("v", "m"):
-            if (opt.get(field) is None) != (sopt.get(field) is None):
+            have = executor.opt_state.get(field)
+            if (have is None) != (sopt.get(field) is None):
                 raise ValueError(f"checkpoint optimizer state {field!r} does not match the model's")
-            if opt.get(field) is not None:
-                _restore_into(opt[field], sopt[field], f"opt_state[{field!r}]", pending)
-    with torch.no_grad():
-        for cur, src in pending:
-            cur.copy_(src)
-    if opt is not None and saved["opt_state"]:
-        opt["step"] = executor.opt_state["step"] = int(saved["opt_state"]["step"])
-        executor.set_learning_rate(float(saved["opt_state"]["lr"]))
-    executor.broadcast_state(opt)
+            if have is not None:
+                mspecs = {k: {n: (shape, have[k][n].dtype) for n, (shape, _) in g.items()}
+                          for k, g in specs["params"].items()}
+                opt[field] = _checked(mspecs, sopt[field], f"opt_state[{field!r}]")
+    executor.load_whole(params, state, opt)
     return int(saved["step"])
 
 

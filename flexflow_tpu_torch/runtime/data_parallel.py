@@ -6,8 +6,8 @@ data parallelism: ``data_parallel_strategy`` over a ``"data"`` mesh axis,
 :class:`DataParallelExecutor` on rank 0, in the caller's process, and
 one on each worker rank of the mesh's group (``parallel/distributed.py``),
 built from rank 0's graph (pickled, guids kept), optimizer, loss, metrics
-and outputs; every rank then takes rank 0's initial parameters
-(:meth:`DataParallelExecutor.broadcast_state`). Each rank holds a full
+and outputs; every rank draws its initial parameters from the model's
+seed, as rank 0 did, so they are rank 0's. Each rank holds a full
 replica and runs the one-device executor's step, its kernels included,
 on its rows of the global batch. Every step gives what JAX's
 data-parallel step gives, the step on the GLOBAL batch:
@@ -56,6 +56,13 @@ data-parallel step gives, the step on the GLOBAL batch:
   a step then sends each rank only its window's place and keys.
 * **Failures.** Every collective and every wait carries the group's
   timeout: a rank that dies makes the step raise on rank 0.
+
+* **A mesh with a model axis.** ``runtime/tensor_parallel.py`` extends
+  this executor: the rows and the ZeRO-1 slices then follow a rank's
+  data coordinate, the gradients reduce over its data sub-group
+  (:attr:`DataParallelExecutor.dgroup`, the whole group on a
+  data-parallel mesh), and the answers merge from one rank of each block
+  of rows (``_row_ranks``).
 
 MoE graphs refuse N > 1 (``ops/moe_ops.py::refuse_data_parallel``).
 """
@@ -163,11 +170,16 @@ def rank_plan(graph: PCGraph, batch: int, ranks: int) -> RankPlan:
     return RankPlan(local, split, nodes, rows, input_rows)
 
 
-def zero_dims(params: Params, ranks: int) -> Dict[str, Dict[str, Optional[int]]]:
-    """The JAX executor's ZeRO-1 rule for replicated parameters: each
-    leaf's moments shard on its first dimension divisible by ``ranks``
-    (None: the leaf has none, its moments stay whole)."""
-    return {k: {n: next((i for i, s in enumerate(p.shape) if s % ranks == 0), None)
+def zero_dims(params: Params, ranks: int,
+              taken: Optional[Dict[str, Dict[str, Optional[int]]]] = None
+              ) -> Dict[str, Dict[str, Optional[int]]]:
+    """The JAX executor's ZeRO-1 rule: each leaf's moments shard on its
+    first dimension divisible by ``ranks`` that the leaf's own sharding
+    leaves free (``taken[k][n]``: the dim the ``model`` axis shards, or
+    None), None when it has none (its moments stay whole)."""
+    taken = taken or {}
+    return {k: {n: next((i for i, s in enumerate(p.shape)
+                         if s % ranks == 0 and i != taken.get(k, {}).get(n)), None)
                 for n, p in g.items()} for k, g in params.items()}
 
 
@@ -247,6 +259,7 @@ class DataParallelExecutor(Executor):
     every rank."""
 
     zero: bool = False
+    init_seed: int = 0  # the model's seed: every rank draws the same whole weights
     # steps a window ran eagerly on this rank (no graph captures here)
     eager_window_steps: int = 0
 
@@ -261,17 +274,42 @@ class DataParallelExecutor(Executor):
     # --------------------------------------------------------- setup
     @property
     def rank(self) -> int:
+        """This rank in the whole group."""
         return self.group.rank
 
     @property
     def ranks(self) -> int:
         return self.group.size
 
+    @property
+    def dgroup(self):
+        """The ranks that share this rank's coordinates off the ``data``
+        axis (the whole group on a data-parallel mesh): the gradients'
+        all-reduce, ZeRO-1's slices and the batch statistics run over it."""
+        return self.group.axis("data")
+
+    @property
+    def data_rank(self) -> int:
+        return self.dgroup.rank
+
+    @property
+    def data_ranks(self) -> int:
+        return self.dgroup.size
+
+    def _data_coord(self, r: int) -> int:
+        """Rank ``r``'s coordinate on the ``data`` axis (its block of rows)."""
+        return r
+
+    def _row_ranks(self) -> List[int]:
+        """One rank per block of rows, in row order: the ranks whose
+        answers are merged (every rank on a data-parallel mesh)."""
+        return list(range(self.ranks))
+
     def plan(self, batch: int) -> RankPlan:
         """The rank plan of a ``batch``-row step (made once per batch)."""
         p = self._plans.get(batch)
         if p is None:
-            p = self._plans[batch] = rank_plan(self.graph, batch, self.ranks)
+            p = self._plans[batch] = rank_plan(self.graph, batch, self.data_ranks)
         return p
 
     def initialize(self, generator: torch.Generator) -> "DataParallelExecutor":
@@ -279,11 +317,15 @@ class DataParallelExecutor(Executor):
         self._data = None
         opt = self.opt_state
         if self.zero and opt is not None and any(opt.get(f) is not None for f in ("m", "v")):
-            self._zero_dims = zero_dims(self.params, self.ranks)
+            self._zero_dims = zero_dims(self.params, self.data_ranks, self._model_dims())
             # the moments of this rank's slices only
             with torch.no_grad():
                 self.opt_state = self.optimizer.init_state(self._slices(self.params))
         return self
+
+    def _model_dims(self) -> Optional[Dict[str, Dict[str, Optional[int]]]]:
+        """Each leaf's dim sharded on the ``model`` axis (None: none)."""
+        return None
 
     def _register_step_prediction(self) -> None:
         if self.rank == 0:  # the ledger of the caller's process
@@ -294,17 +336,18 @@ class DataParallelExecutor(Executor):
 
     def worker_spec(self) -> Dict[str, Any]:
         """What a worker rank builds its executor from."""
-        return dict(model_id=self._model_id, graph=self.graph, loss_type=self.loss_type,
+        return dict(cls=type(self), model_id=self._model_id, init_seed=self.init_seed,
+                    graph=self.graph, loss_type=self.loss_type,
                     metric_types=self.metric_types, optimizer=self.optimizer,
                     outputs=self.outputs, backend=self.backend, remat_blocks=self.remat_blocks,
                     grad_accum_steps=self.grad_accum_steps, seq_length=self.seq_length,
                     zero=self.zero)
 
     def start_ranks(self) -> None:
-        """Rank 0: build this executor on every worker rank, then give
-        every rank rank 0's parameters, state and optimizer state."""
+        """Rank 0: build this executor on every worker rank (each draws
+        the whole weights from the model's seed and keeps its part:
+        nothing to send)."""
         self.group.call("build", self.worker_spec())
-        self.broadcast_state()
 
     def close(self) -> None:
         """Rank 0: drop this executor on the worker ranks (the group
@@ -351,16 +394,20 @@ class DataParallelExecutor(Executor):
         of the step's tensors (``_drive`` puts the workers' on the wire)."""
         plan = self.plan(batch)
         label_rows = plan.rows[self.outputs[-1][0]]
+        n = self.data_ranks
         out = []
         for r in range(self.ranks):
-            ins = [_part(x, plan.input_rows.get(i, False), r, self.ranks, dim)
+            d = self._data_coord(r)
+            ins = [_part(x, plan.input_rows.get(i, False), d, n, dim)
                    for i, x in enumerate(inputs)]
-            lab = None if label is None else _part(label, label_rows, r, self.ranks, dim)
+            lab = None if label is None else _part(label, label_rows, d, n, dim)
             out.append((ins, lab))
         return out
 
     def _merged(self, per_rank: List[Dict[str, torch.Tensor]], batch: int):
-        return merge_rank_metrics(per_rank, batch) if self.plan(batch).split else per_rank[0]
+        if not self.plan(batch).split:
+            return per_rank[0]
+        return merge_rank_metrics([per_rank[r] for r in self._row_ranks()], batch)
 
     def _key_words(self, key) -> Optional[torch.Tensor]:
         return None if key is None else torch.stack([key[0], key[1]]).cpu()
@@ -407,7 +454,7 @@ class DataParallelExecutor(Executor):
                           [(p[0], batch) for p in parts[1:]])
         plan = self.plan(batch)
         # each output in row order: the ranks' blocks, or rank 0's whole
-        return [torch.cat([outs[j] for outs in res]) if plan.rows[g] else res[0][j]
+        return [torch.cat([res[r][j] for r in self._row_ranks()]) if plan.rows[g] else res[0][j]
                 for j, (g, _) in enumerate(self.outputs)]
 
     @torch.no_grad()
@@ -442,7 +489,7 @@ class DataParallelExecutor(Executor):
         or a broadcast of the whole when the ranks run whole batches);
         :meth:`fit_window` then steps through them."""
         plan = self.plan(batch)
-        n = self.ranks
+        n = self.data_ranks
         tensors = list(inputs) + [label]
         flags = [plan.input_rows.get(i, False) for i in range(len(inputs))] + [
             plan.rows[self.outputs[-1][0]]]
@@ -453,14 +500,15 @@ class DataParallelExecutor(Executor):
             if rows:
                 b = batch // n
                 blocks = t.reshape((steps, n, b) + rest)
-                parts = [blocks[:, r].reshape((steps * b,) + rest) for r in range(n)]
+                blocks = [blocks[:, d].reshape((steps * b,) + rest) for d in range(n)]
+                parts = [blocks[self._data_coord(r)] for r in range(self.ranks)]
                 metas.append(((steps * b,) + rest, t.dtype, True))
                 mine.append(parts)
             else:
                 metas.append((tuple(t.shape), t.dtype, False))
                 mine.append(t)
         self._drive("_rank_load_rows", (metas, batch, mine),
-                    [(metas, batch, None)] * (n - 1))
+                    [(metas, batch, None)] * (self.ranks - 1))
 
     def _rank_load_rows(self, metas, batch: int, tensors=None) -> None:
         got = []
@@ -528,10 +576,10 @@ class DataParallelExecutor(Executor):
     def _sync_grads(self, grads: Params) -> None:
         leaves = [grads[k][n] for k, n, _ in _leaves(self.params)]
         if self._plan.split:
-            distributed.all_reduce_flat(leaves, self.group, average=True)
+            distributed.all_reduce_flat(leaves, self.dgroup, average=True)
         else:
             # every rank ran the whole batch: rank 0's gradients for all
-            distributed.broadcast_flat(leaves, self.group)
+            distributed.broadcast_flat(leaves, self.dgroup)
 
     def _slices(self, tree: Params) -> Params:
         """This rank's ZeRO-1 slice of each leaf of a params-shaped tree
@@ -541,19 +589,20 @@ class DataParallelExecutor(Executor):
             out[k] = {}
             for n, t in g.items():
                 d = self._zero_dims[k][n]
-                out[k][n] = t if d is None else _part(t, True, self.rank, self.ranks, d)
+                out[k][n] = t if d is None else _part(t, True, self.data_rank, self.data_ranks, d)
         return out
 
-    def _all_gather_slices(self, pairs) -> None:
+    def _all_gather_slices(self, pairs, group=None) -> None:
         """Fill every rank's slice of each ``(whole tensor, dim, this
-        rank's slice)`` from the rank that owns it: one flat all-gather
-        per dtype."""
+        rank's slice)`` from the rank of ``group`` (default: the data
+        axis's) that owns it: one flat all-gather per dtype."""
+        group = self.dgroup if group is None else group
         by_dtype: Dict[torch.dtype, list] = {}
         for whole, d, part in pairs:
             by_dtype.setdefault(part.dtype, []).append((whole, d, part))
         for items in by_dtype.values():
             flat = torch.cat([part.reshape(-1) for _, _, part in items])
-            for q, got in enumerate(distributed.all_gather_flat(flat, self.group)):
+            for q, got in enumerate(distributed.all_gather_flat(flat, group)):
                 o = 0
                 for whole, d, part in items:
                     k = part.numel()
@@ -567,7 +616,7 @@ class DataParallelExecutor(Executor):
         with torch.no_grad():
             self.optimizer.update(self._slices(self.params), self._slices(grads), self.opt_state)
             self._all_gather_slices([
-                (p, self._zero_dims[k][n], _part(p, True, self.rank, self.ranks,
+                (p, self._zero_dims[k][n], _part(p, True, self.data_rank, self.data_ranks,
                                                    self._zero_dims[k][n]))
                 for k, n, p in _leaves(self.params) if self._zero_dims[k][n] is not None])
 
@@ -579,8 +628,14 @@ class DataParallelExecutor(Executor):
             return self.opt_state
         return self._same("_rank_whole_moments")[0]
 
-    @torch.no_grad()
     def _rank_whole_moments(self) -> Optional[dict]:
+        out = self._local_moments()
+        return out if self.rank == 0 else None
+
+    @torch.no_grad()
+    def _local_moments(self) -> dict:
+        """The optimizer state with this rank's ZeRO-1 slices gathered over
+        the data axis (every rank's)."""
         out = dict(self.opt_state)
         for field in ("m", "v"):
             tree = self.opt_state.get(field)
@@ -593,46 +648,48 @@ class DataParallelExecutor(Executor):
                                      for k, n, _ in _leaves(tree)
                                      if self._zero_dims[k][n] is not None])
             out[field] = whole
-        return out if self.rank == 0 else None
+        return out
 
-    def broadcast_state(self, opt_state: Optional[dict] = None) -> None:
-        """Rank 0: every rank takes rank 0's parameters, state and
-        optimizer state; ``opt_state`` (whole moments, as
-        :meth:`full_opt_state` gives) loads into every rank's slices."""
+    def load_whole(self, params: Optional[Params] = None, state: Optional[Params] = None,
+                   opt_state: Optional[dict] = None) -> None:
+        """Rank 0: overwrite leaves with whole tensors (as
+        :meth:`Executor.load_whole` takes them): one broadcast per dtype
+        to every rank, which keeps its part (``_local_weight``) and its
+        ZeRO-1 slices of the moments."""
+        items = []
+        for part, tree in (("params", params), ("state", state)):
+            items += [(part, k, n, v) for k, ws in (tree or {}).items() for n, v in ws.items()]
         step = lr = None
-        if self.opt_state is not None:
-            if opt_state is None and self._zero_dims is not None:
-                opt_state = self.full_opt_state()
-            src = opt_state if opt_state is not None else self.opt_state
-            step, lr = int(src["step"]), float(src["lr"])
-        whole = None if self._zero_dims is None else opt_state
-        self._drive("_rank_load_state", (whole, step, lr),
-                    [(None, step, lr)] * (self.ranks - 1))
+        if opt_state is not None:
+            for field in ("m", "v"):
+                items += [(field, k, n, v) for k, ws in (opt_state.get(field) or {}).items()
+                          for n, v in ws.items()]
+            step, lr = int(opt_state["step"]), float(opt_state["lr"])
+        meta = [(part, k, n, tuple(v.shape), str(v.dtype)[6:]) for part, k, n, v in items]
+        tensors = [v for *_, v in items]
+        self._drive("_rank_load_whole", (meta, tensors, step, lr),
+                    [(meta, None, step, lr)] * (self.ranks - 1))
 
     @torch.no_grad()
-    def _rank_load_state(self, whole: Optional[dict], step, lr) -> None:
-        g = self.group
-        distributed.broadcast_flat(
-            [t for tree in (self.params, self.state) for _, _, t in _leaves(tree)], g)
-        if self.opt_state is None:
-            return
-        for field in ("m", "v"):
-            tree = self.opt_state.get(field)
-            if tree is None:
-                continue
-            if self._zero_dims is None:
-                distributed.broadcast_flat([t for _, _, t in _leaves(tree)], g)
-                continue
-            src = whole[field] if self.rank == 0 else {
-                k: {n: torch.empty(self.params[k][n].shape, dtype=s.dtype, device=s.device)
-                    for n, s in gr.items()} for k, gr in tree.items()}
-            distributed.broadcast_flat([t for _, _, t in _leaves(src)], g)
-            for k, n, s in _leaves(tree):
-                d = self._zero_dims[k][n]
-                s.copy_(src[k][n] if d is None else _part(src[k][n], True, self.rank,
-                                                              self.ranks, d))
-        self.opt_state["step"] = step
-        Executor.set_learning_rate(self, lr)
+    def _rank_load_whole(self, meta, tensors, step, lr) -> None:
+        if tensors is None:
+            tensors = [torch.empty(shape, dtype=getattr(torch, dt), device=self.device)
+                       for *_, shape, dt in meta]
+        else:
+            tensors = [t.to(self.device).contiguous() for t in tensors]
+        distributed.broadcast_flat(tensors, self.group)
+        for (part, k, n, _, _), t in zip(meta, tensors):
+            block = self._local_weight(k, n, t)
+            if part in ("m", "v"):
+                z = None if self._zero_dims is None else self._zero_dims[k][n]
+                if z is not None:
+                    block = _part(block, True, self.data_rank, self.data_ranks, z)
+                self.opt_state[part][k][n].copy_(block)
+            else:
+                getattr(self, part)[k][n].copy_(block)
+        if step is not None:
+            self.opt_state["step"] = step
+            Executor.set_learning_rate(self, lr)
 
     # ------------------------------------------------------- per rank
     def rank_info(self) -> List[Dict[str, Any]]:
@@ -642,14 +699,21 @@ class DataParallelExecutor(Executor):
     def _rank_info(self) -> Dict[str, Any]:
         from ..ops.kernels import flash_attention as fa
 
-        info = {"rank": self.rank, "device": str(self.device),
+        groups = {id(g): g for g in [self.group, *self.group.axes.values()]}.values()
+        info = {"rank": self.rank, "device": str(self.device), "coords": dict(self.group.coords),
                 "flash_launches": dict(fa.LAUNCHES),
                 "flash_launches_by_body": dict(getattr(fa, "LAUNCHES_BY_BODY", {})),
-                "collectives": dict(self.group.counts),
-                "all_reduce_s": self.group.all_reduce_s,
-                "all_reduce_bytes": self.group.all_reduce_bytes,
+                "flash_launches_by_heads": dict(fa.LAUNCHES_BY_HEADS),
+                # every group of this rank together: the whole group's and
+                # the axes' sub-groups'
+                "collectives": {k: sum(g.counts[k] for g in groups) for k in distributed.KINDS},
+                "collective_s": {k: sum(g.seconds[k] for g in groups) for k in distributed.KINDS},
+                "collective_bytes": {k: sum(g.moved[k] for g in groups)
+                                     for k in distributed.KINDS},
                 "eager_window_steps": self.eager_window_steps,
                 "graph_captures": self.graph_captures,
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for _, _, t in _leaves(self.params)),
                 "moment_bytes": sum(t.numel() * t.element_size()
                                     for f in ("m", "v") if self.opt_state is not None
                                     and self.opt_state.get(f) is not None
@@ -668,10 +732,7 @@ class DataParallelExecutor(Executor):
         from ..ops.kernels import flash_attention as fa
 
         fa.reset_launch_counts()
-        for k in self.group.counts:
-            self.group.counts[k] = 0
-        self.group.all_reduce_s = 0.0
-        self.group.all_reduce_bytes = 0
+        self.group.reset_counters()
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
 
@@ -697,13 +758,19 @@ class _RankHost:
         self.group = group
         self.executors: Dict[int, DataParallelExecutor] = {}
 
+    def split_axes(self, shape: Dict[str, int]) -> None:
+        """Build this rank's sub-group along each axis of the mesh (with
+        every other rank: ``Mesh.group``)."""
+        distributed.split_axes(self.group, shape)
+
     def build(self, spec: Dict[str, Any]) -> None:
         spec = dict(spec)
-        mid = spec.pop("model_id")
-        ex = DataParallelExecutor(device=self.group.device, group=self.group, **spec)
+        cls, mid = spec.pop("cls"), spec.pop("model_id")
+        ex = cls(device=self.group.device, group=self.group, **spec)
         ex._model_id = mid
-        # the weights drawn here are replaced by rank 0's (broadcast_state)
-        ex.initialize(torch.Generator().manual_seed(0))
+        # the whole weights rank 0 drew, from the model's seed; the rank
+        # keeps its part
+        ex.initialize(torch.Generator().manual_seed(ex.init_seed))
         self.executors[mid] = ex
 
     def drop(self, model_id: int) -> None:

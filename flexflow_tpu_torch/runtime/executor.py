@@ -208,7 +208,8 @@ class Executor:
             if node.name:
                 self._by_name[node.name] = node_key(node)
             for w in wspecs:
-                arr = initializers.get_initializer(w.initializer)(generator, w.spec).to(self.device)
+                arr = initializers.get_initializer(w.initializer)(generator, w.spec)
+                arr = self._local_weight(node_key(node), w.name, arr).to(self.device)
                 if w.trainable:
                     params.setdefault(node_key(node), {})[w.name] = arr.requires_grad_(True)
                 else:
@@ -222,6 +223,12 @@ class Executor:
             self._register_step_prediction()
         self._graphs, self._graph_leaves = {}, None
         return self
+
+    def _local_weight(self, key: str, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """The part of weight ``name`` of node ``key`` this executor holds,
+        from the whole one (drawn at initialization, or loaded): all of it
+        on one device (a tensor-parallel rank keeps its shard)."""
+        return whole
 
     # ------------------------------------------------ programs and truth
     def _register_step_prediction(self) -> None:
@@ -371,8 +378,7 @@ class Executor:
         """Lower ``nodes`` in order into ``values`` (seeded with their
         inputs); returns the context with the state updates and aux
         losses they wrote."""
-        ctx = LowerCtx(training=training, rng=rng, backend=self.backend,
-                       seq_length=self.seq_length, group=self.group, masks=self._mask_sink)
+        ctx = self._lower_ctx(training, rng)
         plan = self._plan
         for node in nodes:
             if plan is not None:
@@ -380,13 +386,27 @@ class Executor:
                 node = plan.nodes.get(node.guid, node)
                 ctx.split = plan.rows[node.guid]
             key = node_key(node)
-            node_inputs = [values[(e.src, e.src_idx)] for e in self.graph.in_edges(node)]
-            weights = {**params.get(key, {}), **state.get(key, {})}
             ctx.node_guid = node.guid
+            node_inputs = self._node_inputs(node, values, ctx)
+            weights = {**params.get(key, {}), **state.get(key, {})}
             outs = get_op_def(node.op_type).lower(node.params, node_inputs, weights, ctx)
-            for i, o in enumerate(outs):
-                values[(node.guid, i)] = o
+            self._store_outputs(node, outs, values)
         return ctx
+
+    def _lower_ctx(self, training: bool, rng) -> LowerCtx:
+        return LowerCtx(training=training, rng=rng, backend=self.backend,
+                        seq_length=self.seq_length, group=self.group, masks=self._mask_sink)
+
+    def _node_inputs(self, node: Node, values, ctx: LowerCtx) -> List[torch.Tensor]:
+        """The values ``node`` reads, in its input order (a tensor-parallel
+        rank first moves each into the layout the node takes)."""
+        return [values[(e.src, e.src_idx)] for e in self.graph.in_edges(node)]
+
+    def _store_outputs(self, node: Node, outs, values) -> None:
+        """Record ``node``'s outputs (a tensor-parallel rank first moves
+        each into the layout its output spec names)."""
+        for i, o in enumerate(outs):
+            values[(node.guid, i)] = o
 
     def _seed_inputs(self, nodes, inputs) -> Dict[Tuple[int, int], torch.Tensor]:
         return {(n.guid, 0): inputs[n.params.input_index]
@@ -717,15 +737,49 @@ class Executor:
             self._mask_sink = None
 
     # ------------------------------------------------ whole training state
+    def whole_specs(self) -> Dict[str, Dict[str, Dict[str, tuple]]]:
+        """``{"params": ..., "state": ...}``: each leaf's whole shape and
+        dtype by node key and weight name (a tensor-parallel rank holds
+        shards of some of them)."""
+        return {part: {k: {n: (tuple(t.shape), t.dtype) for n, t in g.items()}
+                       for k, g in tree.items()}
+                for part, tree in (("params", self.params), ("state", self.state or {}))}
+
+    def whole_params(self) -> Params:
+        """Every parameter, whole (on one device, ``params`` itself)."""
+        return self.params
+
+    def whole_state(self) -> Params:
+        """Every state entry, whole (on one device, ``state`` itself)."""
+        return self.state
+
+    def whole_weight(self, key: str, name: str) -> torch.Tensor:
+        """One weight or state entry of node ``key``, whole."""
+        return {**self.params.get(key, {}), **self.state.get(key, {})}[name]
+
     def full_opt_state(self) -> Optional[dict]:
         """The optimizer state with every moment whole (a checkpoint's and
         ``set_weights``'): on one device, ``opt_state`` itself."""
         return self.opt_state
 
-    def broadcast_state(self, opt_state: Optional[dict] = None) -> None:
-        """Make every rank hold this rank's parameters, state and
-        optimizer state (``opt_state``: whole moments to load, else the
-        current ones): nothing to do on one device."""
+    @torch.no_grad()
+    def load_whole(self, params: Optional[Params] = None, state: Optional[Params] = None,
+                   opt_state: Optional[dict] = None) -> None:
+        """Overwrite leaves with whole tensors of their shapes and dtypes:
+        ``params`` and ``state`` as ``{node key: {name: tensor}}`` (any
+        subset of the leaves), ``opt_state`` as :meth:`full_opt_state`
+        gives it (the given moments, the step and the learning rate)."""
+        for tree, given in ((self.params, params), (self.state, state)):
+            for k, ws in (given or {}).items():
+                for n, v in ws.items():
+                    tree[k][n].copy_(v)
+        if opt_state is not None:
+            for field in ("m", "v"):
+                for k, ws in (opt_state.get(field) or {}).items():
+                    for n, v in ws.items():
+                        self.opt_state[field][k][n].copy_(v)
+            self.opt_state["step"] = int(opt_state["step"])
+            self.set_learning_rate(float(opt_state["lr"]))
 
 
 def _merge_microbatch_metrics(mets_all: List[Dict[str, torch.Tensor]], batch: int):

@@ -1731,3 +1731,95 @@ def test_cuda_data_parallel_training_over_nccl(cuda):
         two.close()
     finally:
         mesh.close()
+
+
+def _tp_pair(mesh, cuda, dp=1, seed=3):
+    """The encoder of ``_dp_pair`` (2 heads of 64) on one card and under
+    ``megatron_strategy(dp, tp=2)`` over ``mesh``'s ranks, from one graph
+    and seed."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.core.types import LossType
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.parallel.strategy import megatron_strategy
+    from flexflow_tpu_torch.runtime import SGDOptimizer
+
+    cfg = TransformerConfig(num_layers=2, hidden_size=128, num_heads=2, ff_size=256,
+                            seq_length=64)
+    one = build_transformer(FFConfig(batch_size=8, seed=seed), cfg, device=cuda)
+    one.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR)
+    two = FFModel.from_graph(one.graph, FFConfig(batch_size=8, seed=seed), mesh=mesh)
+    two.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=LossType.MEAN_SQUARED_ERROR,
+                outputs=two.output_tensors([(t.node.guid, t.idx) for t in one._outputs]),
+                strategy=megatron_strategy(one.graph, dp=dp, tp=2))
+    return cfg, one, two
+
+
+def _tp_steps(cfg, one, two, steps=2):
+    """``steps`` steps of both models on the same batches: losses rtol
+    1e-5, the gathered parameters within 1e-3 of the steps' largest
+    update (the training phase's gate: float32 in another summation
+    order), the ranks of one shard bit-identical, each rank's flash
+    launches on its one head."""
+    from flexflow_tpu_torch.generation import prng
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    xs = torch.randn(steps, 8, cfg.seq_length, cfg.hidden_size, generator=gen, device="cuda")
+    ys = torch.randn(steps, 8, cfg.seq_length, cfg.hidden_size, generator=gen, device="cuda")
+    before = {k: {n: t.detach().clone() for n, t in g.items()}
+              for k, g in one.executor.params.items()}
+    want = [float(one.executor.train_batch([xs[s]], ys[s], rng=prng.key(s))["loss"])
+            for s in range(steps)]
+    two.executor.reset_rank_counters()
+    got = [float(two.executor.train_batch([xs[s]], ys[s], rng=prng.key(s))["loss"])
+           for s in range(steps)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    whole = two.executor.whole_params()
+    with torch.no_grad():
+        moved = max(float((t - before[k][n]).abs().max())
+                    for k, g in one.executor.params.items() for n, t in g.items())
+        for k, g in one.executor.params.items():
+            for n, t in g.items():
+                assert float((whole[k][n] - t).abs().max()) <= 1e-3 * moved, (k, n)
+    info = two.executor.rank_info()
+    for m in {i["model_rank"] for i in info}:
+        assert len({i["params_sha"] for i in info if i["model_rank"] == m}) == 1
+    assert len({i["replicated_sha"] for i in info}) == 1
+    for i in info:
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert i["flash_launches"][k] == cfg.num_layers * steps
+            assert i["flash_launches_by_heads"][f"{k} H=1"] == cfg.num_layers * steps
+    return info
+
+
+def test_cuda_tensor_parallel_two_ranks_share_one_card_over_gloo(cuda):
+    """``megatron_strategy(dp=1, tp=2)`` on two ranks sharing cuda:0 over
+    gloo: the one-card run's losses and parameters, each rank's flash
+    kernels on its one head of two."""
+    from flexflow_tpu_torch.parallel.mesh import tensor_parallel_mesh
+
+    mesh = tensor_parallel_mesh(2, devices=["cuda:0", "cuda:0"], backend="gloo")
+    try:
+        cfg, one, two = _tp_pair(mesh, cuda)
+        _tp_steps(cfg, one, two)
+        two.close()
+    finally:
+        mesh.close()
+
+
+def test_cuda_tensor_parallel_training_over_nccl(cuda):
+    """``megatron_strategy(dp=1, tp=2)`` on cuda:0 and cuda:1 over NCCL.
+    Needs two GPUs."""
+    from flexflow_tpu_torch.parallel.mesh import tensor_parallel_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs (NCCL cannot put two ranks of one communicator on "
+                    "one device)")
+    mesh = tensor_parallel_mesh(2)
+    assert mesh.backend == "nccl"
+    try:
+        cfg, one, two = _tp_pair(mesh, cuda)
+        _tp_steps(cfg, one, two)
+        two.close()
+    finally:
+        mesh.close()

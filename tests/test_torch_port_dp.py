@@ -43,7 +43,7 @@ from flexflow_tpu_torch.ops.base import LowerCtx
 from flexflow_tpu_torch.ops.softmax import dropout
 from flexflow_tpu_torch.parallel.mesh import build_mesh, data_parallel_mesh
 from flexflow_tpu_torch.parallel.propagation import infer_all_specs
-from flexflow_tpu_torch.parallel.strategy import megatron_strategy
+from flexflow_tpu_torch.parallel.strategy import context_parallel_strategy, megatron_strategy
 from flexflow_tpu_torch.runtime import AdamOptimizer, SGDOptimizer
 from flexflow_tpu_torch.runtime.checkpoint import restore_checkpoint
 from torch_port_cnn import carry, cnn_data, named, small_cnn
@@ -481,18 +481,18 @@ def _tiny(config, **kw):
     return m
 
 
-def test_model_axis_raises_after_the_device_count_check(mesh):
-    """A strategy with a ``model`` axis: on one device the JAX package's
-    count error comes first, word for word; on two ranks the axis raises,
-    naming the later part of ROADMAP queue 1, item 5."""
+def test_seq_axis_raises_after_the_device_count_check(mesh):
+    """A strategy with an axis the port does not train: on one device the
+    JAX package's count error comes first, word for word; on two ranks a
+    ``seq`` axis raises, naming ROADMAP queue 1 item 5b."""
     m = _tiny(FFConfig(batch_size=8), device="cpu")
     with pytest.raises(ValueError, match="^mesh needs 2 devices, have 1$"):
         m.compile(optimizer=SGDOptimizer(lr=0.1), loss_type=LossType.MEAN_SQUARED_ERROR,
                   strategy=megatron_strategy(m.graph, dp=1, tp=2))
     m = _tiny(FFConfig(batch_size=8), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="'model' axis.*item 5"):
+    with pytest.raises(NotImplementedError, match="'seq' axis.*item 5b"):
         m.compile(optimizer=SGDOptimizer(lr=0.1), loss_type=LossType.MEAN_SQUARED_ERROR,
-                  strategy=megatron_strategy(m.graph, dp=1, tp=2))
+                  strategy=context_parallel_strategy(m.graph, dp=1, cp=2))
     # workers_per_node=2 on one listed device: the count error
     m = _tiny(FFConfig(batch_size=8, workers_per_node=2), device="cpu")
     with pytest.raises(ValueError, match="^mesh needs 2 devices, have 1$"):
